@@ -8,26 +8,38 @@ the kernels are built for sm_90a) and ``nvcc``. It
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``mxnet_tpu_torch/kernels/
-   csrc`` and prints the build time
-   and the compiler's register/spill report;
-3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it and a few more (causal and not, a
-   ``kv_len`` mask, D = 128, float32 and bfloat16), and times the kernel,
-   the plain version and one library call (SDPA, a yardstick only: the
-   port never calls it) at the prefill shape;
+   csrc`` (one ``nvcc`` per source, all started together) and prints the
+   build time and the compiler's register/spill report;
+3. holds the flash-attention forward (B5) against its plain PyTorch
+   version on the card, at the shapes the serving and training paths give
+   it and a few more (causal and not, a ``kv_len`` mask, D = 128, float32
+   and bfloat16), and times the kernel, the plain version and one library
+   call (SDPA, a yardstick only: the port never calls it);
 4. drives the serving path at full width — the 12-layer, d_model 512
    transformer (random weights from seed 0) behind
    ``GenerateServer(slots=8, page_size=16)`` — with 16 concurrent requests
    of 8..1500 prompt tokens and 32 new tokens each, checks every request,
-   the page accounting and that every prefill went through the kernel
-   (12 launches per prefill), and holds the served logits of two requests
+   the page accounting and that every prefill went through B5 (12
+   launches per prefill), and holds the served logits of two requests
    against the one-shot forward on the card;
-5. prints one JSON line describing each kernel, then the result line
+5. holds the two backward kernels, B6 (dq) and B7 (dk, dv), against the
+   plain backward in the same way, with the SDPA backward as the
+   yardstick;
+6. computes the loss and every parameter gradient of a 2-layer, d_model
+   512 model in fp32 on the card (B5, B6, B7) and on the CPU (the plain
+   versions) and holds them together;
+7. trains the full-width model — 12 layers, d_model 512, vocab 32000,
+   bf16 compute, random weights from seed 0 — through ``make_train_step``
+   on one seeded (8, 2049) batch: a warm-up step and 5 timed steps, with
+   finite and falling loss, 12 launches of each of B5, B6 and B7 per step,
+   and one ``remat=True`` step with the same loss and 24 B5 launches;
+8. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase exits non-zero before the result line. Without a CUDA
 device, or without the package beside it, it exits non-zero at once.
 """
+import gc
 import json
 import os
 import subprocess
@@ -55,6 +67,24 @@ LOGIT_TOL = 0.05
 # order only), so rows over thousands of keys, whose |out| is ~0.05, are
 # held as tightly as rows over a few; lse (fp32 in both) absolutely
 KERNEL_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -6, 1e-3)}
+# backward kernels vs plain: each gradient row (dq per query row, dk and dv
+# per key row) against the row's own scale, by the same reasoning. The
+# scale is clamped from below at 1% of the tensor's largest row: a row
+# whose exact value is 0 (dq of query row 0 under causal, where one live
+# key gives ds = 0) comes out of both sides as ~1e-7 of rounding noise,
+# which has no scale of its own
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+# the training phase: full width, 8 sequences of 2048 tokens (+1 target)
+TRAIN_BATCH, TRAIN_STEPS = (8, 2049), 5
+# first loss of random weights: logits have std ~0.45 (sqrt(512) * 0.02),
+# so the cross-entropy is about ln(32000) + 0.45**2 / 2 = 10.47
+FIRST_LOSS, FIRST_LOSS_TOL = 10.47, 0.25
+# remat recomputes the same bf16 forward: the loss moves by rounding only
+REMAT_LOSS_TOL = 1e-2
+# card-vs-CPU gradients: fp32 everywhere (TF32 off), summation order only
+GRAD_CFG = dict(vocab=32000, d_model=512, n_heads=8, n_layers=2, d_ff=2048,
+                max_len=2048, dtype="float32")
+GRAD_BATCH, GRAD_TOL = (2, 257), 1e-4
 
 
 def _card_line():
@@ -83,26 +113,53 @@ def _time_ms(torch, fn, reps=30, warmup=5):
     return times[len(times) // 2]
 
 
-def _attention_bound(b, h, sq, sk, d, causal, kv_len, dtype):
-    """Least time (ms) the card needs: operations this input needs (each
-    live score costs 2*d for q.k and 2*d for p.v) over the peak rate for
-    the input type, or each input read once and each output written once
-    over the memory rate, whichever is larger."""
-    live = 0
-    for r in range(sq):
-        live += min(r + 1, kv_len) if causal else kv_len
-    flops = 4.0 * d * b * h * live
+# per kernel: products of 2*d operations per live score, and the tensors
+# it must move: (B, H, Sq, D)- and (B, H, Sk, D)-sized ones in the input
+# type, and fp32 (B, H, Sq) rows
+KERNEL_WORK = {
+    "flash_attention_fwd": (2, 2, 2, 1),      # q.k, p.v; q, out; k, v; lse
+    "flash_attention_bwd_dq": (3, 3, 2, 2),   # q.k, do.v, ds.k; q, do, dq;
+                                              # k, v; lse, delta
+    "flash_attention_bwd_dkv": (4, 2, 4, 2),  # q.k, do.v, p.do, ds.q; q, do;
+                                              # k, v, dk, dv; lse, delta
+}
+
+
+def _live_scores(sq, sk, causal, kv_len):
+    """Scores a (batch, head) pair needs: the unmasked ones."""
+    if not causal:
+        return sq * kv_len
+    return sum(min(r + 1, kv_len) for r in range(sq))
+
+
+def _attention_bound(kernel, b, h, sq, sk, d, causal, kv_len, dtype):
+    """Least time (ms) the card needs for ``kernel`` on these inputs: the
+    operations they need over the peak rate for the input type, or each
+    input read once and each output written once over the memory rate,
+    whichever is larger; and which of the two it is."""
+    products, n_q, n_k, n_rows = KERNEL_WORK[kernel]
+    flops = 2.0 * d * products * b * h * _live_scores(sq, sk, causal, kv_len)
     itemsize = 2 if dtype == "bfloat16" else 4
-    nbytes = b * h * d * itemsize * (2 * sq + 2 * sk) + b * h * sq * 4
+    nbytes = b * h * d * itemsize * (n_q * sq + n_k * sk) \
+        + n_rows * b * h * sq * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
         else "bytes"
 
 
+def _row_err(torch, x, ref, floor_frac=0.0):
+    """Largest row error relative to the row's own scale, max_d |x - ref|
+    / max_d |ref|, the scale clamped at ``floor_frac`` of the largest."""
+    diff = (x.float() - ref.float()).abs().amax(-1)
+    scale = ref.float().abs().amax(-1)
+    floor = max(floor_frac * scale.max().item(), 1e-6)
+    return (diff / scale.clamp_min(floor)).max().item()
+
+
 def _device_profile(torch, fn, top=8):
     """Run ``fn`` under torch.profiler and print the device busy share of
     its wall time (merged kernel intervals over the host-clock window) and
-    the kernels that take the most device time."""
+    the device kernels that take the most time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -132,27 +189,38 @@ def _device_profile(torch, fn, top=8):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
-    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)[:top]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted(kernels, key=dev_us, reverse=True)[:top]
     for e in rows:
         print("profile:   %7.2f ms %5.1f%% of busy  x%-5d %s"
               % (dev_us(e) / 1e3, 100 * dev_us(e) / busy, e.count,
                  e.key[:90]))
 
 
+def _inputs(torch, gen, shapes, dt):
+    return [torch.randn(*shape, device="cuda", generator=gen).to(dt)
+            for shape in shapes]
+
+
+# (B, H, S, D) of attention in the training phase: bf16, causal
+TRAIN_ATTN = (TRAIN_BATCH[0], FULL["n_heads"], TRAIN_BATCH[1] - 1,
+              FULL["d_model"] // FULL["n_heads"])
+
+
 def kernel_phase(torch, fa):
     """B5 against its plain version on the card; returns the JSON entry
-    fields measured here (launches are filled in by the serving phase)."""
+    fields measured here, at the training shape (launches are filled in
+    by the training phase)."""
     import torch.nn.functional as F
 
     # the plain version's products must be full fp32 to be a reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    dev = "cuda"
 
     def inputs(b, h, sq, sk, d, dt):
-        return [torch.randn(b, h, s, d, device=dev, generator=gen).to(dt)
-                for s in (sq, sk, sk)]
+        return _inputs(torch, gen, [(b, h, s, d) for s in (sq, sk, sk)], dt)
 
     buckets = [16 << i for i in range(8)]             # 16 .. 2048
     cases = [("bfloat16", 1, 8, s, s, 64, True, s) for s in buckets]
@@ -162,6 +230,8 @@ def kernel_phase(torch, fa):
                   (dt, 1, 8, 1024, 1024, 64, False, 1000),
                   (dt, 1, 8, 777, 1000, 64, True, 900),
                   (dt, 2, 4, 512, 512, 128, True, 512)]
+    b, h, s, d = TRAIN_ATTN
+    cases.append(("bfloat16", b, h, s, s, d, True, s))
     main_err = 0.0
     for (dt, b, h, sq, sk, d, causal, kv_len) in cases:
         q, k, v = inputs(b, h, sq, sk, d, getattr(torch, dt))
@@ -170,10 +240,8 @@ def kernel_phase(torch, fa):
         ref, ref_lse = fa.flash_attention_reference(
             q, k, v, causal=causal, kv_len=kv_len)
         torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        e_out = diff.max().item()
-        e_row = (diff.amax(-1) / ref.float().abs().amax(-1).clamp_min(1e-6)
-                 ).max().item()
+        e_out = (out.float() - ref.float()).abs().max().item()
+        e_row = _row_err(torch, out, ref)
         e_lse = (lse - ref_lse).abs().max().item()
         tol_out, tol_lse = KERNEL_TOL[dt]
         ok = e_row <= tol_out and e_lse <= tol_lse and \
@@ -186,33 +254,245 @@ def kernel_phase(torch, fa):
         if not ok:
             raise RuntimeError("flash_attention_fwd disagrees with its "
                                "plain version")
-        if dt == "bfloat16" and causal and d == 64 and sq == sk == kv_len:
-            main_err = max(main_err, e_out)
+        if (dt, b, h, sq, sk, d, causal, kv_len) == cases[-1]:
+            main_err = e_out
 
-    # times at the largest prefill bucket the serving path runs
-    b, h, s, d = 1, 8, 2048, 64
-    q, k, v = inputs(b, h, s, s, d, torch.bfloat16)
-    ms = _time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
-    plain_ms = _time_ms(torch, lambda: fa.flash_attention_reference(
-        q, k, v, causal=True))
-    lib_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
-    bound_ms, bound_by = _attention_bound(b, h, s, s, d, True, s, "bfloat16")
-    for sb in (256, 1024):
+    # times at the largest prefill bucket the serving path runs, and at
+    # the training shape
+    for sb in (256, 1024, 2048):
         qb, kb, vb = inputs(1, 8, sb, sb, 64, torch.bfloat16)
         t = _time_ms(torch, lambda: fa.flash_attention(qb, kb, vb,
                                                        causal=True))
-        bms, _ = _attention_bound(1, 8, sb, sb, 64, True, sb, "bfloat16")
+        bms, _ = _attention_bound("flash_attention_fwd", 1, 8, sb, sb, 64,
+                                  True, sb, "bfloat16")
         print("time flash_attention_fwd bf16 (1,8,%d,64) causal: %.4f ms "
               "(bound %.4f ms)" % (sb, t, bms))
-    print("time flash_attention_fwd bf16 (1,8,2048,64) causal: kernel %.4f "
-          "ms, plain %.4f ms, SDPA %.4f ms, bound %.4f ms (%s)"
-          % (ms, plain_ms, lib_ms, bound_ms, bound_by))
+    b, h, s, d = TRAIN_ATTN
+    q, k, v = inputs(b, h, s, s, d, torch.bfloat16)
+    ms = _time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
+    plain_ms = _time_ms(torch, lambda: fa.flash_attention_reference(
+        q, k, v, causal=True), reps=10)
+    lib_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    bound_ms, bound_by = _attention_bound("flash_attention_fwd", b, h, s, s,
+                                          d, True, s, "bfloat16")
+    print("time flash_attention_fwd bf16 (%d,%d,%d,%d) causal: kernel %.4f "
+          "ms, plain %.4f ms, SDPA %.4f ms, bound %.6f ms (%s)"
+          % (b, h, s, d, ms, plain_ms, lib_ms, bound_ms, bound_by))
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "mxnet_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
             "replaces": "mxnet_tpu/kernels/flash_attention.py:65",
             "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "shape": list(TRAIN_ATTN), "library": "SDPA forward"}
+
+
+def backward_phase(torch, fa):
+    """B6 and B7 against the plain backward on the card; returns their
+    JSON entries, measured at the training shape (launches are filled in
+    by the training phase)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [("bfloat16", 1, 8, s, s, 64, True, s) for s in (64, 256, 1024)]
+    cases += [("float32", 1, 8, s, s, 64, True, s) for s in (16, 1024)]
+    for dt in ("bfloat16", "float32"):
+        cases += [(dt, 1, 8, 1024, 1024, 64, False, 1024),
+                  (dt, 1, 8, 1024, 1024, 64, False, 1000),
+                  (dt, 1, 8, 777, 1000, 64, True, 900),
+                  (dt, 1, 4, 1000, 600, 64, True, 600),
+                  (dt, 2, 4, 512, 512, 128, True, 512)]
+    b, h, s, d = TRAIN_ATTN
+    cases.append(("bfloat16", b, h, s, s, d, True, s))
+    main_err = {"dq": 0.0, "dkv": 0.0}
+    for case in cases:
+        dt, b, h, sq, sk, d, causal, kv_len = case
+        q, k, v, do = _inputs(torch, gen, [(b, h, sq, d), (b, h, sk, d),
+                                           (b, h, sk, d), (b, h, sq, d)],
+                              getattr(torch, dt))
+        kw = dict(causal=causal, kv_len=kv_len)
+        out, lse = fa.flash_attention_reference(q, k, v, **kw)
+        delta = fa.attention_delta(out, do)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        refs = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        errs, rows = {}, {}
+        for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            errs[name] = (g.float() - r.float()).abs().max().item()
+            rows[name] = _row_err(torch, g, r, floor_frac=1e-2)
+        ok = max(rows.values()) <= BWD_TOL[dt] and all(
+            bool(torch.isfinite(g).all()) for g in (dq, dk, dv)) and not (
+            dk[:, :, kv_len:].any() or dv[:, :, kv_len:].any())
+        print("backward %-8s B=%d H=%d Sq=%-4d Sk=%-4d D=%-3d causal=%d "
+              "kv_len=%-4d  max|d-ref| dq %.3g dk %.3g dv %.3g  row-relative "
+              "dq %.3g dk %.3g dv %.3g (tol %g)  %s"
+              % (dt, b, h, sq, sk, d, causal, kv_len, errs["dq"], errs["dk"],
+                 errs["dv"], rows["dq"], rows["dk"], rows["dv"], BWD_TOL[dt],
+                 "ok" if ok else "FAIL"))
+        if not ok:
+            raise RuntimeError("flash attention backward kernels disagree "
+                               "with the plain backward")
+        if case == cases[-1]:
+            main_err = {"dq": errs["dq"], "dkv": max(errs["dk"], errs["dv"])}
+
+    # times at the training shape; the plain backward and the SDPA
+    # backward compute dq, dk and dv together, so B6 and B7 share them
+    b, h, s, d = TRAIN_ATTN
+    q, k, v, do = _inputs(torch, gen, [(b, h, s, d)] * 4, torch.bfloat16)
+    out, lse = fa.flash_attention_reference(q, k, v, causal=True)
+    delta = fa.attention_delta(out, do)
+    kw = dict(causal=True)
+    dq_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, **kw))
+    dkv_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, **kw))
+    plain_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, **kw), reps=10)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), do, retain_graph=True))
+    entries = []
+    for name, ms, line, err in (
+            ("flash_attention_bwd_dq", dq_ms, 103, main_err["dq"]),
+            ("flash_attention_bwd_dkv", dkv_ms, 131, main_err["dkv"])):
+        bound_ms, bound_by = _attention_bound(name, b, h, s, s, d, True, s,
+                                              "bfloat16")
+        print("time %s bf16 (%d,%d,%d,%d) causal: kernel %.4f ms, plain "
+              "backward %.4f ms, SDPA backward %.4f ms (both shared by B6 "
+              "and B7), bound %.6f ms (%s)"
+              % (name, b, h, s, d, ms, plain_ms, lib_ms, bound_ms, bound_by))
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "mxnet_tpu/kernels/flash_attention.py:%d" % line,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "shape": list(TRAIN_ATTN),
+            "plain": "flash_attention_bwd_reference: dq, dk and dv "
+                     "together, shared by B6 and B7",
+            "library": "SDPA backward: dq, dk and dv together, shared by B6 "
+                       "and B7"})
+    return entries
+
+
+def _counts(fa):
+    return (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches)
+
+
+def _reset_counts(fa):
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+
+
+def grad_phase(torch, np):
+    """Loss and every parameter gradient of a 2-layer fp32 model, on the
+    card (B5, B6, B7) against the CPU (the plain versions), from the same
+    params and tokens. TF32 is off (set in kernel_phase): fp32 products
+    in full precision on both sides."""
+    from mxnet_tpu_torch.models import transformer as tfm
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("grad: TF32 must be off for an fp32 reference")
+    cfg = tfm.TransformerConfig(**GRAD_CFG)
+    params = tfm.init_params(cfg, seed=0)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, GRAD_BATCH)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        loss_fn, _ = tfm.make_loss_fn(cfg, device=dev)
+        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        loss = loss_fn(p, tokens)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        got[dev] = (loss.item(), {k: g.cpu() for k, g in zip(p, grads)})
+    worst = 0.0
+    for k, g_cpu in got["cpu"][1].items():
+        g_card = got["cuda"][1][k]
+        rel = ((g_card - g_cpu).abs().max() /
+               g_cpu.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+        print("grad %-18s max|card - cpu| / max|cpu| = %.3g" % (k, rel))
+    print("grad: loss card %.7f cpu %.7f; worst gradient %.3g (tol %g), "
+          "2 layers, fp32, tokens %s" % (got["cuda"][0], got["cpu"][0], worst,
+                                         GRAD_TOL, GRAD_BATCH))
+    if worst > GRAD_TOL or abs(got["cuda"][0] - got["cpu"][0]) > \
+            GRAD_TOL * abs(got["cpu"][0]):
+        raise RuntimeError("card gradients differ from the CPU's")
+
+
+def training_phase(torch, np, fa):
+    """The training path at full width; returns the launch counts of the
+    timed steps (B5, B6, B7)."""
+    from mxnet_tpu_torch.models import transformer as tfm
+
+    gc.collect()          # what earlier phases left in reference cycles
+    held = torch.cuda.memory_allocated()
+    cfg = tfm.TransformerConfig(**FULL)
+    opt = dict(name="sgd", learning_rate=0.1, momentum=0.9)
+    params = tfm.init_params(cfg, seed=0)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, TRAIN_BATCH)
+    n_tok = TRAIN_BATCH[0] * (TRAIN_BATCH[1] - 1)
+    step, place = tfm.make_train_step(cfg, optimizer=opt)
+    carry = place(params)
+    t0 = time.perf_counter()
+    carry, loss = step(carry, tokens)                    # warm-up
+    losses = [loss.item()]
+    print("train warm-up step: loss %.5f, %.3f s" % (
+        losses[0], time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    _reset_counts(fa)
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        carry, loss = step(carry, tokens)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = _counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    print("train: %d steps at tokens %s (%d target tokens a step): losses "
+          "%s; step times %s s; %.1f tokens/s; peak memory %.2f GiB "
+          "(%.2f GiB held before the phase); launches B5 %d, B6 %d, B7 %d"
+          % (TRAIN_STEPS, TRAIN_BATCH, n_tok,
+             " ".join("%.5f" % x for x in losses),
+             " ".join("%.4f" % x for x in secs),
+             n_tok * TRAIN_STEPS / sum(secs), peak / 2 ** 30, held / 2 ** 30,
+             *launches))
+    _device_profile(torch, lambda: step(carry, tokens))
+
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("train: a loss is not finite: %s" % losses)
+    if abs(losses[0] - FIRST_LOSS) > FIRST_LOSS_TOL:
+        raise RuntimeError("train: first loss %.4f, expected %.2f +- %.2f"
+                           % (losses[0], FIRST_LOSS, FIRST_LOSS_TOL))
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("train: loss did not fall: %s" % losses)
+    want = tuple(cfg.n_layers * TRAIN_STEPS for _ in range(3))
+    if launches != want:
+        raise RuntimeError("train: launches B5/B6/B7 %s, want %s (%d layers "
+                           "x %d steps)" % (launches, want, cfg.n_layers,
+                                            TRAIN_STEPS))
+
+    # remat: one step from the same params gives the same loss, with the
+    # forward recomputed in the backward
+    del carry
+    cfg.remat = True
+    step, place = tfm.make_train_step(cfg, optimizer=opt)
+    carry = place(params)
+    _reset_counts(fa)
+    carry, loss = step(carry, tokens)
+    remat_loss, remat_launches = loss.item(), _counts(fa)
+    print("train remat: loss %.5f (without remat %.5f), launches B5 %d, B6 "
+          "%d, B7 %d" % (remat_loss, losses[0], *remat_launches))
+    if abs(remat_loss - losses[0]) > REMAT_LOSS_TOL or remat_launches != (
+            2 * cfg.n_layers, cfg.n_layers, cfg.n_layers):
+        raise RuntimeError("train remat: loss %.5f vs %.5f, launches %s"
+                           % (remat_loss, losses[0], remat_launches))
+    return launches
 
 
 def serving_phase(torch, np, fa):
@@ -268,7 +548,7 @@ def serving_phase(torch, np, fa):
         pred.prefill, pred.decode = rec_prefill, rec_decode
         torch.cuda.synchronize()
         profiler.generate_reset()
-        fa.flash_attention.launches = 0
+        _reset_counts(fa)
         t0 = time.perf_counter()
         futs = [srv.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
         results = [f.result(timeout=600) for f in futs]
@@ -359,17 +639,25 @@ def main():
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
     t0 = time.perf_counter()
-    logs = {name: _build.build(name) for name in _build.SOURCES}
-    print("build: %d kernel(s) in %.1f s" % (len(logs),
-                                             time.perf_counter() - t0))
+    logs = _build.build_all()
+    print("build: %d kernel source(s) in %.1f s" % (len(logs),
+                                                    time.perf_counter() - t0))
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "cached" in line:
+            if "registers" in line or "spill" in line or "cached" in line \
+                    or "Compiling entry" in line:
                 print("  %s: %s" % (name, line.strip()))
 
-    entry = kernel_phase(torch, fa)
-    entry["launches"] = serving_phase(torch, np, fa)
-    print(json.dumps({"kernels": [entry]}))
+    fwd = kernel_phase(torch, fa)
+    served = serving_phase(torch, np, fa)
+    bwd = backward_phase(torch, fa)
+    grad_phase(torch, np)
+    launches = training_phase(torch, np, fa)
+    for entry, n in zip([fwd, *bwd], launches):
+        entry["launches"] = n
+    print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
+          "%d; serving B5 %d" % (TRAIN_STEPS, *launches, served))
+    print(json.dumps({"kernels": [fwd, *bwd]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

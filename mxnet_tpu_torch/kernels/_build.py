@@ -19,7 +19,7 @@ from pathlib import Path
 
 from ..base import MXNetError
 
-SOURCES = ("flash_attention_fwd",)
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,28 +46,43 @@ def lib_path(name):
     return BUILD_DIR / ("lib%s-%s.so" % (name, digest.hexdigest()[:16]))
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
-    compiler output (``-Xptxas=-v`` prints registers, shared memory and
+def build_all(names=SOURCES):
+    """Compile every ``csrc/<name>.cu`` of ``names`` whose library is
+    missing, one ``nvcc`` each, all started together; returns ``{name:
+    compiler output}`` (``-Xptxas=-v`` prints registers, shared memory and
     spills per kernel). A failed compile raises :class:`MXNetError`."""
-    out = lib_path(name)
-    if out.exists():
-        return "cached: %s" % out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(".so.tmp%d" % os.getpid())
+    logs, jobs = {}, {}
     try:
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                            str(CSRC / ("%s.cu" % name))],
-                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                           text=True)
-        if r.returncode != 0:
-            raise MXNetError("nvcc failed for %s (rc %d):\n%s"
-                             % (name, r.returncode, r.stdout))
-        os.replace(tmp, out)
+        for name in names:
+            out = lib_path(name)
+            if out.exists():
+                logs[name] = "cached: %s" % out
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(".so.tmp%d" % os.getpid())
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / ("%s.cu" % name))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in jobs.items():
+            logs[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append("nvcc failed for %s (rc %d):\n%s"
+                              % (name, proc.returncode, logs[name]))
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise MXNetError("\n".join(failed))
     finally:
-        if tmp.exists():
-            tmp.unlink()
-    return r.stdout
+        for proc, tmp, _out in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if tmp.exists():
+                tmp.unlink()
+    return logs
 
 
 def load(name):
@@ -75,7 +90,7 @@ def load(name):
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build(name)
+            build_all((name,))
             lib = ctypes.CDLL(str(lib_path(name)))
             _LIBS[name] = lib
         return lib

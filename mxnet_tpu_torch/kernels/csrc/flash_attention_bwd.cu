@@ -1,0 +1,456 @@
+// Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Two kernels, each replacing one Pallas TPU kernel of
+// mxnet_tpu/kernels/flash_attention.py (both launched by `_bwd_call`):
+//   flash_bwd_dq_kernel   (B6) replaces `_bwd_dq_kernel`:
+//       dq = scale * sum_c ds[r, c] k[c]
+//   flash_bwd_dkv_kernel  (B7) replaces `_bwd_dkv_kernel`:
+//       dv = sum_r p[r, c] do[r],   dk = sum_r ds[r, c] (scale * q[r])
+// with, recomputed per tile from the forward's fp32 row logsumexp `lse`
+// and delta[r] = rowsum(do[r] * out[r]) (computed by the wrapper, as the
+// JAX package computes it outside its kernels):
+//   p  = exp(scale * q . k^T - lse),  masked entries 0,
+//   ds = p * (do . v^T - delta).
+// Same function as the TPU kernels, not a block-by-block copy. Masks are
+// those of the forward (flash_attention_fwd.cu): key columns >= kv_len are
+// padding, and under `causal` column c is live for row r iff r >= c (both
+// from 0). Key rows at or past kv_len get zero gradients.
+//
+// What bounds them on the H100. With L live scores, B6 does 3 products of
+// 2*D operations per live score (q.k, do.v, ds.k): 6*D*L; B7 does 4 (q.k,
+// do.v, p^T.do, ds^T.q): 8*D*L. At the training shape (8, 8, 2048, 64)
+// bf16 causal, L = 134,283,264: B6 51.6 GFLOP (0.052 ms at the 989
+// TFLOP/s bf16 tensor-core peak) against ~85 MB of traffic (0.025 ms at
+// 3.35 TB/s); B7 68.7 GFLOP (0.069 ms) against ~102 MB (0.030 ms). So
+// operations bound both. This first version runs the products on the
+// fp32 CUDA cores (67 TFLOP/s peak) from shared memory, like the forward,
+// and sits far above that bound; tensor-core products (wgmma, TMA-fed
+// tiles) are the next step.
+//
+// Design.
+//   * The TPU's split is kept: B6 has one CTA of 256 threads per (b*h,
+//     64-row query block) looping over 64-column K/V tiles (up to the
+//     causal diagonal and kv_len, like the forward); B7 one CTA per (b*h,
+//     64-row key block) looping over 64-row query tiles from the first
+//     that can see the key block. Each output element has one writer, no
+//     atomics, so the result is deterministic.
+//   * Threads form a 16 x 16 grid: thread (ty, tx) owns the CTA's rows
+//     4*ty .. 4*ty+3 (query rows in B6, key rows in B7), score columns
+//     tx + 16*j (j < 4) and accumulator columns tx + 16*j (j < D/16). Both
+//     score tiles of a step (q.k and do.v) come out of one loop over D.
+//     The p / ds tile a row group writes is read back only by the same
+//     half warp, so it needs __syncwarp, not __syncthreads.
+//   * Accumulators (dq in B6; dk and dv in B7) stay in registers in fp32:
+//     16 / 32 floats a thread in B6 and 32 / 64 in B7 at D = 64 / 128.
+//   * The scale rides on q as it is loaded (fp32), so B7's dk needs no
+//     extra factor and B6 multiplies dq by scale once at the end, as the
+//     TPU kernels do. bf16 inputs are widened to fp32 in shared memory;
+//     outputs are rounded once to the input type.
+//   * Shared memory (fp32): B6 holds q, do (rows, stride D+4), k, v
+//     (columns, stride D+1) and the ds tile: 85 KB at D = 64, 150 KB at
+//     D = 128. B7 holds k, v (rows, D+4), q, do (columns, D+1), the p and
+//     ds tiles and 64 lse/delta values: 102 KB / 167 KB. Both above 48 KB,
+//     so dynamic shared memory is requested.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kBlockQ = 64;
+constexpr int kBlockK = 64;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <int D>
+constexpr int dq_smem_floats() {
+  return 2 * kBlockQ * (D + 4) + 2 * kBlockK * (D + 1) +
+         kBlockQ * (kBlockK + 1);
+}
+
+template <int D>
+constexpr int dkv_smem_floats() {
+  return 2 * kBlockK * (D + 4) + 2 * kBlockQ * (D + 1) +
+         2 * kBlockK * (kBlockQ + 1) + 2 * kBlockQ;
+}
+
+// B6: dq for one (b*h, 64-row query block).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int seq_q, int seq_k, int kv_len, float scale,
+                    int causal) {
+  constexpr int QS = D + 4;        // row-read tiles: broadcast per half warp
+  constexpr int KS = D + 1;        // column-read tiles: distinct banks
+  constexpr int PS = kBlockK + 1;
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;                      // kBlockQ x QS, q * scale
+  float* dos = qs + kBlockQ * QS;        // kBlockQ x QS
+  float* ks = dos + kBlockQ * QS;        // kBlockK x KS
+  float* vs = ks + kBlockK * KS;         // kBlockK x KS
+  float* dss = vs + kBlockK * KS;        // kBlockQ x PS
+
+  const int q0 = blockIdx.x * kBlockQ;
+  const size_t bh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const T* qb = q + bh * seq_q * D;
+  const T* ob = dout + bh * seq_q * D;
+  const T* kb = k + bh * seq_k * D;
+  const T* vb = v + bh * seq_k * D;
+
+  for (int i = tid; i < kBlockQ * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    const bool live = q0 + r < seq_q;
+    const size_t g = (size_t)(q0 + r) * D + d;
+    qs[r * QS + d] = live ? to_float(qb[g]) * scale : 0.f;
+    dos[r * QS + d] = live ? to_float(ob[g]) : 0.f;
+  }
+
+  float row_lse[4], row_delta[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    row_lse[i] = row < seq_q ? lse[bh * seq_q + row] : 0.f;
+    row_delta[i] = row < seq_q ? delta[bh * seq_q + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  int n_kb = (kv_len + kBlockK - 1) / kBlockK;
+  if (causal) n_kb = min(n_kb, (q0 + kBlockQ + kBlockK - 1) / kBlockK);
+
+  for (int j = 0; j < n_kb; ++j) {
+    const int c0 = j * kBlockK;
+    __syncthreads();  // the previous tile's readers are done (and q is in)
+    for (int i = tid; i < kBlockK * D; i += kThreads) {
+      const int c = i / D, d = i % D;
+      const bool live = c0 + c < seq_k;
+      const size_t g = (size_t)(c0 + c) * D + d;
+      ks[c * KS + d] = live ? to_float(kb[g]) : 0.f;
+      vs[c * KS + d] = live ? to_float(vb[g]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = qs[(ty * 4 + i) * QS + d];
+        ov[i] = dos[(ty * 4 + i) * QS + d];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        kv[c] = ks[(tx + 16 * c) * KS + d];
+        vv[c] = vs[(tx + 16 * c) * KS + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+          dp[i][c] = fmaf(ov[i], vv[c], dp[i][c]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = c0 + tx + 16 * c;
+        const bool masked = col >= kv_len || (causal && row < col);
+        const float p = masked ? 0.f : expf(s[i][c] - row_lse[i]);
+        dss[(ty * 4 + i) * PS + tx + 16 * c] = p * (dp[i][c] - row_delta[i]);
+      }
+    }
+    __syncwarp();  // a row's ds entries come from its own half warp
+
+#pragma unroll 4
+    for (int c = 0; c < kBlockK; ++c) {
+      float dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty * 4 + i) * PS + c];
+#pragma unroll
+      for (int dc = 0; dc < DC; ++dc) {
+        const float kv = ks[c * KS + tx + 16 * dc];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][dc] = fmaf(dsv[i], kv, acc[i][dc]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= seq_q) continue;
+    T* orow = dq + (bh * seq_q + row) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) store(orow + tx + 16 * c, acc[i][c] * scale);
+  }
+}
+
+// B7: dk and dv for one (b*h, 64-row key block).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int seq_q, int seq_k, int kv_len,
+                     float scale, int causal) {
+  constexpr int KS = D + 4;        // this block's key rows, read by rows
+  constexpr int QS = D + 1;        // query tiles, read by columns
+  constexpr int PS = kBlockQ + 1;
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;                      // kBlockK x KS
+  float* vs = ks + kBlockK * KS;         // kBlockK x KS
+  float* qs = vs + kBlockK * KS;         // kBlockQ x QS, q * scale
+  float* dos = qs + kBlockQ * QS;        // kBlockQ x QS
+  float* ps = dos + kBlockQ * QS;        // kBlockK x PS, p^T
+  float* dss = ps + kBlockK * PS;        // kBlockK x PS, ds^T
+  float* lse_s = dss + kBlockK * PS;     // kBlockQ
+  float* delta_s = lse_s + kBlockQ;      // kBlockQ
+
+  const int k0 = blockIdx.x * kBlockK;
+  const size_t bh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const T* qb = q + bh * seq_q * D;
+  const T* ob = dout + bh * seq_q * D;
+  const T* kb = k + bh * seq_k * D;
+  const T* vb = v + bh * seq_k * D;
+
+  for (int i = tid; i < kBlockK * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    const bool live = k0 + r < seq_k;
+    const size_t g = (size_t)(k0 + r) * D + d;
+    ks[r * KS + d] = live ? to_float(kb[g]) : 0.f;
+    vs[r * KS + d] = live ? to_float(vb[g]) : 0.f;
+  }
+
+  float acc_k[4][DC], acc_v[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  // query blocks before this key block see none of it under `causal`; a
+  // key block wholly at or past kv_len is padding and keeps zero gradients
+  const int start_qb = causal ? k0 / kBlockQ : 0;
+  const int n_qb = k0 < kv_len ? (seq_q + kBlockQ - 1) / kBlockQ : 0;
+
+  for (int jq = start_qb; jq < n_qb; ++jq) {
+    const int r0 = jq * kBlockQ;
+    __syncthreads();  // the previous tile's readers are done (and k/v are in)
+    for (int i = tid; i < kBlockQ * D; i += kThreads) {
+      const int r = i / D, d = i % D;
+      const bool live = r0 + r < seq_q;
+      const size_t g = (size_t)(r0 + r) * D + d;
+      qs[r * QS + d] = live ? to_float(qb[g]) * scale : 0.f;
+      dos[r * QS + d] = live ? to_float(ob[g]) : 0.f;
+    }
+    if (tid < kBlockQ) {
+      const bool live = r0 + tid < seq_q;
+      lse_s[tid] = live ? lse[bh * seq_q + r0 + tid] : 0.f;
+      delta_s[tid] = live ? delta[bh * seq_q + r0 + tid] : 0.f;
+    }
+    __syncthreads();
+
+    // s[i][c] = score of key row ty*4+i against query row tx+16c
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float kv[4], vv[4], qv[4], ov[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kv[i] = ks[(ty * 4 + i) * KS + d];
+        vv[i] = vs[(ty * 4 + i) * KS + d];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        qv[c] = qs[(tx + 16 * c) * QS + d];
+        ov[c] = dos[(tx + 16 * c) * QS + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = fmaf(kv[i], qv[c], s[i][c]);
+          dp[i][c] = fmaf(vv[i], ov[c], dp[i][c]);
+        }
+    }
+
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = r0 + tx + 16 * c;  // query row
+      const float l = lse_s[tx + 16 * c];
+      const float dl = delta_s[tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = k0 + ty * 4 + i;  // key column
+        const bool masked =
+            col >= kv_len || row >= seq_q || (causal && row < col);
+        const float p = masked ? 0.f : expf(s[i][c] - l);
+        ps[(ty * 4 + i) * PS + tx + 16 * c] = p;
+        dss[(ty * 4 + i) * PS + tx + 16 * c] = p * (dp[i][c] - dl);
+      }
+    }
+    __syncwarp();  // a key row's p / ds entries come from its own half warp
+
+#pragma unroll 4
+    for (int r = 0; r < kBlockQ; ++r) {
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = ps[(ty * 4 + i) * PS + r];
+        dsv[i] = dss[(ty * 4 + i) * PS + r];
+      }
+#pragma unroll
+      for (int dc = 0; dc < DC; ++dc) {
+        const float ov = dos[r * QS + tx + 16 * dc];
+        const float qv = qs[r * QS + tx + 16 * dc];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc_v[i][dc] = fmaf(pv[i], ov, acc_v[i][dc]);
+          acc_k[i][dc] = fmaf(dsv[i], qv, acc_k[i][dc]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty * 4 + i;
+    if (row >= seq_k) continue;
+    T* krow = dk + (bh * seq_k + row) * D;
+    T* vrow = dv + (bh * seq_k + row) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      store(krow + tx + 16 * c, acc_k[i][c]);
+      store(vrow + tx + 16 * c, acc_v[i][c]);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int bh, int seq_q, int seq_k, int kv_len,
+                      float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_floats<D>() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, bh);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), seq_q, seq_k, kv_len, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int bh, int seq_q, int seq_k,
+                       int kv_len, float scale, int causal,
+                       cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_floats<D>() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq_k + kBlockK - 1) / kBlockK, bh);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), seq_q, seq_k, kv_len, scale,
+      causal);
+  return cudaGetLastError();
+}
+
+// Calls f(T{}, std::integral_constant<int, D>{}) for the supported
+// (dtype, head dim) pairs: dtype 0 = float32, 1 = bfloat16; d 64 or 128.
+template <typename F>
+cudaError_t dispatch(int dtype, int d, F f) {
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  if (dtype == 0 && d == 64) return f(float{}, D64{});
+  if (dtype == 0 && d == 128) return f(float{}, D128{});
+  if (dtype == 1 && d == 64) return f(__nv_bfloat16{}, D64{});
+  if (dtype == 1 && d == 128) return f(__nv_bfloat16{}, D128{});
+  return cudaErrorInvalidValue;
+}
+
+bool bad_dims(int bh, int seq_q, int seq_k, int kv_len) {
+  return bh < 1 || bh > 65535 || seq_q < 1 || seq_k < 1 || kv_len < 1 ||
+         kv_len > seq_k;
+}
+
+}  // namespace
+
+// q, dout, dq: (bh, seq_q, d); k, v: (bh, seq_k, d); lse, delta: (bh,
+// seq_q) f32. dtype: 0 = float32, 1 = bfloat16. d: 64 or 128.
+// 1 <= kv_len <= seq_k. Launches B6 on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dq, int bh, int seq_q, int seq_k,
+                                      int d, int kv_len, float scale,
+                                      int causal, int dtype, void* stream) {
+  if (bad_dims(bh, seq_q, seq_k, kv_len)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)dispatch(dtype, d, [&](auto t, auto dim) {
+    return launch_dq<decltype(t), decltype(dim)::value>(
+        q, k, v, dout, lse, delta, dq, bh, seq_q, seq_k, kv_len, scale,
+        causal, s);
+  });
+}
+
+// As above, with dk, dv: (bh, seq_k, d). Launches B7.
+extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, int bh, int seq_q,
+                                       int seq_k, int d, int kv_len,
+                                       float scale, int causal, int dtype,
+                                       void* stream) {
+  if (bad_dims(bh, seq_q, seq_k, kv_len)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)dispatch(dtype, d, [&](auto t, auto dim) {
+    return launch_dkv<decltype(t), decltype(dim)::value>(
+        q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k, kv_len, scale,
+        causal, s);
+  });
+}

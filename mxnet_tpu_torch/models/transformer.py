@@ -1,11 +1,16 @@
-"""Decoder-only transformer LM for generative serving, in PyTorch
-(counterpart of ``mxnet_tpu/models/transformer.py``, single device only).
+"""Decoder-only transformer LM for training and generative serving, in
+PyTorch (counterpart of ``mxnet_tpu/models/transformer.py``, single
+device only).
 
 The functions keep the JAX package's parameter names, shapes and layouts
 (the stacked ``(L, d, 3, H, Dh)`` QKV and ``(L, H, Dh, d)`` out-projection,
 the ``(L, 2, P+1, page, H, Dh)`` paged KV cache), so weights and caches
 compare one to one with the reference:
 
+- :func:`make_loss_fn`     mean next-token cross-entropy of ``(B, S+1)``
+                           tokens, differentiable in the params.
+- :func:`make_train_step`  forward, backward and a functional optimizer
+                           update as one ``step(carry, tokens)``.
 - :func:`make_forward_fn`  one-shot logits ``(B, S, V)``: the numerical
                            reference the serving path must match per token.
 - :func:`init_kv_cache`    the cache buffer. Page 0 is the SCRATCH page,
@@ -20,18 +25,20 @@ compare one to one with the reference:
 
 Attention in the causal forward is the flash-attention kernel
 (:mod:`..kernels.flash_attention`) on a CUDA tensor and its plain version
-on the CPU; the products around it (QKV, out-projection, FFN, logits) are
-``torch.einsum``, as the JAX package leaves them to XLA. Parameters stay
-fp32; each product casts its weight to the compute dtype, layernorm runs
-in fp32 and casts back, and logits come back in fp32.
+on the CPU; its gradient is the two backward kernels. The products
+around it (QKV, out-projection, FFN, logits) are ``torch.einsum``, as the
+JAX package leaves them to XLA. Parameters stay fp32; each product casts
+its weight to the compute dtype, layernorm runs in fp32 and casts back,
+and logits come back in fp32.
 
-JAX's functions are pure and donate the cache buffer; here the cache is
-updated in place (``index_put_``) and the same tensor is returned.
+JAX's functions are pure and donate the cache buffer and the train
+carry; here the cache and the train step's params and optimizer state
+are updated in place and the same tensors are returned.
 
-Not ported yet (ROADMAP.md Queue A item 8): training (``make_loss_fn``,
-``make_train_step``), ``make_extend_fn`` and speculative drafts, mesh /
-``mp`` sharding, ring and Ulysses attention, MoE (``n_experts > 0``) and
-the schedule-table consult for attention blocks.
+Not ported yet (ROADMAP.md Queue A item 8): ``make_extend_fn`` and
+speculative drafts, mesh / ``mp`` sharding (``param_specs``), ring and
+Ulysses attention, MoE (``n_experts > 0``) and the schedule-table consult
+for attention blocks.
 """
 from __future__ import annotations
 
@@ -40,14 +47,17 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..base import MXNetError
 from ..context import resolve_device
 from ..kernels.flash_attention import flash_attention
+from ..parallel.spmd import FunctionalOptimizer, functional_optimizer
 
 __all__ = ["TransformerConfig", "init_params", "params_from_jax",
-           "make_forward_fn", "init_kv_cache", "make_prefill_fn",
-           "make_decode_fn", "torch_dtype"]
+           "make_loss_fn", "make_train_step", "make_forward_fn",
+           "init_kv_cache", "make_prefill_fn", "make_decode_fn",
+           "torch_dtype"]
 
 _NEG_INF = -1e30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -65,6 +75,7 @@ class TransformerConfig:
     max_len: int = 2048
     n_experts: int = 0          # 0 -> dense ffn; MoE is not ported yet
     dtype: str = "bfloat16"     # compute dtype (params stay fp32)
+    remat: bool = False         # recompute each layer in the backward
 
 
 def torch_dtype(name):
@@ -185,6 +196,30 @@ def _as_long(a, device):
     return torch.as_tensor(a, device=device).long()
 
 
+def _forward(params, tokens, c, cdt, dev):
+    """Logits (B, S, V) fp32 of int tokens (B, S): the causal block stack
+    shared by the one-shot forward and the training loss (the JAX
+    package's ``_forward_local`` with no mesh). Out-of-vocab ids embed as
+    zeros. Under ``c.remat``, while autograd records, each layer is
+    recomputed in the backward (``jax.checkpoint`` in the JAX package)."""
+    emb = params["embed_weight"]
+    _check_on(dev, params=emb)
+    tokens = _as_long(tokens, dev)
+    S = tokens.shape[1]
+    in_range = (tokens >= 0) & (tokens < emb.shape[0])
+    x = emb[tokens.clamp(0, emb.shape[0] - 1)]
+    x = torch.where(in_range[..., None], x, 0.0)
+    x = (x + params["pos_embed_weight"][:S]).to(cdt)
+    remat = c.remat and torch.is_grad_enabled()
+    for i in range(c.n_layers):
+        lp = _layer(params, i)
+        if remat:
+            x = checkpoint(_block, x, lp, cdt, use_reentrant=False)
+        else:
+            x = _block(x, lp, cdt)
+    return _logits(x, params, cdt)
+
+
 def make_forward_fn(config, device=None):
     """fn(params, tokens (B, S) int) -> logits (B, S, V) fp32 on ``device``
     (default ``cuda``), where the params must lie. Out-of-vocab ids embed
@@ -196,19 +231,78 @@ def make_forward_fn(config, device=None):
 
     @torch.inference_mode()
     def fwd(params, tokens):
-        emb = params["embed_weight"]
-        _check_on(dev, params=emb)
-        tokens = _as_long(tokens, dev)
-        S = tokens.shape[1]
-        in_range = (tokens >= 0) & (tokens < emb.shape[0])
-        x = emb[tokens.clamp(0, emb.shape[0] - 1)]
-        x = torch.where(in_range[..., None], x, 0.0)
-        x = (x + params["pos_embed_weight"][:S]).to(cdt)
-        for i in range(c.n_layers):
-            x = _block(x, _layer(params, i), cdt)
-        return _logits(x, params, cdt)
+        return _forward(params, tokens, c, cdt, dev)
 
     return fwd
+
+
+def make_loss_fn(config, mesh=None, data_axes=("dp",), device=None):
+    """``(loss_fn, specs)``: ``loss_fn(params, tokens (B, S+1) int)`` is
+    the mean next-token cross-entropy, a scalar fp32 tensor on ``device``
+    (default ``cuda``), where the params must lie; autograd reaches every
+    param through it. The fp32 ``log_softmax`` of fp32 logits, as in the
+    JAX package.
+
+    Single device only: ``specs`` is None and ``data_axes`` is unused
+    until mesh sharding is ported; a ``mesh`` raises."""
+    _check_dense(config)
+    if mesh is not None:
+        raise MXNetError("make_loss_fn: mesh sharding is not ported yet "
+                         "(ROADMAP.md Queue A item 8); pass mesh=None to "
+                         "train on one device")
+    c = config
+    cdt = torch_dtype(c.dtype)
+    dev = resolve_device(device)
+
+    def loss_fn(params, tokens):
+        tokens = _as_long(tokens, dev)
+        logits = _forward(params, tokens[:, :-1], c, cdt, dev)
+        logp = F.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, tokens[:, 1:, None]).mean()
+
+    return loss_fn, None
+
+
+def make_train_step(config, mesh=None, optimizer=None, data_axes=("dp",),
+                    device=None):
+    """``(step, place)``: one train step on ``device`` (default ``cuda``).
+
+    ``place(params)`` copies the params to the device as fp32 leaves that
+    require grad and builds the carry ``(params, opt_state, 0)``.
+    ``step(carry, tokens (B, S+1)) -> (carry, loss)`` runs the loss of
+    :func:`make_loss_fn`, its gradient in every param, and the optimizer's
+    update, which changes the carry's params and state in place (the JAX
+    step donates its carry). ``optimizer`` is a ``FunctionalOptimizer`` or
+    a dict of :func:`~..parallel.functional_optimizer` arguments; the
+    default is sgd with lr 0.1 and momentum 0.9, as in the JAX package."""
+    opt = optimizer or functional_optimizer("sgd", learning_rate=0.1,
+                                            momentum=0.9)
+    if isinstance(opt, dict):
+        opt = functional_optimizer(**opt)
+    if not isinstance(opt, FunctionalOptimizer):
+        raise MXNetError("make_train_step: optimizer must be a "
+                         "FunctionalOptimizer or a dict of its arguments, "
+                         "got %r" % type(opt).__name__)
+    loss_fn, _specs = make_loss_fn(config, mesh, data_axes, device)
+    dev = resolve_device(device)
+
+    def step(carry, tokens):
+        params, opt_state, n = carry
+        names = list(params)
+        with torch.enable_grad():
+            loss = loss_fn(params, tokens)
+            grads = torch.autograd.grad(loss, [params[k] for k in names])
+        params, opt_state = opt.apply(params, dict(zip(names, grads)),
+                                      opt_state, n)
+        return (params, opt_state, n + 1), loss.detach()
+
+    def place(params):
+        params = {k: torch.as_tensor(v).detach().to(
+            dev, torch.float32, copy=True).requires_grad_(True)
+            for k, v in params.items()}
+        return params, opt.init(params), 0
+
+    return step, place
 
 
 def init_kv_cache(config, num_pages, page_size, dtype=None, device=None):

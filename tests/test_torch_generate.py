@@ -258,10 +258,13 @@ def test_unported_features_raise_by_name(model, kw):
 
 def test_import_pulls_in_neither_jax_nor_mxnet_tpu():
     code = (
-        "import importlib.util, sys\n"
-        "import mxnet_tpu_torch, mxnet_tpu_torch.serving\n"
-        "import mxnet_tpu_torch.models.transformer\n"
-        "import mxnet_tpu_torch.kernels._build\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
+        "import mxnet_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    mxnet_tpu_torch.__path__, 'mxnet_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print('IMPORTED', len(names), sorted(names))\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -272,3 +275,6 @@ def test_import_pulls_in_neither_jax_nor_mxnet_tpu():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+    for name in ("parallel.spmd", "lr_scheduler", "kernels.flash_attention",
+                 "models.transformer", "serving.broker"):
+        assert "'mxnet_tpu_torch.%s'" % name in r.stdout, name
