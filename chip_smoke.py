@@ -22,18 +22,31 @@ the kernels are built for sm_90a) and ``nvcc``. It
    the page accounting and that every prefill went through B5 (12
    launches per prefill), and holds the served logits of two requests
    against the one-shot forward on the card;
-5. holds the two backward kernels, B6 (dq) and B7 (dk, dv), against the
+5. holds the fused ResNet convolution (B1: BN-apply + ReLU prologue,
+   stats epilogue) against its plain version at every shape of a
+   ResNet-50 forward at each batch of the serving ladder (1, 4, 16, 64),
+   in bf16 and fp32, with and without the stats, and
+   times the kernel, the plain version and the library equivalent (cuDNN
+   on the already-activated input, plus the BN-apply + ReLU it saves) at
+   each shape;
+6. serves the fused ResNet-50 (1000 classes, 224x224, random weights from
+   seed 0) through ``ModelServer`` in bf16 on the ladder (1, 4, 16, 64):
+   checks its logits against the unfused graph in fp32 on the card and
+   that a forward launches B1 52 times, then serves 48 seeded requests of
+   1..16 images from 4 threads and prints images/s, latency, the forward
+   time per bucket, the device's busy share and peak memory;
+7. holds the two backward kernels, B6 (dq) and B7 (dk, dv), against the
    plain backward in the same way, with the SDPA backward as the
    yardstick;
-6. computes the loss and every parameter gradient of a 2-layer, d_model
+8. computes the loss and every parameter gradient of a 2-layer, d_model
    512 model in fp32 on the card (B5, B6, B7) and on the CPU (the plain
    versions) and holds them together;
-7. trains the full-width model — 12 layers, d_model 512, vocab 32000,
+9. trains the full-width model — 12 layers, d_model 512, vocab 32000,
    bf16 compute, random weights from seed 0 — through ``make_train_step``
    on one seeded (8, 2049) batch: a warm-up step and 5 timed steps, with
    finite and falling loss, 12 launches of each of B5, B6 and B7 per step,
    and one ``remat=True`` step with the same loss and 24 B5 launches;
-8. prints one JSON line describing each kernel, then the result line
+10. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase exits non-zero before the result line. Without a CUDA
@@ -85,6 +98,26 @@ REMAT_LOSS_TOL = 1e-2
 GRAD_CFG = dict(vocab=32000, d_model=512, n_heads=8, n_layers=2, d_ff=2048,
                 max_len=2048, dtype="float32")
 GRAD_BATCH, GRAD_TOL = (2, 257), 1e-4
+# image serving: fused ResNet-50 at full width on the serving ladder
+RESNET = dict(num_classes=1000, num_layers=50, image_shape=(3, 224, 224))
+RESNET_LADDER = (1, 4, 16, 64)
+RESNET_REQUESTS, RESNET_MAX_IMAGES, RESNET_THREADS = 48, 16, 4
+RESNET_CHECK_IMAGES = 16
+# B1 launches per forward: 3 per unit, 4 in each of the 4 downsample units
+RESNET_UNITS = 16
+B1_PER_FORWARD = RESNET_UNITS * 3 + 4
+# B1 vs plain: each output pixel (a row of Co channels) against its own
+# scale, as for B5; the stats per channel against that channel's sum of |y|
+# (sum of y^2 for the squares)
+CONV_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+# B1 is timed at batch 64; its JSON entry is the stage-1 3x3, (h, ci, co,
+# k, stride), whose max_abs_err comes from the bf16 check at that batch
+CONV_TIME_BATCH, CONV_MAIN = 64, (56, 64, 64, 3, 1)
+# fused bf16 logits against the unfused fp32 graph, relative to the largest
+# |logit| (~10 with these weights), and the share of images whose top-1
+# class must agree. bf16 keeps 8 significant bits and every unit rounds its
+# activations; the measured gap on an H100 is 0.0054, so 0.02 leaves ~4x
+RESNET_LOGIT_TOL, RESNET_TOP1 = 0.02, 0.9
 
 
 def _card_line():
@@ -623,6 +656,300 @@ def serving_phase(torch, np, fa):
     return launches
 
 
+
+def _resnet_conv_calls(n):
+    """The B1 calls of a fused ResNet-50 forward at batch ``n``:
+    ``{(n, h, ci, co, k, stride): count}``, from the unit widths."""
+    calls = {}
+    h, ci = 56, 64
+    for stage, units in enumerate((3, 4, 6, 3)):
+        nf = 256 << stage
+        c = nf // 4
+        for u in range(units):
+            s = 2 if stage and u == 0 else 1
+            for shape in ((n, h, ci, c, 1, 1), (n, h, c, c, 3, s),
+                          (n, h // s, c, nf, 1, 1)) + \
+                    (((n, h, ci, nf, 1, s),) if u == 0 else ()):
+                calls[shape] = calls.get(shape, 0) + 1
+            h, ci = h // s, nf
+    return calls
+
+
+def _conv_bound(n, h, ci, co, k, stride, dtype, stats):
+    """Least time (ms) for one B1 call: its operations over the peak rate
+    of its type, or x, w, y, the prologue vectors (and the stats) each
+    moved once over the memory rate, whichever is larger."""
+    ho = h // stride
+    flops = 2.0 * n * ho * ho * k * k * ci * co
+    isz = 2 if dtype == "bfloat16" else 4
+    nbytes = isz * (n * h * h * ci + k * k * ci * co + n * ho * ho * co) \
+        + 4 * 2 * ci + (4 * 2 * co if stats else 0)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def conv_kernel_phase(torch, fb):
+    """B1 against its plain version on the card at every shape of a
+    ResNet-50 forward, at every batch of the serving ladder; times at
+    batch 64. Returns the JSON entry fields measured here, at the stage-1
+    3x3 shape (launches are filled in by the serving phase)."""
+    import torch.nn.functional as F
+
+    if torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("conv: TF32 must be off for an fp32 reference")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def inputs(n, h, ci, co, k, dt):
+        x = torch.randn(n, h, h, ci, device="cuda", generator=gen).to(dt)
+        w = (torch.randn(k, k, ci, co, device="cuda", generator=gen)
+             / (k * k * ci) ** 0.5).to(dt)
+        scale = torch.rand(ci, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(ci, device="cuda", generator=gen) * 0.5
+        return x, w, (scale, bias, True)
+
+    # every call the served path makes: each shape of the forward at each
+    # bucket of the ladder, in both types, with and without the stats
+    shapes = sorted((h, ci, co, k, s)
+                    for (_n, h, ci, co, k, s) in _resnet_conv_calls(1))
+    main_err = None
+    for n in RESNET_LADDER:
+        for dt in ("float32", "bfloat16"):
+            worst = {"row": (0.0, None), "stats": (0.0, None)}
+            for (h, ci, co, k, s) in shapes:
+                x, w, pro = inputs(n, h, ci, co, k, getattr(torch, dt))
+                for stats in (False, True):
+                    y, st = fb.conv_fwd(x, w, stride=s, prologue=pro,
+                                        emit_stats=stats)
+                    ref, ref_st = fb.conv_fwd_reference(
+                        x, w, stride=s, prologue=pro, emit_stats=stats)
+                    torch.cuda.synchronize()
+                    e_row = _row_err(torch, y, ref)
+                    e_st = 0.0
+                    if stats:
+                        yf = ref.float()
+                        scale = torch.stack([yf.abs().sum((0, 1, 2)),
+                                             (yf * yf).sum((0, 1, 2))])
+                        e_st = ((st - ref_st).abs() / scale.clamp_min(1e-6)
+                                ).max().item()
+                    ok = e_row <= CONV_TOL[dt] and e_st <= CONV_TOL[dt] and \
+                        bool(torch.isfinite(y).all())
+                    where = "(%d,%d,%d,%d)->%d k=%d s=%d stats=%d" % (
+                        n, h, h, ci, co, k, s, stats)
+                    if e_row > worst["row"][0]:
+                        worst["row"] = (e_row, where)
+                    if e_st > worst["stats"][0]:
+                        worst["stats"] = (e_st, where)
+                    if not ok:
+                        print("conv %-8s %s  row-relative %.3g  "
+                              "stats-relative %.3g (tol %g)  FAIL"
+                              % (dt, where, e_row, e_st, CONV_TOL[dt]))
+                        raise RuntimeError("fused_conv_fwd disagrees with "
+                                           "its plain version")
+                    if (n, h, ci, co, k, s, dt, stats) == \
+                            (CONV_TIME_BATCH,) + CONV_MAIN + ("bfloat16",
+                                                              False):
+                        main_err = (y.float() - ref.float()).abs().max() \
+                            .item()
+            print("conv batch %-2d %-8s: %d shapes x {stats, none} held; "
+                  "worst row-relative %.3g at %s; worst stats-relative %.3g "
+                  "at %s (tol %g)"
+                  % (n, dt, len(shapes), worst["row"][0], worst["row"][1],
+                     worst["stats"][0], worst["stats"][1], CONV_TOL[dt]))
+
+    # times at batch 64, bf16, as the serving path runs them (no stats)
+    rows, main = [], None
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for (n, h, ci, co, k, s), count in sorted(
+            _resnet_conv_calls(CONV_TIME_BATCH).items()):
+        x, w, pro = inputs(n, h, ci, co, k, torch.bfloat16)
+        w_lib = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        scale, bias, _ = pro
+
+        def library():
+            a = torch.relu(x.float() * scale + bias).to(x.dtype)
+            return F.conv2d(a.permute(0, 3, 1, 2), w_lib, stride=s,
+                            padding=k // 2)
+
+        ms = _time_ms(torch, lambda: fb.conv_fwd(x, w, stride=s,
+                                                 prologue=pro))
+        plain_ms = _time_ms(torch, lambda: fb.conv_fwd_reference(
+            x, w, stride=s, prologue=pro), reps=10)
+        lib_ms = _time_ms(torch, library)
+        bound_ms, bound_by = _conv_bound(n, h, ci, co, k, s, "bfloat16",
+                                         False)
+        flops = 2.0 * n * (h // s) ** 2 * k * k * ci * co
+        print("time fused_conv_fwd bf16 (%d,%d,%d,%d)->%d k=%d s=%d x%d per "
+              "forward: kernel %.4f ms (%.1f TFLOP/s), plain %.4f ms, "
+              "library %.4f ms, bound %.5f ms (%s)"
+              % (n, h, h, ci, co, k, s, count, ms, flops / ms / 1e9,
+                 plain_ms, lib_ms, bound_ms, bound_by))
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound_ms)):
+            total[key] += count * v
+        if (h, ci, co, k, s) == CONV_MAIN:
+            main = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "max_abs_err": main_err,
+                    "shape": [n, h, h, ci, co, k, s]}
+        rows.append(count)
+    print("time fused_conv_fwd bf16, all %d B1 calls of a batch-64 forward: "
+          "kernel %.3f ms, plain %.3f ms, library %.3f ms, bound %.4f ms"
+          % (sum(rows), total["ms"], total["plain_ms"], total["library_ms"],
+             total["bound_ms"]))
+    if sum(rows) != B1_PER_FORWARD:
+        raise RuntimeError("conv: %d B1 calls per forward, want %d"
+                           % (sum(rows), B1_PER_FORWARD))
+    return dict({"name": "fused_conv_fwd", "route": "cuda",
+                 "source": "mxnet_tpu_torch/kernels/csrc/fused_conv_fwd.cu",
+                 "replaces": "mxnet_tpu/kernels/fused_block.py:484",
+                 "library": "BN-apply + ReLU, then cuDNN conv2d (NHWC)",
+                 "forward_total_ms": total}, **main)
+
+
+def _resnet_images(np, seed, n):
+    return np.random.RandomState(seed).randn(
+        n, *RESNET["image_shape"]).astype(np.float32)
+
+
+def resnet_serving_phase(torch, np, fb):
+    """Fused ResNet-50 behind ModelServer on the card; returns the B1
+    launch count of the served traffic."""
+    import threading
+
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.serving import AOTPredictor, ModelServer
+
+    gc.collect()
+    fused = resnet.get_symbol(fused=True, **RESNET)
+    unfused = resnet.get_symbol(fused=False, **RESNET)
+    ops = [nd.op.name for nd in fused._topo() if not nd.is_variable()]
+    if ops.count("FusedBottleneckUnit") != RESNET_UNITS or \
+            ops.count("transpose") != 2:
+        raise RuntimeError("fusion pass gave %d fused units and %d transposes"
+                           % (ops.count("FusedBottleneckUnit"),
+                              ops.count("transpose")))
+    one = (1,) + RESNET["image_shape"]
+    args, auxs = resnet.init_params(fused, one, seed=0)
+    print("resnet: fused graph of %d ops (%d FusedBottleneckUnit, 2 "
+          "transpose), %.2f M parameters" % (
+              len(ops), RESNET_UNITS,
+              sum(v.size for v in args.values()) / 1e6))
+
+    # fused bf16 against the unfused graph in fp32 (cuDNN, TF32 off)
+    x = _resnet_images(np, 1, RESNET_CHECK_IMAGES)
+    kw = dict(data_shapes={"data": one}, ladder=(RESNET_CHECK_IMAGES,),
+              output_names=["fc1_output"])
+    ref = AOTPredictor(unfused, args, auxs, dtype="float32",
+                       **kw).predict(x)[0]
+    pred = AOTPredictor(fused, args, auxs, dtype="bfloat16", **kw)
+    pred.predict(x)                                   # warm-up
+    fb.conv_fwd.launches = 0
+    got = pred.predict(x)[0]
+    per_forward = fb.conv_fwd.launches
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    top1 = float(np.mean(got.argmax(-1) == ref.argmax(-1)))
+    print("resnet check: %d images, fused bf16 vs unfused fp32 logits: max "
+          "|diff| %.4g, largest |logit| %.4g, relative %.4g (tol %g); top-1 "
+          "agreement %.3f (want >= %g); logit std %.4g; B1 launches per "
+          "forward %d" % (RESNET_CHECK_IMAGES, err, scale, err / scale,
+                          RESNET_LOGIT_TOL, top1, RESNET_TOP1,
+                          float(ref.std()), per_forward))
+    if not np.isfinite(got).all() or got.shape != (RESNET_CHECK_IMAGES,
+                                                   RESNET["num_classes"]):
+        raise RuntimeError("resnet: logits not finite / wrong shape")
+    if err > RESNET_LOGIT_TOL * scale or top1 < RESNET_TOP1:
+        raise RuntimeError("resnet: fused bf16 logits differ from the "
+                           "unfused fp32 graph")
+    if per_forward != B1_PER_FORWARD:
+        raise RuntimeError("resnet: %d B1 launches per forward, want %d"
+                           % (per_forward, B1_PER_FORWARD))
+    del pred
+
+    rng = np.random.RandomState(0)
+    sizes = [int(v) for v in rng.randint(1, RESNET_MAX_IMAGES + 1,
+                                         RESNET_REQUESTS)]
+    images = [_resnet_images(np, 100 + i, n) for i, n in enumerate(sizes)]
+    srv = ModelServer(ladder=RESNET_LADDER, dtype="bfloat16")
+    try:
+        model = srv.add_model("resnet50", symbol=fused, arg_params=args,
+                              aux_params=auxs, data_shapes={"data": one})
+        # warm-up, one forward per bucket (lazy CUDA module loading, cuDNN
+        # heuristics); then the forward time per bucket, host clock, each
+        # ending in the copy of the outputs to the host
+        bucket_ms = {}
+        for b in RESNET_LADDER:
+            batch = {"data": _resnet_images(np, 7, b)}
+            model.run_bucket(batch, b)
+            secs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                model.run_bucket(batch, b)
+                secs.append(time.perf_counter() - t0)
+            bucket_ms[b] = sorted(secs)[2] * 1e3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiler.serving_reset()
+        fb.conv_fwd.launches = 0
+        futures = [None] * len(sizes)
+
+        def client(k):
+            for i in range(k, len(sizes), RESNET_THREADS):
+                futures[i] = srv.submit("resnet50", images[i])
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(RESNET_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        results = [f.result(timeout=600)[0] for f in futures]
+        wall = time.perf_counter() - t0
+        launches = fb.conv_fwd.launches
+        stats = srv.stats()["resnet50"]
+        peak = torch.cuda.max_memory_allocated()
+        # where the device time goes: 8 requests again under torch.profiler
+        _device_profile(torch, lambda: [
+            f.result(timeout=600)[0] for f in
+            [srv.submit("resnet50", img) for img in images[:8]]])
+        alone = [model.predict(images[i])[0] for i in (0, 1)]
+    finally:
+        srv.close()
+
+    for i, (n, r) in enumerate(zip(sizes, results)):
+        if r.shape != (n, RESNET["num_classes"]) or not np.isfinite(r).all() \
+                or np.abs(r.sum(-1) - 1).max() > 1e-2:
+            raise RuntimeError("resnet request %d: bad output %s"
+                               % (i, r.shape))
+    for i in (0, 1):
+        gap = float(np.abs(alone[i] - results[i]).max())
+        print("resnet request %d (%d images): served in a batch vs alone, max "
+              "|diff| of probabilities %.3g" % (i, sizes[i], gap))
+        if gap > 1e-2:
+            raise RuntimeError("resnet: batched answer differs from alone")
+    n_img = sum(sizes)
+    print("resnet serve: %d requests of 1..%d images (%d images) from %d "
+          "threads in %.3f s wall = %.1f images/s; latency p50 %.1f ms p99 "
+          "%.1f ms; %d batches, mean %.2f images, fill %.3f; forward per "
+          "bucket (host clock) %s; peak memory %.2f GiB; B1 launches %d "
+          "(%d per forward x %d batches)"
+          % (len(sizes), RESNET_MAX_IMAGES, n_img, RESNET_THREADS, wall,
+             n_img / wall, stats["p50_ms"], stats["p99_ms"],
+             stats["batches"], stats["avg_batch_rows"], stats["batch_fill"],
+             ", ".join("%d: %.2f ms" % kv for kv in sorted(bucket_ms.items())),
+             peak / 2 ** 30, launches, B1_PER_FORWARD, stats["batches"]))
+    if launches != B1_PER_FORWARD * stats["batches"] or launches == 0:
+        raise RuntimeError("resnet: B1 launches %d != %d x %d batches"
+                           % (launches, B1_PER_FORWARD, stats["batches"]))
+    if stats["requests"] != len(sizes) or stats["errors"]:
+        raise RuntimeError("resnet: serving stats %r" % stats)
+    return launches
+
+
 def main():
     import torch
 
@@ -634,7 +961,9 @@ def main():
 
     from mxnet_tpu_torch.kernels import _build
     from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.kernels import fused_block as fb
 
+    t_start = time.perf_counter()
     card = _card_line()
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
@@ -648,16 +977,32 @@ def main():
                     or "Compiling entry" in line:
                 print("  %s: %s" % (name, line.strip()))
 
-    fwd = kernel_phase(torch, fa)
-    served = serving_phase(torch, np, fa)
-    bwd = backward_phase(torch, fa)
-    grad_phase(torch, np)
-    launches = training_phase(torch, np, fa)
+    phase_s = {}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        print("phase %s: %.1f s" % (name, phase_s[name]))
+        return out
+
+    fwd = phase("kernel", kernel_phase, torch, fa)
+    served = phase("serving", serving_phase, torch, np, fa)
+    conv = phase("conv_kernel", conv_kernel_phase, torch, fb)
+    conv["launches"] = phase("resnet_serving", resnet_serving_phase, torch,
+                             np, fb)
+    bwd = phase("backward", backward_phase, torch, fa)
+    phase("grad", grad_phase, torch, np)
+    launches = phase("training", training_phase, torch, np, fa)
     for entry, n in zip([fwd, *bwd], launches):
         entry["launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
-          "%d; serving B5 %d" % (TRAIN_STEPS, *launches, served))
-    print(json.dumps({"kernels": [fwd, *bwd]}))
+          "%d; generative serving B5 %d; image serving B1 %d"
+          % (TRAIN_STEPS, *launches, served, conv["launches"]))
+    print("phases: %s; total %.1f s" % (
+        ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
+        time.perf_counter() - t_start))
+    print(json.dumps({"kernels": [fwd, *bwd, conv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The ``MXNET_*`` knobs the generative serving path reads.
+"""The ``MXNET_*`` knobs the port reads.
 
 A copy of the entries of ``mxnet_tpu/config.py`` that this package uses,
 with the same defaults and the same strict accessors: a malformed value
@@ -45,6 +45,14 @@ KNOBS = {
     "MXNET_GENERATE_DRAFT": (
         "0", "self-draft layer count for speculative decoding; integer "
         ">= 0 (serving/broker.py)"),
+    "MXNET_SERVE_BATCH_LADDER": (
+        "1,4,16,64", "comma-separated batch-size buckets the AOT predictor "
+        "binds; requests pad up to the nearest bucket (serving/predictor.py; "
+        "malformed or non-increasing ladders raise)"),
+    "MXNET_IR_FUSE": (
+        "1", "kill switch for rule-based fusion in the model builders: "
+        "resnet(fused=True) applies the IR fusion pass when 1, returns the "
+        "unfused graph when 0 (models/resnet.py); 0|1, anything else raises"),
 }
 
 

@@ -19,7 +19,7 @@ from pathlib import Path
 
 from ..base import MXNetError
 
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_conv_fwd")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

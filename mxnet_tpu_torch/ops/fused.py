@@ -1,0 +1,74 @@
+"""Fused-block operator: the whole pre-activation ResNet bottleneck unit as
+one op (counterpart of ``FusedBottleneckUnit`` in
+``mxnet_tpu/ops/fused.py``).
+
+The IR fusion pass (``ir/rules.py`` ``bottleneck_fuse``) emits it when it
+rewrites the unfused builder graph. Parameter names and OIHW weight shapes
+match the unfused builder's exactly, so checkpoints load either way. The
+inference unit runs on kernel B1 (``kernels/fused_block.py``).
+
+Not ported yet: the training unit (``__is_train__=True``, kernels B2/B3),
+the mesh-partitioned variants and ``_ConvResidualAdd`` (the ``residual``
+pass).
+"""
+from __future__ import annotations
+
+from ..base import MXNetError
+from .registry import register
+
+
+@register(
+    name="FusedBottleneckUnit",
+    num_outputs=7,
+    num_visible_outputs=1,
+    aux_state_outputs={
+        "bn1_moving_mean": 1, "bn1_moving_var": 2,
+        "bn2_moving_mean": 3, "bn2_moving_var": 4,
+        "bn3_moving_mean": 5, "bn3_moving_var": 6,
+    },
+)
+def fused_bottleneck_unit(
+    data,
+    conv1_weight,
+    conv2_weight,
+    conv3_weight,
+    bn1_gamma,
+    bn1_beta,
+    bn2_gamma,
+    bn2_beta,
+    bn3_gamma,
+    bn3_beta,
+    bn1_moving_mean,
+    bn1_moving_var,
+    bn2_moving_mean,
+    bn2_moving_var,
+    bn3_moving_mean,
+    bn3_moving_var,
+    sc_weight=None,
+    num_filter=1,
+    stride=1,
+    dim_match=True,
+    eps=2e-5,
+    momentum=0.9,
+    __is_train__=False,
+):
+    """Pre-activation bottleneck unit (BN-ReLU-conv x3 + shortcut) in NHWC.
+
+    Outputs ``(out, bn1_mm, bn1_mv, ..., bn3_mv)``: in inference the moving
+    statistics come back unchanged."""
+    from ..kernels import fused_block as fb
+
+    if __is_train__:
+        raise MXNetError("FusedBottleneckUnit: training mode is not ported "
+                         "yet (training slice: kernels B2/B3)")
+
+    def hwio(w):
+        return None if w is None else w.permute(2, 3, 1, 0)  # OIHW -> HWIO
+
+    moving = (bn1_moving_mean, bn1_moving_var, bn2_moving_mean,
+              bn2_moving_var, bn3_moving_mean, bn3_moving_var)
+    out = fb.bottleneck_infer(
+        data, hwio(conv1_weight), hwio(conv2_weight), hwio(conv3_weight),
+        hwio(sc_weight), bn1_gamma, bn1_beta, bn2_gamma, bn2_beta, bn3_gamma,
+        bn3_beta, *moving, stride=int(stride), eps=float(eps))
+    return (out,) + moving

@@ -1,0 +1,156 @@
+"""Neural-net ops of the image-serving path (counterpart of the matching
+entries of ``mxnet_tpu/ops/nn.py``): ``Convolution``, ``BatchNorm``,
+``Activation``, ``Pooling``, ``FullyConnected`` and ``SoftmaxOutput``,
+with MXNet's attribute names and defaults and NCHW layout.
+
+The convolution goes to ``torch.nn.functional`` (cuDNN on the card), as
+the JAX package leaves it to XLA: it is the unfused graph's oracle and
+the ResNet stem, not a kernel of the port. ``SoftmaxOutput`` is its
+forward (the probabilities); its fused loss gradient comes with the
+training slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..base import MXNetError
+from .registry import register
+
+
+def _tuple(x, n):
+    if isinstance(x, (int, float)):
+        return (int(x),) * n
+    t = tuple(int(v) for v in x)
+    if len(t) == 0:
+        return (1,) * n
+    if len(t) == 1:
+        return t * n
+    return t
+
+
+@register(name="Convolution", aliases=("convolution", "Convolution_v1"))
+def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                pad=(), num_filter=1, num_group=1, workspace=1024,
+                no_bias=False, cudnn_tune=None, cudnn_off=False,
+                layout=None):
+    nd = len(kernel) if kernel else data.dim() - 2
+    if nd not in (1, 2, 3):
+        raise MXNetError("Convolution: %d spatial dims (1, 2 or 3)" % nd)
+    conv = getattr(F, "conv%dd" % nd)
+    out = conv(data, weight, stride=_tuple(stride, nd),
+               padding=_tuple(pad, nd) if pad else 0,
+               dilation=_tuple(dilate, nd), groups=int(num_group))
+    out = out.to(data.dtype)
+    if bias is not None and not no_bias:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+@register(name="FullyConnected", aliases=("fully_connected",))
+def fully_connected(data, weight, bias=None, num_hidden=1, no_bias=False,
+                    flatten=True):
+    x = data.reshape(data.shape[0], -1) if flatten else data
+    out = torch.matmul(x, weight.t())
+    if bias is not None and not no_bias:
+        out = out + bias
+    return out
+
+
+@register(name="Pooling", aliases=("pooling", "Pooling_v1"))
+def pooling(data, kernel=(), pool_type="max", global_pool=False,
+            cudnn_off=False, pooling_convention="valid", stride=(), pad=()):
+    nd = data.dim() - 2
+    if global_pool:
+        dims = tuple(range(2, data.dim()))
+        if pool_type == "max":
+            return data.amax(dim=dims, keepdim=True)
+        if pool_type == "avg":
+            return data.mean(dim=dims, keepdim=True)
+        return data.sum(dim=dims, keepdim=True)
+    if pooling_convention != "valid":
+        raise MXNetError("Pooling: pooling_convention=%r is not ported yet "
+                         "(only 'valid')" % pooling_convention)
+    kernel = _tuple(kernel, nd)
+    stride = _tuple(stride, nd) if stride else (1,) * nd
+    pad = _tuple(pad, nd) if pad else (0,) * nd
+    if pool_type == "max":
+        return getattr(F, "max_pool%dd" % nd)(data, kernel, stride, pad)
+    if pool_type in ("avg", "sum"):
+        # count_include_pad=True semantics (the MXNet default)
+        out = getattr(F, "avg_pool%dd" % nd)(data, kernel, stride, pad,
+                                              count_include_pad=True)
+        if pool_type == "sum":
+            for k in kernel:
+                out = out * k
+        return out
+    raise MXNetError("unknown pool_type %r" % pool_type)
+
+
+@register(name="Activation", aliases=("activation",))
+def activation(data, act_type="relu"):
+    if act_type == "relu":
+        return torch.clamp_min(data, 0)
+    if act_type == "sigmoid":
+        return torch.sigmoid(data)
+    if act_type == "tanh":
+        return torch.tanh(data)
+    if act_type == "softrelu":
+        return F.softplus(data)
+    if act_type == "softsign":
+        return F.softsign(data)
+    raise MXNetError("unknown act_type %r" % act_type)
+
+
+@register(name="SoftmaxOutput", aliases=("softmax_output", "Softmax"))
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False, preserve_shape=False,
+                   normalization="null", out_grad=False, smooth_alpha=0.0):
+    """Softmax probabilities (the forward of MXNet's fused softmax +
+    cross-entropy head; ``label`` is unused here)."""
+    if multi_output:
+        return torch.softmax(data, dim=1)
+    if preserve_shape:
+        return torch.softmax(data, dim=-1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
+
+
+@register(name="BatchNorm", aliases=("batch_norm", "BatchNorm_v1"),
+          num_outputs=3, num_visible_outputs=1)
+def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, cudnn_off=False,
+               __is_train__=False):
+    """Outputs (out, mean, var). Training uses one-pass batch statistics
+    (f32 sum and sum of squares, var = E[x²] - E[x]² clamped at 0, about a
+    per-channel pivot for f32 inputs); inference, or
+    ``use_global_stats``, the moving ones. (mean, var, gamma, beta) fold
+    into one per-channel scale and shift in f32, cast to the data dtype."""
+    ax = int(axis) % data.dim()
+    red = tuple(i for i in range(data.dim()) if i != ax)
+    bshape = tuple(data.shape[ax] if i == ax else 1 for i in range(data.dim()))
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if __is_train__ and not use_global_stats:
+        n = 1
+        for i in red:
+            n *= data.shape[i]
+        if data.dtype in (torch.bfloat16, torch.float16):
+            pivot = None
+            xf = data.float()
+        else:
+            pivot = data[tuple(slice(0, 1) if i in red else slice(None)
+                               for i in range(data.dim()))].float()
+            xf = data.float() - pivot
+        mean_c = xf.sum(dim=red) / n
+        var = torch.clamp_min((xf * xf).sum(dim=red) / n - mean_c * mean_c,
+                              0.0)
+        mean = mean_c if pivot is None else mean_c + pivot.reshape(
+            mean_c.shape)
+    else:
+        mean, var = moving_mean, moving_var
+    inv = torch.rsqrt(var.float() + eps)
+    scale = (inv * g.float()).to(data.dtype)
+    shift = (beta.float() - mean.float() * inv * g.float()).to(data.dtype)
+    out = data * scale.reshape(bshape) + shift.reshape(bshape)
+    return out, mean.to(moving_mean.dtype), var.to(moving_var.dtype)

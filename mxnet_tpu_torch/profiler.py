@@ -1,11 +1,18 @@
-"""Generative-serving counters (counterpart of ``mxnet_tpu/profiler.py``'s
-``generate_record`` / ``generate_stats`` / ``generate_reset``).
+"""Serving counters (counterpart of the matching parts of
+``mxnet_tpu/profiler.py``).
 
-Request/prefill/decode-step/token counts, finish reasons, requests shed
-at dequeue, slot occupancy (active-slot-steps / slot-steps), a
-time-to-first-token reservoir and the page-pool gauge
-(``pages_in_use == 0`` after a drained run is the exact-accounting
-check). Unknown counter names raise.
+- ``generate_record`` / ``generate_stats`` / ``generate_reset``:
+  request/prefill/decode-step/token counts, finish reasons, requests shed
+  at dequeue, slot occupancy (active-slot-steps / slot-steps), a
+  time-to-first-token reservoir and the page-pool gauge
+  (``pages_in_use == 0`` after a drained run is the exact-accounting
+  check).
+- ``serving_record`` / ``serving_stats`` / ``serving_reset``: per-model
+  counters of the dynamic-batching ``ModelServer`` (requests, batches,
+  rows against bucket capacity, shed, errors, queue depth, request
+  latency p50/p99).
+
+Unknown counter names raise.
 """
 from __future__ import annotations
 
@@ -90,3 +97,62 @@ def generate_reset():
         _GEN.update(_GEN_ZERO)
         _GEN_PAGES.clear()
         _GEN_TTFT = None
+
+
+# ---------------------------------------------------------------------------
+# ModelServer counters
+# ---------------------------------------------------------------------------
+_SERVE_LOCK = threading.Lock()
+_SERVE = {}
+_SERVE_LAT_CAP = 8192  # newest-N latency reservoir per model
+
+
+def serving_record(model, requests=0, batches=0, rows=0, capacity=0,
+                   errors=0, shed=0, queue_depth=None, latencies=None):
+    """Accumulate serving counters for one model (thread-safe). ``shed``
+    counts deadline-expired requests dropped at dequeue."""
+    with _SERVE_LOCK:
+        s = _SERVE.get(model)
+        if s is None:
+            s = _SERVE[model] = {
+                "requests": 0, "batches": 0, "rows": 0, "capacity": 0,
+                "errors": 0, "shed": 0, "max_queue_depth": 0,
+                "lat": deque(maxlen=_SERVE_LAT_CAP)}
+        s["requests"] += requests
+        s["batches"] += batches
+        s["rows"] += rows
+        s["capacity"] += capacity
+        s["errors"] += errors
+        s["shed"] += shed
+        if queue_depth is not None and queue_depth > s["max_queue_depth"]:
+            s["max_queue_depth"] = queue_depth
+        if latencies:
+            s["lat"].extend(latencies)
+
+
+def serving_stats(reset=False):
+    """Per-model snapshot with the batch-fill ratio (rows / bucket
+    capacity), mean batch rows and request latency p50/p99 (ms); empty
+    dict when no ModelServer ran."""
+    with _SERVE_LOCK:
+        snap = {m: dict(s, lat=list(s["lat"])) for m, s in _SERVE.items()}
+        if reset:
+            _SERVE.clear()
+    out = {}
+    for model, s in snap.items():
+        lat = sorted(s.pop("lat"))
+        if s["batches"]:
+            s["avg_batch_rows"] = round(s["rows"] / s["batches"], 2)
+        if s["capacity"]:
+            s["batch_fill"] = round(s["rows"] / s["capacity"], 3)
+        if lat:
+            s["p50_ms"] = _percentile_ms(lat, 0.50)
+            s["p99_ms"] = _percentile_ms(lat, 0.99)
+        out[model] = s
+    return out
+
+
+def serving_reset():
+    with _SERVE_LOCK:
+        _SERVE.clear()
+

@@ -1,9 +1,11 @@
-"""Generative serving on PyTorch: paged KV cache, prefill + decode and the
-continuous-batching :class:`GenerateServer` (counterpart of
-``mxnet_tpu/serving``)."""
+"""Serving on PyTorch (counterpart of ``mxnet_tpu/serving``): the
+bound-symbol :class:`AOTPredictor` behind the dynamic-batching
+:class:`ModelServer`, and generative serving (paged KV cache, prefill +
+decode, the continuous-batching :class:`GenerateServer`)."""
 from .broker import (
     DeadlineExceeded,
     GenerateServer,
+    ModelServer,
     ServerClosed,
     ServerOverloaded,
 )
@@ -13,8 +15,9 @@ from .generate import (
     PagePool,
     PagePoolExhausted,
 )
-from .predictor import ServingError
+from .predictor import AOTPredictor, ServingError
 
-__all__ = ["DeadlineExceeded", "GenerateError", "GenerateServer",
-           "GenerativePredictor", "PagePool", "PagePoolExhausted",
-           "ServerClosed", "ServerOverloaded", "ServingError"]
+__all__ = ["AOTPredictor", "DeadlineExceeded", "GenerateError",
+           "GenerateServer", "GenerativePredictor", "ModelServer", "PagePool",
+           "PagePoolExhausted", "ServerClosed", "ServerOverloaded",
+           "ServingError"]

@@ -1,5 +1,6 @@
-"""Continuous-batching generate server (counterpart of the
-``GenerateServer`` half of ``mxnet_tpu/serving/broker.py``).
+"""Serving brokers (counterpart of ``mxnet_tpu/serving/broker.py``): the
+dynamic-batching :class:`ModelServer` for bound symbol models and the
+continuous-batching :class:`GenerateServer`.
 
 Bounded queue depth gives backpressure: ``submit`` blocks (up to
 ``MXNET_SERVE_SUBMIT_TIMEOUT``) while the queue holds
@@ -8,9 +9,11 @@ sticky and surfaces on the next submit. ``close()`` stops and joins the
 loop with a bounded deadline and fails queued and in-flight requests
 loudly.
 
-Not ported yet (ROADMAP.md Queue A item 8): the shared-prefix KV cache
-(``prefix_cache``), speculative decoding (``spec_k``) and the chaos
-``generate:stall`` hook.
+Not ported yet: ``ModelServer``'s tenant/priority QoS classes, its
+checkpoint hot swap (``swap_from_checkpoint``) and the chaos hooks;
+``GenerateServer``'s shared-prefix KV cache (``prefix_cache``),
+speculative decoding (``spec_k``) and the ``generate:stall`` hook
+(ROADMAP.md Queue A items 8 and 11).
 """
 from __future__ import annotations
 
@@ -30,7 +33,14 @@ from .generate import (
     _env_positive_int,
     _env_strict_bool,
 )
-from .predictor import ServingError, env_positive_float, env_positive_int
+from .predictor import (
+    AOTPredictor,
+    ServingError,
+    env_batch_ladder,
+    env_positive_float,
+    env_positive_int,
+    validate_ladder,
+)
 
 
 class DeadlineExceeded(ServingError):
@@ -48,6 +58,324 @@ class ServerClosed(ServingError):
 class ServerOverloaded(ServingError):
     """Backpressure rejection: the bounded request queue stayed full
     past the submit timeout. The request never entered the queue."""
+
+
+class _Request:
+    __slots__ = ("inputs", "rows", "future", "t_submit", "deadline")
+
+    def __init__(self, inputs, rows, deadline=None):
+        self.inputs = inputs
+        self.rows = rows
+        self.future = Future()
+        self.t_submit = time.perf_counter()
+        self.deadline = deadline  # absolute time.monotonic(), or None
+
+
+class _ModelWorker:
+    """One model's queue + serving thread (drain and coalesce)."""
+
+    def __init__(self, name, predictor, queue_depth):
+        self.name = name
+        self.predictor = predictor
+        self._depth = queue_depth
+        self._cond = threading.Condition()
+        self._q = deque()
+        self._stopped = False
+        self._error = None       # sticky worker-death error
+        # held around every batch forward; swap() takes it to wait out the
+        # in-flight batch before republishing weights
+        self._exec_lock = threading.Lock()
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="serve-%s" % name)
+        self._thread.start()
+
+    def enqueue(self, req, timeout):
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while True:
+                if self._stopped:
+                    if self._error is not None:
+                        raise ServingError("model %r: worker died: %r"
+                                           % (self.name, self._error))
+                    raise ServerClosed("model %r: worker is stopped"
+                                       % self.name)
+                if len(self._q) < self._depth:
+                    break
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise ServerOverloaded(
+                        "model %r: request queue full (%d queued, "
+                        "MXNET_SERVE_QUEUE_DEPTH=%d) — backpressure timeout"
+                        % (self.name, len(self._q), self._depth))
+                self._cond.wait(min(remaining, 0.1))
+            self._q.append(req)
+            depth = len(self._q)
+            self._cond.notify_all()
+        return depth
+
+    def _drain_locked(self):
+        """Pop the largest ready batch: queued requests in FIFO order while
+        the running row total fits the largest bucket. Requests whose
+        deadline passed are shed here, before they take a batch slot.
+        Returns (reqs, rows, shed)."""
+        cap = self.predictor.max_bucket
+        now = time.monotonic()
+        shed, reqs, total = [], [], 0
+        while self._q:
+            r = self._q[0]
+            if r.deadline is not None and now > r.deadline:
+                shed.append(self._q.popleft())
+                continue
+            if reqs and total + r.rows > cap:
+                break
+            reqs.append(self._q.popleft())
+            total += r.rows
+        return reqs, total, shed
+
+    def _run(self):
+        try:
+            while True:
+                with self._cond:
+                    while not self._q and not self._stopped:
+                        self._cond.wait()
+                    if self._stopped:
+                        return
+                    reqs, rows, shed = self._drain_locked()
+                    self._cond.notify_all()  # queue space freed
+                if shed:
+                    # futures fail outside the lock: done-callbacks run
+                    # inline and may submit again
+                    exc = DeadlineExceeded(
+                        "model %r: deadline expired before dispatch (shed "
+                        "at dequeue)" % self.name)
+                    for r in shed:
+                        if not r.future.done():
+                            r.future.set_exception(exc)
+                    profiler.serving_record(self.name, shed=len(shed))
+                if not reqs:
+                    continue
+                try:
+                    self._execute(reqs, rows)
+                except Exception as e:  # a bad batch fails ITS futures only
+                    for r in reqs:
+                        if not r.future.done():
+                            r.future.set_exception(e)
+                    profiler.serving_record(self.name, errors=len(reqs))
+        except BaseException as e:  # worker death: sticky, fail the queue
+            with self._cond:
+                self._error = e
+                self._stopped = True
+                pending = list(self._q)
+                self._q.clear()
+                self._cond.notify_all()
+            for r in pending:
+                if not r.future.done():
+                    r.future.set_exception(e)
+
+    def _execute(self, reqs, rows):
+        pred = self.predictor
+        bucket = pred.pick_bucket(rows)
+        with self._exec_lock:
+            if len(reqs) == 1 and reqs[0].rows == bucket:
+                inputs = reqs[0].inputs  # exact fit: no assembly copy
+            else:
+                inputs = {}
+                for name in pred.data_names:
+                    first = reqs[0].inputs[name]
+                    buf = np.zeros((bucket,) + first.shape[1:],
+                                   dtype=first.dtype)
+                    ofs = 0
+                    for r in reqs:
+                        buf[ofs:ofs + r.rows] = r.inputs[name]
+                        ofs += r.rows
+                    inputs[name] = buf
+            outs = pred.run_bucket(inputs, bucket)
+        now = time.perf_counter()
+        lats, ofs = [], 0
+        for r in reqs:
+            r.future.set_result([o[ofs:ofs + r.rows]
+                                 if o.ndim and o.shape[0] == bucket else o
+                                 for o in outs])
+            ofs += r.rows
+            lats.append(now - r.t_submit)
+        profiler.serving_record(self.name, batches=1, rows=rows,
+                                capacity=bucket, latencies=lats)
+
+    def stop(self):
+        with self._cond:
+            self._stopped = True
+            self._cond.notify_all()
+
+    def join(self, timeout):
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
+    def fail_pending(self, exc):
+        with self._cond:
+            pending = list(self._q)
+            self._q.clear()
+            self._cond.notify_all()
+        for r in pending:
+            if not r.future.done():
+                r.future.set_exception(exc)
+        return len(pending)
+
+
+class ModelServer:
+    """Multi-model dynamic-batching inference server.
+
+    ::
+
+        with ModelServer(dtype="bfloat16") as srv:
+            srv.add_model("resnet", symbol=sym, arg_params=args,
+                          aux_params=auxs,
+                          data_shapes={"data": (1, 3, 224, 224)})
+            fut = srv.submit("resnet", batch_np)   # -> Future
+            probs = fut.result()[0]
+
+    One worker thread per resident model drains everything queued, up to
+    the model's largest batch bucket, into one padded forward and slices
+    the results back per request: under light load a request rides alone
+    in the smallest bucket, under heavy load the queue refills while a
+    batch computes and the next drain coalesces. ``submit`` blocks for
+    queue space up to ``MXNET_SERVE_SUBMIT_TIMEOUT`` seconds while
+    ``MXNET_SERVE_QUEUE_DEPTH`` requests are queued, then raises
+    :class:`ServerOverloaded`. ``device`` defaults to ``cuda`` (raising
+    when there is none).
+    """
+
+    def __init__(self, ladder=None, queue_depth=None, submit_timeout=None,
+                 dtype="float32", device=None):
+        self._ladder = env_batch_ladder() if ladder is None \
+            else validate_ladder(ladder)
+        self._queue_depth = env_positive_int(
+            "MXNET_SERVE_QUEUE_DEPTH", 256) if queue_depth is None \
+            else int(queue_depth)
+        if self._queue_depth < 1:
+            raise ServingError("ModelServer: queue_depth must be >= 1, got "
+                               "%d" % self._queue_depth)
+        self._submit_timeout = env_positive_float(
+            "MXNET_SERVE_SUBMIT_TIMEOUT", 60.0) if submit_timeout is None \
+            else float(submit_timeout)
+        self._dtype = dtype
+        self._device = device
+        self._workers = {}
+        self._lock = threading.Lock()
+        self._closed = False
+
+    def add_model(self, name, symbol=None, arg_params=None, aux_params=None,
+                  data_shapes=None, predictor=None, **predictor_kwargs):
+        """Make ``name`` resident: either hand in a prebuilt
+        :class:`AOTPredictor`, or a symbol + params + data_shapes and the
+        server binds one at its ladder, dtype and device."""
+        self._check_open()
+        if predictor is None:
+            if symbol is None or data_shapes is None:
+                raise ServingError(
+                    "add_model(%r): need either predictor= or symbol=/"
+                    "data_shapes= (+params)" % name)
+            predictor_kwargs.setdefault("ladder", self._ladder)
+            predictor_kwargs.setdefault("dtype", self._dtype)
+            predictor_kwargs.setdefault("device", self._device)
+            predictor = AOTPredictor(symbol, arg_params, aux_params,
+                                     data_shapes=data_shapes,
+                                     **predictor_kwargs)
+        with self._lock:
+            if name in self._workers:
+                raise ServingError("model %r is already resident; use swap() "
+                                   "to update its weights" % name)
+            self._workers[name] = _ModelWorker(name, predictor,
+                                               self._queue_depth)
+        return predictor
+
+    def models(self):
+        with self._lock:
+            return sorted(self._workers)
+
+    def _worker(self, name):
+        with self._lock:
+            worker = self._workers.get(name)
+        if worker is None:
+            raise ServingError("unknown model %r (resident: %s)"
+                               % (name, self.models()))
+        return worker
+
+    def _check_open(self):
+        if self._closed:
+            raise ServerClosed("ModelServer is closed")
+
+    def submit(self, name, inputs, timeout=None, deadline=None):
+        """Enqueue one request; returns a ``concurrent.futures.Future``
+        resolving to the list of output arrays (request row count). A
+        ``deadline`` (seconds from now) makes it sheddable: still queued
+        when it passes, the request is dropped at dequeue and its future
+        fails with :class:`DeadlineExceeded`."""
+        self._check_open()
+        worker = self._worker(name)
+        inputs, rows = worker.predictor._normalize(inputs)
+        worker.predictor.pick_bucket(rows)  # reject oversized in the caller
+        if deadline is not None:
+            deadline = float(deadline)
+            if not deadline > 0:
+                raise ServingError("submit: deadline must be > 0 seconds, "
+                                   "got %r" % deadline)
+            deadline = time.monotonic() + deadline
+        req = _Request(inputs, rows, deadline=deadline)
+        depth = worker.enqueue(
+            req, self._submit_timeout if timeout is None else timeout)
+        profiler.serving_record(name, requests=1, queue_depth=depth)
+        return req.future
+
+    def predict(self, name, inputs, timeout=None):
+        """Synchronous convenience wrapper around :meth:`submit`."""
+        return self.submit(name, inputs, timeout=timeout).result()
+
+    def swap(self, name, arg_params=None, aux_params=None,
+             allow_extra=False):
+        """Replace a resident model's weights without dropping requests:
+        waits out the in-flight batch, swaps, releases; queued requests are
+        served by the new weights."""
+        self._check_open()
+        worker = self._worker(name)
+        with worker._exec_lock:
+            return worker.predictor.swap_params(arg_params, aux_params,
+                                                allow_extra=allow_extra)
+
+    def stats(self, reset=False):
+        """Per-model serving counters (see profiler.serving_stats)."""
+        return profiler.serving_stats(reset=reset)
+
+    def close(self, timeout=5.0):
+        """Stop and join every worker (bounded), fail still-queued requests
+        with :class:`ServerClosed`. Idempotent; submits after close
+        raise."""
+        if self._closed:
+            return
+        self._closed = True
+        with self._lock:
+            workers = list(self._workers.values())
+        for w in workers:
+            w.stop()
+        deadline = time.monotonic() + timeout
+        for w in workers:
+            w.join(max(0.0, deadline - time.monotonic()))
+        exc = ServerClosed("ModelServer closed before the request was "
+                           "dispatched")
+        for w in workers:
+            w.fail_pending(exc)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 class _GenRequest:

@@ -276,5 +276,7 @@ def test_import_pulls_in_neither_jax_nor_mxnet_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     for name in ("parallel.spmd", "lr_scheduler", "kernels.flash_attention",
-                 "models.transformer", "serving.broker"):
+                 "models.transformer", "serving.broker",
+                 "kernels.fused_block", "serving.predictor", "ir.passes",
+                 "models.resnet"):
         assert "'mxnet_tpu_torch.%s'" % name in r.stdout, name

@@ -17,9 +17,16 @@ below at 1% of the tensor's largest |ref|: a row whose exact value is 0
 (dq of query row 0 under causal, where one live key gives ds = 0) comes
 out of both sides as rounding noise of ~1e-7, which has no scale of its
 own. lse is fp32 on both sides: 1e-3 absolute.
+
+B1 (``fused_conv_fwd``) is held the same way per output pixel (a row of
+Co channels), and its stats per channel against that channel's sum of
+|y| (sum of y^2 for the squares): 1e-4 in fp32, 2**-6 in bf16. TF32 is
+off for the plain version's cuDNN convolution.
 """
 import pytest
 import torch
+
+from mxnet_tpu_torch.kernels import fused_block as fb
 
 from mxnet_tpu_torch.kernels.flash_attention import (
     attention_delta,
@@ -127,3 +134,80 @@ def test_autograd_on_the_card_launches_the_backward_kernels():
                                                   before[1] + 1)
     for g, r in zip(grads, refs):
         assert _row_err(g, r) <= ROW_TOL[torch.float32]
+
+
+# (n, h, ci, co, k, stride): ResNet-50 unit shapes at batch 2, plus ragged
+# tiles (Co 70, H 7) and a Ci that is not a multiple of the K chunk
+CONV_SHAPES = [(2, 56, 64, 64, 3, 1), (2, 56, 128, 128, 3, 2),
+               (2, 14, 1024, 2048, 1, 2), (2, 7, 512, 512, 3, 1),
+               (3, 7, 40, 70, 3, 1), (2, 8, 8, 16, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_fwd_matches_plain_on_the_card(dtype):
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for (n, h, ci, co, k, stride) in CONV_SHAPES:
+        x = torch.randn(n, h, h, ci, device="cuda", generator=gen).to(dt)
+        w = (torch.randn(k, k, ci, co, device="cuda", generator=gen)
+             / (k * k * ci) ** 0.5).to(dt)
+        scale = torch.rand(ci, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(ci, device="cuda", generator=gen)
+        for pro in (None, (scale, bias, True), (scale, bias, False)):
+            before = fb.conv_fwd.launches
+            y, st = fb.conv_fwd(x, w, stride=stride, prologue=pro,
+                                emit_stats=True)
+            ref, ref_st = fb.conv_fwd_reference(x, w, stride=stride,
+                                                prologue=pro,
+                                                emit_stats=True)
+            torch.cuda.synchronize()
+            assert fb.conv_fwd.launches == before + 1
+            assert y.dtype == dt and y.shape == ref.shape
+            assert _row_err(y, ref) <= ROW_TOL[dt]
+            yf = ref.float()
+            for t, bound in ((0, yf.abs().sum((0, 1, 2))),
+                             (1, (yf * yf).sum((0, 1, 2)))):
+                assert bool(((st[t] - ref_st[t]).abs()
+                             <= ROW_TOL[dt] * bound + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_conv_fwd_takes_strided_input_and_refuses_odd_stride2():
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(2, 16, 8, 8, device="cuda", generator=gen)
+    w = torch.randn(3, 3, 16, 8, device="cuda", generator=gen) / 12
+    nhwc = x.permute(0, 2, 3, 1)      # a transposed view, as in the graph
+    y, _ = fb.conv_fwd(nhwc, w)
+    ref, _ = fb.conv_fwd_reference(nhwc.contiguous(), w)
+    torch.cuda.synchronize()
+    assert _row_err(y, ref) <= ROW_TOL[torch.float32]
+    with pytest.raises(ValueError, match="stride-2 requires even"):
+        fb.conv_fwd(nhwc[:, :7, :7], w, stride=2)
+
+
+@pytest.mark.cuda
+def test_conv_fwd_entry_point_checks_the_stats_scratch_rows():
+    """The C entry point refuses a stats scratch buffer whose row count is
+    not one per pixel tile of its own tile size."""
+    _card()
+    from mxnet_tpu_torch.kernels import _build
+
+    x = torch.randn(2, 12, 12, 16, device="cuda")
+    w = torch.randn(1, 1, 16, 8, device="cuda")
+    fb.conv_fwd(x, w, emit_stats=True)      # builds it and binds the types
+    lib = _build.load("fused_conv_fwd")
+    tiles = -(-2 * 12 * 12 // lib.fused_conv_fwd_tile_m())
+    y = torch.empty(2, 12, 12, 8, device="cuda")
+    stats = torch.empty(2, 8, device="cuda")
+    partial = torch.empty(tiles + 1, 2, 8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for rows in (tiles, tiles - 1, tiles + 1):
+        err = lib.fused_conv_fwd(x.data_ptr(), w.data_ptr(), None, None,
+                                 y.data_ptr(), partial.data_ptr(), rows,
+                                 stats.data_ptr(), 2, 12, 12, 16, 8, 1, 1,
+                                 0, 0, 0, stream)
+        assert (err == 0) == (rows == tiles), rows
