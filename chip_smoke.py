@@ -46,7 +46,25 @@ the kernels are built for sm_90a) and ``nvcc``. It
    on one seeded (8, 2049) batch: a warm-up step and 5 timed steps, with
    finite and falling loss, 12 launches of each of B5, B6 and B7 per step,
    and one ``remat=True`` step with the same loss and 24 B5 launches;
-10. prints one JSON line describing each kernel, then the result line
+10. holds the fused ResNet backward kernels, B2 (weight gradient: the
+   forward's BN-apply + ReLU recomputed on the x side, the g side whole or
+   rebuilt by the next BN's backward) and B3 (data gradient with that
+   rebuild, the input BN's relu mask and its (dbeta, dgamma) sums, the
+   shortcut's extra term), against their plain versions at every call of
+   a ResNet-50 train step, with the options each call uses, at batch 64
+   and 2, in bf16 and fp32, and times the kernels, the plain versions and
+   the library route (the elementwise parts, then cuDNN's weight-only or
+   input-only convolution backward);
+11. computes one step's gradients of a tiny fp32 fused ResNet on the card
+   and on the CPU and holds them together, and holds the full-width fused
+   bf16 gradients against the unfused fp32 graph's (cuDNN, TF32 off);
+12. trains the fused ResNet-50 as ``bench.py`` configures it — 1000
+   classes, 224x224, bf16 compute, Xavier weights from seed 0, SGD lr 0.1,
+   momentum 0.9, wd 1e-4 — through ``TrainStep`` at batch 64 on one seeded
+   batch: a warm-up step, 5 timed steps and a profiled one, with a first
+   loss near ln 1000, a falling loss, moving statistics that move and 52
+   B1, 52 B2 and 48 B3 launches a step;
+13. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase exits non-zero before the result line. Without a CUDA
@@ -118,6 +136,44 @@ CONV_TIME_BATCH, CONV_MAIN = 64, (56, 64, 64, 3, 1)
 # class must agree. bf16 keeps 8 significant bits and every unit rounds its
 # activations; the measured gap on an H100 is 0.0054, so 0.02 leaves ~4x
 RESNET_LOGIT_TOL, RESNET_TOP1 = 0.02, 0.9
+# fused ResNet-50 training, bench.py's configuration, at batch 64 on one card
+CARD = "cuda"
+RESNET_TRAIN_BATCH, RESNET_TRAIN_STEPS = 64, 5
+RESNET_OPT = dict(name="sgd", learning_rate=0.1, momentum=0.9, wd=1e-4)
+# launches a train step: B1 as in a forward; B2 three a unit plus the
+# downsample shortcut's dw in 4 units; B3 three a unit (the shortcut's data
+# gradient rides conv1's as its extra term)
+B2_PER_STEP = RESNET_UNITS * 3 + 4
+B3_PER_STEP = RESNET_UNITS * 3
+# first loss of Xavier weights: ln(1000) = 6.91 plus half the logits'
+# variance; the pooled features (relu of a unit-variance BN output) and a
+# Xavier FC give logits of std ~0.5, so ~7.0; the band allows twice that
+RESNET_FIRST_LOSS, RESNET_FIRST_LOSS_TOL = 6.91, 0.5
+# B2 and B3 against their plain versions at the calls of a train step at
+# batch 64 and at batch 2 (ragged tiles). B3 is held as B1 is (CONV_TOL,
+# per input pixel; its stats per channel against the channel's sum of
+# |e| and of |e * xhat|). B2 per (tap, Co) column of dw against the
+# column's largest sum of |terms|: both sides multiply the same rounded
+# operands in f32, so only the order of the sums differs, in both types
+GRAD_CHECK_BATCHES = (RESNET_TRAIN_BATCH, 2)
+WGRAD_TOL = 1e-4
+# the stage-1 3x3, as conv2 of a stage-1 unit calls them: (n, h, ci, co, k,
+# stride), the g side rebuilt by bn3's backward
+GRAD_MAIN = (RESNET_TRAIN_BATCH, 56, 64, 64, 3, 1)
+# card vs CPU gradients of the tiny fused ResNet (tests/test_fused_resnet.py's
+# _tiny_resnet), one step at batch 4, fp32 on both sides, TF32 off
+TINY_RESNET = dict(units=[2, 1], num_stages=2, filter_list=[8, 16, 32],
+                   num_classes=5, image_shape=(3, 64, 64), bottle_neck=True)
+TINY_BATCH = 4
+# full-width fused bf16 gradients against the unfused fp32 graph's, per
+# parameter tensor, at Xavier init. bf16 noise dominates many of them there
+# (a BN gamma or beta whose exact gradient is ~0: the net is invariant to
+# scaling a BN's gamma and beta together where a BN follows), in the fused
+# graph and the unfused one alike, so the yardstick is the unfused graph
+# in bf16 (the library route): every tensor's relative L2 gap to fp32 is
+# at most FUSED_GRAD_RATIO times the library's own. One rule for all 155
+FUSED_CHECK_BATCH = 8
+FUSED_GRAD_RATIO = 1.5
 
 
 def _card_line():
@@ -950,6 +1006,465 @@ def resnet_serving_phase(torch, np, fb):
     return launches
 
 
+def _resnet_grad_calls(n):
+    """The B2 and B3 calls of a fused ResNet-50 train step at batch ``n``,
+    as ``_unit_bwd`` makes them: ``{(kind, n, h, ci, co, k, stride, bnbwd,
+    extra): count}``, h the conv input's height, ``bnbwd`` whether the g
+    side is rebuilt from (e, y_raw), ``extra`` the shortcut's (co2, s2)
+    term of conv1's B3."""
+    calls = {}
+
+    def add(*key):
+        calls[key] = calls.get(key, 0) + 1
+
+    h, ci = 56, 64
+    for stage, units in enumerate((3, 4, 6, 3)):
+        nf = 256 << stage
+        c = nf // 4
+        for u in range(units):
+            s = 2 if stage and u == 0 else 1
+            ho = h // s
+            add("dgrad", n, ho, c, nf, 1, 1, False, None)       # conv3: e2
+            add("wgrad", n, ho, c, nf, 1, 1, False, None)       # dw3
+            add("wgrad", n, h, c, c, 3, s, True, None)          # dw2
+            add("dgrad", n, h, c, c, 3, s, True, None)          # conv2: e1
+            add("wgrad", n, h, ci, c, 1, 1, True, None)         # dw1
+            add("dgrad", n, h, ci, c, 1, 1, True,               # conv1: e0
+                (nf, s) if u == 0 else None)
+            if u == 0:
+                add("wgrad", n, h, ci, nf, 1, s, False, None)   # dwsc
+            h, ci = ho, nf
+    return calls
+
+
+def _grad_inputs(torch, gen, key, dt):
+    """Seeded operands of one B2/B3 call on the card: x (the conv input),
+    w, the x-side prologue, the g side (whole, or (e, y_raw) and the five
+    BN-backward constants), the input BN's mask and the extra term."""
+    _kind, n, h, ci, co, k, s, bnbwd, extra = key
+    ho = h // s
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=CARD, generator=gen)
+
+    def pos(*shape):
+        return torch.rand(*shape, device=CARD, generator=gen) + 0.5
+
+    x = rnd(n, h, h, ci).to(dt)
+    w = (rnd(k, k, ci, co) / (k * k * ci) ** 0.5).to(dt)
+    pro = (pos(ci), rnd(ci) * 0.5, True)
+    g_parts, consts = rnd(n, ho, ho, co).to(dt), None
+    if bnbwd:
+        g_parts = (g_parts, rnd(n, ho, ho, co).to(dt))
+        consts = (pos(co), rnd(co) * 0.2, pos(co), rnd(co) * 0.01,
+                  rnd(co) * 0.01)
+    mask = (x, pos(ci), rnd(ci) * 0.5, rnd(ci) * 0.3, pos(ci))
+    ex = None
+    if extra is not None:
+        co2, s2 = extra
+        ex = (rnd(n, h // s2, h // s2, co2).to(dt),
+              (rnd(1, 1, ci, co2) / ci ** 0.5).to(dt), s2)
+    return x, w, pro, g_parts, consts, mask, ex
+
+
+def _wgrad_err(torch, fb, dw, ref, x, g_parts, w_shape, stride, pro, consts):
+    """Largest |dw - ref| of each (tap, Co) column over the column's largest
+    sum of |terms| (the same product on absolute values)."""
+    h = fb._apply_prologue(x, pro).float().abs()
+    g = fb._g_value(g_parts, consts).to(x.dtype).float().abs()
+    k = int(w_shape[0])
+    terms = torch.nn.grad.conv2d_weight(
+        h.permute(0, 3, 1, 2), (int(w_shape[3]), int(w_shape[2]), k, k),
+        g.permute(0, 3, 1, 2), stride=stride, padding=k // 2)
+    col = terms.permute(2, 3, 1, 0).amax(dim=2).clamp_min(1e-30)
+    return ((dw - ref).abs().amax(dim=2) / col).max().item()
+
+
+def _grad_bound(key, dtype):
+    """Least time (ms) for one B2 or B3 call: its operations over the peak
+    rate of its type, or every operand read once and every output written
+    once over the memory rate, whichever is larger."""
+    kind, n, h, ci, co, k, s, bnbwd, extra = key
+    ho = h // s
+    isz = 2 if dtype == "bfloat16" else 4
+    flops = 2.0 * n * ho * ho * k * k * ci * co
+    g_side = (2 if bnbwd else 1) * n * ho * ho * co * isz + \
+        (5 * 4 * co if bnbwd else 0)
+    if kind == "wgrad":
+        nbytes = isz * n * h * h * ci + g_side + 4 * k * k * ci * co \
+            + 4 * 2 * ci
+    else:
+        # w, y_in and e_out, the mask's 4 vectors and the stats
+        nbytes = g_side + isz * (k * k * ci * co + 2 * n * h * h * ci) \
+            + 4 * 4 * ci + 4 * 2 * ci
+        if extra is not None:
+            co2, s2 = extra
+            flops += 2.0 * n * (h // s2) ** 2 * ci * co2
+            nbytes += isz * (n * (h // s2) ** 2 * co2 + ci * co2)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def _grad_library(torch, fb, key, ops):
+    """One call's library route, a timing yardstick only: the elementwise
+    parts in PyTorch around cuDNN's weight-only (B2) or input-only (B3)
+    convolution backward."""
+    kind, _n, _h, _ci, _co, k, s, _bnbwd, _extra = key
+    x, w, pro, g_parts, consts, mask, ex = ops
+    cb = torch.ops.aten.convolution_backward
+    w_lib = w.permute(3, 2, 0, 1)
+
+    def g_side():
+        if consts is None:
+            return g_parts
+        return fb._bnbwd_value(g_parts[0], g_parts[1], consts).to(x.dtype)
+
+    if kind == "wgrad":
+        def library():
+            a = torch.relu(x.float() * pro[0] + pro[1]).to(x.dtype)
+            return cb(g_side().permute(0, 3, 1, 2), a.permute(0, 3, 1, 2),
+                      w_lib, None, [s, s], [k // 2] * 2, [1, 1], False,
+                      [0, 0], 1, [False, True, False])[1]
+        return library
+
+    def library():
+        dx = cb(g_side().permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w_lib,
+                None, [s, s], [k // 2] * 2, [1, 1], False, [0, 0], 1,
+                [True, False, False])[0]
+        if ex is not None:
+            dx = dx + cb(ex[0].permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+                         ex[1].permute(3, 2, 0, 1), None, [ex[2]] * 2, [0, 0],
+                         [1, 1], False, [0, 0], 1, [True, False, False])[0]
+        t = dx.permute(0, 2, 3, 1).float()
+        _y, gamma, beta, mu, inv = mask
+        xhat = (x.float() - mu) * inv
+        e = torch.where(gamma * xhat + beta > 0, t, 0.0)
+        return e.to(x.dtype), torch.stack([e.sum((0, 1, 2)),
+                                           (e * xhat).sum((0, 1, 2))])
+    return library
+
+
+def _grad_call(fb, key, ops, plain=False):
+    kind, _n, _h, _ci, _co, _k, s, _bnbwd, _extra = key
+    x, w, pro, g_parts, consts, mask, ex = ops
+    if kind == "wgrad":
+        fn = fb.conv_wgrad_reference if plain else fb.conv_wgrad
+        return fn(x, g_parts, w.shape, stride=s, x_prologue=pro,
+                  g_bnbwd=consts)
+    fn = fb.conv_dgrad_reference if plain else fb.conv_dgrad
+    return fn(g_parts, w, x.shape, stride=s, g_bnbwd=consts, out_mask=mask,
+              extra=ex)
+
+
+def conv_grad_kernel_phase(torch, fb):
+    """B2 and B3 against their plain versions at every call of a ResNet-50
+    train step (the options each call uses), at batch 64 and 2, in bf16 and
+    fp32; times at batch 64 in bf16. Returns their JSON entry fields,
+    measured at the stage-1 3x3 (launches are filled in by the training
+    phase)."""
+    if torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("conv grad: TF32 must be off for an fp32 "
+                           "reference")
+    gen = torch.Generator(device=CARD).manual_seed(3)
+    main_err = {}
+    for n in GRAD_CHECK_BATCHES:
+        calls = sorted(_resnet_grad_calls(n), key=str)
+        for dt in ("float32", "bfloat16"):
+            worst = {"wgrad": (0.0, None), "dgrad": (0.0, None),
+                     "stats": (0.0, None)}
+            for key in calls:
+                kind, _n, h, ci, co, k, s, bnbwd, extra = key
+                ops = _grad_inputs(torch, gen, key, getattr(torch, dt))
+                got = _grad_call(fb, key, ops)
+                ref = _grad_call(fb, key, ops, plain=True)
+                torch.cuda.synchronize()
+                where = "%s (%d,%d,%d,%d)->%d k=%d s=%d bnbwd=%d extra=%s" % (
+                    kind, n, h, h, ci, co, k, s, bnbwd, extra)
+                if kind == "wgrad":
+                    x, w, pro, g_parts, consts = ops[:5]
+                    err = _wgrad_err(torch, fb, got, ref, x, g_parts,
+                                     w.shape, s, pro, consts)
+                    ok = err <= WGRAD_TOL and bool(torch.isfinite(got).all())
+                    errs = {"wgrad": err}
+                    abs_err = (got - ref).abs().max().item()
+                else:
+                    (e, st), (e_ref, st_ref) = got, ref
+                    x, mask = ops[0], ops[5]
+                    xhat = (x.float() - mask[3]) * mask[4]
+                    ef = e_ref.float()
+                    scale = torch.stack([ef.abs().sum((0, 1, 2)),
+                                         (ef * xhat).abs().sum((0, 1, 2))])
+                    errs = {"dgrad": _row_err(torch, e, e_ref),
+                            "stats": ((st - st_ref).abs()
+                                      / scale.clamp_min(1e-6)).max().item()}
+                    ok = max(errs.values()) <= CONV_TOL[dt] and \
+                        bool(torch.isfinite(e).all())
+                    abs_err = (e.float() - ef).abs().max().item()
+                for name, v in errs.items():
+                    if v > worst[name][0]:
+                        worst[name] = (v, where)
+                if not ok:
+                    print("conv grad %-8s %s  %s  FAIL" % (dt, where, errs))
+                    raise RuntimeError("fused_conv_%s disagrees with its "
+                                       "plain version" % kind)
+                if dt == "bfloat16" and (n, h, ci, co, k, s) == GRAD_MAIN:
+                    main_err[kind] = abs_err
+                del ops, got, ref
+            print("conv grad batch %-2d %-8s: %d B2/B3 calls held; worst B2 "
+                  "column-relative %.3g at %s (tol %g); worst B3 "
+                  "pixel-relative %.3g at %s, stats-relative %.3g at %s "
+                  "(tol %g)" % (n, dt, len(calls), worst["wgrad"][0],
+                                worst["wgrad"][1], WGRAD_TOL,
+                                worst["dgrad"][0], worst["dgrad"][1],
+                                worst["stats"][0], worst["stats"][1],
+                                CONV_TOL[dt]))
+
+    # times at batch 64, bf16, every call of a step
+    entries = {}
+    total = {kind: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                    "bound_ms": 0.0, "calls": 0}
+             for kind in ("wgrad", "dgrad")}
+    for key, count in sorted(_resnet_grad_calls(RESNET_TRAIN_BATCH).items(),
+                             key=str):
+        kind, n, h, ci, co, k, s, bnbwd, extra = key
+        ops = _grad_inputs(torch, gen, key, torch.bfloat16)
+        ms = _time_ms(torch, lambda: _grad_call(fb, key, ops))
+        plain_ms = _time_ms(torch, lambda: _grad_call(fb, key, ops,
+                                                      plain=True), reps=10)
+        lib_ms = _time_ms(torch, _grad_library(torch, fb, key, ops))
+        bound_ms, bound_by = _grad_bound(key, "bfloat16")
+        flops = 2.0 * n * (h // s) ** 2 * k * k * ci * co
+        print("time fused_conv_%s bf16 (%d,%d,%d,%d)->%d k=%d s=%d bnbwd=%d "
+              "extra=%s x%d per step: kernel %.4f ms (%.1f TFLOP/s), plain "
+              "%.4f ms, library %.4f ms, bound %.5f ms (%s)"
+              % (kind, n, h, h, ci, co, k, s, bnbwd, extra, count, ms,
+                 flops / ms / 1e9, plain_ms, lib_ms, bound_ms, bound_by))
+        t = total[kind]
+        for name, v in (("ms", ms), ("plain_ms", plain_ms),
+                        ("library_ms", lib_ms), ("bound_ms", bound_ms)):
+            t[name] += count * v
+        t["calls"] += count
+        if (n, h, ci, co, k, s) == GRAD_MAIN:
+            entries[kind] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by,
+                             "max_abs_err": main_err[kind],
+                             "shape": list(GRAD_MAIN), "g_side": "(e, y_raw) "
+                             "rebuilt by bn3's backward"}
+        del ops
+    for kind, want in (("wgrad", B2_PER_STEP), ("dgrad", B3_PER_STEP)):
+        t = total[kind]
+        print("time fused_conv_%s bf16, all %d calls of a batch-64 step: "
+              "kernel %.3f ms, plain %.3f ms, library %.3f ms, bound %.4f ms"
+              % (kind, t["calls"], t["ms"], t["plain_ms"], t["library_ms"],
+                 t["bound_ms"]))
+        if t["calls"] != want:
+            raise RuntimeError("conv grad: %d %s calls a step, want %d"
+                               % (t["calls"], kind, want))
+    out = []
+    for kind, line, lib in (
+            ("wgrad", 607, "BN-apply + ReLU (and the g-side rebuild), then "
+             "cuDNN's weight-only convolution backward"),
+            ("dgrad", 737, "the g-side rebuild, cuDNN's input-only "
+             "convolution backward, then the mask and the stats")):
+        out.append(dict({
+            "name": "fused_conv_%s" % kind, "route": "cuda",
+            "source": "mxnet_tpu_torch/kernels/csrc/fused_conv_%s.cu" % kind,
+            "replaces": "mxnet_tpu/kernels/fused_block.py:%d" % line,
+            "library": lib, "step_total_ms": total[kind]}, **entries[kind]))
+    return out
+
+
+def _resnet_batch(np, seed, n):
+    rng = np.random.RandomState(seed)
+    return {"data": rng.randn(n, *RESNET["image_shape"]).astype(np.float32),
+            "softmax_label": rng.randint(0, RESNET["num_classes"], (n,))
+            .astype(np.float32)}
+
+
+def _fb_counts(fb):
+    return (fb.conv_fwd.launches, fb.conv_wgrad.launches,
+            fb.conv_dgrad.launches)
+
+
+def _reset_fb_counts(fb):
+    fb.conv_fwd.launches = fb.conv_wgrad.launches = \
+        fb.conv_dgrad.launches = 0
+
+
+def resnet_train_grad_phase(torch, np, fb):
+    """One step's gradients of a tiny fp32 fused ResNet on the card against
+    the CPU; then full-width fused bf16 gradients against the unfused fp32
+    graph's on the card, from the same params and batch."""
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("resnet grad: TF32 must be off for an fp32 "
+                           "reference")
+    sym = resnet.resnet(fused=True, **TINY_RESNET)
+    shape = (TINY_BATCH, 3) + TINY_RESNET["image_shape"][1:]
+    rng = np.random.RandomState(4)
+    batch = {"data": rng.randn(*shape).astype(np.float32),
+             "softmax_label": rng.randint(0, TINY_RESNET["num_classes"],
+                                          (TINY_BATCH,)).astype(np.float32)}
+    got = {}
+    for dev in (CARD, "cpu"):
+        ts = TrainStep(sym, RESNET_OPT, device=dev)
+        p, _o, a = ts.init_params({"data": shape,
+                                   "softmax_label": (TINY_BATCH,)},
+                                  initializer=Xavier(), seed=0)
+        _reset_fb_counts(fb)
+        loss, grads, _aux = ts.value_and_grad(p, a, batch)
+        got[dev] = (loss.item(), {k: g.cpu() for k, g in grads.items()},
+                    _fb_counts(fb))
+    # each tensor against its own largest |gradient|, clamped from below at
+    # 1% of the largest of any tensor: bn0's gamma has an exact gradient of
+    # 0 here (BN -> ReLU -> BN is invariant to scaling gamma and beta
+    # together, and beta is 0), so both sides give rounding noise of
+    # ~1e-6 of the others, which has no scale of its own
+    floor = 1e-2 * max(g.abs().max().item() for g in got["cpu"][1].values())
+    errs = sorted((((got[CARD][1][k] - g_cpu).abs().max()
+                    / g_cpu.abs().max().clamp_min(floor)).item(), k)
+                  for k, g_cpu in got["cpu"][1].items())
+    worst = errs[-1]
+    print("resnet grad tiny: loss card %.7f cpu %.7f; worst gradients %s "
+          "(tol %g), %d tensors, fp32, batch %d; card launches B1 %d, B2 "
+          "%d, B3 %d" % (got[CARD][0], got["cpu"][0],
+                         ", ".join("%.3g at %s" % e for e in errs[-3:]),
+                         GRAD_TOL, len(got["cpu"][1]), TINY_BATCH,
+                         *got[CARD][2]))
+    if worst[0] > GRAD_TOL or abs(got[CARD][0] - got["cpu"][0]) > \
+            GRAD_TOL * abs(got["cpu"][0]) or got[CARD][2] != (11, 11, 9):
+        raise RuntimeError("resnet grad: card gradients differ from the "
+                           "CPU's, or the tiny net missed its kernels")
+
+    # full width: fused bf16 against unfused fp32, same params and batch,
+    # with the unfused graph in bf16 as the yardstick of bf16 noise
+    n = FUSED_CHECK_BATCH
+    shapes = {"data": (n,) + RESNET["image_shape"], "softmax_label": (n,)}
+    steps = {name: TrainStep(resnet.get_symbol(fused=fused, **RESNET),
+                             RESNET_OPT, compute_dtype=cd, device=CARD)
+             for name, fused, cd in (("fused", True, "bfloat16"),
+                                     ("unfused", False, None),
+                                     ("library", False, "bfloat16"))}
+    params, _o, aux = steps["fused"].init_params(shapes, initializer=Xavier(),
+                                                 seed=0)
+    batch = _resnet_batch(np, 1, n)
+    loss, grads = {}, {}
+    for name, ts in steps.items():
+        lv, g, _ = ts.value_and_grad(params, aux, batch)
+        loss[name], grads[name] = lv.item(), {k: v.float() for k, v in
+                                             g.items()}
+    rows = []
+    for k, u in grads["unfused"].items():
+        f, lib = grads["fused"][k], grads["library"][k]
+        norm = u.norm().clamp_min(1e-30)
+        rel, rel_lib = ((f - u).norm() / norm).item(), \
+            ((lib - u).norm() / norm).item()
+        cos = (torch.dot(f.flatten(), u.flatten())
+               / (f.norm() * norm).clamp_min(1e-30)).item()
+        rows.append((rel / max(rel_lib, 1e-30), rel, rel_lib, cos, k))
+    rows.sort()
+    for ratio, rel, rel_lib, cos, k in rows:
+        print("resnet grad   %-34s fused bf16 relative L2 %.4g, cosine %.5f; "
+              "unfused bf16 %.4g; ratio %.4g" % (k, rel, cos, rel_lib, ratio))
+
+    def median(v):
+        return sorted(v)[len(v) // 2]
+
+    print("resnet grad full width, batch %d, %d parameter tensors: loss fused "
+          "bf16 %.5f, unfused fp32 %.5f, unfused bf16 %.5f; fused bf16 vs "
+          "fp32: relative L2 median %.4g max %.4g, cosine median %.5f min "
+          "%.5f; unfused bf16 vs fp32: relative L2 median %.4g; ratio of the "
+          "two gaps median %.4g, worst %.4g at %s (limit %g)"
+          % (n, len(rows), loss["fused"], loss["unfused"], loss["library"],
+             median([r[1] for r in rows]), max(r[1] for r in rows),
+             median([r[3] for r in rows]), min(r[3] for r in rows),
+             median([r[2] for r in rows]), median([r[0] for r in rows]),
+             rows[-1][0], rows[-1][4], FUSED_GRAD_RATIO))
+    if rows[-1][0] > FUSED_GRAD_RATIO or not all(
+            np.isfinite(v) for v in loss.values()):
+        raise RuntimeError("resnet grad: fused bf16 gradients are further "
+                           "from fp32 than the unfused bf16 graph's")
+
+
+def resnet_training_phase(torch, np, fb):
+    """The fused ResNet-50 train step as bench.py configures it, at batch
+    64; returns the launch counts of the timed steps (B1, B2, B3)."""
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import TrainStep, functional_optimizer
+
+    gc.collect()
+    n = RESNET_TRAIN_BATCH
+    sym = resnet.get_symbol(fused=True, **RESNET)
+    ts = TrainStep(sym, functional_optimizer(**RESNET_OPT),
+                   compute_dtype="bfloat16", device=CARD)
+    t0 = time.perf_counter()
+    params, opt_state, aux = ts.init_params(
+        {"data": (n,) + RESNET["image_shape"], "softmax_label": (n,)},
+        initializer=Xavier(), seed=0)
+    carry = ts.place(params, opt_state, aux)
+    batch = _resnet_batch(np, 0, n)
+    batch = {k: torch.as_tensor(v).to(CARD) for k, v in batch.items()}
+    print("resnet train: %d parameter tensors (%.2f M), %d aux; init %.2f s"
+          % (len(params), sum(v.numel() for v in params.values()) / 1e6,
+             len(aux), time.perf_counter() - t0))
+    means0 = {k: v.clone() for k, v in aux.items() if "moving_mean" in k}
+    t0 = time.perf_counter()
+    carry, loss = ts(carry, batch)                       # warm-up
+    losses = [loss.item()]
+    print("resnet train warm-up step: loss %.5f, %.3f s"
+          % (losses[0], time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    _reset_fb_counts(fb)
+    for _ in range(RESNET_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        carry, loss = ts(carry, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = _fb_counts(fb)
+    peak = torch.cuda.max_memory_allocated()
+    print("resnet train: %d steps at batch %d: losses %s; step times %s s; "
+          "%.1f images/s; peak memory %.2f GiB; launches B1 %d, B2 %d, B3 %d "
+          "(%s a step)" % (RESNET_TRAIN_STEPS, n,
+                           " ".join("%.5f" % x for x in losses),
+                           " ".join("%.4f" % x for x in secs),
+                           n * RESNET_TRAIN_STEPS / sum(secs), peak / 2 ** 30,
+                           *launches,
+                           "/".join("%g" % (c / RESNET_TRAIN_STEPS)
+                                    for c in launches)))
+    _device_profile(torch, lambda: ts(carry, batch), top=10)
+
+    moved = sum(int(bool((aux[k] != v).any())) for k, v in means0.items())
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("resnet train: a loss is not finite: %s" % losses)
+    if abs(losses[0] - RESNET_FIRST_LOSS) > RESNET_FIRST_LOSS_TOL:
+        raise RuntimeError("resnet train: first loss %.4f, expected %.2f +- "
+                           "%.2f" % (losses[0], RESNET_FIRST_LOSS,
+                                     RESNET_FIRST_LOSS_TOL))
+    if not losses[-1] < losses[1]:
+        raise RuntimeError("resnet train: loss did not fall over the timed "
+                           "steps: %s" % losses)
+    if moved != len(means0):
+        raise RuntimeError("resnet train: %d of %d moving means moved"
+                           % (moved, len(means0)))
+    want = tuple(c * RESNET_TRAIN_STEPS for c in (B1_PER_FORWARD, B2_PER_STEP,
+                                                  B3_PER_STEP))
+    if launches != want:
+        raise RuntimeError("resnet train: launches B1/B2/B3 %s, want %s"
+                           % (launches, want))
+    print("resnet train: %d of %d moving means moved" % (moved, len(means0)))
+    return launches
+
+
 def main():
     import torch
 
@@ -996,13 +1511,22 @@ def main():
     launches = phase("training", training_phase, torch, np, fa)
     for entry, n in zip([fwd, *bwd], launches):
         entry["launches"] = n
+    grads = phase("conv_grad_kernel", conv_grad_kernel_phase, torch, fb)
+    phase("resnet_train_grad", resnet_train_grad_phase, torch, np, fb)
+    resnet_launches = phase("resnet_training", resnet_training_phase, torch,
+                            np, fb)
+    for entry, n in zip(grads, resnet_launches[1:]):
+        entry["launches"] = n
+    conv["train_launches"] = resnet_launches[0]
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
-          "%d; generative serving B5 %d; image serving B1 %d"
-          % (TRAIN_STEPS, *launches, served, conv["launches"]))
+          "%d; generative serving B5 %d; image serving B1 %d; ResNet-50 "
+          "training %d steps B1 %d, B2 %d, B3 %d"
+          % (TRAIN_STEPS, *launches, served, conv["launches"],
+             RESNET_TRAIN_STEPS, *resnet_launches))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))
-    print(json.dumps({"kernels": [fwd, *bwd, conv]}))
+    print(json.dumps({"kernels": [fwd, *bwd, conv, *grads]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,6 +49,21 @@ KNOBS = {
         "1,4,16,64", "comma-separated batch-size buckets the AOT predictor "
         "binds; requests pad up to the nearest bucket (serving/predictor.py; "
         "malformed or non-increasing ladders raise)"),
+    "MXNET_TPU_ZERO": (
+        "0", "shard the weight update over the data axes (ZeRO); not ported, "
+        "so TrainStep accepts only 0 (parallel/spmd.py)"),
+    "MXNET_TPU_ZERO_WIRE": (
+        "raw", "gradient-shard wire treatment of the ZeRO step; not ported, "
+        "so TrainStep accepts only raw (parallel/spmd.py)"),
+    "MXNET_TPU_SENTINEL": (
+        "off", "in-graph anomaly sentinel of the train step; not ported, so "
+        "TrainStep accepts only off (parallel/spmd.py)"),
+    "MXNET_TPU_REMAT": (
+        "0", "rematerialization mode of the train step; not ported, so "
+        "TrainStep accepts only 0/off (parallel/spmd.py)"),
+    "MXNET_IR_TRAIN_PASSES": (
+        "", "pass pipeline rewriting the training graph; not ported, so "
+        "TrainStep accepts only an empty list (parallel/spmd.py)"),
     "MXNET_IR_FUSE": (
         "1", "kill switch for rule-based fusion in the model builders: "
         "resnet(fused=True) applies the IR fusion pass when 1, returns the "
@@ -73,6 +88,15 @@ def get_strict_bool(name):
     if v in ("0", "false", "no", "off"):
         return False
     raise MXNetError("%s=%r must be a boolean (0|1)" % (name, get(name)))
+
+
+def get_choice(name, choices):
+    """The knob lower-cased, which must be one of ``choices``."""
+    v = str(get(name)).strip().lower()
+    if v not in choices:
+        raise MXNetError("%s=%r must be one of %s"
+                         % (name, get(name), "|".join(choices)))
+    return v
 
 
 def get_nonneg_int(name):

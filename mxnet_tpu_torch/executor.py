@@ -1,22 +1,26 @@
-"""Graph evaluation and shape inference, the inference subset of
-``mxnet_tpu/executor.py``.
+"""Graph evaluation and shape inference (counterpart of parts of
+``mxnet_tpu/executor.py``).
 
 :func:`eval_node` is the op-invocation contract every binder shares (the
-serving predictor's fold and per-request programs): ``__is_train__`` is
-threaded into train/infer-polymorphic ops, and outputs always come back as
-a tuple. Shape inference propagates shapes by running each op on
-``device="meta"`` tensors (shapes without compute), after the
+serving predictor's fold and per-request programs, the training closure):
+``__is_train__`` is threaded into train/infer-polymorphic ops, and outputs
+always come back as a tuple. :func:`_graph_closure` evaluates a whole graph
+and collects the auxiliary-state updates of a training step; gradients come
+from autograd through the ops. Shape inference propagates shapes by running
+each op on ``device="meta"`` tensors (shapes without compute), after the
 parameterized layers' weight shapes are deduced from their data shapes
 (:func:`_param_shape_hints`, the backward-direction rules).
 
-Not ported yet: ``Executor``, ``bind``/``simple_bind`` and the backward
-(the training slice).
+Not ported yet: ``Executor``, ``bind``/``simple_bind``, ``ctx_group``
+placement (a graph that carries one raises), selective remat names and the
+RNG salt of stochastic ops (the port registers none).
 """
 from __future__ import annotations
 
 import torch
 
 from .base import MXNetError, dtype_torch
+from .symbol.symbol import _AUX_PARAMS
 
 
 def eval_node(node, ins, is_train):
@@ -26,6 +30,54 @@ def eval_node(node, ins, is_train):
         attrs["__is_train__"] = is_train
     out = node.op.fn(*ins, **attrs)
     return out if isinstance(out, tuple) else (out,)
+
+
+def _graph_closure(symbol, is_train):
+    """A function evaluating the graph: ``fn(values) -> (outputs,
+    aux_updates)``, with ``values`` every variable's tensor by name and
+    ``aux_updates`` the new value of each auxiliary state of a training
+    step, by name, detached. Two contracts give them: an op's
+    ``aux_state_outputs`` (the fused unit returns its moving statistics
+    mixed), and BatchNorm's ``momentum * old + (1 - momentum) * batch``."""
+    nodes = symbol._topo()
+    node_ids = {id(n): i for i, n in enumerate(nodes)}
+    for node in nodes:
+        if "ctx_group" in node.attr_dict:
+            raise MXNetError("%s: ctx_group placement is not ported"
+                             % node.name)
+
+    def fn(values):
+        results = {}   # node index -> tuple of outputs
+        aux_updates = {}
+        for i, node in enumerate(nodes):
+            if node.is_variable():
+                if node.name not in values:
+                    raise MXNetError("unbound variable %r" % node.name)
+                results[i] = (values[node.name],)
+                continue
+            ins = [results[node_ids[id(inp)]][idx] for inp, idx in node.inputs]
+            out = eval_node(node, ins, is_train)
+            results[i] = out
+            if not (is_train and node._arity):
+                continue
+            aux_out = node.op.aux_state_outputs
+            for pname, (inode, _) in zip(node._arity, node.inputs):
+                if not inode.is_variable():
+                    continue
+                if aux_out:
+                    idx = aux_out.get(pname)
+                    if idx is not None:
+                        aux_updates[inode.name] = out[idx].detach()
+                elif node.op.name in _AUX_PARAMS and pname in (
+                        "moving_mean", "moving_var"):
+                    m = node.attrs.get("momentum", 0.9)
+                    batch = out[1 if pname == "moving_mean" else 2]
+                    aux_updates[inode.name] = (
+                        m * values[inode.name] + (1 - m) * batch).detach()
+        outs = [results[node_ids[id(n)]][idx] for n, idx in symbol._entries]
+        return outs, aux_updates
+
+    return fn
 
 
 def infer_graph_shapes(symbol, kwargs):

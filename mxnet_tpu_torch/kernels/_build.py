@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``mxnet_tpu_torch/_build/lib<name>-<hash>.so``
 at first use, then loaded with :mod:`ctypes`. The file name carries a hash
-of the source and the flags, so an edited source is never served a stale
-library. Nothing here runs at import time: the CPU tests import every module,
+of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source is never served a stale library. Nothing here runs at import time: the CPU tests import every module,
 and a machine without ``nvcc`` must still be able to import them.
 """
 from __future__ import annotations
@@ -19,7 +19,8 @@ from pathlib import Path
 
 from ..base import MXNetError
 
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_conv_fwd")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_conv_fwd",
+           "fused_conv_wgrad", "fused_conv_dgrad")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,8 +42,12 @@ def _nvcc():
 
 
 def lib_path(name):
-    src = CSRC / ("%s.cu" % name)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``; its hash covers the source, every
+    shared header of ``csrc/`` and the flags."""
+    digest = hashlib.sha256((CSRC / ("%s.cu" % name)).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / ("lib%s-%s.so" % (name, digest.hexdigest()[:16]))
 
 

@@ -40,37 +40,18 @@
 //   * Threads form a 16 x 16 grid: thread (ty, tx) owns pixels 4*ty ..
 //     4*ty+3 and channels tx + 16*j (j < 4), so the B reads of a half warp
 //     fall in distinct banks and the A reads are broadcasts; the A chunk is
-//     stored channel-major with a padded row (65 floats).
+//     stored channel-major with a padded row (65 floats). This tile code,
+//     the prologue arithmetic and the reductions are in conv_common.cuh,
+//     shared with the backward kernels B2 and B3.
 //   * Stats: each CTA sums its tile's rounded outputs per channel in a
 //     fixed order and writes one partial row; a second kernel adds the
 //     partials of all pixel tiles per channel in tile order. No atomics,
 //     so the result is the same on every run.
 //   * Ragged pixel and channel tiles are masked (H = 7 in ResNet-50's last
 //     stage, 7 * 7 * N pixels).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "conv_common.cuh"
 
 namespace {
-
-constexpr int kTileM = 64;   // output pixels per CTA
-constexpr int kTileN = 64;   // output channels per CTA
-constexpr int kChunk = 32;   // K per shared-memory stage
-constexpr int kThreads = 256;
-constexpr int kAStride = kTileM + 1;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-// round an f32 value to T and back (the compute dtype's rounding)
-__device__ __forceinline__ float round_to(float x, float*) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 struct ConvShape {
   int n, h, w, ci, co, k, stride, ho, wo, m, kdim;
@@ -134,12 +115,7 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wt,
         const int iw = row_iw[row] + (tap - dy * s.k);
         if (ih >= 0 && ih < s.h && iw >= 0 && iw < s.w) {
           v = to_float(x[(((size_t)n * s.h + ih) * s.w + iw) * s.ci + ci]);
-          if (prologue) {
-            // rounded multiply, then add: the plain version's two steps
-            v = __fadd_rn(__fmul_rn(v, scale[ci]), bias[ci]);
-            if (relu) v = fmaxf(v, 0.f);
-            v = round_to(v, (T*)nullptr);
-          }
+          if (prologue) v = bn_apply<T>(v, scale[ci], bias[ci], relu);
         }
       }
       as[kc * kAStride + row] = v;
@@ -157,18 +133,7 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wt,
     }
     __syncthreads();
 
-#pragma unroll 8
-    for (int kc = 0; kc < kChunk; ++kc) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[kc * kAStride + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[kc * kTileN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
+    tile_fma<kTileN>(as, bs, ty, tx, acc);
   }
 
   // store y rounded to T; keep the rounded values for the stats
@@ -190,36 +155,7 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wt,
   if (partial == nullptr) return;
 
   // per-CTA channel sums: the 16 thread rows of a column, in row order
-  __syncthreads();  // as/bs are free now
-  float* red_s = as;               // 16 x 64
-  float* red_q = as + 16 * kTileN;  // 16 x 64 (as holds 32 x 65 floats)
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red_s[ty * kTileN + tx + 16 * j] = csum[j];
-    red_q[ty * kTileN + tx + 16 * j] = csq[j];
-  }
-  __syncthreads();
-  if (tid < kTileN && c0 + tid < s.co) {
-    float a = 0.f, b = 0.f;
-    for (int r = 0; r < 16; ++r) {
-      a += red_s[r * kTileN + tid];
-      b += red_q[r * kTileN + tid];
-    }
-    float* p = partial + (size_t)blockIdx.x * 2 * s.co;
-    p[c0 + tid] = a;
-    p[s.co + c0 + tid] = b;
-  }
-}
-
-// stats[t, c] = sum over pixel tiles b of partial[b, t, c], in tile order
-__global__ void conv_stats_reduce_kernel(const float* __restrict__ partial,
-                                         float* __restrict__ stats,
-                                         int tiles, int co) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 2 * co) return;
-  float a = 0.f;
-  for (int b = 0; b < tiles; ++b) a += partial[(size_t)b * 2 * co + i];
-  stats[i] = a;
+  tile_column_sums(as, csum, csq, ty, tx, tid, partial, blockIdx.x, c0, s.co);
 }
 
 template <typename T>
@@ -235,12 +171,8 @@ cudaError_t launch(const void* x, const void* w, const void* scale,
       prologue, relu);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || stats == nullptr) return err;
-  const int threads = 256;
-  conv_stats_reduce_kernel<<<(2 * s.co + threads - 1) / threads, threads, 0,
-                             stream>>>(static_cast<const float*>(partial),
-                                       static_cast<float*>(stats), grid.x,
-                                       s.co);
-  return cudaGetLastError();
+  return sum_rows(static_cast<const float*>(partial),
+                  static_cast<float*>(stats), grid.x, 2 * s.co, stream);
 }
 
 }  // namespace

@@ -1,4 +1,4 @@
-"""Fused ResNet bottleneck block, inference half (counterpart of
+"""Fused ResNet bottleneck block (counterpart of
 ``mxnet_tpu/kernels/fused_block.py``).
 
 :func:`conv_fwd` is B1, the NHWC convolution whose input read applies a
@@ -15,9 +15,21 @@ tensor (shape inference) it only allocates the outputs.
 unit on the moving statistics. Layout: x NHWC, weights HWIO, as in the JAX
 package. The TPU's blocking plan (``_plan_conv``, ``_batch_fold``,
 ``_chan_block``, ``MXU_WORK_FLOOR``, ``mxu_plan``, the schedule-table
-consult and the row-tile knob) has no counterpart: the CUDA kernel takes
-its own tiles. The training unit (``bottleneck_train``, kernels B2/B3) is
-not ported yet.
+consult and the row-tile knob) has no counterpart: the CUDA kernels take
+their own tiles.
+
+The training half: :func:`conv_wgrad` is B2, the weight gradient with the
+forward's prologue recomputed on the x side and the next BatchNorm's
+backward rebuilding the g side (``csrc/fused_conv_wgrad.cu``);
+:func:`conv_dgrad` is B3, the data gradient with the same g-side rebuild,
+the input BatchNorm's relu mask and its (dbeta, dgamma) sums as the
+epilogue, and the downsample shortcut's gradient as an optional ``extra``
+term (``csrc/fused_conv_dgrad.cu``). They dispatch as :func:`conv_fwd`
+does (a CUDA tensor launches and counts, a CPU tensor runs the plain
+version, a ``meta`` tensor only allocates). :func:`bottleneck_train` is
+one ``torch.autograd.Function`` over them. The JAX ``shard_map``
+wrappers (``bottleneck_train_spmd``, ``bottleneck_infer_spmd``) are not
+ported.
 """
 from __future__ import annotations
 
@@ -31,36 +43,73 @@ from ..base import MXNetError
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check(x, w, stride, prologue):
-    if x.dim() != 4 or w.dim() != 4:
-        raise MXNetError("conv_fwd: x must be (N, H, W, Ci) and w (k, k, Ci, "
-                         "Co), got %s and %s" % (tuple(x.shape),
-                                                 tuple(w.shape)))
-    k, ci = int(w.shape[0]), int(x.shape[3])
-    if k not in (1, 3) or w.shape[1] != k or w.shape[2] != ci:
-        raise MXNetError("conv_fwd: w %s does not fit x %s (k in {1, 3}, "
-                         "HWIO)" % (tuple(w.shape), tuple(x.shape)))
-    if stride not in (1, 2):
-        raise MXNetError("conv_fwd: stride must be 1 or 2, got %r" % stride)
-    if x.dtype != w.dtype or x.dtype not in _DTYPES:
-        raise MXNetError("conv_fwd: x and w must share one dtype of "
-                         "float32/bfloat16, got %s and %s" % (x.dtype,
-                                                              w.dtype))
-    if x.device != w.device:
-        raise MXNetError("conv_fwd: x on %s, w on %s" % (x.device, w.device))
-    h, wd = int(x.shape[1]), int(x.shape[2])
+def _need(cond, what, *args):
+    if not cond:
+        raise MXNetError(what % args)
+
+
+def _check_tensor(fn, name, t, shape, dtype, device):
+    _need(tuple(t.shape) == tuple(shape) and t.device == device
+          and (dtype is None or t.dtype == dtype),
+          "%s: %s must be %s%s on %s, got %s %s on %s", fn, name,
+          tuple(shape), "" if dtype is None else " " + str(dtype), device,
+          tuple(t.shape), t.dtype, t.device)
+
+
+def _check_geometry(fn, x_shape, w_shape, stride):
+    """The conv's output shape (N, Ho, Wo, Co); raises on a geometry the
+    kernels do not take."""
+    _need(len(x_shape) == 4 and len(w_shape) == 4,
+          "%s: x must be (N, H, W, Ci) and w (k, k, Ci, Co), got %s and %s",
+          fn, tuple(x_shape), tuple(w_shape))
+    k = int(w_shape[0])
+    _need(k in (1, 3) and w_shape[1] == k and w_shape[2] == x_shape[3],
+          "%s: w %s does not fit x %s (k in {1, 3}, HWIO)", fn,
+          tuple(w_shape), tuple(x_shape))
+    _need(stride in (1, 2), "%s: stride must be 1 or 2, got %r", fn, stride)
+    n, h, wd, _ci = x_shape
     if stride == 2 and (h % 2 or wd % 2):
         # the message of the JAX package's conv_fwd
-        raise ValueError(
-            "fused conv: stride-2 requires even spatial dims, got "
-            "(%d, %d)" % (h, wd))
+        raise ValueError("fused conv: stride-2 requires even spatial dims, "
+                         "got (%d, %d)" % (h, wd))
+    return (int(n), int(h) // stride, int(wd) // stride, int(w_shape[3]))
+
+
+def _check_prologue(fn, prologue, x):
     if prologue is not None:
-        scale, bias, _relu = prologue
-        for name, v in (("scale", scale), ("bias", bias)):
-            if tuple(v.shape) != (ci,) or v.device != x.device:
-                raise MXNetError("conv_fwd: prologue %s must be (%d,) on %s, "
-                                 "got %s on %s" % (name, ci, x.device,
-                                                   tuple(v.shape), v.device))
+        for name, v in zip(("scale", "bias"), prologue[:2]):
+            _check_tensor(fn, "prologue " + name, v, x.shape[3:], None,
+                          x.device)
+
+
+def _check(x, w, stride, prologue):
+    _check_geometry("conv_fwd", tuple(x.shape), tuple(w.shape), stride)
+    _need(x.dtype == w.dtype and x.dtype in _DTYPES, "conv_fwd: x and w must "
+          "share one dtype of float32/bfloat16, got %s and %s", x.dtype,
+          w.dtype)
+    _need(x.device == w.device, "conv_fwd: x on %s, w on %s", x.device,
+          w.device)
+    _check_prologue("conv_fwd", prologue, x)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bind(lib, name, argtypes, restype=ctypes.c_int):
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return fn
+
+
+def _prologue_args(prologue):
+    """``(scale, bias, on, relu)`` of a prologue for a kernel's C call."""
+    if prologue is None:
+        return None, None, 0, 0
+    scale, bias = (v.to(torch.float32).contiguous() for v in prologue[:2])
+    return scale, bias, 1, int(bool(prologue[2]))
 
 
 def _apply_prologue(x, prologue):
@@ -96,33 +145,21 @@ def _launch(x, w, prologue, y, stats, stride):
     k, co = int(w.shape[0]), int(w.shape[3])
     dev = x.device
     lib = load("fused_conv_fwd")
-    fn = lib.fused_conv_fwd
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] \
-            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    scale = bias = partial = None
-    relu = tiles = 0
-    if prologue is not None:
-        scale = prologue[0].to(torch.float32).contiguous()
-        bias = prologue[1].to(torch.float32).contiguous()
-        relu = int(bool(prologue[2]))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _bind(lib, "fused_conv_fwd", [p] * 6 + [i, p] + [i] * 10 + [p])
+    scale, bias, pro, relu = _prologue_args(prologue)
+    partial, tiles = None, 0
     if stats is not None:
         # one partial row per pixel tile; the kernel gives its tile size
         tile_m = lib.fused_conv_fwd_tile_m()
         tiles = -(-(n * (h // stride) * (wd // stride)) // tile_m)
         partial = torch.empty((tiles, 2, co), dtype=torch.float32,
                               device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptr(x), ptr(w), ptr(scale), ptr(bias), ptr(y),
-                 ptr(partial), tiles, ptr(stats), n, h, wd, ci, co, k,
-                 stride, int(prologue is not None), relu, _DTYPES[x.dtype],
-                 stream)
+        err = fn(_ptr(x), _ptr(w), _ptr(scale), _ptr(bias), _ptr(y),
+                 _ptr(partial), tiles, _ptr(stats), n, h, wd, ci, co, k,
+                 stride, pro, relu, _DTYPES[x.dtype], stream)
     if err != 0:
         raise MXNetError("fused_conv_fwd launch failed: CUDA error %d" % err)
 
@@ -190,8 +227,390 @@ def bottleneck_infer(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3,
     return y3 + shortcut
 
 
-def bottleneck_train(*_args, **_kwargs):
-    """The training unit (``_unit_fwd``/``_unit_bwd`` with kernels B2 and
-    B3 under a custom VJP) is the next slice of the port."""
-    raise MXNetError("fused_block.bottleneck_train is not ported yet "
-                     "(training slice: B2 conv_wgrad, B3 conv_dgrad)")
+
+
+# ---------------------------------------------------------------------------
+# the training half: B2 conv_wgrad, B3 conv_dgrad and the bottleneck unit's
+# forward and backward under one torch.autograd.Function
+# ---------------------------------------------------------------------------
+def _bnbwd_value(e, y_raw, consts):
+    """dL/dy rebuilt from the relu-masked partial ``e`` of the BatchNorm
+    after a conv and that conv's raw output ``y_raw``, in f32: with xhat =
+    (y - mu) * inv_sigma, ``k * (e - m0 - xhat * m1)``. ``consts`` = (k =
+    gamma * inv_sigma, mu, inv_sigma, m0 = mean(e), m1 = mean(e * xhat)),
+    (C,) f32 each."""
+    k, mu, inv, m0, m1 = consts
+    xhat = (y_raw.float() - mu) * inv
+    return k * (e.float() - m0 - xhat * m1)
+
+
+def _g_value(g_parts, g_bnbwd):
+    """The conv's output gradient in f32: given whole, or rebuilt."""
+    if g_bnbwd is None:
+        return g_parts.float()
+    return _bnbwd_value(g_parts[0], g_parts[1],
+                        [c.float() for c in g_bnbwd])
+
+
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def conv_wgrad_reference(x, g_parts, w_shape, *, stride=1, x_prologue=None,
+                         g_bnbwd=None):
+    """The plain version of :func:`conv_wgrad`: the x side through the
+    prologue and the g side (whole, or rebuilt) rounded to x's dtype as the
+    kernel rounds them, then ``torch.nn.grad.conv2d_weight`` in f32 on those
+    rounded operands. Returns dw (k, k, Ci, Co) f32."""
+    k = int(w_shape[0])
+    h = _apply_prologue(x, x_prologue).float()
+    g = _g_value(g_parts, g_bnbwd).to(x.dtype).float()
+    dw = torch.nn.grad.conv2d_weight(
+        _nchw(h), (int(w_shape[3]), int(w_shape[2]), k, k), _nchw(g),
+        stride=stride, padding=k // 2)
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+def conv_dgrad_reference(g_parts, w, x_shape, *, stride=1, g_bnbwd=None,
+                         out_mask=None, extra=None):
+    """The plain version of :func:`conv_dgrad`: the g side rounded to w's
+    dtype, ``torch.nn.grad.conv2d_input`` in f32 on the rounded operands,
+    the extra term likewise, the mask and the f32 sums of the unrounded
+    e. Returns ``(e_out or dx in w's dtype, stats or None)``."""
+    n, h, wd, ci = (int(v) for v in x_shape)
+    k, dtype = int(w.shape[0]), w.dtype
+    size = (n, ci, h, wd)
+    g = _g_value(g_parts, g_bnbwd).to(dtype).float()
+    t = torch.nn.grad.conv2d_input(size, w.float().permute(3, 2, 0, 1),
+                                   _nchw(g), stride=stride, padding=k // 2)
+    if extra is not None:
+        g2, w2, s2 = extra
+        t = t + torch.nn.grad.conv2d_input(
+            size, w2.to(dtype).float().permute(3, 2, 0, 1),
+            _nchw(g2.to(dtype).float()), stride=int(s2))
+    t = t.permute(0, 2, 3, 1)
+    if out_mask is None:
+        return t.to(dtype).contiguous(), None
+    y_in, gamma, beta, mu, inv = out_mask
+    xhat = (y_in.float() - mu.float()) * inv.float()
+    e = torch.where(gamma.float() * xhat + beta.float() > 0, t, 0.0)
+    stats = torch.stack([e.sum(dim=(0, 1, 2)), (e * xhat).sum(dim=(0, 1, 2))])
+    return e.to(dtype).contiguous(), stats
+
+
+def _check_grad_side(fn, g_parts, g_bnbwd, shape, dtype, device):
+    parts = (("g", g_parts),) if g_bnbwd is None else \
+        (("e", g_parts[0]), ("y_raw", g_parts[1]))
+    for name, t in parts:
+        _check_tensor(fn, name, t, shape, dtype, device)
+    if g_bnbwd is not None:
+        _need(len(g_bnbwd) == 5, "%s: g_bnbwd takes 5 constants, got %d", fn,
+              len(g_bnbwd))
+        for c in g_bnbwd:
+            _check_tensor(fn, "a g_bnbwd constant", c, shape[3:], None,
+                          device)
+
+
+def _f32_rows(vectors):
+    return torch.stack([v.to(torch.float32) for v in vectors]).contiguous()
+
+
+def _launch_wgrad(x, g_parts, dw, stride, x_prologue, g_bnbwd):
+    from ._build import load
+
+    n, h, wd, ci = x.shape
+    k, co = int(dw.shape[0]), int(dw.shape[3])
+    lib = load("fused_conv_wgrad")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _bind(lib, "fused_conv_wgrad", [p] * 9 + [i] * 11 + [p])
+    chunks = _bind(lib, "fused_conv_wgrad_chunks", [i] * 7)(
+        n, h, wd, ci, co, k, stride)
+    if chunks < 1:
+        raise MXNetError("fused_conv_wgrad takes no shapes x %s, dw %s"
+                         % (tuple(x.shape), tuple(dw.shape)))
+    partial = None
+    if chunks > 1:
+        partial = torch.empty((chunks,) + tuple(dw.shape),
+                              dtype=torch.float32, device=x.device)
+    g = e = y = consts = None
+    if g_bnbwd is None:
+        g = g_parts.contiguous()
+    else:
+        e, y = (t.contiguous() for t in g_parts)
+        consts = _f32_rows(g_bnbwd)
+    scale, bias, pro, relu = _prologue_args(x_prologue)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_ptr(x), _ptr(g), _ptr(e), _ptr(y), _ptr(scale), _ptr(bias),
+                 _ptr(consts), _ptr(dw), _ptr(partial), chunks, n, h, wd, ci,
+                 co, k, stride, pro, relu, _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise MXNetError("fused_conv_wgrad launch failed: CUDA error %d" % err)
+
+
+def conv_wgrad(x, g_parts, w_shape, *, stride=1, x_prologue=None,
+               g_bnbwd=None):
+    """dw of :func:`conv_fwd`, accumulated in f32 (B2).
+
+    x: (N, H, W, Ci) raw input; g_parts: the complete output gradient (N,
+    Ho, Wo, Co) when ``g_bnbwd`` is None, else ``(e, y_raw)`` from which
+    dL/dy is rebuilt (:func:`_bnbwd_value`; ``g_bnbwd`` its 5 (Co,)
+    constants); w_shape: (k, k, Ci, Co); x_prologue: None or ``(scale,
+    bias, relu)``, the forward's BN-apply, recomputed on the read. Both
+    sides are rounded to x's dtype before the product. Returns dw (k, k,
+    Ci, Co) f32. On a CUDA tensor this launches the kernel and adds one to
+    ``conv_wgrad.launches``; on a CPU tensor it runs
+    :func:`conv_wgrad_reference`; on a ``meta`` tensor it only allocates."""
+    stride = int(stride)
+    g_shape = _check_geometry("conv_wgrad", tuple(x.shape), tuple(w_shape),
+                              stride)
+    _need(x.dtype in _DTYPES, "conv_wgrad: x must be float32 or bfloat16, "
+          "got %s", x.dtype)
+    _check_grad_side("conv_wgrad", g_parts, g_bnbwd, g_shape, x.dtype,
+                     x.device)
+    _check_prologue("conv_wgrad", x_prologue, x)
+    if x.device.type == "cpu":
+        return conv_wgrad_reference(x, g_parts, w_shape, stride=stride,
+                                    x_prologue=x_prologue, g_bnbwd=g_bnbwd)
+    dw = torch.empty(tuple(int(v) for v in w_shape), dtype=torch.float32,
+                     device=x.device)
+    if x.device.type == "meta":
+        return dw
+    if x.device.type != "cuda":
+        raise MXNetError("conv_wgrad: unsupported device %s" % x.device)
+    _launch_wgrad(x.contiguous(), g_parts, dw, stride, x_prologue, g_bnbwd)
+    conv_wgrad.launches += 1
+    return dw
+
+
+conv_wgrad.launches = 0
+
+
+def _launch_dgrad(g_parts, w, out, stats, stride, g_bnbwd, out_mask, extra):
+    from ._build import load
+
+    n, h, wd, ci = out.shape
+    k, co = int(w.shape[0]), int(w.shape[3])
+    lib = load("fused_conv_dgrad")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _bind(lib, "fused_conv_dgrad",
+               [p] * 7 + [i] * 2 + [p] * 4 + [i, p] + [i] * 8 + [p])
+    g = e = y = gconsts = g2 = w2 = yin = mconsts = partial = None
+    co2 = s2 = 0
+    if g_bnbwd is None:
+        g = g_parts.contiguous()
+    else:
+        e, y = (t.contiguous() for t in g_parts)
+        gconsts = _f32_rows(g_bnbwd)
+    if extra is not None:
+        g2, w2 = (t.contiguous() for t in extra[:2])
+        co2, s2 = int(w2.shape[3]), int(extra[2])
+    tiles = 0
+    if out_mask is not None:
+        yin = out_mask[0].contiguous()
+        mconsts = _f32_rows(out_mask[1:])
+        tiles = _bind(lib, "fused_conv_dgrad_tiles", [i] * 5)(n, h, wd,
+                                                                stride, s2)
+        partial = torch.empty((tiles, 2, ci), dtype=torch.float32,
+                              device=w.device)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_ptr(g), _ptr(e), _ptr(y), _ptr(gconsts), _ptr(w), _ptr(g2),
+                 _ptr(w2), co2, s2, _ptr(yin), _ptr(mconsts), _ptr(out),
+                 _ptr(partial), tiles, _ptr(stats), n, h, wd, ci, co, k,
+                 stride, _DTYPES[w.dtype], stream)
+    if err != 0:
+        raise MXNetError("fused_conv_dgrad launch failed: CUDA error %d" % err)
+
+
+def conv_dgrad(g_parts, w, x_shape, *, stride=1, g_bnbwd=None, out_mask=None,
+               extra=None):
+    """Input gradient of :func:`conv_fwd` with its fused epilogue (B3).
+
+    g_parts: the complete output gradient (N, Ho, Wo, Co), or ``(e,
+    y_raw)`` with ``g_bnbwd`` constants (rebuilt as in :func:`conv_wgrad`);
+    w: (k, k, Ci, Co); x_shape: (N, H, W, Ci). out_mask: None returns ``(dx,
+    None)``; or ``(y_in, gamma, beta, mu, inv_sigma)``, the conv input's own
+    BatchNorm, returns ``(e_out, stats)`` with e_out = dx where gamma * xhat
+    + beta > 0 (else 0) and stats (2, Ci) f32 = [sum e_out, sum e_out *
+    xhat] over the unrounded e_out. extra: optional ``(g2, w2, stride2)``,
+    a 1x1 conv's complete gradient added before the mask (the downsample
+    shortcut's join at act1). Outputs are in w's dtype. On a CUDA tensor
+    this launches the kernel and adds one to ``conv_dgrad.launches``; on a
+    CPU tensor it runs :func:`conv_dgrad_reference`; on a ``meta`` tensor
+    it only allocates."""
+    stride = int(stride)
+    x_shape = tuple(int(v) for v in x_shape)
+    g_shape = _check_geometry("conv_dgrad", x_shape, tuple(w.shape), stride)
+    dtype, dev = w.dtype, w.device
+    _need(dtype in _DTYPES, "conv_dgrad: w must be float32 or bfloat16, got "
+          "%s", dtype)
+    _check_grad_side("conv_dgrad", g_parts, g_bnbwd, g_shape, dtype, dev)
+    n, h, wd, ci = x_shape
+    if out_mask is not None:
+        _check_tensor("conv_dgrad", "y_in", out_mask[0], x_shape, dtype, dev)
+        for v in out_mask[1:]:
+            _check_tensor("conv_dgrad", "an out_mask vector", v, (ci,), None,
+                          dev)
+    if extra is not None:
+        g2, w2, s2 = extra
+        s2 = int(s2)
+        _need(s2 in (1, 2) and not (s2 == 2 and (h % 2 or wd % 2)),
+              "conv_dgrad: extra stride %r does not fit x %s", s2, x_shape)
+        _check_tensor("conv_dgrad", "extra w2", w2, (1, 1, ci, w2.shape[3]),
+                      dtype, dev)
+        _check_tensor("conv_dgrad", "extra g2", g2,
+                      (n, h // s2, wd // s2, w2.shape[3]), dtype, dev)
+    if dev.type == "cpu":
+        return conv_dgrad_reference(g_parts, w, x_shape, stride=stride,
+                                    g_bnbwd=g_bnbwd, out_mask=out_mask,
+                                    extra=extra)
+    out = torch.empty(x_shape, dtype=dtype, device=dev)
+    stats = None if out_mask is None else torch.empty(
+        (2, ci), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return out, stats
+    if dev.type != "cuda":
+        raise MXNetError("conv_dgrad: unsupported device %s" % dev)
+    _launch_dgrad(g_parts, w.contiguous(), out, stats, stride, g_bnbwd,
+                  out_mask, extra)
+    conv_dgrad.launches += 1
+    return out, stats
+
+
+conv_dgrad.launches = 0
+
+
+def _finalize_stats(stats, count, eps):
+    """(mean, var, inv_sigma) from the (2, C) f32 [sum, sum of squares]."""
+    mean = stats[0] / count
+    var = torch.clamp_min(stats[1] / count - mean * mean, 0.0)
+    return mean, var, torch.rsqrt(var + eps)
+
+
+def _unit_fwd(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3, stride, eps):
+    """Training forward of the unit: out, the batch statistics (mean, var
+    per BN) and the residuals the backward needs."""
+    data = data.contiguous()   # read by conv1, the shortcut and bn1's sums
+    n, h, wd, _ci = data.shape
+    n1 = n * h * wd
+    xf = data.float()
+    mean1, var1, inv1 = _finalize_stats(
+        torch.stack([xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2))]),
+        n1, eps)
+    sc1, bi1 = _bn_consts(g1, b1, mean1, inv1)
+
+    y1, st1 = conv_fwd(data, w1, stride=1, prologue=(sc1, bi1, True),
+                       emit_stats=True)
+    mean2, var2, inv2 = _finalize_stats(st1, n1, eps)
+    sc2, bi2 = _bn_consts(g2, b2, mean2, inv2)
+
+    y2, st2 = conv_fwd(y1, w2, stride=stride, prologue=(sc2, bi2, True),
+                       emit_stats=True)
+    n2 = n * (h // stride) * (wd // stride)
+    mean3, var3, inv3 = _finalize_stats(st2, n2, eps)
+    sc3, bi3 = _bn_consts(g3, b3, mean3, inv3)
+
+    y3, _ = conv_fwd(y2, w3, stride=1, prologue=(sc3, bi3, True))
+    if wsc is None:
+        shortcut = data
+    else:
+        shortcut, _ = conv_fwd(data, wsc, stride=stride,
+                               prologue=(sc1, bi1, True))
+    out = y3 + shortcut
+    stats = (mean1, var1, mean2, var2, mean3, var3)
+    res = (data, y1, y2, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3,
+           mean1, inv1, mean2, inv2, mean3, inv3)
+    return out, stats, res
+
+
+def _unit_bwd(stride, res, g):
+    """The unit's backward from its residuals and the output gradient ``g``:
+    3 B3 and 3 B2 launches, a fourth B2 for the downsample shortcut, whose
+    data gradient rides conv1's B3 as its ``extra`` term. Gradients come
+    back in the dtypes of the inputs."""
+    (data, y1, y2, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3,
+     mean1, inv1, mean2, inv2, mean3, inv3) = res
+    g = g.contiguous()
+    n, h, wd, _ci = data.shape
+    n1 = float(n * h * wd)
+    n2 = float(n * (h // stride) * (wd // stride))
+    sc1, bi1 = _bn_consts(g1, b1, mean1, inv1)
+    sc2, bi2 = _bn_consts(g2, b2, mean2, inv2)
+    sc3, bi3 = _bn_consts(g3, b3, mean3, inv3)
+
+    # conv3 (1x1 s1): dgrad emits e2 = mask3 * dact3 and (dbeta3, dgamma3)
+    e2, st3 = conv_dgrad(g, w3, y2.shape, stride=1,
+                         out_mask=(y2, g3, b3, mean3, inv3))
+    dbeta3, dgamma3 = st3[0], st3[1]
+    dw3 = conv_wgrad(y2, g, w3.shape, stride=1, x_prologue=(sc3, bi3, True))
+    cb2 = (g3.float() * inv3, mean3, inv3, dbeta3 / n2, dgamma3 / n2)
+
+    # conv2 (3x3, stride): the g side rebuilt from (e2, y2) by bn3's backward
+    dw2 = conv_wgrad(y1, (e2, y2), w2.shape, stride=stride,
+                     x_prologue=(sc2, bi2, True), g_bnbwd=cb2)
+    e1, st2 = conv_dgrad((e2, y2), w2, y1.shape, stride=stride, g_bnbwd=cb2,
+                         out_mask=(y1, g2, b2, mean2, inv2))
+    dbeta2, dgamma2 = st2[0], st2[1]
+    cb1 = (g2.float() * inv2, mean2, inv2, dbeta2 / n1, dgamma2 / n1)
+
+    # conv1 (1x1 s1): the downsample shortcut joins at act1 (extra term)
+    dw1 = conv_wgrad(data, (e1, y1), w1.shape, stride=1,
+                     x_prologue=(sc1, bi1, True), g_bnbwd=cb1)
+    extra = None if wsc is None else (g, wsc, stride)
+    e0, st1 = conv_dgrad((e1, y1), w1, data.shape, stride=1, g_bnbwd=cb1,
+                         out_mask=(data, g1, b1, mean1, inv1), extra=extra)
+    dbeta1, dgamma1 = st1[0], st1[1]
+    dwsc = None
+    if wsc is not None:
+        dwsc = conv_wgrad(data, g, wsc.shape, stride=stride,
+                          x_prologue=(sc1, bi1, True)).to(wsc.dtype)
+
+    # bn1's backward to the unit input (elementwise), plus the dim-match
+    # shortcut
+    xhat0 = (data.float() - mean1) * inv1
+    ddata = (g1.float() * inv1) * (
+        e0.float() - dbeta1 / n1 - xhat0 * (dgamma1 / n1))
+    if wsc is None:
+        ddata = ddata + g.float()
+    return (ddata.to(data.dtype), dw1.to(w1.dtype), dw2.to(w2.dtype),
+            dw3.to(w3.dtype), dwsc, dgamma1.to(g1.dtype), dbeta1.to(b1.dtype),
+            dgamma2.to(g2.dtype), dbeta2.to(b2.dtype), dgamma3.to(g3.dtype),
+            dbeta3.to(b3.dtype))
+
+
+class _BottleneckTrain(torch.autograd.Function):
+    """The unit's forward (B1 with the stats epilogue) and its backward (B2,
+    B3): the counterpart of the JAX ``custom_vjp``. The forward keeps what
+    the JAX residuals keep (data, y1, y2, weights, gammas, betas, means and
+    inverse sigmas), not y3. The batch statistics are outputs without a
+    gradient: their cotangent is ignored."""
+
+    @staticmethod
+    def forward(ctx, data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3, stride,
+                eps):
+        out, stats, res = _unit_fwd(data, w1, w2, w3, wsc, g1, b1, g2, b2,
+                                    g3, b3, stride, eps)
+        ctx.stride = stride
+        ctx.save_for_backward(*res)
+        ctx.mark_non_differentiable(*stats)
+        return (out,) + stats
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g, *_gstats):
+        return _unit_bwd(ctx.stride, ctx.saved_tensors, g) + (None, None)
+
+
+def bottleneck_train(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3, stride,
+                     eps):
+    """Training mode of the pre-activation bottleneck unit: BN on the batch
+    statistics, which come from B1's stats epilogue. data NHWC, weights HWIO
+    (``wsc`` None for a dim-match unit). Returns ``(out, (mean1, var1,
+    mean2, var2, mean3, var3))``; the statistics feed the caller's
+    moving-statistics update and carry no gradient. Through autograd the
+    backward launches B3 three times and B2 three times (four with the
+    downsample shortcut)."""
+    out, *stats = _BottleneckTrain.apply(data, w1, w2, w3, wsc, g1, b1, g2,
+                                         b2, g3, b3, int(stride), float(eps))
+    return out, tuple(stats)

@@ -5,15 +5,14 @@ one op (counterpart of ``FusedBottleneckUnit`` in
 The IR fusion pass (``ir/rules.py`` ``bottleneck_fuse``) emits it when it
 rewrites the unfused builder graph. Parameter names and OIHW weight shapes
 match the unfused builder's exactly, so checkpoints load either way. The
-inference unit runs on kernel B1 (``kernels/fused_block.py``).
+inference unit runs on kernel B1, the training unit on B1 forward and B2/B3
+backward under one ``torch.autograd.Function`` (``kernels/fused_block.py``).
 
-Not ported yet: the training unit (``__is_train__=True``, kernels B2/B3),
-the mesh-partitioned variants and ``_ConvResidualAdd`` (the ``residual``
-pass).
+Not ported yet: the mesh-partitioned variants (the JAX package's
+``spmd_scope``) and ``_ConvResidualAdd`` (the ``residual`` pass).
 """
 from __future__ import annotations
 
-from ..base import MXNetError
 from .registry import register
 
 
@@ -54,21 +53,26 @@ def fused_bottleneck_unit(
 ):
     """Pre-activation bottleneck unit (BN-ReLU-conv x3 + shortcut) in NHWC.
 
-    Outputs ``(out, bn1_mm, bn1_mv, ..., bn3_mv)``: in inference the moving
-    statistics come back unchanged."""
+    Outputs ``(out, bn1_mm, bn1_mv, ..., bn3_mv)``: in training the moving
+    statistics are mixed with the batch's, ``m * old + (1 - m) * batch`` in
+    f32 cast back to each one's dtype, holding no graph; in inference they
+    come back unchanged."""
     from ..kernels import fused_block as fb
-
-    if __is_train__:
-        raise MXNetError("FusedBottleneckUnit: training mode is not ported "
-                         "yet (training slice: kernels B2/B3)")
 
     def hwio(w):
         return None if w is None else w.permute(2, 3, 1, 0)  # OIHW -> HWIO
 
+    weights = (data, hwio(conv1_weight), hwio(conv2_weight),
+               hwio(conv3_weight), hwio(sc_weight), bn1_gamma, bn1_beta,
+               bn2_gamma, bn2_beta, bn3_gamma, bn3_beta)
     moving = (bn1_moving_mean, bn1_moving_var, bn2_moving_mean,
               bn2_moving_var, bn3_moving_mean, bn3_moving_var)
-    out = fb.bottleneck_infer(
-        data, hwio(conv1_weight), hwio(conv2_weight), hwio(conv3_weight),
-        hwio(sc_weight), bn1_gamma, bn1_beta, bn2_gamma, bn2_beta, bn3_gamma,
-        bn3_beta, *moving, stride=int(stride), eps=float(eps))
+    if __is_train__:
+        out, stats = fb.bottleneck_train(*weights, int(stride), float(eps))
+        m = float(momentum)
+        new = tuple((m * old.float() + (1.0 - m) * st.detach()).to(old.dtype)
+                    for old, st in zip(moving, stats))
+        return (out,) + new
+    out = fb.bottleneck_infer(*weights, *moving, stride=int(stride),
+                              eps=float(eps))
     return (out,) + moving

@@ -5,9 +5,10 @@ with MXNet's attribute names and defaults and NCHW layout.
 
 The convolution goes to ``torch.nn.functional`` (cuDNN on the card), as
 the JAX package leaves it to XLA: it is the unfused graph's oracle and
-the ResNet stem, not a kernel of the port. ``SoftmaxOutput`` is its
-forward (the probabilities); its fused loss gradient comes with the
-training slice.
+the ResNet stem, not a kernel of the port. ``SoftmaxOutput`` is MXNet's
+fused softmax + cross-entropy head: its forward gives the probabilities,
+and under autograd its backward is the loss gradient, whatever gradient
+reaches its output.
 """
 from __future__ import annotations
 
@@ -102,18 +103,81 @@ def activation(data, act_type="relu"):
     raise MXNetError("unknown act_type %r" % act_type)
 
 
-@register(name="SoftmaxOutput", aliases=("softmax_output", "Softmax"))
-def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
-                   multi_output=False, use_ignore=False, preserve_shape=False,
-                   normalization="null", out_grad=False, smooth_alpha=0.0):
-    """Softmax probabilities (the forward of MXNet's fused softmax +
-    cross-entropy head; ``label`` is unused here)."""
+def _softmax_forward(data, multi_output, preserve_shape):
     if multi_output:
         return torch.softmax(data, dim=1)
     if preserve_shape:
         return torch.softmax(data, dim=-1)
     return torch.softmax(data.reshape(data.shape[0], -1),
                          dim=-1).reshape(data.shape)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Forward: the probabilities. Backward: ``(p - onehot(label)) *
+    grad_scale / denom`` in the output's dtype, ignoring the gradient that
+    reaches the output (the reference discards out_grad); the label gets a
+    zero gradient. The counterpart of the JAX ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        out = _softmax_forward(data, attrs["multi_output"],
+                               attrs["preserve_shape"])
+        ctx.attrs = attrs
+        ctx.save_for_backward(out, label)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, _grad_out):
+        out, label = ctx.saved_tensors
+        a = ctx.attrs
+        alpha, ignore = a["smooth_alpha"], a["ignore_label"]
+        if a["multi_output"]:
+            # trailing spatial dims flatten against the label (the
+            # reference takes label (N, d1*d2...) for data (N, C, d1, ...))
+            p = out.reshape(out.shape[0], out.shape[1], -1)
+            lab = label.reshape(out.shape[0], -1).long()
+            k = p.shape[1]
+            onehot = F.one_hot(lab, k).to(out.dtype).movedim(-1, 1)
+        else:
+            p = out.reshape(out.shape[0], -1)
+            lab = label.reshape(-1).long()
+            k = p.shape[1]
+            onehot = F.one_hot(lab, k).to(out.dtype)
+        if alpha:
+            onehot = onehot * (1 - alpha) + alpha / (k - 1) * (1 - onehot)
+        grad = p - onehot
+        if a["use_ignore"]:
+            keep = (lab != int(ignore)).to(out.dtype)
+            grad = grad * (keep.unsqueeze(1) if a["multi_output"]
+                           else keep[:, None])
+        denom = 1.0
+        if a["normalization"] == "batch":
+            denom = out.shape[0]
+        elif a["normalization"] == "valid" and a["use_ignore"]:
+            valid = (label != ignore) if a["multi_output"] else \
+                (lab != int(ignore))
+            denom = torch.clamp_min(valid.sum().to(out.dtype), 1.0)
+        grad = (grad * (a["grad_scale"] / denom)).reshape(out.shape)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad, dlabel, None
+
+
+@register(name="SoftmaxOutput", aliases=("softmax_output", "Softmax"))
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False, preserve_shape=False,
+                   normalization="null", out_grad=False, smooth_alpha=0.0):
+    """Softmax probabilities; under autograd the backward is the fused
+    cross-entropy gradient (see :class:`_SoftmaxOutput`)."""
+    multi_output, preserve_shape = bool(multi_output), bool(preserve_shape)
+    if not (torch.is_grad_enabled() and data.requires_grad):
+        return _softmax_forward(data, multi_output, preserve_shape)
+    attrs = dict(grad_scale=float(grad_scale),
+                 ignore_label=float(ignore_label), multi_output=multi_output,
+                 use_ignore=bool(use_ignore), preserve_shape=preserve_shape,
+                 normalization=normalization,
+                 smooth_alpha=float(smooth_alpha))
+    return _SoftmaxOutput.apply(data, label, attrs)
 
 
 @register(name="BatchNorm", aliases=("batch_norm", "BatchNorm_v1"),
@@ -139,8 +203,12 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
             pivot = None
             xf = data.float()
         else:
+            # the pivot carries no gradient, as the JAX package's
+            # stop_gradient has it: mean and var stay exact functions of
+            # the data in autograd, without two cancelling terms through
+            # the pivot sample
             pivot = data[tuple(slice(0, 1) if i in red else slice(None)
-                               for i in range(data.dim()))].float()
+                               for i in range(data.dim()))].detach().float()
             xf = data.float() - pivot
         mean_c = xf.sum(dim=red) / n
         var = torch.clamp_min((xf * xf).sum(dim=red) / n - mean_c * mean_c,

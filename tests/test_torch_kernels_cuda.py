@@ -22,6 +22,13 @@ B1 (``fused_conv_fwd``) is held the same way per output pixel (a row of
 Co channels), and its stats per channel against that channel's sum of
 |y| (sum of y^2 for the squares): 1e-4 in fp32, 2**-6 in bf16. TF32 is
 off for the plain version's cuDNN convolution.
+
+B3 (``fused_conv_dgrad``) is held as B1 is, per input pixel, and its stats
+per channel against that channel's sum of |e| (of |e * xhat|). B2
+(``fused_conv_wgrad``) is held per (tap, Co) column of dw against the
+column's largest sum of |terms| (the same product on absolute values):
+1e-4 in both types, since both sides multiply the same rounded operands
+in f32 and differ only in the order of the sums.
 """
 import pytest
 import torch
@@ -211,3 +218,136 @@ def test_conv_fwd_entry_point_checks_the_stats_scratch_rows():
                                  stats.data_ptr(), 2, 12, 12, 16, 8, 1, 1,
                                  0, 0, 0, stream)
         assert (err == 0) == (rows == tiles), rows
+
+
+def _grad_case(gen, n, h, ci, co, k, stride, dt):
+    """x, w, a BN prologue, e and y_raw at the output and 5 BN-backward
+    constants on the card."""
+    ho = h // stride
+
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    x = rnd(n, h, h, ci).to(dt)
+    w = (rnd(k, k, ci, co) / (k * k * ci) ** 0.5).to(dt)
+    pro = (torch.rand(ci, device="cuda", generator=gen) + 0.5,
+           rnd(ci) * 0.5, True)
+    e, y = rnd(n, ho, ho, co).to(dt), rnd(n, ho, ho, co).to(dt)
+    consts = (torch.rand(co, device="cuda", generator=gen) + 0.5,
+              rnd(co) * 0.2, torch.rand(co, device="cuda", generator=gen)
+              + 0.5, rnd(co) * 0.01, rnd(co) * 0.01)
+    return x, w, pro, e, y, consts
+
+
+def _wgrad_err(dw, ref, x, g_parts, w_shape, stride, pro, g_bnbwd):
+    """Largest |dw - ref| per (tap, Co) column over the column's largest
+    sum of |terms|."""
+    h = fb._apply_prologue(x, pro).float().abs()
+    g = fb._g_value(g_parts, g_bnbwd).to(x.dtype).float().abs()
+    k = int(w_shape[0])
+    terms = torch.nn.grad.conv2d_weight(
+        h.permute(0, 3, 1, 2), (int(w_shape[3]), int(w_shape[2]), k, k),
+        g.permute(0, 3, 1, 2), stride=stride, padding=k // 2)
+    col = terms.permute(2, 3, 1, 0).amax(dim=2).clamp_min(1e-30)
+    return ((dw - ref).abs().amax(dim=2) / col).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_wgrad_matches_plain_on_the_card(dtype):
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for (n, h, ci, co, k, stride) in CONV_SHAPES:
+        x, w, pro, e, y, consts = _grad_case(gen, n, h, ci, co, k, stride, dt)
+        for g_parts, g_bnbwd in ((e, None), ((e, y), consts)):
+            for p in (None, pro):
+                before = fb.conv_wgrad.launches
+                kw = dict(stride=stride, x_prologue=p, g_bnbwd=g_bnbwd)
+                dw = fb.conv_wgrad(x, g_parts, w.shape, **kw)
+                ref = fb.conv_wgrad_reference(x, g_parts, w.shape, **kw)
+                torch.cuda.synchronize()
+                assert fb.conv_wgrad.launches == before + 1
+                assert dw.dtype == torch.float32 and dw.shape == w.shape
+                assert _wgrad_err(dw, ref, x, g_parts, w.shape, stride, p,
+                                  g_bnbwd) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_dgrad_matches_plain_on_the_card(dtype):
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for (n, h, ci, co, k, stride) in CONV_SHAPES:
+        x, w, pro, e, y, consts = _grad_case(gen, n, h, ci, co, k, stride, dt)
+        mask = (x, pro[0] + 0.5, pro[1], pro[1] * 0.3, pro[0])
+        co2 = 24
+        extra = None
+        if k == 1 and stride == 1:
+            s2 = 2 if h % 2 == 0 else 1
+            extra = (torch.randn(n, h // s2, h // s2, co2, device="cuda",
+                                 generator=gen).to(dt),
+                     (torch.randn(1, 1, ci, co2, device="cuda",
+                                  generator=gen) / ci ** 0.5).to(dt), s2)
+        epilogues = [(None, None), (mask, None)] + (
+            [(mask, extra)] if extra is not None else [])
+        for g_parts, g_bnbwd in ((e, None), ((e, y), consts)):
+            for out_mask, ex in epilogues:
+                before = fb.conv_dgrad.launches
+                kw = dict(stride=stride, g_bnbwd=g_bnbwd, out_mask=out_mask,
+                          extra=ex)
+                got, st = fb.conv_dgrad(g_parts, w, x.shape, **kw)
+                ref, ref_st = fb.conv_dgrad_reference(g_parts, w, x.shape,
+                                                      **kw)
+                torch.cuda.synchronize()
+                assert fb.conv_dgrad.launches == before + 1
+                assert got.dtype == dt and got.shape == x.shape
+                assert _row_err(got, ref) <= ROW_TOL[dt]
+                if out_mask is None:
+                    assert st is None
+                    continue
+                xhat = (x.float() - out_mask[3]) * out_mask[4]
+                ef = ref.float()
+                for t, bound in ((0, ef.abs().sum((0, 1, 2))),
+                                 (1, (ef * xhat).abs().sum((0, 1, 2)))):
+                    assert bool(((st[t] - ref_st[t]).abs()
+                                 <= ROW_TOL[dt] * bound + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_bottleneck_train_on_the_card_launches_b1_b2_b3():
+    """One downsample unit's forward and backward in fp32: 4 B1, 4 B2 and
+    3 B3 launches, gradients as on the CPU."""
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    n, h, ci, c, co = 2, 14, 64, 32, 128
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    args = [rnd(n, h, h, ci), rnd(1, 1, ci, c, scale=ci ** -0.5),
+            rnd(3, 3, c, c, scale=(9 * c) ** -0.5),
+            rnd(1, 1, c, co, scale=c ** -0.5),
+            rnd(1, 1, ci, co, scale=ci ** -0.5)]
+    args += [rnd(v) * 0.2 + (1.0 if i % 2 == 0 else 0.0)
+             for i, v in enumerate((ci, ci, c, c, c, c))]
+    cot = rnd(n, h // 2, h // 2, co)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        a = [t.to(dev).requires_grad_() for t in args]
+        before = (fb.conv_fwd.launches, fb.conv_wgrad.launches,
+                  fb.conv_dgrad.launches)
+        out, _stats = fb.bottleneck_train(*a, 2, 2e-5)
+        grads[dev] = torch.autograd.grad((out * cot.to(dev)).sum(), a)
+        counts = (fb.conv_fwd.launches - before[0],
+                  fb.conv_wgrad.launches - before[1],
+                  fb.conv_dgrad.launches - before[2])
+        assert counts == ((0, 0, 0) if dev == "cpu" else (4, 4, 3))
+    for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        rel = ((g_card.cpu() - g_cpu).abs().max()
+               / g_cpu.abs().max().clamp_min(1e-30)).item()
+        assert rel <= 1e-4

@@ -307,15 +307,22 @@ def test_unported_modes_raise(graphs, params):
         AOTPredictor(sym, args, auxs, quant="int8", **kw)
     with pytest.raises(ServingError, match="not ported"):
         AOTPredictor(sym, args, auxs, mesh=object(), **kw)
-    with pytest.raises(MXNetError, match="not ported"):
-        tfb.bottleneck_train()
+    # the training unit is ported: it runs, and mixes its moving statistics
+    # with the batch's without holding a graph
     fused = tsym.FusedBottleneckUnit(data=tsym.var("x"), num_filter=16,
                                      stride=1, dim_match=True)
     op = fused._entries[0][0].op
-    x = torch.zeros(1, 4, 4, 16)
-    ins = [x] + [torch.zeros(1)] * 15
-    with pytest.raises(MXNetError, match="training"):
-        op.fn(*ins, num_filter=16, __is_train__=True)
+    x = torch.randn(2, 4, 4, 16, generator=torch.Generator().manual_seed(0))
+    weights = [torch.full(s, 0.1, requires_grad=True)
+               for s in ((4, 16, 1, 1), (4, 4, 3, 3), (16, 4, 1, 1))]
+    bn = [torch.ones(c) for c in (16, 16, 4, 4, 4, 4)]
+    moving = [torch.zeros(c) if i % 2 == 0 else torch.ones(c)
+              for i, c in enumerate((16, 16, 4, 4, 4, 4))]
+    out = op.fn(x, *weights, *bn, *moving, num_filter=16, momentum=0.5,
+                __is_train__=True)
+    assert len(out) == 7 and out[0].shape == x.shape
+    assert torch.allclose(out[1], 0.5 * x.mean(dim=(0, 1, 2)), atol=1e-6)
+    assert all(not m.requires_grad for m in out[1:])
 
 
 def test_default_device_is_cuda(graphs, params):
