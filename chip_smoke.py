@@ -9,12 +9,16 @@ the kernels are built for sm_90a) and ``nvcc``. It
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from ``mxnet_tpu_torch/kernels/
    csrc`` (one ``nvcc`` per source, all started together) and prints the
-   build time and the compiler's register/spill report;
+   build time and the compiler's register/spill report; reads the SASS of
+   the bf16 flash-attention kernels B5 and B7 (``cuobjdump -sass``) and
+   fails unless each has wgmma (HGMMA) and TMA load (UTMALDG) instructions
+   and the D = 64 ones spill nothing;
 3. holds the flash-attention forward (B5) against its plain PyTorch
    version on the card, at the shapes the serving and training paths give
    it and a few more (causal and not, a ``kv_len`` mask, D = 128, float32
    and bfloat16), and times the kernel, the plain version and one library
-   call (SDPA, a yardstick only: the port never calls it);
+   call (SDPA, a yardstick only: the port never calls it) at the training
+   shape and the prefill buckets 256, 1024 and 2048;
 4. drives the serving path at full width — the 12-layer, d_model 512
    transformer (random weights from seed 0) behind
    ``GenerateServer(slots=8, page_size=16)`` — with 16 concurrent requests
@@ -73,6 +77,7 @@ device, or without the package beside it, it exits non-zero at once.
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -185,6 +190,86 @@ def _card_line():
     return r.stdout.strip().splitlines()[0]
 
 
+# the bf16 B5 and B7 kernels, by library: their mangled names hold these
+TC_KERNELS = {"flash_attention_fwd": "flash_fwd_tc_kernel",
+              "flash_attention_bwd": "flash_bwd_dkv_tc_kernel"}
+
+
+def _cuobjdump(nvcc):
+    """cuobjdump beside nvcc, else Triton's copy."""
+    cands = [os.path.join(os.path.dirname(nvcc), "cuobjdump")]
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for cand in cands:
+        if os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("cuobjdump not found in %s" % cands)
+
+
+def _res_usage(tool, lib):
+    """{mangled kernel name: (registers, local-memory bytes)} from
+    ``cuobjdump -res-usage``; spilled registers live in local memory, so a
+    kernel with 0 bytes of it spills nothing."""
+    out = subprocess.run([tool, "-res-usage", str(lib)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    report, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1)
+            continue
+        fields = dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", line))
+        if name and len(fields) == 3:
+            report[name] = (int(fields["REG"]),
+                            int(fields["STACK"]) + int(fields["LOCAL"]))
+            name = None
+    return report
+
+
+def sass_phase(build):
+    """Counts the wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
+    SASS of the bf16 B5 and B7 kernels (``cuobjdump -sass``) and prints
+    their registers and stack/local bytes (``cuobjdump -res-usage``, which
+    reads the built library, so a cached build is checked too); fails if
+    either count is 0 or a D = 64 instantiation uses local memory."""
+    tool = _cuobjdump(build._nvcc())
+    for lib, kernel in TC_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(build.lib_path(lib))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        counts, name = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = m.group(1) if kernel in m.group(1) else None
+                if name:
+                    counts[name] = [0, 0]
+            elif name:
+                counts[name][0] += "HGMMA" in line
+                counts[name][1] += "UTMALDG" in line
+        if not counts:
+            raise RuntimeError("sass: no %s in %s" % (kernel, lib))
+        usage = _res_usage(tool, build.lib_path(lib))
+        for name, (n_mma, n_tma) in sorted(counts.items()):
+            args = re.findall(r"Li(\d+)E", name.split(kernel, 1)[1])
+            if name not in usage:
+                raise RuntimeError("sass: no resource usage for %s" % name)
+            regs, local = usage[name]
+            print("sass %s<%s>: HGMMA %d, UTMALDG %d; registers %d, stack "
+                  "and local bytes %d" % (kernel, ", ".join(args), n_mma,
+                                          n_tma, regs, local))
+            if not (n_mma and n_tma):
+                raise RuntimeError("sass: %s has no wgmma or no TMA load"
+                                   % name)
+            if args[0] == "64" and local:
+                raise RuntimeError("sass: %s spills (%d bytes of stack and "
+                                   "local memory)" % (name, local))
+
+
 def _time_ms(torch, fn, reps=30, warmup=5):
     """Median over ``reps`` single calls, CUDA events around each."""
     for _ in range(warmup):
@@ -201,6 +286,10 @@ def _time_ms(torch, fn, reps=30, warmup=5):
     times.sort()
     return times[len(times) // 2]
 
+
+# B5 and B7 by input type: bf16 (the main path) on the tensor cores, fp32
+# on the CUDA cores
+FLASH_DESIGN = "wgmma+TMA (bf16); CUDA cores (fp32)"
 
 # per kernel: products of 2*d operations per live score, and the tensors
 # it must move: (B, H, Sq, D)- and (B, H, Sk, D)-sized ones in the input
@@ -221,13 +310,20 @@ def _live_scores(sq, sk, causal, kv_len):
     return sum(min(r + 1, kv_len) for r in range(sq))
 
 
+def _attention_flops(kernel, b, h, sq, sk, d, causal, kv_len):
+    """Operations ``kernel`` needs on these inputs: 2*d per product and
+    live score."""
+    return 2.0 * d * KERNEL_WORK[kernel][0] * b * h * _live_scores(
+        sq, sk, causal, kv_len)
+
+
 def _attention_bound(kernel, b, h, sq, sk, d, causal, kv_len, dtype):
     """Least time (ms) the card needs for ``kernel`` on these inputs: the
     operations they need over the peak rate for the input type, or each
     input read once and each output written once over the memory rate,
     whichever is larger; and which of the two it is."""
-    products, n_q, n_k, n_rows = KERNEL_WORK[kernel]
-    flops = 2.0 * d * products * b * h * _live_scores(sq, sk, causal, kv_len)
+    _products, n_q, n_k, n_rows = KERNEL_WORK[kernel]
+    flops = _attention_flops(kernel, b, h, sq, sk, d, causal, kv_len)
     itemsize = 2 if dtype == "bfloat16" else 4
     nbytes = b * h * d * itemsize * (n_q * sq + n_k * sk) \
         + n_rows * b * h * sq * 4
@@ -245,10 +341,11 @@ def _row_err(torch, x, ref, floor_frac=0.0):
     return (diff / scale.clamp_min(floor)).max().item()
 
 
-def _device_profile(torch, fn, top=8):
+def _device_profile(torch, fn, top=8, also=()):
     """Run ``fn`` under torch.profiler and print the device busy share of
-    its wall time (merged kernel intervals over the host-clock window) and
-    the device kernels that take the most time."""
+    its wall time (merged kernel intervals over the host-clock window), the
+    device kernels that take the most time, and those whose names hold a
+    string of ``also``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -280,7 +377,9 @@ def _device_profile(torch, fn, top=8):
 
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted(kernels, key=dev_us, reverse=True)[:top]
+    rows = sorted(kernels, key=dev_us, reverse=True)
+    rows = rows[:top] + [e for e in rows[top:]
+                         if any(name in e.key for name in also)]
     for e in rows:
         print("profile:   %7.2f ms %5.1f%% of busy  x%-5d %s"
               % (dev_us(e) / 1e3, 100 * dev_us(e) / busy, e.count,
@@ -346,16 +445,18 @@ def kernel_phase(torch, fa):
         if (dt, b, h, sq, sk, d, causal, kv_len) == cases[-1]:
             main_err = e_out
 
-    # times at the largest prefill bucket the serving path runs, and at
-    # the training shape
+    # times at the prefill buckets the serving path runs, each beside one
+    # SDPA forward of the same call, and at the training shape
     for sb in (256, 1024, 2048):
         qb, kb, vb = inputs(1, 8, sb, sb, 64, torch.bfloat16)
         t = _time_ms(torch, lambda: fa.flash_attention(qb, kb, vb,
                                                        causal=True))
+        t_lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, is_causal=True))
         bms, _ = _attention_bound("flash_attention_fwd", 1, 8, sb, sb, 64,
                                   True, sb, "bfloat16")
-        print("time flash_attention_fwd bf16 (1,8,%d,64) causal: %.4f ms "
-              "(bound %.4f ms)" % (sb, t, bms))
+        print("time flash_attention_fwd bf16 (1,8,%d,64) causal: %.4f ms, "
+              "SDPA %.4f ms (bound %.4f ms)" % (sb, t, t_lib, bms))
     b, h, s, d = TRAIN_ATTN
     q, k, v = inputs(b, h, s, s, d, torch.bfloat16)
     ms = _time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
@@ -365,12 +466,16 @@ def kernel_phase(torch, fa):
         q, k, v, is_causal=True))
     bound_ms, bound_by = _attention_bound("flash_attention_fwd", b, h, s, s,
                                           d, True, s, "bfloat16")
+    flops = _attention_flops("flash_attention_fwd", b, h, s, s, d, True, s)
     print("time flash_attention_fwd bf16 (%d,%d,%d,%d) causal: kernel %.4f "
-          "ms, plain %.4f ms, SDPA %.4f ms, bound %.6f ms (%s)"
-          % (b, h, s, d, ms, plain_ms, lib_ms, bound_ms, bound_by))
+          "ms (%.1f TFLOP/s, %.2fx bound, %.2fx SDPA), plain %.4f ms, SDPA "
+          "%.4f ms, bound %.6f ms (%s)"
+          % (b, h, s, d, ms, flops / ms / 1e9, ms / bound_ms, ms / lib_ms,
+             plain_ms, lib_ms, bound_ms, bound_by))
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "mxnet_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
             "replaces": "mxnet_tpu/kernels/flash_attention.py:65",
+            "design": FLASH_DESIGN,
             "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "shape": list(TRAIN_ATTN), "library": "SDPA forward"}
@@ -443,20 +548,25 @@ def backward_phase(torch, fa):
     lib_ms = _time_ms(torch, lambda: torch.autograd.grad(
         sdpa_out, (qg, kg, vg), do, retain_graph=True))
     entries = []
-    for name, ms, line, err in (
-            ("flash_attention_bwd_dq", dq_ms, 103, main_err["dq"]),
-            ("flash_attention_bwd_dkv", dkv_ms, 131, main_err["dkv"])):
+    for name, ms, line, err, design in (
+            ("flash_attention_bwd_dq", dq_ms, 103, main_err["dq"],
+             "CUDA cores (bf16 and fp32)"),
+            ("flash_attention_bwd_dkv", dkv_ms, 131, main_err["dkv"],
+             FLASH_DESIGN)):
         bound_ms, bound_by = _attention_bound(name, b, h, s, s, d, True, s,
                                               "bfloat16")
-        print("time %s bf16 (%d,%d,%d,%d) causal: kernel %.4f ms, plain "
-              "backward %.4f ms, SDPA backward %.4f ms (both shared by B6 "
-              "and B7), bound %.6f ms (%s)"
-              % (name, b, h, s, d, ms, plain_ms, lib_ms, bound_ms, bound_by))
+        flops = _attention_flops(name, b, h, s, s, d, True, s)
+        print("time %s bf16 (%d,%d,%d,%d) causal: kernel %.4f ms (%.1f "
+              "TFLOP/s, %.2fx bound, %.2fx SDPA backward), plain backward "
+              "%.4f ms, SDPA backward %.4f ms (both shared by B6 and B7), "
+              "bound %.6f ms (%s)"
+              % (name, b, h, s, d, ms, flops / ms / 1e9, ms / bound_ms,
+                 ms / lib_ms, plain_ms, lib_ms, bound_ms, bound_by))
         entries.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "mxnet_tpu/kernels/flash_attention.py:%d" % line,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "design": design, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "shape": list(TRAIN_ATTN),
             "plain": "flash_attention_bwd_reference: dq, dk and dv "
@@ -551,7 +661,8 @@ def training_phase(torch, np, fa):
              " ".join("%.4f" % x for x in secs),
              n_tok * TRAIN_STEPS / sum(secs), peak / 2 ** 30, held / 2 ** 30,
              *launches))
-    _device_profile(torch, lambda: step(carry, tokens))
+    _device_profile(torch, lambda: step(carry, tokens),
+                    also=TC_KERNELS.values())
 
     if not all(np.isfinite(losses)):
         raise RuntimeError("train: a loss is not finite: %s" % losses)
@@ -1501,6 +1612,7 @@ def main():
         print("phase %s: %.1f s" % (name, phase_s[name]))
         return out
 
+    phase("sass", sass_phase, _build)
     fwd = phase("kernel", kernel_phase, torch, fa)
     served = phase("serving", serving_phase, torch, np, fa)
     conv = phase("conv_kernel", conv_kernel_phase, torch, fb)

@@ -2,10 +2,11 @@
 //
 // Two kernels, each replacing one Pallas TPU kernel of
 // mxnet_tpu/kernels/flash_attention.py (both launched by `_bwd_call`):
-//   flash_bwd_dq_kernel   (B6) replaces `_bwd_dq_kernel`:
+//   B6, flash_bwd_dq_kernel, replaces `_bwd_dq_kernel`:
 //       dq = scale * sum_c ds[r, c] k[c]
-//   flash_bwd_dkv_kernel  (B7) replaces `_bwd_dkv_kernel`:
-//       dv = sum_r p[r, c] do[r],   dk = sum_r ds[r, c] (scale * q[r])
+//   B7, flash_bwd_dkv_tc_kernel (bf16) and flash_bwd_dkv_kernel (fp32),
+//   replaces `_bwd_dkv_kernel`:
+//       dv = sum_r p[r, c] do[r],   dk = scale * sum_r ds[r, c] q[r]
 // with, recomputed per tile from the forward's fp32 row logsumexp `lse`
 // and delta[r] = rowsum(do[r] * out[r]) (computed by the wrapper, as the
 // JAX package computes it outside its kernels):
@@ -14,7 +15,9 @@
 // Same function as the TPU kernels, not a block-by-block copy. Masks are
 // those of the forward (flash_attention_fwd.cu): key columns >= kv_len are
 // padding, and under `causal` column c is live for row r iff r >= c (both
-// from 0). Key rows at or past kv_len get zero gradients.
+// from 0). Key rows at or past kv_len get zero gradients. Each output
+// element has one writer and there are no atomics, so the result is the
+// same on every run.
 //
 // What bounds them on the H100. With L live scores, B6 does 3 products of
 // 2*D operations per live score (q.k, do.v, ds.k): 6*D*L; B7 does 4 (q.k,
@@ -22,39 +25,58 @@
 // bf16 causal, L = 134,283,264: B6 51.6 GFLOP (0.052 ms at the 989
 // TFLOP/s bf16 tensor-core peak) against ~85 MB of traffic (0.025 ms at
 // 3.35 TB/s); B7 68.7 GFLOP (0.069 ms) against ~102 MB (0.030 ms). So
-// operations bound both. This first version runs the products on the
-// fp32 CUDA cores (67 TFLOP/s peak) from shared memory, like the forward,
-// and sits far above that bound; tensor-core products (wgmma, TMA-fed
-// tiles) are the next step.
+// operations bound both, and only the tensor cores come near the bound.
 //
-// Design.
-//   * The TPU's split is kept: B6 has one CTA of 256 threads per (b*h,
-//     64-row query block) looping over 64-column K/V tiles (up to the
-//     causal diagonal and kv_len, like the forward); B7 one CTA per (b*h,
-//     64-row key block) looping over 64-row query tiles from the first
-//     that can see the key block. Each output element has one writer, no
-//     atomics, so the result is deterministic.
-//   * Threads form a 16 x 16 grid: thread (ty, tx) owns the CTA's rows
-//     4*ty .. 4*ty+3 (query rows in B6, key rows in B7), score columns
-//     tx + 16*j (j < 4) and accumulator columns tx + 16*j (j < D/16). Both
-//     score tiles of a step (q.k and do.v) come out of one loop over D.
-//     The p / ds tile a row group writes is read back only by the same
-//     half warp, so it needs __syncwarp, not __syncthreads.
-//   * Accumulators (dq in B6; dk and dv in B7) stay in registers in fp32:
-//     16 / 32 floats a thread in B6 and 32 / 64 in B7 at D = 64 / 128.
-//   * The scale rides on q as it is loaded (fp32), so B7's dk needs no
-//     extra factor and B6 multiplies dq by scale once at the end, as the
-//     TPU kernels do. bf16 inputs are widened to fp32 in shared memory;
-//     outputs are rounded once to the input type.
-//   * Shared memory (fp32): B6 holds q, do (rows, stride D+4), k, v
-//     (columns, stride D+1) and the ds tile: 85 KB at D = 64, 150 KB at
-//     D = 128. B7 holds k, v (rows, D+4), q, do (columns, D+1), the p and
-//     ds tiles and 64 lse/delta values: 102 KB / 167 KB. Both above 48 KB,
-//     so dynamic shared memory is requested.
+// B7's dtype split, one kernel each (a dispatch in the C entry point, not
+// a fallback): bfloat16, the main path, runs flash_bwd_dkv_tc_kernel on
+// the tensor cores (wgmma fed by TMA); float32 runs flash_bwd_dkv_kernel on
+// the fp32 CUDA cores, since the fp32 checks (1e-4 against full fp32) do
+// not admit the TF32 the tensor cores would give it. B6 runs on the CUDA
+// cores in both types.
+//
+// Design of B7 in bf16 (hopper_mma.cuh has the shared layouts).
+//   * One CTA per (b*h, 64-row key block): D / 64 consumer warpgroups, one
+//     per 64 columns of dK and dV, and one producer warp. The producer
+//     loads the block's K and V once (they stay resident) and streams the
+//     64-row Q and dO tiles, from the first query tile that can see the key
+//     block (causal) to the last, through a ring of kStages slots with TMA
+//     (3-D tensor maps over (B*H, S, D): rows past S read zeros). Its 32
+//     lanes also copy the tile's 64 lse (times log2 e; +inf past seq_q, so
+//     padded query rows get p = 0 without a mask) and delta values into
+//     the slot before arriving on its full barrier.
+//   * Scores are computed key-major, so the products that reduce over
+//     queries take their A operand from registers: S^T = K . Q^T and
+//     dP^T = V . dO^T (both operands K-major, D/16 k-steps each), then in
+//     fp32 registers P^T = exp(scale * S^T - lse[col]) (the causal mask on
+//     the diagonal tile only) and dS^T = P^T * (dP^T - delta[col]). P^T
+//     and dS^T are rounded once to bf16 as the A operands of dV += P^T . dO
+//     and dK += dS^T . Q, with dO and Q MN-major (transpose-B). At D = 128
+//     both warpgroups compute the whole S^T and dP^T and each keeps its
+//     own half of dK and dV: 4 x 32 accumulator floats a thread at either
+//     D.
+//   * dK is multiplied by scale once at the end; dK and dV are rounded once
+//     to bf16, and rows >= kv_len are written as zeros.
+//
+// Design of B6, and of B7 in fp32. The TPU's split is kept: B6 has one CTA
+// of 256 threads per (b*h, 64-row query block) looping over 64-column K/V
+// tiles (up to the causal diagonal and kv_len, like the forward); B7 one
+// CTA per (b*h, 64-row key block) looping over 64-row query tiles from the
+// first that can see the key block. Threads form a 16 x 16 grid: thread
+// (ty, tx) owns the CTA's rows 4*ty .. 4*ty+3 (query rows in B6, key rows
+// in B7), score columns tx + 16*j (j < 4) and accumulator columns tx + 16*j
+// (j < D/16). Both score tiles of a step (q.k and do.v) come out of one loop
+// over D. The p / ds tile a row group writes is read back only by the same
+// half warp (__syncwarp). Accumulators stay in fp32 registers; the scale
+// rides on q as it is loaded, so B6 multiplies dq by scale once at the
+// end, as the TPU kernels do. bf16 inputs (B6) are widened to fp32 in
+// shared memory; outputs are rounded once to the input type. Shared memory
+// (fp32): B6 85 KB at D = 64, 150 KB at D = 128; B7 102 KB / 167 KB.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -210,7 +232,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// B7: dk and dv for one (b*h, 64-row key block).
+// B7 in fp32: dk and dv for one (b*h, 64-row key block).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -359,6 +381,238 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- B7 in bfloat16: tensor cores ------------------------------------------
+
+using namespace hopper;
+
+constexpr int kStages = 2;               // Q/dO ring slots
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, in bytes from a 1024-aligned base: P K panels and P V
+// panels (resident), kStages x P Q panels and as many dO panels, kStages x
+// 64 lse and delta values, then the mbarriers.
+template <int D>
+struct DkvSmem {
+  static constexpr int P = D / 64;
+  static constexpr int k = 0;
+  static constexpr int v = k + P * kPanelBytes;
+  static constexpr int q = v + P * kPanelBytes;
+  static constexpr int dout = q + kStages * P * kPanelBytes;
+  static constexpr int lse = dout + kStages * P * kPanelBytes;
+  static constexpr int delta = lse + kStages * kBlockQ * 4;
+  static constexpr int bars = delta + kStages * kBlockQ * 4;
+  static constexpr int alloc = bars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128 * (D / 64) + 32)
+flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int seq_q, int seq_k,
+                        int kv_len, float scale, int causal) {
+  using L = DkvSmem<D>;
+  constexpr int P = L::P;             // consumer warpgroups = panels of D
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
+  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBlockK;  // causal: low key blocks, the longest
+                                        // loops, have the low indices
+  // query tiles before this key block see none of it under `causal`; a key
+  // block wholly at or past kv_len is padding and keeps zero gradients
+  const int start = causal ? k0 / kBlockQ : 0;
+  const int n_it =
+      k0 < kv_len ? max(0, (seq_q + kBlockQ - 1) / kBlockQ - start) : 0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 128 * P);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * P) {  // the producer warp
+    if (n_it == 0) return;
+    const int lane = tid - 128 * P;
+    const float* lse_bh = lse + (size_t)bh * seq_q;
+    const float* delta_bh = delta + (size_t)bh * seq_q;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * P * kPanelBytes);
+      for (int p = 0; p < P; ++p) {
+        tma_load_panel(smem + L::k + p * kPanelBytes, &tk, kv_full, 64 * p, k0,
+                       bh);
+        tma_load_panel(smem + L::v + p * kPanelBytes, &tv, kv_full, 64 * p, k0,
+                       bh);
+      }
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int r0 = (start + it) * kBlockQ;
+      if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * P * kPanelBytes);
+        for (int p = 0; p < P; ++p) {
+          tma_load_panel(smem + L::q + (s * P + p) * kPanelBytes, &tq,
+                         &full[s], 64 * p, r0, bh);
+          tma_load_panel(smem + L::dout + (s * P + p) * kPanelBytes, &tdo,
+                         &full[s], 64 * p, r0, bh);
+        }
+      }
+      for (int c = lane; c < kBlockQ; c += 32) {
+        const int r = r0 + c;
+        lse_s[s * kBlockQ + c] = r < seq_q ? lse_bh[r] * kLog2e
+                                          : __int_as_float(0x7f800000);
+        delta_s[s * kBlockQ + c] = r < seq_q ? delta_bh[r] : 0.f;
+      }
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  const int wg = tid / 128;            // the 64 columns of dK, dV it keeps
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int krow = k0 + 16 * warp + lane / 4;  // and krow + 8
+  const float scale2 = scale * kLog2e;
+  const uint64_t k_desc = desc_sw128(smem + L::k);
+  const uint64_t v_desc = desc_sw128(smem + L::v);
+
+  float acc_k[32], acc_v[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  if (n_it > 0) mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const int r0 = (start + it) * kBlockQ;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const uint64_t q_desc = desc_sw128(smem + L::q + s * P * kPanelBytes);
+    const uint64_t do_desc = desc_sw128(smem + L::dout + s * P * kPanelBytes);
+
+    // S^T = K . Q^T and dP^T = V . dO^T: key rows by query columns
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    wgmma_fence();
+    fence_acc(st);
+    fence_acc(dpt);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+      wgmma_ss(st, desc_add(k_desc, off), desc_add(q_desc, off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+      wgmma_ss(dpt, desc_add(v_desc, off), desc_add(do_desc, off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(st);
+    fence_acc(dpt);
+
+    // P^T and dS^T in fp32; query column c of this thread: 8j + 2(lane%4) + e
+    const float* ls = lse_s + s * kBlockQ;
+    const float* dl = delta_s + s * kBlockQ;
+    const bool diag = causal && r0 == k0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          float p = exp2f(st[i] * scale2 - (e ? l2.y : l2.x));
+          if (diag && r0 + c + e < krow + 8 * h) p = 0.f;
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - (e ? d2.y : d2.x));
+        }
+    }
+    uint32_t a_p[4][4], a_ds[4][4];
+    to_a_frags(st, a_p);
+    to_a_frags(dpt, a_ds);
+
+    // dV += P^T . dO and dK += dS^T . Q over this warpgroup's 64 columns
+    const uint64_t do_cols = desc_add(do_desc, wg * kPanelBytes);
+    const uint64_t q_cols = desc_add(q_desc, wg * kPanelBytes);
+    wgmma_fence();
+    fence_acc(acc_v);
+    fence_acc(acc_k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc_v, a_p[kk], desc_add(do_cols, kk * 16 * 128));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc_k, a_ds[kk], desc_add(q_cols, kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc_v);
+    fence_acc(acc_k);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = krow + 8 * h;
+    if (r >= seq_k) continue;
+    // a padded key's p is unbounded (its scores are not in lse): select
+    // zeros rather than scale them
+    const bool live = r < kv_len;
+    __nv_bfloat16* krow_p = dk + ((size_t)bh * seq_k + r) * D + 64 * wg;
+    __nv_bfloat16* vrow_p = dv + ((size_t)bh * seq_k + r) * D + 64 * wg;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<__nv_bfloat162*>(krow_p + c) = __floats2bfloat162_rn(
+          live ? acc_k[i] * scale : 0.f, live ? acc_k[i + 1] * scale : 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(vrow_p + c) = __floats2bfloat162_rn(
+          live ? acc_v[i] : 0.f, live ? acc_v[i + 1] : 0.f);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int bh,
+                          int seq_q, int seq_k, int kv_len, float scale,
+                          int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!panel_map(&tq, q, bh, seq_q, D) || !panel_map(&tk, k, bh, seq_k, D) ||
+      !panel_map(&tv, v, bh, seq_k, D) ||
+      !panel_map(&tdo, dout, bh, seq_q, D))
+    return cudaErrorInvalidValue;
+  constexpr int smem = DkvSmem<D>::alloc;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (seq_k + kBlockK - 1) / kBlockK);
+  flash_bwd_dkv_tc_kernel<D><<<grid, 128 * (D / 64) + 32, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), seq_q, seq_k, kv_len, scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
@@ -438,7 +692,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   });
 }
 
-// As above, with dk, dv: (bh, seq_k, d). Launches B7.
+// As above, with dk, dv: (bh, seq_k, d). Launches B7: in bfloat16 on the
+// tensor cores (q, k, v, dout 16-byte aligned), in float32 on the CUDA
+// cores.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
@@ -448,9 +704,20 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* stream) {
   if (bad_dims(bh, seq_q, seq_k, kv_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)dispatch(dtype, d, [&](auto t, auto dim) {
-    return launch_dkv<decltype(t), decltype(dim)::value>(
-        q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k, kv_len, scale,
-        causal, s);
-  });
+  if (dtype == 1)
+    return d == 64 ? (int)launch_dkv_tc<64>(q, k, v, dout, lse, delta, dk,
+                                            dv, bh, seq_q, seq_k, kv_len,
+                                            scale, causal, s)
+         : d == 128 ? (int)launch_dkv_tc<128>(q, k, v, dout, lse, delta, dk,
+                                              dv, bh, seq_q, seq_k, kv_len,
+                                              scale, causal, s)
+                    : (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return d == 64 ? (int)launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk,
+                                              dv, bh, seq_q, seq_k, kv_len,
+                                              scale, causal, s)
+       : d == 128 ? (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta,
+                                                dk, dv, bh, seq_q, seq_k,
+                                                kv_len, scale, causal, s)
+                  : (int)cudaErrorInvalidValue;
 }

@@ -7,8 +7,10 @@ package's public function and is differentiable: it runs through a
 ``torch.autograd.Function`` (the counterpart of the JAX ``_flash``
 custom VJP) whose forward is B5 (``csrc/flash_attention_fwd.cu``) and
 whose backward is B6 (dq) and B7 (dk, dv) (``csrc/flash_attention_bwd.cu``),
-all built at first use (see ``_build``). A CPU tensor goes to the plain
-versions, :func:`flash_attention_reference` and
+all built at first use (see ``_build``). In bfloat16, B5 and B7 run on the
+tensor cores (wgmma fed by TMA, so the tensors TMA loads must be 16-byte
+aligned); in float32 they, and B6 in both types, run on the CUDA cores. A
+CPU tensor goes to the plain versions, :func:`flash_attention_reference` and
 :func:`flash_attention_bwd_reference`. There is no fallback: a build or
 launch failure on a CUDA tensor raises.
 
@@ -140,11 +142,15 @@ def _check_bwd(q, k, v, do, lse, delta, kv_len):
                                 t.dtype, tuple(t.shape), t.device))
 
 
-def _launch(source, entry, inputs, outputs, scale, causal, kv_len):
+def _launch(source, entry, inputs, outputs, scale, causal, kv_len,
+            tma_inputs=0):
     """Launch C entry point ``entry`` of ``csrc/<source>.cu`` on
     ``inputs`` (q, k, v first) and preallocated ``outputs``. Every entry
     point takes the pointers, then (bh, seq_q, seq_k, d, kv_len, scale,
-    causal, dtype, stream), and returns cudaGetLastError()."""
+    causal, dtype, stream), and returns cudaGetLastError(). In bfloat16 the
+    first ``tma_inputs`` inputs are loaded by TMA, which needs 16-byte
+    aligned addresses (``hopper::panel_map`` in ``csrc/hopper_mma.cuh``);
+    they are checked here so that a misaligned one raises a clear error."""
     from ._build import load
 
     q, k = inputs[0], inputs[1]
@@ -158,6 +164,11 @@ def _launch(source, entry, inputs, outputs, scale, causal, kv_len):
     tensors = (*inputs, *outputs)
     if not all(t.is_contiguous() for t in tensors):
         raise MXNetError("%s: every tensor must be contiguous" % entry)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in inputs[:tma_inputs]):
+        raise MXNetError("%s: bfloat16 q, k, v%s must start on a 16-byte "
+                         "boundary (the tensor-core kernel loads them with "
+                         "TMA)" % (entry, ", dout" * (tma_inputs > 3)))
     fn = getattr(load(source), entry)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -187,7 +198,7 @@ def _forward(q, k, v, scale, causal, kv_len):
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", "flash_attention_fwd", (q, k, v),
-            (out, lse), scale, causal, kv_len)
+            (out, lse), scale, causal, kv_len, tma_inputs=3)
     flash_attention.launches += 1
     return out, lse
 
@@ -224,7 +235,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=False,
                           kv_len)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_bwd", "flash_attention_bwd_dkv",
-            (q, k, v, do, lse, delta), (dk, dv), scale, causal, kv_len)
+            (q, k, v, do, lse, delta), (dk, dv), scale, causal, kv_len,
+            tma_inputs=4)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

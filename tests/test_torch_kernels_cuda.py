@@ -12,7 +12,9 @@ Tolerances. Each row of an output (a query row of out and dq, a key row
 of dk and dv) is held against that row's own scale, max_d |x - ref| /
 max_d |ref|: 2**-6 (two bf16 ulps) in bf16 and 1e-4 in fp32 (summation
 order only), so rows whose values are small, as out is over thousands
-of keys, are held as tightly as the rest. The scale is clamped from
+of keys, are held as tightly as the rest. In bf16, B5 and B7 also round
+P (and dS) to bf16 for their tensor-core products; that rounding alone
+measures about 2**-7 on the CPU (tests/test_torch_flash_tc.py). The scale is clamped from
 below at 1% of the tensor's largest |ref|: a row whose exact value is 0
 (dq of query row 0 under causal, where one live key gives ds = 0) comes
 out of both sides as rounding noise of ~1e-7, which has no scale of its
@@ -33,6 +35,7 @@ in f32 and differ only in the order of the sums.
 import pytest
 import torch
 
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import fused_block as fb
 
 from mxnet_tpu_torch.kernels.flash_attention import (
@@ -141,6 +144,67 @@ def test_autograd_on_the_card_launches_the_backward_kernels():
                                                   before[1] + 1)
     for g, r in zip(grads, refs):
         assert _row_err(g, r) <= ROW_TOL[torch.float32]
+
+
+# query lengths around the 64-row tile and the training length; keys 37
+# longer, the last 9 padding (kv_len < Sk)
+TILE_EDGE_SEQS = (1, 16, 63, 65, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_b5_b7_at_tile_edges_on_the_card(dtype, d):
+    """B5 and B7 against their plain versions where the tiles are ragged:
+    in bf16 the tensor-core kernels (TMA zero-fills rows past S), in fp32
+    the CUDA-core ones, held at 1e-4 (TF32 would not pass). B7 takes a
+    random ``out``: with the forward's, Sq = 1 under causal leaves one live
+    score, whose ds = p * (dO . v - dO . out) is exactly 0, so dk would be
+    rounding noise on both sides."""
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for sq in TILE_EDGE_SEQS:
+        sk = sq + 37
+        for causal in (True, False):
+            kw = dict(causal=causal, kv_len=sk - 9)
+            q, k, v, do = _inputs(gen, 1, 2, sq, sk, d, dt)
+            o = torch.randn(q.shape, device="cuda", generator=gen).to(dt)
+            out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+            ref, ref_lse = flash_attention_reference(q, k, v, **kw)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, ref_lse,
+                                             attention_delta(o, do), **kw)
+            _, ref_dk, ref_dv = flash_attention_bwd_reference(
+                q, k, v, o, ref_lse, do, **kw)
+            torch.cuda.synchronize()
+            where = (sq, causal)
+            assert _row_err(out, ref) <= ROW_TOL[dt], where
+            torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+            assert _row_err(dk, ref_dk) <= ROW_TOL[dt], where
+            assert _row_err(dv, ref_dv) <= ROW_TOL[dt], where
+            assert not dk[:, :, sk - 9:].any() and not dv[:, :, sk - 9:].any()
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_refuse_unaligned_tensors():
+    """TMA needs 16-byte aligned tensors: the wrapper raises on one that is
+    not, and launches nothing."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = _inputs(gen, 1, 2, 64, 64, 64, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view_as(q)           # contiguous, 2 bytes off
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16 == 2
+    out, lse = flash_attention_reference(q, k, v)
+    delta = attention_delta(out, do)
+    before = (flash_attention.launches, flash_attention_bwd_dkv.launches)
+    with pytest.raises(MXNetError, match="16-byte"):
+        flash_attention(shifted, k, v)
+    with pytest.raises(MXNetError, match="16-byte"):
+        flash_attention_bwd_dkv(q, k, v, shifted, lse, delta)
+    assert (flash_attention.launches,
+            flash_attention_bwd_dkv.launches) == before
 
 
 # (n, h, ci, co, k, stride): ResNet-50 unit shapes at batch 2, plus ragged
