@@ -10,9 +10,9 @@ the kernels are built for sm_90a) and ``nvcc``. It
 2. builds every CUDA kernel of the port from ``mxnet_tpu_torch/kernels/
    csrc`` (one ``nvcc`` per source, all started together) and prints the
    build time and the compiler's register/spill report; reads the SASS of
-   the bf16 flash-attention kernels B5 and B7 (``cuobjdump -sass``) and
-   fails unless each has wgmma (HGMMA) and TMA load (UTMALDG) instructions
-   and the D = 64 ones spill nothing;
+   the bf16 tensor-core kernels B1, B5, B6 and B7 (``cuobjdump -sass``)
+   and fails unless each has wgmma (HGMMA) and TMA load (UTMALDG)
+   instructions and spills nothing;
 3. holds the flash-attention forward (B5) against its plain PyTorch
    version on the card, at the shapes the serving and training paths give
    it and a few more (causal and not, a ``kv_len`` mask, D = 128, float32
@@ -70,6 +70,12 @@ the kernels are built for sm_90a) and ``nvcc``. It
    B1, 52 B2 and 48 B3 launches a step;
 13. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
+
+Every time of a kernel, of its plain version and of its library call is
+taken on two timers (``_time_ms``): CUDA events around each call, which
+also hold the wrapper's host time whenever the card waits for it, and the
+same events behind a spin kernel queued first, which hide it (device
+time only).
 
 Any failed phase exits non-zero before the result line. Without a CUDA
 device, or without the package beside it, it exits non-zero at once.
@@ -190,9 +196,12 @@ def _card_line():
     return r.stdout.strip().splitlines()[0]
 
 
-# the bf16 B5 and B7 kernels, by library: their mangled names hold these
-TC_KERNELS = {"flash_attention_fwd": "flash_fwd_tc_kernel",
-              "flash_attention_bwd": "flash_bwd_dkv_tc_kernel"}
+# the bf16 tensor-core kernels B1, B5, B6 and B7: (library, a string their
+# mangled names hold)
+TC_KERNELS = (("fused_conv_fwd", "conv_fwd_tc_kernel"),
+              ("flash_attention_fwd", "flash_fwd_tc_kernel"),
+              ("flash_attention_bwd", "flash_bwd_dq_tc_kernel"),
+              ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel"))
 
 
 def _cuobjdump(nvcc):
@@ -232,12 +241,12 @@ def _res_usage(tool, lib):
 
 def sass_phase(build):
     """Counts the wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
-    SASS of the bf16 B5 and B7 kernels (``cuobjdump -sass``) and prints
+    SASS of the bf16 tensor-core kernels (``cuobjdump -sass``) and prints
     their registers and stack/local bytes (``cuobjdump -res-usage``, which
     reads the built library, so a cached build is checked too); fails if
-    either count is 0 or a D = 64 instantiation uses local memory."""
+    either count is 0 or an instantiation uses local memory (spills)."""
     tool = _cuobjdump(build._nvcc())
-    for lib, kernel in TC_KERNELS.items():
+    for lib, kernel in TC_KERNELS:
         sass = subprocess.run([tool, "-sass", str(build.lib_path(lib))],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
@@ -265,31 +274,66 @@ def sass_phase(build):
             if not (n_mma and n_tma):
                 raise RuntimeError("sass: %s has no wgmma or no TMA load"
                                    % name)
-            if args[0] == "64" and local:
+            if local:
                 raise RuntimeError("sass: %s spills (%d bytes of stack and "
                                    "local memory)" % (name, local))
 
 
+# the spin kernel counts cycles; at most ~2e9 of them a second on an H100,
+# so a spin sized at this rate lasts at least as long on a slower clock
+SPIN_CYCLES_PER_S = 2e9
+
+
 def _time_ms(torch, fn, reps=30, warmup=5):
-    """Median over ``reps`` single calls, CUDA events around each."""
-    for _ in range(warmup):
+    """``(event, device)`` ms of one call of ``fn``, each the median over
+    ``reps`` calls. ``event``: CUDA events around the call, which also
+    hold the wrapper's host time whenever the card waits for it.
+    ``device``: the same, behind a spin kernel queued first that lasts
+    twice the longest host time of a warm call, so the host has queued the
+    whole call before the start event fires: device time only."""
+    host = 0.0
+    for i in range(warmup):
+        t0 = time.perf_counter()
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+        if i >= warmup // 2:          # the first calls may build or tune
+            host = max(host, time.perf_counter() - t0)
+    spin = int(max(2 * host, 1e-4) * SPIN_CYCLES_PER_S)
+    out = []
+    for device in (False, True):
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if device:
+                torch.cuda._sleep(spin)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        times.sort()
+        out.append(times[len(times) // 2])
+    return tuple(out)
 
 
-# B5 and B7 by input type: bf16 (the main path) on the tensor cores, fp32
-# on the CUDA cores
-FLASH_DESIGN = "wgmma+TMA (bf16); CUDA cores (fp32)"
+def _both(t):
+    """A ``_time_ms`` pair as text: event / device ms."""
+    return "%.4f / %.4f" % t
+
+
+def _timed(ms, plain_ms, lib_ms):
+    """A JSON entry's times: the event timer's under the contract's keys,
+    the device timer's beside them."""
+    out = {}
+    for key, t in (("ms", ms), ("plain_ms", plain_ms),
+                   ("library_ms", lib_ms)):
+        out[key], out[key + "_device"] = t
+    return out
+
+
+# B5-B7 by input type: bf16 (the main path) on the tensor cores, fp32 on
+# the CUDA cores
+TC_DESIGN = "wgmma+TMA (bf16); CUDA cores (fp32)"
 
 # per kernel: products of 2*d operations per live score, and the tensors
 # it must move: (B, H, Sq, D)- and (B, H, Sk, D)-sized ones in the input
@@ -455,8 +499,9 @@ def kernel_phase(torch, fa):
             qb, kb, vb, is_causal=True))
         bms, _ = _attention_bound("flash_attention_fwd", 1, 8, sb, sb, 64,
                                   True, sb, "bfloat16")
-        print("time flash_attention_fwd bf16 (1,8,%d,64) causal: %.4f ms, "
-              "SDPA %.4f ms (bound %.4f ms)" % (sb, t, t_lib, bms))
+        print("time flash_attention_fwd bf16 (1,8,%d,64) causal (event / "
+              "device): %s ms, SDPA %s ms (bound %.4f ms)"
+              % (sb, _both(t), _both(t_lib), bms))
     b, h, s, d = TRAIN_ATTN
     q, k, v = inputs(b, h, s, s, d, torch.bfloat16)
     ms = _time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
@@ -467,18 +512,20 @@ def kernel_phase(torch, fa):
     bound_ms, bound_by = _attention_bound("flash_attention_fwd", b, h, s, s,
                                           d, True, s, "bfloat16")
     flops = _attention_flops("flash_attention_fwd", b, h, s, s, d, True, s)
-    print("time flash_attention_fwd bf16 (%d,%d,%d,%d) causal: kernel %.4f "
-          "ms (%.1f TFLOP/s, %.2fx bound, %.2fx SDPA), plain %.4f ms, SDPA "
-          "%.4f ms, bound %.6f ms (%s)"
-          % (b, h, s, d, ms, flops / ms / 1e9, ms / bound_ms, ms / lib_ms,
-             plain_ms, lib_ms, bound_ms, bound_by))
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "mxnet_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
-            "replaces": "mxnet_tpu/kernels/flash_attention.py:65",
-            "design": FLASH_DESIGN,
-            "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "shape": list(TRAIN_ATTN), "library": "SDPA forward"}
+    print("time flash_attention_fwd bf16 (%d,%d,%d,%d) causal (event / "
+          "device): kernel %s ms (%.1f TFLOP/s device, %.2fx bound, %.2fx / "
+          "%.2fx SDPA), plain %s ms, SDPA %s ms, bound %.6f ms (%s)"
+          % (b, h, s, d, _both(ms), flops / ms[1] / 1e9, ms[1] / bound_ms,
+             ms[0] / lib_ms[0], ms[1] / lib_ms[1], _both(plain_ms),
+             _both(lib_ms), bound_ms, bound_by))
+    return dict({"name": "flash_attention_fwd", "route": "cuda",
+                 "source": "mxnet_tpu_torch/kernels/csrc/flash_attention_fwd"
+                           ".cu",
+                 "replaces": "mxnet_tpu/kernels/flash_attention.py:65",
+                 "design": TC_DESIGN, "max_abs_err": main_err,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "shape": list(TRAIN_ATTN), "library": "SDPA forward"},
+                **_timed(ms, plain_ms, lib_ms))
 
 
 def backward_phase(torch, fa):
@@ -548,31 +595,30 @@ def backward_phase(torch, fa):
     lib_ms = _time_ms(torch, lambda: torch.autograd.grad(
         sdpa_out, (qg, kg, vg), do, retain_graph=True))
     entries = []
-    for name, ms, line, err, design in (
-            ("flash_attention_bwd_dq", dq_ms, 103, main_err["dq"],
-             "CUDA cores (bf16 and fp32)"),
-            ("flash_attention_bwd_dkv", dkv_ms, 131, main_err["dkv"],
-             FLASH_DESIGN)):
+    for name, ms, line, err in (
+            ("flash_attention_bwd_dq", dq_ms, 103, main_err["dq"]),
+            ("flash_attention_bwd_dkv", dkv_ms, 131, main_err["dkv"])):
         bound_ms, bound_by = _attention_bound(name, b, h, s, s, d, True, s,
                                               "bfloat16")
         flops = _attention_flops(name, b, h, s, s, d, True, s)
-        print("time %s bf16 (%d,%d,%d,%d) causal: kernel %.4f ms (%.1f "
-              "TFLOP/s, %.2fx bound, %.2fx SDPA backward), plain backward "
-              "%.4f ms, SDPA backward %.4f ms (both shared by B6 and B7), "
-              "bound %.6f ms (%s)"
-              % (name, b, h, s, d, ms, flops / ms / 1e9, ms / bound_ms,
-                 ms / lib_ms, plain_ms, lib_ms, bound_ms, bound_by))
-        entries.append({
+        print("time %s bf16 (%d,%d,%d,%d) causal (event / device): kernel "
+              "%s ms (%.1f TFLOP/s device, %.2fx bound, %.2fx / %.2fx SDPA "
+              "backward), plain backward %s ms, SDPA backward %s ms (both "
+              "shared by B6 and B7), bound %.6f ms (%s)"
+              % (name, b, h, s, d, _both(ms), flops / ms[1] / 1e9,
+                 ms[1] / bound_ms, ms[0] / lib_ms[0], ms[1] / lib_ms[1],
+                 _both(plain_ms), _both(lib_ms), bound_ms, bound_by))
+        entries.append(dict({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "mxnet_tpu/kernels/flash_attention.py:%d" % line,
-            "design": design, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "design": TC_DESIGN, "max_abs_err": err,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": list(TRAIN_ATTN),
             "plain": "flash_attention_bwd_reference: dq, dk and dv "
                      "together, shared by B6 and B7",
             "library": "SDPA backward: dq, dk and dv together, shared by B6 "
-                       "and B7"})
+                       "and B7"}, **_timed(ms, plain_ms, lib_ms)))
     return entries
 
 
@@ -662,7 +708,7 @@ def training_phase(torch, np, fa):
              n_tok * TRAIN_STEPS / sum(secs), peak / 2 ** 30, held / 2 ** 30,
              *launches))
     _device_profile(torch, lambda: step(carry, tokens),
-                    also=TC_KERNELS.values())
+                    also=[name for _lib, name in TC_KERNELS])
 
     if not all(np.isfinite(losses)):
         raise RuntimeError("train: a loss is not finite: %s" % losses)
@@ -926,7 +972,8 @@ def conv_kernel_phase(torch, fb):
 
     # times at batch 64, bf16, as the serving path runs them (no stats)
     rows, main = [], None
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    total = {"ms": [0.0, 0.0], "plain_ms": [0.0, 0.0],
+             "library_ms": [0.0, 0.0], "bound_ms": 0.0}
     for (n, h, ci, co, k, s), count in sorted(
             _resnet_conv_calls(CONV_TIME_BATCH).items()):
         x, w, pro = inputs(n, h, ci, co, k, torch.bfloat16)
@@ -948,29 +995,35 @@ def conv_kernel_phase(torch, fb):
                                          False)
         flops = 2.0 * n * (h // s) ** 2 * k * k * ci * co
         print("time fused_conv_fwd bf16 (%d,%d,%d,%d)->%d k=%d s=%d x%d per "
-              "forward: kernel %.4f ms (%.1f TFLOP/s), plain %.4f ms, "
-              "library %.4f ms, bound %.5f ms (%s)"
-              % (n, h, h, ci, co, k, s, count, ms, flops / ms / 1e9,
-                 plain_ms, lib_ms, bound_ms, bound_by))
+              "forward (event / device): kernel %s ms (%.1f TFLOP/s "
+              "device), plain %s ms, library %s ms, bound %.5f ms (%s)"
+              % (n, h, h, ci, co, k, s, count, _both(ms), flops / ms[1] / 1e9,
+                 _both(plain_ms), _both(lib_ms), bound_ms, bound_by))
         for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("library_ms", lib_ms), ("bound_ms", bound_ms)):
-            total[key] += count * v
+                       ("library_ms", lib_ms)):
+            for i in (0, 1):
+                total[key][i] += count * v[i]
+        total["bound_ms"] += count * bound_ms
         if (h, ci, co, k, s) == CONV_MAIN:
-            main = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "max_abs_err": main_err,
-                    "shape": [n, h, h, ci, co, k, s]}
+            main = dict({"bound_ms": bound_ms, "bound_by": bound_by,
+                         "max_abs_err": main_err,
+                         "shape": [n, h, h, ci, co, k, s]},
+                        **_timed(ms, plain_ms, lib_ms))
         rows.append(count)
-    print("time fused_conv_fwd bf16, all %d B1 calls of a batch-64 forward: "
-          "kernel %.3f ms, plain %.3f ms, library %.3f ms, bound %.4f ms"
-          % (sum(rows), total["ms"], total["plain_ms"], total["library_ms"],
-             total["bound_ms"]))
+    print("time fused_conv_fwd bf16, all %d B1 calls of a batch-64 forward "
+          "(event / device): kernel %s ms, plain %s ms, library %s ms, bound "
+          "%.4f ms" % (sum(rows), _both(tuple(total["ms"])),
+                       _both(tuple(total["plain_ms"])),
+                       _both(tuple(total["library_ms"])), total["bound_ms"]))
     if sum(rows) != B1_PER_FORWARD:
         raise RuntimeError("conv: %d B1 calls per forward, want %d"
                            % (sum(rows), B1_PER_FORWARD))
     return dict({"name": "fused_conv_fwd", "route": "cuda",
                  "source": "mxnet_tpu_torch/kernels/csrc/fused_conv_fwd.cu",
                  "replaces": "mxnet_tpu/kernels/fused_block.py:484",
+                 "design": "wgmma+TMA, 4-D box maps of x, the BN-apply "
+                           "prologue in registers (bf16); CUDA cores (fp32, "
+                           "and bf16 rows TMA cannot load)",
                  "library": "BN-apply + ReLU, then cuDNN conv2d (NHWC)",
                  "forward_total_ms": total}, **main)
 
@@ -1013,9 +1066,10 @@ def resnet_serving_phase(torch, np, fb):
                        **kw).predict(x)[0]
     pred = AOTPredictor(fused, args, auxs, dtype="bfloat16", **kw)
     pred.predict(x)                                   # warm-up
-    fb.conv_fwd.launches = 0
+    _reset_fb_counts(fb)
     got = pred.predict(x)[0]
     per_forward = fb.conv_fwd.launches
+    core_routes = fb.conv_fwd.core_route_launches
     scale = float(np.abs(ref).max())
     err = float(np.abs(got - ref).max())
     top1 = float(np.mean(got.argmax(-1) == ref.argmax(-1)))
@@ -1031,9 +1085,10 @@ def resnet_serving_phase(torch, np, fb):
     if err > RESNET_LOGIT_TOL * scale or top1 < RESNET_TOP1:
         raise RuntimeError("resnet: fused bf16 logits differ from the "
                            "unfused fp32 graph")
-    if per_forward != B1_PER_FORWARD:
-        raise RuntimeError("resnet: %d B1 launches per forward, want %d"
-                           % (per_forward, B1_PER_FORWARD))
+    if per_forward != B1_PER_FORWARD or core_routes:
+        raise RuntimeError("resnet: %d B1 launches per forward, want %d, "
+                           "%d of them on the CUDA cores, want 0"
+                           % (per_forward, B1_PER_FORWARD, core_routes))
     del pred
 
     rng = np.random.RandomState(0)
@@ -1060,7 +1115,7 @@ def resnet_serving_phase(torch, np, fb):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         profiler.serving_reset()
-        fb.conv_fwd.launches = 0
+        _reset_fb_counts(fb)
         futures = [None] * len(sizes)
 
         def client(k):
@@ -1077,6 +1132,7 @@ def resnet_serving_phase(torch, np, fb):
         results = [f.result(timeout=600)[0] for f in futures]
         wall = time.perf_counter() - t0
         launches = fb.conv_fwd.launches
+        core_routes = fb.conv_fwd.core_route_launches
         stats = srv.stats()["resnet50"]
         peak = torch.cuda.max_memory_allocated()
         # where the device time goes: 8 requests again under torch.profiler
@@ -1103,15 +1159,19 @@ def resnet_serving_phase(torch, np, fb):
           "threads in %.3f s wall = %.1f images/s; latency p50 %.1f ms p99 "
           "%.1f ms; %d batches, mean %.2f images, fill %.3f; forward per "
           "bucket (host clock) %s; peak memory %.2f GiB; B1 launches %d "
-          "(%d per forward x %d batches)"
+          "(%d per forward x %d batches), %d of them on the CUDA cores"
           % (len(sizes), RESNET_MAX_IMAGES, n_img, RESNET_THREADS, wall,
              n_img / wall, stats["p50_ms"], stats["p99_ms"],
              stats["batches"], stats["avg_batch_rows"], stats["batch_fill"],
              ", ".join("%d: %.2f ms" % kv for kv in sorted(bucket_ms.items())),
-             peak / 2 ** 30, launches, B1_PER_FORWARD, stats["batches"]))
-    if launches != B1_PER_FORWARD * stats["batches"] or launches == 0:
-        raise RuntimeError("resnet: B1 launches %d != %d x %d batches"
-                           % (launches, B1_PER_FORWARD, stats["batches"]))
+             peak / 2 ** 30, launches, B1_PER_FORWARD, stats["batches"],
+             core_routes))
+    if launches != B1_PER_FORWARD * stats["batches"] or launches == 0 \
+            or core_routes:
+        raise RuntimeError("resnet: B1 launches %d != %d x %d batches, or "
+                           "%d on the CUDA cores" % (
+                               launches, B1_PER_FORWARD, stats["batches"],
+                               core_routes))
     if stats["requests"] != len(sizes) or stats["errors"]:
         raise RuntimeError("resnet: serving stats %r" % stats)
     return launches
@@ -1333,8 +1393,8 @@ def conv_grad_kernel_phase(torch, fb):
 
     # times at batch 64, bf16, every call of a step
     entries = {}
-    total = {kind: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                    "bound_ms": 0.0, "calls": 0}
+    total = {kind: {"ms": [0.0, 0.0], "plain_ms": [0.0, 0.0],
+                    "library_ms": [0.0, 0.0], "bound_ms": 0.0, "calls": 0}
              for kind in ("wgrad", "dgrad")}
     for key, count in sorted(_resnet_grad_calls(RESNET_TRAIN_BATCH).items(),
                              key=str):
@@ -1347,29 +1407,34 @@ def conv_grad_kernel_phase(torch, fb):
         bound_ms, bound_by = _grad_bound(key, "bfloat16")
         flops = 2.0 * n * (h // s) ** 2 * k * k * ci * co
         print("time fused_conv_%s bf16 (%d,%d,%d,%d)->%d k=%d s=%d bnbwd=%d "
-              "extra=%s x%d per step: kernel %.4f ms (%.1f TFLOP/s), plain "
-              "%.4f ms, library %.4f ms, bound %.5f ms (%s)"
-              % (kind, n, h, h, ci, co, k, s, bnbwd, extra, count, ms,
-                 flops / ms / 1e9, plain_ms, lib_ms, bound_ms, bound_by))
+              "extra=%s x%d per step (event / device): kernel %s ms (%.1f "
+              "TFLOP/s device), plain %s ms, library %s ms, bound %.5f ms "
+              "(%s)" % (kind, n, h, h, ci, co, k, s, bnbwd, extra, count,
+                        _both(ms), flops / ms[1] / 1e9, _both(plain_ms),
+                        _both(lib_ms), bound_ms, bound_by))
         t = total[kind]
         for name, v in (("ms", ms), ("plain_ms", plain_ms),
-                        ("library_ms", lib_ms), ("bound_ms", bound_ms)):
-            t[name] += count * v
+                        ("library_ms", lib_ms)):
+            for i in (0, 1):
+                t[name][i] += count * v[i]
+        t["bound_ms"] += count * bound_ms
         t["calls"] += count
         if (n, h, ci, co, k, s) == GRAD_MAIN:
-            entries[kind] = {"ms": ms, "plain_ms": plain_ms,
-                             "library_ms": lib_ms, "bound_ms": bound_ms,
-                             "bound_by": bound_by,
-                             "max_abs_err": main_err[kind],
-                             "shape": list(GRAD_MAIN), "g_side": "(e, y_raw) "
-                             "rebuilt by bn3's backward"}
+            entries[kind] = dict({"bound_ms": bound_ms, "bound_by": bound_by,
+                                  "max_abs_err": main_err[kind],
+                                  "shape": list(GRAD_MAIN),
+                                  "g_side": "(e, y_raw) rebuilt by bn3's "
+                                            "backward"},
+                                 **_timed(ms, plain_ms, lib_ms))
         del ops
     for kind, want in (("wgrad", B2_PER_STEP), ("dgrad", B3_PER_STEP)):
         t = total[kind]
-        print("time fused_conv_%s bf16, all %d calls of a batch-64 step: "
-              "kernel %.3f ms, plain %.3f ms, library %.3f ms, bound %.4f ms"
-              % (kind, t["calls"], t["ms"], t["plain_ms"], t["library_ms"],
-                 t["bound_ms"]))
+        print("time fused_conv_%s bf16, all %d calls of a batch-64 step "
+              "(event / device): kernel %s ms, plain %s ms, library %s ms, "
+              "bound %.4f ms" % (kind, t["calls"], _both(tuple(t["ms"])),
+                                 _both(tuple(t["plain_ms"])),
+                                 _both(tuple(t["library_ms"])),
+                                 t["bound_ms"]))
         if t["calls"] != want:
             raise RuntimeError("conv grad: %d %s calls a step, want %d"
                                % (t["calls"], kind, want))
@@ -1383,7 +1448,8 @@ def conv_grad_kernel_phase(torch, fb):
             "name": "fused_conv_%s" % kind, "route": "cuda",
             "source": "mxnet_tpu_torch/kernels/csrc/fused_conv_%s.cu" % kind,
             "replaces": "mxnet_tpu/kernels/fused_block.py:%d" % line,
-            "library": lib, "step_total_ms": total[kind]}, **entries[kind]))
+            "design": "CUDA cores", "library": lib,
+            "step_total_ms": total[kind]}, **entries[kind]))
     return out
 
 
@@ -1401,7 +1467,7 @@ def _fb_counts(fb):
 
 def _reset_fb_counts(fb):
     fb.conv_fwd.launches = fb.conv_wgrad.launches = \
-        fb.conv_dgrad.launches = 0
+        fb.conv_dgrad.launches = fb.conv_fwd.core_route_launches = 0
 
 
 def resnet_train_grad_phase(torch, np, fb):
@@ -1542,16 +1608,17 @@ def resnet_training_phase(torch, np, fb):
         secs.append(time.perf_counter() - t0)
         losses.append(loss.item())
     launches = _fb_counts(fb)
+    core_routes = fb.conv_fwd.core_route_launches
     peak = torch.cuda.max_memory_allocated()
     print("resnet train: %d steps at batch %d: losses %s; step times %s s; "
           "%.1f images/s; peak memory %.2f GiB; launches B1 %d, B2 %d, B3 %d "
-          "(%s a step)" % (RESNET_TRAIN_STEPS, n,
+          "(%s a step), B1 on the CUDA cores %d" % (RESNET_TRAIN_STEPS, n,
                            " ".join("%.5f" % x for x in losses),
                            " ".join("%.4f" % x for x in secs),
                            n * RESNET_TRAIN_STEPS / sum(secs), peak / 2 ** 30,
                            *launches,
                            "/".join("%g" % (c / RESNET_TRAIN_STEPS)
-                                    for c in launches)))
+                                    for c in launches), core_routes))
     _device_profile(torch, lambda: ts(carry, batch), top=10)
 
     moved = sum(int(bool((aux[k] != v).any())) for k, v in means0.items())
@@ -1569,9 +1636,10 @@ def resnet_training_phase(torch, np, fb):
                            % (moved, len(means0)))
     want = tuple(c * RESNET_TRAIN_STEPS for c in (B1_PER_FORWARD, B2_PER_STEP,
                                                   B3_PER_STEP))
-    if launches != want:
-        raise RuntimeError("resnet train: launches B1/B2/B3 %s, want %s"
-                           % (launches, want))
+    if launches != want or core_routes:
+        raise RuntimeError("resnet train: launches B1/B2/B3 %s, want %s; B1 "
+                           "on the CUDA cores %d, want 0"
+                           % (launches, want, core_routes))
     print("resnet train: %d of %d moving means moved" % (moved, len(means0)))
     return launches
 

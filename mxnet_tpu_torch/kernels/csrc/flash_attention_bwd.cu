@@ -2,7 +2,8 @@
 //
 // Two kernels, each replacing one Pallas TPU kernel of
 // mxnet_tpu/kernels/flash_attention.py (both launched by `_bwd_call`):
-//   B6, flash_bwd_dq_kernel, replaces `_bwd_dq_kernel`:
+//   B6, flash_bwd_dq_tc_kernel (bf16) and flash_bwd_dq_kernel (fp32),
+//   replaces `_bwd_dq_kernel`:
 //       dq = scale * sum_c ds[r, c] k[c]
 //   B7, flash_bwd_dkv_tc_kernel (bf16) and flash_bwd_dkv_kernel (fp32),
 //   replaces `_bwd_dkv_kernel`:
@@ -27,12 +28,12 @@
 // 3.35 TB/s); B7 68.7 GFLOP (0.069 ms) against ~102 MB (0.030 ms). So
 // operations bound both, and only the tensor cores come near the bound.
 //
-// B7's dtype split, one kernel each (a dispatch in the C entry point, not
-// a fallback): bfloat16, the main path, runs flash_bwd_dkv_tc_kernel on
-// the tensor cores (wgmma fed by TMA); float32 runs flash_bwd_dkv_kernel on
-// the fp32 CUDA cores, since the fp32 checks (1e-4 against full fp32) do
-// not admit the TF32 the tensor cores would give it. B6 runs on the CUDA
-// cores in both types.
+// The dtype split of both, one kernel each (a dispatch in the C entry
+// point, not a fallback): bfloat16, the main path, runs the _tc kernels on
+// the tensor cores (wgmma fed by TMA); float32 runs the others on the fp32
+// CUDA cores, since the fp32 checks (1e-4 against full fp32) do not admit
+// the TF32 the tensor cores would give it. Every kernel puts B*H on the
+// grid's x (up to 2^31 - 1) and the query or key blocks on its y.
 //
 // Design of B7 in bf16 (hopper_mma.cuh has the shared layouts).
 //   * One CTA per (b*h, 64-row key block): D / 64 consumer warpgroups, one
@@ -57,7 +58,23 @@
 //   * dK is multiplied by scale once at the end; dK and dV are rounded once
 //     to bf16, and rows >= kv_len are written as zeros.
 //
-// Design of B6, and of B7 in fp32. The TPU's split is kept: B6 has one CTA
+// Design of B6 in bf16, on the same panels (query-major, as the TPU kernel).
+//   * One CTA per (b*h, 64-row query block): D / 64 consumer warpgroups, one
+//     per 64 columns of dQ, and one producer warp. The producer loads the
+//     block's Q and dO panels once, with its 64 lse (times log2 e; +inf past
+//     seq_q, so padded query rows get p = 0 without a mask) and delta
+//     values, then streams the 64-row K and V tiles, up to the causal
+//     diagonal and kv_len, through a ring of kStages slots with TMA.
+//   * Per key tile: S = Q . K^T and dP = dO . V^T (both operands K-major),
+//     then in fp32 registers p = exp2(scale * S - lse) (masks on the causal
+//     diagonal tile and the kv_len tile only) and dS = p * (dP - delta). dS
+//     is rounded once to bf16 as the A operand of dQ += dS . K, with K
+//     MN-major (transpose-B): the form of B5's P . V. At D = 128 both
+//     warpgroups compute the whole S and dP and each keeps its half of dQ.
+//   * Under `causal` the query blocks are launched heaviest (last) first.
+//     dQ is multiplied by scale once at the end and rounded once to bf16.
+//
+// Design of B6 and B7 in fp32. The TPU's split is kept: B6 has one CTA
 // of 256 threads per (b*h, 64-row query block) looping over 64-column K/V
 // tiles (up to the causal diagonal and kv_len, like the forward); B7 one
 // CTA per (b*h, 64-row key block) looping over 64-row query tiles from the
@@ -68,13 +85,10 @@
 // over D. The p / ds tile a row group writes is read back only by the same
 // half warp (__syncwarp). Accumulators stay in fp32 registers; the scale
 // rides on q as it is loaded, so B6 multiplies dq by scale once at the
-// end, as the TPU kernels do. bf16 inputs (B6) are widened to fp32 in
-// shared memory; outputs are rounded once to the input type. Shared memory
+// end, as the TPU kernels do. Shared memory
 // (fp32): B6 85 KB at D = 64, 150 KB at D = 128; B7 102 KB / 167 KB.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "hopper_mma.cuh"
 
@@ -83,15 +97,6 @@ namespace {
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int D>
 constexpr int dq_smem_floats() {
@@ -105,13 +110,15 @@ constexpr int dkv_smem_floats() {
          2 * kBlockK * (kBlockQ + 1) + 2 * kBlockQ;
 }
 
-// B6: dq for one (b*h, 64-row query block).
-template <typename T, int D>
+// B6 in fp32: dq for one (b*h, 64-row query block).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int seq_q, int seq_k, int kv_len, float scale,
                     int causal) {
   constexpr int QS = D + 4;        // row-read tiles: broadcast per half warp
@@ -125,22 +132,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* vs = ks + kBlockK * KS;         // kBlockK x KS
   float* dss = vs + kBlockK * KS;        // kBlockQ x PS
 
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t bh = blockIdx.y;
+  const size_t bh = blockIdx.x;
+  const int q0 = blockIdx.y * kBlockQ;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;
   const int tx = tid & 15;
-  const T* qb = q + bh * seq_q * D;
-  const T* ob = dout + bh * seq_q * D;
-  const T* kb = k + bh * seq_k * D;
-  const T* vb = v + bh * seq_k * D;
+  const float* qb = q + bh * seq_q * D;
+  const float* ob = dout + bh * seq_q * D;
+  const float* kb = k + bh * seq_k * D;
+  const float* vb = v + bh * seq_k * D;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const bool live = q0 + r < seq_q;
     const size_t g = (size_t)(q0 + r) * D + d;
-    qs[r * QS + d] = live ? to_float(qb[g]) * scale : 0.f;
-    dos[r * QS + d] = live ? to_float(ob[g]) : 0.f;
+    qs[r * QS + d] = live ? qb[g] * scale : 0.f;
+    dos[r * QS + d] = live ? ob[g] : 0.f;
   }
 
   float row_lse[4], row_delta[4], acc[4][DC];
@@ -163,8 +170,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = i / D, d = i % D;
       const bool live = c0 + c < seq_k;
       const size_t g = (size_t)(c0 + c) * D + d;
-      ks[c * KS + d] = live ? to_float(kb[g]) : 0.f;
-      vs[c * KS + d] = live ? to_float(vb[g]) : 0.f;
+      ks[c * KS + d] = live ? kb[g] : 0.f;
+      vs[c * KS + d] = live ? vb[g] : 0.f;
     }
     __syncthreads();
 
@@ -226,20 +233,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= seq_q) continue;
-    T* orow = dq + (bh * seq_q + row) * D;
+    float* orow = dq + (bh * seq_q + row) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) store(orow + tx + 16 * c, acc[i][c] * scale);
+    for (int c = 0; c < DC; ++c) orow[tx + 16 * c] = acc[i][c] * scale;
   }
 }
 
 // B7 in fp32: dk and dv for one (b*h, 64-row key block).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int seq_q, int seq_k, int kv_len,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int seq_q, int seq_k, int kv_len,
                      float scale, int causal) {
   constexpr int KS = D + 4;        // this block's key rows, read by rows
   constexpr int QS = D + 1;        // query tiles, read by columns
@@ -255,22 +264,22 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* lse_s = dss + kBlockK * PS;     // kBlockQ
   float* delta_s = lse_s + kBlockQ;      // kBlockQ
 
-  const int k0 = blockIdx.x * kBlockK;
-  const size_t bh = blockIdx.y;
+  const size_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBlockK;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;
   const int tx = tid & 15;
-  const T* qb = q + bh * seq_q * D;
-  const T* ob = dout + bh * seq_q * D;
-  const T* kb = k + bh * seq_k * D;
-  const T* vb = v + bh * seq_k * D;
+  const float* qb = q + bh * seq_q * D;
+  const float* ob = dout + bh * seq_q * D;
+  const float* kb = k + bh * seq_k * D;
+  const float* vb = v + bh * seq_k * D;
 
   for (int i = tid; i < kBlockK * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const bool live = k0 + r < seq_k;
     const size_t g = (size_t)(k0 + r) * D + d;
-    ks[r * KS + d] = live ? to_float(kb[g]) : 0.f;
-    vs[r * KS + d] = live ? to_float(vb[g]) : 0.f;
+    ks[r * KS + d] = live ? kb[g] : 0.f;
+    vs[r * KS + d] = live ? vb[g] : 0.f;
   }
 
   float acc_k[4][DC], acc_v[4][DC];
@@ -291,8 +300,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, d = i % D;
       const bool live = r0 + r < seq_q;
       const size_t g = (size_t)(r0 + r) * D + d;
-      qs[r * QS + d] = live ? to_float(qb[g]) * scale : 0.f;
-      dos[r * QS + d] = live ? to_float(ob[g]) : 0.f;
+      qs[r * QS + d] = live ? qb[g] * scale : 0.f;
+      dos[r * QS + d] = live ? ob[g] : 0.f;
     }
     if (tid < kBlockQ) {
       const bool live = r0 + tid < seq_q;
@@ -371,12 +380,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
     if (row >= seq_k) continue;
-    T* krow = dk + (bh * seq_k + row) * D;
-    T* vrow = dv + (bh * seq_k + row) * D;
+    float* krow = dk + (bh * seq_k + row) * D;
+    float* vrow = dv + (bh * seq_k + row) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      store(krow + tx + 16 * c, acc_k[i][c]);
-      store(vrow + tx + 16 * c, acc_v[i][c]);
+      krow[tx + 16 * c] = acc_k[i][c];
+      vrow[tx + 16 * c] = acc_v[i][c];
     }
   }
 }
@@ -613,26 +622,226 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+// ---- B6 in bfloat16: tensor cores ----------------------------------------
+
+// Shared memory, in bytes from a 1024-aligned base: P Q panels and P dO
+// panels (resident), kStages x P K panels and as many V panels, the block's
+// 64 lse and delta values, then the mbarriers.
+template <int D>
+struct DqSmem {
+  static constexpr int P = D / 64;
+  static constexpr int q = 0;
+  static constexpr int dout = q + P * kPanelBytes;
+  static constexpr int k = dout + P * kPanelBytes;
+  static constexpr int v = k + kStages * P * kPanelBytes;
+  static constexpr int lse = v + kStages * P * kPanelBytes;
+  static constexpr int delta = lse + kBlockQ * 4;
+  static constexpr int bars = delta + kBlockQ * 4;
+  static constexpr int alloc = bars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128 * (D / 64) + 32)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int seq_q, int kv_len,
+                       float scale, int causal) {
+  using L = DqSmem<D>;
+  constexpr int P = L::P;             // consumer warpgroups = panels of D
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
+  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.x;
+  const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest first
+  const int q0 = qb * kBlockQ;
+  int n_kb = (kv_len + kBlockK - 1) / kBlockK;
+  if (causal) n_kb = min(n_kb, qb + 1);       // stop at the diagonal tile
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(q_full, 32);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * P);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * P) {  // the producer warp
+    const int lane = tid - 128 * P;
+    if (lane == 0) {
+      mbar_expect_tx(q_full, 2 * P * kPanelBytes);
+      for (int p = 0; p < P; ++p) {
+        tma_load_panel(smem + L::q + p * kPanelBytes, &tq, q_full, 64 * p, q0,
+                       bh);
+        tma_load_panel(smem + L::dout + p * kPanelBytes, &tdo, q_full, 64 * p,
+                       q0, bh);
+      }
+    }
+    const float* lse_bh = lse + (size_t)bh * seq_q;
+    const float* delta_bh = delta + (size_t)bh * seq_q;
+    for (int c = lane; c < kBlockQ; c += 32) {
+      const int r = q0 + c;
+      lse_s[c] = r < seq_q ? lse_bh[r] * kLog2e : __int_as_float(0x7f800000);
+      delta_s[c] = r < seq_q ? delta_bh[r] : 0.f;
+    }
+    mbar_arrive(q_full);
+    if (lane == 0)
+      for (int j = 0; j < n_kb; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * P * kPanelBytes);
+        for (int p = 0; p < P; ++p) {
+          tma_load_panel(smem + L::k + (s * P + p) * kPanelBytes, &tk,
+                         &full[s], 64 * p, j * kBlockK, bh);
+          tma_load_panel(smem + L::v + (s * P + p) * kPanelBytes, &tv,
+                         &full[s], 64 * p, j * kBlockK, bh);
+        }
+      }
+    return;
+  }
+
+  const int wg = tid / 128;            // the 64 columns of dQ it keeps
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int rl = 16 * warp + lane / 4;  // the block's rows rl and rl + 8
+  const int row = q0 + rl;
+  const float scale2 = scale * kLog2e;  // scores in log2 units
+  const uint64_t q_desc = desc_sw128(smem + L::q);
+  const uint64_t do_desc = desc_sw128(smem + L::dout);
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  const float ls[2] = {lse_s[rl], lse_s[rl + 8]};
+  const float dl[2] = {delta_s[rl], delta_s[rl + 8]};
+  for (int j = 0; j < n_kb; ++j) {
+    const int s = j % kStages;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    const uint64_t k_desc = desc_sw128(smem + L::k + s * P * kPanelBytes);
+    const uint64_t v_desc = desc_sw128(smem + L::v + s * P * kPanelBytes);
+
+    // S = Q . K^T and dP = dO . V^T: query rows by key columns
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    wgmma_fence();
+    fence_acc(sc);
+    fence_acc(dp);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+      wgmma_ss(sc, desc_add(q_desc, off), desc_add(k_desc, off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+      wgmma_ss(dp, desc_add(do_desc, off), desc_add(v_desc, off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+
+    // p and dS in fp32; entry i is row row + 8h, key column
+    // j * 64 + 8(i / 4) + 2(lane % 4) + i % 2
+    const bool edge = (causal && j == qb) || (j + 1) * kBlockK > kv_len;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i / 2) % 2;
+      float p = exp2f(sc[i] * scale2 - ls[h]);
+      if (edge) {
+        const int col = j * kBlockK + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        if (col >= kv_len || (causal && row + 8 * h < col)) p = 0.f;
+      }
+      sc[i] = p * (dp[i] - dl[h]);
+    }
+    uint32_t a_ds[4][4];
+    to_a_frags(sc, a_ds);
+
+    // dQ += dS . K over this warpgroup's 64 columns
+    const uint64_t k_cols = desc_add(k_desc, wg * kPanelBytes);
+    wgmma_fence();
+    fence_acc(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, a_ds[kk], desc_add(k_cols, kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= seq_q) continue;
+    __nv_bfloat16* orow = dq + ((size_t)bh * seq_q + r) * D + 64 * wg;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = 8 * jj + 2 * (lane % 4);
+      const int i = 4 * jj + 2 * h;
+      *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, int bh, int seq_q, int seq_k, int kv_len,
+                         float scale, int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!panel_map(&tq, q, bh, seq_q, D) || !panel_map(&tk, k, bh, seq_k, D) ||
+      !panel_map(&tv, v, bh, seq_k, D) ||
+      !panel_map(&tdo, dout, bh, seq_q, D))
+    return cudaErrorInvalidValue;
+  constexpr int smem = DqSmem<D>::alloc;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (seq_q + kBlockQ - 1) / kBlockQ);
+  flash_bwd_dq_tc_kernel<D><<<grid, 128 * (D / 64) + 32, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
+      seq_q, kv_len, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int seq_q, int seq_k, int kv_len,
                       float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, bh);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  const dim3 grid(bh, (seq_q + kBlockQ - 1) / kBlockQ);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), seq_q, seq_k, kv_len, scale, causal);
+      static_cast<float*>(dq), seq_q, seq_k, kv_len, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int seq_q, int seq_k,
@@ -640,43 +849,32 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq_k + kBlockK - 1) / kBlockK, bh);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  const dim3 grid(bh, (seq_k + kBlockK - 1) / kBlockK);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), seq_q, seq_k, kv_len, scale,
-      causal);
+      static_cast<float*>(dk), static_cast<float*>(dv), seq_q, seq_k, kv_len,
+      scale, causal);
   return cudaGetLastError();
 }
 
-// Calls f(T{}, std::integral_constant<int, D>{}) for the supported
-// (dtype, head dim) pairs: dtype 0 = float32, 1 = bfloat16; d 64 or 128.
-template <typename F>
-cudaError_t dispatch(int dtype, int d, F f) {
-  using D64 = std::integral_constant<int, 64>;
-  using D128 = std::integral_constant<int, 128>;
-  if (dtype == 0 && d == 64) return f(float{}, D64{});
-  if (dtype == 0 && d == 128) return f(float{}, D128{});
-  if (dtype == 1 && d == 64) return f(__nv_bfloat16{}, D64{});
-  if (dtype == 1 && d == 128) return f(__nv_bfloat16{}, D128{});
-  return cudaErrorInvalidValue;
-}
-
 bool bad_dims(int bh, int seq_q, int seq_k, int kv_len) {
-  return bh < 1 || bh > 65535 || seq_q < 1 || seq_k < 1 || kv_len < 1 ||
-         kv_len > seq_k;
+  // B*H rides the grid's x; the query or key blocks its y (<= 65535)
+  return bh < 1 || seq_q < 1 || seq_k < 1 || kv_len < 1 || kv_len > seq_k ||
+         (seq_q + (long long)kBlockQ - 1) / kBlockQ > 65535 ||
+         (seq_k + (long long)kBlockK - 1) / kBlockK > 65535;
 }
 
 }  // namespace
 
 // q, dout, dq: (bh, seq_q, d); k, v: (bh, seq_k, d); lse, delta: (bh,
-// seq_q) f32. dtype: 0 = float32, 1 = bfloat16. d: 64 or 128.
-// 1 <= kv_len <= seq_k. Launches B6 on `stream` and returns
-// cudaGetLastError() (0 on success).
+// seq_q) f32. dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores;
+// q, k, v, dout 16-byte aligned). d: 64 or 128. 1 <= kv_len <= seq_k.
+// Launches B6 on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -685,11 +883,21 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       int causal, int dtype, void* stream) {
   if (bad_dims(bh, seq_q, seq_k, kv_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)dispatch(dtype, d, [&](auto t, auto dim) {
-    return launch_dq<decltype(t), decltype(dim)::value>(
-        q, k, v, dout, lse, delta, dq, bh, seq_q, seq_k, kv_len, scale,
-        causal, s);
-  });
+  if (dtype == 1)
+    return d == 64 ? (int)launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, bh,
+                                           seq_q, seq_k, kv_len, scale,
+                                           causal, s)
+         : d == 128 ? (int)launch_dq_tc<128>(q, k, v, dout, lse, delta, dq,
+                                             bh, seq_q, seq_k, kv_len, scale,
+                                             causal, s)
+                    : (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return d == 64 ? (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, bh,
+                                      seq_q, seq_k, kv_len, scale, causal, s)
+       : d == 128 ? (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, bh,
+                                        seq_q, seq_k, kv_len, scale, causal,
+                                        s)
+                  : (int)cudaErrorInvalidValue;
 }
 
 // As above, with dk, dv: (bh, seq_k, d). Launches B7: in bfloat16 on the
@@ -713,11 +921,11 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                               scale, causal, s)
                     : (int)cudaErrorInvalidValue;
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return d == 64 ? (int)launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk,
-                                              dv, bh, seq_q, seq_k, kv_len,
-                                              scale, causal, s)
-       : d == 128 ? (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta,
-                                                dk, dv, bh, seq_q, seq_k,
-                                                kv_len, scale, causal, s)
+  return d == 64 ? (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv,
+                                       bh, seq_q, seq_k, kv_len, scale,
+                                       causal, s)
+       : d == 128 ? (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv,
+                                         bh, seq_q, seq_k, kv_len, scale,
+                                         causal, s)
                   : (int)cudaErrorInvalidValue;
 }

@@ -50,8 +50,9 @@
 //     ragged S, lse = m + log(l) in fp32.
 //
 // Design of the fp32 kernel: one CTA of 256 threads per (b*h, 64-row
-// query block) looping over 64-column K/V tiles staged through shared
-// memory in fp32, up to the causal diagonal and kv_len. Threads form a
+// query block; B*H on the grid's x, as in the bf16 kernel) looping over
+// 64-column K/V tiles staged through shared memory in fp32, up to the
+// causal diagonal and kv_len. Threads form a
 // 16 x 16 grid: thread (ty, tx) owns query rows 4*ty .. 4*ty+3, score
 // columns tx + 16*j (j < 4) and output columns tx + 16*j (j < D/16); the 16
 // threads sharing a row sit in one half warp (row max and sum are shuffles,
@@ -95,8 +96,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* vs = ks + kBlockK * KS;             // kBlockK x D
   float* ps = vs + kBlockK * D;              // kBlockQ x PS
 
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t bh = blockIdx.y;
+  const size_t bh = blockIdx.x;
+  const int q0 = blockIdx.y * kBlockQ;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;
   const int tx = tid & 15;
@@ -219,7 +220,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
       flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, bh);
+  const dim3 grid(bh, (seq_q + kBlockQ - 1) / kBlockQ);
   flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
@@ -435,8 +436,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int bh, int seq_q, int seq_k, int d,
                                    int kv_len, float scale, int causal,
                                    int dtype, void* stream) {
-  if (bh < 1 || bh > 65535 || seq_q < 1 || seq_k < 1 || kv_len < 1 ||
-      kv_len > seq_k || (d != 64 && d != 128) || (dtype != 0 && dtype != 1))
+  // B*H rides the grid's x, the query blocks its y (<= 65535)
+  if (bh < 1 || seq_q < 1 || seq_k < 1 || kv_len < 1 || kv_len > seq_k ||
+      (seq_q + (long long)kBlockQ - 1) / kBlockQ > 65535 ||
+      (d != 64 && d != 128) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

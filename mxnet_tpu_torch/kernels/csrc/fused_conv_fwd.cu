@@ -21,13 +21,54 @@
 // 51.5 MB of x, w and y (15.4 us at 3.35 TB/s), so the bytes bound it, at
 // 0.0154 ms. Bytes bound most shapes at 56x56 and 28x28, operations the
 // 3x3s and some 1x1s at 14x14 and 7x7; at batch 64 every one of the 22
-// bounds lies between 6 and 47 us. This first version runs the products on
-// the fp32 CUDA cores (67 TFLOP/s peak), not on the tensor cores, so it
-// sits far above that bound; wgmma with TMA-fed tiles is the next step.
+// bounds lies between 6 and 47 us. Only the tensor cores come near it.
 //
-// Design: an implicit GEMM with M = N*Ho*Wo output pixels, N = Co and
-// K = k*k*Ci, in the order (dy, dx, ci) that makes w a row-major (K, Co)
-// matrix.
+// Two kernels, chosen in the C entry point (not a fallback):
+//   * conv_fwd_tc_kernel, bfloat16 on the tensor cores: the main path. It
+//     needs rows TMA can load, Ci and Co multiples of 8 (16-byte rows).
+//   * conv_fwd_kernel, on the fp32 CUDA cores: float32, whose checks (1e-4
+//     against full fp32) do not admit the TF32 the tensor cores would give
+//     it, and a bf16 shape TMA cannot load, which the wrapper routes here
+//     by shape and counts apart.
+//
+// Design of the tensor-core kernel (hopper_mma.cuh has the panel layout).
+//   * An implicit GEMM: M = output pixels, N = Co, K walked as (tap, 64-
+//     channel slice). One CTA per (64-pixel tile, BN = 64 or 128 output
+//     channels): one consumer warpgroup (wgmma m64n64k16, BN / 64
+//     accumulators of 32 floats a thread) and one producer warp that keeps
+//     a ring of S slots full with TMA (S = 4 at BN = 64, 3 at BN = 128:
+//     82 / 92 KB of shared memory at Ci = 2048, so two CTAs share an SM).
+//   * The x operand: a 4-D tiled map over (C, W, H, N), not Hopper's im2col
+//     mode. A pixel tile is a box of bw x bh x bn output pixels (bw * bh *
+//     bn = 64, the product that pads the output least: 8x8x1 at 56x56,
+//     4x4x4 at 28x28, 2x2x16 at 14x14, 1x1x64 at 7x7 for batch 64, so no
+//     tile is ragged there), and a tap is the same box moved by (dx - pad,
+//     dy - pad). Stride 2 reads x through four such maps, one per (row,
+//     column) parity, with doubled strides and the base moved by the
+//     parity, so a tap is again a plain box. The tiled mode gives all of
+//     this with coordinates alone; im2col's own halo rules and its
+//     per-pixel offsets range would be a second layout to get right
+//     without a compiler to try it on. TMA zero-fills coordinates outside
+//     the image and past Ci.
+//   * The w operand: a 3-D map over (Co, Ci, k*k): a slice is a 64 x 64
+//     panel, MN-major (transpose-B), the form of V in B5's P . V.
+//   * The prologue between the load and the product: each consumer thread
+//     reads its A fragments (rows 16w + t/4 and + 8, channels 16kk +
+//     2(t%4) and + 8) out of the 128-byte-swizzled panel (16-byte chunk
+//     index XOR row % 8), applies scale, bias and ReLU in f32, rounds to
+//     bf16 and feeds wgmma_rs from registers. Then it zeroes, by
+//     coordinate, a row whose tap lies outside the image: zero-fill alone
+//     would leave act(bias) there.
+//   * Epilogue: y rounded once to bf16 and stored from the accumulators;
+//     the stats of the rounded values, rows outside the output masked,
+//     summed per column over a thread's rows, across the warp by xor
+//     shuffles and over the 4 warps in order into one partial row per
+//     pixel tile; sum_rows adds the partials in tile order. No atomics, so
+//     every run gives the same stats.
+//
+// Design of the CUDA-core kernel: an implicit GEMM with M = N*Ho*Wo output
+// pixels, N = Co and K = k*k*Ci, in the order (dy, dx, ci) that makes w a
+// row-major (K, Co) matrix.
 //   * One CTA of 256 threads per (64-pixel, 64-channel) output tile; the
 //     grid's x walks pixel tiles, y walks channel tiles. The TPU kernel's
 //     (channel-block, batch-block, row-tile) grid, batch fold and
@@ -50,6 +91,7 @@
 //   * Ragged pixel and channel tiles are masked (H = 7 in ResNet-50's last
 //     stage, 7 * 7 * N pixels).
 #include "conv_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -175,28 +217,379 @@ cudaError_t launch(const void* x, const void* w, const void* scale,
                   static_cast<float*>(stats), grid.x, 2 * s.co, stream);
 }
 
+// ---- bfloat16: tensor cores ----------------------------------------------
+
+using hopper::kPanelBytes;
+
+// The geometry of the tensor-core kernel: the conv, the pixel box of a
+// tile (bw x bh x bn output pixels) and the tile grid.
+struct TcShape {
+  int n, h, w, ci, co, k, stride, pad, ho, wo;
+  int bw, bh, bn, tiles_w, tiles_h, tiles, cslices;
+};
+
+// x through one 4-D map per (row, column) parity of the input (one map at
+// stride 1): map 2 * ph + pw.
+struct XMaps {
+  CUtensorMap m[4];
+};
+
+// Shared memory, in bytes from a 1024-aligned base: kStages x-panels,
+// kStages x NP w-panels, the stats reduction (4 warps x 2 x BN floats),
+// the mbarriers, then the prologue's scale and bias (cpad floats each).
+template <int BN>
+struct TcSmem {
+  static constexpr int NP = BN / 64;
+  static constexpr int kStages = BN == 64 ? 4 : 3;
+  static constexpr int a = 0;
+  static constexpr int b = a + kStages * kPanelBytes;
+  static constexpr int red = b + kStages * NP * kPanelBytes;
+  static constexpr int bars = red + 4 * 2 * BN * 4;
+  static constexpr int pro = bars + 2 * kStages * 8;
+  static int alloc(int cpad) { return pro + 2 * cpad * 4 + 1024; }
+};
+
+// The input coordinate offset of tap offset o = d - pad in {-1, 0, 1}
+// and its parity map: at stride 2, o = 2 * off + parity.
+__device__ __forceinline__ void tap_offset(int o, int stride, int* off,
+                                           int* par) {
+  *par = stride == 1 ? 0 : (o & 1);
+  *off = stride == 1 ? o : (o >> 1);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(128 + 32)
+conv_fwd_tc_kernel(const __grid_constant__ XMaps xm,
+                   const __grid_constant__ CUtensorMap tw,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ y, float* __restrict__ partial,
+                   TcShape s, int prologue, int relu) {
+  using L = TcSmem<BN>;
+  constexpr int NP = L::NP;
+  constexpr int S = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  float* red = reinterpret_cast<float*>(smem + L::red);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + S;
+  float* scale_s = reinterpret_cast<float*>(smem + L::pro);
+  float* bias_s = scale_s + s.cslices * 64;
+
+  // the tile's first output pixel; the box runs over (w, h, n)
+  const int tile = blockIdx.x;
+  const int ow0 = (tile % s.tiles_w) * s.bw;
+  const int oh0 = (tile / s.tiles_w % s.tiles_h) * s.bh;
+  const int n0 = tile / (s.tiles_w * s.tiles_h) * s.bn;
+  const int co0 = blockIdx.y * BN;
+  const int n_it = s.k * s.k * s.cslices;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warp; one lane issues every load
+    if (tid == 128)
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % S;
+        const int tap = it / s.cslices;
+        const int c0 = (it % s.cslices) * 64;
+        if (it >= S) hopper::mbar_wait(&empty[st], (it / S - 1) & 1);
+        int offy, offx, py, px;
+        tap_offset(tap / s.k - s.pad, s.stride, &offy, &py);
+        tap_offset(tap % s.k - s.pad, s.stride, &offx, &px);
+        hopper::mbar_arrive_expect_tx(&full[st], (1 + NP) * kPanelBytes);
+        hopper::tma_load_box_4d(smem + L::a + st * kPanelBytes,
+                                &xm.m[2 * py + px], &full[st], c0,
+                                ow0 + offx, oh0 + offy, n0);
+        for (int p = 0; p < NP; ++p)
+          hopper::tma_load_panel(smem + L::b + (st * NP + p) * kPanelBytes,
+                                 &tw, &full[st], co0 + 64 * p, c0, tap);
+      }
+    return;
+  }
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int q4 = lane % 4;
+  // the thread's two tile rows, 16 warp + lane / 4 and + 8: their output
+  // pixel, whether it exists, and the input row / column of tap (0, 0)
+  int rn[2], roh[2], row_[2], ih0[2], iw0[2];
+  bool live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + lane / 4 + 8 * h;
+    row_[h] = r;
+    const int ow = ow0 + r % s.bw;
+    const int oh = oh0 + r / s.bw % s.bh;
+    rn[h] = n0 + r / (s.bw * s.bh);
+    roh[h] = oh * s.wo + ow;
+    live[h] = rn[h] < s.n && oh < s.ho && ow < s.wo;
+    ih0[h] = oh * s.stride - s.pad;
+    iw0[h] = ow * s.stride - s.pad;
+  }
+  if (prologue) {
+    for (int c = tid; c < s.cslices * 64; c += 128) {
+      scale_s[c] = c < s.ci ? scale[c] : 0.f;
+      bias_s[c] = c < s.ci ? bias[c] : 0.f;
+    }
+    hopper::named_barrier(1, 128);
+  }
+
+  float acc[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % S;
+    const int tap = it / s.cslices;
+    const int c0 = (it % s.cslices) * 64;
+    const int dy = tap / s.k, dx = tap % s.k;
+    bool inside[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      inside[h] = (unsigned)(ih0[h] + dy) < (unsigned)s.h &&
+                  (unsigned)(iw0[h] + dx) < (unsigned)s.w;
+    hopper::mbar_wait(&full[st], (it / S) & 1);
+
+    // A fragments: fragment r of k-step kk is row r % 2, channels 16 kk +
+    // 8 (r / 2) + 2 q4 + {0, 1}, i.e. 16-byte chunk 2 kk + r / 2 at byte
+    // 4 q4, the chunk swizzled by the row
+    const uint8_t* pa = smem + L::a + st * kPanelBytes;
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int rw = row_[r % 2];
+        const int chunk = 2 * kk + r / 2;
+        uint32_t v = *reinterpret_cast<const uint32_t*>(
+            pa + rw * 128 + ((chunk ^ (rw & 7)) << 4) + 4 * q4);
+        if (prologue) {
+          const int c = c0 + 8 * chunk + 2 * q4;
+          const __nv_bfloat162 xv = *reinterpret_cast<__nv_bfloat162*>(&v);
+          v = hopper::pack_bf16(
+              bn_apply<__nv_bfloat16>(__low2float(xv), scale_s[c], bias_s[c],
+                                      relu),
+              bn_apply<__nv_bfloat16>(__high2float(xv), scale_s[c + 1],
+                                      bias_s[c + 1], relu));
+        }
+        af[kk][r] = inside[r % 2] ? v : 0u;
+      }
+
+    const uint64_t b_desc =
+        hopper::desc_sw128(smem + L::b + st * NP * kPanelBytes);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      hopper::fence_acc(acc[p]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_rs(acc[p], af[kk],
+                         hopper::desc_add(b_desc, p * kPanelBytes +
+                                                      kk * 16 * 128));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) hopper::fence_acc(acc[p]);
+    hopper::mbar_arrive(&empty[st]);
+  }
+
+  // y rounded once to bf16; accumulator entry 4 j + 2 h + e is row h,
+  // column 64 p + 8 j + 2 q4 + e of the tile
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cl = 64 * p + 8 * j + 2 * q4;
+      const int co = co0 + cl;
+      float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 q = __floats2bfloat162_rn(
+            acc[p][4 * j + 2 * h], acc[p][4 * j + 2 * h + 1]);
+        if (!live[h]) continue;
+        if (co < s.co)
+          *reinterpret_cast<__nv_bfloat162*>(
+              y + ((size_t)rn[h] * s.ho * s.wo + roh[h]) * s.co + co) = q;
+        const float lo = __low2float(q), hi = __high2float(q);
+        sum[0] += lo;
+        sum[1] += hi;
+        sq[0] = fmaf(lo, lo, sq[0]);
+        sq[1] = fmaf(hi, hi, sq[1]);
+      }
+      if (partial == nullptr) continue;
+      // the warp's 8 row pairs of this column pair: xor shuffles give every
+      // lane the same sums, in the same order
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], off);
+          sq[e] += __shfl_xor_sync(0xffffffffu, sq[e], off);
+        }
+      if (lane < 4)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          red[(warp * 2 + 0) * BN + cl + e] = sum[e];
+          red[(warp * 2 + 1) * BN + cl + e] = sq[e];
+        }
+    }
+  if (partial == nullptr) return;
+  hopper::named_barrier(1, 128);
+  // one partial row per pixel tile: the 4 warps' sums in warp order
+  for (int c = tid; c < BN; c += 128) {
+    if (co0 + c >= s.co) continue;
+    float a = 0.f, b = 0.f;
+    for (int w = 0; w < 4; ++w) {
+      a += red[(w * 2 + 0) * BN + c];
+      b += red[(w * 2 + 1) * BN + c];
+    }
+    float* row = partial + (size_t)tile * 2 * s.co;
+    row[co0 + c] = a;
+    row[s.co + co0 + c] = b;
+  }
+}
+
+// The pixel box (bw, bh, bn), powers of two with bw * bh * bn = 64, whose
+// tiles cover the (n, ho, wo) output with the fewest padded pixels; ties go
+// to the widest box, then the tallest.
+void pick_box(int n, int ho, int wo, int* bw, int* bh, int* bn) {
+  long long best = -1;
+  for (int lw = 6; lw >= 0; --lw)
+    for (int lh = 6 - lw; lh >= 0; --lh) {
+      const int a = 1 << lw, b = 1 << lh, c = 64 >> (lw + lh);
+      const long long padded = (long long)((wo + a - 1) / a) * a *
+                               ((ho + b - 1) / b) * b * ((n + c - 1) / c) * c;
+      if (best < 0 || padded < best) {
+        best = padded;
+        *bw = a;
+        *bh = b;
+        *bn = c;
+      }
+    }
+}
+
+// The tensor-core geometry of a conv; false if the tile grid overflows.
+bool tc_shape(int n, int h, int wd, int ci, int co, int k, int stride,
+              TcShape* t) {
+  t->n = n;
+  t->h = h;
+  t->w = wd;
+  t->ci = ci;
+  t->co = co;
+  t->k = k;
+  t->stride = stride;
+  t->pad = k / 2;
+  t->ho = h / stride;
+  t->wo = wd / stride;
+  pick_box(n, t->ho, t->wo, &t->bw, &t->bh, &t->bn);
+  t->tiles_w = (t->wo + t->bw - 1) / t->bw;
+  t->tiles_h = (t->ho + t->bh - 1) / t->bh;
+  const long long tiles = (long long)t->tiles_w * t->tiles_h *
+                          ((n + t->bn - 1) / t->bn);
+  t->tiles = (int)tiles;
+  t->cslices = (ci + 63) / 64;
+  return tiles <= 2147483647ll && (co + 63) / 64 <= 65535;
+}
+
+template <int BN>
+cudaError_t launch_tc(const void* x, const void* w, const void* scale,
+                      const void* bias, void* y, void* partial, void* stats,
+                      const TcShape& t, int prologue, int relu,
+                      cudaStream_t stream) {
+  XMaps xm;
+  const long long c = t.ci, s = t.stride;
+  for (int par = 0; par < (s == 2 ? 4 : 1); ++par) {
+    const int py = par / 2, px = par % 2;
+    const void* base = static_cast<const __nv_bfloat16*>(x) +
+                       (py * (long long)t.w + px) * c;
+    const long long dims[4] = {c, t.w / s, t.h / s, t.n};
+    const long long strides[3] = {s * c * 2, s * t.w * c * 2,
+                                  (long long)t.h * t.w * c * 2};
+    const int box[3] = {t.bw, t.bh, t.bn};
+    if (!hopper::box_map_4d(&xm.m[par], base, dims, strides, box))
+      return cudaErrorInvalidValue;
+  }
+  for (int par = (s == 2 ? 4 : 1); par < 4; ++par) xm.m[par] = xm.m[0];
+  CUtensorMap tw;
+  if (!hopper::panel_map(&tw, w, t.k * t.k, t.ci, t.co))
+    return cudaErrorInvalidValue;
+  const int smem = TcSmem<BN>::alloc(t.cslices * 64);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_fwd_tc_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(t.tiles, (t.co + BN - 1) / BN);
+  conv_fwd_tc_kernel<BN><<<grid, 128 + 32, smem, stream>>>(
+      xm, tw, static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y),
+      static_cast<float*>(stats ? partial : nullptr), t, prologue, relu);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || stats == nullptr) return err;
+  return sum_rows(static_cast<const float*>(partial),
+                  static_cast<float*>(stats), t.tiles, 2 * t.co, stream);
+}
+
+// The number of pixel tiles (rows of the stats scratch) of a launch; -1
+// for a shape the route does not take.
+long long pixel_tiles(int n, int h, int wd, int ci, int co, int k,
+                      int stride, int tensor_cores) {
+  if (tensor_cores) {
+    TcShape t;
+    return tc_shape(n, h, wd, ci, co, k, stride, &t) ? t.tiles : -1;
+  }
+  const long long m = (long long)n * (h / stride) * (wd / stride);
+  return (m + kTileM - 1) / kTileM;
+}
+
 }  // namespace
 
 // x: (n, h, w, ci) NHWC; w: (k, k, ci, co) HWIO; y: (n, h/stride,
-// w/stride, co), all of one dtype (0 = float32, 1 = bfloat16), contiguous.
-// scale, bias: (ci,) float32, read when prologue != 0 (relu != 0 adds the
-// ReLU). stats: (2, co) float32 or null; when given, partial is float32
-// scratch of (ceil(n*ho*wo / fused_conv_fwd_tile_m()), 2, co), and
-// partial_rows its first dimension. k is 1 or 3, stride 1 or 2, and
-// stride 2 needs even h and w. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// w/stride, co), all of one dtype, contiguous. kind: 0 = float32 on the
+// CUDA cores, 1 = bfloat16 on the CUDA cores, 2 = bfloat16 on the tensor
+// cores (ci and co multiples of 8, x and w 16-byte aligned). scale, bias:
+// (ci,) float32, read when prologue != 0 (relu != 0 adds the ReLU). stats:
+// (2, co) float32 or null; when given, partial is float32 scratch of
+// (fused_conv_fwd_tiles(...), 2, co), and partial_rows its first
+// dimension. k is 1 or 3, stride 1 or 2, and stride 2 needs even h and w.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int fused_conv_fwd(const void* x, const void* w, const void* scale,
                               const void* bias, void* y, void* partial,
                               int partial_rows, void* stats, int n, int h,
                               int wd, int ci, int co, int k, int stride,
-                              int prologue, int relu, int dtype,
+                              int prologue, int relu, int kind,
                               void* stream) {
   if (n < 1 || h < 1 || wd < 1 || ci < 1 || co < 1 || (k != 1 && k != 3) ||
       (stride != 1 && stride != 2) ||
       (stride == 2 && (h % 2 || wd % 2)) ||
       (prologue && (scale == nullptr || bias == nullptr)) ||
-      (stats != nullptr && partial == nullptr))
+      (stats != nullptr && partial == nullptr) || kind < 0 || kind > 2 ||
+      (kind == 2 && (ci % 8 || co % 8)))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // one partial row per pixel tile: a smaller buffer would be overrun
+  const long long tiles = pixel_tiles(n, h, wd, ci, co, k, stride, kind == 2);
+  if (tiles < 0 || (stats != nullptr && partial_rows != tiles))
+    return (int)cudaErrorInvalidValue;
+  if (kind == 2) {
+    TcShape t;
+    tc_shape(n, h, wd, ci, co, k, stride, &t);
+    return co % 128 == 0
+               ? (int)launch_tc<128>(x, w, scale, bias, y, partial, stats, t,
+                                     prologue, relu, st)
+               : (int)launch_tc<64>(x, w, scale, bias, y, partial, stats, t,
+                                    prologue, relu, st);
+  }
   ConvShape s;
   s.n = n;
   s.h = h;
@@ -215,18 +608,19 @@ extern "C" int fused_conv_fwd(const void* x, const void* w, const void* scale,
     return (int)cudaErrorInvalidValue;
   s.m = (int)m;
   s.kdim = (int)kdim;
-  // one partial row per pixel tile: a smaller buffer would be overrun
-  if (stats != nullptr && partial_rows != (s.m + kTileM - 1) / kTileM)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (kind == 0)
     return launch<float>(x, w, scale, bias, y, partial, stats, s, prologue,
                          relu, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, scale, bias, y, partial, stats, s,
-                                 prologue, relu, st);
-  return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(x, w, scale, bias, y, partial, stats, s,
+                               prologue, relu, st);
 }
 
-// output pixels per CTA: the row count of `partial` is ceil(pixels / this)
-extern "C" int fused_conv_fwd_tile_m() { return kTileM; }
+// The row count of fused_conv_fwd's stats scratch for these arguments: one
+// row per pixel tile of the kernel `kind` chooses; -1 if it takes none.
+extern "C" long long fused_conv_fwd_tiles(int n, int h, int wd, int ci,
+                                          int co, int k, int stride,
+                                          int kind) {
+  if (n < 1 || h < 1 || wd < 1 || ci < 1 || co < 1 || stride < 1)
+    return -1;
+  return pixel_tiles(n, h, wd, ci, co, k, stride, kind == 2);
+}

@@ -78,6 +78,34 @@ inline bool panel_map(CUtensorMap* map, const void* base, int outer, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A 4-D map over a bf16 tensor whose rows hold `dims[0]` values: dims
+// {dims[0], dims[1], dims[2], dims[3]}, byte strides `strides` of the outer
+// three, a box of {64, box[0], box[1], box[2]} with box[0] * box[1] *
+// box[2] = 64 rows, so that one box is one panel, with the 128-byte
+// swizzle. Coordinates outside a dimension, negative ones too, read as
+// zeros. False if cuTensorMapEncodeTiled refuses it (a base address or
+// stride that is not a multiple of 16 bytes, among others).
+inline bool box_map_4d(CUtensorMap* map, const void* base,
+                       const long long (&dims)[4],
+                       const long long (&strides)[3], const int (&box)[3]) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
+      box[0] * box[1] * box[2] != kTile)
+    return false;
+  const cuuint64_t d[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1],
+                           (cuuint64_t)dims[2], (cuuint64_t)dims[3]};
+  const cuuint64_t st[3] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1],
+                            (cuuint64_t)strides[2]};
+  const cuuint32_t b[4] = {kTile, (cuuint32_t)box[0], (cuuint32_t)box[1],
+                           (cuuint32_t)box[2]};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), d, st, b, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---- device: shared memory, mbarriers, TMA ---------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -154,6 +182,27 @@ __device__ __forceinline__ void tma_load_panel(void* dst,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(outer)
       : "memory");
+}
+
+// One box of the 4-D `map` at (c0, c1, c2, c3) into `dst`; completes on
+// `bar`.
+__device__ __forceinline__ void tma_load_box_4d(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int c0, int c1,
+                                                int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Synchronises the `threads` threads (a multiple of 32) that reach named
+// barrier `id` (1..15; 0 is __syncthreads'), e.g. the consumer warpgroups
+// once the producer warp has left.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // ---- device: wgmma ---------------------------------------------------------

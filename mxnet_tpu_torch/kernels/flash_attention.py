@@ -7,9 +7,9 @@ package's public function and is differentiable: it runs through a
 ``torch.autograd.Function`` (the counterpart of the JAX ``_flash``
 custom VJP) whose forward is B5 (``csrc/flash_attention_fwd.cu``) and
 whose backward is B6 (dq) and B7 (dk, dv) (``csrc/flash_attention_bwd.cu``),
-all built at first use (see ``_build``). In bfloat16, B5 and B7 run on the
+all built at first use (see ``_build``). In bfloat16 all three run on the
 tensor cores (wgmma fed by TMA, so the tensors TMA loads must be 16-byte
-aligned); in float32 they, and B6 in both types, run on the CUDA cores. A
+aligned); in float32 they run on the CUDA cores. A
 CPU tensor goes to the plain versions, :func:`flash_attention_reference` and
 :func:`flash_attention_bwd_reference`. There is no fallback: a build or
 launch failure on a CUDA tensor raises.
@@ -158,9 +158,10 @@ def _launch(source, entry, inputs, outputs, scale, causal, kv_len,
     if d not in HEAD_DIMS:
         raise MXNetError("%s: head dim %d not supported by the CUDA kernel "
                          "(one of %s)" % (entry, d, HEAD_DIMS))
-    if b * h > 65535:
-        raise MXNetError("%s: B*H = %d exceeds the kernel's grid limit 65535"
-                         % (entry, b * h))
+    if -(-max(sq, k.shape[2]) // 64) > 65535:
+        # B*H rides the grid's x; the 64-row query or key blocks its y
+        raise MXNetError("%s: %d rows exceed the kernel's grid limit of "
+                         "65535 blocks of 64" % (entry, max(sq, k.shape[2])))
     tensors = (*inputs, *outputs)
     if not all(t.is_contiguous() for t in tensors):
         raise MXNetError("%s: every tensor must be contiguous" % entry)
@@ -216,7 +217,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
         return _bwd_plain(q, k, v, do, lse, delta, scale, causal, kv_len)[0]
     dq = torch.empty_like(q)
     _launch("flash_attention_bwd", "flash_attention_bwd_dq",
-            (q, k, v, do, lse, delta), (dq,), scale, causal, kv_len)
+            (q, k, v, do, lse, delta), (dq,), scale, causal, kv_len,
+            tma_inputs=4)
     flash_attention_bwd_dq.launches += 1
     return dq
 

@@ -6,7 +6,11 @@ folded BatchNorm and ReLU (the prologue) and whose output write can also
 return the per-channel ``[sum, sum of squares]`` of the stored output (the
 stats epilogue). On a CUDA tensor it launches the hand-written kernel
 ``csrc/fused_conv_fwd.cu`` (built at first use, see ``_build``) and adds
-one to ``conv_fwd.launches``; on a CPU tensor it runs
+one to ``conv_fwd.launches``: in bfloat16 on the tensor cores (wgmma fed
+by TMA, so x and w must be 16-byte aligned), in float32 on the CUDA
+cores. A bfloat16 shape whose rows TMA cannot load (Ci or Co not a
+multiple of 8) goes, by that shape, to the CUDA-core kernel and also adds
+one to ``conv_fwd.core_route_launches``. On a CPU tensor it runs
 :func:`conv_fwd_reference`, the plain PyTorch version. There is no
 fallback: a build or launch failure on a CUDA tensor raises. On a ``meta``
 tensor (shape inference) it only allocates the outputs.
@@ -138,28 +142,42 @@ def conv_fwd_reference(x, w, *, stride=1, prologue=None, emit_stats=False):
                            (yf * yf).sum(dim=(0, 1, 2))])
 
 
-def _launch(x, w, prologue, y, stats, stride):
+def _tensor_cores(x, w):
+    """Whether B1 runs on the tensor cores: bfloat16 whose rows TMA can
+    load (Ci and Co multiples of 8, 16-byte rows)."""
+    return x.dtype == torch.bfloat16 and x.shape[3] % 8 == 0 \
+        and w.shape[3] % 8 == 0
+
+
+def _launch(x, w, prologue, y, stats, stride, tensor_cores):
     from ._build import load
 
     n, h, wd, ci = x.shape
     k, co = int(w.shape[0]), int(w.shape[3])
     dev = x.device
+    # the C entry point's kernel kind: float32, bfloat16 on the CUDA cores,
+    # bfloat16 on the tensor cores
+    kind = 2 if tensor_cores else _DTYPES[x.dtype]
+    if tensor_cores and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise MXNetError("conv_fwd: bfloat16 x and w must start on a 16-byte "
+                         "boundary (the tensor-core kernel loads them with "
+                         "TMA)")
     lib = load("fused_conv_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _bind(lib, "fused_conv_fwd", [p] * 6 + [i, p] + [i] * 10 + [p])
     scale, bias, pro, relu = _prologue_args(prologue)
     partial, tiles = None, 0
     if stats is not None:
-        # one partial row per pixel tile; the kernel gives its tile size
-        tile_m = lib.fused_conv_fwd_tile_m()
-        tiles = -(-(n * (h // stride) * (wd // stride)) // tile_m)
-        partial = torch.empty((tiles, 2, co), dtype=torch.float32,
+        # one partial row per pixel tile of the kernel's own tiling
+        tiles = _bind(lib, "fused_conv_fwd_tiles", [i] * 8,
+                      ctypes.c_longlong)(n, h, wd, ci, co, k, stride, kind)
+        partial = torch.empty((max(tiles, 0), 2, co), dtype=torch.float32,
                               device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_ptr(x), _ptr(w), _ptr(scale), _ptr(bias), _ptr(y),
                  _ptr(partial), tiles, _ptr(stats), n, h, wd, ci, co, k,
-                 stride, pro, relu, _DTYPES[x.dtype], stream)
+                 stride, pro, relu, kind, stream)
     if err != 0:
         raise MXNetError("fused_conv_fwd launch failed: CUDA error %d" % err)
 
@@ -173,8 +191,11 @@ def conv_fwd(x, w, *, stride=1, prologue=None, emit_stats=False):
     (f32 math, cast to x's dtype before the product); emit_stats: also
     return the (2, Co) f32 ``[sum, sum_sq]`` of the stored (dtype-cast)
     output. Returns ``(y, stats or None)``. On a CUDA tensor this launches
-    the kernel (float32 or bfloat16) and adds one to ``conv_fwd.launches``;
-    a non-contiguous x or w is copied to a contiguous one first."""
+    the kernel and adds one to ``conv_fwd.launches``: bfloat16 on the
+    tensor cores, float32 on the CUDA cores, and a bfloat16 Ci or Co that
+    is not a multiple of 8 on the CUDA cores too, counted also in
+    ``conv_fwd.core_route_launches``. A non-contiguous x or w is copied to a
+    contiguous one first."""
     stride = int(stride)
     _check(x, w, stride, prologue)
     if x.device.type == "cpu":
@@ -190,12 +211,17 @@ def conv_fwd(x, w, *, stride=1, prologue=None, emit_stats=False):
         return y, stats
     if x.device.type != "cuda":
         raise MXNetError("conv_fwd: unsupported device %s" % x.device)
-    _launch(x.contiguous(), w.contiguous(), prologue, y, stats, stride)
+    tensor_cores = _tensor_cores(x, w)
+    _launch(x.contiguous(), w.contiguous(), prologue, y, stats, stride,
+            tensor_cores)
     conv_fwd.launches += 1
+    if x.dtype == torch.bfloat16 and not tensor_cores:
+        conv_fwd.core_route_launches += 1
     return y, stats
 
 
 conv_fwd.launches = 0
+conv_fwd.core_route_launches = 0
 
 
 def _bn_consts(gamma, beta, mean, inv):

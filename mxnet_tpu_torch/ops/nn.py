@@ -66,26 +66,30 @@ def pooling(data, kernel=(), pool_type="max", global_pool=False,
         dims = tuple(range(2, data.dim()))
         if pool_type == "max":
             return data.amax(dim=dims, keepdim=True)
-        if pool_type == "avg":
-            return data.mean(dim=dims, keepdim=True)
-        return data.sum(dim=dims, keepdim=True)
+        # the reference's mean for every other global pool, sum included
+        return data.mean(dim=dims, keepdim=True)
     if pooling_convention != "valid":
         raise MXNetError("Pooling: pooling_convention=%r is not ported yet "
                          "(only 'valid')" % pooling_convention)
     kernel = _tuple(kernel, nd)
     stride = _tuple(stride, nd) if stride else (1,) * nd
     pad = _tuple(pad, nd) if pad else (0,) * nd
+    if pool_type not in ("max", "avg", "sum"):
+        raise MXNetError("unknown pool_type %r" % pool_type)
+    # pad explicitly, as the reference's reduce_window does: torch's pools
+    # refuse a pad above half the kernel
+    if any(pad):
+        data = F.pad(data, [p for p in reversed(pad) for _ in (0, 1)],
+                     value=float("-inf") if pool_type == "max" else 0.0)
     if pool_type == "max":
-        return getattr(F, "max_pool%dd" % nd)(data, kernel, stride, pad)
-    if pool_type in ("avg", "sum"):
-        # count_include_pad=True semantics (the MXNet default)
-        out = getattr(F, "avg_pool%dd" % nd)(data, kernel, stride, pad,
-                                              count_include_pad=True)
-        if pool_type == "sum":
-            for k in kernel:
-                out = out * k
-        return out
-    raise MXNetError("unknown pool_type %r" % pool_type)
+        return getattr(F, "max_pool%dd" % nd)(data, kernel, stride)
+    # count_include_pad=True semantics (the MXNet default): the padded
+    # zeros count in the window
+    out = getattr(F, "avg_pool%dd" % nd)(data, kernel, stride)
+    if pool_type == "sum":
+        for k in kernel:
+            out = out * k
+    return out
 
 
 @register(name="Activation", aliases=("activation",))

@@ -1,13 +1,15 @@
 """The rounding of the tensor-core (bf16) flash-attention kernels, on the CPU.
 
-B5 and B7 run their bf16 products on the tensor cores, which take bf16
-operands: the forward rounds P to bf16 before P . V, and the dK/dV kernel
-rounds P^T and dS^T to bf16 before P^T . dO and dS^T . Q and multiplies dK
-by the scale at the end. The TPU kernels and the port's plain versions keep
-those in fp32. This file holds a plain-PyTorch model of exactly that
-rounding (``_tc_forward``, ``_tc_bwd_dkv``) against the JAX package's Pallas
-kernels in interpret mode (``_fwd_call``, ``_bwd_call``) and against the
-port's plain versions, on bf16 inputs made from a numpy seed. It shows on
+B5, B6 and B7 run their bf16 products on the tensor cores, which take bf16
+operands: the forward rounds P to bf16 before P . V, the dQ kernel rounds
+dS to bf16 before dS . K and the dK/dV kernel rounds P^T and dS^T to bf16
+before P^T . dO and dS^T . Q; dQ and dK are multiplied by the scale at the
+end. The TPU kernels and the port's plain versions keep those in fp32.
+This file holds a plain-PyTorch model of exactly that rounding
+(``_tc_forward``, ``_tc_bwd_dq``, ``_tc_bwd_dkv``) against the JAX
+package's Pallas kernels in interpret mode (``_fwd_call``, ``_bwd_call``)
+and against the port's plain versions, on bf16 inputs made from a numpy
+seed. It shows on
 the CPU that the added rounding fits the limits the card run holds the
 kernels to (``chip_smoke.py``'s ``KERNEL_TOL`` and ``BWD_TOL``): each row
 within 2**-6 of its own scale, gradient rows with the scale floored at 1%
@@ -71,6 +73,17 @@ def _tc_forward(q, k, v, scale, causal, kv_len):
         m = m_new
     l = l.clamp_min(1e-30)
     return (o / l).bfloat16(), (m + torch.log(l))[..., 0]
+
+
+def _tc_bwd_dq(q, k, v, do, lse, delta, scale, causal, kv_len):
+    """B6's bf16 numerics: fp32 p and dS from the bf16 operands, dS rounded
+    to bf16 for dS . K, dQ scaled at the end and rounded once to bf16."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    live = _live(q.shape[1], k.shape[1], causal, kv_len)
+    p = torch.where(live, torch.exp(s - lse[..., None]), torch.tensor(0.0))
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+    return (torch.matmul(ds.bfloat16().float(), kf) * scale).bfloat16()
 
 
 def _tc_bwd_dkv(q, k, v, do, lse, delta, scale, causal, kv_len):
@@ -167,3 +180,26 @@ def test_tc_bwd_dkv_model_fits_the_limits(case):
         assert _row_err(dk.float(), want_k, FLOOR) <= ROW_TOL
         assert _row_err(dv.float(), want_v, FLOOR) <= ROW_TOL
     assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_tc_bwd_dq_model_fits_the_limits(case):
+    bh, sq, sk, d, causal, kv_len = case
+    rng = np.random.RandomState(sq * 3 + sk + d)
+    q, k, v, do = _bf16(rng, bh, sq, d), _bf16(rng, bh, sk, d), \
+        _bf16(rng, bh, sk, d), _bf16(rng, bh, sq, d)
+    scale = d ** -0.5
+    bq, bk = _blocks(sq, sk)
+    o_j, lse_j = _fwd_call(_jnp(q), _jnp(k), _jnp(v), scale, causal, bq, bk,
+                           True, kv_len)
+    dq_j, _dk, _dv = _bwd_call(_jnp(q), _jnp(k), _jnp(v), _jnp(do), o_j,
+                               lse_j, scale, causal, bq, bk, True, kv_len)
+    out = torch.from_numpy(np.asarray(o_j.astype(jnp.float32))).bfloat16()
+    lse = torch.from_numpy(np.asarray(lse_j)[..., 0])
+    delta = (do.float() * out.float()).sum(-1)
+    dq = _tc_bwd_dq(q, k, v, do, lse, delta, scale, causal, kv_len)
+    rq, _rk, _rv = flash_attention_bwd_reference(
+        q[None], k[None], v[None], out[None], lse[None], do[None],
+        causal=causal, kv_len=kv_len)
+    for want in (np.asarray(dq_j.astype(jnp.float32)), rq[0].float().numpy()):
+        assert _row_err(dq.float(), want, FLOOR) <= ROW_TOL

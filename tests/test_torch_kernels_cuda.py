@@ -12,9 +12,10 @@ Tolerances. Each row of an output (a query row of out and dq, a key row
 of dk and dv) is held against that row's own scale, max_d |x - ref| /
 max_d |ref|: 2**-6 (two bf16 ulps) in bf16 and 1e-4 in fp32 (summation
 order only), so rows whose values are small, as out is over thousands
-of keys, are held as tightly as the rest. In bf16, B5 and B7 also round
-P (and dS) to bf16 for their tensor-core products; that rounding alone
-measures about 2**-7 on the CPU (tests/test_torch_flash_tc.py). The scale is clamped from
+of keys, are held as tightly as the rest. In bf16, B5, B6 and B7 also
+round P or dS to bf16 for their tensor-core products; that rounding alone
+measures about 2**-7 on the CPU (tests/test_torch_flash_tc.py). The scale
+is clamped from
 below at 1% of the tensor's largest |ref|: a row whose exact value is 0
 (dq of query row 0 under causal, where one live key gives ds = 0) comes
 out of both sides as rounding noise of ~1e-7, which has no scale of its
@@ -22,8 +23,9 @@ own. lse is fp32 on both sides: 1e-3 absolute.
 
 B1 (``fused_conv_fwd``) is held the same way per output pixel (a row of
 Co channels), and its stats per channel against that channel's sum of
-|y| (sum of y^2 for the squares): 1e-4 in fp32, 2**-6 in bf16. TF32 is
-off for the plain version's cuDNN convolution.
+|y| (sum of y^2 for the squares): 1e-4 in fp32 (CUDA cores), 2**-6 in
+bf16 (tensor cores). TF32 is off for the plain version's cuDNN
+convolution.
 
 B3 (``fused_conv_dgrad``) is held as B1 is, per input pixel, and its stats
 per channel against that channel's sum of |e| (of |e * xhat|). B2
@@ -203,8 +205,59 @@ def test_bf16_kernels_refuse_unaligned_tensors():
         flash_attention(shifted, k, v)
     with pytest.raises(MXNetError, match="16-byte"):
         flash_attention_bwd_dkv(q, k, v, shifted, lse, delta)
+    with pytest.raises(MXNetError, match="16-byte"):
+        flash_attention_bwd_dq(q, shifted, v, do, lse, delta)
     assert (flash_attention.launches,
             flash_attention_bwd_dkv.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_b6_at_tile_edges_on_the_card(dtype, d):
+    """B6 against the plain backward where the tiles are ragged: in bf16
+    the tensor-core kernel, in fp32 the CUDA-core one. It takes a random
+    ``out`` as B7 does above: with the forward's, Sq = 1 under causal gives
+    ds = 0 exactly and dq would be rounding noise on both sides."""
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for sq in TILE_EDGE_SEQS:
+        sk = sq + 37
+        for causal in (True, False):
+            kw = dict(causal=causal, kv_len=sk - 9)
+            q, k, v, do = _inputs(gen, 1, 2, sq, sk, d, dt)
+            o = torch.randn(q.shape, device="cuda", generator=gen).to(dt)
+            _, lse = flash_attention_reference(q, k, v, **kw)
+            before = flash_attention_bwd_dq.launches
+            dq = flash_attention_bwd_dq(q, k, v, do, lse,
+                                        attention_delta(o, do), **kw)
+            ref = flash_attention_bwd_reference(q, k, v, o, lse, do, **kw)[0]
+            torch.cuda.synchronize()
+            assert flash_attention_bwd_dq.launches == before + 1
+            assert dq.dtype == dt and dq.shape == q.shape
+            assert _row_err(dq, ref) <= ROW_TOL[dt], (sq, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_take_more_than_65535_heads(dtype):
+    """B*H rides the grid's x in every flash kernel, so B*H = 65536 runs:
+    the forward and the backward against the plain versions."""
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = _inputs(gen, 1024, 64, 16, 16, 64, dt)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v, causal=True)
+    got = flash_attention_bwd(q, k, v, ref, ref_lse, do, causal=True)
+    refs = flash_attention_bwd_reference(q, k, v, ref, ref_lse, do,
+                                         causal=True)
+    torch.cuda.synchronize()
+    assert _row_err(out, ref) <= ROW_TOL[dt]
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+        assert _row_err(g, r) <= ROW_TOL[dt], name
 
 
 # (n, h, ci, co, k, stride): ResNet-50 unit shapes at batch 2, plus ragged
@@ -263,25 +316,28 @@ def test_conv_fwd_takes_strided_input_and_refuses_odd_stride2():
 @pytest.mark.cuda
 def test_conv_fwd_entry_point_checks_the_stats_scratch_rows():
     """The C entry point refuses a stats scratch buffer whose row count is
-    not one per pixel tile of its own tile size."""
+    not one per pixel tile of the kernel it launches (the CUDA-core kernel
+    in fp32, kind 0; the tensor-core one in bf16, kind 2)."""
     _card()
     from mxnet_tpu_torch.kernels import _build
 
-    x = torch.randn(2, 12, 12, 16, device="cuda")
-    w = torch.randn(1, 1, 16, 8, device="cuda")
-    fb.conv_fwd(x, w, emit_stats=True)      # builds it and binds the types
-    lib = _build.load("fused_conv_fwd")
-    tiles = -(-2 * 12 * 12 // lib.fused_conv_fwd_tile_m())
-    y = torch.empty(2, 12, 12, 8, device="cuda")
-    stats = torch.empty(2, 8, device="cuda")
-    partial = torch.empty(tiles + 1, 2, 8, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    for rows in (tiles, tiles - 1, tiles + 1):
-        err = lib.fused_conv_fwd(x.data_ptr(), w.data_ptr(), None, None,
-                                 y.data_ptr(), partial.data_ptr(), rows,
-                                 stats.data_ptr(), 2, 12, 12, 16, 8, 1, 1,
-                                 0, 0, 0, stream)
-        assert (err == 0) == (rows == tiles), rows
+    for dt, kind in ((torch.float32, 0), (torch.bfloat16, 2)):
+        x = torch.randn(2, 12, 12, 16, device="cuda").to(dt)
+        w = torch.randn(1, 1, 16, 8, device="cuda").to(dt)
+        fb.conv_fwd(x, w, emit_stats=True)  # builds it and binds the types
+        lib = _build.load("fused_conv_fwd")
+        tiles = lib.fused_conv_fwd_tiles(2, 12, 12, 16, 8, 1, 1, kind)
+        assert tiles >= 1
+        y = torch.empty(2, 12, 12, 8, device="cuda").to(dt)
+        stats = torch.empty(2, 8, device="cuda")
+        partial = torch.empty(tiles + 1, 2, 8, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        for rows in (tiles, tiles - 1, tiles + 1):
+            err = lib.fused_conv_fwd(x.data_ptr(), w.data_ptr(), None, None,
+                                     y.data_ptr(), partial.data_ptr(), rows,
+                                     stats.data_ptr(), 2, 12, 12, 16, 8, 1,
+                                     1, 0, 0, kind, stream)
+            assert (err == 0) == (rows == tiles), (kind, rows)
 
 
 def _grad_case(gen, n, h, ci, co, k, stride, dt):
@@ -415,3 +471,95 @@ def test_bottleneck_train_on_the_card_launches_b1_b2_b3():
         rel = ((g_card.cpu() - g_cpu).abs().max()
                / g_cpu.abs().max().clamp_min(1e-30)).item()
         assert rel <= 1e-4
+
+
+# (n, h, ci, co, k, stride): where the tensor-core B1 tiles are ragged or
+# padded: 7x7 at batch 1, and each stride-2 step of ResNet-50 (56 -> 28,
+# 28 -> 14, 14 -> 7; 3x3 and the 1x1 shortcut) at batch 3
+TC_CONV_SHAPES = [(1, 7, 512, 512, 3, 1), (1, 7, 512, 2048, 1, 1),
+                  (3, 56, 128, 128, 3, 2), (3, 56, 256, 512, 1, 2),
+                  (3, 28, 256, 256, 3, 2), (3, 28, 512, 1024, 1, 2),
+                  (3, 14, 512, 512, 3, 2), (3, 14, 1024, 2048, 1, 2)]
+
+
+def _conv_case(gen, n, h, ci, co, k, dt):
+    x = torch.randn(n, h, h, ci, device="cuda", generator=gen).to(dt)
+    w = (torch.randn(k, k, ci, co, device="cuda", generator=gen)
+         / (k * k * ci) ** 0.5).to(dt)
+    scale = torch.rand(ci, device="cuda", generator=gen) + 0.5
+    bias = torch.randn(ci, device="cuda", generator=gen) * 0.5
+    return x, w, (scale, bias, True)
+
+
+def _conv_check(x, w, stride, pro, stats, dt):
+    y, st = fb.conv_fwd(x, w, stride=stride, prologue=pro, emit_stats=stats)
+    ref, ref_st = fb.conv_fwd_reference(x, w, stride=stride, prologue=pro,
+                                        emit_stats=stats)
+    torch.cuda.synchronize()
+    assert y.dtype == dt and y.shape == ref.shape
+    assert _row_err(y, ref) <= ROW_TOL[dt]
+    if not stats:
+        assert st is None
+        return
+    yf = ref.float()
+    for t, bound in ((0, yf.abs().sum((0, 1, 2))),
+                     (1, (yf * yf).sum((0, 1, 2)))):
+        assert bool(((st[t] - ref_st[t]).abs()
+                     <= ROW_TOL[dt] * bound + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TC_CONV_SHAPES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_conv_fwd_tensor_cores_at_padded_tiles(shape):
+    """The bf16 tensor-core B1 against its plain version, prologue and
+    stats on and off; none of these goes to the CUDA cores."""
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    n, h, ci, co, k, stride = shape
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x, w, pro = _conv_case(gen, n, h, ci, co, k, torch.bfloat16)
+    before = (fb.conv_fwd.launches, fb.conv_fwd.core_route_launches)
+    for p in (None, pro, (pro[0], pro[1], False)):
+        for stats in (False, True):
+            _conv_check(x, w, stride, p, stats, torch.bfloat16)
+    assert (fb.conv_fwd.launches - before[0],
+            fb.conv_fwd.core_route_launches - before[1]) == (6, 0)
+
+
+@pytest.mark.cuda
+def test_conv_fwd_routes_rows_tma_cannot_load_to_the_cuda_cores():
+    """A bf16 Ci that is not a multiple of 8 cannot be loaded by TMA: the
+    wrapper sends it, by shape, to the CUDA-core kernel and counts it; fp32
+    is not a route and is not counted."""
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for ci, co, dt, routed in ((20, 64, torch.bfloat16, 1),
+                               (64, 36, torch.bfloat16, 1),
+                               (64, 64, torch.bfloat16, 0),
+                               (20, 64, torch.float32, 0)):
+        x, w, pro = _conv_case(gen, 2, 9, ci, co, 3, dt)
+        before = (fb.conv_fwd.launches, fb.conv_fwd.core_route_launches)
+        _conv_check(x, w, 1, pro, True, dt)
+        assert (fb.conv_fwd.launches - before[0],
+                fb.conv_fwd.core_route_launches - before[1]) == (1, routed)
+
+
+@pytest.mark.cuda
+def test_conv_fwd_tensor_cores_refuse_unaligned_tensors():
+    """TMA needs 16-byte aligned x and w: the wrapper raises on either, and
+    launches nothing."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x, w, pro = _conv_case(gen, 2, 8, 64, 64, 3, torch.bfloat16)
+    before = fb.conv_fwd.launches
+    for t in (x, w):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        shifted = flat[1:].view_as(t)          # contiguous, 2 bytes off
+        shifted.copy_(t)
+        assert shifted.data_ptr() % 16 == 2
+        args = (shifted, w) if t is x else (x, shifted)
+        with pytest.raises(MXNetError, match="16-byte"):
+            fb.conv_fwd(*args, prologue=pro)
+    assert fb.conv_fwd.launches == before
