@@ -10,8 +10,8 @@ the kernels are built for sm_90a) and ``nvcc``. It
 2. builds every CUDA kernel of the port from ``mxnet_tpu_torch/kernels/
    csrc`` (one ``nvcc`` per source, all started together) and prints the
    build time and the compiler's register/spill report; reads the SASS of
-   the bf16 tensor-core kernels B1, B5, B6 and B7 (``cuobjdump -sass``)
-   and fails unless each has wgmma (HGMMA) and TMA load (UTMALDG)
+   the bf16 tensor-core kernels B1, B2, B3, B5, B6 and B7 (``cuobjdump
+   -sass``) and fails unless each has wgmma (HGMMA) and TMA load (UTMALDG)
    instructions and spills nothing;
 3. holds the flash-attention forward (B5) against its plain PyTorch
    version on the card, at the shapes the serving and training paths give
@@ -56,9 +56,9 @@ the kernels are built for sm_90a) and ``nvcc``. It
    rebuild, the input BN's relu mask and its (dbeta, dgamma) sums, the
    shortcut's extra term), against their plain versions at every call of
    a ResNet-50 train step, with the options each call uses, at batch 64
-   and 2, in bf16 and fp32, and times the kernels, the plain versions and
-   the library route (the elementwise parts, then cuDNN's weight-only or
-   input-only convolution backward);
+   and 2, in bf16 (every call on the tensor cores) and fp32, and times the
+   kernels, the plain versions and the library route (the elementwise
+   parts, then cuDNN's weight-only or input-only convolution backward);
 11. computes one step's gradients of a tiny fp32 fused ResNet on the card
    and on the CPU and holds them together, and holds the full-width fused
    bf16 gradients against the unfused fp32 graph's (cuDNN, TF32 off);
@@ -67,7 +67,7 @@ the kernels are built for sm_90a) and ``nvcc``. It
    momentum 0.9, wd 1e-4 — through ``TrainStep`` at batch 64 on one seeded
    batch: a warm-up step, 5 timed steps and a profiled one, with a first
    loss near ln 1000, a falling loss, moving statistics that move and 52
-   B1, 52 B2 and 48 B3 launches a step;
+   B1, 52 B2 and 48 B3 launches a step, none on the CUDA-core route;
 13. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -196,9 +196,11 @@ def _card_line():
     return r.stdout.strip().splitlines()[0]
 
 
-# the bf16 tensor-core kernels B1, B5, B6 and B7: (library, a string their
-# mangled names hold)
+# the bf16 tensor-core kernels B1, B2, B3, B5, B6 and B7: (library, a
+# string their mangled names hold)
 TC_KERNELS = (("fused_conv_fwd", "conv_fwd_tc_kernel"),
+              ("fused_conv_wgrad", "conv_wgrad_tc_kernel"),
+              ("fused_conv_dgrad", "conv_dgrad_tc_kernel"),
               ("flash_attention_fwd", "flash_fwd_tc_kernel"),
               ("flash_attention_bwd", "flash_bwd_dq_tc_kernel"),
               ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel"))
@@ -1344,6 +1346,7 @@ def conv_grad_kernel_phase(torch, fb):
         for dt in ("float32", "bfloat16"):
             worst = {"wgrad": (0.0, None), "dgrad": (0.0, None),
                      "stats": (0.0, None)}
+            routes = _core_routes(fb)
             for key in calls:
                 kind, _n, h, ci, co, k, s, bnbwd, extra = key
                 ops = _grad_inputs(torch, gen, key, getattr(torch, dt))
@@ -1382,6 +1385,10 @@ def conv_grad_kernel_phase(torch, fb):
                 if dt == "bfloat16" and (n, h, ci, co, k, s) == GRAD_MAIN:
                     main_err[kind] = abs_err
                 del ops, got, ref
+            if _core_routes(fb) != routes:
+                raise RuntimeError("conv grad: a ResNet-50 call took the "
+                                   "CUDA-core route: %s -> %s"
+                                   % (routes, _core_routes(fb)))
             print("conv grad batch %-2d %-8s: %d B2/B3 calls held; worst B2 "
                   "column-relative %.3g at %s (tol %g); worst B3 "
                   "pixel-relative %.3g at %s, stats-relative %.3g at %s "
@@ -1448,7 +1455,10 @@ def conv_grad_kernel_phase(torch, fb):
             "name": "fused_conv_%s" % kind, "route": "cuda",
             "source": "mxnet_tpu_torch/kernels/csrc/fused_conv_%s.cu" % kind,
             "replaces": "mxnet_tpu/kernels/fused_block.py:%d" % line,
-            "design": "CUDA cores", "library": lib,
+            "design": "bf16: wgmma+TMA on 4-D box maps, both operands "
+                      "from shared memory, the x-side BN prologue (B2) and "
+                      "the g-side rebuild applied there in place; fp32: "
+                      "CUDA cores", "library": lib,
             "step_total_ms": total[kind]}, **entries[kind]))
     return out
 
@@ -1465,9 +1475,19 @@ def _fb_counts(fb):
             fb.conv_dgrad.launches)
 
 
+def _core_routes(fb):
+    """B1, B2 and B3 launches on the CUDA-core route (bf16 shapes TMA
+    cannot load)."""
+    return (fb.conv_fwd.core_route_launches,
+            fb.conv_wgrad.core_route_launches,
+            fb.conv_dgrad.core_route_launches)
+
+
 def _reset_fb_counts(fb):
     fb.conv_fwd.launches = fb.conv_wgrad.launches = \
-        fb.conv_dgrad.launches = fb.conv_fwd.core_route_launches = 0
+        fb.conv_dgrad.launches = 0
+    fb.conv_fwd.core_route_launches = fb.conv_wgrad.core_route_launches = \
+        fb.conv_dgrad.core_route_launches = 0
 
 
 def resnet_train_grad_phase(torch, np, fb):
@@ -1608,17 +1628,16 @@ def resnet_training_phase(torch, np, fb):
         secs.append(time.perf_counter() - t0)
         losses.append(loss.item())
     launches = _fb_counts(fb)
-    core_routes = fb.conv_fwd.core_route_launches
+    core_routes = _core_routes(fb)
     peak = torch.cuda.max_memory_allocated()
     print("resnet train: %d steps at batch %d: losses %s; step times %s s; "
           "%.1f images/s; peak memory %.2f GiB; launches B1 %d, B2 %d, B3 %d "
-          "(%s a step), B1 on the CUDA cores %d" % (RESNET_TRAIN_STEPS, n,
-                           " ".join("%.5f" % x for x in losses),
-                           " ".join("%.4f" % x for x in secs),
-                           n * RESNET_TRAIN_STEPS / sum(secs), peak / 2 ** 30,
-                           *launches,
-                           "/".join("%g" % (c / RESNET_TRAIN_STEPS)
-                                    for c in launches), core_routes))
+          "(%s a step), on the CUDA cores B1 %d, B2 %d, B3 %d"
+          % (RESNET_TRAIN_STEPS, n, " ".join("%.5f" % x for x in losses),
+             " ".join("%.4f" % x for x in secs),
+             n * RESNET_TRAIN_STEPS / sum(secs), peak / 2 ** 30, *launches,
+             "/".join("%g" % (c / RESNET_TRAIN_STEPS) for c in launches),
+             *core_routes))
     _device_profile(torch, lambda: ts(carry, batch), top=10)
 
     moved = sum(int(bool((aux[k] != v).any())) for k, v in means0.items())
@@ -1636,9 +1655,9 @@ def resnet_training_phase(torch, np, fb):
                            % (moved, len(means0)))
     want = tuple(c * RESNET_TRAIN_STEPS for c in (B1_PER_FORWARD, B2_PER_STEP,
                                                   B3_PER_STEP))
-    if launches != want or core_routes:
-        raise RuntimeError("resnet train: launches B1/B2/B3 %s, want %s; B1 "
-                           "on the CUDA cores %d, want 0"
+    if launches != want or any(core_routes):
+        raise RuntimeError("resnet train: launches B1/B2/B3 %s, want %s; on "
+                           "the CUDA cores %s, want none"
                            % (launches, want, core_routes))
     print("resnet train: %d of %d moving means moved" % (moved, len(means0)))
     return launches

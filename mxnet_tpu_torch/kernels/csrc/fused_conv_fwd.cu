@@ -91,7 +91,6 @@
 //   * Ragged pixel and channel tiles are masked (H = 7 in ResNet-50's last
 //     stage, 7 * 7 * N pixels).
 #include "conv_common.cuh"
-#include "hopper_mma.cuh"
 
 namespace {
 
@@ -213,7 +212,7 @@ cudaError_t launch(const void* x, const void* w, const void* scale,
       prologue, relu);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || stats == nullptr) return err;
-  return sum_rows(static_cast<const float*>(partial),
+  return sum_rows(static_cast<float*>(partial),
                   static_cast<float*>(stats), grid.x, 2 * s.co, stream);
 }
 
@@ -225,13 +224,8 @@ using hopper::kPanelBytes;
 // tile (bw x bh x bn output pixels) and the tile grid.
 struct TcShape {
   int n, h, w, ci, co, k, stride, pad, ho, wo;
-  int bw, bh, bn, tiles_w, tiles_h, tiles, cslices;
-};
-
-// x through one 4-D map per (row, column) parity of the input (one map at
-// stride 1): map 2 * ph + pw.
-struct XMaps {
-  CUtensorMap m[4];
+  BoxGrid g;  // over the output (n, ho, wo)
+  int cslices;
 };
 
 // Shared memory, in bytes from a 1024-aligned base: kStages x-panels,
@@ -249,17 +243,9 @@ struct TcSmem {
   static int alloc(int cpad) { return pro + 2 * cpad * 4 + 1024; }
 };
 
-// The input coordinate offset of tap offset o = d - pad in {-1, 0, 1}
-// and its parity map: at stride 2, o = 2 * off + parity.
-__device__ __forceinline__ void tap_offset(int o, int stride, int* off,
-                                           int* par) {
-  *par = stride == 1 ? 0 : (o & 1);
-  *off = stride == 1 ? o : (o >> 1);
-}
-
 template <int BN>
 __global__ void __launch_bounds__(128 + 32)
-conv_fwd_tc_kernel(const __grid_constant__ XMaps xm,
+conv_fwd_tc_kernel(const __grid_constant__ Maps4 xm,
                    const __grid_constant__ CUtensorMap tw,
                    const float* __restrict__ scale,
                    const float* __restrict__ bias,
@@ -278,9 +264,9 @@ conv_fwd_tc_kernel(const __grid_constant__ XMaps xm,
 
   // the tile's first output pixel; the box runs over (w, h, n)
   const int tile = blockIdx.x;
-  const int ow0 = (tile % s.tiles_w) * s.bw;
-  const int oh0 = (tile / s.tiles_w % s.tiles_h) * s.bh;
-  const int n0 = tile / (s.tiles_w * s.tiles_h) * s.bn;
+  const int ow0 = (tile % s.g.tiles_w) * s.g.bw;
+  const int oh0 = (tile / s.g.tiles_w % s.g.tiles_h) * s.g.bh;
+  const int n0 = tile / (s.g.tiles_w * s.g.tiles_h) * s.g.bn;
   const int co0 = blockIdx.y * BN;
   const int n_it = s.k * s.k * s.cslices;
   const int tid = threadIdx.x;
@@ -326,9 +312,9 @@ conv_fwd_tc_kernel(const __grid_constant__ XMaps xm,
   for (int h = 0; h < 2; ++h) {
     const int r = 16 * warp + lane / 4 + 8 * h;
     row_[h] = r;
-    const int ow = ow0 + r % s.bw;
-    const int oh = oh0 + r / s.bw % s.bh;
-    rn[h] = n0 + r / (s.bw * s.bh);
+    const int ow = ow0 + r % s.g.bw;
+    const int oh = oh0 + r / s.g.bw % s.g.bh;
+    rn[h] = n0 + r / (s.g.bw * s.g.bh);
     roh[h] = oh * s.wo + ow;
     live[h] = rn[h] < s.n && oh < s.ho && ow < s.wo;
     ih0[h] = oh * s.stride - s.pad;
@@ -460,25 +446,6 @@ conv_fwd_tc_kernel(const __grid_constant__ XMaps xm,
   }
 }
 
-// The pixel box (bw, bh, bn), powers of two with bw * bh * bn = 64, whose
-// tiles cover the (n, ho, wo) output with the fewest padded pixels; ties go
-// to the widest box, then the tallest.
-void pick_box(int n, int ho, int wo, int* bw, int* bh, int* bn) {
-  long long best = -1;
-  for (int lw = 6; lw >= 0; --lw)
-    for (int lh = 6 - lw; lh >= 0; --lh) {
-      const int a = 1 << lw, b = 1 << lh, c = 64 >> (lw + lh);
-      const long long padded = (long long)((wo + a - 1) / a) * a *
-                               ((ho + b - 1) / b) * b * ((n + c - 1) / c) * c;
-      if (best < 0 || padded < best) {
-        best = padded;
-        *bw = a;
-        *bh = b;
-        *bn = c;
-      }
-    }
-}
-
 // The tensor-core geometry of a conv; false if the tile grid overflows.
 bool tc_shape(int n, int h, int wd, int ci, int co, int k, int stride,
               TcShape* t) {
@@ -492,14 +459,9 @@ bool tc_shape(int n, int h, int wd, int ci, int co, int k, int stride,
   t->pad = k / 2;
   t->ho = h / stride;
   t->wo = wd / stride;
-  pick_box(n, t->ho, t->wo, &t->bw, &t->bh, &t->bn);
-  t->tiles_w = (t->wo + t->bw - 1) / t->bw;
-  t->tiles_h = (t->ho + t->bh - 1) / t->bh;
-  const long long tiles = (long long)t->tiles_w * t->tiles_h *
-                          ((n + t->bn - 1) / t->bn);
-  t->tiles = (int)tiles;
+  if (!box_grid(n, t->ho, t->wo, &t->g)) return false;
   t->cslices = (ci + 63) / 64;
-  return tiles <= 2147483647ll && (co + 63) / 64 <= 65535;
+  return (co + 63) / 64 <= 65535;
 }
 
 template <int BN>
@@ -507,20 +469,11 @@ cudaError_t launch_tc(const void* x, const void* w, const void* scale,
                       const void* bias, void* y, void* partial, void* stats,
                       const TcShape& t, int prologue, int relu,
                       cudaStream_t stream) {
-  XMaps xm;
-  const long long c = t.ci, s = t.stride;
-  for (int par = 0; par < (s == 2 ? 4 : 1); ++par) {
-    const int py = par / 2, px = par % 2;
-    const void* base = static_cast<const __nv_bfloat16*>(x) +
-                       (py * (long long)t.w + px) * c;
-    const long long dims[4] = {c, t.w / s, t.h / s, t.n};
-    const long long strides[3] = {s * c * 2, s * t.w * c * 2,
-                                  (long long)t.h * t.w * c * 2};
-    const int box[3] = {t.bw, t.bh, t.bn};
-    if (!hopper::box_map_4d(&xm.m[par], base, dims, strides, box))
-      return cudaErrorInvalidValue;
-  }
-  for (int par = (s == 2 ? 4 : 1); par < 4; ++par) xm.m[par] = xm.m[0];
+  // x through one 4-D map per (row, column) parity of the input (one map
+  // copied four times at stride 1): map 2 * ph + pw
+  Maps4 xm;
+  if (!strided_maps(&xm, x, t.n, t.h, t.w, t.ci, t.stride, t.g))
+    return cudaErrorInvalidValue;
   CUtensorMap tw;
   if (!hopper::panel_map(&tw, w, t.k * t.k, t.ci, t.co))
     return cudaErrorInvalidValue;
@@ -529,15 +482,15 @@ cudaError_t launch_tc(const void* x, const void* w, const void* scale,
       conv_fwd_tc_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(t.tiles, (t.co + BN - 1) / BN);
+  const dim3 grid(t.g.tiles, (t.co + BN - 1) / BN);
   conv_fwd_tc_kernel<BN><<<grid, 128 + 32, smem, stream>>>(
       xm, tw, static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y),
       static_cast<float*>(stats ? partial : nullptr), t, prologue, relu);
   err = cudaGetLastError();
   if (err != cudaSuccess || stats == nullptr) return err;
-  return sum_rows(static_cast<const float*>(partial),
-                  static_cast<float*>(stats), t.tiles, 2 * t.co, stream);
+  return sum_rows(static_cast<float*>(partial),
+                  static_cast<float*>(stats), t.g.tiles, 2 * t.co, stream);
 }
 
 // The number of pixel tiles (rows of the stats scratch) of a launch; -1
@@ -546,7 +499,7 @@ long long pixel_tiles(int n, int h, int wd, int ci, int co, int k,
                       int stride, int tensor_cores) {
   if (tensor_cores) {
     TcShape t;
-    return tc_shape(n, h, wd, ci, co, k, stride, &t) ? t.tiles : -1;
+    return tc_shape(n, h, wd, ci, co, k, stride, &t) ? t.g.tiles : -1;
   }
   const long long m = (long long)n * (h / stride) * (wd / stride);
   return (m + kTileM - 1) / kTileM;

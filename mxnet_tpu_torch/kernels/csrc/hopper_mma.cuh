@@ -198,6 +198,19 @@ __device__ __forceinline__ void tma_load_box_4d(void* dst,
       : "memory");
 }
 
+// Asks TMA to bring one box of the 4-D `map` at (c0, c1, c2, c3) into L2,
+// so that later ordinary loads of it find it there; nothing waits on it.
+__device__ __forceinline__ void tma_prefetch_box_4d(const CUtensorMap* map,
+                                                    int c0, int c1, int c2,
+                                                    int c3) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.4d.L2.global.tile [%0, {%1, %2, %3, "
+      "%4}];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
+      : "memory");
+}
+
 // Synchronises the `threads` threads (a multiple of 32) that reach named
 // barrier `id` (1..15; 0 is __syncthreads'), e.g. the consumer warpgroups
 // once the producer warp has left.
@@ -241,7 +254,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
 }
 
 // d (+)= A . B^T over 16 of the reduced dimension: A (64 x 16) and B
-// (64 x 16) both K-major in shared memory. accumulate = 0 overwrites d.
+// (64 x 16) both K-major in shared memory by default; kTransA / kTransB =
+// 1 reads A / B MN-major instead (the 64 rows of M or N along the 128-byte
+// row, k-step kk 2048 * kk bytes in). accumulate = 0 overwrites d.
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
                                          uint64_t b, int accumulate) {
   asm volatile(
@@ -251,7 +267,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "%29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -260,7 +276,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 // d += A . B over 16 of the reduced dimension: A (64 x 16 bf16) from
@@ -285,6 +301,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Makes this thread's ordinary writes to shared memory visible to the async
+// proxy (wgmma, TMA); a barrier of the writers then publishes them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

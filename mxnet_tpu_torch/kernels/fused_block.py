@@ -30,7 +30,10 @@ the input BatchNorm's relu mask and its (dbeta, dgamma) sums as the
 epilogue, and the downsample shortcut's gradient as an optional ``extra``
 term (``csrc/fused_conv_dgrad.cu``). They dispatch as :func:`conv_fwd`
 does (a CUDA tensor launches and counts, a CPU tensor runs the plain
-version, a ``meta`` tensor only allocates). :func:`bottleneck_train` is
+version, a ``meta`` tensor only allocates), and route by shape the same
+way: bfloat16 whose channel counts are multiples of 8 runs on the tensor
+cores, other bfloat16 shapes on the CUDA cores, counted also in
+``conv_wgrad.core_route_launches`` and ``conv_dgrad.core_route_launches``. :func:`bottleneck_train` is
 one ``torch.autograd.Function`` over them. The JAX ``shard_map``
 wrappers (``bottleneck_train_spmd``, ``bottleneck_infer_spmd``) are not
 ported.
@@ -149,19 +152,30 @@ def _tensor_cores(x, w):
         and w.shape[3] % 8 == 0
 
 
+def _kind(dtype, tensor_cores):
+    """The C entry points' kernel kind: float32, bfloat16 on the CUDA
+    cores, bfloat16 on the tensor cores."""
+    return 2 if tensor_cores else _DTYPES[dtype]
+
+
+def _need_aligned(fn, tensors):
+    """The tensor-core kernels load their bf16 operands with TMA, which
+    needs 16-byte aligned bases: raise on any other."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise MXNetError("%s: bfloat16 operands must start on a 16-byte "
+                         "boundary (the tensor-core kernel loads them with "
+                         "TMA)" % fn)
+
+
 def _launch(x, w, prologue, y, stats, stride, tensor_cores):
     from ._build import load
 
     n, h, wd, ci = x.shape
     k, co = int(w.shape[0]), int(w.shape[3])
     dev = x.device
-    # the C entry point's kernel kind: float32, bfloat16 on the CUDA cores,
-    # bfloat16 on the tensor cores
-    kind = 2 if tensor_cores else _DTYPES[x.dtype]
-    if tensor_cores and (x.data_ptr() % 16 or w.data_ptr() % 16):
-        raise MXNetError("conv_fwd: bfloat16 x and w must start on a 16-byte "
-                         "boundary (the tensor-core kernel loads them with "
-                         "TMA)")
+    kind = _kind(x.dtype, tensor_cores)
+    if tensor_cores:
+        _need_aligned("conv_fwd", (x, w))
     lib = load("fused_conv_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _bind(lib, "fused_conv_fwd", [p] * 6 + [i, p] + [i] * 10 + [p])
@@ -341,16 +355,33 @@ def _f32_rows(vectors):
     return torch.stack([v.to(torch.float32) for v in vectors]).contiguous()
 
 
-def _launch_wgrad(x, g_parts, dw, stride, x_prologue, g_bnbwd):
+def _wgrad_tensor_cores(x, w_shape):
+    """Whether B2 runs on the tensor cores: bfloat16 whose rows TMA can
+    load (Ci and Co multiples of 8)."""
+    return x.dtype == torch.bfloat16 and x.shape[3] % 8 == 0 \
+        and w_shape[3] % 8 == 0
+
+
+def _launch_wgrad(x, g_parts, dw, stride, x_prologue, g_bnbwd,
+                  tensor_cores):
     from ._build import load
 
     n, h, wd, ci = x.shape
     k, co = int(dw.shape[0]), int(dw.shape[3])
+    kind = _kind(x.dtype, tensor_cores)
+    g = e = y = consts = None
+    if g_bnbwd is None:
+        g = g_parts.contiguous()
+    else:
+        e, y = (t.contiguous() for t in g_parts)
+        consts = _f32_rows(g_bnbwd)
+    if tensor_cores:
+        _need_aligned("conv_wgrad", (x, g, e, y))
     lib = load("fused_conv_wgrad")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _bind(lib, "fused_conv_wgrad", [p] * 9 + [i] * 11 + [p])
-    chunks = _bind(lib, "fused_conv_wgrad_chunks", [i] * 7)(
-        n, h, wd, ci, co, k, stride)
+    chunks = _bind(lib, "fused_conv_wgrad_chunks", [i] * 8)(
+        n, h, wd, ci, co, k, stride, kind)
     if chunks < 1:
         raise MXNetError("fused_conv_wgrad takes no shapes x %s, dw %s"
                          % (tuple(x.shape), tuple(dw.shape)))
@@ -358,18 +389,12 @@ def _launch_wgrad(x, g_parts, dw, stride, x_prologue, g_bnbwd):
     if chunks > 1:
         partial = torch.empty((chunks,) + tuple(dw.shape),
                               dtype=torch.float32, device=x.device)
-    g = e = y = consts = None
-    if g_bnbwd is None:
-        g = g_parts.contiguous()
-    else:
-        e, y = (t.contiguous() for t in g_parts)
-        consts = _f32_rows(g_bnbwd)
     scale, bias, pro, relu = _prologue_args(x_prologue)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_ptr(x), _ptr(g), _ptr(e), _ptr(y), _ptr(scale), _ptr(bias),
                  _ptr(consts), _ptr(dw), _ptr(partial), chunks, n, h, wd, ci,
-                 co, k, stride, pro, relu, _DTYPES[x.dtype], stream)
+                 co, k, stride, pro, relu, kind, stream)
     if err != 0:
         raise MXNetError("fused_conv_wgrad launch failed: CUDA error %d" % err)
 
@@ -385,8 +410,11 @@ def conv_wgrad(x, g_parts, w_shape, *, stride=1, x_prologue=None,
     bias, relu)``, the forward's BN-apply, recomputed on the read. Both
     sides are rounded to x's dtype before the product. Returns dw (k, k,
     Ci, Co) f32. On a CUDA tensor this launches the kernel and adds one to
-    ``conv_wgrad.launches``; on a CPU tensor it runs
-    :func:`conv_wgrad_reference`; on a ``meta`` tensor it only allocates."""
+    ``conv_wgrad.launches``: bfloat16 on the tensor cores, float32 on the
+    CUDA cores, and a bfloat16 Ci or Co that is not a multiple of 8 on the
+    CUDA cores too, counted also in ``conv_wgrad.core_route_launches``. On
+    a CPU tensor it runs :func:`conv_wgrad_reference`; on a ``meta`` tensor
+    it only allocates."""
     stride = int(stride)
     g_shape = _check_geometry("conv_wgrad", tuple(x.shape), tuple(w_shape),
                               stride)
@@ -404,23 +432,34 @@ def conv_wgrad(x, g_parts, w_shape, *, stride=1, x_prologue=None,
         return dw
     if x.device.type != "cuda":
         raise MXNetError("conv_wgrad: unsupported device %s" % x.device)
-    _launch_wgrad(x.contiguous(), g_parts, dw, stride, x_prologue, g_bnbwd)
+    tensor_cores = _wgrad_tensor_cores(x, w_shape)
+    _launch_wgrad(x.contiguous(), g_parts, dw, stride, x_prologue, g_bnbwd,
+                  tensor_cores)
     conv_wgrad.launches += 1
+    if x.dtype == torch.bfloat16 and not tensor_cores:
+        conv_wgrad.core_route_launches += 1
     return dw
 
 
 conv_wgrad.launches = 0
+conv_wgrad.core_route_launches = 0
 
 
-def _launch_dgrad(g_parts, w, out, stats, stride, g_bnbwd, out_mask, extra):
+def _dgrad_tensor_cores(w, extra):
+    """Whether B3 runs on the tensor cores: bfloat16 whose rows TMA can
+    load (Ci, Co and the extra term's Co2 multiples of 8)."""
+    return w.dtype == torch.bfloat16 and w.shape[2] % 8 == 0 \
+        and w.shape[3] % 8 == 0 \
+        and (extra is None or extra[1].shape[3] % 8 == 0)
+
+
+def _launch_dgrad(g_parts, w, out, stats, stride, g_bnbwd, out_mask, extra,
+                  tensor_cores):
     from ._build import load
 
     n, h, wd, ci = out.shape
     k, co = int(w.shape[0]), int(w.shape[3])
-    lib = load("fused_conv_dgrad")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _bind(lib, "fused_conv_dgrad",
-               [p] * 7 + [i] * 2 + [p] * 4 + [i, p] + [i] * 8 + [p])
+    kind = _kind(w.dtype, tensor_cores)
     g = e = y = gconsts = g2 = w2 = yin = mconsts = partial = None
     co2 = s2 = 0
     if g_bnbwd is None:
@@ -431,12 +470,19 @@ def _launch_dgrad(g_parts, w, out, stats, stride, g_bnbwd, out_mask, extra):
     if extra is not None:
         g2, w2 = (t.contiguous() for t in extra[:2])
         co2, s2 = int(w2.shape[3]), int(extra[2])
-    tiles = 0
     if out_mask is not None:
         yin = out_mask[0].contiguous()
         mconsts = _f32_rows(out_mask[1:])
-        tiles = _bind(lib, "fused_conv_dgrad_tiles", [i] * 5)(n, h, wd,
-                                                                stride, s2)
+    if tensor_cores:
+        _need_aligned("conv_dgrad", (g, e, y, w, g2, w2, yin, out))
+    lib = load("fused_conv_dgrad")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _bind(lib, "fused_conv_dgrad",
+               [p] * 7 + [i] * 2 + [p] * 4 + [i, p] + [i] * 8 + [p])
+    tiles = 0
+    if out_mask is not None:
+        tiles = _bind(lib, "fused_conv_dgrad_tiles", [i] * 6)(
+            n, h, wd, stride, s2, kind)
         partial = torch.empty((tiles, 2, ci), dtype=torch.float32,
                               device=w.device)
     with torch.cuda.device(w.device):
@@ -444,7 +490,7 @@ def _launch_dgrad(g_parts, w, out, stats, stride, g_bnbwd, out_mask, extra):
         err = fn(_ptr(g), _ptr(e), _ptr(y), _ptr(gconsts), _ptr(w), _ptr(g2),
                  _ptr(w2), co2, s2, _ptr(yin), _ptr(mconsts), _ptr(out),
                  _ptr(partial), tiles, _ptr(stats), n, h, wd, ci, co, k,
-                 stride, _DTYPES[w.dtype], stream)
+                 stride, kind, stream)
     if err != 0:
         raise MXNetError("fused_conv_dgrad launch failed: CUDA error %d" % err)
 
@@ -462,9 +508,12 @@ def conv_dgrad(g_parts, w, x_shape, *, stride=1, g_bnbwd=None, out_mask=None,
     xhat] over the unrounded e_out. extra: optional ``(g2, w2, stride2)``,
     a 1x1 conv's complete gradient added before the mask (the downsample
     shortcut's join at act1). Outputs are in w's dtype. On a CUDA tensor
-    this launches the kernel and adds one to ``conv_dgrad.launches``; on a
-    CPU tensor it runs :func:`conv_dgrad_reference`; on a ``meta`` tensor
-    it only allocates."""
+    this launches the kernel and adds one to ``conv_dgrad.launches``:
+    bfloat16 on the tensor cores, float32 on the CUDA cores, and a bfloat16
+    Ci, Co or Co2 that is not a multiple of 8 on the CUDA cores too, counted
+    also in ``conv_dgrad.core_route_launches``. On a CPU tensor it runs
+    :func:`conv_dgrad_reference`; on a ``meta`` tensor it only
+    allocates."""
     stride = int(stride)
     x_shape = tuple(int(v) for v in x_shape)
     g_shape = _check_geometry("conv_dgrad", x_shape, tuple(w.shape), stride)
@@ -498,13 +547,17 @@ def conv_dgrad(g_parts, w, x_shape, *, stride=1, g_bnbwd=None, out_mask=None,
         return out, stats
     if dev.type != "cuda":
         raise MXNetError("conv_dgrad: unsupported device %s" % dev)
+    tensor_cores = _dgrad_tensor_cores(w, extra)
     _launch_dgrad(g_parts, w.contiguous(), out, stats, stride, g_bnbwd,
-                  out_mask, extra)
+                  out_mask, extra, tensor_cores)
     conv_dgrad.launches += 1
+    if dtype == torch.bfloat16 and not tensor_cores:
+        conv_dgrad.core_route_launches += 1
     return out, stats
 
 
 conv_dgrad.launches = 0
+conv_dgrad.core_route_launches = 0
 
 
 def _finalize_stats(stats, count, eps):

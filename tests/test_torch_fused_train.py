@@ -105,8 +105,8 @@ def _conv_case(seed, n, h, ci, co, k, stride):
     return x, w, (scale, bias), e, y, [c.astype(np.float32) for c in consts]
 
 
-def _wgrad_both(k, stride, pro, bnbwd, seed=0, h=8):
-    x, w, (scale, bias), e, y, consts = _conv_case(seed, 2, h, 8, 16, k,
+def _wgrad_both(k, stride, pro, bnbwd, seed=0, h=8, n=2, ci=8, co=16):
+    x, w, (scale, bias), e, y, consts = _conv_case(seed, n, h, ci, co, k,
                                                    stride)
     jkw = dict(stride=stride, interpret=True)
     tkw = dict(stride=stride)
@@ -125,17 +125,40 @@ def _wgrad_both(k, stride, pro, bnbwd, seed=0, h=8):
     _close(got.numpy(), np.asarray(want))
 
 
+def _k_stride_cases(ragged):
+    """(k, stride, shape) cases: the four (k, stride) pairs at the default
+    shape, then the tensor-core kernels' ragged card-test shapes (n, h, ci,
+    co): 7x7 at batch 1 and 2, Ci and Co of 8 and 72."""
+    return [pytest.param(k, s, None, id="%d-%d" % (k, s))
+            for k, s in ((1, 1), (1, 2), (3, 1), (3, 2))] + [
+        pytest.param(k, s, shape, id="%d-%d-%s" % (
+            k, s, "x".join(map(str, shape)))) for k, s, shape in ragged]
+
+
+RAGGED_WGRAD = [(3, 1, (1, 7, 72, 8)), (1, 1, (2, 7, 8, 72)),
+                (3, 2, (1, 14, 72, 72))]
+RAGGED_DGRAD = RAGGED_WGRAD + [(1, 2, (2, 14, 8, 8))]
+
+
+def _shape_kw(shape):
+    if shape is None:
+        return {}
+    n, h, ci, co = shape
+    return dict(n=n, h=h, ci=ci, co=co)
+
+
 @pytest.mark.parametrize("bnbwd", [False, True], ids=["g", "bnbwd"])
 @pytest.mark.parametrize("pro", [None, True, False],
                          ids=["plain", "bn-relu", "bn"])
-@pytest.mark.parametrize("k,stride", [(1, 1), (1, 2), (3, 1), (3, 2)])
-def test_conv_wgrad_matches_pallas(k, stride, pro, bnbwd):
-    _wgrad_both(k, stride, pro, bnbwd, seed=k * 10 + stride)
+@pytest.mark.parametrize("k,stride,shape", _k_stride_cases(RAGGED_WGRAD))
+def test_conv_wgrad_matches_pallas(k, stride, shape, pro, bnbwd):
+    _wgrad_both(k, stride, pro, bnbwd, seed=k * 10 + stride,
+                **_shape_kw(shape))
 
 
-def _dgrad_both(k, stride, bnbwd, mask, s2=None, seed=0, h=8):
-    ci, co = 8, 16
-    x, w, _pro, e, y, consts = _conv_case(seed, 2, h, ci, co, k, stride)
+def _dgrad_both(k, stride, bnbwd, mask, s2=None, seed=0, h=8, n=2, ci=8,
+                co=16, co2=24):
+    x, w, _pro, e, y, consts = _conv_case(seed, n, h, ci, co, k, stride)
     rng = np.random.RandomState(seed + 100)
     jkw = dict(stride=stride, interpret=True)
     tkw = dict(stride=stride)
@@ -152,8 +175,7 @@ def _dgrad_both(k, stride, bnbwd, mask, s2=None, seed=0, h=8):
         jkw["out_mask"] = (_j(x),) + tuple(_j(v) for v in vecs)
         tkw["out_mask"] = (_t(x),) + tuple(_t(v) for v in vecs)
     if s2 is not None:
-        co2 = 24
-        g2 = rng.randn(2, h // s2, h // s2, co2).astype(np.float32)
+        g2 = rng.randn(n, h // s2, h // s2, co2).astype(np.float32)
         w2 = (rng.randn(1, 1, ci, co2) / np.sqrt(ci)).astype(np.float32)
         jkw["extra"] = (_j(g2), _j(w2), s2)
         tkw["extra"] = (_t(g2), _t(w2), s2)
@@ -174,17 +196,26 @@ def _dgrad_both(k, stride, bnbwd, mask, s2=None, seed=0, h=8):
 
 @pytest.mark.parametrize("mask", [False, True], ids=["dx", "mask"])
 @pytest.mark.parametrize("bnbwd", [False, True], ids=["g", "bnbwd"])
-@pytest.mark.parametrize("k,stride", [(1, 1), (1, 2), (3, 1), (3, 2)])
-def test_conv_dgrad_matches_pallas(k, stride, bnbwd, mask):
-    _dgrad_both(k, stride, bnbwd, mask, seed=k * 10 + stride)
+@pytest.mark.parametrize("k,stride,shape", _k_stride_cases(RAGGED_DGRAD))
+def test_conv_dgrad_matches_pallas(k, stride, shape, bnbwd, mask):
+    _dgrad_both(k, stride, bnbwd, mask, seed=k * 10 + stride,
+                **_shape_kw(shape))
 
 
-@pytest.mark.parametrize("s2", [1, 2])
+@pytest.mark.parametrize("s2,shape", [
+    pytest.param(1, None, id="1"), pytest.param(2, None, id="2"),
+    # the card tests' ragged extra terms: Ci 72 over a Co2 of 24, and a
+    # Co2 of 136 (a partial 64-channel slice) at s2 = 2
+    pytest.param(1, (2, 7, 72, 8, 24), id="1-2x7x72x8x24"),
+    pytest.param(2, (1, 14, 8, 72, 136), id="2-1x14x8x72x136")])
 @pytest.mark.parametrize("bnbwd", [False, True], ids=["g", "bnbwd"])
-def test_conv_dgrad_extra_term_matches_pallas(bnbwd, s2):
+def test_conv_dgrad_extra_term_matches_pallas(bnbwd, s2, shape):
     """conv1's dgrad with the shortcut's gradient joining before the mask:
     only the pixels on the shortcut's stride-s2 grid take it."""
-    _dgrad_both(1, 1, bnbwd, True, s2=s2, seed=40 + s2)
+    kw = {}
+    if shape is not None:
+        kw = dict(zip(("n", "h", "ci", "co", "co2"), shape))
+    _dgrad_both(1, 1, bnbwd, True, s2=s2, seed=40 + s2, **kw)
 
 
 @pytest.mark.parametrize("case", [
@@ -226,6 +257,54 @@ def test_cpu_calls_count_no_launches():
     out.sum().backward()
     assert (tfb.conv_fwd.launches, tfb.conv_wgrad.launches,
             tfb.conv_dgrad.launches) == before
+
+
+@pytest.mark.parametrize("dtype,ci,co,co2,want", [
+    ("bfloat16", 64, 64, None, (True, True)),
+    ("bfloat16", 8, 72, 136, (True, True)),
+    ("bfloat16", 64, 12, None, (False, False)),
+    ("bfloat16", 20, 64, None, (False, False)),
+    ("bfloat16", 64, 64, 12, (True, False)),
+    ("float32", 64, 64, 24, (False, False))],
+    ids=["bf16", "bf16-8-72-136", "bf16-co12", "bf16-ci20",
+         "bf16-co2-12", "fp32"])
+def test_conv_grads_route_by_shape(dtype, ci, co, co2, want):
+    """B2 and B3 run on the tensor cores for bfloat16 whose channel counts
+    (Ci, Co and the extra term's Co2) are multiples of 8, on the CUDA cores
+    otherwise: decided from shapes and dtype alone (meta tensors)."""
+    dt = getattr(torch, dtype)
+    x = torch.empty(2, 8, 8, ci, dtype=dt, device="meta")
+    w = torch.empty(3, 3, ci, co, dtype=dt, device="meta")
+    extra = None
+    if co2 is not None:
+        extra = (torch.empty(2, 8, 8, co2, dtype=dt, device="meta"),
+                 torch.empty(1, 1, ci, co2, dtype=dt, device="meta"), 1)
+    assert (tfb._wgrad_tensor_cores(x, tuple(w.shape)),
+            tfb._dgrad_tensor_cores(w, extra)) == want
+
+
+def _grad_counts():
+    return (tfb.conv_wgrad.launches, tfb.conv_wgrad.core_route_launches,
+            tfb.conv_dgrad.launches, tfb.conv_dgrad.core_route_launches)
+
+
+@pytest.mark.parametrize("co", [12, 16])
+def test_cpu_calls_count_no_kernel_routes(co):
+    """A CPU tensor runs the plain version: bf16 B2 and B3 calls add to
+    neither the launch counts nor the CUDA-core route counts, whichever
+    route their shape would take on the card."""
+    x, w, (scale, bias), e, y, consts = _conv_case(2, 2, 8, 16, co, 3, 1)
+    bf = torch.bfloat16
+    xt, wt, et, yt = (_t(a).to(bf) for a in (x, w, e, y))
+    pro = (_t(scale), _t(bias), True)
+    cst = tuple(_t(c) for c in consts)
+    vec = [_t(v) for v in (scale, bias, bias * 0.3, scale)]
+    before = _grad_counts()
+    dw = tfb.conv_wgrad(xt, (et, yt), w.shape, x_prologue=pro, g_bnbwd=cst)
+    ex, st = tfb.conv_dgrad((et, yt), wt, x.shape, g_bnbwd=cst,
+                            out_mask=(xt, *vec))
+    assert dw.dtype == torch.float32 and ex.dtype == bf and st.shape == (2, 16)
+    assert _grad_counts() == before
 
 
 def test_meta_tensors_give_shapes_without_compute():

@@ -563,3 +563,175 @@ def test_conv_fwd_tensor_cores_refuse_unaligned_tensors():
         with pytest.raises(MXNetError, match="16-byte"):
             fb.conv_fwd(*args, prologue=pro)
     assert fb.conv_fwd.launches == before
+
+
+# (n, h, ci, co, k, stride): the tensor-core B2 and B3 at their edges.
+# 7x7 at batch 1 and 2 gives ragged boxes; Ci and Co of 8 and 72 a partial
+# K slice and a partial N tile; 64 and 128 take B3's two Ci tile widths;
+# the 28x28 and 56x56 shapes put several boxes in a B2 chunk and split
+# the pixels into several chunks.
+TC_GRAD_SHAPES = [(1, 7, 64, 64, 3, 1), (2, 7, 72, 8, 3, 1),
+                  (2, 7, 8, 72, 1, 1), (1, 14, 72, 72, 3, 2),
+                  (2, 14, 8, 8, 1, 2), (2, 8, 128, 64, 3, 1),
+                  (2, 14, 128, 256, 1, 2), (4, 28, 64, 64, 3, 1),
+                  (3, 56, 64, 256, 1, 1)]
+
+
+def _grad_counts():
+    return (fb.conv_wgrad.launches, fb.conv_wgrad.core_route_launches,
+            fb.conv_dgrad.launches, fb.conv_dgrad.core_route_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TC_GRAD_SHAPES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_conv_wgrad_tensor_cores_at_edges(shape):
+    """The bf16 tensor-core B2 against its plain version, g whole and
+    rebuilt, the prologue off, with and without its ReLU; none of these
+    goes to the CUDA cores."""
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    n, h, ci, co, k, stride = shape
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x, w, pro, e, y, consts = _grad_case(gen, n, h, ci, co, k, stride,
+                                         torch.bfloat16)
+    before = _grad_counts()
+    for g_parts, g_bnbwd in ((e, None), ((e, y), consts)):
+        for p in (None, pro, (pro[0], pro[1], False)):
+            kw = dict(stride=stride, x_prologue=p, g_bnbwd=g_bnbwd)
+            dw = fb.conv_wgrad(x, g_parts, w.shape, **kw)
+            ref = fb.conv_wgrad_reference(x, g_parts, w.shape, **kw)
+            torch.cuda.synchronize()
+            assert dw.dtype == torch.float32 and dw.shape == w.shape
+            assert bool(torch.isfinite(dw).all())
+            assert _wgrad_err(dw, ref, x, g_parts, w.shape, stride, p,
+                              g_bnbwd) <= 1e-4, (g_bnbwd is None, p)
+    after = _grad_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (6, 0)
+
+
+def _dgrad_check(g_parts, w, x, stride, g_bnbwd, out_mask, extra):
+    kw = dict(stride=stride, g_bnbwd=g_bnbwd, out_mask=out_mask, extra=extra)
+    got, st = fb.conv_dgrad(g_parts, w, x.shape, **kw)
+    ref, ref_st = fb.conv_dgrad_reference(g_parts, w, x.shape, **kw)
+    torch.cuda.synchronize()
+    dt = w.dtype
+    assert got.dtype == dt and got.shape == x.shape
+    assert _row_err(got, ref) <= ROW_TOL[dt]
+    if out_mask is None:
+        assert st is None
+        return
+    xhat = (x.float() - out_mask[3]) * out_mask[4]
+    ef = ref.float()
+    for t, bound in ((0, ef.abs().sum((0, 1, 2))),
+                     (1, (ef * xhat).abs().sum((0, 1, 2)))):
+        assert bool(((st[t] - ref_st[t]).abs()
+                     <= ROW_TOL[dt] * bound + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TC_GRAD_SHAPES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_conv_dgrad_tensor_cores_at_edges(shape):
+    """The bf16 tensor-core B3 against its plain version, g whole and
+    rebuilt, with and without the mask and its stats, and at the 1x1s the
+    shortcut's extra term at s2 = 1 and (even H) 2; none of these goes to
+    the CUDA cores."""
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    n, h, ci, co, k, stride = shape
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x, w, pro, e, y, consts = _grad_case(gen, n, h, ci, co, k, stride, dt)
+    mask = (x, pro[0] + 0.5, pro[1], pro[1] * 0.3, pro[0])
+    epilogues = [(None, None), (mask, None)]
+    if k == 1 and stride == 1:
+        for s2 in (1, 2) if h % 2 == 0 else (1,):
+            co2 = 24 if s2 == 1 else 136
+            epilogues.append((mask, (
+                torch.randn(n, h // s2, h // s2, co2, device="cuda",
+                            generator=gen).to(dt),
+                (torch.randn(1, 1, ci, co2, device="cuda", generator=gen)
+                 / ci ** 0.5).to(dt), s2)))
+    before = _grad_counts()
+    for g_parts, g_bnbwd in ((e, None), ((e, y), consts)):
+        for out_mask, extra in epilogues:
+            _dgrad_check(g_parts, w, x, stride, g_bnbwd, out_mask, extra)
+    after = _grad_counts()
+    assert (after[2] - before[2], after[3] - before[3]) == \
+        (2 * len(epilogues), 0)
+
+
+@pytest.mark.cuda
+def test_conv_grads_route_rows_tma_cannot_load_to_the_cuda_cores():
+    """A bf16 Co of 12 cannot be loaded by TMA: B2 and B3 send it, by
+    shape, to the CUDA-core kernels and count it there; fp32 is not a
+    route and is not counted."""
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for co, dt, routed in ((12, torch.bfloat16, 1), (16, torch.bfloat16, 0),
+                           (12, torch.float32, 0)):
+        x, w, pro, e, y, consts = _grad_case(gen, 2, 9, 16, co, 3, 1, dt)
+        before = _grad_counts()
+        dw = fb.conv_wgrad(x, (e, y), w.shape, x_prologue=pro,
+                           g_bnbwd=consts)
+        ref = fb.conv_wgrad_reference(x, (e, y), w.shape, x_prologue=pro,
+                                      g_bnbwd=consts)
+        assert _wgrad_err(dw, ref, x, (e, y), w.shape, 1, pro,
+                          consts) <= 1e-4
+        mask = (x, pro[0] + 0.5, pro[1], pro[1] * 0.3, pro[0])
+        _dgrad_check((e, y), w, x, 1, consts, mask, None)
+        after = _grad_counts()
+        assert tuple(a - b for a, b in zip(after, before)) == \
+            (1, routed, 1, routed)
+
+
+@pytest.mark.cuda
+def test_conv_grads_tensor_cores_refuse_unaligned_tensors():
+    """TMA needs 16-byte aligned operands: B2 and B3 raise on a contiguous
+    view 2 bytes off, and launch nothing."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x, w, pro, e, y, consts = _grad_case(gen, 2, 8, 64, 64, 3, 1,
+                                         torch.bfloat16)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        out = flat[1:].view_as(t)
+        out.copy_(t)
+        assert out.data_ptr() % 16 == 2
+        return out
+
+    before = _grad_counts()
+    with pytest.raises(MXNetError, match="16-byte"):
+        fb.conv_wgrad(shifted(x), e, w.shape, x_prologue=pro)
+    with pytest.raises(MXNetError, match="16-byte"):
+        fb.conv_wgrad(x, (e, shifted(y)), w.shape, g_bnbwd=consts)
+    with pytest.raises(MXNetError, match="16-byte"):
+        fb.conv_dgrad(e, shifted(w), x.shape)
+    with pytest.raises(MXNetError, match="16-byte"):
+        fb.conv_dgrad((shifted(e), y), w, x.shape, g_bnbwd=consts)
+    assert _grad_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_grads_are_deterministic(dtype):
+    """Two calls give bit-identical dw, e and stats: the pixel chunks and
+    tiles are added in order, with no atomics."""
+    _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x, w, pro, e, y, consts = _grad_case(gen, 8, 56, 64, 64, 3, 1, dt)
+    mask = (x, pro[0] + 0.5, pro[1], pro[1] * 0.3, pro[0])
+    runs = []
+    for _ in range(2):
+        dw = fb.conv_wgrad(x, (e, y), w.shape, x_prologue=pro,
+                           g_bnbwd=consts)
+        ex, st = fb.conv_dgrad((e, y), w, x.shape, g_bnbwd=consts,
+                               out_mask=mask)
+        runs.append((dw, ex, st))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
