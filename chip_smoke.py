@@ -82,6 +82,7 @@ device, or without the package beside it, it exits non-zero at once.
 """
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -1663,6 +1664,239 @@ def resnet_training_phase(torch, np, fb):
     return launches
 
 
+# Module.fit on the fused ResNet-50: the user's symbolic training path, fp32
+# parameters (Module's default), 2 epochs over 4 copies of one seeded batch
+FIT_BATCH, FIT_COPIES, FIT_EPOCHS = RESNET_TRAIN_BATCH, 4, 2
+FIT_OPT = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+# card vs CPU: the tiny fused net's gradients through Executor.forward_backward
+FIT_GRAD_TOL = 1e-4
+TRAINSTEP_FP32_STEPS = 5
+
+
+def _fit_card_vs_cpu(torch, np, fb, mx):
+    """The tiny fused fp32 ResNet through ``Executor.forward_backward`` on the
+    card and on the CPU; gradients against the CPU's, each tensor against
+    its own largest |gradient| floored at 1% of the largest of any."""
+    from mxnet_tpu_torch.models import resnet
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("module fit: TF32 must be off for an fp32 "
+                           "reference")
+    sym = resnet.resnet(fused=True, **TINY_RESNET)
+    shape = (TINY_BATCH, 3) + TINY_RESNET["image_shape"][1:]
+    args, auxs = resnet.init_params(sym, shape, seed=0)
+    rng = np.random.RandomState(4)
+    batch = {"data": rng.randn(*shape).astype(np.float32),
+             "softmax_label": rng.randint(0, TINY_RESNET["num_classes"],
+                                          (TINY_BATCH,)).astype(np.float32)}
+    got = {}
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        ex = sym.simple_bind(ctx, data=shape, softmax_label=(TINY_BATCH,))
+        for d, src in ((ex.arg_dict, args), (ex.aux_dict, auxs)):
+            for k, v in src.items():
+                d[k][:] = v
+        before = _fb_counts(fb)
+        ex.forward_backward(**batch)
+        got[where] = (
+            ex.outputs[0].asnumpy(),
+            {k: v.asnumpy() for k, v in ex.grad_dict.items()
+             if k not in batch},
+            tuple(a - b for a, b in zip(_fb_counts(fb), before)))
+    card, cpu = got["card"], got["cpu"]
+    floor = 1e-2 * max(float(np.abs(g).max()) for g in cpu[1].values())
+    errs = sorted((float(np.abs(card[1][k] - g).max())
+                   / max(float(np.abs(g).max()), floor), k)
+                  for k, g in cpu[1].items())
+    out_err = float(np.abs(card[0] - cpu[0]).max())
+    print("module fit tiny: Executor.forward_backward card vs cpu, %d "
+          "gradients, worst %s (tol %g), outputs %.3g; card launches B1 %d, "
+          "B2 %d, B3 %d" % (len(errs), ", ".join("%.3g at %s" % e
+                                                for e in errs[-3:]),
+                            FIT_GRAD_TOL, out_err, *card[2]))
+    if errs[-1][0] > FIT_GRAD_TOL or out_err > FIT_GRAD_TOL or \
+            card[2] != (11, 11, 9):
+        raise RuntimeError("module fit: the card's Executor gradients differ "
+                           "from the CPU's, or the tiny net missed its "
+                           "kernels")
+
+
+def module_fit_phase(torch, np, fb):
+    """``Module.fit`` on the full-width fused ResNet-50 at batch 64, fp32,
+    as a user runs it; returns the fit's launch counts (B1, B2, B3)."""
+    import logging
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import resnet
+
+    gc.collect()
+    _fit_card_vs_cpu(torch, np, fb, mx)
+    n, ctx = FIT_BATCH, mx.gpu(0)
+    rng = np.random.RandomState(0)
+    one = rng.randn(n, *RESNET["image_shape"]).astype(np.float32)
+    labels = rng.randint(0, RESNET["num_classes"], (n,)).astype(np.float32)
+    x = np.concatenate([one] * FIT_COPIES)
+    y = np.concatenate([labels] * FIT_COPIES)
+    tmp = tempfile.mkdtemp(prefix="module_fit_")
+    prefix = os.path.join(tmp, "r50")
+    try:
+        sym = resnet.get_symbol(fused=True, **RESNET)
+        mod = mx.mod.Module(sym, context=ctx)
+        it = mx.io.NDArrayIter(x, y, batch_size=n)
+        per_batch = []      # (seconds, cross-entropy, B1, B2, B3)
+        last = {"t": None, "counts": (0, 0, 0)}
+
+        def on_batch(param):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            probs = mod.get_outputs()[0].asnumpy()
+            lbl = param.locals["data_batch"].label[0].asnumpy().astype(int)
+            ce = float(-np.log(probs[np.arange(n), lbl] + 1e-12).mean())
+            counts = _fb_counts(fb)
+            per_batch.append((now - last["t"], ce) + tuple(
+                a - b for a, b in zip(counts, last["counts"])))
+            last["t"], last["counts"] = time.perf_counter(), counts
+
+        logging.getLogger().setLevel(logging.WARNING)
+        mx.random.seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_fb_counts(fb)
+        t0 = time.perf_counter()
+        last["t"] = t0
+        mod.fit(it, num_epoch=FIT_EPOCHS, optimizer="sgd",
+                optimizer_params=FIT_OPT, initializer=mx.init.Xavier(),
+                eval_metric=["acc", "ce"],
+                epoch_end_callback=mx.callback.do_checkpoint(prefix),
+                batch_end_callback=[on_batch, mx.callback.Speedometer(n, 1)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, core_routes = _fb_counts(fb), _core_routes(fb)
+        peak = torch.cuda.max_memory_allocated()
+        secs = [b[0] for b in per_batch]
+        losses = [b[1] for b in per_batch]
+        steady = sorted(secs[1:])
+        med = steady[len(steady) // 2]
+        print("module fit: %d parameter tensors, %d aux; %d batches of %d in "
+              "%.2f s (first batch, with its set-up, %.3f s); seconds a batch "
+              "after the first: median %.4f, range %.4f-%.4f; %.1f images/s "
+              "(median); peak memory %.2f GiB; launches B1 %d, B2 %d, B3 %d "
+              "(a batch: %s), on the CUDA cores %d/%d/%d"
+              % (len(mod._param_names), len(mod._aux_names), len(secs), n,
+                 wall, secs[0], med, steady[0], steady[-1], n / med,
+                 peak / 2 ** 30, *launches,
+                 " ".join("%d/%d/%d" % b[2:] for b in per_batch),
+                 *core_routes))
+        print("module fit: cross-entropy a batch %s"
+              % " ".join("%.5f" % v for v in losses))
+        arg_params, aux_params = mod.get_params()
+
+        # the checkpoint of the last epoch holds exactly get_params()
+        _sym, ck_args, ck_aux = mx.model.load_checkpoint(prefix, FIT_EPOCHS)
+        same = all(torch.equal(ck[k].tensor, mine[k].tensor)
+                   for ck, mine in ((ck_args, arg_params),
+                                    (ck_aux, aux_params)) for k in mine) \
+            and sorted(ck_args) == sorted(arg_params) \
+            and sorted(ck_aux) == sorted(aux_params)
+        moved = sum(int(bool(v.asnumpy().any())) for k, v in
+                    aux_params.items() if k.endswith("moving_mean"))
+        n_means = sum(k.endswith("moving_mean") for k in aux_params)
+        # the checkpoint bound for inference gives the trained module's
+        # outputs on the batch, bit for bit
+        batch = mx.io.DataBatch([mx.nd.array(one, ctx=mx.cpu())])
+        mod.forward(batch, is_train=False)
+        want = mod.get_outputs()[0].asnumpy()
+        inf = mx.mod.Module.load(prefix, FIT_EPOCHS, context=ctx)
+        inf.bind([("data", (n,) + RESNET["image_shape"])],
+                 for_training=False)
+        inf.forward(batch)
+        same_outputs = np.array_equal(inf.get_outputs()[0].asnumpy(), want)
+        del inf
+        print("module fit: checkpoint epoch %d equals get_params() bit for "
+              "bit: %s; Module.load bound for inference gives the trained "
+              "outputs bit for bit: %s; %d of %d moving means moved"
+              % (FIT_EPOCHS, same, same_outputs, moved, n_means))
+
+        # where a batch goes: a profiled batch, then the updater alone
+        data_batch = next(iter(it))
+        it.reset()
+
+        def one_batch():
+            mod.forward_backward(data_batch)
+            mod.update()
+
+        _device_profile(torch, one_batch, top=10)
+        _device_profile(torch, mod.update, top=3)
+        upd = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mod.update()
+            torch.cuda.synchronize()
+            upd.append(time.perf_counter() - t1)
+        upd.sort()
+        print("module fit: the updater (%d parameters, one update each) "
+              "takes %.4f s a batch (median of 5, synchronized), %.3f of "
+              "the median batch" % (len(mod._param_names), upd[2],
+                                    upd[2] / med))
+        del mod
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the same net, batch and optimizer through TrainStep in fp32, this call
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    gc.collect()
+    ts = TrainStep(sym, dict(name="sgd", **FIT_OPT), compute_dtype=None,
+                   device=CARD)
+    carry = ts.place(*ts.init_params(
+        {"data": (n,) + RESNET["image_shape"], "softmax_label": (n,)},
+        initializer=Xavier(), seed=0))
+    tbatch = {"data": torch.as_tensor(one).to(CARD),
+              "softmax_label": torch.as_tensor(labels).to(CARD)}
+    carry, _loss = ts(carry, tbatch)
+    step_s = []
+    for _ in range(TRAINSTEP_FP32_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        carry, _loss = ts(carry, tbatch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    step_s.sort()
+    ts_med = step_s[len(step_s) // 2]
+    print("module fit vs TrainStep(compute_dtype=None), fp32, batch %d, same "
+          "optimizer, this call: Module.fit %.1f images/s (median batch "
+          "%.4f s), TrainStep %.1f images/s (median step %.4f s, range "
+          "%.4f-%.4f)" % (n, n / med, med, n / ts_med, ts_med, step_s[0],
+                          step_s[-1]))
+    del ts, carry
+
+    per = [b[2:] for b in per_batch]
+    want_per = (B1_PER_FORWARD, B2_PER_STEP, B3_PER_STEP)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("module fit: a loss is not finite: %s" % losses)
+    if abs(losses[0] - math.log(RESNET["num_classes"])) > \
+            RESNET_FIRST_LOSS_TOL:
+        raise RuntimeError("module fit: first batch cross-entropy %.4f, "
+                           "expected ln %d +- %.2f" % (
+                               losses[0], RESNET["num_classes"],
+                               RESNET_FIRST_LOSS_TOL))
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("module fit: loss did not fall: %s" % losses)
+    if any(p != want_per for p in per) or any(core_routes):
+        raise RuntimeError("module fit: launches a batch %s, want %s; on the "
+                           "CUDA cores %s, want none"
+                           % (per, want_per, core_routes))
+    if moved != n_means or not same or not same_outputs:
+        raise RuntimeError("module fit: moving means moved %d of %d, "
+                           "checkpoint equal %s, loaded outputs equal %s"
+                           % (moved, n_means, same, same_outputs))
+    return launches
+
+
 def main():
     import torch
 
@@ -1717,11 +1951,16 @@ def main():
     for entry, n in zip(grads, resnet_launches[1:]):
         entry["launches"] = n
     conv["train_launches"] = resnet_launches[0]
+    fit_launches = phase("module_fit", module_fit_phase, torch, np, fb)
+    for entry, n in zip([conv, *grads], fit_launches):
+        entry["module_fit_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; image serving B1 %d; ResNet-50 "
-          "training %d steps B1 %d, B2 %d, B3 %d"
+          "training %d steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 "
+          "%d, B2 %d, B3 %d"
           % (TRAIN_STEPS, *launches, served, conv["launches"],
-             RESNET_TRAIN_STEPS, *resnet_launches))
+             RESNET_TRAIN_STEPS, *resnet_launches,
+             FIT_EPOCHS * FIT_COPIES, *fit_launches))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

@@ -17,9 +17,15 @@ _NAME_COUNTS = {}
 
 
 def auto_name(prefix: str) -> str:
-    """Per-prefix sequential names, ``convolution0``, ``convolution1``
-    (NameManager parity; the port has no name scopes)."""
+    """Per-prefix sequential names, ``convolution0``, ``convolution1``:
+    from the innermost active ``name.NameManager`` if there is one, else
+    from the package's global counter."""
+    from .name import current
+
     prefix = prefix.lower()
+    manager = current()
+    if manager is not None:
+        return manager.get(None, prefix)
     with _NAME_LOCK:
         idx = _NAME_COUNTS.get(prefix, 0)
         _NAME_COUNTS[prefix] = idx + 1

@@ -64,6 +64,13 @@ KNOBS = {
     "MXNET_IR_TRAIN_PASSES": (
         "", "pass pipeline rewriting the training graph; not ported, so "
         "TrainStep accepts only an empty list (parallel/spmd.py)"),
+    "MXNET_TPU_GUARD": (
+        "1", "arms the JAX package's HealthGuard in Module.fit when "
+        "MXNET_CHECKPOINT_DIR is set; not ported, so fit raises when both "
+        "are set (module/base_module.py)"),
+    "MXNET_TUNE_BACKGROUND": (
+        "0", "background kernel tuning in Module.fit; not ported, so fit "
+        "accepts only 0 (module/base_module.py)"),
     "MXNET_IR_FUSE": (
         "1", "kill switch for rule-based fusion in the model builders: "
         "resnet(fused=True) applies the IR fusion pass when 1, returns the "

@@ -1,52 +1,55 @@
 """Weight initializers (counterpart of ``mxnet_tpu/initializer.py``): the
-name-suffix dispatch of :class:`Initializer` and ``Zero``, ``One``,
-``Constant``, ``Uniform``, ``Normal`` and ``Xavier``, with ``create`` and
-``register``.
+name-suffix dispatch of :class:`Initializer` (with an ``__init__``
+attribute of the parameter overriding it) and ``Zero``, ``One``,
+``Constant``, ``Uniform``, ``Normal``, ``Xavier``, ``MSRAPrelu``,
+``Orthogonal`` and ``Bilinear``, the ``Mixed`` and ``Load`` dispatchers,
+``create`` and ``register``.
 
-An initializer fills a tensor in place from numpy draws made in float64 and
-rounded to float32, as the JAX package's do, and draws from this module's
-own ``numpy.random.RandomState`` (the counterpart of the JAX package's
-``random.initializer_rng()``). :func:`seeded` reseeds it for a block, so
-one seed gives bit-identical parameters in both packages. Not ported yet:
-``MSRAPrelu``, ``Orthogonal``, ``Bilinear``, ``LSTMBias``, ``FusedRNN``,
-``Mixed`` and ``Load``.
+An initializer fills a tensor or an ``NDArray`` in place from numpy draws
+made in float64 and rounded to float32, as the JAX package's do, drawn
+from ``random.initializer_rng()``, which ``mx.random.seed`` reseeds as the
+JAX package's does. :func:`seeded` reseeds it for a block. So one seed
+gives bit-identical parameters in both packages. Not ported yet:
+``LSTMBias`` and ``FusedRNN`` (the RNN ops are not ported).
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import re
 
 import numpy as np
 import torch
 
 from .base import MXNetError
 
-_INIT_RNG = None
-
-
 def _rng():
-    """The RandomState behind the initializers; unseeded runs draw fresh
-    entropy."""
-    global _INIT_RNG
-    if _INIT_RNG is None:
-        _INIT_RNG = np.random.RandomState()
-    return _INIT_RNG
+    """The initializers' ``RandomState``: ``random.initializer_rng()``,
+    which ``mx.random.seed`` reseeds."""
+    from .random import initializer_rng
+
+    return initializer_rng()
 
 
 @contextlib.contextmanager
 def seeded(seed):
     """Draw from ``RandomState(seed & 0x7FFFFFFF)`` inside the block, then
-    restore the previous state (``TrainStep.init_params``)."""
-    global _INIT_RNG
-    prev = _INIT_RNG
-    _INIT_RNG = np.random.RandomState(int(seed) & 0x7FFFFFFF)
+    restore the previous stream (``TrainStep.init_params``)."""
+    from .random import set_initializer_rng
+
+    prev = set_initializer_rng(np.random.RandomState(int(seed) & 0x7FFFFFFF))
     try:
         yield
     finally:
-        _INIT_RNG = prev
+        set_initializer_rng(prev)
 
 
 _INIT_REGISTRY = {}
+
+
+def _tensor(arr):
+    """The tensor behind ``arr`` (an NDArray's, or ``arr`` itself)."""
+    return getattr(arr, "tensor", arr)
 
 
 def register(klass):
@@ -105,10 +108,10 @@ class Initializer:
 
     @staticmethod
     def _set(arr, value):
-        """Fill ``arr`` in place with ``value`` rounded to float32, then to
-        the tensor's dtype."""
+        """Fill ``arr`` (a tensor or an NDArray) in place with ``value``
+        rounded to float32, then to the array's dtype."""
         with torch.no_grad():
-            arr.copy_(torch.from_numpy(
+            _tensor(arr).copy_(torch.from_numpy(
                 np.ascontiguousarray(value, dtype=np.float32)))
 
 
@@ -184,6 +187,102 @@ class Xavier(Initializer):
             self._set(arr, _rng().normal(0, scale, shape))
         else:
             raise MXNetError("unknown rnd_type %r" % self.rnd_type)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """Gaussian Xavier with the PReLU gain, magnitude 2 / (1 + slope**2)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """A (scaled) orthonormal basis from the SVD of a random matrix."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, desc, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _rng().uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = _rng().normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == (nout, nin) else v
+        self._set(arr, self.scale * q.reshape(tuple(arr.shape)))
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel."""
+
+    def _init_weight(self, desc, arr):
+        shape = tuple(arr.shape)
+        weight = np.zeros(shape, dtype=np.float32)
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight.flat[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        self._set(arr, weight)
+
+
+class Mixed:
+    """The first initializer whose pattern ``re.search``-es the name."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers must have same "
+                             "length")
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.search(str(name)):
+                init(name, arr)
+                return
+        raise MXNetError("no initializer pattern matches %r" % str(name))
+
+
+class Load:
+    """Values from a saved dict (or ``.params`` file, ``arg:``/``aux:``
+    prefixes dropped, staged on the CPU), else ``default_init``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            from .context import cpu
+            from .ndarray.utils import load as nd_load
+
+            param = nd_load(param, ctx=cpu())
+        self.param = {
+            (k[4:] if k.startswith(("arg:", "aux:")) else k): v
+            for k, v in param.items()}
+        self.default_init = default_init
+
+    def __call__(self, name, arr):
+        name = str(name)
+        if name in self.param:
+            with torch.no_grad():
+                _tensor(arr).copy_(_tensor(self.param[name]))
+        elif self.default_init is not None:
+            self.default_init(name, arr)
+        else:
+            raise MXNetError("cannot init %r: not found and no default"
+                             % name)
+
+
+_INIT_REGISTRY["zeros"] = Zero
+_INIT_REGISTRY["ones"] = One
+_INIT_REGISTRY["msra_prelu"] = MSRAPrelu
 
 
 def create(name, **kwargs):

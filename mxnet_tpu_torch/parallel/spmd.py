@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..ops.optimizer_ops import adam_update, sgd_mom_update, sgd_update
 
 __all__ = ["FunctionalOptimizer", "functional_optimizer",
            "cross_entropy_loss", "TrainStep"]
@@ -51,7 +52,9 @@ def functional_optimizer(name="sgd", learning_rate=0.01, momentum=0.0, wd=0.0,
     / ``wd_mult`` dicts (default multiplier 1.0) override the pattern,
     mirroring Optimizer.set_lr_mult/set_wd_mult exactly. Gradients are
     taken in fp32, times ``rescale_grad``, clipped to ``clip_gradient``
-    when it is > 0; ``lr_scheduler(step)`` replaces ``learning_rate``."""
+    when it is > 0; ``lr_scheduler(step)`` replaces ``learning_rate``. Each
+    tensor's update is the ``sgd_update``/``sgd_mom_update``/``adam_update``
+    op that ``optimizer.SGD``/``Adam`` invoke."""
     name = name.lower()
     wd_re = re.compile(wd_pattern)
 
@@ -68,12 +71,10 @@ def functional_optimizer(name="sgd", learning_rate=0.01, momentum=0.0, wd=0.0,
             wm = wd if wd_re.match(k) else 0.0
         return lm, wm
 
-    def prepared(k, grads, w):
-        g = grads[k].float() * rescale_grad
-        if clip_gradient is not None and clip_gradient > 0:
-            g = g.clamp(-clip_gradient, clip_gradient)
-        lm, this_wd = mults(k)
-        return g + this_wd * w, lm
+    # the update ops clip when clip_gradient >= 0; this optimizer, like the
+    # JAX package's, only when it is > 0
+    clip = (clip_gradient if clip_gradient is not None and clip_gradient > 0
+            else -1.0)
 
     if name == "sgd":
         def init(params):
@@ -81,17 +82,18 @@ def functional_optimizer(name="sgd", learning_rate=0.01, momentum=0.0, wd=0.0,
                 return {}
             return {k: torch.zeros_like(v) for k, v in params.items()}
 
-        @torch.no_grad()
         def apply(params, grads, state, step):
             lr = lr_at(step)
             for k, w in params.items():
-                g, lm = prepared(k, grads, w)
+                lm, this_wd = mults(k)
                 if momentum == 0.0:
-                    w.sub_((lr * lm) * g)
+                    sgd_update(w, grads[k].float(), lr=lr * lm, wd=this_wd,
+                               rescale_grad=rescale_grad, clip_gradient=clip)
                 else:
-                    m = state[k]
-                    m.mul_(momentum).sub_((lr * lm) * g)
-                    w.add_(m)
+                    sgd_mom_update(w, grads[k].float(), state[k], lr=lr * lm,
+                                   momentum=momentum, wd=this_wd,
+                                   rescale_grad=rescale_grad,
+                                   clip_gradient=clip)
             return params, state
 
         return FunctionalOptimizer(init, apply, dict(lr=learning_rate,
@@ -102,17 +104,17 @@ def functional_optimizer(name="sgd", learning_rate=0.01, momentum=0.0, wd=0.0,
             return {k: (torch.zeros_like(v), torch.zeros_like(v))
                     for k, v in params.items()}
 
-        @torch.no_grad()
         def apply(params, grads, state, step):
             lr = lr_at(step)
             t = float(step) + 1.0
             lr_t = lr * math.sqrt(1.0 - beta2 ** t) / (1.0 - beta1 ** t)
             for k, w in params.items():
-                g, lm = prepared(k, grads, w)
+                lm, this_wd = mults(k)
                 m, v = state[k]
-                m.mul_(beta1).add_((1 - beta1) * g)
-                v.mul_(beta2).add_((1 - beta2) * g * g)
-                w.sub_((lr_t * lm) * m / (v.sqrt() + epsilon))
+                adam_update(w, grads[k].float(), m, v, lr=lr_t * lm,
+                            beta1=beta1, beta2=beta2, epsilon=epsilon,
+                            wd=this_wd, rescale_grad=rescale_grad,
+                            clip_gradient=clip)
             return params, state
 
         return FunctionalOptimizer(init, apply, dict(lr=learning_rate, wd=wd))

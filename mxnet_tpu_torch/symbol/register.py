@@ -30,7 +30,9 @@ def create_symbol(op: OpDef, input_syms, attrs, name=None, arity_names=None):
     if any(e is None for e in entries):
         raise MXNetError("op %s: non-trailing missing input" % op.name)
     parsed = op.parse_attrs({k: v for k, v in attrs.items() if v is not None})
-    node = _Node(op, parsed, entries, name,
+    from ..attribute import current_attrs
+
+    node = _Node(op, parsed, entries, name, attr_dict=current_attrs(),
                  arity=arity_names or _default_arity(op, len(entries)))
     return Symbol([(node, i) for i in range(op.n_visible_outputs(parsed))])
 

@@ -5,7 +5,9 @@ A Symbol is an ordered list of output entries ``(node, out_index)`` of a
 DAG of :class:`_Node`; a node is a variable (``op`` None) or an op
 application. JSON save/load keeps the reference's file format
 (``nodes``/``arg_nodes``/``heads``), so a graph written by either package
-loads in the other.
+loads in the other (``Symbol.save``, :func:`load`). Arithmetic with a
+Symbol or a number composes the broadcast and ``_*_scalar`` ops;
+``bind``/``simple_bind`` give an ``executor.Executor``.
 """
 from __future__ import annotations
 
@@ -67,6 +69,13 @@ class Symbol:
 
     def __len__(self):
         return len(self._entries)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    @property
+    def outputs(self):
+        return self._entries
 
     def get_internals(self):
         """Symbol grouping every output of every node, in topo order."""
@@ -149,7 +158,59 @@ class Symbol:
                 out.append("%s_output%d" % (node.name, idx))
         return out
 
+    def list_inputs(self):
+        return [n.name for n in self._var_nodes()]
+
+    # -- attributes ----------------------------------------------------------
+    def attr(self, key):
+        return self._entries[0][0].attr_dict.get(key)
+
+    def _set_attr(self, **kwargs):
+        self._entries[0][0].attr_dict.update(kwargs)
+
+    def list_attr(self):
+        node = self._entries[0][0]
+        d = dict(node.attr_dict)
+        if node.op is not None:
+            d.update({k: str(v) for k, v in node.attrs.items()})
+        return d
+
+    def attr_dict(self):
+        """``{node name: {attribute: value}}`` of every node with any, the
+        op attributes as strings (the JAX package's ``attr_dict``)."""
+        out = {}
+        for node in self._topo():
+            d = dict(node.attr_dict)
+            if node.op is not None:
+                d.update({k: str(v) for k, v in node.attrs.items()})
+            if d:
+                out[node.name] = d
+        return out
+
     # -- inference -----------------------------------------------------------
+    def infer_type(self, **kwargs):
+        """``(arg_types, out_types, aux_types)`` from input dtypes given by
+        name (see ``executor.infer_graph_types``)."""
+        from ..executor import infer_graph_types
+
+        return infer_graph_types(self, kwargs)
+
+    # -- binding -------------------------------------------------------------
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        from ..executor import Executor
+
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        group2ctx=group2ctx)
+
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
+        from ..executor import simple_bind
+
+        return simple_bind(self, ctx, grad_req=grad_req, type_dict=type_dict,
+                           shared_exec=shared_exec, group2ctx=group2ctx,
+                           **kwargs)
+
     def infer_shape(self, **kwargs):
         """``(arg_shapes, out_shapes, aux_shapes)`` from input shapes given
         by name; raises when a shape stays unresolved."""
@@ -186,25 +247,98 @@ class Symbol:
             "attrs": {"mxnet_version": ["int", 10000]},
         }, indent=2)
 
+    def save(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     # -- composition sugar ---------------------------------------------------
-    def __add__(self, other):
+    def _apply(self, opname, other=None, scalar_op=None, reverse=False,
+               **attrs):
         from .register import create_symbol
 
-        if not isinstance(other, Symbol):
-            raise MXNetError("Symbol + %r: only Symbol + Symbol is ported"
-                             % type(other))
-        return create_symbol(_reg.get("broadcast_add"), [self, other], {})
+        if other is None:
+            return create_symbol(_reg.get(opname), [self], attrs)
+        if isinstance(other, Symbol):
+            return create_symbol(_reg.get(opname),
+                                 [other, self] if reverse else [self, other],
+                                 attrs)
+        if isinstance(other, (int, float)):
+            return create_symbol(_reg.get(scalar_op), [self],
+                                 {"scalar": float(other)})
+        raise MXNetError("Symbol arithmetic with %r is not supported"
+                         % type(other))
+
+    def __add__(self, other):
+        return self._apply("broadcast_add", other, "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._apply("broadcast_sub", other, "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._apply("broadcast_sub", other, "_rminus_scalar",
+                           reverse=True)
+
+    def __mul__(self, other):
+        return self._apply("broadcast_mul", other, "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._apply("broadcast_div", other, "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._apply("broadcast_div", other, "_rdiv_scalar",
+                           reverse=True)
+
+    def __pow__(self, other):
+        return self._apply("broadcast_power", other, "_power_scalar")
+
+    def __rpow__(self, other):
+        return self._apply("broadcast_power", other, "_rpower_scalar",
+                           reverse=True)
+
+    def __neg__(self):
+        return self._apply("negative")
+
+    def reshape(self, shape):
+        return self._apply("Reshape", shape=tuple(shape))
+
+    def sum(self, axis=None, keepdims=False):
+        return self._apply("sum", axis=axis, keepdims=keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return self._apply("mean", axis=axis, keepdims=keepdims)
+
+    def astype(self, dtype):
+        return self._apply("Cast", dtype=str(dtype))
 
 
-def var(name, attr=None, shape=None, dtype=None, **kwargs):
-    """Create a symbolic variable."""
-    attr_dict = dict(attr or {})
+def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
+        init=None, **kwargs):
+    """Create a symbolic variable; the active ``AttrScope``'s attributes
+    apply, explicit ones win."""
+    from ..attribute import current_attrs
+
+    attr_dict = current_attrs()
+    attr_dict.update(attr or {})
     if shape is not None:
         attr_dict["__shape__"] = tuple(shape)
     if dtype is not None:
         attr_dict["__dtype__"] = str(dtype)
+    if lr_mult is not None:
+        attr_dict["__lr_mult__"] = lr_mult
+    if wd_mult is not None:
+        attr_dict["__wd_mult__"] = wd_mult
+    if init is not None:
+        attr_dict["__init__"] = init if isinstance(init, str) \
+            else init.dumps()
     attr_dict.update(kwargs)
     return Symbol([(_Node(None, {}, [], name, attr_dict), 0)])
+
+
+Variable = var
 
 
 def Group(symbols):
@@ -212,6 +346,12 @@ def Group(symbols):
     for s in symbols:
         entries.extend(s._entries)
     return Symbol(entries)
+
+
+def load(fname):
+    """A symbol from a JSON file (``Symbol.save`` of either package)."""
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def load_json(json_str):

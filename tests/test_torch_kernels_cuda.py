@@ -33,6 +33,12 @@ per channel against that channel's sum of |e| (of |e * xhat|). B2
 column's largest sum of |terms| (the same product on absolute values):
 1e-4 in both types, since both sides multiply the same rounded operands
 in f32 and differ only in the order of the sums.
+
+The symbolic front end on the card: an in-place NDArray update reaching a
+bound executor, the tiny fused ResNet's ``Executor.forward_backward``
+(11/11/9 launches of B1/B2/B3, gradients within 1e-4 of the CPU's against
+each tensor's scale, floored at 1% of the largest) and a checkpoint saved
+from card arrays loading on the CPU bit for bit.
 """
 import pytest
 import torch
@@ -735,3 +741,105 @@ def test_conv_grads_are_deterministic(dtype):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the symbolic front end on the card: NDArray, Executor, checkpoints
+# ---------------------------------------------------------------------------
+TINY_RESNET = dict(units=[2, 1], num_stages=2, filter_list=[8, 16, 32],
+                   num_classes=5, image_shape=(3, 64, 64), bottle_neck=True)
+TINY_SHAPES = {"data": (4, 3, 64, 64), "softmax_label": (4,)}
+
+
+def _tiny_executor(ctx, fused=True):
+    import numpy as np
+
+    from mxnet_tpu_torch.models import resnet
+
+    sym = resnet.resnet(fused=fused, **TINY_RESNET)
+    ex = sym.simple_bind(ctx, **TINY_SHAPES)
+    args, auxs = resnet.init_params(sym, TINY_SHAPES["data"], seed=0)
+    for k, v in args.items():
+        ex.arg_dict[k][:] = v
+    for k, v in auxs.items():
+        ex.aux_dict[k][:] = v
+    rng = np.random.RandomState(4)
+    batch = {"data": rng.randn(*TINY_SHAPES["data"]).astype(np.float32),
+             "softmax_label": rng.randint(0, 5, (4,)).astype(np.float32)}
+    return ex, batch
+
+
+@pytest.mark.cuda
+def test_ndarray_inplace_update_reaches_a_bound_executor_on_the_card():
+    import mxnet_tpu_torch as mx
+
+    _card()
+    ex, batch = _tiny_executor(mx.gpu(0), fused=False)
+    w = ex.arg_dict["fc1_weight"]
+    assert w.tensor.is_cuda
+    tensor = w.tensor
+    ex.forward(**batch)
+    before = ex.outputs[0].asnumpy()
+    w *= 0.0
+    ex.arg_dict["fc1_bias"][:] = 0.0
+    assert w.tensor is tensor and ex.arg_dict["fc1_weight"] is w
+    ex.forward(**batch)
+    after = ex.outputs[0].asnumpy()
+    assert abs(after - 0.2).max() < 1e-6 and abs(before - 0.2).max() > 1e-3
+
+
+@pytest.mark.cuda
+def test_executor_forward_backward_on_the_card_launches_b1_b2_b3():
+    """The tiny fused net's forward_backward on the card: 11 B1, 11 B2 and
+    9 B3 launches, outputs and gradients as on the CPU (fp32, TF32 off;
+    each gradient against its own scale, floored at 1% of the largest)."""
+    import mxnet_tpu_torch as mx
+
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        ex, batch = _tiny_executor(ctx)
+        before = (fb.conv_fwd.launches, fb.conv_wgrad.launches,
+                  fb.conv_dgrad.launches)
+        ex.forward_backward(**batch)
+        counts = (fb.conv_fwd.launches - before[0],
+                  fb.conv_wgrad.launches - before[1],
+                  fb.conv_dgrad.launches - before[2])
+        got[ctx.device_type] = (ex.outputs[0].asnumpy(), {
+            k: v.asnumpy() for k, v in ex.grad_dict.items()}, counts)
+    assert got["gpu"][2] == (11, 11, 9) and got["cpu"][2] == (0, 0, 0)
+    assert abs(got["gpu"][0] - got["cpu"][0]).max() <= 1e-4
+    floor = 1e-2 * max(abs(g).max() for g in got["cpu"][1].values())
+    for k, g in got["cpu"][1].items():
+        err = abs(got["gpu"][1][k] - g).max() / max(abs(g).max(), floor)
+        assert err <= 1e-4, (k, err)
+
+
+@pytest.mark.cuda
+def test_checkpoint_saved_from_the_card_loads_on_the_cpu_bit_exact(tmp_path):
+    import mxnet_tpu_torch as mx
+
+    _card()
+    ex, _batch = _tiny_executor(mx.gpu(0))
+    args = {k: v for k, v in ex.arg_dict.items()
+            if k not in TINY_SHAPES}
+    prefix = str(tmp_path / "card")
+    mx.model.save_checkpoint(prefix, 3, ex._symbol, args, ex.aux_dict)
+    bf = mx.nd.array([1.5, -2.25], ctx=mx.gpu(0)).astype("bfloat16")
+    mx.nd.save(str(tmp_path / "bf"), [bf])
+    sym, a2, x2 = mx.model.load_checkpoint(prefix, 3)
+    assert sym.tojson() == ex._symbol.tojson()
+    for mine, theirs in ((args, a2), (ex.aux_dict, x2)):
+        assert sorted(mine) == sorted(theirs)
+        for k, v in mine.items():
+            assert theirs[k].context == mx.cpu()
+            assert torch.equal(v.tensor.cpu(), theirs[k].tensor), k
+    (back,) = mx.nd.load(str(tmp_path / "bf"), ctx=mx.cpu())
+    assert back.tensor.dtype == torch.bfloat16
+    assert back.context == mx.cpu()
+    (on_card,) = mx.nd.load(str(tmp_path / "bf"))
+    assert on_card.context == mx.gpu(0)
+    assert torch.equal(on_card.tensor, bf.tensor)
+    assert torch.equal(back.tensor, bf.tensor.cpu())
