@@ -68,7 +68,17 @@ the kernels are built for sm_90a) and ``nvcc``. It
    batch: a warm-up step, 5 timed steps and a profiled one, with a first
    loss near ln 1000, a falling loss, moving statistics that move and 52
    B1, 52 B2 and 48 B3 launches a step, none on the CUDA-core route;
-13. prints one JSON line describing each kernel, then the result line
+13. drives ``TrainStep``'s options on the same net, batch and optimizer:
+   each remat mode (False, True, "conv", "pass") for a warm-up and 3 timed
+   steps, with its losses and params against remat=False, its median step
+   time, peak memory, ``residual_stats`` and B1/B2/B3 launches a step
+   (B1 twice a forward under remat=True); the layout pass with remat="pass"
+   (transposes, copies a step, losses within 1e-2 of passes off); the
+   sentinel on a batch with one NaN pixel (record and skip with no host
+   sync, skip leaving params, optimizer state and aux bit for bit, halt
+   raising); ``metric_stats`` against the host's numpy;
+14. runs ``Module.fit`` on the fused ResNet-50 (fp32, batch 64, 8 batches);
+15. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -1664,6 +1674,257 @@ def resnet_training_phase(torch, np, fb):
     return launches
 
 
+# TrainStep's single-device options on the same net, batch and optimizer as
+# resnet_training_phase: each remat mode, the layout pass, the sentinel,
+# return_outputs with metric_stats
+REMAT_MODES = (False, True, "conv", "pass")
+OPTIONS_STEPS = 3
+# B1 launches a step under each remat mode: remat=True reruns every fused
+# unit's forward in the backward; conv and pass keep the units' outputs
+B1_REMAT_FACTOR = {False: 1, True: 2, "conv": 1, "pass": 1}
+# the layout pass reorders the head's BatchNorm reductions (NHWC, axis 3)
+LAYOUT_LOSS_TOL = 1e-2
+# metric_stats' summed cross-entropy (f32 on the card) against the host's
+# float64 sum of the returned probabilities
+METRIC_CE_TOL = 1e-4
+
+
+def _count_copies(torch, fn):
+    """The aten clones (contiguous() and reshape copies) that ``fn`` makes,
+    counted through a TorchDispatchMode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    n = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket is torch.ops.aten.clone:
+                n[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return n[0]
+
+
+def _n_transposes(sym):
+    return sum(1 for n in sym._topo()
+               if not n.is_variable() and n.op.name == "transpose")
+
+
+def trainstep_options_phase(torch, np, fb):
+    """TrainStep's options on the full-width fused ResNet-50 in bf16 at
+    batch 64: each remat mode (losses and params against remat=False, step
+    time, peak memory, residual_stats, B1/B2/B3 launches a step); the
+    layout pass with remat="pass"; the sentinel on a batch with one NaN
+    pixel (record without a host sync, skip as a bit-identical no-op, halt
+    raising); metric_stats against the host. Returns the B1, B2 and B3
+    launches of the timed remat and layout steps."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    gc.collect()
+    n = RESNET_TRAIN_BATCH
+    shapes = {"data": (n,) + RESNET["image_shape"], "softmax_label": (n,)}
+    sym = resnet.get_symbol(fused=True, **RESNET)
+
+    def step_of(**kw):
+        return TrainStep(sym, RESNET_OPT, compute_dtype="bfloat16",
+                         device=CARD, **kw)
+
+    params0, opt0, aux0 = step_of().init_params(shapes, initializer=Xavier(),
+                                                seed=0)
+
+    def fresh():
+        return tuple({k: v.clone() for k, v in d.items()}
+                     for d in (params0, opt0, aux0))
+
+    batch = {k: torch.as_tensor(v).to(CARD)
+             for k, v in _resnet_batch(np, 0, n).items()}
+    bad = {k: v.clone() for k, v in batch.items()}
+    bad["data"][0, 0, 0, 0] = float("nan")
+    want_step = (B1_PER_FORWARD, B2_PER_STEP, B3_PER_STEP)
+    total = [0, 0, 0]
+
+    def run(ts, label):
+        """A warm-up step and OPTIONS_STEPS timed ones from the seed-0
+        params, then a profiled one (device busy time): (losses, params on
+        the host after the timed steps, median step s, peak bytes, launches
+        a step)."""
+        carry = ts.place(*fresh())
+        carry, loss = ts(carry, batch)
+        losses = [loss.item()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_fb_counts(fb)
+        secs = []
+        for _ in range(OPTIONS_STEPS):
+            t0 = time.perf_counter()
+            carry, loss = ts(carry, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        counts = _fb_counts(fb)
+        if any(_core_routes(fb)):
+            raise RuntimeError("trainstep %s: launches on the CUDA-core "
+                               "route %s" % (label, _core_routes(fb)))
+        for i, c in enumerate(counts):
+            total[i] += c
+        peak = torch.cuda.max_memory_allocated()
+        params = {k: v.cpu() for k, v in carry[0].items()}
+        print("trainstep %s, one more step:" % label)
+        _device_profile(torch, lambda: ts(carry, batch), top=0)
+        del carry
+        return (losses, params, sorted(secs)[len(secs) // 2], peak,
+                tuple(c / OPTIONS_STEPS for c in counts))
+
+    runs = {}
+    for mode in REMAT_MODES:
+        ts = step_of(remat=mode)
+        res = ts.residual_stats(params0, aux0, batch)
+        gc.collect()
+        runs[mode] = run(ts, "remat=%r" % (mode,)) + (res,)
+        want = (want_step[0] * B1_REMAT_FACTOR[mode],) + want_step[1:]
+        losses, params, sec, peak, per_step, res = runs[mode]
+        ref_losses, ref_params = runs[False][0], runs[False][1]
+        gap = max(float((params[k] - ref_params[k]).abs().max())
+                  for k in ref_params)
+        same = losses == ref_losses and gap == 0.0
+        print("trainstep remat=%-6r losses %s; %s; median step %.4f s, "
+              "%.1f images/s; peak %.2f GiB; residual_stats %.1f MiB in %d "
+              "storages; launches a step B1 %g, B2 %g, B3 %g (want %d/%d/%d)"
+              % (mode, " ".join("%.5f" % x for x in losses),
+                 "bit-identical to remat=False" if same else
+                 "largest param gap to remat=False %.3g" % gap, sec, n / sec,
+                 peak / 2 ** 30, res["residual_bytes"] / 2 ** 20,
+                 res["n_residuals"], *per_step, *want))
+        if per_step != want:
+            raise RuntimeError("trainstep remat=%r: launches a step %s, "
+                               "want %s" % (mode, per_step, want))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[1]:
+            raise RuntimeError("trainstep remat=%r: losses %s" % (mode,
+                                                                   losses))
+        if not same and mode != True:  # noqa: E712
+            # conv and pass recompute only elementwise nodes: same bits
+            raise RuntimeError("trainstep remat=%r: training differs from "
+                               "remat=False (losses %s vs %s, param gap %g)"
+                               % (mode, losses, ref_losses, gap))
+    if not runs["pass"][5]["residual_bytes"] <= \
+            runs[False][5]["residual_bytes"]:
+        raise RuntimeError("trainstep: remat='pass' keeps more than False")
+    print("trainstep remat on %s: %s" % (_card_line(), "; ".join(
+        "%r median step %.4f s, peak %.2f GiB" % (m, r[2], r[3] / 2 ** 30)
+        for m, r in runs.items())))
+
+    # the layout pass under remat="pass"
+    ts = step_of(remat="pass", train_passes=("layout",))
+    plain = step_of(remat="pass")
+    t_before, t_after = _n_transposes(sym), _n_transposes(ts.symbol)
+    axes = [n.attrs.get("axis", 1) for n in ts.symbol._topo()
+            if not n.is_variable() and n.op.name == "BatchNorm"]
+    copies = {}
+    for name, s in (("passes off", plain), ("layout", ts)):
+        c, _ = s(s.place(*fresh()), batch)
+        torch.cuda.synchronize()
+        copies[name] = _count_copies(torch, lambda: s(c, batch))
+        del c
+    losses, _p, sec, peak, per_step = run(ts, "layout")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, runs[False][0]))
+    print("trainstep layout pass + remat='pass': transposes %d -> %d, "
+          "BatchNorm axes %s; aten copies a step %d (passes off %d); losses "
+          "%s, largest relative gap to passes off %.3g (tol %g); median step "
+          "%.4f s; peak %.2f GiB; launches a step B1 %g, B2 %g, B3 %g"
+          % (t_before, t_after, axes, copies["layout"], copies["passes off"],
+             " ".join("%.5f" % x for x in losses), rel, LAYOUT_LOSS_TOL, sec,
+             peak / 2 ** 30, *per_step))
+    if rel > LAYOUT_LOSS_TOL or per_step != want_step or 3 not in axes:
+        raise RuntimeError("trainstep layout: losses %s (gap %g), launches "
+                           "%s, BatchNorm axes %s" % (losses, rel, per_step,
+                                                      axes))
+
+    # the sentinel, on a batch with one NaN pixel after a healthy step
+    ts = step_of(sentinel="record")
+    carry = ts.place(*fresh())
+    carry, _ = ts(carry, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry, _ = ts(carry, batch)
+        carry, _ = ts(carry, bad)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rec = ts.health_stats(carry)
+    # the NaN pixel always reaches the gradients (the stem's BatchNorm
+    # statistics); whether it reaches the loss depends on the fused units'
+    # prologue ReLU, which on the card maps NaN to 0 (ROADMAP Queue C, C6)
+    print("trainstep sentinel record: 3 steps, the last 2 without a host "
+          "sync; %s" % rec)
+    if (rec["healthy"], rec["unhealthy"], rec["skipped"], rec["consec"],
+            rec["nonfinite_grad"]) != (2, 1, 0, 1, 1):
+        raise RuntimeError("trainstep sentinel record: counters %s" % rec)
+
+    ts = step_of(sentinel="skip")
+    carry = ts.place(*fresh())
+    carry, _ = ts(carry, batch)
+    keep = [v.clone() for d in (carry[0], carry[2]) for v in d.values()] + \
+        [v.clone() for k, v in carry[1].items() if k != ts._SENT]
+    step_before = carry[3].clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry, _ = ts(carry, bad)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = [v for d in (carry[0], carry[2]) for v in d.values()] + \
+        [v for k, v in carry[1].items() if k != ts._SENT]
+    same = all(torch.equal(a, b) for a, b in zip(after, keep))
+    skip = ts.health_stats(carry)
+    print("trainstep sentinel skip: unhealthy step without a host sync; "
+          "params, optimizer state and aux %s; step counter %d -> %d; %s"
+          % ("bit-identical" if same else "CHANGED", int(step_before),
+             int(carry[3]), skip))
+    if not same or int(carry[3]) != int(step_before) or skip["skipped"] != 1:
+        raise RuntimeError("trainstep sentinel skip: not a no-op")
+
+    ts = step_of(sentinel="halt")
+    profiler.pipeline_reset()
+    carry = ts.place(*fresh())
+    carry, _ = ts(carry, batch)
+    try:
+        ts(carry, bad)
+    except MXNetError as e:
+        halted = str(e)
+    else:
+        raise RuntimeError("trainstep sentinel halt: did not raise")
+    syncs = profiler.pipeline_stats(reset=True).get("host_syncs")
+    print("trainstep sentinel halt: raised %r; host syncs %s (one a step)"
+          % (halted[:60], syncs))
+    if syncs != 2:
+        raise RuntimeError("trainstep sentinel halt: %s host syncs, want 2"
+                           % syncs)
+
+    ts = step_of(return_outputs=True, metric_stats=True)
+    carry = ts.place(*fresh())
+    carry, (loss, outs, stats) = ts(carry, batch)
+    probs = outs[0].float().cpu().numpy().astype(np.float64)
+    lbl = batch["softmax_label"].cpu().numpy().astype(np.int64)
+    correct = int((probs.argmax(1) == lbl).sum())
+    ce = float(-np.log(probs[np.arange(n), lbl] + 1e-12).sum())
+    got = {k: float(v) for k, v in stats.items()}
+    print("trainstep metric_stats: %s; host: correct %d, sum_ce %.6f"
+          % (got, correct, ce))
+    if int(got["n"]) != n or int(got["correct"]) != correct or \
+            abs(got["sum_ce"] - ce) > METRIC_CE_TOL * abs(ce) or \
+            abs(got["sum_loss"] - loss.item() * n) > 1e-6 * abs(ce):
+        raise RuntimeError("trainstep metric_stats differ from the host's")
+    print("trainstep: B1 %d, B2 %d, B3 %d launches in the timed steps of "
+          "the 4 remat modes and the layout run" % tuple(total))
+    return tuple(total)
+
+
 # Module.fit on the fused ResNet-50: the user's symbolic training path, fp32
 # parameters (Module's default), 2 epochs over 4 copies of one seeded batch
 FIT_BATCH, FIT_COPIES, FIT_EPOCHS = RESNET_TRAIN_BATCH, 4, 2
@@ -1951,15 +2212,21 @@ def main():
     for entry, n in zip(grads, resnet_launches[1:]):
         entry["launches"] = n
     conv["train_launches"] = resnet_launches[0]
+    options_launches = phase("trainstep_options", trainstep_options_phase,
+                             torch, np, fb)
+    for entry, n in zip([conv, *grads], options_launches):
+        entry["trainstep_options_launches"] = n
     fit_launches = phase("module_fit", module_fit_phase, torch, np, fb)
     for entry, n in zip([conv, *grads], fit_launches):
         entry["module_fit_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; image serving B1 %d; ResNet-50 "
-          "training %d steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 "
-          "%d, B2 %d, B3 %d"
+          "training %d steps B1 %d, B2 %d, B3 %d; TrainStep options %d "
+          "steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 %d, B2 %d, "
+          "B3 %d"
           % (TRAIN_STEPS, *launches, served, conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
+             OPTIONS_STEPS * (len(REMAT_MODES) + 1), *options_launches,
              FIT_EPOCHS * FIT_COPIES, *fit_launches))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),

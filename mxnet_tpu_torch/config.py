@@ -56,14 +56,18 @@ KNOBS = {
         "raw", "gradient-shard wire treatment of the ZeRO step; not ported, "
         "so TrainStep accepts only raw (parallel/spmd.py)"),
     "MXNET_TPU_SENTINEL": (
-        "off", "in-graph anomaly sentinel of the train step; not ported, so "
-        "TrainStep accepts only off (parallel/spmd.py)"),
+        "off", "anomaly sentinel of the train step: off|record|skip|halt "
+        "(parallel/spmd.py)"),
     "MXNET_TPU_REMAT": (
-        "0", "rematerialization mode of the train step; not ported, so "
-        "TrainStep accepts only 0/off (parallel/spmd.py)"),
+        "0", "rematerialization mode of the train step: 0/off, 1 (full "
+        "recompute), conv (keep conv/matmul outputs), pass (the ir/remat.py "
+        "plan) (parallel/spmd.py)"),
     "MXNET_IR_TRAIN_PASSES": (
-        "", "pass pipeline rewriting the training graph; not ported, so "
-        "TrainStep accepts only an empty list (parallel/spmd.py)"),
+        "", "comma-separated pass pipeline rewriting the training graph "
+        "before TrainStep reads it, e.g. layout (parallel/spmd.py)"),
+    "MXNET_IR_LAYOUT": (
+        "1", "kill switch of the layout pass: 0 runs it with no rules "
+        "(ir/passes.py); 0|1, anything else raises"),
     "MXNET_TPU_GUARD": (
         "1", "arms the JAX package's HealthGuard in Module.fit when "
         "MXNET_CHECKPOINT_DIR is set; not ported, so fit raises when both "

@@ -18,11 +18,19 @@ on, from leaves that share the argument arrays' memory, applies the aux
 updates once, and keeps the graph for :meth:`Executor.backward`, which
 frees it; ``forward_backward`` does both on one graph.
 
+:func:`_graph_closure` with ``remat_names`` lowers a selective-remat plan
+(:class:`_Remat`), and :func:`residual_probe` counts what a forward keeps
+for its backward (``TrainStep.residual_stats``).
+
 Not ported yet: ``ctx_group`` placement and ``group2ctx`` (both raise),
-``MXNET_BACKWARD_DO_MIRROR``, selective remat names, monitor callbacks
-and the RNG salt of stochastic ops (the port registers none).
+``MXNET_BACKWARD_DO_MIRROR``, monitor callbacks and the RNG salt of
+stochastic ops (the port registers none).
 """
 from __future__ import annotations
+
+import contextlib
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -40,52 +48,277 @@ def eval_node(node, ins, is_train):
     return out if isinstance(out, tuple) else (out,)
 
 
-def _graph_closure(symbol, is_train):
+def _graph_closure(symbol, is_train, remat_names=None):
     """A function evaluating the graph: ``fn(values) -> (outputs,
     aux_updates)``, with ``values`` every variable's tensor by name and
     ``aux_updates`` the new value of each auxiliary state of a training
     step, by name, detached. Two contracts give them: an op's
     ``aux_state_outputs`` (the fused unit returns its moving statistics
-    mixed), and BatchNorm's ``momentum * old + (1 - momentum) * batch``."""
+    mixed), and BatchNorm's ``momentum * old + (1 - momentum) * batch``.
+    A node's outputs are dropped after their last consumer ran.
+
+    ``remat_names`` (a set of node names, or None) is the selective-remat
+    save set: the outputs of the nodes named there are kept for the
+    backward, and every other computing node is recomputed in the backward
+    (:class:`_Remat`). None evaluates the graph plainly."""
     nodes = symbol._topo()
     node_ids = {id(n): i for i, n in enumerate(nodes)}
     for node in nodes:
         if "ctx_group" in node.attr_dict:
             raise MXNetError("%s: ctx_group placement is not ported"
                              % node.name)
+    last_use = {}
+    for i, node in enumerate(nodes):
+        for inp, _ in node.inputs:
+            last_use[node_ids[id(inp)]] = i
+    for n, _ in symbol._entries:
+        last_use[node_ids[id(n)]] = len(nodes)
+    dead_after = {}
+    for j, i in last_use.items():
+        dead_after.setdefault(i, []).append(j)
+    recompute = None
+    if remat_names is not None:
+        keep = frozenset(remat_names)
+        recompute = frozenset(i for i, n in enumerate(nodes)
+                              if not n.is_variable() and n.name not in keep)
 
-    def fn(values):
+    def run(values, remat):
         results = {}   # node index -> tuple of outputs
         aux_updates = {}
         for i, node in enumerate(nodes):
             if node.is_variable():
                 if node.name not in values:
                     raise MXNetError("unbound variable %r" % node.name)
-                results[i] = (values[node.name],)
-                continue
-            ins = [results[node_ids[id(inp)]][idx] for inp, idx in node.inputs]
-            out = eval_node(node, ins, is_train)
+                out = (values[node.name],)
+            else:
+                ins = [results[node_ids[id(inp)]][idx]
+                       for inp, idx in node.inputs]
+                if remat is not None and i in recompute:
+                    out = remat.run(i, ins)
+                else:
+                    out = eval_node(node, ins, is_train)
             results[i] = out
-            if not (is_train and node._arity):
-                continue
-            aux_out = node.op.aux_state_outputs
-            for pname, (inode, _) in zip(node._arity, node.inputs):
-                if not inode.is_variable():
-                    continue
-                if aux_out:
-                    idx = aux_out.get(pname)
-                    if idx is not None:
-                        aux_updates[inode.name] = out[idx].detach()
-                elif node.op.name in _AUX_PARAMS and pname in (
-                        "moving_mean", "moving_var"):
-                    m = node.attrs.get("momentum", 0.9)
-                    batch = out[1 if pname == "moving_mean" else 2]
-                    aux_updates[inode.name] = (
-                        m * values[inode.name] + (1 - m) * batch).detach()
+            if remat is not None:
+                remat.own(i, out)
+            if is_train and node._arity:
+                _aux_updates(node, out, values, aux_updates)
+            for j in dead_after.get(i, ()):
+                del results[j]
         outs = [results[node_ids[id(n)]][idx] for n, idx in symbol._entries]
         return outs, aux_updates
 
+    def fn(values):
+        if recompute is None:
+            return run(values, None)
+        remat = _Remat(nodes, node_ids, recompute, is_train)
+        with torch.autograd.graph.saved_tensors_hooks(remat.pack,
+                                                      remat.unpack):
+            return run(values, remat)
+
     return fn
+
+
+def _aux_updates(node, out, values, aux_updates):
+    """Record a training node's new auxiliary states into ``aux_updates``."""
+    aux_out = node.op.aux_state_outputs
+    for pname, (inode, _) in zip(node._arity, node.inputs):
+        if not inode.is_variable():
+            continue
+        if aux_out:
+            idx = aux_out.get(pname)
+            if idx is not None:
+                aux_updates[inode.name] = out[idx].detach()
+        elif node.op.name in _AUX_PARAMS and pname in (
+                "moving_mean", "moving_var"):
+            m = node.attrs.get("momentum", 0.9)
+            batch = out[1 if pname == "moving_mean" else 2]
+            aux_updates[inode.name] = (
+                m * values[inode.name] + (1 - m) * batch).detach()
+
+
+class _Owner:
+    """The node output that first held a storage, and the live tensors
+    known to view that storage (weak references)."""
+
+    __slots__ = ("node", "out", "dtype", "offset", "nbytes", "refs")
+
+    def __init__(self, node, out, t):
+        self.node, self.out, self.dtype = node, out, t.dtype
+        self.offset = t.storage_offset()
+        self.nbytes = t.untyped_storage().nbytes()
+        self.refs = [weakref.ref(t)]
+
+    def alive(self):
+        return any(r() is not None for r in self.refs)
+
+
+class _Recipe:
+    """What the backward keeps in place of a recompute node's output: the
+    node, the output index and the saved tensor's view of its storage."""
+
+    __slots__ = ("node", "out", "size", "stride", "offset")
+
+    def __init__(self, node, out, t):
+        self.node, self.out = node, out
+        self.size, self.stride = tuple(t.shape), t.stride()
+        self.offset = t.storage_offset()
+
+
+class _Remat:
+    """Selective remat of one forward: the outputs of recompute nodes are
+    not kept for the backward.
+
+    - A recompute node runs under its own non-reentrant checkpoint, so
+      what its ops would keep (their inputs, their internals) is not kept:
+      the checkpoint keeps the node's inputs and reruns the node in the
+      backward.
+    - A tensor kept for the backward (by a saved node's ops, or as a
+      checkpoint's input) whose storage a recompute node's output owns is
+      packed as a :class:`_Recipe`; unpacking it recomputes that output
+      without autograd, from the kept outputs and the variables, through
+      any chain of recompute nodes. A recomputed output is cached while
+      recipes for it wait to be unpacked.
+    - What it keeps it keeps detached: a kept tensor that held its
+      ``grad_fn`` would close a reference cycle through the graph (a node
+      saving its own output, or these hooks holding the graph's tensors)
+      that outlives a forward whose backward never runs.
+    - Storage ownership: every node output registers its storage; the
+      first node whose output lives there owns it while any tensor known
+      to view it is alive (a later owner of a reused address replaces a
+      dead one). A tensor whose storage no live recompute output owns is
+      kept as it is.
+
+    No op the port registers draws random numbers, so the checkpoints do
+    not carry RNG state."""
+
+    def __init__(self, nodes, node_ids, recompute, is_train):
+        self.nodes, self.node_ids = nodes, node_ids
+        self.recompute, self.is_train = recompute, is_train
+        self.feeds = {node_ids[id(inp)] for i in recompute
+                      for inp, _ in nodes[i].inputs} - recompute
+        self.owners = {}   # storage address -> _Owner
+        self.kept = {}     # node index -> outputs kept for recomputing
+        self.pending = {}  # node index -> recipes not yet unpacked
+        self.cache = {}    # node index -> recomputed outputs
+        self.layouts = {}  # (node, output) -> (storage offset, bytes)
+        self.probe = getattr(_PROBE, "active", None)
+
+    def run(self, i, ins):
+        from torch.utils.checkpoint import checkpoint
+
+        node, is_train = self.nodes[i], self.is_train
+
+        def node_fn(*xs):
+            return eval_node(node, list(xs), is_train)
+
+        return checkpoint(node_fn, *ins, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    def own(self, i, out):
+        for k, t in enumerate(out):
+            ptr = t.untyped_storage().data_ptr()
+            if not ptr:
+                continue
+            ent = self.owners.get(ptr)
+            if ent is not None and ent.alive():
+                ent.refs.append(weakref.ref(t))
+            else:
+                ent = self.owners[ptr] = _Owner(i, k, t)
+                self.layouts[(i, k)] = (ent.offset, ent.nbytes)
+        if i in self.feeds:
+            self.kept[i] = tuple(t.detach() for t in out)
+            if self.probe is not None:
+                for t in out:
+                    self.probe.note(t)
+
+    def pack(self, t):
+        if not isinstance(t, torch.Tensor) or t.layout != torch.strided:
+            return t
+        ent = self.owners.get(t.untyped_storage().data_ptr())
+        if ent is None or ent.node not in self.recompute \
+                or ent.dtype != t.dtype or not ent.alive():
+            if self.probe is not None:
+                self.probe.note(t)
+            return t.detach()
+        self.pending[ent.node] = self.pending.get(ent.node, 0) + 1
+        return _Recipe(ent.node, ent.out, t)
+
+    def unpack(self, r):
+        if not isinstance(r, _Recipe):
+            return r
+        out = self._value(r.node)[r.out]
+        self.pending[r.node] -= 1
+        if self.pending[r.node] <= 0:
+            self.cache.pop(r.node, None)
+        return out.as_strided(r.size, r.stride, r.offset)
+
+    def _value(self, i):
+        out = self.cache.get(i)
+        if out is not None:
+            return out
+        node = self.nodes[i]
+        ins = []
+        for inp, idx in node.inputs:
+            j = self.node_ids[id(inp)]
+            if j in self.kept:
+                ins.append(self.kept[j][idx])
+            else:
+                ins.append(self._value(j)[idx])
+        with torch.no_grad():
+            out = eval_node(node, ins, self.is_train)
+        for k, t in enumerate(out):
+            want = self.layouts.get((i, k))
+            if want is not None and want != (t.storage_offset(),
+                                             t.untyped_storage().nbytes()):
+                raise MXNetError(
+                    "remat: %s's recomputed output %d is laid out in memory "
+                    "unlike the first run's" % (node.name, k))
+        if self.pending.get(i, 0) > 0:
+            self.cache[i] = out
+        return out
+
+
+class _ResidualProbe:
+    """The storages kept for the backward while it is active, each once."""
+
+    def __init__(self):
+        self.storages = {}
+
+    def note(self, t):
+        st = t.untyped_storage()
+        if st.data_ptr():
+            self.storages.setdefault(st.data_ptr(), st.nbytes())
+
+    def stats(self):
+        return {"residual_bytes": int(sum(self.storages.values())),
+                "n_residuals": len(self.storages)}
+
+
+_PROBE = threading.local()
+
+
+@contextlib.contextmanager
+def residual_probe():
+    """Count the storages autograd keeps for the backward of what runs
+    inside: tensors packed by the saved-tensor hooks (outside a remat
+    closure) and what a remat closure keeps. Yields the probe; read
+    ``probe.stats()``."""
+    probe = _ResidualProbe()
+
+    def pack(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if t.layout == torch.strided:
+            probe.note(t)
+        return t.detach()   # the tensor itself could close a cycle
+
+    prev = getattr(_PROBE, "active", None)
+    _PROBE.active = probe
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            yield probe
+    finally:
+        _PROBE.active = prev
 
 
 def infer_graph_shapes(symbol, kwargs):
@@ -222,13 +455,14 @@ def _solve_shapes(symbol, known_shapes, type_dict=None):
 
 def _param_shape_hints(node, in_shapes):
     """Parameter shapes deduced from the data shape for the parameterized
-    layers of the image-serving path."""
+    layers of the image and transformer graphs."""
     op, attrs = node.op.name, node.attrs
     data = in_shapes[0] if in_shapes else None
     if data is None:
         return {}
     hints = {}
-    if op in ("Convolution", "Convolution_v1"):
+    if op in ("Convolution", "Convolution_v1", "_ConvResidualAdd"):
+        # the residual rewrite keeps Convolution's weight contract
         kernel = tuple(int(k) for k in attrs.get("kernel", ()))
         nf = int(attrs.get("num_filter", 1))
         ng = int(attrs.get("num_group", 1))
@@ -261,6 +495,9 @@ def _param_shape_hints(node, in_shapes):
         c = data[int(attrs.get("axis", 1)) % len(data)]
         hints.update({"gamma": (c,), "beta": (c,), "moving_mean": (c,),
                       "moving_var": (c,)})
+    elif op == "LayerNorm":
+        c = data[int(attrs.get("axis", -1)) % len(data)]
+        hints.update({"gamma": (c,), "beta": (c,)})
     elif op == "SoftmaxOutput":
         if attrs.get("multi_output"):
             hints["label"] = (data[0],) + tuple(data[2:])

@@ -1,25 +1,28 @@
 """Pattern-rule passes over the Symbol graph (counterpart of
 ``mxnet_tpu/ir/passes.py``).
 
-The IR is the ``Symbol``/``_Node`` graph itself; a pass is ``Symbol ->
-Symbol``, and :class:`RulePass` runs pattern rules (:mod:`.match`,
-:mod:`.rules`) to a fixpoint, one rewrite at a time, in topo order: a
-given graph and rule list always give the same output graph.
+The IR is the ``Symbol``/``_Node`` graph itself; a :class:`Pass` is
+``Symbol -> (Symbol, provenance)``, and :class:`RulePass` runs pattern
+rules (:mod:`.match`, :mod:`.rules`) to a fixpoint, one rewrite at a time,
+in topo order: a given graph and rule list always give the same output
+graph and the same provenance. :class:`PassManager` composes registered
+passes.
 
 Safety contract: a rewrite replaces exactly the matched root entry;
 matches whose interior nodes are used outside the pattern (or are graph
 outputs) are skipped; a rewrite with the wrong entry count or missing
 required inputs raises :class:`PassError` naming the rule and node; with
-``data_shapes``, :func:`apply_passes` checks that each pass keeps the
-graph's output shapes.
+``data_shapes``, a pass that changes the graph's output shapes raises.
 
-Only the ``fusion`` pass is ported; ``residual``, ``layout`` and
-``quantize`` are registered names that raise "not ported". The JAX
-package's provenance records and per-pass profiler counters have no
-reader in the port yet and are not carried over.
+Registered: ``fusion``, ``residual`` and ``layout`` (whose kill switch is
+``MXNET_IR_LAYOUT``). ``quantize`` is a registered name that raises "not
+ported". Every rewrite lands in ``profiler.pass_stats`` (rule hits, nodes
+rewritten, transposes cancelled) and in the provenance dict each pass
+returns.
 """
 from __future__ import annotations
 
+from .. import config
 from ..base import MXNetError
 from ..symbol.symbol import Symbol
 from .match import match
@@ -31,6 +34,16 @@ class PassError(MXNetError):
     """A pass misbehaved: a rule matched but its rewrite produced an
     arity/shape mismatch (the error names the rule and node), or the
     pass pipeline itself is misconfigured."""
+
+
+class Pass:
+    """One Symbol -> Symbol transformation."""
+
+    name = None
+
+    def apply(self, symbol):
+        """Returns ``(new_symbol, provenance_dict)``."""
+        raise NotImplementedError
 
 
 def _consumer_map(nodes):
@@ -138,13 +151,13 @@ def splice(symbol, root, new_entry):
     return Symbol(entries)
 
 
-class RulePass:
+class RulePass(Pass):
     """Run pattern rules to a fixpoint, one rewrite at a time.
 
     Deterministic by construction: each round scans the current graph
     in topo order and rules in list order, applies the FIRST safe
     match, and repeats — so a given (graph, rule list) always produces
-    the same output graph."""
+    the same output graph and the same provenance."""
 
     def __init__(self, name, rules):
         self.name = name
@@ -169,22 +182,55 @@ class RulePass:
         return None
 
     def apply(self, symbol):
-        """Returns the rewritten Symbol."""
-        rewrites = 0
+        from .. import profiler
+
+        applied = []
+        before = len(symbol._topo())
         while True:
             found = self._find(symbol)
             if found is None:
-                return symbol
+                break
             rule, m = found
             repl = rule.rewrite(m)
             _validate_replacement(rule, m, repl)
             symbol = splice(symbol, m.root[0], repl._entries[0])
-            rewrites += 1
-            if rewrites > MAX_REWRITES:
+            applied.append(rule.name)
+            profiler.pass_record(self.name, rule=rule.name, hits=1)
+            if len(applied) > MAX_REWRITES:
                 raise PassError(
                     "pass %r exceeded %d rewrites (a rule pair is "
-                    "oscillating; last rule: %s)"
-                    % (self.name, MAX_REWRITES, rule.name))
+                    "oscillating; last: %s)"
+                    % (self.name, MAX_REWRITES, applied[-4:]))
+        after = len(symbol._topo())
+        if applied:
+            profiler.pass_record(self.name,
+                                 rewritten=max(before - after, 0))
+        prov = {"pass": self.name, "rewrites": len(applied),
+                "applied": applied, "nodes_before": before,
+                "nodes_after": after}
+        return symbol, prov
+
+
+class LayoutPass(RulePass):
+    """The ``layout`` rule pass; the drop in transpose nodes rides the
+    provenance and ``profiler.pass_stats`` as ``transposes_cancelled``."""
+
+    @staticmethod
+    def _n_transposes(symbol):
+        return sum(1 for n in symbol._topo()
+                   if not n.is_variable() and n.op.name == "transpose")
+
+    def apply(self, symbol):
+        from .. import profiler
+
+        before = self._n_transposes(symbol)
+        symbol, prov = RulePass.apply(self, symbol)
+        cancelled = max(before - self._n_transposes(symbol), 0)
+        prov["transposes_cancelled"] = cancelled
+        if cancelled:
+            profiler.pass_record(self.name,
+                                 transposes_cancelled=cancelled)
+        return symbol, prov
 
 
 # ---------------------------------------------------------------------------
@@ -196,18 +242,31 @@ def _make_fusion():
     return RulePass("fusion", fusion_rules())
 
 
-def _not_ported(name):
-    def make():
-        raise PassError("the %r pass is not ported yet (only 'fusion' is)"
-                        % name)
-    return make
+def _make_residual():
+    from .rules import residual_rules
+
+    return RulePass("residual", residual_rules())
+
+
+def _make_layout():
+    from .layout import layout_rules
+
+    if not config.get_strict_bool("MXNET_IR_LAYOUT"):
+        # kill switch: the pass runs with no rules and returns the graph
+        return LayoutPass("layout", [])
+    return LayoutPass("layout", layout_rules())
+
+
+def _make_quantize():
+    raise PassError("the 'quantize' pass is not ported yet (fusion, "
+                    "residual and layout are)")
 
 
 PASSES = {
     "fusion": _make_fusion,
-    "residual": _not_ported("residual"),
-    "layout": _not_ported("layout"),
-    "quantize": _not_ported("quantize"),
+    "residual": _make_residual,
+    "layout": _make_layout,
+    "quantize": _make_quantize,
 }
 
 
@@ -222,23 +281,35 @@ def _pipeline_names(passes):
     return names
 
 
+class PassManager:
+    """Compose registered passes; with ``data_shapes`` (``{input name:
+    shape}``) a pass that changes the graph's output shapes raises."""
+
+    def __init__(self, passes, data_shapes=None):
+        self.names = _pipeline_names(passes)
+        self.data_shapes = dict(data_shapes or {})
+
+    def _out_shapes(self, symbol):
+        if not self.data_shapes:
+            return None
+        return symbol.infer_shape(**self.data_shapes)[1]
+
+    def apply(self, symbol):
+        """Run the pipeline; returns ``(symbol, provenance_list)``."""
+        provenance = []
+        want = self._out_shapes(symbol)
+        for name in self.names:
+            symbol, prov = PASSES[name]().apply(symbol)
+            provenance.append(prov)
+            have = self._out_shapes(symbol)
+            if have != want:
+                raise PassError(
+                    "pass %r changed the graph's output shapes (%s -> %s); "
+                    "rewrites must be shape-preserving" % (name, want, have))
+        return symbol, provenance
+
+
 def apply_passes(symbol, passes, data_shapes=None):
     """Run a pass pipeline over ``symbol`` and return the rewritten
-    Symbol. ``passes`` is a name list or comma string; with
-    ``data_shapes`` (``{input name: shape}``) a pass that changes the
-    graph's output shapes raises :class:`PassError`."""
-    names = _pipeline_names(passes)
-    data_shapes = dict(data_shapes or {})
-
-    def out_shapes(sym):
-        return sym.infer_shape(**data_shapes)[1] if data_shapes else None
-
-    want = out_shapes(symbol)
-    for name in names:
-        symbol = PASSES[name]().apply(symbol)
-        have = out_shapes(symbol)
-        if have != want:
-            raise PassError(
-                "pass %r changed the graph's output shapes (%s -> %s); "
-                "rewrites must be shape-preserving" % (name, want, have))
-    return symbol
+    Symbol. ``passes`` is a name list or comma string."""
+    return PassManager(passes, data_shapes).apply(symbol)[0]

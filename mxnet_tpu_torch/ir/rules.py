@@ -7,12 +7,17 @@ of ``mxnet_tpu/ir/rules.py``).
 - :class:`TransposeCancelRule` cancels adjacent transposes that compose to
   the identity; between consecutive fused units this erases the per-unit
   NHWC brackets, leaving one transpose pair around the residual stack.
+- :class:`ResidualConvEpilogueRule` folds a residual add into the
+  convolution that feeds it (``_ConvResidualAdd``, the ``residual`` pass).
 
-Not ported yet: ``ResidualConvEpilogueRule`` (the ``residual`` pass).
+Rules are registered by name (:func:`register_rule`, :func:`get_rule`,
+:func:`list_rules`); the passes take their rule lists from the registry.
+The JAX package's per-rule kernel names feed its autotuner, which the port
+does not have yet.
 """
 from __future__ import annotations
 
-from ..base import auto_name
+from ..base import MXNetError, auto_name
 from ..symbol.symbol import Symbol
 from .match import Pat, node_attr
 
@@ -33,6 +38,30 @@ class Rule:
 
     def rewrite(self, m):
         raise NotImplementedError
+
+
+_RULES = {}
+
+
+def register_rule(rule):
+    """Register a rule instance by its name (a duplicate raises)."""
+    if not rule.name:
+        raise MXNetError("register_rule: rule needs a name")
+    if rule.name in _RULES:
+        raise MXNetError("duplicate rule registration: %s" % rule.name)
+    _RULES[rule.name] = rule
+    return rule
+
+
+def get_rule(name):
+    if name not in _RULES:
+        raise MXNetError("unknown rule %r (registered: %s)"
+                         % (name, sorted(_RULES)))
+    return _RULES[name]
+
+
+def list_rules():
+    return sorted(_RULES)
 
 
 def _sym(entry):
@@ -196,7 +225,59 @@ class TransposeCancelRule(Rule):
         return _sym(m["x"])
 
 
+class ResidualConvEpilogueRule(Rule):
+    """``Convolution(x, w[, b]) + residual`` -> ``_ConvResidualAdd``: the
+    residual add rides the convolution instead of a separate pass over
+    memory."""
+
+    name = "residual_conv_epilogue"
+
+    def __init__(self):
+        def conv(with_bias):
+            ins = [Pat(name="x"), Pat.var("w")]
+            if with_bias:
+                ins.append(Pat.var("b"))
+            return Pat("Convolution", inputs=ins, name="conv")
+
+        self._patterns = (
+            Pat("broadcast_add", inputs=[conv(False), Pat(name="res")]),
+            Pat("broadcast_add", inputs=[conv(True), Pat(name="res")]),
+        )
+
+    @property
+    def pattern(self):
+        return self._patterns[0]
+
+    @property
+    def patterns(self):
+        return self._patterns
+
+    def rewrite(self, m):
+        from .. import symbol as sym
+
+        conv = m.node("conv")
+        attrs = {k: node_attr(conv, k)
+                 for k in ("kernel", "stride", "dilate", "pad",
+                           "num_filter", "num_group", "no_bias")}
+        kwargs = dict(data=_sym(m["x"]), weight=_sym(m["w"]),
+                      residual=_sym(m["res"]),
+                      name=conv.name + "_resadd", **attrs)
+        if "b" in m:
+            kwargs["bias"] = _sym(m["b"])
+        return sym._ConvResidualAdd(**kwargs)
+
+
+register_rule(BottleneckFusionRule())
+register_rule(TransposeCancelRule())
+register_rule(ResidualConvEpilogueRule())
+
+
 def fusion_rules():
     """The 'fusion' pass's rule list (order matters: fuse units first,
     then cancel the per-unit layout brackets)."""
-    return [BottleneckFusionRule(), TransposeCancelRule()]
+    return [get_rule("bottleneck_fuse"), get_rule("transpose_cancel")]
+
+
+def residual_rules():
+    """The 'residual' pass's rule list."""
+    return [get_rule("residual_conv_epilogue")]

@@ -8,8 +8,12 @@ match the unfused builder's exactly, so checkpoints load either way. The
 inference unit runs on kernel B1, the training unit on B1 forward and B2/B3
 backward under one ``torch.autograd.Function`` (``kernels/fused_block.py``).
 
+``_ConvResidualAdd`` is what the ``residual`` pass emits for a convolution
+whose output feeds an add: the convolution (cuDNN on the card, as the JAX
+package leaves it to XLA) plus the add, the same math as the pair.
+
 Not ported yet: the mesh-partitioned variants (the JAX package's
-``spmd_scope``) and ``_ConvResidualAdd`` (the ``residual`` pass).
+``spmd_scope``).
 """
 from __future__ import annotations
 
@@ -76,3 +80,19 @@ def fused_bottleneck_unit(
     out = fb.bottleneck_infer(*weights, *moving, stride=int(stride),
                               eps=float(eps))
     return (out,) + moving
+
+
+@register(name="_ConvResidualAdd")
+def _conv_residual_add(data, weight, residual, bias=None, kernel=(),
+                       stride=(), dilate=(), pad=(), num_filter=1,
+                       num_group=1, workspace=1024, no_bias=False,
+                       layout=None):
+    """``Convolution(data, weight[, bias]) + residual``: the op the
+    ``residual_conv_epilogue`` rule (``ir/rules.py``) emits."""
+    from .nn import convolution
+
+    out = convolution(data, weight, bias, kernel=kernel, stride=stride,
+                      dilate=dilate, pad=pad, num_filter=num_filter,
+                      num_group=num_group, workspace=workspace,
+                      no_bias=no_bias, layout=layout)
+    return out + residual

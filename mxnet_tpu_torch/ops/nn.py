@@ -1,7 +1,8 @@
-"""Neural-net ops of the image-serving path (counterpart of the matching
-entries of ``mxnet_tpu/ops/nn.py``): ``Convolution``, ``BatchNorm``,
-``Activation``, ``Pooling``, ``FullyConnected`` and ``SoftmaxOutput``,
-with MXNet's attribute names and defaults and NCHW layout.
+"""Neural-net ops of the image and transformer graphs (counterpart of the
+matching entries of ``mxnet_tpu/ops/nn.py``): ``Convolution``,
+``BatchNorm``, ``LayerNorm``, ``Activation``, ``Pooling``,
+``FullyConnected`` and ``SoftmaxOutput``, with MXNet's attribute names and
+defaults and NCHW layout.
 
 The convolution goes to ``torch.nn.functional`` (cuDNN on the card), as
 the JAX package leaves it to XLA: it is the unfused graph's oracle and
@@ -95,7 +96,9 @@ def pooling(data, kernel=(), pool_type="max", global_pool=False,
 @register(name="Activation", aliases=("activation",))
 def activation(data, act_type="relu"):
     if act_type == "relu":
-        return torch.clamp_min(data, 0)
+        # maximum against a 0-d zero: half the gradient at a tie, as the
+        # reference's jnp.maximum (clamp_min would pass all of it)
+        return torch.maximum(data, data.new_zeros(()))
     if act_type == "sigmoid":
         return torch.sigmoid(data)
     if act_type == "tanh":
@@ -215,8 +218,8 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                                for i in range(data.dim()))].detach().float()
             xf = data.float() - pivot
         mean_c = xf.sum(dim=red) / n
-        var = torch.clamp_min((xf * xf).sum(dim=red) / n - mean_c * mean_c,
-                              0.0)
+        var = (xf * xf).sum(dim=red) / n - mean_c * mean_c
+        var = torch.maximum(var, var.new_zeros(()))
         mean = mean_c if pivot is None else mean_c + pivot.reshape(
             mean_c.shape)
     else:
@@ -226,3 +229,18 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     shift = (beta.float() - mean.float() * inv * g.float()).to(data.dtype)
     out = data * scale.reshape(bshape) + shift.reshape(bshape)
     return out, mean.to(moving_mean.dtype), var.to(moving_var.dtype)
+
+
+@register(name="LayerNorm", aliases=("layer_norm",), num_outputs=3,
+          num_visible_outputs=1)
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """Outputs (out, mean, var) over ``axis``: ``(x - mean) * rsqrt(var +
+    eps) * gamma + beta`` with the biased variance; mean and var have
+    ``axis`` squeezed."""
+    ax = int(axis)
+    var, mean = torch.var_mean(data, dim=ax, correction=0, keepdim=True)
+    shape = [1] * data.dim()
+    shape[ax] = data.shape[ax]
+    out = (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
+    return out, mean.squeeze(ax), var.squeeze(ax)

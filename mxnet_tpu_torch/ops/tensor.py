@@ -80,9 +80,13 @@ _scalar_op("_power_scalar", lambda d, s: torch.pow(d, s),
            aliases=("_PowerScalar",))
 _scalar_op("_rpower_scalar", lambda d, s: torch.pow(s, d),
            aliases=("_RPowerScalar",))
-_scalar_op("_maximum_scalar", lambda d, s: torch.clamp_min(d, s),
+# maximum/minimum against a 0-d tensor of the scalar split the gradient in
+# half at a tie, as jnp.maximum/jnp.minimum do (clamp would pass all of it)
+_scalar_op("_maximum_scalar",
+           lambda d, s: torch.maximum(d, d.new_full((), s)),
            aliases=("_MaximumScalar",))
-_scalar_op("_minimum_scalar", lambda d, s: torch.clamp_max(d, s),
+_scalar_op("_minimum_scalar",
+           lambda d, s: torch.minimum(d, d.new_full((), s)),
            aliases=("_MinimumScalar",))
 for _name, _cmp in (("_equal_scalar", torch.eq),
                     ("_not_equal_scalar", torch.ne),
@@ -106,7 +110,7 @@ def _unary(name, fn, aliases=()):
     register(name=name, aliases=aliases)(_op)
 
 
-_unary("relu", lambda data: torch.clamp_min(data, 0))
+_unary("relu", lambda data: torch.maximum(data, data.new_zeros(())))
 _unary("sigmoid", torch.sigmoid)
 _unary("tanh", torch.tanh)
 _unary("negative", lambda data: -data, aliases=("_neg",))
@@ -125,14 +129,22 @@ _unary("exp", torch.exp)
 _unary("log", torch.log)
 
 
+def _temper(data, temperature):
+    if temperature in (None, "None", 1.0):
+        return data
+    return data / float(temperature)
+
+
 @register(name="softmax")
-def softmax(data, axis=-1):
-    return torch.softmax(data, dim=int(axis))
+def softmax(data, axis=-1, temperature=None, length=None):
+    """Softmax of ``data / temperature``; ``length`` is accepted and
+    ignored, as the JAX package does."""
+    return torch.softmax(_temper(data, temperature), dim=int(axis))
 
 
 @register(name="log_softmax")
-def log_softmax(data, axis=-1):
-    return torch.log_softmax(data, dim=int(axis))
+def log_softmax(data, axis=-1, temperature=None):
+    return torch.log_softmax(_temper(data, temperature), dim=int(axis))
 
 
 @register(name="Cast", aliases=("cast",))
@@ -142,7 +154,10 @@ def cast(data, dtype="float32"):
 
 @register(name="clip")
 def clip(data, a_min=0.0, a_max=1.0):
-    return torch.clamp(data, a_min, a_max)
+    """``minimum(maximum(x, a_min), a_max)``: half the gradient at either
+    bound, as ``jnp.clip`` gives (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(data, data.new_full((), a_min)),
+                         data.new_full((), a_max))
 
 
 @register(name="zeros_like")
@@ -327,6 +342,15 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False):
     if a.dim() == 1 and b.dim() == 1:
         return torch.dot(a, b)
     return torch.tensordot(a, b, dims=1)
+
+
+@register(name="batch_dot")
+def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
+    """Batched matrix product over the leading axes; the transposes swap
+    each operand's last two axes."""
+    a = lhs.transpose(-1, -2) if transpose_a else lhs
+    b = rhs.transpose(-1, -2) if transpose_b else rhs
+    return torch.matmul(a, b)
 
 
 @register(name="take")

@@ -1,5 +1,5 @@
-"""Serving counters (counterpart of the matching parts of
-``mxnet_tpu/profiler.py``).
+"""Serving, training and pass counters (counterpart of the matching parts
+of ``mxnet_tpu/profiler.py``).
 
 - ``generate_record`` / ``generate_stats`` / ``generate_reset``:
   request/prefill/decode-step/token counts, finish reasons, requests shed
@@ -11,6 +11,15 @@
   counters of the dynamic-batching ``ModelServer`` (requests, batches,
   rows against bucket capacity, shed, errors, queue depth, request
   latency p50/p99).
+- ``pass_record`` / ``pass_stats`` / ``pass_reset``: per IR pass, rule
+  hits, nodes rewritten, the remat plan's saved and recomputed node
+  counts and the layout pass's cancelled transposes.
+- ``health_record`` / ``health_sentinel`` / ``health_stats`` /
+  ``health_reset``: reaction-side event counters and the newest drained
+  snapshot of ``TrainStep``'s sentinel counters.
+- ``h2d_record`` / ``pipeline_stats`` / ``pipeline_reset``: the host
+  syncs a training loop made (``host_syncs``); the JAX package's other
+  input-pipeline counters have no writer in the port.
 
 Unknown counter names raise.
 """
@@ -156,3 +165,126 @@ def serving_reset():
     with _SERVE_LOCK:
         _SERVE.clear()
 
+
+
+# ---------------------------------------------------------------------------
+# IR pass counters
+# ---------------------------------------------------------------------------
+_PASS_LOCK = threading.Lock()
+_PASS_COUNTERS = ("hits", "rewritten", "remat_saved", "remat_recomputed",
+                  "transposes_cancelled")
+_PASS = {}
+
+
+def pass_record(pass_name, rule=None, **adds):
+    """Accumulate IR-pass counters (thread-safe). ``rule`` attributes
+    ``hits`` to that rule under the pass. Unknown counter names raise."""
+    with _PASS_LOCK:
+        s = _PASS.get(pass_name)
+        if s is None:
+            s = _PASS[pass_name] = {k: 0 for k in _PASS_COUNTERS}
+            s["rules"] = {}
+        for k, v in adds.items():
+            if k not in _PASS_COUNTERS:
+                raise ValueError("pass_record: unknown counter %r" % k)
+            s[k] += int(v)
+        if rule is not None and adds.get("hits"):
+            s["rules"][rule] = s["rules"].get(rule, 0) + int(adds["hits"])
+
+
+def pass_stats(reset=False):
+    """``{"passes": {name: {hits, nodes_rewritten, remat_saved,
+    remat_recomputed, transposes_cancelled, rules}}}``; empty dict when no
+    pass ran."""
+    with _PASS_LOCK:
+        snap = {name: dict(s, rules=dict(s["rules"]))
+                for name, s in _PASS.items()}
+        if reset:
+            _PASS.clear()
+    if not snap:
+        return {}
+    return {"passes": {
+        name: {"hits": s["hits"], "nodes_rewritten": s["rewritten"],
+               "remat_saved": s["remat_saved"],
+               "remat_recomputed": s["remat_recomputed"],
+               "transposes_cancelled": s["transposes_cancelled"],
+               "rules": s["rules"]}
+        for name, s in snap.items()}}
+
+
+def pass_reset():
+    with _PASS_LOCK:
+        _PASS.clear()
+
+
+# ---------------------------------------------------------------------------
+# training health: event counters plus the newest sentinel snapshot (a
+# gauge: the sentinel's counters accumulate on the device, so the newest
+# drain is the cumulative value)
+# ---------------------------------------------------------------------------
+_HEALTH_LOCK = threading.Lock()
+_HEALTH_EVENTS = {}
+_HEALTH_SENTINEL = {}
+
+
+def health_record(**adds):
+    """Accumulate integer reaction-side counters (rollbacks=1, ...)."""
+    with _HEALTH_LOCK:
+        for k, v in adds.items():
+            _HEALTH_EVENTS[k] = _HEALTH_EVENTS.get(k, 0) + int(v)
+
+
+def health_sentinel(snapshot):
+    """Replace the sentinel gauge with the newest drained counters
+    (``TrainStep.health_stats``)."""
+    with _HEALTH_LOCK:
+        _HEALTH_SENTINEL.clear()
+        _HEALTH_SENTINEL.update(snapshot or {})
+
+
+def health_stats(reset=False):
+    """``{event counters..., "sentinel": newest snapshot}``; empty dict
+    when nothing was recorded."""
+    with _HEALTH_LOCK:
+        snap = dict(_HEALTH_EVENTS)
+        sent = dict(_HEALTH_SENTINEL)
+        if reset:
+            _HEALTH_EVENTS.clear()
+            _HEALTH_SENTINEL.clear()
+    if sent:
+        snap["sentinel"] = sent
+    return snap
+
+
+def health_reset():
+    with _HEALTH_LOCK:
+        _HEALTH_EVENTS.clear()
+        _HEALTH_SENTINEL.clear()
+
+
+# ---------------------------------------------------------------------------
+# host syncs of the training loop
+# ---------------------------------------------------------------------------
+_PIPE_LOCK = threading.Lock()
+_PIPE = {"host_syncs": 0}
+
+
+def h2d_record(host_syncs=0):
+    """Count host syncs a training loop made (``TrainStep``'s ``halt``
+    sentinel reads its health word once a step)."""
+    with _PIPE_LOCK:
+        _PIPE["host_syncs"] += int(host_syncs)
+
+
+def pipeline_stats(reset=False):
+    """``{"host_syncs": n}``; empty dict when nothing was recorded."""
+    with _PIPE_LOCK:
+        snap = dict(_PIPE)
+        if reset:
+            _PIPE["host_syncs"] = 0
+    return snap if snap["host_syncs"] else {}
+
+
+def pipeline_reset():
+    with _PIPE_LOCK:
+        _PIPE["host_syncs"] = 0

@@ -144,7 +144,7 @@ def test_fusion_pass_is_a_pass(graphs):
                             data_shapes={"data": SHAPE})
     assert _op_counts(again) == _op_counts(graphs["port_fused"])
     with pytest.raises(ir.PassError, match="not ported"):
-        ir.apply_passes(graphs["port_unfused"], passes="residual")
+        ir.apply_passes(graphs["port_unfused"], passes="quantize")
 
 
 def test_apply_passes_guards_output_shapes(graphs, monkeypatch):
@@ -155,7 +155,7 @@ def test_apply_passes_guards_output_shapes(graphs, monkeypatch):
 
     class ToPool:
         def apply(self, symbol):
-            return pooled
+            return pooled, {"pass": "fusion"}
 
     monkeypatch.setitem(ir.PASSES, "fusion", ToPool)
     with pytest.raises(ir.PassError, match="output shapes"):
