@@ -28,8 +28,9 @@ the kernels are built for sm_90a) and ``nvcc``. It
    against the one-shot forward on the card;
 5. holds the fused ResNet convolution (B1: BN-apply + ReLU prologue,
    stats epilogue) against its plain version at every shape of a
-   ResNet-50 forward at each batch of the serving ladder (1, 4, 16, 64),
-   in bf16 and fp32, with and without the stats, and
+   ResNet-50 forward at each batch of the serving ladder (1, 4, 16, 64)
+   and at a data-parallel rank's 32 rows, in bf16 and fp32, with and
+   without the stats, and
    times the kernel, the plain version and the library equivalent (cuDNN
    on the already-activated input, plus the BN-apply + ReLU it saves) at
    each shape;
@@ -55,8 +56,9 @@ the kernels are built for sm_90a) and ``nvcc``. It
    rebuilt by the next BN's backward) and B3 (data gradient with that
    rebuild, the input BN's relu mask and its (dbeta, dgamma) sums, the
    shortcut's extra term), against their plain versions at every call of
-   a ResNet-50 train step, with the options each call uses, at batch 64
-   and 2, in bf16 (every call on the tensor cores) and fp32, and times the
+   a ResNet-50 train step, with the options each call uses, at batch 64,
+   32 (a data-parallel rank's rows) and 2, in bf16 (every call on the
+   tensor cores) and fp32, and times the
    kernels, the plain versions and the library route (the elementwise
    parts, then cuDNN's weight-only or input-only convolution backward);
 11. computes one step's gradients of a tiny fp32 fused ResNet on the card
@@ -76,9 +78,28 @@ the kernels are built for sm_90a) and ``nvcc``. It
    (transposes, copies a step, losses within 1e-2 of passes off); the
    sentinel on a batch with one NaN pixel (record and skip with no host
    sync, skip leaving params, optimizer state and aux bit for bit, halt
-   raising); ``metric_stats`` against the host's numpy;
+   raising; the NaN reaches the loss: the prologue ReLU passes it on);
+   ``metric_stats`` against the host's numpy;
 14. runs ``Module.fit`` on the fused ResNet-50 (fp32, batch 64, 8 batches);
-15. prints one JSON line describing each kernel, then the result line
+15. trains the same net data parallel, one process a device over
+   ``torch.distributed``, at global batch 64: ``TrainStep(mesh=
+   make_mesh({"dp": 1}))`` over NCCL in bf16 for 3 steps, bit for bit
+   ``mesh=None`` from the same init (a one-rank mesh runs no collective),
+   52/52/48 launches a step, a profiled step with its NCCL kernels; then 2
+   ranks sharing the card over gloo (NCCL refuses two ranks on one device;
+   the kernels are built before they start), fp32, 32 rows a rank (B1-B3
+   are held against their plain versions at 32 rows in steps 4 and 8):
+   the tiny fused ResNet's first loss, gradients and 3 losses within 1e-4
+   of one device; at full width the first loss within 1e-4, the whole
+   gradient as close to one device's as one device's with the batch
+   reordered (2x), and each tensor within 1e-4 or 2x its largest gap
+   under 3 reorders; the ranks' params, aux
+   and optimizer state bit for bit equal, ZeRO within rtol 1e-5 / atol 1e-6
+   of the replicated update at <= 0.51 of its optimizer bytes a rank, and
+   ``Module.fit(kvstore="tpu")`` over 4 copies of one batch with the
+   same params and metric on both ranks. Rates of the shared card are not
+   scaling rates;
+16. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -141,6 +162,11 @@ GRAD_BATCH, GRAD_TOL = (2, 257), 1e-4
 # image serving: fused ResNet-50 at full width on the serving ladder
 RESNET = dict(num_classes=1000, num_layers=50, image_shape=(3, 224, 224))
 RESNET_LADDER = (1, 4, 16, 64)
+# the data-parallel path (dp_training_phase): a global batch of 64 over 2
+# ranks, 3 steps. B1-B3 are held against their plain versions at the rows
+# a rank holds too
+DP_BATCH, DP_STEPS, DP_RANKS = 64, 3, 2
+DP_RANK_ROWS = DP_BATCH // DP_RANKS
 RESNET_REQUESTS, RESNET_MAX_IMAGES, RESNET_THREADS = 48, 16, 4
 RESNET_CHECK_IMAGES = 16
 # B1 launches per forward: 3 per unit, 4 in each of the 4 downsample units
@@ -172,12 +198,13 @@ B3_PER_STEP = RESNET_UNITS * 3
 # Xavier FC give logits of std ~0.5, so ~7.0; the band allows twice that
 RESNET_FIRST_LOSS, RESNET_FIRST_LOSS_TOL = 6.91, 0.5
 # B2 and B3 against their plain versions at the calls of a train step at
-# batch 64 and at batch 2 (ragged tiles). B3 is held as B1 is (CONV_TOL,
+# batch 64, at a data-parallel rank's 32 rows and at batch 2 (ragged
+# tiles). B3 is held as B1 is (CONV_TOL,
 # per input pixel; its stats per channel against the channel's sum of
 # |e| and of |e * xhat|). B2 per (tap, Co) column of dw against the
 # column's largest sum of |terms|: both sides multiply the same rounded
 # operands in f32, so only the order of the sums differs, in both types
-GRAD_CHECK_BATCHES = (RESNET_TRAIN_BATCH, 2)
+GRAD_CHECK_BATCHES = (RESNET_TRAIN_BATCH, DP_RANK_ROWS, 2)
 WGRAD_TOL = 1e-4
 # the stage-1 3x3, as conv2 of a stage-1 unit calls them: (n, h, ci, co, k,
 # stride), the g side rebuilt by bn3's backward
@@ -402,7 +429,7 @@ def _device_profile(torch, fn, top=8, also=()):
     """Run ``fn`` under torch.profiler and print the device busy share of
     its wall time (merged kernel intervals over the host-clock window), the
     device kernels that take the most time, and those whose names hold a
-    string of ``also``."""
+    string of ``also``; returns the names of those last (a list)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -422,7 +449,7 @@ def _device_profile(torch, fn, top=8, also=()):
     if not busy:
         print("profile: device busy share not measured (the profiler saw "
               "no device time)")
-        return
+        return []
     print("profile: wall %.1f ms, device busy %.1f ms = %.3f of wall "
           "(idle %.3f), %d kernel launches"
           % (wall_us / 1e3, busy / 1e3, busy / wall_us, 1 - busy / wall_us,
@@ -441,6 +468,7 @@ def _device_profile(torch, fn, top=8, also=()):
         print("profile:   %7.2f ms %5.1f%% of busy  x%-5d %s"
               % (dev_us(e) / 1e3, 100 * dev_us(e) / busy, e.count,
                  e.key[:90]))
+    return [e.key for e in kernels if any(name in e.key for name in also)]
 
 
 def _inputs(torch, gen, shapes, dt):
@@ -917,8 +945,8 @@ def _conv_bound(n, h, ci, co, k, stride, dtype, stats):
 
 def conv_kernel_phase(torch, fb):
     """B1 against its plain version on the card at every shape of a
-    ResNet-50 forward, at every batch of the serving ladder; times at
-    batch 64. Returns the JSON entry fields measured here, at the stage-1
+    ResNet-50 forward, at every batch of the serving ladder and at a
+    data-parallel rank's rows; times at batch 64. Returns the JSON entry fields measured here, at the stage-1
     3x3 shape (launches are filled in by the serving phase)."""
     import torch.nn.functional as F
 
@@ -939,7 +967,7 @@ def conv_kernel_phase(torch, fb):
     shapes = sorted((h, ci, co, k, s)
                     for (_n, h, ci, co, k, s) in _resnet_conv_calls(1))
     main_err = None
-    for n in RESNET_LADDER:
+    for n in RESNET_LADDER + (DP_RANK_ROWS,):
         for dt in ("float32", "bfloat16"):
             worst = {"row": (0.0, None), "stats": (0.0, None)}
             for (h, ci, co, k, s) in shapes:
@@ -1343,8 +1371,8 @@ def _grad_call(fb, key, ops, plain=False):
 
 def conv_grad_kernel_phase(torch, fb):
     """B2 and B3 against their plain versions at every call of a ResNet-50
-    train step (the options each call uses), at batch 64 and 2, in bf16 and
-    fp32; times at batch 64 in bf16. Returns their JSON entry fields,
+    train step (the options each call uses), at batch 64, 32 (a
+    data-parallel rank's rows) and 2, in bf16 and fp32; times at batch 64 in bf16. Returns their JSON entry fields,
     measured at the stage-1 3x3 (launches are filled in by the training
     phase)."""
     if torch.backends.cudnn.allow_tf32:
@@ -1857,13 +1885,14 @@ def trainstep_options_phase(torch, np, fb):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     rec = ts.health_stats(carry)
-    # the NaN pixel always reaches the gradients (the stem's BatchNorm
-    # statistics); whether it reaches the loss depends on the fused units'
-    # prologue ReLU, which on the card maps NaN to 0 (ROADMAP Queue C, C6)
+    # the NaN pixel reaches the stem's BatchNorm statistics, hence the
+    # gradients, and through the fused units' prologue ReLU, which passes a
+    # NaN on as jnp.maximum does, the loss
     print("trainstep sentinel record: 3 steps, the last 2 without a host "
           "sync; %s" % rec)
     if (rec["healthy"], rec["unhealthy"], rec["skipped"], rec["consec"],
-            rec["nonfinite_grad"]) != (2, 1, 0, 1, 1):
+            rec["nonfinite_loss"], rec["nonfinite_grad"]) != \
+            (2, 1, 0, 1, 1, 1):
         raise RuntimeError("trainstep sentinel record: counters %s" % rec)
 
     ts = step_of(sentinel="skip")
@@ -2158,6 +2187,511 @@ def module_fit_phase(torch, np, fb):
     return launches
 
 
+# data parallelism on the fused ResNet-50 (bench.py's TrainStep(mesh=) and
+# Module.fit(kvstore="tpu")): one process a device over torch.distributed.
+# The host has one card, so this measures correctness, not scaling: a mesh
+# of one rank over NCCL, then two ranks sharing cuda:0 over gloo (NCCL
+# refuses two ranks on one device). Rates printed from the two ranks are of
+# two processes sharing one card. DP_BATCH, DP_STEPS, DP_RANKS: above.
+# the 2-rank fp32 step against one device at the same global batch. On the
+# tiny fused ResNet (64x64 images), whose gradients are well conditioned:
+# the loss, each gradient tensor against its largest |value| floored at 1%
+# of the largest of any (bn0's gamma has an exact gradient of 0), and 3
+# losses, within DP_GRAD_TOL. At full width the Xavier-init fp32 gradients
+# are not: any other order of the same sums moves the worst tensors by a
+# few percent (this phase prints both gaps), so there the first loss is
+# held to DP_GRAD_TOL, the whole gradient's relative L2 gap to one device
+# at most DP_GAP_RATIO times the gap one device shows when the batch's
+# rows come in another order (the same sums in another order), and each
+# tensor's gap (as on the tiny net) within DP_GRAD_TOL or at most
+# DP_GAP_RATIO times the largest of that tensor's gaps under DP_REORDERS
+# such orders: a unit whose sum is dropped or whose kernel is wrong moves
+# its own tensors by far more than rounding does
+DP_GRAD_TOL = 1e-4
+DP_GAP_RATIO = 2.0
+DP_REORDERS = 3
+# ZeRO against the replicated update on the same ranks
+DP_ZERO_RTOL, DP_ZERO_ATOL = 1e-5, 1e-6
+DP_TIMEOUT = 420
+
+
+def _param_digest(params):
+    """One sha256 over every param's bytes, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_steps(torch, ts, carry, batch, steps):
+    """``steps`` synchronized steps: (carry, losses, seconds)."""
+    losses, secs = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, loss = ts(carry, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return carry, losses, secs
+
+
+def _dp_one_rank_nccl(torch, np, fb):
+    """TrainStep(mesh=make_mesh({"dp": 1})) over NCCL against mesh=None
+    from the same init, bf16: 3 steps each, bit for bit; launches of the
+    mesh's steps; a profiled mesh step with its NCCL kernels."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import TrainStep, make_mesh
+
+    n = DP_BATCH
+    sym = resnet.get_symbol(fused=True, **RESNET)
+    one = TrainStep(sym, RESNET_OPT, compute_dtype="bfloat16", device=CARD)
+    init = one.init_params({"data": (n,) + RESNET["image_shape"],
+                            "softmax_label": (n,)}, initializer=Xavier(),
+                           seed=0)
+    batch = _resnet_batch(np, 0, n)
+
+    def fresh():
+        return [{k: v.clone() for k, v in d.items()} for d in init]
+
+    carry_one, l_one, s_one = _dp_steps(torch, one, one.place(*fresh()),
+                                        batch, DP_STEPS)
+    mesh = make_mesh({"dp": 1})
+    try:
+        ts = TrainStep(sym, RESNET_OPT, mesh=mesh, compute_dtype="bfloat16")
+        carry = ts.place(*fresh())
+        torch.cuda.reset_peak_memory_stats()
+        _reset_fb_counts(fb)
+        carry, l_mesh, s_mesh = _dp_steps(torch, ts, carry, batch, DP_STEPS)
+        launches, core = _fb_counts(fb), _core_routes(fb)
+        peak = torch.cuda.max_memory_allocated()
+        same = [all(torch.equal(a[k], b[k]) for k in a)
+                for a, b in ((carry[0], carry_one[0]),
+                             (carry[2], carry_one[2]),
+                             (carry[1], carry_one[1]))]
+        print("dp nccl 1 rank (backend %s, world %d), bf16, batch %d: losses "
+              "%s vs mesh=None %s; params, aux, optimizer state bit for bit "
+              "%s; step times %s s (mesh=None %s s); peak memory %.2f GiB; "
+              "launches B1 %d, B2 %d, B3 %d in %d steps, on the CUDA cores "
+              "%d/%d/%d"
+              % (dist.get_backend(), dist.get_world_size(), n,
+                 " ".join("%.5f" % x for x in l_mesh),
+                 " ".join("%.5f" % x for x in l_one), same,
+                 " ".join("%.4f" % x for x in s_mesh),
+                 " ".join("%.4f" % x for x in s_one), peak / 2 ** 30,
+                 *launches, DP_STEPS, *core))
+        nccl = _device_profile(torch, lambda: ts(carry, batch), top=6,
+                               also=("nccl", "Nccl"))
+        # a one-rank mesh has no data group: no collective runs
+        print("dp nccl: NCCL kernels in the profiled step: %s"
+              % (", ".join(k[:60] for k in nccl) or "none"))
+    finally:
+        del mesh
+        dist.destroy_process_group()
+    want = tuple(c * DP_STEPS for c in (B1_PER_FORWARD, B2_PER_STEP,
+                                        B3_PER_STEP))
+    if l_mesh != l_one or not all(same):
+        raise RuntimeError("dp nccl: the mesh of one rank is not bit for bit "
+                           "mesh=None: losses %s vs %s, params/aux/opt %s"
+                           % (l_mesh, l_one, same))
+    if launches != want or any(core):
+        raise RuntimeError("dp nccl: launches %s, want %s; CUDA cores %s"
+                           % (launches, want, core))
+    return launches
+
+
+def _dp_gloo_rank(rank, world, port, out_dir):
+    """One of the ranks sharing cuda:0 over gloo (a spawned process)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from mxnet_tpu_torch.kernels import fused_block as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # ZeRO against replicated compares runs bit for bit where the math is
+    # elementwise: cuDNN's backward must not pick an atomic algorithm
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port,
+                            rank=rank, world_size=world)
+    try:
+        res = _dp_gloo_work(torch, np, fb, rank, world)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+
+
+def _grad_errs(grads, ref):
+    """Each tensor's largest error against its largest |value|, floored at
+    1% of the largest of any, sorted."""
+    floor = 1e-2 * max(g.abs().max().item() for g in ref.values())
+    return sorted((((grads[k] - g).abs().max()
+                    / g.abs().max().clamp_min(floor)).item(), k)
+                  for k, g in ref.items())
+
+
+def _l2_gap(grads, ref):
+    """The whole gradient's relative L2 distance to ``ref``."""
+    num = sum(float((grads[k].double() - g.double()).square().sum())
+              for k, g in ref.items())
+    den = sum(float(g.double().square().sum()) for g in ref.values())
+    return math.sqrt(num / den)
+
+
+def _dp_tiny(torch, np, mesh, rank):
+    """The tiny fused ResNet at global batch 64 on the ranks against one
+    device: the first loss, the gradients, 3 losses."""
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    n = DP_BATCH
+    sym = resnet.resnet(fused=True, **TINY_RESNET)
+    shape = (n, 3) + TINY_RESNET["image_shape"][1:]
+    rng = np.random.RandomState(4)
+    batch = {"data": rng.randn(*shape).astype(np.float32),
+             "softmax_label": rng.randint(0, TINY_RESNET["num_classes"],
+                                          (n,)).astype(np.float32)}
+    ts = TrainStep(sym, RESNET_OPT, mesh=mesh)
+    init = ts.init_params({"data": shape, "softmax_label": (n,)},
+                          initializer=Xavier(), seed=0)
+    copies = [[{k: v.clone() for k, v in d.items()} for d in init]
+              for _ in range(3)]
+    carry = ts.place(*copies[0])
+    loss, grads, _ = ts.value_and_grad(carry[0], carry[2], batch)
+    _c, losses, _s = _dp_steps(torch, ts, carry, batch, DP_STEPS)
+    out = {"first_loss": float(loss), "losses": losses,
+           "digest": _param_digest(_c[0])}
+    if rank == 0:
+        ref = TrainStep(sym, RESNET_OPT, device=CARD)
+        p, _o, a = copies[1]
+        rloss, rgrads, _ = ref.value_and_grad(p, a, batch)
+        _c, rlosses, _s = _dp_steps(torch, ref, ref.place(*copies[2]),
+                                    batch, DP_STEPS)
+        out.update(ref_first_loss=float(rloss), ref_losses=rlosses,
+                   grad_errs=_grad_errs(grads, rgrads)[-3:],
+                   grad_tensors=len(rgrads))
+    return out
+
+
+def _dp_gloo_work(torch, np, fb, rank, world):
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import TrainStep, make_mesh
+
+    n = DP_BATCH
+    shapes = {"data": (n,) + RESNET["image_shape"], "softmax_label": (n,)}
+    sym = resnet.get_symbol(fused=True, **RESNET)
+    mesh = make_mesh({"dp": world}, backend="gloo")
+    batch = _resnet_batch(np, 0, n)
+    res = {"rank": rank, "tiny": _dp_tiny(torch, np, mesh, rank)}
+
+    def step_of(zero=False):
+        return TrainStep(sym, RESNET_OPT, mesh=mesh, zero=zero)
+
+    ts = step_of()
+    init = ts.init_params(shapes, initializer=Xavier(), seed=0)
+
+    def fresh():
+        return [{k: v.clone() for k, v in d.items()} for d in init]
+
+    # the first step's loss and gradients of the global batch; on rank 0,
+    # one device's, on the batch and on its rows in DP_REORDERS other orders
+    carry = ts.place(*fresh())
+    loss, grads, _aux = ts.value_and_grad(carry[0], carry[2], batch)
+    res["first_loss"] = float(loss)
+    if rank == 0:
+        ref = TrainStep(sym, RESNET_OPT, device=CARD)
+        p, _o, a = fresh()
+        rloss, rgrads, _ = ref.value_and_grad(p, a, batch)
+        errs = {k: e for e, k in _grad_errs(grads, rgrads)}
+        envelope, perm_gaps = dict.fromkeys(errs, 0.0), []
+        for seed in range(1, 1 + DP_REORDERS):
+            perm = np.random.RandomState(seed).permutation(n)
+            p, _o, a = fresh()
+            _pl, pgrads, _ = ref.value_and_grad(
+                p, a, {k: v[perm] for k, v in batch.items()})
+            for e, k in _grad_errs(pgrads, rgrads):
+                envelope[k] = max(envelope[k], e)
+            perm_gaps.append(_l2_gap(pgrads, rgrads))
+            del pgrads
+        # each tensor's gap over its limit, the largest first
+        ratios = sorted(((errs[k] / max(DP_GAP_RATIO * envelope[k],
+                                        DP_GRAD_TOL), k, errs[k],
+                          envelope[k]) for k in errs), reverse=True)
+        res.update(ref_first_loss=float(rloss),
+                   grad_errs=sorted((e, k) for k, e in errs.items())[-3:],
+                   perm_errs=sorted((e, k) for k, e in envelope.items())[-3:],
+                   tensor_ratios=ratios[:3],
+                   tensors_over=[r for r in ratios if r[0] > 1.0],
+                   gap=_l2_gap(grads, rgrads), perm_gap=perm_gaps[0],
+                   perm_gaps=perm_gaps, grad_tensors=len(rgrads))
+        del rgrads
+    del grads
+    # 3 replicated steps, timed, with their launches and memory
+    torch.cuda.reset_peak_memory_stats()
+    _reset_fb_counts(fb)
+    carry, res["losses"], res["secs"] = _dp_steps(torch, ts, carry, batch,
+                                                  DP_STEPS)
+    res["launches"], res["core_routes"] = _fb_counts(fb), _core_routes(fb)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["digest"] = _param_digest(carry[0])
+    res["aux_digest"] = _param_digest(carry[2])
+    res["opt_digest"] = _param_digest(carry[1])
+    res["memory"] = ts.memory_stats(carry)
+    rep_params = {k: v.clone() for k, v in carry[0].items()}
+    # a fourth step, profiled on rank 0: every rank runs it (a collective)
+    if rank == 0:
+        _device_profile(torch, lambda: ts(carry, batch), top=6,
+                        also=("nccl", "Memcpy"))
+    else:
+        ts(carry, batch)
+        torch.cuda.synchronize()
+    del carry
+    if rank == 0:
+        ref_carry = ref.place(*fresh())
+        _c, res["ref_losses"], res["ref_secs"] = _dp_steps(
+            torch, ref, ref_carry, batch, DP_STEPS)
+        del ref, ref_carry, _c
+    gc.collect()
+    # ZeRO from the same init against the replicated run
+    zs = step_of(zero=True)
+    zcarry = zs.place(*fresh())
+    zcarry, res["zero_losses"], res["zero_secs"] = _dp_steps(
+        torch, zs, zcarry, batch, DP_STEPS)
+    res["zero_memory"] = zs.memory_stats(zcarry)
+    bad = [k for k, v in rep_params.items()
+           if not torch.allclose(zcarry[0][k], v, rtol=DP_ZERO_RTOL,
+                                 atol=DP_ZERO_ATOL)]
+    res["zero_param_mismatches"] = bad
+    res["zero_max_abs"] = max((zcarry[0][k] - v).abs().max().item()
+                              for k, v in rep_params.items())
+    res["zero_digest"] = _param_digest(zcarry[0])
+    del zs, zcarry, rep_params
+    gc.collect()
+    res["fit"] = _dp_module_fit(torch, np, fb, n)
+    return res
+
+
+def _dp_module_fit(torch, np, fb, n):
+    """Module.fit(kvstore="tpu") on this rank: one epoch over 4 copies of
+    one batch, fp32, with accuracy and cross-entropy kept on the card."""
+    import logging
+
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(0)
+    one = rng.randn(n, *RESNET["image_shape"]).astype(np.float32)
+    labels = rng.randint(0, RESNET["num_classes"], (n,)).astype(np.float32)
+    it = mx.io.NDArrayIter(np.concatenate([one] * FIT_COPIES),
+                           np.concatenate([labels] * FIT_COPIES),
+                           batch_size=n)
+    from mxnet_tpu_torch.models import resnet
+
+    mod = mx.mod.Module(resnet.get_symbol(fused=True, **RESNET),
+                        context=mx.gpu(0))
+    metric = mx.metric.create(["acc", "ce"])
+    per = []
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        per.append(time.perf_counter())
+
+    logging.getLogger().setLevel(logging.WARNING)
+    mx.random.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_fb_counts(fb)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, kvstore="tpu", optimizer="sgd",
+            optimizer_params=FIT_OPT, initializer=mx.init.Xavier(),
+            eval_metric=metric, batch_end_callback=on_batch)
+    res = {"fused": mod._fused is not None,
+           "mesh_ranks": int(mod._kvstore.mesh.size()),
+           "metric": dict(metric.get_name_value()),
+           "secs": [b - a for a, b in zip([t0] + per[:-1], per)],
+           "launches": _fb_counts(fb),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "digest": _param_digest({k: v.tensor for k, v in
+                                    mod.get_params()[0].items()})}
+    it.reset()
+    data_batch = next(iter(it))
+    _device_profile(torch, lambda: mod.forward_backward(data_batch), top=4)
+    return res
+
+
+def dp_training_phase(torch, np, fb):
+    """Data-parallel training of the fused ResNet-50 at global batch 64: a
+    mesh of one rank over NCCL (bit for bit mesh=None), then 2 ranks sharing
+    the card over gloo (fp32 against one device, ZeRO against replicated,
+    Module.fit(kvstore="tpu")). Returns (B1, B2, B3) launches of the NCCL
+    mesh's steps and of each gloo rank's replicated steps."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as tmp_mp
+
+    gc.collect()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        nccl = _dp_one_rank_nccl(torch, np, fb)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out_dir = tempfile.mkdtemp(prefix="dp_ranks_")
+    try:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        ctx = tmp_mp.start_processes(_dp_gloo_rank,
+                                     args=(DP_RANKS, port, out_dir),
+                                     nprocs=DP_RANKS, join=False,
+                                     start_method="spawn")
+        deadline = time.monotonic() + DP_TIMEOUT
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise RuntimeError("dp gloo: the ranks did not finish "
+                                       "within %d s" % DP_TIMEOUT)
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(out_dir, "rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    r0 = ranks[0]
+    n = DP_BATCH
+    tiny = r0["tiny"]
+    tiny_gaps = [abs(a - b) / abs(b) for a, b in zip(
+        [tiny["first_loss"]] + tiny["losses"],
+        [tiny["ref_first_loss"]] + tiny["ref_losses"])]
+    print("dp gloo %d ranks sharing one card (%.1f s with start-up), fp32, "
+          "global batch %d (%d rows a rank); tiny fused ResNet: first loss "
+          "%.7f vs one device %.7f, losses %s vs %s (worst gap %.3g), "
+          "worst gradients %s of %d tensors (tol %g)"
+          % (DP_RANKS, wall, n, n // DP_RANKS, tiny["first_loss"],
+             tiny["ref_first_loss"],
+             " ".join("%.7f" % x for x in tiny["losses"]),
+             " ".join("%.7f" % x for x in tiny["ref_losses"]),
+             max(tiny_gaps), ", ".join("%.3g at %s" % tuple(e)
+                                       for e in tiny["grad_errs"]),
+             tiny["grad_tensors"], DP_GRAD_TOL))
+    first_gap = abs(r0["first_loss"] - r0["ref_first_loss"]) / \
+        abs(r0["ref_first_loss"])
+    print("dp gloo full width: first loss %.6f vs one device %.6f (gap "
+          "%.3g, tol %g); whole-gradient relative L2 gap %.4g against one "
+          "device, %.4g for one device with the rows reordered (ratio %.3g, "
+          "limit %g; the other reorders %s); worst tensors, ranks %s, "
+          "largest of %d reorders %s; each tensor's gap over max(%g x its "
+          "largest reordered gap, %g): worst %s, %d of %d over 1; losses %s "
+          "vs one device %s"
+          % (r0["first_loss"], r0["ref_first_loss"], first_gap, DP_GRAD_TOL,
+             r0["gap"], r0["perm_gap"], r0["gap"] / r0["perm_gap"],
+             DP_GAP_RATIO, " ".join("%.4g" % x for x in r0["perm_gaps"][1:]),
+             ", ".join("%.3g at %s" % tuple(e) for e in r0["grad_errs"]),
+             DP_REORDERS,
+             ", ".join("%.3g at %s" % tuple(e) for e in r0["perm_errs"]),
+             DP_GAP_RATIO, DP_GRAD_TOL,
+             ", ".join("%.3g at %s (%.3g vs %.3g)" % tuple(e)
+                       for e in r0["tensor_ratios"]),
+             len(r0["tensors_over"]), r0["grad_tensors"],
+             " ".join("%.6f" % x for x in r0["losses"]),
+             " ".join("%.6f" % x for x in r0["ref_losses"])))
+    for r in ranks:
+        print("dp gloo rank %d: step times %s s (two processes share one "
+              "card: not a scaling rate); peak memory %.2f GiB; launches "
+              "B1 %d, B2 %d, B3 %d in %d steps, on the CUDA cores %s; "
+              "ZeRO step times %s s; optimizer bytes %d replicated, %d "
+              "ZeRO (%.4f); ZeRO params vs replicated: max |diff| %.3g, "
+              "%d outside rtol %g atol %g"
+              % (r["rank"], " ".join("%.4f" % x for x in r["secs"]),
+                 r["peak_gib"], *r["launches"], DP_STEPS, r["core_routes"],
+                 " ".join("%.4f" % x for x in r["zero_secs"]),
+                 r["memory"]["opt_bytes_per_dev"],
+                 r["zero_memory"]["opt_bytes_per_dev"],
+                 r["zero_memory"]["opt_bytes_per_dev"]
+                 / r["memory"]["opt_bytes_per_dev"],
+                 r["zero_max_abs"], len(r["zero_param_mismatches"]),
+                 DP_ZERO_RTOL, DP_ZERO_ATOL))
+        f = r["fit"]
+        print("dp gloo rank %d Module.fit(kvstore='tpu'): fused group %s, "
+              "mesh of %d ranks, %d batches, seconds a batch %s (shared "
+              "card), peak memory %.2f GiB, metric %s, launches B1 %d, B2 "
+              "%d, B3 %d"
+              % (r["rank"], f["fused"], f["mesh_ranks"], len(f["secs"]),
+                 " ".join("%.4f" % x for x in f["secs"]), f["peak_gib"],
+                 f["metric"], *f["launches"]))
+    print("dp gloo: the one-device reference step times %s s (same card, "
+          "one process)" % " ".join("%.4f" % x for x in r0["ref_secs"]))
+
+    same = {key: len({r[key] for r in ranks}) == 1
+            for key in ("digest", "aux_digest", "opt_digest")}
+    same["tiny"] = len({r["tiny"]["digest"] for r in ranks}) == 1
+    fit_same = len({json.dumps(r["fit"]["metric"], sort_keys=True)
+                    for r in ranks}) == 1 and \
+        len({r["fit"]["digest"] for r in ranks}) == 1
+    print("dp gloo: ranks bit for bit equal: params %s, aux %s, optimizer "
+          "state %s; Module.fit params and metric equal on the ranks %s"
+          % (same["digest"], same["aux_digest"], same["opt_digest"],
+             fit_same))
+    want = tuple(c * DP_STEPS for c in (B1_PER_FORWARD, B2_PER_STEP,
+                                        B3_PER_STEP))
+    fit_want = tuple(c * FIT_COPIES for c in (B1_PER_FORWARD, B2_PER_STEP,
+                                              B3_PER_STEP))
+    if max(tiny_gaps) > DP_GRAD_TOL or \
+            tiny["grad_errs"][-1][0] > DP_GRAD_TOL:
+        raise RuntimeError("dp gloo: 2 ranks differ from one device beyond "
+                           "%g on the tiny net" % DP_GRAD_TOL)
+    if first_gap > DP_GRAD_TOL or \
+            r0["gap"] > DP_GAP_RATIO * r0["perm_gap"] or r0["tensors_over"]:
+        raise RuntimeError("dp gloo: full width, first loss gap %g, gradient "
+                           "gap %g against %g reordered, tensors over their "
+                           "limit %s" % (first_gap, r0["gap"],
+                                         r0["perm_gap"],
+                                         r0["tensors_over"][:5]))
+    if not all(same.values()) or not fit_same:
+        raise RuntimeError("dp gloo: the ranks differ: %s, fit %s"
+                           % (same, fit_same))
+    for r in ranks:
+        zero_ratio = r["zero_memory"]["opt_bytes_per_dev"] / \
+            r["memory"]["opt_bytes_per_dev"]
+        if r["zero_param_mismatches"] or zero_ratio > 0.51 \
+                or not r["zero_memory"]["zero"]:
+            raise RuntimeError("dp gloo rank %d: ZeRO params off %s, bytes "
+                               "ratio %.4f" % (r["rank"],
+                                               r["zero_param_mismatches"][:5],
+                                               zero_ratio))
+        if tuple(r["launches"]) != want or any(r["core_routes"]):
+            raise RuntimeError("dp gloo rank %d: launches %s, want %s"
+                               % (r["rank"], r["launches"], want))
+        f = r["fit"]
+        if not f["fused"] or f["mesh_ranks"] != DP_RANKS or \
+                tuple(f["launches"]) != fit_want or \
+                not all(np.isfinite(list(f["metric"].values()))):
+            raise RuntimeError("dp gloo rank %d: Module.fit %s" % (
+                r["rank"], f))
+    return nccl, [tuple(r["launches"]) for r in ranks]
+
+
 def main():
     import torch
 
@@ -2219,15 +2753,21 @@ def main():
     fit_launches = phase("module_fit", module_fit_phase, torch, np, fb)
     for entry, n in zip([conv, *grads], fit_launches):
         entry["module_fit_launches"] = n
+    dp_nccl, dp_gloo = phase("dp_training", dp_training_phase, torch, np, fb)
+    for i, entry in enumerate([conv, *grads]):
+        entry["dp_launches"] = dp_nccl[i]
+        entry["dp_gloo_launches"] = [r[i] for r in dp_gloo]
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; image serving B1 %d; ResNet-50 "
           "training %d steps B1 %d, B2 %d, B3 %d; TrainStep options %d "
           "steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 %d, B2 %d, "
-          "B3 %d"
+          "B3 %d; data parallel, one rank over NCCL, %d steps B1 %d, B2 %d, "
+          "B3 %d, each of %d gloo ranks %s"
           % (TRAIN_STEPS, *launches, served, conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
              OPTIONS_STEPS * (len(REMAT_MODES) + 1), *options_launches,
-             FIT_EPOCHS * FIT_COPIES, *fit_launches))
+             FIT_EPOCHS * FIT_COPIES, *fit_launches, DP_STEPS, *dp_nccl,
+             DP_RANKS, " / ".join("%d, %d, %d" % r for r in dp_gloo)))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

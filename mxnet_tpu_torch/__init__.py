@@ -5,7 +5,7 @@ layouts and file formats, and imports neither JAX nor ``mxnet_tpu``.
 Entry points run on ``cuda`` (``gpu(0)``) unless the caller passes the
 CPU (``device="cpu"``, ``mx.cpu()``).
 
-Ported so far, five paths over the six hand-written CUDA kernels
+Ported so far, six paths over the six hand-written CUDA kernels
 (``kernels``, all six TPU kernels of the JAX package):
 
 - generative serving: ``models.transformer`` prefill and paged decode
@@ -21,19 +21,26 @@ Ported so far, five paths over the six hand-written CUDA kernels
   ``autograd``, ``random``, ``sym``, ``executor`` (``bind``,
   ``simple_bind``), ``optimizer``, ``metric``, ``io``, ``model``,
   ``callback`` and ``mod.Module.fit``, which trains the fused ResNet on
-  B1–B3 through ``Executor.forward_backward``.
+  B1–B3 through ``Executor.forward_backward``;
+- data-parallel training, one process a device over
+  ``torch.distributed``: ``parallel.TrainStep(mesh=parallel.make_mesh(...))``
+  (ZeRO with ``zero=True``) and ``Module(kvstore='tpu')`` (``kv``), on B1–B3
+  through the fused unit's data-parallel wrappers.
 
 ROADMAP.md lists what remains.
 """
 from . import autograd, callback, io, metric, model, name  # noqa: F401
 from . import initializer, lr_scheduler, optimizer, random  # noqa: F401
+from . import kvstore as kv  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import module as mod  # noqa: F401
+from . import parallel  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve_device
 
+kvstore = kv
 init = initializer
 opt = optimizer
 symbol = sym
@@ -43,4 +50,5 @@ module = mod
 __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "current_context", "AttrScope", "nd", "sym", "autograd",
            "random", "init", "initializer", "opt", "optimizer", "metric",
-           "io", "mod", "model", "callback", "lr_scheduler", "name"]
+           "io", "mod", "model", "callback", "lr_scheduler", "name", "kv",
+           "kvstore", "parallel"]

@@ -50,11 +50,30 @@ KNOBS = {
         "binds; requests pad up to the nearest bucket (serving/predictor.py; "
         "malformed or non-increasing ladders raise)"),
     "MXNET_TPU_ZERO": (
-        "0", "shard the weight update over the data axes (ZeRO); not ported, "
-        "so TrainStep accepts only 0 (parallel/spmd.py)"),
+        "0", "shard the weight update over the data axes (ZeRO): "
+        "reduce-scatter the gradients, update a 1/N optimizer-state shard, "
+        "all-gather the params (parallel/spmd.py, module/spmd_group.py)"),
     "MXNET_TPU_ZERO_WIRE": (
-        "raw", "gradient-shard wire treatment of the ZeRO step; not ported, "
-        "so TrainStep accepts only raw (parallel/spmd.py)"),
+        "raw", "gradient-shard wire treatment of the ZeRO step; the two-bit "
+        "wire is not ported, so TrainStep accepts only raw "
+        "(parallel/spmd.py)"),
+    "MXNET_TPU_ZERO_MIN_SIZE": (
+        "1024", "parameters with fewer elements keep replicated optimizer "
+        "state under ZeRO; integer >= 0 (parallel/spmd.py)"),
+    "MXNET_TPU_MAX_INFLIGHT": (
+        "2", "steps of the fused Module group queued on the card before the "
+        "host waits for the oldest; integer >= 1 (module/spmd_group.py)"),
+    "MXNET_TPU_DEVICE_METRICS": (
+        "1", "keep Module.fit's metric sums on the card (TrainStep "
+        "metric_stats), read at Speedometer/epoch boundaries; 0|1 "
+        "(module/spmd_group.py, metric.py)"),
+    "MXNET_MP_SIZE": (
+        "1", "tensor-parallel mesh axis size; tensor parallelism is not "
+        "ported, so only 1 is accepted (parallel/mesh.py)"),
+    "MXNET_MP_RULES": (
+        "", "parameter-sharding rules 'regex:spec;regex:spec'; sharding a "
+        "parameter is not ported, so a rule that shards raises "
+        "(parallel/spmd.py)"),
     "MXNET_TPU_SENTINEL": (
         "off", "anomaly sentinel of the train step: off|record|skip|halt "
         "(parallel/spmd.py)"),

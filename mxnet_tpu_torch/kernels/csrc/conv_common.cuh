@@ -37,12 +37,13 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 
 // BatchNorm-apply (+ ReLU) of one input value, rounded like the plain
-// version: a rounded multiply, then a rounded add, then the cast to T
+// version: a rounded multiply, then a rounded add, then the cast to T. The
+// ReLU passes a NaN on, as jnp.maximum does (fmaxf alone would return 0)
 template <typename T>
 __device__ __forceinline__ float bn_apply(float v, float scale, float bias,
                                           int relu) {
   v = __fadd_rn(__fmul_rn(v, scale), bias);
-  if (relu) v = fmaxf(v, 0.f);
+  if (relu && v == v) v = fmaxf(v, 0.f);
   return round_to(v, (T*)nullptr);
 }
 

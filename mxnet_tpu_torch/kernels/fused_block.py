@@ -34,13 +34,23 @@ version, a ``meta`` tensor only allocates), and route by shape the same
 way: bfloat16 whose channel counts are multiples of 8 runs on the tensor
 cores, other bfloat16 shapes on the CUDA cores, counted also in
 ``conv_wgrad.core_route_launches`` and ``conv_dgrad.core_route_launches``. :func:`bottleneck_train` is
-one ``torch.autograd.Function`` over them. The JAX ``shard_map``
-wrappers (``bottleneck_train_spmd``, ``bottleneck_infer_spmd``) are not
-ported.
+one ``torch.autograd.Function`` over them.
+
+The data-parallel wrappers (the JAX ``shard_map`` ones, ``spmd_scope``,
+``bottleneck_train_spmd``, ``bottleneck_infer_spmd``) run on one rank's
+rows of the batch, one process a device (``parallel/mesh.py``): the
+training unit all-reduces over the mesh's data axes where the JAX package
+psums, the BatchNorm sums in the forward and, in the backward, the three
+(dbeta, dgamma) sums and the weight gradients in f32 before their cast, so
+its statistics and parameter gradients are the global batch's on every
+rank and its data gradient is the rank's rows'. The inference unit needs
+no collective.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -567,27 +577,46 @@ def _finalize_stats(stats, count, eps):
     return mean, var, torch.rsqrt(var + eps)
 
 
-def _unit_fwd(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3, stride, eps):
+def _all_reduce(t, group):
+    """A sum over the data group (``group`` None: one device, no
+    collective)."""
+    from ..parallel import mesh
+
+    return mesh.all_reduce_(t, group)
+
+
+def _reduce_weight_grads(dws, group):
+    """The unit's weight gradients summed over the data group in f32, one
+    collective for the three or four of them."""
+    from ..parallel import mesh
+
+    return mesh.all_reduce_flat_([d for d in dws if d is not None], group)
+
+
+def _unit_fwd(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3, stride, eps,
+              group=None, axis_size=1):
     """Training forward of the unit: out, the batch statistics (mean, var
-    per BN) and the residuals the backward needs."""
+    per BN) and the residuals the backward needs. With a data ``group``
+    the BatchNorm sums are summed over it and the counts are the local
+    ones times ``axis_size``: global-batch statistics."""
     data = data.contiguous()   # read by conv1, the shortcut and bn1's sums
     n, h, wd, _ci = data.shape
-    n1 = n * h * wd
+    n1 = n * h * wd * axis_size
     xf = data.float()
-    mean1, var1, inv1 = _finalize_stats(
-        torch.stack([xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2))]),
-        n1, eps)
+    s01 = _all_reduce(torch.stack([xf.sum(dim=(0, 1, 2)),
+                                   (xf * xf).sum(dim=(0, 1, 2))]), group)
+    mean1, var1, inv1 = _finalize_stats(s01, n1, eps)
     sc1, bi1 = _bn_consts(g1, b1, mean1, inv1)
 
     y1, st1 = conv_fwd(data, w1, stride=1, prologue=(sc1, bi1, True),
                        emit_stats=True)
-    mean2, var2, inv2 = _finalize_stats(st1, n1, eps)
+    mean2, var2, inv2 = _finalize_stats(_all_reduce(st1, group), n1, eps)
     sc2, bi2 = _bn_consts(g2, b2, mean2, inv2)
 
     y2, st2 = conv_fwd(y1, w2, stride=stride, prologue=(sc2, bi2, True),
                        emit_stats=True)
-    n2 = n * (h // stride) * (wd // stride)
-    mean3, var3, inv3 = _finalize_stats(st2, n2, eps)
+    n2 = n * (h // stride) * (wd // stride) * axis_size
+    mean3, var3, inv3 = _finalize_stats(_all_reduce(st2, group), n2, eps)
     sc3, bi3 = _bn_consts(g3, b3, mean3, inv3)
 
     y3, _ = conv_fwd(y2, w3, stride=1, prologue=(sc3, bi3, True))
@@ -603,17 +632,19 @@ def _unit_fwd(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3, stride, eps):
     return out, stats, res
 
 
-def _unit_bwd(stride, res, g):
+def _unit_bwd(stride, res, g, group=None, axis_size=1):
     """The unit's backward from its residuals and the output gradient ``g``:
     3 B3 and 3 B2 launches, a fourth B2 for the downsample shortcut, whose
     data gradient rides conv1's B3 as its ``extra`` term. Gradients come
-    back in the dtypes of the inputs."""
+    back in the dtypes of the inputs. With a data ``group`` the (dbeta,
+    dgamma) sums and the weight gradients (f32, before the cast) are summed
+    over it, as the JAX package psums them."""
     (data, y1, y2, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3,
      mean1, inv1, mean2, inv2, mean3, inv3) = res
     g = g.contiguous()
     n, h, wd, _ci = data.shape
-    n1 = float(n * h * wd)
-    n2 = float(n * (h // stride) * (wd // stride))
+    n1 = float(n * h * wd * axis_size)
+    n2 = float(n * (h // stride) * (wd // stride) * axis_size)
     sc1, bi1 = _bn_consts(g1, b1, mean1, inv1)
     sc2, bi2 = _bn_consts(g2, b2, mean2, inv2)
     sc3, bi3 = _bn_consts(g3, b3, mean3, inv3)
@@ -621,7 +652,7 @@ def _unit_bwd(stride, res, g):
     # conv3 (1x1 s1): dgrad emits e2 = mask3 * dact3 and (dbeta3, dgamma3)
     e2, st3 = conv_dgrad(g, w3, y2.shape, stride=1,
                          out_mask=(y2, g3, b3, mean3, inv3))
-    dbeta3, dgamma3 = st3[0], st3[1]
+    dbeta3, dgamma3 = _all_reduce(st3, group)
     dw3 = conv_wgrad(y2, g, w3.shape, stride=1, x_prologue=(sc3, bi3, True))
     cb2 = (g3.float() * inv3, mean3, inv3, dbeta3 / n2, dgamma3 / n2)
 
@@ -630,7 +661,7 @@ def _unit_bwd(stride, res, g):
                      x_prologue=(sc2, bi2, True), g_bnbwd=cb2)
     e1, st2 = conv_dgrad((e2, y2), w2, y1.shape, stride=stride, g_bnbwd=cb2,
                          out_mask=(y1, g2, b2, mean2, inv2))
-    dbeta2, dgamma2 = st2[0], st2[1]
+    dbeta2, dgamma2 = _all_reduce(st2, group)
     cb1 = (g2.float() * inv2, mean2, inv2, dbeta2 / n1, dgamma2 / n1)
 
     # conv1 (1x1 s1): the downsample shortcut joins at act1 (extra term)
@@ -639,11 +670,15 @@ def _unit_bwd(stride, res, g):
     extra = None if wsc is None else (g, wsc, stride)
     e0, st1 = conv_dgrad((e1, y1), w1, data.shape, stride=1, g_bnbwd=cb1,
                          out_mask=(data, g1, b1, mean1, inv1), extra=extra)
-    dbeta1, dgamma1 = st1[0], st1[1]
+    dbeta1, dgamma1 = _all_reduce(st1, group)
     dwsc = None
     if wsc is not None:
         dwsc = conv_wgrad(data, g, wsc.shape, stride=stride,
-                          x_prologue=(sc1, bi1, True)).to(wsc.dtype)
+                          x_prologue=(sc1, bi1, True))
+    if group is not None:
+        _reduce_weight_grads((dw1, dw2, dw3, dwsc), group)
+    if dwsc is not None:
+        dwsc = dwsc.to(wsc.dtype)
 
     # bn1's backward to the unit input (elementwise), plus the dim-match
     # shortcut
@@ -663,14 +698,18 @@ class _BottleneckTrain(torch.autograd.Function):
     B3): the counterpart of the JAX ``custom_vjp``. The forward keeps what
     the JAX residuals keep (data, y1, y2, weights, gammas, betas, means and
     inverse sigmas), not y3. The batch statistics are outputs without a
-    gradient: their cotangent is ignored."""
+    gradient: their cotangent is ignored. With a data ``group`` (of
+    ``axis_size`` ranks) it runs the reductions of ``_unit_fwd`` and
+    ``_unit_bwd``: its parameter gradients come back summed over the group
+    (the JAX wrapper's replicated out_specs), the data gradient is the
+    rank's rows'."""
 
     @staticmethod
     def forward(ctx, data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3, stride,
-                eps):
+                eps, group, axis_size):
         out, stats, res = _unit_fwd(data, w1, w2, w3, wsc, g1, b1, g2, b2,
-                                    g3, b3, stride, eps)
-        ctx.stride = stride
+                                    g3, b3, stride, eps, group, axis_size)
+        ctx.stride, ctx.group, ctx.axis_size = stride, group, axis_size
         ctx.save_for_backward(*res)
         ctx.mark_non_differentiable(*stats)
         return (out,) + stats
@@ -678,7 +717,8 @@ class _BottleneckTrain(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g, *_gstats):
-        return _unit_bwd(ctx.stride, ctx.saved_tensors, g) + (None, None)
+        return _unit_bwd(ctx.stride, ctx.saved_tensors, g, ctx.group,
+                         ctx.axis_size) + (None,) * 4
 
 
 def bottleneck_train(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3, stride,
@@ -691,5 +731,60 @@ def bottleneck_train(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3, stride,
     backward launches B3 three times and B2 three times (four with the
     downsample shortcut)."""
     out, *stats = _BottleneckTrain.apply(data, w1, w2, w3, wsc, g1, b1, g2,
-                                         b2, g3, b3, int(stride), float(eps))
+                                         b2, g3, b3, int(stride), float(eps),
+                                         None, 1)
     return out, tuple(stats)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: the unit on one rank's rows, its reductions over the
+# mesh's data axes (the JAX package's shard_map wrappers)
+# ---------------------------------------------------------------------------
+_SPMD_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def spmd_scope(mesh, axes):
+    """Marks the fused ops run inside it as data parallel over ``mesh``'s
+    ``axes``: ``ops/fused.py`` then calls ``bottleneck_train_spmd``, and the
+    batch-reducing ops of ``ops/nn.py`` reduce over the data group.
+    ``TrainStep`` sets it around each step."""
+    prev = getattr(_SPMD_SCOPE, "value", None)
+    _SPMD_SCOPE.value = (mesh, tuple(axes))
+    try:
+        yield
+    finally:
+        _SPMD_SCOPE.value = prev
+
+
+def current_spmd_scope():
+    """``(mesh, axes)`` of the innermost :func:`spmd_scope`, else None."""
+    return getattr(_SPMD_SCOPE, "value", None)
+
+
+def bottleneck_train_spmd(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3,
+                          stride, eps, mesh, axes):
+    """:func:`bottleneck_train` on this rank's rows ``data`` of a batch
+    sharded over ``mesh``'s ``axes``: BatchNorm on the global batch's
+    statistics, returned on every rank; ``out`` is the rank's rows. Through
+    autograd the weight, gamma and beta gradients are the global batch's
+    (summed over the ranks once, here: a caller must not sum them again)."""
+    from ..parallel.mesh import data_group
+
+    group, n, _index = data_group(mesh, axes)
+    out, *stats = _BottleneckTrain.apply(
+        data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3, int(stride),
+        float(eps), group, n)
+    return out, tuple(stats)
+
+
+def bottleneck_infer_spmd(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3,
+                          mm1, mv1, mm2, mv2, mm3, mv3, *, stride, eps, mesh,
+                          axes):
+    """:func:`bottleneck_infer` on this rank's rows: the moving statistics
+    make it per sample, so no collective runs (``mesh`` and ``axes`` are
+    the JAX signature's)."""
+    del mesh, axes
+    return bottleneck_infer(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3,
+                            mm1, mv1, mm2, mv2, mm3, mv3, stride=stride,
+                            eps=eps)

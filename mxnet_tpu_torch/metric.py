@@ -7,8 +7,9 @@ registry (``create``: a name, a list of them, a callable or an instance),
 ``NegativeLogLikelihood``, ``PearsonCorrelation``, ``Loss``,
 ``CustomMetric`` and ``np``. The sums run in numpy on the host, as in the
 JAX package: labels and predictions (NDArrays or tensors) are copied off
-the card once per ``update_dict``. Not ported: the device-resident
-statistics of the JAX package's fused SPMD step.
+the card once per ``update_dict``. Module(kvstore='tpu')'s fused group
+can attach device sources to a metric instead (``_attach_device_source``):
+the step's sums stay on the card until ``get`` reads them.
 """
 from __future__ import annotations
 
@@ -80,11 +81,29 @@ class EvalMetric:
     def update(self, labels, preds):
         raise NotImplementedError()
 
+    # -- sums kept on the card (Module(kvstore='tpu')'s fused group) ---------
+    def _attach_device_source(self, source):
+        """Register a device accumulator whose (sum, count) stays on the
+        card until :meth:`get` folds it in: one host sync per read."""
+        srcs = self.__dict__.setdefault("_device_sources", [])
+        if source not in srcs:
+            srcs.append(source)
+
+    def _fold_device_sources(self):
+        for src in self.__dict__.get("_device_sources", ()):
+            s, n = src.drain()
+            if n:
+                self.sum_metric += s
+                self.num_inst += n
+
     def reset(self):
         self.num_inst = 0
         self.sum_metric = 0.0
+        for src in self.__dict__.get("_device_sources", ()):
+            src.clear()
 
     def get(self):
+        self._fold_device_sources()
         if self.num_inst == 0:
             return (self.name, float("nan"))
         return (self.name, self.sum_metric / self.num_inst)

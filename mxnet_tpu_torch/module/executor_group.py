@@ -3,7 +3,13 @@
 ``simple_bind`` with per-argument ``grad_req`` (``null`` for inputs unless
 ``inputs_need_grad``, for fixed parameters and outside training); each
 batch is copied into the bound input arrays in place. More than one
-context, ``group2ctxs`` and monitors raise by name."""
+context, ``group2ctxs`` and monitors raise by name.
+
+Data parallel, one process a device (``set_dp_slice``, which ``Module``
+calls for a ``'tpu'`` kvstore of more than one rank): the shapes stay the
+global batch's, the executor is bound for and given this rank's rows of
+it, and outputs and input gradients are gathered over the ranks, as the
+JAX group merges its contexts' slices."""
 from __future__ import annotations
 
 import torch
@@ -56,7 +62,15 @@ class DataParallelExecutorGroup:
                 self.grad_req[name] = "null"
         self.shared_group = shared_group
         self.execs = []
+        self._dp = (0, 1)
         self.bind_exec(data_shapes, label_shapes, shared_group)
+
+    def set_dp_slice(self, rank, n):
+        """Bind for rows ``[rank * b, (rank + 1) * b)`` of each global batch
+        of ``n * b`` rows, gathering outputs over the ``n`` ranks."""
+        self._dp = (int(rank), int(n))
+        self.bind_exec(self.data_shapes, self.label_shapes,
+                       self.shared_group)
 
     def bind_exec(self, data_shapes, label_shapes, shared_group=None,
                   reshape=False):
@@ -64,9 +78,15 @@ class DataParallelExecutorGroup:
         self._total_label_shapes = [_name_shape(d) for d in
                                     label_shapes or []]
         self.batch_size = self._total_data_shapes[0][1][0]
-        self.slices = [slice(0, self.batch_size)]
+        rank, n = self._dp
+        if self.batch_size % n:
+            raise MXNetError("DataParallelExecutorGroup: batch size %d not "
+                             "divisible by %d ranks" % (self.batch_size, n))
+        b = self.batch_size // n
+        self.slices = [slice(rank * b, (rank + 1) * b)]
         shared = shared_group.execs[0] if shared_group is not None else None
-        shapes = dict(self._total_data_shapes + self._total_label_shapes)
+        shapes = {k: (s[0] // n,) + tuple(s[1:]) for k, s in
+                  self._total_data_shapes + self._total_label_shapes}
         self.execs = [simple_bind(self.symbol, self.contexts[0],
                                   grad_req=self.grad_req, shared_exec=shared,
                                   **shapes)]
@@ -96,19 +116,48 @@ class DataParallelExecutorGroup:
                                        allow_extra_params=allow_extra)
 
     def get_params(self, arg_params, aux_params):
-        """Copy the bound parameters into the given arrays (in place)."""
+        """Copy the bound parameters into the given arrays (in place); data
+        parallel, their mean over the ranks (the JAX group's mean over its
+        contexts: the moving statistics differ between ranks on the
+        per-executor path)."""
+        n = self._dp[1]
         for names, blocks, out in ((self.param_names, self.param_arrays,
                                     arg_params),
                                    (self.aux_names, self.aux_arrays,
                                     aux_params)):
             for name, block in zip(names, blocks):
-                block[0].copyto(out[name])
+                if n == 1:
+                    block[0].copyto(out[name])
+                    continue
+                import torch.distributed as dist
+
+                from ..ndarray.ndarray import NDArray
+                from ..parallel.mesh import all_reduce_
+
+                total = all_reduce_(block[0].tensor.detach().clone(),
+                                    dist.group.WORLD)
+                NDArray(total / n).copyto(out[name])
 
     def _load(self, arrays, targets):
+        rows = self.slices[0] if self._dp[1] > 1 else slice(None)
         with torch.no_grad():
             for arr, block in zip(arrays or [], targets):
                 if arr is not None and block[0] is not None:
-                    block[0].tensor.copy_(arr.tensor)
+                    block[0].tensor.copy_(arr.tensor[rows])
+
+    def _gather(self, arrays):
+        """The ranks' rows of each array, concatenated (a no-op on one
+        rank)."""
+        if self._dp[1] == 1:
+            return list(arrays)
+        import torch.distributed as dist
+
+        from ..ndarray.ndarray import NDArray
+        from ..parallel.mesh import all_gather_rows
+
+        return [None if a is None else
+                NDArray(all_gather_rows(a.tensor.detach(), dist.group.WORLD),
+                        a.context) for a in arrays]
 
     def _load_batch(self, data_batch):
         self._load(data_batch.data, self.data_arrays)
@@ -129,19 +178,20 @@ class DataParallelExecutorGroup:
         self.execs[0].backward(out_grads)
 
     def get_outputs(self, merge_multi_context=True):
-        outs = self.execs[0].outputs
-        return list(outs) if merge_multi_context else [[o] for o in outs]
+        outs = self._gather(self.execs[0].outputs)
+        return outs if merge_multi_context else [[o] for o in outs]
 
     def get_input_grads(self, merge_multi_context=True):
         if not self.inputs_need_grad:
             raise MXNetError("bind with inputs_need_grad=True")
-        grads = [self.execs[0].grad_dict.get(n) for n in self.data_names]
+        grads = self._gather([self.execs[0].grad_dict.get(n)
+                              for n in self.data_names])
         return grads if merge_multi_context else [[g] for g in grads]
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update_dict(
             dict(zip(self.label_names, labels)),
-            dict(zip(self.symbol.list_outputs(), self.execs[0].outputs)))
+            dict(zip(self.symbol.list_outputs(), self.get_outputs())))
 
     def install_monitor(self, mon):
         raise MXNetError("install_monitor: monitors are not ported")

@@ -1,31 +1,44 @@
 """Module — a symbol, its executor group and the imperative optimizer
-(counterpart of ``mxnet_tpu/module/module.py``) on one context.
+(counterpart of ``mxnet_tpu/module/module.py``) on one context a process.
 
 ``bind`` makes a ``DataParallelExecutorGroup``; ``init_params`` fills host
 copies of the parameters (in sorted name order, from the initializer's
 seeded stream, as the JAX package does) and copies them into the bound
-arrays; ``init_optimizer`` makes the optimizer with ``rescale_grad =
-1/batch`` and indices ``i * n_contexts + k``, and an ``Updater``;
-``update`` writes each parameter's update into the bound weight in place.
-Checkpoints and ``.states`` files are the JAX package's formats.
+arrays; ``init_optimizer`` makes the kvstore (``model._create_kvstore``)
+and the optimizer with ``rescale_grad = 1/batch``; ``update`` writes each
+parameter's update into the bound weight in place, through the kvstore
+where there is one. Checkpoints and ``.states`` files are the JAX
+package's formats.
 
-Not ported, raising ``MXNetError`` by name: more than one context,
-``group2ctxs``, a kvstore other than ``None``/``"local"`` (``"tpu"`` and
-``dist_*`` are the fused SPMD group), ``compression_params``, ``zero``
-(argument or ``MXNET_TPU_ZERO``) and ``install_monitor``.
+``kvstore='tpu'`` trains data parallel over the process group, one process
+a device, every rank given the global batch: ``forward_backward`` runs the
+fused step of ``FusedSPMDGroup`` (forward, backward, the sums and the
+update in one ``TrainStep``), ``zero`` (or ``MXNET_TPU_ZERO``) shards its
+update. Where the fused step cannot mirror the optimizer or the module
+(``parallel.spmd.FusedStepUnsupported``: an ``lr_scheduler``, a
+``param_dict``, an optimizer other than SGD and Adam, fixed params,
+``inputs_need_grad``), the per-executor path trains instead: each rank's
+executor takes its rows, the kvstore sums the gradients over the ranks and
+runs the optimizer, and the outputs are gathered over the ranks. Any other
+error, such as a failure to build the mesh or a context that is not the
+rank's mesh device, raises.
+
+Not ported, raising ``MXNetError`` by name: more than one context in one
+process, ``group2ctxs``, ``dist_*`` kvstores, ``compression_params`` and
+``install_monitor``.
 """
 from __future__ import annotations
 
 import logging
 import warnings
 
-from .. import config
 from .. import context as ctx_mod
 from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
-from ..model import (_create_kvstore, _update_params, load_checkpoint,
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore, load_checkpoint,
                      save_checkpoint)
 from ..ndarray import ndarray as nd
 from .base_module import BaseModule, _check_input_names
@@ -51,9 +64,7 @@ class Module(BaseModule):
         if compression_params is not None:
             raise MXNetError("Module: compression_params (gradient "
                              "compression) is not ported")
-        if zero or (zero is None and config.get_strict_bool("MXNET_TPU_ZERO")):
-            raise MXNetError("Module: zero=True (weight-update sharding) is "
-                             "not ported")
+        self._zero = zero
         context[0].torch_device()      # a missing card raises here
         self._context = list(context)
         self._work_load_list = work_load_list or [1]
@@ -83,6 +94,9 @@ class Module(BaseModule):
         self._updater = None
         self._preload_opt_states = None
         self._exec_group = None
+        self._fused = None
+        self._last_fused = False
+        self._fused_stale = False
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
@@ -183,6 +197,8 @@ class Module(BaseModule):
         self._params_dirty = False
         group.set_params(self._arg_params, self._aux_params,
                          allow_extra=allow_extra)
+        if self._fused is not None:
+            self._fused.set_params(self._arg_params, self._aux_params)
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
@@ -190,6 +206,11 @@ class Module(BaseModule):
         if force_rebind:
             self.binded = False
             self._exec_group = None
+            if self._fused is not None:
+                # the fused group holds the optimizer state: a rebind
+                # rebuilds it in init_optimizer
+                self.optimizer_initialized = False
+            self._fused = None
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
@@ -235,10 +256,14 @@ class Module(BaseModule):
             self._sync_params_from_devices()
         kvstore, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        group = self._exec_group
+        rescale_grad = 1.0 / group.batch_size
         n_ctx = len(self._context)
-        idx2name = {i * n_ctx + k: n for k in range(n_ctx)
-                    for i, n in enumerate(self._exec_group.param_names)}
+        if update_on_kvstore:
+            idx2name = dict(enumerate(group.param_names))
+        else:
+            idx2name = {i * n_ctx + k: n for k in range(n_ctx)
+                        for i, n in enumerate(group.param_names)}
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
             optimizer_params.setdefault("rescale_grad", rescale_grad)
@@ -257,7 +282,45 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._kvstore = kvstore
         self._update_on_kvstore = update_on_kvstore
-        self._updater = opt_mod.get_updater(optimizer)
+        self._updater = None
+
+        self._fused = None
+        if kvstore is not None and kvstore.type == "tpu" and \
+                self.for_training:
+            from ..parallel.spmd import FusedStepUnsupported
+            from .spmd_group import FusedSPMDGroup
+
+            try:
+                self._fused = FusedSPMDGroup(
+                    self._symbol, self._context, self._optimizer,
+                    self._arg_params, self._aux_params, self._data_names,
+                    self._label_names,
+                    fixed_param_names=self._fixed_param_names,
+                    logger=self.logger, batch_size=group.batch_size,
+                    inputs_need_grad=self.inputs_need_grad, zero=self._zero)
+            except FusedStepUnsupported as e:
+                # a feature the fused step cannot mirror: the per-executor
+                # path trains instead. Nothing else is caught: a mesh,
+                # device or backend failure raises
+                self.logger.warning("kvstore=%r: %s; using per-executor "
+                                    "update path", kvstore.type, e)
+            else:
+                kvstore.attach_mesh(self._fused.mesh)
+                update_on_kvstore = self._update_on_kvstore = False
+        if kvstore is not None and kvstore.num_workers > 1:
+            # one rank a device: each executor takes its rows of the batch
+            group.set_dp_slice(kvstore.rank, kvstore.num_workers)
+            group.set_params(self._arg_params, self._aux_params)
+        if kvstore:
+            _initialize_kvstore(kvstore=kvstore,
+                                param_arrays=group.param_arrays,
+                                arg_params=self._arg_params,
+                                param_names=self._param_names,
+                                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt_mod.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -285,12 +348,31 @@ class Module(BaseModule):
 
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
+        if self._fused is not None:
+            self._last_fused = False
+            if self._params_dirty:
+                # evaluation runs on the executors: refresh them (and the
+                # host copies) from the fused carry
+                self._sync_params_from_devices()
         self._check_shapes(data_batch)
         self._exec_group.forward(data_batch, is_train)
 
     def forward_backward(self, data_batch):
-        """One training forward and backward on one autograd graph."""
+        """One training forward and backward on one autograd graph; with
+        the fused group, one whole step (``update`` is then a no-op)."""
         assert self.binded and self.params_initialized
+        if self._fused is not None:
+            if self._fused_stale:
+                # an explicit forward/backward/update round went through
+                # the executors: the carry takes their params
+                self._exec_group.get_params(self._arg_params,
+                                            self._aux_params)
+                self._fused.set_params(self._arg_params, self._aux_params)
+                self._fused_stale = False
+            self._fused.forward_backward_update(data_batch)
+            self._params_dirty = True
+            self._last_fused = True
+            return
         self._check_shapes(data_batch)
         self._exec_group.forward_backward(data_batch)
 
@@ -300,17 +382,30 @@ class Module(BaseModule):
 
     def update(self):
         """Each parameter's optimizer update, written into the bound
-        weight."""
+        weight: on the kvstore when it runs the optimizer, else pushed and
+        pulled through it (when there is one) and updated here."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
-        _update_params(self._exec_group.param_arrays,
-                       self._exec_group.grad_arrays, updater=self._updater,
-                       num_device=len(self._context),
-                       param_names=self._exec_group.param_names)
+        if self._fused is not None:
+            if self._last_fused:
+                return   # the fused step updated already
+            self._fused_stale = True
+        group = self._exec_group
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(group.param_arrays, group.grad_arrays,
+                                      self._kvstore, group.param_names)
+        else:
+            _update_params(group.param_arrays, group.grad_arrays,
+                           updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore,
+                           param_names=group.param_names)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
+        if self._fused is not None and self._last_fused:
+            return self._fused.get_outputs()
         return self._exec_group.get_outputs(
             merge_multi_context=merge_multi_context)
 
@@ -321,26 +416,62 @@ class Module(BaseModule):
             merge_multi_context=merge_multi_context)
 
     def update_metric(self, eval_metric, labels):
+        if self._fused is not None and self._last_fused:
+            self._fused.update_metric(eval_metric, labels)
+            return
         self._exec_group.update_metric(eval_metric, labels)
 
     def _sync_params_from_devices(self):
+        if self._fused is not None:
+            if self._fused_stale:
+                # the executors' update ran last: they hold the params
+                self._exec_group.get_params(self._arg_params,
+                                            self._aux_params)
+                self._fused.set_params(self._arg_params, self._aux_params)
+                self._fused_stale = False
+            else:
+                self._fused.copy_params_to(self._arg_params,
+                                           self._aux_params)
+                self._exec_group.set_params(self._arg_params,
+                                            self._aux_params)
+            self._params_dirty = False
+            return
         self._exec_group.get_params(self._arg_params, self._aux_params)
+        if self._kvstore and self._update_on_kvstore:
+            names = sorted(self._arg_params)
+            if names:
+                self._kvstore.pull(names,
+                                   [self._arg_params[n] for n in names],
+                                   priority=0)
         self._params_dirty = False
 
     def save_optimizer_states(self, fname):
-        """The updater's states as the JAX package writes them (a pickle of
-        ``{index: numpy}``), written to a temporary file and renamed."""
+        """The optimizer's states as the JAX package writes them: the fused
+        group's blob, the kvstore's updater's, or the updater's pickle of
+        ``{index: numpy}``; written to a temporary file and renamed."""
         import os
 
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
+        data = self._fused.get_states() if self._fused is not None \
+            else self._updater.get_states()
         tmp = "%s.tmp%d" % (fname, os.getpid())
         with open(tmp, "wb") as f:
-            f.write(self._updater.get_states())
+            f.write(data)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, fname)
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
-            self._updater.set_states(f.read())
+            data = f.read()
+        if self._fused is not None:
+            self._fused.set_states(data)
+        else:
+            self._updater.set_states(data)

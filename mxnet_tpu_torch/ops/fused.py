@@ -12,8 +12,10 @@ backward under one ``torch.autograd.Function`` (``kernels/fused_block.py``).
 whose output feeds an add: the convolution (cuDNN on the card, as the JAX
 package leaves it to XLA) plus the add, the same math as the pair.
 
-Not ported yet: the mesh-partitioned variants (the JAX package's
-``spmd_scope``).
+Inside ``fused_block.spmd_scope`` (set by a ``TrainStep`` on a mesh) the
+training unit runs ``bottleneck_train_spmd`` on the rank's rows: the same
+kernels, counted in the same launch counters. Inference is per sample and
+needs no collective, so it runs ``bottleneck_infer`` under the scope too.
 """
 from __future__ import annotations
 
@@ -71,12 +73,19 @@ def fused_bottleneck_unit(
                bn2_gamma, bn2_beta, bn3_gamma, bn3_beta)
     moving = (bn1_moving_mean, bn1_moving_var, bn2_moving_mean,
               bn2_moving_var, bn3_moving_mean, bn3_moving_var)
+    scope = fb.current_spmd_scope()
     if __is_train__:
-        out, stats = fb.bottleneck_train(*weights, int(stride), float(eps))
+        if scope is not None:
+            out, stats = fb.bottleneck_train_spmd(*weights, int(stride),
+                                                  float(eps), *scope)
+        else:
+            out, stats = fb.bottleneck_train(*weights, int(stride),
+                                             float(eps))
         m = float(momentum)
         new = tuple((m * old.float() + (1.0 - m) * st.detach()).to(old.dtype)
                     for old, st in zip(moving, stats))
         return (out,) + new
+    # inference is per sample: bottleneck_infer_spmd is this same call
     out = fb.bottleneck_infer(*weights, *moving, stride=int(stride),
                               eps=float(eps))
     return (out,) + moving

@@ -10,6 +10,14 @@ the ResNet stem, not a kernel of the port. ``SoftmaxOutput`` is MXNet's
 fused softmax + cross-entropy head: its forward gives the probabilities,
 and under autograd its backward is the loss gradient, whatever gradient
 reaches its output.
+
+Inside a data-parallel ``spmd_scope`` (``TrainStep`` on a mesh) each rank
+holds its rows of the batch, and the two ops of these graphs that reduce
+over the batch axis reduce over the mesh's data group: BatchNorm's
+training statistics are the global batch's (its sums all-reduced through
+an autograd function whose backward all-reduces their cotangents, its
+fp32 pivot rank 0's first row), and SoftmaxOutput's ``batch``/``valid``
+normalization divides by the global count.
 """
 from __future__ import annotations
 
@@ -18,6 +26,20 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from .registry import register
+
+
+def dp_group():
+    """``(group, n)`` of the data-parallel scope the op runs in, else
+    ``(None, 1)``."""
+    from ..kernels.fused_block import current_spmd_scope
+
+    scope = current_spmd_scope()
+    if scope is None:
+        return None, 1
+    from ..parallel.mesh import data_group
+
+    group, n, _index = data_group(*scope)
+    return group, n
 
 
 def _tuple(x, n):
@@ -159,12 +181,18 @@ class _SoftmaxOutput(torch.autograd.Function):
             grad = grad * (keep.unsqueeze(1) if a["multi_output"]
                            else keep[:, None])
         denom = 1.0
+        group, n = a["dp"]
         if a["normalization"] == "batch":
-            denom = out.shape[0]
+            denom = out.shape[0] * n
         elif a["normalization"] == "valid" and a["use_ignore"]:
             valid = (label != ignore) if a["multi_output"] else \
                 (lab != int(ignore))
-            denom = torch.clamp_min(valid.sum().to(out.dtype), 1.0)
+            count = valid.sum().to(out.dtype)
+            if group is not None:
+                from ..parallel.mesh import all_reduce_
+
+                count = all_reduce_(count.float(), group).to(out.dtype)
+            denom = torch.clamp_min(count, 1.0)
         grad = (grad * (a["grad_scale"] / denom)).reshape(out.shape)
         dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
         return grad, dlabel, None
@@ -183,7 +211,7 @@ def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
                  ignore_label=float(ignore_label), multi_output=multi_output,
                  use_ignore=bool(use_ignore), preserve_shape=preserve_shape,
                  normalization=normalization,
-                 smooth_alpha=float(smooth_alpha))
+                 smooth_alpha=float(smooth_alpha), dp=dp_group())
     return _SoftmaxOutput.apply(data, label, attrs)
 
 
@@ -203,7 +231,7 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     bshape = tuple(data.shape[ax] if i == ax else 1 for i in range(data.dim()))
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if __is_train__ and not use_global_stats:
-        n = 1
+        group, n = dp_group()
         for i in red:
             n *= data.shape[i]
         if data.dtype in (torch.bfloat16, torch.float16):
@@ -213,12 +241,21 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
             # the pivot carries no gradient, as the JAX package's
             # stop_gradient has it: mean and var stay exact functions of
             # the data in autograd, without two cancelling terms through
-            # the pivot sample
+            # the pivot sample (the global batch's first row: rank 0's)
             pivot = data[tuple(slice(0, 1) if i in red else slice(None)
                                for i in range(data.dim()))].detach().float()
+            if group is not None:
+                from ..parallel.mesh import broadcast_
+
+                pivot = broadcast_(pivot.clone(), group)
             xf = data.float() - pivot
-        mean_c = xf.sum(dim=red) / n
-        var = (xf * xf).sum(dim=red) / n - mean_c * mean_c
+        s0, s1 = xf.sum(dim=red), (xf * xf).sum(dim=red)
+        if group is not None:
+            from ..parallel.mesh import all_reduce_autograd
+
+            s0, s1 = all_reduce_autograd(torch.stack([s0, s1]), group)
+        mean_c = s0 / n
+        var = s1 / n - mean_c * mean_c
         var = torch.maximum(var, var.new_zeros(()))
         mean = mean_c if pivot is None else mean_c + pivot.reshape(
             mean_c.shape)

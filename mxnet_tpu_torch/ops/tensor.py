@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..base import dtype_torch
+from ..base import MXNetError, dtype_torch
 from .registry import register
 
 
@@ -179,11 +179,24 @@ def _norm_axis(axis, ndim):
     return (int(axis) % max(ndim, 1),)
 
 
+def _refuse_batch_axis(name, axes, ndim):
+    """Under a data-parallel mesh each rank holds its rows of the batch: a
+    reduction over axis 0 would be the rank's, not the batch's, so it
+    raises rather than give a rank-local value."""
+    if ndim and 0 in axes:
+        from .nn import dp_group
+
+        if dp_group()[0] is not None:
+            raise MXNetError("%s over the batch axis under a data-parallel "
+                             "mesh is not ported" % name)
+
+
 def _reduce(name, fn, aliases=()):
     def _op(data, axis=None, keepdims=False, exclude=False):
         ax = _norm_axis(axis, data.dim())
         if exclude and not (axis is None or axis == ()):
             ax = tuple(i for i in range(data.dim()) if i not in ax)
+        _refuse_batch_axis(name, ax, data.dim())
         return fn(data, ax, bool(keepdims))
 
     _op.__name__ = name
@@ -210,6 +223,7 @@ _reduce("min", lambda d, ax, k: torch.amin(d, dim=ax, keepdim=k),
 @register(name="norm")
 def norm(data, ord=2, axis=None, keepdims=False):
     ax = _norm_axis(axis, data.dim())
+    _refuse_batch_axis("norm", ax, data.dim())
     if ord == 1:
         return data.abs().sum(dim=ax, keepdim=bool(keepdims))
     return data.square().sum(dim=ax, keepdim=bool(keepdims)).sqrt()

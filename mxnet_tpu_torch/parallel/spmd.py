@@ -1,6 +1,10 @@
-"""Functional optimizers and the one-device symbolic train step
-(counterpart of ``mxnet_tpu/parallel/spmd.py``'s ``FunctionalOptimizer``,
-``functional_optimizer``, ``cross_entropy_loss`` and ``TrainStep``).
+"""Functional optimizers and the symbolic train step (counterpart of
+``mxnet_tpu/parallel/spmd.py``): ``FunctionalOptimizer``,
+``functional_optimizer``, ``functional_from_optimizer``,
+``cross_entropy_loss``, ``TrainStep`` on one device or data parallel over a
+mesh (with ZeRO), and the sharding helpers ``replicated``,
+``data_sharding``, ``param_shardings``, ``parse_rules`` and
+``ShardingRuleError``.
 
 The optimizers have the same names, arguments and update arithmetic as the
 JAX package, on dicts of tensors: ``init(params) -> state`` and
@@ -14,14 +18,16 @@ counter advances only on healthy steps); an optimizer that needs its value
 (a learning-rate schedule, Adam's bias correction) then reads it on the
 host, one sync counted in ``profiler.pipeline_stats()["host_syncs"]``.
 
-Not ported yet: ``functional_from_optimizer``, and of ``TrainStep`` the
-mesh (data and tensor parallelism) and ZeRO, which raise by name
-(ROADMAP.md Queue A item 6).
+Data parallelism is one process a device (``parallel/mesh.py``); a
+parameter sharded over a mesh axis (tensor parallelism) and ZeRO's two-bit
+wire are not ported and raise by name.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import re
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -30,7 +36,116 @@ from ..base import MXNetError
 from ..ops.optimizer_ops import adam_update, sgd_mom_update, sgd_update
 
 __all__ = ["FunctionalOptimizer", "functional_optimizer",
-           "cross_entropy_loss", "TrainStep"]
+           "functional_from_optimizer", "cross_entropy_loss", "TrainStep",
+           "Sharding", "replicated", "data_sharding", "param_shardings",
+           "parse_rules", "ShardingRuleError"]
+
+
+# ---------------------------------------------------------------------------
+# sharding rules
+# ---------------------------------------------------------------------------
+class Sharding(namedtuple("Sharding", "mesh spec")):
+    """The port's ``NamedSharding``: a mesh and a spec, one entry a
+    dimension (None, an axis name or a tuple of them; ``()`` replicates).
+    Only replicated params and batches sharded on their rows exist."""
+
+
+def replicated(mesh):
+    return Sharding(mesh, ())
+
+
+def data_sharding(mesh, axes=("dp",), ndim=None):
+    """The batch's rows sharded over the mesh's axes among ``axes``."""
+    names = tuple(a for a in axes if a in mesh.mesh_dim_names)
+    return Sharding(mesh, (names,) if names else ())
+
+
+class ShardingRuleError(MXNetError):
+    """A parameter-sharding rule matched but cannot apply: its spec names a
+    mesh axis the mesh does not have, or a sharded dim is not divisible by
+    the axis size. Raised instead of silently replicating."""
+
+
+def param_shardings(params, mesh, rules=None):
+    """Param name -> :class:`Sharding` by ordered ``(regex, spec)`` rules,
+    the first match winning, replicated by default. A matched rule that
+    cannot apply raises :class:`ShardingRuleError`; one that shards a
+    parameter raises :class:`MXNetError`: tensor parallelism is not
+    ported."""
+    out = {}
+    for name, v in params.items():
+        spec, rule_pat = (), None
+        for pat, sp in rules or []:
+            if re.match(pat, name):
+                spec, rule_pat = tuple(sp), pat
+                break
+        if any(ax is not None for ax in spec):
+            problem = _spec_misfit(spec, tuple(v.shape), mesh)
+            if problem is not None:
+                raise ShardingRuleError(
+                    "param_shardings: rule (%r, %s) matched parameter %r "
+                    "with shape %s but cannot apply: %s"
+                    % (rule_pat, spec, name, tuple(v.shape), problem))
+            raise MXNetError(
+                "param_shardings: rule (%r, %s) shards parameter %r: "
+                "sharding a parameter over a mesh axis (tensor parallelism) "
+                "is not ported" % (rule_pat, spec, name))
+        out[name] = replicated(mesh)
+    return out
+
+
+def _spec_misfit(spec, shape, mesh):
+    """None when every axis of ``spec`` is on the mesh and divides its dim,
+    else the reason."""
+    from .mesh import mesh_shape
+
+    sizes = mesh_shape(mesh)
+    if len(spec) > len(shape):
+        return "spec has %d entries for a %d-dim shape" % (len(spec),
+                                                            len(shape))
+    for dim, ax in zip(shape, spec):
+        if ax is None:
+            continue
+        n = 1
+        for a in ((ax,) if isinstance(ax, str) else tuple(ax)):
+            if a not in sizes:
+                return ("mesh has no axis %r (mesh axes: %s)"
+                        % (a, ", ".join(sizes) or "<none>"))
+            n *= sizes[a]
+        if dim % n != 0:
+            return "dim %d is not divisible by the axis size %d" % (dim, n)
+    return None
+
+
+def parse_rules(text, knob="MXNET_MP_RULES"):
+    """``'regex:spec;regex:spec'`` -> ``[(regex, spec tuple)]``, spec a
+    comma list with one entry a dim, ``*`` replicating it. Malformed
+    grammar raises :class:`MXNetError` naming the knob."""
+    rules = []
+    for part in (text or "").strip().split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        pat, sep, spec_s = part.rpartition(":")
+        pat = pat.strip()
+        if not sep or not pat:
+            raise MXNetError(
+                "%s: rule %r must be 'regex:spec' with spec a comma list of "
+                "'*' or mesh-axis names" % (knob, part))
+        try:
+            re.compile(pat)
+        except re.error as e:
+            raise MXNetError("%s: bad regex %r in rule %r: %s"
+                             % (knob, pat, part, e))
+        entries = []
+        for ent in spec_s.split(","):
+            ent = ent.strip()
+            if not ent:
+                raise MXNetError("%s: empty spec entry in rule %r (use '*' "
+                                 "to replicate a dim)" % (knob, part))
+            entries.append(None if ent == "*" else ent)
+        rules.append((pat, tuple(entries)))
+    return rules
 
 
 def _host_step(step):
@@ -135,6 +250,42 @@ def functional_optimizer(name="sgd", learning_rate=0.01, momentum=0.0, wd=0.0,
     raise MXNetError("functional_optimizer: unknown optimizer %r" % name)
 
 
+class FusedStepUnsupported(MXNetError):
+    """A feature of the imperative optimizer or of ``Module`` that the
+    fused data-parallel step cannot mirror. ``Module(kvstore='tpu')``
+    catches this error alone and trains on the per-executor path; every
+    other error (a mesh, device or backend failure) raises."""
+
+
+def functional_from_optimizer(opt, param_names):
+    """The :class:`FunctionalOptimizer` of an imperative ``optimizer.SGD``
+    or ``Adam`` (``Module(kvstore='tpu')``'s fused step). An
+    ``lr_scheduler``, a ``param_dict`` or another optimizer raises
+    :class:`FusedStepUnsupported`, and the caller keeps the per-executor
+    update."""
+    from .. import optimizer as opt_mod
+
+    if opt.lr_scheduler is not None:
+        raise FusedStepUnsupported(
+            "fused SPMD step: lr_scheduler uses python control flow per "
+            "update and cannot be traced; falling back")
+    if getattr(opt, "param_dict", None):
+        raise FusedStepUnsupported("fused SPMD step: param_dict mults not "
+                                   "supported")
+    common = dict(
+        learning_rate=opt.lr, wd=opt.wd, rescale_grad=opt.rescale_grad,
+        clip_gradient=opt.clip_gradient,
+        lr_mult={n: opt.lr_mult.get(n, 1.0) for n in param_names},
+        wd_mult={n: opt.wd_mult.get(n, 1.0) for n in param_names})
+    if type(opt) is opt_mod.SGD:
+        return functional_optimizer("sgd", momentum=opt.momentum, **common)
+    if type(opt) is opt_mod.Adam:
+        return functional_optimizer("adam", beta1=opt.beta1, beta2=opt.beta2,
+                                    epsilon=opt.epsilon, **common)
+    raise FusedStepUnsupported("fused SPMD step: optimizer %s has no "
+                               "functional mirror" % type(opt).__name__)
+
+
 def cross_entropy_loss(probs, label, eps=1e-12):
     """Mean cross-entropy given probabilities (SoftmaxOutput's forward)."""
     lbl = label.long().reshape(-1)
@@ -143,8 +294,30 @@ def cross_entropy_loss(probs, label, eps=1e-12):
 
 
 def _unported(what):
-    return MXNetError("TrainStep: %s is not ported (one device, mesh=None)"
-                      % what)
+    return MXNetError("TrainStep: %s is not ported" % what)
+
+
+def _fused_owned(symbol, param_names):
+    """The params that only ``FusedBottleneckUnit`` nodes read: the unit's
+    backward already sums their gradients over the data group, so the step
+    must not sum them again. A param that a fused unit and another op both
+    read raises (its gradient would be half summed)."""
+    readers = {}
+    for node in symbol._topo():
+        for inp, _ in node.inputs or ():
+            if inp.is_variable():
+                readers.setdefault(inp.name, set()).add(node.op.name)
+    owned = set()
+    for k in param_names:
+        ops = readers.get(k, set())
+        if "FusedBottleneckUnit" in ops:
+            if len(ops) > 1:
+                raise MXNetError(
+                    "TrainStep: parameter %r is read by a FusedBottleneckUnit "
+                    "and by %s: not ported on a mesh"
+                    % (k, sorted(ops - {"FusedBottleneckUnit"})))
+            owned.add(k)
+    return owned
 
 
 _SENTINEL_MODES = ("off", "record", "skip", "halt")
@@ -198,35 +371,81 @@ class TrainStep:
       step (one host sync, counted) and raises on the first unhealthy
       step. :meth:`health_stats` drains the counters.
 
-    Entry points run on ``cuda`` unless given ``device="cpu"``. ``mesh``,
-    ``zero`` and a ``zero_wire`` other than raw raise :class:`MXNetError`
-    naming the option, given as an argument or through its knob.
+    Data parallelism (``mesh``, a ``parallel.make_mesh`` mesh, with the
+    batch sharded over ``data_axes``): one process a device, each given the
+    same global batch, of which it keeps its rows (sliced on the host
+    before the copy to the card; :func:`data_sharding`'s layout). Under
+    ``fused_block.spmd_scope`` the fused units and the batch-reducing ops
+    reduce over the data group; the step sums every other gradient over the
+    group once (one all-reduce a dtype, in the gradient's dtype: the fused
+    units have summed theirs, in f32, already) and divides by the global
+    batch. The reported loss (the local ``loss_fn`` scaled by local/global
+    rows and summed over the group: it must be a mean over rows), the
+    ``metric_stats`` and the sentinel's word are the global batch's, the
+    same on every rank, and ``return_outputs`` gives every rank the global
+    batch's outputs. :meth:`place` broadcasts rank 0's params and aux, so
+    the ranks start, and stay, bit for bit equal.
+
+    ``zero=True`` (``MXNET_TPU_ZERO``) shards the weight update over the
+    data axes (ZeRO): a param of at least ``zero_min_size``
+    (``MXNET_TPU_ZERO_MIN_SIZE``) elements is flattened and zero-padded to
+    ``(N, chunk)``; its gradient is reduce-scattered (a fused unit's,
+    already summed, is sliced), the rank updates its ``(1, chunk)`` row,
+    whose optimizer state lives only there, and the params are
+    all-gathered. :meth:`logical_opt_state` gives the state back in the
+    mesh-size independent layout checkpoints keep.
+
+    Entry points run on ``cuda`` unless given ``device="cpu"`` (or a mesh on
+    the CPU). A ``zero_wire`` other than raw and a parameter sharded by
+    ``param_rules`` raise :class:`MXNetError` naming the option.
     """
 
     _SENT = "__sentinel_state__"
 
-    def __init__(self, symbol, optimizer, mesh=None, *,
-                 label_names=("softmax_label",), data_names=("data",),
-                 compute_dtype=None, loss_fn=None, zero=None, remat=None,
-                 normalize_grads=True, return_outputs=False,
-                 metric_stats=False, zero_wire=None, sentinel=None,
-                 train_passes=None, device=None):
+    def __init__(self, symbol, optimizer, mesh=None, data_axes=("dp",),
+                 param_rules=None, *, label_names=("softmax_label",),
+                 data_names=("data",), compute_dtype=None, loss_fn=None,
+                 zero=None, remat=None, normalize_grads=True,
+                 return_outputs=False, metric_stats=False, zero_wire=None,
+                 zero_min_size=None, sentinel=None, train_passes=None,
+                 device=None):
         from .. import config
         from ..base import dtype_torch
         from ..context import resolve_device
         from ..executor import _graph_closure
 
-        if mesh is not None:
-            raise _unported("mesh=%r" % (mesh,))
         if zero is None:
             zero = config.get_strict_bool("MXNET_TPU_ZERO")
-        if zero:
-            raise _unported("zero=True (weight-update sharding)")
+        self.zero = bool(zero)
         if zero_wire is None:
             zero_wire = config.get_choice("MXNET_TPU_ZERO_WIRE",
                                           ("raw", "2bit"))
+        elif zero_wire not in ("raw", "2bit"):
+            raise MXNetError("TrainStep: zero_wire=%r must be raw|2bit"
+                             % (zero_wire,))
         if zero_wire != "raw":
-            raise _unported("zero_wire=%r" % (zero_wire,))
+            raise _unported("zero_wire=%r (the two-bit wire)" % (zero_wire,))
+        self.zero_wire = zero_wire
+        if zero_min_size is None:
+            zero_min_size = config.get_nonneg_int("MXNET_TPU_ZERO_MIN_SIZE")
+        self.zero_min_size = int(zero_min_size)
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        self.param_rules = list(param_rules or [])
+        self._group, self._n, self._index = None, 1, 0
+        if mesh is not None:
+            from .mesh import _MODEL_AXES, _unported_axis, data_group, \
+                mesh_device
+
+            if any(a in _MODEL_AXES for a in mesh.mesh_dim_names):
+                raise _unported_axis("TrainStep(mesh=%r)" % (mesh,))
+            self._group, self._n, self._index = data_group(mesh,
+                                                           self.data_axes)
+            mdev = mesh_device(mesh)
+            if device is not None and resolve_device(device) != mdev:
+                raise MXNetError("TrainStep: device=%r but this rank's mesh "
+                                 "device is %s" % (device, mdev))
+            device = mdev
         if train_passes is None:
             train_passes = config.get("MXNET_IR_TRAIN_PASSES")
         if isinstance(train_passes, str):
@@ -290,6 +509,10 @@ class TrainStep:
                 self._remat_plan = plan
         self._graph = _graph_closure(symbol, is_train=True,
                                      remat_names=remat_names)
+        self._owned = _fused_owned(symbol, self.param_names) \
+            if mesh is not None else set()
+        if mesh is not None:
+            self._batch_sharding = data_sharding(mesh, self.data_axes)
 
     def init_params(self, data_shapes, initializer=None, dtype=np.float32,
                     seed=0):
@@ -332,14 +555,147 @@ class TrainStep:
         """The carry ``(params, opt_state, aux, 0)`` on the step's device
         (tensors already there are kept, not copied), with the sentinel's
         counters when it is armed; under ``skip`` the step counter is a 0-d
-        device tensor."""
+        device tensor. On a mesh, rank 0's params and aux are broadcast to
+        every rank (in place; the kvstore-init broadcast), and with ZeRO the
+        optimizer state of each planned param becomes this rank's ``(1,
+        chunk)`` row: from the logical layout (a fresh init, a checkpoint
+        saved on any mesh size) or kept when it is in that layout already.
+        Publishes :meth:`memory_stats` to the profiler."""
         params, opt_state, aux = (
             {k: self._on_device(v) for k, v in d.items()}
             for d in (params, opt_state, aux))
+        if self.mesh is not None:
+            from .mesh import broadcast_flat_
+
+            broadcast_flat_(list(params.values()) + list(aux.values()),
+                            self._group)
+            opt_state = self._opt_state_to_zero(opt_state,
+                                                self.zero_plan(params))
         step_no = 0
         if self.sentinel == "skip":
             step_no = torch.zeros((), dtype=torch.int32, device=self.device)
-        return params, self._ensure_sentinel(opt_state), aux, step_no
+        carry = (params, self._ensure_sentinel(opt_state), aux, step_no)
+        self.record_memory_stats(carry)
+        return carry
+
+    # -- weight-update sharding (ZeRO) ---------------------------------------
+    def zero_plan(self, params, param_rules=None):
+        """``{name: (shape, size, num_shards, chunk)}`` of every param whose
+        update shards over the data axes: replicated by the rules, at least
+        ``zero_min_size`` (and ``num_shards``) elements. Empty when zero is
+        off or the data group has one rank."""
+        if not self.zero or self.mesh is None or self._n <= 1:
+            return {}
+        rules = self.param_rules if param_rules is None else param_rules
+        param_shardings(params, self.mesh, rules)
+        n, plan = self._n, {}
+        for k, v in params.items():
+            shape = tuple(v.shape)
+            size = int(np.prod(shape)) if shape else 0
+            if not shape or size < max(self.zero_min_size, n):
+                continue
+            plan[k] = (shape, size, n, -(-size // n))
+        return plan
+
+    def _zrows(self, x, n, chunk):
+        """``x`` flattened and zero-padded to its ``(n, chunk)`` view."""
+        flat = x.reshape(-1)
+        pad = n * chunk - flat.numel()
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        return flat.view(n, chunk)
+
+    def _zrow(self, x, n, chunk):
+        """This rank's ``(1, chunk)`` row of ``x``'s zero layout (a copy)."""
+        i = self._index
+        return self._zrows(x, n, chunk)[i:i + 1].clone()
+
+    def _opt_state_to_zero(self, opt_state, plan):
+        """Every optimizer-state leaf of a planned param as this rank's row
+        of its zero layout; leaves in that layout already are kept."""
+        out = {}
+        for k, v in opt_state.items():
+            if k not in plan:
+                out[k] = v
+                continue
+            _shape, _size, n, chunk = plan[k]
+
+            def row(x):
+                x = self._on_device(x)
+                return x if tuple(x.shape) == (1, chunk) \
+                    else self._zrow(x, n, chunk)
+
+            out[k] = type(v)(row(x) for x in v) \
+                if isinstance(v, (tuple, list)) else row(v)
+        return out
+
+    def logical_opt_state(self, opt_state, params=None, param_rules=None):
+        """The optimizer state a checkpoint stores, on the step's device:
+        the sentinel's counters are transient and dropped (fresh zeros on
+        restore), and under ZeRO each planned param's rows are all-gathered
+        (a collective: every rank calls it), un-padded and reshaped to the
+        param's shape, so a state saved under ``zero=True`` on N ranks
+        restores bit for bit under ``zero=False`` or any mesh size."""
+        plan = self.zero_plan(params, param_rules) if params is not None \
+            else {}
+        out = {}
+        for k, v in opt_state.items():
+            if k == self._SENT:
+                continue
+            if k not in plan:
+                out[k] = v
+                continue
+            shape, size, _n, chunk = plan[k]
+
+            def full(x):
+                if tuple(x.shape) != (1, chunk):
+                    return x
+                from .mesh import all_gather_rows
+
+                return all_gather_rows(x, self._group).reshape(-1)[:size] \
+                    .reshape(shape)
+
+            out[k] = type(v)(full(x) for x in v) \
+                if isinstance(v, (tuple, list)) else full(v)
+        return out
+
+    # -- memory ----------------------------------------------------------------
+    def memory_stats(self, carry):
+        """This rank's bytes of the resident carry (``param``, ``opt`` and
+        ``aux_bytes_per_dev``, measured from its tensors) and the JAX
+        package's per-step estimates: ``grad_bytes_per_dev_est`` (1/N rows
+        for ZeRO-planned params) and ``collective_bytes_per_step_est``, the
+        wire volume of the gradient sum (2 size (N-1)/N, ZeRO or not)."""
+        params, opt_state, aux, _step = carry
+
+        def nbytes(tree):
+            return sum(t.numel() * t.element_size()
+                       for v in tree.values()
+                       for t in (v.values() if isinstance(v, dict) else
+                                 v if isinstance(v, (tuple, list)) else (v,))
+                       if isinstance(t, torch.Tensor))
+
+        plan = self.zero_plan(params)
+        n = self._n
+        grad_est = coll_est = 0
+        for k, v in params.items():
+            size = v.numel() * v.element_size()
+            grad_est += plan[k][3] * v.element_size() if k in plan else size
+            if n > 1:
+                coll_est += int(2 * size * (n - 1) / n)
+        return {"param_bytes_per_dev": nbytes(params),
+                "opt_bytes_per_dev": nbytes(opt_state),
+                "aux_bytes_per_dev": nbytes(aux),
+                "grad_bytes_per_dev_est": int(grad_est),
+                "collective_bytes_per_step_est": coll_est,
+                "zero": bool(plan), "zero_params": len(plan),
+                "num_shards": n}
+
+    def record_memory_stats(self, carry):
+        """Publish :meth:`memory_stats` to the profiler's memory gauge."""
+        from .. import profiler
+
+        profiler.memory_record(**self.memory_stats(carry))
 
     # -- the sentinel's counters ---------------------------------------------
     def _sentinel_init(self):
@@ -361,11 +717,6 @@ class TrainStep:
         out = dict(opt_state)
         out[self._SENT] = self._sentinel_init()
         return out
-
-    def logical_opt_state(self, opt_state, params=None, param_rules=None):
-        """The optimizer state a checkpoint stores: the sentinel's
-        counters are transient and dropped (fresh zeros on restore)."""
-        return {k: v for k, v in opt_state.items() if k != self._SENT}
 
     def health_stats(self, carry):
         """The sentinel's counters of a carry, read on the host in one
@@ -396,8 +747,33 @@ class TrainStep:
 
     # -- the loss closure ----------------------------------------------------
     def _inputs(self, batch):
-        return {n: self._on_device(batch[n])
-                for n in self.data_names + self.label_names}
+        """The batch's inputs on the step's device; on a mesh, this rank's
+        rows of the global batch, sliced before the copy (an input that
+        ``parallel.feed.place_batch_array`` placed already is taken as
+        it is)."""
+        if self.mesh is None:
+            return {n: self._on_device(batch[n])
+                    for n in self.data_names + self.label_names}
+        from .feed import is_preplaced, rank_rows
+
+        out = {}
+        for n in self.data_names + self.label_names:
+            v = batch[n]
+            if not is_preplaced(v, self._batch_sharding):
+                if not isinstance(v, torch.Tensor):
+                    v = np.asarray(v)
+                v = self._on_device(rank_rows(v, self._n, self._index, n,
+                                              "TrainStep"))
+            out[n] = v
+        return out
+
+    def _scope(self):
+        """The data-parallel scope the fused units and BatchNorm read."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from ..kernels.fused_block import spmd_scope
+
+        return spmd_scope(self.mesh, self.data_axes)
 
     def _leaves(self, params):
         cdtype = self.compute_dtype
@@ -451,7 +827,7 @@ class TrainStep:
         ``n_residuals``, their count. Runs the forward only."""
         from ..executor import residual_probe
 
-        with residual_probe() as probe:
+        with residual_probe() as probe, self._scope():
             self._loss_closure()(self._leaves(params), aux,
                                  self._inputs(batch))
         return probe.stats()
@@ -459,19 +835,57 @@ class TrainStep:
     def value_and_grad(self, params, aux, batch):
         """``(loss, grads, aux_updates)`` of one step without the update:
         the gradients (summed over the batch, in ``compute_dtype``) with
-        respect to the params cast to ``compute_dtype``."""
+        respect to the params cast to ``compute_dtype``. On a mesh, the
+        global batch's loss and gradients, on every rank."""
+        inputs = self._inputs(batch)
         loss, grads, aux_updates, _outs = self._value_and_grad(
-            params, aux, self._inputs(batch))
+            params, aux, inputs)
+        self._reduce_grads(grads, {})
         return loss, grads, aux_updates
 
     def _value_and_grad(self, params, aux, inputs):
+        """Loss, gradients, aux updates and outputs of the rank's rows. On
+        a mesh the loss is the global batch's; the gradients are the rank's
+        share (local rows, scaled by local/global rows where ``loss_fn``
+        makes them), except the fused units' params', summed already."""
         leaves = self._leaves(params)
-        loss, outs, aux_updates = self._loss_closure()(leaves, aux, inputs)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+        with self._scope():
+            loss, outs, aux_updates = self._loss_closure()(leaves, aux,
+                                                           inputs)
+            if self.mesh is not None:
+                # the global mean is the sum over ranks of local means
+                # times local/global rows (a mean over rows is assumed)
+                loss = loss * (1.0 / self._n)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
         grads = {k: torch.zeros_like(leaves[k]) if g is None else g
                  for k, g in zip(leaves, grads)}
-        return loss.detach(), grads, aux_updates, outs
+        loss = loss.detach()
+        if self.mesh is not None:
+            from .mesh import all_reduce_
+
+            loss = all_reduce_(loss.clone(), self._group)
+        return loss, grads, aux_updates, outs
+
+    def _reduce_grads(self, grads, plan):
+        """Sum the gradients over the data group, once: one all-reduce a
+        dtype for every param but the fused units' (summed by their
+        backward); a ZeRO-planned param's becomes this rank's ``(1, chunk)``
+        row of the sum (reduce-scattered, or sliced when summed already)."""
+        if self.mesh is None:
+            return grads
+        from . import mesh as mesh_mod
+
+        mesh_mod.all_reduce_flat_(
+            [g for k, g in grads.items()
+             if k not in self._owned and k not in plan], self._group)
+        for k, (_shape, _size, n, chunk) in plan.items():
+            if k in self._owned:
+                grads[k] = self._zrow(grads[k], n, chunk)
+            else:
+                grads[k] = mesh_mod.reduce_scatter_rows(
+                    self._zrows(grads[k], n, chunk), self._group)
+        return grads
 
     def _metric_stats(self, loss, outs, inputs):
         """Batch statistics on the device: rows, loss times rows and, for a
@@ -494,12 +908,21 @@ class TrainStep:
                 stats["sum_ce"] = -torch.sum(torch.log(picked + 1e-12))
         return stats
 
-    def _health_terms(self, loss, grads):
+    def _health_terms(self, loss, grads, plan):
         """The health word's terms known before the update: finite loss,
-        finite sum of squared gradients (f32)."""
+        finite sum of squared gradients (f32). A ZeRO row's squares are
+        summed over the group, so the word is the same on every rank."""
         gsq = torch.zeros((), dtype=torch.float32, device=loss.device)
-        for g in grads.values():
-            gsq = gsq + torch.sum(torch.square(g.float()))
+        for k, g in grads.items():
+            if k not in plan:
+                gsq = gsq + torch.sum(torch.square(g.float()))
+        if plan:
+            from .mesh import all_reduce_
+
+            part = torch.zeros((), dtype=torch.float32, device=loss.device)
+            for k in plan:
+                part = part + torch.sum(torch.square(grads[k].float()))
+            gsq = gsq + all_reduce_(part, self._group)
         return torch.isfinite(loss.float()), torch.isfinite(gsq)
 
     def _count_health(self, opt_state, loss, healthy, f_loss, f_grad, p_ok,
@@ -530,8 +953,10 @@ class TrainStep:
         core_opt = {k: v for k, v in opt_state.items() if k != self._SENT}
         loss, grads, aux_updates, outs = self._value_and_grad(params, aux,
                                                               inputs)
+        plan = self.zero_plan(params)
+        grads = self._reduce_grads(grads, plan)
         if self.normalize_grads:
-            bsz = int(inputs[self.data_names[0]].shape[0])
+            bsz = int(inputs[self.data_names[0]].shape[0]) * self._n
             grads = {k: g / bsz for k, g in grads.items()}
         before = None
         if self.sentinel == "skip":
@@ -543,8 +968,11 @@ class TrainStep:
                 step_no = torch.full((), int(step_no), dtype=torch.int32,
                                      device=self.device)
         if armed:
-            f_loss, f_grad = self._health_terms(loss, grads)
-        self.optimizer.apply(params, grads, core_opt, step_no)
+            f_loss, f_grad = self._health_terms(loss, grads, plan)
+        if plan:
+            self._zero_update(params, grads, core_opt, step_no, plan)
+        else:
+            self.optimizer.apply(params, grads, core_opt, step_no)
         with torch.no_grad():
             for k, v in aux_updates.items():
                 if k in aux:
@@ -569,11 +997,33 @@ class TrainStep:
         if not self.return_outputs:
             return new_carry, loss
         outs = tuple(o.detach() for o in outs)
+        if self.mesh is not None:
+            from .mesh import all_gather_rows
+
+            outs = tuple(all_gather_rows(o, self._group) for o in outs)
+            inputs = {n: all_gather_rows(inputs[n], self._group)
+                      for n in self.label_names[:1]}
         if self.metric_stats:
             with torch.no_grad():
                 stats = self._metric_stats(loss, outs, inputs)
             return new_carry, (loss, outs, stats)
         return new_carry, (loss, outs)
+
+    def _zero_update(self, params, grads, core_opt, step_no, plan):
+        """The update of a ZeRO plan: each planned param's ``(1, chunk)``
+        row updated with its gradient row and its state row, then the rows
+        all-gathered into the param (in place); every other param as the
+        replicated update. The update is elementwise, so a row's values are
+        those of the replicated update."""
+        from .mesh import all_gather_rows
+
+        rows = {k: (self._zrow(w.detach(), *plan[k][2:]) if k in plan
+                    else w) for k, w in params.items()}
+        self.optimizer.apply(rows, grads, core_opt, step_no)
+        with torch.no_grad():
+            for k, (shape, size, _n, _chunk) in plan.items():
+                full = all_gather_rows(rows[k], self._group)
+                params[k].copy_(full.reshape(-1)[:size].view(shape))
 
 
 def _tensors(d):

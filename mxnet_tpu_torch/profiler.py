@@ -18,8 +18,12 @@ of ``mxnet_tpu/profiler.py``).
   ``health_reset``: reaction-side event counters and the newest drained
   snapshot of ``TrainStep``'s sentinel counters.
 - ``h2d_record`` / ``pipeline_stats`` / ``pipeline_reset``: the host
-  syncs a training loop made (``host_syncs``); the JAX package's other
-  input-pipeline counters have no writer in the port.
+  syncs a training loop made (``host_syncs``), the batch arrays placed on
+  a mesh (``puts``, ``nbytes``, ``put_seconds``, ``preplaced``), the fused
+  Module group's steps, its waits for the card and steps in flight; the
+  JAX package's background-feed counters have no writer in the port.
+- ``memory_record`` / ``memory_stats`` / ``memory_reset``: the gauge of
+  ``TrainStep.memory_stats`` (bytes of the carry on this rank).
 
 Unknown counter names raise.
 """
@@ -263,28 +267,72 @@ def health_reset():
 
 
 # ---------------------------------------------------------------------------
-# host syncs of the training loop
+# the training loop's input pipeline and host syncs
 # ---------------------------------------------------------------------------
 _PIPE_LOCK = threading.Lock()
-_PIPE = {"host_syncs": 0}
+_PIPE_ZERO = {"host_syncs": 0, "puts": 0, "preplaced": 0, "steps": 0,
+              "nbytes": 0, "put_seconds": 0.0, "stall_compute_seconds": 0.0,
+              "max_inflight": 0}
+_PIPE = dict(_PIPE_ZERO)
 
 
-def h2d_record(host_syncs=0):
-    """Count host syncs a training loop made (``TrainStep``'s ``halt``
-    sentinel reads its health word once a step)."""
+def h2d_record(host_syncs=0, puts=0, preplaced=0, steps=0, nbytes=0,
+               seconds=0.0, stall_compute=0.0, inflight=None):
+    """Count what a training loop did: host syncs (``TrainStep``'s ``halt``
+    sentinel, a metric read), batch arrays placed on a mesh and their bytes
+    and seconds, arrays found placed already, fused steps, the seconds the
+    host waited for the card and the most steps in flight."""
     with _PIPE_LOCK:
-        _PIPE["host_syncs"] += int(host_syncs)
+        s = _PIPE
+        s["host_syncs"] += int(host_syncs)
+        s["puts"] += int(puts)
+        s["preplaced"] += int(preplaced)
+        s["steps"] += int(steps)
+        s["nbytes"] += int(nbytes)
+        s["put_seconds"] += float(seconds)
+        s["stall_compute_seconds"] += float(stall_compute)
+        if inflight is not None and inflight > s["max_inflight"]:
+            s["max_inflight"] = int(inflight)
 
 
 def pipeline_stats(reset=False):
-    """``{"host_syncs": n}``; empty dict when nothing was recorded."""
+    """The counters that were recorded (nonzero ones only); an empty dict
+    when nothing was."""
     with _PIPE_LOCK:
-        snap = dict(_PIPE)
+        snap = {k: v for k, v in _PIPE.items() if v}
         if reset:
-            _PIPE["host_syncs"] = 0
-    return snap if snap["host_syncs"] else {}
+            _PIPE.update(_PIPE_ZERO)
+    return snap
 
 
 def pipeline_reset():
     with _PIPE_LOCK:
-        _PIPE["host_syncs"] = 0
+        _PIPE.update(_PIPE_ZERO)
+
+
+# ---------------------------------------------------------------------------
+# the resident carry's memory: a gauge, the newest snapshot
+# ---------------------------------------------------------------------------
+_MEM_LOCK = threading.Lock()
+_MEM = {}
+
+
+def memory_record(**fields):
+    """Replace the memory gauge with ``TrainStep.memory_stats``' fields."""
+    with _MEM_LOCK:
+        _MEM.clear()
+        _MEM.update(fields)
+
+
+def memory_stats(reset=False):
+    """The newest memory snapshot ({} when no carry was placed)."""
+    with _MEM_LOCK:
+        snap = dict(_MEM)
+        if reset:
+            _MEM.clear()
+    return snap
+
+
+def memory_reset():
+    with _MEM_LOCK:
+        _MEM.clear()

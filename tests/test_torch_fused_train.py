@@ -642,8 +642,6 @@ def test_fused_gradients_match_unfused_in_the_port(batch):
 # what is not ported, devices
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,knob,name", [
-    (dict(mesh="a mesh"), None, "mesh"),
-    (dict(zero=True), ("MXNET_TPU_ZERO", "1"), "zero=True"),
     (dict(zero_wire="2bit"), ("MXNET_TPU_ZERO_WIRE", "2bit"), "zero_wire")])
 def test_unported_train_step_options_raise_by_name(monkeypatch, kw, knob,
                                                    name):

@@ -278,5 +278,7 @@ def test_import_pulls_in_neither_jax_nor_mxnet_tpu():
     for name in ("parallel.spmd", "lr_scheduler", "kernels.flash_attention",
                  "models.transformer", "serving.broker",
                  "kernels.fused_block", "serving.predictor", "ir.passes",
-                 "models.resnet", "executor", "initializer"):
+                 "models.resnet", "executor", "initializer",
+                 "parallel.mesh", "parallel.feed", "kvstore",
+                 "module.spmd_group"):
         assert "'mxnet_tpu_torch.%s'" % name in r.stdout, name

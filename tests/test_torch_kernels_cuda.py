@@ -34,6 +34,10 @@ column's largest sum of |terms| (the same product on absolute values):
 1e-4 in both types, since both sides multiply the same rounded operands
 in f32 and differ only in the order of the sums.
 
+A NaN entering a prologue ReLU (B1, B2's x side) or B3's g-side rebuild
+comes out where the plain version puts it (``jnp.maximum`` keeps a NaN),
+in both types; the finite values are held as above.
+
 The symbolic front end on the card: an in-place NDArray update reaching a
 bound executor, the tiny fused ResNet's ``Executor.forward_backward``
 (11/11/9 launches of B1/B2/B3, gradients within 1e-4 of the CPU's against
@@ -843,3 +847,66 @@ def test_checkpoint_saved_from_the_card_loads_on_the_cpu_bit_exact(tmp_path):
     assert on_card.context == mx.gpu(0)
     assert torch.equal(on_card.tensor, bf.tensor)
     assert torch.equal(back.tensor, bf.tensor.cpu())
+
+
+NAN_SHAPES = [(2, 12, 16, 32, 3, 1), (2, 12, 16, 32, 1, 2)]
+
+
+def _same_nans(got, ref, what):
+    """NaN where the plain version has NaN (and somewhere), the finite
+    values held per row as elsewhere in this file."""
+    nan = torch.isnan(ref)
+    assert bool(nan.any()), what
+    assert torch.equal(torch.isnan(got), nan), what
+    assert _row_err(got.masked_fill(nan, 0), ref.masked_fill(nan, 0)) <= \
+        ROW_TOL[got.dtype if got.dtype in ROW_TOL else torch.float32], what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nan_passes_the_prologue_relu_as_in_the_plain_versions(dtype):
+    """A NaN pixel through B1's prologue, B2's x prologue and B3's g-side
+    rebuild: NaN where the plain version (``jnp.maximum``'s semantics, which
+    keep a NaN) has it, the finite values as before. B1's outputs that no
+    NaN reaches are bit for bit those of the same call without the NaN."""
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for (n, h, ci, co, k, stride) in NAN_SHAPES:
+        x, w, pro, e, y, consts = _grad_case(gen, n, h, ci, co, k, stride, dt)
+        xn = x.clone()
+        xn[0, 4, 6, 2] = float("nan")
+        xn[1, 8, 0, 9] = float("nan")
+        # B1: the NaN passes the ReLU into the convolution
+        yk, stk = fb.conv_fwd(xn, w, stride=stride, prologue=pro,
+                              emit_stats=True)
+        yr, str_ = fb.conv_fwd_reference(xn, w, stride=stride, prologue=pro,
+                                         emit_stats=True)
+        y0, _ = fb.conv_fwd(x, w, stride=stride, prologue=pro)
+        torch.cuda.synchronize()
+        _same_nans(yk, yr, "B1 %s" % (k,))
+        fin = ~torch.isnan(yr)
+        assert torch.equal(yk[fin], y0[fin]), "B1 finite outputs changed"
+        assert torch.equal(torch.isnan(stk), torch.isnan(str_))
+        # B2: the x-side prologue
+        for g_parts, g_bnbwd in ((e, None), ((e, y), consts)):
+            kw = dict(stride=stride, x_prologue=pro, g_bnbwd=g_bnbwd)
+            dw = fb.conv_wgrad(xn, g_parts, w.shape, **kw)
+            ref = fb.conv_wgrad_reference(xn, g_parts, w.shape, **kw)
+            torch.cuda.synchronize()
+            nan = torch.isnan(ref)
+            assert bool(nan.any()) and torch.equal(torch.isnan(dw), nan)
+            assert _wgrad_err(dw.masked_fill(nan, 0), ref.masked_fill(nan, 0),
+                              x, g_parts, w.shape, stride, pro,
+                              g_bnbwd) <= 1e-4
+        # B3: a NaN in e reaches dL/dy through the rebuild
+        en = e.clone()
+        en[1, 2, 3, 4] = float("nan")
+        mask = (x, pro[0] + 0.5, pro[1], pro[1] * 0.3, pro[0])
+        kw = dict(stride=stride, g_bnbwd=consts, out_mask=mask)
+        got, st = fb.conv_dgrad((en, y), w, x.shape, **kw)
+        ref, ref_st = fb.conv_dgrad_reference((en, y), w, x.shape, **kw)
+        torch.cuda.synchronize()
+        _same_nans(got, ref, "B3 %s" % (k,))
+        assert torch.equal(torch.isnan(st), torch.isnan(ref_st))

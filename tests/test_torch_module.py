@@ -378,8 +378,7 @@ def _iter():
 @pytest.mark.parametrize("kw,name", [
     (dict(context=[mx.cpu(), mx.cpu(1)]), "more than one context"),
     (dict(group2ctxs={"a": mx.cpu()}), "group2ctxs"),
-    (dict(compression_params={"type": "2bit"}), "compression_params"),
-    (dict(zero=True), "zero=True")])
+    (dict(compression_params={"type": "2bit"}), "compression_params")])
 def test_unported_module_arguments_raise_by_name(kw, name):
     kw.setdefault("context", mx.cpu())
     with pytest.raises(MXNetError, match="%s.*not ported" % name):
@@ -387,7 +386,6 @@ def test_unported_module_arguments_raise_by_name(kw, name):
 
 
 @pytest.mark.parametrize("env,name", [
-    (("MXNET_TPU_ZERO", "1"), "zero=True"),
     (("MXNET_CHECKPOINT_DIR", "/nonexistent"), "HealthGuard"),
     (("MXNET_TUNE_BACKGROUND", "1"), "BackgroundTuner")])
 def test_unported_knobs_raise_by_name(monkeypatch, env, name):
@@ -397,8 +395,7 @@ def test_unported_knobs_raise_by_name(monkeypatch, env, name):
         mod.fit(_iter(), num_epoch=1)
 
 
-@pytest.mark.parametrize("kvstore", ["device", "tpu", "dist_sync",
-                                     "dist_async"])
+@pytest.mark.parametrize("kvstore", ["dist_sync", "dist_async"])
 def test_other_kvstores_raise_by_name(kvstore):
     mod = mx.mod.Module(_small(), context=mx.cpu())
     with pytest.raises(MXNetError, match="kvstore='%s' is not ported"
