@@ -99,7 +99,20 @@ the kernels are built for sm_90a) and ``nvcc``. It
    ``Module.fit(kvstore="tpu")`` over 4 copies of one batch with the
    same params and metric on both ranks. Rates of the shared card are not
    scaling rates;
-16. prints one JSON line describing each kernel, then the result line
+16. runs ``Module.fit`` on the image-classification builders at
+   full width, fp32, TF32 off, sgd with momentum, 1000 classes, batch 32
+   of 224x224 images: alexnet, vgg-16, inception-bn, mobilenet 1.0 and
+   resnext-50 (32x4d), then lenet and mlp at MNIST shape, batch 64; one
+   warm-up batch and 4 timed batches of one batch repeated (the loss must
+   fall), printing seconds a batch, images/s, peak memory and a profiled
+   batch's device time; holds the networks without dropout card vs CPU
+   (the first loss within 1e-4, the gradients within 3x the gap one
+   rounding of the inputs and weights gives) and, for alexnet and vgg,
+   the inference logits within 1e-4 and each dropout layer's keep rate
+   within 5 sigma; holds one ``nd.RNN`` (lstm, PTB-medium: T 35, N 32,
+   650 wide, 2 layers) at p = 0 card vs CPU within 1e-4 and times it at
+   p = 0.5; no hand-written kernel launches there;
+17. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -425,11 +438,12 @@ def _row_err(torch, x, ref, floor_frac=0.0):
     return (diff / scale.clamp_min(floor)).max().item()
 
 
-def _device_profile(torch, fn, top=8, also=()):
+def _device_profile(torch, fn, top=8, also=(), stats=None):
     """Run ``fn`` under torch.profiler and print the device busy share of
     its wall time (merged kernel intervals over the host-clock window), the
     device kernels that take the most time, and those whose names hold a
-    string of ``also``; returns the names of those last (a list)."""
+    string of ``also``; returns the names of those last (a list). A
+    ``stats`` dict receives ``wall_ms``, ``busy_ms`` and ``launches``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -454,6 +468,9 @@ def _device_profile(torch, fn, top=8, also=()):
           "(idle %.3f), %d kernel launches"
           % (wall_us / 1e3, busy / 1e3, busy / wall_us, 1 - busy / wall_us,
              len(spans)))
+    if stats is not None:
+        stats.update(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                     launches=len(spans))
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -468,6 +485,16 @@ def _device_profile(torch, fn, top=8, also=()):
         print("profile:   %7.2f ms %5.1f%% of busy  x%-5d %s"
               % (dev_us(e) / 1e3, 100 * dev_us(e) / busy, e.count,
                  e.key[:90]))
+    if stats is not None:
+        # where the host's time goes: the host ops with the most self time
+        host = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)
+        for e in host[:top]:
+            print("profile:   host %7.2f ms self %5.1f%% of wall  x%-5d %s"
+                  % (e.self_cpu_time_total / 1e3,
+                     100 * e.self_cpu_time_total / wall_us, e.count,
+                     e.key[:80]))
     return [e.key for e in kernels if any(name in e.key for name in also)]
 
 
@@ -2692,6 +2719,345 @@ def dp_training_phase(torch, np, fb):
     return nccl, [tuple(r["launches"]) for r in ranks]
 
 
+# Module.fit on the image-classification zoo: the builders of
+# mxnet_tpu_torch/models at full ImageNet width, fp32 (TF32 off), through the
+# nn ops (cuDNN and cuBLAS: no hand-written kernel lies on this path, so B1-B7
+# launch 0 times here). One batch repeated ZOO_COPIES times: a warm-up batch,
+# then the timed ones, so the loss must fall.
+ZOO_NETS = (("alexnet", {}), ("vgg", dict(num_layers=16)),
+            ("inception-bn", {}), ("mobilenet", dict(multiplier=1.0)),
+            ("resnext", dict(num_layers=50, num_group=32)))
+ZOO_SHAPE, ZOO_CLASSES, ZOO_BATCH = (3, 224, 224), 1000, 32
+ZOO_MNIST = (("lenet", {}), ("mlp", {}))
+ZOO_MNIST_SHAPE, ZOO_MNIST_CLASSES, ZOO_MNIST_BATCH = (1, 28, 28), 10, 64
+ZOO_COPIES = 5
+ZOO_OPT = dict(learning_rate=0.01, momentum=0.9, wd=1e-4)
+# card vs CPU. The networks that draw nothing: the first batch's loss
+# within ZOO_TOL, and the gradients as close to the CPU's as the card's own
+# gradients move when every image and parameter element moves by one
+# rounding (ZOO_NUDGES such moves; the whole gradient's relative L2 gap and
+# each tensor's within ZOO_RATIO times theirs): at Xavier init these fp32
+# gradients are ill-conditioned (full-width ResNet-50 gradients move 2-4%
+# under any reordering of their sums), so the 1e-4 bar of each tensor is printed and
+# not held. The networks with dropout: the logits of an inference forward
+# within ZOO_TOL of the largest, and each dropout layer's keep rate in one
+# training forward within ZOO_SIGMAS standard deviations of 1 - p. These
+# run at ZOO_CHECK_BATCH: the CPU's side of them is most of the phase.
+ZOO_NO_RNG = ("inception-bn", "mobilenet", "resnext")
+ZOO_CHECK_BATCH = 8
+ZOO_TOL = 1e-4
+ZOO_RATIO, ZOO_NUDGES = 3.0, 3
+ZOO_SIGMAS = 5.0
+# one RNN op at PTB-medium size: (T, N, I) = (35, 32, 650), 650 hidden, 2
+# layers, lstm; p = 0 held card vs CPU, p = 0.5 timed
+ZOO_RNN = dict(seq=35, batch=32, size=650, layers=2)
+
+
+def _zoo_batch(np, shape, classes, n, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, *shape).astype(np.float32),
+            rng.randint(0, classes, (n,)).astype(np.float32))
+
+
+def _zoo_ce(np, probs, y):
+    return float(-np.log(probs[np.arange(len(y)), y.astype(int)]
+                         + 1e-12).mean())
+
+
+def _zoo_fit(torch, np, mx, network, kw, shape, classes, n):
+    """``Module.fit`` of one network on the card; its per-batch times and
+    losses, peak memory and a profiled batch."""
+    from mxnet_tpu_torch import models
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    sym = models.get_symbol(network, num_classes=classes, **kw)
+    x, y = _zoo_batch(np, shape, classes, n, 0)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    it = mx.io.NDArrayIter(np.concatenate([x] * ZOO_COPIES),
+                           np.concatenate([y] * ZOO_COPIES), batch_size=n)
+    per, last = [], {}
+
+    def on_batch(_param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        per.append((now - last["t"],
+                    _zoo_ce(np, mod.get_outputs()[0].asnumpy(), y)))
+        last["t"] = time.perf_counter()
+
+    mx.random.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last["t"] = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=ZOO_OPT,
+            initializer=mx.init.Xavier(), batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    it.reset()
+    data_batch = next(iter(it))
+
+    def one_batch():
+        mod.forward_backward(data_batch)
+        mod.update()
+
+    prof = {}
+    _device_profile(torch, one_batch, top=3, stats=prof)
+    secs = sorted(p[0] for p in per[1:])
+    med = secs[len(secs) // 2]
+    row = dict(network=network, batch=n, s_batch=med, images_s=n / med,
+               first_s=per[0][0], peak_gib=peak / 2 ** 30,
+               busy_ms=prof.get("busy_ms"), wall_ms=prof.get("wall_ms"),
+               losses=[p[1] for p in per])
+    print("model zoo: %s%s batch %d: %.4f s a batch (median of %d, range "
+          "%.4f-%.4f; first with its set-up %.3f s), %.1f images/s, peak "
+          "memory %.2f GiB, a profiled batch busy %s of %s ms; loss %s"
+          % (network, "".join(" %s=%s" % kv for kv in kw.items()), n, med,
+             len(secs), secs[0], secs[-1], per[0][0], n / med,
+             peak / 2 ** 30, "%.1f" % prof["busy_ms"] if prof else "n/a",
+             "%.1f" % prof["wall_ms"] if prof else "n/a",
+             " ".join("%.5f" % p[1] for p in per)))
+    del mod
+    if not all(math.isfinite(p[1]) for p in per) or \
+            not per[-1][1] < per[0][1]:
+        raise RuntimeError("model zoo: %s loss did not fall: %s"
+                           % (network, row["losses"]))
+    return row
+
+
+def _zoo_params(np, mx, sym, shapes):
+    """Xavier weights from seed 0 (host draws: the same on any device)."""
+    ex = sym.simple_bind(mx.cpu(), grad_req="null", **shapes)
+    mx.random.seed(0)
+    init = mx.init.Xavier()
+    out = {}
+    for d in (ex.arg_dict, ex.aux_dict):
+        for name, arr in d.items():
+            if name not in shapes:
+                init(mx.init.InitDesc(name), arr)
+                out[name] = arr.asnumpy()
+    return out
+
+
+def _zoo_nudged(np, a, rng):
+    return (a * (1 + rng.choice([-1.0, 1.0], a.shape) * 2.0 ** -23)) \
+        .astype(np.float32)
+
+
+def _zoo_grads_vs_cpu(np, mx, network, kw):
+    """Loss and gradients of one training forward_backward, card vs CPU,
+    with the card's one-rounding yardstick."""
+    from mxnet_tpu_torch import models
+
+    sym = models.get_symbol(network, num_classes=ZOO_CLASSES, **kw)
+    n = ZOO_CHECK_BATCH
+    x, y = _zoo_batch(np, ZOO_SHAPE, ZOO_CLASSES, n, 1)
+    shapes = dict(data=(n,) + ZOO_SHAPE, softmax_label=(n,))
+    params = _zoo_params(np, mx, sym, shapes)
+
+    def run(ctx, nudge=None):
+        rng = None if nudge is None else np.random.RandomState(nudge)
+        ex = sym.simple_bind(ctx, **shapes)
+        for d in (ex.arg_dict, ex.aux_dict):
+            for name, arr in d.items():
+                v = {"data": x, "softmax_label": y}.get(name)
+                v = params[name] if v is None else v
+                if rng is not None and name != "softmax_label":
+                    v = _zoo_nudged(np, v, rng)
+                arr[:] = v
+        ex.forward_backward()
+        return (_zoo_ce(np, ex.outputs[0].asnumpy(), y),
+                {k: g.asnumpy() for k, g in ex.grad_dict.items()
+                 if k not in shapes})
+
+    cpu_ce, cpu = run(mx.cpu())
+    card_ce, card = run(mx.gpu(0))
+    nudged = [run(mx.gpu(0), 200 + i)[1] for i in range(ZOO_NUDGES)]
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    def whole(a, b):
+        return float(np.sqrt(sum(float(((a[k] - b[k]) ** 2).sum())
+                                 for k in b)
+                             / sum(float((v ** 2).sum())
+                                   for v in b.values())))
+
+    floor = 1e-2 * max(float(np.abs(g).max()) for g in cpu.values())
+    own = max((float(np.abs(card[k] - g).max())
+               / max(float(np.abs(g).max()), floor), k)
+              for k, g in cpu.items())
+    loss_err = abs(card_ce - cpu_ce) / abs(cpu_ce)
+    gap, yard = whole(card, cpu), max(whole(g, card) for g in nudged)
+    worst = max((rel(card[k], g), k) for k, g in cpu.items())
+    tyard = max(rel(g[k], card[k]) for g in nudged for k in card)
+    print("model zoo card vs cpu: %s, %d gradients: first loss %.6f vs "
+          "%.6f (relative %.3g, tol %g); the worst tensor %.3g of its "
+          "largest at %s (the 1e-4 bar, not held); whole gradient relative "
+          "L2 %.4g against %.4g under %d one-rounding moves (ratio %.2f, "
+          "limit %g); worst tensor %.4g at %s against %.4g (ratio %.2f)"
+          % (network, len(cpu), card_ce, cpu_ce, loss_err, ZOO_TOL, own[0],
+             own[1], gap, yard, ZOO_NUDGES, gap / max(yard, 1e-30),
+             ZOO_RATIO, worst[0], worst[1], tyard,
+             worst[0] / max(tyard, 1e-30)))
+    if loss_err > ZOO_TOL or gap > ZOO_RATIO * yard or \
+            worst[0] > max(ZOO_RATIO * tyard, ZOO_TOL):
+        raise RuntimeError("model zoo: %s card vs cpu out of bounds"
+                           % network)
+
+
+def _zoo_dropout_checks(np, mx, network, kw):
+    """The logits of an inference forward, card vs CPU, and the keep rate
+    of each dropout layer in one training forward on the card."""
+    from mxnet_tpu_torch import models
+    from mxnet_tpu_torch.ops import registry
+
+    sym = models.get_symbol(network, num_classes=ZOO_CLASSES, **kw)
+    logits = sym.get_internals()["fc8_output"]
+    n = ZOO_CHECK_BATCH
+    x, y = _zoo_batch(np, ZOO_SHAPE, ZOO_CLASSES, n, 2)
+    shapes = dict(data=(n,) + ZOO_SHAPE)
+    params = _zoo_params(np, mx, logits, shapes)
+    outs = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        ex = logits.simple_bind(ctx, grad_req="null", **shapes)
+        for name, arr in ex.arg_dict.items():
+            arr[:] = x if name == "data" else params[name]
+        ex.forward(is_train=False)
+        outs.append(ex.outputs[0].asnumpy())
+        del ex
+    err = float(np.abs(outs[1] - outs[0]).max() / np.abs(outs[0]).max())
+
+    op = registry.get("Dropout")
+    orig, kept = op.fn, []
+
+    def counting(gen, data, **attrs):
+        out = orig(gen, data, **attrs)
+        if attrs.get("__is_train__"):
+            kept.append((int((out[1] != 0).sum()), out[1].numel(),
+                         1.0 - attrs.get("p", 0.5)))
+        return out
+
+    ex = sym.simple_bind(mx.gpu(0), grad_req="null", softmax_label=(n,),
+                         **shapes)
+    for name, arr in ex.arg_dict.items():
+        arr[:] = {"data": x, "softmax_label": y}.get(name, params.get(name))
+    op.fn = counting
+    try:
+        mx.random.seed(0)
+        ex.forward(is_train=True)
+        ex.outputs[0].asnumpy()
+    finally:
+        op.fn = orig
+    del ex
+    sig = [abs(k / m - q) / math.sqrt(q * (1 - q) / m) for k, m, q in kept]
+    print("model zoo card vs cpu: %s inference logits within %.3g of the "
+          "largest (tol %g); keep rates %s of %s in one training forward, "
+          "%s sigma (limit %g)"
+          % (network, err, ZOO_TOL,
+             " ".join("%.5f" % (k / m) for k, m, _q in kept),
+             " ".join("%.2f" % q for _k, _m, q in kept),
+             " ".join("%.2f" % v for v in sig), ZOO_SIGMAS))
+    if err > ZOO_TOL or len(kept) != 2 or max(sig) > ZOO_SIGMAS:
+        raise RuntimeError("model zoo: %s logits or dropout keep rate out "
+                           "of bounds" % network)
+
+
+def _zoo_rnn(torch, np, mx):
+    """``nd.RNN`` (lstm, 2 layers) under autograd, card vs CPU at p = 0,
+    then timed at p = 0.5 in training."""
+    from mxnet_tpu_torch.ops.rnn import param_size
+
+    c = ZOO_RNN
+    t, n, h, layers = c["seq"], c["batch"], c["size"], c["layers"]
+    rng = np.random.RandomState(3)
+    host = [rng.randn(t, n, h).astype(np.float32),
+            rng.uniform(-0.07, 0.07, param_size("lstm", h, layers, False, h))
+            .astype(np.float32),
+            (0.1 * rng.randn(layers, n, h)).astype(np.float32),
+            (0.1 * rng.randn(layers, n, h)).astype(np.float32)]
+    cots = [rng.randn(t, n, h).astype(np.float32),
+            rng.randn(layers, n, h).astype(np.float32),
+            rng.randn(layers, n, h).astype(np.float32)]
+    attrs = dict(state_size=h, num_layers=layers, mode="lstm",
+                 state_outputs=True)
+
+    def run(ctx, p, train=True):
+        arrs = [mx.nd.array(v, ctx=ctx) for v in host]
+        for a in arrs:
+            a.attach_grad()
+        with mx.autograd.record(train_mode=train):
+            outs = mx.nd.RNN(*arrs, p=p, **attrs)
+        mx.autograd.backward(outs, [mx.nd.array(g, ctx=ctx) for g in cots])
+        return [o.asnumpy() for o in outs] + [a.grad.asnumpy()
+                                              for a in arrs]
+
+    cpu, card = run(mx.cpu(), 0.0), run(mx.gpu(0), 0.0)
+    names = ("out", "h", "c", "d data", "d parameters", "d state",
+             "d state_cell")
+    errs = [(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)), nm)
+            for nm, a, b in zip(names, card, cpu)]
+    secs = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(mx.gpu(0), 0.5)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    secs = sorted(secs[1:])
+    med = secs[len(secs) // 2]
+    print("model zoo rnn: lstm T %d N %d I=H %d, %d layers: card vs cpu at "
+          "p=0 worst %.3g at %s (tol %g); p=0.5 training forward + backward "
+          "%.4f s (median of %d, range %.4f-%.4f), %.0f tokens/s"
+          % (t, n, h, layers, max(errs)[0], max(errs)[1], ZOO_TOL, med,
+             len(secs), secs[0], secs[-1], t * n / med))
+    if max(errs)[0] > ZOO_TOL:
+        raise RuntimeError("model zoo: the RNN on the card differs from "
+                           "the CPU's")
+    return med
+
+
+def model_zoo_fit_phase(torch, np, fa, fb):
+    """``Module.fit`` on the image-classification builders at full width
+    and lenet/mlp at MNIST shape, the card-vs-CPU checks and one RNN op;
+    returns the launches of B5, B6, B7, B1, B2 and B3 meanwhile (0: no
+    hand-written kernel lies on this path)."""
+    import mxnet_tpu_torch as mx
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("model zoo: TF32 must be off for fp32")
+    before = _counts(fa) + _fb_counts(fb)
+    t0 = time.perf_counter()
+    rows = [_zoo_fit(torch, np, mx, net, kw, ZOO_SHAPE, ZOO_CLASSES,
+                     ZOO_BATCH) for net, kw in ZOO_NETS]
+    rows += [_zoo_fit(torch, np, mx, net, kw, ZOO_MNIST_SHAPE,
+                      ZOO_MNIST_CLASSES, ZOO_MNIST_BATCH)
+             for net, kw in ZOO_MNIST]
+    launches = tuple(a - b for a, b in zip(_counts(fa) + _fb_counts(fb),
+                                           before))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    for net, kw in ZOO_NETS:
+        if net in ZOO_NO_RNG:
+            _zoo_grads_vs_cpu(np, mx, net, kw)
+        else:
+            _zoo_dropout_checks(np, mx, net, kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    _zoo_rnn(torch, np, mx)
+    print("model zoo: the fits %.1f s, the card-vs-CPU checks %.1f s, the "
+          "RNN %.1f s" % (t1 - t0, t2 - t1, time.perf_counter() - t2))
+    print("model zoo: %s" % json.dumps([
+        {k: (round(v, 6) if isinstance(v, float) else v)
+         for k, v in r.items() if k != "losses"} for r in rows]))
+    if any(launches):
+        raise RuntimeError("model zoo: hand-written kernels launched %s"
+                           % (launches,))
+    return launches
+
+
 def main():
     import torch
 
@@ -2757,17 +3123,21 @@ def main():
     for i, entry in enumerate([conv, *grads]):
         entry["dp_launches"] = dp_nccl[i]
         entry["dp_gloo_launches"] = [r[i] for r in dp_gloo]
+    zoo = phase("model_zoo_fit", model_zoo_fit_phase, torch, np, fa, fb)
+    for entry, n in zip([fwd, *bwd, conv, *grads], zoo):
+        entry["model_zoo_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; image serving B1 %d; ResNet-50 "
           "training %d steps B1 %d, B2 %d, B3 %d; TrainStep options %d "
           "steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 %d, B2 %d, "
           "B3 %d; data parallel, one rank over NCCL, %d steps B1 %d, B2 %d, "
-          "B3 %d, each of %d gloo ranks %s"
+          "B3 %d, each of %d gloo ranks %s; model zoo B5-B7 and B1-B3 %s"
           % (TRAIN_STEPS, *launches, served, conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
              OPTIONS_STEPS * (len(REMAT_MODES) + 1), *options_launches,
              FIT_EPOCHS * FIT_COPIES, *fit_launches, DP_STEPS, *dp_nccl,
-             DP_RANKS, " / ".join("%d, %d, %d" % r for r in dp_gloo)))
+             DP_RANKS, " / ".join("%d, %d, %d" % r for r in dp_gloo),
+             ", ".join("%d" % n for n in zoo)))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

@@ -22,9 +22,15 @@ frees it; ``forward_backward`` does both on one graph.
 (:class:`_Remat`), and :func:`residual_probe` counts what a forward keeps
 for its backward (``TrainStep.residual_stats``).
 
+Random ops (``needs_rng``: Dropout, LeakyReLU's rrelu, RNN's dropout)
+draw from a generator of their own node: :func:`eval_node` seeds it from
+the call's step seed and the node's salt (its index in the graph), so a
+graph run twice from one step seed draws bit for bit the same, a remat
+recompute replays its forward's draws and the backward of a training
+forward uses that forward's masks (the autograd graph holds them).
+
 Not ported yet: ``ctx_group`` placement and ``group2ctx`` (both raise),
-``MXNET_BACKWARD_DO_MIRROR``, monitor callbacks and the RNG salt of
-stochastic ops (the port registers none).
+``MXNET_BACKWARD_DO_MIRROR`` and monitor callbacks.
 """
 from __future__ import annotations
 
@@ -35,22 +41,42 @@ import weakref
 import numpy as np
 import torch
 
+from . import random as _random
 from .base import MXNetError, dtype_name, dtype_torch
 from .symbol.symbol import _AUX_PARAMS
 
+_RNG_SALT = 0x5EED
+# the step seed of the random ops that draw in inference (Dropout with
+# mode="always") when serving: fixed, as the JAX package's PRNGKey(0)
+INFERENCE_SEED = 0
 
-def eval_node(node, ins, is_train):
-    """Evaluate one op node on its input tensors; returns a tuple."""
+
+def eval_node(node, ins, is_train, seed=None, salt=0):
+    """Evaluate one op node on its input tensors; returns a tuple. A
+    random op gets a generator on its data's device seeded from ``seed``
+    (the step seed, None only on ``meta`` tensors) and ``salt +
+    _RNG_SALT``."""
     attrs = dict(node.attrs)
     if "__is_train__" in node.op.attr_defaults:
         attrs["__is_train__"] = is_train
-    out = node.op.fn(*ins, **attrs)
+    if node.op.needs_rng:
+        gen = _random.node_generator(seed, salt + _RNG_SALT, ins[0].device)
+        out = node.op.fn(gen, *ins, **attrs)
+    else:
+        out = node.op.fn(*ins, **attrs)
     return out if isinstance(out, tuple) else (out,)
 
 
+def has_rng(symbol):
+    """True when a node of ``symbol`` draws random numbers."""
+    return any(n.op is not None and n.op.needs_rng for n in symbol._topo())
+
+
 def _graph_closure(symbol, is_train, remat_names=None):
-    """A function evaluating the graph: ``fn(values) -> (outputs,
-    aux_updates)``, with ``values`` every variable's tensor by name and
+    """A function evaluating the graph: ``fn(values, seed=None) ->
+    (outputs, aux_updates)``, with ``values`` every variable's tensor by
+    name, ``seed`` the step seed of the random ops (None draws one from
+    the device's chain when the graph has a random op) and
     ``aux_updates`` the new value of each auxiliary state of a training
     step, by name, detached. Two contracts give them: an op's
     ``aux_state_outputs`` (the fused unit returns its moving statistics
@@ -82,7 +108,9 @@ def _graph_closure(symbol, is_train, remat_names=None):
         recompute = frozenset(i for i, n in enumerate(nodes)
                               if not n.is_variable() and n.name not in keep)
 
-    def run(values, remat):
+    rng = has_rng(symbol)
+
+    def run(values, remat, seed):
         results = {}   # node index -> tuple of outputs
         aux_updates = {}
         for i, node in enumerate(nodes):
@@ -96,7 +124,7 @@ def _graph_closure(symbol, is_train, remat_names=None):
                 if remat is not None and i in recompute:
                     out = remat.run(i, ins)
                 else:
-                    out = eval_node(node, ins, is_train)
+                    out = eval_node(node, ins, is_train, seed, i)
             results[i] = out
             if remat is not None:
                 remat.own(i, out)
@@ -107,13 +135,15 @@ def _graph_closure(symbol, is_train, remat_names=None):
         outs = [results[node_ids[id(n)]][idx] for n, idx in symbol._entries]
         return outs, aux_updates
 
-    def fn(values):
+    def fn(values, seed=None):
+        if rng and seed is None:
+            seed = _random.next_seed(next(iter(values.values())).device)
         if recompute is None:
-            return run(values, None)
-        remat = _Remat(nodes, node_ids, recompute, is_train)
+            return run(values, None, seed)
+        remat = _Remat(nodes, node_ids, recompute, is_train, seed)
         with torch.autograd.graph.saved_tensors_hooks(remat.pack,
                                                       remat.unpack):
-            return run(values, remat)
+            return run(values, remat, seed)
 
     return fn
 
@@ -188,12 +218,14 @@ class _Remat:
       dead one). A tensor whose storage no live recompute output owns is
       kept as it is.
 
-    No op the port registers draws random numbers, so the checkpoints do
-    not carry RNG state."""
+    A random op draws from a generator seeded from the step seed and its
+    node (:func:`eval_node`), so a recompute draws what the forward drew
+    and the checkpoints need not carry RNG state."""
 
-    def __init__(self, nodes, node_ids, recompute, is_train):
+    def __init__(self, nodes, node_ids, recompute, is_train, seed=None):
         self.nodes, self.node_ids = nodes, node_ids
         self.recompute, self.is_train = recompute, is_train
+        self.seed = seed
         self.feeds = {node_ids[id(inp)] for i in recompute
                       for inp, _ in nodes[i].inputs} - recompute
         self.owners = {}   # storage address -> _Owner
@@ -206,10 +238,10 @@ class _Remat:
     def run(self, i, ins):
         from torch.utils.checkpoint import checkpoint
 
-        node, is_train = self.nodes[i], self.is_train
+        node, is_train, seed = self.nodes[i], self.is_train, self.seed
 
         def node_fn(*xs):
-            return eval_node(node, list(xs), is_train)
+            return eval_node(node, list(xs), is_train, seed, i)
 
         return checkpoint(node_fn, *ins, use_reentrant=False,
                           preserve_rng_state=False)
@@ -265,7 +297,7 @@ class _Remat:
             else:
                 ins.append(self._value(j)[idx])
         with torch.no_grad():
-            out = eval_node(node, ins, self.is_train)
+            out = eval_node(node, ins, self.is_train, self.seed, i)
         for k, t in enumerate(out):
             want = self.layouts.get((i, k))
             if want is not None and want != (t.storage_offset(),
@@ -455,7 +487,8 @@ def _solve_shapes(symbol, known_shapes, type_dict=None):
 
 def _param_shape_hints(node, in_shapes):
     """Parameter shapes deduced from the data shape for the parameterized
-    layers of the image and transformer graphs."""
+    layers (and the label shapes of the loss heads), as the JAX package's
+    rules give them."""
     op, attrs = node.op.name, node.attrs
     data = in_shapes[0] if in_shapes else None
     if data is None:
@@ -495,14 +528,40 @@ def _param_shape_hints(node, in_shapes):
         c = data[int(attrs.get("axis", 1)) % len(data)]
         hints.update({"gamma": (c,), "beta": (c,), "moving_mean": (c,),
                       "moving_var": (c,)})
+    elif op == "Deconvolution":
+        kernel = tuple(int(k) for k in attrs.get("kernel", ()))
+        nf = int(attrs.get("num_filter", 1))
+        ng = int(attrs.get("num_group", 1))
+        hints["weight"] = (data[1], nf // ng) + kernel
+        if not attrs.get("no_bias", True):
+            hints["bias"] = (nf,)
     elif op == "LayerNorm":
         c = data[int(attrs.get("axis", -1)) % len(data)]
         hints.update({"gamma": (c,), "beta": (c,)})
-    elif op == "SoftmaxOutput":
-        if attrs.get("multi_output"):
+    elif op == "InstanceNorm":
+        hints.update({"gamma": (data[1],), "beta": (data[1],)})
+    elif op == "LeakyReLU" and attrs.get("act_type") == "prelu":
+        hints["gamma"] = (data[1] if len(data) > 1 else 1,)
+    elif op in ("SoftmaxOutput", "SVMOutput"):
+        if op == "SoftmaxOutput" and attrs.get("multi_output"):
             hints["label"] = (data[0],) + tuple(data[2:])
         else:
             hints["label"] = (data[0],)
+    elif op in ("LinearRegressionOutput", "MAERegressionOutput",
+                "LogisticRegressionOutput"):
+        hints["label"] = tuple(data)
+    elif op == "RNN":
+        from .ops.rnn import param_size
+
+        h = int(attrs.get("state_size", 0))
+        layers = int(attrs.get("num_layers", 1))
+        d = 2 if attrs.get("bidirectional") else 1
+        mode = attrs.get("mode", "lstm")
+        hints["parameters"] = (param_size(mode, h, layers, d == 2,
+                                          data[2]),)
+        hints["state"] = (layers * d, data[1], h)
+        if mode == "lstm":
+            hints["state_cell"] = (layers * d, data[1], h)
     return hints
 
 
@@ -569,6 +628,8 @@ class Executor:
         self._graphs = {}
         self._pending = None       # (leaves, graph outputs) of a forward
         self._aux_applied = False
+        self._rng = has_rng(symbol)
+        self._last_seed = None     # the last forward's step seed
         self.outputs = []
 
     @property
@@ -603,8 +664,13 @@ class Executor:
                     torch.from_numpy(np.array(v))
                 self.arg_dict[name].tensor.copy_(src)
 
-    def _run(self, is_train, with_grad):
-        """Evaluate the graph; returns (leaves, outputs, aux_updates)."""
+    def _run(self, is_train, with_grad, seed=None):
+        """Evaluate the graph from step seed ``seed`` (a fresh one from
+        the context's chain when None and the graph draws); returns
+        (leaves, outputs, aux_updates)."""
+        if self._rng and seed is None:
+            seed = _random.next_seed(self._ctx)
+        self._last_seed = seed
         values = {n: self.arg_dict[n].tensor for n in self._arg_names}
         leaves = {}
         if with_grad:
@@ -613,7 +679,7 @@ class Executor:
         for n in self._aux_names:
             values[n] = self.aux_dict[n].tensor
         with torch.set_grad_enabled(with_grad):
-            outs, aux_updates = self._graph(is_train)(values)
+            outs, aux_updates = self._graph(is_train)(values, seed)
         return leaves, outs, aux_updates
 
     def _apply_aux(self, aux_updates):
@@ -650,10 +716,13 @@ class Executor:
     def backward(self, out_grads=None, is_train=True):
         """Gradients into ``grad_dict`` from the last training forward's
         graph, which is then freed. Without one (a second backward, or
-        after an inference forward) the training forward runs again, and
-        applies the aux updates if no forward since the last has."""
+        after an inference forward) the training forward runs again from
+        the last forward's step seed (its random ops draw what that
+        forward drew), and applies the aux updates if no forward since the
+        last has."""
         if self._pending is None:
-            leaves, outs, aux_updates = self._run(True, True)
+            leaves, outs, aux_updates = self._run(True, True,
+                                                  self._last_seed)
             if not self._aux_applied:
                 self._apply_aux(aux_updates)
             self._set_outputs(outs)

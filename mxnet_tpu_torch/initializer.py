@@ -2,15 +2,16 @@
 name-suffix dispatch of :class:`Initializer` (with an ``__init__``
 attribute of the parameter overriding it) and ``Zero``, ``One``,
 ``Constant``, ``Uniform``, ``Normal``, ``Xavier``, ``MSRAPrelu``,
-``Orthogonal`` and ``Bilinear``, the ``Mixed`` and ``Load`` dispatchers,
-``create`` and ``register``.
+``Orthogonal``, ``Bilinear``, ``LSTMBias`` and ``FusedRNN``, the
+``Mixed`` and ``Load`` dispatchers, ``create`` and ``register``.
 
 An initializer fills a tensor or an ``NDArray`` in place from numpy draws
 made in float64 and rounded to float32, as the JAX package's do, drawn
 from ``random.initializer_rng()``, which ``mx.random.seed`` reseeds as the
 JAX package's does. :func:`seeded` reseeds it for a block. So one seed
-gives bit-identical parameters in both packages. Not ported yet:
-``LSTMBias`` and ``FusedRNN`` (the RNN ops are not ported).
+gives bit-identical parameters in both packages. ``LSTMBias`` sets the
+forget gate's bias; ``FusedRNN`` fills the ``RNN`` op's flat parameter
+vector (the ``fusedrnn`` ``__init__`` attribute the symbol stamps on it).
 """
 from __future__ import annotations
 
@@ -233,6 +234,60 @@ class Bilinear(Initializer):
             y = (i // shape[3]) % shape[2]
             weight.flat[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
         self._set(arr, weight)
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, with ``forget_bias`` on the second quarter (the forget gate
+    of an i, f, g, o bias)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        b = np.zeros(tuple(arr.shape), dtype=np.float32)
+        num_hidden = int(b.shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        self._set(arr, b)
+
+
+@register
+class FusedRNN(Initializer):
+    """The ``RNN`` op's flat parameter vector: U(-0.07, 0.07) over all of
+    it (the JAX package's draw, whatever ``init`` says), then, for lstm,
+    ``forget_bias`` on each layer-direction's forget-gate ``b_ih``."""
+
+    def __init__(self, init=None, num_hidden=0, num_layers=0, mode="lstm",
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = create(klass, **kwargs)
+        super().__init__(init=init.dumps() if init else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init or Uniform(0.07)
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .ops.rnn import GATES
+
+        flat = _rng().uniform(-0.07, 0.07, tuple(arr.shape)) \
+            .astype(np.float32)
+        h, layers = self._num_hidden, self._num_layers
+        d = 2 if self._bidirectional else 1
+        ngates = GATES[self._mode]
+        if self._mode == "lstm":
+            off = arr.shape[0] - layers * d * 2 * ngates * h
+            for _ in range(layers * d):
+                flat[off + h:off + 2 * h] = self._forget_bias
+                off += 2 * ngates * h
+        self._set(arr, flat)
 
 
 class Mixed:

@@ -80,8 +80,9 @@ class FoldPlan:
 
     def make_fold_fn(self):
         """The fold function: ``params dict -> tuple`` of const values in
-        ``const_specs`` order."""
-        from ..executor import eval_node
+        ``const_specs`` order; a random node draws from
+        ``executor.INFERENCE_SEED``."""
+        from ..executor import INFERENCE_SEED, eval_node
 
         specs, order = self.const_specs, self.fold_order
         nodes, node_ids = self.nodes, self.node_ids
@@ -92,7 +93,8 @@ class FoldPlan:
                 ins = [params[inp.name] if inp.is_variable()
                        else results[node_ids[id(inp)]][idx]
                        for inp, idx in nodes[i].inputs]
-                results[i] = eval_node(nodes[i], ins, False)
+                results[i] = eval_node(nodes[i], ins, False,
+                                       INFERENCE_SEED, i)
             return tuple(params[s[1]] if s[0] == "var"
                          else results[s[1]][s[2]] for s in specs)
 

@@ -459,7 +459,9 @@ def invoke(op, inputs, attrs, out=None, ctx=None):
     """Call a registered op on NDArrays (the imperative invoke): parse the
     attributes, thread ``__is_train__`` from ``autograd.is_training()``,
     run the op under autograd only while recording, and wrap the visible
-    outputs; ``out`` receives them in place."""
+    outputs; ``out`` receives them in place. A random op draws from the
+    context's ``random.generator`` (so its backward, recorded by torch,
+    uses the forward's draw)."""
     if isinstance(op, str):
         try:
             op = _reg.get(op)
@@ -474,6 +476,11 @@ def invoke(op, inputs, attrs, out=None, ctx=None):
     tensors = [x._t if isinstance(x, NDArray) else x for x in inputs]
     ctx = ctx or next((x._ctx for x in inputs if isinstance(x, NDArray)),
                       None) or current_context()
+    if op.needs_rng:
+        # the context's stream, as the JAX package's next_key(ctx)
+        from .. import random as _random
+
+        tensors = [_random.generator(ctx)] + tensors
     with torch.set_grad_enabled(_ag.is_recording()):
         results = op.fn(*tensors, **parsed)
     if not isinstance(results, tuple):

@@ -7,6 +7,13 @@ calls ``op.fn`` on ``device="meta"`` tensors (shapes without compute).
 Attribute defaults come from the function's signature (the
 dmlc::Parameter equivalent), and string attributes from symbol JSON are
 coerced to them as the JAX package does.
+
+An op registered with ``needs_rng=True`` takes a ``torch.Generator`` as
+its leading argument (``gen``, not an input or an attribute): the
+executor seeds one for each node from its step seed and the node's salt
+(``executor.eval_node``), the imperative invoke passes the context's
+stream (``random.generator``). ``gen`` is None on ``meta`` tensors
+(shape inference), where nothing is drawn.
 """
 from __future__ import annotations
 
@@ -26,24 +33,26 @@ class OpDef:
     count or ``attrs -> int``; num_visible_outputs: outputs a symbol
     exposes (BatchNorm hides its batch mean/var); aux_state_outputs:
     ``{input name: output index}`` whose value replaces that aux state in
-    training; attr_defaults: keyword defaults from the signature.
+    training; needs_rng: ``fn`` takes a generator first; attr_defaults:
+    keyword defaults from the signature.
     """
 
     __slots__ = ("name", "fn", "num_outputs", "num_visible_outputs",
-                 "aux_state_outputs", "doc", "attr_defaults", "input_names",
-                 "var_inputs", "optional_inputs")
+                 "aux_state_outputs", "needs_rng", "doc", "attr_defaults",
+                 "input_names", "var_inputs", "optional_inputs")
 
     def __init__(self, name, fn, num_outputs=1, num_visible_outputs=None,
-                 aux_state_outputs=None):
+                 aux_state_outputs=None, needs_rng=False):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
         self.num_visible_outputs = num_visible_outputs
         self.aux_state_outputs = dict(aux_state_outputs or {})
+        self.needs_rng = bool(needs_rng)
         self.doc = fn.__doc__ or ""
-        self.attr_defaults = _kwarg_defaults(fn)
+        self.attr_defaults = _kwarg_defaults(fn, self.needs_rng)
         self.input_names, self.var_inputs, self.optional_inputs = (
-            _input_names(fn))
+            _input_names(fn, self.needs_rng))
         for n in self.input_names:
             self.attr_defaults.pop(n, None)
 
@@ -75,15 +84,22 @@ class OpDef:
 
 # None-default params with these names are optional tensor inputs; any
 # other defaulted param ends the input list (it is an attribute)
-_OPTIONAL_TENSOR_NAMES = {"bias", "gamma", "weight", "sc_weight"}
+_OPTIONAL_TENSOR_NAMES = {"bias", "gamma", "state_cell", "weight",
+                          "sc_weight"}
 
 
-def _input_names(fn):
+def _params(fn, needs_rng):
+    """``fn``'s parameters, without the leading generator of an rng op."""
+    params = list(inspect.signature(fn).parameters.values())
+    return params[1:] if needs_rng else params
+
+
+def _input_names(fn, needs_rng=False):
     """Tensor-input names: the leading params with no default, plus
     contiguous None-default params named as optional tensors. A ``*args``
     parameter means a variable input count."""
     names, optional, var = [], [], False
-    for p in inspect.signature(fn).parameters.values():
+    for p in _params(fn, needs_rng):
         if p.kind is p.VAR_POSITIONAL:
             var = True
             break
@@ -99,9 +115,9 @@ def _input_names(fn):
     return tuple(names), var, frozenset(optional)
 
 
-def _kwarg_defaults(fn):
+def _kwarg_defaults(fn, needs_rng=False):
     defaults = {}
-    for p in inspect.signature(fn).parameters.values():
+    for p in _params(fn, needs_rng):
         if p.kind is p.KEYWORD_ONLY or (p.kind is p.POSITIONAL_OR_KEYWORD
                                         and p.default is not p.empty):
             defaults[p.name] = None if p.default is p.empty else p.default
@@ -174,7 +190,7 @@ def _parse_tuple(value):
 
 
 def register(name=None, aliases=(), num_outputs=1, num_visible_outputs=None,
-             aux_state_outputs=None):
+             aux_state_outputs=None, needs_rng=False):
     """Decorator registering a function on tensors as an operator."""
 
     def deco(fn):
@@ -183,7 +199,8 @@ def register(name=None, aliases=(), num_outputs=1, num_visible_outputs=None,
             raise MXNetError("duplicate op registration: %s" % opname)
         _OPS[opname] = OpDef(opname, fn, num_outputs=num_outputs,
                              num_visible_outputs=num_visible_outputs,
-                             aux_state_outputs=aux_state_outputs)
+                             aux_state_outputs=aux_state_outputs,
+                             needs_rng=needs_rng)
         for a in aliases:
             _ALIASES[a] = opname
         return fn

@@ -7,6 +7,16 @@ reductions, ``Reshape`` (MXNet's special codes), ``Cast``, ``clip``,
 ``dot``, ``take`` and ``Concat``. Names, attributes and output dtypes are
 the JAX package's (comparisons and ``argmax`` return the input's dtype
 and float32, as there).
+
+Under a data-parallel mesh (``spmd_scope``) each rank holds its rows of
+the batch (axis 0). An op whose result over those rows would not be the
+rank's rows of its result over the whole batch raises by name
+(:func:`_refuse_batch_axis`): the reductions, softmax, log_softmax,
+argmax and argmin over axis 0, ``Concat`` on dim 0, a ``transpose`` or
+``swapaxes`` that moves axis 0 and a ``Reshape`` whose output rows are not
+the input rows' (:func:`_check_batch_rows`). ``Flatten`` and a
+``Reshape`` that keeps axis 0 first, or merges it with the axes after it,
+run as they are.
 """
 from __future__ import annotations
 
@@ -139,11 +149,14 @@ def _temper(data, temperature):
 def softmax(data, axis=-1, temperature=None, length=None):
     """Softmax of ``data / temperature``; ``length`` is accepted and
     ignored, as the JAX package does."""
+    _refuse_batch_axis("softmax", _norm_axis(axis, data.dim()), data.dim())
     return torch.softmax(_temper(data, temperature), dim=int(axis))
 
 
 @register(name="log_softmax")
 def log_softmax(data, axis=-1, temperature=None):
+    _refuse_batch_axis("log_softmax", _norm_axis(axis, data.dim()),
+                       data.dim())
     return torch.log_softmax(_temper(data, temperature), dim=int(axis))
 
 
@@ -180,15 +193,37 @@ def _norm_axis(axis, ndim):
 
 
 def _refuse_batch_axis(name, axes, ndim):
-    """Under a data-parallel mesh each rank holds its rows of the batch: a
-    reduction over axis 0 would be the rank's, not the batch's, so it
-    raises rather than give a rank-local value."""
+    """Under a data-parallel mesh each rank holds its rows of the batch: an
+    op over axis 0 would see the rank's rows, not the batch, so it raises
+    rather than give a rank-local value."""
     if ndim and 0 in axes:
         from .nn import dp_group
 
         if dp_group()[0] is not None:
             raise MXNetError("%s over the batch axis under a data-parallel "
                              "mesh is not ported" % name)
+
+
+def _check_batch_rows(name, dshape, tshape, reverse):
+    """Under a data-parallel mesh of ``n`` ranks, a ``Reshape`` of this
+    rank's rows ``dshape`` is the rank's rows of the batch's reshape only
+    when the batch's (axis 0 times ``n``) reshapes to the same trailing
+    axes and ``n`` times the rows: reshape keeps the row-major order, and
+    the rank's rows are one contiguous block of it. Otherwise it raises."""
+    from .nn import dp_group
+
+    group, n = dp_group()
+    if group is None or not dshape:
+        return
+    out = _infer_reshape(dshape, tshape, reverse)
+    try:
+        whole = _infer_reshape((dshape[0] * n,) + tuple(dshape[1:]), tshape,
+                               reverse)
+    except (IndexError, ValueError, ZeroDivisionError):
+        whole = None
+    if not out or whole is None or \
+            tuple(whole) != (out[0] * n,) + tuple(out[1:]):
+        _refuse_batch_axis(name, (0,), len(dshape))
 
 
 def _reduce(name, fn, aliases=()):
@@ -229,8 +264,9 @@ def norm(data, ord=2, axis=None, keepdims=False):
     return data.square().sum(dim=ax, keepdim=bool(keepdims)).sqrt()
 
 
-def _arg_reduce(fn):
+def _arg_reduce(name, fn):
     def _op(data, axis=None, keepdims=False):
+        _refuse_batch_axis(name, _norm_axis(axis, data.dim()), data.dim())
         if axis is None or axis == "None":
             out = fn(data.reshape(-1), 0)
             if keepdims:
@@ -244,8 +280,10 @@ def _arg_reduce(fn):
     return _op
 
 
-register(name="argmax")(_arg_reduce(lambda d, a: torch.argmax(d, dim=a)))
-register(name="argmin")(_arg_reduce(lambda d, a: torch.argmin(d, dim=a)))
+register(name="argmax")(_arg_reduce(
+    "argmax", lambda d, a: torch.argmax(d, dim=a)))
+register(name="argmin")(_arg_reduce(
+    "argmin", lambda d, a: torch.argmin(d, dim=a)))
 
 
 @register(name="broadcast_to")
@@ -262,6 +300,7 @@ def broadcast_like(lhs, rhs):
 
 @register(name="Reshape", aliases=("reshape",))
 def reshape(data, shape=(), reverse=False):
+    _check_batch_rows("Reshape", tuple(data.shape), tuple(shape), reverse)
     return data.reshape(_infer_reshape(tuple(data.shape), tuple(shape),
                                        reverse))
 
@@ -324,7 +363,10 @@ def transpose(data, axes=()):
     wrapper does)."""
     if not axes:
         axes = tuple(range(data.dim() - 1, -1, -1))
-    return data.permute(*(int(a) for a in axes))
+    axes = tuple(int(a) % data.dim() for a in axes)
+    if axes and axes[0] != 0:
+        _refuse_batch_axis("transpose", (0,), data.dim())
+    return data.permute(*axes)
 
 
 @register(name="expand_dims")
@@ -341,7 +383,10 @@ def squeeze(data, axis=None):
 
 @register(name="swapaxes", aliases=("SwapAxis",))
 def swapaxes(data, dim1=0, dim2=0):
-    return data.transpose(int(dim1), int(dim2))
+    d1, d2 = (int(d) % max(data.dim(), 1) for d in (dim1, dim2))
+    if d1 != d2:
+        _refuse_batch_axis("swapaxes", (d1, d2), data.dim())
+    return data.transpose(d1, d2)
 
 
 @register(name="dot")
@@ -380,6 +425,8 @@ def take(a, indices, axis=0, mode="clip"):
 
 @register(name="Concat", aliases=("concat",))
 def concat(*data, dim=1):
+    ndim = data[0].dim() if data else 0
+    _refuse_batch_axis("Concat", _norm_axis(dim, ndim), ndim)
     return torch.cat(data, dim=int(dim))
 
 

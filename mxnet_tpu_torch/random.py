@@ -1,6 +1,6 @@
 """Random number streams (counterpart of ``mxnet_tpu/random.py``).
 
-Two kinds of stream, both reseeded by :func:`seed`:
+Three kinds of stream, all reseeded by :func:`seed`:
 
 - the initializers' host stream, a ``numpy.random.RandomState`` that
   :func:`seed` replaces by ``RandomState(s & 0x7FFFFFFF)`` exactly as the
@@ -9,7 +9,17 @@ Two kinds of stream, both reseeded by :func:`seed`:
 - one explicit ``torch.Generator`` per device for the imperative samplers
   (:func:`uniform`, :func:`normal`), seeded from ``s``. These are NOT
   bit-identical to the JAX package's streams (threefry keys split per
-  context): the two packages draw different numbers from one seed.
+  context): the two packages draw different numbers from one seed;
+- one host counter per device behind :func:`next_seed`, the step seeds
+  of the executors' random ops: each node of a graph draws from a
+  generator of its own, seeded from the step seed and the node's salt
+  (:func:`node_generator`, the counterpart of the JAX package's
+  ``fold_in(key, salt + 0x5EED)``). A seed comes from the counter alone
+  (a hash, on the host), so drawing it reads nothing from the device.
+  Under a data-parallel mesh each rank folds its index into the node's
+  seed: the ranks draw independent masks for their rows, so the masks of
+  a mesh and of one device agree by distribution only, as the two
+  packages' do.
 """
 from __future__ import annotations
 
@@ -21,12 +31,31 @@ import torch
 _STATE = threading.local()
 _DEFAULT_SEED = 0
 _INIT_RNG = None
+_M64 = (1 << 64) - 1
 
 
 def _generators():
     if not hasattr(_STATE, "gens"):
         _STATE.gens = {}
     return _STATE.gens
+
+
+def _seed_chains():
+    """device -> [base seed, draws so far] of :func:`next_seed`."""
+    if not hasattr(_STATE, "chains"):
+        _STATE.chains = {}
+    return _STATE.chains
+
+
+def _mix(*values):
+    """A 63-bit hash of integers (splitmix64's finalizer over each)."""
+    h = 0x9E3779B97F4A7C15
+    for v in values:
+        h = (h ^ (int(v) & _M64)) & _M64
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _M64
+        h ^= h >> 31
+    return h >> 1
 
 
 def seed(seed_state, ctx=None):
@@ -38,11 +67,13 @@ def seed(seed_state, ctx=None):
     if ctx is None:
         _DEFAULT_SEED = int(seed_state)
         _generators().clear()
+        _seed_chains().clear()
         _INIT_RNG = np.random.RandomState(int(seed_state) & 0x7FFFFFFF)
     else:
         gen = torch.Generator(device=_device(ctx))
         gen.manual_seed(int(seed_state))
         _generators()[_device(ctx)] = gen
+        _seed_chains()[_device(ctx)] = [int(seed_state), 0]
 
 
 def initializer_rng():
@@ -81,6 +112,36 @@ def generator(ctx=None):
     if gen is None:
         gen = gens[dev] = torch.Generator(device=dev)
         gen.manual_seed(_DEFAULT_SEED)
+    return gen
+
+
+def next_seed(ctx=None):
+    """The next step seed of the device's chain (default: the current
+    context's), from the last :func:`seed` and a count of draws."""
+    import zlib
+
+    dev = _device(ctx)
+    chain = _seed_chains().setdefault(dev, [_DEFAULT_SEED, 0])
+    chain[1] += 1
+    return _mix(chain[0], zlib.crc32(str(dev).encode()), chain[1])
+
+
+def node_generator(step_seed, salt, device):
+    """A ``torch.Generator`` on ``device`` seeded from ``step_seed`` and
+    ``salt``, with the rank's index folded in under a data-parallel mesh;
+    None on ``meta`` (shape inference draws nothing)."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return None
+    from .kernels.fused_block import current_spmd_scope
+
+    scope, rank = current_spmd_scope(), 0
+    if scope is not None:
+        from .parallel.mesh import data_group
+
+        rank = data_group(*scope)[2]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_mix(step_seed, salt, rank))
     return gen
 
 

@@ -34,7 +34,7 @@ import torch
 from .. import config
 from ..base import MXNetError, dtype_name, dtype_torch
 from ..context import resolve_device
-from ..executor import eval_node
+from ..executor import INFERENCE_SEED, eval_node
 
 
 class ServingError(MXNetError):
@@ -127,7 +127,9 @@ class AOTPredictor:
     as float32 numpy.
     ``device`` defaults to ``cuda`` (raising when there is none); pass
     ``device="cpu"`` to serve on the CPU. ``output_names`` serves internal
-    layers (``fc1_output``, ...).
+    layers (``fc1_output``, ...). Random ops that draw in inference
+    (``Dropout(mode="always")``) draw from ``executor.INFERENCE_SEED`` on
+    every request.
     """
 
     def __init__(self, symbol, arg_params=None, aux_params=None,
@@ -264,7 +266,8 @@ class AOTPredictor:
         for i, node in enumerate(nodes):
             if node.is_variable() or i not in dyn:
                 continue
-            results[i] = eval_node(node, [val(e) for e in node.inputs], False)
+            results[i] = eval_node(node, [val(e) for e in node.inputs], False,
+                                   INFERENCE_SEED, i)
         return [val(e) for e in plan.entries]
 
     # -- request surface ----------------------------------------------------

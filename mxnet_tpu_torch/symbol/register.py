@@ -1,8 +1,13 @@
 """The generated ``sym.<Op>(...)`` functions (counterpart of
 ``mxnet_tpu/symbol/register.py``): each composes a graph node. Missing
 parameter inputs become variables named ``{name}_{param}`` (the
-reference's auto-variables, e.g. ``conv1_weight``)."""
+reference's auto-variables, e.g. ``conv1_weight``). ``RNN``'s flat
+``parameters`` variable carries the ``fusedrnn`` initializer in its
+``__init__`` attribute, and an ``lstm`` gets its ``state_cell``
+variable."""
 from __future__ import annotations
+
+import json
 
 from ..base import MXNetError, auto_name
 from ..ops.registry import OpDef
@@ -52,6 +57,17 @@ def make_symbol_func(op: OpDef):
 
     def symbol_op(*args, **kwargs):
         name = kwargs.pop("name", None) or auto_name(_prefix_for(op.name))
+        if op.var_inputs:
+            # Concat-style: the Symbol arguments, positional then by
+            # keyword, are the inputs; num_args follows from them
+            tensors = [a for a in args if isinstance(a, Symbol)]
+            tensors += [v for v in kwargs.values() if isinstance(v, Symbol)]
+            attrs = {k: v for k, v in kwargs.items()
+                     if not isinstance(v, Symbol)}
+            attrs.pop("num_args", None)
+            return create_symbol(op, tensors, attrs, name=name,
+                                 arity_names=tuple("arg%d" % i for i in
+                                                   range(len(tensors))))
         slots = {k: v for k, v in kwargs.items() if k in input_names}
         attrs = {k: v for k, v in kwargs.items() if k not in input_names}
         tensors, pos = [], list(args)
@@ -67,13 +83,31 @@ def make_symbol_func(op: OpDef):
         needed = _needed_inputs(op, attrs, tensors)
         for i, pname in enumerate(input_names):
             if tensors[i] is None and pname in needed:
-                tensors[i] = var("%s_%s" % (name, pname))
+                tensors[i] = var("%s_%s" % (name, pname),
+                                 attr=_var_attr(op, pname, attrs))
         return create_symbol(op, tensors, attrs, name=name,
                              arity_names=input_names[:len(tensors)])
 
     symbol_op.__name__ = op.name
     symbol_op.__doc__ = op.doc
     return symbol_op
+
+
+def _var_attr(op, pname, attrs):
+    """The attributes of an auto-created variable: ``RNN``'s flat
+    ``parameters`` get the ``fusedrnn`` initializer (so Xavier and the
+    like never see a flat vector)."""
+    if op.name != "RNN" or pname != "parameters":
+        return None
+    from ..ops.registry import _coerce
+
+    return {"__init__": json.dumps(["fusedrnn", {
+        "num_hidden": int(attrs.get("state_size", 0)),
+        "num_layers": int(attrs.get("num_layers", 1)),
+        "mode": str(attrs.get("mode", "lstm")),
+        "bidirectional": bool(_coerce(attrs.get("bidirectional", False),
+                                      True)),
+    }])}
 
 
 def _needed_inputs(op, attrs, tensors):
@@ -85,10 +119,12 @@ def _needed_inputs(op, attrs, tensors):
     no_bias = attrs.get("no_bias") in (True, "True", "true", 1, "1")
     for pname in names:
         if pname in ("weight", "gamma", "beta", "moving_mean", "moving_var",
-                     "label"):
+                     "label", "parameters", "state"):
             needed.add(pname)
         if pname == "bias" and not no_bias:
             needed.add(pname)
+    if op.name == "RNN" and attrs.get("mode") == "lstm":
+        needed.add("state_cell")
     if op.name == "FusedBottleneckUnit":
         # the shortcut conv weight exists only in downsample units
         dim_match = attrs.get("dim_match", True) in (True, "True", "true",

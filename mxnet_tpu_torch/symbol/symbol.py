@@ -62,6 +62,11 @@ class Symbol:
         return "<Symbol %s>" % (self.name or "group [%d]" % len(self._entries))
 
     def __getitem__(self, index):
+        if isinstance(index, str):
+            for i, nm in enumerate(self.list_outputs()):
+                if nm == index:
+                    return Symbol([self._entries[i]])
+            raise MXNetError("no output named %r" % index)
         entries = self._entries[index]
         if isinstance(index, slice):
             return Symbol(entries)

@@ -280,5 +280,7 @@ def test_import_pulls_in_neither_jax_nor_mxnet_tpu():
                  "kernels.fused_block", "serving.predictor", "ir.passes",
                  "models.resnet", "executor", "initializer",
                  "parallel.mesh", "parallel.feed", "kvstore",
-                 "module.spmd_group"):
+                 "module.spmd_group", "ops.nn", "ops.rnn", "models.lenet",
+                 "models.mlp", "models.alexnet", "models.vgg",
+                 "models.inception", "models.mobilenet", "models.resnext"):
         assert "'mxnet_tpu_torch.%s'" % name in r.stdout, name

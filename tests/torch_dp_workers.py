@@ -404,3 +404,150 @@ def module_worker(rank, world, states_dir):
         out["kv"] = {"rank": kv.rank, "num_workers": kv.num_workers,
                      "init": got.asnumpy(), "after_push": summed.asnumpy()}
     return out
+
+
+# ---------------------------------------------------------------------------
+# ops over the batch axis under a data-parallel scope
+# (tests/test_torch_dp_batch_axis.py)
+# ---------------------------------------------------------------------------
+def batch_axis_input(seed=0):
+    """The global batch: 8 rows of (3, 4)."""
+    return np.random.RandomState(seed).randn(8, 3, 4).astype(np.float32)
+
+
+def _loss_grad(name, **attrs):
+    """The gradient a loss head sends its data, from a ones cotangent."""
+    from mxnet_tpu_torch.ops import registry
+
+    def run(x, label):
+        x = x.detach().requires_grad_()
+        op = registry.get(name)
+        out = op.fn(x, label, **attrs) if "label" in op.input_names \
+            else op.fn(x, **attrs)
+        (g,) = torch.autograd.grad(out, x, torch.ones_like(out))
+        return g
+
+    return run
+
+
+def batch_axis_cases():
+    """name -> fn(rows, label rows): the ops that touch the batch axis.
+    Imported by the test too, which runs each on the whole batch."""
+    from mxnet_tpu_torch.ops import registry
+
+    def op(name, **attrs):
+        fn = registry.get(name).fn
+
+        def run(x, _label):
+            out = fn(x, **attrs)
+            return out[0] if isinstance(out, tuple) else out
+
+        return run
+
+    def gen_op(name, **attrs):
+        fn = registry.get(name).fn
+
+        def run(x, _label):
+            g = torch.Generator()
+            g.manual_seed(0)
+            return fn(g, x, **attrs)[0]
+
+        return run
+
+    def layer_norm(axis):
+        def run(x, _label):
+            c = x.shape[axis]
+            return registry.get("LayerNorm").fn(
+                x, torch.ones(c), torch.zeros(c), axis=axis)[0]
+
+        return run
+
+    def concat(dim):
+        return lambda x, _label: registry.get("Concat").fn(x, 2 * x,
+                                                           dim=dim)
+
+    def rnn(x, _label):
+        params = torch.zeros(4 * 5 * 4 + 4 * 5 * 5 + 2 * 4 * 5)
+        g = torch.Generator()
+        return registry.get("RNN").fn(g, x, params, torch.zeros(1, 3, 5),
+                                      state_size=5)[0]
+
+    return {
+        "softmax-axis0": op("softmax", axis=0),
+        "softmax-axis1": op("softmax", axis=1),
+        "log_softmax-axis0": op("log_softmax", axis=0),
+        "log_softmax-axis-1": op("log_softmax", axis=-1),
+        "argmax-axis0": op("argmax", axis=0),
+        "argmax-all": op("argmax"),
+        "argmax-axis2": op("argmax", axis=2),
+        "argmin-axis0": op("argmin", axis=0),
+        "argmin-axis1": op("argmin", axis=1),
+        "LayerNorm-axis0": layer_norm(0),
+        "LayerNorm-axis-1": layer_norm(-1),
+        "Concat-dim0": concat(0),
+        "Concat-dim1": concat(1),
+        "Reshape-keep": op("Reshape", shape=(0, -1)),
+        "Reshape-merge": op("Reshape", shape=(-3, 0)),
+        "Reshape-split-rows": op("Reshape", shape=(-4, -1, 2, 0, 0)),
+        "Reshape-split-batch": op("Reshape", shape=(-4, 2, -1, 0, 0)),
+        "Reshape-batch-literal": op("Reshape", shape=(4, -1)),
+        "Reshape-reverse-merge": op("Reshape", shape=(-1, 12),
+                                    reverse=True),
+        "Flatten": op("Flatten"),
+        "transpose-keep": op("transpose", axes=(0, 2, 1)),
+        "transpose-move": op("transpose", axes=(1, 0, 2)),
+        "transpose-reverse": op("transpose"),
+        "swapaxes-0-1": op("swapaxes", dim1=0, dim2=1),
+        "swapaxes-1-2": op("swapaxes", dim1=1, dim2=2),
+        "Dropout-axes0": gen_op("Dropout", p=0.5, axes=(0,),
+                                mode="always"),
+        "RNN": rnn,
+        "make_loss-batch": _loss_grad("make_loss", normalization="batch",
+                                      grad_scale=3.0),
+        "make_loss-valid": _loss_grad("make_loss", normalization="valid",
+                                      valid_thresh=0.5),
+        "make_loss-null": _loss_grad("make_loss"),
+        "softmax_cross_entropy": lambda x, label: registry.get(
+            "softmax_cross_entropy").fn(x[:, 0], label),
+        "SoftmaxOutput-batch": lambda x, label: _loss_grad(
+            "SoftmaxOutput", normalization="batch")(x[:, 0], label),
+        "LinearRegressionOutput": _loss_grad("LinearRegressionOutput"),
+        "SVMOutput": lambda x, label: _loss_grad("SVMOutput")(x[:, 0],
+                                                            label),
+    }
+
+
+def batch_axis_label():
+    return np.random.RandomState(1).randint(0, 4, (8,)).astype(np.float32)
+
+
+def batch_axis_worker(rank, world):
+    """Each case on this rank's rows inside ``spmd_scope`` (its output, or
+    the error it raised) and on the whole batch outside it."""
+    from mxnet_tpu_torch.kernels.fused_block import spmd_scope
+    from mxnet_tpu_torch.parallel.feed import rank_rows
+
+    mesh = cpu_mesh()
+    x = torch.from_numpy(batch_axis_input())
+    label = torch.from_numpy(batch_axis_label())
+    rows = rank_rows(x, world, rank, "data", "test")
+    lrows = rank_rows(label, world, rank, "label", "test")
+    out = {}
+    for name, fn in batch_axis_cases().items():
+        with spmd_scope(mesh, ("dp",)):
+            try:
+                got = ("ok", fn(rows, batch_axis_label_of(name, lrows))
+                       .detach().clone())
+            except Exception as e:  # the refusal under test
+                got = ("raised", "%s: %s" % (type(e).__name__, e))
+        out[name] = (got, fn(x, batch_axis_label_of(name, label))
+                     .detach().clone())
+    return out
+
+
+def batch_axis_label_of(name, label):
+    """A class per row for the heads that take one, else a label shaped
+    as the data."""
+    if name in ("softmax_cross_entropy", "SVMOutput", "SoftmaxOutput-batch"):
+        return label
+    return label[:, None, None].expand(-1, 3, 4).contiguous()
