@@ -112,7 +112,25 @@ the kernels are built for sm_90a) and ``nvcc``. It
    within 5 sigma; holds one ``nd.RNN`` (lstm, PTB-medium: T 35, N 32,
    650 wide, 2 layers) at p = 0 card vs CPU within 1e-4 and times it at
    p = 0.5; no hand-written kernel launches there;
-17. prints one JSON line describing each kernel, then the result line
+17. trains the PTB-medium LSTM language model (Zaremba et al. 2014:
+   vocabulary 10000, 650 wide, 2 layers, 35 steps, batch 20, dropout 0.5;
+   examples/rnn/lstm_bucketing.py's graph, Embedding first) through
+   ``Module.fit`` in fp32 with SGD at learning rate 1.0 from uniform
+   +-0.05 weights on a seeded Zipf token stream: a warm-up batch and 4
+   timed ones (the loss must start near ln 10000 and fall), printing
+   tokens/s, peak memory and a profiled batch's busy share; holds the
+   first loss (within 1e-4) and the gradients (within 3x the one-rounding
+   yardstick) card vs CPU at batch 4 with dropout 0;
+18. serves the trained LM's next token through ``AOTPredictor`` (a graph
+   of Embedding, SequenceMask, RNN, SequenceLast, FullyConnected, softmax
+   and topk) for 40 padded prompts on the ladder (1, 4, 16), a bucket
+   filled partly, and holds the top 5 against the CPU's (values within
+   1e-4, ids equal but at ties), printing requests/s and the busy share;
+19. holds every one of the 95 tensor ops of Queue A item 7b, forward and
+   gradient, card vs CPU within 1e-4 of each tensor's largest magnitude,
+   on tests/test_op_sweep.py's specs and on indices out of range or
+   negative, ties and the hypot kink; B1-B7 launch 0 times in 17-19;
+20. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -3058,6 +3076,659 @@ def model_zoo_fit_phase(torch, np, fa, fb):
     return launches
 
 
+# The PTB-medium LSTM language model (Zaremba, Sutskever & Vinyals 2014,
+# arXiv:1409.2329, section 4: vocabulary 10000, 650 wide, 2 layers, 35
+# unrolled steps, batch 20, dropout 0.5, SGD at learning rate 1.0, uniform
+# init in +-0.05) built as examples/rnn/lstm_bucketing.py's lstm_lm_sym
+# (Embedding -> swapaxes -> RNN(lstm) -> swapaxes -> Reshape ->
+# FullyConnected -> SoftmaxOutput) with one bucket and a plain Module,
+# through the tensor ops of item 7b and the nn ops (cuBLAS, no hand-written
+# kernel: B1-B7 launch 0 times here). The corpus is synthetic: a Zipf
+# stream over the vocabulary from a numpy seed (no PTB file in the repo).
+# The loss is a per-token mean (rescale_grad 1/(batch*35)), as the paper's.
+LM = dict(vocab=10000, embed=650, hidden=650, layers=2, seq=35, batch=20)
+LM_P = 0.5
+LM_LR = 1.0
+LM_BATCHES = 5                # one warm-up, four timed
+LM_INIT = 0.05
+LM_STATES = ("lstm_state", "lstm_state_cell")   # zero, not trained
+LM_CHECK_BATCH = 4            # card vs CPU, p = 0
+LM_TOL = 1e-4
+LM_RATIO, LM_NUDGES = 3.0, 3
+# serving: a next-token graph (Embedding -> SequenceMask -> RNN ->
+# SequenceLast -> FullyConnected -> softmax -> topk) through AOTPredictor;
+# 40 prompts of 5..35 tokens, padded to 35, in requests of these sizes
+# (the 3 fills a bucket of 4 partly)
+LM_LADDER = (1, 4, 16)
+LM_REQUESTS = (16, 16, 4, 3, 1)
+LM_TOPK = 5
+LM_TIE = 1e-6
+
+
+def lm_symbol(mx, vocab, num_hidden, num_embed, num_layers, p=0.0):
+    """``lstm_lm_sym`` of examples/rnn/lstm_bucketing.py (its ``seq_len``
+    argument is unused there), with ``RNN``'s dropout ``p``; ``mx`` is
+    either package."""
+    data = mx.sym.var("data")
+    label = mx.sym.var("softmax_label")
+    embed = mx.sym.Embedding(data=data, input_dim=vocab,
+                             output_dim=num_embed, name="embed")
+    rnn = mx.sym.RNN(data=mx.sym.swapaxes(embed, dim1=0, dim2=1),
+                     state_size=num_hidden, num_layers=num_layers,
+                     mode="lstm", name="lstm", **({"p": p} if p else {}))
+    hidden = mx.sym.Reshape(mx.sym.swapaxes(rnn, dim1=0, dim2=1),
+                            shape=(-1, num_hidden))
+    pred = mx.sym.FullyConnected(data=hidden, num_hidden=vocab, name="pred")
+    label = mx.sym.Reshape(label, shape=(-1,))
+    return mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+
+
+def lm_next_token_symbol(mx, vocab, num_hidden, num_embed, num_layers,
+                         k=LM_TOPK):
+    """The next token's top ``k`` (probabilities, ids) after each padded
+    prompt: inputs lead with the batch (``data`` (N, T), ``sequence_length``
+    (N,)), as ``AOTPredictor`` rebinds the leading axis; the parameter
+    names are ``lm_symbol``'s."""
+    length = mx.sym.var("sequence_length")
+    embed = mx.sym.Embedding(data=mx.sym.var("data"), input_dim=vocab,
+                             output_dim=num_embed, name="embed")
+    embed = mx.sym.SequenceMask(embed, length, use_sequence_length=True,
+                                axis=1)
+    rnn = mx.sym.RNN(data=mx.sym.swapaxes(embed, dim1=0, dim2=1),
+                     state_size=num_hidden, num_layers=num_layers,
+                     mode="lstm", name="lstm")
+    last = mx.sym.SequenceLast(rnn, length, use_sequence_length=True,
+                               axis=0)
+    pred = mx.sym.FullyConnected(data=last, num_hidden=vocab, name="pred")
+    return mx.sym.topk(mx.sym.softmax(pred), k=k, ret_typ="both")
+
+
+def lm_params(np, sym, batch, seq, seed=0):
+    """Every parameter uniform in +-LM_INIT from a numpy seed, the RNN
+    states zero (host arrays: the same on any device)."""
+    shapes, _, _ = sym.infer_shape(data=(batch, seq),
+                                   softmax_label=(batch, seq))
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, shape in zip(sym.list_arguments(), shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        out[name] = np.zeros(shape, np.float32) if name in LM_STATES else \
+            rng.uniform(-LM_INIT, LM_INIT, shape).astype(np.float32)
+    return out
+
+
+def lm_corpus(np, rows, seq, vocab, seed=1):
+    """``(data, label)`` of ``rows`` windows of a Zipf token stream, the
+    label the next token."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    stream = rng.choice(vocab, rows * seq + 1, p=p / p.sum())
+    x = stream[:-1].reshape(rows, seq).astype(np.float32)
+    y = stream[1:].reshape(rows, seq).astype(np.float32)
+    return x, y
+
+
+def _lm_loss(torch, probs, label):
+    """The mean cross-entropy of (rows, vocab) probabilities on the card
+    (one scalar to the host)."""
+    t = label.reshape(-1).long()
+    return float(-torch.log(probs.gather(1, t[:, None]) + 1e-12).mean())
+
+
+def _lm_fit(torch, np, mx):
+    """``Module.fit`` of the full-width LM on the card: per-batch times and
+    losses, a profiled batch, peak memory; returns the trained params."""
+    c = LM
+    sym = lm_symbol(mx, c["vocab"], c["hidden"], c["embed"], c["layers"],
+                    p=LM_P)
+    params = lm_params(np, sym, c["batch"], c["seq"])
+    x, y = lm_corpus(np, c["batch"] * LM_BATCHES, c["seq"], c["vocab"])
+    it = mx.io.NDArrayIter(x, y, batch_size=c["batch"])
+    mod = mx.mod.Module(sym, context=mx.Context.from_device(CARD),
+                        fixed_param_names=list(LM_STATES))
+    per, last = [], {}
+
+    def on_batch(_param):
+        lbl = torch.from_numpy(y[len(per) * c["batch"]:
+                                 (len(per) + 1) * c["batch"]]).to(CARD)
+        loss = _lm_loss(torch, mod.get_outputs()[0].tensor, lbl)
+        now = time.perf_counter()
+        per.append((now - last["t"], loss))
+        last["t"] = time.perf_counter()
+
+    mx.random.seed(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last["t"] = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params=dict(learning_rate=LM_LR,
+                                  rescale_grad=1.0 / (c["batch"] * c["seq"])),
+            initializer=mx.init.Uniform(LM_INIT),
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in params.items()},
+            batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    it.reset()
+    data_batch = next(iter(it))
+
+    def one_batch():
+        mod.forward_backward(data_batch)
+        mod.update()
+
+    prof = {}
+    _device_profile(torch, one_batch, top=4, stats=prof)
+    secs = sorted(p[0] for p in per[1:])
+    med = secs[len(secs) // 2]
+    tokens = c["batch"] * c["seq"]
+    print("lm fit: PTB-medium LSTM LM (vocab %d, %d wide, %d layers, T %d, "
+          "batch %d, p %.1f), fp32, sgd lr %g: %.4f s a batch (median of "
+          "%d, range %.4f-%.4f; first with its set-up %.3f s), %.1f "
+          "tokens/s, peak memory %.3f GiB, a profiled batch busy %s of %s "
+          "ms (%s); loss %s"
+          % (c["vocab"], c["hidden"], c["layers"], c["seq"], c["batch"],
+             LM_P, LM_LR, med, len(secs), secs[0], secs[-1], per[0][0],
+             tokens / med, peak / 2 ** 30,
+             "%.1f" % prof["busy_ms"] if prof else "n/a",
+             "%.1f" % prof["wall_ms"] if prof else "n/a",
+             "busy share %.3f" % (prof["busy_ms"] / prof["wall_ms"])
+             if prof else "busy share not measured",
+             " ".join("%.5f" % p[1] for p in per)))
+    if len(per) != LM_BATCHES or \
+            not all(math.isfinite(p[1]) for p in per) or \
+            not per[-1][1] < per[0][1] or \
+            abs(per[0][1] - math.log(c["vocab"])) > 0.5:
+        raise RuntimeError("lm fit: the loss did not start near ln %d and "
+                           "fall: %s" % (c["vocab"], [p[1] for p in per]))
+    arg, _aux = mod.get_params()
+    trained = {k: v.asnumpy() for k, v in arg.items()}
+    del mod
+    return trained, dict(s_batch=med, tokens_s=tokens / med,
+                         peak_gib=peak / 2 ** 30, busy_ms=prof.get("busy_ms"),
+                         wall_ms=prof.get("wall_ms"))
+
+
+def _lm_grads_vs_cpu(np, mx):
+    """The first loss and every gradient at batch LM_CHECK_BATCH, p = 0,
+    card vs CPU, with the card's one-rounding yardstick (the weights moved
+    by one rounding, LM_NUDGES times)."""
+    c = LM
+    n = LM_CHECK_BATCH
+    sym = lm_symbol(mx, c["vocab"], c["hidden"], c["embed"], c["layers"])
+    params = lm_params(np, sym, n, c["seq"], seed=2)
+    x, y = lm_corpus(np, n, c["seq"], c["vocab"], seed=3)
+    shapes = dict(data=(n, c["seq"]), softmax_label=(n, c["seq"]))
+
+    def run(ctx, nudge=None):
+        rng = None if nudge is None else np.random.RandomState(nudge)
+        ex = sym.simple_bind(ctx, **shapes)
+        for name, arr in ex.arg_dict.items():
+            v = {"data": x, "softmax_label": y}.get(name)
+            if v is None:
+                v = params[name]
+                if rng is not None and name not in LM_STATES:
+                    v = _zoo_nudged(np, v, rng)
+            arr[:] = v
+        ex.forward_backward()
+        probs = ex.outputs[0].asnumpy()
+        ce = float(-np.log(probs[np.arange(n * c["seq"]),
+                                 y.reshape(-1).astype(int)] + 1e-12).mean())
+        return ce, {k: g.asnumpy() for k, g in ex.grad_dict.items()
+                    if k not in shapes and k not in LM_STATES}
+
+    cpu_ce, cpu = run(mx.cpu())
+    card_ce, card = run(mx.Context.from_device(CARD))
+    nudged = [run(mx.Context.from_device(CARD), 300 + i)[1] for i in range(LM_NUDGES)]
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    def whole(a, b):
+        return float(np.sqrt(sum(float(((a[k] - b[k]) ** 2).sum())
+                                 for k in b)
+                             / sum(float((v ** 2).sum())
+                                   for v in b.values())))
+
+    loss_err = abs(card_ce - cpu_ce) / abs(cpu_ce)
+    gap, yard = whole(card, cpu), max(whole(g, card) for g in nudged)
+    worst = max((rel(card[k], g), k) for k, g in cpu.items())
+    tyard = max(rel(g[k], card[k]) for g in nudged for k in card)
+    print("lm card vs cpu: batch %d, p=0, %d gradients: first loss %.6f vs "
+          "%.6f (relative %.3g, tol %g); whole gradient relative L2 %.4g "
+          "against %.4g under %d one-rounding moves of the weights (ratio "
+          "%.2f, limit %g); worst tensor %.4g at %s against %.4g (ratio "
+          "%.2f)" % (n, len(cpu), card_ce, cpu_ce, loss_err, LM_TOL, gap,
+                     yard, LM_NUDGES, gap / max(yard, 1e-30), LM_RATIO,
+                     worst[0], worst[1], tyard,
+                     worst[0] / max(tyard, 1e-30)))
+    if loss_err > LM_TOL or gap > max(LM_RATIO * yard, LM_TOL) or \
+            worst[0] > max(LM_RATIO * tyard, LM_TOL):
+        raise RuntimeError("lm: card vs cpu out of bounds")
+
+
+def lm_fit_phase(torch, np, fa, fb):
+    """The LM through ``Module.fit`` on the card and its card-vs-CPU
+    check; returns the trained parameters, the fit's numbers and the
+    launches of B5, B6, B7, B1, B2 and B3 meanwhile (0)."""
+    import mxnet_tpu_torch as mx
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("lm: TF32 must be off for fp32")
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    trained, row = _lm_fit(torch, np, mx)
+    launches = _counts(fa) + _fb_counts(fb)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _lm_grads_vs_cpu(np, mx)
+    if any(launches):
+        raise RuntimeError("lm fit: hand-written kernels launched %s"
+                           % (launches,))
+    return trained, row, launches
+
+
+def _lm_prompts(np, n, seed=4):
+    """``n`` prompts of 5..35 tokens, padded with 0 to 35."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(5, LM["seq"] + 1, n)
+    x, _y = lm_corpus(np, n, LM["seq"], LM["vocab"], seed=seed)
+    x[np.arange(LM["seq"])[None, :] >= lens[:, None]] = 0
+    return x, lens.astype(np.float32)
+
+
+def lm_serving_phase(torch, np, fa, fb, trained):
+    """The trained LM's next-token top 5 through ``AOTPredictor`` on the
+    card against the CPU's; returns the launches of B5-B7, B1-B3 (0)."""
+    import warnings
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import AOTPredictor
+
+    c = LM
+    sym = lm_next_token_symbol(mx, c["vocab"], c["hidden"], c["embed"],
+                               c["layers"])
+    params = {k: v for k, v in trained.items() if k not in LM_STATES}
+    x, lens = _lm_prompts(np, sum(LM_REQUESTS))
+    preds = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # the zero-filled RNN states
+        for dev in ("cpu", CARD):
+            preds[dev] = AOTPredictor(
+                sym, params, data_shapes={"data": (1, c["seq"]),
+                                          "sequence_length": (1,)},
+                ladder=LM_LADDER, device=dev)
+    starts = np.cumsum((0,) + LM_REQUESTS)
+
+    def serve(dev):
+        out = [preds[dev].predict({"data": x[a:b],
+                                   "sequence_length": lens[a:b]})
+               for a, b in zip(starts[:-1], starts[1:])]
+        return (np.concatenate([o[0] for o in out]),
+                np.concatenate([o[1] for o in out]))
+
+    cpu_vals, cpu_idx = serve("cpu")
+    serve(CARD)                              # warm-up
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, idx = serve(CARD)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _counts(fa) + _fb_counts(fb)
+    prof = {}
+    _device_profile(torch, lambda: serve(CARD), top=4, stats=prof)
+    err = float(np.abs(vals - cpu_vals).max())
+    # an index may differ only where the CPU's neighbouring values tie
+    near = np.zeros(idx.shape, bool)
+    near[:, 1:] |= np.abs(np.diff(cpu_vals, axis=1)) <= LM_TIE
+    near[:, :-1] |= np.abs(np.diff(cpu_vals, axis=1)) <= LM_TIE
+    bad = (idx != cpu_idx) & ~near
+    n = len(x)
+    print("lm serving: %d next-token requests (prompts %d-%d tokens) in "
+          "requests of %s rows on the ladder %s: %.4f s, %.1f requests/s, "
+          "a profiled pass busy %s of %s ms (%s); top-%d values within %.3g "
+          "of the CPU's (tol %g), indices equal but %d (all at ties <= %g)"
+          % (n, int(lens.min()), int(lens.max()),
+             "/".join(str(r) for r in LM_REQUESTS), LM_LADDER, secs,
+             n / secs, "%.1f" % prof["busy_ms"] if prof else "n/a",
+             "%.1f" % prof["wall_ms"] if prof else "n/a",
+             "busy share %.3f" % (prof["busy_ms"] / prof["wall_ms"])
+             if prof else "busy share not measured", LM_TOPK, err, LM_TOL,
+             int((idx != cpu_idx).sum()), LM_TIE))
+    if vals.shape != (n, LM_TOPK) or not np.isfinite(vals).all() or \
+            err > LM_TOL or bad.any():
+        raise RuntimeError("lm serving: the card's top %d differ from the "
+                           "CPU's" % LM_TOPK)
+    if any(launches):
+        raise RuntimeError("lm serving: hand-written kernels launched %s"
+                           % (launches,))
+    return dict(requests_s=n / secs, busy_ms=prof.get("busy_ms"),
+                wall_ms=prof.get("wall_ms")), launches
+
+
+# the op sweep of item 7b on the card: tests/test_op_sweep.py's spec of
+# each of the 95 names (its input builders, copied: the card's machine has
+# no JAX; tests/test_torch_text_models.py holds the copy equal to the
+# sweep's), forward and gradient card vs CPU within SWEEP_TOL of each
+# tensor's largest magnitude, and the edge cases the two packages follow
+# the reference in (indices out of range or negative, ties, the hypot kink)
+SWEEP_TOL = 1e-4
+
+
+def _sweep_u(np, shape, lo=0.5, hi=1.5, seed=0):
+    r = np.random.RandomState(hash((shape, lo, hi, seed)) % (2 ** 31))
+    return r.uniform(lo, hi, size=shape).astype(np.float32)
+
+
+def _sweep_n(np, shape, seed=0, scale=1.0):
+    r = np.random.RandomState(hash((shape, seed)) % (2 ** 31))
+    return (r.randn(*shape) * scale).astype(np.float32)
+
+
+def _sweep_distinct(np, shape, seed=0, lo=0.5, hi=2.0):
+    vals = np.linspace(lo, hi, int(np.prod(shape)), dtype=np.float32)
+    np.random.RandomState(seed).shuffle(vals)
+    return vals.reshape(shape)
+
+
+def _sweep_ints(np, shape, hi, seed=0):
+    return np.random.RandomState(seed).randint(0, hi, size=shape) \
+        .astype(np.int32)
+
+
+def _sweep_spd(np, b, n, seed=0):
+    a = _sweep_n(np, (b, n, n), seed=seed)
+    return (np.einsum("bij,bkj->bik", a, a) + 3 * np.eye(n)) \
+        .astype(np.float32)
+
+
+def _sweep_sym(np, b, n, seed=0):
+    a = _sweep_n(np, (b, n, n), seed=seed)
+    return (0.5 * (a + a.transpose(0, 2, 1))
+            + np.diag(np.arange(1.0, n + 1.0)).astype(np.float32))
+
+
+def sweep_specs(np):
+    """name -> (inputs, attrs, indices of the inputs to differentiate or
+    None for every float one): tests/test_op_sweep.py's specs of the 95
+    names of item 7b."""
+    def U(shape, lo=0.5, hi=1.5, seed=0):
+        return _sweep_u(np, shape, lo, hi, seed)
+
+    def N(shape, seed=0, scale=1.0):
+        return _sweep_n(np, shape, seed, scale)
+
+    d23 = N((2, 3), seed=1)
+    seq, lens = N((4, 2, 3), seed=4), np.array([3, 4], dtype=np.float32)
+    bl, br = U((2, 1, 4), seed=23), U((1, 3, 4), seed=24)
+    tril = np.linalg.cholesky(_sweep_spd(np, 1, 3)).astype(np.float32)
+    s = {}
+    for name in ("log10", "log2", "log1p", "expm1", "cbrt", "rcbrt",
+                 "gamma", "gammaln", "sin", "cos", "sinh", "cosh",
+                 "degrees", "radians", "erf", "softsign", "logical_not"):
+        s[name] = ([U((2, 3), seed=5)], {}, None)
+    s["tan"] = ([U((2, 3), lo=0.1, hi=1.2, seed=6)], {}, None)
+    s["arcsin"] = ([U((2, 3), lo=-0.8, hi=0.8, seed=7)], {}, None)
+    s["arccos"] = ([U((2, 3), lo=-0.8, hi=0.8, seed=7)], {}, None)
+    s["arctan"] = ([N((2, 3), seed=8)], {}, None)
+    s["arctanh"] = ([U((2, 3), lo=-0.8, hi=0.8, seed=9)], {}, None)
+    s["arcsinh"] = ([N((2, 3), seed=10)], {}, None)
+    s["arccosh"] = ([U((2, 3), lo=1.2, hi=2.5, seed=11)], {}, None)
+    s["erfinv"] = ([U((2, 3), lo=-0.7, hi=0.7, seed=12)], {}, None)
+    s["smooth_l1"] = ([N((2, 3), seed=13)], {"scalar": 1.0}, None)
+    s["fix"] = ([U((2, 3), lo=0.2, hi=0.4, seed=14)], {}, None)
+    s["_scatter_elemwise_div"] = ([U((2, 3), seed=21), U((2, 3), seed=22)],
+                                  {}, None)
+    s["_identity_with_attr_like_rhs"] = ([d23, d23], {}, None)
+    for name in ("broadcast_hypot", "broadcast_logical_and",
+                 "broadcast_logical_or", "broadcast_logical_xor"):
+        s[name] = ([bl, br], {}, None)
+    s["_hypot_scalar"] = ([U((2, 3), seed=27)], {"scalar": 1.7}, None)
+    for name in ("_logical_and_scalar", "_logical_or_scalar",
+                 "_logical_xor_scalar"):
+        s[name] = ([U((2, 3), seed=28)], {"scalar": 1.0}, None)
+    s["nansum"] = ([N((2, 3, 4), seed=29)], {"axis": 1}, None)
+    s["nanprod"] = ([U((2, 3), seed=30)], {"axis": 1}, None)
+    s["_square_sum"] = ([N((2, 3), seed=33)], {"axis": 1}, None)
+    s["cumsum"] = ([N((2, 3), seed=34)], {"axis": 1}, None)
+    s["argmax_channel"] = ([_sweep_distinct(np, (2, 5))], {}, None)
+    s["reshape_like"] = ([d23, N((3, 2), seed=35)], {}, None)
+    s["flip"] = ([N((2, 3), seed=39)], {"axis": 1}, None)
+    s["tile"] = ([d23], {"reps": (2, 2)}, None)
+    s["repeat"] = ([d23], {"repeats": 2, "axis": 1}, None)
+    s["broadcast_axis"] = ([N((1, 3), seed=42)], {"axis": 0, "size": 4},
+                           None)
+    s["depth_to_space"] = ([N((1, 4, 2, 2), seed=43)], {"block_size": 2},
+                           None)
+    s["space_to_depth"] = ([N((1, 1, 4, 4), seed=44)], {"block_size": 2},
+                           None)
+    s["diag"] = ([N((3, 3), seed=45)], {}, None)
+    s["slice"] = ([N((3, 4), seed=46)], {"begin": (0, 1), "end": (2, 3)},
+                  None)
+    s["slice_axis"] = ([N((3, 4), seed=47)],
+                       {"axis": 1, "begin": 1, "end": 3}, None)
+    s["slice_like"] = ([N((3, 4), seed=48), N((2, 2), seed=49)], {}, None)
+    s["SliceChannel"] = ([N((2, 4, 3), seed=50)],
+                         {"num_outputs": 2, "axis": 1}, None)
+    s["stack"] = ([d23, N((2, 3), seed=52)], {"axis": 1, "num_args": 2},
+                  None)
+    s["pad"] = ([U((2, 3, 6, 6), seed=3)],
+                {"mode": "constant", "pad_width": (0, 0, 0, 0, 1, 1, 1, 1)},
+                None)
+    s["batch_take"] = ([N((3, 4), seed=55), _sweep_ints(np, (3,), 4)], {},
+                       (0,))
+    s["pick"] = ([N((3, 4), seed=56),
+                  _sweep_ints(np, (3,), 4).astype(np.float32)],
+                 {"axis": 1}, (0,))
+    s["gather_nd"] = ([N((4, 3), seed=57), _sweep_ints(np, (1, 2), 3)], {},
+                      (0,))
+    s["scatter_nd"] = ([N((2, 4), seed=58), _sweep_ints(np, (1, 2), 3)],
+                       {"shape": (4, 4)}, (0,))
+    s["_scatter_set_nd"] = ([N((4, 4), seed=59), N((2,), seed=60),
+                             np.array([[0, 1], [1, 2]], np.int32)],
+                            {"shape": (4, 4)}, (0, 1))
+    s["Embedding"] = ([_sweep_ints(np, (2, 3), 7).astype(np.float32),
+                       N((7, 4), seed=61)],
+                      {"input_dim": 7, "output_dim": 4}, (1,))
+    s["where"] = ([_sweep_ints(np, (2, 3), 2).astype(np.float32), d23,
+                   N((2, 3), seed=62)], {}, (1, 2))
+    s["_slice_assign"] = ([N((3, 4), seed=63), N((2, 2), seed=64)],
+                          {"begin": (0, 1), "end": (2, 3)}, None)
+    s["_slice_assign_scalar"] = ([N((3, 4), seed=65)],
+                                 {"begin": (0, 1), "end": (2, 3),
+                                  "scalar": 2.0}, None)
+    s["add_n"] = ([d23, N((2, 3), seed=79)], {}, None)
+    for name in ("SequenceLast", "SequenceMask", "SequenceReverse"):
+        s[name] = ([seq, lens], {"use_sequence_length": True}, (0,))
+    s["SequenceMask"][1]["value"] = 0.0
+    s["khatri_rao"] = ([N((2, 3), seed=107), N((4, 3), seed=108)],
+                       {"num_args": 2}, None)
+    s["_linalg_gemm"] = ([N((2, 3), seed=109), N((3, 4), seed=110),
+                          N((2, 4), seed=111)], {}, None)
+    s["_linalg_gemm2"] = ([N((2, 3), seed=112), N((3, 4), seed=113)], {},
+                          None)
+    s["_linalg_syrk"] = ([N((2, 3), seed=114)], {}, None)
+    s["_linalg_potrf"] = ([_sweep_spd(np, 1, 3)], {}, None)
+    s["_linalg_potri"] = ([tril], {}, None)
+    s["_linalg_trmm"] = ([tril, N((1, 3, 3), seed=115)], {}, None)
+    s["_linalg_trsm"] = ([tril, N((1, 3, 3), seed=116)], {}, None)
+    s["_linalg_sumlogdiag"] = ([_sweep_spd(np, 1, 3)], {}, None)
+    s["_linalg_extractdiag"] = ([N((3, 3), seed=117)], {}, None)
+    s["_linalg_extracttrian"] = ([N((3, 3), seed=118)], {}, None)
+    s["_linalg_makediag"] = ([N((3,), seed=119)], {}, None)
+    s["_linalg_syevd"] = ([_sweep_sym(np, 1, 3)], {}, None)
+    s["_linalg_gelqf"] = ([N((1, 2, 3), seed=120)], {}, None)
+    s["sort"] = ([_sweep_distinct(np, (2, 5))], {"axis": 1}, None)
+    s["argsort"] = ([_sweep_distinct(np, (2, 5))], {"axis": 1}, None)
+    s["topk"] = ([_sweep_distinct(np, (2, 5))], {"axis": 1, "k": 2}, None)
+    s["shuffle"] = ([_sweep_distinct(np, (2, 3))], {}, None)
+    s["_zeros"] = ([], {"shape": (2, 3)}, None)
+    s["_ones"] = ([], {"shape": (2, 3)}, None)
+    s["_full"] = ([], {"shape": (2, 3), "value": 1.5}, None)
+    s["_eye"] = ([], {"N": 3}, None)
+    s["_arange"] = ([], {"start": 0.0, "stop": 5.0}, None)
+    s["cast_storage"] = ([np.array([[0, 1.5], [0, 0]], np.float32)],
+                         {"stype": "csr"}, None)
+    s["_sparse_retain"] = ([N((4, 3), seed=138),
+                            np.array([0, 2], np.float32)], {}, None)
+    s["_CrossDeviceCopy"] = ([d23], {}, None)
+    return s
+
+
+def sweep_edge_cases(np):
+    """(id, name, inputs, attrs, inputs to differentiate): indices out of
+    range and negative, ties, the hypot kink, lengths past the end."""
+    rng = np.random.RandomState(9)
+    w = rng.randn(5, 3).astype(np.float32)
+    tie = np.array([[1.0, 2.0, 1.0, 2.0], [3.0, 3.0, 3.0, 1.0]], np.float32)
+    seq = rng.randn(4, 3, 2).astype(np.float32)
+    return [
+        ("embedding-wrap-nan", "Embedding",
+         [np.array([[-1.0, 5.0, 1.7], [7.0, 0.0, -5.0]], np.float32), w],
+         {"input_dim": 5, "output_dim": 3}, (1,)),
+        ("gather_nd-clamp-wrap", "gather_nd",
+         [w[:4], np.array([[9, -1], [0, 7]], np.int32)], {}, (0,)),
+        ("batch_take-clamp-wrap", "batch_take",
+         [rng.randn(4, 5).astype(np.float32),
+          np.array([-1, 7, -9, 2], np.float32)], {}, (0,)),
+        ("scatter_nd-drop", "scatter_nd",
+         [rng.randn(4, 3).astype(np.float32),
+          np.array([[0, -1, 5, 1]], np.int32)], {"shape": (3, 3)}, (0,)),
+        ("scatter_set_nd-drop", "_scatter_set_nd",
+         [rng.randn(3, 3).astype(np.float32),
+          rng.randn(4, 3).astype(np.float32),
+          np.array([[0, -1, 5, 1]], np.int32)], {"shape": (3, 3)}, (0, 1)),
+        ("sparse_retain-drop", "_sparse_retain",
+         [rng.randn(4, 2).astype(np.float32),
+          np.array([-1, 9, 1], np.float32)], {}, None),
+        ("sequence_last-zero-and-past", "SequenceLast",
+         [seq, np.array([0, 9, 2], np.float32)],
+         {"use_sequence_length": True}, (0,)),
+        ("sequence_reverse-past", "SequenceReverse",
+         [seq, np.array([6, 2, 0], np.float32)],
+         {"use_sequence_length": True}, (0,)),
+        ("argsort-ties-descending", "argsort", [tie],
+         {"is_ascend": False}, None),
+        ("topk-ties", "topk", [tie], {"k": 3, "ret_typ": "both"}, (0,)),
+        ("sort-ties", "sort", [tie], {"is_ascend": False}, (0,)),
+        ("hypot-kink", "broadcast_hypot",
+         [np.zeros((2, 2), np.float32),
+          np.array([[0.0, 1.0], [0.0, -2.0]], np.float32)], {}, (0, 1)),
+        ("slice-negative-step", "slice", [rng.randn(5, 4).astype(np.float32)],
+         {"begin": (None, 3), "end": (None, 0), "step": (None, -2)}, None),
+    ]
+
+
+def _sweep_run(torch, np, op, inputs, attrs, diff, device, seed=1234):
+    """The op's outputs and the gradients of <cotangent, float outputs>
+    for ``diff`` (host numpy), on ``device``."""
+    tens = [torch.tensor(x, device=device,
+                         requires_grad=diff is not None and i in diff)
+            for i, x in enumerate(inputs)]
+    if op.needs_rng:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        outs = op.fn(gen, *tens, **attrs)
+    elif not tens:
+        with torch.device(device):
+            outs = op.fn(**attrs)
+    else:
+        outs = op.fn(*tens, **attrs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    grads = []
+    heads = [o for o in outs if o.requires_grad]
+    if diff and heads:
+        rng = np.random.RandomState(seed)
+        cots = [torch.tensor(rng.randn(*o.shape).astype(np.float32),
+                             device=device) for o in heads]
+        got = torch.autograd.grad(heads, [tens[i] for i in diff], cots,
+                                  allow_unused=True)
+        grads = [np.zeros(np.shape(inputs[i]), np.float32) if g is None
+                 else g.cpu().numpy() for i, g in zip(diff, got)]
+    return [o.detach().cpu().numpy() for o in outs], grads
+
+
+def _sign_normalised(np, name, outs):
+    """syevd's rows and gelqf's (L columns, Q rows) with the sign of their
+    largest entry made positive: unique only up to it."""
+    if name == "_linalg_syevd":
+        u = outs[0]
+        s = np.sign(np.take_along_axis(u, np.abs(u).argmax(-1)[..., None],
+                                       -1))
+        return [u * s, outs[1]]
+    if name == "_linalg_gelqf":
+        q = outs[1]
+        s = np.sign(np.take_along_axis(q, np.abs(q).argmax(-1)[..., None],
+                                       -1))
+        return [outs[0] * np.swapaxes(s, -1, -2), q * s]
+    return outs
+
+
+def _sweep_err(np, a, b):
+    """The largest difference over the CPU tensor's largest magnitude
+    (NaNs must sit at the same places)."""
+    if a.shape != b.shape or a.dtype != b.dtype or \
+            not np.array_equal(np.isnan(a), np.isnan(b)):
+        return float("inf")
+    a, b = np.nan_to_num(a), np.nan_to_num(b)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)) \
+        if a.size else 0.0
+
+
+def tensor_sweep_phase(torch, np, fa, fb):
+    """Every name of item 7b forward and gradient card vs CPU, plus the
+    edge cases; returns the launches of B5-B7, B1-B3 meanwhile (0)."""
+    from mxnet_tpu_torch.ops import registry
+
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    cases = [(name, name, *spec) for name, spec in
+             sorted(sweep_specs(np).items())] + sweep_edge_cases(np)
+    worst, held, grads = [], set(), 0
+    for cid, name, inputs, attrs, diff in cases:
+        op = registry.get(name)
+        if diff is None and not op.nondiff:
+            diff = tuple(i for i, x in enumerate(inputs)
+                         if x.dtype == np.float32)
+        if op.nondiff or name in ("_linalg_syevd", "_linalg_gelqf"):
+            diff = None
+        cpu = _sweep_run(torch, np, op, inputs, attrs, diff, "cpu")
+        card = _sweep_run(torch, np, op, inputs, attrs, diff, CARD)
+        if name == "shuffle":
+            rows = sorted(map(tuple, card[0][0].tolist()))
+            errs = [0.0 if rows == sorted(map(tuple, inputs[0].tolist()))
+                    else float("inf")]
+        else:
+            errs = [_sweep_err(np, a, b) for a, b in
+                    zip(_sign_normalised(np, name, card[0]),
+                        _sign_normalised(np, name, cpu[0]))]
+            errs += [_sweep_err(np, a, b) for a, b in zip(card[1], cpu[1])]
+            grads += len(card[1])
+        if len(card[0]) != len(cpu[0]) or len(card[1]) != len(cpu[1]):
+            errs.append(float("inf"))
+        worst.append((max(errs), cid))
+        held.add(name)
+    worst.sort(reverse=True)
+    launches = _counts(fa) + _fb_counts(fb)
+    print("tensor sweep: %d of the 95 names of item 7b and %d edge cases, "
+          "card vs cpu, %d gradients: worst %.3g at %s (tol %g); next %s"
+          % (len(held), len(cases) - len(sweep_specs(np)), grads,
+             worst[0][0], worst[0][1], SWEEP_TOL,
+             ", ".join("%.2g %s" % w for w in worst[1:4])))
+    bad = [w for w in worst if not w[0] <= SWEEP_TOL]
+    if len(held) != 95 or bad:
+        raise RuntimeError("tensor sweep: out of bounds: %s" % bad[:5])
+    if any(launches):
+        raise RuntimeError("tensor sweep: hand-written kernels launched %s"
+                           % (launches,))
+    return launches
+
+
 def main():
     import torch
 
@@ -3126,18 +3797,28 @@ def main():
     zoo = phase("model_zoo_fit", model_zoo_fit_phase, torch, np, fa, fb)
     for entry, n in zip([fwd, *bwd, conv, *grads], zoo):
         entry["model_zoo_launches"] = n
+    trained, _lm_row, lm_fit = phase("lm_fit", lm_fit_phase, torch, np, fa,
+                                     fb)
+    _lm_served, lm_serve = phase("lm_serving", lm_serving_phase, torch, np,
+                                 fa, fb, trained)
+    lm_sweep = phase("tensor_sweep", tensor_sweep_phase, torch, np, fa, fb)
+    lm = tuple(a + b + s for a, b, s in zip(lm_fit, lm_serve, lm_sweep))
+    for entry, n in zip([fwd, *bwd, conv, *grads], lm):
+        entry["lm_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; image serving B1 %d; ResNet-50 "
           "training %d steps B1 %d, B2 %d, B3 %d; TrainStep options %d "
           "steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 %d, B2 %d, "
           "B3 %d; data parallel, one rank over NCCL, %d steps B1 %d, B2 %d, "
-          "B3 %d, each of %d gloo ranks %s; model zoo B5-B7 and B1-B3 %s"
+          "B3 %d, each of %d gloo ranks %s; model zoo B5-B7 and B1-B3 %s; "
+          "LM path (fit, serving, op sweep) B5-B7 and B1-B3 %s"
           % (TRAIN_STEPS, *launches, served, conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
              OPTIONS_STEPS * (len(REMAT_MODES) + 1), *options_launches,
              FIT_EPOCHS * FIT_COPIES, *fit_launches, DP_STEPS, *dp_nccl,
              DP_RANKS, " / ".join("%d, %d, %d" % r for r in dp_gloo),
-             ", ".join("%d" % n for n in zoo)))
+             ", ".join("%d" % n for n in zoo),
+             ", ".join("%d" % n for n in lm)))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

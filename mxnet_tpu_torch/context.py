@@ -11,6 +11,7 @@ on the CPU. The CPU is used only when a caller asks for it (the tests do).
 """
 from __future__ import annotations
 
+import re
 import threading
 
 import torch
@@ -68,6 +69,18 @@ class Context:
         if device.type == "cuda":
             return cls("gpu", device.index or 0)
         return cls("cpu", 0)
+
+    @classmethod
+    def parse(cls, ctx):
+        """A context from a Context or its text (``"gpu(0)"``, ``"cpu"``:
+        an op's ``ctx`` attribute as symbol JSON holds it)."""
+        if isinstance(ctx, Context):
+            return ctx
+        m = re.fullmatch(r"\s*(cpu|gpu)\s*(?:\(\s*(\d+)\s*\))?\s*",
+                         str(ctx))
+        if m is None:
+            raise MXNetError("cannot parse %r as a context" % (ctx,))
+        return cls(m.group(1), int(m.group(2) or 0))
 
     @property
     def device_typeid(self):

@@ -51,20 +51,29 @@ _RNG_SALT = 0x5EED
 INFERENCE_SEED = 0
 
 
-def eval_node(node, ins, is_train, seed=None, salt=0):
+def eval_node(node, ins, is_train, seed=None, salt=0, device=None):
     """Evaluate one op node on its input tensors; returns a tuple. A
     random op gets a generator on its data's device seeded from ``seed``
     (the step seed, None only on ``meta`` tensors) and ``salt +
-    _RNG_SALT``."""
+    _RNG_SALT``. A node with no input (``_zeros``, ``_arange``, ...)
+    creates its output on ``device`` (the graph's)."""
     attrs = dict(node.attrs)
     if "__is_train__" in node.op.attr_defaults:
         attrs["__is_train__"] = is_train
-    if node.op.needs_rng:
+    if not ins and device is not None:
+        with torch.device(device):
+            out = node.op.fn(**attrs)
+    elif node.op.needs_rng:
         gen = _random.node_generator(seed, salt + _RNG_SALT, ins[0].device)
         out = node.op.fn(gen, *ins, **attrs)
     else:
         out = node.op.fn(*ins, **attrs)
     return out if isinstance(out, tuple) else (out,)
+
+
+def _values_device(values):
+    """The device of a graph's bound values (None when there are none)."""
+    return next(iter(values.values())).device if values else None
 
 
 def has_rng(symbol):
@@ -113,6 +122,7 @@ def _graph_closure(symbol, is_train, remat_names=None):
     def run(values, remat, seed):
         results = {}   # node index -> tuple of outputs
         aux_updates = {}
+        device = _values_device(values)
         for i, node in enumerate(nodes):
             if node.is_variable():
                 if node.name not in values:
@@ -124,7 +134,7 @@ def _graph_closure(symbol, is_train, remat_names=None):
                 if remat is not None and i in recompute:
                     out = remat.run(i, ins)
                 else:
-                    out = eval_node(node, ins, is_train, seed, i)
+                    out = eval_node(node, ins, is_train, seed, i, device)
             results[i] = out
             if remat is not None:
                 remat.own(i, out)
@@ -454,7 +464,7 @@ def _solve_shapes(symbol, known_shapes, type_dict=None):
                 continue
             try:
                 out = eval_node(node, [_meta(s, d) for s, d in structs],
-                                False)
+                                False, device="meta")
                 node_out[i] = [(tuple(o.shape), o.dtype) for o in out]
                 node_errors.pop(node.name, None)
                 progress = True
@@ -542,6 +552,9 @@ def _param_shape_hints(node, in_shapes):
         hints.update({"gamma": (data[1],), "beta": (data[1],)})
     elif op == "LeakyReLU" and attrs.get("act_type") == "prelu":
         hints["gamma"] = (data[1] if len(data) > 1 else 1,)
+    elif op == "Embedding":
+        hints["weight"] = (int(attrs.get("input_dim") or 0),
+                           int(attrs.get("output_dim") or 0))
     elif op in ("SoftmaxOutput", "SVMOutput"):
         if op == "SoftmaxOutput" and attrs.get("multi_output"):
             hints["label"] = (data[0],) + tuple(data[2:])

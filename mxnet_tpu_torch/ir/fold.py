@@ -82,7 +82,7 @@ class FoldPlan:
         """The fold function: ``params dict -> tuple`` of const values in
         ``const_specs`` order; a random node draws from
         ``executor.INFERENCE_SEED``."""
-        from ..executor import INFERENCE_SEED, eval_node
+        from ..executor import INFERENCE_SEED, _values_device, eval_node
 
         specs, order = self.const_specs, self.fold_order
         nodes, node_ids = self.nodes, self.node_ids
@@ -94,7 +94,8 @@ class FoldPlan:
                        else results[node_ids[id(inp)]][idx]
                        for inp, idx in nodes[i].inputs]
                 results[i] = eval_node(nodes[i], ins, False,
-                                       INFERENCE_SEED, i)
+                                       INFERENCE_SEED, i,
+                                       _values_device(params))
             return tuple(params[s[1]] if s[0] == "var"
                          else results[s[1]][s[2]] for s in specs)
 

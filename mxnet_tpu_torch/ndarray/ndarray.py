@@ -18,6 +18,8 @@ ops the registry does not hold (their methods raise naming the op).
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -458,10 +460,13 @@ class NDArray:
 def invoke(op, inputs, attrs, out=None, ctx=None):
     """Call a registered op on NDArrays (the imperative invoke): parse the
     attributes, thread ``__is_train__`` from ``autograd.is_training()``,
-    run the op under autograd only while recording, and wrap the visible
+    run the op under autograd only while recording (never a ``nondiff``
+    op, which the JAX package does not record), and wrap the visible
     outputs; ``out`` receives them in place. A random op draws from the
     context's ``random.generator`` (so its backward, recorded by torch,
-    uses the forward's draw)."""
+    uses the forward's draw). An op with no tensor input (``_zeros``,
+    ``_arange``, ...) creates its output on its ``ctx`` attribute's
+    device, else the current context's."""
     if isinstance(op, str):
         try:
             op = _reg.get(op)
@@ -474,6 +479,8 @@ def invoke(op, inputs, attrs, out=None, ctx=None):
     if "__is_train__" in op.attr_defaults:
         parsed["__is_train__"] = _ag.is_training()
     tensors = [x._t if isinstance(x, NDArray) else x for x in inputs]
+    if not tensors and parsed.get("ctx") is not None:
+        ctx = ctx or Context.parse(parsed["ctx"])
     ctx = ctx or next((x._ctx for x in inputs if isinstance(x, NDArray)),
                       None) or current_context()
     if op.needs_rng:
@@ -481,11 +488,15 @@ def invoke(op, inputs, attrs, out=None, ctx=None):
         from .. import random as _random
 
         tensors = [_random.generator(ctx)] + tensors
-    with torch.set_grad_enabled(_ag.is_recording()):
+    with torch.set_grad_enabled(_ag.is_recording() and not op.nondiff), \
+            (torch.device(ctx.torch_device()) if not inputs
+             else contextlib.nullcontext()):
         results = op.fn(*tensors, **parsed)
-    if not isinstance(results, tuple):
-        results = (results,)
-    results = results[:op.n_visible_outputs(parsed)]
+        if not isinstance(results, tuple):
+            results = (results,)
+        # an identity op's output is a new array, as in the JAX package
+        results = tuple(r.clone() if any(r is t for t in tensors) else r
+                        for r in results[:op.n_visible_outputs(parsed)])
     if out is not None:
         outs = [out] if isinstance(out, NDArray) else list(out)
         with torch.no_grad():

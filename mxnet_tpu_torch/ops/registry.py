@@ -14,6 +14,13 @@ executor seeds one for each node from its step seed and the node's salt
 (``executor.eval_node``), the imperative invoke passes the context's
 stream (``random.generator``). ``gen`` is None on ``meta`` tensors
 (shape inference), where nothing is drawn.
+
+An op registered with ``nondiff=True`` (the comparisons, rounding,
+creation, ``argmax``, ``topk``, ``shuffle``, ...) is never differentiated
+by the imperative front end: ``ndarray.invoke`` runs it under
+``torch.no_grad()`` even while recording, as the JAX package records no
+tape node for it. The symbolic executor differentiates it like any op,
+as the JAX package's ``jax.vjp`` over the whole graph does.
 """
 from __future__ import annotations
 
@@ -33,22 +40,25 @@ class OpDef:
     count or ``attrs -> int``; num_visible_outputs: outputs a symbol
     exposes (BatchNorm hides its batch mean/var); aux_state_outputs:
     ``{input name: output index}`` whose value replaces that aux state in
-    training; needs_rng: ``fn`` takes a generator first; attr_defaults:
-    keyword defaults from the signature.
+    training; needs_rng: ``fn`` takes a generator first; nondiff: the
+    imperative front end never records it; attr_defaults: keyword
+    defaults from the signature.
     """
 
     __slots__ = ("name", "fn", "num_outputs", "num_visible_outputs",
-                 "aux_state_outputs", "needs_rng", "doc", "attr_defaults",
-                 "input_names", "var_inputs", "optional_inputs")
+                 "aux_state_outputs", "needs_rng", "nondiff", "doc",
+                 "attr_defaults", "input_names", "var_inputs",
+                 "optional_inputs")
 
     def __init__(self, name, fn, num_outputs=1, num_visible_outputs=None,
-                 aux_state_outputs=None, needs_rng=False):
+                 aux_state_outputs=None, needs_rng=False, nondiff=False):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
         self.num_visible_outputs = num_visible_outputs
         self.aux_state_outputs = dict(aux_state_outputs or {})
         self.needs_rng = bool(needs_rng)
+        self.nondiff = bool(nondiff)
         self.doc = fn.__doc__ or ""
         self.attr_defaults = _kwarg_defaults(fn, self.needs_rng)
         self.input_names, self.var_inputs, self.optional_inputs = (
@@ -84,8 +94,8 @@ class OpDef:
 
 # None-default params with these names are optional tensor inputs; any
 # other defaulted param ends the input list (it is an attribute)
-_OPTIONAL_TENSOR_NAMES = {"bias", "gamma", "state_cell", "weight",
-                          "sc_weight"}
+_OPTIONAL_TENSOR_NAMES = {"bias", "gamma", "state_cell", "sequence_length",
+                          "weight", "sc_weight"}
 
 
 def _params(fn, needs_rng):
@@ -190,7 +200,7 @@ def _parse_tuple(value):
 
 
 def register(name=None, aliases=(), num_outputs=1, num_visible_outputs=None,
-             aux_state_outputs=None, needs_rng=False):
+             aux_state_outputs=None, needs_rng=False, nondiff=False):
     """Decorator registering a function on tensors as an operator."""
 
     def deco(fn):
@@ -200,7 +210,7 @@ def register(name=None, aliases=(), num_outputs=1, num_visible_outputs=None,
         _OPS[opname] = OpDef(opname, fn, num_outputs=num_outputs,
                              num_visible_outputs=num_visible_outputs,
                              aux_state_outputs=aux_state_outputs,
-                             needs_rng=needs_rng)
+                             needs_rng=needs_rng, nondiff=nondiff)
         for a in aliases:
             _ALIASES[a] = opname
         return fn

@@ -267,7 +267,7 @@ class AOTPredictor:
             if node.is_variable() or i not in dyn:
                 continue
             results[i] = eval_node(node, [val(e) for e in node.inputs], False,
-                                   INFERENCE_SEED, i)
+                                   INFERENCE_SEED, i, self.device)
         return [val(e) for e in plan.entries]
 
     # -- request surface ----------------------------------------------------

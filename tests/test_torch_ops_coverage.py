@@ -11,33 +11,42 @@ import pytest
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu_torch.ops import registry as treg
 
-PORTED = 118
+PORTED = 213
+
+# the 95 names of item 7b, from mxnet_tpu/ops/tensor.py
+TENSOR_7B = (
+    "Embedding", "SequenceLast", "SequenceMask", "SequenceReverse",
+    "SliceChannel", "_CrossDeviceCopy", "_arange", "_eye", "_full",
+    "_hypot_scalar", "_identity_with_attr_like_rhs",
+    "_linalg_extractdiag", "_linalg_extracttrian", "_linalg_gelqf",
+    "_linalg_gemm", "_linalg_gemm2", "_linalg_makediag",
+    "_linalg_potrf", "_linalg_potri", "_linalg_sumlogdiag",
+    "_linalg_syevd", "_linalg_syrk", "_linalg_trmm", "_linalg_trsm",
+    "_logical_and_scalar", "_logical_or_scalar", "_logical_xor_scalar",
+    "_ones", "_scatter_elemwise_div", "_scatter_set_nd", "_slice_assign",
+    "_slice_assign_scalar", "_sparse_retain", "_square_sum", "_zeros",
+    "add_n", "argmax_channel", "argsort", "batch_take", "broadcast_axis",
+    "broadcast_logical_and", "broadcast_logical_or",
+    "broadcast_logical_xor", "cast_storage", "cumsum", "depth_to_space",
+    "diag", "flip", "gamma", "gather_nd", "khatri_rao", "logical_not",
+    "nanprod", "nansum", "pad", "pick", "rcbrt", "repeat",
+    "reshape_like", "scatter_nd", "shuffle", "slice", "slice_axis",
+    "slice_like", "smooth_l1", "sort", "space_to_depth", "stack",
+    "tile", "topk", "where",
+    # jax.numpy / jax.scipy / jax.nn functions registered there
+    "arccos", "arccosh", "arcsin", "arcsinh", "arctan", "arctanh",
+    "broadcast_hypot", "cbrt", "cos", "cosh", "degrees", "expm1", "fix",
+    "log10", "log1p", "log2", "radians", "sin", "sinh", "tan", "erf",
+    "erfinv", "gammaln", "softsign")
+
+# the aliases the JAX package gives these names
+TENSOR_7B_ALIASES = (
+    "ElementWiseSum", "_sum", "Pad", "reverse", "split", "slice_channel",
+    "broadcast_axes", "sequence_mask", "sequence_last", "sequence_reverse",
+    "_shuffle", "_hypot", "_logical_and", "_logical_or", "_logical_xor",
+    "_contrib_SparseEmbedding")
 
 DEFERRED = {
-    "7b": (
-        "Embedding", "SequenceLast", "SequenceMask", "SequenceReverse",
-        "SliceChannel", "_CrossDeviceCopy", "_arange", "_eye", "_full",
-        "_hypot_scalar", "_identity_with_attr_like_rhs",
-        "_linalg_extractdiag", "_linalg_extracttrian", "_linalg_gelqf",
-        "_linalg_gemm", "_linalg_gemm2", "_linalg_makediag",
-        "_linalg_potrf", "_linalg_potri", "_linalg_sumlogdiag",
-        "_linalg_syevd", "_linalg_syrk", "_linalg_trmm", "_linalg_trsm",
-        "_logical_and_scalar", "_logical_or_scalar", "_logical_xor_scalar",
-        "_ones", "_scatter_elemwise_div", "_scatter_set_nd", "_slice_assign",
-        "_slice_assign_scalar", "_sparse_retain", "_square_sum", "_zeros",
-        "add_n", "argmax_channel", "argsort", "batch_take", "broadcast_axis",
-        "broadcast_logical_and", "broadcast_logical_or",
-        "broadcast_logical_xor", "cast_storage", "cumsum", "depth_to_space",
-        "diag", "flip", "gamma", "gather_nd", "khatri_rao", "logical_not",
-        "nanprod", "nansum", "pad", "pick", "rcbrt", "repeat",
-        "reshape_like", "scatter_nd", "shuffle", "slice", "slice_axis",
-        "slice_like", "smooth_l1", "sort", "space_to_depth", "stack",
-        "tile", "topk", "where",
-        # jax.numpy / jax.scipy / jax.nn functions registered there
-        "arccos", "arccosh", "arcsin", "arcsinh", "arctan", "arctanh",
-        "broadcast_hypot", "cbrt", "cos", "cosh", "degrees", "expm1", "fix",
-        "log10", "log1p", "log2", "radians", "sin", "sinh", "tan", "erf",
-        "erfinv", "gammaln", "softsign"),
     "7c": (
         "_random_exponential", "_random_gamma",
         "_random_generalized_negative_binomial", "_random_negative_binomial",
@@ -58,8 +67,7 @@ DEFERRED = {
            "_quantize_rows_int8"),
     "13": ("Custom",),
 }
-MODULES = {"7b": ("mxnet_tpu.ops.tensor",),
-           "7c": ("mxnet_tpu.ops.random_ops",),
+MODULES = {"7c": ("mxnet_tpu.ops.random_ops",),
            "7d": ("mxnet_tpu.ops.vision", "mxnet_tpu.ops.contrib"),
            "11": ("mxnet_tpu.ops.quantized",),
            "13": ("mxnet_tpu.ops.custom",)}
@@ -82,20 +90,39 @@ def test_every_jax_name_is_ported_or_deferred_by_item():
     assert port <= jax_names
     assert jax_names == port | set(deferred)
     assert len(port) == PORTED
-    assert len(jax_names) - len(port) == len(deferred) == 131
+    assert len(jax_names) - len(port) == len(deferred) == 36
 
 
 @pytest.mark.parametrize("item", sorted(DEFERRED))
 def test_each_deferred_name_comes_from_its_items_module(item):
+    for name in DEFERRED[item]:
+        mod = jreg._OPS[name].fn.__module__
+        assert mod in MODULES[item], (name, mod)
+
+
+def test_the_tensor_slice_is_registered_with_the_jax_aliases():
+    """Item 7b: the 95 names of ``mxnet_tpu/ops/tensor.py`` (some registered
+    there as ``jax.numpy``/``jax.scipy`` functions), their 16 aliases, and
+    ``nondiff``/``needs_rng`` equal to the JAX registry's; the flags of
+    every ported name too."""
     import mxnet_tpu.ops.tensor as jtensor
 
     tensor_src = inspect.getsource(jtensor)
-    for name in DEFERRED[item]:
+    assert len(TENSOR_7B) == len(set(TENSOR_7B)) == 95
+    for name in TENSOR_7B:
         mod = jreg._OPS[name].fn.__module__
-        if item == "7b" and mod.split(".")[0] == "jax":
+        if mod.split(".")[0] == "jax":
             assert '"%s"' % name in tensor_src, name
         else:
-            assert mod in MODULES[item], (name, mod)
+            assert mod == "mxnet_tpu.ops.tensor", (name, mod)
+        assert name in treg._OPS, name
+    want = {a for a, c in jreg._ALIASES.items() if c in TENSOR_7B}
+    assert want == set(TENSOR_7B_ALIASES)
+    for a in TENSOR_7B_ALIASES:
+        assert treg._ALIASES.get(a) == jreg._ALIASES[a], a
+    for name, op in treg._OPS.items():
+        assert op.nondiff == jreg._OPS[name].nondiff, name
+        assert op.needs_rng == jreg._OPS[name].needs_rng, name
 
 
 def test_the_nn_slice_is_registered_with_the_jax_aliases():

@@ -551,3 +551,171 @@ def batch_axis_label_of(name, label):
     if name in ("softmax_cross_entropy", "SVMOutput", "SoftmaxOutput-batch"):
         return label
     return label[:, None, None].expand(-1, 3, 4).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# item 7b's tensor ops over the batch axis under a data-parallel scope
+# (tests/test_torch_dp_batch_axis_tensor.py); same batch and labels
+# ---------------------------------------------------------------------------
+def tensor_batch_axis_cases():
+    """name -> fn(rows, label rows) for the tensor ops of item 7b; the
+    label rows are a class in [0, 4) a row."""
+    from mxnet_tpu_torch.ops import registry
+
+    def op(name, *extra, **attrs):
+        fn = registry.get(name).fn
+
+        def run(x, _label):
+            out = fn(x, *[e(x) if callable(e) else e for e in extra],
+                     **attrs)
+            return out[0] if isinstance(out, tuple) else out
+
+        return run
+
+    def gen_op(name):
+        fn = registry.get(name).fn
+
+        def run(x, _label):
+            g = torch.Generator()
+            g.manual_seed(0)
+            return fn(g, x)
+
+        return run
+
+    def lens(name, **attrs):
+        """A sequence op over (B, T=3, 4) rows or (T=8, B=3, 4) with the
+        lengths 1 + label."""
+        fn = registry.get(name).fn
+        batch = 1 if attrs.get("axis", 0) == 0 else 0
+        return lambda x, label: fn(x, label[:x.shape[batch]] + 1,
+                                   use_sequence_length=True, **attrs)
+
+    def mat(name, *extra, **attrs):
+        """A linear-algebra op on one 2-D matrix of the rows, (B, 4)."""
+        fn = registry.get(name).fn
+
+        def run(x, _label):
+            out = fn(x[:, 0, :], *extra, **attrs)
+            return out[0] if isinstance(out, tuple) else out
+
+        return run
+
+    weight = torch.from_numpy(np.random.RandomState(2).randn(4, 5)
+                              .astype(np.float32))
+    table = torch.from_numpy(np.random.RandomState(3).randn(5, 6)
+                             .astype(np.float32))
+    return {
+        "cumsum-axis0": op("cumsum", axis=0),
+        "cumsum-all": op("cumsum"),
+        "cumsum-axis1": op("cumsum", axis=1),
+        "nansum-axis0": op("nansum", axis=0),
+        "nansum-all": op("nansum"),
+        "nansum-axis1": op("nansum", axis=1),
+        "nanprod-axis0": op("nanprod", axis=0),
+        "nanprod-axis2": op("nanprod", axis=2),
+        "_square_sum-axis0": op("_square_sum", axis=0),
+        "_square_sum-all": op("_square_sum"),
+        "_square_sum-axis1": op("_square_sum", axis=1),
+        "sort-axis0": op("sort", axis=0),
+        "sort-axis1": op("sort", axis=1),
+        "argsort-axis0": op("argsort", axis=0),
+        "argsort-axis2": op("argsort", axis=2, is_ascend=False),
+        "topk-axis0": op("topk", axis=0, k=2),
+        "topk-axis1": op("topk", axis=1, k=2, ret_typ="value"),
+        "flip-axis0": op("flip", axis=0),
+        "flip-axis1": op("flip", axis=(1, 2)),
+        "SequenceReverse": op("SequenceReverse"),
+        "shuffle": gen_op("shuffle"),
+        "tile-axis0": op("tile", reps=(2, 1, 1)),
+        "tile-new-axis": op("tile", reps=(1, 1, 1, 2)),
+        "tile-axis1": op("tile", reps=(2, 1)),
+        "repeat-axis0": op("repeat", repeats=2, axis=0),
+        "repeat-axis2": op("repeat", repeats=3, axis=2),
+        "pad-axis0": op("pad", pad_width=(1, 0, 0, 0, 0, 0)),
+        "pad-axis2": op("pad", mode="edge", pad_width=(0, 0, 1, 2, 2, 1)),
+        "stack-axis0": lambda x, _l: registry.get("stack").fn(x, 2 * x,
+                                                              axis=0),
+        "stack-axis1": lambda x, _l: registry.get("stack").fn(x, 2 * x,
+                                                              axis=1),
+        "SliceChannel-axis0": op("SliceChannel", num_outputs=2, axis=0),
+        "SliceChannel-axis1": op("SliceChannel", num_outputs=3, axis=1),
+        "slice-axis0": op("slice", begin=(1,), end=(3,)),
+        "slice-axis1": op("slice", begin=(None, 1), end=(None, None),
+                          step=(None, -1)),
+        "slice_axis-axis0": op("slice_axis", axis=0, begin=1),
+        "slice_axis-axis2": op("slice_axis", axis=2, begin=1, end=3),
+        "slice_like-axis0": op("slice_like",
+                               lambda x: x[:2, :2], axes=(0,)),
+        "slice_like-axis1": op("slice_like", lambda x: x[:, :2, :2]),
+        "_slice_assign-axis0": op("_slice_assign", lambda x: x[:1],
+                                  begin=(0,), end=(1,)),
+        "_slice_assign-axis2": op("_slice_assign",
+                                  lambda x: 5 * x[:, :, :1],
+                                  begin=(None, None, 1), end=(None, None, 2)),
+        "_slice_assign_scalar-axis0": op("_slice_assign_scalar", scalar=2.0,
+                                         begin=(2,), end=(None,)),
+        "_slice_assign_scalar-axis1": op("_slice_assign_scalar", scalar=2.0,
+                                         begin=(None, 0), end=(None, 2)),
+        "gather_nd": op("gather_nd", torch.tensor([[0, 1], [2, 0]])),
+        "scatter_nd": lambda x, _l: registry.get("scatter_nd").fn(
+            x[:2], torch.tensor([[0, 1]]), shape=(4, 3, 4)),
+        "_scatter_set_nd": op("_scatter_set_nd", lambda x: x[:1],
+                              torch.tensor([[0]]), shape=(8, 3, 4)),
+        "reshape_like": op("reshape_like", lambda x: x.reshape(-1, 6, 2)),
+        "khatri_rao": lambda x, _l: registry.get("khatri_rao").fn(
+            x[:, 0, :], weight[:, :4]),
+        "diag-2d": mat("diag"),
+        "_linalg_gemm2-2d": mat("_linalg_gemm2", weight),
+        "_linalg_syrk-2d": mat("_linalg_syrk"),
+        "_linalg_extractdiag-2d": mat("_linalg_extractdiag"),
+        "diag-3d": op("diag", k=1),
+        "_linalg_gemm2-3d": op("_linalg_gemm2", lambda x: x,
+                               transpose_b=True),
+        "_linalg_syrk-3d": op("_linalg_syrk", transpose=True, alpha=0.5),
+        "SequenceMask-axis0": lens("SequenceMask", axis=0),
+        "SequenceMask-axis1": lens("SequenceMask", axis=1, value=-1.0),
+        "SequenceLast-axis0": lens("SequenceLast", axis=0),
+        "SequenceLast-axis1": lens("SequenceLast", axis=1),
+        "pick-axis0": lambda x, label: registry.get("pick").fn(
+            x[:, 0, :], label[:4], axis=0),
+        "pick-axis1": lambda x, label: registry.get("pick").fn(
+            x[:, 0, :], label, axis=1),
+        "batch_take": lambda x, label: registry.get("batch_take").fn(
+            x[:, 0, :], label),
+        "Embedding": lambda x, label: registry.get("Embedding").fn(
+            label, table),
+        "where": lambda x, label: registry.get("where").fn(
+            label - 1, x, -x),
+        "smooth_l1": op("smooth_l1", scalar=2.0),
+        "broadcast_hypot": lambda x, _l: registry.get("broadcast_hypot").fn(
+            x, x[:, :1] + 1),
+        "depth_to_space": lambda x, _l: registry.get("depth_to_space").fn(
+            x.reshape(-1, 4, 3, 1), block_size=2),
+        "add_n": lambda x, _l: registry.get("add_n").fn(x, 2 * x, x * x),
+        # C8's probe: dot's transpose_a contracts axis 0 (no guard yet)
+        "dot-transpose_a": lambda x, _l: registry.get("dot").fn(
+            x.reshape(x.shape[0], 12), x.reshape(x.shape[0], 12),
+            transpose_a=True),
+    }
+
+
+def tensor_batch_axis_worker(rank, world):
+    """Each 7b case on this rank's rows inside ``spmd_scope`` (its output,
+    or the error it raised) and on the whole batch outside it."""
+    from mxnet_tpu_torch.kernels.fused_block import spmd_scope
+    from mxnet_tpu_torch.parallel.feed import rank_rows
+
+    mesh = cpu_mesh()
+    x = torch.from_numpy(batch_axis_input())
+    label = torch.from_numpy(batch_axis_label())
+    rows = rank_rows(x, world, rank, "data", "test")
+    lrows = rank_rows(label, world, rank, "label", "test")
+    out = {}
+    for name, fn in tensor_batch_axis_cases().items():
+        with spmd_scope(mesh, ("dp",)):
+            try:
+                got = ("ok", fn(rows, lrows).detach().clone())
+            except Exception as e:  # the refusal under test
+                got = ("raised", "%s: %s" % (type(e).__name__, e))
+        out[name] = (got, fn(x, label).detach().clone())
+    return out
