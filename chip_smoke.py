@@ -130,7 +130,31 @@ the kernels are built for sm_90a) and ``nvcc``. It
    gradient, card vs CPU within 1e-4 of each tensor's largest magnitude,
    on tests/test_op_sweep.py's specs and on indices out of range or
    negative, ties and the hypot kink; B1-B7 launch 0 times in 17-19;
-20. prints one JSON line describing each kernel, then the result line
+20. trains SSD300 (VGG16-reduced, 20 VOC classes, 300x300, 8732 anchors:
+   models/ssd.py's ``get_symbol_train``) through ``Module.fit`` in fp32 at
+   batch 32 with example/ssd's SGD (lr 0.004, momentum 0.9, wd 5e-4) from
+   Xavier weights on one seeded synthetic batch (1-8 boxes an image, padded
+   with -1) repeated: a warm-up batch and 4 timed ones (the cls_prob
+   cross-entropy must fall), printing seconds a batch, images/s, peak
+   memory and a profiled batch's busy share and launches; holds the first
+   forward (cls_label equal, cls_prob and loc_loss within 1e-4) and the
+   gradients (within 3x the one-rounding yardstick) card vs CPU at batch 2;
+21. serves the trained detector (``get_symbol``: softmax and
+   MultiBoxDetection's NMS) through ``AOTPredictor`` on the ladder (1, 4,
+   16) for 5 requests of 26 images, printing requests/s, the NMS rounds
+   and the busy share, and holds one request of that predictor against
+   the CPU: the network's outputs within 1e-5, and the card's
+   MultiBoxDetection on them against the CPU's (classes and kept mask
+   equal, scores and boxes within 1e-5); then the whole graph the same way
+   on one request with the class heads reduced to separated biases;
+22. holds the 17 names of Queue A item 7d (contrib and vision ops) forward
+   and gradient card vs CPU on tests/test_op_sweep.py's specs, a
+   MultiBoxTarget whose forced matches collide and MultiBoxDetection over
+   8732 anchors, holds Proposal at its default size (6000 candidates, 300
+   kept) card vs CPU with its NMS rounds and time, and holds
+   the 14 random names of item 7c by their moments (20000 draws a row) and
+   bit for bit across two runs; B1-B7 launch 0 times in 20-22;
+23. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -3630,15 +3654,15 @@ def _sweep_run(torch, np, op, inputs, attrs, diff, device, seed=1234):
     tens = [torch.tensor(x, device=device,
                          requires_grad=diff is not None and i in diff)
             for i, x in enumerate(inputs)]
+    gen = ()
     if op.needs_rng:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(0)
-        outs = op.fn(gen, *tens, **attrs)
-    elif not tens:
+        gen = (torch.Generator(device=device),)
+        gen[0].manual_seed(0)
+    if not tens:
         with torch.device(device):
-            outs = op.fn(**attrs)
+            outs = op.fn(*gen, **attrs)
     else:
-        outs = op.fn(*tens, **attrs)
+        outs = op.fn(*gen, *tens, **attrs)
     outs = outs if isinstance(outs, tuple) else (outs,)
     grads = []
     heads = [o for o in outs if o.requires_grad]
@@ -3729,6 +3753,704 @@ def tensor_sweep_phase(torch, np, fa, fb):
     return launches
 
 
+# SSD300 (Liu et al. 2016, arXiv:1512.02325; example/ssd's VGG16-reduced
+# config of 77.8 VOC07 mAP): 20 VOC classes, 300x300 images, 8732 anchors,
+# the training and detection graphs of models/ssd.py at full width, fp32,
+# TF32 off. Training: Module.fit with SGD as example/ssd's train.py (lr
+# 0.004, momentum 0.9, wd 5e-4) at batch 32 from Xavier weights, on one
+# synthetic batch repeated (images from a seed, 1-8 boxes an image padded to
+# 8 rows with -1): a warm-up batch and 4 timed ones. Serving: the trained
+# weights in AOTPredictor on the ladder (1, 4, 16). cuDNN and cuBLAS carry
+# the path: B1-B7 launch 0 times.
+SSD_CLASSES = 20
+SSD_SHAPE = (3, 300, 300)
+SSD_ANCHORS = 8732
+SSD_BATCH = 32
+SSD_BATCHES = 5               # one warm-up, four timed
+SSD_BOXES = 8
+SSD_OPT = dict(learning_rate=0.004, momentum=0.9, wd=5e-4)
+SSD_CHECK_BATCH = 2           # card vs CPU
+SSD_TOL = 1e-4
+SSD_RATIO, SSD_NUDGES = 3.0, 3
+SSD_LADDER = (1, 4, 16)
+SSD_REQUESTS = (16, 4, 1, 3, 2)
+SSD_DET_TOL = 1e-5
+SSD_IOU_MARGIN = 1e-6
+
+
+def ssd_batch(np, n, seed=0, classes=None, shape=None, boxes=None):
+    """``n`` images (normal noise) and their labels (n, boxes, 5): 1 to
+    ``boxes`` boxes of random class, corners in [0, 1], the rest -1
+    (SSD_CLASSES, SSD_SHAPE and SSD_BOXES by default)."""
+    classes = classes or SSD_CLASSES
+    shape = shape or SSD_SHAPE
+    boxes = boxes or SSD_BOXES
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, *shape).astype(np.float32)
+    y = np.full((n, boxes, 5), -1.0, np.float32)
+    for i in range(n):
+        k = rng.randint(1, boxes + 1)
+        lo = rng.uniform(0.0, 0.7, (k, 2))
+        wh = rng.uniform(0.05, 0.3, (k, 2))
+        y[i, :k, 0] = rng.randint(0, classes, k)
+        y[i, :k, 1:3] = lo
+        y[i, :k, 3:5] = np.minimum(lo + wh, 1.0)
+    return x, y
+
+
+def ssd_ce(torch, cls_prob, cls_label):
+    """The mean cross-entropy of ``cls_prob`` (N, C+1, A) at the matched
+    classes ``cls_label`` (N, A), example/ssd's MultiBoxMetric's first
+    half, as a 0-d tensor."""
+    p = cls_prob.gather(1, cls_label.long()[:, None, :])
+    return -torch.log(p + 1e-12).mean()
+
+
+def _ssd_metric(torch, mx):
+    """A Module.fit metric keeping each batch's ``ssd_ce`` on the card (the
+    outputs are not copied to the host; read once a batch)."""
+    class SSDCrossEntropy(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("ssd_ce")
+            self.last = None
+
+        def update_dict(self, label, pred):
+            outs = list(pred.values())
+            self.last = ssd_ce(torch, outs[0].tensor, outs[2].tensor)
+
+    return SSDCrossEntropy()
+
+
+def _ssd_fit(torch, np, mx):
+    """``Module.fit`` of SSD300 on the card: per-batch times and losses, a
+    profiled batch, peak memory; returns the trained params and a row."""
+    from mxnet_tpu_torch.models import ssd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    sym = ssd.get_symbol_train(num_classes=SSD_CLASSES)
+    n = SSD_BATCH
+    x, y = ssd_batch(np, n)
+    it = mx.io.NDArrayIter({"data": np.concatenate([x] * SSD_BATCHES)},
+                           {"label": np.concatenate([y] * SSD_BATCHES)},
+                           batch_size=n)
+    mod = mx.mod.Module(sym, data_names=("data",), label_names=("label",),
+                        context=mx.gpu(0))
+    metric = _ssd_metric(torch, mx)
+    per, last = [], {}
+
+    def on_batch(_param):
+        loss = float(metric.last)
+        now = time.perf_counter()
+        per.append((now - last["t"], loss))
+        last["t"] = time.perf_counter()
+
+    mx.random.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last["t"] = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=SSD_OPT,
+            initializer=mx.init.Xavier(), eval_metric=metric,
+            batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    it.reset()
+    data_batch = next(iter(it))
+
+    def one_batch():
+        mod.forward_backward(data_batch)
+        mod.update()
+
+    prof = {}
+    _device_profile(torch, one_batch, top=6, stats=prof)
+    secs = sorted(p[0] for p in per[1:])
+    med = secs[len(secs) // 2]
+    outs = mod.get_outputs()
+    shapes = [tuple(o.shape) for o in outs]
+    labels = outs[2].asnumpy()
+    row = dict(batch=n, s_batch=med, images_s=n / med, first_s=per[0][0],
+               peak_gib=peak / 2 ** 30, busy_ms=prof.get("busy_ms"),
+               wall_ms=prof.get("wall_ms"), launches=prof.get("launches"),
+               losses=[p[1] for p in per])
+    print("ssd fit: SSD300 VGG16-reduced, %d classes, %d anchors, fp32, sgd "
+          "lr %g: batch %d, %.4f s a batch (median of %d, range %.4f-%.4f; "
+          "first with its set-up %.3f s), %.1f images/s, peak memory %.2f "
+          "GiB, a profiled batch busy %s of %s ms (%s), %s launches; "
+          "positive anchors %d of %d; cls_prob cross-entropy %s"
+          % (SSD_CLASSES, SSD_ANCHORS, SSD_OPT["learning_rate"], n, med,
+             len(secs), secs[0], secs[-1], per[0][0], n / med,
+             peak / 2 ** 30, "%.1f" % prof["busy_ms"] if prof else "n/a",
+             "%.1f" % prof["wall_ms"] if prof else "n/a",
+             "busy share %.3f" % (prof["busy_ms"] / prof["wall_ms"])
+             if prof else "busy share not measured",
+             prof.get("launches", "n/a"), int((labels > 0).sum()),
+             labels.size, " ".join("%.5f" % p[1] for p in per)))
+    if shapes != [(n, SSD_CLASSES + 1, SSD_ANCHORS), (n, SSD_ANCHORS * 4),
+                  (n, SSD_ANCHORS)] or len(per) != SSD_BATCHES or \
+            not all(math.isfinite(p[1]) for p in per) or \
+            not per[-1][1] < per[0][1]:
+        raise RuntimeError("ssd fit: shapes %s, the loss did not fall: %s"
+                           % (shapes, row["losses"]))
+    arg, _aux = mod.get_params()
+    trained = {k: v.asnumpy() for k, v in arg.items()}
+    del mod
+    return trained, row
+
+
+def _ssd_vs_cpu(torch, np, mx):
+    """The first forward's three outputs and the gradients of one
+    forward_backward at batch SSD_CHECK_BATCH, card vs CPU: cls_label
+    equal, cls_prob and loc_loss within SSD_TOL of their largest, the
+    gradients against the card's one-rounding yardstick (as the zoo's)."""
+    from mxnet_tpu_torch.models import ssd
+
+    n = SSD_CHECK_BATCH
+    sym = ssd.get_symbol_train(num_classes=SSD_CLASSES)
+    x, y = ssd_batch(np, n, seed=1)
+    shapes = dict(data=(n,) + SSD_SHAPE, label=(n, SSD_BOXES, 5))
+    params = _zoo_params(np, mx, sym, shapes)
+
+    def run(ctx, nudge=None):
+        rng = None if nudge is None else np.random.RandomState(nudge)
+        ex = sym.simple_bind(ctx, **shapes)
+        for name, arr in ex.arg_dict.items():
+            v = {"data": x, "label": y}.get(name)
+            v = params[name] if v is None else v
+            if rng is not None and name != "label":
+                v = _zoo_nudged(np, v, rng)
+            arr[:] = v
+        ex.forward_backward()
+        return ([o.asnumpy() for o in ex.outputs],
+                {k: g.asnumpy() for k, g in ex.grad_dict.items()
+                 if k not in shapes})
+
+    cpu_out, cpu = run(mx.cpu())
+    card_out, card = run(mx.gpu(0))
+    nudged = [run(mx.gpu(0), 400 + i)[1] for i in range(SSD_NUDGES)]
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    def whole(a, b):
+        return float(np.sqrt(sum(float(((a[k] - b[k]) ** 2).sum())
+                                 for k in b)
+                             / sum(float((v ** 2).sum())
+                                   for v in b.values())))
+
+    out_err = [float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+               for a, b in zip(card_out[:2], cpu_out[:2])]
+    labels_equal = np.array_equal(card_out[2], cpu_out[2])
+    gap, yard = whole(card, cpu), max(whole(g, card) for g in nudged)
+    worst = max((rel(card[k], g), k) for k, g in cpu.items())
+    tyard = max(rel(g[k], card[k]) for g in nudged for k in card)
+    print("ssd card vs cpu: batch %d, %d gradients: cls_label %s (%d "
+          "positive anchors), cls_prob %.3g and loc_loss %.3g of their "
+          "largest (tol %g); whole gradient relative L2 %.4g against %.4g "
+          "under %d one-rounding moves (ratio %.2f, limit %g); worst tensor "
+          "%.4g at %s against %.4g (ratio %.2f)"
+          % (n, len(cpu), "equal" if labels_equal else "DIFFERENT",
+             int((cpu_out[2] > 0).sum()), out_err[0], out_err[1], SSD_TOL,
+             gap, yard, SSD_NUDGES, gap / max(yard, 1e-30), SSD_RATIO,
+             worst[0], worst[1], tyard, worst[0] / max(tyard, 1e-30)))
+    if not labels_equal or max(out_err) > SSD_TOL or \
+            gap > max(SSD_RATIO * yard, SSD_TOL) or \
+            worst[0] > max(SSD_RATIO * tyard, SSD_TOL):
+        raise RuntimeError("ssd: card vs cpu out of bounds")
+
+
+def ssd_fit_phase(torch, np, fa, fb):
+    """SSD300 through ``Module.fit`` on the card and its card-vs-CPU
+    check; returns the trained params, the fit's row and the launches of
+    B5, B6, B7, B1, B2 and B3 meanwhile (0)."""
+    import mxnet_tpu_torch as mx
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("ssd: TF32 must be off for fp32")
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    trained, row = _ssd_fit(torch, np, mx)
+    launches = _counts(fa) + _fb_counts(fb)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _ssd_vs_cpu(torch, np, mx)
+    if any(launches):
+        raise RuntimeError("ssd fit: hand-written kernels launched %s"
+                           % (launches,))
+    return trained, row, launches
+
+
+def _iou_margin(np, det, nms):
+    """The smallest |IoU - nms| over pairs of boxes of one class (the
+    margin by which a suppression could flip)."""
+    b = det[:, 2:6]
+    x1, y1, x2, y2 = (b[:, k] for k in range(4))
+    area = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+    iw = np.maximum(np.minimum(x2[:, None], x2) - np.maximum(x1[:, None], x1),
+                    0)
+    ih = np.maximum(np.minimum(y2[:, None], y2) - np.maximum(y1[:, None], y1),
+                    0)
+    inter = iw * ih
+    union = area[:, None] + area - inter
+    iou = np.where(union > 0, inter / np.maximum(union, 1e-30), 0.0)
+    same = det[:, None, 0] == det[None, :, 0]
+    return float(np.abs(iou - nms)[same].min())
+
+
+# the detection graph's outputs served by the timed predictor and read
+# for the card-vs-CPU check
+SSD_INTERNALS = ("detection", "cls_prob", "multibox_loc_pred",
+                 "multibox_anchors")
+
+
+def _separated_heads(np, params, classes):
+    """``params`` with every class head (``cls_pred<i>``) reduced to its
+    bias: the weights 0, and group g (one anchor slot of one feature map)
+    scoring class g % classes + 1 at the logit 1 + 0.15 g. The anchors of
+    a group tie exactly on each device (a stable sort keeps them in index
+    order) and the groups' scores lie about 0.01 apart, so the ranking is
+    one on both devices; the boxes and the NMS still come from the trained
+    network."""
+    import re
+
+    heads = sorted((int(m.group(1)), k) for k in params
+                   for m in [re.search(r"cls_pred(\d+)_weight$", k)] if m)
+    out = dict(params)
+    g = 0
+    for _i, w in heads:
+        b = w[:-len("weight")] + "bias"
+        out[w] = np.zeros_like(params[w])
+        bias = np.zeros((np.size(params[b]) // (classes + 1), classes + 1),
+                        np.float32)
+        for slot in range(len(bias)):
+            bias[slot, g % classes + 1] = 1.0 + 0.15 * g
+            g += 1
+        out[b] = bias.reshape(np.shape(params[b]))
+    return out
+
+
+def _det_diff(np, card, cpu):
+    """(classes and kept mask equal, largest score or box gap) of two
+    (1, A, 6) detections."""
+    return (np.array_equal(card[..., 0], cpu[..., 0]),
+            float(np.abs(card[..., 1:] - cpu[..., 1:]).max()))
+
+
+def ssd_detect_phase(torch, np, fa, fb, trained):
+    """The trained SSD300's detections through ``AOTPredictor`` on the
+    card, timed, serving the detections beside the network's outputs
+    (SSD_INTERNALS). One request of the timed predictor is held against
+    the CPU in two halves: the network's outputs (cls_prob, loc_pred within
+    SSD_DET_TOL of their largest, the anchors equal), and the card's
+    MultiBoxDetection against the CPU's on the card's network outputs
+    (classes and kept mask equal, scores and boxes within SSD_DET_TOL).
+    After 4 steps the classes' probabilities are nearly uniform, so the
+    two devices' roundings reorder nearly tied scores: that graph's
+    ranking is not comparable between them. So the whole graph is held
+    card vs CPU on one request too with the class heads reduced to
+    separated biases (``_separated_heads``): the same classes and kept
+    mask, scores and boxes within SSD_DET_TOL. Returns a row and the
+    launches of B5-B7, B1-B3 (0)."""
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.ops import contrib, registry
+    from mxnet_tpu_torch.serving import AOTPredictor
+
+    sym = ssd.get_symbol(num_classes=SSD_CLASSES)
+    names = set(sym.list_arguments())
+    params = {k: v for k, v in trained.items() if k in names}
+    x, _y = ssd_batch(np, sum(SSD_REQUESTS), seed=2)
+    shapes = {"data": (1,) + SSD_SHAPE}
+    served = AOTPredictor(sym, params, data_shapes=shapes, ladder=SSD_LADDER,
+                          device=CARD, output_names=SSD_INTERNALS)
+    starts = np.cumsum((0,) + SSD_REQUESTS)
+
+    def serve():
+        return np.concatenate([served.predict({"data": x[a:b]})[0]
+                               for a, b in zip(starts[:-1], starts[1:])])
+
+    serve()                                  # warm-up
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    contrib.nms_rounds[0] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dets = serve()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rounds = contrib.nms_rounds[0]
+    launches = _counts(fa) + _fb_counts(fb)
+    prof = {}
+    _device_profile(torch, serve, top=4, stats=prof)
+    card_det, prob, loc, anc = served.predict({"data": x[:1]})
+    cpu = AOTPredictor(sym, params, data_shapes=shapes, ladder=(1,),
+                       device="cpu", output_names=SSD_INTERNALS) \
+        .predict({"data": x[:1]})
+    net_err = [float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+               for a, b in zip((prob, loc), cpu[1:3])]
+    anchors_equal = np.array_equal(anc, cpu[3])
+    det_node = sym._entries[0][0]
+    cpu_det = registry.get(det_node.op.name).fn(
+        *(torch.from_numpy(v) for v in (prob, loc, anc)),
+        **det_node.attrs).numpy()
+    same, det_err = _det_diff(np, card_det, cpu_det)
+    sep = _separated_heads(np, params, SSD_CLASSES)
+    whole = [AOTPredictor(sym, sep, data_shapes=shapes, ladder=(1,),
+                          device=dev).predict({"data": x[:1]})[0]
+             for dev in (CARD, "cpu")]
+    whole_same, whole_err = _det_diff(np, *whole)
+    kept = card_det[0, :, 0] >= 0
+    whole_kept = whole[0][0, :, 0] >= 0
+    n = len(x)
+    print("ssd detect: %d images in requests of %s on the ladder %s: %.4f s, "
+          "%.1f requests/s, %.1f images/s; NMS rounds %d (%.1f an image); a "
+          "profiled pass busy %s of %s ms (%s), %s launches; one request of "
+          "the timed predictor card vs cpu: cls_prob %.3g and loc_pred %.3g "
+          "of their largest, anchors %s; MultiBoxDetection on the card's "
+          "outputs: %d of %d boxes kept, classes and kept mask %s, scores "
+          "and boxes within %.3g; the whole graph with separated class "
+          "heads: %d kept, classes and kept mask %s, scores and boxes within "
+          "%.3g (tol %g)"
+          % (n, "/".join(str(r) for r in SSD_REQUESTS), SSD_LADDER, secs,
+             len(SSD_REQUESTS) / secs, n / secs, rounds, rounds / n,
+             "%.1f" % prof["busy_ms"] if prof else "n/a",
+             "%.1f" % prof["wall_ms"] if prof else "n/a",
+             "busy share %.3f" % (prof["busy_ms"] / prof["wall_ms"])
+             if prof else "busy share not measured",
+             prof.get("launches", "n/a"), net_err[0], net_err[1],
+             "equal" if anchors_equal else "DIFFERENT", int(kept.sum()),
+             len(kept), "equal" if same else "DIFFERENT", det_err,
+             int(whole_kept.sum()), "equal" if whole_same else "DIFFERENT",
+             whole_err, SSD_DET_TOL))
+    for flag, card_d, cpu_d, what in (
+            (same, card_det, cpu_det, "MultiBoxDetection"),
+            (whole_same, whole[0], whole[1], "whole graph")):
+        if not flag:
+            both = (card_d[0, :, 0] >= 0) | (cpu_d[0, :, 0] >= 0)
+            print("ssd detect (%s): smallest |IoU - nms_threshold| among the "
+                  "kept boxes of one class %.3g (a flip within %g is a tie)"
+                  % (what, _iou_margin(np, cpu_d[0][both], 0.5),
+                     SSD_IOU_MARGIN))
+    if dets.shape != (n, SSD_ANCHORS, 6) or not np.isfinite(dets).all() or \
+            not same or det_err > SSD_DET_TOL or \
+            max(net_err) > SSD_DET_TOL or not anchors_equal or \
+            not whole_same or whole_err > SSD_DET_TOL or \
+            not 0 < whole_kept.sum() < SSD_ANCHORS:
+        raise RuntimeError("ssd detect: the card's detections differ from "
+                           "the CPU's")
+    if any(launches):
+        raise RuntimeError("ssd detect: hand-written kernels launched %s"
+                           % (launches,))
+    return dict(requests_s=len(SSD_REQUESTS) / secs, images_s=n / secs,
+                nms_rounds=rounds, busy_ms=prof.get("busy_ms"),
+                wall_ms=prof.get("wall_ms"),
+                launches=prof.get("launches")), launches
+
+
+# the op sweep of items 7c and 7d on the card: tests/test_op_sweep.py's
+# spec of each of the 31 names (its input builders, copied; held equal by
+# tests/test_torch_contrib_ops.py), the 17 of 7d forward and gradient card
+# vs CPU (floats within SWEEP_TOL of each tensor's largest magnitude,
+# integers and masks equal), plus a full-size MultiBoxDetection, the
+# MultiBoxTarget collision and Proposal at its default size; the 14 random names by moments at a fixed seed
+# (RANDOM_SIGMAS standard errors of the mean, RANDOM_STD_TOL of the
+# standard deviation) and bit for bit across two runs
+RANDOM_DRAWS = 20000
+RANDOM_SIGMAS = 6.0
+RANDOM_STD_TOL = 0.05
+
+
+def contrib_sweep_specs(np):
+    """name -> (inputs, attrs, indices of the inputs to differentiate or
+    None): tests/test_op_sweep.py's specs of the 31 names of items 7c and
+    7d."""
+    def U(shape, lo=0.5, hi=1.5, seed=0):
+        return _sweep_u(np, shape, lo, hi, seed)
+
+    def N(shape, seed=0, scale=1.0):
+        return _sweep_n(np, shape, seed, scale)
+
+    def f32(a):
+        return np.array(a, np.float32)
+
+    anch = f32([[[0.1, 0.1, 0.4, 0.4], [0.5, 0.5, 0.9, 0.9]]])
+    rpn = {"feature_stride": 4, "scales": (8,), "ratios": (1.0,),
+           "rpn_pre_nms_top_n": 4, "rpn_post_nms_top_n": 2,
+           "rpn_min_size": 1}
+    s = {
+        "ROIPooling": ([U((1, 2, 8, 8), seed=86), f32([[0, 1, 1, 6, 6]])],
+                       {"pooled_size": (2, 2), "spatial_scale": 1.0}, (0,)),
+        "_contrib_PSROIPooling": (
+            [U((1, 8, 6, 6), seed=87), f32([[0, 0, 0, 5, 5]])],
+            {"spatial_scale": 1.0, "output_dim": 2, "pooled_size": 2},
+            (0,)),
+        "_contrib_DeformablePSROIPooling": (
+            [U((1, 8, 6, 6), seed=88), f32([[0, 0, 0, 5, 5]]),
+             N((1, 4, 2, 2), seed=89, scale=0.05)],
+            {"spatial_scale": 1.0, "output_dim": 2, "pooled_size": 2,
+             "group_size": 2, "trans_std": 0.1, "no_trans": False}, (0,)),
+        "_contrib_DeformableConvolution": (
+            [U((1, 2, 5, 5), seed=90), N((1, 18, 5, 5), seed=91, scale=0.05),
+             N((3, 2, 3, 3), seed=92, scale=0.3), N((3,), seed=93)],
+            {"kernel": (3, 3), "num_filter": 3, "pad": (1, 1)}, (0, 2, 3)),
+        "_contrib_ctc_loss": ([N((4, 2, 5), seed=102), f32([[1, 2], [3, 0]])],
+                              {}, (0,)),
+        "_contrib_fft": ([N((2, 8), seed=121)], {}, None),
+        "_contrib_ifft": ([N((2, 16), seed=122)], {}, None),
+        "_contrib_count_sketch": (
+            [N((2, 8), seed=123), _sweep_ints(np, (8,), 4).astype(np.float32),
+             (2 * _sweep_ints(np, (8,), 2, seed=9) - 1).astype(np.float32)],
+            {"out_dim": 4}, None),
+        "_contrib_quantize": ([U((2, 3), lo=-1, hi=1), f32([-1.0]),
+                               f32([1.0])], {}, None),
+        "_contrib_dequantize": (
+            [(_sweep_ints(np, (2, 3), 255) - 127).astype(np.uint8),
+             f32([-1.0]), f32([1.0])], {"out_type": "float32"}, None),
+        "_contrib_quantize_2bit": ([N((8,), seed=124), np.zeros(8,
+                                                                np.float32)],
+                                   {"threshold": 0.5}, None),
+        "_contrib_dequantize_2bit": ([np.zeros(4, np.float32)],
+                                     {"threshold": 0.5}, None),
+        "_contrib_MultiBoxPrior": ([U((1, 3, 4, 4))],
+                                   {"sizes": (0.5,), "ratios": (1.0,)}, None),
+        "_contrib_MultiBoxTarget": (
+            [anch, f32([[[0, 0.1, 0.1, 0.4, 0.4]]]), U((1, 2, 2), seed=125)],
+            {}, None),
+        "_contrib_MultiBoxDetection": (
+            [U((1, 2, 2), seed=126), N((1, 8), seed=127, scale=0.1), anch],
+            {}, None),
+        "_contrib_Proposal": (
+            [U((1, 2, 4, 4), seed=128), N((1, 4, 4, 4), seed=129, scale=0.1),
+             f32([[16, 16, 1]])], rpn, None),
+        "_contrib_MultiProposal": (
+            [U((1, 2, 4, 4), seed=128), N((1, 4, 4, 4), seed=129, scale=0.1),
+             f32([[16, 16, 1]])], rpn, None),
+    }
+    for name in ("_random_uniform", "_random_normal", "_random_exponential",
+                 "_random_gamma", "_random_poisson",
+                 "_random_negative_binomial",
+                 "_random_generalized_negative_binomial"):
+        s[name] = ([], {"shape": (3, 4)}, None)
+    s["_random_randint"] = ([], {"low": 0, "high": 5, "shape": (3, 4)}, None)
+    s["_sample_uniform"] = ([U((3,), lo=0.0, hi=0.3), U((3,), lo=0.5, hi=1.0)],
+                            {"shape": (4,)}, None)
+    s["_sample_normal"] = ([N((3,), seed=132), U((3,), seed=133)],
+                           {"shape": (4,)}, None)
+    s["_sample_gamma"] = ([U((3,), seed=134), U((3,), seed=135)],
+                          {"shape": (4,)}, None)
+    s["_sample_exponential"] = ([U((3,), seed=136)], {"shape": (4,)}, None)
+    s["_sample_poisson"] = ([U((3,), seed=137)], {"shape": (4,)}, None)
+    s["_sample_multinomial"] = ([U((2, 4), lo=0.1, hi=1.0)], {"shape": (3,)},
+                                None)
+    return s
+
+
+def random_moment_cases(np):
+    """name -> (inputs, attrs, the mean and standard deviation of each
+    parameter row): RANDOM_DRAWS draws a row."""
+    n = (RANDOM_DRAWS,)
+
+    def f32(a):
+        return np.array(a, np.float32)
+
+    return {
+        "_random_uniform": ([], dict(low=-2.0, high=4.0, shape=n),
+                            [1.0], [3.0 ** 0.5]),
+        "_random_normal": ([], dict(loc=3.0, scale=2.0, shape=n), [3.0],
+                           [2.0]),
+        "_random_gamma": ([], dict(alpha=3.0, beta=2.0, shape=n), [6.0],
+                          [2.0 * 3.0 ** 0.5]),
+        "_random_exponential": ([], dict(lam=2.0, shape=n), [0.5], [0.5]),
+        "_random_poisson": ([], dict(lam=4.0, shape=n), [4.0], [2.0]),
+        # k (1 - p) / p and k (1 - p) / p**2
+        "_random_negative_binomial": ([], dict(k=3, p=0.4, shape=n), [4.5],
+                                      [11.25 ** 0.5]),
+        # mu and mu + alpha mu**2
+        "_random_generalized_negative_binomial": (
+            [], dict(mu=2.0, alpha=0.5, shape=n), [2.0], [2.0]),
+        "_random_randint": ([], dict(low=0, high=5, shape=n), [2.0],
+                            [2.0 ** 0.5]),
+        "_sample_uniform": ([f32([0.0, 10.0]), f32([1.0, 20.0])],
+                            dict(shape=n), [0.5, 15.0],
+                            [12.0 ** -0.5, 10.0 * 12.0 ** -0.5]),
+        "_sample_normal": ([f32([0.0, 10.0]), f32([1.0, 0.1])],
+                           dict(shape=n), [0.0, 10.0], [1.0, 0.1]),
+        "_sample_gamma": ([f32([1.0, 4.0]), f32([1.0, 0.5])], dict(shape=n),
+                          [1.0, 2.0], [1.0, 1.0]),
+        "_sample_exponential": ([f32([1.0, 4.0])], dict(shape=n),
+                                [1.0, 0.25], [1.0, 0.25]),
+        "_sample_poisson": ([f32([1.0, 6.0])], dict(shape=n), [1.0, 6.0],
+                            [1.0, 6.0 ** 0.5]),
+        # draws of the classes 0, 1, 2 at 0.1, 0, 0.9
+        "_sample_multinomial": ([f32([[0.1, 0.0, 0.9]])], dict(shape=n),
+                                [1.8], [0.6]),
+    }
+
+
+def moment_errors(np, draws, mean, std):
+    """For each row of ``draws`` (the parameter rows, draws last): its
+    mean's distance in standard errors and its standard deviation's
+    relative distance."""
+    rows = np.asarray(draws, np.float64).reshape(len(mean), -1)
+    m = rows.mean(axis=1)
+    s = rows.std(axis=1)
+    n = rows.shape[1]
+    return ([float(abs(a - b) / (c / n ** 0.5)) for a, b, c in
+             zip(m, mean, std)],
+            [float(abs(a - c) / c) for a, c in zip(s, std)])
+
+
+def contrib_edge_cases(np):
+    """(case id, name, inputs, attrs, diff): the MultiBoxTarget collision
+    (two boxes with one best anchor, padded rows after a box whose best
+    anchor is anchor 0) and MultiBoxDetection over SSD300's 8732 anchors."""
+    from mxnet_tpu_torch.models.ssd import _RATIOS, _SIZES
+    from mxnet_tpu_torch.ops import registry
+
+    import torch
+
+    prior = registry.get("_contrib_MultiBoxPrior").fn
+    anc = torch.cat([prior(torch.empty(1, 1, f, f), sizes=s, ratios=r,
+                           clip=True)
+                     for f, s, r in zip((38, 19, 10, 5, 3, 1), _SIZES,
+                                        _RATIOS)], 1).numpy()
+    rng = np.random.RandomState(11)
+    logits = rng.randn(2, SSD_CLASSES + 1, SSD_ANCHORS) * 2
+    prob = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (prob / prob.sum(1, keepdims=True)).astype(np.float32)
+    loc = (rng.randn(2, SSD_ANCHORS * 4) * 0.2).astype(np.float32)
+    return [
+        ("MultiBoxTarget-collision", "_contrib_MultiBoxTarget",
+         list(multibox_collision_case(np)), {}, None),
+        ("MultiBoxDetection-8732", "_contrib_MultiBoxDetection",
+         [prob, loc, anc], {}, None),
+        ("MultiBoxDetection-8732-force", "_contrib_MultiBoxDetection",
+         [prob, loc, anc], {"force_suppress": True}, None),
+    ]
+
+
+def multibox_collision_case(np):
+    """(anchor, label, cls_pred): in image 0 a box whose best anchor is
+    anchor 0 (IoU 1/3, under the 0.5 threshold) followed by padded rows
+    (whose best anchor is anchor 0 too: the last write wins, so the box
+    loses its forced match), and two boxes whose best anchor is anchor 3
+    (the later one keeps it); in image 1 the box after the pads."""
+    anc = np.array([[[0.0, 0.0, 0.2, 0.2], [0.3, 0.3, 0.5, 0.5],
+                     [0.6, 0.6, 0.8, 0.8], [0.1, 0.5, 0.4, 0.9]]],
+                   np.float32)
+    pad = [-1.0] * 5
+    lab = np.array([
+        [[1, 0.0, 0.0, 0.2 * 3 ** 0.5, 0.2 * 3 ** 0.5],
+         [0, 0.1, 0.55, 0.4, 0.9], [2, 0.12, 0.5, 0.41, 0.88], pad, pad],
+        [pad, pad, [0, 0.6, 0.62, 0.8, 0.8], pad,
+         [1, 0.0, 0.0, 0.2 * 3 ** 0.5, 0.2 * 3 ** 0.5]]], np.float32)
+    return anc, lab, np.zeros((2, 3, 4), np.float32)
+
+
+def contrib_sweep_phase(torch, np, fa, fb):
+    """Every name of items 7c and 7d on the card: 7d's forward and gradient
+    against the CPU's, 7c's by moments and reruns; returns the launches
+    of B5-B7, B1-B3 meanwhile (0)."""
+    from mxnet_tpu_torch.ops import contrib, registry
+
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    specs = contrib_sweep_specs(np)
+    edges = contrib_edge_cases(np)
+    cases = [(name, name, *spec) for name, spec in sorted(specs.items())
+             if not registry.get(name).needs_rng] + edges
+    worst, held, grads = [], set(), 0
+    contrib.nms_rounds[0] = 0
+    for cid, name, inputs, attrs, diff in cases:
+        op = registry.get(name)
+        if diff is None and not op.nondiff:
+            diff = tuple(i for i, x in enumerate(inputs)
+                         if x.dtype == np.float32)
+        if op.nondiff:
+            diff = None
+        cpu = _sweep_run(torch, np, op, inputs, attrs, diff, "cpu")
+        card = _sweep_run(torch, np, op, inputs, attrs, diff, CARD)
+        errs = [_sweep_err(np, a, b) if a.dtype.kind == "f" else
+                (0.0 if np.array_equal(a, b) else float("inf"))
+                for a, b in zip(card[0], cpu[0])]
+        if name == "_contrib_MultiBoxDetection":
+            # classes and the kept mask equal; scores and boxes as floats
+            a, b = card[0][0], cpu[0][0]
+            errs[0] = _sweep_err(np, a[..., 1:], b[..., 1:])
+            if not np.array_equal(a[..., 0], b[..., 0]):
+                errs.append(float("inf"))
+        if name == "_contrib_MultiBoxTarget":
+            errs[2] = 0.0 if np.array_equal(card[0][2], cpu[0][2]) \
+                else float("inf")
+            errs[1] = 0.0 if np.array_equal(card[0][1], cpu[0][1]) \
+                else float("inf")
+        errs += [_sweep_err(np, a, b) for a, b in zip(card[1], cpu[1])]
+        grads += len(card[1])
+        if len(card[0]) != len(cpu[0]) or len(card[1]) != len(cpu[1]):
+            errs.append(float("inf"))
+        worst.append((max(errs), cid))
+        held.add(name)
+    proposal_rounds = contrib.nms_rounds[0]
+    # Proposal at its default size (6000 candidates, 300 kept), card vs cpu
+    rpn = registry.get("_contrib_Proposal")
+    rng = np.random.RandomState(3)
+    big_np = [rng.uniform(0, 1, (1, 24, 38, 50)).astype(np.float32),
+              (rng.randn(1, 48, 38, 50) * 0.1).astype(np.float32),
+              np.array([[600.0, 800.0, 1.0]], np.float32)]
+    big = [torch.tensor(v, device=CARD) for v in big_np]
+    rpn.fn(*big)
+    contrib.nms_rounds[0] = 0
+    big_card = rpn.fn(*big).cpu().numpy()
+    big_rounds = contrib.nms_rounds[0]
+    big_cpu = rpn.fn(*(torch.from_numpy(v) for v in big_np)).numpy()
+    worst.append((_sweep_err(np, big_card, big_cpu), "Proposal-default"))
+    prof = {}
+    _device_profile(torch, lambda: rpn.fn(*big), top=2, stats=prof)
+    rnd_worst = []
+    for name, (inputs, attrs, mean, std) in \
+            sorted(random_moment_cases(np).items()):
+        op = registry.get(name)
+        runs = [_sweep_run(torch, np, op, inputs, attrs, None, CARD)[0][0]
+                for _ in range(2)]
+        dm, ds = moment_errors(np, runs[0], mean, std)
+        rerun = np.array_equal(runs[0], runs[1])
+        spec = specs[name]
+        small = _sweep_run(torch, np, op, spec[0], spec[1], None, CARD)[0][0]
+        cpu_small = _sweep_run(torch, np, op, spec[0], spec[1], None,
+                               "cpu")[0][0]
+        ok = rerun and max(dm) <= RANDOM_SIGMAS and \
+            max(ds) <= RANDOM_STD_TOL and small.shape == cpu_small.shape \
+            and small.dtype == cpu_small.dtype
+        rnd_worst.append((max(dm), max(ds), name, ok))
+        held.add(name)
+    worst.sort(reverse=True)
+    rnd_worst.sort(reverse=True)
+    launches = _counts(fa) + _fb_counts(fb)
+    print("contrib sweep: %d of the 31 names of items 7c and 7d; 7d card vs "
+          "cpu, %d gradients, %d edge cases: worst %.3g at %s (tol %g); next "
+          "%s; NMS %d rounds in the sweep; Proposal at its default (6000 "
+          "candidates, 300 kept, 38x50x12 anchors): %d NMS rounds, %s "
+          "launches in %s ms; 7c by moments of %d draws a row: worst mean "
+          "%.2f standard errors (limit %g) at %s, worst std %.4f relative "
+          "(limit %g), "
+          "reruns bit for bit %s"
+          % (len(held), grads, len(edges), worst[0][0],
+             worst[0][1], SWEEP_TOL,
+             ", ".join("%.2g %s" % w for w in worst[1:5]), proposal_rounds,
+             big_rounds, prof.get("launches", "n/a"),
+             "%.1f" % prof["wall_ms"] if prof else "n/a", RANDOM_DRAWS,
+             rnd_worst[0][0], RANDOM_SIGMAS, rnd_worst[0][2],
+             max(r[1] for r in rnd_worst), RANDOM_STD_TOL,
+             "all" if all(r[3] for r in rnd_worst) else "NOT all"))
+    bad = [w for w in worst if not w[0] <= SWEEP_TOL]
+    bad += [r for r in rnd_worst if not r[3]]
+    if len(held) != 31 or bad:
+        raise RuntimeError("contrib sweep: out of bounds: %s" % bad[:5])
+    if any(launches):
+        raise RuntimeError("contrib sweep: hand-written kernels launched %s"
+                           % (launches,))
+    return launches
+
+
 def main():
     import torch
 
@@ -3805,20 +4527,33 @@ def main():
     lm = tuple(a + b + s for a, b, s in zip(lm_fit, lm_serve, lm_sweep))
     for entry, n in zip([fwd, *bwd, conv, *grads], lm):
         entry["lm_launches"] = n
+    trained, _ssd_row, ssd_fit = phase("ssd_fit", ssd_fit_phase, torch, np,
+                                       fa, fb)
+    _ssd_served, ssd_detect = phase("ssd_detect", ssd_detect_phase, torch,
+                                    np, fa, fb, trained)
+    del trained
+    ssd_sweep = phase("contrib_sweep", contrib_sweep_phase, torch, np, fa,
+                      fb)
+    ssd_path = tuple(a + b + s for a, b, s in zip(ssd_fit, ssd_detect,
+                                                  ssd_sweep))
+    for entry, n in zip([fwd, *bwd, conv, *grads], ssd_path):
+        entry["ssd_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; image serving B1 %d; ResNet-50 "
           "training %d steps B1 %d, B2 %d, B3 %d; TrainStep options %d "
           "steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 %d, B2 %d, "
           "B3 %d; data parallel, one rank over NCCL, %d steps B1 %d, B2 %d, "
           "B3 %d, each of %d gloo ranks %s; model zoo B5-B7 and B1-B3 %s; "
-          "LM path (fit, serving, op sweep) B5-B7 and B1-B3 %s"
+          "LM path (fit, serving, op sweep) B5-B7 and B1-B3 %s; SSD path "
+          "(fit, detection, contrib sweep) B5-B7 and B1-B3 %s"
           % (TRAIN_STEPS, *launches, served, conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
              OPTIONS_STEPS * (len(REMAT_MODES) + 1), *options_launches,
              FIT_EPOCHS * FIT_COPIES, *fit_launches, DP_STEPS, *dp_nccl,
              DP_RANKS, " / ".join("%d, %d, %d" % r for r in dp_gloo),
              ", ".join("%d" % n for n in zoo),
-             ", ".join("%d" % n for n in lm)))
+             ", ".join("%d" % n for n in lm),
+             ", ".join("%d" % n for n in ssd_path)))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

@@ -25,11 +25,16 @@ Ported so far, six paths over the six hand-written CUDA kernels
 - data-parallel training, one process a device over
   ``torch.distributed``: ``parallel.TrainStep(mesh=parallel.make_mesh(...))``
   (ZeRO with ``zero=True``) and ``Module(kvstore='tpu')`` (``kv``), on B1–B3
-  through the fused unit's data-parallel wrappers.
+  through the fused unit's data-parallel wrappers;
+- the op families behind them on torch's libraries (``ops``: nn, tensor,
+  random, contrib and vision; ``nd.contrib``/``nd.random`` and their
+  ``sym`` twins), the symbol model zoo (``models``) with the SSD300
+  detector and its mAP metrics (``contrib``).
 
 ROADMAP.md lists what remains.
 """
-from . import autograd, callback, io, metric, model, name  # noqa: F401
+from . import autograd, callback, contrib, io, metric, model  # noqa: F401
+from . import name  # noqa: F401
 from . import initializer, lr_scheduler, optimizer, random  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import ndarray as nd  # noqa: F401
@@ -51,4 +56,4 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "current_context", "AttrScope", "nd", "sym", "autograd",
            "random", "init", "initializer", "opt", "optimizer", "metric",
            "io", "mod", "model", "callback", "lr_scheduler", "name", "kv",
-           "kvstore", "parallel"]
+           "kvstore", "parallel", "contrib"]

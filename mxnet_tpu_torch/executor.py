@@ -51,24 +51,55 @@ _RNG_SALT = 0x5EED
 INFERENCE_SEED = 0
 
 
-def eval_node(node, ins, is_train, seed=None, salt=0, device=None):
+def eval_node(node, ins, is_train, seed=None, salt=0, device=None,
+              batch=None):
     """Evaluate one op node on its input tensors; returns a tuple. A
     random op gets a generator on its data's device seeded from ``seed``
     (the step seed, None only on ``meta`` tensors) and ``salt +
-    _RNG_SALT``. A node with no input (``_zeros``, ``_arange``, ...)
-    creates its output on ``device`` (the graph's)."""
+    _RNG_SALT``. A node with no input (``_zeros``, ``_arange``,
+    ``_random_uniform``, ...) creates its output on ``device`` (the
+    graph's). ``batch`` (under a data-parallel scope) flags which inputs
+    are batch-leading; the op reads them through
+    ``fused_block.batch_operands``."""
+    if batch is not None:
+        from .kernels.fused_block import batch_operands
+
+        with batch_operands(batch):
+            return eval_node(node, ins, is_train, seed, salt, device)
     attrs = dict(node.attrs)
     if "__is_train__" in node.op.attr_defaults:
         attrs["__is_train__"] = is_train
+    gen = ()
+    if node.op.needs_rng:
+        dev = ins[0].device if ins else device
+        gen = (_random.node_generator(seed, salt + _RNG_SALT, dev),)
     if not ins and device is not None:
         with torch.device(device):
-            out = node.op.fn(**attrs)
-    elif node.op.needs_rng:
-        gen = _random.node_generator(seed, salt + _RNG_SALT, ins[0].device)
-        out = node.op.fn(gen, *ins, **attrs)
+            out = node.op.fn(*gen, **attrs)
     else:
-        out = node.op.fn(*ins, **attrs)
+        out = node.op.fn(*gen, *ins, **attrs)
     return out if isinstance(out, tuple) else (out,)
+
+
+def _batch_marks(nodes, node_ids):
+    """Under a data-parallel scope: for each op node's index, the flags of
+    its inputs' being batch-leading (the scope's batch inputs, and every
+    op output with a batch-leading input but those of a ``batch_free``
+    op); None outside a scope."""
+    from .kernels.fused_block import current_spmd_scope, scope_batch_names
+
+    if current_spmd_scope() is None:
+        return None
+    names = scope_batch_names()
+    leading, marks = {}, {}
+    for i, node in enumerate(nodes):
+        if node.is_variable():
+            leading[i] = names is None or node.name in names
+            continue
+        flags = tuple(leading[node_ids[id(inp)]] for inp, _ in node.inputs)
+        marks[i] = flags
+        leading[i] = any(flags) and not node.op.batch_free
+    return marks
 
 
 def _values_device(values):
@@ -119,7 +150,7 @@ def _graph_closure(symbol, is_train, remat_names=None):
 
     rng = has_rng(symbol)
 
-    def run(values, remat, seed):
+    def run(values, remat, seed, marks):
         results = {}   # node index -> tuple of outputs
         aux_updates = {}
         device = _values_device(values)
@@ -134,7 +165,8 @@ def _graph_closure(symbol, is_train, remat_names=None):
                 if remat is not None and i in recompute:
                     out = remat.run(i, ins)
                 else:
-                    out = eval_node(node, ins, is_train, seed, i, device)
+                    out = eval_node(node, ins, is_train, seed, i, device,
+                                    marks and marks[i])
             results[i] = out
             if remat is not None:
                 remat.own(i, out)
@@ -148,12 +180,13 @@ def _graph_closure(symbol, is_train, remat_names=None):
     def fn(values, seed=None):
         if rng and seed is None:
             seed = _random.next_seed(next(iter(values.values())).device)
+        marks = _batch_marks(nodes, node_ids)
         if recompute is None:
-            return run(values, None, seed)
-        remat = _Remat(nodes, node_ids, recompute, is_train, seed)
+            return run(values, None, seed, marks)
+        remat = _Remat(nodes, node_ids, recompute, is_train, seed, marks)
         with torch.autograd.graph.saved_tensors_hooks(remat.pack,
                                                       remat.unpack):
-            return run(values, remat, seed)
+            return run(values, remat, seed, marks)
 
     return fn
 
@@ -232,10 +265,11 @@ class _Remat:
     node (:func:`eval_node`), so a recompute draws what the forward drew
     and the checkpoints need not carry RNG state."""
 
-    def __init__(self, nodes, node_ids, recompute, is_train, seed=None):
+    def __init__(self, nodes, node_ids, recompute, is_train, seed=None,
+                 marks=None):
         self.nodes, self.node_ids = nodes, node_ids
         self.recompute, self.is_train = recompute, is_train
-        self.seed = seed
+        self.seed, self.marks = seed, marks
         self.feeds = {node_ids[id(inp)] for i in recompute
                       for inp, _ in nodes[i].inputs} - recompute
         self.owners = {}   # storage address -> _Owner
@@ -249,9 +283,10 @@ class _Remat:
         from torch.utils.checkpoint import checkpoint
 
         node, is_train, seed = self.nodes[i], self.is_train, self.seed
+        batch = self.marks and self.marks[i]
 
         def node_fn(*xs):
-            return eval_node(node, list(xs), is_train, seed, i)
+            return eval_node(node, list(xs), is_train, seed, i, batch=batch)
 
         return checkpoint(node_fn, *ins, use_reentrant=False,
                           preserve_rng_state=False)
@@ -307,7 +342,8 @@ class _Remat:
             else:
                 ins.append(self._value(j)[idx])
         with torch.no_grad():
-            out = eval_node(node, ins, self.is_train, self.seed, i)
+            out = eval_node(node, ins, self.is_train, self.seed, i,
+                            batch=self.marks and self.marks[i])
         for k, t in enumerate(out):
             want = self.layouts.get((i, k))
             if want is not None and want != (t.storage_offset(),

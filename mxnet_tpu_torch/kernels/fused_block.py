@@ -744,22 +744,53 @@ _SPMD_SCOPE = threading.local()
 
 
 @contextlib.contextmanager
-def spmd_scope(mesh, axes):
+def spmd_scope(mesh, axes, batch_names=None):
     """Marks the fused ops run inside it as data parallel over ``mesh``'s
     ``axes``: ``ops/fused.py`` then calls ``bottleneck_train_spmd``, and the
     batch-reducing ops of ``ops/nn.py`` reduce over the data group.
-    ``TrainStep`` sets it around each step."""
-    prev = getattr(_SPMD_SCOPE, "value", None)
+    ``TrainStep`` sets it around each step. ``batch_names`` are the graph
+    inputs the mesh shards by rows (the data and labels): the executor
+    marks them and what keeps their axis 0 first as batch-leading
+    (:func:`batch_operands`); None counts every graph input as one."""
+    prev = (getattr(_SPMD_SCOPE, "value", None),
+            getattr(_SPMD_SCOPE, "batch_names", None))
     _SPMD_SCOPE.value = (mesh, tuple(axes))
+    _SPMD_SCOPE.batch_names = (None if batch_names is None
+                               else frozenset(batch_names))
     try:
         yield
     finally:
-        _SPMD_SCOPE.value = prev
+        _SPMD_SCOPE.value, _SPMD_SCOPE.batch_names = prev
 
 
 def current_spmd_scope():
     """``(mesh, axes)`` of the innermost :func:`spmd_scope`, else None."""
     return getattr(_SPMD_SCOPE, "value", None)
+
+
+def scope_batch_names():
+    """The batch-leading graph inputs of the innermost :func:`spmd_scope`
+    (None: every input)."""
+    return getattr(_SPMD_SCOPE, "batch_names", None)
+
+
+@contextlib.contextmanager
+def batch_operands(flags):
+    """Set by the executor around an op it runs under :func:`spmd_scope`:
+    ``flags[i]`` says whether the op's input ``i`` is batch-leading (its
+    axis 0 is the rank's rows of the batch). An op called outside an
+    executor sees None, and counts every operand as batch-leading."""
+    prev = getattr(_SPMD_SCOPE, "operands", None)
+    _SPMD_SCOPE.operands = tuple(flags)
+    try:
+        yield
+    finally:
+        _SPMD_SCOPE.operands = prev
+
+
+def current_batch_operands():
+    """The flags of :func:`batch_operands` for the op running, else None."""
+    return getattr(_SPMD_SCOPE, "operands", None)
 
 
 def bottleneck_train_spmd(data, w1, w2, w3, wsc, g1, b1, g2, b2, g3, b3,

@@ -6,14 +6,15 @@ The symbolic image-classification builders of
 num_classes, ...)``, a Symbol with a ``SoftmaxOutput`` head whose JSON is
 the JAX builder's: ``lenet``, ``mlp``, ``alexnet``, ``vgg``, ``inception``,
 ``mobilenet``, ``resnext`` and ``resnet``; :func:`get_symbol` dispatches by
-network name as the reference's training scripts do. ``bench_transformer``
+network name as the reference's training scripts do. ``ssd`` is the SSD300
+detector (``get_symbol`` for inference, ``get_symbol_train`` for
+training). ``bench_transformer``
 is the symbolic transformer encoder, and ``transformer`` the generative
 model (not a Symbol).
 """
-from ..base import MXNetError
 from . import (  # noqa: F401
     alexnet, bench_transformer, inception, lenet, mlp, mobilenet, resnet,
-    resnext, vgg,
+    resnext, ssd, vgg,
 )
 
 _BUILDERS = {
@@ -28,7 +29,7 @@ _BUILDERS = {
     "inception-v3": inception,
     "inception-bn": inception,
     "googlenet": inception,
-    "ssd": None,
+    "ssd": ssd,
 }
 _VERSION_KW = {"inception-v3": "v3", "inception-bn": "bn",
                "googlenet": "v1"}
@@ -41,9 +42,6 @@ def get_symbol(network, **kwargs):
     if network not in _BUILDERS:
         raise ValueError("unknown network %r; have %s"
                          % (network, sorted(_BUILDERS)))
-    if _BUILDERS[network] is None:
-        raise MXNetError("get_symbol(%r) is not ported yet (its detection "
-                         "ops: ROADMAP.md Queue A item 7d)" % network)
     if network in _VERSION_KW:
         kwargs.setdefault("version", _VERSION_KW[network])
     return _BUILDERS[network].get_symbol(**kwargs)

@@ -67,10 +67,52 @@ def _np_tensor(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def populate_module(mod):
-    """Install every registered op (and alias) as a function on ``mod``."""
+# the op namespaces: ``_contrib_X`` is ``mod.contrib.X``, ``_linalg_X``
+# ``mod.linalg.X``, ``_random_X`` and ``_sample_X`` are ``mod.random.X``
+_ROUTES = (("_contrib_", "contrib"), ("_linalg_", "linalg"),
+           ("_random_", "random"), ("_sample_", "random"))
+# mod.random.<dist>: scalar parameters draw from _random_<dist>, tensor
+# parameters from _sample_<dist> (the negative binomials have no _sample_
+# form: mod.random holds their _random_ op, routed above)
+_DISTRIBUTIONS = ("uniform", "normal", "gamma", "exponential", "poisson")
+
+
+def populate_module(mod, maker=make_op_func, tensor_type=NDArray):
+    """Install every registered op (and alias) as a function on ``mod``
+    (made by ``maker``), and the prefixed names also in the namespaces of
+    ``_ROUTES`` under their bare names, as the JAX package routes them
+    (``mx.nd.contrib.MultiBoxPrior``, ``mx.nd.random.uniform``, ...).
+    ``mod.random.<dist>`` dispatches on whether an argument is a
+    ``tensor_type``; ``mod.random`` also holds ``multinomial``,
+    ``randint`` and ``shuffle``."""
+    import types
+
+    sub = {}
+    for _prefix, ns in _ROUTES:
+        if ns not in sub:
+            sub[ns] = types.ModuleType("%s.%s" % (mod.__name__, ns))
+            setattr(mod, ns, sub[ns])
     for name in _reg.list_ops():
-        setattr(mod, name, make_op_func(_reg.get(name)))
+        fn = maker(_reg.get(name))
+        setattr(mod, name, fn)
+        for prefix, ns in _ROUTES:
+            if name.startswith(prefix):
+                setattr(sub[ns], name[len(prefix):], fn)
+    rnd = sub["random"]
+    for dist in _DISTRIBUTIONS:
+        rand_fn = maker(_reg.get("_random_" + dist))
+        samp_fn = maker(_reg.get("_sample_" + dist))
+
+        def dispatch(*args, _r=rand_fn, _s=samp_fn, **kwargs):
+            tensors = any(isinstance(a, tensor_type)
+                          for a in args + tuple(kwargs.values()))
+            return (_s if tensors else _r)(*args, **kwargs)
+
+        dispatch.__name__ = dist
+        setattr(rnd, dist, dispatch)
+    rnd.multinomial = maker(_reg.get("_sample_multinomial"))
+    rnd.randint = maker(_reg.get("_random_randint"))
+    rnd.shuffle = maker(_reg.get("shuffle"))
     return mod
 
 

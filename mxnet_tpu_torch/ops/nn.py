@@ -44,6 +44,23 @@ def dp_group():
     return group, n
 
 
+def batch_operand(*indices, unmarked=True):
+    """True under a data-parallel scope of more than one rank when any of
+    the running op's inputs ``indices`` (every input when none is given)
+    is batch-leading. The executor marks its graph's tensors
+    (``fused_block.batch_operands``); an op called outside an executor
+    gets ``unmarked``: by default every operand counts as batch-leading."""
+    if dp_group()[0] is None:
+        return False
+    from ..kernels.fused_block import current_batch_operands
+
+    flags = current_batch_operands()
+    if flags is None:
+        return unmarked
+    return any(flags[i] for i in (indices or range(len(flags)))
+               if i < len(flags))
+
+
 def _tuple(x, n):
     if isinstance(x, (int, float)):
         return (int(x),) * n

@@ -21,6 +21,11 @@ by the imperative front end: ``ndarray.invoke`` runs it under
 ``torch.no_grad()`` even while recording, as the JAX package records no
 tape node for it. The symbolic executor differentiates it like any op,
 as the JAX package's ``jax.vjp`` over the whole graph does.
+
+An op registered with ``batch_free=True`` (``MultiBoxPrior``) has outputs
+that are never the batch's rows, whatever its inputs: under a
+data-parallel scope the executor does not mark them batch-leading
+(``executor._batch_marks``).
 """
 from __future__ import annotations
 
@@ -41,17 +46,19 @@ class OpDef:
     exposes (BatchNorm hides its batch mean/var); aux_state_outputs:
     ``{input name: output index}`` whose value replaces that aux state in
     training; needs_rng: ``fn`` takes a generator first; nondiff: the
-    imperative front end never records it; attr_defaults: keyword
-    defaults from the signature.
+    imperative front end never records it; batch_free: its outputs are
+    never batch rows; attr_defaults: keyword defaults from the signature.
     """
 
     __slots__ = ("name", "fn", "num_outputs", "num_visible_outputs",
-                 "aux_state_outputs", "needs_rng", "nondiff", "doc",
+                 "aux_state_outputs", "needs_rng", "nondiff", "batch_free",
+                 "doc",
                  "attr_defaults", "input_names", "var_inputs",
                  "optional_inputs")
 
     def __init__(self, name, fn, num_outputs=1, num_visible_outputs=None,
-                 aux_state_outputs=None, needs_rng=False, nondiff=False):
+                 aux_state_outputs=None, needs_rng=False, nondiff=False,
+                 batch_free=False):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
@@ -59,6 +66,7 @@ class OpDef:
         self.aux_state_outputs = dict(aux_state_outputs or {})
         self.needs_rng = bool(needs_rng)
         self.nondiff = bool(nondiff)
+        self.batch_free = bool(batch_free)
         self.doc = fn.__doc__ or ""
         self.attr_defaults = _kwarg_defaults(fn, self.needs_rng)
         self.input_names, self.var_inputs, self.optional_inputs = (
@@ -200,7 +208,8 @@ def _parse_tuple(value):
 
 
 def register(name=None, aliases=(), num_outputs=1, num_visible_outputs=None,
-             aux_state_outputs=None, needs_rng=False, nondiff=False):
+             aux_state_outputs=None, needs_rng=False, nondiff=False,
+             batch_free=False):
     """Decorator registering a function on tensors as an operator."""
 
     def deco(fn):
@@ -210,7 +219,8 @@ def register(name=None, aliases=(), num_outputs=1, num_visible_outputs=None,
         _OPS[opname] = OpDef(opname, fn, num_outputs=num_outputs,
                              num_visible_outputs=num_visible_outputs,
                              aux_state_outputs=aux_state_outputs,
-                             needs_rng=needs_rng, nondiff=nondiff)
+                             needs_rng=needs_rng, nondiff=nondiff,
+                             batch_free=batch_free)
         for a in aliases:
             _ALIASES[a] = opname
         return fn

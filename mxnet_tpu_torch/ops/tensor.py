@@ -19,9 +19,11 @@ out in the JAX package's order; ``hypot`` is ``jnp.hypot``'s formula (its
 gradient at (0, 0) is (0.5, 0.5)); ``gamma`` is ``exp(gammaln(x))``.
 
 Under a data-parallel mesh (``spmd_scope``) each rank holds its rows of
-the batch (axis 0). An op whose result over those rows would not be the
-rank's rows of its result over the whole batch raises by name
-(:func:`_refuse_batch_axis`): the reductions (``nansum``, ``nanprod``,
+the batch (axis 0). An op on a batch-leading input (the executor marks
+them; called directly, every input counts as one) whose result over those
+rows would not be the rank's rows of its result over the whole batch
+raises by name (:func:`_refuse_batch_axis`): a ``dot`` that contracts the
+batch axis, the reductions (``nansum``, ``nanprod``,
 ``_square_sum`` and ``cumsum`` too), softmax, log_softmax, argmax and
 argmin over axis 0, the sorts along it, ``Concat``, ``stack`` and
 ``SliceChannel`` on it, a ``transpose`` or ``swapaxes`` that moves it, a
@@ -219,12 +221,14 @@ def _norm_axis(axis, ndim):
 
 def _refuse_batch_axis(name, axes, ndim):
     """Under a data-parallel mesh each rank holds its rows of the batch: an
-    op over axis 0 would see the rank's rows, not the batch, so it raises
-    rather than give a rank-local value."""
+    op over axis 0 with a batch-leading input (:func:`.nn.batch_operand`)
+    would see the rank's rows, not the batch, so it raises rather than
+    give a rank-local value. Over axis 0 of tensors every rank holds whole
+    (weights), it runs."""
     if ndim and 0 in axes:
-        from .nn import dp_group
+        from .nn import batch_operand
 
-        if dp_group()[0] is not None:
+        if batch_operand():
             raise MXNetError("%s over the batch axis under a data-parallel "
                              "mesh is not ported" % name)
 
@@ -235,10 +239,10 @@ def _check_batch_rows(name, dshape, tshape, reverse):
     when the batch's (axis 0 times ``n``) reshapes to the same trailing
     axes and ``n`` times the rows: reshape keeps the row-major order, and
     the rank's rows are one contiguous block of it. Otherwise it raises."""
-    from .nn import dp_group
+    from .nn import batch_operand, dp_group
 
     group, n = dp_group()
-    if group is None or not dshape:
+    if group is None or not dshape or not batch_operand(0):
         return
     out = _infer_reshape(dshape, tshape, reverse)
     try:
@@ -417,7 +421,24 @@ def swapaxes(data, dim1=0, dim2=0):
 @register(name="dot")
 def dot(lhs, rhs, transpose_a=False, transpose_b=False):
     """Contracts the last axis of lhs with the first of rhs; the
-    transposes move axis 0 last (lhs) and the last axis first (rhs)."""
+    transposes move axis 0 last (lhs) and the last axis first (rhs).
+    Under a data-parallel mesh a contraction of a batch-leading operand's
+    axis 0 would sum the rank's rows only, so it raises: ``lhs`` with
+    ``transpose_a`` (or 1-D), and, where the executor marks it
+    batch-leading, ``rhs`` without ``transpose_b`` (or 1-D). Called
+    outside an executor, the ``lhs`` counts as batch-leading and the
+    ``rhs`` as a weight."""
+    from .nn import batch_operand
+
+    if (transpose_a or lhs.dim() == 1) and batch_operand(0):
+        raise MXNetError("dot(transpose_a=%s) contracts the batch axis of "
+                         "its lhs under a data-parallel mesh: not ported"
+                         % bool(transpose_a))
+    if (not transpose_b or rhs.dim() == 1) and \
+            batch_operand(1, unmarked=False):
+        raise MXNetError("dot(transpose_b=%s) contracts the batch axis of "
+                         "its rhs under a data-parallel mesh: not ported"
+                         % bool(transpose_b))
     a, b = lhs, rhs
     if transpose_a and a.dim() > 1:
         a = a.permute(*range(1, a.dim()), 0)

@@ -768,12 +768,14 @@ class TrainStep:
         return out
 
     def _scope(self):
-        """The data-parallel scope the fused units and BatchNorm read."""
+        """The data-parallel scope the fused units and BatchNorm read; the
+        data and labels it shards by rows are its batch-leading inputs."""
         if self.mesh is None:
             return contextlib.nullcontext()
         from ..kernels.fused_block import spmd_scope
 
-        return spmd_scope(self.mesh, self.data_axes)
+        return spmd_scope(self.mesh, self.data_axes,
+                          self.data_names + self.label_names)
 
     def _leaves(self, params):
         cdtype = self.compute_dtype

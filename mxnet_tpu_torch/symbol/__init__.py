@@ -1,11 +1,12 @@
 """``sym``: the symbolic graph API, with one generated function per
-registered op (``sym.Convolution``, ``sym.FusedBottleneckUnit``, ...)."""
+registered op (``sym.Convolution``, ``sym.FusedBottleneckUnit``, ...), and
+the ``sym.contrib``, ``sym.linalg`` and ``sym.random`` namespaces
+(``sym.contrib.MultiBoxPrior``, ...)."""
 import sys as _sys
 
-from .. import ops as _ops
+from ..ndarray.register import populate_module as _populate
 from .register import make_symbol_func as _make
 from .symbol import (Group, Symbol, Variable, load, load_json,  # noqa: F401
                      var)
 
-for _name in _ops.list_ops():
-    setattr(_sys.modules[__name__], _name, _make(_ops.get(_name)))
+_populate(_sys.modules[__name__], _make, Symbol)

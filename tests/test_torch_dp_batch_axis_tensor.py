@@ -17,11 +17,18 @@ there, as for ``RNN``) and pick along axis 0. The same ops on other axes,
 ops give the rank's rows of the whole batch's result: floats at rtol
 1e-6, indices and copies bit for bit.
 
-C8: ``dot(..., transpose_a=True)`` on a batch-leading input contracts
-axis 0, and nothing guards it: each rank contracts its own rows, so its
-result is a partial sum (the two ranks' results add up to the whole
-batch's). The test pins that state and prints the gap (ROADMAP.md Queue
-C).
+C8, repaired: ``dot(..., transpose_a=True)`` on a batch-leading input
+would contract axis 0, each rank its own rows (a partial sum): it raises
+by name. The executor marks which tensors are batch-leading (the data and
+labels the scope shards, and what keeps their axis 0 first): run by it, a
+``dot(transpose_a=True)`` of weights, a reduction over a weight's axis 0,
+and ``MultiBoxPrior``'s anchors (no batch rows) run and give the single
+device's result, while the same on the data raises.
+
+Items 7c and 7d, called directly: the RoI poolings and proposals (their
+batch-index column addresses axis 0) raise by name; MultiBoxTarget,
+MultiBoxDetection, ctc_loss (batch on axis 1), count_sketch, fft/ifft and
+the quantize ops give the rank's rows.
 """
 import numpy as np
 import pytest
@@ -58,7 +65,16 @@ EXACT = ("sort-axis1", "argsort-axis2", "topk-axis1", "flip-axis1",
          "_slice_assign_scalar-axis1", "diag-3d", "SequenceMask-axis1",
          "SequenceLast-axis1", "pick-axis1", "batch_take", "Embedding",
          "where", "depth_to_space")
+RAISE_7CD = ("ROIPooling", "PSROIPooling", "DeformablePSROIPooling",
+             "Proposal", "MultiProposal")
+ROWS_7CD = ("MultiBoxTarget", "MultiBoxDetection", "ctc_loss",
+            "count_sketch", "fft", "ifft", "quantize", "dequantize",
+            "quantize_2bit")
+EXACT_7CD = ("MultiBoxTarget", "MultiBoxDetection", "quantize",
+             "dequantize")
 C8 = ("dot-transpose_a",)
+GRAPH_ROWS = ("dot-weights", "dot-weights-alone", "sum-axis0-weight",
+              "MultiBoxPrior-sum-axis0")
 
 
 @pytest.fixture(scope="module")
@@ -71,11 +87,14 @@ def ranks(tmp_path_factory):
 def test_every_case_is_classified():
     assert sorted(RAISE + ROWS + C8) == sorted(w.tensor_batch_axis_cases())
     assert set(EXACT) <= set(ROWS)
+    assert sorted(RAISE_7CD + ROWS_7CD) == \
+        sorted(w.contrib_batch_axis_cases())
+    assert set(EXACT_7CD) <= set(ROWS_7CD)
+    assert sorted(w.GRAPH_RAISE + w.GRAPH_WHOLE + GRAPH_ROWS) == \
+        sorted(w.graph_batch_axis_cases())
 
 
-@pytest.mark.parametrize("name", RAISE)
-def test_raises_by_name_under_the_scope(ranks, name):
-    op = name.split("-")[0]
+def _raised(ranks, name, op):
     for r in ranks:
         kind, msg = r[name][0]
         assert kind == "raised", (name, msg)
@@ -83,36 +102,91 @@ def test_raises_by_name_under_the_scope(ranks, name):
         assert "data-parallel" in msg, msg
 
 
-@pytest.mark.parametrize("name", ROWS)
-def test_gives_the_ranks_rows_of_the_whole_batch(ranks, name):
+def _rows(ranks, name, exact):
     for rank, r in enumerate(ranks):
         (kind, got), whole = r[name]
         assert kind == "ok", (name, got)
         rows = whole.shape[0] // WORLD
         want = whole[rank * rows:(rank + 1) * rows]
-        if name in EXACT:
+        if exact:
             assert torch.equal(got, want), name
         else:
             np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
                                        atol=1e-7, err_msg=name)
 
 
+@pytest.mark.parametrize("name", RAISE)
+def test_raises_by_name_under_the_scope(ranks, name):
+    _raised(ranks, name, name.split("-")[0])
+
+
+@pytest.mark.parametrize("name", ROWS)
+def test_gives_the_ranks_rows_of_the_whole_batch(ranks, name):
+    _rows(ranks, name, name in EXACT)
+
+
 def test_c8_dot_transpose_a_contracts_each_ranks_rows_only(ranks):
-    """Pins C8 until the guard can tell a batch-leading operand: no rank
-    raises, each gives the contraction of its own rows, and the ranks'
-    results add up to the whole batch's."""
-    parts = []
+    """C8, repaired: ``dot(transpose_a=True)`` on batch-leading rows would
+    contract each rank's rows only (2 ranks: each result 0.7643 of the
+    whole batch's away, relative L2); it raises by name, called directly
+    and inside the executor, where the data are batch-leading."""
+    _raised(ranks, "dot-transpose_a", "dot")
+    _raised(ranks, "graph:dot-transpose_a-data", "dot")
+
+
+@pytest.mark.parametrize("name", RAISE_7CD)
+def test_7cd_raises_by_name_under_the_scope(ranks, name):
+    _raised(ranks, name, name)
+
+
+@pytest.mark.parametrize("name", ROWS_7CD)
+def test_7cd_gives_the_ranks_rows_of_the_whole_batch(ranks, name):
+    _rows(ranks, name, name in EXACT_7CD)
+
+
+@pytest.mark.parametrize("name", w.GRAPH_RAISE)
+def test_executor_raises_on_the_batch_leading_data(ranks, name):
+    _raised(ranks, "graph:" + name, name.split("-")[0])
+
+
+@pytest.mark.parametrize("name", GRAPH_ROWS)
+def test_executor_runs_weights_and_anchors_as_one_device(ranks, name):
+    """A ``dot(transpose_a=True)`` of weights, a sum over a weight's axis
+    0 and over MultiBoxPrior's anchors: not batch rows, so the executor
+    runs them, and the graph gives the rank's rows of one device's."""
+    _rows(ranks, "graph:" + name, False)
+
+
+@pytest.mark.parametrize("name", w.GRAPH_WHOLE)
+def test_executor_output_that_is_no_batch_rows_is_the_whole(ranks, name):
     for r in ranks:
-        (kind, got), whole = r["dot-transpose_a"]
+        (kind, got), whole = r["graph:" + name]
         assert kind == "ok", got
-        parts.append(got)
-    x = torch.from_numpy(w.batch_axis_input()).reshape(WORLD, 4, 12)
-    for p, xr in zip(parts, x):
-        np.testing.assert_allclose(p.numpy(), (xr.t() @ xr).numpy(),
-                                   rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose((parts[0] + parts[1]).numpy(), whole.numpy(),
-                               rtol=1e-5, atol=1e-5)
-    gap = max(float((p - whole).norm() / whole.norm()) for p in parts)
-    print("C8: dot(transpose_a=True) on a rank's rows is %.4f of the whole "
-          "batch's result away from it (relative L2)" % gap)
-    assert gap > 0.1
+        assert torch.equal(got, whole), name
+
+
+def test_dot_of_a_marked_rhs_raises_and_a_weight_rhs_runs():
+    """The rule on the rhs, with the executor's marks given by hand: a
+    batch-leading ``rhs`` without ``transpose_b`` would contract its axis
+    0; unmarked (called directly) the rhs counts as a weight."""
+    from mxnet_tpu_torch.kernels.fused_block import (batch_operands,
+                                                     spmd_scope)
+    from mxnet_tpu_torch.ops import nn, registry
+    from mxnet_tpu_torch import MXNetError
+
+    dot = registry.get("dot").fn
+    a, b = torch.ones(2, 4), torch.ones(4, 3)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nn, "dp_group", lambda: (object(), 2))
+        with spmd_scope(None, ("dp",)):
+            assert dot(a, b).shape == (2, 3)
+            with batch_operands((False, True)):
+                with pytest.raises(MXNetError, match="rhs.*data-parallel"):
+                    dot(a, b)
+                assert dot(a, b.t(), transpose_b=True).shape == (2, 3)
+            with batch_operands((True, False)):
+                with pytest.raises(MXNetError, match="data-parallel"):
+                    dot(b, b, transpose_a=True)
+            with batch_operands((False, False)):
+                assert dot(b, b, transpose_a=True).shape == (3, 3)
+

@@ -11,7 +11,7 @@ import pytest
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu_torch.ops import registry as treg
 
-PORTED = 213
+PORTED = 244
 
 # the 95 names of item 7b, from mxnet_tpu/ops/tensor.py
 TENSOR_7B = (
@@ -46,23 +46,36 @@ TENSOR_7B_ALIASES = (
     "_shuffle", "_hypot", "_logical_and", "_logical_or", "_logical_xor",
     "_contrib_SparseEmbedding")
 
+# the 14 names of item 7c, from mxnet_tpu/ops/random_ops.py
+RANDOM_7C = (
+    "_random_exponential", "_random_gamma",
+    "_random_generalized_negative_binomial", "_random_negative_binomial",
+    "_random_normal", "_random_poisson", "_random_randint",
+    "_random_uniform", "_sample_exponential", "_sample_gamma",
+    "_sample_multinomial", "_sample_normal", "_sample_poisson",
+    "_sample_uniform")
+# the 17 names of item 7d, from mxnet_tpu/ops/vision.py and contrib.py
+CONTRIB_7D = (
+    "ROIPooling", "_contrib_DeformableConvolution",
+    "_contrib_DeformablePSROIPooling", "_contrib_MultiProposal",
+    "_contrib_PSROIPooling", "_contrib_Proposal",
+    "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
+    "_contrib_MultiBoxTarget", "_contrib_count_sketch",
+    "_contrib_ctc_loss", "_contrib_dequantize",
+    "_contrib_dequantize_2bit", "_contrib_fft", "_contrib_ifft",
+    "_contrib_quantize", "_contrib_quantize_2bit")
+# the aliases the JAX package gives these names
+SLICE_7CD_ALIASES = (
+    "uniform", "random_uniform", "normal", "random_normal", "random_gamma",
+    "random_exponential", "random_poisson", "random_negative_binomial",
+    "random_generalized_negative_binomial", "random_randint",
+    "sample_uniform", "sample_normal", "sample_gamma", "sample_exponential",
+    "sample_poisson", "sample_multinomial", "ctc_loss", "CTCLoss",
+    "_contrib_CTCLoss", "MultiBoxPrior", "MultiBoxTarget",
+    "MultiBoxDetection", "PSROIPooling", "Proposal", "MultiProposal",
+    "DeformableConvolution", "DeformablePSROIPooling")
+
 DEFERRED = {
-    "7c": (
-        "_random_exponential", "_random_gamma",
-        "_random_generalized_negative_binomial", "_random_negative_binomial",
-        "_random_normal", "_random_poisson", "_random_randint",
-        "_random_uniform", "_sample_exponential", "_sample_gamma",
-        "_sample_multinomial", "_sample_normal", "_sample_poisson",
-        "_sample_uniform"),
-    "7d": (
-        "ROIPooling", "_contrib_DeformableConvolution",
-        "_contrib_DeformablePSROIPooling", "_contrib_MultiProposal",
-        "_contrib_PSROIPooling", "_contrib_Proposal",
-        "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
-        "_contrib_MultiBoxTarget", "_contrib_count_sketch",
-        "_contrib_ctc_loss", "_contrib_dequantize",
-        "_contrib_dequantize_2bit", "_contrib_fft", "_contrib_ifft",
-        "_contrib_quantize", "_contrib_quantize_2bit"),
     "11": ("_int8_convolution", "_int8_fully_connected", "_quantize_int8",
            "_quantize_rows_int8"),
     "13": ("Custom",),
@@ -71,6 +84,7 @@ MODULES = {"7c": ("mxnet_tpu.ops.random_ops",),
            "7d": ("mxnet_tpu.ops.vision", "mxnet_tpu.ops.contrib"),
            "11": ("mxnet_tpu.ops.quantized",),
            "13": ("mxnet_tpu.ops.custom",)}
+PORTED_ITEMS = {"7c": RANDOM_7C, "7d": CONTRIB_7D}
 
 # the 22 names of this slice, from mxnet_tpu/ops/nn.py
 NN_7A = ("Dropout", "LeakyReLU", "Deconvolution", "InstanceNorm",
@@ -90,14 +104,46 @@ def test_every_jax_name_is_ported_or_deferred_by_item():
     assert port <= jax_names
     assert jax_names == port | set(deferred)
     assert len(port) == PORTED
-    assert len(jax_names) - len(port) == len(deferred) == 36
+    assert len(jax_names) - len(port) == len(deferred) == 5
 
 
-@pytest.mark.parametrize("item", sorted(DEFERRED))
+@pytest.mark.parametrize("item", sorted(MODULES))
 def test_each_deferred_name_comes_from_its_items_module(item):
+    """A deferred item's names come from its module; a ported item's
+    module has every one of its names registered in the port."""
+    if item in PORTED_ITEMS:
+        names = {n for n, op in jreg._OPS.items()
+                 if op.fn.__module__ in MODULES[item]}
+        assert names == set(PORTED_ITEMS[item])
+        assert names <= set(treg._OPS)
+        return
     for name in DEFERRED[item]:
         mod = jreg._OPS[name].fn.__module__
         assert mod in MODULES[item], (name, mod)
+
+
+def test_the_random_and_contrib_slices_are_registered_with_the_jax_aliases():
+    """Items 7c and 7d: the 31 names, their 27 aliases, and the flags,
+    output counts, inputs and attribute defaults equal to the JAX
+    registry's."""
+    assert len(RANDOM_7C) == 14 and len(CONTRIB_7D) == 17
+    slice_ = set(RANDOM_7C) | set(CONTRIB_7D)
+    want = {a for a, c in jreg._ALIASES.items() if c in slice_}
+    assert want == set(SLICE_7CD_ALIASES)
+    for a in SLICE_7CD_ALIASES:
+        assert treg._ALIASES.get(a) == jreg._ALIASES[a], a
+    attrs = {"output_score": True}
+    for name in slice_:
+        jop, top = jreg._OPS[name], treg._OPS[name]
+        assert top.nondiff == jop.nondiff, name
+        assert top.needs_rng == jop.needs_rng, name
+        assert top.n_outputs(attrs) == jop.n_outputs(attrs), name
+        assert top.n_outputs({}) == jop.n_outputs({}), name
+        assert top.n_visible_outputs({}) == jop.n_visible_outputs({}), name
+        assert top.input_names == jop.input_names, name
+        assert top.attr_defaults == jop.attr_defaults, name
+    assert all(treg._OPS[n].needs_rng and treg._OPS[n].nondiff
+               for n in RANDOM_7C)
 
 
 def test_the_tensor_slice_is_registered_with_the_jax_aliases():

@@ -219,14 +219,23 @@ def test_bench_transformer_json_equals_jax(cfg):
 # the remat plan
 # ---------------------------------------------------------------------------
 def _plan_models():
+    """Both packages' graphs, each built in a fresh ``NameManager`` (the
+    resnet's ``flatten0`` is an auto name: a test that built a node of
+    one package earlier in the process would move its counter)."""
+    from mxnet_tpu_torch.name import NameManager as TNM
+
     with pytest.MonkeyPatch.context() as mp:
         if not hasattr(pltpu, "TPUCompilerParams"):
             mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
                        raising=False)
-        return {"transformer": (bench_transformer.get_symbol(**TINY),
-                                jbench.get_symbol(**TINY)),
-                "fused_resnet": (tresnet.resnet(fused=True, **RESNET),
-                                 jresnet.resnet(fused=True, **RESNET))}
+        with TNM():
+            port = (bench_transformer.get_symbol(**TINY),
+                    tresnet.resnet(fused=True, **RESNET))
+        with mx.name.NameManager():
+            ref = (jbench.get_symbol(**TINY),
+                   jresnet.resnet(fused=True, **RESNET))
+        return {"transformer": (port[0], ref[0]),
+                "fused_resnet": (port[1], ref[1])}
 
 
 @pytest.mark.parametrize("model", ["transformer", "fused_resnet"])

@@ -692,16 +692,168 @@ def tensor_batch_axis_cases():
         "depth_to_space": lambda x, _l: registry.get("depth_to_space").fn(
             x.reshape(-1, 4, 3, 1), block_size=2),
         "add_n": lambda x, _l: registry.get("add_n").fn(x, 2 * x, x * x),
-        # C8's probe: dot's transpose_a contracts axis 0 (no guard yet)
+        # C8: dot's transpose_a contracts axis 0 (raises since the repair)
         "dot-transpose_a": lambda x, _l: registry.get("dot").fn(
             x.reshape(x.shape[0], 12), x.reshape(x.shape[0], 12),
             transpose_a=True),
     }
 
 
+def contrib_batch_axis_cases():
+    """name -> fn(rows, label rows) for the ops of items 7c and 7d called
+    directly (every operand counts as batch-leading): the RoI poolings and
+    proposals (their batch-index column addresses axis 0) raise, the
+    per-row ops give the rank's rows."""
+    from mxnet_tpu_torch.ops import registry
+
+    def fn(name):
+        return registry.get(name).fn
+
+    def images(x):
+        return x.reshape(x.shape[0], 1, 3, 4)
+
+    anchors = fn("_contrib_MultiBoxPrior")(torch.zeros(1, 1, 3, 4),
+                                           sizes=(0.4, 0.7),
+                                           ratios=(1.0, 2.0))
+    rois = torch.tensor([[0, 0, 0, 3, 2], [1, 1, 0, 2, 2]],
+                        dtype=torch.float32)
+    h = torch.tensor([0, 3, 3, 1, 4, 0, 2, 2, 1, 0, 4, 3],
+                     dtype=torch.float32)
+    sign = torch.tensor([1, -1] * 6, dtype=torch.float32)
+
+    def target(x, label):
+        boxes = multibox_labels(label)
+        return fn("_contrib_MultiBoxTarget")(anchors, boxes,
+                                             x[:, :, :3])[2]
+
+    def detection(x, _l):
+        a = anchors.shape[1]
+        prob = torch.softmax(x.reshape(x.shape[0], 3, 4)[:, :, :1]
+                             .expand(-1, 3, a) * torch.arange(
+                                 1.0, a + 1), dim=1)
+        loc = x.reshape(x.shape[0], 12)[:, :1].expand(-1, a * 4) * 0.1
+        return fn("_contrib_MultiBoxDetection")(prob, loc, anchors)
+
+    return {
+        "ROIPooling": lambda x, _l: fn("ROIPooling")(
+            images(x), rois, pooled_size=(2, 2)),
+        "PSROIPooling": lambda x, _l: fn("_contrib_PSROIPooling")(
+            x.reshape(-1, 4, 1, 3), rois, output_dim=1, pooled_size=2),
+        "DeformablePSROIPooling": lambda x, _l: fn(
+            "_contrib_DeformablePSROIPooling")(
+                x.reshape(-1, 4, 1, 3), rois, torch.zeros(2, 2, 2, 2),
+                output_dim=1, group_size=2, pooled_size=2)[0],
+        "Proposal": lambda x, _l: fn("_contrib_Proposal")(
+            *rpn_inputs(x), feature_stride=16, scales=(1.0,),
+            ratios=(1.0,), rpn_post_nms_top_n=2, rpn_min_size=1),
+        "MultiProposal": lambda x, _l: fn("_contrib_MultiProposal")(
+            *rpn_inputs(x), feature_stride=16, scales=(1.0,),
+            ratios=(1.0,), rpn_post_nms_top_n=2, rpn_min_size=1),
+        "MultiBoxTarget": target,
+        "MultiBoxDetection": detection,
+        "ctc_loss": lambda x, label: fn("_contrib_ctc_loss")(
+            x.permute(1, 0, 2), torch.stack([label, (label + 1) % 3], 1)),
+        "count_sketch": lambda x, _l: fn("_contrib_count_sketch")(
+            x.reshape(x.shape[0], 12), h, sign, out_dim=5),
+        "fft": lambda x, _l: fn("_contrib_fft")(x.reshape(x.shape[0], 12)),
+        "ifft": lambda x, _l: fn("_contrib_ifft")(x.reshape(x.shape[0], 12)),
+        "quantize": lambda x, _l: fn("_contrib_quantize")(
+            x, torch.tensor([-2.0]), torch.tensor([2.0]))[0],
+        "dequantize": lambda x, _l: fn("_contrib_dequantize")(
+            (x * 40).clamp(-127, 127).to(torch.int8), torch.tensor([-2.0]),
+            torch.tensor([2.0])),
+        "quantize_2bit": lambda x, _l: fn("_contrib_quantize_2bit")(
+            x, 0.1 * x, threshold=0.5)[1],
+    }
+
+
+def rpn_inputs(x):
+    """(cls_prob, bbox_pred, im_info) of B/2 images of a 2x3 map, one
+    anchor a position, from the rows."""
+    n = x.shape[0] // 2
+    flat = x.reshape(-1)
+    return (flat[:n * 12].reshape(n, 2, 2, 3).abs(),
+            flat.reshape(n, 4, 2, 3) * 0.1,
+            torch.tensor([[32.0, 48.0, 1.0]]).expand(n, 3))
+
+
+def multibox_labels(label):
+    """(B, 2, 5) detection labels from the class rows: one box a row, its
+    class the label, and a padded row."""
+    k = label[:, None]
+    box = torch.cat([k, 0.1 * k, 0.1 * k, 0.5 + 0.1 * k, 0.6 + 0.1 * k],
+                    dim=1)
+    return torch.stack([box, torch.full_like(box, -1.0)], dim=1)
+
+
+def graph_batch_axis_cases():
+    """name -> (symbol, weights): graphs run by the executor under
+    ``spmd_scope`` with the data and labels batch-leading (the weights
+    every rank holds whole). ``data`` is (B, 3, 4), ``label`` (B,)."""
+    import mxnet_tpu_torch as mx
+
+    sym = mx.sym
+    r = np.random.RandomState(6)
+    w1 = torch.from_numpy(r.randn(3, 12).astype(np.float32))
+    w2 = torch.from_numpy(r.randn(3, 6).astype(np.float32))
+    rois = torch.tensor([[0, 0, 0, 3, 2]], dtype=torch.float32)
+    data, label = sym.var("data"), sym.var("label")
+    flat = sym.Reshape(data, shape=(0, 12))
+    img = sym.Reshape(data, shape=(0, 1, 3, 4))
+    anchors = sym.contrib.MultiBoxPrior(img, sizes=(0.4, 0.7),
+                                        ratios=(1.0, 2.0))
+    w = dict(w1=w1, w2=w2)
+    return {
+        "dot-transpose_a-data": (
+            sym.dot(flat, flat, transpose_a=True), {}),
+        "dot-weights": (
+            sym.dot(flat, sym.dot(sym.var("w1"), sym.var("w2"),
+                                  transpose_a=True)), w),
+        "dot-weights-alone": (
+            sym.broadcast_add(sym.sum(flat, axis=1, keepdims=True),
+                              sym.sum(sym.dot(sym.var("w1"), sym.var("w2"),
+                                              transpose_a=True))), w),
+        "sum-axis0-data": (sym.sum(flat, axis=0), {}),
+        "sum-axis0-weight": (
+            sym.broadcast_add(flat, sym.sum(sym.var("w1"), axis=0)), w),
+        "MultiBoxPrior-sum-axis0": (
+            sym.broadcast_add(sym.sum(flat, axis=1, keepdims=True),
+                              sym.sum(anchors)), {}),
+        "MultiBoxPrior-anchors": (sym.sum(anchors, axis=0), {}),
+        "ROIPooling-data": (
+            sym.ROIPooling(img, sym.var("rois"), pooled_size=(2, 2)),
+            dict(rois=rois)),
+    }
+
+
+GRAPH_RAISE = ("dot-transpose_a-data", "sum-axis0-data", "ROIPooling-data")
+# outputs that are not batch rows: equal to the whole batch's
+GRAPH_WHOLE = ("MultiBoxPrior-anchors",)
+
+
+def random_streams_worker(rank, world):
+    """The draws of a graph of two random nodes at one step seed, inside
+    ``spmd_scope`` (each rank folds its index into the nodes' generators)
+    and outside it (tests/test_torch_random_ops.py)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.executor import _graph_closure
+    from mxnet_tpu_torch.kernels.fused_block import spmd_scope
+
+    mu = mx.sym.var("mu")
+    g = mx.sym.Group([mx.sym.random.uniform(shape=(4, 5)),
+                      mx.sym.random.normal(mu, mu + 1, shape=(3,))])
+    fn = _graph_closure(g, is_train=True)
+    with spmd_scope(cpu_mesh(), ("dp",), ("mu",)):
+        outs, _ = fn({"mu": torch.zeros(2)}, seed=1234)
+    alone, _ = fn({"mu": torch.zeros(2)}, seed=1234)
+    return [o.clone() for o in outs], [o.clone() for o in alone]
+
+
 def tensor_batch_axis_worker(rank, world):
-    """Each 7b case on this rank's rows inside ``spmd_scope`` (its output,
-    or the error it raised) and on the whole batch outside it."""
+    """Each 7b, 7c and 7d case on this rank's rows inside ``spmd_scope``
+    (its output, or the error it raised) and on the whole batch outside
+    it; the executor's graphs with the data and labels batch-leading."""
+    from mxnet_tpu_torch.executor import _graph_closure
     from mxnet_tpu_torch.kernels.fused_block import spmd_scope
     from mxnet_tpu_torch.parallel.feed import rank_rows
 
@@ -711,11 +863,25 @@ def tensor_batch_axis_worker(rank, world):
     rows = rank_rows(x, world, rank, "data", "test")
     lrows = rank_rows(label, world, rank, "label", "test")
     out = {}
-    for name, fn in tensor_batch_axis_cases().items():
+
+    def attempt(fn, *args):
+        try:
+            got = fn(*args)
+            return ("ok", got[0].detach().clone() if isinstance(got, list)
+                    else got.detach().clone())
+        except Exception as e:  # the refusal under test
+            return ("raised", "%s: %s" % (type(e).__name__, e))
+
+    cases = dict(tensor_batch_axis_cases(), **contrib_batch_axis_cases())
+    for name, fn in cases.items():
         with spmd_scope(mesh, ("dp",)):
-            try:
-                got = ("ok", fn(rows, lrows).detach().clone())
-            except Exception as e:  # the refusal under test
-                got = ("raised", "%s: %s" % (type(e).__name__, e))
+            got = attempt(fn, rows, lrows)
         out[name] = (got, fn(x, label).detach().clone())
+    for name, (sym, weights) in graph_batch_axis_cases().items():
+        fn = _graph_closure(sym, is_train=False)
+        with spmd_scope(mesh, ("dp",), ("data", "label")):
+            got = attempt(lambda: fn(dict(weights, data=rows,
+                                          label=lrows))[0])
+        whole = fn(dict(weights, data=x, label=label))[0][0]
+        out["graph:" + name] = (got, whole.detach().clone())
     return out
