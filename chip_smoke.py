@@ -25,7 +25,19 @@ the kernels are built for sm_90a) and ``nvcc``. It
    of 8..1500 prompt tokens and 32 new tokens each, checks every request,
    the page accounting and that every prefill went through B5 (12
    launches per prefill), and holds the served logits of two requests
-   against the one-shot forward on the card;
+   against the one-shot forward on the card; then replays two traces of
+   ``tools/bench_serve.py`` at that width: the shared-prefix one (64
+   Poisson requests, a 0.7 share under one 496-token prefix, 4 slots) with
+   ``prefix_cache`` off and on (outputs equal but at bf16 near-ties, exact
+   prefill-token accounting, every shared request a hit, no leaked page,
+   the shared pages' bytes unchanged, 12 B5 launches per full prefill and
+   none per tail prefill, served logits within ``LOGIT_TOL`` of the
+   forward; TTFT both ways), and the decode-heavy one (12 requests, 48 new
+   tokens) with ``spec_k`` 0 and 6 over a 1-layer self-draft (the same
+   checks, the draft sharing the target's tensors, 13 B5 launches per
+   admission; tokens/s both ways, ``acceptance_rate``, a round's host
+   time split into draft steps and verify), then one request under
+   ``MXNET_FAULT_SPEC=generate:stall@req=1``;
 5. holds the fused ResNet convolution (B1: BN-apply + ReLU prologue,
    stats epilogue) against its plain version at every shape of a
    ResNet-50 forward at each batch of the serving ladder (1, 4, 16, 64)
@@ -977,6 +989,540 @@ def serving_phase(torch, np, fa):
         raise RuntimeError("served logits differ from the forward by %.4g"
                            % worst)
     return launches
+
+
+# the shared-prefix trace of tools/bench_serve.py's prefix-share mode at full
+# width: 64 Poisson requests at 400/s into 4 slots, pages of 16 tokens; a 0.7
+# share are one 496-token prefix plus a 4..12-token tail, the rest unrelated
+# 24..48-token prompts; 4 new tokens each, seed 0
+PREFIX_TRACE = dict(requests=64, rate=400.0, slots=4, page=16, prefix=496,
+                    share=0.7, tail=(4, 12), free=(24, 48), new=4, seed=0)
+# the decode-heavy trace of its spec mode, at full width instead of the
+# bench's narrow model: 12 Poisson requests at 50/s into 4 slots, prompts of
+# 8..16 tokens, 48 new tokens each; spec_k 6 with a 1-layer self-draft; the
+# upper layers damped by 1e-3 (_damp_upper_layers)
+SPEC_TRACE = dict(requests=12, rate=50.0, slots=4, page=16, prompt=(8, 16),
+                  new=48, k=6, draft=1, damp=1e-3, seed=0)
+
+
+def _prefix_workload(vocab):
+    """(prefix, [(arrival s, prompt, shared)]): tools/bench_serve.py's
+    _sample_prefix_workload, the same draws from ``random.Random(seed)``."""
+    import random
+
+    t_ = PREFIX_TRACE
+    rng = random.Random(t_["seed"])
+    prefix = [rng.randrange(1, vocab) for _ in range(t_["prefix"])]
+    t, work = 0.0, []
+    for _ in range(t_["requests"]):
+        t += rng.expovariate(t_["rate"])
+        if rng.random() < t_["share"]:
+            prompt = prefix + [rng.randrange(1, vocab) for _ in range(
+                rng.randint(*t_["tail"]))]
+            shared = True
+        else:
+            prompt = [rng.randrange(1, vocab)
+                      for _ in range(rng.randint(*t_["free"]))]
+            shared = False
+        work.append((t, prompt, shared))
+    return prefix, work
+
+
+def _spec_workload(vocab):
+    """[(arrival s, prompt)]: tools/bench_serve.py's measure_spec trace."""
+    import random
+
+    t_ = SPEC_TRACE
+    rng = random.Random(t_["seed"])
+    t, work = 0.0, []
+    for _ in range(t_["requests"]):
+        t += rng.expovariate(t_["rate"])
+        work.append((t, [rng.randrange(1, vocab)
+                         for _ in range(rng.randint(*t_["prompt"]))]))
+    return work
+
+
+def _damp_upper_layers(params, eps):
+    """tools/bench_serve.py's helper: scale the residual-branch output
+    projections of every layer but the first toward zero, a deep network
+    whose upper layers contribute little, where a truncated self-draft is
+    accepted often. The acceptance rate is printed beside the speedup it
+    conditions."""
+    out = {}
+    for k, v in params.items():
+        v = v.clone()
+        if k in ("attn_out_weight", "ffn_down_weight") and v.shape[0] > 1:
+            v[1:] *= eps
+        out[k] = v
+    return out
+
+
+def _replay(np, srv, work, new_tokens):
+    """Submit ``work`` ((arrival s, prompt, ...) rows) at its arrival times;
+    returns (results, wall s)."""
+    futs = []
+    t0 = time.perf_counter()
+    for row in work:
+        now = time.perf_counter() - t0
+        if now < row[0]:
+            time.sleep(row[0] - now)
+        futs.append(srv.submit(np.asarray(row[1], np.int32),
+                               max_new_tokens=new_tokens))
+    results = [f.result(timeout=600) for f in futs]
+    return results, time.perf_counter() - t0
+
+
+def _pctl(xs, q):
+    xs = sorted(xs)
+    return xs[int(round(q * (len(xs) - 1)))]
+
+
+def _timed_calls(fn, acc):
+    """``fn`` wrapped to add its calls and host seconds to ``acc``, a
+    ``[calls, seconds]`` list."""
+    def wrapped(*a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        acc[0] += 1
+        acc[1] += time.perf_counter() - t0
+        return out
+
+    return wrapped
+
+
+def _near_tie_pairs(torch, np, fwd, params, pairs, label):
+    """Greedy chains of one prompt from two paths that round differently in
+    bf16 must agree up to their first difference; there, the one-shot
+    forward on the common chain must show a near-tie: a top-2 gap of at
+    most 2 * LOGIT_TOL, with both chains' tokens within LOGIT_TOL of its top
+    logit. The rest of a pair is not compared. ``pairs`` holds (prompt,
+    chain a, chain b); prints how many parted and at what gaps, and raises
+    on a difference the forward does not explain."""
+    parted = []
+    for prompt, a, b in pairs:
+        if a == b:
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            raise RuntimeError("%s: chains of %d and %d tokens agree on "
+                               "their common part" % (label, len(a), len(b)))
+        chain = np.asarray(list(prompt) + list(a[:i]), np.int32)[None]
+        row = fwd(params, chain)[0, -1].float().cpu().numpy()
+        top = np.sort(row)[::-1]
+        gap = float(top[0] - top[1])
+        ok = gap <= 2 * LOGIT_TOL and row[a[i]] >= top[0] - LOGIT_TOL and \
+            row[b[i]] >= top[0] - LOGIT_TOL
+        parted.append((i, gap))
+        print("%s: a pair parted at new token %d: forward top-2 gap %.4f "
+              "(bound %.2f), tokens %d / %d at %.4f / %.4f below the top: %s"
+              % (label, i, gap, 2 * LOGIT_TOL, a[i], b[i], top[0] - row[a[i]],
+                 top[0] - row[b[i]], "a near-tie" if ok else "FAIL"))
+        if not ok:
+            raise RuntimeError("%s: chains part at new token %d where the "
+                               "forward shows no near-tie (gap %.4f)"
+                               % (label, i, gap))
+    print("%s: %d of %d pairs equal, %d parted at near-ties (gaps %s)"
+          % (label, len(pairs) - len(parted), len(pairs), len(parted),
+             ", ".join("%.4f" % g for _, g in parted) or "none"))
+    return parted
+
+
+def _rows_vs_forward(np, fwd, params, chain, rows, label):
+    """Largest |served - forward| over the rows ``{position: logits}`` of
+    one request, the forward run once on its whole chain."""
+    ref = fwd(params, np.asarray(chain, np.int32)[None])[0]
+    ref = ref.float().cpu().numpy()
+    got = np.stack([rows[p] for p in sorted(rows)])
+    if not np.isfinite(got).all() or got.shape[1] != ref.shape[1]:
+        raise RuntimeError("%s: served logits not finite / wrong shape"
+                           % label)
+    return float(np.abs(got - ref[sorted(rows)]).max())
+
+
+def _kv_digest(torch, kv, pages):
+    import hashlib
+
+    return hashlib.sha256(kv[:, :, pages].contiguous().view(
+        torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def prefix_serving_phase(torch, np, fa):
+    """The shared-prefix trace with the prefix cache off, then on; returns
+    the B5 launches of the cache-on run."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.serving import GenerateServer
+
+    t_ = PREFIX_TRACE
+    cfg = tfm.TransformerConfig(**FULL)
+    params = tfm.init_params(cfg, seed=0)
+    prefix, work = _prefix_workload(cfg.vocab)
+    shared = [i for i, w in enumerate(work) if w[2]]
+    n_shared = len(shared)
+    runs = {}
+    for on in (False, True):
+        srv = GenerateServer(cfg, params, slots=t_["slots"],
+                             page_size=t_["page"], prefix_cache=on)
+        try:
+            pred = srv.predictor
+            # warm-up outside the clock, as the bench does: one request
+            # per full-prefill bucket (distinct fillers, so none shares a
+            # prefix), then clear the index, seed the prefix and warm the
+            # tail buckets
+            need = {pred.pick_bucket(len(w[1])) for w in work}
+            for i, b in enumerate(sorted(need)):
+                srv.generate(np.full((min(b, pred.max_ctx - 3),), 2 + i,
+                                     np.int32), max_new_tokens=2)
+            digest = None
+            if on:
+                srv.clear_prefix()
+                srv.generate(np.asarray(prefix + [1], np.int32),
+                             max_new_tokens=2)
+                pages = srv.prefix.match(prefix + [1], pred.pool)
+                pred.pool.unref(pages)
+                if len(pages) != t_["prefix"] // t_["page"]:
+                    raise RuntimeError("prefix: the seeding request indexed "
+                                       "%d pages" % len(pages))
+                digest = _kv_digest(torch, pred._kv, pages)
+                for tb in sorted({pred.pick_bucket(len(w[1]) - len(prefix))
+                                  for w in work if w[2]}):
+                    n = min(tb, pred.max_ctx - len(prefix) - 3)
+                    srv.generate(np.asarray(prefix + [1] * n, np.int32),
+                                 max_new_tokens=2)
+            # the served logits of the first two shared requests: the tail
+            # prefill's (or the full prefill's) last row, every decode row
+            watched = {np.asarray(work[i][1], np.int32).tobytes(): {}
+                       for i in shared[:2]}
+            tails = {np.asarray(work[i][1][len(prefix):], np.int32)
+                     .tobytes(): work[i][1] for i in shared[:2]}
+            prefill, extend_tail, decode = pred.prefill, pred.extend_tail, \
+                pred.decode
+
+            def rec_prefill(tokens, pages):
+                logits = prefill(tokens, pages)
+                key = np.asarray(tokens, np.int32).tobytes()
+                if key in watched:
+                    watched[key][len(tokens) - 1] = logits.copy()
+                return logits
+
+            def rec_tail(tokens, start_pos, pages):
+                logits = extend_tail(tokens, start_pos, pages)
+                full = tails.get(np.asarray(tokens, np.int32).tobytes())
+                if full is not None:
+                    key = np.asarray(full, np.int32).tobytes()
+                    watched[key][len(full) - 1] = logits.copy()
+                return logits
+
+            def rec_decode(tokens, positions, block_tables, active):
+                logits = decode(tokens, positions, block_tables, active)
+                for s in np.flatnonzero(active):
+                    key = srv._slot_req[s].tokens.tobytes()
+                    if key in watched:
+                        watched[key][int(positions[s])] = logits[s].copy()
+                return logits
+
+            pred.prefill, pred.extend_tail, pred.decode = \
+                rec_prefill, rec_tail, rec_decode
+            torch.cuda.synchronize()
+            profiler.generate_reset()
+            _reset_counts(fa)
+            results, wall = _replay(np, srv, work, t_["new"])
+            torch.cuda.synchronize()
+            launches = fa.flash_attention.launches
+            stats = srv.stats()
+            pred.prefill, pred.extend_tail, pred.decode = \
+                prefill, extend_tail, decode
+            in_use, index_pages = pred.pool.in_use, (
+                srv.prefix.pages if on else 0)
+            after = _kv_digest(torch, pred._kv, pages) if on else None
+            srv.clear_prefix()
+            pool = pred.pool.stats()
+            fwd = tfm.make_forward_fn(cfg)
+            errs = [_rows_vs_forward(
+                np, fwd, pred._params,
+                work[i][1] + results[i]["tokens"][:-1],
+                watched[np.asarray(work[i][1], np.int32).tobytes()],
+                "prefix") for i in shared[:2]]
+            runs[on] = dict(results=results, wall=wall, stats=stats,
+                            launches=launches, pool=pool, in_use=in_use,
+                            index_pages=index_pages, errs=errs,
+                            digests=(digest, after), fwd=fwd,
+                            params=pred._params)
+            ttft = [r["ttft_s"] for r in results]
+            ttft_sh = [results[i]["ttft_s"] for i in shared]
+            print("prefix %s: %d requests (%d shared) in %.3f s wall; TTFT "
+                  "p50 %.2f ms p99 %.2f ms (shared requests p50 %.2f ms p99 "
+                  "%.2f ms); busy_seconds %s; prefills %d, prefill_tokens %d, "
+                  "saved %d, prefix_hits %d, shared_pages %d, evictions %d, "
+                  "page_ref_high_water %s, prefix_pages %s; decode steps %d; "
+                  "B5 launches %d; served vs forward %s (tol %g)"
+                  % ("on" if on else "off", len(results), n_shared, wall,
+                     _pctl(ttft, 0.5) * 1e3, _pctl(ttft, 0.99) * 1e3,
+                     _pctl(ttft_sh, 0.5) * 1e3, _pctl(ttft_sh, 0.99) * 1e3,
+                     stats.get("busy_seconds"), stats["prefills"],
+                     stats["prefill_tokens"], stats["prefill_tokens_saved"],
+                     stats["prefix_hits"], stats["shared_pages"],
+                     stats["prefix_evictions"],
+                     stats.get("page_ref_high_water"),
+                     stats.get("prefix_pages"), stats["decode_steps"],
+                     launches, " ".join("%.4f" % e for e in errs),
+                     LOGIT_TOL))
+        finally:
+            srv.close()
+
+    off, on = runs[False], runs[True]
+    for run in (off, on):
+        for i, r in enumerate(run["results"]):
+            if len(r["tokens"]) != t_["new"] or \
+                    r["finish_reason"] != "length":
+                raise RuntimeError("prefix request %d: %d tokens, %r"
+                                   % (i, len(r["tokens"]),
+                                      r["finish_reason"]))
+        if max(run["errs"]) > LOGIT_TOL:
+            raise RuntimeError("prefix: served logits differ from the "
+                               "forward by %.4g" % max(run["errs"]))
+        p = run["pool"]
+        if p["in_use"] != 0 or p["allocs"] != p["frees"]:
+            raise RuntimeError("prefix: KV pages leaked: %r" % p)
+        st = run["stats"]
+        full = st["prefills"] - st["prefix_hits"]
+        if st["prefills"] != t_["requests"] or \
+                run["launches"] != cfg.n_layers * full:
+            raise RuntimeError("prefix: B5 launches %d != %d layers x %d "
+                               "full prefills" % (run["launches"],
+                                                  cfg.n_layers, full))
+    st_on, st_off = on["stats"], off["stats"]
+    if st_on["prefill_tokens"] + st_on["prefill_tokens_saved"] != \
+            st_off["prefill_tokens"]:
+        raise RuntimeError("prefix: prefill tokens %d + saved %d != %d"
+                           % (st_on["prefill_tokens"],
+                              st_on["prefill_tokens_saved"],
+                              st_off["prefill_tokens"]))
+    if st_on["prefix_hits"] != n_shared or st_off["prefix_hits"] != 0:
+        raise RuntimeError("prefix: %d hits for %d shared requests"
+                           % (st_on["prefix_hits"], n_shared))
+    if on["in_use"] != on["index_pages"]:
+        raise RuntimeError("prefix: %d pages in use with %d indexed"
+                           % (on["in_use"], on["index_pages"]))
+    before, after = on["digests"]
+    print("prefix: the %d shared prefix pages digest %s after seeding, %s "
+          "after the trace" % (t_["prefix"] // t_["page"], before, after))
+    if before != after:
+        raise RuntimeError("prefix: a shared prefix page was written")
+    _near_tie_pairs(torch, np, on["fwd"], on["params"],
+                    [(w[1], a["tokens"], b["tokens"]) for w, a, b in
+                     zip(work, off["results"], on["results"])], "prefix")
+    p99 = [_pctl([r["ttft_s"] for r in run["results"]], 0.99)
+           for run in (off, on)]
+    p50 = [_pctl([r["ttft_s"] for r in run["results"]], 0.5)
+           for run in (off, on)]
+    print("prefix: TTFT p50 off/on %.2f, p99 off/on %.2f; wall off %.3f s, "
+          "on %.3f s; prefill_tokens off %d, on %d + saved %d"
+          % (p50[0] / p50[1], p99[0] / p99[1], off["wall"], on["wall"],
+             st_off["prefill_tokens"], st_on["prefill_tokens"],
+             st_on["prefill_tokens_saved"]))
+    return on["launches"]
+
+
+def spec_serving_phase(torch, np, fa):
+    """The decode-heavy trace with spec_k 0, then 6 with a 1-layer
+    self-draft, and one request under generate:stall; returns the B5
+    launches of the speculative run."""
+    from mxnet_tpu_torch import chaos, profiler
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.serving import GenerateServer
+
+    t_ = SPEC_TRACE
+    cfg = tfm.TransformerConfig(**FULL)
+    params = _damp_upper_layers(tfm.init_params(cfg, seed=0), t_["damp"])
+    work = _spec_workload(cfg.vocab)
+    runs = {}
+    for k in (0, t_["k"]):
+        kw = dict(spec_k=k, draft=t_["draft"]) if k else dict(spec_k=0)
+        srv = GenerateServer(cfg, params, slots=t_["slots"],
+                             page_size=t_["page"], **kw)
+        try:
+            pred, draft = srv.predictor, srv.draft_predictor
+            for b in sorted({pred.pick_bucket(len(w[1])) for w in work}):
+                srv.generate(np.ones((min(b, pred.max_ctx - k - 3),),
+                                     np.int32), max_new_tokens=k + 2)
+            # the target's logits rows of the first two requests: decode
+            # rows (k = 0) or verify rows (k > 0), each with its input
+            # token, in call order
+            watched = {np.asarray(w[1], np.int32).tobytes(): []
+                       for w in work[:2]}
+            split = {"draft": [0, 0.0], "verify": [0, 0.0]}
+            decode, extend = pred.decode, pred.extend
+            timed_extend = _timed_calls(extend, split["verify"])
+
+            def rec_decode(tokens, positions, block_tables, active):
+                logits = decode(tokens, positions, block_tables, active)
+                for s in np.flatnonzero(active):
+                    key = srv._slot_req[s].tokens.tobytes()
+                    if key in watched:
+                        watched[key].append([(int(positions[s]),
+                                              int(tokens[s]),
+                                              logits[s].copy())])
+                return logits
+
+            def rec_extend(tokens, positions, block_tables, valid):
+                logits = timed_extend(tokens, positions, block_tables, valid)
+                for s in range(len(tokens)):
+                    r = srv._slot_req[s]
+                    if r is not None and r.tokens.tobytes() in watched:
+                        watched[r.tokens.tobytes()].append(
+                            [(int(positions[s, j]), int(tokens[s, j]),
+                              logits[s, j].copy())
+                             for j in np.flatnonzero(valid[s])])
+                return logits
+
+            if draft is not None:
+                draft_decode = draft.decode
+                draft.decode = _timed_calls(draft_decode, split["draft"])
+            pred.decode, pred.extend = rec_decode, rec_extend
+            torch.cuda.synchronize()
+            profiler.generate_reset()
+            _reset_counts(fa)
+            results, wall = _replay(np, srv, work, t_["new"])
+            torch.cuda.synchronize()
+            launches = fa.flash_attention.launches
+            stats = srv.stats()
+            pred.decode, pred.extend = decode, extend
+            pools = [pred.pool.stats()]
+            shares = True
+            if draft is not None:
+                draft.decode = draft_decode
+                pools.append(draft.pool.stats())
+                shares = all(
+                    v.untyped_storage().data_ptr()
+                    == pred._params[name].untyped_storage().data_ptr()
+                    for name, v in draft._params.items())
+            fwd = tfm.make_forward_fn(cfg)
+            errs, n_rows = [], 0
+            for w, r in zip(work[:2], results[:2]):
+                chain = list(w[1]) + r["tokens"]
+                rows = {}
+                for call in watched[np.asarray(w[1], np.int32).tobytes()]:
+                    for p, tok, logits in call:
+                        # a row is on the chain while its input tokens are
+                        # the chain's; past the chain's end, or after a
+                        # rejected proposal, the call's rows are not
+                        if p >= len(chain) or chain[p] != tok:
+                            break
+                        rows[p] = logits
+                n_rows += len(rows)
+                errs.append(_rows_vs_forward(np, fwd, pred._params,
+                                             chain, rows, "spec"))
+            # one round under torch.profiler, split on the host's clock
+            one = {"draft": [0, 0.0], "verify": [0, 0.0]}
+            if draft is not None:
+                draft.decode = _timed_calls(draft_decode, one["draft"])
+                pred.extend = _timed_calls(extend, one["verify"])
+                prof = {}
+                # a prefill, then one round: its k proposals cover the
+                # second token, whatever the draft gets right
+                _device_profile(torch, lambda: srv.generate(
+                    np.asarray(work[0][1], np.int32), max_new_tokens=2),
+                    stats=prof)
+                draft.decode, pred.extend = draft_decode, extend
+                print("spec one round: %d draft steps %.2f ms, %d verify "
+                      "%.2f ms on the host's clock; request wall %.2f ms, "
+                      "device busy %.2f ms (prefill included)"
+                      % (one["draft"][0], one["draft"][1] * 1e3,
+                         one["verify"][0], one["verify"][1] * 1e3,
+                         prof.get("wall_ms", float("nan")),
+                         prof.get("busy_ms", float("nan"))))
+                runs["stall"] = _stall_check(np, chaos, srv, work)
+            runs[k] = dict(results=results, wall=wall, stats=stats,
+                           launches=launches, pools=pools, shares=shares,
+                           errs=errs, fwd=fwd, params=pred._params)
+            n_tok = sum(len(r["tokens"]) for r in results)
+            rounds = stats.get("spec_rounds") or stats["decode_steps"]
+            print("spec k=%d: %d requests, %d tokens in %.3f s wall = %.1f "
+                  "tokens/s; busy_seconds %s; decode steps %d, spec_rounds "
+                  "%d, draft_proposed %d, accepted %d, acceptance_rate %s; "
+                  "prefills %d; B5 launches %d; host per round: draft %.2f "
+                  "steps %.3f ms, verify %.3f ms, busy %.3f ms (prefills "
+                  "included); %d rows vs forward %s (tol %g)"
+                  % (k, len(results), n_tok, wall, n_tok / wall,
+                     stats.get("busy_seconds"), stats["decode_steps"],
+                     stats["spec_rounds"], stats["draft_proposed"],
+                     stats["draft_accepted"], stats.get("acceptance_rate"),
+                     stats["prefills"], launches,
+                     split["draft"][0] / rounds, split["draft"][1] / rounds
+                     * 1e3, split["verify"][1] / rounds * 1e3,
+                     stats["busy_seconds"] / rounds * 1e3, n_rows,
+                     " ".join("%.4f" % e for e in errs), LOGIT_TOL))
+        finally:
+            srv.close()
+
+    base, spec = runs[0], runs[t_["k"]]
+    for k, run in ((0, base), (t_["k"], spec)):
+        for i, r in enumerate(run["results"]):
+            if len(r["tokens"]) != t_["new"] or \
+                    r["finish_reason"] != "length":
+                raise RuntimeError("spec k=%d request %d: %d tokens, %r"
+                                   % (k, i, len(r["tokens"]),
+                                      r["finish_reason"]))
+        if max(run["errs"]) > LOGIT_TOL:
+            raise RuntimeError("spec k=%d: served logits differ from the "
+                               "forward by %.4g" % (k, max(run["errs"])))
+        if any(p["in_use"] != 0 or p["allocs"] != p["frees"]
+               for p in run["pools"]):
+            raise RuntimeError("spec k=%d: KV pages leaked: %r"
+                               % (k, run["pools"]))
+        per_prefill = cfg.n_layers + (t_["draft"] if k else 0)
+        if run["stats"]["prefills"] != t_["requests"] or \
+                run["launches"] != per_prefill * run["stats"]["prefills"]:
+            raise RuntimeError("spec k=%d: B5 launches %d != %d x %d "
+                               "prefills" % (k, run["launches"], per_prefill,
+                                             run["stats"]["prefills"]))
+    st = spec["stats"]
+    if not (st["spec_rounds"] > 0 and st["draft_proposed"] > 0):
+        raise RuntimeError("spec: no speculative round ran: %r" % st)
+    if not spec["shares"]:
+        raise RuntimeError("spec: the draft's tensors are not the target's")
+    _near_tie_pairs(torch, np, spec["fwd"], spec["params"],
+                    [(w[1], a["tokens"], b["tokens"]) for w, a, b in
+                     zip(work, base["results"], spec["results"])], "spec")
+    rate = [sum(len(r["tokens"]) for r in run["results"]) / run["wall"]
+            for run in (base, spec)]
+    print("spec: tokens/s k=0 %.1f, k=%d %.1f, speedup %.3f at "
+          "acceptance_rate %s; %s"
+          % (rate[0], t_["k"], rate[1], rate[1] / rate[0],
+             st.get("acceptance_rate"), runs["stall"]))
+    return spec["launches"]
+
+
+def _stall_check(np, chaos, srv, work):
+    """One request under MXNET_FAULT_SPEC=generate:stall@req=1 with an EOS
+    its chain hits, and four behind it (one waits for a slot): the stalled
+    request finishes "length" at the cap past its EOS, the others are
+    served, and every page comes back."""
+    prompt = np.asarray(work[0][1], np.int32)
+    cap = 8
+    chain = srv.generate(prompt, max_new_tokens=cap)["tokens"]
+    eos = chain[1]
+    os.environ["MXNET_FAULT_SPEC"] = "generate:stall@req=1"
+    chaos.reset_engine()
+    try:
+        futs = [srv.submit(prompt, max_new_tokens=cap, eos_id=eos)
+                for _ in range(srv.predictor.slots + 1)]
+        res = [f.result(timeout=300) for f in futs]
+    finally:
+        del os.environ["MXNET_FAULT_SPEC"]
+        chaos.reset_engine()
+    stalled = res[0]
+    pools = [srv.predictor.pool.in_use, srv.draft_predictor.pool.in_use]
+    if stalled["finish_reason"] != "length" or \
+            len(stalled["tokens"]) != cap or \
+            eos not in stalled["tokens"][:-1] or any(pools):
+        raise RuntimeError("stall: %r, pages in use %s" % (stalled, pools))
+    reasons = [r["finish_reason"] for r in res[1:]]
+    return ("generate:stall@req=1: the stalled request passed its EOS and "
+            "finished %r with %d tokens; %d behind it finished %s; pages in "
+            "use %s" % (stalled["finish_reason"], len(stalled["tokens"]),
+                        len(reasons), "/".join(reasons), pools))
 
 
 
@@ -4490,6 +5036,10 @@ def main():
     phase("sass", sass_phase, _build)
     fwd = phase("kernel", kernel_phase, torch, fa)
     served = phase("serving", serving_phase, torch, np, fa)
+    fwd["prefix_launches"] = phase("prefix_serving", prefix_serving_phase,
+                                   torch, np, fa)
+    fwd["spec_launches"] = phase("spec_serving", spec_serving_phase, torch,
+                                 np, fa)
     conv = phase("conv_kernel", conv_kernel_phase, torch, fb)
     conv["launches"] = phase("resnet_serving", resnet_serving_phase, torch,
                              np, fb)
@@ -4539,14 +5089,17 @@ def main():
     for entry, n in zip([fwd, *bwd, conv, *grads], ssd_path):
         entry["ssd_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
-          "%d; generative serving B5 %d; image serving B1 %d; ResNet-50 "
+          "%d; generative serving B5 %d; shared-prefix serving (cache on) "
+          "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "
+          "ResNet-50 "
           "training %d steps B1 %d, B2 %d, B3 %d; TrainStep options %d "
           "steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 %d, B2 %d, "
           "B3 %d; data parallel, one rank over NCCL, %d steps B1 %d, B2 %d, "
           "B3 %d, each of %d gloo ranks %s; model zoo B5-B7 and B1-B3 %s; "
           "LM path (fit, serving, op sweep) B5-B7 and B1-B3 %s; SSD path "
           "(fit, detection, contrib sweep) B5-B7 and B1-B3 %s"
-          % (TRAIN_STEPS, *launches, served, conv["launches"],
+          % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
+             SPEC_TRACE["k"], fwd["spec_launches"], conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
              OPTIONS_STEPS * (len(REMAT_MODES) + 1), *options_launches,
              FIT_EPOCHS * FIT_COPIES, *fit_launches, DP_STEPS, *dp_nccl,

@@ -1,0 +1,285 @@
+"""Deterministic fault injection (counterpart of ``mxnet_tpu/chaos.py``).
+
+``MXNET_FAULT_SPEC`` describes exactly which process fails, where and
+how, and a hook fires the fault at the same point on every run. The
+grammar is the JAX package's, whole, so every spec parses (or fails to
+parse) alike in both packages::
+
+    spec   := rule (';' rule)*
+    rule   := target '@' params
+    target := ('worker'|'server'|'replica') ':' rank ':' action
+            | ('rpc'|'router') ':' 'drop'
+            | 'heartbeat' ':' 'stall'
+            | 'generate' ':' 'stall'
+            | 'autoscaler' ':' 'crash'
+    params := key '=' value (',' key '=' value)*
+
+with the JAX package's actions and required parameters: ``worker`` crash,
+nan or preempt and ``server`` crash or preempt at ``step=N``; ``replica``
+crash or stall at ``req=N``; ``rpc``/``router`` drop with ``p``/``seed``,
+``n``, ``phase`` (and ``op``, ``side`` for rpc only); ``heartbeat`` stall
+``after=N``; ``autoscaler`` crash at ``tick=N``; ``restart=K|any``.
+
+Wired in the port:
+
+``generate:stall@req=N``
+    The N-th ADMITTED generate request never emits EOS — the
+    wedged-generation simulation: the request's EOS check is suppressed
+    so only the ``MXNET_GENERATE_MAX_STEPS`` cap (or its deadline) can
+    finish it. The cap fires, the request finishes with reason
+    ``length``, and its batch slot and KV pages are reclaimed for the
+    requests queued behind it. Fires once (``restart`` gating defaults
+    to ``any``: the serving loop has no incarnations).
+
+Every other target's hook (worker, server, replica, rpc, router,
+heartbeat, autoscaler) is not ported yet: a spec naming one parses, and
+then :func:`engine` raises by name, because a chaos harness that silently
+does nothing would certify recovery paths that were never exercised. For
+the same reason a malformed spec raises :class:`FaultSpecError` at parse
+time.
+"""
+from __future__ import annotations
+
+import os
+import random
+import sys
+
+from . import config
+from .base import MXNetError
+
+_TARGETS = ("worker", "server", "replica", "rpc", "router", "heartbeat",
+            "generate", "autoscaler")
+_ACTIONS = {"worker": ("crash", "nan", "preempt"),
+            "server": ("crash", "preempt"),
+            "replica": ("crash", "stall"),
+            "rpc": ("drop",), "router": ("drop",),
+            "heartbeat": ("stall",),
+            "generate": ("stall",),
+            "autoscaler": ("crash",)}
+# targets whose hook the port has
+_WIRED = ("generate",)
+
+
+class FaultSpecError(ValueError):
+    """MXNET_FAULT_SPEC could not be parsed (or is inconsistent)."""
+
+
+def _parse_int(rule_text, key, value):
+    try:
+        return int(value)
+    except ValueError:
+        raise FaultSpecError(
+            "fault rule %r: %s=%r is not an integer" % (rule_text, key, value))
+
+
+class _Rule:
+    __slots__ = ("text", "target", "rank", "action", "params", "rng",
+                 "fired", "matched")
+
+    def __init__(self, text):
+        self.text = text
+        self.fired = 0
+        self.matched = 0
+        head, sep, tail = text.partition("@")
+        if not sep or not tail:
+            raise FaultSpecError(
+                "fault rule %r: expected '<target>@<k=v,...>'" % text)
+        parts = head.split(":")
+        if parts[0] not in _TARGETS:
+            raise FaultSpecError(
+                "fault rule %r: unknown target %r (expected one of %s)"
+                % (text, parts[0], "/".join(_TARGETS)))
+        self.target = parts[0]
+        if self.target in ("worker", "server", "replica"):
+            if len(parts) != 3:
+                raise FaultSpecError(
+                    "fault rule %r: expected '%s:<rank>:<action>@...'"
+                    % (text, self.target))
+            self.rank = _parse_int(text, "rank", parts[1])
+            self.action = parts[2]
+        else:
+            if len(parts) != 2:
+                raise FaultSpecError(
+                    "fault rule %r: expected '%s:<action>@...'"
+                    % (text, self.target))
+            self.rank = None
+            self.action = parts[1]
+        if self.action not in _ACTIONS[self.target]:
+            raise FaultSpecError(
+                "fault rule %r: target %r supports actions %s, got %r"
+                % (text, self.target, "/".join(_ACTIONS[self.target]),
+                   self.action))
+        self.params = {}
+        for kv in tail.split(","):
+            k, sep, v = kv.partition("=")
+            if not sep or not k:
+                raise FaultSpecError(
+                    "fault rule %r: bad parameter %r (expected k=v)"
+                    % (text, kv))
+            self.params[k.strip()] = v.strip()
+        self._validate()
+        p = self.params.get("p")
+        self.rng = random.Random(_parse_int(text, "seed",
+                                            self.params.get("seed", "0"))) \
+            if p is not None else None
+
+    def _validate(self):
+        p = self.params
+        if self.target in ("replica", "generate"):
+            # replica/generate faults count admitted requests, not
+            # train steps
+            if "req" not in p:
+                raise FaultSpecError(
+                    "fault rule %r: %s %s requires req=N"
+                    % (self.text, self.target, self.action))
+        elif self.target == "autoscaler":
+            # autoscaler faults count control ticks — the controller
+            # has neither train steps nor admitted requests
+            if "tick" not in p:
+                raise FaultSpecError(
+                    "fault rule %r: autoscaler crash requires tick=N"
+                    % self.text)
+        elif self.action in ("crash", "nan", "preempt") and "step" not in p:
+            raise FaultSpecError(
+                "fault rule %r: %s requires step=N"
+                % (self.text, self.action))
+        if self.target == "heartbeat" and "after" not in p:
+            raise FaultSpecError(
+                "fault rule %r: stall requires after=N" % self.text)
+        if self.target == "router":
+            for bad in ("op", "side"):
+                if bad in p:
+                    raise FaultSpecError(
+                        "fault rule %r: %s only applies to rpc rules "
+                        "(the router drop always targets the "
+                        "router→replica forward)" % (self.text, bad))
+        for key in ("step", "after", "req", "n", "seed", "tick"):
+            if key in p:
+                _parse_int(self.text, key, p[key])
+        if "p" in p:
+            try:
+                prob = float(p["p"])
+            except ValueError:
+                raise FaultSpecError(
+                    "fault rule %r: p=%r is not a float"
+                    % (self.text, p["p"]))
+            if not 0.0 <= prob <= 1.0:
+                raise FaultSpecError(
+                    "fault rule %r: p=%s out of [0, 1]" % (self.text, prob))
+        if p.get("phase", "send") not in ("send", "reply"):
+            raise FaultSpecError(
+                "fault rule %r: phase must be send|reply" % self.text)
+        if p.get("side", "client") not in ("client", "server"):
+            raise FaultSpecError(
+                "fault rule %r: side must be client|server" % self.text)
+        if p.get("side") == "server" and "phase" in p:
+            # the server hook fires before the op is applied — there is
+            # no reply phase there; silently ignoring the param would
+            # certify a recovery path that was never exercised
+            raise FaultSpecError(
+                "fault rule %r: phase only applies to side=client "
+                "(the server-side drop always happens before the op "
+                "is applied)" % self.text)
+        restart = p.get("restart")
+        if restart is not None and restart != "any":
+            _parse_int(self.text, "restart", restart)
+
+    # -- matching ------------------------------------------------------------
+    def restart_matches(self, restart, default="0"):
+        want = self.params.get("restart", default)
+        if want == "any":
+            return True
+        return int(want) == restart
+
+    def should_fire(self):
+        """Count/probability gate shared by rpc/heartbeat rules; call
+        only after the structural match succeeded."""
+        self.matched += 1
+        if "n" in self.params:
+            return self.matched <= int(self.params["n"])
+        if self.rng is not None:
+            return self.rng.random() < float(self.params["p"])
+        return True
+
+
+def parse_spec(text):
+    """MXNET_FAULT_SPEC text -> [_Rule]. Raises FaultSpecError."""
+    rules = []
+    for chunk in (text or "").split(";"):
+        chunk = chunk.strip()
+        if chunk:
+            rules.append(_Rule(chunk))
+    return rules
+
+
+class ChaosEngine:
+    """One process's view of the fault spec: its restart count
+    (incarnation) and its count of admitted generate requests; fires the
+    matching rules. A rule whose target has no hook in the port raises."""
+
+    def __init__(self, spec, restart=None):
+        self.rules = parse_spec(spec)
+        for rule in self.rules:
+            if rule.target not in _WIRED:
+                raise MXNetError(
+                    "MXNET_FAULT_SPEC rule %r: the %s hook is not ported "
+                    "yet (ROADMAP.md Queue A item 10)"
+                    % (rule.text, rule.target))
+        if restart is None:
+            restart = os.environ.get("DMLC_RESTART_COUNT", "0")
+        self.restart = int(restart or 0)
+        self._gen_reqs = 0
+
+    def generate_request(self):
+        """Count one admitted generate request; returns ``"stall"``
+        when this request must never emit EOS (generate:stall@req=N —
+        only the max-decode-steps cap or its deadline can finish it),
+        None otherwise."""
+        self._gen_reqs += 1
+        for rule in self.rules:
+            if rule.target != "generate" or rule.action != "stall":
+                continue
+            if not rule.restart_matches(self.restart, default="any"):
+                continue
+            if self._gen_reqs == int(rule.params["req"]) \
+                    and not rule.fired:
+                rule.fired += 1
+                print("[chaos] suppressing EOS (generate stall): rule "
+                      "%r fired at generate request %d"
+                      % (rule.text, self._gen_reqs),
+                      file=sys.stderr, flush=True)
+                return "stall"
+        return None
+
+
+# ---------------------------------------------------------------------------
+# process-wide engine (env-driven), with cheap no-op fast path
+# ---------------------------------------------------------------------------
+_UNSET = object()
+_ENGINE = _UNSET
+
+
+def engine():
+    """The process's ChaosEngine, parsed once from MXNET_FAULT_SPEC;
+    None when the env var is unset/empty (the common case — every hook
+    is then a single attribute check). Raises while the spec names a
+    target whose hook is not ported."""
+    global _ENGINE
+    if _ENGINE is _UNSET:
+        spec = (config.get("MXNET_FAULT_SPEC") or "").strip()
+        _ENGINE = ChaosEngine(spec) if spec else None
+    return _ENGINE
+
+
+def reset_engine():
+    """Forget the cached engine (tests that monkeypatch the env)."""
+    global _ENGINE
+    _ENGINE = _UNSET
+
+
+def generate_fault():
+    """Per-admitted-generate-request hook (serving/broker.py
+    GenerateServer): returns ``"stall"`` when the request must never
+    emit EOS, None otherwise."""
+    e = engine()
+    return e.generate_request() if e is not None else None

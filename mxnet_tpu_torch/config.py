@@ -34,17 +34,35 @@ KNOBS = {
         "8", "decode steps between stream_fn token flushes; integer >= 1 "
         "(serving/broker.py)"),
     "MXNET_GENERATE_PREFIX_CACHE": (
-        "0", "shared-prefix KV cache; not ported yet, so only 0/false is "
-        "accepted by GenerateServer (serving/broker.py)"),
+        "0", "enable the shared-prefix KV cache: a radix index over full "
+        "KV pages keyed by token-id page runs; admission matches the "
+        "longest cached prefix, shares those pages copy-on-write via "
+        "per-page refcounts and prefills only the uncovered tail; off "
+        "(the default) is bit-identical to the unshared path; "
+        "0/1/true/false (serving/broker.py GenerateServer)"),
     "MXNET_GENERATE_PREFIX_EVICT": (
-        "0", "max KV pages the prefix index may pin; integer >= 0 "
-        "(serving/broker.py)"),
+        "0", "max KV pages the prefix index may pin; crossing the bound "
+        "evicts least-recently-matched entries, and pool pressure "
+        "evicts regardless (sharing never causes a PagePoolExhausted "
+        "a no-sharing run would avoid); 0 = bounded only by pool "
+        "pressure; integer >= 0 (serving/broker.py GenerateServer)"),
     "MXNET_GENERATE_SPEC_K": (
-        "0", "speculative-decoding depth; not ported yet, so only 0 is "
-        "accepted by GenerateServer (serving/broker.py)"),
+        "0", "speculative-decoding depth: the draft model proposes k "
+        "tokens per slot per round and ONE batched verify step of the "
+        "target model accepts the longest agreeing prefix (greedy "
+        "token-for-token parity with non-speculative decode); 0 "
+        "disables; integer >= 0 (serving/broker.py GenerateServer)"),
     "MXNET_GENERATE_DRAFT": (
-        "0", "self-draft layer count for speculative decoding; integer "
-        ">= 0 (serving/broker.py)"),
+        "0", "self-draft layer count for speculative decoding: the draft "
+        "model is the target's FIRST N transformer layers sharing "
+        "embed/pos/final-LN (models/transformer.py draft_from_layers); "
+        "0 means an explicit draft_config=/draft_params= must be "
+        "passed when MXNET_GENERATE_SPEC_K > 0; integer >= 0 "
+        "(serving/broker.py GenerateServer)"),
+    "MXNET_FAULT_SPEC": (
+        "", "deterministic fault injection rules (chaos.py grammar); the "
+        "port wires the generate:stall hook only, and a rule for another "
+        "target raises by name (chaos.py)"),
     "MXNET_SERVE_BATCH_LADDER": (
         "1,4,16,64", "comma-separated batch-size buckets the AOT predictor "
         "binds; requests pad up to the nearest bucket (serving/predictor.py; "

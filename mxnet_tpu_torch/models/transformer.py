@@ -22,6 +22,12 @@ compare one to one with the reference:
 - :func:`make_decode_fn`   one token per batch slot: write its K/V at
                            (page, offset) from its position, attend over
                            the pages the slot's block table names.
+- :func:`make_extend_fn`   T tokens per batch slot in one call, each row
+                           under its own causal mask: the shared-prefix
+                           tail prefill and the speculative verify step.
+                           Decode is its T = 1 case.
+- :func:`draft_from_layers` the self-draft: the target's first n layers,
+                           sharing its tensors.
 
 Attention in the causal forward is the flash-attention kernel
 (:mod:`..kernels.flash_attention`) on a CUDA tensor and its plain version
@@ -35,10 +41,9 @@ JAX's functions are pure and donate the cache buffer and the train
 carry; here the cache and the train step's params and optimizer state
 are updated in place and the same tensors are returned.
 
-Not ported yet (ROADMAP.md Queue A item 8): ``make_extend_fn`` and
-speculative drafts, mesh / ``mp`` sharding (``param_specs``), ring and
-Ulysses attention, MoE (``n_experts > 0``) and the schedule-table consult
-for attention blocks.
+Not ported yet (ROADMAP.md Queue A item 8): mesh / ``mp`` sharding
+(``param_specs``), ring and Ulysses attention, MoE (``n_experts > 0``) and
+the schedule-table consult for attention blocks.
 """
 from __future__ import annotations
 
@@ -57,7 +62,7 @@ from ..parallel.spmd import FunctionalOptimizer, functional_optimizer
 __all__ = ["TransformerConfig", "init_params", "params_from_jax",
            "make_loss_fn", "make_train_step", "make_forward_fn",
            "init_kv_cache", "make_prefill_fn", "make_decode_fn",
-           "torch_dtype"]
+           "make_extend_fn", "draft_from_layers", "torch_dtype"]
 
 _NEG_INF = -1e30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -362,24 +367,65 @@ def make_prefill_fn(config, page_size, device=None):
     return prefill
 
 
-def _paged_decode_attention(q, k, v, positions):
-    """Decode attention for one query token per slot. q: (B, H, 1, Dh);
-    k/v: (B, H, L, Dh) gathered from the page pool; key column j of slot
-    b is valid iff j <= positions[b] (the slot's own token was written
-    before the call). fp32 softmax with q scaled in fp32 first; one pass
-    over L computes the function the JAX package's blocked loop does."""
+def _paged_extend_attention(q, k, v, positions):
+    """Paged attention for T query tokens per slot. q: (B, H, T, Dh); k/v:
+    (B, H, L, Dh) gathered from the page pool; query row t of slot b sits
+    at ``positions[b, t]`` and attends key column j iff ``j <=
+    positions[b, t]`` (every row's own token was written before the call).
+    One call serves the decode step (T = 1), the shared-prefix tail
+    prefill and the speculative verify (the pending token + k proposals).
+    fp32 softmax with q scaled in fp32 first; one pass over L computes the
+    function the JAX package's blocked loop does."""
     Dh = k.shape[-1]
     L = k.shape[2]
-    q32 = q[:, :, 0, :].float() * (1.0 / (Dh ** 0.5))          # (B, H, Dh)
-    s = torch.einsum("bhd,bhkd->bhk", q32, k.float())
+    q32 = q.float() * (1.0 / (Dh ** 0.5))                     # (B, H, T, Dh)
+    s = torch.einsum("bhtd,bhkd->bhtk", q32, k.float())
     cols = torch.arange(L, device=k.device)
-    ok = cols[None, None, :] <= positions[:, None, None]
+    ok = cols[None, None, None, :] <= positions[:, None, :, None]
     s = torch.where(ok, s, torch.tensor(_NEG_INF, device=k.device))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l_safe = p.sum(dim=-1).clamp_min(1e-30)
-    out = torch.einsum("bhk,bhkd->bhd", p, v.float()) / l_safe[..., None]
-    return out[:, :, None, :].to(q.dtype)                      # (B, H, 1, Dh)
+    out = torch.einsum("bhtk,bhkd->bhtd", p, v.float()) / l_safe[..., None]
+    return out.to(q.dtype)                                    # (B, H, T, Dh)
+
+
+def _paged_blocks(params, cache, tokens, positions, block_tables, valid, c,
+                  cdt, page_size):
+    """The layer stack of the paged steps (decode and extend): tokens,
+    positions and valid (S, T), block_tables (S, MP); returns the final
+    hidden states (S, T, d). Token (b, t) is written at page
+    ``block_tables[b, positions[b, t] // page_size]`` offset
+    ``positions[b, t] % page_size`` in place, all T rows of a layer before
+    that layer's gather. Invalid rows, and rows past the table, write to
+    the scratch page: they are the only rows that may share an index, so
+    ``index_put_``'s unordered duplicate writes never touch a live page.
+    The caller clamps positions at 0 and clears ``valid`` past the
+    table."""
+    S = tokens.shape[0]
+    mp = block_tables.shape[1]
+    max_ctx = mp * page_size
+    emb, pos_w = params["embed_weight"], params["pos_embed_weight"]
+    x = emb[tokens.clamp(0, emb.shape[0] - 1)] \
+        + pos_w[positions.clamp(0, pos_w.shape[0] - 1)]
+    x = x.to(cdt)                                               # (S, T, d)
+    offset = positions % page_size
+    page = block_tables.gather(1, (positions // page_size).clamp(0, mp - 1))
+    page = torch.where(valid, page, 0)
+    for i in range(c.n_layers):
+        lp = _layer(params, i)
+        h = _layernorm(x, lp["ln1_gamma"], lp["ln1_beta"])
+        q, k, v = _qkv(h, lp, cdt)                          # (S, H, T, Dh)
+        cache[i, 0, page, offset] = k.transpose(1, 2).to(cache.dtype)
+        cache[i, 1, page, offset] = v.transpose(1, 2).to(cache.dtype)
+        # paged gather: (S, MP, page, H, Dh) -> (S, H, L, Dh)
+        kg = cache[i, 0][block_tables].reshape(
+            S, max_ctx, c.n_heads, -1).transpose(1, 2)
+        vg = cache[i, 1][block_tables].reshape(
+            S, max_ctx, c.n_heads, -1).transpose(1, 2)
+        o = _paged_extend_attention(q, kg, vg, positions)
+        x = _ffn(x + _out_proj(o, lp, cdt), lp, cdt)
+    return x
 
 
 def make_decode_fn(config, slots, max_pages_per_slot, page_size,
@@ -395,46 +441,84 @@ def make_decode_fn(config, slots, max_pages_per_slot, page_size,
     logits. Inactive slots compute too but write to the scratch page and
     get zero logits. Params and cache must lie on ``device`` (default
     ``cuda``)."""
+    extend = make_extend_fn(config, slots, 1, max_pages_per_slot, page_size,
+                            device)
+
+    def decode(params, cache, tokens, positions, block_tables, active):
+        if len(tokens) != slots:
+            raise MXNetError("decode: %d tokens for %d slots"
+                             % (len(tokens), slots))
+        cache, logits = extend(params, cache, tokens[:, None],
+                               positions[:, None], block_tables,
+                               active[:, None])
+        return cache, logits[:, 0]
+
+    return decode
+
+
+def make_extend_fn(config, slots, steps, max_pages_per_slot, page_size,
+                   device=None):
+    """fn(params, cache, tokens (S, T) int, positions (S, T) int,
+    block_tables (S, max_pages_per_slot) int, valid (S, T) bool) ->
+    (cache, logits (S, T, V) fp32), ``S == slots``, ``T == steps``.
+
+    The multi-token form of :func:`make_decode_fn`: each slot appends up
+    to T tokens against its cached pages in one call. Token (b, t) is
+    written at page ``block_tables[b, positions[b, t] // page_size]``
+    offset ``positions[b, t] % page_size``, then every row attends the
+    slot's gathered pages under the per-row mask ``col <= positions[b,
+    t]``; all T writes of a layer land before its gather, so row t sees
+    rows < t of its own call. Two callers: the shared-prefix tail prefill
+    (S = 1, rows at ``prefix_len..prompt_len - 1``, all past the shared
+    pages, which it therefore never writes) and the speculative verify
+    (rows are the pending token and k draft proposals).
+
+    Invalid rows (``valid`` False: padded tails, slots speculating fewer
+    than k tokens) write to the scratch page and get zero logits, as do
+    rows at or past ``max_pages_per_slot * page_size``. Positions are
+    clamped at 0. Params and cache must lie on ``device`` (default
+    ``cuda``)."""
     _check_dense(config)
     c = config
     cdt = torch_dtype(c.dtype)
     page_size = int(page_size)
-    max_ctx = int(max_pages_per_slot) * page_size
     dev = resolve_device(device)
 
     @torch.inference_mode()
-    def decode(params, cache, tokens, positions, block_tables, active):
-        emb = params["embed_weight"]
-        _check_on(dev, params=emb, cache=cache)
+    def extend(params, cache, tokens, positions, block_tables, valid):
+        _check_on(dev, params=params["embed_weight"], cache=cache)
         tokens = _as_long(tokens, dev)
         positions = _as_long(positions, dev)
         block_tables = _as_long(block_tables, dev)
-        active = torch.as_tensor(active, device=dev).bool()
-        S = tokens.shape[0]
-        if S != slots:
-            raise MXNetError("decode: %d tokens for %d slots" % (S, slots))
-        pos_w = params["pos_embed_weight"]
-        x = emb[tokens.clamp(0, emb.shape[0] - 1)] \
-            + pos_w[positions.clamp(0, pos_w.shape[0] - 1)]
-        x = x.to(cdt)[:, None, :]                               # (S, 1, d)
-        offset = positions % page_size
-        page = block_tables.gather(1, (positions // page_size)[:, None])[:, 0]
-        # inactive slots (and any unset table entry) write to scratch
-        page = torch.where(active, page, 0)
-        for i in range(c.n_layers):
-            lp = _layer(params, i)
-            h = _layernorm(x, lp["ln1_gamma"], lp["ln1_beta"])
-            q, k, v = _qkv(h, lp, cdt)                  # (S, H, 1, Dh)
-            cache[i, 0, page, offset] = k[:, :, 0, :].to(cache.dtype)
-            cache[i, 1, page, offset] = v[:, :, 0, :].to(cache.dtype)
-            # paged gather: (S, MP, page, H, Dh) -> (S, H, L, Dh)
-            kg = cache[i, 0][block_tables].reshape(
-                S, max_ctx, c.n_heads, -1).transpose(1, 2)
-            vg = cache[i, 1][block_tables].reshape(
-                S, max_ctx, c.n_heads, -1).transpose(1, 2)
-            o = _paged_decode_attention(q, kg, vg, positions)
-            x = _ffn(x + _out_proj(o, lp, cdt), lp, cdt)
-        logits = _logits(x, params, cdt)[:, 0]
-        return cache, torch.where(active[:, None], logits, 0.0)
+        valid = torch.as_tensor(valid, device=dev).bool()
+        if tuple(tokens.shape) != (slots, steps):
+            raise MXNetError("extend: tokens of shape %s for (slots, steps) "
+                             "(%d, %d)" % (tuple(tokens.shape), slots, steps))
+        if block_tables.shape[1] != max_pages_per_slot:
+            raise MXNetError("extend: block tables of %d pages a slot, made "
+                             "for %d" % (block_tables.shape[1],
+                                         max_pages_per_slot))
+        positions = positions.clamp_min(0)
+        valid = valid & (positions < max_pages_per_slot * page_size)
+        x = _paged_blocks(params, cache, tokens, positions, block_tables,
+                          valid, c, cdt, page_size)
+        return cache, torch.where(valid[..., None], _logits(x, params, cdt),
+                                  0.0)
 
-    return decode
+    return extend
+
+
+def draft_from_layers(config, params, n_layers):
+    """Self-draft for speculative decoding: the FIRST ``n_layers`` blocks
+    of the target, sharing its embedding, position and final-LN tensors.
+    Returns ``(draft_config, draft_params)``: the shared tensors are the
+    target's own objects and every stacked per-layer tensor is the view
+    ``v[:n_layers]``, so nothing is copied. Raises ``ValueError`` outside
+    ``[1, config.n_layers]``."""
+    n = int(n_layers)
+    if not 1 <= n <= config.n_layers:
+        raise ValueError(
+            "draft_from_layers: n_layers must lie in [1, %d], got %d"
+            % (config.n_layers, n))
+    dparams = {k: (v if k in _GLOBAL else v[:n]) for k, v in params.items()}
+    return dataclasses.replace(config, n_layers=n), dparams

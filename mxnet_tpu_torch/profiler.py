@@ -4,9 +4,13 @@ of ``mxnet_tpu/profiler.py``).
 - ``generate_record`` / ``generate_stats`` / ``generate_reset``:
   request/prefill/decode-step/token counts, finish reasons, requests shed
   at dequeue, slot occupancy (active-slot-steps / slot-steps), a
-  time-to-first-token reservoir and the page-pool gauge
+  time-to-first-token reservoir, the page-pool gauge
   (``pages_in_use == 0`` after a drained run is the exact-accounting
-  check).
+  check), the shared-prefix counters (``prefix_hits``, ``shared_pages``,
+  ``prefill_tokens_saved``, ``prefix_evictions``; gauges
+  ``page_ref_high_water`` and ``prefix_pages``) and the speculative ones
+  (``draft_proposed``, ``draft_accepted``, ``spec_rounds``; derived
+  ``acceptance_rate``).
 - ``serving_record`` / ``serving_stats`` / ``serving_reset``: per-model
   counters of the dynamic-batching ``ModelServer`` (requests, batches,
   rows against bucket capacity, shed, errors, queue depth, request
@@ -39,9 +43,18 @@ _GEN_ZERO = {
     "deadline": 0, "exhausted": 0, "errors": 0, "shed": 0,
     "slot_steps": 0, "active_slot_steps": 0, "max_queue_depth": 0,
     "busy_seconds": 0.0,   # prefill + decode compute time (floats)
+    # shared-prefix KV cache: admissions that matched a cached prefix,
+    # pages borrowed copy-on-write, prompt tokens whose prefill was
+    # skipped, and least-recently-matched evictions
+    "prefix_hits": 0, "shared_pages": 0, "prefill_tokens_saved": 0,
+    "prefix_evictions": 0,
+    # speculative decoding: draft-proposed vs verify-accepted tokens
+    # (their ratio is generate_stats' acceptance_rate) and verify rounds
+    "draft_proposed": 0, "draft_accepted": 0, "spec_rounds": 0,
 }
 _GEN_FLOATS = ("busy_seconds",)
-_GEN_GAUGES = ("pages_in_use", "pages_high_water", "pool_pages")
+_GEN_GAUGES = ("pages_in_use", "pages_high_water", "pool_pages",
+               "page_ref_high_water", "prefix_pages")
 _GEN = dict(_GEN_ZERO)
 _GEN_PAGES = {}
 _GEN_TTFT_CAP = 8192
@@ -98,6 +111,10 @@ def generate_stats(reset=False):
         # generated tokens over prefill+decode compute time
         snap["tokens_s"] = round(snap["tokens"] / snap["busy_seconds"], 1)
         snap["busy_seconds"] = round(snap["busy_seconds"], 4)
+    if snap["draft_proposed"]:
+        # the share of draft proposals the target's verify accepted
+        snap["acceptance_rate"] = round(
+            snap["draft_accepted"] / snap["draft_proposed"], 3)
     if ttft:
         snap["ttft_p50_ms"] = _percentile_ms(ttft, 0.50)
         snap["ttft_p99_ms"] = _percentile_ms(ttft, 0.99)

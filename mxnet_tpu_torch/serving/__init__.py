@@ -1,7 +1,8 @@
 """Serving on PyTorch (counterpart of ``mxnet_tpu/serving``): the
 bound-symbol :class:`AOTPredictor` behind the dynamic-batching
 :class:`ModelServer`, and generative serving (paged KV cache, prefill +
-decode, the continuous-batching :class:`GenerateServer`)."""
+decode, the continuous-batching :class:`GenerateServer` with its
+shared-prefix KV cache and speculative decoding)."""
 from .broker import (
     DeadlineExceeded,
     GenerateServer,
@@ -14,10 +15,11 @@ from .generate import (
     GenerativePredictor,
     PagePool,
     PagePoolExhausted,
+    PrefixIndex,
 )
 from .predictor import AOTPredictor, ServingError
 
 __all__ = ["AOTPredictor", "DeadlineExceeded", "GenerateError",
            "GenerateServer", "GenerativePredictor", "ModelServer", "PagePool",
-           "PagePoolExhausted", "ServerClosed", "ServerOverloaded",
-           "ServingError"]
+           "PagePoolExhausted", "PrefixIndex", "ServerClosed",
+           "ServerOverloaded", "ServingError"]

@@ -10,10 +10,8 @@ loop with a bounded deadline and fails queued and in-flight requests
 loudly.
 
 Not ported yet: ``ModelServer``'s tenant/priority QoS classes, its
-checkpoint hot swap (``swap_from_checkpoint``) and the chaos hooks;
-``GenerateServer``'s shared-prefix KV cache (``prefix_cache``),
-speculative decoding (``spec_k``) and the ``generate:stall`` hook
-(ROADMAP.md Queue A items 8 and 11).
+checkpoint hot swap (``swap_from_checkpoint``) and its chaos hooks
+(ROADMAP.md Queue A items 10 and 11).
 """
 from __future__ import annotations
 
@@ -24,11 +22,12 @@ from concurrent.futures import Future
 
 import numpy as np
 
-from .. import profiler
+from .. import chaos, profiler
 from .generate import (
     GenerateError,
     GenerativePredictor,
     PagePoolExhausted,
+    PrefixIndex,
     _env_nonneg_int,
     _env_positive_int,
     _env_strict_bool,
@@ -380,8 +379,9 @@ class ModelServer:
 
 class _GenRequest:
     __slots__ = ("tokens", "max_new", "eos_id", "future", "stream_fn",
-                 "t_submit", "deadline", "out", "pages", "slot", "ttft",
-                 "unflushed")
+                 "t_submit", "deadline", "no_eos", "out", "pages", "slot",
+                 "ttft", "unflushed", "prefix_len", "shared", "draft_pages",
+                 "draft_pos")
 
     def __init__(self, tokens, max_new, eos_id, deadline, stream_fn):
         self.tokens = tokens
@@ -391,11 +391,16 @@ class _GenRequest:
         self.stream_fn = stream_fn
         self.t_submit = time.perf_counter()
         self.deadline = deadline     # absolute time.monotonic(), or None
+        self.no_eos = False          # chaos generate:stall: never sees EOS
         self.out = []
         self.pages = []
         self.slot = None
         self.ttft = None
         self.unflushed = []
+        self.prefix_len = 0          # tokens covered by shared prefix pages
+        self.shared = 0              # pages borrowed from the prefix index
+        self.draft_pages = []        # draft predictor's pages (spec decode)
+        self.draft_pos = 0           # next position the draft cache needs
 
 
 class GenerateServer:
@@ -423,6 +428,17 @@ class GenerateServer:
     ``MXNET_GENERATE_STREAM_FLUSH`` decode steps. Sampling is greedy:
     ``np.argmax`` of the host logits, first index on ties.
 
+    ``prefix_cache`` (``MXNET_GENERATE_PREFIX_CACHE``) turns on the
+    shared-prefix KV cache: admission matches the longest indexed run of
+    full prompt pages (:class:`~.generate.PrefixIndex`), shares those
+    pages copy-on-write and prefills only the tail; ``prefix_evict``
+    bounds the pages the index may pin. ``spec_k``
+    (``MXNET_GENERATE_SPEC_K``) > 0 turns on speculative decoding: a
+    draft model (the target's first ``draft`` layers, or
+    ``draft_config``/``draft_params``) proposes up to k tokens a slot,
+    and one ``extend`` of the target verifies them. Both give the same
+    greedy tokens as the plain path.
+
     ``device`` defaults to ``cuda`` (raising when there is none); pass
     ``device="cpu"`` to serve on the CPU.
     """
@@ -434,8 +450,9 @@ class GenerateServer:
                  slots=None, page_size=None, pool_bytes=None,
                  max_steps=None, stream_flush=None, queue_depth=None,
                  submit_timeout=None, admit_policy="continuous",
-                 prefix_cache=None, spec_k=None, device=None,
-                 name="generate", **pred_kwargs):
+                 prefix_cache=None, prefix_evict=None, spec_k=None,
+                 draft=None, draft_config=None, draft_params=None,
+                 device=None, name="generate", **pred_kwargs):
         if predictor is None and (config is None or params is None):
             raise GenerateError(
                 "GenerateServer: need either predictor= or "
@@ -444,19 +461,12 @@ class GenerateServer:
         # knob) before any device work or thread starts
         prefix_on = _env_strict_bool("MXNET_GENERATE_PREFIX_CACHE") \
             if prefix_cache is None else bool(prefix_cache)
-        _env_nonneg_int("MXNET_GENERATE_PREFIX_EVICT")
-        spec = _env_nonneg_int("MXNET_GENERATE_SPEC_K") \
+        prefix_bound = _env_nonneg_int("MXNET_GENERATE_PREFIX_EVICT") \
+            if prefix_evict is None else int(prefix_evict)
+        self._spec_k = _env_nonneg_int("MXNET_GENERATE_SPEC_K") \
             if spec_k is None else int(spec_k)
-        _env_nonneg_int("MXNET_GENERATE_DRAFT")
-        if prefix_on:
-            raise GenerateError(
-                "GenerateServer: prefix_cache (MXNET_GENERATE_PREFIX_CACHE) "
-                "is not ported yet (ROADMAP.md Queue A item 8)")
-        if spec > 0:
-            raise GenerateError(
-                "GenerateServer: speculative decoding (spec_k / "
-                "MXNET_GENERATE_SPEC_K=%d) is not ported yet (ROADMAP.md "
-                "Queue A item 8)" % spec)
+        draft_layers = _env_nonneg_int("MXNET_GENERATE_DRAFT") \
+            if draft is None else int(draft)
         if admit_policy not in ("continuous", "drain"):
             raise GenerateError("GenerateServer: admit_policy must be "
                                 "continuous|drain, got %r" % admit_policy)
@@ -482,6 +492,32 @@ class GenerateServer:
                 pool_bytes=pool_bytes, device=device, **pred_kwargs)
         self.predictor = predictor
         self.name = name
+        self._prefix = PrefixIndex(predictor.page_size, prefix_bound) \
+            if prefix_on else None
+        self._draft = None
+        if self._spec_k > 0:
+            if draft_config is None or draft_params is None:
+                if draft_layers < 1:
+                    raise GenerateError(
+                        "GenerateServer: speculative decoding "
+                        "(MXNET_GENERATE_SPEC_K=%d) needs a draft model: "
+                        "set MXNET_GENERATE_DRAFT >= 1 (self-draft layer "
+                        "count) or pass draft_config=/draft_params="
+                        % self._spec_k)
+                from ..models.transformer import draft_from_layers
+
+                try:
+                    draft_config, draft_params = draft_from_layers(
+                        predictor.config, predictor._params, draft_layers)
+                except ValueError as e:
+                    raise GenerateError("GenerateServer: %s" % e)
+            # the self-draft's tensors are views of the target's fp32
+            # params on the same device: the predictor keeps them as they
+            # are, so the draft copies nothing
+            self._draft = GenerativePredictor(
+                draft_config, draft_params, slots=predictor.slots,
+                page_size=predictor.page_size, pool_bytes=0,
+                max_ctx=predictor.max_ctx, device=predictor.device)
 
         S, MP = predictor.slots, predictor.max_pages_per_slot
         self._slot_req = [None] * S
@@ -489,6 +525,10 @@ class GenerateServer:
         self._positions = np.zeros((S,), np.int32)
         self._tokens = np.zeros((S,), np.int32)
         self._active = np.zeros((S,), bool)
+        # the draft model's own block tables (its pool is auto-sized to
+        # slots x max-context pages, so draft growth can never exhaust)
+        self._draft_bt = np.zeros((S, MP), np.int32) \
+            if self._draft is not None else None
 
         self._cond = threading.Condition()
         self._q = deque()
@@ -579,6 +619,48 @@ class GenerateServer:
     def _active_count(self):
         return int(self._active.sum())
 
+    def _alloc_pages(self, n):
+        """``pool.alloc`` with prefix-index pressure relief: under
+        exhaustion, evict least-recently-matched index entries until the
+        allocation fits or the index is empty, so sharing never causes a
+        :class:`PagePoolExhausted` a no-sharing run would avoid. (An
+        evicted page only becomes free once no live request still shares
+        it, hence the loop.)"""
+        pred = self.predictor
+        while True:
+            try:
+                return pred.pool.alloc(n)
+            except PagePoolExhausted:
+                if self._prefix is None or \
+                        not self._prefix.evict_lru(pred.pool):
+                    raise
+                profiler.generate_record(prefix_evictions=1)
+
+    def _reserve_pages(self, r):
+        """Reserve a request's KV pages at admission: match the longest
+        cached prefix (those pages are shared copy-on-write; the match
+        already took the request's reference on each) and allocate
+        private pages for the rest. On exhaustion the match references are
+        released and the FULL allocation is retried unshared (sharing must
+        never block an admission the unshared path could serve) before the
+        exhaustion propagates."""
+        pred = self.predictor
+        need = pred.pages_needed(r.tokens.shape[0])
+        matched = []
+        if self._prefix is not None:
+            matched = self._prefix.match([int(t) for t in r.tokens],
+                                         pred.pool)
+        try:
+            tail = self._alloc_pages(need - len(matched))
+        except PagePoolExhausted:
+            if not matched:
+                raise
+            pred.pool.unref(matched)
+            matched, tail = [], self._alloc_pages(need)
+        r.pages = matched + tail
+        r.shared = len(matched)
+        r.prefix_len = len(matched) * pred.page_size
+
     def _admit_locked(self):
         """Pop admissible requests into slots (shedding expired ones at
         dequeue); pages are reserved here so a request is only popped
@@ -598,7 +680,7 @@ class GenerateServer:
                 shed.append(self._q.popleft())
                 continue
             try:
-                r.pages = pred.pool.alloc(pred.pages_needed(r.tokens.shape[0]))
+                self._reserve_pages(r)
             except PagePoolExhausted:
                 if not admitted and self._active_count() == 0:
                     return admitted, shed, self._q.popleft()
@@ -615,7 +697,10 @@ class GenerateServer:
         s = self.predictor.pool.stats()
         profiler.generate_record(pages_in_use=s["in_use"],
                                  pages_high_water=s["high_water"],
-                                 pool_pages=s["num_pages"])
+                                 pool_pages=s["num_pages"],
+                                 page_ref_high_water=s["ref_high_water"])
+        if self._prefix is not None:
+            profiler.generate_record(prefix_pages=self._prefix.pages)
 
     def _vacate(self, r):
         slot = r.slot
@@ -626,10 +711,18 @@ class GenerateServer:
                 self._block_tables[slot, :] = 0
                 self._positions[slot] = 0
                 self._tokens[slot] = 0
+                if self._draft_bt is not None:
+                    self._draft_bt[slot, :] = 0
                 self._cond.notify_all()
         if r.pages:
+            # drops ONE reference per page: private pages free, shared
+            # prefix pages just decrement (the index and/or other
+            # requests still hold theirs)
             self.predictor.pool.free(r.pages)
             r.pages = []
+        if r.draft_pages:
+            self._draft.pool.free(r.draft_pages)
+            r.draft_pages = []
         self._record_pool()
 
     def _flush_stream(self, r, final=False):
@@ -665,7 +758,7 @@ class GenerateServer:
     def _check_done(self, r, tok):
         """EOS / length / deadline disposition for a just-produced
         token; returns True when the request left its slot."""
-        if r.eos_id is not None and tok == r.eos_id:
+        if r.eos_id is not None and tok == r.eos_id and not r.no_eos:
             self._finish(r, self.FINISH_EOS)
             return True
         if len(r.out) >= r.max_new:
@@ -680,9 +773,23 @@ class GenerateServer:
 
     def _prefill_one(self, r):
         pred = self.predictor
+        if chaos.generate_fault() == "stall":
+            r.no_eos = True    # the request that never emits EOS
         t0 = time.perf_counter()
         try:
-            logits = pred.prefill(r.tokens, r.pages)
+            if r.prefix_len:
+                # shared-prefix admission: the first prefix_len tokens'
+                # K/V already live in the matched (shared) pages; run only
+                # the uncovered tail, which attends the shared pages but
+                # writes only the private ones (copy-on-write)
+                logits = pred.extend_tail(r.tokens[r.prefix_len:],
+                                          r.prefix_len, r.pages)
+            else:
+                logits = pred.prefill(r.tokens, r.pages)
+            if self._draft is not None:
+                r.draft_pages = self._draft.pool.alloc(
+                    self._draft.pages_needed(r.tokens.shape[0]))
+                self._draft.prefill(r.tokens, r.draft_pages)
         except Exception as e:
             self._fail(r, e)
             return
@@ -692,40 +799,64 @@ class GenerateServer:
         r.out.append(tok)
         r.unflushed.append(tok)
         # tokens counts every GENERATED token; the first one comes out
-        # of prefill, the rest out of decode steps
+        # of prefill, the rest out of decode steps. prefill_tokens counts
+        # tokens actually RUN: a matched prefix's tokens land in
+        # prefill_tokens_saved instead (their sum is the prompt)
         profiler.generate_record(prefills=1, tokens=1,
-                                 prefill_tokens=int(r.tokens.shape[0]),
+                                 prefill_tokens=int(r.tokens.shape[0])
+                                 - r.prefix_len,
                                  busy_seconds=now - t0, ttfts=[r.ttft])
+        if r.prefix_len:
+            profiler.generate_record(prefix_hits=1, shared_pages=r.shared,
+                                     prefill_tokens_saved=r.prefix_len)
+        if self._prefix is not None:
+            # index this prompt's full pages for future admissions (the
+            # index takes its own reference on newly indexed pages, so
+            # they outlive this request)
+            self._prefix.insert([int(t) for t in r.tokens], r.pages,
+                                pred.pool)
         self._record_pool()
         slot = r.slot
         self._block_tables[slot, :len(r.pages)] = r.pages
         self._positions[slot] = r.tokens.shape[0]
         self._tokens[slot] = tok
+        if self._draft is not None:
+            self._draft_bt[slot, :len(r.draft_pages)] = r.draft_pages
+            r.draft_pos = int(r.tokens.shape[0])
         self._flush_stream(r)
         if not self._check_done(r, tok):
             self._active[slot] = True
 
-    def _grow_pages(self):
+    def _grow_pages(self, headroom=0):
         """Before a decode step, make sure every active slot owns the
-        page its next write position lands in; a pool that cannot grow a
-        mid-flight request fails it typed (never a silent stall)."""
+        page(s) its next write positions land in, up to ``headroom``
+        extra positions past the pending one for a speculative round's
+        verify writes (in the draft's table too); a pool that cannot grow
+        a mid-flight request fails it typed (never a silent stall)."""
         pred = self.predictor
         for slot in np.flatnonzero(self._active):
             r = self._slot_req[slot]
-            pidx = min(int(self._positions[slot]),
-                       pred.max_ctx - 1) // pred.page_size
-            if self._block_tables[slot, pidx] != 0:
-                continue
+            upto = min(int(self._positions[slot]) + headroom,
+                       pred.max_ctx - 1)
             try:
-                page, = pred.pool.alloc(1)
+                for pidx in range(upto // pred.page_size + 1):
+                    if self._block_tables[slot, pidx] != 0:
+                        continue
+                    page, = self._alloc_pages(1)
+                    r.pages.append(page)
+                    self._block_tables[slot, pidx] = page
+                if self._draft is not None:
+                    for pidx in range(upto // pred.page_size + 1):
+                        if self._draft_bt[slot, pidx] != 0:
+                            continue
+                        page, = self._draft.pool.alloc(1)
+                        r.draft_pages.append(page)
+                        self._draft_bt[slot, pidx] = page
             except PagePoolExhausted as e:
                 self._fail(r, PagePoolExhausted(
                     "generate: pool exhausted growing a mid-flight "
                     "request past %d token(s): %s" % (len(r.out), e)),
                     counter="exhausted")
-                continue
-            r.pages.append(page)
-            self._block_tables[slot, pidx] = page
 
     def _decode_step(self):
         pred = self.predictor
@@ -746,6 +877,123 @@ class GenerateServer:
             self._tokens[slot] = tok
             self._flush_stream(r)
             self._check_done(r, tok)
+
+    def _spec_step(self):
+        """One speculative-decoding round, in place of one single-token
+        decode step when ``spec_k > 0``:
+
+        1. the DRAFT predictor catches its KV cache up to each slot's
+           committed chain, then proposes up to k tokens a slot (batched
+           single-token draft steps with per-slot feed cursors; slots
+           needing fewer steps go inactive early);
+        2. ONE batched ``extend`` of the TARGET verifies, per slot, the
+           pending token plus its proposals (k + 1 rows);
+        3. the longest proposal prefix agreeing with the target's argmax
+           chain is accepted and emitted, plus the target's own next token
+           (the replacement at the first disagreement, the bonus token on
+           full acceptance).
+
+        Every emitted token IS the argmax of the target's logits given
+        the tokens before it (acceptance is argmax equality, first index
+        on ties), so the chain is token for token the non-speculative
+        greedy chain, and EOS / length / deadline disposition runs per
+        emitted token in order. ``k_i`` is capped by the context bound but
+        not by the tokens a request has left, so the last round may verify
+        past ``max_new_tokens``; ``_check_done`` cuts the tail. Rejected
+        proposals leave K/V behind past the accepted prefix in both
+        caches; the next round writes those positions before any row
+        attends them."""
+        pred, draft, k = self.predictor, self._draft, self._spec_k
+        t0 = time.perf_counter()
+        active = [int(s) for s in np.flatnonzero(self._active)]
+        S = pred.slots
+
+        chain_len, k_i, feed, props = {}, {}, {}, {}
+        for s in active:
+            r = self._slot_req[s]
+            chain = [int(t) for t in r.tokens] + r.out
+            L = len(chain)                    # pending sits at L - 1
+            chain_len[s] = L
+            k_i[s] = max(0, min(k, pred.max_ctx - L))
+            # tokens the draft cache has not ingested yet (committed chain
+            # only; proposals are appended as they are drafted)
+            feed[s] = [(chain[p], p) for p in range(r.draft_pos, L)]
+            props[s] = []
+
+        # -- draft phase: batched single-token steps ------------------
+        while True:
+            todo = [s for s in active if len(props[s]) < k_i[s]]
+            if not todo:
+                break
+            toks = np.zeros((S,), np.int32)
+            poss = np.zeros((S,), np.int32)
+            act = np.zeros((S,), bool)
+            fed = {}
+            for s in todo:
+                if feed[s]:
+                    t, p = feed[s].pop(0)
+                else:
+                    j = len(props[s])
+                    t, p = props[s][j - 1], chain_len[s] + j - 1
+                toks[s], poss[s], act[s] = t, p, True
+                fed[s] = p
+            logits = draft.decode(toks, poss, self._draft_bt, act)
+            for s in todo:
+                # feeding position p yields the draft's prediction for
+                # p + 1; only positions at/past the chain end propose
+                if fed[s] >= chain_len[s] - 1:
+                    props[s].append(int(np.argmax(logits[s])))
+                r = self._slot_req[s]
+                r.draft_pos = max(r.draft_pos, fed[s] + 1)
+
+        # -- verify phase: one batched target extend ------------------
+        T = k + 1
+        vt = np.zeros((S, T), np.int32)
+        vp = np.zeros((S, T), np.int32)
+        vv = np.zeros((S, T), bool)
+        for s in active:
+            n = 1 + k_i[s]
+            vt[s, :n] = ([self._tokens[s]] + props[s])[:n]
+            vp[s, :n] = np.arange(chain_len[s] - 1, chain_len[s] - 1 + n)
+            vv[s, :n] = True
+        logits = pred.extend(vt, vp, self._block_tables, vv)
+
+        # -- accept phase ---------------------------------------------
+        emitted_total = 0
+        for s in active:
+            r = self._slot_req[s]
+            L, ks = chain_len[s], k_i[s]
+            accepted, emit = 0, []
+            for j in range(ks + 1):
+                t_target = int(np.argmax(logits[s, j]))
+                emit.append(t_target)
+                if j < ks and props[s][j] == t_target:
+                    accepted += 1
+                    continue
+                break
+            # the draft cache is right up to position L + accepted - 1
+            # (chain[L-1] and the accepted proposals); what it wrote past
+            # that is a rejected token's K/V: rewind the cursor so the
+            # next round overwrites it
+            r.draft_pos = min(r.draft_pos, L + accepted)
+            profiler.generate_record(draft_proposed=ks,
+                                     draft_accepted=accepted)
+            done = False
+            for t in emit:
+                r.out.append(t)
+                r.unflushed.append(t)
+                emitted_total += 1
+                self._tokens[s] = t
+                self._flush_stream(r)
+                if self._check_done(r, t):
+                    done = True
+                    break
+            if not done:
+                self._positions[s] = L - 1 + len(emit)
+        profiler.generate_record(
+            decode_steps=1, spec_rounds=1, tokens=emitted_total,
+            slot_steps=S, active_slot_steps=len(active),
+            busy_seconds=time.perf_counter() - t0)
 
     def _run(self):
         try:
@@ -775,9 +1023,16 @@ class GenerateServer:
                     self._prefill_one(r)
                 if not self._active_count():
                     continue
-                self._grow_pages()
-                if self._active_count():
-                    self._decode_step()
+                if self._draft is not None:
+                    # speculative round: the verify writes up to spec_k
+                    # positions past the pending token
+                    self._grow_pages(headroom=self._spec_k)
+                    if self._active_count():
+                        self._spec_step()
+                else:
+                    self._grow_pages()
+                    if self._active_count():
+                        self._decode_step()
         except BaseException as e:   # loop death: sticky, fail everything
             with self._cond:
                 self._error = e
@@ -797,6 +1052,30 @@ class GenerateServer:
     def stats(self, reset=False):
         """Generative-serving counters (see profiler.generate_stats)."""
         return profiler.generate_stats(reset=reset)
+
+    @property
+    def prefix(self):
+        """The :class:`~.generate.PrefixIndex` (None when sharing is
+        off)."""
+        return self._prefix
+
+    @property
+    def draft_predictor(self):
+        """The draft :class:`~.generate.GenerativePredictor` (None when
+        speculative decoding is off)."""
+        return self._draft
+
+    def prefix_stats(self):
+        """Prefix-index counters, or None when sharing is off."""
+        return None if self._prefix is None else self._prefix.stats()
+
+    def clear_prefix(self):
+        """Evict every prefix-index entry, releasing the index's page
+        references: after the last in-flight request finishes the pool
+        then drains to ``in_use == 0`` (the leak check)."""
+        if self._prefix is not None:
+            self._prefix.clear(self.predictor.pool)
+            self._record_pool()
 
     def close(self, timeout=5.0):
         """Stop the decode loop, fail queued AND in-flight requests

@@ -4,10 +4,16 @@
 - :class:`PagePool` — an exact-accounting fixed-size-block allocator for
   KV-cache memory: a finished request's pages are recycled the moment it
   completes. Exhaustion raises the typed :class:`PagePoolExhausted`.
+- :class:`PrefixIndex` — a radix tree over full KV pages keyed by
+  token-id page runs: admission matches the longest cached prefix and
+  shares those pages copy-on-write (pure Python, a copy of the JAX
+  package's).
 - :class:`GenerativePredictor` — one transformer bound for incremental
   decode: prompts are padded up a ladder of page-aligned power-of-two
-  buckets for prefill, and ONE decode step runs ``slots`` queries, one
-  token each, against the pages named by each slot's block table.
+  buckets for prefill, ONE decode step runs ``slots`` queries, one
+  token each, against the pages named by each slot's block table, and
+  ``extend`` runs T tokens a slot (a prefix-matched prompt's tail, or a
+  speculative verify).
 
 Page 0 of the cache is the scratch page: never handed out, it absorbs
 writes from inactive slots and padded prompt tails, so every step keeps a
@@ -183,8 +189,168 @@ class PagePool:
                     "ref_high_water": self.ref_high_water}
 
 
+class _PrefixNode:
+    __slots__ = ("page", "children", "last_used")
+
+    def __init__(self, page, clock):
+        self.page = page
+        self.children = {}
+        self.last_used = clock
+
+
+class PrefixIndex:
+    """Radix-tree index over full KV pages keyed by token-id page runs
+    (shared-prefix KV cache).
+
+    Each node maps one ``page_size``-token run to the pool page holding
+    that run's K/V; a path from the root spells out a prompt prefix in
+    whole pages. The index itself holds ONE pool reference per indexed
+    page (taken at :meth:`insert`, dropped at eviction), so an indexed
+    page stays alive after the request that prefilled it finishes —
+    that reference is what turns a private page into a shareable one.
+
+    - :meth:`match` walks the longest indexed prefix of a prompt,
+      capped at ``(prompt_len - 1) // page_size`` pages so the tail
+      prefill always has >= 1 token — the structural form of the
+      copy-on-write rule: a partial (or final) page is always
+      re-prefilled privately, never shared, hence shared pages are
+      never written. Matched pages are ref'd on the caller's behalf
+      (the caller unrefs them exactly once, same as its private pages).
+    - :meth:`insert` indexes a just-prefilled prompt's full pages,
+      taking an extra reference on each newly indexed page; runs
+      already indexed are only LRU-touched (the request keeps its
+      private duplicate — dedup happens for FUTURE requests via match).
+    - :meth:`evict_lru` drops the least-recently-matched leaf —
+      called under pool pressure so sharing never causes a
+      :class:`PagePoolExhausted` a no-sharing run would avoid, and to
+      keep the index under ``max_pages`` when one is set.
+    """
+
+    def __init__(self, page_size, max_pages=0):
+        self.page_size = int(page_size)
+        if self.page_size < 1:
+            raise GenerateError("PrefixIndex: page_size must be >= 1, "
+                                "got %d" % self.page_size)
+        self.max_pages = int(max_pages or 0)
+        self._root = {}
+        self._clock = 0
+        self._pages = 0
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.insertions = 0
+        self.evictions = 0
+
+    def _runs(self, tokens, n):
+        ps = self.page_size
+        return [tuple(int(t) for t in tokens[i * ps:(i + 1) * ps])
+                for i in range(n)]
+
+    def match(self, tokens, pool):
+        """Longest indexed full-page prefix of ``tokens`` — at most
+        ``(len(tokens) - 1) // page_size`` pages (see class docstring).
+        Returns the page-id list with one reference per page taken on
+        ``pool`` for the caller; the whole path is LRU-touched."""
+        limit = max(0, (len(tokens) - 1) // self.page_size)
+        pages = []
+        with self._lock:
+            self._clock += 1
+            node_map, touched = self._root, []
+            for run in self._runs(tokens, limit):
+                node = node_map.get(run)
+                if node is None:
+                    break
+                touched.append(node)
+                pages.append(node.page)
+                node_map = node.children
+            for node in touched:
+                node.last_used = self._clock
+            if pages:
+                pool.ref(pages)
+                self.hits += 1
+            else:
+                self.misses += 1
+        return pages
+
+    def insert(self, tokens, pages, pool):
+        """Index the full pages of a just-prefilled prompt: run i →
+        ``pages[i]``. Only runs fully covered by the prompt are indexed
+        (``len(tokens) // page_size`` of them — a final page that the
+        decode loop will keep writing is still mutable and stays
+        private). Newly indexed pages cost one extra pool reference;
+        existing runs keep their already-indexed page. Returns the
+        number of pages newly indexed."""
+        n = min(len(tokens) // self.page_size, len(pages))
+        added = 0
+        with self._lock:
+            self._clock += 1
+            node_map = self._root
+            for i, run in enumerate(self._runs(tokens, n)):
+                node = node_map.get(run)
+                if node is None:
+                    pool.ref([pages[i]])
+                    node = _PrefixNode(pages[i], self._clock)
+                    node_map[run] = node
+                    self._pages += 1
+                    self.insertions += 1
+                    added += 1
+                else:
+                    node.last_used = self._clock
+                node_map = node.children
+        if self.max_pages:
+            while self.pages > self.max_pages:
+                if not self.evict_lru(pool):
+                    break
+        return added
+
+    def evict_lru(self, pool):
+        """Drop the least-recently-matched LEAF node (leaves first so a
+        prefix chain stays contiguous) and release the index's
+        reference on its page — the page only becomes free once no
+        live request shares it. Returns True when a node was evicted,
+        False on an empty index."""
+        with self._lock:
+            victim = None          # (last_used, parent_map, run, node)
+            stack = [(self._root, run, node)
+                     for run, node in self._root.items()]
+            while stack:
+                parent, run, node = stack.pop()
+                if node.children:
+                    stack.extend((node.children, r, ch)
+                                 for r, ch in node.children.items())
+                elif victim is None or node.last_used < victim[0]:
+                    victim = (node.last_used, parent, run, node)
+            if victim is None:
+                return False
+            _, parent, run, node = victim
+            del parent[run]
+            self._pages -= 1
+            self.evictions += 1
+            page = node.page
+        pool.unref([page])
+        return True
+
+    def clear(self, pool):
+        """Evict everything (release every index reference)."""
+        while self.evict_lru(pool):
+            pass
+
+    @property
+    def pages(self):
+        with self._lock:
+            return self._pages
+
+    def stats(self):
+        with self._lock:
+            return {"pages": self._pages, "hits": self.hits,
+                    "misses": self.misses, "insertions": self.insertions,
+                    "evictions": self.evictions,
+                    "max_pages": self.max_pages}
+
+
 class GenerativePredictor:
-    """One transformer bound for prefill + single-token decode.
+    """One transformer bound for prefill, single-token decode and the
+    multi-token extend (a prefix-matched tail, a speculative verify).
 
     Parameters
     ----------
@@ -266,6 +432,7 @@ class GenerativePredictor:
         self._decode = tfm.make_decode_fn(c, self.slots,
                                           self.max_pages_per_slot,
                                           self.page_size, self.device)
+        self._extends = {}         # (slots, steps) -> extend function
 
         # prefill bucket ladder: page-aligned powers of two up to the
         # context bound
@@ -324,3 +491,65 @@ class GenerativePredictor:
                 np.asarray(block_tables, np.int32),
                 np.asarray(active, bool))
             return logits.cpu().numpy()
+
+    def extend(self, tokens, positions, block_tables, valid):
+        """Multi-token append: run ``tokens`` (S, T) at ``positions``
+        (S, T) against each slot's cached pages in one call; returns numpy
+        logits (S, T, V). Invalid entries write to scratch and return zero
+        logits. Serves both the shared-prefix tail prefill (S = 1, T = a
+        prefill bucket) and the speculative verify step (S = slots,
+        T = k + 1); one extend function is made per (S, T)."""
+        tokens = np.asarray(tokens, np.int32)
+        if tokens.ndim != 2:
+            raise GenerateError("extend: tokens must be (batch, steps), "
+                                "got shape %r" % (tokens.shape,))
+        S, T = tokens.shape
+        fn = self._extends.get((S, T))
+        if fn is None:
+            fn = self._extends[(S, T)] = tfm.make_extend_fn(
+                self.config, S, T, self.max_pages_per_slot, self.page_size,
+                self.device)
+        with self._lock:
+            _, logits = fn(self._params, self._kv, tokens,
+                           np.asarray(positions, np.int32),
+                           np.asarray(block_tables, np.int32),
+                           np.asarray(valid, bool))
+            return logits.cpu().numpy()
+
+    def extend_tail(self, tokens, start_pos, pages):
+        """Prefill the uncovered TAIL of a prefix-matched prompt:
+        ``tokens`` (the tail, 1-D) start at absolute position
+        ``start_pos`` and attend the full block table ``pages`` (shared
+        prefix pages + the request's private tail pages). The tail is
+        padded up the prefill bucket ladder. Returns the last tail
+        position's logits as numpy (V,), the request's first generated
+        token, as :meth:`prefill` does. Every tail position lies at or
+        past ``start_pos``, past the shared region, so shared pages are
+        never written (copy-on-write by construction)."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        n = int(tokens.shape[0])
+        if n < 1:
+            raise GenerateError("extend_tail: empty tail")
+        if start_pos % self.page_size != 0:
+            raise GenerateError(
+                "extend_tail: start_pos %d is not page-aligned (the "
+                "shared prefix covers whole pages)" % start_pos)
+        if start_pos + n > self.max_ctx:
+            raise GenerateError(
+                "extend_tail: tail of %d token(s) at position %d exceeds "
+                "the per-slot context bound %d" % (n, start_pos,
+                                                  self.max_ctx))
+        bucket = self.pick_bucket(n)
+        tok = np.zeros((1, bucket), np.int32)
+        tok[0, :n] = tokens
+        pos = np.arange(start_pos, start_pos + bucket,
+                        dtype=np.int32)[None, :]
+        valid = np.zeros((1, bucket), bool)
+        valid[0, :n] = True
+        bt = np.zeros((1, self.max_pages_per_slot), np.int32)
+        bt[0, :len(pages)] = pages
+        logits = self.extend(tok, pos, bt, valid)
+        return logits[0, n - 1]
+
+    def pool_stats(self):
+        return self.pool.stats()

@@ -7,8 +7,9 @@
 - The page pool: the JAX package's accounting and typed-exhaustion tests,
   run as cases against both pools side by side.
 - The port's own contract: default device is ``cuda`` and raises without
-  one, malformed knobs raise naming the knob, unported features raise by
-  name, and importing the port pulls in neither JAX nor ``mxnet_tpu``.
+  one, malformed knobs raise naming the knob, the prefix cache and
+  speculative decoding run, and importing the port pulls in neither JAX
+  nor ``mxnet_tpu``.
 """
 import os
 import subprocess
@@ -249,11 +250,22 @@ def test_knob_defaults_match_jax_registry():
         assert jconfig.KNOBS[name][0] == default, name
 
 
-@pytest.mark.parametrize("kw", [dict(prefix_cache=True), dict(spec_k=2)])
-def test_unported_features_raise_by_name(model, kw):
+@pytest.mark.parametrize("kw,counter", [
+    (dict(prefix_cache=True), "prefix_hits"),
+    (dict(spec_k=2, draft=1), "spec_rounds")])
+def test_unported_features_raise_by_name(model, kw, counter):
+    """The shared-prefix cache and speculative decoding, refused by name
+    while they were not ported, now run, and ``stats()`` shows their
+    counter."""
     cfg, params = model
-    with pytest.raises(GenerateError, match="not ported"):
-        GenerateServer(cfg, params, device="cpu", **kw)
+    prompt = np.arange(1, 20)
+    with GenerateServer(cfg, params, device="cpu", slots=2, page_size=8,
+                        max_steps=8, **kw) as srv:
+        first = srv.generate(prompt, max_new_tokens=4)["tokens"]
+        again = srv.generate(prompt, max_new_tokens=4)["tokens"]
+        stats = srv.stats()
+    assert first == again and len(first) == 4
+    assert stats[counter] > 0
 
 
 def test_import_pulls_in_neither_jax_nor_mxnet_tpu():

@@ -150,9 +150,11 @@ def test_moe_is_refused_by_name():
     lambda c: ttfm.make_forward_fn(c),
     lambda c: ttfm.make_prefill_fn(c, 8),
     lambda c: ttfm.make_decode_fn(c, 4, 8, 8),
+    lambda c: ttfm.make_extend_fn(c, 4, 3, 8, 8),
     lambda c: ttfm.init_kv_cache(c, 2, 8),
     lambda c: ttfm.params_from_jax({"embed_weight": np.zeros((2, 2))}),
-], ids=["forward", "prefill", "decode", "kv_cache", "params_from_jax"])
+], ids=["forward", "prefill", "decode", "extend", "kv_cache",
+        "params_from_jax"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, make):
     """No device given means cuda; with no CUDA device that raises rather
     than carrying on on the CPU."""
