@@ -18,7 +18,8 @@ the kernels are built for sm_90a) and ``nvcc``. It
    it and a few more (causal and not, a ``kv_len`` mask, D = 128, float32
    and bfloat16), and times the kernel, the plain version and one library
    call (SDPA, a yardstick only: the port never calls it) at the training
-   shape and the prefill buckets 256, 1024 and 2048;
+   shape, a tensor-parallel rank's (4, 4, 2048, 64) and the prefill
+   buckets 256, 1024 and 2048;
 4. drives the serving path at full width — the 12-layer, d_model 512
    transformer (random weights from seed 0) behind
    ``GenerateServer(slots=8, page_size=16)`` — with 16 concurrent requests
@@ -54,7 +55,7 @@ the kernels are built for sm_90a) and ``nvcc``. It
    time per bucket, the device's busy share and peak memory;
 7. holds the two backward kernels, B6 (dq) and B7 (dk, dv), against the
    plain backward in the same way, with the SDPA backward as the
-   yardstick;
+   yardstick, at both training shapes;
 8. computes the loss and every parameter gradient of a 2-layer, d_model
    512 model in fp32 on the card (B5, B6, B7) and on the CPU (the plain
    versions) and holds them together;
@@ -111,7 +112,23 @@ the kernels are built for sm_90a) and ``nvcc``. It
    ``Module.fit(kvstore="tpu")`` over 4 copies of one batch with the
    same params and metric on both ranks. Rates of the shared card are not
    scaling rates;
-16. runs ``Module.fit`` on the image-classification builders at
+16. trains the full-width transformer Megatron's way over
+   ``train_mesh(mp=2)`` (dp 1 x mp 2) as 2 gloo ranks sharing the card,
+   each with half the heads, vocab rows and d_ff, at batch (4, 2049):
+   one fp32 step (TF32 off) with the loss within 1e-5 and every unsharded
+   gradient within 1e-4 relative L2 of one device's, then 2 warm-up and 5
+   timed bf16 steps (sgd with momentum) beside one device's in the same
+   call, with 12 launches of each of B5, B6 and B7 a step on each rank,
+   the param bytes a rank at their exact share (0.5097), 2 sums a block
+   (``block_collective_counts``) and the replicated params bit for bit
+   equal on the ranks; then serves through ``GenerateServer`` over
+   ``GenerativePredictor(mesh=)`` on the leader (rank 0) while rank 1
+   follows in lockstep: step 4's workload (every served row within
+   ``LOGIT_TOL`` of the one-device forward, chains against the one-device
+   server's by the near-tie rule) and the shared-prefix trace with the
+   cache on (its exact counts), half the KV bytes a rank, 12 B5 launches a
+   prefill on each rank, tokens/s and TTFT beside one device's;
+17. runs ``Module.fit`` on the image-classification builders at
    full width, fp32, TF32 off, sgd with momentum, 1000 classes, batch 32
    of 224x224 images: alexnet, vgg-16, inception-bn, mobilenet 1.0 and
    resnext-50 (32x4d), then lenet and mlp at MNIST shape, batch 64; one
@@ -124,7 +141,7 @@ the kernels are built for sm_90a) and ``nvcc``. It
    within 5 sigma; holds one ``nd.RNN`` (lstm, PTB-medium: T 35, N 32,
    650 wide, 2 layers) at p = 0 card vs CPU within 1e-4 and times it at
    p = 0.5; no hand-written kernel launches there;
-17. trains the PTB-medium LSTM language model (Zaremba et al. 2014:
+18. trains the PTB-medium LSTM language model (Zaremba et al. 2014:
    vocabulary 10000, 650 wide, 2 layers, 35 steps, batch 20, dropout 0.5;
    examples/rnn/lstm_bucketing.py's graph, Embedding first) through
    ``Module.fit`` in fp32 with SGD at learning rate 1.0 from uniform
@@ -133,16 +150,16 @@ the kernels are built for sm_90a) and ``nvcc``. It
    tokens/s, peak memory and a profiled batch's busy share; holds the
    first loss (within 1e-4) and the gradients (within 3x the one-rounding
    yardstick) card vs CPU at batch 4 with dropout 0;
-18. serves the trained LM's next token through ``AOTPredictor`` (a graph
+19. serves the trained LM's next token through ``AOTPredictor`` (a graph
    of Embedding, SequenceMask, RNN, SequenceLast, FullyConnected, softmax
    and topk) for 40 padded prompts on the ladder (1, 4, 16), a bucket
    filled partly, and holds the top 5 against the CPU's (values within
    1e-4, ids equal but at ties), printing requests/s and the busy share;
-19. holds every one of the 95 tensor ops of Queue A item 7b, forward and
+20. holds every one of the 95 tensor ops of Queue A item 7b, forward and
    gradient, card vs CPU within 1e-4 of each tensor's largest magnitude,
    on tests/test_op_sweep.py's specs and on indices out of range or
-   negative, ties and the hypot kink; B1-B7 launch 0 times in 17-19;
-20. trains SSD300 (VGG16-reduced, 20 VOC classes, 300x300, 8732 anchors:
+   negative, ties and the hypot kink; B1-B7 launch 0 times in 18-20;
+21. trains SSD300 (VGG16-reduced, 20 VOC classes, 300x300, 8732 anchors:
    models/ssd.py's ``get_symbol_train``) through ``Module.fit`` in fp32 at
    batch 32 with example/ssd's SGD (lr 0.004, momentum 0.9, wd 5e-4) from
    Xavier weights on one seeded synthetic batch (1-8 boxes an image, padded
@@ -151,7 +168,7 @@ the kernels are built for sm_90a) and ``nvcc``. It
    memory and a profiled batch's busy share and launches; holds the first
    forward (cls_label equal, cls_prob and loc_loss within 1e-4) and the
    gradients (within 3x the one-rounding yardstick) card vs CPU at batch 2;
-21. serves the trained detector (``get_symbol``: softmax and
+22. serves the trained detector (``get_symbol``: softmax and
    MultiBoxDetection's NMS) through ``AOTPredictor`` on the ladder (1, 4,
    16) for 5 requests of 26 images, printing requests/s, the NMS rounds
    and the busy share, and holds one request of that predictor against
@@ -159,14 +176,14 @@ the kernels are built for sm_90a) and ``nvcc``. It
    MultiBoxDetection on them against the CPU's (classes and kept mask
    equal, scores and boxes within 1e-5); then the whole graph the same way
    on one request with the class heads reduced to separated biases;
-22. holds the 17 names of Queue A item 7d (contrib and vision ops) forward
+23. holds the 17 names of Queue A item 7d (contrib and vision ops) forward
    and gradient card vs CPU on tests/test_op_sweep.py's specs, a
    MultiBoxTarget whose forced matches collide and MultiBoxDetection over
    8732 anchors, holds Proposal at its default size (6000 candidates, 300
    kept) card vs CPU with its NMS rounds and time, and holds
    the 14 random names of item 7c by their moments (20000 draws a row) and
-   bit for bit across two runs; B1-B7 launch 0 times in 20-22;
-23. prints one JSON line describing each kernel, then the result line
+   bit for bit across two runs; B1-B7 launch 0 times in 21-23;
+24. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -584,9 +601,9 @@ def kernel_phase(torch, fa):
                   (dt, 1, 8, 1024, 1024, 64, False, 1000),
                   (dt, 1, 8, 777, 1000, 64, True, 900),
                   (dt, 2, 4, 512, 512, 128, True, 512)]
-    b, h, s, d = TRAIN_ATTN
-    cases.append(("bfloat16", b, h, s, s, d, True, s))
-    main_err = 0.0
+    for b, h, s, d in (MP_ATTN, TRAIN_ATTN):
+        cases.append(("bfloat16", b, h, s, s, d, True, s))
+    main_err = mp_err = 0.0
     for (dt, b, h, sq, sk, d, causal, kv_len) in cases:
         q, k, v = inputs(b, h, sq, sk, d, getattr(torch, dt))
         out, lse = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
@@ -610,6 +627,8 @@ def kernel_phase(torch, fa):
                                "plain version")
         if (dt, b, h, sq, sk, d, causal, kv_len) == cases[-1]:
             main_err = e_out
+        if (dt, b, h, sq, sk, d, causal, kv_len) == cases[-2]:
+            mp_err = e_out
 
     # times at the prefill buckets the serving path runs, each beside one
     # SDPA forward of the same call, and at the training shape
@@ -624,30 +643,38 @@ def kernel_phase(torch, fa):
         print("time flash_attention_fwd bf16 (1,8,%d,64) causal (event / "
               "device): %s ms, SDPA %s ms (bound %.4f ms)"
               % (sb, _both(t), _both(t_lib), bms))
-    b, h, s, d = TRAIN_ATTN
-    q, k, v = inputs(b, h, s, s, d, torch.bfloat16)
-    ms = _time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
-    plain_ms = _time_ms(torch, lambda: fa.flash_attention_reference(
-        q, k, v, causal=True), reps=10)
-    lib_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
-    bound_ms, bound_by = _attention_bound("flash_attention_fwd", b, h, s, s,
-                                          d, True, s, "bfloat16")
-    flops = _attention_flops("flash_attention_fwd", b, h, s, s, d, True, s)
-    print("time flash_attention_fwd bf16 (%d,%d,%d,%d) causal (event / "
-          "device): kernel %s ms (%.1f TFLOP/s device, %.2fx bound, %.2fx / "
-          "%.2fx SDPA), plain %s ms, SDPA %s ms, bound %.6f ms (%s)"
-          % (b, h, s, d, _both(ms), flops / ms[1] / 1e9, ms[1] / bound_ms,
-             ms[0] / lib_ms[0], ms[1] / lib_ms[1], _both(plain_ms),
-             _both(lib_ms), bound_ms, bound_by))
+    timed = {}
+    for shape in (TRAIN_ATTN, MP_ATTN):
+        b, h, s, d = shape
+        q, k, v = inputs(b, h, s, s, d, torch.bfloat16)
+        ms = _time_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                        causal=True))
+        plain_ms = _time_ms(torch, lambda: fa.flash_attention_reference(
+            q, k, v, causal=True), reps=10)
+        lib_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        bound_ms, bound_by = _attention_bound("flash_attention_fwd", b, h, s,
+                                              s, d, True, s, "bfloat16")
+        flops = _attention_flops("flash_attention_fwd", b, h, s, s, d, True,
+                                 s)
+        print("time flash_attention_fwd bf16 (%d,%d,%d,%d) causal (event / "
+              "device): kernel %s ms (%.1f TFLOP/s device, %.2fx bound, "
+              "%.2fx / %.2fx SDPA), plain %s ms, SDPA %s ms, bound %.6f ms "
+              "(%s)" % (b, h, s, d, _both(ms), flops / ms[1] / 1e9,
+                        ms[1] / bound_ms, ms[0] / lib_ms[0],
+                        ms[1] / lib_ms[1], _both(plain_ms), _both(lib_ms),
+                        bound_ms, bound_by))
+        timed[shape] = dict({"bound_ms": bound_ms, "bound_by": bound_by,
+                             "shape": list(shape)},
+                            **_timed(ms, plain_ms, lib_ms))
     return dict({"name": "flash_attention_fwd", "route": "cuda",
                  "source": "mxnet_tpu_torch/kernels/csrc/flash_attention_fwd"
                            ".cu",
                  "replaces": "mxnet_tpu/kernels/flash_attention.py:65",
                  "design": TC_DESIGN, "max_abs_err": main_err,
-                 "bound_ms": bound_ms, "bound_by": bound_by,
-                 "shape": list(TRAIN_ATTN), "library": "SDPA forward"},
-                **_timed(ms, plain_ms, lib_ms))
+                 "library": "SDPA forward",
+                 "mp": dict(timed[MP_ATTN], max_abs_err=mp_err)},
+                **timed[TRAIN_ATTN])
 
 
 def backward_phase(torch, fa):
@@ -665,9 +692,9 @@ def backward_phase(torch, fa):
                   (dt, 1, 8, 777, 1000, 64, True, 900),
                   (dt, 1, 4, 1000, 600, 64, True, 600),
                   (dt, 2, 4, 512, 512, 128, True, 512)]
-    b, h, s, d = TRAIN_ATTN
-    cases.append(("bfloat16", b, h, s, s, d, True, s))
-    main_err = {"dq": 0.0, "dkv": 0.0}
+    for b, h, s, d in (MP_ATTN, TRAIN_ATTN):
+        cases.append(("bfloat16", b, h, s, s, d, True, s))
+    main_err = {}
     for case in cases:
         dt, b, h, sq, sk, d, causal, kv_len = case
         q, k, v, do = _inputs(torch, gen, [(b, h, sq, d), (b, h, sk, d),
@@ -696,52 +723,58 @@ def backward_phase(torch, fa):
         if not ok:
             raise RuntimeError("flash attention backward kernels disagree "
                                "with the plain backward")
-        if case == cases[-1]:
-            main_err = {"dq": errs["dq"], "dkv": max(errs["dk"], errs["dv"])}
+        if case in cases[-2:]:          # (b, h, s, d) of the two shapes
+            main_err[(b, h, sq, d)] = {"dq": errs["dq"],
+                                       "dkv": max(errs["dk"], errs["dv"])}
 
-    # times at the training shape; the plain backward and the SDPA
-    # backward compute dq, dk and dv together, so B6 and B7 share them
-    b, h, s, d = TRAIN_ATTN
-    q, k, v, do = _inputs(torch, gen, [(b, h, s, d)] * 4, torch.bfloat16)
-    out, lse = fa.flash_attention_reference(q, k, v, causal=True)
-    delta = fa.attention_delta(out, do)
-    kw = dict(causal=True)
-    dq_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-        q, k, v, do, lse, delta, **kw))
-    dkv_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
-        q, k, v, do, lse, delta, **kw))
-    plain_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_reference(
-        q, k, v, out, lse, do, **kw), reps=10)
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    lib_ms = _time_ms(torch, lambda: torch.autograd.grad(
-        sdpa_out, (qg, kg, vg), do, retain_graph=True))
-    entries = []
-    for name, ms, line, err in (
-            ("flash_attention_bwd_dq", dq_ms, 103, main_err["dq"]),
-            ("flash_attention_bwd_dkv", dkv_ms, 131, main_err["dkv"])):
-        bound_ms, bound_by = _attention_bound(name, b, h, s, s, d, True, s,
-                                              "bfloat16")
-        flops = _attention_flops(name, b, h, s, s, d, True, s)
-        print("time %s bf16 (%d,%d,%d,%d) causal (event / device): kernel "
-              "%s ms (%.1f TFLOP/s device, %.2fx bound, %.2fx / %.2fx SDPA "
-              "backward), plain backward %s ms, SDPA backward %s ms (both "
-              "shared by B6 and B7), bound %.6f ms (%s)"
-              % (name, b, h, s, d, _both(ms), flops / ms[1] / 1e9,
-                 ms[1] / bound_ms, ms[0] / lib_ms[0], ms[1] / lib_ms[1],
-                 _both(plain_ms), _both(lib_ms), bound_ms, bound_by))
-        entries.append(dict({
-            "name": name, "route": "cuda",
-            "source": "mxnet_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "mxnet_tpu/kernels/flash_attention.py:%d" % line,
-            "design": TC_DESIGN, "max_abs_err": err,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "shape": list(TRAIN_ATTN),
-            "plain": "flash_attention_bwd_reference: dq, dk and dv "
-                     "together, shared by B6 and B7",
-            "library": "SDPA backward: dq, dk and dv together, shared by B6 "
-                       "and B7"}, **_timed(ms, plain_ms, lib_ms)))
-    return entries
+    # times at the training shape and a mp rank's; the plain backward and
+    # the SDPA backward compute dq, dk and dv together, so B6 and B7 share
+    # them
+    timed = {"dq": {}, "dkv": {}}
+    for shape in (TRAIN_ATTN, MP_ATTN):
+        b, h, s, d = shape
+        q, k, v, do = _inputs(torch, gen, [(b, h, s, d)] * 4, torch.bfloat16)
+        out, lse = fa.flash_attention_reference(q, k, v, causal=True)
+        delta = fa.attention_delta(out, do)
+        kw = dict(causal=True)
+        dq_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, **kw))
+        dkv_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, **kw))
+        plain_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, **kw), reps=10)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        lib_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qg, kg, vg), do, retain_graph=True))
+        for key, name, ms in (("dq", "flash_attention_bwd_dq", dq_ms),
+                              ("dkv", "flash_attention_bwd_dkv", dkv_ms)):
+            bound_ms, bound_by = _attention_bound(name, b, h, s, s, d, True,
+                                                  s, "bfloat16")
+            flops = _attention_flops(name, b, h, s, s, d, True, s)
+            print("time %s bf16 (%d,%d,%d,%d) causal (event / device): "
+                  "kernel %s ms (%.1f TFLOP/s device, %.2fx bound, %.2fx / "
+                  "%.2fx SDPA backward), plain backward %s ms, SDPA backward "
+                  "%s ms (both shared by B6 and B7), bound %.6f ms (%s)"
+                  % (name, b, h, s, d, _both(ms), flops / ms[1] / 1e9,
+                     ms[1] / bound_ms, ms[0] / lib_ms[0], ms[1] / lib_ms[1],
+                     _both(plain_ms), _both(lib_ms), bound_ms, bound_by))
+            timed[key][shape] = dict(
+                {"bound_ms": bound_ms, "bound_by": bound_by,
+                 "shape": list(shape),
+                 "max_abs_err": main_err[shape][key]},
+                **_timed(ms, plain_ms, lib_ms))
+    return [dict({
+        "name": name, "route": "cuda",
+        "source": "mxnet_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "mxnet_tpu/kernels/flash_attention.py:%d" % line,
+        "design": TC_DESIGN,
+        "plain": "flash_attention_bwd_reference: dq, dk and dv together, "
+                 "shared by B6 and B7",
+        "library": "SDPA backward: dq, dk and dv together, shared by B6 and "
+                   "B7", "mp": timed[key][MP_ATTN]}, **timed[key][TRAIN_ATTN])
+        for key, name, line in (("dq", "flash_attention_bwd_dq", 103),
+                                ("dkv", "flash_attention_bwd_dkv", 131))]
 
 
 def _counts(fa):
@@ -863,57 +896,58 @@ def training_phase(torch, np, fa):
     return launches
 
 
-def serving_phase(torch, np, fa):
-    """The serving path at full width; returns the flash launch count."""
-    from mxnet_tpu_torch import profiler
-    from mxnet_tpu_torch.models import transformer as tfm
-    from mxnet_tpu_torch.serving import GenerateServer
-
-    cfg = tfm.TransformerConfig(**FULL)
-    params = tfm.init_params(cfg, seed=0)
+def _serving_prompts(np, vocab):
+    """serving_phase's N_REQUESTS seeded prompts and the generator that
+    made them (its warm-up requests come from it next)."""
     rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab, (int(n),)).astype(np.int32)
+    prompts = [rng.randint(0, vocab, (int(n),)).astype(np.int32)
                for n in rng.randint(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
                                     N_REQUESTS)]
     if len({p.tobytes() for p in prompts}) != N_REQUESTS:
         raise RuntimeError("seeded prompts are not distinct")
-    watched = {prompts[0].tobytes(): {}, prompts[1].tobytes(): {}}
+    return prompts, rng
 
-    srv = GenerateServer(cfg, params, slots=8, page_size=16)
-    try:
-        pred = srv.predictor
-        # warm-up, one short request per prefill bucket the prompts use, so
-        # the timed run pays no first-call costs (lazy CUDA module loading,
-        # cuBLAS heuristics); counters are reset after it
-        for b in sorted({pred.pick_bucket(len(p)) for p in prompts}):
-            srv.generate(rng.randint(0, cfg.vocab, (min(b, pred.max_ctx - 1),)),
-                         max_new_tokens=2)
-        prefill, decode = pred.prefill, pred.decode
-        call_s = {"prefill": [], "decode": []}
 
-        # time every call and record the served logits of the watched
-        # requests by position
-        def rec_prefill(tokens, pages):
-            t = time.perf_counter()
-            logits = prefill(tokens, pages)
-            call_s["prefill"].append(time.perf_counter() - t)
-            key = np.asarray(tokens, np.int32).tobytes()
+def _serve_burst(torch, np, fa, srv, prompts, rng, watch):
+    """The serving workload on ``srv``: a warm-up request per prefill
+    bucket the prompts use (the timed run then pays no first-call costs:
+    lazy CUDA module loading, cuBLAS heuristics; counters are reset after
+    it), then every prompt submitted at once, NEW_TOKENS new each, with
+    each prefill and decode call timed and the served logits of the
+    prompts ``watch`` indexes recorded by position. Checks the requests,
+    the page accounting and 12 B5 launches a prefill; returns a dict."""
+    from mxnet_tpu_torch import profiler
+
+    pred = srv.predictor
+    vocab = pred.config.vocab
+    for b in sorted({pred.pick_bucket(len(p)) for p in prompts}):
+        srv.generate(rng.randint(0, vocab, (min(b, pred.max_ctx - 1),)),
+                     max_new_tokens=2)
+    watched = {prompts[i].tobytes(): {} for i in watch}
+    prefill, decode = pred.prefill, pred.decode
+    call_s = {"prefill": [], "decode": []}
+
+    def rec_prefill(tokens, pages):
+        t = time.perf_counter()
+        logits = prefill(tokens, pages)
+        call_s["prefill"].append(time.perf_counter() - t)
+        key = np.asarray(tokens, np.int32).tobytes()
+        if key in watched:
+            watched[key][len(tokens) - 1] = logits.copy()
+        return logits
+
+    def rec_decode(tokens, positions, block_tables, active):
+        t = time.perf_counter()
+        logits = decode(tokens, positions, block_tables, active)
+        call_s["decode"].append(time.perf_counter() - t)
+        for s in np.flatnonzero(active):
+            key = srv._slot_req[s].tokens.tobytes()
             if key in watched:
-                watched[key][len(tokens) - 1] = logits.copy()
-            return logits
+                watched[key][int(positions[s])] = logits[s].copy()
+        return logits
 
-        def rec_decode(tokens, positions, block_tables, active):
-            t = time.perf_counter()
-            logits = decode(tokens, positions, block_tables, active)
-            call_s["decode"].append(time.perf_counter() - t)
-            for s in np.flatnonzero(active):
-                r = srv._slot_req[s]
-                key = r.tokens.tobytes()
-                if key in watched:
-                    watched[key][int(positions[s])] = logits[s].copy()
-            return logits
-
-        pred.prefill, pred.decode = rec_prefill, rec_decode
+    pred.prefill, pred.decode = rec_prefill, rec_decode
+    try:
         torch.cuda.synchronize()
         profiler.generate_reset()
         _reset_counts(fa)
@@ -925,7 +959,54 @@ def serving_phase(torch, np, fa):
         launches = fa.flash_attention.launches
         stats = srv.stats()
         pool = pred.pool.stats()
+    finally:
         pred.prefill, pred.decode = prefill, decode
+    for i, r in enumerate(results):
+        if len(r["tokens"]) != NEW_TOKENS or r["finish_reason"] != "length":
+            raise RuntimeError("request %d: %d tokens, reason %r"
+                               % (i, len(r["tokens"]), r["finish_reason"]))
+    if stats["pages_in_use"] != 0 or pool["in_use"] != 0:
+        raise RuntimeError("KV pages leaked: %r" % pool)
+    n_layers = pred.config.n_layers
+    if stats["prefills"] != N_REQUESTS or \
+            launches != n_layers * stats["prefills"]:
+        raise RuntimeError("flash launches %d != %d layers x %d prefills"
+                           % (launches, n_layers, stats["prefills"]))
+    return dict(results=results, wall=wall, stats=stats, pool=pool,
+                launches=launches, call_s=call_s, watched=watched,
+                tokens=sum(len(r["tokens"]) for r in results))
+
+
+def _served_rows_err(np, fwd, params, prompts, results, watched, label):
+    """Largest |served - forward| over the recorded rows of each watched
+    request (all its NEW_TOKENS rows must be there), the forward run once
+    on the request's chain."""
+    errs = []
+    for p, r in zip(prompts, results):
+        rows = watched.get(p.tobytes())
+        if rows is None:
+            continue
+        want = list(range(len(p) - 1, len(p) + NEW_TOKENS - 1))
+        if sorted(rows) != want:
+            raise RuntimeError("%s: served logits recorded at %d positions, "
+                               "want %d" % (label, len(rows), len(want)))
+        errs.append(_rows_vs_forward(np, fwd, params, list(p) + list(
+            r["tokens"][:-1]), rows, label))
+    return errs
+
+
+def serving_phase(torch, np, fa):
+    """The serving path at full width; returns the flash launch count."""
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.serving import GenerateServer
+
+    cfg = tfm.TransformerConfig(**FULL)
+    params = tfm.init_params(cfg, seed=0)
+    prompts, rng = _serving_prompts(np, cfg.vocab)
+    srv = GenerateServer(cfg, params, slots=8, page_size=16)
+    try:
+        pred = srv.predictor
+        run = _serve_burst(torch, np, fa, srv, prompts, rng, (0, 1))
         # where the device time goes: the first 8 prompts again, 8 new
         # tokens each, under torch.profiler (after the counts were read)
         _device_profile(torch, lambda: [
@@ -933,30 +1014,19 @@ def serving_phase(torch, np, fa):
             [srv.submit(p, max_new_tokens=8) for p in prompts[:8]]])
     finally:
         srv.close()
-
-    for i, r in enumerate(results):
-        if len(r["tokens"]) != NEW_TOKENS or r["finish_reason"] != "length":
-            raise RuntimeError("request %d: %d tokens, reason %r"
-                               % (i, len(r["tokens"]), r["finish_reason"]))
-    if stats["pages_in_use"] != 0 or pool["in_use"] != 0:
-        raise RuntimeError("KV pages leaked: %r" % pool)
-    if stats["prefills"] != N_REQUESTS or \
-            launches != cfg.n_layers * stats["prefills"]:
-        raise RuntimeError("flash launches %d != %d layers x %d prefills"
-                           % (launches, cfg.n_layers, stats["prefills"]))
-    n_tok = sum(len(r["tokens"]) for r in results)
+    stats, pool, wall = run["stats"], run["pool"], run["wall"]
     print("serve: %d requests, prompts %d..%d tokens, %d new tokens each; "
           "%d generated in %.3f s wall = %.1f tokens/s; busy tokens/s %s; "
           "TTFT p50 %.1f ms p99 %.1f ms; decode steps %d, slot occupancy "
           "%s; pages high water %d of %d; flash launches %d (%d layers x %d "
           "prefills)" % (N_REQUESTS, min(map(len, prompts)),
-                         max(map(len, prompts)), NEW_TOKENS, n_tok, wall,
-                         n_tok / wall, stats.get("tokens_s"),
+                         max(map(len, prompts)), NEW_TOKENS, run["tokens"],
+                         wall, run["tokens"] / wall, stats.get("tokens_s"),
                          stats["ttft_p50_ms"], stats["ttft_p99_ms"],
                          stats["decode_steps"], stats.get("slot_occupancy"),
-                         pool["high_water"], pool["num_pages"], launches,
-                         cfg.n_layers, stats["prefills"]))
-    for kind, secs in call_s.items():
+                         pool["high_water"], pool["num_pages"],
+                         run["launches"], cfg.n_layers, stats["prefills"]))
+    for kind, secs in run["call_s"].items():
         secs = sorted(secs)
         print("serve %s calls: %d, total %.3f s, median %.2f ms, max %.2f ms "
               "(host clock, each call ends in a device sync)"
@@ -965,30 +1035,15 @@ def serving_phase(torch, np, fa):
 
     # served logits against the one-shot forward on the card
     fwd = tfm.make_forward_fn(cfg)
-    worst = 0.0
-    for i in (0, 1):
-        p, gen = prompts[i], results[i]["tokens"]
-        served = watched[p.tobytes()]
-        want = range(len(p) - 1, len(p) + NEW_TOKENS - 1)
-        if sorted(served) != list(want):
-            raise RuntimeError("request %d: served logits recorded at %d "
-                               "positions, want %d" % (i, len(served),
-                                                       len(want)))
-        chain = np.concatenate([p, np.asarray(gen[:-1], np.int32)])[None]
-        ref = fwd(pred._params, chain)[0].cpu().numpy()
-        got = np.stack([served[j] for j in want])
-        if not np.isfinite(got).all() or got.shape != (NEW_TOKENS, cfg.vocab):
-            raise RuntimeError("served logits not finite / wrong shape")
-        err = float(np.abs(got - ref[list(want)]).max())
-        agree = float(np.mean(got.argmax(-1) == ref[list(want)].argmax(-1)))
+    errs = _served_rows_err(np, fwd, pred._params, prompts, run["results"],
+                            run["watched"], "serve")
+    for i, err in enumerate(errs):
         print("parity request %d (prompt %d): max|served - forward| = %.4g "
-              "(tol %g), greedy agreement %.3f"
-              % (i, len(p), err, LOGIT_TOL, agree))
-        worst = max(worst, err)
-    if worst > LOGIT_TOL:
+              "(tol %g)" % (i, len(prompts[i]), err, LOGIT_TOL))
+    if max(errs) > LOGIT_TOL:
         raise RuntimeError("served logits differ from the forward by %.4g"
-                           % worst)
-    return launches
+                           % max(errs))
+    return run["launches"]
 
 
 # the shared-prefix trace of tools/bench_serve.py's prefix-share mode at full
@@ -1146,10 +1201,151 @@ def _kv_digest(torch, kv, pages):
         torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def _prefix_run(torch, np, fa, srv, prefix, work, watch, fwd, fwd_params):
+    """PREFIX_TRACE through ``srv``, warmed as the bench warms it, with the
+    served logits of the requests ``watch`` indexes held against ``fwd``
+    on ``fwd_params``; returns the run's dict (checked by
+    ``_check_prefix_runs``)."""
+    from mxnet_tpu_torch import profiler
+
+    t_ = PREFIX_TRACE
+    on = srv.prefix is not None
+    pred = srv.predictor
+    # warm-up outside the clock, as the bench does: one request per
+    # full-prefill bucket (distinct fillers, so none shares a prefix), then
+    # clear the index, seed the prefix and warm the tail buckets
+    need = {pred.pick_bucket(len(w[1])) for w in work}
+    for i, b in enumerate(sorted(need)):
+        srv.generate(np.full((min(b, pred.max_ctx - 3),), 2 + i, np.int32),
+                     max_new_tokens=2)
+    digest = pages = None
+    if on:
+        srv.clear_prefix()
+        srv.generate(np.asarray(prefix + [1], np.int32), max_new_tokens=2)
+        pages = srv.prefix.match(prefix + [1], pred.pool)
+        pred.pool.unref(pages)
+        if len(pages) != t_["prefix"] // t_["page"]:
+            raise RuntimeError("prefix: the seeding request indexed %d "
+                               "pages" % len(pages))
+        digest = _kv_digest(torch, pred._kv, pages)
+        for tb in sorted({pred.pick_bucket(len(w[1]) - len(prefix))
+                          for w in work if w[2]}):
+            n = min(tb, pred.max_ctx - len(prefix) - 3)
+            srv.generate(np.asarray(prefix + [1] * n, np.int32),
+                         max_new_tokens=2)
+    # the served logits of the watched requests: the tail prefill's (or
+    # the full prefill's) last row, every decode row
+    watched = {np.asarray(work[i][1], np.int32).tobytes(): {} for i in watch}
+    tails = {np.asarray(work[i][1][len(prefix):], np.int32).tobytes():
+             work[i][1] for i in watch}
+    prefill, extend_tail, decode = pred.prefill, pred.extend_tail, \
+        pred.decode
+
+    def rec_prefill(tokens, pages):
+        logits = prefill(tokens, pages)
+        key = np.asarray(tokens, np.int32).tobytes()
+        if key in watched:
+            watched[key][len(tokens) - 1] = logits.copy()
+        return logits
+
+    def rec_tail(tokens, start_pos, pages):
+        logits = extend_tail(tokens, start_pos, pages)
+        full = tails.get(np.asarray(tokens, np.int32).tobytes())
+        if full is not None:
+            key = np.asarray(full, np.int32).tobytes()
+            watched[key][len(full) - 1] = logits.copy()
+        return logits
+
+    def rec_decode(tokens, positions, block_tables, active):
+        logits = decode(tokens, positions, block_tables, active)
+        for s in np.flatnonzero(active):
+            key = srv._slot_req[s].tokens.tobytes()
+            if key in watched:
+                watched[key][int(positions[s])] = logits[s].copy()
+        return logits
+
+    pred.prefill, pred.extend_tail, pred.decode = \
+        rec_prefill, rec_tail, rec_decode
+    try:
+        torch.cuda.synchronize()
+        profiler.generate_reset()
+        _reset_counts(fa)
+        results, wall = _replay(np, srv, work, t_["new"])
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches
+        stats = srv.stats()
+    finally:
+        pred.prefill, pred.extend_tail, pred.decode = \
+            prefill, extend_tail, decode
+    in_use, index_pages = pred.pool.in_use, (srv.prefix.pages if on else 0)
+    after = _kv_digest(torch, pred._kv, pages) if on else None
+    srv.clear_prefix()
+    errs = [_rows_vs_forward(
+        np, fwd, fwd_params, work[i][1] + results[i]["tokens"][:-1],
+        watched[np.asarray(work[i][1], np.int32).tobytes()], "prefix")
+        for i in watch]
+    return dict(results=results, wall=wall, stats=stats, launches=launches,
+                pool=pred.pool.stats(), in_use=in_use,
+                index_pages=index_pages, errs=errs, digests=(digest, after))
+
+
+def _print_prefix_run(label, run, shared):
+    results, stats = run["results"], run["stats"]
+    ttft = [r["ttft_s"] for r in results]
+    ttft_sh = [results[i]["ttft_s"] for i in shared]
+    print("%s: %d requests (%d shared) in %.3f s wall; TTFT p50 %.2f ms p99 "
+          "%.2f ms (shared requests p50 %.2f ms p99 %.2f ms); busy_seconds "
+          "%s; prefills %d, prefill_tokens %d, saved %d, prefix_hits %d, "
+          "shared_pages %d, evictions %d, page_ref_high_water %s, "
+          "prefix_pages %s; decode steps %d; B5 launches %d; served vs "
+          "forward worst %.4f over %d requests (tol %g)"
+          % (label, len(results), len(shared), run["wall"],
+             _pctl(ttft, 0.5) * 1e3, _pctl(ttft, 0.99) * 1e3,
+             _pctl(ttft_sh, 0.5) * 1e3, _pctl(ttft_sh, 0.99) * 1e3,
+             stats.get("busy_seconds"), stats["prefills"],
+             stats["prefill_tokens"], stats["prefill_tokens_saved"],
+             stats["prefix_hits"], stats["shared_pages"],
+             stats["prefix_evictions"], stats.get("page_ref_high_water"),
+             stats.get("prefix_pages"), stats["decode_steps"],
+             run["launches"], max(run["errs"]), len(run["errs"]), LOGIT_TOL))
+
+
+def _check_prefix_run(run, n_layers, n_shared, on):
+    """One run's checks: every request whole, served logits within
+    LOGIT_TOL, no page leaked, 12 B5 launches a full prefill; with the
+    cache on, every shared request a hit, the pages in use the index's
+    and the shared prefix pages' bytes unchanged."""
+    t_ = PREFIX_TRACE
+    for i, r in enumerate(run["results"]):
+        if len(r["tokens"]) != t_["new"] or r["finish_reason"] != "length":
+            raise RuntimeError("prefix request %d: %d tokens, %r"
+                               % (i, len(r["tokens"]), r["finish_reason"]))
+    if max(run["errs"]) > LOGIT_TOL:
+        raise RuntimeError("prefix: served logits differ from the forward "
+                           "by %.4g" % max(run["errs"]))
+    p = run["pool"]
+    if p["in_use"] != 0 or p["allocs"] != p["frees"]:
+        raise RuntimeError("prefix: KV pages leaked: %r" % p)
+    st = run["stats"]
+    full = st["prefills"] - st["prefix_hits"]
+    if st["prefills"] != t_["requests"] or \
+            run["launches"] != n_layers * full:
+        raise RuntimeError("prefix: B5 launches %d != %d layers x %d full "
+                           "prefills" % (run["launches"], n_layers, full))
+    if st["prefix_hits"] != (n_shared if on else 0):
+        raise RuntimeError("prefix: %d hits for %d shared requests"
+                           % (st["prefix_hits"], n_shared))
+    if on and run["in_use"] != run["index_pages"]:
+        raise RuntimeError("prefix: %d pages in use with %d indexed"
+                           % (run["in_use"], run["index_pages"]))
+    before, after = run["digests"]
+    if before != after:
+        raise RuntimeError("prefix: a shared prefix page was written")
+
+
 def prefix_serving_phase(torch, np, fa):
     """The shared-prefix trace with the prefix cache off, then on; returns
     the B5 launches of the cache-on run."""
-    from mxnet_tpu_torch import profiler
     from mxnet_tpu_torch.models import transformer as tfm
     from mxnet_tpu_torch.serving import GenerateServer
 
@@ -1158,139 +1354,20 @@ def prefix_serving_phase(torch, np, fa):
     params = tfm.init_params(cfg, seed=0)
     prefix, work = _prefix_workload(cfg.vocab)
     shared = [i for i, w in enumerate(work) if w[2]]
-    n_shared = len(shared)
+    fwd = tfm.make_forward_fn(cfg)
     runs = {}
     for on in (False, True):
         srv = GenerateServer(cfg, params, slots=t_["slots"],
                              page_size=t_["page"], prefix_cache=on)
         try:
-            pred = srv.predictor
-            # warm-up outside the clock, as the bench does: one request
-            # per full-prefill bucket (distinct fillers, so none shares a
-            # prefix), then clear the index, seed the prefix and warm the
-            # tail buckets
-            need = {pred.pick_bucket(len(w[1])) for w in work}
-            for i, b in enumerate(sorted(need)):
-                srv.generate(np.full((min(b, pred.max_ctx - 3),), 2 + i,
-                                     np.int32), max_new_tokens=2)
-            digest = None
-            if on:
-                srv.clear_prefix()
-                srv.generate(np.asarray(prefix + [1], np.int32),
-                             max_new_tokens=2)
-                pages = srv.prefix.match(prefix + [1], pred.pool)
-                pred.pool.unref(pages)
-                if len(pages) != t_["prefix"] // t_["page"]:
-                    raise RuntimeError("prefix: the seeding request indexed "
-                                       "%d pages" % len(pages))
-                digest = _kv_digest(torch, pred._kv, pages)
-                for tb in sorted({pred.pick_bucket(len(w[1]) - len(prefix))
-                                  for w in work if w[2]}):
-                    n = min(tb, pred.max_ctx - len(prefix) - 3)
-                    srv.generate(np.asarray(prefix + [1] * n, np.int32),
-                                 max_new_tokens=2)
-            # the served logits of the first two shared requests: the tail
-            # prefill's (or the full prefill's) last row, every decode row
-            watched = {np.asarray(work[i][1], np.int32).tobytes(): {}
-                       for i in shared[:2]}
-            tails = {np.asarray(work[i][1][len(prefix):], np.int32)
-                     .tobytes(): work[i][1] for i in shared[:2]}
-            prefill, extend_tail, decode = pred.prefill, pred.extend_tail, \
-                pred.decode
-
-            def rec_prefill(tokens, pages):
-                logits = prefill(tokens, pages)
-                key = np.asarray(tokens, np.int32).tobytes()
-                if key in watched:
-                    watched[key][len(tokens) - 1] = logits.copy()
-                return logits
-
-            def rec_tail(tokens, start_pos, pages):
-                logits = extend_tail(tokens, start_pos, pages)
-                full = tails.get(np.asarray(tokens, np.int32).tobytes())
-                if full is not None:
-                    key = np.asarray(full, np.int32).tobytes()
-                    watched[key][len(full) - 1] = logits.copy()
-                return logits
-
-            def rec_decode(tokens, positions, block_tables, active):
-                logits = decode(tokens, positions, block_tables, active)
-                for s in np.flatnonzero(active):
-                    key = srv._slot_req[s].tokens.tobytes()
-                    if key in watched:
-                        watched[key][int(positions[s])] = logits[s].copy()
-                return logits
-
-            pred.prefill, pred.extend_tail, pred.decode = \
-                rec_prefill, rec_tail, rec_decode
-            torch.cuda.synchronize()
-            profiler.generate_reset()
-            _reset_counts(fa)
-            results, wall = _replay(np, srv, work, t_["new"])
-            torch.cuda.synchronize()
-            launches = fa.flash_attention.launches
-            stats = srv.stats()
-            pred.prefill, pred.extend_tail, pred.decode = \
-                prefill, extend_tail, decode
-            in_use, index_pages = pred.pool.in_use, (
-                srv.prefix.pages if on else 0)
-            after = _kv_digest(torch, pred._kv, pages) if on else None
-            srv.clear_prefix()
-            pool = pred.pool.stats()
-            fwd = tfm.make_forward_fn(cfg)
-            errs = [_rows_vs_forward(
-                np, fwd, pred._params,
-                work[i][1] + results[i]["tokens"][:-1],
-                watched[np.asarray(work[i][1], np.int32).tobytes()],
-                "prefix") for i in shared[:2]]
-            runs[on] = dict(results=results, wall=wall, stats=stats,
-                            launches=launches, pool=pool, in_use=in_use,
-                            index_pages=index_pages, errs=errs,
-                            digests=(digest, after), fwd=fwd,
-                            params=pred._params)
-            ttft = [r["ttft_s"] for r in results]
-            ttft_sh = [results[i]["ttft_s"] for i in shared]
-            print("prefix %s: %d requests (%d shared) in %.3f s wall; TTFT "
-                  "p50 %.2f ms p99 %.2f ms (shared requests p50 %.2f ms p99 "
-                  "%.2f ms); busy_seconds %s; prefills %d, prefill_tokens %d, "
-                  "saved %d, prefix_hits %d, shared_pages %d, evictions %d, "
-                  "page_ref_high_water %s, prefix_pages %s; decode steps %d; "
-                  "B5 launches %d; served vs forward %s (tol %g)"
-                  % ("on" if on else "off", len(results), n_shared, wall,
-                     _pctl(ttft, 0.5) * 1e3, _pctl(ttft, 0.99) * 1e3,
-                     _pctl(ttft_sh, 0.5) * 1e3, _pctl(ttft_sh, 0.99) * 1e3,
-                     stats.get("busy_seconds"), stats["prefills"],
-                     stats["prefill_tokens"], stats["prefill_tokens_saved"],
-                     stats["prefix_hits"], stats["shared_pages"],
-                     stats["prefix_evictions"],
-                     stats.get("page_ref_high_water"),
-                     stats.get("prefix_pages"), stats["decode_steps"],
-                     launches, " ".join("%.4f" % e for e in errs),
-                     LOGIT_TOL))
+            runs[on] = _prefix_run(torch, np, fa, srv, prefix, work,
+                                   shared[:2], fwd, srv.predictor._params)
         finally:
             srv.close()
-
+        _print_prefix_run("prefix %s" % ("on" if on else "off"), runs[on],
+                          shared)
+        _check_prefix_run(runs[on], cfg.n_layers, len(shared), on)
     off, on = runs[False], runs[True]
-    for run in (off, on):
-        for i, r in enumerate(run["results"]):
-            if len(r["tokens"]) != t_["new"] or \
-                    r["finish_reason"] != "length":
-                raise RuntimeError("prefix request %d: %d tokens, %r"
-                                   % (i, len(r["tokens"]),
-                                      r["finish_reason"]))
-        if max(run["errs"]) > LOGIT_TOL:
-            raise RuntimeError("prefix: served logits differ from the "
-                               "forward by %.4g" % max(run["errs"]))
-        p = run["pool"]
-        if p["in_use"] != 0 or p["allocs"] != p["frees"]:
-            raise RuntimeError("prefix: KV pages leaked: %r" % p)
-        st = run["stats"]
-        full = st["prefills"] - st["prefix_hits"]
-        if st["prefills"] != t_["requests"] or \
-                run["launches"] != cfg.n_layers * full:
-            raise RuntimeError("prefix: B5 launches %d != %d layers x %d "
-                               "full prefills" % (run["launches"],
-                                                  cfg.n_layers, full))
     st_on, st_off = on["stats"], off["stats"]
     if st_on["prefill_tokens"] + st_on["prefill_tokens_saved"] != \
             st_off["prefill_tokens"]:
@@ -1298,18 +1375,10 @@ def prefix_serving_phase(torch, np, fa):
                            % (st_on["prefill_tokens"],
                               st_on["prefill_tokens_saved"],
                               st_off["prefill_tokens"]))
-    if st_on["prefix_hits"] != n_shared or st_off["prefix_hits"] != 0:
-        raise RuntimeError("prefix: %d hits for %d shared requests"
-                           % (st_on["prefix_hits"], n_shared))
-    if on["in_use"] != on["index_pages"]:
-        raise RuntimeError("prefix: %d pages in use with %d indexed"
-                           % (on["in_use"], on["index_pages"]))
     before, after = on["digests"]
     print("prefix: the %d shared prefix pages digest %s after seeding, %s "
           "after the trace" % (t_["prefix"] // t_["page"], before, after))
-    if before != after:
-        raise RuntimeError("prefix: a shared prefix page was written")
-    _near_tie_pairs(torch, np, on["fwd"], on["params"],
+    _near_tie_pairs(torch, np, fwd, _on_card(torch, params),
                     [(w[1], a["tokens"], b["tokens"]) for w, a, b in
                      zip(work, off["results"], on["results"])], "prefix")
     p99 = [_pctl([r["ttft_s"] for r in run["results"]], 0.99)
@@ -1322,6 +1391,11 @@ def prefix_serving_phase(torch, np, fa):
              st_off["prefill_tokens"], st_on["prefill_tokens"],
              st_on["prefill_tokens_saved"]))
     return on["launches"]
+
+
+def _on_card(torch, params):
+    """The whole params on the card, fp32."""
+    return {k: v.to(CARD, torch.float32) for k, v in params.items()}
 
 
 def spec_serving_phase(torch, np, fa):
@@ -2920,6 +2994,49 @@ def _dp_one_rank_nccl(torch, np, fb):
     return launches
 
 
+def _run_ranks(entry, world, timeout, label, *args):
+    """Spawn ``world`` processes sharing the card, each running ``entry(rank,
+    world, port, out_dir, *args)`` (a function of this script that writes
+    ``rank<r>.json`` into ``out_dir``; ``port`` is a free localhost port
+    for its process group), wait for them within ``timeout`` s, killing
+    them past it, and return their results in rank order and the wall
+    seconds, start-up included. A rank that raises fails the call."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as tmp_mp
+
+    out_dir = tempfile.mkdtemp(prefix="ranks_")
+    try:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        ctx = tmp_mp.start_processes(entry, args=(world, port, out_dir,
+                                                  *args),
+                                     nprocs=world, join=False,
+                                     start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise RuntimeError("%s: the ranks did not finish within "
+                                       "%d s" % (label, timeout))
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, "rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        return ranks, time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def _dp_gloo_rank(rank, world, port, out_dir):
     """One of the ranks sharing cuda:0 over gloo (a spawned process)."""
     import numpy as np
@@ -3148,12 +3265,6 @@ def dp_training_phase(torch, np, fb):
     the card over gloo (fp32 against one device, ZeRO against replicated,
     Module.fit(kvstore="tpu")). Returns (B1, B2, B3) launches of the NCCL
     mesh's steps and of each gloo rank's replicated steps."""
-    import shutil
-    import socket
-    import tempfile
-
-    import torch.multiprocessing as tmp_mp
-
     gc.collect()
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -3163,36 +3274,7 @@ def dp_training_phase(torch, np, fb):
         torch.backends.cudnn.deterministic = deterministic
     gc.collect()
     torch.cuda.empty_cache()
-
-    out_dir = tempfile.mkdtemp(prefix="dp_ranks_")
-    try:
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
-        t0 = time.perf_counter()
-        ctx = tmp_mp.start_processes(_dp_gloo_rank,
-                                     args=(DP_RANKS, port, out_dir),
-                                     nprocs=DP_RANKS, join=False,
-                                     start_method="spawn")
-        deadline = time.monotonic() + DP_TIMEOUT
-        try:
-            while not ctx.join(timeout=5):
-                if time.monotonic() > deadline:
-                    raise RuntimeError("dp gloo: the ranks did not finish "
-                                       "within %d s" % DP_TIMEOUT)
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        ranks = []
-        for r in range(DP_RANKS):
-            with open(os.path.join(out_dir, "rank%d.json" % r)) as f:
-                ranks.append(json.load(f))
-        wall = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
-
+    ranks, wall = _run_ranks(_dp_gloo_rank, DP_RANKS, DP_TIMEOUT, "dp gloo")
     r0 = ranks[0]
     n = DP_BATCH
     tiny = r0["tiny"]
@@ -3305,6 +3387,410 @@ def dp_training_phase(torch, np, fb):
             raise RuntimeError("dp gloo rank %d: Module.fit %s" % (
                 r["rank"], f))
     return nccl, [tuple(r["launches"]) for r in ranks]
+
+
+# Tensor parallelism over the mp axis (mp_training_phase, mp_serving_phase):
+# train_mesh(mp=2), dp 1 x mp 2, as 2 gloo ranks sharing the card (NCCL
+# refuses two ranks on one device; the kernels are built before they start).
+# A rank holds half the heads, half the vocab rows and half of d_ff, and
+# attends over MP_ATTN. Rates of a shared card, with every collective
+# staged through the host by gloo, are not scaling rates.
+MP_RANKS = 2
+MP_BATCH, MP_WARMUP, MP_STEPS = (4, 2049), 2, 5
+MP_ATTN = (MP_BATCH[0], FULL["n_heads"] // MP_RANKS, MP_BATCH[1] - 1,
+           FULL["d_model"] // FULL["n_heads"])
+# mp against one device in fp32 (TF32 off): the loss relative; the
+# gradients by their relative L2 distance, as the zoo's: the whole gradient
+# within MP_RATIO times the gap one device's own gradient shows when every
+# parameter element moves by one rounding (MP_NUDGES such moves), and each
+# tensor within the larger of MP_GRAD_TOL and MP_RATIO times its own such
+# gap. Measured on the CPU at 6 layers (d_model 256): a pre-activation of
+# ffn-up within ~1e-7 of 0 flips its ReLU under any change of rounding, and
+# one flip moves the gradients of every layer below it by 3e-4 to 1e-3
+# (mp against one device and one rounding move alike), so 1e-4 cannot hold
+# for every tensor at full width
+MP_LOSS_TOL, MP_GRAD_TOL = 1e-5, 1e-4
+MP_RATIO, MP_NUDGES = 3.0, 3
+# a rank's share of the params, exact from the shapes: 28140544 of 55206912
+MP_PARAM_RATIO = 28140544 / 55206912
+MP_TIMEOUT = 420
+# the shared-prefix trace's counts, exact by construction of the trace
+PREFIX_EXACT = dict(prefix_hits=42, prefill_tokens=1093,
+                    prefill_tokens_saved=20832)
+
+
+def _mp_gloo_rank(rank, world, port, out_dir, work):
+    """One rank of the mp phases (a spawned process): TF32 off, a gloo
+    group with a time limit of its own, then ``_mp_<work>_work``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port,
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MP_TIMEOUT))
+    try:
+        res = globals()["_mp_%s_work" % work](torch, np, fa, rank)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f, default=float)
+
+
+def _rel_l2(torch, grads, ref):
+    """Each tensor's relative L2 distance to ``ref``, and the whole
+    gradient's under the key None."""
+    out, num, den = {}, 0.0, 0.0
+    for k, g in ref.items():
+        d = float(torch.linalg.vector_norm((grads[k] - g).double()))
+        n = float(torch.linalg.vector_norm(g.double()))
+        out[k] = d / n
+        num, den = num + d * d, den + n * n
+    out[None] = (num / den) ** 0.5
+    return out
+
+
+def _mp_steps(torch, fa, tpl, step, place, params, tokens):
+    """MP_WARMUP steps, then MP_STEPS timed ones (each ends in a device
+    sync), the launch and collective counts of the timed ones; returns
+    (the dict, the carry)."""
+    carry = place(params)
+    losses = []
+    for _ in range(MP_WARMUP):
+        carry, loss = step(carry, tokens)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa)
+    tpl.reset_counts()
+    secs = []
+    for _ in range(MP_STEPS):
+        t0 = time.perf_counter()
+        carry, loss = step(carry, tokens)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    n_tok = MP_BATCH[0] * (MP_BATCH[1] - 1)
+    return dict(losses=losses, secs=secs, launches=list(_counts(fa)),
+                collectives=tpl.counts(),
+                tokens_s=n_tok * MP_STEPS / sum(secs),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30), carry
+
+
+def _mp_train_work(torch, np, fa, rank):
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.parallel import tensor_parallel as tpl
+    from mxnet_tpu_torch.parallel.mesh import train_mesh
+
+    cfg = tfm.TransformerConfig(**FULL)
+    cfg32 = tfm.TransformerConfig(**dict(FULL, dtype="float32"))
+    opt = dict(name="sgd", learning_rate=0.1, momentum=0.9)
+    params = tfm.init_params(cfg, seed=0)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, MP_BATCH)
+    res = {"rank": rank}
+    ref = None
+    if rank == 0:
+        # one device, alone on the card while rank 1 waits: the fp32 loss
+        # and gradients, the one-rounding yardstick, then the bf16 steps
+        loss_fn, _ = tfm.make_loss_fn(cfg32)
+
+        def loss_grads(ps):
+            p = {k: v.to(CARD, copy=True).requires_grad_()
+                 for k, v in ps.items()}
+            loss = loss_fn(p, tokens)
+            return loss.item(), dict(zip(p, torch.autograd.grad(
+                loss, list(p.values()))))
+
+        ref = loss_grads(params)
+        res["yard"] = {}
+        for i in range(MP_NUDGES):
+            rng = np.random.RandomState(200 + i)
+            nudged = loss_grads({k: torch.from_numpy(_zoo_nudged(
+                np, v.numpy(), rng)) for k, v in params.items()})[1]
+            for k, v in _rel_l2(torch, nudged, ref[1]).items():
+                res["yard"][k] = max(res["yard"].get(k, 0.0), v)
+            del nudged
+        res["one"], carry = _mp_steps(torch, fa, tpl, *tfm.make_train_step(
+            cfg, optimizer=opt), params, tokens)
+        del carry
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = train_mesh(mp=MP_RANKS)
+    loss_fn, _ = tfm.make_loss_fn(cfg32, mesh)
+    shards = {k: v.requires_grad_() for k, v in
+              tfm.shard_params(params, cfg32, mesh).items()}
+    loss = loss_fn(shards, tokens)
+    grads = tfm.unshard(dict(zip(shards, torch.autograd.grad(
+        loss, list(shards.values())))), cfg32, mesh)
+    res["fp32_loss"] = loss.item()
+    if ref is not None:
+        res["ref_loss"] = ref[0]
+        res["gaps"] = _rel_l2(torch, grads, ref[1])
+    del loss, grads, ref
+    res["param_bytes"] = sum(v.numel() * v.element_size()
+                             for v in shards.values())
+    res["whole_param_bytes"] = sum(v.numel() * 4 for v in params.values())
+    del shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["counts"] = tfm.block_collective_counts(cfg, mesh)
+    res["mp"], carry = _mp_steps(torch, fa, tpl, *tfm.make_train_step(
+        cfg, mesh, optimizer=opt), params, tokens)
+    sharded = {k for k, spec in tfm.param_specs(cfg, mesh).items()
+               if "mp" in spec}
+    res["replicated_digest"] = _param_digest(
+        {k: v for k, v in carry[0].items() if k not in sharded})
+    per_step = {k: v // MP_STEPS for k, v in res["mp"]["collectives"].items()}
+    profiler.mp_reset()
+    profiler.mp_record(
+        mp_size=MP_RANKS, dp_size=1, group_size=MP_RANKS,
+        param_bytes_per_chip=res["param_bytes"],
+        live_bytes_per_chip=int(res["mp"]["peak_gib"] * 2 ** 30),
+        psum_per_block=res["counts"]["psum_per_block"],
+        psum_outside=res["counts"]["psum_outside"],
+        all_gather_per_step=per_step["gather_from_mp"],
+        collectives_per_step=per_step["reduce_from_mp"]
+        + per_step["copy_to_mp"] + per_step["gather_from_mp"])
+    res["mp_stats"] = profiler.mp_stats()
+    return res
+
+
+def mp_training_phase(torch, np, fa):
+    """The full-width transformer trained over train_mesh(mp=2) on 2 gloo
+    ranks sharing the card, against one device in the same call; returns
+    each rank's B5, B6, B7 launches in the timed steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, wall = _run_ranks(_mp_gloo_rank, MP_RANKS, MP_TIMEOUT, "mp train",
+                             "train")
+    r0 = ranks[0]
+    one = r0["one"]
+    loss_gap = abs(r0["fp32_loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    # JSON keys are strings: the whole gradient's None became "null"
+    gaps, yard = r0["gaps"], r0["yard"]
+    whole, whole_yard = gaps.pop("null"), yard.pop("null")
+    over = sorted((g / max(MP_GRAD_TOL, MP_RATIO * yard[k]), k)
+                  for k, g in gaps.items())
+    ratio = r0["param_bytes"] / r0["whole_param_bytes"]
+    print("mp train: %d gloo ranks sharing one card, train_mesh(mp=%d) = dp "
+          "1 x mp %d, %.1f s with start-up; fp32 (TF32 off) batch %s: loss "
+          "%.7f vs one device %.7f (relative gap %.3g, tol %g); gradients "
+          "unsharded vs one device, relative L2: whole %.4g against %.4g "
+          "under %d one-rounding moves (ratio %.2f, limit %g); %d of %d "
+          "tensors within %g; each tensor over max(%g, %g x its one-rounding "
+          "gap), worst %s; param bytes a rank %d of %d (%.4f, exact %.4f); "
+          "collectives of a loss forward %s"
+          % (MP_RANKS, MP_RANKS, MP_RANKS, wall, MP_BATCH, r0["fp32_loss"],
+             r0["ref_loss"], loss_gap, MP_LOSS_TOL, whole, whole_yard,
+             MP_NUDGES, whole / whole_yard, MP_RATIO,
+             sum(g <= MP_GRAD_TOL for g in gaps.values()), len(gaps),
+             MP_GRAD_TOL, MP_GRAD_TOL, MP_RATIO,
+             ", ".join("%.3g at %s (%.3g vs %.3g)" % (r, k, gaps[k], yard[k])
+                       for r, k in over[-3:]),
+             r0["param_bytes"], r0["whole_param_bytes"], ratio,
+             MP_PARAM_RATIO, r0["counts"]))
+    for label, run in [("one device", one)] + [
+            ("mp rank %d" % r["rank"], r["mp"]) for r in ranks]:
+        print("mp train %s, bf16, sgd momentum: losses %s; step times %s s; "
+              "%.1f tokens/s; peak memory %.2f GiB; launches B5 %d, B6 %d, "
+              "B7 %d in %d steps; collective calls %s"
+              % (label, " ".join("%.5f" % x for x in run["losses"]),
+                 " ".join("%.4f" % x for x in run["secs"]), run["tokens_s"],
+                 run["peak_gib"], *run["launches"], MP_STEPS,
+                 run["collectives"]))
+    print("mp train: mp_stats %s; replicated params bit for bit on the ranks "
+          "%s" % (r0["mp_stats"], len({r["replicated_digest"]
+                                       for r in ranks}) == 1))
+
+    want = [FULL["n_layers"] * MP_STEPS] * 3
+    if loss_gap > MP_LOSS_TOL or whole > MP_RATIO * whole_yard or \
+            over[-1][0] > 1:
+        raise RuntimeError("mp train: fp32 loss gap %g, whole gradient gap "
+                           "%g against %g, worst tensor %s"
+                           % (loss_gap, whole, whole_yard, over[-1]))
+    if abs(ratio - MP_PARAM_RATIO) > 1e-12:
+        raise RuntimeError("mp train: param bytes ratio %.6f, want %.6f"
+                           % (ratio, MP_PARAM_RATIO))
+    if r0["counts"]["psum_per_block"] != 2:
+        raise RuntimeError("mp train: %s" % r0["counts"])
+    if len({r["replicated_digest"] for r in ranks}) != 1:
+        raise RuntimeError("mp train: the replicated params differ")
+    for label, run in [("one device", one)] + [("rank %d" % r["rank"],
+                                                 r["mp"]) for r in ranks]:
+        losses = run["losses"]
+        if run["launches"] != want or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0]:
+            raise RuntimeError("mp train %s: launches %s (want %s), losses "
+                               "%s" % (label, run["launches"], want, losses))
+    return [r["mp"]["launches"] for r in ranks]
+
+
+def _mp_serve_work(torch, np, fa, rank):
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.parallel.mesh import train_mesh
+    from mxnet_tpu_torch.serving import GenerateServer
+    from mxnet_tpu_torch.serving.generate import GenerativePredictor
+
+    t_ = PREFIX_TRACE
+    cfg = tfm.TransformerConfig(**FULL)
+    params = tfm.init_params(cfg, seed=0)
+    prompts, _ = _serving_prompts(np, cfg.vocab)
+    prefix, work = _prefix_workload(cfg.vocab)
+    shared = [i for i, w in enumerate(work) if w[2]]
+    shapes = (dict(slots=8, page_size=16),
+              dict(slots=t_["slots"], page_size=t_["page"]))
+    res = {"rank": rank}
+    if rank == 0:
+        fwd = tfm.make_forward_fn(cfg)
+        card = _on_card(torch, params)
+        # one device, alone on the card while rank 1 waits
+        one = {}
+        srv = GenerateServer(cfg, params, **shapes[0])
+        try:
+            one["burst"] = _serve_burst(torch, np, fa, srv, prompts,
+                                        _serving_prompts(np, cfg.vocab)[1],
+                                        ())
+        finally:
+            srv.close()
+        srv = GenerateServer(cfg, params, prefix_cache=True, **shapes[1])
+        try:
+            one["prefix"] = _prefix_run(torch, np, fa, srv, prefix, work,
+                                        shared[:2], fwd, card)
+        finally:
+            srv.close()
+        _check_prefix_run(one["prefix"], cfg.n_layers, len(shared), True)
+    dist.barrier()
+    mesh = train_mesh(mp=MP_RANKS)
+    if rank != 0:
+        res["follow"] = []
+        for kw in shapes:
+            pred = GenerativePredictor(cfg, params, mesh=mesh, **kw)
+            _reset_counts(fa)
+            calls = pred.follow()
+            res["follow"].append(dict(calls=calls,
+                                      b5=fa.flash_attention.launches,
+                                      kv_bytes=pred._kv.numel()
+                                      * pred._kv.element_size()))
+        return res
+
+    srv = GenerateServer(cfg, params, mesh=mesh, **shapes[0])
+    try:
+        burst = _serve_burst(torch, np, fa, srv, prompts,
+                             _serving_prompts(np, cfg.vocab)[1],
+                             range(N_REQUESTS))
+        res["sharded_stats"] = srv.predictor.sharded_stats()
+    finally:
+        srv.close()
+    srv = GenerateServer(cfg, params, mesh=mesh, prefix_cache=True,
+                         **shapes[1])
+    try:
+        run = _prefix_run(torch, np, fa, srv, prefix, work,
+                          range(len(work)), fwd, card)
+    finally:
+        srv.close()
+    _print_prefix_run("mp prefix on", run, shared)
+    _check_prefix_run(run, cfg.n_layers, len(shared), True)
+    errs = _served_rows_err(np, fwd, card, prompts, burst["results"],
+                            burst["watched"], "mp serve")
+    if max(errs) > LOGIT_TOL:
+        raise RuntimeError("mp serve: served logits differ from the forward "
+                           "by %.4g" % max(errs))
+    parted = {
+        "burst": _near_tie_pairs(torch, np, fwd, card, [
+            (p, a["tokens"], b["tokens"]) for p, a, b in zip(
+                prompts, burst["results"], one["burst"]["results"])],
+            "mp serve vs one device"),
+        "prefix": _near_tie_pairs(torch, np, fwd, card, [
+            (w[1], a["tokens"], b["tokens"]) for w, a, b in zip(
+                work, run["results"], one["prefix"]["results"])],
+            "mp prefix vs one device")}
+    exact = {k: run["stats"][k] for k in PREFIX_EXACT}
+    if exact != PREFIX_EXACT or exact != {
+            k: one["prefix"]["stats"][k] for k in PREFIX_EXACT}:
+        raise RuntimeError("mp prefix: counts %s, want %s (one device %s)"
+                           % (exact, PREFIX_EXACT, one["prefix"]["stats"]))
+
+    def summary(b, p):
+        calls = {k: sorted(v) for k, v in b["call_s"].items()}
+        return dict(tokens_s=b["tokens"] / b["wall"], wall=b["wall"],
+                    prefill_ms=calls["prefill"][len(calls["prefill"]) // 2]
+                    * 1e3,
+                    decode_ms=calls["decode"][len(calls["decode"]) // 2]
+                    * 1e3,
+                    ttft_p50_ms=b["stats"]["ttft_p50_ms"],
+                    ttft_p99_ms=b["stats"]["ttft_p99_ms"],
+                    prefills=b["stats"]["prefills"], b5=b["launches"],
+                    prefix_wall=p["wall"], prefix_b5=p["launches"],
+                    prefix_ttft_p50_ms=_pctl([r["ttft_s"] for r in
+                                              p["results"]], 0.5) * 1e3,
+                    prefix_ttft_p99_ms=_pctl([r["ttft_s"] for r in
+                                              p["results"]], 0.99) * 1e3)
+
+    res.update(mp=summary(burst, run), one=summary(one["burst"],
+                                                   one["prefix"]),
+               worst_err=max(errs), rows=len(errs) * NEW_TOKENS,
+               prefix_errs=max(run["errs"]), exact=exact,
+               parted={k: len(v) for k, v in parted.items()})
+    return res
+
+
+def mp_serving_phase(torch, np, fa):
+    """GenerateServer over GenerativePredictor(mesh=train_mesh(mp=2)) on 2
+    gloo ranks sharing the card (rank 0 leads, rank 1 follows): the
+    serving workload, then the shared-prefix trace with the cache on,
+    against one device in the same call; returns each rank's B5 launches
+    (the leader's timed burst, the follower's whole run of the burst's
+    predictor)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, wall = _run_ranks(_mp_gloo_rank, MP_RANKS, MP_TIMEOUT, "mp serve",
+                             "serve")
+    lead, follower = ranks
+    st = lead["sharded_stats"]
+    print("mp serve: %d gloo ranks sharing one card, %.1f s with start-up; "
+          "sharded_stats %s; every served row of %d requests (%d rows) vs "
+          "the one-device forward: worst %.4f (tol %g); prefix trace rows "
+          "worst %.4f; prefix counts %s; chains parted from one device's at "
+          "near-ties %s" % (MP_RANKS, wall, st, N_REQUESTS, lead["rows"],
+                            lead["worst_err"], LOGIT_TOL,
+                            lead["prefix_errs"], lead["exact"],
+                            lead["parted"]))
+    for label in ("mp", "one"):
+        m = lead[label]
+        print("mp serve %s: %.1f tokens/s (%.3f s wall), TTFT p50 %.1f ms p99 "
+              "%.1f ms, median call (host clock) prefill %.2f ms, decode "
+              "%.2f ms, %d prefills, B5 %d; prefix trace (cache on) %.3f s "
+              "wall, TTFT p50 %.2f ms p99 %.2f ms, B5 %d"
+              % ("mp=2 leader" if label == "mp" else "one device",
+                 m["tokens_s"], m["wall"], m["ttft_p50_ms"], m["ttft_p99_ms"],
+                 m["prefill_ms"], m["decode_ms"], m["prefills"], m["b5"],
+                 m["prefix_wall"],
+                 m["prefix_ttft_p50_ms"], m["prefix_ttft_p99_ms"],
+                 m["prefix_b5"]))
+    for i, f in enumerate(follower["follow"]):
+        print("mp serve follower, predictor %d: calls %s, B5 launches %d, KV "
+              "bytes %d" % (i, f["calls"], f["b5"], f["kv_bytes"]))
+    if st["kv_bytes_per_chip"] * MP_RANKS != st["kv_bytes_total"] or \
+            follower["follow"][0]["kv_bytes"] != st["kv_bytes_per_chip"]:
+        raise RuntimeError("mp serve: KV bytes a rank %s" % st)
+    for f in follower["follow"]:
+        if f["b5"] != FULL["n_layers"] * f["calls"]["prefill"]:
+            raise RuntimeError("mp serve follower: B5 %d for %d prefills"
+                               % (f["b5"], f["calls"]["prefill"]))
+    return [lead["mp"]["b5"], follower["follow"][0]["b5"]]
 
 
 # Module.fit on the image-classification zoo: the builders of
@@ -5066,6 +5552,11 @@ def main():
     for i, entry in enumerate([conv, *grads]):
         entry["dp_launches"] = dp_nccl[i]
         entry["dp_gloo_launches"] = [r[i] for r in dp_gloo]
+    mp_train = phase("mp_training", mp_training_phase, torch, np, fa)
+    for i, entry in enumerate([fwd, *bwd]):
+        entry["mp_train_launches"] = [r[i] for r in mp_train]
+    fwd["mp_serve_launches"] = phase("mp_serving", mp_serving_phase, torch,
+                                     np, fa)
     zoo = phase("model_zoo_fit", model_zoo_fit_phase, torch, np, fa, fb)
     for entry, n in zip([fwd, *bwd, conv, *grads], zoo):
         entry["model_zoo_launches"] = n
@@ -5095,7 +5586,9 @@ def main():
           "training %d steps B1 %d, B2 %d, B3 %d; TrainStep options %d "
           "steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 %d, B2 %d, "
           "B3 %d; data parallel, one rank over NCCL, %d steps B1 %d, B2 %d, "
-          "B3 %d, each of %d gloo ranks %s; model zoo B5-B7 and B1-B3 %s; "
+          "B3 %d, each of %d gloo ranks %s; mp=2 training %d steps B5, "
+          "B6, B7 on each rank %s; mp=2 serving B5 (leader's burst, "
+          "follower's run) %s; model zoo B5-B7 and B1-B3 %s; "
           "LM path (fit, serving, op sweep) B5-B7 and B1-B3 %s; SSD path "
           "(fit, detection, contrib sweep) B5-B7 and B1-B3 %s"
           % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
@@ -5104,7 +5597,8 @@ def main():
              OPTIONS_STEPS * (len(REMAT_MODES) + 1), *options_launches,
              FIT_EPOCHS * FIT_COPIES, *fit_launches, DP_STEPS, *dp_nccl,
              DP_RANKS, " / ".join("%d, %d, %d" % r for r in dp_gloo),
-             ", ".join("%d" % n for n in zoo),
+             MP_STEPS, " / ".join("%d, %d, %d" % tuple(r) for r in mp_train),
+             fwd["mp_serve_launches"], ", ".join("%d" % n for n in zoo),
              ", ".join("%d" % n for n in lm),
              ", ".join("%d" % n for n in ssd_path)))
     print("phases: %s; total %.1f s" % (

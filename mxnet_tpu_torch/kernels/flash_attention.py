@@ -185,7 +185,9 @@ def _launch(source, entry, inputs, outputs, scale, causal, kv_len,
 
 
 def _on(t, what):
-    if t.device.type not in ("cuda", "cpu"):
+    """True on a CUDA tensor (launch the kernel); False on a CPU tensor, or
+    a ``meta`` one, which holds shapes only (the plain version)."""
+    if t.device.type not in ("cuda", "cpu", "meta"):
         raise MXNetError("%s: unsupported device %s" % (what, t.device))
     return t.device.type == "cuda"
 

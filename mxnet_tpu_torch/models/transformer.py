@@ -1,6 +1,6 @@
 """Decoder-only transformer LM for training and generative serving, in
-PyTorch (counterpart of ``mxnet_tpu/models/transformer.py``, single
-device only).
+PyTorch (counterpart of ``mxnet_tpu/models/transformer.py``), on one
+device or sharded Megatron's way over a mesh's ``mp`` axis.
 
 The functions keep the JAX package's parameter names, shapes and layouts
 (the stacked ``(L, d, 3, H, Dh)`` QKV and ``(L, H, Dh, d)`` out-projection,
@@ -41,9 +41,22 @@ JAX's functions are pure and donate the cache buffer and the train
 carry; here the cache and the train step's params and optimizer state
 are updated in place and the same tensors are returned.
 
-Not ported yet (ROADMAP.md Queue A item 8): mesh / ``mp`` sharding
-(``param_specs``), ring and Ulysses attention, MoE (``n_experts > 0``) and
-the schedule-table consult for attention blocks.
+Tensor parallelism over a mesh's ``mp`` (or legacy ``tp``) axis, one
+process a device: :func:`param_specs` and :func:`shard_params` give a
+rank its shards (the embedding's vocab rows, the qkv and out-projection
+heads, ffn-up's columns and ffn-down's rows; the rest replicated), and
+the forward on a shard runs Megatron's collectives
+(:mod:`..parallel.tensor_parallel`): a vocab-sharded embedding summed
+over the group, attention on the rank's ``H / mp`` heads, one sum after
+the row-parallel out-projection and one after ffn-down (two a block),
+and the logits' vocab shards gathered. The batch is split over the data
+axes. :func:`make_loss_fn`, :func:`make_train_step`,
+:func:`make_prefill_fn`, :func:`make_decode_fn` and :func:`make_extend_fn`
+take ``mesh=``.
+
+Not ported yet: ring and Ulysses attention (an ``sp`` axis), MoE
+(``n_experts > 0``, an ``ep`` axis) and the pipeline schedule (ROADMAP.md
+Queue A item 8c), and the schedule-table consult for attention blocks.
 """
 from __future__ import annotations
 
@@ -57,12 +70,21 @@ from torch.utils.checkpoint import checkpoint
 from ..base import MXNetError
 from ..context import resolve_device
 from ..kernels.flash_attention import flash_attention
-from ..parallel.spmd import FunctionalOptimizer, functional_optimizer
+from ..parallel.feed import rank_rows
+from ..parallel.mesh import (_mp_axis, all_gather_rows, all_reduce_flat_,
+                             data_group, mesh_device, model_group)
+from ..parallel.spmd import (FunctionalOptimizer, ShardingRuleError,
+                             functional_optimizer)
+from ..parallel import tensor_parallel as tpl
+from ..parallel.tensor_parallel import (copy_to_mp, gather_from_mp,
+                                        reduce_from_data, reduce_from_mp)
 
 __all__ = ["TransformerConfig", "init_params", "params_from_jax",
-           "make_loss_fn", "make_train_step", "make_forward_fn",
-           "init_kv_cache", "make_prefill_fn", "make_decode_fn",
-           "make_extend_fn", "draft_from_layers", "torch_dtype"]
+           "param_specs", "kv_cache_spec", "shard_params", "unshard",
+           "make_loss_fn", "make_train_step", "block_collective_counts",
+           "make_forward_fn", "init_kv_cache", "make_prefill_fn",
+           "make_decode_fn", "make_extend_fn", "draft_from_layers",
+           "torch_dtype"]
 
 _NEG_INF = -1e30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -95,36 +117,35 @@ def _check_dense(config):
     if config.n_experts:
         raise MXNetError(
             "n_experts=%d: the MoE ffn is not ported yet (ROADMAP.md Queue A "
-            "item 8); use n_experts=0" % config.n_experts)
+            "item 8c); use n_experts=0" % config.n_experts)
+
+
+def _param_shapes(c):
+    """Each param's shape, in ``init_params``' order of draws."""
+    d, L = c.d_model, c.n_layers
+    return {"embed_weight": (c.vocab, d), "pos_embed_weight": (c.max_len, d),
+            "final_ln_gamma": (d,), "final_ln_beta": (d,),
+            "ln1_gamma": (L, d), "ln1_beta": (L, d),
+            "ln2_gamma": (L, d), "ln2_beta": (L, d),
+            "attn_qkv_weight": (L, d, 3, c.n_heads, d // c.n_heads),
+            "attn_out_weight": (L, c.n_heads, d // c.n_heads, d),
+            "ffn_up_weight": (L, d, c.d_ff), "ffn_down_weight": (L, c.d_ff, d)}
 
 
 def init_params(config, seed=0):
     """Flat fp32 param dict of CPU tensors; layer params stacked on a
     leading L dim. The same ``np.random.RandomState`` recipe as the JAX
-    package, so one seed gives bit-identical weights in both."""
+    package (normal(0, 0.02) weights drawn in order, unit gammas, zero
+    betas), so one seed gives bit-identical weights in both."""
     _check_dense(config)
-    c = config
     rng = np.random.RandomState(seed)
-    dh = c.d_model // c.n_heads
-
-    def norm(*shape, scale=0.02):
-        return rng.normal(0.0, scale, shape).astype(np.float32)
-
-    p = {
-        "embed_weight": norm(c.vocab, c.d_model),
-        "pos_embed_weight": norm(c.max_len, c.d_model),
-        "final_ln_gamma": np.ones((c.d_model,), np.float32),
-        "final_ln_beta": np.zeros((c.d_model,), np.float32),
-    }
-    L = c.n_layers
-    p["ln1_gamma"] = np.ones((L, c.d_model), np.float32)
-    p["ln1_beta"] = np.zeros((L, c.d_model), np.float32)
-    p["ln2_gamma"] = np.ones((L, c.d_model), np.float32)
-    p["ln2_beta"] = np.zeros((L, c.d_model), np.float32)
-    p["attn_qkv_weight"] = norm(L, c.d_model, 3, c.n_heads, dh)
-    p["attn_out_weight"] = norm(L, c.n_heads, dh, c.d_model)
-    p["ffn_up_weight"] = norm(L, c.d_model, c.d_ff)
-    p["ffn_down_weight"] = norm(L, c.d_ff, c.d_model)
+    p = {}
+    for k, shape in _param_shapes(config).items():
+        if k.endswith("_weight"):
+            p[k] = rng.normal(0.0, 0.02, shape).astype(np.float32)
+        else:
+            p[k] = (np.ones if k.endswith("_gamma") else np.zeros)(
+                shape, np.float32)
     return {k: torch.from_numpy(v) for k, v in p.items()}
 
 
@@ -134,6 +155,112 @@ def params_from_jax(np_params, device=None):
     dev = resolve_device(device)
     return {k: torch.tensor(np.asarray(v, dtype=np.float32), device=dev)
             for k, v in np_params.items()}
+
+
+def param_specs(config, mesh):
+    """Each param's spec, a tuple naming the mesh axis of each dim (None:
+    whole), as the JAX package's ``PartitionSpec``s: Megatron's column
+    (qkv heads, ffn-up's output) and row (out-projection heads, ffn-down's
+    input) sharding and the vocab-sharded embedding over the mesh's
+    ``mp`` (or ``tp``) axis; the rest replicated (dense only)."""
+    _check_dense(config)
+    tp = _mp_axis(mesh.mesh_dim_names)
+    rep = ()
+    return {"embed_weight": (tp, None), "pos_embed_weight": rep,
+            "final_ln_gamma": rep, "final_ln_beta": rep,
+            "ln1_gamma": rep, "ln1_beta": rep, "ln2_gamma": rep,
+            "ln2_beta": rep,
+            "attn_qkv_weight": (None, None, None, tp, None),
+            "attn_out_weight": (None, tp, None, None),
+            "ffn_up_weight": (None, None, tp),
+            "ffn_down_weight": (None, tp, None)}
+
+
+def kv_cache_spec(mesh):
+    """The paged KV cache's spec, ``(L, 2, P+1, page, H, Dh)``: heads
+    sharded over the mp axis, so each rank holds 1/mp of every page."""
+    return (None, None, None, None, _mp_axis(mesh.mesh_dim_names), None)
+
+
+def _sharded_dims(config, mesh):
+    """``{name: dim}`` of the params sharded over the mp axis."""
+    axis = _mp_axis(mesh.mesh_dim_names)
+    return {k: spec.index(axis)
+            for k, spec in param_specs(config, mesh).items()
+            if axis is not None and axis in spec}
+
+
+def shard_params(params, config, mesh, device=None):
+    """This rank's shards of a whole param dict (the JAX ``init_params``
+    layout, numpy or tensors) as fp32 tensors on ``device`` (default the
+    rank's mesh device): index ``i`` of ``n`` mp ranks holds block ``i``
+    of each sharded dim (:func:`param_specs`); the rest are whole copies.
+    Raises ``ShardingRuleError`` when a sharded dim does not divide by
+    ``n``."""
+    _group, n, index = model_group(mesh)
+    dims = _sharded_dims(config, mesh)
+    dev = mesh_device(mesh) if device is None else torch.device(device)
+    out = {}
+    for k, v in params.items():
+        v = torch.as_tensor(v) if isinstance(v, torch.Tensor) \
+            else torch.from_numpy(np.asarray(v))
+        dim = dims.get(k)
+        if dim is not None:
+            if v.shape[dim] % n:
+                raise ShardingRuleError(
+                    "shard_params: %s dim %d of size %d does not divide over "
+                    "%d mp ranks" % (k, dim, v.shape[dim], n))
+            w = v.shape[dim] // n
+            v = v.narrow(dim, index * w, w)
+        out[k] = v.detach().to(dev, torch.float32, copy=True)
+    return out
+
+
+def unshard(shards, config, mesh):
+    """The inverse of :func:`shard_params`, a collective over the rank's mp
+    group: each sharded tensor's blocks gathered in rank order, the
+    replicated ones as they are."""
+    group, _n, _index = model_group(mesh)
+    dims = _sharded_dims(config, mesh)
+    out = {}
+    for k, v in shards.items():
+        dim = dims.get(k)
+        if dim is None or group is None:
+            out[k] = v
+        else:
+            whole = all_gather_rows(v.detach().movedim(dim, 0).contiguous(),
+                                    group)
+            out[k] = whole.movedim(0, dim).contiguous()
+    return out
+
+
+def _mp_context(mesh):
+    """``None`` (no mesh, or no mp axis) or :func:`model_group`'s
+    ``(group, n, index)``; ``sp`` and ``ep`` axes raise by name."""
+    if mesh is None:
+        return None
+    for axis, what in (("sp", "ring and Ulysses attention"),
+                       ("ep", "the MoE ffn's experts")):
+        if axis in mesh.mesh_dim_names:
+            raise MXNetError(
+                "a mesh axis %r (%s) is not ported yet (ROADMAP.md Queue A "
+                "item 8c)" % (axis, what))
+    return model_group(mesh) if _mp_axis(mesh.mesh_dim_names) else None
+
+
+def _run_device(mesh, device, what):
+    """The device a function runs on: ``device`` (default ``cuda``), or
+    the rank's mesh device, which ``device``, when given, must name."""
+    if mesh is None:
+        return resolve_device(device)
+    dev = mesh_device(mesh)
+    if device is not None:
+        want = resolve_device(device)
+        if want.type != dev.type or (want.index is not None
+                                     and want.index != dev.index):
+            raise MXNetError("%s: device=%r but this rank's mesh device is %s"
+                             % (what, device, dev))
+    return dev
 
 
 def _check_on(dev, **tensors):
@@ -166,63 +293,90 @@ def _attention(q, k, v, causal=True):
                            causal=causal)
 
 
-def _qkv(h, lp, cdt):
-    """(B, S, d) -> q, k, v each (B, H, S, Dh)."""
-    qkv = torch.einsum("bsd,dthe->tbhse", h, lp["attn_qkv_weight"].to(cdt))
+def _qkv(h, lp, cdt, tp=None):
+    """(B, S, d) -> q, k, v each (B, H, S, Dh) (this rank's heads under
+    mp: a column-parallel product)."""
+    qkv = torch.einsum("bsd,dthe->tbhse", copy_to_mp(h, tp),
+                       lp["attn_qkv_weight"].to(cdt))
     return qkv[0], qkv[1], qkv[2]
 
 
-def _out_proj(o, lp, cdt):
-    return torch.einsum("bhse,hed->bsd", o, lp["attn_out_weight"].to(cdt))
+def _out_proj(o, lp, cdt, tp=None):
+    """The out-projection of the rank's heads, summed over the mp group (a
+    row-parallel product)."""
+    return reduce_from_mp(torch.einsum("bhse,hed->bsd", o,
+                                       lp["attn_out_weight"].to(cdt)), tp)
 
 
-def _block(x, lp, cdt):
-    """One transformer block; lp: this layer's params."""
+def _block(x, lp, cdt, tp=None):
+    """One transformer block; lp: this layer's params (shards under mp)."""
     h = _layernorm(x, lp["ln1_gamma"], lp["ln1_beta"])
-    q, k, v = _qkv(h, lp, cdt)
-    return _ffn(x + _out_proj(_attention(q, k, v), lp, cdt), lp, cdt)
+    q, k, v = _qkv(h, lp, cdt, tp)
+    return _ffn(x + _out_proj(_attention(q, k, v), lp, cdt, tp), lp, cdt, tp)
 
 
-def _ffn(x, lp, cdt):
+def _ffn(x, lp, cdt, tp=None):
     """The ffn half of a block (post-attention residual included), shared
-    by the one-shot forward, prefill and decode."""
-    h = _layernorm(x, lp["ln2_gamma"], lp["ln2_beta"])
+    by the one-shot forward, prefill and decode: ffn-up by columns and
+    ffn-down by rows under mp, one sum over the group."""
+    h = copy_to_mp(_layernorm(x, lp["ln2_gamma"], lp["ln2_beta"]), tp)
     up = F.relu(torch.einsum("bsd,df->bsf", h, lp["ffn_up_weight"].to(cdt)))
-    return x + torch.einsum("bsf,fd->bsd", up, lp["ffn_down_weight"].to(cdt))
+    return x + reduce_from_mp(torch.einsum(
+        "bsf,fd->bsd", up, lp["ffn_down_weight"].to(cdt)), tp)
 
 
-def _logits(x, params, cdt):
-    x = _layernorm(x, params["final_ln_gamma"], params["final_ln_beta"])
-    return torch.einsum("...d,vd->...v", x,
-                        params["embed_weight"].to(cdt)).float()
+def _logits(x, params, cdt, tp=None):
+    """fp32 logits of the tied head (the rank's vocab shard, then gathered
+    under mp)."""
+    x = copy_to_mp(_layernorm(x, params["final_ln_gamma"],
+                              params["final_ln_beta"]), tp)
+    local = torch.einsum("...d,vd->...v", x, params["embed_weight"].to(cdt))
+    return gather_from_mp(local, tp).float()
+
+
+def _embed(emb, tokens, tp, clamp):
+    """Rows of int ``tokens`` from the embedding; under mp the rank holds
+    vocab rows ``[index * v, (index + 1) * v)``, embeds the ids it does
+    not hold as zeros, and the mp group sums the shards. ``clamp`` clips
+    ids into the whole vocabulary first (the serving steps); without it an
+    out-of-vocab id embeds as zeros (the training forward)."""
+    v = emb.shape[0]
+    _group, n, index = (None, 1, 0) if tp is None else tp
+    if clamp:
+        tokens = tokens.clamp(0, v * n - 1)
+        if tp is None:
+            return emb[tokens]
+    local = tokens - index * v
+    in_range = (local >= 0) & (local < v)
+    x = torch.where(in_range[..., None], emb[local.clamp(0, v - 1)], 0.0)
+    return reduce_from_mp(x, tp)
 
 
 def _as_long(a, device):
     return torch.as_tensor(a, device=device).long()
 
 
-def _forward(params, tokens, c, cdt, dev):
+def _forward(params, tokens, c, cdt, dev, tp=None):
     """Logits (B, S, V) fp32 of int tokens (B, S): the causal block stack
     shared by the one-shot forward and the training loss (the JAX
-    package's ``_forward_local`` with no mesh). Out-of-vocab ids embed as
-    zeros. Under ``c.remat``, while autograd records, each layer is
-    recomputed in the backward (``jax.checkpoint`` in the JAX package)."""
+    package's ``_forward_local``; ``tp`` the mp group of a rank's shards).
+    Out-of-vocab ids embed as zeros. Under ``c.remat``, while autograd
+    records, each layer is recomputed in the backward (``jax.checkpoint``
+    in the JAX package)."""
     emb = params["embed_weight"]
     _check_on(dev, params=emb)
     tokens = _as_long(tokens, dev)
     S = tokens.shape[1]
-    in_range = (tokens >= 0) & (tokens < emb.shape[0])
-    x = emb[tokens.clamp(0, emb.shape[0] - 1)]
-    x = torch.where(in_range[..., None], x, 0.0)
+    x = _embed(emb, tokens, tp, clamp=False)
     x = (x + params["pos_embed_weight"][:S]).to(cdt)
     remat = c.remat and torch.is_grad_enabled()
     for i in range(c.n_layers):
         lp = _layer(params, i)
         if remat:
-            x = checkpoint(_block, x, lp, cdt, use_reentrant=False)
+            x = checkpoint(_block, x, lp, cdt, tp, use_reentrant=False)
         else:
-            x = _block(x, lp, cdt)
-    return _logits(x, params, cdt)
+            x = _block(x, lp, cdt, tp)
+    return _logits(x, params, cdt, tp)
 
 
 def make_forward_fn(config, device=None):
@@ -241,39 +395,63 @@ def make_forward_fn(config, device=None):
     return fwd
 
 
+def _loss_closure(c, dev, mesh, data_axes):
+    """The loss function of :func:`make_loss_fn` on ``dev``."""
+    cdt = torch_dtype(c.dtype)
+    tp = _mp_context(mesh)
+    group, n, index = (None, 1, 0) if mesh is None else \
+        data_group(mesh, data_axes)
+    reduce = mesh is not None and any(a in mesh.mesh_dim_names
+                                      for a in data_axes)
+
+    def loss_fn(params, tokens):
+        if n > 1:
+            tokens = rank_rows(tokens, n, index, "tokens", "loss_fn")
+        tokens = _as_long(tokens, dev)
+        logits = _forward(params, tokens[:, :-1], c, cdt, dev, tp)
+        nll = -F.log_softmax(logits, dim=-1).gather(-1, tokens[:, 1:, None])
+        if not reduce:
+            return nll.mean()
+        total = reduce_from_data(nll.sum(), group)
+        count = reduce_from_data(torch.tensor(float(nll.numel()),
+                                              device=dev), group)
+        return total / count
+
+    return loss_fn
+
+
 def make_loss_fn(config, mesh=None, data_axes=("dp",), device=None):
     """``(loss_fn, specs)``: ``loss_fn(params, tokens (B, S+1) int)`` is
     the mean next-token cross-entropy, a scalar fp32 tensor on ``device``
     (default ``cuda``), where the params must lie; autograd reaches every
     param through it. The fp32 ``log_softmax`` of fp32 logits, as in the
-    JAX package.
+    JAX package. ``specs`` is None without a mesh.
 
-    Single device only: ``specs`` is None and ``data_axes`` is unused
-    until mesh sharding is ported; a ``mesh`` raises."""
+    On a ``mesh`` (every rank calls it, on its mesh device) the params are
+    the rank's shards (:func:`shard_params`; ``specs`` is
+    :func:`param_specs`) and ``tokens`` the global batch, whose rows the
+    data axes among ``data_axes`` split: the loss is the global mean, the
+    sum and count summed over the data group. Each rank's gradient is its
+    data rank's share (the mp ranks of one data rank get the same
+    gradient of every replicated param); their sum over the data group is
+    the global loss's gradient, as :func:`make_train_step` takes it."""
     _check_dense(config)
-    if mesh is not None:
-        raise MXNetError("make_loss_fn: mesh sharding is not ported yet "
-                         "(ROADMAP.md Queue A item 8); pass mesh=None to "
-                         "train on one device")
-    c = config
-    cdt = torch_dtype(c.dtype)
-    dev = resolve_device(device)
-
-    def loss_fn(params, tokens):
-        tokens = _as_long(tokens, dev)
-        logits = _forward(params, tokens[:, :-1], c, cdt, dev)
-        logp = F.log_softmax(logits, dim=-1)
-        return -logp.gather(-1, tokens[:, 1:, None]).mean()
-
-    return loss_fn, None
+    dev = _run_device(mesh, device, "make_loss_fn")
+    specs = None if mesh is None else param_specs(config, mesh)
+    return _loss_closure(config, dev, mesh, data_axes), specs
 
 
 def make_train_step(config, mesh=None, optimizer=None, data_axes=("dp",),
                     device=None):
-    """``(step, place)``: one train step on ``device`` (default ``cuda``).
+    """``(step, place)``: one train step on ``device`` (default ``cuda``),
+    or on each rank of a ``mesh`` (every rank calls ``step`` with the
+    global batch; the gradients are summed over the data group, one
+    collective a dtype, and the replicated params stay bit for bit equal
+    across an mp group).
 
-    ``place(params)`` copies the params to the device as fp32 leaves that
-    require grad and builds the carry ``(params, opt_state, 0)``.
+    ``place(params)`` copies the params (whole; on a mesh, this rank's
+    :func:`shard_params`) to the device as fp32 leaves that require grad
+    and builds the carry ``(params, opt_state, 0)``.
     ``step(carry, tokens (B, S+1)) -> (carry, loss)`` runs the loss of
     :func:`make_loss_fn`, its gradient in every param, and the optimizer's
     update, which changes the carry's params and state in place (the JAX
@@ -289,7 +467,8 @@ def make_train_step(config, mesh=None, optimizer=None, data_axes=("dp",),
                          "FunctionalOptimizer or a dict of its arguments, "
                          "got %r" % type(opt).__name__)
     loss_fn, _specs = make_loss_fn(config, mesh, data_axes, device)
-    dev = resolve_device(device)
+    dev = _run_device(mesh, device, "make_train_step")
+    group = None if mesh is None else data_group(mesh, data_axes)[0]
 
     def step(carry, tokens):
         params, opt_state, n = carry
@@ -297,11 +476,14 @@ def make_train_step(config, mesh=None, optimizer=None, data_axes=("dp",),
         with torch.enable_grad():
             loss = loss_fn(params, tokens)
             grads = torch.autograd.grad(loss, [params[k] for k in names])
+        all_reduce_flat_(list(grads), group)
         params, opt_state = opt.apply(params, dict(zip(names, grads)),
                                       opt_state, n)
         return (params, opt_state, n + 1), loss.detach()
 
     def place(params):
+        if mesh is not None:
+            params = shard_params(params, config, mesh)
         params = {k: torch.as_tensor(v).detach().to(
             dev, torch.float32, copy=True).requires_grad_(True)
             for k, v in params.items()}
@@ -310,20 +492,58 @@ def make_train_step(config, mesh=None, optimizer=None, data_axes=("dp",),
     return step, place
 
 
-def init_kv_cache(config, num_pages, page_size, dtype=None, device=None):
+def block_collective_counts(config, mesh, data_axes=("dp",)):
+    """The collectives of one loss forward on ``mesh``, counted by the
+    functions of :mod:`..parallel.tensor_parallel` while the loss runs on
+    ``meta`` tensors (shapes only: nothing is sent, as the JAX package
+    counts a traced jaxpr): ``psum_per_block`` the sums inside one
+    transformer block (2 on an mp mesh: after the out-projection and
+    ffn-down; 0 without mp), ``psum_outside`` the others (the
+    vocab-sharded embedding's, the loss sum's and count's over the data
+    axes), ``all_gather`` the logits' gathers, ``n_blocks`` the layers.
+    The JAX package's keys and values for the same mesh shape."""
+    _check_dense(config)
+    meta = torch.device("meta")
+    params = shard_params({k: torch.empty(shape, device=meta) for k, shape
+                           in _param_shapes(config).items()},
+                          config, mesh, device=meta)
+    n = data_group(mesh, data_axes)[1]
+    loss_fn = _loss_closure(config, meta, mesh, data_axes)
+    tp = _mp_context(mesh)
+    before = tpl.counts()
+    with torch.no_grad():
+        loss_fn(params, torch.zeros((n, 9), dtype=torch.long, device=meta))
+        mid = tpl.counts()
+        _block(torch.empty((1, 8, config.d_model), device=meta,
+                           dtype=torch_dtype(config.dtype)),
+               _layer(params, 0), torch_dtype(config.dtype), tp)
+    after = tpl.counts()
+    per_block = after["reduce_from_mp"] - mid["reduce_from_mp"]
+    psums = sum(mid[k] - before[k] for k in ("reduce_from_mp",
+                                             "reduce_from_data"))
+    return {"psum_per_block": per_block,
+            "psum_outside": psums - per_block * config.n_layers,
+            "all_gather": mid["gather_from_mp"] - before["gather_from_mp"],
+            "n_blocks": config.n_layers}
+
+
+def init_kv_cache(config, num_pages, page_size, dtype=None, device=None,
+                  mesh=None):
     """Zeroed paged KV cache (n_layers, 2, num_pages + 1, page_size,
     n_heads, head_dim) in the compute dtype, on ``device`` (default
-    ``cuda``). Page 0 is the scratch page; callers allocate real page ids
-    from 1..num_pages."""
+    ``cuda``); on a ``mesh``, this rank's ``n_heads / mp`` heads
+    (:func:`kv_cache_spec`) on its mesh device. Page 0 is the scratch page;
+    callers allocate real page ids from 1..num_pages."""
     c = config
-    device = resolve_device(device)
+    device = _run_device(mesh, device, "init_kv_cache")
+    heads = c.n_heads // (1 if mesh is None else model_group(mesh)[1])
     cdt = torch_dtype(dtype if dtype is not None else c.dtype)
     dh = c.d_model // c.n_heads
     return torch.zeros((c.n_layers, 2, int(num_pages) + 1, int(page_size),
-                        c.n_heads, dh), dtype=cdt, device=device)
+                        heads, dh), dtype=cdt, device=device)
 
 
-def make_prefill_fn(config, page_size, device=None):
+def make_prefill_fn(config, page_size, device=None, mesh=None):
     """fn(params, cache, tokens (1, S_pad) int, length int, pages
     (S_pad // page_size,) int) -> (cache, logits (V,) fp32).
 
@@ -334,12 +554,15 @@ def make_prefill_fn(config, page_size, device=None):
     positions write into whatever page their index names: callers pad
     ``pages`` with 0, the scratch page. Causal masking keeps the padded
     rows from touching valid ones. Params and cache must lie on
-    ``device`` (default ``cuda``)."""
+    ``device`` (default ``cuda``). On a ``mesh`` the params and cache are
+    the rank's shards, every rank of the mesh makes the same call, and
+    each returns the whole vocabulary's logits."""
     _check_dense(config)
     c = config
     cdt = torch_dtype(c.dtype)
     page_size = int(page_size)
-    dev = resolve_device(device)
+    dev = _run_device(mesh, device, "make_prefill_fn")
+    tp = _mp_context(mesh)
 
     @torch.inference_mode()
     def prefill(params, cache, tokens, length, pages):
@@ -349,20 +572,20 @@ def make_prefill_fn(config, page_size, device=None):
         pages = _as_long(pages, dev)
         S = tokens.shape[1]
         n_pages = S // page_size
-        x = emb[tokens.clamp(0, emb.shape[0] - 1)]
+        x = _embed(emb, tokens, tp, clamp=True)
         x = (x + params["pos_embed_weight"][:S]).to(cdt)
         for i in range(c.n_layers):
             lp = _layer(params, i)
             h = _layernorm(x, lp["ln1_gamma"], lp["ln1_beta"])
-            q, k, v = _qkv(h, lp, cdt)
+            q, k, v = _qkv(h, lp, cdt, tp)
             # (1, H, S, Dh) -> page grid (n_pages, page, H, Dh)
             cache[i, 0, pages] = k[0].transpose(0, 1).reshape(
-                n_pages, page_size, c.n_heads, -1).to(cache.dtype)
+                n_pages, page_size, k.shape[1], -1).to(cache.dtype)
             cache[i, 1, pages] = v[0].transpose(0, 1).reshape(
-                n_pages, page_size, c.n_heads, -1).to(cache.dtype)
-            o = _out_proj(_attention(q, k, v), lp, cdt)
-            x = _ffn(x + o, lp, cdt)
-        return cache, _logits(x[0, int(length) - 1], params, cdt)
+                n_pages, page_size, v.shape[1], -1).to(cache.dtype)
+            o = _out_proj(_attention(q, k, v), lp, cdt, tp)
+            x = _ffn(x + o, lp, cdt, tp)
+        return cache, _logits(x[0, int(length) - 1], params, cdt, tp)
 
     return prefill
 
@@ -391,7 +614,7 @@ def _paged_extend_attention(q, k, v, positions):
 
 
 def _paged_blocks(params, cache, tokens, positions, block_tables, valid, c,
-                  cdt, page_size):
+                  cdt, page_size, tp=None):
     """The layer stack of the paged steps (decode and extend): tokens,
     positions and valid (S, T), block_tables (S, MP); returns the final
     hidden states (S, T, d). Token (b, t) is written at page
@@ -406,7 +629,7 @@ def _paged_blocks(params, cache, tokens, positions, block_tables, valid, c,
     mp = block_tables.shape[1]
     max_ctx = mp * page_size
     emb, pos_w = params["embed_weight"], params["pos_embed_weight"]
-    x = emb[tokens.clamp(0, emb.shape[0] - 1)] \
+    x = _embed(emb, tokens, tp, clamp=True) \
         + pos_w[positions.clamp(0, pos_w.shape[0] - 1)]
     x = x.to(cdt)                                               # (S, T, d)
     offset = positions % page_size
@@ -415,21 +638,21 @@ def _paged_blocks(params, cache, tokens, positions, block_tables, valid, c,
     for i in range(c.n_layers):
         lp = _layer(params, i)
         h = _layernorm(x, lp["ln1_gamma"], lp["ln1_beta"])
-        q, k, v = _qkv(h, lp, cdt)                          # (S, H, T, Dh)
+        q, k, v = _qkv(h, lp, cdt, tp)                      # (S, H, T, Dh)
         cache[i, 0, page, offset] = k.transpose(1, 2).to(cache.dtype)
         cache[i, 1, page, offset] = v.transpose(1, 2).to(cache.dtype)
         # paged gather: (S, MP, page, H, Dh) -> (S, H, L, Dh)
         kg = cache[i, 0][block_tables].reshape(
-            S, max_ctx, c.n_heads, -1).transpose(1, 2)
+            S, max_ctx, k.shape[1], -1).transpose(1, 2)
         vg = cache[i, 1][block_tables].reshape(
-            S, max_ctx, c.n_heads, -1).transpose(1, 2)
+            S, max_ctx, v.shape[1], -1).transpose(1, 2)
         o = _paged_extend_attention(q, kg, vg, positions)
-        x = _ffn(x + _out_proj(o, lp, cdt), lp, cdt)
+        x = _ffn(x + _out_proj(o, lp, cdt, tp), lp, cdt, tp)
     return x
 
 
 def make_decode_fn(config, slots, max_pages_per_slot, page_size,
-                   device=None):
+                   device=None, mesh=None):
     """fn(params, cache, tokens (S,) int, positions (S,) int,
     block_tables (S, max_pages_per_slot) int, active (S,) bool) ->
     (cache, logits (S, V) fp32), ``S == slots``.
@@ -440,9 +663,9 @@ def make_decode_fn(config, slots, max_pages_per_slot, page_size,
     slot's gathered pages (columns <= position) and emit next-token
     logits. Inactive slots compute too but write to the scratch page and
     get zero logits. Params and cache must lie on ``device`` (default
-    ``cuda``)."""
+    ``cuda``); ``mesh`` as in :func:`make_prefill_fn`."""
     extend = make_extend_fn(config, slots, 1, max_pages_per_slot, page_size,
-                            device)
+                            device, mesh)
 
     def decode(params, cache, tokens, positions, block_tables, active):
         if len(tokens) != slots:
@@ -457,7 +680,7 @@ def make_decode_fn(config, slots, max_pages_per_slot, page_size,
 
 
 def make_extend_fn(config, slots, steps, max_pages_per_slot, page_size,
-                   device=None):
+                   device=None, mesh=None):
     """fn(params, cache, tokens (S, T) int, positions (S, T) int,
     block_tables (S, max_pages_per_slot) int, valid (S, T) bool) ->
     (cache, logits (S, T, V) fp32), ``S == slots``, ``T == steps``.
@@ -477,12 +700,13 @@ def make_extend_fn(config, slots, steps, max_pages_per_slot, page_size,
     than k tokens) write to the scratch page and get zero logits, as do
     rows at or past ``max_pages_per_slot * page_size``. Positions are
     clamped at 0. Params and cache must lie on ``device`` (default
-    ``cuda``)."""
+    ``cuda``); ``mesh`` as in :func:`make_prefill_fn`."""
     _check_dense(config)
     c = config
     cdt = torch_dtype(c.dtype)
     page_size = int(page_size)
-    dev = resolve_device(device)
+    dev = _run_device(mesh, device, "make_extend_fn")
+    tp = _mp_context(mesh)
 
     @torch.inference_mode()
     def extend(params, cache, tokens, positions, block_tables, valid):
@@ -501,9 +725,9 @@ def make_extend_fn(config, slots, steps, max_pages_per_slot, page_size,
         positions = positions.clamp_min(0)
         valid = valid & (positions < max_pages_per_slot * page_size)
         x = _paged_blocks(params, cache, tokens, positions, block_tables,
-                          valid, c, cdt, page_size)
-        return cache, torch.where(valid[..., None], _logits(x, params, cdt),
-                                  0.0)
+                          valid, c, cdt, page_size, tp)
+        return cache, torch.where(valid[..., None],
+                                  _logits(x, params, cdt, tp), 0.0)
 
     return extend
 

@@ -100,7 +100,12 @@ class FusedSPMDGroup:
                              % len(contexts))
         device = contexts[0].torch_device()
         self._param_rules = parse_rules(config.get("MXNET_MP_RULES"))
-        self.mesh = train_mesh(mp=mp_size(), device=device.type)
+        if mp_size() > 1:
+            raise MXNetError("fused SPMD step: MXNET_MP_SIZE=%d (a symbol's "
+                             "parameters sharded over an mp axis) is not "
+                             "ported yet (ROADMAP.md Queue A item 8b)"
+                             % mp_size())
+        self.mesh = train_mesh(mp=1, device=device.type)
         if mesh_device(self.mesh) != device:
             raise MXNetError("fused SPMD step: context %s but this rank's "
                              "mesh device is %s" % (contexts[0],

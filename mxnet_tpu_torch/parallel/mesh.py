@@ -9,7 +9,9 @@ group. A port mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with
 ``cuda:(LOCAL_RANK % device_count)`` (``LOCAL_RANK`` defaults to the rank),
 or the CPU when the caller asks for it. Axis names keep the JAX package's
 convention: ``dp`` (and ``dcn``, the multi-host data axis) shard the batch;
-``mp``/``tp`` (tensor parallelism) are not ported and raise.
+``mp`` (``tp`` is its legacy alias) shards the transformer's weights,
+Megatron's way (:mod:`.tensor_parallel`). :func:`train_mesh` puts ``mp``
+innermost, so the ranks of one mp group are adjacent.
 
 A data-parallel step keeps rows ``[i * B / N, (i + 1) * B / N)`` of a
 global batch of ``B`` rows on the rank whose index along the data axes is
@@ -28,12 +30,14 @@ import torch.distributed as dist
 
 from ..base import MXNetError
 
-_MODEL_AXES = ("mp", "tp")
-
-
-def _unported_axis(what):
-    return MXNetError("%s: tensor and model parallelism (a mesh axis mp/tp) "
-                      "is not ported" % what)
+def _mp_axis(axes):
+    """The tensor-parallel axis among ``axes``: ``mp``, else the legacy
+    ``tp``; None when there is neither."""
+    if "mp" in axes:
+        return "mp"
+    if "tp" in axes:
+        return "tp"
+    return None
 
 
 def _device_type(device):
@@ -73,6 +77,22 @@ def mesh_device(mesh):
     return rank_device(mesh.device_type)
 
 
+def _join_group(devices, device, backend, what):
+    """Join (or make) the default process group; returns the device type
+    ``device`` names. ``devices`` (a device list) must be None."""
+    if devices is not None:
+        raise MXNetError("%s: a device list in one process is not ported "
+                         "(one process a device: start one rank a device)"
+                         % what)
+    device_type = _device_type(device)
+    if not dist.is_initialized():
+        _init_default_group(backend, device_type)
+    elif backend is not None and dist.get_backend() != backend:
+        raise MXNetError("%s: backend=%r but the process group runs %r"
+                         % (what, backend, dist.get_backend()))
+    return device_type
+
+
 def make_mesh(axes=None, devices=None, *, device=None, backend=None):
     """A ``DeviceMesh`` from an axis spec ``{name: size}`` (-1 means the
     rest) over the default process group, which is initialised from the
@@ -81,20 +101,9 @@ def make_mesh(axes=None, devices=None, *, device=None, backend=None):
     several ranks share one card). The sizes must multiply to the world
     size. ``device`` is ``None`` (the card) or ``"cpu"``. ``devices`` (the
     JAX package's device list) must be None: a process holds one device."""
-    if devices is not None:
-        raise MXNetError("make_mesh: a device list in one process is not "
-                         "ported (one process a device: start one rank a "
-                         "device)")
-    device_type = _device_type(device)
-    if not dist.is_initialized():
-        _init_default_group(backend, device_type)
-    elif backend is not None and dist.get_backend() != backend:
-        raise MXNetError("make_mesh: backend=%r but the process group runs "
-                         "%r" % (backend, dist.get_backend()))
+    device_type = _join_group(devices, device, backend, "make_mesh")
     world = dist.get_world_size()
     axes = dict(axes or {"dp": world})
-    if any(a in _MODEL_AXES for a in axes):
-        raise _unported_axis("make_mesh(%r)" % (axes,))
     sizes = list(axes.values())
     known = int(np.prod([s for s in sizes if s != -1]))
     if -1 in sizes:
@@ -136,6 +145,20 @@ def data_group(mesh, axes=("dp",)):
     return group, n, dist.get_rank(group)
 
 
+def model_group(mesh):
+    """``(group, n, index)``: the process group of this rank's
+    tensor-parallel group (the ranks that differ only in their ``mp``, or
+    ``tp``, coordinate), its size and this rank's index in it, which is
+    the rank's shard of the weights; ``(None, 1, 0)`` when the mesh has no
+    such axis or it holds one rank."""
+    axis = _mp_axis(mesh.mesh_dim_names)
+    n = mesh_shape(mesh)[axis] if axis else 1
+    if n == 1:
+        return None, 1, 0
+    group = mesh.get_group(axis)
+    return group, n, dist.get_rank(group)
+
+
 def mp_size():
     """The strictly validated ``MXNET_MP_SIZE`` knob (an integer >= 1)."""
     from .. import config
@@ -144,15 +167,20 @@ def mp_size():
 
 
 def train_mesh(devices=None, mp=None, *, device=None, backend=None):
-    """The training mesh: ``{"dp": world}`` for ``mp=1`` (``None`` reads
-    ``MXNET_MP_SIZE``). ``mp > 1``, the JAX package's ``(dp, mp)`` mesh,
-    raises: tensor parallelism is not ported."""
+    """The 2-D training and serving mesh ``{"dp": world // mp, "mp": mp}``,
+    ``mp`` innermost so an mp group is adjacent ranks; ``{"dp": world}``
+    for ``mp=1`` (``None`` reads ``MXNET_MP_SIZE``). ``mp`` must divide
+    the world size."""
     mp = mp_size() if mp is None else int(mp)
     if mp < 1:
         raise MXNetError("train_mesh: mp=%r must be >= 1" % (mp,))
-    if mp > 1:
-        raise _unported_axis("train_mesh(mp=%d)" % mp)
-    return make_mesh(None, devices, device=device, backend=backend)
+    _join_group(devices, device, backend, "train_mesh")
+    world = dist.get_world_size()
+    if world % mp:
+        raise MXNetError("train_mesh: MXNET_MP_SIZE=%d must divide the world "
+                         "size %d" % (mp, world))
+    axes = None if mp == 1 else {"dp": world // mp, "mp": mp}
+    return make_mesh(axes, devices, device=device, backend=backend)
 
 
 _DEFAULT_MESH = None

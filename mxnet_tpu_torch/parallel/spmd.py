@@ -434,11 +434,14 @@ class TrainStep:
         self.param_rules = list(param_rules or [])
         self._group, self._n, self._index = None, 1, 0
         if mesh is not None:
-            from .mesh import _MODEL_AXES, _unported_axis, data_group, \
-                mesh_device
+            from .mesh import _mp_axis, data_group, mesh_device
 
-            if any(a in _MODEL_AXES for a in mesh.mesh_dim_names):
-                raise _unported_axis("TrainStep(mesh=%r)" % (mesh,))
+            if _mp_axis(mesh.mesh_dim_names):
+                raise MXNetError(
+                    "TrainStep(mesh=%r): sharding a symbol's parameters over "
+                    "an mp/tp axis (param_rules) is not ported yet (ROADMAP.md "
+                    "Queue A item 8b); the transformer's Megatron sharding is "
+                    "models.transformer.make_train_step(mesh=)" % (mesh,))
             self._group, self._n, self._index = data_group(mesh,
                                                            self.data_axes)
             mdev = mesh_device(mesh)

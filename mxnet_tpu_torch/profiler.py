@@ -28,6 +28,11 @@ of ``mxnet_tpu/profiler.py``).
   JAX package's background-feed counters have no writer in the port.
 - ``memory_record`` / ``memory_stats`` / ``memory_reset``: the gauge of
   ``TrainStep.memory_stats`` (bytes of the carry on this rank).
+- ``mp_record`` / ``mp_stats`` / ``mp_reset``: the tensor-parallel gauge,
+  the newest snapshot of the mesh split (``mp_size``, ``dp_size``,
+  ``group_size``), this rank's measured parameter and live bytes and the
+  collectives of a loss forward (``block_collective_counts``); partial
+  updates merge.
 
 Unknown counter names raise.
 """
@@ -353,3 +358,40 @@ def memory_stats(reset=False):
 def memory_reset():
     with _MEM_LOCK:
         _MEM.clear()
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: a gauge, the newest snapshot (partial updates merge)
+# ---------------------------------------------------------------------------
+_MP_LOCK = threading.Lock()
+_MP_KEYS = frozenset((
+    "mp_size", "dp_size", "group_size",
+    "param_bytes_per_chip", "live_bytes_per_chip",
+    "psum_per_block", "psum_outside", "all_gather_per_step",
+    "collectives_per_step",
+))
+_MP = {}
+
+
+def mp_record(**fields):
+    """Merge ``fields`` into the tensor-parallel gauge. Unknown counter
+    names raise."""
+    with _MP_LOCK:
+        for k, v in fields.items():
+            if k not in _MP_KEYS:
+                raise ValueError("mp_record: unknown counter %r" % k)
+            _MP[k] = int(v)
+
+
+def mp_stats(reset=False):
+    """The newest tensor-parallel snapshot ({} when mp never ran)."""
+    with _MP_LOCK:
+        snap = dict(_MP)
+        if reset:
+            _MP.clear()
+    return snap
+
+
+def mp_reset():
+    with _MP_LOCK:
+        _MP.clear()

@@ -441,6 +441,12 @@ class GenerateServer:
 
     ``device`` defaults to ``cuda`` (raising when there is none); pass
     ``device="cpu"`` to serve on the CPU.
+
+    A sharded predictor (``GenerativePredictor(mesh=)``, or ``mesh=``
+    passed through to it) is served the same way on the mesh's rank 0
+    while every other rank runs ``predictor.follow()``; :meth:`close`
+    releases them. A failed sharded call (a follower died) ends the
+    decode loop with the error, which every pending request gets.
     """
 
     FINISH_EOS = "eos"
@@ -467,6 +473,13 @@ class GenerateServer:
             if spec_k is None else int(spec_k)
         draft_layers = _env_nonneg_int("MXNET_GENERATE_DRAFT") \
             if draft is None else int(draft)
+        mesh = pred_kwargs.get("mesh") if predictor is None \
+            else predictor.mesh
+        if self._spec_k > 0 and mesh is not None:
+            raise GenerateError(
+                "GenerateServer: speculative decoding (spec_k=%d) on a "
+                "sharded predictor is not ported yet (ROADMAP.md Queue A "
+                "item 8b)" % self._spec_k)
         if admit_policy not in ("continuous", "drain"):
             raise GenerateError("GenerateServer: admit_policy must be "
                                 "continuous|drain, got %r" % admit_policy)
@@ -1088,6 +1101,7 @@ class GenerateServer:
             self._stopped = True
             self._cond.notify_all()
         self._thread.join(timeout)
+        self.predictor.close()
         exc = ServerClosed("GenerateServer closed before the request "
                            "finished")
         with self._cond:

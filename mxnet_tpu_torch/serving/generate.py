@@ -13,7 +13,9 @@
   buckets for prefill, ONE decode step runs ``slots`` queries, one
   token each, against the pages named by each slot's block table, and
   ``extend`` runs T tokens a slot (a prefix-matched prompt's tail, or a
-  speculative verify).
+  speculative verify). With ``mesh=`` the model is sharded Megatron's way
+  over the mesh's ``mp`` axis and every rank runs each call in lockstep
+  with the leader (:class:`_Lockstep`).
 
 Page 0 of the cache is the scratch page: never handed out, it absorbs
 writes from inactive slots and padded prompt tails, so every step keeps a
@@ -21,15 +23,18 @@ static shape without corrupting live pages.
 """
 from __future__ import annotations
 
+import datetime
 import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .. import config
+from .. import config, profiler
 from ..base import MXNetError
 from ..context import resolve_device
 from ..models import transformer as tfm
+from ..parallel.mesh import _mp_axis, mesh_device, mesh_shape
 from .predictor import ServingError
 
 
@@ -348,6 +353,68 @@ class PrefixIndex:
                     "max_pages": self.max_pages}
 
 
+# the lockstep's ops on the wire
+_CLOSE, _PREFILL, _DECODE, _EXTEND = range(4)
+_OP_NAMES = {_PREFILL: "prefill", _DECODE: "decode", _EXTEND: "extend"}
+_HEADER = 2 + 2 * 4          # op, array count, then (rows, cols) of each
+# the leader's sends give up after this long (a follower that died closes
+# its connections, which fails a send at once); a follower waits for the
+# next call as long as the leader lives
+_SEND_TIMEOUT = datetime.timedelta(seconds=60)
+_WAIT_TIMEOUT = datetime.timedelta(days=30)
+
+
+class _Lockstep:
+    """The control plane of a predictor sharded over a mesh, one process a
+    rank: the mesh's global rank 0 (the leader) serves, and before each
+    call broadcasts an op header and the call's integer arrays over a gloo
+    group of its own (CPU tensors, whatever backend the mesh's collectives
+    run on); every other rank receives them in
+    :meth:`GenerativePredictor.follow` and runs the same call, so the
+    collectives inside it meet. With dp > 1 every mp group computes the
+    same call."""
+
+    def __init__(self):
+        self.leader = dist.get_rank() == 0
+        self.group = dist.new_group(backend="gloo", timeout=_SEND_TIMEOUT)
+        self.closed = False
+        self.broken = None          # the error that broke the lockstep
+
+    def _bcast(self, t, timeout):
+        opts = dist.BroadcastOptions()
+        opts.rootRank, opts.rootTensor, opts.timeout = 0, 0, timeout
+        self.group.broadcast([t], opts).wait()
+
+    def send(self, op, arrays):
+        """Broadcast ``op`` and ``arrays`` (2-D int arrays) to the mesh."""
+        header = np.zeros(_HEADER, np.int64)
+        header[:2] = op, len(arrays)
+        for i, a in enumerate(arrays):
+            header[2 + 2 * i:4 + 2 * i] = a.shape
+        self._bcast(torch.from_numpy(header), _SEND_TIMEOUT)
+        if arrays:
+            self._bcast(torch.from_numpy(np.concatenate(
+                [np.asarray(a, np.int64).reshape(-1) for a in arrays])),
+                _SEND_TIMEOUT)
+
+    def recv(self):
+        """``(op, arrays)`` of the leader's next call."""
+        header = torch.zeros(_HEADER, dtype=torch.int64)
+        self._bcast(header, _WAIT_TIMEOUT)
+        op, n = (int(x) for x in header[:2])
+        shapes = header[2:2 + 2 * n].view(n, 2).tolist()
+        arrays = []
+        if n:
+            flat = torch.zeros(sum(r * c for r, c in shapes),
+                               dtype=torch.int64)
+            self._bcast(flat, _SEND_TIMEOUT)
+            off = 0
+            for r, c in shapes:
+                arrays.append(flat[off:off + r * c].view(r, c).numpy())
+                off += r * c
+        return op, arrays
+
+
 class GenerativePredictor:
     """One transformer bound for prefill, single-token decode and the
     multi-token extend (a prefix-matched tail, a speculative verify).
@@ -376,12 +443,28 @@ class GenerativePredictor:
     device : str or torch.device, optional
         Where the weights, the cache and every step live; default
         ``cuda``, which raises when there is no CUDA device.
+    mesh : DeviceMesh, optional
+        Bind the model sharded over the mesh's ``mp`` (or ``tp``) axis:
+        every rank of the mesh makes the predictor with the whole
+        ``params`` and keeps its shards (``models.transformer.
+        shard_params``) and its ``n_heads / mp`` heads of every KV page,
+        on its mesh device. The mesh's global rank 0, the leader, makes
+        every call (``prefill``, ``decode``, ``extend``, ``extend_tail``:
+        each returns the whole vocabulary's logits) and closes the
+        predictor (:meth:`close`); every other rank runs :meth:`follow`
+        until then. Mutually exclusive with ``device``.
     """
 
     def __init__(self, config_, params, *, slots=None, page_size=None,
-                 pool_bytes=None, max_ctx=None, device=None):
+                 pool_bytes=None, max_ctx=None, device=None, mesh=None):
+        if mesh is not None and device is not None:
+            raise GenerateError(
+                "GenerativePredictor: pass mesh= OR device=, not both (a "
+                "sharded bind runs on each rank's mesh device)")
         self.config = config_
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None \
+            else mesh_device(mesh)
         self.slots = _env_positive_int("MXNET_GENERATE_SLOTS") \
             if slots is None else int(slots)
         if self.slots < 1:
@@ -422,17 +505,24 @@ class GenerativePredictor:
             num_pages = self.slots * self.max_pages_per_slot
         self.pool = PagePool(num_pages)
 
-        self._params = {
-            k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(
-                np.asarray(v))).to(device=self.device, dtype=torch.float32)
-            for k, v in params.items()}
+        if mesh is None:
+            self._params = {
+                k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(
+                    np.asarray(v))).to(device=self.device,
+                                       dtype=torch.float32)
+                for k, v in params.items()}
+            dev = self.device
+        else:
+            self._params = tfm.shard_params(params, c, mesh)
+            dev = None
         self._kv = tfm.init_kv_cache(c, num_pages, self.page_size,
-                                     device=self.device)
-        self._prefill = tfm.make_prefill_fn(c, self.page_size, self.device)
+                                     device=dev, mesh=mesh)
+        self._prefill = tfm.make_prefill_fn(c, self.page_size, dev, mesh)
         self._decode = tfm.make_decode_fn(c, self.slots,
                                           self.max_pages_per_slot,
-                                          self.page_size, self.device)
+                                          self.page_size, dev, mesh)
         self._extends = {}         # (slots, steps) -> extend function
+        self._lockstep = None if mesh is None else _Lockstep()
 
         # prefill bucket ladder: page-aligned powers of two up to the
         # context bound
@@ -471,26 +561,18 @@ class GenerativePredictor:
         bucket = self.pick_bucket(length)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :length] = tokens
-        page_arr = np.zeros((bucket // self.page_size,), np.int32)
-        page_arr[:len(pages)] = pages   # tail pages hit scratch (0)
-        with self._lock:
-            _, logits = self._prefill(self._params, self._kv, padded, length,
-                                      page_arr)
-            return logits.cpu().numpy()
+        page_arr = np.zeros((1, bucket // self.page_size), np.int32)
+        page_arr[0, :len(pages)] = pages   # tail pages hit scratch (0)
+        return self._call(_PREFILL, padded, np.array([[length]]), page_arr)
 
     def decode(self, tokens, positions, block_tables, active):
         """One decode step over all ``slots``; returns numpy logits
         (slots, V). ``tokens[b]`` is written at ``positions[b]`` into
         the page its slot's ``block_tables`` row names; inactive slots
         write to scratch and return zero logits."""
-        with self._lock:
-            _, logits = self._decode(
-                self._params, self._kv,
-                np.asarray(tokens, np.int32),
-                np.asarray(positions, np.int32),
-                np.asarray(block_tables, np.int32),
-                np.asarray(active, bool))
-            return logits.cpu().numpy()
+        return self._call(_DECODE, *(np.asarray(a).reshape(1, -1) for a in
+                                     (tokens, positions, active)),
+                          np.asarray(block_tables))
 
     def extend(self, tokens, positions, block_tables, valid):
         """Multi-token append: run ``tokens`` (S, T) at ``positions``
@@ -503,18 +585,87 @@ class GenerativePredictor:
         if tokens.ndim != 2:
             raise GenerateError("extend: tokens must be (batch, steps), "
                                 "got shape %r" % (tokens.shape,))
-        S, T = tokens.shape
+        return self._call(_EXTEND, tokens, np.asarray(positions),
+                          np.asarray(block_tables), np.asarray(valid))
+
+    def _extend_fn(self, S, T):
         fn = self._extends.get((S, T))
         if fn is None:
             fn = self._extends[(S, T)] = tfm.make_extend_fn(
                 self.config, S, T, self.max_pages_per_slot, self.page_size,
-                self.device)
+                None if self.mesh is not None else self.device, self.mesh)
+        return fn
+
+    def _run(self, op, arrays):
+        """One call's logits (a tensor) on this rank's shard."""
+        p, kv = self._params, self._kv
+        if op == _PREFILL:
+            tokens, length, pages = arrays
+            return self._prefill(p, kv, tokens, int(length[0, 0]),
+                                 pages[0])[1]
+        if op == _DECODE:
+            tokens, positions, active, tables = arrays
+            return self._decode(p, kv, tokens[0], positions[0], tables,
+                                active[0].astype(bool))[1]
+        tokens, positions, tables, valid = arrays
+        return self._extend_fn(*tokens.shape)(p, kv, tokens, positions,
+                                              tables, valid.astype(bool))[1]
+
+    def _call(self, op, *arrays):
+        """Run one call here (after broadcasting it to the followers on a
+        mesh); numpy logits. Any failure of a sharded call breaks the
+        lockstep: later calls raise."""
+        ls = self._lockstep
         with self._lock:
-            _, logits = fn(self._params, self._kv, tokens,
-                           np.asarray(positions, np.int32),
-                           np.asarray(block_tables, np.int32),
-                           np.asarray(valid, bool))
-            return logits.cpu().numpy()
+            if ls is None:
+                return self._run(op, arrays).cpu().numpy()
+            if not ls.leader:
+                raise GenerateError(
+                    "%s: only the mesh's rank 0 calls a sharded predictor; "
+                    "the other ranks run follow()" % _OP_NAMES[op])
+            if ls.closed or ls.broken is not None:
+                raise GenerateError("%s: the sharded predictor is %s"
+                                    % (_OP_NAMES[op], "closed" if ls.closed
+                                       else "broken: %s" % ls.broken))
+            arrays = tuple(np.asarray(a, np.int64) for a in arrays)
+            try:
+                ls.send(op, arrays)
+                return self._run(op, arrays).cpu().numpy()
+            except Exception as e:
+                ls.broken = e
+                raise GenerateError("%s: a sharded call failed (the lockstep "
+                                    "is broken): %s" % (_OP_NAMES[op], e)) \
+                    from e
+
+    def follow(self):
+        """Run the leader's calls on this rank until the leader closes the
+        predictor; returns ``{op: calls}``. Every rank but the mesh's rank
+        0 calls it once, after making the predictor."""
+        ls = self._lockstep
+        if ls is None or ls.leader:
+            raise GenerateError("follow: only the ranks but 0 of a sharded "
+                                "predictor follow")
+        calls = dict.fromkeys(_OP_NAMES.values(), 0)
+        while True:
+            op, arrays = ls.recv()
+            if op == _CLOSE:
+                ls.closed = True
+                return calls
+            with self._lock:
+                self._run(op, arrays)
+            calls[_OP_NAMES[op]] += 1
+
+    def close(self):
+        """On the leader of a sharded predictor, release the followers
+        (their :meth:`follow` returns); later calls raise. A no-op
+        otherwise, and once closed (or after a failed sharded call)."""
+        ls = self._lockstep
+        with self._lock:
+            if ls is None or not ls.leader or ls.closed:
+                return
+            ls.closed = True
+            if ls.broken is None:
+                ls.send(_CLOSE, ())
 
     def extend_tail(self, tokens, start_pos, pages):
         """Prefill the uncovered TAIL of a prefix-matched prompt:
@@ -553,3 +704,25 @@ class GenerativePredictor:
 
     def pool_stats(self):
         return self.pool.stats()
+
+    def sharded_stats(self):
+        """This rank's bytes of a sharded bind, measured from its own
+        tensors: the params' shards and the KV cache's heads (1/mp of every
+        page), beside the whole cache's bytes; records into the profiler's
+        ``mp_stats`` gauge. Raises without a mesh."""
+        if self.mesh is None:
+            raise GenerateError("sharded_stats: the predictor was not bound "
+                                "on a mesh (pass mesh= to the constructor)")
+        shape = mesh_shape(self.mesh)
+        group = int(np.prod(list(shape.values())))
+        mp = shape.get(_mp_axis(shape), 1)
+        param_chip = sum(v.numel() * v.element_size()
+                         for v in self._params.values())
+        kv_chip = self._kv.numel() * self._kv.element_size()
+        profiler.mp_record(group_size=group, mp_size=mp,
+                           param_bytes_per_chip=param_chip,
+                           live_bytes_per_chip=param_chip + kv_chip)
+        return {"group_size": group, "mp_size": mp,
+                "param_bytes_per_chip": param_chip,
+                "kv_bytes_per_chip": kv_chip,
+                "kv_bytes_total": self.page_bytes * (self.pool.num_pages + 1)}

@@ -137,11 +137,12 @@ class AOTPredictor:
                  device=None, output_names=None, quant=None, mesh=None):
         if quant not in (None, "none"):
             raise ServingError("AOTPredictor: quant=%r is not ported yet "
-                               "(int8 serving, ROADMAP.md Queue A item 12)"
+                               "(int8 serving, ROADMAP.md Queue A item 11)"
                                % (quant,))
         if mesh is not None:
-            raise ServingError("AOTPredictor: mesh= (a sharded bind) is not "
-                               "ported yet")
+            raise ServingError("AOTPredictor: mesh= (a symbol's sharded bind) "
+                               "is not ported yet (ROADMAP.md Queue A item "
+                               "8b)")
         if not data_shapes:
             raise ServingError("AOTPredictor: data_shapes is required "
                                "({input_name: shape})")

@@ -294,5 +294,6 @@ def test_import_pulls_in_neither_jax_nor_mxnet_tpu():
                  "parallel.mesh", "parallel.feed", "kvstore",
                  "module.spmd_group", "ops.nn", "ops.rnn", "models.lenet",
                  "models.mlp", "models.alexnet", "models.vgg",
-                 "models.inception", "models.mobilenet", "models.resnext"):
+                 "models.inception", "models.mobilenet", "models.resnext",
+                 "parallel.tensor_parallel", "serving.generate"):
         assert "'mxnet_tpu_torch.%s'" % name in r.stdout, name

@@ -537,7 +537,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.metric, mxnet_tpu_torch.optimizer, "
             "mxnet_tpu_torch.model, mxnet_tpu_torch.callback, "
             "mxnet_tpu_torch.ndarray.utils, mxnet_tpu_torch.autograd, "
-            "mxnet_tpu_torch.random, mxnet_tpu_torch.models.resnet\n"
+            "mxnet_tpu_torch.random, mxnet_tpu_torch.models.resnet, "
+            "mxnet_tpu_torch.parallel.tensor_parallel, "
+            "mxnet_tpu_torch.serving.generate\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']\n"
             "assert not bad, bad\n")

@@ -289,14 +289,43 @@ def test_training_refuses_params_on_another_device():
         step((meta, {}, 0), _tokens())
 
 
-@pytest.mark.parametrize("make", [
-    lambda c, m: ttfm.make_loss_fn(c, m, device="cpu"),
-    lambda c, m: ttfm.make_train_step(c, m, device="cpu")],
-    ids=["loss", "train_step"])
-def test_mesh_sharding_raises_not_ported(make):
+def _loss_on(tc, params, toks, mesh):
+    loss_fn, specs = ttfm.make_loss_fn(tc, mesh, device="cpu")
+    assert (specs is None) == (mesh is None)
+    return [float(loss_fn(params, toks))]
+
+
+def _steps_on(tc, params, toks, mesh):
+    step, place = ttfm.make_train_step(tc, mesh, device="cpu")
+    carry = place(params)
+    losses = []
+    for _ in range(2):
+        carry, loss = step(carry, toks)
+        losses.append(float(loss))
+    return losses
+
+
+@pytest.mark.parametrize("run", [_loss_on, _steps_on],
+                         ids=["loss", "train_step"])
+def test_mesh_sharding_raises_not_ported(run):
+    """``make_loss_fn(mesh=)`` and ``make_train_step(mesh=)``, refused
+    before tensor parallelism was ported, run on a port mesh of one rank
+    and give the one-device losses (rtol 1e-6: the mean is a sum over a
+    count there). The mp and dp x mp meshes are held against the JAX
+    package in tests/test_torch_model_parallel.py."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.parallel import make_mesh as port_mesh
+
     _, tc = _cfgs()
-    with pytest.raises(MXNetError, match="mesh sharding is not ported yet"):
-        make(tc, _mesh1())
+    params, toks = ttfm.init_params(tc, seed=1), _tokens(5)
+    started = not dist.is_initialized()
+    try:
+        got = run(tc, params, toks, port_mesh({"dp": 1}, device="cpu"))
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    np.testing.assert_allclose(got, run(tc, params, toks, None), rtol=1e-6)
 
 
 def test_moe_training_is_refused_by_name():

@@ -37,20 +37,26 @@ def _free_port():
 
 
 def _entry(rank, fn_name, world, port, out_dir, args):
+    import importlib
+
     import torch.distributed as dist
 
     torch.set_num_threads(2)
     dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port,
                             rank=rank, world_size=world)
+    module, _, name = fn_name.rpartition(":")
+    fn = getattr(importlib.import_module(module), name) if module \
+        else globals()[name]
     try:
-        result = globals()[fn_name](rank, world, *args)
+        result = fn(rank, world, *args)
         torch.save(result, os.path.join(out_dir, "rank%d.pt" % rank))
     finally:
         dist.destroy_process_group()
 
 
 def start_ranks(fn_name, world, out_dir, *args):
-    """Spawn ``world`` ranks running ``fn_name(rank, world, *args)``."""
+    """Spawn ``world`` ranks running ``fn_name(rank, world, *args)``, a
+    function of this module or ``"module:function"`` of another."""
     import torch.multiprocessing as mp
 
     return mp.start_processes(_entry, args=(fn_name, world, _free_port(),
