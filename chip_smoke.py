@@ -15,11 +15,13 @@ the kernels are built for sm_90a) and ``nvcc``. It
    instructions and spills nothing;
 3. holds the flash-attention forward (B5) against its plain PyTorch
    version on the card, at the shapes the serving and training paths give
-   it and a few more (causal and not, a ``kv_len`` mask, D = 128, float32
-   and bfloat16), and times the kernel, the plain version and one library
-   call (SDPA, a yardstick only: the port never calls it) at the training
-   shape, a tensor-parallel rank's (4, 4, 2048, 64) and the prefill
-   buckets 256, 1024 and 2048;
+   it and a few more (causal and not, a ``kv_len`` mask, D = 128, D = 8, 32
+   and 96 zero-padded to 64 or 128 lanes, float32 and bfloat16), and times
+   the kernel, the plain version and one library call (SDPA, a yardstick
+   only: the port never calls it) at the training shape, a tensor-parallel
+   rank's (4, 4, 2048, 64), the prefill buckets 256, 1024 and 2048 and
+   ``tools/bench_e2e.py`` measure_mp's D 32 attention (2, 8, 64, 32) and
+   its mp=2 rank's (2, 4, 64, 32);
 4. drives the serving path at full width — the 12-layer, d_model 512
    transformer (random weights from seed 0) behind
    ``GenerateServer(slots=8, page_size=16)`` — with 16 concurrent requests
@@ -54,8 +56,9 @@ the kernels are built for sm_90a) and ``nvcc``. It
    1..16 images from 4 threads and prints images/s, latency, the forward
    time per bucket, the device's busy share and peak memory;
 7. holds the two backward kernels, B6 (dq) and B7 (dk, dv), against the
-   plain backward in the same way, with the SDPA backward as the
-   yardstick, at both training shapes;
+   plain backward in the same way (D 8, 32 and 96 padded too), with the
+   SDPA backward as the yardstick, at both training shapes and the two D
+   32 shapes;
 8. computes the loss and every parameter gradient of a 2-layer, d_model
    512 model in fp32 on the card (B5, B6, B7) and on the CPU (the plain
    versions) and holds them together;
@@ -183,7 +186,28 @@ the kernels are built for sm_90a) and ``nvcc``. It
    kept) card vs CPU with its NMS rounds and time, and holds
    the 14 random names of item 7c by their moments (20000 draws a row) and
    bit for bit across two runs; B1-B7 launch 0 times in 21-23;
-24. prints one JSON line describing each kernel, then the result line
+24. serves int8 post-training-quantized models (``AOTPredictor(quant=
+   "int8")``, ``ops/quantized.py``): holds each int8 product of ResNet-50
+   (53 convolutions and fc1, at batch 1 and 64) on the card against
+   float64 of the same int8 operands, the int32 accumulation bit for bit,
+   and ``_quantize_int8`` at k + 0.5 steps of its scale against the CPU's,
+   timing each product at batch 64 beside cuDNN's bf16 convolution; trains
+   ``tools/bench_serve.py``'s quant MLP (dim 256, hidden 512, 6 layers, 64
+   classes) through ``Module.fit`` on its clustered task, calibrates on 8
+   batches of 64, holds int8-vs-bf16 top-1 agreement >= 0.99 on 2048 rows
+   and 7 quantized ops, and serves bf16 and int8 behind ``ModelServer``
+   under its closed loop (24 clients, think 2 ms, 8 rows, 4 s a mode):
+   req/s and p50/p99; hot-swaps the MLP from a ``save_checkpoint`` pair
+   under load (``swap_from_checkpoint``), the int8 outputs equal to a fresh
+   bind's; then the unfused ResNet-50 at full width: 54 quantized ops, the
+   card's int8 graph against the CPU's on the same int8 weights and scales
+   (node by node on the card's inputs: the int8 ops equal, the float ops
+   within 1e-6; free running: the activations that cross a re-quantize
+   boundary counted by layer, the logits within the CPU's own
+   int8-vs-fp32 gap), and the 48-request
+   trace in bf16 and int8 (images/s, p50/p99, peak memory, a profiled
+   batch of 64); B1-B7 launch 0 times there;
+25. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -579,6 +603,56 @@ TRAIN_ATTN = (TRAIN_BATCH[0], FULL["n_heads"], TRAIN_BATCH[1] - 1,
               FULL["d_model"] // FULL["n_heads"])
 
 
+# C9: head dims the kernels are not built for run zero-padded to 64 or
+# 128 lanes; held at D 8, 32 and 96 (cases of (b, h, sq, sk, causal,
+# kv_len) each), and timed at tools/bench_e2e.py measure_mp's attention
+# (d_model 256 over 8 heads, sequence 64, 2 rows) and an mp=2 rank's
+PAD_DIMS = (8, 32, 96)
+PAD_CASES = ((2, 4, 200, 200, True, 200), (2, 4, 96, 160, False, 130))
+PAD_ATTN = ((2, 8, 64, 32), (2, 4, 64, 32))
+
+
+def _pad_dim_times(torch, fa, gen, name):
+    """``name``'s event / device ms at the D 32 shapes of ``PAD_ATTN`` (bf16,
+    causal), beside its plain version, SDPA and the bound; a dict by
+    shape."""
+    import torch.nn.functional as F
+
+    out = {}
+    for b, h, s, d in PAD_ATTN:
+        q, k, v, do = _inputs(torch, gen, [(b, h, s, d)] * 4, torch.bfloat16)
+        o, lse = fa.flash_attention_reference(q, k, v, causal=True)
+        delta = fa.attention_delta(o, do)
+        if name == "flash_attention_fwd":
+            fn = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa
+            plain = lambda: fa.flash_attention_reference(  # noqa: E731
+                q, k, v, causal=True)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True)
+        else:
+            kernel = fa.flash_attention_bwd_dq if name.endswith("dq") \
+                else fa.flash_attention_bwd_dkv
+            fn = lambda: kernel(q, k, v, do, lse, delta,  # noqa: E731
+                                causal=True)
+            plain = lambda: fa.flash_attention_bwd_reference(  # noqa: E731
+                q, k, v, o, lse, do, causal=True)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            so = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            lib = lambda: torch.autograd.grad(  # noqa: E731
+                so, (qg, kg, vg), do, retain_graph=True)
+        ms, plain_ms, lib_ms = (_time_ms(torch, f) for f in (fn, plain, lib))
+        bound_ms, bound_by = _attention_bound(name, b, h, s, s, d, True, s,
+                                              "bfloat16")
+        print("time %s bf16 (%d,%d,%d,%d) causal, padded to 64 lanes (event "
+              "/ device): kernel %s ms, plain %s ms, SDPA %s ms, bound %.6f "
+              "ms (%s)" % (name, b, h, s, d, _both(ms), _both(plain_ms),
+                           _both(lib_ms), bound_ms, bound_by))
+        out["x".join(map(str, (b, h, s, d)))] = dict(
+            {"bound_ms": bound_ms, "bound_by": bound_by},
+            **_timed(ms, plain_ms, lib_ms))
+    return out
+
+
 def kernel_phase(torch, fa):
     """B5 against its plain version on the card; returns the JSON entry
     fields measured here, at the training shape (launches are filled in
@@ -601,6 +675,8 @@ def kernel_phase(torch, fa):
                   (dt, 1, 8, 1024, 1024, 64, False, 1000),
                   (dt, 1, 8, 777, 1000, 64, True, 900),
                   (dt, 2, 4, 512, 512, 128, True, 512)]
+        cases += [(dt, b, h, sq, sk, d, causal, kv_len) for d in PAD_DIMS
+                  for b, h, sq, sk, causal, kv_len in PAD_CASES]
     for b, h, s, d in (MP_ATTN, TRAIN_ATTN):
         cases.append(("bfloat16", b, h, s, s, d, True, s))
     main_err = mp_err = 0.0
@@ -673,7 +749,9 @@ def kernel_phase(torch, fa):
                  "replaces": "mxnet_tpu/kernels/flash_attention.py:65",
                  "design": TC_DESIGN, "max_abs_err": main_err,
                  "library": "SDPA forward",
-                 "mp": dict(timed[MP_ATTN], max_abs_err=mp_err)},
+                 "mp": dict(timed[MP_ATTN], max_abs_err=mp_err),
+                 "d32": _pad_dim_times(torch, fa, gen,
+                                       "flash_attention_fwd")},
                 **timed[TRAIN_ATTN])
 
 
@@ -692,6 +770,8 @@ def backward_phase(torch, fa):
                   (dt, 1, 8, 777, 1000, 64, True, 900),
                   (dt, 1, 4, 1000, 600, 64, True, 600),
                   (dt, 2, 4, 512, 512, 128, True, 512)]
+        cases += [(dt, b, h, sq, sk, d, causal, kv_len) for d in PAD_DIMS
+                  for b, h, sq, sk, causal, kv_len in PAD_CASES]
     for b, h, s, d in (MP_ATTN, TRAIN_ATTN):
         cases.append(("bfloat16", b, h, s, s, d, True, s))
     main_err = {}
@@ -772,7 +852,9 @@ def backward_phase(torch, fa):
         "plain": "flash_attention_bwd_reference: dq, dk and dv together, "
                  "shared by B6 and B7",
         "library": "SDPA backward: dq, dk and dv together, shared by B6 and "
-                   "B7", "mp": timed[key][MP_ATTN]}, **timed[key][TRAIN_ATTN])
+                   "B7", "mp": timed[key][MP_ATTN],
+        "d32": _pad_dim_times(torch, fa, gen, name)},
+        **timed[key][TRAIN_ATTN])
         for key, name, line in (("dq", "flash_attention_bwd_dq", 103),
                                 ("dkv", "flash_attention_bwd_dkv", 131))]
 
@@ -1763,11 +1845,42 @@ def _resnet_images(np, seed, n):
         n, *RESNET["image_shape"]).astype(np.float32)
 
 
+def _resnet_requests(np):
+    """The ResNet-50 serving trace: RESNET_REQUESTS requests of 1 to
+    RESNET_MAX_IMAGES seeded images each. Returns ``(sizes, images)``."""
+    rng = np.random.RandomState(0)
+    sizes = [int(v) for v in rng.randint(1, RESNET_MAX_IMAGES + 1,
+                                         RESNET_REQUESTS)]
+    return sizes, [_resnet_images(np, 100 + i, n)
+                   for i, n in enumerate(sizes)]
+
+
+def _resnet_trace(srv, name, images):
+    """Submit ``images`` to model ``name`` from RESNET_THREADS client
+    threads, thread k taking every RESNET_THREADS-th request from k.
+    Returns ``(first outputs in request order, wall seconds)``."""
+    import threading
+
+    futures = [None] * len(images)
+
+    def client(k):
+        for i in range(k, len(images), RESNET_THREADS):
+            futures[i] = srv.submit(name, images[i])
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(RESNET_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    outs = [f.result(timeout=600)[0] for f in futures]
+    return outs, time.perf_counter() - t0
+
+
 def resnet_serving_phase(torch, np, fb):
     """Fused ResNet-50 behind ModelServer on the card; returns the B1
     launch count of the served traffic."""
-    import threading
-
     from mxnet_tpu_torch import profiler
     from mxnet_tpu_torch.models import resnet
     from mxnet_tpu_torch.serving import AOTPredictor, ModelServer
@@ -1821,10 +1934,7 @@ def resnet_serving_phase(torch, np, fb):
                            % (per_forward, B1_PER_FORWARD, core_routes))
     del pred
 
-    rng = np.random.RandomState(0)
-    sizes = [int(v) for v in rng.randint(1, RESNET_MAX_IMAGES + 1,
-                                         RESNET_REQUESTS)]
-    images = [_resnet_images(np, 100 + i, n) for i, n in enumerate(sizes)]
+    sizes, images = _resnet_requests(np)
     srv = ModelServer(ladder=RESNET_LADDER, dtype="bfloat16")
     try:
         model = srv.add_model("resnet50", symbol=fused, arg_params=args,
@@ -1846,21 +1956,7 @@ def resnet_serving_phase(torch, np, fb):
         torch.cuda.reset_peak_memory_stats()
         profiler.serving_reset()
         _reset_fb_counts(fb)
-        futures = [None] * len(sizes)
-
-        def client(k):
-            for i in range(k, len(sizes), RESNET_THREADS):
-                futures[i] = srv.submit("resnet50", images[i])
-
-        threads = [threading.Thread(target=client, args=(k,))
-                   for k in range(RESNET_THREADS)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        results = [f.result(timeout=600)[0] for f in futures]
-        wall = time.perf_counter() - t0
+        results, wall = _resnet_trace(srv, "resnet50", images)
         launches = fb.conv_fwd.launches
         core_routes = fb.conv_fwd.core_route_launches
         stats = srv.stats()["resnet50"]
@@ -5483,6 +5579,603 @@ def contrib_sweep_phase(torch, np, fa, fb):
     return launches
 
 
+# int8 post-training-quantized serving (ops/quantized.py, ir/quantize.py,
+# AOTPredictor(quant="int8")): tools/bench_serve.py's quant trace
+# (measure_quant, :1164-1231) at its own sizes, the bench MLP trained by
+# _train_model's recipe (:1134-1161) through the port's Module.fit
+QUANT_MLP = dict(dim=256, hidden=512, layers=6, classes=64)
+QUANT_TRAIN = dict(n=4096, batch=256, epochs=6, lr=0.05, momentum=0.9)
+QUANT_TRACE = dict(clients=24, think_ms=2.0, rows=8, seconds=4.0,
+                   ladder=(1, 4, 16, 64))
+QUANT_CALIB = (8, 64)          # batches, rows a batch
+QUANT_CORPUS = 2048
+QUANT_TOP1 = 0.99              # int8 vs bf16 top-1 on the trained MLP
+QUANT_MLP_OPS = 7              # 6 hidden FCs and the head
+# the unfused ResNet-50: 53 convolutions and fc1
+QUANT_RESNET_OPS = 54
+QUANT_RESNET_CALIB = (8, 16)
+# card int8 vs the port's CPU int8 on the same quantized weights and
+# scales. Node by node, the CPU's node fed the card's inputs: the int8 ops
+# equal (0), every float op within QUANT_FORCED_TOL of the node's largest
+# |value| (measured on an H100: BatchNorm 1.19e-7, Pooling 9.98e-8). Free
+# running, those ulps move values across re-quantize boundaries (2
+# activations of 802816 at the first unit's conv1, 2.3% of all by fc1, at
+# most 4 steps), so the logits are held to the CPU's own int8-vs-fp32 gap
+# times QUANT_CARD_CPU_RATIO (measured 0.56), a coarse bound only: a card
+# forward that did not quantize would land near 1.0x too. What ties the
+# served path to the node-by-node hold is the predictor's own logits
+# against the card's chain over the same graph, within QUANT_TIE_TOL of the
+# largest |logit|
+QUANT_FORCED_TOL = 1e-6
+QUANT_CARD_CPU_RATIO = 1.0
+QUANT_TIE_TOL = 1e-6
+QUANT_BATCHES = (1, 64)        # the int8 op checks at every ResNet-50 shape
+QUANT_SCALE = 0.0123456        # _quantize_int8 at its k + 0.5 boundaries
+
+
+def quant_mlp_symbol(mx, dim, hidden, layers, classes):
+    """tools/bench_serve.py's ``build_model`` graph."""
+    net = mx.sym.var("data")
+    for i in range(layers):
+        net = mx.sym.Activation(mx.sym.FullyConnected(
+            data=net, num_hidden=hidden, name="fc%d" % i), act_type="relu")
+    return mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        data=net, num_hidden=classes, name="head"), name="softmax")
+
+
+def quant_sampler(np, dim, classes, seed=0):
+    """``_train_model``'s clustered task: ``sample(count, seed) -> (x,
+    y)``."""
+    centers = np.random.RandomState(seed).randn(classes, dim).astype(
+        np.float32) * 1.5
+
+    def sample(count, sample_seed):
+        r = np.random.RandomState(sample_seed)
+        y = r.randint(0, classes, count)
+        return (centers[y] + r.randn(count, dim).astype(np.float32),
+                y.astype(np.float32))
+
+    return sample
+
+
+def _quant_train_mlp(torch, np, mx):
+    """The bench MLP trained on the card by ``_train_model``'s recipe
+    through ``Module.fit``; its args (numpy) and the sampler."""
+    import logging
+
+    cfg, tr = QUANT_MLP, QUANT_TRAIN
+    sym = quant_mlp_symbol(mx, **cfg)
+    sample = quant_sampler(np, cfg["dim"], cfg["classes"])
+    x, y = sample(tr["n"], 1)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    logging.getLogger().setLevel(logging.WARNING)
+    mx.random.seed(0)
+    t0 = time.perf_counter()
+    mod.fit(mx.io.NDArrayIter(x, y, tr["batch"], label_name="softmax_label"),
+            num_epoch=tr["epochs"], optimizer="sgd",
+            optimizer_params={"learning_rate": tr["lr"],
+                              "momentum": tr["momentum"]},
+            initializer=mx.init.Xavier())
+    torch.cuda.synchronize()
+    args, _aux = mod.get_params()
+    print("quant: bench MLP (dim %d, hidden %d, %d layers, %d classes) "
+          "trained on the card, %d epochs of %d rows in %.1f s"
+          % (cfg["dim"], cfg["hidden"], cfg["layers"], cfg["classes"],
+             tr["epochs"], tr["n"], time.perf_counter() - t0))
+    return sym, {k: v.asnumpy() for k, v in args.items()}, sample
+
+
+def _quant_client(srv, name, stop_at, think_s, x, seed, out):
+    """bench_serve's closed-loop client: think (exponential), submit, wait,
+    record the latency."""
+    import random
+
+    rng = random.Random(seed)
+    lat, errors = [], 0
+    while time.perf_counter() < stop_at:
+        time.sleep(rng.expovariate(1.0 / think_s))
+        t0 = time.perf_counter()
+        try:
+            srv.submit(name, x).result(timeout=60)
+            lat.append(time.perf_counter() - t0)
+        except Exception:
+            errors += 1
+    out.append((lat, errors))
+
+
+def _quant_closed_loop(np, srv, name, dim):
+    """``run_mode``'s load on a resident model, every bucket >= the request
+    rows warmed first; req/s and latency p50/p99 (ms)."""
+    import threading
+
+    tr = QUANT_TRACE
+    for b in sorted({b for b in tr["ladder"] if b >= tr["rows"]}):
+        srv.predict(name, np.zeros((b, dim), np.float32))
+    results = []
+    t0 = time.perf_counter()
+    stop_at = t0 + tr["seconds"]
+    threads = [threading.Thread(target=_quant_client, args=(
+        srv, name, stop_at, tr["think_ms"] / 1e3,
+        np.random.RandomState(1000 + i).randn(tr["rows"], dim).astype(
+            np.float32), 1000 + i, results))
+        for i in range(tr["clients"])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    lats = sorted(x for lat, _e in results for x in lat)
+    return dict(req_s=len(lats) / wall, requests=len(lats),
+                errors=sum(e for _l, e in results),
+                p50_ms=_pctl(lats, 0.5) * 1e3, p99_ms=_pctl(lats, 0.99) * 1e3)
+
+
+def _resnet_int8_calls(sym):
+    """The distinct int8 products of the unfused ResNet-50 at batch 1:
+    ``{(kind, data shape, weight shape, stride, pad): count}``."""
+    internals = sym.get_internals()
+    _, outs, _ = internals.infer_shape(data=(1,) + RESNET["image_shape"])
+    shape_of = dict(zip(internals.list_outputs(), outs))
+    calls = {}
+    for node in sym._topo():
+        if node.is_variable() or node.op.name not in ("Convolution",
+                                                      "FullyConnected"):
+            continue
+        inp = node.inputs[0][0]
+        data = shape_of[inp.name if inp.is_variable()
+                        else inp.name + "_output"]
+        w = shape_of[node.inputs[1][0].name]
+        if node.op.name == "FullyConnected":
+            key = ("fc", (1, math.prod(data[1:])), tuple(w), (), ())
+        else:
+            key = ("conv", tuple(data), tuple(w),
+                   tuple(node.attrs.get("stride") or (1, 1)),
+                   tuple(node.attrs.get("pad") or (0, 0)))
+        calls[key] = calls.get(key, 0) + 1
+    return calls
+
+
+def _quant_ops_check(torch, np, tq, calls):
+    """Part 1: each int8 product of ResNet-50 on the card at batch 1 and 64
+    against float64 of the same int8 operands on the CPU, the int32
+    accumulations bit for bit (at batch 64, on images 0 and 63; every image
+    against float64 on the card), then _quantize_int8 at its boundaries;
+    times of the int8 op against cuDNN's bf16 convolution at batch 64."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    checked, timed = 0, []
+    for (kind, data, w, stride, pad), count in sorted(calls.items()):
+        if w[0] % 8:
+            raise RuntimeError("int8 %s %s: %d output channels, not a "
+                               "multiple of 8" % (kind, w, w[0]))
+        for n in QUANT_BATCHES:
+            x = torch.randint(-127, 128, (n,) + data[1:], generator=gen,
+                              dtype=torch.int8)
+            wq = torch.randint(-127, 128, w, generator=gen,
+                               dtype=torch.int8)
+            xc, wc = x.to(CARD), wq.to(CARD)
+            if kind == "fc":
+                acc = tq.int8_linear_acc(xc, wc)
+                cpu = x.double() @ wq.double().t()
+                card64 = xc.double() @ wc.double().t()
+                rows = slice(None)
+            else:
+                acc = tq.int8_conv_acc(xc, wc, stride, pad, (1, 1), 1)
+                rows = [0, n - 1] if n > 1 else [0]
+                cpu = F.conv2d(x[rows].double(), wq.double(), stride=stride,
+                               padding=pad)
+                card64 = F.conv2d(xc.double(), wc.double(), stride=stride,
+                                  padding=pad)
+            torch.cuda.synchronize()
+            ok = acc.dtype == torch.int32 and torch.equal(
+                acc[rows].cpu().double(), cpu) and torch.equal(
+                acc.double(), card64)
+            if not ok:
+                raise RuntimeError("int8 %s x %s %s at batch %d: the int32 "
+                                   "accumulation differs from float64"
+                                   % (kind, data[1:], w, n))
+            checked += 1
+            if n != 64:
+                continue
+            ws = torch.rand(w[0], device=CARD) * 1e-3
+            if kind == "fc":
+                op = lambda: tq._int8_fully_connected(   # noqa: E731
+                    xc, wc, ws, num_hidden=w[0], no_bias=True, scale=0.01)
+                xb, wb = xc.bfloat16(), wc.bfloat16()
+                lib = lambda: F.linear(xb, wb)          # noqa: E731
+                macs = n * w[0] * w[1]
+                out_elems = n * w[0]
+            else:
+                op = lambda: tq._int8_convolution(      # noqa: E731
+                    xc, wc, ws, kernel=w[2:], stride=stride, pad=pad,
+                    num_filter=w[0], no_bias=True, scale=0.01)
+                xb, wb = xc.bfloat16(), wc.bfloat16()
+                lib = lambda: F.conv2d(xb, wb, stride=stride,  # noqa: E731
+                                       padding=pad)
+                oh = (data[2] + 2 * pad[0] - w[2]) // stride[0] + 1
+                ow = (data[3] + 2 * pad[1] - w[3]) // stride[1] + 1
+                macs = n * oh * ow * w[0] * int(np.prod(w[1:]))
+                out_elems = n * oh * ow * w[0]
+            ms, lib_ms = _time_ms(torch, op), _time_ms(torch, lib)
+            nbytes = x.numel() + wq.numel() + 4 * out_elems
+            bound = max(2.0 * macs / 1979e12, nbytes / PEAK_BYTES) * 1e3
+            timed.append((kind, data[1:], w, stride, count, ms, lib_ms,
+                          bound))
+    for kind, data, w, stride, count, ms, lib_ms, bound in timed:
+        print("quant op %-4s x %-14s w %-18s stride %s x%-2d at batch 64 "
+              "(event / device): int8 %s ms, cuDNN/cuBLAS bf16 %s ms, int8 "
+              "bound %.4f ms" % (kind, "x".join(map(str, data)),
+                                 "x".join(map(str, w)), stride[0] if stride
+                                 else 1, count, _both(ms), _both(lib_ms),
+                                 bound))
+    per_fwd = [sum(t[4] * t[5][i] for t in timed) for i in (0, 1)]
+    lib_fwd = [sum(t[4] * t[6][i] for t in timed) for i in (0, 1)]
+    print("quant ops: %d calls held bit for bit (%d distinct products x "
+          "batches %s); at batch 64 a forward's products take %.3f / %.3f ms "
+          "int8 against %.3f / %.3f ms bf16 (event / device, summed over "
+          "the %d calls); routes so far %s"
+          % (checked, len(calls), QUANT_BATCHES, *per_fwd, *lib_fwd,
+             sum(calls.values()), tq.routes))
+    # _quantize_int8: k + 0.5 steps of the scale and one ulp either side
+    base = ((np.arange(-130, 130) + 0.5) * QUANT_SCALE).astype(np.float32)
+    vals = np.concatenate([base, np.nextafter(base, np.float32(np.inf)),
+                           np.nextafter(base, np.float32(-np.inf))])
+    xv = torch.from_numpy(vals)
+    got = tq._quantize_int8(xv.to(CARD), scale=QUANT_SCALE)
+    want = tq._quantize_int8(xv, scale=QUANT_SCALE)
+    flips = int((got.cpu().float() != want).sum())
+    print("quant: _quantize_int8 on the card vs the CPU at %d boundary "
+          "values: %d differ; int8 %s" % (len(vals), flips, got.dtype))
+    if flips or got.dtype != torch.int8:
+        raise RuntimeError("_quantize_int8: the card rounds %d boundary "
+                           "values unlike the CPU" % flips)
+
+
+def _quant_mlp(torch, np, mx):
+    """Parts 2 and 4: the bench MLP's int8 vs bf16 agreement and closed-loop
+    pair behind ModelServer; swap_from_checkpoint while the server is
+    live."""
+    import shutil
+    import tempfile
+    import threading
+
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.model import save_checkpoint
+    from mxnet_tpu_torch.serving import AOTPredictor, ModelServer
+
+    cfg = QUANT_MLP
+    sym, args, sample = _quant_train_mlp(torch, np, mx)
+    calib = [{"data": sample(QUANT_CALIB[1], 500 + i)[0]}
+             for i in range(QUANT_CALIB[0])]
+    corpus, labels = sample(QUANT_CORPUS, 900)
+    shapes = {"data": (1, cfg["dim"])}
+    profiler.pass_reset()
+    pb = AOTPredictor(sym, args, data_shapes=shapes, ladder=(QUANT_CORPUS,),
+                      dtype="bfloat16")
+    pq = AOTPredictor(sym, args, data_shapes=shapes, ladder=(QUANT_CORPUS,),
+                      quant="int8", calib_data=calib)
+    top_b = pb.predict(corpus)[0].argmax(1)
+    top_q = pq.predict(corpus)[0].argmax(1)
+    agree = float((top_q == top_b).mean())
+    stats = profiler.pass_stats(reset=True)
+    n_ops = pq.bind_stats["quantized_ops"]
+    print("quant MLP: int8 vs bf16 top-1 agreement %.4f on %d rows (limit "
+          ">= %g); accuracy bf16 %.4f int8 %.4f; quantized_ops %d; quantize "
+          "pass %s; calibration (absmax, scale): %s"
+          % (agree, QUANT_CORPUS, QUANT_TOP1, float((top_b == labels).mean()),
+             float((top_q == labels).mean()), n_ops,
+             stats["passes"]["quantize"],
+             ", ".join("%s %.4f %.6g" % (k, v["absmax"], v["scale"])
+                       for k, v in sorted(stats["calibration"].items()))))
+    if agree < QUANT_TOP1 or n_ops != QUANT_MLP_OPS:
+        raise RuntimeError("quant MLP: agreement %.4f (>= %g), %d quantized "
+                           "ops (want %d)" % (agree, QUANT_TOP1, n_ops,
+                                              QUANT_MLP_OPS))
+    del pb, pq
+    rows = {}
+    for mode, kw in (("bf16", dict(dtype="bfloat16")),
+                     ("int8", dict(quant="int8", calib_data=calib))):
+        profiler.serving_reset()
+        with ModelServer(ladder=QUANT_TRACE["ladder"],
+                         queue_depth=4 * QUANT_TRACE["clients"] + 8,
+                         submit_timeout=60) as srv:
+            srv.add_model("mlp", symbol=sym, arg_params=args,
+                          data_shapes=shapes, **kw)
+            rows[mode] = _quant_closed_loop(np, srv, "mlp", cfg["dim"])
+        r = rows[mode]
+        print("quant MLP serve %s: %d clients, think %.0f ms, %d rows a "
+              "request, %.0f s: %.1f req/s (%d requests, %d errors), "
+              "latency p50 %.2f ms p99 %.2f ms"
+              % (mode, QUANT_TRACE["clients"], QUANT_TRACE["think_ms"],
+                 QUANT_TRACE["rows"], QUANT_TRACE["seconds"], r["req_s"],
+                 r["requests"], r["errors"], r["p50_ms"], r["p99_ms"]))
+        if r["errors"] or not r["requests"]:
+            raise RuntimeError("quant MLP serve %s: %r" % (mode, r))
+    print("quant MLP serve: int8 / bf16 req/s %.3f, p99 %.3f"
+          % (rows["int8"]["req_s"] / rows["bf16"]["req_s"],
+             rows["int8"]["p99_ms"] / rows["bf16"]["p99_ms"]))
+
+    # part 4: the trained weights saved; the live server moved to perturbed
+    # ones, then swapped back from the checkpoint under load
+    tmp = tempfile.mkdtemp(prefix="quant_swap_")
+    try:
+        prefix = os.path.join(tmp, "mlp")
+        save_checkpoint(prefix, 0, sym, {k: mx.nd.array(v, ctx=mx.cpu())
+                                         for k, v in args.items()}, {})
+        moved = {k: (v + 0.05 * np.abs(v).max() * np.random.RandomState(3)
+                     .randn(*v.shape)).astype(np.float32)
+                 for k, v in args.items()}
+        x = sample(64, 901)[0]
+        with ModelServer(ladder=QUANT_TRACE["ladder"]) as srv:
+            srv.add_model("mlp", symbol=sym, arg_params=args,
+                          data_shapes=shapes, quant="int8", calib_data=calib)
+            srv.swap("mlp", moved)
+            perturbed = srv.predict("mlp", x)[0]
+            stop = threading.Event()
+            errors = []
+
+            def load():
+                while not stop.is_set():
+                    try:
+                        srv.predict("mlp", x[:8])
+                    except Exception as e:       # noqa: BLE001
+                        errors.append(e)
+
+            threads = [threading.Thread(target=load) for _ in range(4)]
+            for t in threads:
+                t.start()
+            time.sleep(0.2)
+            n_swapped = srv.swap_from_checkpoint("mlp", prefix=prefix,
+                                                 epoch=0)
+            time.sleep(0.2)
+            stop.set()
+            for t in threads:
+                t.join()
+            restored = srv.predict("mlp", x)[0]
+        fresh = AOTPredictor(sym, args, data_shapes=shapes,
+                             ladder=QUANT_TRACE["ladder"], quant="int8",
+                             calib_data=calib).predict(x)[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    equal = bool(np.array_equal(restored, fresh))
+    print("quant swap_from_checkpoint: %d params swapped under load (%d "
+          "errors); int8 outputs equal a fresh int8 bind's: %s (perturbed "
+          "weights moved them by %.4g)"
+          % (n_swapped, len(errors), equal,
+             float(np.abs(perturbed - restored).max())))
+    if not equal or errors or np.array_equal(perturbed, restored):
+        raise RuntimeError("quant swap_from_checkpoint: restored %s, %d "
+                           "errors" % (equal, len(errors)))
+    return rows
+
+
+def _node_chain(torch, qsym, params, x, device):
+    """Every node of ``qsym`` evaluated one at a time on ``device`` through
+    ``eval_node``, as ``AOTPredictor._run`` does; a variable is its entry of
+    ``params``, or ``x``. Returns ``(nodes, ids, outs)``: the topo order,
+    node id -> index, and index -> the node's outputs."""
+    from mxnet_tpu_torch.executor import INFERENCE_SEED, eval_node
+
+    nodes = qsym._topo()
+    ids = {id(n): i for i, n in enumerate(nodes)}
+    outs = {}
+    with torch.inference_mode():
+        for i, node in enumerate(nodes):
+            if node.is_variable():
+                v = params[node.name] if node.name in params else \
+                    torch.from_numpy(x)
+                outs[i] = (v.to(device),)
+                continue
+            outs[i] = eval_node(node, [outs[ids[id(n)]][k]
+                                       for n, k in node.inputs],
+                                False, INFERENCE_SEED, i, device)
+    return nodes, ids, outs
+
+
+def _quant_flips(torch, np, qsym, params, x):
+    """The int8 graph node by node, card against CPU on one input. Free
+    running (each side on its own inputs): per ``_quantize_int8`` node the
+    activations whose int8 value differs (flips) and by how many steps.
+    Teacher-forced (the CPU's node on the card's inputs): per op the
+    largest gap relative to the node's largest |value|. Returns
+    ``(flips, forced)``: ``[(node, flipped, total, max steps)]`` and
+    ``{op: gap}``."""
+    from mxnet_tpu_torch.executor import INFERENCE_SEED, eval_node
+
+    nodes, ids, card = _node_chain(torch, qsym, params, x, CARD)
+    cpu = _node_chain(torch, qsym, params, x, "cpu")[2]
+    flips, forced = [], {}
+    with torch.inference_mode():
+        for i, node in enumerate(nodes):
+            if node.is_variable():
+                continue
+            ref = eval_node(node, [card[ids[id(n)]][k].cpu()
+                                   for n, k in node.inputs],
+                            False, INFERENCE_SEED, i, "cpu")
+            for a, b in zip(card[i], ref):
+                a, b = a.cpu().double(), b.double()
+                gap = (a - b).abs().max().item() / max(
+                    b.abs().max().item(), 1e-30)
+                forced[node.op.name] = max(forced.get(node.op.name, 0.0),
+                                           gap)
+            if node.op.name == "_quantize_int8":
+                d = (card[i][0].cpu().float() - cpu[i][0]).abs()
+                flips.append((node.name, int((d > 0).sum()), d.numel(),
+                              int(d.max().item())))
+    return flips, forced
+
+
+def _quant_resnet(torch, np):
+    """Part 3: the unfused ResNet-50 at full width, int8 against bf16 behind
+    ModelServer on the 48-request trace, the card's int8 logits against the
+    CPU's on the same quantized weights and scales."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.serving import AOTPredictor, ModelServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    sym = resnet.get_symbol(fused=False, **RESNET)
+    one = (1,) + RESNET["image_shape"]
+    args, auxs = resnet.init_params(sym, one, seed=0)
+    calib = [{"data": _resnet_images(np, 300 + i, QUANT_RESNET_CALIB[1])}
+             for i in range(QUANT_RESNET_CALIB[0])]
+    t0 = time.perf_counter()
+    profiler.pass_reset()
+    kw = dict(data_shapes={"data": one}, ladder=(RESNET_CHECK_IMAGES,),
+              output_names=["fc1_output"])
+    pq = AOTPredictor(sym, args, auxs, quant="int8", calib_data=calib, **kw)
+    bind_s = time.perf_counter() - t0
+    n_ops = pq.bind_stats["quantized_ops"]
+    gauges = profiler.pass_stats(reset=True).get("calibration", {})
+    print("quant resnet: unfused ResNet-50, calibrated on %d batches of %d "
+          "and bound in %.1f s; quantized_ops %d (want %d); %d calibration "
+          "gauges, scales %.4g..%.4g"
+          % (*QUANT_RESNET_CALIB, bind_s, n_ops, QUANT_RESNET_OPS,
+             len(gauges), min(g["scale"] for g in gauges.values()),
+             max(g["scale"] for g in gauges.values())))
+    if n_ops != QUANT_RESNET_OPS:
+        raise RuntimeError("quant resnet: %d quantized ops" % n_ops)
+
+    # the card's int8 logits against the CPU's, the same quantized graph
+    # (scales) and weights; the yardstick is the CPU's int8-vs-fp32 gap
+    x = _resnet_images(np, 1, RESNET_CHECK_IMAGES)
+    card = pq.predict(x)[0]
+    # the predictor's own run (folded constants, _run) against the card's
+    # node-by-node chain over the same graph, which _quant_flips holds to
+    # the CPU node by node
+    nodes, ids, chain = _node_chain(torch, pq._sym, pq._params, x, CARD)
+    (out_node, out_k), = pq._sym._entries
+    chained = chain[ids[id(out_node)]][out_k].cpu().numpy()
+    tie = float(np.abs(card - chained).max()) / float(np.abs(chained).max())
+    del nodes, ids, chain
+    print("quant resnet tie: predictor int8 logits vs the card's node-by-"
+          "node chain, max |diff| relative to the largest |logit| %.4g "
+          "(limit %g)" % (tie, QUANT_TIE_TOL))
+    if not tie <= QUANT_TIE_TOL:
+        raise RuntimeError("quant resnet: the predictor's int8 run is %.4g "
+                           "off the node-by-node chain" % tie)
+    kw.pop("output_names")
+    cpu_q = AOTPredictor(pq._sym, args, auxs, device="cpu", **kw)
+    same_w = all(torch.equal(a.cpu(), b) for a, b in
+                 zip(pq._consts, cpu_q._consts) if a.dtype == torch.int8)
+    cpu_int8 = cpu_q.predict(x)[0]
+    kw["output_names"] = ["fc1_output"]
+    cpu_fp32 = AOTPredictor(sym, args, auxs, device="cpu", **kw).predict(
+        x)[0]
+    bf16 = AOTPredictor(sym, args, auxs, dtype="bfloat16", **kw).predict(
+        x)[0]
+    gap = float(np.abs(card - cpu_int8).max())
+    yard = float(np.abs(cpu_int8 - cpu_fp32).max())
+    top2 = np.sort(bf16, 1)[:, -2:]
+    print("quant resnet check: %d images; card int8 vs CPU int8 (same int8 "
+          "weights: %s) max |diff| %.4g, CPU int8 vs CPU fp32 %.4g: ratio "
+          "%.4f (limit %g); card int8 vs card bf16 top-1 agreement %.3f, "
+          "bf16 top-2 logit gaps min %.3g median %.3g"
+          % (RESNET_CHECK_IMAGES, same_w, gap, yard, gap / yard,
+             QUANT_CARD_CPU_RATIO, float((card.argmax(1) == bf16.argmax(1))
+                                         .mean()),
+             float((top2[:, 1] - top2[:, 0]).min()),
+             float(np.median(top2[:, 1] - top2[:, 0]))))
+    flips, forced = _quant_flips(torch, np, pq._sym, pq._params, x[:4])
+    first = next((f for f in flips if f[1]), None)
+    print("quant resnet flips, free running (4 images): %d of %d quantized "
+          "activations differ card vs CPU, at most %d step(s); first at %s "
+          "(%d of %d); by node: %s"
+          % (sum(f[1] for f in flips), sum(f[2] for f in flips),
+             max(f[3] for f in flips), first and first[0],
+             first[1] if first else 0, first[2] if first else 0,
+             " ".join("%s:%d" % (f[0], f[1]) for f in flips)))
+    print("quant resnet teacher-forced (the CPU's node on the card's "
+          "inputs), largest gap relative to the node's largest |value|, by "
+          "op: %s" % ", ".join("%s %.3g" % kv for kv in sorted(
+              forced.items())))
+    exact = ("_quantize_int8", "_quantize_rows_int8", "_int8_convolution",
+             "_int8_fully_connected")
+    bad = {k: v for k, v in forced.items()
+           if v > (0.0 if k in exact else QUANT_FORCED_TOL)}
+    if bad or not (same_w and np.isfinite(card).all()
+                   and gap <= QUANT_CARD_CPU_RATIO * yard):
+        raise RuntimeError("quant resnet: card int8 off the CPU's: nodes %s, "
+                           "logits %.4g of the yardstick" % (bad, gap / yard))
+    del pq, cpu_q
+
+    sizes, images = _resnet_requests(np)
+    rows = {}
+    for mode, pkw in (("bf16", dict(dtype="bfloat16")),
+                      ("int8", dict(quant="int8", calib_data=calib))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        profiler.serving_reset()
+        with ModelServer(ladder=RESNET_LADDER) as srv:
+            model = srv.add_model("r50", symbol=sym, arg_params=args,
+                                  aux_params=auxs, data_shapes={"data": one},
+                                  **pkw)
+            for b in RESNET_LADDER:
+                model.run_bucket({"data": _resnet_images(np, 7, b)}, b)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out, wall = _resnet_trace(srv, "r50", images)
+            st = srv.stats()["r50"]
+            peak = torch.cuda.max_memory_allocated()
+            batch = {"data": _resnet_images(np, 8, 64)}
+            print("quant resnet profile, %s, one batch of 64:" % mode)
+            prof = {}
+            _device_profile(torch, lambda: model.run_bucket(batch, 64),
+                            top=10, stats=prof)
+        rows[mode] = dict(images_s=sum(sizes) / wall, p50_ms=st["p50_ms"],
+                          p99_ms=st["p99_ms"], peak_gib=peak / 2 ** 30,
+                          out=out, busy_ms=prof.get("busy_ms"),
+                          wall_ms=prof.get("wall_ms"))
+        print("quant resnet serve %s: %d requests (%d images) from %d "
+              "threads in %.3f s = %.1f images/s; latency p50 %.1f ms p99 "
+              "%.1f ms; %d batches; peak memory %.2f GiB"
+              % (mode, len(sizes), sum(sizes), RESNET_THREADS, wall,
+                 rows[mode]["images_s"], st["p50_ms"], st["p99_ms"],
+                 st["batches"], peak / 2 ** 30))
+        if st["errors"] or any(not np.isfinite(o).all() for o in out):
+            raise RuntimeError("quant resnet serve %s: %r" % (mode, st))
+    agree = float(np.mean(np.concatenate(
+        [a.argmax(1) == b.argmax(1) for a, b in zip(rows["int8"]["out"],
+                                                    rows["bf16"]["out"])])))
+    print("quant resnet serve: int8 / bf16 images/s %.3f, p99 %.3f; served "
+          "top-1 agreement %.3f (Xavier weights: near-tied logits, no limit)"
+          % (rows["int8"]["images_s"] / rows["bf16"]["images_s"],
+             rows["int8"]["p99_ms"] / rows["bf16"]["p99_ms"], agree))
+    return rows
+
+
+def quant_serving_phase(torch, np, fa, fb):
+    """Int8 post-training-quantized serving on the card: the int8 ops at
+    every ResNet-50 shape, the bench MLP's quant trace, the unfused
+    ResNet-50 int8 vs bf16, swap_from_checkpoint; returns the launches of
+    B5-B7 and B1-B3 on the path (0 each: no hand-written kernel there)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import quantized as tq
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    calls = _resnet_int8_calls(resnet.get_symbol(fused=False, **RESNET))
+    t0 = time.perf_counter()
+    _quant_ops_check(torch, np, tq, calls)
+    print("quant ops phase part: %.1f s" % (time.perf_counter() - t0))
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    routes0 = dict(tq.routes)
+    _quant_mlp(torch, np, mx)
+    _quant_resnet(torch, np)
+    launches = _counts(fa) + _fb_counts(fb)
+    print("quant routes on the path: %s; B5-B7 and B1-B3 launches %s"
+          % ({k: tq.routes[k] - routes0[k] for k in tq.routes}, launches))
+    if any(launches) or tq.routes["f32_exact"] != routes0["f32_exact"]:
+        raise RuntimeError("quant: hand-written kernels launched %s, or "
+                           "the grouped route ran" % (launches,))
+    return launches
+
+
 def main():
     import torch
 
@@ -5579,6 +6272,9 @@ def main():
                                                   ssd_sweep))
     for entry, n in zip([fwd, *bwd, conv, *grads], ssd_path):
         entry["ssd_launches"] = n
+    quant = phase("quant_serving", quant_serving_phase, torch, np, fa, fb)
+    for entry, n in zip([fwd, *bwd, conv, *grads], quant):
+        entry["quant_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; shared-prefix serving (cache on) "
           "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "
@@ -5590,7 +6286,8 @@ def main():
           "B6, B7 on each rank %s; mp=2 serving B5 (leader's burst, "
           "follower's run) %s; model zoo B5-B7 and B1-B3 %s; "
           "LM path (fit, serving, op sweep) B5-B7 and B1-B3 %s; SSD path "
-          "(fit, detection, contrib sweep) B5-B7 and B1-B3 %s"
+          "(fit, detection, contrib sweep) B5-B7 and B1-B3 %s; int8 "
+          "serving path B5-B7 and B1-B3 %s"
           % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
              SPEC_TRACE["k"], fwd["spec_launches"], conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
@@ -5600,7 +6297,8 @@ def main():
              MP_STEPS, " / ".join("%d, %d, %d" % tuple(r) for r in mp_train),
              fwd["mp_serve_launches"], ", ".join("%d" % n for n in zoo),
              ", ".join("%d" % n for n in lm),
-             ", ".join("%d" % n for n in ssd_path)))
+             ", ".join("%d" % n for n in ssd_path),
+             ", ".join("%d" % n for n in quant)))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

@@ -63,6 +63,15 @@ KNOBS = {
         "", "deterministic fault injection rules (chaos.py grammar); the "
         "port wires the generate:stall hook only, and a rule for another "
         "target raises by name (chaos.py)"),
+    "MXNET_SERVE_QUANT": (
+        "none", "default serving quantization mode when AOTPredictor "
+        "quant=None: 'none' or 'int8' (int8 needs calib_data=; asking "
+        "without it raises CalibrationError) (serving/predictor.py, "
+        "ir/quantize.py)"),
+    "MXNET_QUANT_CALIB_BATCHES": (
+        "8", "max calibration batches the int8 quantization pass consumes "
+        "from the provided calibration data; integer >= 1 "
+        "(ir/quantize.py)"),
     "MXNET_SERVE_BATCH_LADDER": (
         "1,4,16,64", "comma-separated batch-size buckets the AOT predictor "
         "binds; requests pad up to the nearest bucket (serving/predictor.py; "
@@ -86,8 +95,12 @@ KNOBS = {
         "metric_stats), read at Speedometer/epoch boundaries; 0|1 "
         "(module/spmd_group.py, metric.py)"),
     "MXNET_MP_SIZE": (
-        "1", "tensor-parallel mesh axis size; tensor parallelism is not "
-        "ported, so only 1 is accepted (parallel/mesh.py)"),
+        "1", "tensor-parallel ('mp') mesh-axis size: train_mesh() splits the "
+        "world into a (dp = N // mp) x mp mesh for the transformer's "
+        "Megatron loss, train step and GenerativePredictor(mesh=), so mp "
+        "must divide the world size; a symbol's Module or TrainStep on an "
+        "mp axis raises (not ported, ROADMAP.md Queue A item 8b); integer "
+        ">= 1 (parallel/mesh.py train_mesh)"),
     "MXNET_MP_RULES": (
         "", "parameter-sharding rules 'regex:spec;regex:spec'; sharding a "
         "parameter is not ported, so a rule that shards raises "

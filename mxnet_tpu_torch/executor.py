@@ -491,8 +491,16 @@ def _solve_shapes(symbol, known_shapes, type_dict=None):
                                               for s in structs])
             for pname, shape in hints.items():
                 for an, (inode, _) in zip(node._arity or (), node.inputs):
-                    if an == pname and inode.is_variable() \
-                            and inode.name not in shapes:
+                    if an != pname:
+                        continue
+                    # the int8 serving graph routes a weight through an
+                    # in-graph _quantize_rows_int8 node (shape-preserving
+                    # on output 0): the hint lands on the variable behind
+                    if not inode.is_variable() \
+                            and inode.op.name == "_quantize_rows_int8" \
+                            and inode.inputs[0][0].is_variable():
+                        inode = inode.inputs[0][0]
+                    if inode.is_variable() and inode.name not in shapes:
                         shapes[inode.name] = shape
                         progress = True
             structs = in_structs(node)
@@ -540,14 +548,17 @@ def _param_shape_hints(node, in_shapes):
     if data is None:
         return {}
     hints = {}
-    if op in ("Convolution", "Convolution_v1", "_ConvResidualAdd"):
-        # the residual rewrite keeps Convolution's weight contract
+    if op in ("Convolution", "Convolution_v1", "_ConvResidualAdd",
+              "_int8_convolution"):
+        # the residual and int8 rewrites keep Convolution's weight contract
         kernel = tuple(int(k) for k in attrs.get("kernel", ()))
         nf = int(attrs.get("num_filter", 1))
         ng = int(attrs.get("num_group", 1))
         hints["weight"] = (nf, data[1] // ng) + kernel
         if not attrs.get("no_bias"):
             hints["bias"] = (nf,)
+        if op == "_int8_convolution":
+            hints["wscale"] = (nf,)
     elif op == "FusedBottleneckUnit":
         # data is NHWC; weights keep the unfused OIHW checkpoint shapes
         nf = int(attrs.get("num_filter", 1))
@@ -559,7 +570,7 @@ def _param_shape_hints(node, in_shapes):
         for i, ch in (("1", ci), ("2", c), ("3", c)):
             for p in ("gamma", "beta", "moving_mean", "moving_var"):
                 hints["bn%s_%s" % (i, p)] = (ch,)
-    elif op == "FullyConnected":
+    elif op in ("FullyConnected", "_int8_fully_connected"):
         nh = int(attrs.get("num_hidden", 1))
         in_dim = 1
         if attrs.get("flatten", True):
@@ -570,6 +581,8 @@ def _param_shape_hints(node, in_shapes):
         hints["weight"] = (nh, in_dim)
         if not attrs.get("no_bias"):
             hints["bias"] = (nh,)
+        if op == "_int8_fully_connected":
+            hints["wscale"] = (nh,)
     elif op in ("BatchNorm", "BatchNorm_v1", "batch_norm"):
         c = data[int(attrs.get("axis", 1)) % len(data)]
         hints.update({"gamma": (c,), "beta": (c,), "moving_mean": (c,),

@@ -14,11 +14,12 @@ outputs) are skipped; a rewrite with the wrong entry count or missing
 required inputs raises :class:`PassError` naming the rule and node; with
 ``data_shapes``, a pass that changes the graph's output shapes raises.
 
-Registered: ``fusion``, ``residual`` and ``layout`` (whose kill switch is
-``MXNET_IR_LAYOUT``). ``quantize`` is a registered name that raises "not
-ported". Every rewrite lands in ``profiler.pass_stats`` (rule hits, nodes
-rewritten, transposes cancelled) and in the provenance dict each pass
-returns.
+Registered: ``fusion``, ``residual``, ``layout`` (whose kill switch is
+``MXNET_IR_LAYOUT``) and ``quantize``, which needs its calibration context
+(:func:`.quantize.quantize_for_serving` or ``AOTPredictor(quant="int8",
+calib_data=...)``) and raises from a bare pipeline. Every rewrite lands in
+``profiler.pass_stats`` (rule hits, nodes rewritten, transposes cancelled,
+quantized ops) and in the provenance dict each pass returns.
 """
 from __future__ import annotations
 
@@ -257,9 +258,17 @@ def _make_layout():
     return LayoutPass("layout", layout_rules())
 
 
-def _make_quantize():
-    raise PassError("the 'quantize' pass is not ported yet (fusion, "
-                    "residual and layout are)")
+def _make_quantize(**kwargs):
+    if not kwargs:
+        raise PassError(
+            "the 'quantize' pass needs calibration context (params + "
+            "calib batches); bind through AOTPredictor(quant='int8', "
+            "calib_data=...) or call ir.quantize.quantize_for_serving "
+            "directly — it cannot run from a bare MXNET_IR_PASSES "
+            "pipeline")
+    from .quantize import QuantizePass
+
+    return QuantizePass(**kwargs)
 
 
 PASSES = {

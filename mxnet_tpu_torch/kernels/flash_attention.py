@@ -9,7 +9,12 @@ custom VJP) whose forward is B5 (``csrc/flash_attention_fwd.cu``) and
 whose backward is B6 (dq) and B7 (dk, dv) (``csrc/flash_attention_bwd.cu``),
 all built at first use (see ``_build``). In bfloat16 all three run on the
 tensor cores (wgmma fed by TMA, so the tensors TMA loads must be 16-byte
-aligned); in float32 they run on the CUDA cores. A
+aligned); in float32 they run on the CUDA cores. The kernels are built
+for a head dim D of 64 or 128: a smaller D is zero-padded to the next of
+them on the card (:func:`_pad_head_dim`; zero lanes add 0 to q . k, to
+out and to delta, as the JAX package's padding to 128 lanes does), with
+the scale taken from the unpadded D, and the outputs are sliced back; a
+D above 128 raises. A
 CPU tensor goes to the plain versions, :func:`flash_attention_reference` and
 :func:`flash_attention_bwd_reference`. There is no fallback: a build or
 launch failure on a CUDA tensor raises.
@@ -33,6 +38,24 @@ HEAD_DIMS = (64, 128)
 
 def _scale(sm_scale, d):
     return sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
+
+
+def _kernel_head_dim(d, what):
+    """The head dim the kernels run a D of ``d`` at: the smallest of
+    ``HEAD_DIMS`` that holds it. A D above 128 raises: it needs a wider
+    instantiation of the kernels (ROADMAP.md Queue C, C11)."""
+    for kd in HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise MXNetError("%s: head dim %d is above the CUDA kernels' largest, "
+                     "%d" % (what, d, HEAD_DIMS[-1]))
+
+
+def _pad_head_dim(t, d_to):
+    """``t`` with its last dim zero-padded to ``d_to`` (a new contiguous
+    tensor), or ``t`` itself when it is that wide already."""
+    d = t.shape[-1]
+    return t if d == d_to else torch.nn.functional.pad(t, (0, d_to - d))
 
 
 def _live(sq, sk, causal, kv_len, device):
@@ -192,18 +215,53 @@ def _on(t, what):
     return t.device.type == "cuda"
 
 
+def _padded(what, *ts):
+    """``(d, ts)``: the head dim D of ``ts`` (q first) and each of them
+    zero-padded to the kernels' width for it (:func:`_kernel_head_dim`)."""
+    d = ts[0].shape[-1]
+    kd = _kernel_head_dim(d, what)
+    return d, [_pad_head_dim(t, kd) for t in ts]
+
+
+def _sliced(d, *ts):
+    """``ts`` with their last dim sliced back to ``d`` (contiguous)."""
+    return tuple(t if t.shape[-1] == d else t[..., :d].contiguous()
+                 for t in ts)
+
+
 def _forward(q, k, v, scale, causal, kv_len):
     """B5 on a CUDA tensor, the plain forward on a CPU one."""
     if not _on(q, "flash_attention"):
         return flash_attention_reference(q, k, v, causal=causal,
                                          sm_scale=scale, kv_len=kv_len)
     b, h, sq, _d = q.shape
+    d, (q, k, v) = _padded("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", "flash_attention_fwd", (q, k, v),
             (out, lse), scale, causal, kv_len, tma_inputs=3)
     flash_attention.launches += 1
-    return out, lse
+    return _sliced(d, out)[0], lse
+
+
+def _launch_dq(q, k, v, do, lse, delta, scale, causal, kv_len):
+    """B6 on tensors already at the kernels' head dim."""
+    dq = torch.empty_like(q)
+    _launch("flash_attention_bwd", "flash_attention_bwd_dq",
+            (q, k, v, do, lse, delta), (dq,), scale, causal, kv_len,
+            tma_inputs=4)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, scale, causal, kv_len):
+    """B7 on tensors already at the kernels' head dim."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_attention_bwd", "flash_attention_bwd_dkv",
+            (q, k, v, do, lse, delta), (dk, dv), scale, causal, kv_len,
+            tma_inputs=4)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
@@ -217,12 +275,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
     scale = _scale(sm_scale, q.shape[3])
     if not _on(q, "flash_attention_bwd_dq"):
         return _bwd_plain(q, k, v, do, lse, delta, scale, causal, kv_len)[0]
-    dq = torch.empty_like(q)
-    _launch("flash_attention_bwd", "flash_attention_bwd_dq",
-            (q, k, v, do, lse, delta), (dq,), scale, causal, kv_len,
-            tma_inputs=4)
-    flash_attention_bwd_dq.launches += 1
-    return dq
+    d, padded = _padded("flash_attention_bwd_dq", q, k, v, do)
+    return _sliced(d, _launch_dq(*padded, lse, delta, scale, causal,
+                                 kv_len))[0]
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=False,
@@ -237,25 +292,27 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=False,
     if not _on(q, "flash_attention_bwd_dkv"):
         return _bwd_plain(q, k, v, do, lse, delta, scale, causal,
                           kv_len)[1:]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_attention_bwd", "flash_attention_bwd_dkv",
-            (q, k, v, do, lse, delta), (dk, dv), scale, causal, kv_len,
-            tma_inputs=4)
-    flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    d, padded = _padded("flash_attention_bwd_dkv", q, k, v, do)
+    return _sliced(d, *_launch_dkv(*padded, lse, delta, scale, causal,
+                                   kv_len))
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal=False,
                         sm_scale=None, kv_len=None):
     """``(dq, dk, dv)`` of :func:`flash_attention` (counterpart of
     ``_bwd_call``). On a CUDA tensor: delta as a PyTorch reduction, then
-    B6 and B7; on a CPU tensor, :func:`flash_attention_bwd_reference`."""
+    B6 and B7 on q, k, v and do padded once; on a CPU tensor,
+    :func:`flash_attention_bwd_reference`."""
     kw = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len)
     if not _on(q, "flash_attention_bwd"):
         return flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    kv_len = k.shape[2] if kv_len is None else int(kv_len)
     delta = attention_delta(out, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-    return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    _check_bwd(q, k, v, do, lse, delta, kv_len)
+    scale = _scale(sm_scale, q.shape[3])
+    d, padded = _padded("flash_attention_bwd", q, k, v, do)
+    args = (*padded, lse, delta, scale, causal, kv_len)
+    return _sliced(d, _launch_dq(*args), *_launch_dkv(*args))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -287,9 +344,10 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None, kv_len=None,
     """Fused attention, ``(B, H, S, D)`` layout, differentiable in q, k, v.
 
     ``kv_len`` (default ``Sk``) marks key columns ``>= kv_len`` as
-    padding. On a CUDA tensor the forward launches B5 (D of 64 or 128,
-    float32 or bfloat16) and adds one to ``flash_attention.launches``, and
-    the backward launches B6 and B7; on a CPU tensor both run the plain
+    padding. On a CUDA tensor the forward launches B5 (D up to 128, run at
+    64 or 128 lanes; float32 or bfloat16) and adds one to
+    ``flash_attention.launches``, and the backward launches B6 and B7; on
+    a CPU tensor both run the plain
     versions. Returns ``out``, or ``(out, lse)`` with ``return_lse``
     (``lse`` carries no gradient)."""
     kv_len = k.shape[2] if kv_len is None else int(kv_len)

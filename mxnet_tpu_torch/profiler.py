@@ -15,9 +15,12 @@ of ``mxnet_tpu/profiler.py``).
   counters of the dynamic-batching ``ModelServer`` (requests, batches,
   rows against bucket capacity, shed, errors, queue depth, request
   latency p50/p99).
-- ``pass_record`` / ``pass_stats`` / ``pass_reset``: per IR pass, rule
-  hits, nodes rewritten, the remat plan's saved and recomputed node
-  counts and the layout pass's cancelled transposes.
+- ``pass_record`` / ``pass_calibration`` / ``pass_stats`` /
+  ``pass_reset``: per IR pass, rule hits, nodes rewritten, the remat
+  plan's saved and recomputed node counts, the layout pass's cancelled
+  transposes and the quantize pass's quantized ops; and a gauge per
+  int8-calibrated tensor group (absmax and scale, the newest calibration
+  wins).
 - ``health_record`` / ``health_sentinel`` / ``health_stats`` /
   ``health_reset``: reaction-side event counters and the newest drained
   snapshot of ``TrainStep``'s sentinel counters.
@@ -197,9 +200,10 @@ def serving_reset():
 # IR pass counters
 # ---------------------------------------------------------------------------
 _PASS_LOCK = threading.Lock()
-_PASS_COUNTERS = ("hits", "rewritten", "remat_saved", "remat_recomputed",
-                  "transposes_cancelled")
+_PASS_COUNTERS = ("hits", "rewritten", "quantized", "remat_saved",
+                  "remat_recomputed", "transposes_cancelled")
 _PASS = {}
+_PASS_CALIB = {}
 
 
 def pass_record(pass_name, rule=None, **adds):
@@ -218,29 +222,43 @@ def pass_record(pass_name, rule=None, **adds):
             s["rules"][rule] = s["rules"].get(rule, 0) + int(adds["hits"])
 
 
+def pass_calibration(group, **fields):
+    """Replace one tensor group's calibration gauge (absmax, scale)."""
+    with _PASS_LOCK:
+        _PASS_CALIB[group] = dict(fields)
+
+
 def pass_stats(reset=False):
-    """``{"passes": {name: {hits, nodes_rewritten, remat_saved,
-    remat_recomputed, transposes_cancelled, rules}}}``; empty dict when no
-    pass ran."""
+    """``{"passes": {name: {hits, nodes_rewritten, quantized_ops,
+    remat_saved, remat_recomputed, transposes_cancelled, rules}},
+    "calibration": {group: gauge}}`` (``calibration`` only once a group was
+    calibrated); empty dict when no pass ran."""
     with _PASS_LOCK:
         snap = {name: dict(s, rules=dict(s["rules"]))
                 for name, s in _PASS.items()}
+        calib = {g: dict(v) for g, v in _PASS_CALIB.items()}
         if reset:
             _PASS.clear()
-    if not snap:
+            _PASS_CALIB.clear()
+    if not (snap or calib):
         return {}
-    return {"passes": {
+    out = {"passes": {
         name: {"hits": s["hits"], "nodes_rewritten": s["rewritten"],
+               "quantized_ops": s["quantized"],
                "remat_saved": s["remat_saved"],
                "remat_recomputed": s["remat_recomputed"],
                "transposes_cancelled": s["transposes_cancelled"],
                "rules": s["rules"]}
         for name, s in snap.items()}}
+    if calib:
+        out["calibration"] = calib
+    return out
 
 
 def pass_reset():
     with _PASS_LOCK:
         _PASS.clear()
+        _PASS_CALIB.clear()
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,12 @@ sticky and surfaces on the next submit. ``close()`` stops and joins the
 loop with a bounded deadline and fails queued and in-flight requests
 loudly.
 
-Not ported yet: ``ModelServer``'s tenant/priority QoS classes, its
-checkpoint hot swap (``swap_from_checkpoint``) and its chaos hooks
-(ROADMAP.md Queue A items 10 and 11).
+``ModelServer.swap_from_checkpoint(prefix=, epoch=)`` hot-swaps a model
+from a ``save_checkpoint`` pair (``model.load_checkpoint``); an int8 model
+requantizes its weights on the swap. Not ported yet: ``ModelServer``'s
+tenant/priority QoS classes, the ``directory=`` form of
+``swap_from_checkpoint`` (the JAX package's ``checkpoint.py``) and the
+chaos hooks (ROADMAP.md Queue A item 10).
 """
 from __future__ import annotations
 
@@ -266,7 +269,8 @@ class ModelServer:
                   data_shapes=None, predictor=None, **predictor_kwargs):
         """Make ``name`` resident: either hand in a prebuilt
         :class:`AOTPredictor`, or a symbol + params + data_shapes and the
-        server binds one at its ladder, dtype and device."""
+        server binds one at its ladder, dtype and device; other keywords
+        (``quant=``, ``calib_data=``, ...) go to the predictor."""
         self._check_open()
         if predictor is None:
             if symbol is None or data_shapes is None:
@@ -339,6 +343,26 @@ class ModelServer:
         with worker._exec_lock:
             return worker.predictor.swap_params(arg_params, aux_params,
                                                 allow_extra=allow_extra)
+
+    def swap_from_checkpoint(self, name, prefix=None, epoch=None,
+                             directory=None):
+        """Hot-swap a resident model from the checkpoint pair ``prefix``-
+        ``epoch`` (``model.load_checkpoint``; epoch 0 when None), as
+        :meth:`swap` with ``allow_extra=True``. The ``directory=`` form (an
+        elastic-training ``CheckpointManager``'s newest checkpoint) raises:
+        it is not ported."""
+        if (prefix is None) == (directory is None):
+            raise ServingError("swap_from_checkpoint: pass exactly one of "
+                               "prefix= or directory=")
+        if directory is not None:
+            raise ServingError("swap_from_checkpoint(directory=): the "
+                               "CheckpointManager (checkpoint.py) is not "
+                               "ported yet (ROADMAP.md Queue A item 10)")
+        from ..model import load_checkpoint
+
+        _, arg_params, aux_params = load_checkpoint(
+            prefix, 0 if epoch is None else int(epoch))
+        return self.swap(name, arg_params, aux_params, allow_extra=True)
 
     def stats(self, reset=False):
         """Per-model serving counters (see profiler.serving_stats)."""

@@ -15,11 +15,18 @@ a ladder of batch sizes:
   rows are sliced away after the forward.
 - **Hot swap.** :meth:`AOTPredictor.swap_params` refreezes, refolds and
   publishes the new constant set in one assignment.
+- **Int8 post-training quantization.** ``quant="int8"`` runs the quantize
+  pass (``ir/quantize.py``) over ``calib_data`` before the fold split, so
+  the weights' ``_quantize_rows_int8`` nodes fold once per parameter set
+  (a swap requantizes them) and the activations quantize at the bound
+  boundaries of each request.
 
 The JAX package's ``ExecutableCache`` (and so ``MXNET_SERVE_MAX_EXECUTABLES``)
 has no counterpart: PyTorch runs eagerly, so there is no compiled program
-per bucket to keep. Not ported yet: int8 serving (``quant=``), the
-sharded bind (``mesh=``) and the exact-shape bind (the JAX package's
+per bucket to keep, and no cache key to carry an int8 bind's calibration
+fingerprint (the JAX ``_quant_fingerprint``): each predictor runs its own
+graph, whose ``_quantize_int8`` nodes carry their scales. Not ported yet:
+the sharded bind (``mesh=``) and the exact-shape bind (the JAX package's
 ``ladder=None``; here ``ladder=None`` reads the knob).
 """
 from __future__ import annotations
@@ -99,6 +106,19 @@ def env_positive_float(name, default):
     return value
 
 
+def _resolve_quant(quant):
+    """The serving quantization mode: the argument, else
+    ``MXNET_SERVE_QUANT``; ``none`` or ``int8``, anything else raises
+    naming its source."""
+    if quant is None:
+        return config.get_choice("MXNET_SERVE_QUANT", ("none", "int8"))
+    mode = str(quant).strip().lower()
+    if mode not in ("none", "int8"):
+        raise ServingError("quant=%r: serving quantization must be 'none' "
+                           "or 'int8'" % (quant,))
+    return mode
+
+
 def _pick_internals(sym, output_names):
     """Serve internal layers by name (``get_internals`` semantics)."""
     from .. import symbol as sym_mod
@@ -129,16 +149,19 @@ class AOTPredictor:
     ``device="cpu"`` to serve on the CPU. ``output_names`` serves internal
     layers (``fc1_output``, ...). Random ops that draw in inference
     (``Dropout(mode="always")``) draw from ``executor.INFERENCE_SEED`` on
-    every request.
+    every request. ``quant``: ``"none"`` or ``"int8"`` (None reads
+    ``MXNET_SERVE_QUANT``); int8 calibrates on ``calib_data`` (a list of
+    ``{input: array}`` batches; none raises ``ir.CalibrationError``) on the
+    predictor's device and quantizes every FC and 2-D convolution but the
+    nodes named in ``quant_exclude``; ``quant_report`` and
+    ``bind_stats["quantized_ops"]`` say what it did.
     """
 
     def __init__(self, symbol, arg_params=None, aux_params=None,
                  data_shapes=None, ladder=None, dtype="float32",
-                 device=None, output_names=None, quant=None, mesh=None):
-        if quant not in (None, "none"):
-            raise ServingError("AOTPredictor: quant=%r is not ported yet "
-                               "(int8 serving, ROADMAP.md Queue A item 11)"
-                               % (quant,))
+                 device=None, output_names=None, quant=None, mesh=None,
+                 calib_data=None, quant_exclude=()):
+        self._quant = _resolve_quant(quant)
         if mesh is not None:
             raise ServingError("AOTPredictor: mesh= (a symbol's sharded bind) "
                                "is not ported yet (ROADMAP.md Queue A item "
@@ -182,6 +205,20 @@ class AOTPredictor:
                 "AOTPredictor: zero-filling arguments absent from the "
                 "params: %s" % self._extra_names, stacklevel=2)
 
+        # int8: the quantize pass runs before the fold split, so each
+        # weight's _quantize_rows_int8 node folds (once per parameter set,
+        # again on a swap); argument and aux names are unchanged
+        self.quant_report = None
+        if self._quant == "int8":
+            from .. import ir
+
+            merged = {n: arg_params[n] for n in self._weight_names}
+            merged.update({n: aux_params[n] for n in self._bound_aux})
+            symbol, self.quant_report = ir.quantize_for_serving(
+                symbol, merged, calib_data, self._data_names,
+                exclude=quant_exclude, device=self.device)
+            self._sym = symbol
+
         arg_shapes, _, aux_shapes = symbol.infer_shape(
             **self._bucket_shapes(self._ladder[0]))
         inferred = dict(zip(arg_names, arg_shapes))
@@ -214,10 +251,15 @@ class AOTPredictor:
             "zero_filled": list(self._extra_names),
             "ladder": self._ladder,
             "dtype": self._dtype_name,
-            "quant": "none",
+            "quant": self._quant,
         }
+        if self.quant_report is not None:
+            self.bind_stats["quantized_ops"] = \
+                self.quant_report["quantized_ops"]
 
     def _freeze_one(self, name, value):
+        if hasattr(value, "asnumpy"):           # an NDArray
+            value = value.asnumpy()
         t = value.detach() if isinstance(value, torch.Tensor) \
             else torch.from_numpy(np.ascontiguousarray(np.asarray(value)))
         if t.is_floating_point():

@@ -17,14 +17,27 @@ of the tensor's largest; lse within 1e-3.
 
 The kernels themselves run only on the card (``tests/test_torch_kernels_cuda
 .py``).
+
+Head dims the kernels are not built for (C9): on the card the dispatcher
+zero-pads D to 64 or 128 (``_pad_head_dim``), keeps the scale of the
+unpadded D and slices the outputs back. The padded route, run through the
+plain versions on the CPU, is held against the JAX ``flash_attention``
+(which pads D to 128 lanes) in interpret mode at D 8, forward and
+``jax.vjp`` gradient, rtol 1e-5 / atol 1e-5 (fp32 both sides); the
+``cuda`` cases hold B5, B6 and B7 at D 8, 32 and 96 against the plain
+versions on the card, within the limits above (1e-4 per row in fp32).
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mxnet_tpu.kernels.flash_attention import _bwd_call, _fwd_call
+from mxnet_tpu.kernels.flash_attention import flash_attention as jax_flash
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.kernels import flash_attention as tfa
 from mxnet_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_reference,
@@ -203,3 +216,84 @@ def test_tc_bwd_dq_model_fits_the_limits(case):
         causal=causal, kv_len=kv_len)
     for want in (np.asarray(dq_j.astype(jnp.float32)), rq[0].float().numpy()):
         assert _row_err(dq.float(), want, FLOOR) <= ROW_TOL
+
+
+# ---------------------------------------------------------------------------
+# head dims other than 64 and 128 (C9)
+# ---------------------------------------------------------------------------
+def test_kernel_head_dim_pads_up_and_refuses_above_128():
+    assert [tfa._kernel_head_dim(d, "x") for d in (1, 8, 32, 64, 65, 96,
+                                                   128)] == \
+        [64, 64, 64, 64, 128, 128, 128]
+    with pytest.raises(MXNetError, match="head dim 129"):
+        tfa._kernel_head_dim(129, "flash_attention")
+    t = torch.randn(2, 3, 5, 8)
+    p = tfa._pad_head_dim(t, 64)
+    assert p.shape == (2, 3, 5, 64) and p.is_contiguous()
+    assert torch.equal(p[..., :8], t) and not p[..., 8:].any()
+    assert tfa._pad_head_dim(p, 64) is p
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_route_matches_jax_flash_attention_at_d8(causal):
+    """The card's route for D 8, run through the plain versions: q, k, v
+    (and dout) zero-padded to 64 lanes, the scale of D 8, out, dq, dk and
+    dv sliced back; against the JAX ``flash_attention`` (D padded to 128
+    lanes) and its ``jax.vjp``."""
+    rng = np.random.RandomState(8 + causal)
+    q, k, v, do = (rng.randn(1, 2, 40, 8).astype(np.float32)
+                   for _ in range(4))
+    kd = tfa._kernel_head_dim(8, "test")
+    scale = tfa._scale(None, 8)
+    tq, tk, tv, tdo = (tfa._pad_head_dim(torch.from_numpy(a), kd)
+                       for a in (q, k, v, do))
+    out, lse = flash_attention_reference(tq, tk, tv, causal=causal,
+                                         sm_scale=scale)
+    grads = flash_attention_bwd_reference(tq, tk, tv, out, lse, tdo,
+                                          causal=causal, sm_scale=scale)
+    want, vjp = jax.vjp(lambda *a: jax_flash(*a, causal=causal,
+                                             interpret=True),
+                        *map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(out[..., :8].numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    assert not out[..., 8:].any()
+    for g, w in zip(grads, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(g[..., :8].numpy(), np.asarray(w),
+                                   rtol=1e-5, atol=1e-5)
+    # and the unpadded plain version, which runs any D on the CPU
+    ref, ref_lse = flash_attention_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    torch.testing.assert_close(out[..., :8], ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 32, 96])
+def test_b5_b7_at_padded_head_dims_on_the_card(dtype, d):
+    """B5, B6 and B7 at D 8, 32 and 96 (padded to 64, 64 and 128 lanes)
+    against the plain versions at the unpadded D, causal and not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else ROW_TOL
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for causal, sq, sk, kv_len in ((True, 200, 200, 200),
+                                   (False, 96, 160, 130)):
+        q, do = (torch.randn(2, 3, sq, d, device="cuda", generator=gen)
+                 .to(dt) for _ in range(2))
+        k, v = (torch.randn(2, 3, sk, d, device="cuda", generator=gen)
+                .to(dt) for _ in range(2))
+        kw = dict(causal=causal, kv_len=kv_len)
+        before = tfa.flash_attention.launches
+        out, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw)
+        ref, ref_lse = flash_attention_reference(q, k, v, **kw)
+        assert tfa.flash_attention.launches == before + 1
+        assert out.shape == q.shape and out.dtype == dt
+        assert _row_err(out.float().cpu(), ref.float().cpu()) <= tol
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+        got = tfa.flash_attention_bwd(q, k, v, ref, ref_lse, do, **kw)
+        refs = flash_attention_bwd_reference(q, k, v, ref, ref_lse, do, **kw)
+        for g, r in zip(got, refs):
+            assert g.shape == r.shape and g.dtype == dt
+            assert _row_err(g.float().cpu(), r.float().cpu(), FLOOR) <= tol

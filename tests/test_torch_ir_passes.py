@@ -10,7 +10,8 @@ at a small size.
   cancel), its kill switch ``MXNET_IR_LAYOUT=0``, node names kept for the
   remat plan; the BatchNorm it sinks runs on NHWC with ``axis=3``.
 - ``_ConvResidualAdd`` against the JAX op; the rule registry; the
-  ``quantize`` pass still raises by name.
+  ``quantize`` pass raises the JAX message without its calibration
+  context and rewrites as the JAX pass with one.
 
 Tolerances: rtol 1e-4 / atol 1e-5 of the reference's largest |value|. The
 JAX fused kernels name ``pltpu.TPUCompilerParams``, which this JAX calls
@@ -309,9 +310,29 @@ def test_rule_registry_matches_jax():
 
 
 def test_quantize_pass_raises_by_name():
+    """With no calibration context the ``quantize`` pass raises the JAX
+    package's message; with one (calibrated scales) it rewrites as the JAX
+    pass does."""
+    from mxnet_tpu import symbol as jsym
     from mxnet_tpu_torch import symbol as tsym
 
-    with pytest.raises(MXNetError, match="quantize.*not ported"):
+    def fc_net(sym):
+        return sym.FullyConnected(data=sym.relu(sym.FullyConnected(
+            data=sym.var("data"), num_hidden=8, name="fc0")), num_hidden=4,
+            name="fc1")
+
+    with pytest.raises(MXNetError) as got:
         ir.apply_passes(_transpose_chain(tsym), ["quantize"])
+    with pytest.raises(jir.PassError) as want:
+        jir.apply_passes(_transpose_chain(jsym), ["quantize"])
+    assert str(got.value) == str(want.value)
+    assert "calibration context" in str(got.value)
     with pytest.raises(MXNetError, match="unknown pass"):
         ir.apply_passes(_transpose_chain(tsym), ["nosuch"])
+    scales = {"fc0": 0.25, "fc1": 0.5}
+    with tname.NameManager():
+        tq, tprov = ir.PASSES["quantize"](scales=scales).apply(fc_net(tsym))
+    with mx.name.NameManager():
+        jq, jprov = jir.PASSES["quantize"](scales=scales).apply(fc_net(mx.sym))
+    assert tq.tojson() == jq.tojson()
+    assert tprov == jprov and tprov["quantized_ops"] == 2

@@ -142,6 +142,19 @@ def test_mp_knob_validation(monkeypatch, own_group):
     assert train_mesh(mp=1, device="cpu").mesh_dim_names == ("dp",)
 
 
+def test_mp_size_knob_builds_the_mesh(tmp_path):
+    """``MXNET_MP_SIZE=2`` alone gives ``train_mesh()`` its (dp 1, mp 2)
+    mesh on 2 ranks, as the knob's doc says."""
+    from mxnet_tpu_torch import config
+
+    doc = config.KNOBS["MXNET_MP_SIZE"][1]
+    assert "train_mesh" in doc and "only 1" not in doc
+    ctx = w.start_ranks("torch_mp_workers:mp_knob_worker", 2, tmp_path)
+    for r, out in enumerate(w.join_ranks(ctx, tmp_path, RANK_TIMEOUT)):
+        assert out["axes"] == ("dp", "mp")
+        assert out["model"] == (2, r)
+
+
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_train_mesh_groups(runs, name):
     """``train_mesh(mp=2)`` is ``(dp, mp)`` with mp innermost: rank r is

@@ -11,7 +11,7 @@ import pytest
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu_torch.ops import registry as treg
 
-PORTED = 244
+PORTED = 248
 
 # the 95 names of item 7b, from mxnet_tpu/ops/tensor.py
 TENSOR_7B = (
@@ -75,16 +75,17 @@ SLICE_7CD_ALIASES = (
     "MultiBoxDetection", "PSROIPooling", "Proposal", "MultiProposal",
     "DeformableConvolution", "DeformablePSROIPooling")
 
+# the 4 names of item 11's first part, from mxnet_tpu/ops/quantized.py
+QUANT_11 = ("_int8_convolution", "_int8_fully_connected", "_quantize_int8",
+            "_quantize_rows_int8")
 DEFERRED = {
-    "11": ("_int8_convolution", "_int8_fully_connected", "_quantize_int8",
-           "_quantize_rows_int8"),
     "13": ("Custom",),
 }
 MODULES = {"7c": ("mxnet_tpu.ops.random_ops",),
            "7d": ("mxnet_tpu.ops.vision", "mxnet_tpu.ops.contrib"),
            "11": ("mxnet_tpu.ops.quantized",),
            "13": ("mxnet_tpu.ops.custom",)}
-PORTED_ITEMS = {"7c": RANDOM_7C, "7d": CONTRIB_7D}
+PORTED_ITEMS = {"7c": RANDOM_7C, "7d": CONTRIB_7D, "11": QUANT_11}
 
 # the 22 names of this slice, from mxnet_tpu/ops/nn.py
 NN_7A = ("Dropout", "LeakyReLU", "Deconvolution", "InstanceNorm",
@@ -104,7 +105,7 @@ def test_every_jax_name_is_ported_or_deferred_by_item():
     assert port <= jax_names
     assert jax_names == port | set(deferred)
     assert len(port) == PORTED
-    assert len(jax_names) - len(port) == len(deferred) == 5
+    assert len(jax_names) - len(port) == len(deferred) == 1
 
 
 @pytest.mark.parametrize("item", sorted(MODULES))

@@ -17,8 +17,9 @@ widths 8/16/32, 64x64 images, 5 classes), everything on the CPU.
   nontrivial scale and bias) carried across by ``params_from_jax``.
 - ``ModelServer``: concurrent mixed-size requests coalesce into buckets
   and each gets the rows ``predict`` gives alone; ``swap`` changes the
-  answers; ``quant``, ``mesh`` and training raise; the default device is
-  ``cuda``.
+  answers; ``quant="int8"`` quantizes the stem and the classifier (the
+  fused units are not quantizable, as in the JAX pass); ``mesh`` raises;
+  the training unit runs; the default device is ``cuda``.
 
 The JAX fused kernels name ``pltpu.TPUCompilerParams``, which this JAX
 calls ``pltpu.CompilerParams``; each test sets that alias with
@@ -143,8 +144,21 @@ def test_fusion_pass_is_a_pass(graphs):
     again = ir.apply_passes(graphs["port_unfused"], passes="fusion",
                             data_shapes={"data": SHAPE})
     assert _op_counts(again) == _op_counts(graphs["port_fused"])
-    with pytest.raises(ir.PassError, match="not ported"):
+    # the quantize pass needs its calibration context; given scales, it
+    # rewrites the fused graph's stem conv and classifier only, as the
+    # JAX pass does (FusedBottleneckUnit is not a quantizable op)
+    with pytest.raises(ir.PassError, match="calibration context"):
         ir.apply_passes(graphs["port_unfused"], passes="quantize")
+    from mxnet_tpu.ir.quantize import _target_nodes as jax_targets
+    from mxnet_tpu_torch.ir.quantize import _target_nodes
+
+    names = [n.name for n, _ in _target_nodes(graphs["port_fused"])]
+    assert names == [n.name for n, _ in
+                     jax_targets(graphs["jax_fused"])] == ["conv0", "fc1"]
+    qsym, prov = ir.PASSES["quantize"](
+        scales=dict.fromkeys(names, 1.0)).apply(graphs["port_fused"])
+    assert prov["quantized_ops"] == 2
+    assert _op_counts(qsym)["FusedBottleneckUnit"] == 3
 
 
 def test_apply_passes_guards_output_shapes(graphs, monkeypatch):
@@ -303,8 +317,15 @@ def test_unported_modes_raise(graphs, params):
     args, auxs = params
     sym = graphs["port_fused"]
     kw = dict(data_shapes={"data": SHAPE}, device="cpu")
-    with pytest.raises(ServingError, match="not ported"):
-        AOTPredictor(sym, args, auxs, quant="int8", **kw)
+    # int8 is ported: on the fused graph it quantizes the stem conv and the
+    # classifier only, as the JAX pass does, and serves close to float
+    x = _images(4, 2)
+    pq = AOTPredictor(sym, args, auxs, quant="int8",
+                      calib_data=[{"data": _images(5, 2)}], **kw)
+    assert pq.bind_stats["quantized_ops"] == 2
+    assert sorted(pq.quant_report["calibration"]) == ["conv0", "fc1"]
+    want = AOTPredictor(sym, args, auxs, **kw).predict(x)[0]
+    assert np.abs(pq.predict(x)[0] - want).max() < 0.05
     with pytest.raises(ServingError, match="not ported"):
         AOTPredictor(sym, args, auxs, mesh=object(), **kw)
     # the training unit is ported: it runs, and mixes its moving statistics
@@ -336,3 +357,11 @@ def test_default_device_is_cuda(graphs, params):
         ModelServer().add_model("m", symbol=graphs["port_fused"],
                                 arg_params=args, aux_params=auxs,
                                 data_shapes={"data": SHAPE})
+    # int8 calibration runs its forward on the card too
+    calib = [{"data": np.zeros(SHAPE, np.float32)}]
+    with pytest.raises(MXNetError, match="device='cpu'"):
+        ir.quantize_for_serving(graphs["port_fused"], {**args, **auxs},
+                                calib, ["data"])
+    with pytest.raises(MXNetError, match="device='cpu'"):
+        AOTPredictor(graphs["port_fused"], args, auxs, quant="int8",
+                     calib_data=calib, data_shapes={"data": SHAPE})

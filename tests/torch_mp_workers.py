@@ -132,6 +132,16 @@ def mp_train_worker(rank, world, mp):
     return out
 
 
+def mp_knob_worker(rank, world):
+    """``train_mesh()`` with no ``mp=``: the mesh ``MXNET_MP_SIZE`` (2,
+    set here in the rank's own environment) gives."""
+    from mxnet_tpu_torch.parallel.mesh import model_group, train_mesh
+
+    os.environ["MXNET_MP_SIZE"] = "2"
+    mesh = train_mesh(device="cpu")
+    return {"axes": mesh.mesh_dim_names, "model": model_group(mesh)[1:]}
+
+
 def predictor_script(pred):
     """One predictor's calls (the port's or the JAX package's: the same
     API): a prefill, a decode step, a 2-token extend and a tail prefill
