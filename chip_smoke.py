@@ -12,11 +12,13 @@ the kernels are built for sm_90a) and ``nvcc``. It
    build time and the compiler's register/spill report; reads the SASS of
    the bf16 tensor-core kernels B1, B2, B3, B5, B6 and B7 (``cuobjdump
    -sass``) and fails unless each has wgmma (HGMMA) and TMA load (UTMALDG)
-   instructions and spills nothing;
+   instructions and spills nothing beyond the bytes ``TC_SPILLS`` lists
+   (B7 at D 256 and at D 128 with block_k 128);
 3. holds the flash-attention forward (B5) against its plain PyTorch
    version on the card, at the shapes the serving and training paths give
-   it and a few more (causal and not, a ``kv_len`` mask, D = 128, D = 8, 32
-   and 96 zero-padded to 64 or 128 lanes, float32 and bfloat16), and times
+   it and a few more (causal and not, a ``kv_len`` mask, D = 128, D = 8, 32,
+   96, 192 and 256 zero-padded to 64, 128 or 256 lanes, float32 and
+   bfloat16), and times
    the kernel, the plain version and one library call (SDPA, a yardstick
    only: the port never calls it) at the training shape, a tensor-parallel
    rank's (4, 4, 2048, 64), the prefill buckets 256, 1024 and 2048 and
@@ -56,7 +58,8 @@ the kernels are built for sm_90a) and ``nvcc``. It
    1..16 images from 4 threads and prints images/s, latency, the forward
    time per bucket, the device's busy share and peak memory;
 7. holds the two backward kernels, B6 (dq) and B7 (dk, dv), against the
-   plain backward in the same way (D 8, 32 and 96 padded too), with the
+   plain backward in the same way (D 8, 32, 96, 192 and 256 padded too),
+   with the
    SDPA backward as the yardstick, at both training shapes and the two D
    32 shapes;
 8. computes the loss and every parameter gradient of a 2-layer, d_model
@@ -207,7 +210,22 @@ the kernels are built for sm_90a) and ``nvcc``. It
    int8-vs-fp32 gap), and the 48-request
    trace in bf16 and int8 (images/s, p50/p99, peak memory, a profiled
    batch of 64); B1-B7 launch 0 times there;
-25. prints one JSON line describing each kernel, then the result line
+25. runs the schedule autotuner (``mxnet_tpu_torch.tune``): holds every
+   candidate tile of B5-B7 (at (8, 8, 1024, 128) and the training shape)
+   and of B1-B3 (at 64 x 14 x 14 x 256 -> 256, 3x3) against the plain
+   versions at the same tile, B1 bit for bit across ``chan_block``; runs
+   ``python -m mxnet_tpu_torch.tune --compare``'s flow on a temporary
+   table at the CLI's defaults and at the training key (8, 8, 2048, 2048,
+   64, 1) and prints each key's winner, device / event ms beside the
+   default's, ``speedup_vs_default``, n_timed / n_pruned and the ranked
+   and exhaustive wall times; a second run must be all cache hits; one
+   transformer train step and one fused ResNet-50 ``TrainStep`` with the
+   table armed must hit their keys with the same launch counts (12/12/12,
+   52/52/48) and losses within 2**-6 of the untuned steps; ``Module.fit``
+   with ``MXNET_TUNE_BACKGROUND=1`` on the fused ResNet-50 must commit a
+   key at an epoch-end drain boundary. Every phase before it runs on an
+   empty table of the run's own (the hand tiles);
+26. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -352,6 +370,20 @@ TC_KERNELS = (("fused_conv_fwd", "conv_fwd_tc_kernel"),
               ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel"))
 
 
+# the tensor-core instantiations that spill, with the stack and local
+# bytes cuobjdump -res-usage gives them (measured on the H100 build, PERF.md
+# section 6): B7 where a consumer warpgroup keeps two 64-column panels of
+# both dK and dV (128 accumulator floats) beside the two 64 x 64 score
+# tiles, under the 168 registers a thread that a CTA of 288 threads (9
+# warps, allocated as 12) leaves: D 256, and D 128 at block_k 128; and B7
+# at D 128 with two query sub-tiles a slot (8 bytes). Any other
+# instantiation must not spill, and these not more than this
+TC_SPILLS = {("flash_bwd_dkv_tc_kernel", "128, 1, 2"): 8,
+             ("flash_bwd_dkv_tc_kernel", "128, 2, 1"): 520,
+             ("flash_bwd_dkv_tc_kernel", "128, 2, 2"): 408,
+             ("flash_bwd_dkv_tc_kernel", "256, 1, 1"): 256}
+
+
 def _cuobjdump(nvcc):
     """cuobjdump beside nvcc, else Triton's copy."""
     cands = [os.path.join(os.path.dirname(nvcc), "cuobjdump")]
@@ -392,7 +424,8 @@ def sass_phase(build):
     SASS of the bf16 tensor-core kernels (``cuobjdump -sass``) and prints
     their registers and stack/local bytes (``cuobjdump -res-usage``, which
     reads the built library, so a cached build is checked too); fails if
-    either count is 0 or an instantiation uses local memory (spills)."""
+    either count is 0 or an instantiation uses local memory (spills),
+    beyond the bytes ``TC_SPILLS`` lists for it."""
     tool = _cuobjdump(build._nvcc())
     for lib, kernel in TC_KERNELS:
         sass = subprocess.run([tool, "-sass", str(build.lib_path(lib))],
@@ -422,9 +455,11 @@ def sass_phase(build):
             if not (n_mma and n_tma):
                 raise RuntimeError("sass: %s has no wgmma or no TMA load"
                                    % name)
-            if local:
+            allowed = TC_SPILLS.get((kernel, ", ".join(args)), 0)
+            if local > allowed:
                 raise RuntimeError("sass: %s spills (%d bytes of stack and "
-                                   "local memory)" % (name, local))
+                                   "local memory, %d listed)"
+                                   % (name, local, allowed))
 
 
 # the spin kernel counts cycles; at most ~2e9 of them a second on an H100,
@@ -603,23 +638,28 @@ TRAIN_ATTN = (TRAIN_BATCH[0], FULL["n_heads"], TRAIN_BATCH[1] - 1,
               FULL["d_model"] // FULL["n_heads"])
 
 
-# C9: head dims the kernels are not built for run zero-padded to 64 or
-# 128 lanes; held at D 8, 32 and 96 (cases of (b, h, sq, sk, causal,
-# kv_len) each), and timed at tools/bench_e2e.py measure_mp's attention
-# (d_model 256 over 8 heads, sequence 64, 2 rows) and an mp=2 rank's
-PAD_DIMS = (8, 32, 96)
+# C9, C11: head dims the kernels are not built for run zero-padded to 64,
+# 128 or 256 lanes; held at D 8, 32, 96, 192 and 256 (cases of (b, h, sq,
+# sk, causal, kv_len) each), and timed at tools/bench_e2e.py measure_mp's
+# attention (d_model 256 over 8 heads, sequence 64, 2 rows) and an mp=2
+# rank's
+PAD_DIMS = (8, 32, 96, 192, 256)
 PAD_CASES = ((2, 4, 200, 200, True, 200), (2, 4, 96, 160, False, 130))
 PAD_ATTN = ((2, 8, 64, 32), (2, 4, 64, 32))
 
 
-def _pad_dim_times(torch, fa, gen, name):
-    """``name``'s event / device ms at the D 32 shapes of ``PAD_ATTN`` (bf16,
-    causal), beside its plain version, SDPA and the bound; a dict by
-    shape."""
+# C11: B5-B7 timed at D 192 and 256 (padded to 256 lanes) beside SDPA
+D256_ATTN = ((4, 8, 1024, 256), (4, 8, 1024, 192))
+
+
+def _pad_dim_times(torch, fa, gen, name, shapes=PAD_ATTN):
+    """``name``'s event / device ms at ``shapes`` (bf16, causal; the D 32
+    shapes of ``PAD_ATTN`` by default), beside its plain version, SDPA and
+    the bound; a dict by shape."""
     import torch.nn.functional as F
 
     out = {}
-    for b, h, s, d in PAD_ATTN:
+    for b, h, s, d in shapes:
         q, k, v, do = _inputs(torch, gen, [(b, h, s, d)] * 4, torch.bfloat16)
         o, lse = fa.flash_attention_reference(q, k, v, causal=True)
         delta = fa.attention_delta(o, do)
@@ -643,10 +683,12 @@ def _pad_dim_times(torch, fa, gen, name):
         ms, plain_ms, lib_ms = (_time_ms(torch, f) for f in (fn, plain, lib))
         bound_ms, bound_by = _attention_bound(name, b, h, s, s, d, True, s,
                                               "bfloat16")
-        print("time %s bf16 (%d,%d,%d,%d) causal, padded to 64 lanes (event "
-              "/ device): kernel %s ms, plain %s ms, SDPA %s ms, bound %.6f "
-              "ms (%s)" % (name, b, h, s, d, _both(ms), _both(plain_ms),
-                           _both(lib_ms), bound_ms, bound_by))
+        print("time %s bf16 (%d,%d,%d,%d) causal, padded to %d lanes "
+              "(event / device): kernel %s ms (%.2fx / %.2fx SDPA), plain %s "
+              "ms, SDPA %s ms, bound %.6f ms (%s)"
+              % (name, b, h, s, d, fa._kernel_head_dim(d, name), _both(ms),
+                 ms[0] / lib_ms[0], ms[1] / lib_ms[1], _both(plain_ms),
+                 _both(lib_ms), bound_ms, bound_by))
         out["x".join(map(str, (b, h, s, d)))] = dict(
             {"bound_ms": bound_ms, "bound_by": bound_by},
             **_timed(ms, plain_ms, lib_ms))
@@ -751,7 +793,9 @@ def kernel_phase(torch, fa):
                  "library": "SDPA forward",
                  "mp": dict(timed[MP_ATTN], max_abs_err=mp_err),
                  "d32": _pad_dim_times(torch, fa, gen,
-                                       "flash_attention_fwd")},
+                                       "flash_attention_fwd"),
+                 "d256": _pad_dim_times(torch, fa, gen,
+                                        "flash_attention_fwd", D256_ATTN)},
                 **timed[TRAIN_ATTN])
 
 
@@ -853,7 +897,8 @@ def backward_phase(torch, fa):
                  "shared by B6 and B7",
         "library": "SDPA backward: dq, dk and dv together, shared by B6 and "
                    "B7", "mp": timed[key][MP_ATTN],
-        "d32": _pad_dim_times(torch, fa, gen, name)},
+        "d32": _pad_dim_times(torch, fa, gen, name),
+        "d256": _pad_dim_times(torch, fa, gen, name, D256_ATTN)},
         **timed[key][TRAIN_ATTN])
         for key, name, line in (("dq", "flash_attention_bwd_dq", 103),
                                 ("dkv", "flash_attention_bwd_dkv", 131))]
@@ -6176,6 +6221,313 @@ def quant_serving_phase(torch, np, fa, fb):
     return launches
 
 
+# the autotuner on the card (tune_phase): the CLI's on-device defaults
+# (conv 64x14x14x256 -> 256 3x3, flash 8x8x1024 D 128 causal bf16 and its
+# decode shape) and the transformer's training key
+TUNE_CONV = (64, 14, 256, 256, 3, 1)
+TUNE_FLASH = (8, 8, 1024, 128)
+TUNE_TRAIN_KEY = (TRAIN_ATTN[0], TRAIN_ATTN[1], TRAIN_ATTN[2], TRAIN_ATTN[2],
+                  TRAIN_ATTN[3], 1)
+# the tuned steps' losses against the untuned ones': the tiles change only
+# the order of f32 sums (B2, B3's split) and of the online softmax (B5-B7)
+TUNE_LOSS_TOL = 2.0 ** -6
+# Module.fit with the background tuner: the fused ResNet-50, fp32, 2 epochs
+# of 2 batches of 8 (one slot at each epoch end)
+TUNE_FIT_BATCH, TUNE_FIT_BATCHES, TUNE_FIT_EPOCHS = 8, 2, 2
+
+
+def _tile_checks(torch, fa, fb):
+    """Every candidate tile of B5-B7 at TUNE_FLASH and at the training
+    shape, and of B1-B3 at TUNE_CONV, against the plain versions at the
+    same tile on the card; B1 bit for bit across chan_block."""
+    from mxnet_tpu_torch import tune
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for b, h, s, d in (TUNE_FLASH, TRAIN_ATTN):
+        q, k, v, do = _inputs(torch, gen, [(b, h, s, d)] * 4, torch.bfloat16)
+        for cand in tune.flash_candidates(s, s, d=d, dtype="bfloat16"):
+            if cand["status"] not in ("default", "candidate"):
+                continue
+            tile = dict(cand["schedule"])
+            out, lse = fa.flash_attention(q, k, v, causal=True,
+                                          return_lse=True, **tile)
+            ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True,
+                                                        **tile)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                           **tile)
+            refs = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                    causal=True, **tile)
+            torch.cuda.synchronize()
+            e_out = _row_err(torch, out, ref)
+            e_lse = (lse - ref_lse).abs().max().item()
+            e_bwd = max(_row_err(torch, g, r, floor_frac=1e-2)
+                        for g, r in zip(grads, refs))
+            ok = e_out <= KERNEL_TOL["bfloat16"][0] and e_bwd <= \
+                BWD_TOL["bfloat16"] and e_lse <= KERNEL_TOL["bfloat16"][1]
+            print("tune tile B5-B7 bf16 (%d,%d,%d,%d) causal %s: out %.3g, "
+                  "lse %.3g, dq/dk/dv %.3g row-relative  %s"
+                  % (b, h, s, d, tile, e_out, e_lse, e_bwd,
+                     "ok" if ok else "FAIL"))
+            if not ok:
+                raise RuntimeError("tune: B5-B7 at %s disagree with the "
+                                   "plain versions" % tile)
+    n, hw, ci, co, kk, stride = TUNE_CONV
+    xs, ws = (n, hw, hw, ci), (kk, kk, ci, co)
+    x, w, pro, (e, y), consts, mask, _ex = _grad_inputs(
+        torch, gen, ("dgrad", n, hw, ci, co, kk, stride, True, None),
+        torch.bfloat16)
+    first = None
+    for kernel in tune.FUSED_KINDS:
+        for cand in tune.fused_candidates(kernel, xs, ws, stride):
+            if cand["status"] not in ("default", "candidate"):
+                continue
+            sched = cand["schedule"]
+            if kernel == "fused_fwd":
+                got = fb.conv_fwd(x, w, stride=stride, prologue=pro,
+                                  emit_stats=True, schedule=sched)
+                ref = fb.conv_fwd_reference(x, w, stride=stride,
+                                            prologue=pro, emit_stats=True,
+                                            schedule=sched)
+                err = _row_err(torch, got[0], ref[0])
+                same = first is None or (torch.equal(got[0], first[0])
+                                         and torch.equal(got[1], first[1]))
+                first = got if first is None else first
+                ok = err <= CONV_TOL["bfloat16"] and same
+                what = "row-relative %.3g, bit for bit with the first " \
+                    "chan_block %s" % (err, same)
+            elif kernel == "fused_wgrad":
+                kw = dict(stride=stride, x_prologue=pro, g_bnbwd=consts,
+                          schedule=sched)
+                dw = fb.conv_wgrad(x, (e, y), ws, **kw)
+                ref = fb.conv_wgrad_reference(x, (e, y), ws, **kw)
+                err = _wgrad_err(torch, fb, dw, ref, x, (e, y), ws, stride,
+                                 pro, consts)
+                ok = err <= WGRAD_TOL
+                what = "column-relative %.3g" % err
+            else:
+                kw = dict(stride=stride, g_bnbwd=consts, out_mask=mask,
+                          schedule=sched)
+                got = fb.conv_dgrad((e, y), w, xs, **kw)
+                ref = fb.conv_dgrad_reference((e, y), w, xs, **kw)
+                err = _row_err(torch, got[0], ref[0])
+                ok = err <= CONV_TOL["bfloat16"]
+                what = "row-relative %.3g" % err
+            torch.cuda.synchronize()
+            print("tune tile %s bf16 %s %s: %s  %s"
+                  % (kernel, "x".join(map(str, TUNE_CONV)), sched, what,
+                     "ok" if ok else "FAIL"))
+            if not ok:
+                raise RuntimeError("tune: %s at %s disagrees with its plain "
+                                   "version" % (kernel, sched))
+
+
+def _tune_cli(argv):
+    """One run of ``python -m mxnet_tpu_torch.tune`` in this process: its
+    report (the JSON of its last line)."""
+    from mxnet_tpu_torch.tune import __main__ as cli
+
+    return cli.run(argv)
+
+
+def _print_tune_report(rep, label):
+    for key, r in rep["tune"].items():
+        w = r["winner"]
+        if r["cache_hit"]:
+            print("tune %s %s: cache hit, schedule %s" % (label, key,
+                                                          w["schedule"]))
+            continue
+        exh = r.get("exhaustive") or {}
+        print("tune %s %s: winner %s, device / event ms %.5f / %.5f, default "
+              "%s %.5f / %.5f, speedup_vs_default %.3f; n_timed %d, n_pruned "
+              "%d; ranked %s wall %.3f s, exhaustive wall %s s (n_timed %s)"
+              % (label, key, w["schedule"], w["ms_per_iter"],
+                 w["event_ms_per_iter"], w["default_schedule"],
+                 w["default_ms_per_iter"], w["default_event_ms_per_iter"],
+                 w["speedup_vs_default"], r["n_timed"], r["n_pruned"],
+                 (r.get("ranker") or {}).get("mode"), r.get("wall_s") or 0,
+                 exh.get("wall_s"), exh.get("n_timed")))
+        for t in r["trajectory"]:
+            print("tune %s   %-9s %s%s" % (
+                label, t["status"], t["schedule"],
+                "  device / event ms %.5f / %.5f" % (
+                    t["ms_per_iter"], t["event_ms_per_iter"])
+                if "ms_per_iter" in t else
+                "  (%s)" % t["reason"] if "reason" in t else ""))
+
+
+def _tuned_steps(torch, np, fa, fb, tune, profiler):
+    """One transformer train step and one fused ResNet-50 TrainStep from the
+    same params, untuned (MXNET_TPU_TUNE=0) and with the table armed:
+    (losses, launches, tuning_stats of the armed runs)."""
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.parallel import TrainStep, functional_optimizer
+
+    cfg = tfm.TransformerConfig(**FULL)
+    params = tfm.init_params(cfg, seed=0)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, TRAIN_BATCH)
+    n = RESNET_TRAIN_BATCH
+    sym = resnet.get_symbol(fused=True, **RESNET)
+    batch = {k: torch.as_tensor(v).to(CARD)
+             for k, v in _resnet_batch(np, 0, n).items()}
+    out = {}
+    for armed in ("0", "1"):
+        os.environ["MXNET_TPU_TUNE"] = armed
+        tune.reset()
+        profiler.tuning_reset()
+        step, place = tfm.make_train_step(
+            cfg, optimizer=dict(name="sgd", learning_rate=0.1, momentum=0.9))
+        _reset_counts(fa)
+        _carry, loss = step(place(params), tokens)
+        t_loss, t_launch = loss.item(), _counts(fa)
+        del _carry
+        ts = TrainStep(sym, functional_optimizer(**RESNET_OPT),
+                       compute_dtype="bfloat16", device=CARD)
+        p, o, a = ts.init_params({"data": (n,) + RESNET["image_shape"],
+                                  "softmax_label": (n,)},
+                                 initializer=Xavier(), seed=0)
+        _reset_fb_counts(fb)
+        _carry, loss = ts(ts.place(p, o, a), batch)
+        torch.cuda.synchronize()
+        out[armed] = ((t_loss, loss.item()), (t_launch, _fb_counts(fb)),
+                      profiler.tuning_stats())
+        del _carry, p, o, a, ts
+        gc.collect()
+    os.environ.pop("MXNET_TPU_TUNE", None)
+    return out
+
+
+def tune_phase(torch, np, fa, fb):
+    """The schedule autotuner on the card: every tile against its plain
+    version; ``python -m mxnet_tpu_torch.tune --compare`` on a temporary
+    table at the CLI's defaults and at the transformer's training key, then
+    a second run that must be all cache hits; one transformer train step
+    and one fused ResNet-50 TrainStep with the table armed (hits for their
+    keys, the same launch counts, losses within the kernels' tolerance of
+    the untuned steps); ``Module.fit`` with ``MXNET_TUNE_BACKGROUND=1``,
+    which must commit a key at a drain boundary."""
+    import logging
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler, tune
+    from mxnet_tpu_torch.models import resnet
+
+    _tile_checks(torch, fa, fb)
+    prev = os.environ.get("MXNET_TPU_TUNE_TABLE")
+    tmp = tempfile.mkdtemp(prefix="tune_table_")
+    os.environ["MXNET_TPU_TUNE_TABLE"] = os.path.join(tmp, "table.json")
+    try:
+        tune.reset()
+        profiler.tuning_reset()
+        b, h, s, d, _causal = TUNE_TRAIN_KEY[0], TUNE_TRAIN_KEY[1], \
+            TUNE_TRAIN_KEY[2], TUNE_TRAIN_KEY[4], 1
+        n, hw, ci, co, _k, _s = TUNE_CONV
+        conv = ["--batch", str(n), "--hw", str(hw), "--ci", str(ci), "--co",
+                str(co)]
+        train = ["--kernels", "flash_attention", "--no-decode",
+                 "--flash-batch", str(b), "--heads", str(h), "--seq", str(s),
+                 "--head-dim", str(d)]
+        t0 = time.perf_counter()
+        first = _tune_cli(["--compare"] + conv)
+        first["tune"].update(_tune_cli(["--compare"] + train)["tune"])
+        print("tune --compare: %d keys in %.1f s, table %s"
+              % (len(first["tune"]), time.perf_counter() - t0,
+                 first["table"]))
+        _print_tune_report(first, "compare")
+        keys = set(first["tune"])
+        want = {tune.make_key(k, (n, hw, hw, ci, co, _k, _s), "bfloat16",
+                              "cuda") for k in tune.FUSED_KINDS}
+        want |= {tune.make_key("flash_attention", shape, "bfloat16", "cuda")
+                 for shape in ((8, 8, 1024, 1024, 128, 1),
+                               (8, 8, 1, 1024, 128, 0), TUNE_TRAIN_KEY)}
+        if keys != want or first["backend"] != "cuda":
+            raise RuntimeError("tune: keys %s, want %s" % (sorted(keys),
+                                                           sorted(want)))
+        again = _tune_cli(conv)
+        again["tune"].update(_tune_cli(train)["tune"])
+        hits = sum(r["cache_hit"] and r["n_timed"] == 0
+                   for r in again["tune"].values())
+        print("tune second run: %d of %d keys cache hits"
+              % (hits, len(again["tune"])))
+        if hits != len(want):
+            raise RuntimeError("tune: the second run timed again")
+        print(json.dumps({"tune": {k: {
+            f: r["winner"].get(f) for f in (
+                "schedule", "ms_per_iter", "event_ms_per_iter",
+                "default_schedule", "default_ms_per_iter",
+                "default_event_ms_per_iter", "speedup_vs_default")}
+            for k, r in first["tune"].items()}, "backend": "cuda",
+            "table": first["table"]}))
+
+        steps = _tuned_steps(torch, np, fa, fb, tune, profiler)
+        (t0_loss, r0_loss), launch0, _ = steps["0"]
+        (t1_loss, r1_loss), launch1, stats = steps["1"]
+        conv_keys = [k for k in want if k.startswith("fused_")]
+        train_key = tune.make_key("flash_attention", TUNE_TRAIN_KEY,
+                                  "bfloat16", "cuda")
+        hit = {k: (stats.get("kernels") or {}).get(k, {}).get("source")
+               for k in conv_keys + [train_key]}
+        print("tune consult: transformer step loss untuned %.6f, tuned "
+              "%.6f; ResNet-50 step loss untuned %.6f, tuned %.6f; launches "
+              "untuned %s, tuned %s; table hits %d, misses %d, fallbacks %d; "
+              "sources %s" % (t0_loss, t1_loss, r0_loss, r1_loss, launch0,
+                              launch1, stats.get("hits", 0),
+                              stats.get("misses", 0),
+                              stats.get("fallbacks", 0), hit))
+        want_launch = ((FULL["n_layers"],) * 3,
+                       (B1_PER_FORWARD, B2_PER_STEP, B3_PER_STEP))
+        if launch0 != launch1 or tuple(map(tuple, launch1)) != want_launch:
+            raise RuntimeError("tune: launches %s / %s, want %s"
+                               % (launch0, launch1, want_launch))
+        if any(v != "table" for v in hit.values()):
+            raise RuntimeError("tune: the steps missed their keys: %s" % hit)
+        for a, b_ in ((t0_loss, t1_loss), (r0_loss, r1_loss)):
+            if abs(a - b_) > TUNE_LOSS_TOL * abs(a):
+                raise RuntimeError("tune: tuned loss %.6f vs %.6f" % (b_, a))
+
+        # background tuning at Module.fit's drain boundary
+        tune.reset()
+        profiler.tuning_reset()
+        os.environ["MXNET_TUNE_BACKGROUND"] = "1"
+        nb = TUNE_FIT_BATCH
+        rng = np.random.RandomState(1)
+        x = rng.randn(nb * TUNE_FIT_BATCHES,
+                      *RESNET["image_shape"]).astype(np.float32)
+        y = rng.randint(0, RESNET["num_classes"],
+                        (nb * TUNE_FIT_BATCHES,)).astype(np.float32)
+        logging.getLogger().setLevel(logging.WARNING)
+        mod = mx.mod.Module(resnet.get_symbol(fused=True, **RESNET),
+                            context=mx.gpu(0))
+        before = len(tune.get_table())
+        t0 = time.perf_counter()
+        mod.fit(mx.io.NDArrayIter(x, y, batch_size=nb),
+                num_epoch=TUNE_FIT_EPOCHS, optimizer="sgd",
+                optimizer_params=FIT_OPT, initializer=mx.init.Xavier())
+        torch.cuda.synchronize()
+        bg = profiler.tuning_stats()
+        tune.get_table().reload()
+        committed = len(tune.get_table()) - before
+        print("tune background: Module.fit %d epochs of %d batches of %d in "
+              "%.1f s; slots %d, commits %d, table entries +%d; %d misses "
+              "left in the registry" % (
+                  TUNE_FIT_EPOCHS, TUNE_FIT_BATCHES, nb,
+                  time.perf_counter() - t0, bg.get("bg_slots", 0),
+                  bg.get("bg_commits", 0), committed,
+                  len(tune.recorded_misses())))
+        if bg.get("bg_commits", 0) < 1 or committed < 1:
+            raise RuntimeError("tune: the background tuner committed nothing")
+        return first
+    finally:
+        os.environ.pop("MXNET_TUNE_BACKGROUND", None)
+        if prev is None:
+            os.environ.pop("MXNET_TPU_TUNE_TABLE", None)
+        else:
+            os.environ["MXNET_TPU_TUNE_TABLE"] = prev
+        tune.reset()
+
+
 def main():
     import torch
 
@@ -6190,6 +6542,12 @@ def main():
     from mxnet_tpu_torch.kernels import fused_block as fb
 
     t_start = time.perf_counter()
+    # the phases before tune_phase run the hand tiles: an empty table of
+    # this run's own, not whatever the user's default table holds
+    import tempfile
+
+    os.environ["MXNET_TPU_TUNE_TABLE"] = os.path.join(
+        tempfile.mkdtemp(prefix="chip_smoke_"), "schedule_table.json")
     card = _card_line()
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
@@ -6275,6 +6633,7 @@ def main():
     quant = phase("quant_serving", quant_serving_phase, torch, np, fa, fb)
     for entry, n in zip([fwd, *bwd, conv, *grads], quant):
         entry["quant_launches"] = n
+    phase("tune", tune_phase, torch, np, fa, fb)
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; shared-prefix serving (cache on) "
           "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "

@@ -122,9 +122,39 @@ KNOBS = {
         "1", "arms the JAX package's HealthGuard in Module.fit when "
         "MXNET_CHECKPOINT_DIR is set; not ported, so fit raises when both "
         "are set (module/base_module.py)"),
+    "MXNET_TPU_TUNE": (
+        "1", "consult the on-disk schedule table for the searched tiles of "
+        "the hand-written kernels when they are called (the kernels "
+        "consult tune.schedule_for with the hand defaults as fallback, so "
+        "an empty table runs the hand defaults); 0 pins the hand defaults "
+        "(tune/table.py)"),
+    "MXNET_TPU_TUNE_TABLE": (
+        "", "schedule-table path override (default ~/.cache/mxnet_tpu/"
+        "schedule_table.json); written atomically by python -m "
+        "mxnet_tpu_torch.tune, keyed (kernel, shape, dtype, backend) "
+        "(tune/table.py)"),
+    "MXNET_TUNE_RANKER": (
+        "1", "rank sweep candidates with the learned cost model and time "
+        "only the top MXNET_TUNE_TOPK (the hand default is always timed); "
+        "the ranker abstains into the exhaustive sweep when the model is "
+        "missing, under-trained or below the validation rank-correlation "
+        "floor; 0 pins the exhaustive sweep (tune/search.py)"),
+    "MXNET_TUNE_TOPK": (
+        "3", "how many model-ranked candidates a ranked sweep times, on top "
+        "of the always-timed hand default (tune/search.py)"),
+    "MXNET_TUNE_MODEL": (
+        "", "cost-model path override (default: next to the schedule "
+        "table, <table>.model.json); versioned JSON written atomically by "
+        "model refits; corrupt files log, behave as absent and are "
+        "rewritten whole by the next fit (tune/model.py)"),
     "MXNET_TUNE_BACKGROUND": (
-        "0", "background kernel tuning in Module.fit; not ported, so fit "
-        "accepts only 0 (module/base_module.py)"),
+        "0", "arm tune.BackgroundTuner in Module.fit: bounded tuning slots "
+        "at the epoch-end drain boundary for shapes the job ran "
+        "(schedule-table misses), never inside the step loop "
+        "(tune/background.py)"),
+    "MXNET_TUNE_BG_BUDGET": (
+        "2", "max timed programs per background-tuning slot, hand default "
+        "included (tune/background.py)"),
     "MXNET_IR_FUSE": (
         "1", "kill switch for rule-based fusion in the model builders: "
         "resnet(fused=True) applies the IR fusion pass when 1, returns the "
@@ -139,6 +169,13 @@ def get(name):
     if name in KNOBS:
         return KNOBS[name][0]
     return None
+
+
+def get_bool(name, default=False):
+    """Lenient boolean: 1/true/yes/on are True, anything else False (the
+    JAX package's ``get_bool``, used for ``MXNET_TPU_TUNE``)."""
+    v = os.environ.get(name, "1" if default else "0")
+    return str(v).strip().lower() in ("1", "true", "yes", "on")
 
 
 def get_strict_bool(name):

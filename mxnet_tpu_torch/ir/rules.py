@@ -12,8 +12,11 @@ of ``mxnet_tpu/ir/rules.py``).
 
 Rules are registered by name (:func:`register_rule`, :func:`get_rule`,
 :func:`list_rules`); the passes take their rule lists from the registry.
-The JAX package's per-rule kernel names feed its autotuner, which the port
-does not have yet.
+Every rule declares the hand-written kernel families its rewritten op
+consults (``kernels``); ``tune.rule_kernels()`` folds them into the
+autotuner's sweepable set (:func:`registered_kernels`). The fusion rule
+names B1-B3; the residual rule names none: its op runs the library
+convolution in the port (the JAX package's names ``fused_fwd`` there).
 """
 from __future__ import annotations
 
@@ -26,9 +29,11 @@ class Rule:
     """One rewrite rule: pattern(s) + a rewrite callback.
 
     ``patterns`` are tried in order per node; ``where(match)`` (optional)
-    vets a structural match before the rewrite runs."""
+    vets a structural match before the rewrite runs; ``kernels`` names the
+    kernel families the rewritten op consults (:func:`registered_kernels`)."""
 
     name = None
+    kernels = ()
     pattern = None
     where = None
 
@@ -62,6 +67,13 @@ def get_rule(name):
 
 def list_rules():
     return sorted(_RULES)
+
+
+def registered_kernels():
+    """{rule name: kernel names} for every registered rule that names
+    kernels: the autotuner's sweep feed (``tune.rule_kernels``)."""
+    return {name: tuple(rule.kernels) for name, rule in _RULES.items()
+            if rule.kernels}
 
 
 def _sym(entry):
@@ -135,6 +147,7 @@ def _build_bottleneck_patterns():
 
 class BottleneckFusionRule(Rule):
     name = "bottleneck_fuse"
+    kernels = ("fused_fwd", "fused_wgrad", "fused_dgrad")
 
     def __init__(self):
         self._patterns = _build_bottleneck_patterns()

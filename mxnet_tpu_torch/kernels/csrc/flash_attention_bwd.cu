@@ -35,58 +35,69 @@
 // the TF32 the tensor cores would give it. Every kernel puts B*H on the
 // grid's x (up to 2^31 - 1) and the query or key blocks on its y.
 //
+// The tile of the bf16 kernels is a launch parameter, the forward's
+// (block_q, block_k) (flash_attention_fwd.cu): one schedule drives all
+// three kernels. A kernel's own rows (key rows in B7: block_k; query rows
+// in B6: block_q) are 64 RW, RW row groups of 64 that share every streamed
+// tile; the streamed axis (query rows in B7, keys in B6) comes in slots of
+// NQ or NK sub-tiles of 64, taken one after another. (RW, N) in {1, 2}^2 at
+// D = 64 and 128, and (1, 1) at D = 256 (DqSmem / DkvSmem: 192 KB there).
+// A CTA has at most two consumer warpgroups (BwdCols): up to D = 128 with
+// one row group, one per 64 columns of the gradients; with two row groups,
+// one each, keeping all D columns; at D = 256, two, each keeping 128
+// columns. Every consumer of a row group computes the whole score tiles.
+//
 // Design of B7 in bf16 (hopper_mma.cuh has the shared layouts).
-//   * One CTA per (b*h, 64-row key block): D / 64 consumer warpgroups, one
-//     per 64 columns of dK and dV, and one producer warp. The producer
-//     loads the block's K and V once (they stay resident) and streams the
-//     64-row Q and dO tiles, from the first query tile that can see the key
-//     block (causal) to the last, through a ring of kStages slots with TMA
-//     (3-D tensor maps over (B*H, S, D): rows past S read zeros). Its 32
-//     lanes also copy the tile's 64 lse (times log2 e; +inf past seq_q, so
-//     padded query rows get p = 0 without a mask) and delta values into
-//     the slot before arriving on its full barrier.
+//   * One CTA per (b*h, key block): the consumer warpgroups above and one
+//     producer warp. The producer loads the block's K and V once (they stay
+//     resident) and streams the Q and dO slots, from the first query tile
+//     that can see the key block (causal) to the last, through a ring of
+//     kStages slots with TMA (3-D tensor maps over (B*H, S, D): rows past S
+//     read zeros). Its 32 lanes also copy the slot's lse (times log2 e;
+//     +inf past seq_q, so padded query rows get p = 0 without a mask) and
+//     delta values into the slot before arriving on its full barrier.
 //   * Scores are computed key-major, so the products that reduce over
 //     queries take their A operand from registers: S^T = K . Q^T and
 //     dP^T = V . dO^T (both operands K-major, D/16 k-steps each), then in
 //     fp32 registers P^T = exp(scale * S^T - lse[col]) (the causal mask on
-//     the diagonal tile only) and dS^T = P^T * (dP^T - delta[col]). P^T
+//     the diagonal sub-tile only) and dS^T = P^T * (dP^T - delta[col]). P^T
 //     and dS^T are rounded once to bf16 as the A operands of dV += P^T . dO
-//     and dK += dS^T . Q, with dO and Q MN-major (transpose-B). At D = 128
-//     both warpgroups compute the whole S^T and dP^T and each keeps its
-//     own half of dK and dV: 4 x 32 accumulator floats a thread at either
-//     D.
+//     and dK += dS^T . Q, with dO and Q MN-major (transpose-B). A sub-tile
+//     whose queries all precede the row group's keys (causal), and a row
+//     group wholly past kv_len, are skipped.
 //   * dK is multiplied by scale once at the end; dK and dV are rounded once
 //     to bf16, and rows >= kv_len are written as zeros.
 //
 // Design of B6 in bf16, on the same panels (query-major, as the TPU kernel).
-//   * One CTA per (b*h, 64-row query block): D / 64 consumer warpgroups, one
-//     per 64 columns of dQ, and one producer warp. The producer loads the
-//     block's Q and dO panels once, with its 64 lse (times log2 e; +inf past
-//     seq_q, so padded query rows get p = 0 without a mask) and delta
-//     values, then streams the 64-row K and V tiles, up to the causal
-//     diagonal and kv_len, through a ring of kStages slots with TMA.
-//   * Per key tile: S = Q . K^T and dP = dO . V^T (both operands K-major),
-//     then in fp32 registers p = exp2(scale * S - lse) (masks on the causal
-//     diagonal tile and the kv_len tile only) and dS = p * (dP - delta). dS
-//     is rounded once to bf16 as the A operand of dQ += dS . K, with K
-//     MN-major (transpose-B): the form of B5's P . V. At D = 128 both
-//     warpgroups compute the whole S and dP and each keeps its half of dQ.
+//   * One CTA per (b*h, query block): the consumer warpgroups above and one
+//     producer warp. The producer loads the block's Q and dO panels once,
+//     with its lse (times log2 e; +inf past seq_q, so padded query rows get
+//     p = 0 without a mask) and delta values, then streams the K and V
+//     slots, up to the causal diagonal and kv_len, through a ring of
+//     kStages slots with TMA.
+//   * Per 64-key sub-tile: S = Q . K^T and dP = dO . V^T (both operands
+//     K-major), then in fp32 registers p = exp2(scale * S - lse) (masks on
+//     the causal diagonal sub-tile and the kv_len sub-tile only) and dS =
+//     p * (dP - delta). dS is rounded once to bf16 as the A operand of dQ
+//     += dS . K, with K MN-major (transpose-B): the form of B5's P . V.
 //   * Under `causal` the query blocks are launched heaviest (last) first.
 //     dQ is multiplied by scale once at the end and rounded once to bf16.
 //
 // Design of B6 and B7 in fp32. The TPU's split is kept: B6 has one CTA
-// of 256 threads per (b*h, 64-row query block) looping over 64-column K/V
-// tiles (up to the causal diagonal and kv_len, like the forward); B7 one
-// CTA per (b*h, 64-row key block) looping over 64-row query tiles from the
-// first that can see the key block. Threads form a 16 x 16 grid: thread
-// (ty, tx) owns the CTA's rows 4*ty .. 4*ty+3 (query rows in B6, key rows
-// in B7), score columns tx + 16*j (j < 4) and accumulator columns tx + 16*j
-// (j < D/16). Both score tiles of a step (q.k and do.v) come out of one loop
+// per (b*h, BR-row query block) looping over 64-column K/V tiles (up to the
+// causal diagonal and kv_len, like the forward); B7 one CTA per (b*h,
+// BR-row key block) looping over 64-row query tiles from the first that
+// can see the key block. BR is 64, or 32 at D = 256 (f32_rows; 64 would not
+// fit shared memory). Threads form a (BR / 4) x 16 grid: thread (ty, tx)
+// owns the CTA's rows 4*ty .. 4*ty+3 (query rows in B6, key rows in B7),
+// score columns tx + 16*j (j < 4) and accumulator columns tx + 16*j (j <
+// D/16). Both score tiles of a step (q.k and do.v) come out of one loop
 // over D. The p / ds tile a row group writes is read back only by the same
 // half warp (__syncwarp). Accumulators stay in fp32 registers; the scale
 // rides on q as it is loaded, so B6 multiplies dq by scale once at the
-// end, as the TPU kernels do. Shared memory
-// (fp32): B6 85 KB at D = 64, 150 KB at D = 128; B7 102 KB / 167 KB.
+// end, as the TPU kernels do. Their tile is fixed (the schedule (64, 64)
+// only). Shared memory (fp32): B6 85 / 150 / 202 KB at D = 64 / 128 / 256,
+// B7 102 / 167 / 210 KB.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -96,23 +107,27 @@ namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
 
+// The fp32 kernels' own rows (query rows in B6, key rows in B7) a CTA: 64,
+// or 32 at D = 256, where 64 would not fit shared memory. A CTA has BR * 4
+// threads, a (BR / 4) x 16 grid.
 template <int D>
+constexpr int f32_rows() { return D == 256 ? 32 : 64; }
+
+template <int D, int BR>
 constexpr int dq_smem_floats() {
-  return 2 * kBlockQ * (D + 4) + 2 * kBlockK * (D + 1) +
-         kBlockQ * (kBlockK + 1);
+  return 2 * BR * (D + 4) + 2 * kBlockK * (D + 1) + BR * (kBlockK + 1);
 }
 
-template <int D>
+template <int D, int BR>
 constexpr int dkv_smem_floats() {
-  return 2 * kBlockK * (D + 4) + 2 * kBlockQ * (D + 1) +
-         2 * kBlockK * (kBlockQ + 1) + 2 * kBlockQ;
+  return 2 * BR * (D + 4) + 2 * kBlockQ * (D + 1) + 2 * BR * (kBlockQ + 1) +
+         2 * kBlockQ;
 }
 
-// B6 in fp32: dq for one (b*h, 64-row query block).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// B6 in fp32: dq for one (b*h, BR-row query block).
+template <int D, int BR>
+__global__ void __launch_bounds__(BR * 4)
 flash_bwd_dq_kernel(const float* __restrict__ q,
                     const float* __restrict__ k,
                     const float* __restrict__ v,
@@ -125,15 +140,16 @@ flash_bwd_dq_kernel(const float* __restrict__ q,
   constexpr int KS = D + 1;        // column-read tiles: distinct banks
   constexpr int PS = kBlockK + 1;
   constexpr int DC = D / 16;
+  constexpr int NT = BR * 4;
   extern __shared__ float smem[];
-  float* qs = smem;                      // kBlockQ x QS, q * scale
-  float* dos = qs + kBlockQ * QS;        // kBlockQ x QS
-  float* ks = dos + kBlockQ * QS;        // kBlockK x KS
+  float* qs = smem;                      // BR x QS, q * scale
+  float* dos = qs + BR * QS;             // BR x QS
+  float* ks = dos + BR * QS;             // kBlockK x KS
   float* vs = ks + kBlockK * KS;         // kBlockK x KS
-  float* dss = vs + kBlockK * KS;        // kBlockQ x PS
+  float* dss = vs + kBlockK * KS;        // BR x PS
 
   const size_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
+  const int q0 = blockIdx.y * BR;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;
   const int tx = tid & 15;
@@ -142,7 +158,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q,
   const float* kb = k + bh * seq_k * D;
   const float* vb = v + bh * seq_k * D;
 
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
+  for (int i = tid; i < BR * D; i += NT) {
     const int r = i / D, d = i % D;
     const bool live = q0 + r < seq_q;
     const size_t g = (size_t)(q0 + r) * D + d;
@@ -161,12 +177,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q,
   }
 
   int n_kb = (kv_len + kBlockK - 1) / kBlockK;
-  if (causal) n_kb = min(n_kb, (q0 + kBlockQ + kBlockK - 1) / kBlockK);
+  if (causal) n_kb = min(n_kb, (q0 + BR + kBlockK - 1) / kBlockK);
 
   for (int j = 0; j < n_kb; ++j) {
     const int c0 = j * kBlockK;
     __syncthreads();  // the previous tile's readers are done (and q is in)
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
+    for (int i = tid; i < kBlockK * D; i += NT) {
       const int c = i / D, d = i % D;
       const bool live = c0 + c < seq_k;
       const size_t g = (size_t)(c0 + c) * D + d;
@@ -239,9 +255,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q,
   }
 }
 
-// B7 in fp32: dk and dv for one (b*h, 64-row key block).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// B7 in fp32: dk and dv for one (b*h, BR-row key block).
+template <int D, int BR>
+__global__ void __launch_bounds__(BR * 4)
 flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -254,18 +270,19 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
   constexpr int QS = D + 1;        // query tiles, read by columns
   constexpr int PS = kBlockQ + 1;
   constexpr int DC = D / 16;
+  constexpr int NT = BR * 4;
   extern __shared__ float smem[];
-  float* ks = smem;                      // kBlockK x KS
-  float* vs = ks + kBlockK * KS;         // kBlockK x KS
-  float* qs = vs + kBlockK * KS;         // kBlockQ x QS, q * scale
+  float* ks = smem;                      // BR x KS
+  float* vs = ks + BR * KS;              // BR x KS
+  float* qs = vs + BR * KS;              // kBlockQ x QS, q * scale
   float* dos = qs + kBlockQ * QS;        // kBlockQ x QS
-  float* ps = dos + kBlockQ * QS;        // kBlockK x PS, p^T
-  float* dss = ps + kBlockK * PS;        // kBlockK x PS, ds^T
-  float* lse_s = dss + kBlockK * PS;     // kBlockQ
+  float* ps = dos + kBlockQ * QS;        // BR x PS, p^T
+  float* dss = ps + BR * PS;             // BR x PS, ds^T
+  float* lse_s = dss + BR * PS;          // kBlockQ
   float* delta_s = lse_s + kBlockQ;      // kBlockQ
 
   const size_t bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlockK;
+  const int k0 = blockIdx.y * BR;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;
   const int tx = tid & 15;
@@ -274,7 +291,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
   const float* kb = k + bh * seq_k * D;
   const float* vb = v + bh * seq_k * D;
 
-  for (int i = tid; i < kBlockK * D; i += kThreads) {
+  for (int i = tid; i < BR * D; i += NT) {
     const int r = i / D, d = i % D;
     const bool live = k0 + r < seq_k;
     const size_t g = (size_t)(k0 + r) * D + d;
@@ -296,7 +313,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
   for (int jq = start_qb; jq < n_qb; ++jq) {
     const int r0 = jq * kBlockQ;
     __syncthreads();  // the previous tile's readers are done (and k/v are in)
-    for (int i = tid; i < kBlockQ * D; i += kThreads) {
+    for (int i = tid; i < kBlockQ * D; i += NT) {
       const int r = i / D, d = i % D;
       const bool live = r0 + r < seq_q;
       const size_t g = (size_t)(r0 + r) * D + d;
@@ -394,27 +411,44 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
 
 using namespace hopper;
 
-constexpr int kStages = 2;               // Q/dO ring slots
+constexpr int kStages = 2;               // Q/dO ring slots (B7), K/V (B6)
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory, in bytes from a 1024-aligned base: P K panels and P V
-// panels (resident), kStages x P Q panels and as many dO panels, kStages x
-// 64 lse and delta values, then the mbarriers.
-template <int D>
+// The consumer warpgroups of a backward CTA: RW row groups of 64 own rows
+// (key rows in B7, query rows in B6) times CW column groups, each keeping
+// PC 64-column panels of the gradient(s). At most two consumer
+// warpgroups: CW = P (one panel each) up to D = 128 with one row group,
+// else one column group per row group; at D = 256, two column groups of
+// two panels. Every column group of a row group computes the whole score
+// tiles.
+template <int D, int RW>
+struct BwdCols {
+  static constexpr int P = D / 64;
+  static constexpr int CW = RW == 1 ? (P < 2 ? P : 2) : 1;
+  static constexpr int PC = P / CW;
+  static constexpr int NC = 128 * RW * CW;  // consumer threads
+};
+
+// Shared memory, in bytes from a 1024-aligned base: RW x P K panels and as
+// many V panels (resident), kStages x NQ x P Q panels and as many dO panels
+// (NQ 64-row sub-tiles a slot), kStages x 64 NQ lse and delta values, then
+// the mbarriers.
+template <int D, int RW, int NQ>
 struct DkvSmem {
   static constexpr int P = D / 64;
   static constexpr int k = 0;
-  static constexpr int v = k + P * kPanelBytes;
-  static constexpr int q = v + P * kPanelBytes;
-  static constexpr int dout = q + kStages * P * kPanelBytes;
-  static constexpr int lse = dout + kStages * P * kPanelBytes;
-  static constexpr int delta = lse + kStages * kBlockQ * 4;
-  static constexpr int bars = delta + kStages * kBlockQ * 4;
+  static constexpr int v = k + RW * P * kPanelBytes;
+  static constexpr int q = v + RW * P * kPanelBytes;
+  static constexpr int dout = q + kStages * NQ * P * kPanelBytes;
+  static constexpr int lse = dout + kStages * NQ * P * kPanelBytes;
+  static constexpr int delta = lse + kStages * 64 * NQ * 4;
+  static constexpr int bars = delta + kStages * 64 * NQ * 4;
   static constexpr int alloc = bars + (1 + 2 * kStages) * 8 + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(128 * (D / 64) + 32)
+// block_k = 64 RW key rows a CTA, block_q = 64 NQ query rows a slot.
+template <int D, int RW, int NQ>
+__global__ void __launch_bounds__(BwdCols<D, RW>::NC + 32)
 flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
@@ -424,8 +458,12 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, int seq_q, int seq_k,
                         int kv_len, float scale, int causal) {
-  using L = DkvSmem<D>;
-  constexpr int P = L::P;             // consumer warpgroups = panels of D
+  using L = DkvSmem<D, RW, NQ>;
+  using C = BwdCols<D, RW>;
+  constexpr int P = L::P;
+  constexpr int PC = C::PC;
+  constexpr int NC = C::NC;
+  constexpr int BQ = 64 * NQ, BK = 64 * RW;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   float* lse_s = reinterpret_cast<float*>(smem + L::lse);
@@ -435,145 +473,167 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* empty = full + kStages;
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlockK;  // causal: low key blocks, the longest
-                                        // loops, have the low indices
+  const int k0 = blockIdx.y * BK;  // causal: low key blocks, the longest
+                                   // loops, have the low indices
   // query tiles before this key block see none of it under `causal`; a key
   // block wholly at or past kv_len is padding and keeps zero gradients
-  const int start = causal ? k0 / kBlockQ : 0;
+  const int start = causal ? k0 / BQ : 0;
   const int n_it =
-      k0 < kv_len ? max(0, (seq_q + kBlockQ - 1) / kBlockQ - start) : 0;
+      k0 < kv_len ? max(0, (seq_q + BQ - 1) / BQ - start) : 0;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 32);
-      mbar_init(&empty[s], 128 * P);
+      mbar_init(&empty[s], NC);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (tid >= 128 * P) {  // the producer warp
+  if (tid >= NC) {  // the producer warp
     if (n_it == 0) return;
-    const int lane = tid - 128 * P;
+    const int lane = tid - NC;
     const float* lse_bh = lse + (size_t)bh * seq_q;
     const float* delta_bh = delta + (size_t)bh * seq_q;
     if (lane == 0) {
-      mbar_arrive_expect_tx(kv_full, 2 * P * kPanelBytes);
-      for (int p = 0; p < P; ++p) {
-        tma_load_panel(smem + L::k + p * kPanelBytes, &tk, kv_full, 64 * p, k0,
-                       bh);
-        tma_load_panel(smem + L::v + p * kPanelBytes, &tv, kv_full, 64 * p, k0,
-                       bh);
-      }
+      mbar_arrive_expect_tx(kv_full, 2 * RW * P * kPanelBytes);
+      for (int r = 0; r < RW; ++r)
+        for (int p = 0; p < P; ++p) {
+          tma_load_panel(smem + L::k + (r * P + p) * kPanelBytes, &tk,
+                         kv_full, 64 * p, k0 + 64 * r, bh);
+          tma_load_panel(smem + L::v + (r * P + p) * kPanelBytes, &tv,
+                         kv_full, 64 * p, k0 + 64 * r, bh);
+        }
     }
     for (int it = 0; it < n_it; ++it) {
       const int s = it % kStages;
-      const int r0 = (start + it) * kBlockQ;
+      const int r0 = (start + it) * BQ;
       if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
       if (lane == 0) {
-        mbar_expect_tx(&full[s], 2 * P * kPanelBytes);
-        for (int p = 0; p < P; ++p) {
-          tma_load_panel(smem + L::q + (s * P + p) * kPanelBytes, &tq,
-                         &full[s], 64 * p, r0, bh);
-          tma_load_panel(smem + L::dout + (s * P + p) * kPanelBytes, &tdo,
-                         &full[s], 64 * p, r0, bh);
-        }
+        mbar_expect_tx(&full[s], 2 * NQ * P * kPanelBytes);
+        for (int t = 0; t < NQ; ++t)
+          for (int p = 0; p < P; ++p) {
+            const int off = ((s * NQ + t) * P + p) * kPanelBytes;
+            tma_load_panel(smem + L::q + off, &tq, &full[s], 64 * p,
+                           r0 + 64 * t, bh);
+            tma_load_panel(smem + L::dout + off, &tdo, &full[s], 64 * p,
+                           r0 + 64 * t, bh);
+          }
       }
-      for (int c = lane; c < kBlockQ; c += 32) {
+      for (int c = lane; c < BQ; c += 32) {
         const int r = r0 + c;
-        lse_s[s * kBlockQ + c] = r < seq_q ? lse_bh[r] * kLog2e
-                                          : __int_as_float(0x7f800000);
-        delta_s[s * kBlockQ + c] = r < seq_q ? delta_bh[r] : 0.f;
+        lse_s[s * BQ + c] = r < seq_q ? lse_bh[r] * kLog2e
+                                      : __int_as_float(0x7f800000);
+        delta_s[s * BQ + c] = r < seq_q ? delta_bh[r] : 0.f;
       }
       mbar_arrive(&full[s]);
     }
     return;
   }
 
-  const int wg = tid / 128;            // the 64 columns of dK, dV it keeps
+  const int wg = tid / 128;
+  const int rw = wg / C::CW;           // the warpgroup's 64 key rows
+  const int cw = wg % C::CW;           // and its columns of dK, dV
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
-  const int krow = k0 + 16 * warp + lane / 4;  // and krow + 8
+  const int kr0 = k0 + 64 * rw;
+  const int krow = kr0 + 16 * warp + lane / 4;  // and krow + 8
   const float scale2 = scale * kLog2e;
-  const uint64_t k_desc = desc_sw128(smem + L::k);
-  const uint64_t v_desc = desc_sw128(smem + L::v);
+  const uint64_t k_desc = desc_sw128(smem + L::k + rw * P * kPanelBytes);
+  const uint64_t v_desc = desc_sw128(smem + L::v + rw * P * kPanelBytes);
+  // a row group wholly at or past kv_len keeps zero gradients
+  const bool group_live = kr0 < kv_len;
 
-  float acc_k[32], acc_v[32];
+  float acc_k[PC][32], acc_v[PC][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int p = 0; p < PC; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_k[p][i] = acc_v[p][i] = 0.f;
 
   if (n_it > 0) mbar_wait(kv_full, 0);
   for (int it = 0; it < n_it; ++it) {
     const int s = it % kStages;
-    const int r0 = (start + it) * kBlockQ;
+    const int r0 = (start + it) * BQ;
     mbar_wait(&full[s], (it / kStages) & 1);
-    const uint64_t q_desc = desc_sw128(smem + L::q + s * P * kPanelBytes);
-    const uint64_t do_desc = desc_sw128(smem + L::dout + s * P * kPanelBytes);
+#pragma unroll
+    for (int t = 0; t < NQ; ++t) {
+      const int qr0 = r0 + 64 * t;
+      // (causal) query rows all before the group's keys see none of them
+      if (!group_live || (causal && qr0 + 63 < kr0)) continue;
+      const int off = (s * NQ + t) * P * kPanelBytes;
+      const uint64_t q_desc = desc_sw128(smem + L::q + off);
+      const uint64_t do_desc = desc_sw128(smem + L::dout + off);
 
-    // S^T = K . Q^T and dP^T = V . dO^T: key rows by query columns
-    float st[32], dpt[32];
+      // S^T = K . Q^T and dP^T = V . dO^T: key rows by query columns
+      float st[32], dpt[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
-    wgmma_fence();
-    fence_acc(st);
-    fence_acc(dpt);
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      wgmma_fence();
+      fence_acc(st);
+      fence_acc(dpt);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-      wgmma_ss(st, desc_add(k_desc, off), desc_add(q_desc, off), kk > 0);
-    }
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ko = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+        wgmma_ss(st, desc_add(k_desc, ko), desc_add(q_desc, ko), kk > 0);
+      }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-      wgmma_ss(dpt, desc_add(v_desc, off), desc_add(do_desc, off), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(st);
-    fence_acc(dpt);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ko = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+        wgmma_ss(dpt, desc_add(v_desc, ko), desc_add(do_desc, ko), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(st);
+      fence_acc(dpt);
 
-    // P^T and dS^T in fp32; query column c of this thread: 8j + 2(lane%4) + e
-    const float* ls = lse_s + s * kBlockQ;
-    const float* dl = delta_s + s * kBlockQ;
-    const bool diag = causal && r0 == k0;
+      // P^T and dS^T in fp32; query column c: 8j + 2(lane%4) + e
+      const float* ls = lse_s + s * BQ + 64 * t;
+      const float* dl = delta_s + s * BQ + 64 * t;
+      const bool diag = causal && qr0 == kr0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * (lane % 4);
-      const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
-      const float2 d2 = *reinterpret_cast<const float2*>(dl + c);
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + c);
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * j + 2 * h + e;
-          float p = exp2f(st[i] * scale2 - (e ? l2.y : l2.x));
-          if (diag && r0 + c + e < krow + 8 * h) p = 0.f;
-          st[i] = p;
-          dpt[i] = p * (dpt[i] - (e ? d2.y : d2.x));
-        }
-    }
-    uint32_t a_p[4][4], a_ds[4][4];
-    to_a_frags(st, a_p);
-    to_a_frags(dpt, a_ds);
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            float p = exp2f(st[i] * scale2 - (e ? l2.y : l2.x));
+            if (diag && qr0 + c + e < krow + 8 * h) p = 0.f;
+            st[i] = p;
+            dpt[i] = p * (dpt[i] - (e ? d2.y : d2.x));
+          }
+      }
+      uint32_t a_p[4][4], a_ds[4][4];
+      to_a_frags(st, a_p);
+      to_a_frags(dpt, a_ds);
 
-    // dV += P^T . dO and dK += dS^T . Q over this warpgroup's 64 columns
-    const uint64_t do_cols = desc_add(do_desc, wg * kPanelBytes);
-    const uint64_t q_cols = desc_add(q_desc, wg * kPanelBytes);
-    wgmma_fence();
-    fence_acc(acc_v);
-    fence_acc(acc_k);
+      // dV += P^T . dO and dK += dS^T . Q over this warpgroup's columns
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs(acc_v, a_p[kk], desc_add(do_cols, kk * 16 * 128));
+      for (int p = 0; p < PC; ++p) {
+        fence_acc(acc_v[p]);
+        fence_acc(acc_k[p]);
+        const uint32_t co = (cw * PC + p) * kPanelBytes;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs(acc_k, a_ds[kk], desc_add(q_cols, kk * 16 * 128));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(acc_v);
-    fence_acc(acc_k);
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc_v[p], a_p[kk], desc_add(do_desc, co + kk * 16 * 128));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc_k[p], a_ds[kk], desc_add(q_desc, co + kk * 16 * 128));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < PC; ++p) {
+        fence_acc(acc_v[p]);
+        fence_acc(acc_k[p]);
+      }
+    }
     mbar_arrive(&empty[s]);
   }
 
@@ -584,64 +644,76 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     // a padded key's p is unbounded (its scores are not in lse): select
     // zeros rather than scale them
     const bool live = r < kv_len;
-    __nv_bfloat16* krow_p = dk + ((size_t)bh * seq_k + r) * D + 64 * wg;
-    __nv_bfloat16* vrow_p = dv + ((size_t)bh * seq_k + r) * D + 64 * wg;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * (lane % 4);
-      const int i = 4 * j + 2 * h;
-      *reinterpret_cast<__nv_bfloat162*>(krow_p + c) = __floats2bfloat162_rn(
-          live ? acc_k[i] * scale : 0.f, live ? acc_k[i + 1] * scale : 0.f);
-      *reinterpret_cast<__nv_bfloat162*>(vrow_p + c) = __floats2bfloat162_rn(
-          live ? acc_v[i] : 0.f, live ? acc_v[i + 1] : 0.f);
+    for (int p = 0; p < PC; ++p) {
+      const int c0 = 64 * (cw * PC + p);
+      __nv_bfloat16* krow_p = dk + ((size_t)bh * seq_k + r) * D + c0;
+      __nv_bfloat16* vrow_p = dv + ((size_t)bh * seq_k + r) * D + c0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * (lane % 4);
+        const int i = 4 * j + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(krow_p + c) =
+            __floats2bfloat162_rn(live ? acc_k[p][i] * scale : 0.f,
+                                  live ? acc_k[p][i + 1] * scale : 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(vrow_p + c) =
+            __floats2bfloat162_rn(live ? acc_v[p][i] : 0.f,
+                                  live ? acc_v[p][i + 1] : 0.f);
+      }
     }
   }
 }
 
-template <int D>
+template <int D, int RW, int NQ>
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dk, void* dv, int bh,
                           int seq_q, int seq_k, int kv_len, float scale,
                           int causal, cudaStream_t stream) {
+  if ((seq_k + 64ll * RW - 1) / (64 * RW) > 65535)
+    return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tdo;
   if (!panel_map(&tq, q, bh, seq_q, D) || !panel_map(&tk, k, bh, seq_k, D) ||
       !panel_map(&tv, v, bh, seq_k, D) ||
       !panel_map(&tdo, dout, bh, seq_q, D))
     return cudaErrorInvalidValue;
-  constexpr int smem = DkvSmem<D>::alloc;
+  constexpr int smem = DkvSmem<D, RW, NQ>::alloc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dkv_tc_kernel<D, RW, NQ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (seq_k + kBlockK - 1) / kBlockK);
-  flash_bwd_dkv_tc_kernel<D><<<grid, 128 * (D / 64) + 32, smem, stream>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), seq_q, seq_k, kv_len, scale, causal);
+  const dim3 grid(bh, (seq_k + 64 * RW - 1) / (64 * RW));
+  flash_bwd_dkv_tc_kernel<D, RW, NQ>
+      <<<grid, BwdCols<D, RW>::NC + 32, smem, stream>>>(
+          tq, tk, tv, tdo, static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), seq_q, seq_k, kv_len, scale,
+          causal);
   return cudaGetLastError();
 }
 
 // ---- B6 in bfloat16: tensor cores ----------------------------------------
 
-// Shared memory, in bytes from a 1024-aligned base: P Q panels and P dO
-// panels (resident), kStages x P K panels and as many V panels, the block's
-// 64 lse and delta values, then the mbarriers.
-template <int D>
+// Shared memory, in bytes from a 1024-aligned base: RW x P Q panels and as
+// many dO panels (resident), kStages x NK x P K panels and as many V panels
+// (NK 64-key sub-tiles a slot), the block's 64 RW lse and delta values,
+// then the mbarriers.
+template <int D, int RW, int NK>
 struct DqSmem {
   static constexpr int P = D / 64;
   static constexpr int q = 0;
-  static constexpr int dout = q + P * kPanelBytes;
-  static constexpr int k = dout + P * kPanelBytes;
-  static constexpr int v = k + kStages * P * kPanelBytes;
-  static constexpr int lse = v + kStages * P * kPanelBytes;
-  static constexpr int delta = lse + kBlockQ * 4;
-  static constexpr int bars = delta + kBlockQ * 4;
+  static constexpr int dout = q + RW * P * kPanelBytes;
+  static constexpr int k = dout + RW * P * kPanelBytes;
+  static constexpr int v = k + kStages * NK * P * kPanelBytes;
+  static constexpr int lse = v + kStages * NK * P * kPanelBytes;
+  static constexpr int delta = lse + 64 * RW * 4;
+  static constexpr int bars = delta + 64 * RW * 4;
   static constexpr int alloc = bars + (1 + 2 * kStages) * 8 + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(128 * (D / 64) + 32)
+// block_q = 64 RW query rows a CTA, block_k = 64 NK keys a slot.
+template <int D, int RW, int NK>
+__global__ void __launch_bounds__(BwdCols<D, RW>::NC + 32)
 flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
@@ -650,8 +722,12 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
                        const float* __restrict__ delta,
                        __nv_bfloat16* __restrict__ dq, int seq_q, int kv_len,
                        float scale, int causal) {
-  using L = DqSmem<D>;
-  constexpr int P = L::P;             // consumer warpgroups = panels of D
+  using L = DqSmem<D, RW, NK>;
+  using C = BwdCols<D, RW>;
+  constexpr int P = L::P;
+  constexpr int PC = C::PC;
+  constexpr int NC = C::NC;
+  constexpr int BQ = 64 * RW, BK = 64 * NK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   float* lse_s = reinterpret_cast<float*>(smem + L::lse);
@@ -662,35 +738,36 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int bh = blockIdx.x;
   const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest first
-  const int q0 = qb * kBlockQ;
-  int n_kb = (kv_len + kBlockK - 1) / kBlockK;
-  if (causal) n_kb = min(n_kb, qb + 1);       // stop at the diagonal tile
+  const int q0 = qb * BQ;
+  int n_kb = (kv_len + BK - 1) / BK;
+  if (causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);  // to the diagonal
   const int tid = threadIdx.x;
 
   if (tid == 0) {
     mbar_init(q_full, 32);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 128 * P);
+      mbar_init(&empty[s], NC);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (tid >= 128 * P) {  // the producer warp
-    const int lane = tid - 128 * P;
+  if (tid >= NC) {  // the producer warp
+    const int lane = tid - NC;
     if (lane == 0) {
-      mbar_expect_tx(q_full, 2 * P * kPanelBytes);
-      for (int p = 0; p < P; ++p) {
-        tma_load_panel(smem + L::q + p * kPanelBytes, &tq, q_full, 64 * p, q0,
-                       bh);
-        tma_load_panel(smem + L::dout + p * kPanelBytes, &tdo, q_full, 64 * p,
-                       q0, bh);
-      }
+      mbar_expect_tx(q_full, 2 * RW * P * kPanelBytes);
+      for (int r = 0; r < RW; ++r)
+        for (int p = 0; p < P; ++p) {
+          tma_load_panel(smem + L::q + (r * P + p) * kPanelBytes, &tq, q_full,
+                         64 * p, q0 + 64 * r, bh);
+          tma_load_panel(smem + L::dout + (r * P + p) * kPanelBytes, &tdo,
+                         q_full, 64 * p, q0 + 64 * r, bh);
+        }
     }
     const float* lse_bh = lse + (size_t)bh * seq_q;
     const float* delta_bh = delta + (size_t)bh * seq_q;
-    for (int c = lane; c < kBlockQ; c += 32) {
+    for (int c = lane; c < BQ; c += 32) {
       const int r = q0 + c;
       lse_s[c] = r < seq_q ? lse_bh[r] * kLog2e : __int_as_float(0x7f800000);
       delta_s[c] = r < seq_q ? delta_bh[r] : 0.f;
@@ -700,29 +777,36 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       for (int j = 0; j < n_kb; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&full[s], 2 * P * kPanelBytes);
-        for (int p = 0; p < P; ++p) {
-          tma_load_panel(smem + L::k + (s * P + p) * kPanelBytes, &tk,
-                         &full[s], 64 * p, j * kBlockK, bh);
-          tma_load_panel(smem + L::v + (s * P + p) * kPanelBytes, &tv,
-                         &full[s], 64 * p, j * kBlockK, bh);
-        }
+        mbar_arrive_expect_tx(&full[s], 2 * NK * P * kPanelBytes);
+        for (int t = 0; t < NK; ++t)
+          for (int p = 0; p < P; ++p) {
+            const int off = ((s * NK + t) * P + p) * kPanelBytes;
+            tma_load_panel(smem + L::k + off, &tk, &full[s], 64 * p,
+                           j * BK + 64 * t, bh);
+            tma_load_panel(smem + L::v + off, &tv, &full[s], 64 * p,
+                           j * BK + 64 * t, bh);
+          }
       }
     return;
   }
 
-  const int wg = tid / 128;            // the 64 columns of dQ it keeps
+  const int wg = tid / 128;
+  const int rw = wg / C::CW;           // the warpgroup's 64 query rows
+  const int cw = wg % C::CW;           // and its columns of dQ
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
-  const int rl = 16 * warp + lane / 4;  // the block's rows rl and rl + 8
+  const int rl = 64 * rw + 16 * warp + lane / 4;  // block rows rl, rl + 8
+  const int r0 = q0 + 64 * rw;
   const int row = q0 + rl;
   const float scale2 = scale * kLog2e;  // scores in log2 units
-  const uint64_t q_desc = desc_sw128(smem + L::q);
-  const uint64_t do_desc = desc_sw128(smem + L::dout);
+  const uint64_t q_desc = desc_sw128(smem + L::q + rw * P * kPanelBytes);
+  const uint64_t do_desc = desc_sw128(smem + L::dout + rw * P * kPanelBytes);
 
-  float acc[32];
+  float acc[PC][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int p = 0; p < PC; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
 
   mbar_wait(q_full, 0);
   const float ls[2] = {lse_s[rl], lse_s[rl + 8]};
@@ -730,57 +814,69 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   for (int j = 0; j < n_kb; ++j) {
     const int s = j % kStages;
     mbar_wait(&full[s], (j / kStages) & 1);
-    const uint64_t k_desc = desc_sw128(smem + L::k + s * P * kPanelBytes);
-    const uint64_t v_desc = desc_sw128(smem + L::v + s * P * kPanelBytes);
+#pragma unroll
+    for (int t = 0; t < NK; ++t) {
+      const int c0 = j * BK + 64 * t;
+      // a sub-tile wholly past kv_len, or (causal) past the group's last
+      // row, adds nothing
+      if (c0 >= kv_len || (causal && c0 > r0 + 63)) continue;
+      const int off = (s * NK + t) * P * kPanelBytes;
+      const uint64_t k_desc = desc_sw128(smem + L::k + off);
+      const uint64_t v_desc = desc_sw128(smem + L::v + off);
 
-    // S = Q . K^T and dP = dO . V^T: query rows by key columns
-    float sc[32], dp[32];
+      // S = Q . K^T and dP = dO . V^T: query rows by key columns
+      float sc[32], dp[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
-    wgmma_fence();
-    fence_acc(sc);
-    fence_acc(dp);
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      wgmma_fence();
+      fence_acc(sc);
+      fence_acc(dp);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-      wgmma_ss(sc, desc_add(q_desc, off), desc_add(k_desc, off), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-      wgmma_ss(dp, desc_add(do_desc, off), desc_add(v_desc, off), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(sc);
-    fence_acc(dp);
-
-    // p and dS in fp32; entry i is row row + 8h, key column
-    // j * 64 + 8(i / 4) + 2(lane % 4) + i % 2
-    const bool edge = (causal && j == qb) || (j + 1) * kBlockK > kv_len;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i / 2) % 2;
-      float p = exp2f(sc[i] * scale2 - ls[h]);
-      if (edge) {
-        const int col = j * kBlockK + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-        if (col >= kv_len || (causal && row + 8 * h < col)) p = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ko = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+        wgmma_ss(sc, desc_add(q_desc, ko), desc_add(k_desc, ko), kk > 0);
       }
-      sc[i] = p * (dp[i] - dl[h]);
-    }
-    uint32_t a_ds[4][4];
-    to_a_frags(sc, a_ds);
-
-    // dQ += dS . K over this warpgroup's 64 columns
-    const uint64_t k_cols = desc_add(k_desc, wg * kPanelBytes);
-    wgmma_fence();
-    fence_acc(acc);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs(acc, a_ds[kk], desc_add(k_cols, kk * 16 * 128));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(acc);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ko = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+        wgmma_ss(dp, desc_add(do_desc, ko), desc_add(v_desc, ko), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+
+      // p and dS in fp32; entry i is row row + 8h, key column
+      // c0 + 8(i / 4) + 2(lane % 4) + i % 2
+      const bool edge = (causal && c0 + 64 > r0) || c0 + 64 > kv_len;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i / 2) % 2;
+        float p = exp2f(sc[i] * scale2 - ls[h]);
+        if (edge) {
+          const int col = c0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+          if (col >= kv_len || (causal && row + 8 * h < col)) p = 0.f;
+        }
+        sc[i] = p * (dp[i] - dl[h]);
+      }
+      uint32_t a_ds[4][4];
+      to_a_frags(sc, a_ds);
+
+      // dQ += dS . K over this warpgroup's columns
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < PC; ++p) {
+        fence_acc(acc[p]);
+        const uint32_t co = (cw * PC + p) * kPanelBytes;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc[p], a_ds[kk], desc_add(k_desc, co + kk * 16 * 128));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < PC; ++p) fence_acc(acc[p]);
+    }
     mbar_arrive(&empty[s]);
   }
 
@@ -788,37 +884,44 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   for (int h = 0; h < 2; ++h) {
     const int r = row + 8 * h;
     if (r >= seq_q) continue;
-    __nv_bfloat16* orow = dq + ((size_t)bh * seq_q + r) * D + 64 * wg;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int c = 8 * jj + 2 * (lane % 4);
-      const int i = 4 * jj + 2 * h;
-      *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+    for (int p = 0; p < PC; ++p) {
+      __nv_bfloat16* orow =
+          dq + ((size_t)bh * seq_q + r) * D + 64 * (cw * PC + p);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int c = 8 * jj + 2 * (lane % 4);
+        const int i = 4 * jj + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+            __floats2bfloat162_rn(acc[p][i] * scale, acc[p][i + 1] * scale);
+      }
     }
   }
 }
 
-template <int D>
+template <int D, int RW, int NK>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dq, int bh, int seq_q, int seq_k, int kv_len,
                          float scale, int causal, cudaStream_t stream) {
+  if ((seq_q + 64ll * RW - 1) / (64 * RW) > 65535)
+    return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tdo;
   if (!panel_map(&tq, q, bh, seq_q, D) || !panel_map(&tk, k, bh, seq_k, D) ||
       !panel_map(&tv, v, bh, seq_k, D) ||
       !panel_map(&tdo, dout, bh, seq_q, D))
     return cudaErrorInvalidValue;
-  constexpr int smem = DqSmem<D>::alloc;
+  constexpr int smem = DqSmem<D, RW, NK>::alloc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dq_tc_kernel<D, RW, NK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (seq_q + kBlockQ - 1) / kBlockQ);
-  flash_bwd_dq_tc_kernel<D><<<grid, 128 * (D / 64) + 32, smem, stream>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
-      seq_q, kv_len, scale, causal);
+  const dim3 grid(bh, (seq_q + 64 * RW - 1) / (64 * RW));
+  flash_bwd_dq_tc_kernel<D, RW, NK>
+      <<<grid, BwdCols<D, RW>::NC + 32, smem, stream>>>(
+          tq, tk, tv, tdo, static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
+          seq_q, kv_len, scale, causal);
   return cudaGetLastError();
 }
 
@@ -827,13 +930,15 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int seq_q, int seq_k, int kv_len,
                       float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_floats<D>() * sizeof(float);
+  constexpr int BR = f32_rows<D>();
+  if ((seq_q + (long long)BR - 1) / BR > 65535) return cudaErrorInvalidValue;
+  constexpr size_t smem = dq_smem_floats<D, BR>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D, BR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (seq_q + kBlockQ - 1) / kBlockQ);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(bh, (seq_q + BR - 1) / BR);
+  flash_bwd_dq_kernel<D, BR><<<grid, BR * 4, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -847,13 +952,15 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int bh, int seq_q, int seq_k,
                        int kv_len, float scale, int causal,
                        cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_floats<D>() * sizeof(float);
+  constexpr int BR = f32_rows<D>();
+  if ((seq_k + (long long)BR - 1) / BR > 65535) return cudaErrorInvalidValue;
+  constexpr size_t smem = dkv_smem_floats<D, BR>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dkv_kernel<D, BR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (seq_k + kBlockK - 1) / kBlockK);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(bh, (seq_k + BR - 1) / BR);
+  flash_bwd_dkv_kernel<D, BR><<<grid, BR * 4, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -863,41 +970,65 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 bool bad_dims(int bh, int seq_q, int seq_k, int kv_len) {
-  // B*H rides the grid's x; the query or key blocks its y (<= 65535)
-  return bh < 1 || seq_q < 1 || seq_k < 1 || kv_len < 1 || kv_len > seq_k ||
-         (seq_q + (long long)kBlockQ - 1) / kBlockQ > 65535 ||
-         (seq_k + (long long)kBlockK - 1) / kBlockK > 65535;
+  return bh < 1 || seq_q < 1 || seq_k < 1 || kv_len < 1 || kv_len > seq_k;
 }
 
 }  // namespace
 
+// The tensor-core tiles (block_q, block_k) every entry point instantiates:
+// (64 or 128, 64 or 128) at d 64 and 128, (64, 64) at d 256 (shared
+// memory), FLASH_TC_TILES in flash_attention.py. float32 takes (64, 64).
+#define FLASH_TC_TILES(X) \
+  X(64, 64, 64)           \
+  X(64, 64, 128)          \
+  X(64, 128, 64)          \
+  X(64, 128, 128)         \
+  X(128, 64, 64)          \
+  X(128, 64, 128)         \
+  X(128, 128, 64)         \
+  X(128, 128, 128)        \
+  X(256, 64, 64)
+
 // q, dout, dq: (bh, seq_q, d); k, v: (bh, seq_k, d); lse, delta: (bh,
 // seq_q) f32. dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores;
-// q, k, v, dout 16-byte aligned). d: 64 or 128. 1 <= kv_len <= seq_k.
-// Launches B6 on `stream` and returns cudaGetLastError() (0 on success).
+// q, k, v, dout 16-byte aligned). d: 64, 128 or 256. 1 <= kv_len <= seq_k.
+// (block_q, block_k): the tile, as in flash_attention_fwd. Launches B6 on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       void* dq, int bh, int seq_q, int seq_k,
                                       int d, int kv_len, float scale,
-                                      int causal, int dtype, void* stream) {
+                                      int causal, int dtype, int block_q,
+                                      int block_k, void* stream) {
   if (bad_dims(bh, seq_q, seq_k, kv_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return d == 64 ? (int)launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, bh,
-                                           seq_q, seq_k, kv_len, scale,
-                                           causal, s)
-         : d == 128 ? (int)launch_dq_tc<128>(q, k, v, dout, lse, delta, dq,
-                                             bh, seq_q, seq_k, kv_len, scale,
-                                             causal, s)
-                    : (int)cudaErrorInvalidValue;
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return d == 64 ? (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, bh,
-                                      seq_q, seq_k, kv_len, scale, causal, s)
-       : d == 128 ? (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, bh,
-                                        seq_q, seq_k, kv_len, scale, causal,
-                                        s)
-                  : (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (block_q != kBlockQ || block_k != kBlockK)
+      return (int)cudaErrorInvalidValue;
+    switch (d) {
+      case 64:
+        return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, seq_q,
+                                  seq_k, kv_len, scale, causal, s);
+      case 128:
+        return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, seq_q,
+                                   seq_k, kv_len, scale, causal, s);
+      case 256:
+        return (int)launch_dq<256>(q, k, v, dout, lse, delta, dq, bh, seq_q,
+                                   seq_k, kv_len, scale, causal, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+#define DQ_TC(D_, BQ_, BK_)                                                 \
+  if (d == D_ && block_q == BQ_ && block_k == BK_)                          \
+    return (int)launch_dq_tc<D_, BQ_ / 64, BK_ / 64>(                       \
+        q, k, v, dout, lse, delta, dq, bh, seq_q, seq_k, kv_len, scale,     \
+        causal, s);
+  FLASH_TC_TILES(DQ_TC)
+#undef DQ_TC
+  return (int)cudaErrorInvalidValue;
 }
 
 // As above, with dk, dv: (bh, seq_k, d). Launches B7: in bfloat16 on the
@@ -909,23 +1040,34 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* dk, void* dv, int bh, int seq_q,
                                        int seq_k, int d, int kv_len,
                                        float scale, int causal, int dtype,
+                                       int block_q, int block_k,
                                        void* stream) {
   if (bad_dims(bh, seq_q, seq_k, kv_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return d == 64 ? (int)launch_dkv_tc<64>(q, k, v, dout, lse, delta, dk,
-                                            dv, bh, seq_q, seq_k, kv_len,
-                                            scale, causal, s)
-         : d == 128 ? (int)launch_dkv_tc<128>(q, k, v, dout, lse, delta, dk,
-                                              dv, bh, seq_q, seq_k, kv_len,
-                                              scale, causal, s)
-                    : (int)cudaErrorInvalidValue;
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return d == 64 ? (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv,
-                                       bh, seq_q, seq_k, kv_len, scale,
-                                       causal, s)
-       : d == 128 ? (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv,
-                                         bh, seq_q, seq_k, kv_len, scale,
-                                         causal, s)
-                  : (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (block_q != kBlockQ || block_k != kBlockK)
+      return (int)cudaErrorInvalidValue;
+    switch (d) {
+      case 64:
+        return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                   seq_q, seq_k, kv_len, scale, causal, s);
+      case 128:
+        return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                    seq_q, seq_k, kv_len, scale, causal, s);
+      case 256:
+        return (int)launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                    seq_q, seq_k, kv_len, scale, causal, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+#define DKV_TC(D_, BQ_, BK_)                                                \
+  if (d == D_ && block_q == BQ_ && block_k == BK_)                          \
+    return (int)launch_dkv_tc<D_, BK_ / 64, BQ_ / 64>(                      \
+        q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k, kv_len, scale, \
+        causal, s);
+  FLASH_TC_TILES(DKV_TC)
+#undef DKV_TC
+  return (int)cudaErrorInvalidValue;
 }

@@ -27,19 +27,26 @@
 //     against full fp32) do not admit.
 //
 // Design of the bf16 kernel (hopper_mma.cuh has the shared layouts).
-//   * A CTA is one consumer warpgroup of 128 threads, owning 64 query
-//     rows, and one producer warp. The producer loads the CTA's Q panels
-//     once and streams 64-key K/V tiles through a ring of kStages slots
-//     with TMA, each slot guarded by a full and an empty mbarrier. The
-//     tensor maps are 3-D over (B*H, S, D), so a tile past S reads zeros
-//     and never the next head's rows.
-//   * S = Q . K^T is 4 (D = 64) or 8 (D = 128) wgmma k-steps, both
-//     operands K-major; the fp32 accumulator is multiplied by scale (in
-//     log2 units, for exp2). The online softmax runs on the accumulator
-//     fragments: a row's 64 entries sit in one quad of threads, so its max
-//     is two shuffles, and each thread keeps a partial row sum that the
-//     quad adds once at the end. Masks are applied only on the causal
-//     diagonal tile and the kv_len tile.
+//   * Its tile is a launch parameter: block_q = 64 RW query rows a CTA
+//     (RW consumer warpgroups of 64 rows each, sharing every K/V tile) and
+//     block_k = 64 NK keys a pipeline slot (NK sub-tiles of 64 keys, taken
+//     one after another by the online softmax), (RW, NK) in {1, 2}^2 at D
+//     = 64 and 128. At D = 256 each 64-row group is two consumer
+//     warpgroups, one per half of O's columns (a thread keeps 2 x 32
+//     accumulator floats of O, as at D = 128), both computing the whole S;
+//     only (1, 1) fits shared memory there (FwdSmem: 160 KB).
+//   * One producer warp loads the CTA's Q panels once and streams the K/V
+//     slots through a ring of kStages with TMA, each slot guarded by a full
+//     and an empty mbarrier. The tensor maps are 3-D over (B*H, S, D), so a
+//     tile past S reads zeros and never the next head's rows.
+//   * S = Q . K^T is D / 16 wgmma k-steps, both operands K-major; the fp32
+//     accumulator is multiplied by scale (in log2 units, for exp2). The
+//     online softmax runs on the accumulator fragments: a row's 64 entries
+//     sit in one quad of threads, so its max is two shuffles, and each
+//     thread keeps a partial row sum that the quad adds once at the end.
+//     Masks are applied only on the causal diagonal sub-tile and the kv_len
+//     sub-tile; a sub-tile masked whole (past kv_len, or past a row group's
+//     diagonal) is skipped.
 //   * O += P . V takes P from registers (the accumulator layout is the A
 //     operand layout) and V MN-major from shared memory (transpose-B),
 //     one 64-column panel of O at a time.
@@ -58,7 +65,8 @@
 // threads sharing a row sit in one half warp (row max and sum are shuffles,
 // the P tile needs only __syncwarp). Rows are padded (q: D+4, k: D+1, p:
 // 64+1) against bank conflicts; q is scaled as it is loaded, like the TPU
-// kernel.
+// kernel. Its tile is fixed at 64 x 64 for D = 64, 128 and 256 (214.5 KB
+// of shared memory at D = 256).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -236,27 +244,42 @@ constexpr int kStages = 2;               // K/V ring slots
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared memory, in bytes from a 1024-aligned base: P Q panels, then
-// kStages x P K panels and as many V panels, then the mbarriers.
+// Column groups of O: at D = 256 two consumer warpgroups share a 64-row
+// group, each keeping two of O's four 64-column panels (four would be 128
+// accumulator registers a thread before S); both compute the whole S.
 template <int D>
+struct FwdCols {
+  static constexpr int DW = D == 256 ? 2 : 1;
+  static constexpr int PD = D / 64 / DW;  // O panels a consumer keeps
+};
+
+// Shared memory, in bytes from a 1024-aligned base: RW x P Q panels (one
+// group of P per 64 query rows), then kStages x NK x P K panels and as many
+// V panels (NK 64-key sub-tiles a slot), then the mbarriers.
+template <int D, int RW, int NK>
 struct FwdSmem {
   static constexpr int P = D / 64;
   static constexpr int q = 0;
-  static constexpr int k = q + P * kPanelBytes;
-  static constexpr int v = k + kStages * P * kPanelBytes;
-  static constexpr int bars = v + kStages * P * kPanelBytes;
+  static constexpr int k = q + RW * P * kPanelBytes;
+  static constexpr int v = k + kStages * NK * P * kPanelBytes;
+  static constexpr int bars = v + kStages * NK * P * kPanelBytes;
   static constexpr int alloc = bars + (1 + 2 * kStages) * 8 + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(128 + 32)
+// block_q = 64 RW query rows a CTA, block_k = 64 NK keys a pipeline slot.
+template <int D, int RW, int NK>
+__global__ void __launch_bounds__(128 * RW * FwdCols<D>::DW + 32)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                     int seq_q, int kv_len, float scale, int causal) {
-  using L = FwdSmem<D>;
+  using L = FwdSmem<D, RW, NK>;
   constexpr int P = L::P;
+  constexpr int DW = FwdCols<D>::DW;
+  constexpr int PD = FwdCols<D>::PD;
+  constexpr int NC = 128 * RW * DW;          // consumer threads
+  constexpr int BQ = 64 * RW, BK = 64 * NK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bars);
@@ -265,51 +288,58 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int bh = blockIdx.x;
   const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest first
-  const int q0 = qb * kBlockQ;
-  int n_kb = (kv_len + kBlockK - 1) / kBlockK;
-  if (causal) n_kb = min(n_kb, qb + 1);       // stop at the diagonal tile
+  const int q0 = qb * BQ;
+  int n_kb = (kv_len + BK - 1) / BK;
+  if (causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);  // to the diagonal
   const int tid = threadIdx.x;
 
   if (tid == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 128);
+      mbar_init(&empty[s], NC);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (tid >= 128) {  // the producer warp; one lane issues every load
-    if (tid == 128) {
-      mbar_arrive_expect_tx(q_full, P * kPanelBytes);
-      for (int p = 0; p < P; ++p)
-        tma_load_panel(smem + L::q + p * kPanelBytes, &tq, q_full, 64 * p, q0,
-                       bh);
+  if (tid >= NC) {  // the producer warp; one lane issues every load
+    if (tid == NC) {
+      mbar_arrive_expect_tx(q_full, RW * P * kPanelBytes);
+      for (int r = 0; r < RW; ++r)
+        for (int p = 0; p < P; ++p)
+          tma_load_panel(smem + L::q + (r * P + p) * kPanelBytes, &tq, q_full,
+                         64 * p, q0 + 64 * r, bh);
       for (int j = 0; j < n_kb; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&full[s], 2 * P * kPanelBytes);
-        for (int p = 0; p < P; ++p) {
-          tma_load_panel(smem + L::k + (s * P + p) * kPanelBytes, &tk,
-                         &full[s], 64 * p, j * kBlockK, bh);
-          tma_load_panel(smem + L::v + (s * P + p) * kPanelBytes, &tv,
-                         &full[s], 64 * p, j * kBlockK, bh);
-        }
+        mbar_arrive_expect_tx(&full[s], 2 * NK * P * kPanelBytes);
+        for (int t = 0; t < NK; ++t)
+          for (int p = 0; p < P; ++p) {
+            const int off = ((s * NK + t) * P + p) * kPanelBytes;
+            tma_load_panel(smem + L::k + off, &tk, &full[s], 64 * p,
+                           j * BK + 64 * t, bh);
+            tma_load_panel(smem + L::v + off, &tv, &full[s], 64 * p,
+                           j * BK + 64 * t, bh);
+          }
       }
     }
     return;
   }
 
-  const int warp = tid / 32;
+  const int wg = tid / 128;
+  const int rw = wg / DW;                     // the warpgroup's 64 rows
+  const int dw = wg % DW;                     // and its panels of O
+  const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
-  const int row = q0 + 16 * warp + lane / 4;  // and row + 8
+  const int r0 = q0 + 64 * rw;
+  const int row = r0 + 16 * warp + lane / 4;  // and row + 8
   const float scale2 = scale * kLog2e;        // scores in log2 units
-  const uint64_t q_desc = desc_sw128(smem + L::q);
+  const uint64_t q_desc = desc_sw128(smem + L::q + rw * P * kPanelBytes);
 
-  float o[P][32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[PD][32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+  for (int p = 0; p < PD; ++p)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
 
@@ -317,69 +347,78 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   for (int j = 0; j < n_kb; ++j) {
     const int s = j % kStages;
     mbar_wait(&full[s], (j / kStages) & 1);
-    const uint64_t k_desc = desc_sw128(smem + L::k + s * P * kPanelBytes);
-    const uint64_t v_desc = desc_sw128(smem + L::v + s * P * kPanelBytes);
-    float sc[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-    wgmma_fence();
-    fence_acc(sc);
+    for (int t = 0; t < NK; ++t) {
+      const int c0 = j * BK + 64 * t;
+      // a sub-tile wholly past kv_len, or (causal) past the group's last
+      // row, is masked whole: it adds nothing
+      if (c0 >= kv_len || (causal && c0 > r0 + 63)) continue;
+      const int off = (s * NK + t) * P * kPanelBytes;
+      const uint64_t k_desc = desc_sw128(smem + L::k + off);
+      const uint64_t v_desc = desc_sw128(smem + L::v + off);
+      float sc[32];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-      wgmma_ss(sc, desc_add(q_desc, off), desc_add(k_desc, off), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(sc);
-
-    const bool edge = (causal && j == qb) || (j + 1) * kBlockK > kv_len;
-    float mx[2] = {kNegInf, kNegInf};
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      wgmma_fence();
+      fence_acc(sc);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      float x = sc[i] * scale2;
-      if (edge) {
-        const int col = j * kBlockK + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-        const int r = row + 8 * ((i / 2) % 2);
-        if (col >= kv_len || (causal && r < col)) x = kNegInf;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ko = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+        wgmma_ss(sc, desc_add(q_desc, ko), desc_add(k_desc, ko), kk > 0);
       }
-      sc[i] = x;
-      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = exp2f(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i / 2) % 2;
-      sc[i] = exp2f(sc[i] - m[h]);
-      l[h] += sc[i];              // a partial row sum; the quad adds at the end
-#pragma unroll
-      for (int p = 0; p < P; ++p) o[p][i] *= alpha[h];
-    }
-    uint32_t a[4][4];
-    to_a_frags(sc, a);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
 
-    wgmma_fence();
+      const bool edge = (causal && c0 + 64 > r0) || c0 + 64 > kv_len;
+      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      fence_acc(o[p]);
+      for (int i = 0; i < 32; ++i) {
+        float x = sc[i] * scale2;
+        if (edge) {
+          const int col = c0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+          const int r = row + 8 * ((i / 2) % 2);
+          if (col >= kv_len || (causal && r < col)) x = kNegInf;
+        }
+        sc[i] = x;
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
+      }
+      float alpha[2];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(o[p], a[kk],
-                 desc_add(v_desc, p * kPanelBytes + kk * 16 * 128));
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = exp2f(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i / 2) % 2;
+        sc[i] = exp2f(sc[i] - m[h]);
+        l[h] += sc[i];            // a partial row sum; the quad adds at the end
+#pragma unroll
+        for (int p = 0; p < PD; ++p) o[p][i] *= alpha[h];
+      }
+      uint32_t a[4][4];
+      to_a_frags(sc, a);
+
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < PD; ++p) {
+        fence_acc(o[p]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(o[p], a[kk],
+                   desc_add(v_desc,
+                            (dw * PD + p) * kPanelBytes + kk * 16 * 128));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < PD; ++p) fence_acc(o[p]);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-#pragma unroll
-    for (int p = 0; p < P; ++p) fence_acc(o[p]);
     mbar_arrive(&empty[s]);
   }
 
@@ -393,19 +432,19 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv = 1.f / l_safe;
     __nv_bfloat16* orow = out + ((size_t)bh * seq_q + r) * D;
 #pragma unroll
-    for (int p = 0; p < P; ++p)
+    for (int p = 0; p < PD; ++p)
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
-        const int c = 64 * p + 8 * jj + 2 * (lane % 4);
+        const int c = 64 * (dw * PD + p) + 8 * jj + 2 * (lane % 4);
         *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
             o[p][4 * jj + 2 * h] * inv, o[p][4 * jj + 2 * h + 1] * inv);
       }
-    if (lane % 4 == 0)
+    if (dw == 0 && lane % 4 == 0)
       lse[(size_t)bh * seq_q + r] = (m[h] + log2f(l_safe)) * kLn2;
   }
 }
 
-template <int D>
+template <int D, int RW, int NK>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       void* lse, int bh, int seq_q, int seq_k, int kv_len,
                       float scale, int causal, cudaStream_t stream) {
@@ -413,15 +452,16 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
   if (!panel_map(&tq, q, bh, seq_q, D) || !panel_map(&tk, k, bh, seq_k, D) ||
       !panel_map(&tv, v, bh, seq_k, D))
     return cudaErrorInvalidValue;
-  constexpr int smem = FwdSmem<D>::alloc;
+  constexpr int smem = FwdSmem<D, RW, NK>::alloc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_tc_kernel<D, RW, NK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (seq_q + kBlockQ - 1) / kBlockQ);
-  flash_fwd_tc_kernel<D><<<grid, 128 + 32, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
-      seq_q, kv_len, scale, causal);
+  const dim3 grid(bh, (seq_q + 64 * RW - 1) / (64 * RW));
+  flash_fwd_tc_kernel<D, RW, NK>
+      <<<grid, 128 * RW * FwdCols<D>::DW + 32, smem, stream>>>(
+          tq, tk, tv, static_cast<__nv_bfloat16*>(out),
+          static_cast<float*>(lse), seq_q, kv_len, scale, causal);
   return cudaGetLastError();
 }
 
@@ -429,26 +469,55 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 
 // q: (bh, seq_q, d); k, v: (bh, seq_k, d); out like q; lse: (bh, seq_q) f32.
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; q, k and v
-// 16-byte aligned, see hopper::panel_map). d: 64 or 128. 1 <= kv_len <=
-// seq_k. Launches on `stream` and returns cudaGetLastError() (0 on success).
+// 16-byte aligned, see hopper::panel_map). d: 64, 128 or 256. 1 <= kv_len
+// <= seq_k. (block_q, block_k): the tile; float32 takes (64, 64) only,
+// bfloat16 (64 or 128, 64 or 128) at d 64 and 128 and (64, 64) at d 256
+// (shared memory), the list of FLASH_TC_TILES in flash_attention.py; any
+// other is refused. Launches on `stream` and returns cudaGetLastError() (0
+// on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    int bh, int seq_q, int seq_k, int d,
                                    int kv_len, float scale, int causal,
-                                   int dtype, void* stream) {
+                                   int dtype, int block_q, int block_k,
+                                   void* stream) {
   // B*H rides the grid's x, the query blocks its y (<= 65535)
   if (bh < 1 || seq_q < 1 || seq_k < 1 || kv_len < 1 || kv_len > seq_k ||
-      (seq_q + (long long)kBlockQ - 1) / kBlockQ > 65535 ||
-      (d != 64 && d != 128) || (dtype != 0 && dtype != 1))
+      block_q < 1 || (seq_q + (long long)block_q - 1) / block_q > 65535 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return d == 64 ? launch_f32<64>(q, k, v, out, lse, bh, seq_q, seq_k,
-                                    kv_len, scale, causal, s)
-                   : launch_f32<128>(q, k, v, out, lse, bh, seq_q, seq_k,
-                                     kv_len, scale, causal, s);
-  return d == 64 ? launch_tc<64>(q, k, v, out, lse, bh, seq_q, seq_k, kv_len,
-                                 scale, causal, s)
-                 : launch_tc<128>(q, k, v, out, lse, bh, seq_q, seq_k, kv_len,
-                                  scale, causal, s);
+  if (dtype == 0) {
+    if (block_q != kBlockQ || block_k != kBlockK)
+      return (int)cudaErrorInvalidValue;
+    switch (d) {
+      case 64:
+        return launch_f32<64>(q, k, v, out, lse, bh, seq_q, seq_k, kv_len,
+                              scale, causal, s);
+      case 128:
+        return launch_f32<128>(q, k, v, out, lse, bh, seq_q, seq_k, kv_len,
+                               scale, causal, s);
+      case 256:
+        return launch_f32<256>(q, k, v, out, lse, bh, seq_q, seq_k, kv_len,
+                               scale, causal, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+#define FWD_TC(D_, BQ_, BK_)                                                \
+  if (d == D_ && block_q == BQ_ && block_k == BK_)                          \
+    return launch_tc<D_, BQ_ / 64, BK_ / 64>(q, k, v, out, lse, bh, seq_q,  \
+                                             seq_k, kv_len, scale, causal, \
+                                             s);
+  FWD_TC(64, 64, 64)
+  FWD_TC(64, 64, 128)
+  FWD_TC(64, 128, 64)
+  FWD_TC(64, 128, 128)
+  FWD_TC(128, 64, 64)
+  FWD_TC(128, 64, 128)
+  FWD_TC(128, 128, 64)
+  FWD_TC(128, 128, 128)
+  FWD_TC(256, 64, 64)
+#undef FWD_TC
+  return (int)cudaErrorInvalidValue;
 }

@@ -50,8 +50,10 @@
 // Design of the tensor-core kernel (hopper_mma.cuh has the panel layout).
 //   * An implicit GEMM: M = 64 input pixels of one class, a box of bw x bh
 //     x bn over the class grid (n, h / cs, w / cs) (B1's pick_box); N = a
-//     Ci tile of BN = 64 or 128; K = (tap, 64-Co slice) over the class's
-//     taps, then the extra term's 64-Co2 slices where the class takes it.
+//     Ci tile of BN = 64 or 128 (the launch's chan_block, the schedule
+//     table's knob; hand default 128 where it divides Ci); K = (tap, 64-Co
+//     slice) over the class's taps, then the extra term's 64-Co2 slices
+//     where the class takes it.
 //     One consumer warpgroup (BN / 64 accumulators of 32 floats a thread)
 //     and one producer warp keeping a ring of TMA slots full.
 //   * The g side is the A operand, K-major: for a tap, the class box moved
@@ -331,8 +333,16 @@ struct DgradTc {
   int bn_ci, ci_tiles, cslices, c2slices, tiles;
 };
 
+// The Ci block of the tensor-core kernel: chan_block (64 or 128), or, at
+// 0, the hand default (128 where it divides Ci, else 64); -1 for any
+// other.
+int dgrad_chan_block(int ci, int chan_block) {
+  if (chan_block == 0) return ci % 128 == 0 ? 128 : 64;
+  return chan_block == 64 || chan_block == 128 ? chan_block : -1;
+}
+
 bool tc_shape(int n, int h, int wd, int ci, int co, int k, int stride,
-              int co2, int s2, DgradTc* t) {
+              int co2, int s2, int chan_block, DgradTc* t) {
   DgradShape d;
   if (!make_shape(n, h, wd, ci, co, k, stride, co2, s2, &d) || ci % 8 ||
       co % 8 || co2 % 8)
@@ -355,7 +365,8 @@ bool tc_shape(int n, int h, int wd, int ci, int co, int k, int stride,
   t->gstep = d.cs / stride;
   t->g2step = d.cs / d.s2;
   if (!box_grid(n, d.hq, d.wq, &t->g)) return false;
-  t->bn_ci = ci % 128 == 0 ? 128 : 64;
+  t->bn_ci = dgrad_chan_block(ci, chan_block);
+  if (t->bn_ci < 0) return false;
   t->ci_tiles = (ci + t->bn_ci - 1) / t->bn_ci;
   t->cslices = (co + 63) / 64;
   t->c2slices = (co2 + 63) / 64;
@@ -721,13 +732,19 @@ cudaError_t launch_tc(const void* g, const void* e, const void* yraw,
 }
 
 // The pixel tiles (rows of the stats scratch) of the kernel `kind`
-// chooses; 0 for shapes it does not take.
-int tiles_for(int n, int h, int wd, int stride, int s2, int kind) {
+// chooses at chan_block (the CUDA-core kernel's Ci tile is fixed: 0 or
+// 64); 0 for shapes it does not take. The count does not depend on the
+// channel block.
+int tiles_for(int n, int h, int wd, int stride, int s2, int kind,
+              int chan_block) {
   const int co2 = s2 > 0 ? 8 : 0;
   if (kind == 2) {
     DgradTc t;
-    return tc_shape(n, h, wd, 8, 8, 1, stride, co2, s2, &t) ? t.tiles : 0;
+    return tc_shape(n, h, wd, 8, 8, 1, stride, co2, s2, chan_block, &t)
+               ? t.tiles
+               : 0;
   }
+  if (chan_block != 0 && chan_block != 64) return 0;
   DgradShape s;
   if (!make_shape(n, h, wd, 1, 1, 1, stride, co2, s2, &s)) return 0;
   return s.cs * s.cs * s.class_tiles;
@@ -735,12 +752,13 @@ int tiles_for(int n, int h, int wd, int stride, int s2, int kind) {
 
 }  // namespace
 
-// Pixel tiles of conv_dgrad's kernel `kind` (as in fused_conv_dgrad) at
-// these shapes (s2: the extra term's stride, 0 without one): the row count
-// of its stats scratch. Returns 0 for shapes it does not take.
+// Pixel tiles of conv_dgrad's kernel `kind` at `chan_block` (as in
+// fused_conv_dgrad) at these shapes (s2: the extra term's stride, 0 without
+// one): the row count of its stats scratch. Returns 0 for shapes it does
+// not take.
 extern "C" int fused_conv_dgrad_tiles(int n, int h, int wd, int stride,
-                                      int s2, int kind) {
-  return tiles_for(n, h, wd, stride, s2, kind);
+                                      int s2, int kind, int chan_block) {
+  return tiles_for(n, h, wd, stride, s2, kind, chan_block);
 }
 
 // out: (n, h, w, ci) NHWC, the data gradient of a conv with weights w (k,
@@ -753,7 +771,9 @@ extern "C" int fused_conv_dgrad_tiles(int n, int h, int wd, int stride,
 // (4, ci) float32 array gamma, beta, mu, inv; then stats, (2, ci) float32,
 // receives [sum e, sum e * xhat] and partial is float32 scratch of
 // partial_rows == fused_conv_dgrad_tiles(n, h, w, stride, co2 > 0 ? s2 :
-// 0, kind) rows of 2 * ci.
+// 0, kind, chan_block) rows of 2 * ci. chan_block: the Ci a CTA on the
+// tensor cores, 64 or 128 (0: the hand default, 128 where it divides Ci);
+// the CUDA-core kernel takes 0 or 64.
 // Tensors other than the float32 constants share one dtype and are
 // contiguous. kind: 0 = float32 on the CUDA cores, 1 = bfloat16 on the CUDA
 // cores, 2 = bfloat16 on the tensor cores (ci, co and co2 multiples of 8,
@@ -767,7 +787,7 @@ extern "C" int fused_conv_dgrad(const void* g, const void* e,
                                 void* out, void* partial, int partial_rows,
                                 void* stats, int n, int h, int wd, int ci,
                                 int co, int k, int stride, int kind,
-                                void* stream) {
+                                int chan_block, void* stream) {
   DgradShape s;
   if (!make_shape(n, h, wd, ci, co, k, stride, co2, s2, &s) ||
       w == nullptr || out == nullptr ||
@@ -778,13 +798,15 @@ extern "C" int fused_conv_dgrad(const void* g, const void* e,
       (mconsts == nullptr && stats != nullptr) || kind < 0 || kind > 2)
     return (int)cudaErrorInvalidValue;
   // one partial row per pixel tile: a smaller buffer would be overrun
-  const int tiles = tiles_for(n, h, wd, stride, co2 > 0 ? s2 : 0, kind);
-  if (stats != nullptr && (partial == nullptr || partial_rows != tiles))
+  const int tiles =
+      tiles_for(n, h, wd, stride, co2 > 0 ? s2 : 0, kind, chan_block);
+  if (tiles == 0 ||
+      (stats != nullptr && (partial == nullptr || partial_rows != tiles)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 2) {
     DgradTc t;
-    if (!tc_shape(n, h, wd, ci, co, k, stride, co2, s2, &t))
+    if (!tc_shape(n, h, wd, ci, co, k, stride, co2, s2, chan_block, &t))
       return (int)cudaErrorInvalidValue;
     return t.bn_ci == 128
                ? (int)launch_tc<128>(g, e, yraw, gconsts, w, g2, w2, yin,

@@ -38,6 +38,8 @@
 //     accumulators of 32 floats a thread) and one producer warp that keeps
 //     a ring of S slots full with TMA (S = 4 at BN = 64, 3 at BN = 128:
 //     82 / 92 KB of shared memory at Ci = 2048, so two CTAs share an SM).
+//     BN is the launch's chan_block, the schedule table's knob; its hand
+//     default is 128 where 128 divides Co, else 64.
 //   * The x operand: a 4-D tiled map over (C, W, H, N), not Hopper's im2col
 //     mode. A pixel tile is a box of bw x bh x bn output pixels (bw * bh *
 //     bn = 64, the product that pads the output least: 8x8x1 at 56x56,
@@ -505,6 +507,16 @@ long long pixel_tiles(int n, int h, int wd, int ci, int co, int k,
   return (m + kTileM - 1) / kTileM;
 }
 
+// The channel block a launch runs with: chan_block (64 or 128 on the
+// tensor cores; 64 on the CUDA cores, whose tile is fixed), or, at 0, the
+// hand default (128 where it divides Co on the tensor cores, else 64);
+// -1 for any other.
+int chan_block_for(int co, int kind, int chan_block) {
+  if (chan_block == 0) return kind == 2 && co % 128 == 0 ? 128 : 64;
+  if (chan_block == 64 || (kind == 2 && chan_block == 128)) return chan_block;
+  return -1;
+}
+
 }  // namespace
 
 // x: (n, h, w, ci) NHWC; w: (k, k, ci, co) HWIO; y: (n, h/stride,
@@ -515,13 +527,16 @@ long long pixel_tiles(int n, int h, int wd, int ci, int co, int k,
 // (2, co) float32 or null; when given, partial is float32 scratch of
 // (fused_conv_fwd_tiles(...), 2, co), and partial_rows its first
 // dimension. k is 1 or 3, stride 1 or 2, and stride 2 needs even h and w.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// chan_block: the output channels a CTA (chan_block_for; 0 = the hand
+// default). The K order is the same at every chan_block, so y and stats
+// are bit for bit the same. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int fused_conv_fwd(const void* x, const void* w, const void* scale,
                               const void* bias, void* y, void* partial,
                               int partial_rows, void* stats, int n, int h,
                               int wd, int ci, int co, int k, int stride,
                               int prologue, int relu, int kind,
-                              void* stream) {
+                              int chan_block, void* stream) {
   if (n < 1 || h < 1 || wd < 1 || ci < 1 || co < 1 || (k != 1 && k != 3) ||
       (stride != 1 && stride != 2) ||
       (stride == 2 && (h % 2 || wd % 2)) ||
@@ -529,6 +544,8 @@ extern "C" int fused_conv_fwd(const void* x, const void* w, const void* scale,
       (stats != nullptr && partial == nullptr) || kind < 0 || kind > 2 ||
       (kind == 2 && (ci % 8 || co % 8)))
     return (int)cudaErrorInvalidValue;
+  const int bn = chan_block_for(co, kind, chan_block);
+  if (bn < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // one partial row per pixel tile: a smaller buffer would be overrun
   const long long tiles = pixel_tiles(n, h, wd, ci, co, k, stride, kind == 2);
@@ -537,7 +554,7 @@ extern "C" int fused_conv_fwd(const void* x, const void* w, const void* scale,
   if (kind == 2) {
     TcShape t;
     tc_shape(n, h, wd, ci, co, k, stride, &t);
-    return co % 128 == 0
+    return bn == 128
                ? (int)launch_tc<128>(x, w, scale, bias, y, partial, stats, t,
                                      prologue, relu, st)
                : (int)launch_tc<64>(x, w, scale, bias, y, partial, stats, t,
@@ -568,12 +585,14 @@ extern "C" int fused_conv_fwd(const void* x, const void* w, const void* scale,
                                prologue, relu, st);
 }
 
-// The row count of fused_conv_fwd's stats scratch for these arguments: one
-// row per pixel tile of the kernel `kind` chooses; -1 if it takes none.
+// The row count of fused_conv_fwd's stats scratch for these arguments (the
+// launch's own kind and chan_block): one row per pixel tile; -1 if it
+// takes none.
 extern "C" long long fused_conv_fwd_tiles(int n, int h, int wd, int ci,
                                           int co, int k, int stride,
-                                          int kind) {
-  if (n < 1 || h < 1 || wd < 1 || ci < 1 || co < 1 || stride < 1)
+                                          int kind, int chan_block) {
+  if (n < 1 || h < 1 || wd < 1 || ci < 1 || co < 1 || stride < 1 ||
+      chan_block_for(co, kind, chan_block) < 0)
     return -1;
   return pixel_tiles(n, h, wd, ci, co, k, stride, kind == 2);
 }

@@ -60,9 +60,11 @@
 //     hopper_mma.cuh watchdog). While a box's products run, the consumers
 //     prepare the next box in its own slot; a slot is released once the
 //     products reading it have retired. Two CTAs share an SM.
-//   * Pixel chunks spread across CTAs: enough chunks that the grid covers
-//     the 132 SMs twice (the f32 partials under 256 MB). sum_rows adds the
-//     partials in chunk order: no atomics, the same sums on every run.
+//   * Pixel chunks spread across CTAs: the boxes a chunk is the launch's
+//     row_tile (the schedule table's knob); its hand default gives enough
+//     chunks that the grid covers the 132 SMs twice, and any split keeps
+//     the f32 partials under 256 MB. sum_rows adds the partials in chunk
+//     order: no atomics, the same sums on every run.
 //
 // Design of the CUDA-core kernel. The TPU kernel keeps one dw block
 // resident in VMEM and adds to it over a sequential (batch, row) grid.
@@ -266,8 +268,11 @@ struct WgradTc {
   int ci_tiles, co_tiles, boxes_per_chunk, chunks;
 };
 
+// row_tile: the pixel boxes a chunk (0: the hand default below). False if
+// the tile grid overflows, or row_tile is out of range (above the box
+// count, or so small that the chunks' partials pass 256 MB).
 bool tc_shape(int n, int h, int wd, int ci, int co, int k, int stride,
-              WgradTc* t) {
+              int row_tile, WgradTc* t) {
   t->n = n;
   t->h = h;
   t->w = wd;
@@ -282,21 +287,27 @@ bool tc_shape(int n, int h, int wd, int ci, int co, int k, int stride,
   t->ci_tiles = (ci + 63) / 64;
   t->co_tiles = (co + 63) / 64;
   const long long ctas = (long long)t->ci_tiles * k * t->co_tiles;
-  if (ctas > 2147483647ll) return false;
-  // chunks: the grid covers every SM kTcCtasPerSm times, every chunk has
-  // a box, and the partials stay under 256 MB. Their traffic (written, then
-  // read) is small beside the time a CTA takes for its boxes: 4.7 MB, 1.4
-  // us at 3.35 TB/s, for each more chunk of the 14x14 3x3 at 256 channels,
-  // where one chunk leaves 48 CTAs for 132 SMs.
-  const long long want = (132 * kTcCtasPerSm + ctas - 1) / ctas;
+  if (ctas > 2147483647ll || row_tile < 0 || row_tile > t->g.tiles)
+    return false;
   const long long dw_bytes = 4ll * k * k * ci * co;
-  long long c = want < (256ll << 20) / dw_bytes ? want
-                                                 : (256ll << 20) / dw_bytes;
-  if (c > t->g.tiles) c = t->g.tiles;
-  if (c < 1) c = 1;
-  t->boxes_per_chunk = (int)((t->g.tiles + c - 1) / c);
+  if (row_tile > 0) {
+    t->boxes_per_chunk = row_tile;
+  } else {
+    // the hand default: the grid covers every SM kTcCtasPerSm times, every
+    // chunk has a box, and the partials stay under 256 MB. Their traffic
+    // (written, then read) is small beside the time a CTA takes for its
+    // boxes: 4.7 MB, 1.4 us at 3.35 TB/s, for each more chunk of the 14x14
+    // 3x3 at 256 channels, where one chunk leaves 48 CTAs for 132 SMs.
+    const long long want = (132 * kTcCtasPerSm + ctas - 1) / ctas;
+    long long c = want < (256ll << 20) / dw_bytes ? want
+                                                   : (256ll << 20) / dw_bytes;
+    if (c > t->g.tiles) c = t->g.tiles;
+    if (c < 1) c = 1;
+    t->boxes_per_chunk = (int)((t->g.tiles + c - 1) / c);
+  }
   t->chunks = (t->g.tiles + t->boxes_per_chunk - 1) / t->boxes_per_chunk;
-  return t->chunks <= 65535;
+  return t->chunks <= 65535 &&
+         (t->chunks == 1 || t->chunks * dw_bytes <= (256ll << 20));
 }
 
 // Shared memory, in bytes from a 1024-aligned base: kStages slots of G
@@ -577,30 +588,34 @@ cudaError_t launch_tc(const void* x, const void* g, const void* e,
                   t.k * t.k * t.ci * t.co, stream);
 }
 
-// The chunk count of the kernel `kind` chooses; 0 for shapes it does not
+// The chunk count of the kernel `kind` chooses at row_tile (the CUDA-core
+// kernel's split is fixed: row_tile 0 only); 0 for shapes it does not
 // take.
 int chunks_for(int n, int h, int wd, int ci, int co, int k, int stride,
-               int kind) {
+               int kind, int row_tile) {
   WgradShape s;
   if (!make_shape(n, h, wd, ci, co, k, stride, &s)) return 0;
   if (kind == 2) {
     WgradTc t;
-    if (ci % 8 || co % 8 || !tc_shape(n, h, wd, ci, co, k, stride, &t))
+    if (ci % 8 || co % 8 ||
+        !tc_shape(n, h, wd, ci, co, k, stride, row_tile, &t))
       return 0;
     return t.chunks;
   }
+  if (row_tile != 0) return 0;
   return (s.m + s.chunk_pixels - 1) / s.chunk_pixels;
 }
 
 }  // namespace
 
-// The number of pixel chunks conv_wgrad's kernel `kind` (as in
-// fused_conv_wgrad) splits these shapes into: the row count of its f32
+// The number of pixel chunks conv_wgrad's kernel `kind` at `row_tile` (as
+// in fused_conv_wgrad) splits these shapes into: the row count of its f32
 // partial scratch (chunks, k, k, ci, co) when above 1. Returns 0 for shapes
 // it does not take.
 extern "C" int fused_conv_wgrad_chunks(int n, int h, int wd, int ci, int co,
-                                       int k, int stride, int kind) {
-  return chunks_for(n, h, wd, ci, co, k, stride, kind);
+                                       int k, int stride, int kind,
+                                       int row_tile) {
+  return chunks_for(n, h, wd, ci, co, k, stride, kind, row_tile);
 }
 
 // x: (n, h, w, ci) NHWC; dw: (k, k, ci, co) float32 HWIO, written whole.
@@ -614,15 +629,17 @@ extern "C" int fused_conv_wgrad_chunks(int n, int h, int wd, int ci, int co,
 // adds the ReLU). partial: float32 scratch of partial_rows x k*k*ci*co,
 // where partial_rows must equal fused_conv_wgrad_chunks(...) when that is
 // above 1 (null otherwise). k is 1 or 3, stride 1 or 2, and stride 2 needs
-// even h and w. Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// even h and w. row_tile: the pixel boxes a chunk on the tensor cores (0:
+// the hand default; the CUDA-core kernel takes 0 only); it only splits the
+// f32 sums differently. Launches on `stream` and returns cudaGetLastError()
+// (0 on success).
 extern "C" int fused_conv_wgrad(const void* x, const void* g, const void* e,
                                 const void* yraw, const void* scale,
                                 const void* bias, const void* consts,
                                 void* dw, void* partial, int partial_rows,
                                 int n, int h, int wd, int ci, int co, int k,
                                 int stride, int prologue, int relu, int kind,
-                                void* stream) {
+                                int row_tile, void* stream) {
   WgradShape s;
   if (!make_shape(n, h, wd, ci, co, k, stride, &s) || x == nullptr ||
       dw == nullptr || (prologue && (scale == nullptr || bias == nullptr)) ||
@@ -630,7 +647,7 @@ extern "C" int fused_conv_wgrad(const void* x, const void* g, const void* e,
                          : (e == nullptr || yraw == nullptr)) ||
       kind < 0 || kind > 2)
     return (int)cudaErrorInvalidValue;
-  const int chunks = chunks_for(n, h, wd, ci, co, k, stride, kind);
+  const int chunks = chunks_for(n, h, wd, ci, co, k, stride, kind, row_tile);
   // one partial row per chunk: a smaller buffer would be overrun
   if (chunks < 1 ||
       (chunks > 1 && (partial == nullptr || partial_rows != chunks)))
@@ -638,7 +655,7 @@ extern "C" int fused_conv_wgrad(const void* x, const void* g, const void* e,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 2) {
     WgradTc t;
-    tc_shape(n, h, wd, ci, co, k, stride, &t);
+    tc_shape(n, h, wd, ci, co, k, stride, row_tile, &t);
     if (k == 1)
       return consts == nullptr
                  ? (int)launch_tc<1, 1>(x, g, e, yraw, scale, bias, consts,

@@ -18,9 +18,20 @@ tensor (shape inference) it only allocates the outputs.
 :func:`bottleneck_infer` composes B1 into the pre-activation bottleneck
 unit on the moving statistics. Layout: x NHWC, weights HWIO, as in the JAX
 package. The TPU's blocking plan (``_plan_conv``, ``_batch_fold``,
-``_chan_block``, ``MXU_WORK_FLOOR``, ``mxu_plan``, the schedule-table
-consult and the row-tile knob) has no counterpart: the CUDA kernels take
-their own tiles.
+``MXU_WORK_FLOOR``, ``mxu_plan``) has no counterpart: the CUDA kernels
+take their own tiles. What the schedule table tunes is each kernel's tile
+as a launch parameter, under the JAX package's knob names: ``chan_block``
+(B1's output channels and B3's input channels a CTA, 64 or 128 on the
+tensor cores) and ``row_tile`` (B2's pixel boxes a chunk on the tensor
+cores). The CUDA-core route keeps one tile (``chan_block`` 64). Left
+None, ``schedule`` is looked up with ``tune.schedule_for("fused_" + kind,
+(n, h, w, ci, co, k, stride), dtype)`` as the JAX ``_schedule_knobs``
+does; a table entry that does not fit the shape counts a
+``fallback_illegal`` and runs the hand default, and an explicit schedule
+that does not fit raises (:func:`schedule_legal`, :func:`default_schedule`).
+The plain versions take the same schedule: output-channel blocks (B1),
+input-channel blocks (B3) and the pixel chunks' partial sums in chunk
+order (B2).
 
 The training half: :func:`conv_wgrad` is B2, the weight gradient with the
 forward's prologue recomputed on the x side and the next BatchNorm's
@@ -140,13 +151,26 @@ def _apply_prologue(x, prologue):
     return h.to(x.dtype)
 
 
-def conv_fwd_reference(x, w, *, stride=1, prologue=None, emit_stats=False):
+def _blocks_of(schedule, name, total):
+    """Slices of ``total`` channels in blocks of the schedule's ``name``
+    (one slice without it)."""
+    step = int((schedule or {}).get(name, 0)) or total
+    return [slice(c, min(c + step, total)) for c in range(0, total, step)]
+
+
+def conv_fwd_reference(x, w, *, stride=1, prologue=None, emit_stats=False,
+                       schedule=None):
     """The plain version of :func:`conv_fwd`: the prologue, then a zero pad
     of ``k // 2``, ``F.conv2d``, a cast to x's dtype, and the fp32 sums of
-    the cast output. Returns ``(y, stats or None)``."""
+    the cast output. With a ``chan_block`` schedule the products run one
+    block of output channels at a time, as the kernel's CTAs do. Returns
+    ``(y, stats or None)``."""
     k = int(w.shape[0])
     h = _apply_prologue(x, prologue).permute(0, 3, 1, 2)
-    y = F.conv2d(h, w.permute(3, 2, 0, 1), stride=stride, padding=k // 2)
+    wt = w.permute(3, 2, 0, 1)
+    y = torch.cat([F.conv2d(h, wt[c], stride=stride, padding=k // 2)
+                   for c in _blocks_of(schedule, "chan_block",
+                                       int(w.shape[3]))], dim=1)
     y = y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
     if not emit_stats:
         return y, None
@@ -177,7 +201,166 @@ def _need_aligned(fn, tensors):
                          "TMA)" % fn)
 
 
-def _launch(x, w, prologue, y, stats, stride, tensor_cores):
+# ---------------------------------------------------------------------------
+# the kernels' tiles as launch parameters: geometry, legality and the
+# schedule-table consult
+# ---------------------------------------------------------------------------
+FUSED_KINDS = ("fwd", "wgrad", "dgrad")
+CHAN_BLOCKS = (64, 128)
+_WGRAD_CTAS_PER_SM = 2       # fused_conv_wgrad.cu kTcCtasPerSm
+_SMS = 132
+_PARTIAL_LIMIT = 256 << 20   # bytes of B2's f32 partials
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def pick_box(n, ho, wo):
+    """The pixel box ``(bw, bh, bn)`` of the tensor-core kernels
+    (``conv_common.cuh`` ``pick_box``): bw * bh * bn = 64 powers of two,
+    the one that pads (n, ho, wo) least, ties to the widest bw."""
+    best = None
+    for lw in range(6, -1, -1):
+        for lh in range(6 - lw, -1, -1):
+            a, b, c = 1 << lw, 1 << lh, 64 >> (lw + lh)
+            padded = _cdiv(wo, a) * a * _cdiv(ho, b) * b * _cdiv(n, c) * c
+            if best is None or padded < best[0]:
+                best = (padded, a, b, c)
+    return best[1:]
+
+
+def pixel_boxes(n, ho, wo):
+    """The number of pixel boxes over (n, ho, wo) (``box_grid``)."""
+    bw, bh, bn = pick_box(n, ho, wo)
+    return _cdiv(wo, bw) * _cdiv(ho, bh) * _cdiv(n, bn)
+
+
+def wgrad_split(n, h, wd, ci, co, k, stride, row_tile=0):
+    """``(boxes, row_tile, chunks)`` of B2 on the tensor cores
+    (``fused_conv_wgrad.cu`` ``tc_shape``): the output's pixel boxes, the
+    boxes a chunk (``row_tile``, or at 0 the hand default: chunks enough
+    that the grid covers the SMs twice, the f32 partials under 256 MB)
+    and the chunk count; None where the split is out of range."""
+    ho, wo = h // stride, wd // stride
+    boxes = pixel_boxes(n, ho, wo)
+    ctas = _cdiv(ci, 64) * k * _cdiv(co, 64)
+    dw_bytes = 4 * k * k * ci * co
+    if row_tile < 0 or row_tile > boxes:
+        return None
+    if row_tile == 0:
+        want = _cdiv(_SMS * _WGRAD_CTAS_PER_SM, ctas)
+        c = min(want, _PARTIAL_LIMIT // dw_bytes, boxes)
+        row_tile = _cdiv(boxes, max(c, 1))
+    chunks = _cdiv(boxes, row_tile)
+    if chunks > 65535 or (chunks > 1 and chunks * dw_bytes > _PARTIAL_LIMIT):
+        return None
+    return boxes, row_tile, chunks
+
+
+def _route_tc(kind, dtype, ci, co, co2=0):
+    """Whether the kernel of ``kind`` runs on the tensor cores at these
+    channels (bfloat16 with channel counts multiples of 8)."""
+    return (dtype == torch.bfloat16 and ci % 8 == 0 and co % 8 == 0
+            and co2 % 8 == 0)
+
+
+def default_schedule(kind, x_shape, w_shape, stride, dtype):
+    """The hand default tile of ``kind`` at these shapes, as a schedule:
+    ``chan_block`` 128 where it divides the channels on the tensor cores
+    (B1: Co, B3: Ci), else 64; B2 on the tensor cores its default
+    ``row_tile``, on the CUDA cores ``chan_block`` 64."""
+    n, h, wd, ci = (int(v) for v in x_shape)
+    k, co = int(w_shape[0]), int(w_shape[3])
+    tc = _route_tc(kind, dtype, ci, co)
+    if kind == "wgrad":
+        if not tc:
+            return {"chan_block": 64}
+        split = wgrad_split(n, h, wd, ci, co, k, stride)
+        if split is None:
+            raise MXNetError("fused_wgrad takes no shapes x %s, w %s"
+                             % (tuple(x_shape), tuple(w_shape)))
+        return {"row_tile": split[1]}
+    cdim = co if kind == "fwd" else ci
+    return {"chan_block": 128 if tc and cdim % 128 == 0 else 64}
+
+
+def schedule_legal(kind, x_shape, w_shape, stride, schedule, dtype, co2=0):
+    """``(ok, reason)``: whether the kernel of ``kind`` takes ``schedule``
+    at these shapes. B1 (``fwd``) and B3 (``dgrad``) take ``chan_block``
+    64, or 128 on the tensor cores where the channels (B1: Co, B3: Ci)
+    pass 64; B2 (``wgrad``) takes ``row_tile`` on the tensor cores (1 to
+    the box count, the chunks within the grid and the partials within
+    256 MB) and ``chan_block`` 64 on the CUDA cores. Any other knob is
+    not one of these kernels'. ``co2``: B3's extra term's channels (0
+    without one), which also route B3."""
+    if kind not in FUSED_KINDS:
+        raise MXNetError("fused kind must be one of %s, got %r"
+                         % (FUSED_KINDS, kind))
+    n, h, wd, ci = (int(v) for v in x_shape)
+    k, co = int(w_shape[0]), int(w_shape[3])
+    tc = _route_tc(kind, dtype, ci, co, co2)
+    if not isinstance(schedule, dict) or len(schedule) != 1:
+        return False, "a schedule holds one knob, got %r" % (schedule,)
+    (knob, value), = schedule.items()
+    if kind == "wgrad" and tc:
+        if knob != "row_tile":
+            return False, "B2 on the tensor cores takes row_tile only"
+        if wgrad_split(n, h, wd, ci, co, k, stride, int(value)) is None:
+            return False, ("row_tile %r is out of range at these shapes"
+                           % (value,))
+        return True, ""
+    if knob != "chan_block":
+        return False, "%s takes chan_block only here, got %r" % (kind, knob)
+    cdim = co if kind == "fwd" else ci
+    if value == 64 or (tc and kind != "wgrad" and value == 128
+                       and cdim > 64):
+        return True, ""
+    return False, ("chan_block %r does not fit %d channels on the %s"
+                   % (value, cdim, "tensor cores" if tc else "CUDA cores"))
+
+
+def _resolve_schedule(kind, x_shape, w_shape, stride, dtype, device,
+                      schedule, co2=0):
+    """The schedule one call runs: an explicit ``schedule`` (which must be
+    legal: an illegal one raises), else the table's entry for the key
+    (illegal: a ``fallback_illegal`` is counted), else None (the kernels'
+    hand default)."""
+    if schedule is not None:
+        ok, why = schedule_legal(kind, x_shape, w_shape, stride, schedule,
+                                 dtype, co2)
+        if not ok:
+            raise MXNetError("conv_%s schedule %r: %s" % (kind, schedule,
+                                                          why))
+        return dict(schedule)
+    if device.type == "meta":
+        return None
+    from .. import profiler
+    from ..tune import table
+
+    n, h, wd, ci = (int(v) for v in x_shape)
+    key_shape = (n, h, wd, ci, int(w_shape[3]), int(w_shape[0]), stride)
+    dt, backend = table.dtype_name(dtype), table.backend_of(device)
+    sched = table.schedule_for("fused_" + kind, key_shape, dt, backend)
+    if sched is None:
+        return None
+    if not schedule_legal(kind, x_shape, w_shape, stride, sched, dtype,
+                          co2)[0]:
+        profiler.tuning_record(
+            fallbacks=1, kernel=table.make_key("fused_" + kind, key_shape,
+                                               dt, backend),
+            schedule=None, source="fallback_illegal")
+        return None
+    return sched
+
+
+def _knob(schedule, name):
+    """A schedule's value of ``name`` for the C launch, 0 (the kernel's
+    hand default) when absent."""
+    return int((schedule or {}).get(name, 0))
+
+
+def _launch(x, w, prologue, y, stats, stride, tensor_cores, schedule=None):
     from ._build import load
 
     n, h, wd, ci = x.shape
@@ -188,25 +371,29 @@ def _launch(x, w, prologue, y, stats, stride, tensor_cores):
         _need_aligned("conv_fwd", (x, w))
     lib = load("fused_conv_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _bind(lib, "fused_conv_fwd", [p] * 6 + [i, p] + [i] * 10 + [p])
+    fn = _bind(lib, "fused_conv_fwd", [p] * 6 + [i, p] + [i] * 11 + [p])
     scale, bias, pro, relu = _prologue_args(prologue)
+    chan_block = _knob(schedule, "chan_block")
     partial, tiles = None, 0
     if stats is not None:
         # one partial row per pixel tile of the kernel's own tiling
-        tiles = _bind(lib, "fused_conv_fwd_tiles", [i] * 8,
-                      ctypes.c_longlong)(n, h, wd, ci, co, k, stride, kind)
+        tiles = _bind(lib, "fused_conv_fwd_tiles", [i] * 9,
+                      ctypes.c_longlong)(n, h, wd, ci, co, k, stride, kind,
+                                         chan_block)
         partial = torch.empty((max(tiles, 0), 2, co), dtype=torch.float32,
                               device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_ptr(x), _ptr(w), _ptr(scale), _ptr(bias), _ptr(y),
                  _ptr(partial), tiles, _ptr(stats), n, h, wd, ci, co, k,
-                 stride, pro, relu, kind, stream)
+                 stride, pro, relu, kind, chan_block, stream)
     if err != 0:
-        raise MXNetError("fused_conv_fwd launch failed: CUDA error %d" % err)
+        raise MXNetError("fused_conv_fwd launch failed (schedule %s): CUDA "
+                         "error %d" % (schedule, err))
 
 
-def conv_fwd(x, w, *, stride=1, prologue=None, emit_stats=False):
+def conv_fwd(x, w, *, stride=1, prologue=None, emit_stats=False,
+             schedule=None):
     """NHWC conv: ``y = conv(act(bn(x)), w)`` (B1).
 
     x: (N, H, W, Ci); w: (k, k, Ci, Co) HWIO with k in {1, 3} (pad k // 2);
@@ -219,12 +406,15 @@ def conv_fwd(x, w, *, stride=1, prologue=None, emit_stats=False):
     tensor cores, float32 on the CUDA cores, and a bfloat16 Ci or Co that
     is not a multiple of 8 on the CUDA cores too, counted also in
     ``conv_fwd.core_route_launches``. A non-contiguous x or w is copied to a
-    contiguous one first."""
+    contiguous one first. ``schedule``: the tile (``{"chan_block": 64 or
+    128}``); None consults the schedule table (module docstring)."""
     stride = int(stride)
     _check(x, w, stride, prologue)
+    schedule = _resolve_schedule("fwd", x.shape, w.shape, stride, x.dtype,
+                                 x.device, schedule)
     if x.device.type == "cpu":
         return conv_fwd_reference(x, w, stride=stride, prologue=prologue,
-                                  emit_stats=emit_stats)
+                                  emit_stats=emit_stats, schedule=schedule)
     n, h, wd, _ci = x.shape
     co = int(w.shape[3])
     y = torch.empty((n, h // stride, wd // stride, co), dtype=x.dtype,
@@ -237,7 +427,7 @@ def conv_fwd(x, w, *, stride=1, prologue=None, emit_stats=False):
         raise MXNetError("conv_fwd: unsupported device %s" % x.device)
     tensor_cores = _tensor_cores(x, w)
     _launch(x.contiguous(), w.contiguous(), prologue, y, stats, stride,
-            tensor_cores)
+            tensor_cores, schedule)
     conv_fwd.launches += 1
     if x.dtype == torch.bfloat16 and not tensor_cores:
         conv_fwd.core_route_launches += 1
@@ -306,39 +496,70 @@ def _nchw(t):
     return t.permute(0, 3, 1, 2)
 
 
+def _box_chunks(n, ho, wo, row_tile, device):
+    """(chunks, n, ho, wo) bool: output pixel (i, y, x) in chunk c, the
+    pixel boxes ``c * row_tile`` onward in box order (w fastest, then h,
+    then n), as B2 splits them."""
+    bw, bh, bn = pick_box(n, ho, wo)
+    tw, th = _cdiv(wo, bw), _cdiv(ho, bh)
+    box = ((torch.arange(n, device=device) // bn)[:, None, None] * th
+           + (torch.arange(ho, device=device) // bh)[None, :, None]) * tw \
+        + (torch.arange(wo, device=device) // bw)[None, None, :]
+    chunk = box // row_tile
+    n_chunks = _cdiv(tw * th * _cdiv(n, bn), row_tile)
+    return chunk[None] == torch.arange(n_chunks, device=device)[:, None,
+                                                                 None, None]
+
+
 def conv_wgrad_reference(x, g_parts, w_shape, *, stride=1, x_prologue=None,
-                         g_bnbwd=None):
+                         g_bnbwd=None, schedule=None):
     """The plain version of :func:`conv_wgrad`: the x side through the
     prologue and the g side (whole, or rebuilt) rounded to x's dtype as the
     kernel rounds them, then ``torch.nn.grad.conv2d_weight`` in f32 on those
-    rounded operands. Returns dw (k, k, Ci, Co) f32."""
+    rounded operands. With a ``row_tile`` schedule, one such product per
+    pixel chunk of B2's split, summed in chunk order as B2 sums its
+    partials. Returns dw (k, k, Ci, Co) f32."""
     k = int(w_shape[0])
     h = _apply_prologue(x, x_prologue).float()
     g = _g_value(g_parts, g_bnbwd).to(x.dtype).float()
-    dw = torch.nn.grad.conv2d_weight(
-        _nchw(h), (int(w_shape[3]), int(w_shape[2]), k, k), _nchw(g),
-        stride=stride, padding=k // 2)
+    size = (int(w_shape[3]), int(w_shape[2]), k, k)
+    row_tile = int((schedule or {}).get("row_tile", 0))
+    if not row_tile:
+        dw = torch.nn.grad.conv2d_weight(_nchw(h), size, _nchw(g),
+                                         stride=stride, padding=k // 2)
+        return dw.permute(2, 3, 1, 0).contiguous()
+    dw = torch.zeros(size, dtype=torch.float32, device=x.device)
+    for mask in _box_chunks(*g.shape[:3], row_tile, x.device):
+        dw = dw + torch.nn.grad.conv2d_weight(
+            _nchw(h), size, _nchw(g * mask[..., None]), stride=stride,
+            padding=k // 2)
     return dw.permute(2, 3, 1, 0).contiguous()
 
 
 def conv_dgrad_reference(g_parts, w, x_shape, *, stride=1, g_bnbwd=None,
-                         out_mask=None, extra=None):
+                         out_mask=None, extra=None, schedule=None):
     """The plain version of :func:`conv_dgrad`: the g side rounded to w's
     dtype, ``torch.nn.grad.conv2d_input`` in f32 on the rounded operands,
     the extra term likewise, the mask and the f32 sums of the unrounded
-    e. Returns ``(e_out or dx in w's dtype, stats or None)``."""
+    e. With a ``chan_block`` schedule the products run one block of input
+    channels at a time, as the kernel's CTAs do. Returns ``(e_out or dx in
+    w's dtype, stats or None)``."""
     n, h, wd, ci = (int(v) for v in x_shape)
     k, dtype = int(w.shape[0]), w.dtype
-    size = (n, ci, h, wd)
     g = _g_value(g_parts, g_bnbwd).to(dtype).float()
-    t = torch.nn.grad.conv2d_input(size, w.float().permute(3, 2, 0, 1),
-                                   _nchw(g), stride=stride, padding=k // 2)
-    if extra is not None:
-        g2, w2, s2 = extra
-        t = t + torch.nn.grad.conv2d_input(
-            size, w2.to(dtype).float().permute(3, 2, 0, 1),
-            _nchw(g2.to(dtype).float()), stride=int(s2))
-    t = t.permute(0, 2, 3, 1)
+    wt = w.float().permute(3, 2, 0, 1)
+    parts = []
+    for c in _blocks_of(schedule, "chan_block", ci):
+        size = (n, c.stop - c.start, h, wd)
+        t = torch.nn.grad.conv2d_input(size, wt[:, c], _nchw(g),
+                                       stride=stride, padding=k // 2)
+        if extra is not None:
+            g2, w2, s2 = extra
+            t = t + torch.nn.grad.conv2d_input(
+                size, w2.to(dtype).float().permute(3, 2, 0, 1)[:, c],
+                _nchw(g2.to(dtype).float()), stride=int(s2))
+        parts.append(t)
+    t = torch.cat(parts, dim=1).permute(0, 2, 3, 1)
     if out_mask is None:
         return t.to(dtype).contiguous(), None
     y_in, gamma, beta, mu, inv = out_mask
@@ -373,7 +594,7 @@ def _wgrad_tensor_cores(x, w_shape):
 
 
 def _launch_wgrad(x, g_parts, dw, stride, x_prologue, g_bnbwd,
-                  tensor_cores):
+                  tensor_cores, schedule=None):
     from ._build import load
 
     n, h, wd, ci = x.shape
@@ -389,12 +610,14 @@ def _launch_wgrad(x, g_parts, dw, stride, x_prologue, g_bnbwd,
         _need_aligned("conv_wgrad", (x, g, e, y))
     lib = load("fused_conv_wgrad")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _bind(lib, "fused_conv_wgrad", [p] * 9 + [i] * 11 + [p])
-    chunks = _bind(lib, "fused_conv_wgrad_chunks", [i] * 8)(
-        n, h, wd, ci, co, k, stride, kind)
+    fn = _bind(lib, "fused_conv_wgrad", [p] * 9 + [i] * 12 + [p])
+    row_tile = _knob(schedule, "row_tile")
+    chunks = _bind(lib, "fused_conv_wgrad_chunks", [i] * 9)(
+        n, h, wd, ci, co, k, stride, kind, row_tile)
     if chunks < 1:
-        raise MXNetError("fused_conv_wgrad takes no shapes x %s, dw %s"
-                         % (tuple(x.shape), tuple(dw.shape)))
+        raise MXNetError("fused_conv_wgrad takes no shapes x %s, dw %s at "
+                         "schedule %s" % (tuple(x.shape), tuple(dw.shape),
+                                          schedule))
     partial = None
     if chunks > 1:
         partial = torch.empty((chunks,) + tuple(dw.shape),
@@ -404,13 +627,14 @@ def _launch_wgrad(x, g_parts, dw, stride, x_prologue, g_bnbwd,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_ptr(x), _ptr(g), _ptr(e), _ptr(y), _ptr(scale), _ptr(bias),
                  _ptr(consts), _ptr(dw), _ptr(partial), chunks, n, h, wd, ci,
-                 co, k, stride, pro, relu, kind, stream)
+                 co, k, stride, pro, relu, kind, row_tile, stream)
     if err != 0:
-        raise MXNetError("fused_conv_wgrad launch failed: CUDA error %d" % err)
+        raise MXNetError("fused_conv_wgrad launch failed (schedule %s): CUDA "
+                         "error %d" % (schedule, err))
 
 
 def conv_wgrad(x, g_parts, w_shape, *, stride=1, x_prologue=None,
-               g_bnbwd=None):
+               g_bnbwd=None, schedule=None):
     """dw of :func:`conv_fwd`, accumulated in f32 (B2).
 
     x: (N, H, W, Ci) raw input; g_parts: the complete output gradient (N,
@@ -424,7 +648,9 @@ def conv_wgrad(x, g_parts, w_shape, *, stride=1, x_prologue=None,
     CUDA cores, and a bfloat16 Ci or Co that is not a multiple of 8 on the
     CUDA cores too, counted also in ``conv_wgrad.core_route_launches``. On
     a CPU tensor it runs :func:`conv_wgrad_reference`; on a ``meta`` tensor
-    it only allocates."""
+    it only allocates. ``schedule``: the tile (``{"row_tile": boxes a
+    chunk}`` on the tensor cores, ``{"chan_block": 64}`` on the CUDA
+    cores); None consults the schedule table (module docstring)."""
     stride = int(stride)
     g_shape = _check_geometry("conv_wgrad", tuple(x.shape), tuple(w_shape),
                               stride)
@@ -433,9 +659,12 @@ def conv_wgrad(x, g_parts, w_shape, *, stride=1, x_prologue=None,
     _check_grad_side("conv_wgrad", g_parts, g_bnbwd, g_shape, x.dtype,
                      x.device)
     _check_prologue("conv_wgrad", x_prologue, x)
+    schedule = _resolve_schedule("wgrad", x.shape, w_shape, stride,
+                                 x.dtype, x.device, schedule)
     if x.device.type == "cpu":
         return conv_wgrad_reference(x, g_parts, w_shape, stride=stride,
-                                    x_prologue=x_prologue, g_bnbwd=g_bnbwd)
+                                    x_prologue=x_prologue, g_bnbwd=g_bnbwd,
+                                    schedule=schedule)
     dw = torch.empty(tuple(int(v) for v in w_shape), dtype=torch.float32,
                      device=x.device)
     if x.device.type == "meta":
@@ -444,7 +673,7 @@ def conv_wgrad(x, g_parts, w_shape, *, stride=1, x_prologue=None,
         raise MXNetError("conv_wgrad: unsupported device %s" % x.device)
     tensor_cores = _wgrad_tensor_cores(x, w_shape)
     _launch_wgrad(x.contiguous(), g_parts, dw, stride, x_prologue, g_bnbwd,
-                  tensor_cores)
+                  tensor_cores, schedule)
     conv_wgrad.launches += 1
     if x.dtype == torch.bfloat16 and not tensor_cores:
         conv_wgrad.core_route_launches += 1
@@ -464,7 +693,7 @@ def _dgrad_tensor_cores(w, extra):
 
 
 def _launch_dgrad(g_parts, w, out, stats, stride, g_bnbwd, out_mask, extra,
-                  tensor_cores):
+                  tensor_cores, schedule=None):
     from ._build import load
 
     n, h, wd, ci = out.shape
@@ -488,11 +717,12 @@ def _launch_dgrad(g_parts, w, out, stats, stride, g_bnbwd, out_mask, extra,
     lib = load("fused_conv_dgrad")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _bind(lib, "fused_conv_dgrad",
-               [p] * 7 + [i] * 2 + [p] * 4 + [i, p] + [i] * 8 + [p])
+               [p] * 7 + [i] * 2 + [p] * 4 + [i, p] + [i] * 9 + [p])
+    chan_block = _knob(schedule, "chan_block")
     tiles = 0
     if out_mask is not None:
-        tiles = _bind(lib, "fused_conv_dgrad_tiles", [i] * 6)(
-            n, h, wd, stride, s2, kind)
+        tiles = _bind(lib, "fused_conv_dgrad_tiles", [i] * 7)(
+            n, h, wd, stride, s2, kind, chan_block)
         partial = torch.empty((tiles, 2, ci), dtype=torch.float32,
                               device=w.device)
     with torch.cuda.device(w.device):
@@ -500,13 +730,14 @@ def _launch_dgrad(g_parts, w, out, stats, stride, g_bnbwd, out_mask, extra,
         err = fn(_ptr(g), _ptr(e), _ptr(y), _ptr(gconsts), _ptr(w), _ptr(g2),
                  _ptr(w2), co2, s2, _ptr(yin), _ptr(mconsts), _ptr(out),
                  _ptr(partial), tiles, _ptr(stats), n, h, wd, ci, co, k,
-                 stride, kind, stream)
+                 stride, kind, chan_block, stream)
     if err != 0:
-        raise MXNetError("fused_conv_dgrad launch failed: CUDA error %d" % err)
+        raise MXNetError("fused_conv_dgrad launch failed (schedule %s): CUDA "
+                         "error %d" % (schedule, err))
 
 
 def conv_dgrad(g_parts, w, x_shape, *, stride=1, g_bnbwd=None, out_mask=None,
-               extra=None):
+               extra=None, schedule=None):
     """Input gradient of :func:`conv_fwd` with its fused epilogue (B3).
 
     g_parts: the complete output gradient (N, Ho, Wo, Co), or ``(e,
@@ -523,7 +754,8 @@ def conv_dgrad(g_parts, w, x_shape, *, stride=1, g_bnbwd=None, out_mask=None,
     Ci, Co or Co2 that is not a multiple of 8 on the CUDA cores too, counted
     also in ``conv_dgrad.core_route_launches``. On a CPU tensor it runs
     :func:`conv_dgrad_reference`; on a ``meta`` tensor it only
-    allocates."""
+    allocates. ``schedule``: the tile (``{"chan_block": 64 or 128}``);
+    None consults the schedule table (module docstring)."""
     stride = int(stride)
     x_shape = tuple(int(v) for v in x_shape)
     g_shape = _check_geometry("conv_dgrad", x_shape, tuple(w.shape), stride)
@@ -546,10 +778,13 @@ def conv_dgrad(g_parts, w, x_shape, *, stride=1, g_bnbwd=None, out_mask=None,
                       dtype, dev)
         _check_tensor("conv_dgrad", "extra g2", g2,
                       (n, h // s2, wd // s2, w2.shape[3]), dtype, dev)
+    schedule = _resolve_schedule(
+        "dgrad", x_shape, w.shape, stride, dtype, dev, schedule,
+        0 if extra is None else int(extra[1].shape[3]))
     if dev.type == "cpu":
         return conv_dgrad_reference(g_parts, w, x_shape, stride=stride,
                                     g_bnbwd=g_bnbwd, out_mask=out_mask,
-                                    extra=extra)
+                                    extra=extra, schedule=schedule)
     out = torch.empty(x_shape, dtype=dtype, device=dev)
     stats = None if out_mask is None else torch.empty(
         (2, ci), dtype=torch.float32, device=dev)
@@ -559,7 +794,7 @@ def conv_dgrad(g_parts, w, x_shape, *, stride=1, g_bnbwd=None, out_mask=None,
         raise MXNetError("conv_dgrad: unsupported device %s" % dev)
     tensor_cores = _dgrad_tensor_cores(w, extra)
     _launch_dgrad(g_parts, w.contiguous(), out, stats, stride, g_bnbwd,
-                  out_mask, extra, tensor_cores)
+                  out_mask, extra, tensor_cores, schedule)
     conv_dgrad.launches += 1
     if dtype == torch.bfloat16 and not tensor_cores:
         conv_dgrad.core_route_launches += 1

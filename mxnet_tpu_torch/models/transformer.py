@@ -84,7 +84,7 @@ __all__ = ["TransformerConfig", "init_params", "params_from_jax",
            "make_loss_fn", "make_train_step", "block_collective_counts",
            "make_forward_fn", "init_kv_cache", "make_prefill_fn",
            "make_decode_fn", "make_extend_fn", "draft_from_layers",
-           "torch_dtype"]
+           "decode_schedule_shape", "torch_dtype"]
 
 _NEG_INF = -1e30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -649,6 +649,19 @@ def _paged_blocks(params, cache, tokens, positions, block_tables, valid, c,
         o = _paged_extend_attention(q, kg, vg, positions)
         x = _ffn(x + _out_proj(o, lp, cdt, tp), lp, cdt, tp)
     return x
+
+
+def decode_schedule_shape(config, slots, max_ctx):
+    """The schedule-table key shape of the decode step's attention:
+    (batch=slots, heads, seq_q=1, seq_k=max_ctx, head_dim, causal=0), the
+    flash-attention consult's convention and the JAX package's key, so
+    ``python -m mxnet_tpu_torch.tune``'s decode sweep fills this key. The
+    port's paged decode attention is plain PyTorch over the whole window
+    (:func:`_paged_extend_attention`); the key is what a decode call of
+    B5 at that shape consults."""
+    c = config
+    return (int(slots), c.n_heads, 1, int(max_ctx),
+            c.d_model // c.n_heads, 0)
 
 
 def make_decode_fn(config, slots, max_pages_per_slot, page_size,

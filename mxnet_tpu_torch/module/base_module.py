@@ -5,10 +5,11 @@ and the callbacks, per epoch get/set_params, the epoch-end callbacks and
 ``score``), ``score``, ``predict``, ``iter_predict`` and
 ``save_params``/``load_params``.
 
-What the JAX ``fit`` arms from the environment is not ported and raises
-by name when set: the ``HealthGuard`` (``MXNET_CHECKPOINT_DIR`` with
-``MXNET_TPU_GUARD`` on) and the ``BackgroundTuner``
-(``MXNET_TUNE_BACKGROUND``); so do ``monitor`` and ``sparse_row_id_fn``.
+``MXNET_TUNE_BACKGROUND=1`` arms ``tune.BackgroundTuner``: one bounded
+tuning slot per epoch at the drain boundary after ``get_params``. The
+``HealthGuard`` (``MXNET_CHECKPOINT_DIR`` with ``MXNET_TPU_GUARD`` on) is
+not ported and raises by name when set; so do ``monitor`` and
+``sparse_row_id_fn``.
 """
 from __future__ import annotations
 
@@ -53,9 +54,6 @@ def _unported_fit_knobs():
             config.get_strict_bool("MXNET_TPU_GUARD"):
         raise MXNetError("fit: HealthGuard (MXNET_CHECKPOINT_DIR with "
                          "MXNET_TPU_GUARD=1) is not ported")
-    if config.get_strict_bool("MXNET_TUNE_BACKGROUND"):
-        raise MXNetError("fit: BackgroundTuner (MXNET_TUNE_BACKGROUND=1) is "
-                         "not ported")
 
 
 def _no_sparse(sparse_row_id_fn):
@@ -176,6 +174,12 @@ class BaseModule:
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        # background tuning: one bounded slot per epoch at the drain
+        # boundary below, for kernel shapes this job ran and the schedule
+        # table missed; never inside the step loop (tune/background.py)
+        from ..tune.background import BackgroundTuner
+
+        bg_tuner = BackgroundTuner.from_env(logger=self.logger)
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
@@ -211,6 +215,11 @@ class BaseModule:
                              time.time() - tic)
             arg_params_, aux_params_ = self.get_params()
             self.set_params(arg_params_, aux_params_)
+            if bg_tuner is not None:
+                # get_params waited for the card: the slot cannot overlap
+                # a step; a winner commits atomically and the next call of
+                # that shape picks it up
+                bg_tuner.on_drain()
             if epoch_end_callback is not None:
                 for callback in _as_list(epoch_end_callback):
                     callback(epoch, self.symbol, arg_params_, aux_params_)

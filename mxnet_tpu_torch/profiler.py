@@ -36,11 +36,20 @@ of ``mxnet_tpu/profiler.py``).
   ``group_size``), this rank's measured parameter and live bytes and the
   collectives of a loss forward (``block_collective_counts``); partial
   updates merge.
+- ``tuning_record`` / ``tuning_stats`` / ``tuning_reset``: the schedule
+  autotuner's counters (table hits, misses, fallbacks, ranked and skipped
+  candidates, ranker abstentions, model refits, background slots and
+  commits), each kernel key's chosen schedule and its source, and the cost
+  model's validation rank correlation per group.
+- ``dump_profile``: every non-empty snapshot above in one JSON file, under
+  the JAX package's section names (its ``traceEvents`` list is empty: the
+  port records no host trace events).
 
 Unknown counter names raise.
 """
 from __future__ import annotations
 
+import json
 import threading
 from collections import deque
 
@@ -413,3 +422,87 @@ def mp_stats(reset=False):
 def mp_reset():
     with _MP_LOCK:
         _MP.clear()
+
+
+# ---------------------------------------------------------------------------
+# schedule autotuner (tune/): table hits/misses/fallbacks, ranked sweeps,
+# model refits and background slots, the chosen schedule per kernel key
+# and the cost model's rank correlation per group
+# ---------------------------------------------------------------------------
+_TUNE_LOCK = threading.Lock()
+_TUNE_ZERO = {"hits": 0, "misses": 0, "fallbacks": 0,
+              "candidates_ranked": 0, "timings_skipped": 0,
+              "ranker_abstains": 0, "model_refits": 0,
+              "bg_slots": 0, "bg_commits": 0}
+_TUNE = dict(_TUNE_ZERO)
+_TUNE_KERNELS = {}
+_TUNE_CORR = {}
+
+
+def tuning_record(kernel=None, schedule=None, source=None, corr=None,
+                  **counts):
+    """Accumulate autotuner counters (``hits=1``, ``timings_skipped=4``,
+    ...; unknown names raise). ``kernel`` (a table key) also records that
+    kernel's chosen schedule and its source; ``corr`` merges a {model
+    group: validation rank correlation} gauge."""
+    for name in counts:
+        if name not in _TUNE_ZERO:
+            raise ValueError("unknown tuning counter %r (known: %s)"
+                             % (name, ", ".join(sorted(_TUNE_ZERO))))
+    with _TUNE_LOCK:
+        for name, v in counts.items():
+            _TUNE[name] += v
+        if kernel is not None:
+            _TUNE_KERNELS[kernel] = {"schedule": schedule, "source": source}
+        if corr:
+            for gk, v in dict(corr).items():
+                _TUNE_CORR[gk] = round(float(v), 4)
+
+
+def tuning_stats(reset=False):
+    """Snapshot {hits, misses, fallbacks, candidates_ranked,
+    timings_skipped, ranker_abstains, model_refits, bg_slots, bg_commits,
+    kernels: {key: {schedule, source}}, rank_correlation: {group: r}};
+    empty dict when the tuning path never ran."""
+    with _TUNE_LOCK:
+        snap = dict(_TUNE)
+        kernels = {k: dict(v) for k, v in _TUNE_KERNELS.items()}
+        corr = dict(_TUNE_CORR)
+        if reset:
+            _TUNE.update(_TUNE_ZERO)
+            _TUNE_KERNELS.clear()
+            _TUNE_CORR.clear()
+    if not (any(snap.values()) or kernels or corr):
+        return {}
+    if kernels:
+        snap["kernels"] = kernels
+    if corr:
+        snap["rank_correlation"] = corr
+    return snap
+
+
+def tuning_reset():
+    with _TUNE_LOCK:
+        _TUNE.update(_TUNE_ZERO)
+        _TUNE_KERNELS.clear()
+        _TUNE_CORR.clear()
+
+
+def dump_profile(filename="profile.json"):
+    """Write the counters' snapshots as one JSON object (the JAX
+    ``dump_profile``'s sections that the port keeps) to ``filename``."""
+    payload = {"traceEvents": [], "displayTimeUnit": "ms"}
+    for key, stats in (("pipelineStats", pipeline_stats),
+                       ("servingStats", serving_stats),
+                       ("memoryStats", memory_stats),
+                       ("healthStats", health_stats),
+                       ("tuningStats", tuning_stats),
+                       ("generateStats", generate_stats),
+                       ("passStats", pass_stats),
+                       ("mpStats", mp_stats)):
+        snap = stats()
+        if snap:
+            payload[key] = snap
+    with open(filename, "w") as f:
+        json.dump(payload, f)
+    return payload

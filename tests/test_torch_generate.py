@@ -295,5 +295,7 @@ def test_import_pulls_in_neither_jax_nor_mxnet_tpu():
                  "module.spmd_group", "ops.nn", "ops.rnn", "models.lenet",
                  "models.mlp", "models.alexnet", "models.vgg",
                  "models.inception", "models.mobilenet", "models.resnext",
-                 "parallel.tensor_parallel", "serving.generate"):
+                 "parallel.tensor_parallel", "serving.generate",
+                 "tune.table", "tune.search", "tune.model", "tune.harness",
+                 "tune.background", "tune.pipeline", "tune.__main__"):
         assert "'mxnet_tpu_torch.%s'" % name in r.stdout, name

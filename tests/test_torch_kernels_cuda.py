@@ -38,6 +38,12 @@ A NaN entering a prologue ReLU (B1, B2's x side) or B3's g-side rebuild
 comes out where the plain version puts it (``jnp.maximum`` keeps a NaN),
 in both types; the finite values are held as above.
 
+Tiles as launch parameters: every tile of B5-B7 at D 64, 128 and 256
+(``FLASH_TC_TILES``; fp32 keeps (64, 64)) and every candidate schedule of
+B1-B3 (``tune.fused_candidates``) against the plain versions at the same
+tile, with B1 bit for bit the same across ``chan_block``; a tile the
+kernels do not take raises.
+
 The symbolic front end on the card: an in-place NDArray update reaching a
 bound executor, the tiny fused ResNet's ``Executor.forward_backward``
 (11/11/9 launches of B1/B2/B3, gradients within 1e-4 of the CPU's against
@@ -336,7 +342,8 @@ def test_conv_fwd_entry_point_checks_the_stats_scratch_rows():
         w = torch.randn(1, 1, 16, 8, device="cuda").to(dt)
         fb.conv_fwd(x, w, emit_stats=True)  # builds it and binds the types
         lib = _build.load("fused_conv_fwd")
-        tiles = lib.fused_conv_fwd_tiles(2, 12, 12, 16, 8, 1, 1, kind)
+        # the last argument: chan_block, 0 for the hand default
+        tiles = lib.fused_conv_fwd_tiles(2, 12, 12, 16, 8, 1, 1, kind, 0)
         assert tiles >= 1
         y = torch.empty(2, 12, 12, 8, device="cuda").to(dt)
         stats = torch.empty(2, 8, device="cuda")
@@ -346,7 +353,7 @@ def test_conv_fwd_entry_point_checks_the_stats_scratch_rows():
             err = lib.fused_conv_fwd(x.data_ptr(), w.data_ptr(), None, None,
                                      y.data_ptr(), partial.data_ptr(), rows,
                                      stats.data_ptr(), 2, 12, 12, 16, 8, 1,
-                                     1, 0, 0, kind, stream)
+                                     1, 0, 0, kind, 0, stream)
             assert (err == 0) == (rows == tiles), (kind, rows)
 
 
@@ -910,3 +917,121 @@ def test_nan_passes_the_prologue_relu_as_in_the_plain_versions(dtype):
         torch.cuda.synchronize()
         _same_nans(got, ref, "B3 %s" % (k,))
         assert torch.equal(torch.isnan(st), torch.isnan(ref_st))
+
+
+# (n, h, ci, co, k, stride): channels past 128 so both chan_blocks run, a
+# ragged 7x7 stage, a stride-2 3x3
+SCHEDULE_SHAPES = [(4, 14, 256, 256, 3, 1), (4, 7, 192, 256, 1, 1),
+                   (2, 28, 128, 128, 3, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_conv_kernels_at_every_schedule_on_the_card(shape):
+    """Every candidate tile of B1, B2 and B3 (``tune.fused_candidates``) in
+    bf16 against the plain version at the same schedule; B1's y and stats
+    bit for bit the same at every chan_block (the K order does not move).
+    In fp32 the one schedule, the hand default, runs; a schedule the
+    kernels do not take raises."""
+    _card()
+    from mxnet_tpu_torch import tune
+
+    torch.backends.cudnn.allow_tf32 = False
+    n, h, ci, co, k, stride = shape
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x, w, pro, e, y, consts = _grad_case(gen, n, h, ci, co, k, stride,
+                                         torch.bfloat16)
+    xs, ws = (n, h, h, ci), (k, k, ci, co)
+
+    def scheds(kernel, dtype="bfloat16"):
+        return [c["schedule"] for c in tune.fused_candidates(
+            kernel, xs, ws, stride, dtype=dtype)
+            if c["status"] in ("default", "candidate")]
+
+    first = None
+    for sched in scheds("fused_fwd"):
+        out = fb.conv_fwd(x, w, stride=stride, prologue=pro,
+                          emit_stats=True, schedule=sched)
+        ref = fb.conv_fwd_reference(x, w, stride=stride, prologue=pro,
+                                    emit_stats=True, schedule=sched)
+        torch.cuda.synchronize()
+        assert _row_err(out[0], ref[0]) <= ROW_TOL[torch.bfloat16], sched
+        if first is None:
+            first = out
+        assert torch.equal(out[0], first[0]) and torch.equal(out[1],
+                                                             first[1])
+    assert len(scheds("fused_fwd")) == 2
+    for sched in scheds("fused_wgrad"):
+        kw = dict(stride=stride, x_prologue=pro, g_bnbwd=consts,
+                  schedule=sched)
+        dw = fb.conv_wgrad(x, (e, y), ws, **kw)
+        ref = fb.conv_wgrad_reference(x, (e, y), ws, **kw)
+        torch.cuda.synchronize()
+        assert _wgrad_err(dw, ref, x, (e, y), ws, stride, pro,
+                          consts) <= 1e-4, sched
+    mask = (x, pro[0] + 0.5, pro[1], pro[1] * 0.3, pro[0])
+    for sched in scheds("fused_dgrad"):
+        kw = dict(stride=stride, g_bnbwd=consts, out_mask=mask,
+                  schedule=sched)
+        got, st = fb.conv_dgrad((e, y), w, xs, **kw)
+        ref, ref_st = fb.conv_dgrad_reference((e, y), w, xs, **kw)
+        torch.cuda.synchronize()
+        assert _row_err(got, ref) <= ROW_TOL[torch.bfloat16], sched
+    for kernel in tune.FUSED_KINDS:
+        assert len(scheds(kernel, "float32")) == 1
+    with pytest.raises(MXNetError, match="schedule"):
+        fb.conv_fwd(x, w, stride=stride, schedule={"chan_block": 32})
+    with pytest.raises(MXNetError, match="schedule"):
+        fb.conv_wgrad(x, e, ws, stride=stride,
+                      schedule={"row_tile": 10 ** 6})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_b5_b7_at_every_tile_on_the_card(dtype, d):
+    """Every tile the kernels take at head dim ``d`` (FLASH_TC_TILES in
+    bf16, (64, 64) in fp32) against the plain versions at the same tile,
+    causal and not, ragged and with kv_len below Sk; the launch counts move
+    by one each. A tile the kernels are not built for raises."""
+    _card()
+    from mxnet_tpu_torch.kernels import flash_attention as tfa
+
+    dt = getattr(torch, dtype)
+    tol = ROW_TOL[dt]
+    tiles = tfa.FLASH_TC_TILES[d] if dtype == "bfloat16" else ((64, 64),)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for bq, bk in tiles:
+        kw_tile = dict(block_q=bq, block_k=bk)
+        for causal, sq, sk, kv_len in ((True, 300, 300, 300),
+                                       (False, 70, 260, 200)):
+            q, do = (torch.randn(2, 2, sq, d, device="cuda", generator=gen)
+                     .to(dt) for _ in range(2))
+            k, v = (torch.randn(2, 2, sk, d, device="cuda", generator=gen)
+                    .to(dt) for _ in range(2))
+            kw = dict(causal=causal, kv_len=kv_len)
+            counts = (tfa.flash_attention.launches,
+                      tfa.flash_attention_bwd_dq.launches,
+                      tfa.flash_attention_bwd_dkv.launches)
+            out, lse = tfa.flash_attention(q, k, v, return_lse=True, **kw,
+                                           **kw_tile)
+            ref, ref_lse = flash_attention_reference(
+                q.cpu().float(), k.cpu().float(), v.cpu().float(), **kw,
+                **kw_tile)
+            assert _row_err(out.cpu(), ref) <= tol
+            torch.testing.assert_close(lse.cpu(), ref_lse, atol=1e-3, rtol=0)
+            got = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw,
+                                          **kw_tile)
+            refs = flash_attention_bwd_reference(
+                *(t.cpu().float() for t in (q, k, v, out)), lse.cpu(),
+                do.cpu().float(), **kw, **kw_tile)
+            for g, r in zip(got, refs):
+                assert _row_err(g.cpu(), r) <= tol
+            assert (tfa.flash_attention.launches,
+                    tfa.flash_attention_bwd_dq.launches,
+                    tfa.flash_attention_bwd_dkv.launches) == tuple(
+                        c + 1 for c in counts)
+    q = torch.randn(1, 1, 64, d, device="cuda").to(dt)
+    with pytest.raises(MXNetError, match="tile"):
+        tfa.flash_attention(q, q, q, block_q=32, block_k=64)

@@ -386,8 +386,7 @@ def test_unported_module_arguments_raise_by_name(kw, name):
 
 
 @pytest.mark.parametrize("env,name", [
-    (("MXNET_CHECKPOINT_DIR", "/nonexistent"), "HealthGuard"),
-    (("MXNET_TUNE_BACKGROUND", "1"), "BackgroundTuner")])
+    (("MXNET_CHECKPOINT_DIR", "/nonexistent"), "HealthGuard")])
 def test_unported_knobs_raise_by_name(monkeypatch, env, name):
     monkeypatch.setenv(*env)
     with pytest.raises(MXNetError, match="%s.*not ported" % name):
