@@ -13,17 +13,19 @@ the kernels are built for sm_90a) and ``nvcc``. It
    the bf16 tensor-core kernels B1, B2, B3, B5, B6 and B7 (``cuobjdump
    -sass``) and fails unless each has wgmma (HGMMA) and TMA load (UTMALDG)
    instructions and spills nothing beyond the bytes ``TC_SPILLS`` lists
-   (B7 at D 256 and at D 128 with block_k 128);
+   (B7 at D 256 and at D 128 with block_k 128), and that the wide route's
+   kernels (D above 256) spill nothing and hold mma.sync (HMMA) in bf16;
 3. holds the flash-attention forward (B5) against its plain PyTorch
    version on the card, at the shapes the serving and training paths give
    it and a few more (causal and not, a ``kv_len`` mask, D = 128, D = 8, 32,
-   96, 192 and 256 zero-padded to 64, 128 or 256 lanes, float32 and
-   bfloat16), and times
+   96, 192 and 256 zero-padded to 64, 128 or 256 lanes, D = 320, 384, 512
+   and 1024 on the wide route, float32 and bfloat16), and times
    the kernel, the plain version and one library call (SDPA, a yardstick
    only: the port never calls it) at the training shape, a tensor-parallel
    rank's (4, 4, 2048, 64), the prefill buckets 256, 1024 and 2048 and
    ``tools/bench_e2e.py`` measure_mp's D 32 attention (2, 8, 64, 32) and
-   its mp=2 rank's (2, 4, 64, 32);
+   its mp=2 rank's (2, 4, 64, 32), (4, 8, 1024, 256) and 192, and
+   (2, 8, 1024, 512) on the wide route;
 4. drives the serving path at full width — the 12-layer, d_model 512
    transformer (random weights from seed 0) behind
    ``GenerateServer(slots=8, page_size=16)`` — with 16 concurrent requests
@@ -58,7 +60,8 @@ the kernels are built for sm_90a) and ``nvcc``. It
    1..16 images from 4 threads and prints images/s, latency, the forward
    time per bucket, the device's busy share and peak memory;
 7. holds the two backward kernels, B6 (dq) and B7 (dk, dv), against the
-   plain backward in the same way (D 8, 32, 96, 192 and 256 padded too),
+   plain backward in the same way (D 8, 32, 96, 192 and 256 padded too,
+   D 320, 384, 512 and 1024 on the wide route),
    with the
    SDPA backward as the yardstick, at both training shapes and the two D
    32 shapes;
@@ -225,7 +228,23 @@ the kernels are built for sm_90a) and ``nvcc``. It
    with ``MXNET_TUNE_BACKGROUND=1`` on the fused ResNet-50 must commit a
    key at an epoch-end drain boundary. Every phase before it runs on an
    empty table of the run's own (the hand tiles);
-26. prints one JSON line describing each kernel, then the result line
+26. drives the data plane as ``bench.py``'s ``fit`` variant does:
+   ``Module.fit`` of the unfused ResNet-50 v2 in fp32 (kvstore 'tpu', the
+   fused SPMD group engaged; SGD lr 0.1, momentum 0.9, Xavier, 4 epochs)
+   over 6 batches of 128 records (64, then 32, on out-of-memory) written
+   by ``write_record_shards``, through ``ShardedRecordStream`` (2 decode
+   workers, prefetch 4) -> ``ShardedBatchIter`` -> ``DeviceQueueIter``;
+   prints bench.py's fit record (images/s, host syncs, put and feed-stall
+   ms, records read, input wait and its p99) with the input-wait share
+   and a profiled fifth epoch's device busy share, and the same fit from
+   the same decoded arrays in memory (``NDArrayIter``); checks every
+   record read once an epoch, a falling epoch cross-entropy and the first
+   epoch's placed batches against a synchronous read (sha1); then the
+   fused ResNet-50 behind the same feed for one epoch of 6 batches of 64
+   (52/52/48 launches a batch), and the port's copy of
+   ``tools/bench_data.py``'s ``measure`` (2048 records of (3, 64, 64),
+   sync against prefetched, the deterministic replay);
+27. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -419,30 +438,59 @@ def _res_usage(tool, lib):
     return report
 
 
+# the wide route of B5-B7 (D above 256, csrc/flash_attention_wide.cuh):
+# mma.sync (HMMA) in bfloat16, fp32 FMAs in float32; none may spill
+WIDE_KERNELS = (("flash_attention_fwd", "wide_fwd_kernel"),
+                ("flash_attention_bwd", "wide_dq_kernel"),
+                ("flash_attention_bwd", "wide_dkv_kernel"))
+
+
+def _sass_counts(tool, lib_path, kernel, marks):
+    """{mangled name of each instantiation of ``kernel``: [count of each of
+    ``marks`` in its SASS]} (``cuobjdump -sass``)."""
+    sass = subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                counts[name] = [0] * len(marks)
+        elif name:
+            for i, mark in enumerate(marks):
+                counts[name][i] += mark in line
+    if not counts:
+        raise RuntimeError("sass: no %s in %s" % (kernel, lib_path))
+    return counts
+
+
 def sass_phase(build):
     """Counts the wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
     SASS of the bf16 tensor-core kernels (``cuobjdump -sass``) and prints
     their registers and stack/local bytes (``cuobjdump -res-usage``, which
     reads the built library, so a cached build is checked too); fails if
     either count is 0 or an instantiation uses local memory (spills),
-    beyond the bytes ``TC_SPILLS`` lists for it."""
+    beyond the bytes ``TC_SPILLS`` lists for it. The wide route's kernels
+    (``WIDE_KERNELS``) must have mma.sync (HMMA) in bfloat16 and spill
+    nothing."""
     tool = _cuobjdump(build._nvcc())
+    for lib, kernel in WIDE_KERNELS:
+        usage = _res_usage(tool, build.lib_path(lib))
+        for name, (n_mma,) in sorted(_sass_counts(
+                tool, build.lib_path(lib), kernel, ("HMMA",)).items()):
+            bf16 = "bfloat16" in name
+            regs, local = usage[name]
+            print("sass %s<%s>: HMMA %d; registers %d, stack and local bytes "
+                  "%d" % (kernel, "bfloat16" if bf16 else "float32", n_mma,
+                          regs, local))
+            if local or (bf16 and not n_mma):
+                raise RuntimeError("sass: %s spills or (bf16) has no "
+                                   "mma.sync" % name)
     for lib, kernel in TC_KERNELS:
-        sass = subprocess.run([tool, "-sass", str(build.lib_path(lib))],
-                              capture_output=True, text=True, timeout=120,
-                              check=True).stdout
-        counts, name = {}, None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                name = m.group(1) if kernel in m.group(1) else None
-                if name:
-                    counts[name] = [0, 0]
-            elif name:
-                counts[name][0] += "HGMMA" in line
-                counts[name][1] += "UTMALDG" in line
-        if not counts:
-            raise RuntimeError("sass: no %s in %s" % (kernel, lib))
+        counts = _sass_counts(tool, build.lib_path(lib), kernel,
+                              ("HGMMA", "UTMALDG"))
         usage = _res_usage(tool, build.lib_path(lib))
         for name, (n_mma, n_tma) in sorted(counts.items()):
             args = re.findall(r"Li(\d+)E", name.split(kernel, 1)[1])
@@ -517,6 +565,8 @@ def _timed(ms, plain_ms, lib_ms):
 # B5-B7 by input type: bf16 (the main path) on the tensor cores, fp32 on
 # the CUDA cores
 TC_DESIGN = "wgmma+TMA (bf16); CUDA cores (fp32)"
+WIDE_ROUTE = ("D > 256: column groups of the output on the grid, mma.sync "
+              "(bf16); CUDA cores (fp32)")
 
 # per kernel: products of 2*d operations per live score, and the tensors
 # it must move: (B, H, Sq, D)- and (B, H, Sk, D)-sized ones in the input
@@ -650,6 +700,11 @@ PAD_ATTN = ((2, 8, 64, 32), (2, 4, 64, 32))
 
 # C11: B5-B7 timed at D 192 and 256 (padded to 256 lanes) beside SDPA
 D256_ATTN = ((4, 8, 1024, 256), (4, 8, 1024, 192))
+# C12: head dims above 256 run on the wide route (csrc/flash_attention_wide
+# .cuh), padded to a multiple of 128: held at D 320, 384, 512 and 1024 (the
+# cases of PAD_CASES, both dtypes) and timed at (2, 8, 1024, 512) beside SDPA
+WIDE_DIMS = (320, 384, 512, 1024)
+WIDE_ATTN = ((2, 8, 1024, 512),)
 
 
 def _pad_dim_times(torch, fa, gen, name, shapes=PAD_ATTN):
@@ -695,6 +750,41 @@ def _pad_dim_times(torch, fa, gen, name, shapes=PAD_ATTN):
     return out
 
 
+def _wide_misaligned(torch, fa, gen, shape=(2, 4, 96, 384)):
+    """The wide route's element-by-element loads: q, k, v and dout that
+    start off a 16-byte boundary (views one element into a buffer), causal,
+    B5 against the plain forward and B6/B7 against the plain backward, in
+    both dtypes."""
+    n = int(math.prod(shape))
+    for dt in ("bfloat16", "float32"):
+        buf = torch.randn(4 * n + 1, device="cuda",
+                          generator=gen).to(getattr(torch, dt))
+        q, k, v, do = (buf[1 + i * n:1 + (i + 1) * n].view(shape)
+                       for i in range(4))
+        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+        delta = fa.attention_delta(ref, do)
+        grads = (fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta,
+                                           causal=True),
+                 *fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta,
+                                             causal=True))
+        refs = fa.flash_attention_bwd_reference(q, k, v, ref, ref_lse, do,
+                                                causal=True)
+        torch.cuda.synchronize()
+        e_fwd = _row_err(torch, out, ref)
+        e_bwd = max(_row_err(torch, g, r, floor_frac=1e-2)
+                    for g, r in zip(grads, refs))
+        ok = e_fwd <= KERNEL_TOL[dt][0] and e_bwd <= BWD_TOL[dt] and \
+            (lse - ref_lse).abs().max().item() <= KERNEL_TOL[dt][1]
+        print("kernel %s %s causal, operands off a 16-byte boundary (the "
+              "wide route's element loads): out row-relative %.3g, "
+              "dq/dk/dv %.3g  %s" % (dt, shape, e_fwd, e_bwd,
+                                     "ok" if ok else "FAIL"))
+        if not ok:
+            raise RuntimeError("flash attention's wide route disagrees with "
+                               "its plain versions on misaligned operands")
+
+
 def kernel_phase(torch, fa):
     """B5 against its plain version on the card; returns the JSON entry
     fields measured here, at the training shape (launches are filled in
@@ -717,7 +807,8 @@ def kernel_phase(torch, fa):
                   (dt, 1, 8, 1024, 1024, 64, False, 1000),
                   (dt, 1, 8, 777, 1000, 64, True, 900),
                   (dt, 2, 4, 512, 512, 128, True, 512)]
-        cases += [(dt, b, h, sq, sk, d, causal, kv_len) for d in PAD_DIMS
+        cases += [(dt, b, h, sq, sk, d, causal, kv_len)
+                  for d in PAD_DIMS + WIDE_DIMS
                   for b, h, sq, sk, causal, kv_len in PAD_CASES]
     for b, h, s, d in (MP_ATTN, TRAIN_ATTN):
         cases.append(("bfloat16", b, h, s, s, d, True, s))
@@ -747,6 +838,8 @@ def kernel_phase(torch, fa):
             main_err = e_out
         if (dt, b, h, sq, sk, d, causal, kv_len) == cases[-2]:
             mp_err = e_out
+
+    _wide_misaligned(torch, fa, gen)
 
     # times at the prefill buckets the serving path runs, each beside one
     # SDPA forward of the same call, and at the training shape
@@ -795,7 +888,10 @@ def kernel_phase(torch, fa):
                  "d32": _pad_dim_times(torch, fa, gen,
                                        "flash_attention_fwd"),
                  "d256": _pad_dim_times(torch, fa, gen,
-                                        "flash_attention_fwd", D256_ATTN)},
+                                        "flash_attention_fwd", D256_ATTN),
+                 "d512": _pad_dim_times(torch, fa, gen,
+                                        "flash_attention_fwd", WIDE_ATTN),
+                 "largest_d_held": max(WIDE_DIMS), "wide_route": WIDE_ROUTE},
                 **timed[TRAIN_ATTN])
 
 
@@ -814,7 +910,8 @@ def backward_phase(torch, fa):
                   (dt, 1, 8, 777, 1000, 64, True, 900),
                   (dt, 1, 4, 1000, 600, 64, True, 600),
                   (dt, 2, 4, 512, 512, 128, True, 512)]
-        cases += [(dt, b, h, sq, sk, d, causal, kv_len) for d in PAD_DIMS
+        cases += [(dt, b, h, sq, sk, d, causal, kv_len)
+                  for d in PAD_DIMS + WIDE_DIMS
                   for b, h, sq, sk, causal, kv_len in PAD_CASES]
     for b, h, s, d in (MP_ATTN, TRAIN_ATTN):
         cases.append(("bfloat16", b, h, s, s, d, True, s))
@@ -898,7 +995,9 @@ def backward_phase(torch, fa):
         "library": "SDPA backward: dq, dk and dv together, shared by B6 and "
                    "B7", "mp": timed[key][MP_ATTN],
         "d32": _pad_dim_times(torch, fa, gen, name),
-        "d256": _pad_dim_times(torch, fa, gen, name, D256_ATTN)},
+        "d256": _pad_dim_times(torch, fa, gen, name, D256_ATTN),
+        "d512": _pad_dim_times(torch, fa, gen, name, WIDE_ATTN),
+        "largest_d_held": max(WIDE_DIMS), "wide_route": WIDE_ROUTE},
         **timed[key][TRAIN_ATTN])
         for key, name, line in (("dq", "flash_attention_bwd_dq", 103),
                                 ("dkv", "flash_attention_bwd_dkv", 131))]
@@ -6528,6 +6627,406 @@ def tune_phase(torch, np, fa, fb):
         tune.reset()
 
 
+# The data plane (bench.py's fit and data variants, through the port):
+# Module.fit of the unfused ResNet-50 v2 in fp32 over on-disk record
+# shards, ShardedRecordStream -> ShardedBatchIter -> DeviceQueueIter, batch
+# 128 (64, then 32, only on out-of-memory), 6 batches an epoch, 4 epochs;
+# the same fit fed by NDArrayIter from the same decoded arrays in memory;
+# a fused leg (B1-B3 behind the same feed, one epoch of 6 batches at 64);
+# and the port's copy of tools/bench_data.py's measure at its defaults
+DATA_FIT = dict(batches=(128, 64, 32), per_epoch=6, epochs=4, workers=2,
+                prefetch=4, shape=(3, 224, 224), lr=0.1, momentum=0.9)
+DATA_FUSED = dict(batch=64, per_epoch=6)
+DATA_BENCH = dict(records=2048, shape=(3, 64, 64), batch=64, workers=2,
+                  prefetch=4, num_shards=8, compute_ms=20.0, decode_reps=12)
+
+
+def _fit_records(np, n, shape, seed=0):
+    """bench.py's synthetic records: ``<f label><uint8 pixels>``."""
+    import struct
+
+    rng = np.random.RandomState(seed)
+    px = int(np.prod(shape))
+    return [struct.pack("<f", float(rng.randint(0, 1000)))
+            + rng.randint(0, 256, px, dtype=np.uint8).tobytes()
+            for _ in range(n)]
+
+
+def _batch_digest(np, batch):
+    """sha1 over a batch's data and label bytes (host copies)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for a in list(batch.data) + list(batch.label or []):
+        h.update(np.ascontiguousarray(
+            a.asnumpy() if hasattr(a, "asnumpy") else a).tobytes())
+    return h.hexdigest()
+
+
+def _data_stream(mpath, batch, shape, workers, prefetch):
+    from functools import partial
+
+    from mxnet_tpu_torch.data import (LocalLeaseAuthority, ShardedBatchIter,
+                                      ShardedRecordStream, decode_image_f32)
+
+    stream = ShardedRecordStream(
+        mpath, lease_client=LocalLeaseAuthority(ttl=600.0), rank=0,
+        decode=partial(decode_image_f32, shape=shape), workers=workers,
+        prefetch=prefetch, chunk=batch)
+    return ShardedBatchIter(stream, batch, shape)
+
+
+def _fit_run(torch, np, mx, sym, make_train, batch, n, epochs, digest=False,
+             fb=None):
+    """``Module.fit`` of ``sym`` on ``[gpu(0)]`` with kvstore 'tpu' over
+    ``make_train(module)``, then (past one epoch) one more epoch under the
+    profiler; returns the record: images/s over epochs 1.. (epoch 0 pays
+    the set-up), each epoch's mean cross-entropy (read once an epoch), the
+    profiler's pipeline and io stats at each epoch's end, the first
+    epoch's batch digests (``digest``), B1-B3 launches a batch (``fb``)
+    and the profiled epoch's wall and device busy time."""
+    from mxnet_tpu_torch import profiler
+
+    per_epoch = n // batch
+    mod = mx.mod.Module(sym, context=[mx.gpu(0)])
+    train = make_train(mod)
+    rec = {"times": [], "io": [], "pipe": [], "ce": [], "digests": [],
+           "per_batch": [], "profile": {}, "epochs": epochs}
+    last = {"counts": _fb_counts(fb) if fb else (0, 0, 0)}
+
+    def on_batch(param):
+        if digest and param.epoch == 0:
+            rec["digests"].append(_batch_digest(np,
+                                                param.locals["data_batch"]))
+        if fb is not None:
+            counts = _fb_counts(fb)
+            rec["per_batch"].append(tuple(
+                a - b for a, b in zip(counts, last["counts"])))
+            last["counts"] = counts
+        if param.nbatch == per_epoch - 1:
+            rec["ce"].append(float(param.eval_metric.get()[1]))
+
+    def on_epoch(*_):
+        torch.cuda.synchronize()
+        rec["times"].append(time.perf_counter())
+        rec["io"].append(profiler.io_stats())
+        rec["pipe"].append(profiler.pipeline_stats())
+
+    kw = dict(kvstore="tpu", optimizer="sgd",
+              optimizer_params={"learning_rate": DATA_FIT["lr"],
+                                "momentum": DATA_FIT["momentum"]},
+              eval_metric="ce", batch_end_callback=on_batch,
+              epoch_end_callback=on_epoch)
+    try:
+        mx.random.seed(0)
+        profiler.pipeline_reset()
+        profiler.io_reset()
+        torch.cuda.synchronize()
+        rec["t0"] = time.perf_counter()
+        mod.fit(train, num_epoch=epochs, initializer=mx.init.Xavier(), **kw)
+        rec["fused"] = mod._fused is not None
+        if epochs > 1:
+            # one more epoch through the same feed under the profiler: the
+            # device's busy share of the fit loop
+            _device_profile(torch, lambda: mod.fit(
+                train, begin_epoch=epochs, num_epoch=epochs + 1, **kw),
+                top=5, stats=rec["profile"])
+    finally:
+        close = getattr(train, "close", None)
+        if callable(close):
+            close()
+        del mod
+        gc.collect()
+    t = rec["times"]
+    rec["img_s"] = n * (epochs - 1) / (t[epochs - 1] - t[0]) \
+        if epochs > 1 else n / (t[0] - rec["t0"])
+    return rec
+
+
+def _fit_summary(rec, batch):
+    """bench.py's fit record, under its key names, at the last epoch's end
+    (fit resets the feed after it, and the feed reads ahead into an epoch
+    nobody trains), with the input-wait share of epochs 1.. and the
+    profiled epoch's device busy share."""
+    e = rec["epochs"]
+    pipe, io = rec["pipe"][e - 1], rec["io"][e - 1]
+    wall = rec["times"][e - 1] - rec["times"][0]
+    waited = io.get("wait_seconds", 0.0) - rec["io"][0].get("wait_seconds",
+                                                             0.0)
+    out = {"img_s": rec["img_s"], "variant": "fit", "batch": batch,
+           "host_syncs": pipe.get("host_syncs", 0),
+           "avg_put_ms": pipe.get("avg_put_ms"),
+           "avg_stall_feed_ms": pipe.get("avg_stall_feed_ms"),
+           "io_records": io.get("records", 0),
+           "io_wait_s": io.get("wait_seconds", 0.0),
+           "io_wait_p99_ms": io.get("input_wait_p99_ms"),
+           "input_wait_share": waited / wall, "epoch_ce": rec["ce"][:e],
+           "fused": rec["fused"]}
+    p = rec["profile"]
+    if p:
+        out["profiled_epoch_busy_share"] = p["busy_ms"] / p["wall_ms"]
+    return out
+
+
+def _data_bench_decode(raw, seed, shape=(3, 64, 64), reps=12):
+    """tools/bench_data.py's decode_heavy: decode_image_f32 plus ``reps``
+    dense passes over the pixels (a JPEG decode and augmentation's cost).
+    Module level: the spawn pool pickles it by reference."""
+    import numpy as np
+
+    from mxnet_tpu_torch.data import decode_image_f32
+
+    img, label = decode_image_f32(raw, seed, shape=shape)
+    x = img
+    for _ in range(reps):
+        x = np.sqrt(x * x + 1e-6)
+    return x.astype(np.float32), label
+
+
+def _data_bench_pass(np, mpath, shape, batch, workers, prefetch, compute_s,
+                     reps):
+    """One warm-up epoch, then one measured epoch under a fixed simulated
+    step (the host sleeps); returns (records/s, input-wait share, p50 ms,
+    p99 ms) (tools/bench_data.py's _run_pass)."""
+    from functools import partial
+
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.data import (LocalLeaseAuthority, ShardedBatchIter,
+                                      ShardedRecordStream)
+
+    stream = ShardedRecordStream(
+        mpath, lease_client=LocalLeaseAuthority(ttl=600.0), rank=0,
+        decode=partial(_data_bench_decode, shape=shape, reps=reps),
+        workers=workers, prefetch=prefetch, chunk=batch)
+    it = ShardedBatchIter(stream, batch, shape)
+    try:
+        for _ in it:
+            pass
+        it.reset()
+        next(it)
+        profiler.io_reset()
+        consumed = 0
+        t0 = time.perf_counter()
+        for b in it:
+            consumed += b.data[0].shape[0]
+            time.sleep(compute_s)
+        wall = time.perf_counter() - t0
+        st = profiler.io_stats()
+        return (consumed / wall, st.get("wait_seconds", 0.0) / wall,
+                st.get("input_wait_p50_ms"), st.get("input_wait_p99_ms"))
+    finally:
+        stream.close()
+
+
+def _replay_identical(np, mpath, shape, batch):
+    """Epoch 0 read whole, and split across a mid-epoch handoff between two
+    consumers, decodes to the same bytes (tools/bench_data.py's
+    replay_identical)."""
+    import hashlib
+    from functools import partial
+
+    from mxnet_tpu_torch.data import (LocalLeaseAuthority,
+                                      ShardedRecordStream, decode_image_f32)
+
+    def stream(auth, rank):
+        return ShardedRecordStream(
+            mpath, lease_client=auth, rank=rank,
+            decode=partial(decode_image_f32, shape=shape), workers=0,
+            prefetch=0, chunk=batch, deterministic=True)
+
+    def hashes(pairs):
+        return {(s, i): hashlib.sha1(img.tobytes() + np.float32(
+            lbl).tobytes()).hexdigest() for s, i, (img, lbl) in pairs}
+
+    full_stream = stream(LocalLeaseAuthority(ttl=600.0), 0)
+    try:
+        full = hashes(full_stream.epoch_records())
+    finally:
+        full_stream.close()
+    auth = LocalLeaseAuthority(ttl=600.0)
+    a = stream(auth, 0)
+    it = a.epoch_records()
+    half = [next(it) for _ in range(len(full) // 2)]
+    it.close()
+    a.close()
+    b = stream(auth, 1)
+    try:
+        rest = list(b.epoch_records())
+    finally:
+        b.close()
+    return hashes(half + rest) == full
+
+
+def data_bench_measure(np, root, records, shape, batch, workers, prefetch,
+                       num_shards, compute_ms, decode_reps):
+    """The port's copy of tools/bench_data.py's ``measure``: sync and
+    prefetched passes and the deterministic-replay check, one record."""
+    import struct
+
+    from mxnet_tpu_torch.data import write_record_shards
+
+    rng = np.random.RandomState(0)
+    n = int(np.prod(shape))
+    mpath = write_record_shards(
+        root, "benchimgs",
+        [struct.pack("<f", float(i % 1000))
+         + rng.randint(0, 256, n, dtype=np.uint8).tobytes()
+         for i in range(records)], num_shards=num_shards)
+    sync_rs, sync_frac, _, _ = _data_bench_pass(
+        np, mpath, shape, batch, 0, 0, compute_ms / 1000.0, decode_reps)
+    pre_rs, pre_frac, p50, p99 = _data_bench_pass(
+        np, mpath, shape, batch, workers, prefetch, compute_ms / 1000.0,
+        decode_reps)
+    return {"metric": "data_plane_throughput", "value": pre_rs,
+            "unit": "records/s", "variant": "data", "records_s": pre_rs,
+            "sync_records_s": sync_rs, "speedup_vs_sync": pre_rs / sync_rs,
+            "input_wait_frac_prefetch": pre_frac,
+            "input_wait_frac_sync": sync_frac, "input_wait_p50_ms": p50,
+            "input_wait_p99_ms": p99,
+            "deterministic_replay_identical": bool(_replay_identical(
+                np, mpath, shape, batch)),
+            "records": records, "batch": batch, "decode_workers": workers,
+            "prefetch": prefetch, "compute_ms": compute_ms,
+            "decode_reps": decode_reps}
+
+
+def data_plane_phase(torch, np, fa, fb):
+    """The port's data plane on the card (see DATA_FIT); returns the launch
+    counts of B5, B6, B7, B1, B2, B3 on its main path (the unfused fit runs
+    none of them; the fused leg runs B1-B3)."""
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.data import (decode_image_f32,
+                                      iter_manifest_records, record_seed,
+                                      write_record_shards)
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel.feed import DeviceQueueIter
+
+    shape = DATA_FIT["shape"]
+    epochs, per_epoch = DATA_FIT["epochs"], DATA_FIT["per_epoch"]
+    try:
+        import PIL
+        pil = "Pillow %s" % PIL.__version__
+    except ImportError:
+        pil = "no Pillow (encoded images cannot be decoded; .npy records can)"
+    print("data plane: %s on this machine" % pil)
+    root = tempfile.mkdtemp(prefix="data_plane_")
+    gc.collect()
+    try:
+        _reset_counts(fa)
+        _reset_fb_counts(fb)
+        sym = resnet.get_symbol(num_classes=1000, num_layers=50,
+                                image_shape=shape, fused=False)
+
+        def feed(mpath, batch):
+            return lambda mod: DeviceQueueIter(_data_stream(
+                mpath, batch, shape, DATA_FIT["workers"],
+                DATA_FIT["prefetch"]), module=mod)
+
+        rec = None
+        for batch in DATA_FIT["batches"]:
+            n = per_epoch * batch
+            mpath = write_record_shards(root, "fitimgs%d" % batch,
+                                        _fit_records(np, n, shape))
+            try:
+                rec = _fit_run(torch, np, mx, sym, feed(mpath, batch), batch,
+                               n, epochs, digest=True)
+                break
+            except torch.cuda.OutOfMemoryError:
+                gc.collect()
+                torch.cuda.empty_cache()
+                print("data plane fit: out of memory at batch %d" % batch)
+        if rec is None:
+            raise RuntimeError("data plane fit: out of memory at every "
+                               "batch")
+        unfused_launches = _counts(fa) + _fb_counts(fb)
+        fit = _fit_summary(rec, batch)
+        print("data plane fit, unfused ResNet-50 fp32 (ShardedRecordStream "
+              "-> ShardedBatchIter -> DeviceQueueIter; %d records of %d "
+              "bytes in %d shards, %d epochs): %s"
+              % (n, 4 + int(np.prod(shape)), 8, epochs, json.dumps(fit)))
+
+        # the first epoch's batches as the feed placed them, against a
+        # synchronous read (prefetch 0, workers 0) of the same shards
+        sync = _data_stream(mpath, batch, shape, 0, 0)
+        try:
+            want = [_batch_digest(np, b) for b in sync]
+        finally:
+            sync.close()
+        digests_equal = want == rec["digests"]
+        print("data plane fit: the first epoch's %d placed batches' sha1 "
+              "equal a synchronous read's: %s" % (len(want), digests_equal))
+
+        # the same fit from the same (epoch 0) decoded arrays in memory
+        rows = [decode_image_f32(raw, record_seed(0, s, i), shape=shape)
+                for s, i, raw in iter_manifest_records(mpath)]
+        x = np.stack([r[0] for r in rows])
+        y = np.asarray([r[1] for r in rows], np.float32)
+        del rows
+        mem = _fit_run(torch, np, mx, sym,
+                       lambda mod: mx.io.NDArrayIter(x, y, batch_size=batch),
+                       batch, n, epochs)
+        mem_fit = _fit_summary(mem, batch)
+        del x, y
+        print("data plane fit, the same from NDArrayIter in memory: %s; "
+              "record shards / memory images/s %.3f"
+              % (json.dumps(mem_fit), fit["img_s"] / mem_fit["img_s"]))
+
+        # the fused leg: B1-B3 behind the same feed
+        fbatch = DATA_FUSED["batch"]
+        fn = DATA_FUSED["per_epoch"] * fbatch
+        fpath = write_record_shards(root, "fusedimgs",
+                                    _fit_records(np, fn, shape, seed=1))
+        _reset_counts(fa)
+        _reset_fb_counts(fb)
+        fused = _fit_run(torch, np, mx, resnet.get_symbol(
+            num_classes=1000, num_layers=50, image_shape=shape, fused=True),
+            feed(fpath, fbatch), fbatch, fn, 1, fb=fb)
+        fused_launches = _counts(fa) + _fb_counts(fb)
+        want_per = (B1_PER_FORWARD, B2_PER_STEP, B3_PER_STEP)
+        print("data plane fused leg, fused ResNet-50 fp32 behind the same "
+              "feed, 1 epoch of %d batches of %d: launches B1 %d, B2 %d, "
+              "B3 %d (a batch: %s), mean cross-entropy %.5f, %.1f images/s "
+              "with the set-up" % (
+                  DATA_FUSED["per_epoch"], fbatch, *fused_launches[3:],
+                  " ".join("%d/%d/%d" % p for p in fused["per_batch"]),
+                  fused["ce"][0], fused["img_s"]))
+
+        bench = data_bench_measure(np, os.path.join(root, "bench"),
+                                   **DATA_BENCH)
+        print("data plane data (tools/bench_data.py's measure, the port's "
+              "copy): %s" % json.dumps(bench))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    ce = rec["ce"][:epochs]
+    if not (rec["fused"] and mem["fused"] and fused["fused"]):
+        raise RuntimeError("data plane: the fused SPMD group was not engaged")
+    if fit["io_records"] != epochs * n:
+        raise RuntimeError("data plane: %d records read in %d epochs of %d"
+                           % (fit["io_records"], epochs, n))
+    if not all(math.isfinite(v) for v in ce + mem["ce"] + fused["ce"]) or \
+            not ce[-1] < ce[0]:
+        raise RuntimeError("data plane: epoch cross-entropy %s (and %s, "
+                           "%s): not finite, or not falling" % (
+                               ce, mem["ce"], fused["ce"]))
+    if not digests_equal:
+        raise RuntimeError("data plane: the placed batches differ from a "
+                           "synchronous read of the same shards")
+    if any(unfused_launches):
+        raise RuntimeError("data plane: the unfused fit launched hand "
+                           "kernels %s" % (unfused_launches,))
+    if len(fused["per_batch"]) != DATA_FUSED["per_epoch"] or \
+            any(p != want_per for p in fused["per_batch"]):
+        raise RuntimeError("data plane: fused leg launches a batch %s, want "
+                           "%s" % (fused["per_batch"], want_per))
+    if not bench["deterministic_replay_identical"]:
+        raise RuntimeError("data plane: the deterministic replay differs")
+    return fused_launches
+
+
 def main():
     import torch
 
@@ -6634,6 +7133,9 @@ def main():
     for entry, n in zip([fwd, *bwd, conv, *grads], quant):
         entry["quant_launches"] = n
     phase("tune", tune_phase, torch, np, fa, fb)
+    data_plane = phase("data_plane", data_plane_phase, torch, np, fa, fb)
+    for entry, n in zip([fwd, *bwd, conv, *grads], data_plane):
+        entry["data_plane_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; shared-prefix serving (cache on) "
           "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "
@@ -6646,7 +7148,8 @@ def main():
           "follower's run) %s; model zoo B5-B7 and B1-B3 %s; "
           "LM path (fit, serving, op sweep) B5-B7 and B1-B3 %s; SSD path "
           "(fit, detection, contrib sweep) B5-B7 and B1-B3 %s; int8 "
-          "serving path B5-B7 and B1-B3 %s"
+          "serving path B5-B7 and B1-B3 %s; data plane (unfused fit, "
+          "fused leg) B5-B7 and B1-B3 %s"
           % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
              SPEC_TRACE["k"], fwd["spec_launches"], conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
@@ -6657,7 +7160,8 @@ def main():
              fwd["mp_serve_launches"], ", ".join("%d" % n for n in zoo),
              ", ".join("%d" % n for n in lm),
              ", ".join("%d" % n for n in ssd_path),
-             ", ".join("%d" % n for n in quant)))
+             ", ".join("%d" % n for n in quant),
+             ", ".join("%d" % n for n in data_plane)))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

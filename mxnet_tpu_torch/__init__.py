@@ -26,6 +26,9 @@ Ported so far, six paths over the six hand-written CUDA kernels
   ``torch.distributed``: ``parallel.TrainStep(mesh=parallel.make_mesh(...))``
   (ZeRO with ``zero=True``) and ``Module(kvstore='tpu')`` (``kv``), on B1–B3
   through the fused unit's data-parallel wrappers;
+- the data plane: ``recordio``, record shards read through leases
+  (``data``), ``io``'s record, image, CSV, LibSVM and MNIST iterators and
+  ``image``, fed to the card by ``parallel.feed.DeviceQueueIter``;
 - the op families behind them on torch's libraries (``ops``: nn, tensor,
   random, contrib and vision; ``nd.contrib``/``nd.random`` and their
   ``sym`` twins), the symbol model zoo (``models``) with the SSD300
@@ -41,6 +44,7 @@ from . import ndarray as nd  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import parallel  # noqa: F401
+from . import recordio  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, resolve_device
@@ -56,4 +60,4 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "current_context", "AttrScope", "nd", "sym", "autograd",
            "random", "init", "initializer", "opt", "optimizer", "metric",
            "io", "mod", "model", "callback", "lr_scheduler", "name", "kv",
-           "kvstore", "parallel", "contrib"]
+           "kvstore", "parallel", "contrib", "recordio"]

@@ -155,6 +155,37 @@ KNOBS = {
     "MXNET_TUNE_BG_BUDGET": (
         "2", "max timed programs per background-tuning slot, hand default "
         "included (tune/background.py)"),
+    "MXNET_TPU_FEED_DEPTH": (
+        "2",
+        "DeviceQueueIter bounded pipeline depth: batches staged on the "
+        "card ahead of the consumer (parallel/feed.py); integer >= 1"),
+    "MXNET_DATA_SHARDS": (
+        "8",
+        "default shard count for write_record_shards (capped at the "
+        "record count so no shard is empty); integer >= 1 "
+        "(data/writer.py)"),
+    "MXNET_DATA_WORKERS": (
+        "0",
+        "background decode/augment process-pool size for "
+        "ShardedRecordStream; 0 decodes inline on the reading thread; "
+        "integer >= 0 (data/service.py)"),
+    "MXNET_DATA_PREFETCH": (
+        "2",
+        "prefetch-queue depth (read/decode chunks buffered ahead of "
+        "the training thread); 0 = fully synchronous reads; integer >= 0 "
+        "(data/service.py)"),
+    "MXNET_DATA_DETERMINISTIC": (
+        "1",
+        "seed record decode/augment from (epoch, shard, record-index) "
+        "so shard rebalancing replays byte-identical batches; 0 salts "
+        "seeds with worker identity; 0|1, anything else raises "
+        "(data/service.py)"),
+    "MXNET_DATA_LEASE_TTL": (
+        "30",
+        "shard-lease time-to-live in seconds: a lease not renewed "
+        "(cursor committed) within the TTL returns to the pool for "
+        "rebalancing; finite float > 0 (data/lease.py's local "
+        "authority)"),
     "MXNET_IR_FUSE": (
         "1", "kill switch for rule-based fusion in the model builders: "
         "resnet(fused=True) applies the IR fusion pass when 1, returns the "
@@ -216,4 +247,15 @@ def get_positive_int(name):
         v = 0
     if v < 1:
         raise MXNetError("%s=%r must be an integer >= 1" % (name, raw))
+    return v
+
+
+def get_positive_float(name):
+    raw = get(name)
+    try:
+        v = float(str(raw).strip())
+    except (TypeError, ValueError):
+        v = float("nan")
+    if not 0.0 < v < float("inf"):  # also rejects NaN
+        raise MXNetError("%s=%r must be a finite float > 0" % (name, raw))
     return v

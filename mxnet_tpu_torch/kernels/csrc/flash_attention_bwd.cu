@@ -101,6 +101,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_attention_wide.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
@@ -991,7 +992,9 @@ bool bad_dims(int bh, int seq_q, int seq_k, int kv_len) {
 
 // q, dout, dq: (bh, seq_q, d); k, v: (bh, seq_k, d); lse, delta: (bh,
 // seq_q) f32. dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores;
-// q, k, v, dout 16-byte aligned). d: 64, 128 or 256. 1 <= kv_len <= seq_k.
+// q, k, v, dout 16-byte aligned). d: 64, 128 or 256, or above 256 a multiple
+// of 128 (the wide route of flash_attention_wide.cuh, both dtypes, tile
+// (64, 64) only). 1 <= kv_len <= seq_k.
 // (block_q, block_k): the tile, as in flash_attention_fwd. Launches B6 on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
@@ -1003,6 +1006,17 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       int block_k, void* stream) {
   if (bad_dims(bh, seq_q, seq_k, kv_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 256) {  // the wide route (flash_attention_wide.cuh), hand tile only
+    if (block_q != kBlockQ || block_k != kBlockK || (dtype != 0 && dtype != 1))
+      return (int)cudaErrorInvalidValue;
+    return dtype == 0
+               ? (int)wide::launch_dq<float>(q, k, v, dout, lse, delta, dq,
+                                             bh, seq_q, seq_k, d, kv_len,
+                                             scale, causal, s)
+               : (int)wide::launch_dq<__nv_bfloat16>(
+                     q, k, v, dout, lse, delta, dq, bh, seq_q, seq_k, d,
+                     kv_len, scale, causal, s);
+  }
   if (dtype == 0) {
     if (block_q != kBlockQ || block_k != kBlockK)
       return (int)cudaErrorInvalidValue;
@@ -1044,6 +1058,17 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* stream) {
   if (bad_dims(bh, seq_q, seq_k, kv_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 256) {  // the wide route (flash_attention_wide.cuh), hand tile only
+    if (block_q != kBlockQ || block_k != kBlockK || (dtype != 0 && dtype != 1))
+      return (int)cudaErrorInvalidValue;
+    return dtype == 0
+               ? (int)wide::launch_dkv<float>(q, k, v, dout, lse, delta, dk,
+                                              dv, bh, seq_q, seq_k, d, kv_len,
+                                              scale, causal, s)
+               : (int)wide::launch_dkv<__nv_bfloat16>(
+                     q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k, d,
+                     kv_len, scale, causal, s);
+  }
   if (dtype == 0) {
     if (block_q != kBlockQ || block_k != kBlockK)
       return (int)cudaErrorInvalidValue;

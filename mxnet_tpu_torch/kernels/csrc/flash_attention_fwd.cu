@@ -70,6 +70,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_attention_wide.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
@@ -469,8 +470,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 
 // q: (bh, seq_q, d); k, v: (bh, seq_k, d); out like q; lse: (bh, seq_q) f32.
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; q, k and v
-// 16-byte aligned, see hopper::panel_map). d: 64, 128 or 256. 1 <= kv_len
-// <= seq_k. (block_q, block_k): the tile; float32 takes (64, 64) only,
+// 16-byte aligned, see hopper::panel_map). d: 64, 128 or 256, or above 256 a
+// multiple of 128 (the wide route of flash_attention_wide.cuh, both dtypes,
+// tile (64, 64) only). 1 <= kv_len <= seq_k. (block_q, block_k): the tile; float32 takes (64, 64) only,
 // bfloat16 (64 or 128, 64 or 128) at d 64 and 128 and (64, 64) at d 256
 // (shared memory), the list of FLASH_TC_TILES in flash_attention.py; any
 // other is refused. Launches on `stream` and returns cudaGetLastError() (0
@@ -487,6 +489,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 256) {  // the wide route (flash_attention_wide.cuh), hand tile only
+    if (block_q != kBlockQ || block_k != kBlockK)
+      return (int)cudaErrorInvalidValue;
+    return dtype == 0
+               ? (int)wide::launch_fwd<float>(q, k, v, out, lse, bh, seq_q,
+                                              seq_k, d, kv_len, scale,
+                                              causal, s)
+               : (int)wide::launch_fwd<__nv_bfloat16>(q, k, v, out, lse, bh,
+                                                      seq_q, seq_k, d, kv_len,
+                                                      scale, causal, s);
+  }
   if (dtype == 0) {
     if (block_q != kBlockQ || block_k != kBlockK)
       return (int)cudaErrorInvalidValue;

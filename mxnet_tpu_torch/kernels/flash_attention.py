@@ -14,13 +14,16 @@ for a head dim D of 64, 128 or 256: a smaller D is zero-padded to the
 next of them on the card (:func:`_pad_head_dim`; zero lanes add 0 to
 q . k, to out and to delta, as the JAX package's padding to 128 lanes
 does), with the scale taken from the unpadded D, and the outputs are
-sliced back; a D above 256 raises (ROADMAP.md Queue C, C12).
+sliced back. Above 256 the kernels take any multiple of 128 (the wide
+route, ``csrc/flash_attention_wide.cuh``: a grid axis over column groups
+of the output, mma.sync on the tensor cores in bfloat16, the CUDA cores
+in float32), and D is zero-padded to the next one.
 
 The tile is a launch parameter, ``(block_q, block_k)``, one schedule for
 the forward and both backward kernels (as the JAX package's blocks):
 :data:`FLASH_TC_TILES` on the tensor cores, ``(64, 64)`` alone on the
-CUDA cores. Left None, :func:`flash_attention` consults the schedule
-table (``tune.schedule_for("flash_attention", (b, h, sq, sk, d,
+CUDA cores and on the wide route. Left None, :func:`flash_attention`
+consults the schedule table (``tune.schedule_for("flash_attention", (b, h, sq, sk, d,
 causal), dtype)``) and falls back to the hand default, 64 x 64; a table
 entry that does not fit the shape counts a ``fallback_illegal`` and runs
 the hand default. An explicit tile the kernels do not take raises.
@@ -47,6 +50,8 @@ from ..base import MXNetError
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
+# above HEAD_DIMS[-1] the wide route takes any multiple of this
+WIDE_MULTIPLE = 128
 
 # the schedule knob values of block_q and block_k, and the hand default
 FLASH_BLOCKS = (64, 128)
@@ -67,13 +72,14 @@ def _scale(sm_scale, d):
 
 def _kernel_head_dim(d, what):
     """The head dim the kernels run a D of ``d`` at: the smallest of
-    ``HEAD_DIMS`` that holds it. A D above 256 raises: it needs a wider
-    instantiation of the kernels (ROADMAP.md Queue C, C12)."""
+    ``HEAD_DIMS`` that holds it, and above 256 the next multiple of
+    :data:`WIDE_MULTIPLE` (the wide route)."""
+    if d < 1:
+        raise MXNetError("%s: head dim %d must be >= 1" % (what, d))
     for kd in HEAD_DIMS:
         if d <= kd:
             return kd
-    raise MXNetError("%s: head dim %d is above the CUDA kernels' largest, "
-                     "%d" % (what, d, HEAD_DIMS[-1]))
+    return -(-d // WIDE_MULTIPLE) * WIDE_MULTIPLE
 
 
 def _pad_head_dim(t, d_to):
@@ -87,7 +93,8 @@ def tile_legal(d, dtype, block_q, block_k, seq_q, seq_k):
     """``(ok, reason)``: whether the kernels take the tile ``(block_q,
     block_k)`` for a head dim ``d`` (before padding), ``dtype`` and these
     sequence lengths: a tile of :data:`FLASH_TC_TILES` for the kernels'
-    head dim in bfloat16, ``(64, 64)`` in float32, and every kernel's
+    head dim in bfloat16, ``(64, 64)`` in float32 and on the wide route
+    (D above 256), and every kernel's
     grid within 65535 blocks on its y (B5 and B6 walk query blocks of
     ``block_q``, B7 key blocks of ``block_k``; the float32 B6 and B7 own
     32 rows a block at D = 256)."""
@@ -96,7 +103,12 @@ def tile_legal(d, dtype, block_q, block_k, seq_q, seq_k):
     except MXNetError as e:
         return False, str(e)
     tile = (int(block_q), int(block_k))
-    if dtype == torch.bfloat16:
+    if kd > HEAD_DIMS[-1]:
+        if tile != (DEFAULT_BLOCK, DEFAULT_BLOCK):
+            return False, ("the wide route (head dim %d) takes the tile "
+                           "(64, 64) only, got %s" % (kd, tile))
+        rows_q = rows_k = DEFAULT_BLOCK
+    elif dtype == torch.bfloat16:
         if tile not in FLASH_TC_TILES[kd]:
             return False, ("tile %s is not one of the tensor-core tiles %s "
                            "at head dim %d" % (tile, FLASH_TC_TILES[kd], kd))
@@ -290,25 +302,28 @@ def _launch(source, entry, inputs, outputs, scale, causal, kv_len, tile,
     ``inputs`` (q, k, v first) and preallocated ``outputs`` at ``tile`` =
     ``(block_q, block_k)``. Every entry point takes the pointers, then
     (bh, seq_q, seq_k, d, kv_len, scale, causal, dtype, block_q, block_k,
-    stream), and returns cudaGetLastError(). In bfloat16 the first
-    ``tma_inputs`` inputs are loaded by TMA, which needs 16-byte aligned
-    addresses (``hopper::panel_map`` in ``csrc/hopper_mma.cuh``); they are
-    checked here so that a misaligned one raises a clear error."""
+    stream), and returns cudaGetLastError(). In bfloat16 up to D 256 the
+    first ``tma_inputs`` inputs are loaded by TMA, which needs 16-byte
+    aligned addresses (``hopper::panel_map`` in ``csrc/hopper_mma.cuh``);
+    they are checked here so that a misaligned one raises a clear error.
+    The wide route (D above 256) loads without TMA, in 16-byte loads when
+    every operand is aligned and element by element otherwise."""
     from ._build import load
 
     q, k = inputs[0], inputs[1]
     b, h, sq, d = q.shape
-    if d not in HEAD_DIMS:
+    if d != _kernel_head_dim(d, entry):
         raise MXNetError("%s: head dim %d not supported by the CUDA kernel "
-                         "(one of %s)" % (entry, d, HEAD_DIMS))
+                         "(one of %s, or a multiple of %d above them)"
+                         % (entry, d, HEAD_DIMS, WIDE_MULTIPLE))
     ok, why = tile_legal(d, q.dtype, tile[0], tile[1], sq, k.shape[2])
     if not ok:
         raise MXNetError("%s: %s" % (entry, why))
     tensors = (*inputs, *outputs)
     if not all(t.is_contiguous() for t in tensors):
         raise MXNetError("%s: every tensor must be contiguous" % entry)
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in inputs[:tma_inputs]):
+    if q.dtype == torch.bfloat16 and d <= HEAD_DIMS[-1] and any(
+            t.data_ptr() % 16 for t in inputs[:tma_inputs]):
         raise MXNetError("%s: bfloat16 q, k, v%s must start on a 16-byte "
                          "boundary (the tensor-core kernel loads them with "
                          "TMA)" % (entry, ", dout" * (tma_inputs > 3)))
@@ -534,7 +549,8 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None, kv_len=None,
     backward kernels; left None, the schedule table is consulted for this
     (shape, dtype, backend), key ``flash_attention``, falling back to 64
     (see the module docstring). On a CUDA tensor the forward launches B5
-    (D up to 256, run at 64, 128 or 256 lanes; float32 or bfloat16) and
+    (any D: run at 64, 128 or 256 lanes, or a multiple of 128 above
+    them; float32 or bfloat16) and
     adds one to ``flash_attention.launches``, and the backward launches B6
     and B7; on a CPU tensor both run the plain versions. Returns ``out``,
     or ``(out, lse)`` with ``return_lse`` (``lse`` carries no

@@ -319,38 +319,60 @@ def health_reset():
 # the training loop's input pipeline and host syncs
 # ---------------------------------------------------------------------------
 _PIPE_LOCK = threading.Lock()
-_PIPE_ZERO = {"host_syncs": 0, "puts": 0, "preplaced": 0, "steps": 0,
-              "nbytes": 0, "put_seconds": 0.0, "stall_compute_seconds": 0.0,
-              "max_inflight": 0}
+_PIPE_ZERO = {"host_syncs": 0, "puts": 0, "preplaced": 0, "batches": 0,
+              "steps": 0, "nbytes": 0, "put_seconds": 0.0,
+              "stall_feed_seconds": 0.0, "stall_compute_seconds": 0.0,
+              "max_queue_depth": 0, "max_inflight": 0}
 _PIPE = dict(_PIPE_ZERO)
 
 
-def h2d_record(host_syncs=0, puts=0, preplaced=0, steps=0, nbytes=0,
-               seconds=0.0, stall_compute=0.0, inflight=None):
+def h2d_record(host_syncs=0, puts=0, preplaced=0, batches=0, steps=0,
+               nbytes=0, seconds=0.0, stall_feed=0.0, stall_compute=0.0,
+               queue_depth=None, inflight=None):
     """Count what a training loop did: host syncs (``TrainStep``'s ``halt``
     sentinel, a metric read), batch arrays placed on a mesh and their bytes
-    and seconds, arrays found placed already, fused steps, the seconds the
-    host waited for the card and the most steps in flight."""
+    and seconds, arrays found placed already, batches a ``DeviceQueueIter``
+    staged and the seconds its consumer waited for them, fused steps, the
+    seconds the host waited for the card, the deepest feed queue and the
+    most steps in flight."""
     with _PIPE_LOCK:
         s = _PIPE
         s["host_syncs"] += int(host_syncs)
         s["puts"] += int(puts)
         s["preplaced"] += int(preplaced)
+        s["batches"] += int(batches)
         s["steps"] += int(steps)
         s["nbytes"] += int(nbytes)
         s["put_seconds"] += float(seconds)
+        s["stall_feed_seconds"] += float(stall_feed)
         s["stall_compute_seconds"] += float(stall_compute)
+        if queue_depth is not None and queue_depth > s["max_queue_depth"]:
+            s["max_queue_depth"] = int(queue_depth)
         if inflight is not None and inflight > s["max_inflight"]:
             s["max_inflight"] = int(inflight)
 
 
 def pipeline_stats(reset=False):
-    """The counters that were recorded (nonzero ones only); an empty dict
-    when nothing was."""
+    """The counters that were recorded (nonzero ones only), with the JAX
+    package's derived averages (``avg_put_ms``, ``put_MBps``,
+    ``avg_stall_feed_ms``, ``avg_stall_compute_ms``) where their counts
+    are nonzero; an empty dict when nothing was recorded."""
     with _PIPE_LOCK:
         snap = {k: v for k, v in _PIPE.items() if v}
         if reset:
             _PIPE.update(_PIPE_ZERO)
+    if snap.get("puts"):
+        snap["avg_put_ms"] = round(
+            snap.get("put_seconds", 0.0) / snap["puts"] * 1e3, 3)
+        if snap.get("put_seconds"):
+            snap["put_MBps"] = round(
+                snap.get("nbytes", 0) / snap["put_seconds"] / 1e6, 1)
+    if snap.get("batches"):
+        snap["avg_stall_feed_ms"] = round(
+            snap.get("stall_feed_seconds", 0.0) / snap["batches"] * 1e3, 3)
+    if snap.get("steps"):
+        snap["avg_stall_compute_ms"] = round(
+            snap.get("stall_compute_seconds", 0.0) / snap["steps"] * 1e3, 3)
     return snap
 
 
@@ -488,6 +510,98 @@ def tuning_reset():
         _TUNE_CORR.clear()
 
 
+# ---------------------------------------------------------------------------
+# sharded dataset service (``data/``): records, bytes, leases, rebalances,
+# resumes, prefetch hits, decode time and a per-batch input-wait reservoir
+# for p50/p99. Rides dump_profile as ioStats. Unknown counter names raise.
+# ---------------------------------------------------------------------------
+_IO_LOCK = threading.Lock()
+_IO_ZERO = {
+    "records": 0, "bytes": 0, "batches": 0, "decode_tasks": 0,
+    "prefetch_hits": 0, "prefetch_misses": 0,
+    "leases": 0, "lease_lost": 0, "rebalanced_leases": 0,
+    "shards_done": 0, "epochs": 0, "resumes": 0,
+    "read_seconds": 0.0, "decode_seconds": 0.0, "wait_seconds": 0.0,
+}
+_IO_FLOATS = ("read_seconds", "decode_seconds", "wait_seconds")
+_IO = dict(_IO_ZERO)
+_IO_CURSORS = {}            # shard index -> last resume cursor seen
+_IO_QUEUE_DEPTH_MAX = 0
+_IO_LAT_CAP = 8192
+_IO_WAIT_LAT = None         # deque of wait seconds, created lazily
+
+
+def io_record(resume_cursors=None, wait_latencies=None,
+              queue_depth=None, **adds):
+    """Accumulate dataset-service counters (thread-safe).
+    ``resume_cursors`` is a ``{shard_index: cursor}`` last-seen map,
+    ``wait_latencies`` a list of per-batch input-wait seconds for the
+    reservoir, ``queue_depth`` an instantaneous prefetch-queue depth
+    (the max is kept). Unknown counter names raise."""
+    global _IO_WAIT_LAT, _IO_QUEUE_DEPTH_MAX
+    with _IO_LOCK:
+        for k, v in adds.items():
+            if k in _IO_FLOATS:
+                _IO[k] += float(v)
+            elif k in _IO_ZERO:
+                _IO[k] += int(v)
+            else:
+                raise ValueError("io_record: unknown counter %r" % k)
+        if resume_cursors:
+            for s, c in resume_cursors.items():
+                _IO_CURSORS[int(s)] = int(c)
+        if queue_depth is not None and queue_depth > _IO_QUEUE_DEPTH_MAX:
+            _IO_QUEUE_DEPTH_MAX = int(queue_depth)
+        if wait_latencies:
+            if _IO_WAIT_LAT is None:
+                from collections import deque
+
+                _IO_WAIT_LAT = deque(maxlen=_IO_LAT_CAP)
+            _IO_WAIT_LAT.extend(wait_latencies)
+
+
+def io_stats(reset=False):
+    """Snapshot with the prefetch hit rate, the last resume cursor per
+    shard and input-wait p50/p99 (ms); an empty dict when the data
+    service never ran."""
+    global _IO_WAIT_LAT, _IO_QUEUE_DEPTH_MAX
+    with _IO_LOCK:
+        snap = dict(_IO)
+        cursors = {str(s): c for s, c in sorted(_IO_CURSORS.items())}
+        depth = _IO_QUEUE_DEPTH_MAX
+        wait_lat = sorted(_IO_WAIT_LAT) if _IO_WAIT_LAT else []
+        if reset:
+            _IO.update(_IO_ZERO)
+            _IO_CURSORS.clear()
+            _IO_QUEUE_DEPTH_MAX = 0
+            _IO_WAIT_LAT = None
+    if not (any(snap.values()) or cursors):
+        return {}
+    probes = snap["prefetch_hits"] + snap["prefetch_misses"]
+    if probes:
+        snap["prefetch_hit_rate"] = round(
+            snap["prefetch_hits"] / probes, 4)
+    for key in _IO_FLOATS:
+        snap[key] = round(snap[key], 4)
+    if cursors:
+        snap["resume_cursors"] = cursors
+    if depth:
+        snap["queue_depth_max"] = depth
+    if wait_lat:
+        snap["input_wait_p50_ms"] = _percentile_ms(wait_lat, 0.50)
+        snap["input_wait_p99_ms"] = _percentile_ms(wait_lat, 0.99)
+    return snap
+
+
+def io_reset():
+    global _IO_WAIT_LAT, _IO_QUEUE_DEPTH_MAX
+    with _IO_LOCK:
+        _IO.update(_IO_ZERO)
+        _IO_CURSORS.clear()
+        _IO_QUEUE_DEPTH_MAX = 0
+        _IO_WAIT_LAT = None
+
+
 def dump_profile(filename="profile.json"):
     """Write the counters' snapshots as one JSON object (the JAX
     ``dump_profile``'s sections that the port keeps) to ``filename``."""
@@ -499,6 +613,7 @@ def dump_profile(filename="profile.json"):
                        ("tuningStats", tuning_stats),
                        ("generateStats", generate_stats),
                        ("passStats", pass_stats),
+                       ("ioStats", io_stats),
                        ("mpStats", mp_stats)):
         snap = stats()
         if snap:

@@ -18,16 +18,17 @@ of the tensor's largest; lse within 1e-3.
 The kernels themselves run only on the card (``tests/test_torch_kernels_cuda
 .py``).
 
-Head dims the kernels are not built for (C9, C11): on the card the
-dispatcher zero-pads D to 64, 128 or 256 (``_pad_head_dim``), keeps the
-scale of the unpadded D and slices the outputs back; a D above 256 raises
-(C12). The padded route, run through the plain versions on the CPU, is
-held against the JAX ``flash_attention`` (which pads D to a multiple of
-128 lanes) in interpret mode at D 8 (rtol 1e-5 / atol 1e-5) and at D 192
-and 256 at the default tile (rtol 1e-4 / atol 1e-5), forward and
-``jax.vjp`` gradient (fp32 both sides); the ``cuda`` cases hold B5, B6 and
-B7 at D 8, 32, 96, 192 and 256 against the plain versions on the card,
-within the limits above (1e-4 per row in fp32). Every tile at D 64, 128
+Head dims the kernels are not built for (C9, C11, C12): on the card the
+dispatcher zero-pads D to 64, 128 or 256, and above 256 to a multiple of
+128 (the wide route) (``_pad_head_dim``), keeps the scale of the unpadded
+D and slices the outputs back. The padded route, run through the plain
+versions on the CPU, is held against the JAX ``flash_attention`` (which
+pads D to a multiple of 128 lanes) in interpret mode at D 8 (rtol 1e-5 /
+atol 1e-5) and at D 192, 256, 320 and 384 at the default tile (rtol 1e-4
+/ atol 1e-5), forward and ``jax.vjp`` gradient (fp32 both sides); the
+``cuda`` cases hold B5, B6 and B7 at D 8, 32, 96, 192, 256, 320, 384 and
+512 against the plain versions on the card, within the limits above
+(1e-4 per row in fp32). Every tile at D 64, 128
 and 256 is a ``cuda`` case of ``tests/test_torch_kernels_cuda.py``.
 """
 import numpy as np
@@ -226,13 +227,20 @@ def test_tc_bwd_dq_model_fits_the_limits(case):
 # ---------------------------------------------------------------------------
 def test_kernel_head_dim_pads_up_and_refuses_above_128():
     """D pads up to the next of 64, 128 and 256 (C11 repaired the raise
-    above 128); a D above 256 raises by name (C12)."""
+    above 128), and above 256 to the next multiple of 128, the wide route
+    (C12 repaired the raise above 256); only a D below 1 raises. The wide
+    route takes the hand tile (64, 64) alone."""
     assert [tfa._kernel_head_dim(d, "x") for d in (1, 8, 32, 64, 65, 96,
                                                    128, 129, 192, 256)] == \
         [64, 64, 64, 64, 128, 128, 128, 256, 256, 256]
-    with pytest.raises(MXNetError, match="head dim 257"):
-        tfa._kernel_head_dim(257, "flash_attention")
-    assert not tfa.tile_legal(257, torch.bfloat16, 64, 64, 8, 8)[0]
+    assert [tfa._kernel_head_dim(d, "x") for d in (257, 320, 384, 385, 512,
+                                                   1000)] == \
+        [384, 384, 384, 512, 512, 1024]
+    with pytest.raises(MXNetError, match="head dim 0"):
+        tfa._kernel_head_dim(0, "flash_attention")
+    for dt in (torch.bfloat16, torch.float32):
+        assert tfa.tile_legal(257, dt, 64, 64, 8, 8)[0]
+        assert not tfa.tile_legal(512, dt, 128, 64, 8, 8)[0]
     t = torch.randn(2, 3, 5, 8)
     p = tfa._pad_head_dim(t, 64)
     assert p.shape == (2, 3, 5, 64) and p.is_contiguous()
@@ -306,13 +314,48 @@ def test_padded_route_matches_jax_flash_attention_at_d192_d256(causal, d):
                                    rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("d", [320, 384])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_route_matches_jax_flash_attention_above_256(causal, d):
+    """C12: the card's route for D 320 and 384 (the wide route, padded to
+    384 lanes, the scale of the unpadded D), run through the plain
+    versions at the hand tile (64, 64), against the JAX
+    ``flash_attention`` (D padded to 384 lanes) at the same blocks,
+    forward and ``jax.vjp`` gradient (fp32 both sides, rtol 1e-4 / atol
+    1e-5)."""
+    rng = np.random.RandomState(d + causal)
+    q, k, v, do = (rng.randn(1, 2, 96, d).astype(np.float32)
+                   for _ in range(4))
+    kd = tfa._kernel_head_dim(d, "test")
+    assert kd == 384
+    scale = tfa._scale(None, d)
+    tq, tk, tv, tdo = (tfa._pad_head_dim(torch.from_numpy(a), kd)
+                       for a in (q, k, v, do))
+    blocks = dict(block_q=64, block_k=64)
+    out, lse = flash_attention_reference(tq, tk, tv, causal=causal,
+                                         sm_scale=scale, **blocks)
+    grads = flash_attention_bwd_reference(tq, tk, tv, out, lse, tdo,
+                                          causal=causal, sm_scale=scale,
+                                          **blocks)
+    want, vjp = jax.vjp(lambda *a: jax_flash(*a, causal=causal,
+                                             interpret=True, **blocks),
+                        *map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(out[..., :d].numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-5)
+    assert not out[..., d:].any()
+    for g, w in zip(grads, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(g[..., :d].numpy(), np.asarray(w),
+                                   rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [8, 32, 96, 192, 256])
+@pytest.mark.parametrize("d", [8, 32, 96, 192, 256, 320, 384, 512])
 def test_b5_b7_at_padded_head_dims_on_the_card(dtype, d):
     """B5, B6 and B7 at D 8, 32, 96, 192 and 256 (padded to 64, 64, 128,
-    256 and 256 lanes) against the plain versions at the unpadded D,
-    causal and not."""
+    256 and 256 lanes) and on the wide route at D 320, 384 and 512
+    (padded to 384, 384 and 512) against the plain versions at the
+    unpadded D, causal and not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dt = getattr(torch, dtype)

@@ -539,7 +539,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.ndarray.utils, mxnet_tpu_torch.autograd, "
             "mxnet_tpu_torch.random, mxnet_tpu_torch.models.resnet, "
             "mxnet_tpu_torch.parallel.tensor_parallel, "
-            "mxnet_tpu_torch.serving.generate\n"
+            "mxnet_tpu_torch.serving.generate, mxnet_tpu_torch.recordio, "
+            "mxnet_tpu_torch.data, mxnet_tpu_torch.data.service, "
+            "mxnet_tpu_torch.data.writer, mxnet_tpu_torch.data.lease, "
+            "mxnet_tpu_torch.image, mxnet_tpu_torch.image.recordio_iter, "
+            "mxnet_tpu_torch.parallel.feed\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']\n"
             "assert not bad, bad\n")
