@@ -244,7 +244,33 @@ the kernels are built for sm_90a) and ``nvcc``. It
    (52/52/48 launches a batch), and the port's copy of
    ``tools/bench_data.py``'s ``measure`` (2048 records of (3, 64, 64),
    sync against prefetched, the deterministic replay);
-27. prints one JSON line describing each kernel, then the result line
+27. drives the sparse paths (``sparse_phase``): the Criteo-shaped linear
+   classification of ``examples/sparse/linear_classification.py`` (1e6
+   hashed features, 13 integer and 26 categorical fields, 39 nonzeros a
+   row, batch 8192, 20 batches made from seed 0 as CSR triples:
+   ``nd.dot(csr, w)``, ``nd.dot(csr, err, transpose_a=True)``, lazy SGD on
+   the row-sparse gradient, twice bit-identical, then lazy Adam):
+   ``csr·dense`` and ``csrᵀ·dense`` card vs CPU within 1e-4, the lazy
+   updates' touched rows within 1e-5 and every other row bit for bit,
+   accuracy rising, device times of the products and the update beside
+   the dense ``torch.matmul`` on the densified batch, seconds a batch and
+   the device busy share; then ``Module.fit`` of the MovieLens-20M-shaped
+   matrix factorization (138,493 users, 27,278 items, factor 64, batch
+   8192, 40 batches, SGD momentum on a ``kv.create('local')`` instance,
+   ``sparse_row_id_fn``): falling MSE, ``row_sparse_pull`` exact, the
+   store's values on the card;
+28. drives the parameter-server tier (``embed_phase``): the port's copy
+   of ``tools/bench_embed.py``'s ``measure`` with 4 servers on the card
+   (131072 rows, dim 64, batch 4096, 8 iterations, zipf 1.2): its record
+   under the reference's keys, ``as_dense()`` against a numpy replay of
+   the pushes as sent within 1e-5, ``mem_ratio_max <= 1/4 + 0.01``, the
+   stored tables on the card; again at 4,194,304 rows without the naive
+   and sync legs; again at 131072 rows with each server in a process of
+   its own, no naive leg (the pipelined client against the synchronous
+   one); then ``Module.fit`` of a small MLP through two servers
+   on the card (falling loss, the servers' weights equal the module's).
+   B1-B7 launch 0 times on both;
+29. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -7027,6 +7053,739 @@ def data_plane_phase(torch, np, fa, fb):
     return fused_launches
 
 
+# ---------------------------------------------------------------------------
+# sparse arrays and the parameter-server tier (sparse_phase, embed_phase)
+# ---------------------------------------------------------------------------
+# Criteo-shaped sparse linear classification (the path of
+# examples/sparse/linear_classification.py): 13 integer and 26 categorical
+# fields hashed into 1,000,000 features, 39 nonzeros a row
+SPARSE_LC = dict(features=1000000, int_fields=13, cat_fields=26,
+                 batch=8192, batches=20, seed=0,
+                 sgd=dict(learning_rate=20.0, wd=0.0),
+                 adam=dict(learning_rate=0.05))
+# MovieLens-20M-shaped matrix factorization (examples/recommenders/
+# matrix_fact.py at GroupLens's ml-20m counts) through Module.fit with
+# sparse_row_id_fn on a kv.create("local") instance
+SPARSE_MF = dict(users=138493, items=27278, factor=64, batch=8192,
+                 batches=40, rank=8, zipf=1.1, seed=1,
+                 opt=dict(learning_rate=5.0, momentum=0.9))
+SPARSE_DOT_TOL = 1e-4           # card vs CPU, relative to the largest |ref|
+SPARSE_UPDATE_TOL = 1e-5        # touched rows, card vs CPU
+SPARSE_FIRST_LAST = 3           # batches averaged at each end
+# tools/bench_embed.py's measure defaults, then 32x the rows
+EMBED_BENCH = dict(rows=131072, dim=64, servers=4, batch=4096, iters=8,
+                   naive_batch=512, naive_iters=2, zipf_a=1.2, seed=0)
+EMBED_BIG_ROWS = 4194304
+EMBED_REPLAY_TOL = 1e-5
+# the dense Module.fit through two in-process servers
+SERVER_FIT = dict(n=600, dim=20, hidden=32, classes=5, batch=100, epochs=8)
+
+
+def _card_ctx(torch, mx):
+    """The context of the card (``CARD``)."""
+    return mx.Context.from_device(torch.device(CARD))
+
+
+def _sync(torch):
+    if CARD == "cuda":
+        torch.cuda.synchronize()
+
+
+def _free(torch):
+    gc.collect()
+    if CARD == "cuda":
+        torch.cuda.empty_cache()
+
+
+
+def _field_ids(np, field, values, features):
+    """Hashed feature ids of one field's values (stable, int64)."""
+    return (np.int64(field) * 1000003 + values.astype(np.int64)
+            * 2654435761) % features
+
+
+def _finite_zipf(np, rng, n_ids, size, s):
+    """``size`` ids in [0, n_ids) with P(k) proportional to 1/(k+1)**s
+    (the popular ids first, as real catalogs are)."""
+    cdf = np.cumsum(1.0 / np.arange(1, n_ids + 1, dtype=np.float64) ** s)
+    return np.minimum(np.searchsorted(cdf / cdf[-1], rng.rand(size)),
+                      n_ids - 1)
+
+
+def criteo_batches(np, features, batch, batches, int_fields=13,
+                   cat_fields=26, seed=0):
+    """Criteo-shaped CSR batches from a seed, as (data, indices, indptr,
+    label) triples: each integer field a log-scaled count in its own
+    hashed column, each categorical field a zipf-distributed category
+    hashed with its field; labels from a hidden linear model."""
+    rng = np.random.RandomState(seed)
+    w_true = rng.randn(features).astype(np.float32)
+    card = rng.randint(10, 200000, cat_fields)
+    nnz_row = int_fields + cat_fields
+    int_cols = _field_ids(np, np.arange(int_fields), np.zeros(int_fields),
+                          features)
+    out = []
+    for _ in range(batches):
+        counts = rng.geometric(0.05, (batch, int_fields)) - 1
+        ivals = (np.log1p(counts) / 5.0).astype(np.float32)
+        cids = np.stack([_field_ids(np, int_fields + f, _finite_zipf(
+            np, rng, card[f], batch, 1.1), features)
+            for f in range(cat_fields)], 1)
+        idx = np.concatenate([np.broadcast_to(int_cols, (batch, int_fields)),
+                              cids], 1).reshape(-1)
+        vals = np.concatenate([ivals, np.ones((batch, cat_fields),
+                                              np.float32)], 1).reshape(-1)
+        logit = (vals * w_true[idx]).reshape(batch, nnz_row).sum(1)
+        y = (logit + 0.3 * rng.randn(batch) > 0).astype(np.float32)
+        ptr = np.arange(batch + 1, dtype=np.int64) * nnz_row
+        out.append((vals, idx.astype(np.int64), ptr, y))
+    return out
+
+
+def _lc_step(torch, mx, csr, w, y, batch):
+    """One batch of the example's loop: score, accuracy (on the card),
+    the logistic gradient csr^T (p - y) / B as a row-sparse array over
+    the batch's features."""
+    from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+
+    prob = mx.nd.sigmoid(mx.nd.dot(csr, w))
+    acc = ((prob > 0.5) == y).mean()
+    g = mx.nd.dot(csr, (prob - y) / batch, transpose_a=True)
+    nz = mx.nd.NDArray(torch.unique(csr.indices.tensor), csr.context)
+    return acc, RowSparseNDArray(g[nz], nz, w.shape, ctx=csr.context)
+
+
+def _lc_run(torch, np, mx, batches, ctx, opt_name, opt_kw, w0, cfg):
+    """The classification leg: ``len(batches)`` batches from ``w0``;
+    returns (weight NDArray, per-batch accuracy, seconds)."""
+    opt = mx.optimizer.create(opt_name, **opt_kw)
+    w = mx.nd.array(w0, ctx=ctx)
+    state = opt.create_state(0, w)
+    accs = []
+    shape = (cfg["batch"], cfg["features"])
+    _sync(torch)
+    t0 = time.perf_counter()
+    for vals, idx, ptr, y in batches:
+        csr = mx.nd.sparse.csr_matrix((vals, idx, ptr), shape=shape,
+                                      ctx=ctx)
+        acc, grad = _lc_step(torch, mx, csr, w,
+                             mx.nd.array(y[:, None], ctx=ctx),
+                             cfg["batch"])
+        accs.append(acc)
+        opt.update(0, w, grad, state)
+    accs = [float(a.asscalar()) for a in accs]
+    return w, accs, time.perf_counter() - t0
+
+
+def _rel_err(a, b):
+    a = a.detach().double().cpu()
+    b = b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _first_last(xs):
+    k = SPARSE_FIRST_LAST
+    return sum(xs[:k]) / k, sum(xs[-k:]) / k
+
+
+def _sparse_classification(torch, np, mx):
+    """The Criteo-shaped leg: card vs CPU checks of the products and the
+    lazy updates, times at the full shape, 20 batches of lazy SGD twice
+    (bit-identical) and once more profiled, 20 batches of lazy Adam."""
+    from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+
+    cfg = SPARSE_LC
+    d, b = cfg["features"], cfg["batch"]
+    t0 = time.perf_counter()
+    batches = criteo_batches(np, d, b, cfg["batches"],
+                             cfg["int_fields"], cfg["cat_fields"],
+                             cfg["seed"])
+    gen_s = time.perf_counter() - t0
+    w0 = (np.random.RandomState(5).randn(d, 1) * 0.01).astype(np.float32)
+    touched = np.unique(np.concatenate([bt[1] for bt in batches]))
+    print("sparse classification: %d batches of %d rows x %d features, %d "
+          "nonzeros a row (%d integer + %d categorical fields), made from "
+          "seed %d in %.1f s; %d of %d features ever touched"
+          % (cfg["batches"], b, d, cfg["int_fields"] + cfg["cat_fields"],
+             cfg["int_fields"], cfg["cat_fields"], cfg["seed"], gen_s,
+             touched.size, d))
+
+    # -- card vs CPU: the products and one lazy update of each kind -----
+    gpu, cpu = _card_ctx(torch, mx), mx.cpu()
+    vals, idx, ptr, y = batches[0]
+    csr = {c: mx.nd.sparse.csr_matrix((vals, idx, ptr), shape=(b, d), ctx=c)
+           for c in (gpu, cpu)}
+    rng = np.random.RandomState(6)
+    rhs = rng.randn(d, 1).astype(np.float32)
+    err = rng.randn(b, 1).astype(np.float32)
+    errs = {}
+    for name, arg, tr in (("csr.dense", rhs, False),
+                          ("csrT.dense", err, True)):
+        got = {c: mx.nd.dot(csr[c], mx.nd.array(arg, ctx=c),
+                            transpose_a=tr).tensor for c in (gpu, cpu)}
+        errs[name] = _rel_err(got[gpu], got[cpu])
+    acc, grad = _lc_step(torch, mx, csr[gpu], mx.nd.array(w0, ctx=gpu),
+                         mx.nd.array(y[:, None], ctx=gpu), b)
+    rows = grad.indices.tensor
+    untouched = torch.ones(d, dtype=torch.bool, device=CARD)
+    untouched[rows] = False
+    for name, kw in (("sgd", dict(learning_rate=0.5, wd=1e-4)),
+                     ("sgd_momentum", dict(learning_rate=0.5, momentum=0.9)),
+                     ("adam", dict(learning_rate=0.01))):
+        out = {}
+        for c in (gpu, cpu):
+            opt = mx.optimizer.create(name.split("_")[0], **kw)
+            w = mx.nd.array(w0, ctx=c)
+            st = opt.create_state(0, w)
+            g = RowSparseNDArray(grad.data.copyto(c), grad.indices.copyto(c),
+                                 grad.shape, ctx=c)
+            for _ in range(2):
+                opt.update(0, w, g, st)
+            out[c] = w.tensor
+        w0_t = torch.from_numpy(w0).to(CARD)
+        if not torch.equal(out[gpu][untouched], w0_t[untouched]):
+            raise RuntimeError("sparse: lazy %s moved a row absent from the "
+                               "gradient" % name)
+        errs["lazy " + name] = _rel_err(out[gpu][rows], out[cpu][rows.cpu()])
+    print("sparse classification, card vs CPU on batch 0 (%d touched rows): "
+          "%s (relative to the largest |ref|); rows absent from the "
+          "gradient bit for bit unchanged" % (
+              rows.numel(), ", ".join("%s %.3g" % kv for kv in errs.items())))
+    for name, e in errs.items():
+        tol = SPARSE_UPDATE_TOL if name.startswith("lazy") else SPARSE_DOT_TOL
+        if not e <= tol:
+            raise RuntimeError("sparse: %s card vs CPU %.3g > %g"
+                               % (name, e, tol))
+    c = csr[gpu]
+    del csr
+
+    # -- device times at the Criteo shape --------------------------------
+    w_t = mx.nd.array(rhs, ctx=gpu)
+    e_t = mx.nd.array(err, ctx=gpu)
+    times = {"csr.dense": _time_ms(torch, lambda: mx.nd.dot(c, w_t)),
+             "csrT.dense": _time_ms(torch, lambda: mx.nd.dot(
+                 c, e_t, transpose_a=True))}
+    opt = mx.optimizer.create("sgd", learning_rate=0.5, momentum=0.9)
+    w_u = mx.nd.array(w0, ctx=gpu)
+    st = opt.create_state(0, w_u)
+    times["lazy sgd_momentum"] = _time_ms(
+        torch, lambda: opt.update(0, w_u, grad, st))
+    _free(torch)
+    dense = c.tostype("default").tensor          # (8192, 1e6) fp32
+    times["dense matmul X.w"] = _time_ms(
+        torch, lambda: torch.matmul(dense, w_t.tensor), reps=10, warmup=3)
+    times["dense matmul X^T.err"] = _time_ms(
+        torch, lambda: torch.matmul(dense.t(), e_t.tensor), reps=10,
+        warmup=3)
+    dense_gb = dense.numel() * 4 / 1e9
+    del dense
+    _free(torch)
+    print("sparse classification times at (%d x %d, %d nonzeros), event / "
+          "device ms: %s; the dense products on the densified batch "
+          "(%.1f GB fp32, TF32 off)" % (b, d, idx.size, "; ".join(
+              "%s %s" % (k, _both(t)) for k, t in times.items()), dense_gb))
+
+    # -- the leg: lazy SGD twice (bit-identical), profiled, lazy Adam ----
+    w1, acc1, s1 = _lc_run(torch, np, mx, batches, gpu, "sgd", cfg["sgd"],
+                           w0, cfg)
+    w2, acc2, s2 = _lc_run(torch, np, mx, batches, gpu, "sgd", cfg["sgd"],
+                           w0, cfg)
+    identical = torch.equal(w1.tensor, w2.tensor) and acc1 == acc2
+    untouched = torch.ones(d, dtype=torch.bool, device=CARD)
+    untouched[torch.from_numpy(touched).to(CARD)] = False
+    w0_t = torch.from_numpy(w0).to(CARD)
+    kept = torch.equal(w1.tensor[untouched], w0_t[untouched])
+    stats = {}
+    _device_profile(torch, lambda: _lc_run(torch, np, mx, batches[:5], gpu,
+                                           "sgd", cfg["sgd"], w0, cfg),
+                    top=6, stats=stats)
+    wa, acca, sa = _lc_run(torch, np, mx, batches, gpu, "adam", cfg["adam"],
+                           w0, cfg)
+    kept_a = torch.equal(wa.tensor[untouched], w0_t[untouched])
+    for name, accs, secs in (("lazy SGD", acc1, s1), ("lazy Adam", acca, sa)):
+        first, last = _first_last(accs)
+        print("sparse classification %s (%s): %d batches in %.2f s, %.4f s a "
+              "batch; accuracy first %d batches %.4f, last %d %.4f"
+              % (name, json.dumps(cfg["sgd" if "SGD" in name else "adam"]),
+                 len(accs), secs, secs / len(accs), SPARSE_FIRST_LAST, first,
+                 SPARSE_FIRST_LAST, last))
+        if not last > first:
+            raise RuntimeError("sparse: %s accuracy did not improve: %s"
+                               % (name, accs))
+    print("sparse classification lazy SGD: second run %.2f s, weights and "
+          "accuracies bit-identical to the first: %s; %d never-touched rows "
+          "bit for bit the initial values (SGD %s, Adam %s); 5 profiled "
+          "batches: device busy share %s"
+          % (s2, identical, int(untouched.sum()), kept, kept_a,
+             "%.3f" % (stats["busy_ms"] / stats["wall_ms"]) if stats
+             else "not measured"))
+    if not identical:
+        raise RuntimeError("sparse: two runs of the classification leg "
+                           "differ")
+    if not (kept and kept_a):
+        raise RuntimeError("sparse: a never-touched weight row moved")
+    return {"lc_s_batch": s1 / len(acc1), "adam_s_batch": sa / len(acca),
+            "lc_busy": stats}
+
+
+def mf_ratings(np, users, items, n, rank, zipf, seed):
+    """Synthetic ratings from a hidden rank-``rank`` model, user and item
+    ids from finite Zipf laws (popular ids first, as real catalogs are)."""
+    rng = np.random.RandomState(seed)
+    gu = (rng.randn(users, rank) / np.sqrt(rank)).astype(np.float32)
+    gi = rng.randn(items, rank).astype(np.float32)
+    u = _finite_zipf(np, rng, users, n, zipf)
+    i = _finite_zipf(np, rng, items, n, zipf)
+    r = (gu[u] * gi[i]).sum(1) + 0.1 * rng.randn(n)
+    return u.astype(np.float32), i.astype(np.float32), r.astype(np.float32)
+
+
+def mf_symbol(mx, users, items, factor):
+    user, item = mx.sym.var("user"), mx.sym.var("item")
+    u = mx.sym.Embedding(data=user, input_dim=users, output_dim=factor,
+                         name="user_embed")
+    i = mx.sym.Embedding(data=item, input_dim=items, output_dim=factor,
+                         name="item_embed")
+    return mx.sym.LinearRegressionOutput(
+        data=mx.sym.sum(u * i, axis=1), label=mx.sym.var("score"),
+        name="lro")
+
+
+def _sparse_mf(torch, np, mx):
+    """The MovieLens-20M-shaped Module.fit with sparse_row_id_fn."""
+    cfg = SPARSE_MF
+    n = cfg["batch"] * cfg["batches"]
+    u, i, r = mf_ratings(np, cfg["users"], cfg["items"], n, cfg["rank"],
+                         cfg["zipf"], cfg["seed"])
+    it = mx.io.NDArrayIter({"user": u, "item": i}, {"score": r},
+                           cfg["batch"], shuffle=False)
+    mod = mx.mod.Module(mf_symbol(mx, cfg["users"], cfg["items"],
+                                  cfg["factor"]),
+                        context=_card_ctx(torch, mx),
+                        data_names=("user", "item"), label_names=("score",))
+    kv = mx.kv.create("local")
+    pulled, losses = [], []
+
+    def row_ids(batch):
+        pulled.append(1)
+        return {"user_embed_weight": batch.data[0],
+                "item_embed_weight": batch.data[1]}
+
+    def batch_loss(p):
+        pred = mod.get_outputs()[0].tensor
+        lab = p.locals["data_batch"].label[0].tensor.to(pred.device)
+        losses.append(float(((pred - lab) ** 2).mean()))
+
+    def fit():
+        it.reset()
+        mod.fit(it, num_epoch=1, kvstore=kv, optimizer="sgd",
+                optimizer_params=cfg["opt"],
+                initializer=mx.init.Normal(0.1), eval_metric="mse",
+                batch_end_callback=batch_loss, sparse_row_id_fn=row_ids,
+                force_init=True)
+
+    _sync(torch)
+    t0 = time.perf_counter()
+    fit()
+    _sync(torch)
+    secs = time.perf_counter() - t0
+    first, last = _first_last(losses)
+    n_prep = len(pulled)
+    store_devices = {v.tensor.device.type for v in kv._store.values()}
+    # row_sparse_pull returns exactly the rows asked for
+    ids = np.array([5, 0, cfg["users"] - 1, 5, 77], np.int64)
+    want = mod.get_params()[0]["user_embed_weight"].asnumpy()
+    card = _card_ctx(torch, mx)
+    rsp = mx.nd.sparse.zeros("row_sparse", want.shape, ctx=card)
+    kv.row_sparse_pull("user_embed_weight", out=rsp,
+                       row_ids=mx.nd.array(ids, ctx=card))
+    dense = mx.nd.zeros(want.shape, ctx=card)
+    kv.row_sparse_pull("user_embed_weight", out=dense,
+                       row_ids=mx.nd.array(ids, ctx=card))
+    uniq = np.unique(ids)
+    dense_np = dense.asnumpy()
+    exact = (rsp.indices.asnumpy().tolist() == uniq.tolist()
+             and np.array_equal(rsp.data.asnumpy(), want[uniq])
+             and np.array_equal(dense_np[uniq], want[uniq])
+             and not np.delete(dense_np, uniq, axis=0).any())
+    stats = {}
+    n_prof = len(losses)
+    _device_profile(torch, fit, top=6, stats=stats)
+    print("sparse MF Module.fit (%d users, %d items, factor %d, batch %d, "
+          "%d batches, SGD %s, kv.create('local') instance, "
+          "sparse_row_id_fn): %.2f s, %.4f s a batch, %d prepares; MSE first "
+          "%d batches %.4f, last %d %.4f; a second, profiled epoch: device "
+          "busy share %s; row_sparse_pull exact (row-sparse and dense outs): "
+          "%s; the store's values on %s"
+          % (cfg["users"], cfg["items"], cfg["factor"], cfg["batch"],
+             n_prof, json.dumps(cfg["opt"]), secs, secs / n_prof,
+             n_prep, SPARSE_FIRST_LAST, first, SPARSE_FIRST_LAST, last,
+             "%.3f" % (stats["busy_ms"] / stats["wall_ms"]) if stats
+             else "not measured", exact, "/".join(sorted(store_devices))))
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        raise RuntimeError("sparse MF: loss did not fall: %s" % losses)
+    if n_prep != cfg["batches"] - 1:
+        raise RuntimeError("sparse MF: %d prepares, want %d"
+                           % (n_prep, cfg["batches"] - 1))
+    if not exact:
+        raise RuntimeError("sparse MF: row_sparse_pull did not return "
+                           "exactly the rows asked for")
+    if store_devices != {CARD}:
+        raise RuntimeError("sparse MF: the local store's values are on %s"
+                           % store_devices)
+    return {"mf_s_batch": secs / n_prof, "mf_busy": stats}
+
+
+def sparse_phase(torch, np, fa, fb):
+    """The sparse paths on the card (SPARSE_LC, SPARSE_MF); returns the
+    launch counts of B5, B6, B7, B1, B2, B3 there (all 0: the JAX package
+    leaves this work to XLA)."""
+    import mxnet_tpu_torch as mx
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _free(torch)
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    lc = _sparse_classification(torch, np, mx)
+    mf = _sparse_mf(torch, np, mx)
+    launches = _counts(fa) + _fb_counts(fb)
+    print("sparse phase: %s; B5-B7 and B1-B3 launches %s" % (
+        json.dumps({k: v for k, v in {**lc, **mf}.items()
+                    if not k.endswith("busy")}), launches))
+    if any(launches):
+        raise RuntimeError("sparse: hand kernels launched %s" % (launches,))
+    return launches
+
+
+def _zipf_ids(np, rng, n, rows, a):
+    """Zipfian ids clipped into the vocabulary (the hot head at low
+    ids)."""
+    return np.minimum(rng.zipf(a, n).astype(np.int64) - 1, rows - 1)
+
+
+def embed_bench_measure(np, rows=131072, dim=64, servers=4, batch=4096,
+                        iters=8, naive_batch=512, naive_iters=2,
+                        zipf_a=1.2, seed=0, naive=True, sync=True,
+                        check=None, profile=None, uris=None):
+    """The port's copy of tools/bench_embed.py's ``measure``: in-process
+    servers on the card (the default device) hold the row shards, or the
+    servers at ``uris``; dedup train rounds (pull, scatter push) async,
+    pull-only against the naive per-id baseline, the synchronous client,
+    the 2-bit wire; per-server memory. ``check`` (a dict, in-process
+    servers only) receives the raw-wire table's initial dense copy, the
+    pushes as sent, its dense copy after the timed rounds and the servers'
+    stored devices; ``profile`` is called with four more train rounds to
+    run (after the memory read)."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.embedding import ShardedEmbeddingTable
+    from mxnet_tpu_torch.kvstore_server import KVStoreServer, ServerKVStore
+
+    srvs = []
+    if uris is None:
+        srvs = [KVStoreServer(num_workers=1, device=CARD)
+                for _ in range(servers)]
+        for s in srvs:
+            s.serve_in_background()
+        uris = ",".join(s.addr for s in srvs)
+    rng = np.random.RandomState(seed)
+    batches = [_zipf_ids(np, rng, batch, rows, zipf_a) for _ in range(iters)]
+    uniq_frac = float(np.mean([np.unique(b).size / b.size for b in batches]))
+    clients = []
+
+    def client(pipeline=True, wire="raw"):
+        kv = ServerKVStore(uris, pipeline=pipeline)
+        clients.append(kv)
+        kv.set_optimizer("sgd", learning_rate=0.05, momentum=0.9,
+                         rescale_grad=1.0 / batch)
+        t = ShardedEmbeddingTable("bench_emb", kv, rows, dim, wire=wire)
+        t0 = time.perf_counter()
+        t.init(seed=seed)
+        return kv, t, time.perf_counter() - t0
+
+    def train_round(t, ids):
+        uniq, inverse, vecs = t.pull(ids)
+        t.push(uniq, vecs * 0.01)
+
+    def timed_rounds(t, kv, n):
+        train_round(t, batches[0])
+        kv.wait_outstanding()
+        t0 = time.perf_counter()
+        for i in range(n):
+            train_round(t, batches[i % iters])
+        kv.wait_outstanding()
+        return (n * batch) / (time.perf_counter() - t0)
+
+    rec = {"rows": rows, "dim": dim, "servers": servers, "batch": batch,
+           "zipf_a": zipf_a, "unique_frac": round(uniq_frac, 4),
+           "table_mb": round(rows * dim * 4 / 1e6, 1),
+           "cores": len(os.sched_getaffinity(0))}
+    try:
+        profiler.embedding_reset()
+        profiler.comm_reset()
+        kv, t, init_s = client()
+        rec["init_s"] = init_s
+        if check is not None:
+            check["init"] = t.as_dense()
+            check["pushes"] = pushes = []
+            push = t.push
+
+            def recorded(ids, grads, priority=0):
+                pushes.append((np.array(ids), np.array(grads)))
+                return push(ids, grads, priority=priority)
+
+            t.push = recorded
+        rec["train_rows_s"] = timed_rounds(t, kv, iters)
+        t0 = time.perf_counter()
+        for i in range(iters):
+            t.pull(batches[i % iters])
+        rec["pull_rows_s"] = (iters * batch) / (time.perf_counter() - t0)
+        stats = profiler.embedding_stats()
+        rec["dedup_ratio"] = stats.get("dedup_ratio")
+        rec["pull_p99_ms"] = stats.get("pull_p99_ms")
+        rec["push_p99_ms"] = stats.get("push_p99_ms")
+        rec["comm"] = {op: {k: s[k] for k in ("count", "avg_ms")
+                            if k in s}
+                       for op, s in profiler.comm_stats().items()}
+        if check is not None:
+            check["after"] = t.as_dense()
+            check["pushes"] = list(check["pushes"])  # those before "after"
+            check["devices"] = {k: d for s in srvs
+                                for k, d in s.stored_devices().items()}
+        if naive:
+            t.dedup = False
+            t0 = time.perf_counter()
+            for i in range(max(1, naive_iters)):
+                t.pull(batches[i % iters][:naive_batch])
+            rec["naive_pull_rows_s"] = (max(1, naive_iters) * naive_batch) \
+                / (time.perf_counter() - t0)
+            t.dedup = True
+            rec["speedup_dedup_vs_naive"] = rec["pull_rows_s"] / max(
+                rec["naive_pull_rows_s"], 1e-9)
+        mem = kv.server_memory()
+        per = [m["embed_store_bytes"] + m["embed_opt_bytes"] for m in mem]
+        rec["per_server_mb"] = [round(x / 1e6, 2) for x in per]
+        rec["mem_ratio_max"] = max(per) / max(sum(per), 1)
+        profiler.memory_record(embedding_per_server_bytes=per,
+                               embedding_total_bytes=sum(per),
+                               embedding_servers=servers)
+        if profile is not None:
+            def rounds():
+                for _ in range(4):
+                    train_round(t, batches[1])
+                kv.wait_outstanding()
+
+            profile(rounds)
+        if sync:
+            kv_s, t_s, _ = client(pipeline=False)
+            rec["sync_train_rows_s"] = timed_rounds(t_s, kv_s, iters)
+            rec["async_vs_sync"] = rec["train_rows_s"] / max(
+                rec["sync_train_rows_s"], 1e-9)
+        kv_2b, t_2b, _ = client(wire="2bit")
+        rec["train_rows_s_2bit"] = timed_rounds(t_2b, kv_2b, iters)
+    finally:
+        for kv in clients:
+            kv.close()
+        for s in srvs:
+            s.shutdown()
+    return rec
+
+
+# one KVStoreServer on the card in a process of its own: prints its
+# address, serves until its stdin closes
+_SERVER_PROC = (
+    "import sys; sys.path.insert(0, sys.argv[1]); "
+    "from mxnet_tpu_torch.kvstore_server import KVStoreServer; "
+    "s = KVStoreServer(num_workers=1, device=sys.argv[2]); "
+    "s.serve_in_background(); print(s.addr, flush=True); "
+    "sys.stdin.read(); s.shutdown()")
+
+
+def embed_out_of_process(np, cfg):
+    """The embed measure with each server in a process of its own (as a
+    deployment runs them), no naive leg: the pipelined client against the
+    synchronous one without the servers sharing the client's interpreter.
+    Every server process is stopped before this returns."""
+    procs = [subprocess.Popen([sys.executable, "-c", _SERVER_PROC, ROOT,
+                               CARD], stdin=subprocess.PIPE,
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(cfg["servers"])]
+    try:
+        addrs = [p.stdout.readline().strip() for p in procs]
+        if not all(addrs):
+            raise RuntimeError("embed: a server process did not start: %s"
+                               % [p.poll() for p in procs])
+        return embed_bench_measure(np, naive=False, uris=",".join(addrs),
+                                   **cfg)
+    finally:
+        for p in procs:
+            p.stdin.close()
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+def _embed_replay(np, check, batch):
+    """The raw-wire table replayed in numpy from its initial copy through
+    the pushes as sent: lazy momentum SGD (lr 0.05, momentum 0.9, rescale
+    1/batch), duplicates summed first as the client does."""
+    w = check["init"].astype(np.float32).copy()
+    m = np.zeros_like(w)
+    for ids, grads in check["pushes"]:
+        uniq, inv = np.unique(ids, return_inverse=True)
+        g = np.zeros((uniq.size, w.shape[1]), np.float32)
+        np.add.at(g, inv, grads.astype(np.float32))
+        g = g * np.float32(1.0 / batch)
+        m[uniq] = np.float32(0.9) * m[uniq] - np.float32(0.05) * g
+        w[uniq] = w[uniq] + m[uniq]
+    return w
+
+
+def _server_module_fit(torch, np, mx):
+    """Module.fit of a small MLP through two in-process servers (on the
+    card): the loss falls and the servers hold the module's weights."""
+    from mxnet_tpu_torch.kvstore_server import KVStoreServer, ServerKVStore
+
+    cfg = SERVER_FIT
+    rng = np.random.RandomState(0)
+    x = rng.randn(cfg["n"], cfg["dim"]).astype(np.float32)
+    y = np.argmax(x @ rng.randn(cfg["dim"], cfg["classes"]), 1).astype(
+        np.float32)
+    srvs = [KVStoreServer(num_workers=1, device=CARD) for _ in range(2)]
+    for s in srvs:
+        s.serve_in_background()
+    kv = ServerKVStore([s.addr for s in srvs])
+    try:
+        it = mx.io.NDArrayIter({"data": x}, {"softmax_label": y},
+                               batch_size=cfg["batch"], shuffle=False)
+        net = mx.sym.FullyConnected(mx.sym.Variable("data"), name="fc1",
+                                    num_hidden=cfg["hidden"])
+        net = mx.sym.Activation(net, name="relu1", act_type="relu")
+        net = mx.sym.FullyConnected(net, name="fc2",
+                                    num_hidden=cfg["classes"])
+        net = mx.sym.SoftmaxOutput(net, name="softmax")
+        mod = mx.mod.Module(net, context=_card_ctx(torch, mx))
+        ce = []
+
+        def batch_ce(p):
+            prob = mod.get_outputs()[0].tensor
+            lab = p.locals["data_batch"].label[0].tensor.long().to(
+                prob.device)
+            ce.append(float(-prob.gather(1, lab[:, None]).clamp_min(
+                1e-12).log().mean()))
+
+        t0 = time.perf_counter()
+        mod.fit(it, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                initializer=mx.init.Xavier(), kvstore=kv,
+                eval_metric="acc", num_epoch=cfg["epochs"],
+                batch_end_callback=batch_ce)
+        secs = time.perf_counter() - t0
+        it.reset()
+        acc = dict(mod.score(it, mx.metric.create("acc")))["accuracy"]
+        arg, _ = mod.get_params()
+        same = True
+        for k, v in arg.items():
+            held = np.empty(v.shape, np.float32)
+            kv.pull(k, out=held)
+            same = same and np.array_equal(held, v.asnumpy())
+        devices = {d.type for s in srvs for d in s.stored_devices().values()}
+        per_epoch = len(ce) // cfg["epochs"]
+        first = sum(ce[:per_epoch]) / per_epoch
+        last = sum(ce[-per_epoch:]) / per_epoch
+        print("server tier Module.fit (MLP %d-%d-%d, %d epochs of %d batches "
+              "through 2 servers on %s, SGD momentum on the servers): %.2f s; "
+              "cross-entropy first epoch %.4f, last %.4f; accuracy %.4f; "
+              "weights pulled from the servers equal the module's: %s; fused "
+              "step engaged: %s"
+              % (cfg["dim"], cfg["hidden"], cfg["classes"], cfg["epochs"],
+                 per_epoch, "/".join(sorted(devices)), secs, first, last,
+                 acc, same, mod._fused is not None))
+    finally:
+        kv.close()
+        for s in srvs:
+            s.shutdown()
+    if not (last < first and acc > 0.9 and same and mod._fused is None
+            and devices == {CARD}):
+        raise RuntimeError("server tier fit: loss %s -> %s, acc %s, "
+                           "weights equal %s, devices %s"
+                           % (first, last, acc, same, devices))
+
+
+def embed_phase(torch, np, fa, fb):
+    """The server tier and ``bench.py``'s embed variant on the card
+    (EMBED_BENCH in-process and with the servers in processes of their
+    own, EMBED_BIG_ROWS, SERVER_FIT); returns the launch counts of B5, B6,
+    B7, B1, B2, B3 there (all 0)."""
+    import mxnet_tpu_torch as mx
+
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    cfg = dict(EMBED_BENCH)
+    check = {}
+    stats = {}
+    rec = embed_bench_measure(
+        np, check=check, profile=lambda fn: _device_profile(
+            torch, fn, top=6, stats=stats), **cfg)
+    replay = _embed_replay(np, check, cfg["batch"])
+    replay_err = float(np.abs(check["after"] - replay).max()
+                       / max(np.abs(replay).max(), 1e-30))
+    n_pushes = len(check["pushes"])
+    cuda_tables = {d.type for d in check["devices"].values()} == {CARD}
+    rec["busy_share_4_rounds"] = (stats["busy_ms"] / stats["wall_ms"]
+                                  if stats else "not measured")
+    print("embed (the port's copy of tools/bench_embed.py's measure, %d "
+          "servers on the card): %s" % (cfg["servers"], json.dumps(rec)))
+    print("embed check: as_dense() after the timed rounds against a numpy "
+          "replay of the %d pushes as sent (lazy momentum SGD): %.3g "
+          "relative; stored tables on %s; mem_ratio_max %.4f (limit %.4f)"
+          % (n_pushes, replay_err,
+             "/".join(sorted({d.type for d in check["devices"].values()})),
+             rec["mem_ratio_max"], 1.0 / cfg["servers"] + 0.01))
+    if not replay_err <= EMBED_REPLAY_TOL:
+        raise RuntimeError("embed: the table differs from the replay "
+                           "(%.3g)" % replay_err)
+    if not cuda_tables:
+        raise RuntimeError("embed: stored tables not on the card: %s"
+                           % check["devices"])
+    if not rec["mem_ratio_max"] <= 1.0 / cfg["servers"] + 0.01:
+        raise RuntimeError("embed: mem_ratio_max %.4f" % rec["mem_ratio_max"])
+    big = dict(cfg, rows=EMBED_BIG_ROWS)
+    big_check = {}
+    rec_big = embed_bench_measure(np, naive=False, sync=False,
+                                  check=big_check, **big)
+    big_cuda = {d.type for d in big_check["devices"].values()} == {CARD}
+    print("embed at %d rows (%.2f GB fp32 table + as much momentum across "
+          "%d servers on the card; init %.2f s, each sub-table crossing the "
+          "loopback once; no naive or sync legs): %s"
+          % (EMBED_BIG_ROWS, EMBED_BIG_ROWS * cfg["dim"] * 4 / 1e9,
+             cfg["servers"], rec_big["init_s"], json.dumps(rec_big)))
+    if not (big_cuda and rec_big["mem_ratio_max"]
+            <= 1.0 / cfg["servers"] + 0.01):
+        raise RuntimeError("embed big: tables on the card %s, "
+                           "mem_ratio_max %.4f" % (big_cuda,
+                                                   rec_big["mem_ratio_max"]))
+    del big_check
+    rec_oop = embed_out_of_process(np, cfg)
+    print("embed with each of the %d servers in a process of its own on the "
+          "card (no naive leg): %s; pipelined client against the "
+          "synchronous one: in-process %.3f, out of process %.3f"
+          % (cfg["servers"], json.dumps(rec_oop), rec["async_vs_sync"],
+             rec_oop["async_vs_sync"]))
+    if not rec_oop["mem_ratio_max"] <= 1.0 / cfg["servers"] + 0.01:
+        raise RuntimeError("embed out of process: mem_ratio_max %.4f"
+                           % rec_oop["mem_ratio_max"])
+    _server_module_fit(torch, np, mx)
+    launches = _counts(fa) + _fb_counts(fb)
+    print("embed phase: B5-B7 and B1-B3 launches %s" % (launches,))
+    if any(launches):
+        raise RuntimeError("embed: hand kernels launched %s" % (launches,))
+    return launches
+
+
 def main():
     import torch
 
@@ -7136,6 +7895,11 @@ def main():
     data_plane = phase("data_plane", data_plane_phase, torch, np, fa, fb)
     for entry, n in zip([fwd, *bwd, conv, *grads], data_plane):
         entry["data_plane_launches"] = n
+    sparse = phase("sparse", sparse_phase, torch, np, fa, fb)
+    embed = phase("embed", embed_phase, torch, np, fa, fb)
+    for entry, n, m in zip([fwd, *bwd, conv, *grads], sparse, embed):
+        entry["sparse_launches"] = n
+        entry["embed_launches"] = m
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; shared-prefix serving (cache on) "
           "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "
@@ -7149,7 +7913,8 @@ def main():
           "LM path (fit, serving, op sweep) B5-B7 and B1-B3 %s; SSD path "
           "(fit, detection, contrib sweep) B5-B7 and B1-B3 %s; int8 "
           "serving path B5-B7 and B1-B3 %s; data plane (unfused fit, "
-          "fused leg) B5-B7 and B1-B3 %s"
+          "fused leg) B5-B7 and B1-B3 %s; sparse paths B5-B7 and B1-B3 %s; "
+          "server tier and embed B5-B7 and B1-B3 %s"
           % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
              SPEC_TRACE["k"], fwd["spec_launches"], conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
@@ -7161,7 +7926,9 @@ def main():
              ", ".join("%d" % n for n in lm),
              ", ".join("%d" % n for n in ssd_path),
              ", ".join("%d" % n for n in quant),
-             ", ".join("%d" % n for n in data_plane)))
+             ", ".join("%d" % n for n in data_plane),
+             ", ".join("%d" % n for n in sparse),
+             ", ".join("%d" % n for n in embed)))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

@@ -186,6 +186,70 @@ KNOBS = {
         "(cursor committed) within the TTL returns to the pool for "
         "rebalancing; finite float > 0 (data/lease.py's local "
         "authority)"),
+    "MXNET_KVSTORE_PIPELINE": (
+        "1", "async per-shard sender pipeline of the server tier's client; "
+        "0 falls back to the synchronous client; 0|1, anything else raises "
+        "(kvstore_server.py)"),
+    "MXNET_KVSTORE_RPC_RETRIES": (
+        "2", "bounded kvstore RPC retries with reconnect to the same URI; "
+        "integer >= 0 (kvstore_server.py)"),
+    "MXNET_KVSTORE_RECONNECT_DEADLINE": (
+        "5", "seconds per reconnect attempt; finite float > 0 "
+        "(kvstore_server.py)"),
+    "MXNET_KVSTORE_REDISCOVER_TIMEOUT": (
+        "30", "seconds to wait for a respawned server's new URI through the "
+        "tracker; not ported, so a set value raises (kvstore_server.py)"),
+    "MXNET_KVSTORE_COALESCE_KEYS": (
+        "16", "max keys per coalesced push_multi frame; integer >= 0, 0 "
+        "means 1 (kvstore_server.py)"),
+    "MXNET_KVSTORE_COALESCE_BYTES": (
+        str(1 << 20), "max bytes per coalesced push_multi frame; integer "
+        ">= 0, 0 means 1 (kvstore_server.py)"),
+    "MXNET_KVSTORE_BARRIER_TIMEOUT": (
+        "120", "server barrier timeout in seconds: a barrier that cannot "
+        "complete raises instead of spinning (kvstore_server.py)"),
+    "MXNET_TPU_ZERO_SERVER": (
+        "0", "ZeRO value sharding of dense keys over the parameter servers; "
+        "not ported, so 1 with more than one server raises "
+        "(kvstore_server.py)"),
+    "MXNET_MAX_RESTARTS": (
+        "0", "elastic respawn budget of a node; not ported, so a server or "
+        "its client raises when it is > 0 (kvstore_server.py)"),
+    "MXNET_PS_SERVER_URI": (
+        "", "comma-separated server URIs: kvstore.create('dist_async') "
+        "returns the ServerKVStore client of these servers (kvstore.py)"),
+    "MXNET_PS_BIND_HOST": (
+        "", "server bind host override of the server entry point; not "
+        "ported, so a set value raises (kvstore_server.py)"),
+    "MXNET_PS_BIND_PORT": (
+        "0", "server bind port override of the server entry point; not "
+        "ported, so a set value raises (kvstore_server.py)"),
+    "MXNET_PS_ADVERTISE_HOST": (
+        "", "address a multi-host server publishes to the tracker; not "
+        "ported, so a set value raises (kvstore_server.py)"),
+    "MXNET_EMBED_SHARDS": (
+        "0", "row-shard count override for ShardedEmbeddingTable; 0 (the "
+        "default) shards one-per-server, shard s lives on server "
+        "s % num_servers otherwise; integer >= 0 (embedding/table.py)"),
+    "MXNET_EMBED_DEDUP": (
+        "1", "deduplicate requested row ids before pulling (one row_pull "
+        "frame per shard); 0 falls back to the naive per-id pull baseline; "
+        "0|1, anything else raises (embedding/table.py)"),
+    "MXNET_EMBED_PULL_BATCH": (
+        "65536", "max rows per row_pull RPC frame: larger requests split "
+        "into several frames per shard; integer >= 1 (embedding/table.py)"),
+    "MXNET_EMBED_WIRE": (
+        "raw", "row-gradient wire of the embedding scatter pushes: 'raw' or "
+        "'2bit' (the packed two-bit quantizer on the pushed row block, with "
+        "per-row error-feedback residuals held by the client) "
+        "(embedding/table.py)"),
+    "MXNET_EMBED_WIRE_THRESHOLD": (
+        "0.5", "ternary threshold for MXNET_EMBED_WIRE=2bit; finite float "
+        "> 0 (embedding/table.py)"),
+    "MXNET_STORAGE_FALLBACK_LOG_VERBOSE": (
+        "1", "log a warning the first time a sparse array of each storage "
+        "type is densified for a dense op; 0 silences it; 0|1 "
+        "(ndarray/sparse.py)"),
     "MXNET_IR_FUSE": (
         "1", "kill switch for rule-based fusion in the model builders: "
         "resnet(fused=True) applies the IR fusion pass when 1, returns the "

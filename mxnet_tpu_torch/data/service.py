@@ -42,6 +42,7 @@ import numpy as np
 
 from .. import recordio
 from ..base import MXNetError
+from ..tracker import tracker_env_spec
 from .errors import (CursorCorruptError, LeaseLostError,
                      ManifestCorruptError, ShardCorruptError)  # noqa: F401
 from .lease import LeaseError, LocalLeaseAuthority
@@ -51,24 +52,6 @@ log = logging.getLogger("mxnet_tpu_torch.data")
 
 _ACQUIRE_RETRY = 0.05       # poll interval while peers hold all shards
 _CHUNK_RECORDS = 64         # records per read/decode/ledger unit
-
-
-def tracker_env_spec():
-    """(scheduler_uri, num_workers, num_servers) from the DMLC env, or
-    None when no tracker topology is configured (a copy of
-    ``mxnet_tpu/tracker.py``'s): the topology exists exactly when
-    DMLC_PS_ROOT_URI/PORT name the scheduler AND DMLC_NUM_SERVER asks
-    for parameter servers."""
-    host = os.environ.get("DMLC_PS_ROOT_URI")
-    port = os.environ.get("DMLC_PS_ROOT_PORT")
-    try:
-        num_servers = int(os.environ.get("DMLC_NUM_SERVER", "0") or 0)
-    except ValueError:
-        return None
-    if not host or not port or num_servers <= 0:
-        return None
-    num_workers = int(os.environ.get("DMLC_NUM_WORKER", "1") or 1)
-    return ("%s:%s" % (host, port), num_workers, num_servers)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,48 @@
+"""Sharded embedding tables (counterpart of ``mxnet_tpu/embedding``):
+tables too large for one server, row-sharded across the parameter
+servers of ``kvstore_server``.
+
+- :class:`ShardedEmbeddingTable`: the client data plane (stable-hash row
+  sharding, ``sharding.RowSharding``; deduplicated ``row_pull`` reads;
+  row-scatter pushes on the client's sender pipeline; an optional 2-bit
+  wire), per-server memory about 1/num_servers.
+- :class:`EmbeddingShardError`: out-of-vocabulary ids and sharding
+  misconfiguration, raised at the client.
+
+Not ported, raising by name: the Gluon block ``SparseEmbedding``
+(ROADMAP.md Queue A item 9), the serving half ``EmbeddingLookupServer`` /
+``EmbeddingTowerPredictor`` and ``elastic_table_checkpoint`` (item 10).
+"""
+from ..base import MXNetError
+from .sharding import (  # noqa: F401
+    RowSharding,
+    embedding_shard_rank,
+    embedding_sub_key,
+)
+from .table import (  # noqa: F401
+    EmbeddingShardError,
+    ShardedEmbeddingTable,
+)
+
+
+def _not_ported(name, item, what):
+    def refuse(*args, **kwargs):
+        raise MXNetError("embedding.%s: %s is not ported (ROADMAP.md Queue "
+                         "A item %d)" % (name, what, item))
+
+    refuse.__name__ = name
+    return refuse
+
+
+SparseEmbedding = _not_ported("SparseEmbedding", 9, "the Gluon block")
+EmbeddingLookupServer = _not_ported("EmbeddingLookupServer", 10,
+                                    "the lookup server (a fleet replica)")
+EmbeddingTowerPredictor = _not_ported("EmbeddingTowerPredictor", 10,
+                                      "the lookup server's predictor")
+elastic_table_checkpoint = _not_ported("elastic_table_checkpoint", 10,
+                                       "the table checkpoint")
+
+__all__ = ["RowSharding", "embedding_sub_key", "embedding_shard_rank",
+           "ShardedEmbeddingTable", "EmbeddingShardError",
+           "SparseEmbedding", "EmbeddingLookupServer",
+           "EmbeddingTowerPredictor", "elastic_table_checkpoint"]

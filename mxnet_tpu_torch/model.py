@@ -60,11 +60,13 @@ def _create_kvstore(kvstore, num_device, arg_params):
 def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
                         update_on_kvstore):
     """Store each parameter's initial value (rank 0's, on the ``tpu``
-    tier) and, when the store runs the optimizer, pull it into the bound
-    arrays."""
+    tier) on the device of its bound arrays, so that an in-process store
+    sums and updates where the module computes, and, when the store runs
+    the optimizer, pull it into the bound arrays."""
     for idx, param_on_devs in enumerate(param_arrays):
         name = param_names[idx]
-        kvstore.init(name, arg_params[name])
+        kvstore.init(name, arg_params[name].as_in_context(
+            param_on_devs[0].context))
         if update_on_kvstore:
             kvstore.pull(name, param_on_devs, priority=-idx)
 

@@ -6,10 +6,12 @@ and the callbacks, per epoch get/set_params, the epoch-end callbacks and
 ``save_params``/``load_params``.
 
 ``MXNET_TUNE_BACKGROUND=1`` arms ``tune.BackgroundTuner``: one bounded
-tuning slot per epoch at the drain boundary after ``get_params``. The
-``HealthGuard`` (``MXNET_CHECKPOINT_DIR`` with ``MXNET_TPU_GUARD`` on) is
-not ported and raises by name when set; so do ``monitor`` and
-``sparse_row_id_fn``.
+tuning slot per epoch at the drain boundary after ``get_params``.
+``fit(sparse_row_id_fn=)`` hands each next batch to ``prepare``, which
+pulls the rows it names (``Module.prepare``); ``score`` and ``predict``
+accept it and ignore it, as the JAX package does. The ``HealthGuard``
+(``MXNET_CHECKPOINT_DIR`` with ``MXNET_TPU_GUARD`` on) is not ported and
+raises by name when set; so does ``monitor``.
 """
 from __future__ import annotations
 
@@ -56,11 +58,6 @@ def _unported_fit_knobs():
                          "MXNET_TPU_GUARD=1) is not ported")
 
 
-def _no_sparse(sparse_row_id_fn):
-    if sparse_row_id_fn is not None:
-        raise MXNetError("sparse_row_id_fn: sparse arrays are not ported")
-
-
 class BaseModule:
     def __init__(self, logger=logging):
         self.logger = logger
@@ -82,7 +79,7 @@ class BaseModule:
         """Run inference over ``eval_data`` and return the metric's
         ``(name, value)`` pairs."""
         assert self.binded and self.params_initialized
-        _no_sparse(sparse_row_id_fn)
+        del sparse_row_id_fn
         if reset:
             eval_data.reset()
         if not isinstance(eval_metric, metric_mod.EvalMetric):
@@ -126,7 +123,7 @@ class BaseModule:
         """Outputs over ``eval_data`` (an iterator, or one array as one
         batch), the pad rows dropped, concatenated over the batches."""
         assert self.binded and self.params_initialized
-        _no_sparse(sparse_row_id_fn)
+        del sparse_row_id_fn
         if isinstance(eval_data, (nd.NDArray, np.ndarray)):
             if isinstance(eval_data, np.ndarray):
                 eval_data = nd.array(eval_data, ctx=self._context[0])
@@ -161,7 +158,6 @@ class BaseModule:
         from ..initializer import Uniform
 
         _unported_fit_knobs()
-        _no_sparse(sparse_row_id_fn)
         if monitor is not None:
             raise MXNetError("fit(monitor=...): monitors are not ported")
         if initializer is None:
@@ -198,7 +194,8 @@ class BaseModule:
                 self.update()
                 try:
                     next_data_batch = next(data_iter)
-                    self.prepare(next_data_batch)
+                    self.prepare(next_data_batch,
+                                 sparse_row_id_fn=sparse_row_id_fn)
                 except StopIteration:
                     end_of_batch = True
                 self.update_metric(eval_metric, data_batch.label)
@@ -270,7 +267,8 @@ class BaseModule:
         self.set_params(arg_params, aux_params)
 
     def prepare(self, data_batch, sparse_row_id_fn=None):
-        _no_sparse(sparse_row_id_fn)
+        """Prepare for the next batch (a no-op here; ``Module`` pulls the
+        rows ``sparse_row_id_fn`` names)."""
 
     def install_monitor(self, mon):
         raise MXNetError("install_monitor: monitors are not ported")

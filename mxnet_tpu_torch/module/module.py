@@ -23,9 +23,18 @@ runs the optimizer, and the outputs are gathered over the ranks. Any other
 error, such as a failure to build the mesh or a context that is not the
 rank's mesh device, raises.
 
+A store with ``server_side`` (``kvstore_server.ServerKVStore``: the
+``dist_async`` type with ``MXNET_PS_SERVER_URI`` set, or an instance) runs
+the optimizer on its servers: ``update`` pushes every gradient and pulls
+every weight, and the fused step is never engaged. ``prepare(batch,
+sparse_row_id_fn)`` pulls the rows of the parameters that
+``sparse_row_id_fn(batch)`` names from the kvstore into the bound arrays
+(``row_sparse_pull``: the rows not named become 0 there, as in the JAX
+package; ``fit`` calls it with each next batch).
+
 Not ported, raising ``MXNetError`` by name: more than one context in one
-process, ``group2ctxs``, ``dist_*`` kvstores, ``compression_params`` and
-``install_monitor``.
+process, ``group2ctxs``, the other ``dist_*`` kvstores,
+``compression_params`` and ``install_monitor``.
 """
 from __future__ import annotations
 
@@ -285,8 +294,11 @@ class Module(BaseModule):
         self._updater = None
 
         self._fused = None
+        # a server-side store (ServerKVStore) is the update engine: its
+        # updates go through the servers, never the fused step
+        server_side = getattr(kvstore, "server_side", False)
         if kvstore is not None and kvstore.type == "tpu" and \
-                self.for_training:
+                not server_side and self.for_training:
             from ..parallel.spmd import FusedStepUnsupported
             from .spmd_group import FusedSPMDGroup
 
@@ -307,7 +319,8 @@ class Module(BaseModule):
             else:
                 kvstore.attach_mesh(self._fused.mesh)
                 update_on_kvstore = self._update_on_kvstore = False
-        if kvstore is not None and kvstore.num_workers > 1:
+        if kvstore is not None and not server_side and \
+                kvstore.num_workers > 1:
             # one rank a device: each executor takes its rows of the batch
             group.set_dp_slice(kvstore.rank, kvstore.num_workers)
             group.set_params(self._arg_params, self._aux_params)
@@ -401,6 +414,19 @@ class Module(BaseModule):
                            num_device=len(self._context),
                            kvstore=self._kvstore,
                            param_names=group.param_names)
+
+    def prepare(self, data_batch, sparse_row_id_fn=None):
+        """Pull the rows ``sparse_row_id_fn(data_batch)`` names, a
+        ``{param name: row ids}`` map, from the kvstore into the bound
+        parameter arrays."""
+        assert self.binded
+        if sparse_row_id_fn is not None and self._kvstore is not None:
+            for name, rid in sparse_row_id_fn(data_batch).items():
+                if name in self._param_names:
+                    idx = self._param_names.index(name)
+                    self._kvstore.row_sparse_pull(
+                        name, out=self._exec_group.param_arrays[idx],
+                        row_ids=rid)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

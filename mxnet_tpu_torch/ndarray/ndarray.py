@@ -13,8 +13,9 @@ so writes through it reach the parent, as the JAX package's
 
 ``dtype`` is a numpy scalar type, except bfloat16, which numpy lacks:
 there it is ``torch.bfloat16``, and ``asnumpy()`` gives float32 (exact).
-Not ported: sparse storage (``tostype`` to csr/row_sparse raises), and
-ops the registry does not hold (their methods raise naming the op).
+``tostype`` converts to the sparse storage types of ``sparse.py``, and
+``dot`` with a CSR array takes the sparse product there. Ops the registry
+does not hold raise naming the op.
 """
 from __future__ import annotations
 
@@ -182,16 +183,16 @@ class NDArray:
     def tostype(self, stype):
         if stype == "default":
             return self
-        raise MXNetError("NDArray.tostype(%r): sparse storage is not "
-                         "ported" % (stype,))
+        from . import sparse as _sp
+
+        return _sp.cast_storage(self, stype)
 
     # -- autograd ------------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
         """Make this array an autograd variable with a zero gradient
-        buffer (``.grad``)."""
-        if stype not in (None, "default"):
-            raise MXNetError("attach_grad(stype=%r): sparse gradients are "
-                             "not ported" % (stype,))
+        buffer (``.grad``). ``stype`` is accepted and the buffer is dense,
+        as in the JAX package."""
+        del stype
         _ag.mark_variables([self], [zeros_like(self)], grad_reqs=grad_req)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
@@ -354,6 +355,10 @@ class NDArray:
         return invoke("clip", [self], {"a_min": a_min, "a_max": a_max})
 
     def dot(self, other, transpose_a=False, transpose_b=False):
+        from . import sparse as _sp
+
+        if isinstance(self, _sp.CSRNDArray) and not transpose_b:
+            return _sp.dot(self, other, transpose_a=transpose_a)
         return invoke("dot", [self, other], {"transpose_a": transpose_a,
                                              "transpose_b": transpose_b})
 

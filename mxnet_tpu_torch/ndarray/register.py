@@ -68,9 +68,11 @@ def _np_tensor(a):
 
 
 # the op namespaces: ``_contrib_X`` is ``mod.contrib.X``, ``_linalg_X``
-# ``mod.linalg.X``, ``_random_X`` and ``_sample_X`` are ``mod.random.X``
+# ``mod.linalg.X``, ``_random_X`` and ``_sample_X`` are ``mod.random.X``,
+# ``_sparse_X`` is ``mod.sparse.X``
 _ROUTES = (("_contrib_", "contrib"), ("_linalg_", "linalg"),
-           ("_random_", "random"), ("_sample_", "random"))
+           ("_random_", "random"), ("_sample_", "random"),
+           ("_sparse_", "sparse"))
 # mod.random.<dist>: scalar parameters draw from _random_<dist>, tensor
 # parameters from _sample_<dist> (the negative binomials have no _sample_
 # form: mod.random holds their _random_ op, routed above)
@@ -84,14 +86,17 @@ def populate_module(mod, maker=make_op_func, tensor_type=NDArray):
     (``mx.nd.contrib.MultiBoxPrior``, ``mx.nd.random.uniform``, ...).
     ``mod.random.<dist>`` dispatches on whether an argument is a
     ``tensor_type``; ``mod.random`` also holds ``multinomial``,
-    ``randint`` and ``shuffle``."""
+    ``randint`` and ``shuffle``. A namespace module that ``mod`` already
+    holds (``mx.nd.sparse``, the real submodule) receives its ops."""
     import types
 
     sub = {}
     for _prefix, ns in _ROUTES:
         if ns not in sub:
-            sub[ns] = types.ModuleType("%s.%s" % (mod.__name__, ns))
-            setattr(mod, ns, sub[ns])
+            sub[ns] = getattr(mod, ns, None)
+            if not isinstance(sub[ns], types.ModuleType):
+                sub[ns] = types.ModuleType("%s.%s" % (mod.__name__, ns))
+                setattr(mod, ns, sub[ns])
     for name in _reg.list_ops():
         fn = maker(_reg.get(name))
         setattr(mod, name, fn)

@@ -597,9 +597,10 @@ def _square_sum(data, axis=None, keepdims=False, exclude=False):
 
 @register(name="cast_storage", nondiff=True)
 def cast_storage(data, stype="default"):
-    """The dense kernel: the identity, whatever ``stype`` (the JAX
-    package converts storage in its NDArray front end, which the port
-    does not have yet: ``NDArray.tostype`` raises)."""
+    """The dense fallback: the identity, whatever ``stype``. The sparse
+    form is ``ndarray/sparse.py``'s ``cast_storage``, which
+    ``NDArray.tostype`` and ``mx.nd.cast_storage`` take for a sparse
+    ``stype``, as the JAX package converts in its NDArray front end."""
     return data
 
 
@@ -635,9 +636,10 @@ def _drop_grad(out, valid):
 
 @register(name="_sparse_retain", nondiff=True)
 def _sparse_retain(data, indices):
-    """The dense form of row-sparse retain: rows not in ``indices`` become
-    0 (negative indices wrap; out of range ones are dropped, as a JAX
-    scatter drops them)."""
+    """The dense fallback of row-sparse retain: rows not in ``indices``
+    become 0 (negative indices wrap; out of range ones are dropped, as a
+    JAX scatter drops them). A row-sparse ``data`` takes the sparse form,
+    ``ndarray/sparse.py``'s ``retain_rows``, through ``mx.nd``."""
     n = data.shape[0]
     idx = _wrap(_index(indices).reshape(-1), n)
     idx = torch.where((idx >= 0) & (idx < n), idx, n)

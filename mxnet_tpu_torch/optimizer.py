@@ -5,15 +5,19 @@
 ``lr_mult``/``wd_mult`` by name through ``idx2name`` (or ``param_dict``),
 and update counts per index. ``SGD``, ``Adam``, ``RMSProp``, ``Ftrl`` and
 ``Signum`` run the update ops of ``ops/optimizer_ops.py``; ``NAG``,
-``AdaGrad``, ``AdaDelta``, ``Adamax`` and ``Nadam`` run NDArray
-arithmetic, as there. Every update writes into the weight's own tensor
-(and the states'), so an executor bound to that weight trains it.
+``AdaGrad``, ``AdaDelta``, ``Adamax``, ``Nadam``, ``SGLD`` and ``DCASGD``
+run NDArray arithmetic, as there. ``SGD`` and ``Adam`` with
+``lazy_update=True`` (the default) take the lazy row-sparse update of
+``ndarray/sparse.py`` for a ``RowSparseNDArray`` gradient: only its rows
+move. Every update writes into the weight's own tensor (and the states'),
+so an executor bound to that weight trains it. ``SGLD`` draws its noise
+from the weight's device generator (``random.generator``), as the port's
+random ops do.
 
 ``Updater`` owns the per-index states; ``get_states`` pickles the
 ``{index: numpy state}`` map as the JAX package does, and ``set_states``
 reads such bytes with a restricted unpickler that admits numpy arrays and
-plain containers only. Not ported: ``SGLD``, ``DCASGD``, ``Test`` and the
-row-sparse lazy updates.
+plain containers only. Not ported: ``Test``.
 """
 from __future__ import annotations
 
@@ -158,9 +162,16 @@ class SGD(Optimizer):
         return None if self.momentum == 0.0 else _zeros_like(weight)
 
     def update(self, index, weight, grad, state):
+        from .ndarray.sparse import RowSparseNDArray, sgd_update_rsp
+
         self._update_count(index)
         kw = self._common_kwargs(index)
-        if state is not None:
+        if isinstance(grad, RowSparseNDArray) and self.lazy_update:
+            sgd_update_rsp(weight, grad, kw["lr"], wd=kw["wd"],
+                           rescale_grad=kw["rescale_grad"],
+                           clip_gradient=kw.get("clip_gradient"),
+                           state=state, momentum=self.momentum)
+        elif state is not None:
             invoke("sgd_mom_update", [weight, grad, state],
                    dict(kw, momentum=self.momentum), out=weight)
         else:
@@ -224,6 +235,53 @@ class NAG(Optimizer):
 
 
 @register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: half a gradient step plus
+    Gaussian noise of variance ``lr``, drawn from the weight's device
+    generator."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = self._prepared_grad(grad)
+        noise = invoke("_random_normal", [], {
+            "loc": 0.0, "scale": float(numpy.sqrt(lr)),
+            "shape": weight.shape}, ctx=weight.context)
+        weight -= lr / 2 * (g + wd * weight)
+        weight += noise
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD: the gradient is corrected by
+    ``lamda * g * g * (weight - previous weight)``."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = None if self.momentum == 0.0 else _zeros_like(weight)
+        return (mom, weight.copy())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = self._prepared_grad(grad)
+        mom, prev = state
+        step = -lr * (g + wd * weight + self.lamda * g * g * (weight - prev))
+        if mom is not None:
+            mom *= self.momentum
+            mom += step
+        else:
+            mom = step
+        prev[:] = weight
+        weight += mom
+
+
+@register
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
@@ -237,11 +295,20 @@ class Adam(Optimizer):
         return (_zeros_like(weight), _zeros_like(weight))
 
     def update(self, index, weight, grad, state):
+        from .ndarray.sparse import RowSparseNDArray, adam_update_rsp
+
         self._update_count(index)
         t = self._index_update_count[index]
         kw = self._common_kwargs(index)
-        kw["lr"] *= numpy.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
         mean, var = state
+        if isinstance(grad, RowSparseNDArray) and self.lazy_update:
+            adam_update_rsp(weight, grad, mean, var, kw["lr"],
+                            beta1=self.beta1, beta2=self.beta2,
+                            epsilon=self.epsilon, wd=kw["wd"],
+                            rescale_grad=kw["rescale_grad"],
+                            clip_gradient=kw.get("clip_gradient"), t=t)
+            return
+        kw["lr"] *= numpy.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
         invoke("adam_update", [weight, grad, mean, var],
                dict(kw, beta1=self.beta1, beta2=self.beta2,
                     epsilon=self.epsilon), out=weight)
@@ -401,7 +468,7 @@ class Nadam(Optimizer):
 
 
 _OPT_REGISTRY["ccsgd"] = SGD
-_UNPORTED = ("sgld", "dcasgd", "test")
+_UNPORTED = ("test",)
 
 
 def create(name, **kwargs):
@@ -522,6 +589,7 @@ def get_updater(optimizer):
     return Updater(optimizer)
 
 
-__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "RMSProp",
-           "AdaDelta", "Adamax", "Nadam", "Signum", "Ftrl", "create",
+__all__ = ["Optimizer", "SGD", "NAG", "SGLD", "DCASGD", "Adam", "AdaGrad",
+           "RMSProp", "AdaDelta", "Adamax", "Nadam", "Signum", "Ftrl",
+           "create",
            "register", "Updater", "get_updater"]

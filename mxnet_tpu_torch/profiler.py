@@ -41,6 +41,16 @@ of ``mxnet_tpu/profiler.py``).
   candidates, ranker abstentions, model refits, background slots and
   commits), each kernel key's chosen schedule and its source, and the cost
   model's validation rank correlation per group.
+- ``comm_record`` / ``comm_stats`` / ``comm_reset``: per op family of the
+  parameter-server tier (``push``, ``pull``, ``row_pull``, ...), the RPC
+  count, raw (before compression) and wire bytes, seconds (derived
+  ``avg_ms``, ``wire_reduction``) and the sender's largest in-flight
+  depth.
+- ``embedding_record`` / ``embedding_stats`` / ``embedding_reset``: the
+  sharded embedding table's pull and push rounds, rows moved, requested
+  and unique ids (derived ``dedup_ratio``), out-of-vocabulary refusals,
+  wire bytes a shard (``shard_bytes``) and pull/push latency reservoirs
+  (p50/p99).
 - ``dump_profile``: every non-empty snapshot above in one JSON file, under
   the JAX package's section names (its ``traceEvents`` list is empty: the
   port records no host trace events).
@@ -602,17 +612,137 @@ def io_reset():
         _IO_WAIT_LAT = None
 
 
+# ---------------------------------------------------------------------------
+# the parameter-server tier's comms counters (always on)
+# ---------------------------------------------------------------------------
+_COMM_LOCK = threading.Lock()
+_COMM = {}
+
+
+def comm_record(op, raw_bytes=0, wire_bytes=0, seconds=0.0, count=0,
+                inflight=0):
+    """Accumulate comms counters for one kvstore op family."""
+    with _COMM_LOCK:
+        s = _COMM.get(op)
+        if s is None:
+            s = _COMM[op] = {"count": 0, "raw_bytes": 0, "wire_bytes": 0,
+                             "seconds": 0.0, "max_inflight": 0}
+        s["count"] += count
+        s["raw_bytes"] += raw_bytes
+        s["wire_bytes"] += wire_bytes
+        s["seconds"] += seconds
+        if inflight > s["max_inflight"]:
+            s["max_inflight"] = inflight
+
+
+def comm_stats(reset=False):
+    """Snapshot of the per-op comms counters, with derived ``avg_ms`` (and,
+    where raw bytes were recorded, ``wire_reduction``)."""
+    with _COMM_LOCK:
+        snap = {op: dict(s) for op, s in _COMM.items()}
+        if reset:
+            _COMM.clear()
+    for s in snap.values():
+        if s["count"]:
+            s["avg_ms"] = round(s["seconds"] / s["count"] * 1e3, 3)
+        if s["raw_bytes"] and s["wire_bytes"]:
+            s["wire_reduction"] = round(s["raw_bytes"] / s["wire_bytes"], 2)
+    return snap
+
+
+def comm_reset():
+    with _COMM_LOCK:
+        _COMM.clear()
+
+
+# ---------------------------------------------------------------------------
+# the sharded embedding table's counters (always on)
+# ---------------------------------------------------------------------------
+_EMBED_LOCK = threading.Lock()
+_EMBED_ZERO = {
+    "pulls": 0, "pushes": 0, "ids_requested": 0, "unique_ids": 0,
+    "rows_pulled": 0, "rows_pushed": 0, "oov_errors": 0,
+    "pull_seconds": 0.0, "push_seconds": 0.0,
+}
+_EMBED_FLOATS = ("pull_seconds", "push_seconds")
+_EMBED = dict(_EMBED_ZERO)
+_EMBED_SHARD_BYTES = {}     # shard index -> accumulated wire bytes
+_EMBED_LAT_CAP = 8192
+_EMBED_LAT = {"pull": None, "push": None}
+
+
+def embedding_record(shard_bytes=None, pull_latencies=None,
+                     push_latencies=None, **adds):
+    """Accumulate embedding-table counters (thread-safe). ``shard_bytes``
+    is a ``{shard: bytes}`` increment; the latency lists feed bounded
+    reservoirs. Unknown counter names raise."""
+    with _EMBED_LOCK:
+        for k, v in adds.items():
+            if k in _EMBED_FLOATS:
+                _EMBED[k] += float(v)
+            elif k in _EMBED_ZERO:
+                _EMBED[k] += int(v)
+            else:
+                raise ValueError("embedding_record: unknown counter %r" % k)
+        for s, b in (shard_bytes or {}).items():
+            _EMBED_SHARD_BYTES[int(s)] = \
+                _EMBED_SHARD_BYTES.get(int(s), 0) + int(b)
+        for kind, lat in (("pull", pull_latencies), ("push", push_latencies)):
+            if lat:
+                if _EMBED_LAT[kind] is None:
+                    _EMBED_LAT[kind] = deque(maxlen=_EMBED_LAT_CAP)
+                _EMBED_LAT[kind].extend(lat)
+
+
+def embedding_stats(reset=False):
+    """Snapshot with the derived ``dedup_ratio`` (unique / requested ids)
+    and pull/push p50/p99 (ms); empty when the table never ran."""
+    with _EMBED_LOCK:
+        snap = dict(_EMBED)
+        shards = {str(s): b for s, b in sorted(_EMBED_SHARD_BYTES.items())}
+        lats = {k: sorted(v) if v else [] for k, v in _EMBED_LAT.items()}
+        if reset:
+            _embedding_clear()
+    if not (any(snap.values()) or shards):
+        return {}
+    if snap["ids_requested"]:
+        snap["dedup_ratio"] = round(
+            snap["unique_ids"] / snap["ids_requested"], 4)
+    for key in _EMBED_FLOATS:
+        snap[key] = round(snap[key], 4)
+    if shards:
+        snap["shard_bytes"] = shards
+    for kind in ("pull", "push"):
+        if lats[kind]:
+            snap["%s_p50_ms" % kind] = _percentile_ms(lats[kind], 0.50)
+            snap["%s_p99_ms" % kind] = _percentile_ms(lats[kind], 0.99)
+    return snap
+
+
+def _embedding_clear():
+    _EMBED.update(_EMBED_ZERO)
+    _EMBED_SHARD_BYTES.clear()
+    _EMBED_LAT.update(pull=None, push=None)
+
+
+def embedding_reset():
+    with _EMBED_LOCK:
+        _embedding_clear()
+
+
 def dump_profile(filename="profile.json"):
     """Write the counters' snapshots as one JSON object (the JAX
     ``dump_profile``'s sections that the port keeps) to ``filename``."""
     payload = {"traceEvents": [], "displayTimeUnit": "ms"}
-    for key, stats in (("pipelineStats", pipeline_stats),
+    for key, stats in (("commStats", comm_stats),
+                       ("pipelineStats", pipeline_stats),
                        ("servingStats", serving_stats),
                        ("memoryStats", memory_stats),
                        ("healthStats", health_stats),
                        ("tuningStats", tuning_stats),
                        ("generateStats", generate_stats),
                        ("passStats", pass_stats),
+                       ("embeddingStats", embedding_stats),
                        ("ioStats", io_stats),
                        ("mpStats", mp_stats)):
         snap = stats()

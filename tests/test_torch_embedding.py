@@ -1,0 +1,328 @@
+"""The port's sharded embedding table (``mxnet_tpu_torch/embedding``)
+against the JAX package, on the CPU: two in-process servers a package,
+built with ``device="cpu"``.
+
+The scenarios of ``tests/test_embedding.py``'s sharding and table
+sections: the row sharding's bijection, balance and hot-head striping
+(the same (shard, local) pairs as the JAX package's ``RowSharding``),
+sub-key naming, validation, knob validation and the shard-count knob,
+init/pull parity with dedup, the dedup accounting and ``embeddingStats``
+in ``dump_profile``, push parity with duplicates combined on the client,
+server-side momentum at 1/n of the bytes a server, the out-of-vocabulary
+raise before any RPC, the pull-batch budget, the naive per-id mode and
+the 2-bit wire's error feedback. Each table result is held against the
+JAX package's table on the same seeded inputs. ``SparseEmbedding`` (item
+9), the lookup server and ``elastic_table_checkpoint`` (item 10) raise by
+name.
+
+Every test body runs under a deadline and servers bind ``127.0.0.1:0``.
+Tolerance: fp32, rtol 1e-4 and atol 1e-5; ids, counts and bytes exact.
+"""
+import json
+
+import numpy as np
+import pytest
+
+import mxnet_tpu.embedding as jemb
+from mxnet_tpu import kvstore_server as jks
+from mxnet_tpu import profiler as jprof
+import mxnet_tpu_torch.embedding as temb
+from mxnet_tpu_torch import kvstore_server as tks
+from mxnet_tpu_torch import profiler
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.embedding import (EmbeddingShardError, RowSharding,
+                                       ShardedEmbeddingTable,
+                                       embedding_shard_rank,
+                                       embedding_sub_key)
+
+from torch_kvstore_helpers import _close, _stop, _within, bounded
+
+PKGS = {"port": (tks, temb, profiler), "jax": (jks, jemb, jprof)}
+
+
+class _Cluster:
+    """Two servers and a client of one package."""
+
+    def __init__(self, pkg, n=2):
+        ks, self.emb, self.prof = PKGS[pkg]
+        self.servers = [tks.KVStoreServer(device="cpu") if pkg == "port"
+                        else jks.KVStoreServer() for _ in range(n)]
+        for s in self.servers:
+            s.serve_in_background()
+        self.kv = ks.ServerKVStore(",".join(s.addr for s in self.servers))
+        self.prof.embedding_reset()
+
+    def table(self, rows=60, dim=8, full=None, **kw):
+        t = self.emb.ShardedEmbeddingTable("emb", self.kv, rows, dim, **kw)
+        t.init(init_array=full)
+        return t
+
+    def close(self):
+        _stop(self.kv, *self.servers)
+        self.prof.embedding_reset()
+
+
+@pytest.fixture
+def clusters():
+    made = {}
+
+    def make(pkg):
+        made[pkg] = _Cluster(pkg)
+        return made[pkg]
+
+    yield make
+    for c in made.values():
+        c.close()
+
+
+def _both(clusters, fn):
+    """``fn(cluster)`` on a port cluster and a JAX cluster."""
+    return fn(clusters("port")), fn(clusters("jax"))
+
+
+# ---------------------------------------------------------------------------
+# sharding math
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("rows,shards", [(1, 1), (2, 2), (101, 4),
+                                         (4096, 3), (1 << 20, 4)])
+def test_row_sharding_bijection_balance_and_jax_parity(rows, shards):
+    rs = RowSharding(rows, shards)
+    jrs = jemb.RowSharding(rows, shards)
+    assert rs.multiplier == jrs.multiplier and rs.sizes == jrs.sizes
+    ids = np.arange(min(rows, 1 << 14), dtype=np.int64)
+    s, loc = rs.shard_and_local(ids)
+    js, jloc = jrs.shard_and_local(ids)
+    assert (s == js).all() and (loc == jloc).all()
+    if rows <= 4096:
+        assert len(set(zip(s.tolist(), loc.tolist()))) == rows
+        assert sorted(rs.sizes) == sorted(
+            np.bincount(s, minlength=shards).tolist())
+    assert max(rs.sizes) - min(rs.sizes) <= 1
+    for sh in range(shards):
+        g = rs.global_ids(sh)
+        assert (g == jrs.global_ids(sh)).all()
+        s2, l2 = rs.shard_and_local(g[:4096])
+        assert (s2 == sh).all()
+        assert (l2 == np.arange(min(rs.sizes[sh], 4096))).all()
+    for (a, sa, la), (b, sb, lb) in zip(rs.group(ids[::3]),
+                                        jrs.group(ids[::3])):
+        assert a == b and (sa == sb).all() and (la == lb).all()
+
+
+def test_sharding_stripes_the_hot_head():
+    s, _ = RowSharding(100000, 4).shard_and_local(np.arange(64))
+    assert np.bincount(s, minlength=4).min() >= 8
+
+
+def test_sub_key_naming_and_rank_parse():
+    assert embedding_sub_key("user_emb", 3) == "user_emb@embshard3"
+    assert embedding_shard_rank("user_emb@embshard3") == 3
+    assert embedding_shard_rank("user_emb") is None
+    assert embedding_shard_rank("fc1_weight") is None
+
+
+def test_sharding_validation():
+    for rows, shards in ((0, 1), (4, 5), (4, 0), (1 << 31, 2)):
+        with pytest.raises(MXNetError):
+            RowSharding(rows, shards)
+
+
+# ---------------------------------------------------------------------------
+# knobs
+# ---------------------------------------------------------------------------
+@bounded
+def test_knob_validation(clusters, monkeypatch):
+    kv = clusters("port").kv
+    for knob, bad in (("MXNET_EMBED_DEDUP", "maybe"),
+                      ("MXNET_EMBED_PULL_BATCH", "zero"),
+                      ("MXNET_EMBED_WIRE", "3bit"),
+                      ("MXNET_EMBED_WIRE_THRESHOLD", "-1"),
+                      ("MXNET_EMBED_SHARDS", "-2")):
+        monkeypatch.setenv(knob, bad)
+        with pytest.raises(MXNetError, match=knob):
+            ShardedEmbeddingTable("k", kv, 10, 4)
+        monkeypatch.delenv(knob)
+    with pytest.raises(EmbeddingShardError, match="ServerKVStore"):
+        ShardedEmbeddingTable("k", object(), 10, 4)
+
+
+@bounded
+def test_shards_knob_override(clusters, monkeypatch):
+    kv = clusters("port").kv
+    monkeypatch.setenv("MXNET_EMBED_SHARDS", "3")
+    t = ShardedEmbeddingTable("k3", kv, 30, 4)
+    assert t.num_shards == 3
+    assert t.server_of(2) == 0
+
+
+# ---------------------------------------------------------------------------
+# the table's data plane
+# ---------------------------------------------------------------------------
+@bounded
+def test_init_pull_parity(clusters):
+    full = np.random.RandomState(0).randn(60, 8).astype(np.float32)
+    ids = np.array([3, 7, 3, 59, 0, 7, 31])
+
+    def run(c):
+        t = c.table(full=full)
+        uniq, inverse, vecs = t.pull(ids)
+        seeded = c.emb.ShardedEmbeddingTable("seeded", c.kv, 50, 4)
+        seeded.init(seed=3)
+        return (uniq, inverse, vecs, t.as_dense(), seeded.as_dense(),
+                t.lookup(ids.reshape(7, 1)))
+
+    t, j = _both(clusters, run)
+    assert t[0].tolist() == j[0].tolist() and t[0].size == 5
+    assert t[1].tolist() == j[1].tolist()
+    np.testing.assert_array_equal(t[2][t[1]], full[ids])
+    np.testing.assert_array_equal(t[3], full)
+    np.testing.assert_array_equal(t[4], j[4])   # per-shard seeded init
+    assert t[5].shape == (7, 1, 8)
+
+
+@bounded
+def test_dedup_accounting_and_stats_ride(clusters, tmp_path):
+    c = clusters("port")
+    t = c.table()
+    t.pull(np.array([1, 1, 1, 2]))
+    stats = profiler.embedding_stats()
+    assert stats["ids_requested"] == 4
+    assert stats["unique_ids"] == 2
+    assert stats["dedup_ratio"] == 0.5
+    assert stats["rows_pulled"] == 2
+    assert stats["shard_bytes"]
+    assert "pull_p99_ms" in stats
+    out = tmp_path / "profile.json"
+    profiler.dump_profile(str(out))
+    payload = json.loads(out.read_text())
+    assert payload["embeddingStats"]["unique_ids"] == 2
+    assert payload["commStats"]["pull"]["count"] >= 1
+    with pytest.raises(ValueError):
+        profiler.embedding_record(bogus=1)
+
+
+@bounded
+def test_push_update_parity_and_duplicate_combine(clusters):
+    full = np.random.RandomState(1).randn(60, 8).astype(np.float32)
+    ids = np.array([3, 7, 3, 0])
+    g = np.random.RandomState(2).randn(4, 8).astype(np.float32)
+
+    def run(c):
+        c.kv.set_optimizer("sgd", learning_rate=1.0, rescale_grad=1.0)
+        t = c.table(full=full)
+        t.push(ids, g)
+        c.kv.wait_outstanding()
+        return t.as_dense()
+
+    t, j = _both(clusters, run)
+    _close(t, j)
+    expect = full.copy()
+    np.add.at(expect, ids, -g)
+    _close(t, expect)
+
+
+@bounded
+def test_momentum_state_lives_server_side_at_one_over_n(clusters):
+    def run(c):
+        c.kv.set_optimizer("sgd", learning_rate=0.1, momentum=0.9,
+                           rescale_grad=1.0)
+        t = c.table()
+        for _ in range(2):
+            t.push(np.arange(10), np.ones((10, 8), np.float32))
+        c.kv.wait_outstanding()
+        return c.kv.server_memory(), t.as_dense()
+
+    (tmem, tdense), (jmem, jdense) = _both(clusters, run)
+    assert tmem == jmem
+    per = [m["embed_store_bytes"] + m["embed_opt_bytes"] for m in tmem]
+    assert all(m["embed_opt_bytes"] > 0 for m in tmem)
+    for b in per:
+        assert abs(b / sum(per) - 0.5) < 0.02
+    _close(tdense, jdense)
+
+
+@bounded
+def test_oov_raises_typed_at_client_before_any_rpc(clusters):
+    c = clusters("port")
+    t = c.table(rows=20)
+    profiler.comm_reset()
+    with pytest.raises(EmbeddingShardError, match="out of vocabulary"):
+        t.pull(np.array([0, 20]))
+    with pytest.raises(EmbeddingShardError, match="out of vocabulary"):
+        t.push(np.array([-1]), np.zeros((1, 8), np.float32))
+    with pytest.raises(EmbeddingShardError, match="non-integral"):
+        t.pull(np.array([0.5]))
+    comm = profiler.comm_stats()
+    assert comm.get("pull", {}).get("count", 0) == 0
+    assert comm.get("push", {}).get("count", 0) == 0
+    assert profiler.embedding_stats()["oov_errors"] >= 2
+
+
+@bounded
+def test_pull_batch_budget_splits_frames(clusters):
+    def run(c, prof):
+        t = c.table(rows=40, pull_batch=4)
+        prof.comm_reset()
+        _u, _i, vecs = t.pull(np.arange(40))
+        return prof.comm_stats()["pull"]["count"], vecs
+
+    (tn, tv), (jn, jv) = (run(clusters("port"), profiler),
+                          run(clusters("jax"), jprof))
+    assert tn == jn and tn >= 10
+    np.testing.assert_array_equal(tv, jv)
+
+
+@bounded
+def test_naive_mode_is_per_id(clusters):
+    c = clusters("port")
+    t = c.table(rows=40, dedup=False)
+    profiler.comm_reset()
+    ids = np.array([1, 1, 5, 9])
+    uniq, inverse, vecs = t.pull(ids)
+    assert uniq.size == 4
+    assert (inverse == np.arange(4)).all()
+    assert profiler.comm_stats()["pull"]["count"] == 4
+    np.testing.assert_array_equal(vecs, t.as_dense()[ids])
+
+
+@bounded
+def test_2bit_wire_error_feedback(clusters):
+    def run(c):
+        c.kv.set_optimizer("sgd", learning_rate=1.0, rescale_grad=1.0)
+        t = c.table(rows=20, full=np.zeros((20, 8), np.float32),
+                    wire="2bit", threshold=0.5)
+        g = np.full((1, 8), 0.2, np.float32)
+        t.push(np.array([3]), g)
+        c.kv.wait_outstanding()
+        first = t.as_dense()
+        for _ in range(3):
+            t.push(np.array([3, 5]), np.concatenate([g, -3 * g]))
+        c.kv.wait_outstanding()
+        return first, t.as_dense()
+
+    (tf, td), (jf, jd) = _both(clusters, run)
+    np.testing.assert_array_equal(tf, jf)
+    np.testing.assert_array_equal(td, jd)
+    assert np.allclose(tf[3], 0.0)
+    assert not np.allclose(td[3], 0.0)
+    steps = np.unique(np.abs(td[[3, 5]]))
+    assert all(abs(s / 0.5 - round(s / 0.5)) < 1e-6 for s in steps)
+
+
+# ---------------------------------------------------------------------------
+# what waits for items 9 and 10
+# ---------------------------------------------------------------------------
+def test_unported_parts_raise_by_name():
+    for name, item in (("SparseEmbedding", 9), ("EmbeddingLookupServer", 10),
+                       ("EmbeddingTowerPredictor", 10),
+                       ("elastic_table_checkpoint", 10)):
+        with pytest.raises(MXNetError, match="%s.*item %d" % (name, item)):
+            getattr(temb, name)()
+
+
+def test_teardown_is_bounded():
+    """The deadline helper fails a call that hangs."""
+    import threading
+
+    with pytest.raises(pytest.fail.Exception, match="did not return"):
+        _within(0.2, threading.Event().wait)

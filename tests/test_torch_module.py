@@ -403,16 +403,28 @@ def test_other_kvstores_raise_by_name(kvstore):
 
 
 def test_monitor_and_sparse_raise_by_name():
+    """Monitors still raise by name; ``sparse_row_id_fn`` and
+    ``attach_grad(stype=)``, refused while sparse arrays were not ported,
+    now run: fit hands every next batch to ``prepare`` (which pulls the
+    named rows when there is a kvstore), and the gradient buffer is dense
+    as in the JAX package."""
     mod = mx.mod.Module(_small(), context=mx.cpu())
     with pytest.raises(MXNetError, match="monitor.*not ported"):
         mod.fit(_iter(), num_epoch=1, monitor=object())
-    with pytest.raises(MXNetError, match="sparse.*not ported"):
-        mod.fit(_iter(), num_epoch=1, sparse_row_id_fn=lambda b: {})
-    mod.bind(*(lambda it: (it.provide_data, it.provide_label))(_iter()))
+    seen = []
+    # kvstore 'local' on one context is no store: nothing to pull from
+    mod.fit(_iter(), num_epoch=1,
+            sparse_row_id_fn=lambda b: seen.append(b) or {})
+    assert seen == []
+    mod = mx.mod.Module(_small(), context=mx.cpu())
+    mod.fit(_iter(), num_epoch=1, kvstore=mx.kv.create("local"),
+            sparse_row_id_fn=lambda b: seen.append(b) or {})
+    assert len(seen) == len(list(_iter())) - 1
     with pytest.raises(MXNetError, match="monitors are not ported"):
         mod.install_monitor(object())
-    with pytest.raises(MXNetError, match="sparse"):
-        mx.nd.zeros((2, 2)).attach_grad(stype="row_sparse")
+    x = mx.nd.zeros((2, 2))
+    x.attach_grad(stype="row_sparse")
+    assert x.grad.stype == "default" and x.grad.shape == (2, 2)
 
 
 def test_module_defaults_to_the_card():

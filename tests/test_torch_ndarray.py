@@ -321,8 +321,14 @@ def test_unported_ops_raise_by_name():
         mx.nd.Custom
     with pytest.raises(MXNetError, match="'Custom' is not ported"):
         mx.nd.invoke("Custom", [mx.nd.zeros(3)], {})
-    with pytest.raises(MXNetError, match="sparse storage is not ported"):
-        mx.nd.zeros(3).tostype("csr")
+    # sparse storage is ported: tostype("csr") gives the JAX package's CSR
+    dense = np.array([[0, 1.5, 0], [2, 0, 0]], np.float32)
+    csr = mx.nd.array(dense).tostype("csr")
+    jcsr = jmx.nd.array(dense).tostype("csr")
+    assert csr.stype == jcsr.stype == "csr"
+    assert csr.indptr.asnumpy().tolist() == jcsr.indptr.asnumpy().tolist()
+    assert csr.indices.asnumpy().tolist() == jcsr.indices.asnumpy().tolist()
+    assert (csr.asnumpy() == jcsr.asnumpy()).all()
     assert callable(mx.nd.sgd_mom_update) and callable(mx.nd.broadcast_add)
 
 
@@ -543,7 +549,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.data, mxnet_tpu_torch.data.service, "
             "mxnet_tpu_torch.data.writer, mxnet_tpu_torch.data.lease, "
             "mxnet_tpu_torch.image, mxnet_tpu_torch.image.recordio_iter, "
-            "mxnet_tpu_torch.parallel.feed\n"
+            "mxnet_tpu_torch.parallel.feed, mxnet_tpu_torch.ndarray.sparse, "
+            "mxnet_tpu_torch.tracker, mxnet_tpu_torch.kvstore_server, "
+            "mxnet_tpu_torch.embedding, mxnet_tpu_torch.embedding.table, "
+            "mxnet_tpu_torch.embedding.sharding\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']\n"
             "assert not bad, bad\n")
