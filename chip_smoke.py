@@ -270,7 +270,42 @@ the kernels are built for sm_90a) and ``nvcc``. It
    one); then ``Module.fit`` of a small MLP through two servers
    on the card (falling loss, the servers' weights equal the module's).
    B1-B7 launch 0 times on both;
-29. prints one JSON line describing each kernel, then the result line
+29. trains the MoE transformer (``n_experts=8`` on the full-width model:
+   12 layers, d_model 512, vocab 32000, bf16, every expert computed as the
+   JAX package's dense soft-gated mixture) through ``make_train_step``
+   (SGD lr 0.1, momentum 0.9) on one seeded (8, 2049) batch: a warm-up
+   and 5 timed steps, the first loss within ln(32000) +- 0.25, a falling
+   loss, 12 launches of each of B5, B6 and B7 a step, tokens/s, step
+   times, peak memory and the busy share; then a 2-layer fp32 MoE's
+   gradients card vs CPU as in 8, each tensor within the larger of 1e-4
+   and 3x the gap one rounding of the weights gives on the CPU (8 experts
+   hold 8x the ReLU units whose kinks flip under any summation order);
+30. serves that MoE model behind ``GenerateServer(slots=8, page_size=16)``
+   with step 4's 16 prompts, 32 new tokens each: 12 B5 launches a prefill,
+   two requests' served logits within ``LOGIT_TOL`` of the forward and
+   every greedy chain against the forward's argmax by the near-tie rule;
+   again with ``prefix_cache=True, spec_k=4`` over a 1-layer self-draft
+   (13 B5 launches a prefill), its chains against the first run's by that
+   rule; tokens/s and TTFT p50 of both;
+31. runs the MoE (4 layers, fp32, TF32 off) over ``train_mesh(mp=2)`` on 2
+   gloo ranks sharing the card: a loss forward's collectives equal
+   ``block_collective_counts`` (2 sums a block), the loss within 1e-5 of
+   one device's, every unsharded gradient (``moe_gate_weight``'s too,
+   summed over the mp group in the backward) within the zoo yardstick of
+   one device's, the gate's gradient bit for bit equal on the ranks;
+32. trains Gluon's ``resnet50_v1`` (1000 classes) from the vision model
+   zoo, hybridized, fp32 with TF32 off, with ``Trainer`` (sgd lr 0.1 a
+   256 images scaled to the batch, 0.0125, momentum 0.9, wd 1e-4) on
+   ``SoftmaxCrossEntropyLoss`` at (32, 3, 224, 224): a warm-up and 5 timed
+   steps on one seeded batch (the loss must fall), images/s, peak
+   memory and the busy share; checks the eager and hybridized forwards
+   against each other, the card against the port's CPU forward on the same
+   weights at batch 2 (within 3x the gap one rounding gives), ``export`` ->
+   ``AOTPredictor`` against the Gluon forward, and one network of each
+   other zoo family (resnet v2, vgg with BatchNorm, alexnet, squeezenet,
+   mobilenet, densenet, inception v3 at 299) eager against hybridized;
+   B1-B7 launch 0 times there;
+33. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -1040,39 +1075,64 @@ def _reset_counts(fa):
     fa.flash_attention_bwd_dkv.launches = 0
 
 
-def grad_phase(torch, np):
+def grad_phase(torch, np, cfg_kw=GRAD_CFG, label="grad", nudges=0):
     """Loss and every parameter gradient of a 2-layer fp32 model, on the
     card (B5, B6, B7) against the CPU (the plain versions), from the same
     params and tokens. TF32 is off (set in kernel_phase): fp32 products
-    in full precision on both sides."""
+    in full precision on both sides. Each tensor is held by max|card -
+    cpu| / max|cpu| within GRAD_TOL; with ``nudges`` > 0 within the larger
+    of GRAD_TOL and MP_RATIO times the same gap between the CPU's gradient
+    and the CPU's after one rounding of every weight (the largest of
+    ``nudges`` such moves)."""
     from mxnet_tpu_torch.models import transformer as tfm
 
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.backends.cudnn.allow_tf32:
-        raise RuntimeError("grad: TF32 must be off for an fp32 reference")
-    cfg = tfm.TransformerConfig(**GRAD_CFG)
+        raise RuntimeError("%s: TF32 must be off for an fp32 reference"
+                           % label)
+    cfg = tfm.TransformerConfig(**cfg_kw)
     params = tfm.init_params(cfg, seed=0)
     tokens = np.random.RandomState(0).randint(0, cfg.vocab, GRAD_BATCH)
-    got = {}
-    for dev in ("cuda", "cpu"):
+
+    def loss_grads(dev, ps):
         loss_fn, _ = tfm.make_loss_fn(cfg, device=dev)
-        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        p = {k: v.to(dev, copy=True).requires_grad_()
+             for k, v in ps.items()}
         loss = loss_fn(p, tokens)
         grads = torch.autograd.grad(loss, list(p.values()))
-        got[dev] = (loss.item(), {k: g.cpu() for k, g in zip(p, grads)})
-    worst = 0.0
+        return loss.item(), {k: g.cpu() for k, g in zip(p, grads)}
+
+    def gap(g, ref):
+        return ((g - ref).abs().max() / ref.abs().max().clamp_min(
+            1e-30)).item()
+
+    got = {dev: loss_grads(dev, params) for dev in ("cuda", "cpu")}
+    yard = {k: 0.0 for k in params}
+    for i in range(nudges):
+        rng = np.random.RandomState(400 + i)
+        moved = loss_grads("cpu", {k: torch.from_numpy(_zoo_nudged(
+            np, v.numpy(), rng)) for k, v in params.items()})[1]
+        for k, g in moved.items():
+            yard[k] = max(yard[k], gap(g, got["cpu"][1][k]))
+    worst, over = 0.0, []
     for k, g_cpu in got["cpu"][1].items():
-        g_card = got["cuda"][1][k]
-        rel = ((g_card - g_cpu).abs().max() /
-               g_cpu.abs().max().clamp_min(1e-30)).item()
+        rel = gap(got["cuda"][1][k], g_cpu)
         worst = max(worst, rel)
-        print("grad %-18s max|card - cpu| / max|cpu| = %.3g" % (k, rel))
-    print("grad: loss card %.7f cpu %.7f; worst gradient %.3g (tol %g), "
-          "2 layers, fp32, tokens %s" % (got["cuda"][0], got["cpu"][0], worst,
-                                         GRAD_TOL, GRAD_BATCH))
-    if worst > GRAD_TOL or abs(got["cuda"][0] - got["cpu"][0]) > \
+        limit = max(GRAD_TOL, MP_RATIO * yard[k])
+        if rel > limit:
+            over.append(k)
+        print("%s %-18s max|card - cpu| / max|cpu| = %.3g%s"
+              % (label, k, rel, " (one rounding on the CPU %.3g, limit %.3g)"
+                 % (yard[k], limit) if nudges else ""))
+    print("%s: loss card %.7f cpu %.7f; worst gradient %.3g (tol %g%s), "
+          "%d layers, %d experts, fp32, tokens %s"
+          % (label, got["cuda"][0], got["cpu"][0], worst, GRAD_TOL,
+             " or %g x one rounding's gap" % MP_RATIO if nudges else "",
+             cfg.n_layers, cfg.n_experts, GRAD_BATCH))
+    if over or abs(got["cuda"][0] - got["cpu"][0]) > \
             GRAD_TOL * abs(got["cpu"][0]):
-        raise RuntimeError("card gradients differ from the CPU's")
+        raise RuntimeError("%s: card gradients differ from the CPU's: %s"
+                           % (label, over))
 
 
 def training_phase(torch, np, fa):
@@ -7786,6 +7846,498 @@ def embed_phase(torch, np, fa, fb):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the MoE transformer (ROADMAP.md Queue A item 8c, first part): FULL with 8
+# experts in every block, each computed (the dense soft-gated mixture)
+# ---------------------------------------------------------------------------
+MOE = dict(FULL, n_experts=8)
+MOE_BATCH, MOE_STEPS = (8, 2049), 5
+# first loss of random weights: the same tied head as the dense model, so
+# ln(32000) plus half the logits' variance (~0.1), held to ln(32000) +- 0.25
+MOE_FIRST_LOSS, MOE_FIRST_LOSS_TOL = math.log(32000), 0.25
+# card vs CPU gradients of a 2-layer fp32 MoE, by grad_phase's rule with
+# the one-rounding yardstick: 8 experts hold 8x the dense model's ReLU
+# units, and a pre-activation within ~1e-7 of 0 flips its ReLU under any
+# change of summation order (measured on the H100: ffn_up's gradient 3.9e-3
+# from the CPU's, above 1e-4, at this size)
+MOE_GRAD_CFG = dict(GRAD_CFG, n_experts=8)
+# the second serving run: prefix cache on, spec_k 4 over a 1-layer
+# self-draft
+MOE_SPEC_K, MOE_DRAFT = 4, 1
+# mp=2 on 2 gloo ranks sharing the card: the MoE at 4 layers, fp32 (TF32
+# off), one loss and gradient against one device's, held as
+# mp_training_phase holds the dense model's
+MOE_MP = dict(MOE, n_layers=4, dtype="float32")
+MOE_MP_BATCH = (4, 1025)
+
+
+def _moe_steps(torch, fa, step, carry, tokens, steps):
+    """``steps`` timed train steps (each ends in a device sync) and their
+    launches; returns (losses, seconds, launches, carry)."""
+    losses, secs = [], []
+    _reset_counts(fa)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        carry, loss = step(carry, tokens)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    return losses, secs, _counts(fa), carry
+
+
+def moe_training_phase(torch, np, fa):
+    """The MoE transformer at full width (MOE) through make_train_step: a
+    warm-up step and MOE_STEPS timed ones on one seeded MOE_BATCH batch,
+    then the 2-layer fp32 MoE's gradients card vs CPU; returns the timed
+    steps' B5, B6, B7 launches."""
+    from mxnet_tpu_torch.models import transformer as tfm
+
+    _free(torch)
+    held = torch.cuda.memory_allocated()
+    cfg = tfm.TransformerConfig(**MOE)
+    opt = dict(name="sgd", learning_rate=0.1, momentum=0.9)
+    params = tfm.init_params(cfg, seed=0)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, MOE_BATCH)
+    n_tok = MOE_BATCH[0] * (MOE_BATCH[1] - 1)
+    step, place = tfm.make_train_step(cfg, optimizer=opt)
+    carry = place(params)
+    t0 = time.perf_counter()
+    carry, loss = step(carry, tokens)                    # warm-up
+    losses = [loss.item()]
+    print("moe train warm-up step: loss %.5f, %.3f s" % (
+        losses[0], time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed, secs, launches, carry = _moe_steps(torch, fa, step, carry, tokens,
+                                              MOE_STEPS)
+    losses += timed
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(v.numel() for v in params.values())
+    print("moe train: %d layers x %d experts (d_ff %d each, %d params), %s, "
+          "%d steps at tokens %s: losses %s; step times %s s; %.1f tokens/s; "
+          "peak memory %.2f GiB (%.2f GiB held before the phase); launches "
+          "B5 %d, B6 %d, B7 %d"
+          % (cfg.n_layers, cfg.n_experts, cfg.d_ff, n_params, cfg.dtype,
+             MOE_STEPS,
+             MOE_BATCH, " ".join("%.5f" % x for x in losses),
+             " ".join("%.4f" % x for x in secs),
+             n_tok * MOE_STEPS / sum(secs), peak / 2 ** 30, held / 2 ** 30,
+             *launches))
+    _device_profile(torch, lambda: step(carry, tokens),
+                    also=[name for _lib, name in TC_KERNELS])
+    del carry
+    _free(torch)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("moe train: a loss is not finite: %s" % losses)
+    if abs(losses[0] - MOE_FIRST_LOSS) > MOE_FIRST_LOSS_TOL:
+        raise RuntimeError("moe train: first loss %.4f, expected %.2f +- %.2f"
+                           % (losses[0], MOE_FIRST_LOSS, MOE_FIRST_LOSS_TOL))
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("moe train: loss did not fall: %s" % losses)
+    want = tuple(cfg.n_layers * MOE_STEPS for _ in range(3))
+    if launches != want:
+        raise RuntimeError("moe train: launches B5/B6/B7 %s, want %s"
+                           % (launches, want))
+    grad_phase(torch, np, MOE_GRAD_CFG, "moe grad", nudges=MP_NUDGES)
+    return launches
+
+
+def _argmax_chain(np, fwd, params, prompt, chain):
+    """The forward's argmax at each new position of ``chain``, teacher
+    forced on ``chain``."""
+    rows = fwd(params, np.asarray(list(prompt) + list(chain[:-1]),
+                                  np.int32)[None])[0, len(prompt) - 1:]
+    return [int(t) for t in rows.argmax(-1).cpu().numpy()]
+
+
+def moe_serving_phase(torch, np, fa):
+    """The MoE model behind GenerateServer(slots=8, page_size=16) with the
+    serving phase's 16 prompts (32 new tokens each): B5 12 times a
+    prefill, the served logits of two requests within LOGIT_TOL of the
+    forward and every greedy chain against the forward's argmax by the
+    near-tie rule; again with the prefix cache and spec_k 4 (a 1-layer
+    self-draft), the chains against the first run's by that rule. Returns
+    the B5 launches of the first run."""
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.serving import GenerateServer
+
+    _free(torch)
+    cfg = tfm.TransformerConfig(**MOE)
+    params = tfm.init_params(cfg, seed=0)
+    prompts, rng = _serving_prompts(np, cfg.vocab)
+    srv = GenerateServer(cfg, params, slots=8, page_size=16)
+    try:
+        pred = srv.predictor
+        run = _serve_burst(torch, np, fa, srv, prompts, rng, (0, 1))
+        fwd = tfm.make_forward_fn(cfg)
+        errs = _served_rows_err(np, fwd, pred._params, prompts,
+                                run["results"], run["watched"], "moe serve")
+        chains = [list(r["tokens"]) for r in run["results"]]
+        _near_tie_pairs(torch, np, fwd, pred._params, [
+            (p, c, _argmax_chain(np, fwd, pred._params, p, c))
+            for p, c in zip(prompts, chains)], "moe serve vs forward argmax")
+    finally:
+        srv.close()
+    stats = run["stats"]
+    print("moe serve: %d requests, prompts %d..%d tokens, %d new tokens each; "
+          "%d generated in %.3f s wall = %.1f tokens/s; TTFT p50 %.1f ms p99 "
+          "%.1f ms; flash launches %d (%d layers x %d prefills); served rows "
+          "vs forward max %.4g (tol %g)"
+          % (N_REQUESTS, min(map(len, prompts)), max(map(len, prompts)),
+             NEW_TOKENS, run["tokens"], run["wall"],
+             run["tokens"] / run["wall"], stats["ttft_p50_ms"],
+             stats["ttft_p99_ms"], run["launches"], cfg.n_layers,
+             stats["prefills"], max(errs), LOGIT_TOL))
+    if max(errs) > LOGIT_TOL:
+        raise RuntimeError("moe serve: served logits differ from the forward "
+                           "by %.4g" % max(errs))
+
+    srv = GenerateServer(cfg, params, slots=8, page_size=16,
+                         prefix_cache=True, spec_k=MOE_SPEC_K,
+                         draft=MOE_DRAFT)
+    try:
+        pred = srv.predictor
+        for b in sorted({pred.pick_bucket(len(p)) for p in prompts}):
+            srv.generate(rng.randint(0, cfg.vocab, (min(
+                b, pred.max_ctx - MOE_SPEC_K - 3),)), max_new_tokens=2)
+        torch.cuda.synchronize()
+        from mxnet_tpu_torch import profiler
+
+        profiler.generate_reset()
+        _reset_counts(fa)
+        t0 = time.perf_counter()
+        futs = [srv.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        spec = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spec_launches = fa.flash_attention.launches
+        spec_stats = srv.stats()
+    finally:
+        srv.close()
+    spec_chains = [list(r["tokens"]) for r in spec]
+    if any(len(c) != NEW_TOKENS for c in spec_chains):
+        raise RuntimeError("moe serve spec: chains of %s tokens"
+                           % [len(c) for c in spec_chains])
+    _near_tie_pairs(torch, np, fwd, _on_card(torch, params), [
+        (p, a, b) for p, a, b in zip(prompts, chains, spec_chains)],
+        "moe serve, prefix cache + spec_k %d vs plain" % MOE_SPEC_K)
+    per = cfg.n_layers + MOE_DRAFT
+    print("moe serve, prefix cache + spec_k %d (%d-layer self-draft): %.1f "
+          "tokens/s; TTFT p50 %.1f ms; acceptance %s; prefix hits %d; flash "
+          "launches %d (%d a prefill of target and draft x %d prefills)"
+          % (MOE_SPEC_K, MOE_DRAFT, sum(map(len, spec_chains)) / wall,
+             spec_stats["ttft_p50_ms"], spec_stats.get("acceptance_rate"),
+             spec_stats["prefix_hits"], spec_launches, per,
+             spec_stats["prefills"]))
+    if spec_launches != per * spec_stats["prefills"]:
+        raise RuntimeError("moe serve spec: flash launches %d != %d x %d "
+                           "prefills" % (spec_launches, per,
+                                         spec_stats["prefills"]))
+    return run["launches"]
+
+
+def _mp_moe_work(torch, np, fa, rank):
+    """One rank of moe_mp_phase: rank 0 first runs one device's fp32 loss
+    and gradients and their one-rounding yardstick, then both ranks the
+    loss and gradients on train_mesh(mp=2)."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.parallel import tensor_parallel as tpl
+    from mxnet_tpu_torch.parallel.mesh import train_mesh
+
+    cfg = tfm.TransformerConfig(**MOE_MP)
+    params = tfm.init_params(cfg, seed=0)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, MOE_MP_BATCH)
+    res = {"rank": rank}
+    ref = None
+    if rank == 0:
+        loss_fn, _ = tfm.make_loss_fn(cfg)
+
+        def loss_grads(ps):
+            p = {k: v.to(CARD, copy=True).requires_grad_()
+                 for k, v in ps.items()}
+            loss = loss_fn(p, tokens)
+            return loss.item(), dict(zip(p, torch.autograd.grad(
+                loss, list(p.values()))))
+
+        ref = loss_grads(params)
+        res["yard"] = {}
+        for i in range(MP_NUDGES):
+            rng = np.random.RandomState(300 + i)
+            nudged = loss_grads({k: torch.from_numpy(_zoo_nudged(
+                np, v.numpy(), rng)) for k, v in params.items()})[1]
+            for k, v in _rel_l2(torch, nudged, ref[1]).items():
+                res["yard"][k] = max(res["yard"].get(k, 0.0), v)
+            del nudged
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = train_mesh(mp=MP_RANKS)
+    loss_fn, _ = tfm.make_loss_fn(cfg, mesh)
+    shards = {k: v.requires_grad_() for k, v in
+              tfm.shard_params(params, cfg, mesh).items()}
+    res["counts"] = tfm.block_collective_counts(cfg, mesh)
+    _reset_counts(fa)
+    tpl.reset_counts()
+    loss = loss_fn(shards, tokens)
+    res["forward_collectives"] = tpl.counts()
+    grads = dict(zip(shards, torch.autograd.grad(loss,
+                                                 list(shards.values()))))
+    torch.cuda.synchronize()
+    res["launches"] = list(_counts(fa))
+    res["gate_grad_digest"] = _param_digest(
+        {"moe_gate_weight": grads["moe_gate_weight"]})
+    grads = tfm.unshard(grads, cfg, mesh)
+    res["loss"] = loss.item()
+    if ref is not None:
+        res["ref_loss"] = ref[0]
+        res["gaps"] = _rel_l2(torch, grads, ref[1])
+    return res
+
+
+def moe_mp_phase(torch, np, fa):
+    """The MoE (MOE_MP: 4 layers, fp32, TF32 off) over train_mesh(mp=2) on 2
+    gloo ranks sharing the card: the collectives of a loss forward equal
+    block_collective_counts (2 sums a block: the gate's sum over the group
+    is a backward one), the loss within MP_LOSS_TOL of one device's, every
+    unsharded gradient (the gate's included) within max(MP_GRAD_TOL,
+    MP_RATIO x its one-rounding gap) and the whole within MP_RATIO x its
+    own, the gate's gradient bit for bit equal on the ranks. Returns each
+    rank's B5, B6, B7 launches of the loss and gradient."""
+    _free(torch)
+    ranks, wall = _run_ranks(_mp_gloo_rank, MP_RANKS, MP_TIMEOUT, "moe mp",
+                             "moe")
+    r0 = ranks[0]
+    loss_gap = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    gaps, yard = r0["gaps"], r0["yard"]
+    whole, whole_yard = gaps.pop("null"), yard.pop("null")
+    over = sorted((g / max(MP_GRAD_TOL, MP_RATIO * yard[k]), k)
+                  for k, g in gaps.items())
+    counts, fc = r0["counts"], r0["forward_collectives"]
+    n_layers = MOE_MP["n_layers"]
+    psums = fc["reduce_from_mp"] + fc["reduce_from_data"]
+    print("moe mp: %d gloo ranks sharing one card, train_mesh(mp=%d), %d "
+          "layers x %d experts, fp32 (TF32 off), tokens %s, %.1f s with "
+          "start-up: loss %.7f vs one device %.7f (relative gap %.3g, tol "
+          "%g); gradients unsharded vs one device, relative L2: whole %.4g "
+          "against %.4g under %d one-rounding moves (ratio %.2f, limit %g); "
+          "moe_gate_weight %.3g (its one-rounding gap %.3g); worst tensors "
+          "%s; collectives of a loss forward %s against "
+          "block_collective_counts %s; gate gradient bit for bit on the "
+          "ranks %s; launches B5, B6, B7 a rank %s"
+          % (MP_RANKS, MP_RANKS, n_layers, MOE_MP["n_experts"], MOE_MP_BATCH,
+             wall, r0["loss"], r0["ref_loss"], loss_gap, MP_LOSS_TOL, whole,
+             whole_yard, MP_NUDGES, whole / whole_yard, MP_RATIO,
+             gaps["moe_gate_weight"], yard["moe_gate_weight"],
+             ", ".join("%.3g at %s (%.3g vs %.3g)" % (r, k, gaps[k], yard[k])
+                       for r, k in over[-3:]), fc, counts,
+             len({r["gate_grad_digest"] for r in ranks}) == 1,
+             " / ".join("%d, %d, %d" % tuple(r["launches"]) for r in ranks)))
+    if loss_gap > MP_LOSS_TOL or whole > MP_RATIO * whole_yard or \
+            over[-1][0] > 1:
+        raise RuntimeError("moe mp: fp32 loss gap %g, whole gradient gap %g "
+                           "against %g, worst tensor %s"
+                           % (loss_gap, whole, whole_yard, over[-1]))
+    if counts["psum_per_block"] != 2 or \
+            psums != counts["psum_per_block"] * n_layers \
+            + counts["psum_outside"] or \
+            fc["gather_from_mp"] != counts["all_gather"]:
+        raise RuntimeError("moe mp: collectives %s against %s"
+                           % (fc, counts))
+    if len({r["gate_grad_digest"] for r in ranks}) != 1:
+        raise RuntimeError("moe mp: the gate's gradient differs on the ranks")
+    for r in ranks:
+        if r["launches"] != [n_layers] * 3:
+            raise RuntimeError("moe mp rank %d: launches %s"
+                               % (r["rank"], r["launches"]))
+    return [r["launches"] for r in ranks]
+
+
+# ---------------------------------------------------------------------------
+# Gluon (ROADMAP.md Queue A item 9, first part): ResNet-50 v1 from the
+# vision model zoo, hybridized, trained with Trainer in fp32 (TF32 off)
+# ---------------------------------------------------------------------------
+GLUON_BATCH, GLUON_STEPS, GLUON_SIDE = 32, 5, 224
+# sgd with momentum 0.9 and wd 1e-4 at lr 0.1 for 256 images, scaled
+# linearly to the batch (0.0125 at 32): at lr 0.1 on one repeated batch of
+# 32 the loss rose (measured on the H100: 7.58 -> 12.48 in 5 steps)
+GLUON_OPT = dict(learning_rate=0.1 * GLUON_BATCH / 256, momentum=0.9,
+                 wd=1e-4)
+GLUON_CHECK_BATCH = 2
+# eager against hybridized forwards and export -> AOTPredictor on the
+# card: the same ops on the same card, relative to the largest |logit|
+GLUON_SAME_TOL = 1e-5
+# the other families, one network each, and their input side
+GLUON_FAMILIES = (("resnet50_v2", 224), ("vgg16_bn", 224), ("alexnet", 224),
+                  ("squeezenet1.1", 224), ("mobilenet1.0", 224),
+                  ("densenet121", 224), ("inceptionv3", 299))
+
+
+def _gluon_rel(np, a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _gluon_card_vs_cpu(torch, np, mx, vision, net, path):
+    """ResNet-50 v1's predict-mode logits at GLUON_CHECK_BATCH, card vs the
+    port's CPU forward on the same weights (``path``, a .params file), by
+    relative L2 against MP_RATIO (3) times the gap one rounding of the
+    inputs and weights gives on the CPU; returns (gap, yardstick)."""
+    x = np.random.RandomState(5).uniform(
+        -1, 1, (GLUON_CHECK_BATCH, 3, GLUON_SIDE, GLUON_SIDE)).astype(
+            np.float32)
+    card = net(mx.nd.array(x, ctx=_card_ctx(torch, mx))).asnumpy()
+    with mx.cpu():
+        cpu = vision.resnet50_v1(classes=1000)
+        cpu.initialize()
+        cpu.load_params(path)
+        ref = cpu(mx.nd.array(x)).asnumpy()
+        rng = np.random.RandomState(6)
+        for p in cpu.collect_params().values():
+            p.set_data(_zoo_nudged(np, p.data().asnumpy(), rng))
+        nudged = cpu(mx.nd.array(_zoo_nudged(np, x, rng))).asnumpy()
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm((a - b).ravel()) / np.linalg.norm(
+            b.ravel()))
+
+    return rel_l2(card, ref), rel_l2(nudged, ref)
+
+
+def gluon_phase(torch, np, fa, fb):
+    """Gluon's ResNet-50 v1 (1000 classes) at (GLUON_BATCH, 3, 224, 224),
+    fp32 with TF32 off, hybridized, trained by Trainer (sgd, GLUON_OPT) on
+    the softmax cross-entropy: a warm-up and GLUON_STEPS timed steps on one
+    seeded batch (the loss must fall). Checks eager against hybridized,
+    card against the port's CPU forward, export -> AOTPredictor against the
+    Gluon forward, and one network of each other zoo family eager against
+    hybridized on the card. Returns the launches of B5, B6, B7, B1, B2, B3
+    there (all 0: Gluon's convolutions and products are cuDNN's and
+    cuBLAS's)."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.serving import AOTPredictor
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("gluon: TF32 must be off")
+    _free(torch)
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    ctx = _card_ctx(torch, mx)
+    tmp = tempfile.mkdtemp(prefix="gluon_")
+    with ctx:
+        net = vision.resnet50_v1(classes=1000)
+        net.initialize(mx.init.Xavier())
+        small = mx.nd.array(np.random.RandomState(4).uniform(
+            -1, 1, (GLUON_CHECK_BATCH, 3, GLUON_SIDE, GLUON_SIDE)).astype(
+                np.float32))
+        eager = net(small).asnumpy()
+        net.save_params(os.path.join(tmp, "r50.params"))
+        net.hybridize()
+        hybrid = net(small).asnumpy()
+        eager_gap = _gluon_rel(np, hybrid, eager)
+        card_gap, yard = _gluon_card_vs_cpu(
+            torch, np, mx, vision, net, os.path.join(tmp, "r50.params"))
+        net.export(os.path.join(tmp, "r50"))
+        sym = mx.sym.load(os.path.join(tmp, "r50-symbol.json"))
+        saved = mx.nd.load(os.path.join(tmp, "r50-0000.params"))
+        pred = AOTPredictor(
+            sym, {k[4:]: v.asnumpy() for k, v in saved.items()
+                  if k.startswith("arg:")},
+            {k[4:]: v.asnumpy() for k, v in saved.items()
+             if k.startswith("aux:")},
+            data_shapes={"data": (GLUON_CHECK_BATCH, 3, GLUON_SIDE,
+                              GLUON_SIDE)},
+            ladder=(GLUON_CHECK_BATCH,))
+        aot_gap = _gluon_rel(np, pred.predict({"data": small.asnumpy()})[0],
+                             hybrid)
+        del pred
+        trainer = gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_OPT))
+        lossf = gluon.loss.SoftmaxCrossEntropyLoss()
+        rng = np.random.RandomState(0)
+        x = mx.nd.array(rng.uniform(
+            -1, 1, (GLUON_BATCH, 3, GLUON_SIDE, GLUON_SIDE)).astype(
+                np.float32))
+        y = mx.nd.array(rng.randint(0, 1000, GLUON_BATCH).astype(np.float32))
+
+        def train_step():
+            with autograd.record():
+                loss = lossf(net(x), y)
+            loss.backward()
+            trainer.step(GLUON_BATCH)
+            return float(loss.mean().asscalar())
+
+        t0 = time.perf_counter()
+        losses = [train_step()]
+        warm = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(GLUON_STEPS):
+            t0 = time.perf_counter()
+            losses.append(train_step())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        stats = {}
+        _device_profile(torch, train_step, top=6, stats=stats)
+        graphs = len(net._cached)
+        del net, trainer
+        _free(torch)
+        families = []
+        for name, side in GLUON_FAMILIES:
+            other = vision.get_model(name, classes=1000)
+            other.initialize(mx.init.Xavier())
+            xin = mx.nd.array(np.random.RandomState(7).uniform(
+                -1, 1, (GLUON_CHECK_BATCH, 3, side, side)).astype(np.float32))
+            a = other(xin).asnumpy()
+            other.hybridize()
+            b = other(xin).asnumpy()
+            families.append((name, side, a.shape, _gluon_rel(np, b, a),
+                             bool(np.isfinite(a).all())))
+            del other
+            _free(torch)
+    launches = _counts(fa) + _fb_counts(fb)
+    print("gluon resnet50_v1: 1000 classes, fp32 (TF32 off), hybridized (%d "
+          "graphs), Trainer sgd %s, batch %d of %dx%d: losses %s; warm-up "
+          "%.3f s, step times %s s; %.1f images/s; peak memory %.2f GiB; "
+          "busy share %s"
+          % (graphs, GLUON_OPT, GLUON_BATCH, GLUON_SIDE, GLUON_SIDE, " ".join(
+              "%.5f" % v for v in losses), warm,
+             " ".join("%.4f" % v for v in secs),
+             GLUON_BATCH * GLUON_STEPS / sum(secs), peak / 2 ** 30,
+             "%.3f" % (stats["busy_ms"] / stats["wall_ms"]) if stats
+             else "not measured"))
+    print("gluon checks at batch %d: hybridized vs eager %.3g (tol %g); card "
+          "vs the port's CPU forward relative L2 %.4g against %.4g under one "
+          "rounding of inputs and weights (ratio %.2f, limit %g); export -> "
+          "AOTPredictor vs the Gluon forward %.3g (tol %g)"
+          % (GLUON_CHECK_BATCH, eager_gap, GLUON_SAME_TOL, card_gap, yard,
+             card_gap / max(yard, 1e-30), MP_RATIO, aot_gap, GLUON_SAME_TOL))
+    for name, side, shape, gap, finite in families:
+        print("gluon %s at %dx%d: output %s, hybridized vs eager %.3g, "
+              "finite %s" % (name, side, side, shape, gap, finite))
+    print("gluon phase: B5-B7 and B1-B3 launches %s" % (launches,))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError("gluon: losses %s" % losses)
+    if eager_gap > GLUON_SAME_TOL or aot_gap > GLUON_SAME_TOL or \
+            card_gap > MP_RATIO * yard:
+        raise RuntimeError("gluon: hybridized %g, AOT %g, card vs CPU %g "
+                           "against %g" % (eager_gap, aot_gap, card_gap, yard))
+    for name, side, shape, gap, finite in families:
+        if gap > GLUON_SAME_TOL or not finite or \
+                shape != (GLUON_CHECK_BATCH, 1000):
+            raise RuntimeError("gluon %s: %s, gap %g, finite %s"
+                               % (name, shape, gap, finite))
+    if any(launches):
+        raise RuntimeError("gluon: hand kernels launched %s" % (launches,))
+    return launches
+
+
 def main():
     import torch
 
@@ -7900,6 +8452,16 @@ def main():
     for entry, n, m in zip([fwd, *bwd, conv, *grads], sparse, embed):
         entry["sparse_launches"] = n
         entry["embed_launches"] = m
+    moe_train = phase("moe_training", moe_training_phase, torch, np, fa)
+    moe_serve = phase("moe_serving", moe_serving_phase, torch, np, fa)
+    moe_mp = phase("moe_mp", moe_mp_phase, torch, np, fa)
+    for i, entry in enumerate([fwd, *bwd]):
+        entry["moe_train_launches"] = moe_train[i]
+        entry["moe_mp_launches"] = [r[i] for r in moe_mp]
+    fwd["moe_serve_launches"] = moe_serve
+    gluon_launches = phase("gluon", gluon_phase, torch, np, fa, fb)
+    for entry, n in zip([fwd, *bwd, conv, *grads], gluon_launches):
+        entry["gluon_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; shared-prefix serving (cache on) "
           "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "
@@ -7914,7 +8476,10 @@ def main():
           "(fit, detection, contrib sweep) B5-B7 and B1-B3 %s; int8 "
           "serving path B5-B7 and B1-B3 %s; data plane (unfused fit, "
           "fused leg) B5-B7 and B1-B3 %s; sparse paths B5-B7 and B1-B3 %s; "
-          "server tier and embed B5-B7 and B1-B3 %s"
+          "server tier and embed B5-B7 and B1-B3 %s; MoE training %d "
+          "steps B5 %d, B6 %d, B7 %d; MoE serving B5 %d; MoE mp=2 loss and "
+          "gradient B5, B6, B7 on each rank %s; Gluon ResNet-50 and zoo "
+          "B5-B7 and B1-B3 %s"
           % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
              SPEC_TRACE["k"], fwd["spec_launches"], conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
@@ -7928,7 +8493,9 @@ def main():
              ", ".join("%d" % n for n in quant),
              ", ".join("%d" % n for n in data_plane),
              ", ".join("%d" % n for n in sparse),
-             ", ".join("%d" % n for n in embed)))
+             ", ".join("%d" % n for n in embed), MOE_STEPS, *moe_train,
+             moe_serve, " / ".join("%d, %d, %d" % tuple(r) for r in moe_mp),
+             ", ".join("%d" % n for n in gluon_launches)))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

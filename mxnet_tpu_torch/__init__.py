@@ -29,6 +29,9 @@ Ported so far, six paths over the six hand-written CUDA kernels
 - the data plane: ``recordio``, record shards read through leases
   (``data``), ``io``'s record, image, CSV, LibSVM and MNIST iterators and
   ``image``, fed to the card by ``parallel.feed.DeviceQueueIter``;
+- Gluon: ``gluon`` (Parameter, Block, HybridBlock whose ``hybridize``
+  runs one traced graph, ``nn``, ``loss``, ``Trainer``, ``data``) and its
+  vision model zoo, and ``embedding.SparseEmbedding`` on the server tier;
 - the op families behind them on torch's libraries (``ops``: nn, tensor,
   random, contrib and vision; ``nd.contrib``/``nd.random`` and their
   ``sym`` twins), the symbol model zoo (``models``) with the SSD300
@@ -37,6 +40,7 @@ Ported so far, six paths over the six hand-written CUDA kernels
 ROADMAP.md lists what remains.
 """
 from . import autograd, callback, contrib, io, metric, model  # noqa: F401
+from . import gluon  # noqa: F401
 from . import name  # noqa: F401
 from . import initializer, lr_scheduler, optimizer, random  # noqa: F401
 from . import kvstore as kv  # noqa: F401
@@ -60,4 +64,4 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "current_context", "AttrScope", "nd", "sym", "autograd",
            "random", "init", "initializer", "opt", "optimizer", "metric",
            "io", "mod", "model", "callback", "lr_scheduler", "name", "kv",
-           "kvstore", "parallel", "contrib", "recordio"]
+           "kvstore", "parallel", "contrib", "recordio", "gluon"]

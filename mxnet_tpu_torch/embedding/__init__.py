@@ -8,12 +8,15 @@ servers of ``kvstore_server``.
   wire), per-server memory about 1/num_servers.
 - :class:`EmbeddingShardError`: out-of-vocabulary ids and sharding
   misconfiguration, raised at the client.
+- :class:`SparseEmbedding`: the Gluon block over a table, pulling a
+  batch's rows and pushing their gradients back.
 
-Not ported, raising by name: the Gluon block ``SparseEmbedding``
-(ROADMAP.md Queue A item 9), the serving half ``EmbeddingLookupServer`` /
-``EmbeddingTowerPredictor`` and ``elastic_table_checkpoint`` (item 10).
+Not ported, raising by name: the serving half ``EmbeddingLookupServer`` /
+``EmbeddingTowerPredictor`` and ``elastic_table_checkpoint`` (ROADMAP.md
+Queue A item 10).
 """
 from ..base import MXNetError
+from .block import SparseEmbedding  # noqa: F401
 from .sharding import (  # noqa: F401
     RowSharding,
     embedding_shard_rank,
@@ -34,7 +37,6 @@ def _not_ported(name, item, what):
     return refuse
 
 
-SparseEmbedding = _not_ported("SparseEmbedding", 9, "the Gluon block")
 EmbeddingLookupServer = _not_ported("EmbeddingLookupServer", 10,
                                     "the lookup server (a fleet replica)")
 EmbeddingTowerPredictor = _not_ported("EmbeddingTowerPredictor", 10,

@@ -54,9 +54,16 @@ axes. :func:`make_loss_fn`, :func:`make_train_step`,
 :func:`make_prefill_fn`, :func:`make_decode_fn` and :func:`make_extend_fn`
 take ``mesh=``.
 
-Not ported yet: ring and Ulysses attention (an ``sp`` axis), MoE
-(``n_experts > 0``, an ``ep`` axis) and the pipeline schedule (ROADMAP.md
-Queue A item 8c), and the schedule-table consult for attention blocks.
+``n_experts > 0`` swaps each block's ffn for the JAX package's dense
+soft-gated mixture: an fp32 softmax gate over every expert, each expert's
+``relu(h Wup_e) Wdown_e`` (``torch.einsum``), summed with the gate's
+weights. Under mp each expert's d_ff is sharded as the dense ffn's, the
+expert axis stays whole, and the gated sum takes the block's one sum after
+the ffn.
+
+Not ported yet: ring and Ulysses attention (an ``sp`` axis), the experts
+sharded over an ``ep`` axis and the pipeline schedule (ROADMAP.md Queue A
+item 8c), and the schedule-table consult for attention blocks.
 """
 from __future__ import annotations
 
@@ -100,7 +107,7 @@ class TransformerConfig:
     n_layers: int = 4
     d_ff: int = 2048
     max_len: int = 2048
-    n_experts: int = 0          # 0 -> dense ffn; MoE is not ported yet
+    n_experts: int = 0          # 0 -> dense ffn; >0 -> MoE every layer
     dtype: str = "bfloat16"     # compute dtype (params stay fp32)
     remat: bool = False         # recompute each layer in the backward
 
@@ -113,31 +120,31 @@ def torch_dtype(name):
                          % (name, "|".join(_DTYPES)))
 
 
-def _check_dense(config):
-    if config.n_experts:
-        raise MXNetError(
-            "n_experts=%d: the MoE ffn is not ported yet (ROADMAP.md Queue A "
-            "item 8c); use n_experts=0" % config.n_experts)
-
-
 def _param_shapes(c):
     """Each param's shape, in ``init_params``' order of draws."""
-    d, L = c.d_model, c.n_layers
-    return {"embed_weight": (c.vocab, d), "pos_embed_weight": (c.max_len, d),
-            "final_ln_gamma": (d,), "final_ln_beta": (d,),
-            "ln1_gamma": (L, d), "ln1_beta": (L, d),
-            "ln2_gamma": (L, d), "ln2_beta": (L, d),
-            "attn_qkv_weight": (L, d, 3, c.n_heads, d // c.n_heads),
-            "attn_out_weight": (L, c.n_heads, d // c.n_heads, d),
-            "ffn_up_weight": (L, d, c.d_ff), "ffn_down_weight": (L, c.d_ff, d)}
+    d, L, E = c.d_model, c.n_layers, c.n_experts
+    shapes = {"embed_weight": (c.vocab, d), "pos_embed_weight": (c.max_len, d),
+              "final_ln_gamma": (d,), "final_ln_beta": (d,),
+              "ln1_gamma": (L, d), "ln1_beta": (L, d),
+              "ln2_gamma": (L, d), "ln2_beta": (L, d),
+              "attn_qkv_weight": (L, d, 3, c.n_heads, d // c.n_heads),
+              "attn_out_weight": (L, c.n_heads, d // c.n_heads, d)}
+    if E:
+        shapes.update(moe_gate_weight=(L, d, E), ffn_up_weight=(L, E, d,
+                                                                c.d_ff),
+                      ffn_down_weight=(L, E, c.d_ff, d))
+    else:
+        shapes.update(ffn_up_weight=(L, d, c.d_ff),
+                      ffn_down_weight=(L, c.d_ff, d))
+    return shapes
 
 
 def init_params(config, seed=0):
     """Flat fp32 param dict of CPU tensors; layer params stacked on a
     leading L dim. The same ``np.random.RandomState`` recipe as the JAX
     package (normal(0, 0.02) weights drawn in order, unit gammas, zero
-    betas), so one seed gives bit-identical weights in both."""
-    _check_dense(config)
+    betas; the MoE's gate, then ffn-up, then ffn-down), so one seed gives
+    bit-identical weights in both."""
     rng = np.random.RandomState(seed)
     p = {}
     for k, shape in _param_shapes(config).items():
@@ -162,18 +169,24 @@ def param_specs(config, mesh):
     whole), as the JAX package's ``PartitionSpec``s: Megatron's column
     (qkv heads, ffn-up's output) and row (out-projection heads, ffn-down's
     input) sharding and the vocab-sharded embedding over the mesh's
-    ``mp`` (or ``tp``) axis; the rest replicated (dense only)."""
-    _check_dense(config)
+    ``mp`` (or ``tp``) axis; the rest replicated. The MoE's experts keep
+    their axis whole and shard each expert's d_ff (ffn-up's last dim,
+    ffn-down's middle one); its gate is replicated."""
     tp = _mp_axis(mesh.mesh_dim_names)
     rep = ()
-    return {"embed_weight": (tp, None), "pos_embed_weight": rep,
-            "final_ln_gamma": rep, "final_ln_beta": rep,
-            "ln1_gamma": rep, "ln1_beta": rep, "ln2_gamma": rep,
-            "ln2_beta": rep,
-            "attn_qkv_weight": (None, None, None, tp, None),
-            "attn_out_weight": (None, tp, None, None),
-            "ffn_up_weight": (None, None, tp),
-            "ffn_down_weight": (None, tp, None)}
+    specs = {"embed_weight": (tp, None), "pos_embed_weight": rep,
+             "final_ln_gamma": rep, "final_ln_beta": rep,
+             "ln1_gamma": rep, "ln1_beta": rep, "ln2_gamma": rep,
+             "ln2_beta": rep,
+             "attn_qkv_weight": (None, None, None, tp, None),
+             "attn_out_weight": (None, tp, None, None)}
+    if config.n_experts:
+        specs.update(moe_gate_weight=rep, ffn_up_weight=(None, None, None, tp),
+                     ffn_down_weight=(None, None, tp, None))
+    else:
+        specs.update(ffn_up_weight=(None, None, tp),
+                     ffn_down_weight=(None, tp, None))
+    return specs
 
 
 def kv_cache_spec(mesh):
@@ -318,11 +331,37 @@ def _block(x, lp, cdt, tp=None):
 def _ffn(x, lp, cdt, tp=None):
     """The ffn half of a block (post-attention residual included), shared
     by the one-shot forward, prefill and decode: ffn-up by columns and
-    ffn-down by rows under mp, one sum over the group."""
-    h = copy_to_mp(_layernorm(x, lp["ln2_gamma"], lp["ln2_beta"]), tp)
-    up = F.relu(torch.einsum("bsd,df->bsf", h, lp["ffn_up_weight"].to(cdt)))
-    return x + reduce_from_mp(torch.einsum(
-        "bsf,fd->bsd", up, lp["ffn_down_weight"].to(cdt)), tp)
+    ffn-down by rows under mp, one sum over the group. Layer params with a
+    ``moe_gate_weight`` take the MoE branch (:func:`_moe`)."""
+    ln = _layernorm(x, lp["ln2_gamma"], lp["ln2_beta"])
+    h = copy_to_mp(ln, tp)
+    if "moe_gate_weight" in lp:
+        f = _moe(ln, h, lp, cdt, tp)
+    else:
+        up = F.relu(torch.einsum("bsd,df->bsf", h,
+                                 lp["ffn_up_weight"].to(cdt)))
+        f = torch.einsum("bsf,fd->bsd", up, lp["ffn_down_weight"].to(cdt))
+    return x + reduce_from_mp(f, tp)
+
+
+def _moe(ln, h, lp, cdt, tp=None):
+    """The dense soft-gated mixture of every expert, before the block's
+    sum over the mp group: the gate an fp32 softmax of ``ln Wg`` cast to
+    the compute dtype, each expert ``relu(h Wup_e) Wdown_e`` on this
+    rank's d_ff shard, summed with the gate's weights.
+
+    Under mp the gated sum is of partial expert outputs, so each rank's
+    cotangent of the gate is partial: the gate is computed from the
+    replicated ``ln`` (not the column-parallel input ``h``) and passes
+    :func:`copy_to_mp`, whose backward sums it over the group. The gate's
+    weight and the gate's share of ``ln``'s gradient are then whole on
+    every rank, as the replicated params' are."""
+    gate = torch.softmax(torch.einsum("bsd,de->bse", ln.float(),
+                                      lp["moe_gate_weight"].float()), dim=-1)
+    gate = copy_to_mp(gate.to(cdt), tp)
+    up = F.relu(torch.einsum("bsd,edf->besf", h, lp["ffn_up_weight"].to(cdt)))
+    down = torch.einsum("besf,efd->besd", up, lp["ffn_down_weight"].to(cdt))
+    return torch.einsum("besd,bse->bsd", down, gate)
 
 
 def _logits(x, params, cdt, tp=None):
@@ -383,7 +422,6 @@ def make_forward_fn(config, device=None):
     """fn(params, tokens (B, S) int) -> logits (B, S, V) fp32 on ``device``
     (default ``cuda``), where the params must lie. Out-of-vocab ids embed
     as zeros (the JAX forward's mask)."""
-    _check_dense(config)
     c = config
     cdt = torch_dtype(c.dtype)
     dev = resolve_device(device)
@@ -435,7 +473,6 @@ def make_loss_fn(config, mesh=None, data_axes=("dp",), device=None):
     data rank's share (the mp ranks of one data rank get the same
     gradient of every replicated param); their sum over the data group is
     the global loss's gradient, as :func:`make_train_step` takes it."""
-    _check_dense(config)
     dev = _run_device(mesh, device, "make_loss_fn")
     specs = None if mesh is None else param_specs(config, mesh)
     return _loss_closure(config, dev, mesh, data_axes), specs
@@ -502,7 +539,6 @@ def block_collective_counts(config, mesh, data_axes=("dp",)):
     vocab-sharded embedding's, the loss sum's and count's over the data
     axes), ``all_gather`` the logits' gathers, ``n_blocks`` the layers.
     The JAX package's keys and values for the same mesh shape."""
-    _check_dense(config)
     meta = torch.device("meta")
     params = shard_params({k: torch.empty(shape, device=meta) for k, shape
                            in _param_shapes(config).items()},
@@ -557,7 +593,6 @@ def make_prefill_fn(config, page_size, device=None, mesh=None):
     ``device`` (default ``cuda``). On a ``mesh`` the params and cache are
     the rank's shards, every rank of the mesh makes the same call, and
     each returns the whole vocabulary's logits."""
-    _check_dense(config)
     c = config
     cdt = torch_dtype(c.dtype)
     page_size = int(page_size)
@@ -714,7 +749,6 @@ def make_extend_fn(config, slots, steps, max_pages_per_slot, page_size,
     rows at or past ``max_pages_per_slot * page_size``. Positions are
     clamped at 0. Params and cache must lie on ``device`` (default
     ``cuda``); ``mesh`` as in :func:`make_prefill_fn`."""
-    _check_dense(config)
     c = config
     cdt = torch_dtype(c.dtype)
     page_size = int(page_size)

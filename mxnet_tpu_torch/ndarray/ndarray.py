@@ -471,12 +471,21 @@ def invoke(op, inputs, attrs, out=None, ctx=None):
     context's ``random.generator`` (so its backward, recorded by torch,
     uses the forward's draw). An op with no tensor input (``_zeros``,
     ``_arange``, ...) creates its output on its ``ctx`` attribute's
-    device, else the current context's."""
+    device, else the current context's.
+
+    A training BatchNorm also moves its moving mean and variance
+    (``momentum * moving + (1 - momentum) * batch``, in place), as the JAX
+    package's imperative BatchNorm does. Symbol inputs compose a graph
+    node instead (Gluon's ``HybridBlock`` traces its layers' calls so)."""
     if isinstance(op, str):
         try:
             op = _reg.get(op)
         except MXNetError:
             raise MXNetError("operator %r is not ported" % op) from None
+    from ..symbol.symbol import Symbol
+
+    if any(isinstance(x, Symbol) for x in inputs):
+        return _compose(op, inputs, attrs)
     attrs = {k: v for k, v in attrs.items()
              if v is not None or k in ("axis", "dtype")}
     attrs.pop("name", None)
@@ -499,6 +508,8 @@ def invoke(op, inputs, attrs, out=None, ctx=None):
         results = op.fn(*tensors, **parsed)
         if not isinstance(results, tuple):
             results = (results,)
+        if op.name == "BatchNorm":
+            _move_bn_stats(inputs, results, parsed)
         # an identity op's output is a new array, as in the JAX package
         results = tuple(r.clone() if any(r is t for t in tensors) else r
                         for r in results[:op.n_visible_outputs(parsed)])
@@ -511,6 +522,31 @@ def invoke(op, inputs, attrs, out=None, ctx=None):
         return outs[0] if len(outs) == 1 else outs
     outputs = [NDArray(r, ctx) for r in results]
     return outputs[0] if len(outputs) == 1 else outputs
+
+
+def _compose(op, inputs, attrs):
+    """The graph node of ``op`` on Symbol inputs (None: a missing optional
+    input)."""
+    from ..symbol.register import create_symbol
+    from ..symbol.symbol import Symbol
+
+    if any(x is not None and not isinstance(x, Symbol) for x in inputs):
+        raise MXNetError("op %s: cannot mix NDArray and Symbol inputs during "
+                         "symbolic tracing" % op.name)
+    attrs = {k: v for k, v in attrs.items()
+             if v is not None and k not in ("name", "ctx")}
+    return create_symbol(op, list(inputs), attrs)
+
+
+def _move_bn_stats(inputs, results, parsed):
+    """A training BatchNorm's moving statistics, updated in place."""
+    if not parsed.get("__is_train__") or parsed.get("use_global_stats"):
+        return
+    m = parsed.get("momentum", 0.9)
+    with torch.no_grad():
+        for arr, batch in zip(inputs[3:5], results[1:3]):
+            if isinstance(arr, NDArray):
+                arr._t.copy_(m * arr._t + (1 - m) * batch.detach())
 
 
 # ---------------------------------------------------------------------------

@@ -319,6 +319,11 @@ class Symbol:
     def astype(self, dtype):
         return self._apply("Cast", dtype=str(dtype))
 
+    def relu(self):
+        """``relu`` of this symbol, as ``NDArray.relu`` (the model zoo's
+        residual blocks call it on their sums)."""
+        return self._apply("relu")
+
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
         init=None, **kwargs):

@@ -11,9 +11,9 @@ in ``dump_profile``, push parity with duplicates combined on the client,
 server-side momentum at 1/n of the bytes a server, the out-of-vocabulary
 raise before any RPC, the pull-batch budget, the naive per-id mode and
 the 2-bit wire's error feedback. Each table result is held against the
-JAX package's table on the same seeded inputs. ``SparseEmbedding`` (item
-9), the lookup server and ``elastic_table_checkpoint`` (item 10) raise by
-name.
+JAX package's table on the same seeded inputs. ``SparseEmbedding``'s
+three scenarios run in both packages; the lookup server and
+``elastic_table_checkpoint`` (item 10) raise by name.
 
 Every test body runs under a deadline and servers bind ``127.0.0.1:0``.
 Tolerance: fp32, rtol 1e-4 and atol 1e-5; ids, counts and bytes exact.
@@ -310,10 +310,101 @@ def test_2bit_wire_error_feedback(clusters):
 
 
 # ---------------------------------------------------------------------------
-# what waits for items 9 and 10
+# SparseEmbedding: the Gluon block over a table
+# ---------------------------------------------------------------------------
+def _sparse_embedding(c):
+    from mxnet_tpu_torch import autograd as tag
+    from mxnet_tpu_torch import nd as tnd
+    import mxnet_tpu as jmx
+
+    if c.emb is temb:
+        return temb.SparseEmbedding, tag, tnd
+    return jemb.SparseEmbedding, jmx.autograd, jmx.nd
+
+
+@bounded
+def test_sparse_embedding_grad_parity(clusters):
+    """One recorded batch with a repeated id, pushed by ``step``: the
+    table moves by minus each row's summed gradient, in both packages."""
+    def run(c):
+        SparseEmbedding, autograd, nd = _sparse_embedding(c)
+        c.kv.set_optimizer("sgd", learning_rate=1.0, rescale_grad=1.0)
+        full = np.random.RandomState(2).randn(30, 4).astype(np.float32)
+        emb = SparseEmbedding(4, 30, kvstore=c.kv, key="emb")
+        emb.initialize_table(init_array=full)
+        w = np.random.RandomState(3).randn(5, 4).astype(np.float32)
+        ids = np.array([2, 9, 2, 17, 5], np.int64)
+        with autograd.record():
+            out = emb(nd.array(ids))
+            loss = (out * nd.array(w)).sum()
+        loss.backward()
+        assert emb.step() == 1
+        c.kv.wait_outstanding()
+        expect = full.copy()
+        np.add.at(expect, ids, -w)
+        return emb.table.as_dense(), expect
+
+    (tt, expect), (jt, _) = _both(clusters, run)
+    np.testing.assert_allclose(tt, expect, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tt, jt, rtol=1e-4, atol=1e-5)
+
+
+@bounded
+def test_sparse_embedding_training_decreases_loss(clusters):
+    """A small matrix factorization against a hidden low-rank model, full
+    batch, the servers' sgd with momentum: the mse falls below a fifth of
+    its start, along the JAX package's trajectory."""
+    def run(c):
+        SparseEmbedding, autograd, nd = _sparse_embedding(c)
+        c.kv.set_optimizer("sgd", learning_rate=10.0, momentum=0.9,
+                           rescale_grad=1.0)
+        rng = np.random.RandomState(4)
+        users, items = 40, 25
+        gu = np.random.RandomState(10).randn(users, 6) * 0.5
+        gv = np.random.RandomState(11).randn(items, 6) * 0.5
+        eu = SparseEmbedding(6, users, kvstore=c.kv, key="u")
+        ev = SparseEmbedding(6, items, kvstore=c.kv, key="v")
+        eu.initialize_table(scale=0.2, seed=1)
+        ev.initialize_table(scale=0.2, seed=2)
+        u_ids = rng.randint(0, users, 200)
+        i_ids = rng.randint(0, items, 200)
+        ratings = (gu[u_ids] * gv[i_ids]).sum(axis=1).astype(np.float32)
+
+        def mse():
+            pred = (eu(nd.array(u_ids)) * ev(nd.array(i_ids))).sum(axis=1)
+            return float(((pred.asnumpy() - ratings) ** 2).mean())
+
+        curve = [mse()]
+        for _ in range(40):
+            with autograd.record():
+                pred = (eu(nd.array(u_ids))
+                        * ev(nd.array(i_ids))).sum(axis=1)
+                diff = pred - nd.array(ratings)
+                loss = (diff * diff).mean()
+            loss.backward()
+            eu.step()
+            ev.step()
+            c.kv.wait_outstanding()
+            curve.append(mse())
+        return np.asarray(curve)
+
+    ours, theirs = _both(clusters, run)
+    assert ours[-1] < ours[0] * 0.2, ours
+    np.testing.assert_allclose(ours, theirs, rtol=1e-3)
+
+
+@bounded
+def test_sparse_embedding_requires_kvstore():
+    emb = temb.SparseEmbedding(4, 10, key="nokv")
+    with pytest.raises(MXNetError, match="no kvstore bound"):
+        emb(np.array([1]))
+
+
+# ---------------------------------------------------------------------------
+# what waits for item 10
 # ---------------------------------------------------------------------------
 def test_unported_parts_raise_by_name():
-    for name, item in (("SparseEmbedding", 9), ("EmbeddingLookupServer", 10),
+    for name, item in (("EmbeddingLookupServer", 10),
                        ("EmbeddingTowerPredictor", 10),
                        ("elastic_table_checkpoint", 10)):
         with pytest.raises(MXNetError, match="%s.*item %d" % (name, item)):

@@ -274,14 +274,22 @@ def test_parity_catches_planted_reduce(runs):
 
 
 def test_sp_ep_and_moe_raise_by_name(runs):
+    """The ``sp`` and ``ep`` axes still raise by name. MoE, refused before
+    it was ported, now takes the mp specs of the JAX package (replicated
+    gate, each expert's d_ff sharded, the expert axis whole); its mp runs
+    are in tests/test_torch_moe.py."""
     ranks, _ref = runs
     refusals = ranks["mp"][0]["refusals"]
     assert len(refusals) == 2
     assert "'sp'" in refusals[0] and "'ep'" in refusals[1]
     assert all("item 8c" in r for r in refusals)
-    cfg = ttfm.TransformerConfig(**dict(mw.CFG, n_experts=2))
-    with pytest.raises(MXNetError, match="item 8c"):
-        ttfm.make_loss_fn(cfg, device="cpu")
+    cfg = dict(mw.CFG, n_experts=2)
+    jspecs = jtfm.param_specs(jtfm.TransformerConfig(**cfg),
+                              _jmesh(SHAPES["mp"]))
+    specs = ranks["mp"][0]["moe_specs"]
+    assert set(specs) == set(jspecs)
+    for k, spec in specs.items():
+        assert tuple(jspecs[k]) == spec, k
 
 
 def test_mp_stats_gauge():

@@ -552,7 +552,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.parallel.feed, mxnet_tpu_torch.ndarray.sparse, "
             "mxnet_tpu_torch.tracker, mxnet_tpu_torch.kvstore_server, "
             "mxnet_tpu_torch.embedding, mxnet_tpu_torch.embedding.table, "
-            "mxnet_tpu_torch.embedding.sharding\n"
+            "mxnet_tpu_torch.embedding.sharding, mxnet_tpu_torch.gluon, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision, "
+            "mxnet_tpu_torch.gluon.data.dataloader, "
+            "mxnet_tpu_torch.embedding.block\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']\n"
             "assert not bad, bad\n")

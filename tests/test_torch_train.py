@@ -329,6 +329,17 @@ def test_mesh_sharding_raises_not_ported(run):
 
 
 def test_moe_training_is_refused_by_name():
-    _, tc = _cfgs(n_experts=2)
-    with pytest.raises(MXNetError, match="MoE"):
-        ttfm.make_loss_fn(tc, device="cpu")
+    """MoE training, refused before the MoE ffn was ported: the loss and
+    every gradient, the gate's included, match the JAX one-device loss."""
+    jc, tc = _cfgs(n_experts=2)
+    jp, tp = jtfm.init_params(jc, seed=2), ttfm.init_params(tc, seed=2)
+    toks = _tokens(7)
+    jloss_fn, _ = jtfm.make_loss_fn(jc, _mesh1())
+    jloss, jgrads = jax.jit(jax.value_and_grad(jloss_fn))(jp,
+                                                         jnp.asarray(toks))
+    loss, grads = _torch_loss_and_grads(tc, tp, toks)
+    np.testing.assert_allclose(loss.item(), float(jloss), **TOL)
+    assert set(grads) == set(jgrads) and "moe_gate_weight" in grads
+    for k, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(jgrads[k]), **TOL,
+                                   err_msg=k)

@@ -142,8 +142,26 @@ def test_bf16_compute_dtype_matches_jax(models):
 
 
 def test_moe_is_refused_by_name():
-    with pytest.raises(MXNetError, match="MoE"):
-        ttfm.init_params(ttfm.TransformerConfig(**dict(SMALL, n_experts=2)))
+    """``n_experts > 0``, refused before the MoE ffn was ported: the same
+    seed gives the JAX package's weights bit for bit, and the one-shot
+    forward and prefill match the JAX forward (tests/test_torch_moe.py
+    holds the rest)."""
+    kw = dict(SMALL, n_experts=2)
+    jc, tc = jtfm.TransformerConfig(**kw), ttfm.TransformerConfig(**kw)
+    jp, tp = jtfm.init_params(jc, seed=0), ttfm.init_params(tc, seed=0)
+    assert list(tp) == list(jp)
+    for k in jp:
+        np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]),
+                                      err_msg=k)
+    toks = np.random.RandomState(6).randint(0, 64, (1, 16)).astype(np.int32)
+    ref = np.asarray(jtfm.make_forward_fn(jc)(jp, jnp.asarray(toks)))
+    got = ttfm.make_forward_fn(tc, device="cpu")(tp, toks)
+    np.testing.assert_allclose(got.numpy(), ref, atol=5e-5, rtol=1e-5)
+    cache = ttfm.init_kv_cache(tc, 2, 8, device="cpu")
+    _cache, last = ttfm.make_prefill_fn(tc, 8, device="cpu")(
+        tp, cache, toks, 16, np.array([1, 2]))
+    np.testing.assert_allclose(last.numpy(), ref[0, 15], atol=5e-5,
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("make", [

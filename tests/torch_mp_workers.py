@@ -123,6 +123,8 @@ def mp_train_worker(rank, world, mp):
         out["tp_loss"], out["tp_grads"] = loss_and_grads(cfg, tp_mesh,
                                                          params)
         out["fault_grads"] = loss_and_grads(cfg, mesh, params, fault=True)[1]
+        out["moe_specs"] = tfm.param_specs(
+            tfm.TransformerConfig(**dict(CFG, n_experts=2)), mesh)
         out["refusals"] = []
         for axes in ({"dp": 1, "sp": 2}, {"dp": 1, "ep": 2}):
             try:
@@ -270,3 +272,76 @@ def dead_follower_worker(rank, world):
     seconds = time.monotonic() - t0
     srv.close()
     return {"error": err, "seconds": seconds}
+
+
+# the MoE parity tests' model (tests/test_torch_moe.py)
+MOE_CFG = dict(vocab=256, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+               max_len=64, n_experts=4, dtype="float32")
+MOE_BATCH = (4, 17)
+
+
+def moe_tokens(seed=0):
+    return np.random.RandomState(seed).randint(
+        0, MOE_CFG["vocab"], MOE_BATCH).astype(np.int32)
+
+
+def _moe_without_gate_sum(ln, h, lp, cdt, tp=None):
+    """The MoE branch with the gate's cotangent left partial on each rank
+    (no sum over the mp group): the fault the parity test must catch."""
+    import torch.nn.functional as F
+
+    gate = torch.softmax(torch.einsum("bsd,de->bse", ln.float(),
+                                      lp["moe_gate_weight"].float()), dim=-1)
+    up = F.relu(torch.einsum("bsd,edf->besf", h, lp["ffn_up_weight"].to(cdt)))
+    down = torch.einsum("besf,efd->besd", up, lp["ffn_down_weight"].to(cdt))
+    return torch.einsum("besd,bse->bsd", down, gate.to(cdt))
+
+
+def moe_mp_worker(rank, world):
+    """The MoE transformer on ``train_mesh(mp=2)``: its shards, the loss
+    and every gradient (and again with the gate's sum over the group taken
+    out), the collective counts, ``STEPS`` train steps and the replicated
+    params after them, and the ``ep`` refusal."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.parallel.mesh import make_mesh, train_mesh
+
+    tfm = _tfm()
+    cfg = tfm.TransformerConfig(**MOE_CFG)
+    params = tfm.init_params(cfg, seed=0)
+    mesh = train_mesh(mp=2, device="cpu")
+    out = {"shard_shapes": {k: tuple(v.shape) for k, v in
+                            tfm.shard_params(params, cfg, mesh).items()}}
+    loss_fn, _specs = tfm.make_loss_fn(cfg, mesh, device="cpu")
+
+    def loss_and_grads():
+        p = {k: v.requires_grad_() for k, v in
+             tfm.shard_params(params, cfg, mesh).items()}
+        loss = loss_fn(p, moe_tokens())
+        grads = torch.autograd.grad(loss, list(p.values()))
+        full = tfm.unshard(dict(zip(p, grads)), cfg, mesh)
+        return loss.item(), {k: v.numpy() for k, v in full.items()}
+
+    out["loss"], out["grads"] = loss_and_grads()
+    real = tfm._moe
+    tfm._moe = _moe_without_gate_sum
+    try:
+        out["fault_grads"] = loss_and_grads()[1]
+    finally:
+        tfm._moe = real
+    out["counts"] = tfm.block_collective_counts(cfg, mesh)
+    step, place = tfm.make_train_step(cfg, mesh, optimizer=dict(OPT),
+                                      device="cpu")
+    carry = place(params)
+    out["losses"] = []
+    for i in range(STEPS):
+        carry, loss = step(carry, moe_tokens(10 + i))
+        out["losses"].append(float(loss))
+    out["params"] = {k: v.detach().numpy() for k, v in tfm.unshard(
+        {k: v.detach() for k, v in carry[0].items()}, cfg, mesh).items()}
+    out["gate"] = carry[0]["moe_gate_weight"].detach().numpy().copy()
+    try:
+        tfm.make_loss_fn(cfg, make_mesh({"dp": 1, "ep": 2}, device="cpu"))
+        out["ep_refusal"] = None
+    except MXNetError as e:
+        out["ep_refusal"] = str(e)
+    return out
