@@ -4664,7 +4664,15 @@ def _lm_grads_vs_cpu(np, mx):
     cpu_ce, cpu = run(mx.cpu())
     card_ce, card = run(mx.Context.from_device(CARD))
     nudged = [run(mx.Context.from_device(CARD), 300 + i)[1] for i in range(LM_NUDGES)]
+    _lm_check(np, "lm", "batch %d, p=0" % n, cpu_ce, card_ce, cpu, card,
+              nudged)
 
+
+def _lm_check(np, label, what, cpu_ce, card_ce, cpu, card, nudged):
+    """The LM yardstick: the card's loss within LM_TOL of the CPU's, and
+    its gradients, whole and each tensor, within LM_RATIO times the gap
+    that one rounding of the weights gives on the card (``nudged``, one
+    gradient map a rounding), floored at LM_TOL."""
     def rel(a, b):
         return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
@@ -4678,17 +4686,17 @@ def _lm_grads_vs_cpu(np, mx):
     gap, yard = whole(card, cpu), max(whole(g, card) for g in nudged)
     worst = max((rel(card[k], g), k) for k, g in cpu.items())
     tyard = max(rel(g[k], card[k]) for g in nudged for k in card)
-    print("lm card vs cpu: batch %d, p=0, %d gradients: first loss %.6f vs "
+    print("%s card vs cpu: %s, %d gradients: first loss %.6f vs "
           "%.6f (relative %.3g, tol %g); whole gradient relative L2 %.4g "
           "against %.4g under %d one-rounding moves of the weights (ratio "
           "%.2f, limit %g); worst tensor %.4g at %s against %.4g (ratio "
-          "%.2f)" % (n, len(cpu), card_ce, cpu_ce, loss_err, LM_TOL, gap,
-                     yard, LM_NUDGES, gap / max(yard, 1e-30), LM_RATIO,
-                     worst[0], worst[1], tyard,
-                     worst[0] / max(tyard, 1e-30)))
+          "%.2f)" % (label, what, len(cpu), card_ce, cpu_ce, loss_err,
+                     LM_TOL, gap, yard, len(nudged),
+                     gap / max(yard, 1e-30), LM_RATIO, worst[0], worst[1],
+                     tyard, worst[0] / max(tyard, 1e-30)))
     if loss_err > LM_TOL or gap > max(LM_RATIO * yard, LM_TOL) or \
             worst[0] > max(LM_RATIO * tyard, LM_TOL):
-        raise RuntimeError("lm: card vs cpu out of bounds")
+        raise RuntimeError("%s: card vs cpu out of bounds" % label)
 
 
 def lm_fit_phase(torch, np, fa, fb):
@@ -8338,6 +8346,418 @@ def gluon_phase(torch, np, fa, fb):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Gluon's recurrent layers and the module front end (ROADMAP.md Queue A
+# item 9, second part): the PTB-medium LSTM LM (LM) through BucketingModule
+# and a Gluon word LM of the same width, fp32 with TF32 off
+# ---------------------------------------------------------------------------
+RNN_DEFAULT_BUCKET = 35
+# the default bucket first, then each bucket again, interleaved
+RNN_ORDER = (35, 10, 20, 35, 10, 20)
+RNN_OPT = dict(learning_rate=0.5, momentum=0.9)
+RNN_CHECK_BUCKET = 10          # card vs CPU at this bucket
+RNN_GLUON_STEPS = 4            # after one warm-up step
+# eager against hybridized: the same ops on the same card, relative to the
+# largest |value|
+RNN_SAME_TOL = 1e-5
+# LSTMCell unroll against the fused layer: fp32, another product order
+RNN_CELL_TOL = dict(rtol=1e-4, atol=1e-5)
+CONV_LSTM = dict(batch=8, channels=32, side=32, hidden=64, kernel=3, steps=3)
+
+
+def _rnn_bucketing(mx, ctx, default):
+    """A BucketingModule of ``lm_symbol`` (one symbol for every length) on
+    ``ctx``, the RNN states fixed."""
+    c = LM
+
+    def sym_gen(_key):
+        return (lm_symbol(mx, c["vocab"], c["hidden"], c["embed"],
+                          c["layers"]), ("data",), ("softmax_label",))
+
+    return mx.mod.BucketingModule(sym_gen, default_bucket_key=default,
+                                  context=ctx,
+                                  fixed_param_names=list(LM_STATES))
+
+
+def _rnn_batch(np, mx, key, seed):
+    """A DataBatch of ``key`` tokens a row from ``lm_corpus`` (host)."""
+    c = LM
+    x, y = lm_corpus(np, c["batch"], key, c["vocab"], seed=seed)
+    return mx.io.DataBatch(
+        data=[mx.nd.array(x, ctx=mx.cpu())],
+        label=[mx.nd.array(y, ctx=mx.cpu())], bucket_key=key,
+        provide_data=[mx.io.DataDesc("data", (c["batch"], key))],
+        provide_label=[mx.io.DataDesc("softmax_label", (c["batch"], key))])
+
+
+def _rnn_bind(mx, mod, key, params):
+    c = LM
+    mod.bind(data_shapes=[("data", (c["batch"], key))],
+             label_shapes=[("softmax_label", (c["batch"], key))])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in params.items()},
+                    aux_params={})
+
+
+def _rnn_shared(mod):
+    """Whether every bucket's executor holds the default bucket's
+    parameter and gradient arrays (the same storage) and its updater."""
+    default = mod._buckets[mod._default_bucket_key]
+    dgroup = default._exec_group
+
+    def ptrs(blocks):
+        return [b[0].tensor.untyped_storage().data_ptr() if b[0] is not None
+                else None for b in blocks]
+
+    ok = True
+    for bucket in mod._buckets.values():
+        group = bucket._exec_group
+        ok = ok and ptrs(group.param_arrays) == ptrs(dgroup.param_arrays) \
+            and ptrs(group.grad_arrays) == ptrs(dgroup.grad_arrays) \
+            and bucket._updater is default._updater
+    return ok
+
+
+def _rnn_bucketed_lm(torch, np, mx):
+    """The bucketed LM on the card: RNN_ORDER batches (each bucket bound on
+    its first batch) under sgd with momentum; per-batch times and losses,
+    tokens/s over the batches after each bucket's first, peak memory, and
+    whether the buckets share storage and optimizer state."""
+    c = LM
+    ctx = _card_ctx(torch, mx)
+    mod = _rnn_bucketing(mx, ctx, RNN_DEFAULT_BUCKET)
+    params = lm_params(np, lm_symbol(mx, c["vocab"], c["hidden"], c["embed"],
+                                     c["layers"]), c["batch"],
+                       RNN_DEFAULT_BUCKET)
+    _free(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _rnn_bind(mx, mod, RNN_DEFAULT_BUCKET, params)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+        RNN_OPT, rescale_grad=1.0 / (c["batch"] * RNN_DEFAULT_BUCKET)))
+    rows = []
+    seen = set()
+    for i, key in enumerate(RNN_ORDER):
+        batch = _rnn_batch(np, mx, key, seed=10 + i)
+        t0 = time.perf_counter()
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        loss = _lm_loss(torch, mod.get_outputs()[0].tensor,
+                        batch.label[0].tensor.to(CARD))
+        rows.append((key, time.perf_counter() - t0, loss, key in seen))
+        seen.add(key)
+    peak = torch.cuda.max_memory_allocated()
+    momentum = mod._buckets[RNN_DEFAULT_BUCKET]._updater.states
+    warm = [r for r in rows if r[3]]
+    tokens_s = c["batch"] * sum(r[0] for r in warm) / sum(r[1] for r in warm)
+    out = dict(rows=rows, tokens_s=tokens_s, peak_gib=peak / 2 ** 30,
+               buckets=sorted(mod._buckets), shared=_rnn_shared(mod),
+               n_states=len(momentum))
+    del mod
+    _free(torch)
+    return out
+
+
+def _rnn_bucket_grads_vs_cpu(torch, np, mx):
+    """One training batch at bucket RNN_CHECK_BUCKET through a
+    BucketingModule, card vs CPU, held to the LM yardstick."""
+    c = LM
+    key = RNN_CHECK_BUCKET
+    params = lm_params(np, lm_symbol(mx, c["vocab"], c["hidden"], c["embed"],
+                                     c["layers"]), c["batch"], key, seed=2)
+    batch = _rnn_batch(np, mx, key, seed=3)
+    y = batch.label[0].asnumpy()
+
+    def run(ctx, nudge=None):
+        p = params
+        if nudge is not None:
+            rng = np.random.RandomState(nudge)
+            p = {k: v if k in LM_STATES else _zoo_nudged(np, v, rng)
+                 for k, v in params.items()}
+        mod = _rnn_bucketing(mx, ctx, key)
+        _rnn_bind(mx, mod, key, p)
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        probs = mod.get_outputs()[0].asnumpy()
+        ce = float(-np.log(probs[np.arange(len(probs)),
+                                 y.reshape(-1).astype(int)] + 1e-12).mean())
+        group = mod._curr_module._exec_group
+        grads = {n: g[0].asnumpy() for n, g in zip(group.param_names,
+                                                   group.grad_arrays)
+                 if g[0] is not None and n not in LM_STATES}
+        del mod
+        return ce, grads
+
+    cpu_ce, cpu = run(mx.cpu())
+    card_ce, card = run(_card_ctx(torch, mx))
+    nudged = [run(_card_ctx(torch, mx), 310 + i)[1]
+              for i in range(LM_NUDGES)]
+    _lm_check(np, "rnn bucketed lm", "bucket %d, batch %d" % (key,
+                                                               c["batch"]),
+              cpu_ce, card_ce, cpu, card, nudged)
+
+
+def _rnn_word_lm(mx):
+    """Embedding -> rnn.LSTM (2 layers) -> Dense of LM's widths, on
+    (T, N) token ids."""
+    from mxnet_tpu_torch import gluon
+
+    c = LM
+
+    class WordLM(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.embed = gluon.nn.Embedding(c["vocab"], c["embed"])
+                self.rnn = gluon.rnn.LSTM(c["hidden"],
+                                          num_layers=c["layers"],
+                                          input_size=c["embed"])
+                self.out = gluon.nn.Dense(c["vocab"], flatten=False,
+                                          in_units=c["hidden"])
+
+        def forward(self, x):
+            return self.out(self.rnn(self.embed(x)))
+
+    return WordLM()
+
+
+def _rnn_gluon_grads(mx, net, x, y):
+    """Loss (mean token cross-entropy) and gradients of one batch."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    lossf = gluon.loss.SoftmaxCrossEntropyLoss()
+    with autograd.record():
+        out = net(x)
+        loss = lossf(out.reshape((-1, LM["vocab"])), y.reshape((-1,)))
+    loss.backward()
+    grads = {k[len(net.prefix):]: p.grad().asnumpy() for k, p in
+             net.collect_params().items()}
+    return out, float(loss.mean().asscalar()), grads
+
+
+def _rnn_gluon_lm(torch, np, mx, tmp):
+    """The Gluon word LM at (LM seq, LM batch) on the card: eager against
+    hybridized (output and gradients), the fused layer against an
+    LSTMCell unroll of its weights, card against the port's CPU
+    (the LM yardstick), then RNN_GLUON_STEPS timed Trainer steps."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    c = LM
+    ctx = _card_ctx(torch, mx)
+    x_np, y_np = lm_corpus(np, c["batch"], c["seq"], c["vocab"], seed=21)
+    x_np, y_np = x_np.T.copy(), y_np.T.copy()          # (T, N)
+    out = {}
+    with ctx:
+        net = _rnn_word_lm(mx)
+        net.initialize(mx.init.Uniform(LM_INIT))
+        x, y = mx.nd.array(x_np), mx.nd.array(y_np)
+        eager, _loss, eg = _rnn_gluon_grads(mx, net, x, y)
+        eager = eager.asnumpy()
+        net.save_params(os.path.join(tmp, "wlm.params"))
+        # the fused layer against a cell unroll of its weights
+        emb = net.embed(x)
+        fused = net.rnn(emb).asnumpy()
+        cells = gluon.rnn.SequentialRNNCell()
+        with cells.name_scope():
+            for _ in range(c["layers"]):
+                cells.add(gluon.rnn.LSTMCell(c["hidden"]))
+        cells.initialize()
+        cells.unroll(1, emb[0:1], layout="TNC")
+        for layer, cell in enumerate(cells):
+            for name in ("i2h_weight", "h2h_weight", "i2h_bias",
+                         "h2h_bias"):
+                getattr(cell, name).set_data(
+                    net.rnn.params.get("l%d_%s" % (layer, name)).data())
+        unrolled, _states = cells.unroll(c["seq"], emb, layout="TNC")
+        unrolled = unrolled.asnumpy()
+        cell_gap = float(np.abs(unrolled - fused).max())
+        cell_ok = bool(np.allclose(unrolled, fused, **RNN_CELL_TOL))
+        net.hybridize()
+        hybrid, card_ce, card = _rnn_gluon_grads(mx, net, x, y)
+        hybrid = hybrid.asnumpy()
+        out["hybrid_gap"] = _gluon_rel(np, hybrid, eager)
+        out["hybrid_grad_gap"] = max(
+            float(np.linalg.norm(card[k] - eg[k])
+                  / max(np.linalg.norm(eg[k]), 1e-30)) for k in eg)
+        out["cell_gap"], out["cell_ok"] = cell_gap, cell_ok
+        out["graphs"] = len(net._cached)
+        # card (the hybridized run) against the port's CPU, same weights
+        nudged = []
+        for i in range(LM_NUDGES):
+            other = _rnn_word_lm(mx)
+            other.initialize()
+            other.load_params(os.path.join(tmp, "wlm.params"))
+            nrng = np.random.RandomState(320 + i)
+            for p in other.collect_params().values():
+                p.set_data(_zoo_nudged(np, p.data().asnumpy(), nrng))
+            nudged.append(_rnn_gluon_grads(mx, other, x, y)[2])
+            del other
+    with mx.cpu():
+        cpu_net = _rnn_word_lm(mx)
+        cpu_net.initialize()
+        cpu_net.load_params(os.path.join(tmp, "wlm.params"))
+        _cpu_out, cpu_ce, cpu = _rnn_gluon_grads(
+            mx, cpu_net, mx.nd.array(x_np), mx.nd.array(y_np))
+        del cpu_net
+    _lm_check(np, "rnn gluon lm", "(T %d, N %d)" % (c["seq"], c["batch"]),
+              cpu_ce, card_ce, cpu, card, nudged)
+    with ctx:
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                dict(learning_rate=LM_LR))
+        lossf = gluon.loss.SoftmaxCrossEntropyLoss()
+        losses, secs = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(RNN_GLUON_STEPS + 1):
+            xs, ys = lm_corpus(np, c["batch"], c["seq"], c["vocab"],
+                               seed=30 + step)
+            xb, yb = mx.nd.array(xs.T.copy()), mx.nd.array(ys.T.copy())
+            t0 = time.perf_counter()
+            with autograd.record():
+                loss = lossf(net(xb).reshape((-1, c["vocab"])),
+                             yb.reshape((-1,)))
+            loss.backward()
+            trainer.step(c["batch"] * c["seq"])
+            losses.append(float(loss.mean().asscalar()))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["losses"], out["secs"] = losses, secs
+        out["tokens_s"] = c["batch"] * c["seq"] * RNN_GLUON_STEPS / \
+            sum(secs[1:])
+        del net, trainer
+    _free(torch)
+    return out
+
+
+def _rnn_conv_lstm(torch, np, mx):
+    """A Conv2DLSTMCell unrolled CONV_LSTM["steps"] steps: output and
+    gradients card vs the port's CPU on the same weights, against the
+    rounding yardstick."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.contrib.rnn import Conv2DLSTMCell
+
+    c = CONV_LSTM
+    shape = (c["channels"], c["side"], c["side"])
+    rng = np.random.RandomState(40)
+    x = rng.uniform(-1, 1, (c["batch"], c["steps"]) + shape).astype(
+        np.float32)
+    head = rng.uniform(-1, 1, (c["batch"], c["steps"], c["hidden"],
+                               c["side"], c["side"])).astype(np.float32)
+    def run(ctx, nudge=None):
+        with ctx:
+            cell = Conv2DLSTMCell(shape, c["hidden"], c["kernel"],
+                                  c["kernel"], i2h_pad=c["kernel"] // 2,
+                                  prefix="conv_lstm_")
+            cell.initialize()
+            params = cell.collect_params()
+            nrng = None if nudge is None else np.random.RandomState(nudge)
+            for k, p in params.items():
+                v = weights[k] if nrng is None else \
+                    _zoo_nudged(np, weights[k], nrng)
+                p.set_data(mx.nd.array(v))
+            xs = mx.nd.array(x)
+            with autograd.record():
+                seq, _states = cell.unroll(c["steps"], xs)
+                loss = (seq * mx.nd.array(head)).sum()
+            loss.backward()
+            grads = {k: p.grad().asnumpy() for k, p in params.items()}
+            return float(loss.asscalar()), grads
+
+    with mx.cpu():
+        mx.random.seed(41)
+        init = Conv2DLSTMCell(shape, c["hidden"], c["kernel"], c["kernel"],
+                              i2h_pad=c["kernel"] // 2, prefix="conv_lstm_")
+        init.initialize(mx.init.Xavier())
+        weights = {k: rng.uniform(-0.1, 0.1, p.shape).astype(np.float32)
+                   if k.endswith("bias") else p.data().asnumpy()
+                   for k, p in init.collect_params().items()}
+    cpu_loss, cpu = run(mx.cpu())
+    card_loss, card = run(_card_ctx(torch, mx))
+    nudged = [run(_card_ctx(torch, mx), 330 + i)[1]
+              for i in range(LM_NUDGES)]
+    _lm_check(np, "rnn conv lstm", "batch %d, %d steps, %dx%dx%d -> %d"
+              % (c["batch"], c["steps"], *shape, c["hidden"]),
+              cpu_loss, card_loss, cpu, card, nudged)
+
+
+def rnn_phase(torch, np, fa, fb):
+    """The recurrent paths on the card, fp32 with TF32 off: the PTB-medium
+    LSTM LM (LM widths, lm_symbol) through BucketingModule over buckets
+    (10, 20, 35), default 35, in RNN_ORDER (loss finite and falling, the
+    buckets sharing parameter, gradient and optimizer storage, tokens/s,
+    peak memory) and one bucket card vs CPU; a Gluon word LM (Embedding,
+    rnn.LSTM of 2 layers, Dense) at (LM seq, LM batch): eager against
+    hybridized, an LSTMCell unroll against the fused layer, card against
+    CPU, and RNN_GLUON_STEPS Trainer steps; a Conv2DLSTMCell card against
+    CPU. Returns the launches of B5, B6, B7, B1, B2, B3 there (all 0: the
+    recurrent layers run cuBLAS and cuDNN)."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("rnn: TF32 must be off")
+    _free(torch)
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    mx.random.seed(0)
+    tmp = tempfile.mkdtemp(prefix="rnn_")
+    bucketed = _rnn_bucketed_lm(torch, np, mx)
+    _rnn_bucket_grads_vs_cpu(torch, np, mx)
+    word = _rnn_gluon_lm(torch, np, mx, tmp)
+    _rnn_conv_lstm(torch, np, mx)
+    launches = _counts(fa) + _fb_counts(fb)
+    rows = bucketed["rows"]
+    c = LM
+    print("rnn bucketed lm: PTB-medium LSTM LM (vocab %d, %d wide, %d "
+          "layers, batch %d) through BucketingModule, buckets %s (default "
+          "%d), fp32 (TF32 off), sgd %s: batches (bucket, s, loss) %s; "
+          "%.1f tokens/s over the batches after each bucket's first; peak "
+          "memory %.3f GiB; buckets share parameter, gradient and optimizer "
+          "storage %s (%d momentum states)"
+          % (c["vocab"], c["hidden"], c["layers"], c["batch"],
+             bucketed["buckets"], RNN_DEFAULT_BUCKET, RNN_OPT,
+             " ".join("(%d, %.4f, %.5f)" % r[:3] for r in rows),
+             bucketed["tokens_s"], bucketed["peak_gib"], bucketed["shared"],
+             bucketed["n_states"]))
+    print("rnn gluon lm: Embedding(%d, %d) -> rnn.LSTM(%d, %d layers) -> "
+          "Dense(%d), hybridized (%d graphs), Trainer sgd lr %g at (T %d, "
+          "N %d): losses %s; step times %s s; %.1f tokens/s; peak memory "
+          "%.3f GiB; hybridized vs eager %.3g (gradients %.3g, tol %g); "
+          "LSTMCell unroll vs the fused layer max |gap| %.3g (rtol %g, atol "
+          "%g)" % (c["vocab"], c["embed"], c["hidden"], c["layers"],
+                   c["vocab"], word["graphs"], LM_LR, c["seq"], c["batch"],
+                   " ".join("%.5f" % v for v in word["losses"]),
+                   " ".join("%.4f" % v for v in word["secs"]),
+                   word["tokens_s"], word["peak_gib"], word["hybrid_gap"],
+                   word["hybrid_grad_gap"], RNN_SAME_TOL, word["cell_gap"],
+                   RNN_CELL_TOL["rtol"], RNN_CELL_TOL["atol"]))
+    print("rnn phase: B5-B7 and B1-B3 launches %s" % (launches,))
+    losses = [r[2] for r in rows]
+    first35 = [r[2] for r in rows if r[0] == RNN_DEFAULT_BUCKET]
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0] or not first35[-1] < first35[0]:
+        raise RuntimeError("rnn bucketed lm: losses %s" % losses)
+    if bucketed["buckets"] != [10, 20, 35] or not bucketed["shared"]:
+        raise RuntimeError("rnn bucketed lm: buckets %s, shared %s"
+                           % (bucketed["buckets"], bucketed["shared"]))
+    if not all(math.isfinite(v) for v in word["losses"]) or \
+            not word["losses"][-1] < word["losses"][0]:
+        raise RuntimeError("rnn gluon lm: losses %s" % word["losses"])
+    if word["hybrid_gap"] > RNN_SAME_TOL or \
+            word["hybrid_grad_gap"] > RNN_SAME_TOL or not word["cell_ok"]:
+        raise RuntimeError("rnn gluon lm: hybridized %g (gradients %g), "
+                           "cell unroll %g" % (word["hybrid_gap"],
+                                               word["hybrid_grad_gap"],
+                                               word["cell_gap"]))
+    if any(launches):
+        raise RuntimeError("rnn: hand kernels launched %s" % (launches,))
+    return launches
+
+
 def main():
     import torch
 
@@ -8462,6 +8882,9 @@ def main():
     gluon_launches = phase("gluon", gluon_phase, torch, np, fa, fb)
     for entry, n in zip([fwd, *bwd, conv, *grads], gluon_launches):
         entry["gluon_launches"] = n
+    rnn_launches = phase("rnn", rnn_phase, torch, np, fa, fb)
+    for entry, n in zip([fwd, *bwd, conv, *grads], rnn_launches):
+        entry["rnn_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; shared-prefix serving (cache on) "
           "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "
@@ -8479,7 +8902,8 @@ def main():
           "server tier and embed B5-B7 and B1-B3 %s; MoE training %d "
           "steps B5 %d, B6 %d, B7 %d; MoE serving B5 %d; MoE mp=2 loss and "
           "gradient B5, B6, B7 on each rank %s; Gluon ResNet-50 and zoo "
-          "B5-B7 and B1-B3 %s"
+          "B5-B7 and B1-B3 %s; recurrent paths (bucketed LM, Gluon LSTM "
+          "LM, ConvLSTM) B5-B7 and B1-B3 %s"
           % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
              SPEC_TRACE["k"], fwd["spec_launches"], conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
@@ -8495,7 +8919,8 @@ def main():
              ", ".join("%d" % n for n in sparse),
              ", ".join("%d" % n for n in embed), MOE_STEPS, *moe_train,
              moe_serve, " / ".join("%d, %d, %d" % tuple(r) for r in moe_mp),
-             ", ".join("%d" % n for n in gluon_launches)))
+             ", ".join("%d" % n for n in gluon_launches),
+             ", ".join("%d" % n for n in rnn_launches)))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

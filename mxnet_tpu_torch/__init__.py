@@ -49,11 +49,18 @@ from . import symbol as sym  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import parallel  # noqa: F401
 from . import recordio  # noqa: F401
+from . import config  # noqa: F401
+from . import chaos, embedding, ir, kvstore_server, profiler  # noqa: F401
+from . import serving, tracker  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu, resolve_device
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      num_gpus, resolve_device)
+from .executor import Executor  # noqa: F401
+from .model import load_checkpoint, save_checkpoint  # noqa: F401
 
 kvstore = kv
+rnd = random
 init = initializer
 opt = optimizer
 symbol = sym
@@ -64,4 +71,7 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "current_context", "AttrScope", "nd", "sym", "autograd",
            "random", "init", "initializer", "opt", "optimizer", "metric",
            "io", "mod", "model", "callback", "lr_scheduler", "name", "kv",
-           "kvstore", "parallel", "contrib", "recordio", "gluon"]
+           "kvstore", "parallel", "contrib", "recordio", "gluon", "rnd",
+           "config", "chaos", "embedding", "ir", "kvstore_server",
+           "profiler", "serving", "tracker", "Executor", "load_checkpoint",
+           "save_checkpoint", "num_gpus", "cpu_pinned"]

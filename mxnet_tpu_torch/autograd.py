@@ -12,6 +12,10 @@ into the buffers (``write``), adds them (``add``) or leaves them
 :class:`Function` runs its NDArray ``forward``/``backward`` inside a
 ``torch.autograd.Function``.
 
+Each op recorded through ``ndarray.invoke`` also leaves on its outputs
+which op made them from which arrays, so :func:`get_symbol` can rebuild
+the recorded graph as a Symbol.
+
 ``train_mode`` of :func:`backward` and :func:`grad` has no effect: torch
 differentiates the recorded forward, whose mode was fixed when it ran
 (the JAX package re-evaluates it in ``train_mode``).
@@ -223,3 +227,45 @@ class Function:
         ctx = inputs[0]._ctx if inputs else None
         outs = [NDArray(t, ctx) for t in outs]
         return outs[0] if len(outs) == 1 else outs
+
+
+def get_symbol(x):
+    """The recorded imperative graph that reaches ``x`` as a Symbol, as
+    the JAX package builds it: leaf arrays (inputs and marked variables)
+    become variables ``var0, var1, ...`` in first-use order, and each
+    recorded op a node named after its op and its build order."""
+    from .symbol.symbol import Symbol, _infer_arity, _Node
+
+    if getattr(x, "_op_record", None) is None:
+        raise MXNetError(
+            "autograd.get_symbol: array is not the output of a recorded op")
+    node_memo, var_memo = {}, {}
+
+    def entry_for_array(arr):
+        rec = getattr(arr, "_op_record", None)
+        if rec is not None:
+            return build(rec), rec[3]
+        if id(arr) not in var_memo:
+            var_memo[id(arr)] = _Node(None, {}, [], "var%d" % len(var_memo))
+        return var_memo[id(arr)], 0
+
+    def build(rec):
+        op, attrs, arrays, _index = rec
+        key = (id(op), id(arrays))
+        if key in node_memo:
+            return node_memo[key]
+        arrays = list(arrays)
+        while arrays and arrays[-1] is None:
+            arrays.pop()
+        if any(a is None for a in arrays):
+            raise MXNetError(
+                "autograd.get_symbol: op %s was recorded with a "
+                "non-trailing missing optional input" % op.name)
+        inputs = [entry_for_array(a) for a in arrays]
+        node = _Node(op, dict(attrs), inputs, "%s%d" % (
+            op.name.lstrip("_").lower(), len(node_memo)),
+            arity=_infer_arity(op, len(inputs)))
+        node_memo[key] = node
+        return node
+
+    return Symbol([entry_for_array(x)])

@@ -2,6 +2,7 @@
 (counterpart of ``mxnet_tpu/base.py``)."""
 from __future__ import annotations
 
+import re
 import threading
 
 import numpy as np
@@ -30,6 +31,33 @@ def auto_name(prefix: str) -> str:
         idx = _NAME_COUNTS.get(prefix, 0)
         _NAME_COUNTS[prefix] = idx + 1
     return "%s%d" % (prefix, idx)
+
+
+def reset_naming():
+    """Restart the global per-prefix name counters."""
+    with _NAME_LOCK:
+        _NAME_COUNTS.clear()
+
+
+_PYTHONIC = re.compile(r"[^0-9a-zA-Z_]")
+
+
+def sanitize_name(name: str) -> str:
+    return _PYTHONIC.sub("_", name)
+
+
+def check_call(ret):
+    """The JAX package's shim for its C-API surface: there is no C ABI,
+    errors are Python exceptions."""
+    return ret
+
+
+def classproperty(func):
+    class _Desc:
+        def __get__(self, _obj, objtype=None):
+            return func(objtype)
+
+    return _Desc()
 
 
 _DTYPES = {

@@ -250,6 +250,28 @@ KNOBS = {
         "1", "log a warning the first time a sparse array of each storage "
         "type is densified for a dense op; 0 silences it; 0|1 "
         "(ndarray/sparse.py)"),
+    "MXNET_IR_PASSES": (
+        "fusion", "default pass pipeline for ir.apply_passes(passes=None): "
+        "a comma list of registered pass names (fusion|residual|layout|"
+        "quantize); unknown names raise naming this knob (ir/passes.py)"),
+    "MXNET_BACKWARD_DO_MIRROR": (
+        "0", "recompute in the backward: a bound executor's training graph "
+        "keeps only its variables for the backward and reruns every op "
+        "node there (the selective remat with an empty save set); 0|1, "
+        "anything else raises (executor.py)"),
+    "MXNET_INFER_DEBUG": (
+        "0", "set in the environment to a non-empty value (any, as the "
+        "JAX package reads it), shape inference prints the full traceback "
+        "of each node it fails to evaluate to stderr (executor.py)"),
+    "MXNET_TPU_FUSED_ROW_TILE": (
+        "", "the JAX package's Pallas row tile (output rows of an image a "
+        "grid tile) has no counterpart: B2's tile counts pixel boxes a "
+        "chunk, so a set value raises by name and points to the "
+        "row_tile launch parameter and the schedule table "
+        "(kernels/fused_block.py)"),
+    "MXNET_GLUON_REPO": (
+        "", "local directory or file:// URL the model zoo copies "
+        "pretrained .params files from (gluon/model_zoo/model_store.py)"),
     "MXNET_IR_FUSE": (
         "1", "kill switch for rule-based fusion in the model builders: "
         "resnet(fused=True) applies the IR fusion pass when 1, returns the "
@@ -264,6 +286,14 @@ def get(name):
     if name in KNOBS:
         return KNOBS[name][0]
     return None
+
+
+def get_int(name, default=None):
+    """The knob as an int (None when unset and without a default)."""
+    v = os.environ.get(name)
+    if v is None:
+        v = str(default) if default is not None else get(name)
+    return int(v) if v not in (None, "") else None
 
 
 def get_bool(name, default=False):
@@ -314,6 +344,17 @@ def get_positive_int(name):
     return v
 
 
+def get_nonneg_float(name):
+    raw = get(name)
+    try:
+        v = float(str(raw).strip())
+    except (TypeError, ValueError):
+        v = float("nan")
+    if not 0.0 <= v < float("inf"):  # also rejects NaN
+        raise MXNetError("%s=%r must be a finite float >= 0" % (name, raw))
+    return v
+
+
 def get_positive_float(name):
     raw = get(name)
     try:
@@ -323,3 +364,14 @@ def get_positive_float(name):
     if not 0.0 < v < float("inf"):  # also rejects NaN
         raise MXNetError("%s=%r must be a finite float > 0" % (name, raw))
     return v
+
+
+def describe():
+    """``[(name, current value, description)]`` for every knob the port
+    reads."""
+    return [(n, get(n), d) for n, (_default, d) in sorted(KNOBS.items())]
+
+
+def print_summary():
+    for name, value, desc in describe():
+        print("%-40s %-10s %s" % (name, value, desc))

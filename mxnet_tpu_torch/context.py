@@ -6,7 +6,8 @@ runs on the card, and raises when there is none rather than carrying on
 on the CPU. The CPU is used only when a caller asks for it (the tests do).
 
 :class:`Context` is the front end's name for a device: ``gpu(i)`` is
-``cuda:i`` and ``cpu()`` the host. The default context is ``gpu(0)``;
+``cuda:i`` and ``cpu()`` the host (``cpu_pinned()`` too: its arrays live on
+the host as the CPU's do). The default context is ``gpu(0)``;
 ``with mx.cpu(): ...`` makes the CPU the default inside the block.
 """
 from __future__ import annotations
@@ -44,8 +45,8 @@ class Context:
     comparable, and a ``with`` scope that makes it the default."""
 
     _default_ctx = threading.local()
-    devtype2str = {1: "cpu", 2: "gpu"}
-    devstr2type = {"cpu": 1, "gpu": 2}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+    devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
 
     __slots__ = ("device_type", "device_id", "_old_ctx")
 
@@ -56,7 +57,8 @@ class Context:
         elif isinstance(device_type, int):
             device_type = self.devtype2str.get(device_type, device_type)
         if device_type not in self.devstr2type:
-            raise MXNetError("unknown device type %r (cpu or gpu)"
+            raise MXNetError("unknown device type %r (cpu, gpu or "
+                             "cpu_pinned)"
                              % (device_type,))
         self.device_type = device_type
         self.device_id = int(device_id)
@@ -76,7 +78,7 @@ class Context:
         an op's ``ctx`` attribute as symbol JSON holds it)."""
         if isinstance(ctx, Context):
             return ctx
-        m = re.fullmatch(r"\s*(cpu|gpu)\s*(?:\(\s*(\d+)\s*\))?\s*",
+        m = re.fullmatch(r"\s*(cpu_pinned|cpu|gpu)\s*(?:\(\s*(\d+)\s*\))?\s*",
                          str(ctx))
         if m is None:
             raise MXNetError("cannot parse %r as a context" % (ctx,))
@@ -87,12 +89,19 @@ class Context:
         return self.devstr2type[self.device_type]
 
     def _name(self):
-        return "cpu" if self.device_type == "cpu" else \
-            "cuda:%d" % self.device_id
+        return "cuda:%d" % self.device_id if self.device_type == "gpu" \
+            else "cpu"
 
     def torch_device(self):
         """The ``torch.device``; ``gpu(i)`` raises without a card ``i``."""
         return resolve_device(self._name())
+
+    def empty_cache(self):
+        """Release the card's cached, unused memory to CUDA (a no-op
+        for the host)."""
+        if self.device_type == "gpu" and torch.cuda.is_available():
+            with torch.cuda.device(self.device_id):
+                torch.cuda.empty_cache()
 
     def __eq__(self, other):
         return isinstance(other, Context) and \
@@ -127,9 +136,19 @@ def cpu(device_id=0):
     return Context("cpu", device_id)
 
 
+def cpu_pinned(device_id=0):
+    """The host, under the reference's name for page-locked memory."""
+    return Context("cpu_pinned", device_id)
+
+
 def gpu(device_id=0):
     """CUDA device ``device_id``."""
     return Context("gpu", device_id)
+
+
+def num_gpus():
+    """The number of CUDA devices (0 without a card)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 def current_context():

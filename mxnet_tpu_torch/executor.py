@@ -29,18 +29,29 @@ graph run twice from one step seed draws bit for bit the same, a remat
 recompute replays its forward's draws and the backward of a training
 forward uses that forward's masks (the autograd graph holds them).
 
-Not ported yet: ``ctx_group`` placement and ``group2ctx`` (both raise),
-``MXNET_BACKWARD_DO_MIRROR`` and monitor callbacks.
+``MXNET_BACKWARD_DO_MIRROR=1`` makes a bound executor's training graph
+recompute in the backward, as the JAX package wraps its bound program in
+``jax.checkpoint``: the graph runs under :class:`_Remat` with an empty
+save set, so only the variables are kept and every op node reruns in the
+backward. ``MXNET_INFER_DEBUG`` prints each failing node's traceback
+during shape inference, as in the JAX package.
+
+Not ported yet: ``ctx_group`` placement and ``group2ctx`` (both raise)
+and monitor callbacks.
 """
 from __future__ import annotations
 
 import contextlib
+import os
+import sys
 import threading
+import traceback
 import weakref
 
 import numpy as np
 import torch
 
+from . import config
 from . import random as _random
 from .base import MXNetError, dtype_name, dtype_torch
 from .symbol.symbol import _AUX_PARAMS
@@ -399,11 +410,12 @@ def residual_probe():
         _PROBE.active = prev
 
 
-def infer_graph_shapes(symbol, kwargs):
+def infer_graph_shapes(symbol, kwargs, partial=False):
     """``(arg_shapes, out_shapes, aux_shapes)`` of ``symbol`` from the
-    input shapes in ``kwargs``; an unresolved shape raises."""
+    input shapes in ``kwargs``; an unresolved shape raises, or with
+    ``partial`` comes back as None."""
     known = {k: tuple(v) for k, v in kwargs.items() if v is not None}
-    shapes = _solve_shapes(symbol, known)
+    shapes = _solve_shapes(symbol, known, partial=partial)
     arg_shapes = [shapes.get(n) for n in symbol.list_arguments()]
     aux_shapes = [shapes.get(n) for n in symbol.list_auxiliary_states()]
     return arg_shapes, shapes["__outputs__"], aux_shapes
@@ -440,7 +452,7 @@ def infer_graph_types(symbol, kwargs):
             [var_type(n) for n in symbol.list_auxiliary_states()])
 
 
-def _solve_shapes(symbol, known_shapes, type_dict=None):
+def _solve_shapes(symbol, known_shapes, type_dict=None, partial=False):
     """Infer every variable's shape by constraint propagation: per-op
     weight-shape rules, then each op run on meta tensors, to a fixpoint.
     Returns the shapes by variable name, with the output shapes under
@@ -517,6 +529,10 @@ def _solve_shapes(symbol, known_shapes, type_dict=None):
                 node_errors[node.name] = "%s(%s): %s" % (
                     node.op.name, node.name,
                     lines[-1][:200] if lines else type(e).__name__)
+                if os.environ.get("MXNET_INFER_DEBUG"):
+                    print("[infer_shape] node %r (%s) failed:\n%s"
+                          % (node.name, node.op.name,
+                             traceback.format_exc()), file=sys.stderr)
 
     out_shapes, out_dtypes = [], []
     for n, idx in symbol._entries:
@@ -527,7 +543,7 @@ def _solve_shapes(symbol, known_shapes, type_dict=None):
             outs = node_out.get(node_ids[id(n)])
             out_shapes.append(outs[idx][0] if outs else None)
             out_dtypes.append(outs[idx][1] if outs else None)
-    if any(s is None for s in out_shapes):
+    if any(s is None for s in out_shapes) and not partial:
         missing = [v.name for v in nodes
                    if v.is_variable() and v.name not in shapes]
         detail = "; ".join(list(node_errors.values())[:3])
@@ -710,11 +726,15 @@ class Executor:
     def output_dict(self):
         return dict(zip(self._symbol.list_outputs(), self.outputs))
 
-    def _graph(self, is_train):
-        fn = self._graphs.get(is_train)
+    def _graph(self, is_train, mirror=False):
+        """The graph's closure; ``mirror`` (``MXNET_BACKWARD_DO_MIRROR``
+        on a forward kept for the backward) keeps only the variables and
+        recomputes every op node in the backward."""
+        fn = self._graphs.get((is_train, mirror))
         if fn is None:
-            fn = self._graphs[is_train] = _graph_closure(self._symbol,
-                                                         is_train)
+            fn = self._graphs[(is_train, mirror)] = _graph_closure(
+                self._symbol, is_train,
+                remat_names=frozenset() if mirror else None)
         return fn
 
     def _load_inputs(self, kwargs):
@@ -740,8 +760,10 @@ class Executor:
                 leaves[n] = values[n] = values[n].detach().requires_grad_()
         for n in self._aux_names:
             values[n] = self.aux_dict[n].tensor
+        mirror = with_grad and config.get_strict_bool(
+            "MXNET_BACKWARD_DO_MIRROR")
         with torch.set_grad_enabled(with_grad):
-            outs, aux_updates = self._graph(is_train)(values, seed)
+            outs, aux_updates = self._graph(is_train, mirror)(values, seed)
         return leaves, outs, aux_updates
 
     def _apply_aux(self, aux_updates):
@@ -869,6 +891,10 @@ class Executor:
                for n, s in zip(self._aux_names, aux_shapes)}
         return Executor(self._symbol, self._ctx, args, grads, self.grad_req,
                         aux)
+
+    def debug_str(self):
+        """The bound graph, one node a line (``Symbol.debug_str``)."""
+        return self._symbol.debug_str()
 
     def set_monitor_callback(self, callback, monitor_all=False):
         raise MXNetError("Executor.set_monitor_callback: monitors are not "

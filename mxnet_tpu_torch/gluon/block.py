@@ -237,6 +237,13 @@ class HybridBlock(Block):
         self._clear_cached_op()
         super().cast(dtype)
 
+    def infer_shape(self, *args):
+        """Resolve the deferred parameter shapes from example inputs: one
+        forward in predict mode, not recorded (the parameters it meets
+        are initialized, as a first call would)."""
+        with autograd.pause():
+            self.forward(*args)
+
     def __call__(self, *args):
         self._num_inputs = len(args)   # export() traces as many inputs
         if self._active:
@@ -258,13 +265,19 @@ class HybridBlock(Block):
         walk(self)
         return out
 
-    def _trace(self, n_inputs):
+    def _trace(self, n_inputs, structure=None):
         """The forward as a Symbol of inputs ``data`` (or ``data0``, ...),
-        every hybridized block of the tree running its forward meanwhile."""
+        every hybridized block of the tree running its forward meanwhile.
+        ``structure`` (of :func:`_flatten`) nests the inputs as the call
+        did: a recurrent cell takes ``(x, [h, c])``. A nested output comes
+        back as one group and its structure: ``(symbol, out_structure)``
+        when ``structure`` is given."""
         from .. import symbol as symmod
 
         ins = [symmod.var("data" if n_inputs == 1 else "data%d" % i)
                for i in range(n_inputs)]
+        if structure is not None:
+            ins = _unflatten(ins, structure)
         saved = {}
 
         def walk(b):
@@ -280,6 +293,11 @@ class HybridBlock(Block):
         finally:
             for b, a in saved.items():
                 b._active = a
+        if structure is not None:
+            if isinstance(out, symmod.Symbol) and len(out) > 1:
+                out = list(out)   # a multi-output node: its outputs
+            flat, out_structure = _flatten([out])
+            return symmod.Group(flat), out_structure
         if isinstance(out, (list, tuple)):
             out = symmod.Group(list(out))
         return out
@@ -308,7 +326,7 @@ class HybridBlock(Block):
 
     # -- the CachedOp analogue -------------------------------------------
     def _call_cached(self, args):
-        inputs = [a for a in args if isinstance(a, NDArray)]
+        inputs, structure = _flatten(args)
         params = self._collect_all_reg_params()
         try:
             for p in params.values():
@@ -317,23 +335,61 @@ class HybridBlock(Block):
             # the first call reveals the deferred shapes: run it eagerly
             return self.forward(*args)
         key = (tuple((tuple(a.shape), str(a.dtype)) for a in inputs),
-               autograd.is_training(), autograd.is_recording())
+               structure, autograd.is_training(), autograd.is_recording())
         run = self._cached.get(key)
         if run is None:
             with NameManager():
-                graph = self._trace(len(inputs))
+                graph, out_structure = self._trace(len(inputs), structure)
             run = self._cached[key] = _GraphCall(
                 graph, ["data" if len(inputs) == 1 else "data%d" % i
-                        for i in range(len(inputs))], key[1])
+                        for i in range(len(inputs))], key[2],
+                out_structure)
         return run(inputs, params)
+
+
+def _flatten(args):
+    """The NDArray (or Symbol) leaves of ``args``, which may nest them in
+    lists and tuples, and a hashable structure that rebuilds it (other
+    values are kept in the structure as they are)."""
+    from ..symbol.symbol import Symbol
+
+    leaves = []
+
+    def walk(a):
+        if isinstance(a, (NDArray, Symbol)):
+            leaves.append(a)
+            return "*"
+        if isinstance(a, (list, tuple)):
+            return (type(a).__name__, tuple(walk(x) for x in a))
+        return ("=", a)
+
+    return leaves, tuple(walk(a) for a in args)
+
+
+def _unflatten(leaves, structure):
+    """``args`` rebuilt from :func:`_flatten`'s leaves and structure."""
+    it = iter(leaves)
+
+    def build(spec):
+        if spec == "*":
+            return next(it)
+        kind, val = spec
+        if kind == "=":
+            return val
+        items = [build(x) for x in val]
+        return tuple(items) if kind == "tuple" else items
+
+    return [build(spec) for spec in structure]
 
 
 class _GraphCall:
     """One traced graph run on tensors: the inputs' and the parameters'
     (by name), with autograd on while recording; a training call's
-    auxiliary-state updates are copied into the parameters."""
+    auxiliary-state updates are copied into the parameters. With
+    ``out_structure`` the outputs come back nested as the forward
+    returned them."""
 
-    def __init__(self, graph, input_names, is_train):
+    def __init__(self, graph, input_names, is_train, out_structure=None):
         from ..executor import _graph_closure
 
         self.input_names = input_names
@@ -341,6 +397,7 @@ class _GraphCall:
                             if n not in input_names]
         self.fn = _graph_closure(graph, is_train)
         self.single = len(graph.list_outputs()) == 1
+        self.out_structure = out_structure
 
     def __call__(self, inputs, params):
         values = dict(zip(self.input_names, (a.tensor for a in inputs)))
@@ -357,6 +414,8 @@ class _GraphCall:
                 params[name].data().tensor.copy_(val)
         ctx = inputs[0].context if inputs else None
         outs = [NDArray(o, ctx) for o in outs]
+        if self.out_structure is not None:
+            return _unflatten(outs, self.out_structure)[0]
         return outs[0] if self.single else outs
 
 

@@ -348,3 +348,23 @@ def create(name, **kwargs):
     if klass is None:
         raise MXNetError("unknown initializer %r" % name)
     return klass(**kwargs)
+
+
+class init:
+    """The initializers under one name (``mx.init.Xavier``), as the JAX
+    package's ``initializer.init`` namespace."""
+    Zero = Zero
+    One = One
+    Constant = Constant
+    Uniform = Uniform
+    Normal = Normal
+    Xavier = Xavier
+    MSRAPrelu = MSRAPrelu
+    Orthogonal = Orthogonal
+    Bilinear = Bilinear
+    LSTMBias = LSTMBias
+    FusedRNN = FusedRNN
+    Mixed = Mixed
+    Load = Load
+    Initializer = Initializer
+    InitDesc = InitDesc

@@ -280,13 +280,22 @@ PASSES = {
 
 
 def _pipeline_names(passes):
-    if isinstance(passes, str):
-        passes = passes.split(",")
-    names = tuple(str(p).strip() for p in passes if str(p).strip())
+    """The pass names of ``passes`` (a list or comma string), or of the
+    ``MXNET_IR_PASSES`` knob when it is None; an unknown name raises,
+    naming where it came from."""
+    if passes is None:
+        raw = config.get("MXNET_IR_PASSES")
+        names = tuple(p.strip() for p in str(raw).split(",") if p.strip())
+        source = "MXNET_IR_PASSES=%r" % raw
+    else:
+        if isinstance(passes, str):
+            passes = passes.split(",")
+        names = tuple(str(p).strip() for p in passes if str(p).strip())
+        source = "passes=%r" % (passes,)
     for name in names:
         if name not in PASSES:
-            raise MXNetError("passes=%r: unknown pass %r (registered: %s)"
-                             % (passes, name, sorted(PASSES)))
+            raise MXNetError("%s: unknown pass %r (registered: %s)"
+                             % (source, name, sorted(PASSES)))
     return names
 
 
@@ -294,7 +303,7 @@ class PassManager:
     """Compose registered passes; with ``data_shapes`` (``{input name:
     shape}``) a pass that changes the graph's output shapes raises."""
 
-    def __init__(self, passes, data_shapes=None):
+    def __init__(self, passes=None, data_shapes=None):
         self.names = _pipeline_names(passes)
         self.data_shapes = dict(data_shapes or {})
 
@@ -318,7 +327,8 @@ class PassManager:
         return symbol, provenance
 
 
-def apply_passes(symbol, passes, data_shapes=None):
+def apply_passes(symbol, passes=None, data_shapes=None):
     """Run a pass pipeline over ``symbol`` and return the rewritten
-    Symbol. ``passes`` is a name list or comma string."""
+    Symbol. ``passes`` is a name list or comma string (default: the
+    ``MXNET_IR_PASSES`` knob)."""
     return PassManager(passes, data_shapes).apply(symbol)[0]

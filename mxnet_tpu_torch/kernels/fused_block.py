@@ -31,7 +31,10 @@ does; a table entry that does not fit the shape counts a
 that does not fit raises (:func:`schedule_legal`, :func:`default_schedule`).
 The plain versions take the same schedule: output-channel blocks (B1),
 input-channel blocks (B3) and the pixel chunks' partial sums in chunk
-order (B2).
+order (B2). The JAX package's row-tile knob (``MXNET_TPU_FUSED_ROW_TILE``,
+``set_row_tile``) counts output rows of an image a Pallas grid tile, which
+no kernel here has: set, either raises by name (:func:`set_row_tile`),
+pointing to ``row_tile`` and the schedule table.
 
 The training half: :func:`conv_wgrad` is B2, the weight gradient with the
 forward's prologue recomputed on the x side and the next BatchNorm's
@@ -66,6 +69,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from .. import config
 from ..base import MXNetError
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -320,12 +324,35 @@ def schedule_legal(kind, x_shape, w_shape, stride, schedule, dtype, co2=0):
                    % (value, cdim, "tensor cores" if tc else "CUDA cores"))
 
 
+_ROW_TILE_MSG = (
+    "%s: the JAX package's row tile (output rows of an image a Pallas grid "
+    "tile) has no counterpart in the CUDA kernels; B2 takes row_tile (pixel "
+    "boxes a chunk) as a launch parameter, from schedule={'row_tile': n} or "
+    "the schedule table (mxnet_tpu_torch.tune)")
+
+
+def set_row_tile(v):
+    """The JAX package's module-wide row-tile setter: ``None`` (its
+    default) is accepted, any value raises (the tile it sets does not
+    exist here)."""
+    if v is not None:
+        raise MXNetError(_ROW_TILE_MSG % ("set_row_tile(%r)" % (v,)))
+
+
+def _refuse_row_tile_knob():
+    raw = config.get("MXNET_TPU_FUSED_ROW_TILE")
+    if raw not in (None, ""):
+        raise MXNetError(_ROW_TILE_MSG % ("MXNET_TPU_FUSED_ROW_TILE=%r"
+                                          % raw))
+
+
 def _resolve_schedule(kind, x_shape, w_shape, stride, dtype, device,
                       schedule, co2=0):
     """The schedule one call runs: an explicit ``schedule`` (which must be
     legal: an illegal one raises), else the table's entry for the key
     (illegal: a ``fallback_illegal`` is counted), else None (the kernels'
-    hand default)."""
+    hand default). ``MXNET_TPU_FUSED_ROW_TILE`` set raises."""
+    _refuse_row_tile_knob()
     if schedule is not None:
         ok, why = schedule_legal(kind, x_shape, w_shape, stride, schedule,
                                  dtype, co2)

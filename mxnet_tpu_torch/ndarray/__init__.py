@@ -10,7 +10,8 @@ import sys as _sys
 
 from . import register as _register
 from .ndarray import (NDArray, arange, array, concatenate, empty,  # noqa
-                      full, invoke, ones, waitall, zeros, zeros_like)
+                      full, imdecode, invoke, moveaxis, onehot_encode, ones,
+                      waitall, zeros, zeros_like)
 from .utils import load, save  # noqa: F401
 
 # the real sparse submodule first, so the op namespace lands on it

@@ -30,7 +30,8 @@ from ..context import Context, current_context
 from ..ops import registry as _reg
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
-           "concatenate", "waitall", "invoke"]
+           "concatenate", "waitall", "invoke", "moveaxis", "onehot_encode",
+           "imdecode"]
 
 _NP_TYPES = {torch.float32: np.float32, torch.float64: np.float64,
              torch.float16: np.float16, torch.uint8: np.uint8,
@@ -49,7 +50,8 @@ def _basic_key(key):
 class NDArray:
     """A multi-dimensional array on a device context."""
 
-    __slots__ = ("_t", "_ctx", "_grad", "_grad_req", "__weakref__")
+    __slots__ = ("_t", "_ctx", "_grad", "_grad_req", "_op_record",
+                 "__weakref__")
 
     # numpy defers binary ops to us
     __array_priority__ = 100.0
@@ -63,6 +65,7 @@ class NDArray:
             Context.from_device(tensor.device)
         self._grad = None
         self._grad_req = "null"
+        self._op_record = None   # (op, attrs, inputs, index) while recording
 
     # -- value access --------------------------------------------------------
     @property
@@ -187,6 +190,15 @@ class NDArray:
 
         return _sp.cast_storage(self, stype)
 
+    def as_np_ndarray(self):
+        """The array as numpy (``asnumpy``), as in the JAX package."""
+        return self.asnumpy()
+
+    @property
+    def handle(self):
+        """The array itself: code that passes ``.handle`` around works."""
+        return self
+
     # -- autograd ------------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
         """Make this array an autograd variable with a zero gradient
@@ -276,6 +288,31 @@ class NDArray:
             "depth": depth, "on_value": on_value, "off_value": off_value,
             "dtype": dtype})
 
+    def flip(self, axis):
+        return invoke("flip", [self], {"axis": axis})
+
+    def tile(self, reps):
+        return invoke("tile", [self], {"reps": reps})
+
+    def repeat(self, repeats, axis=None):
+        return invoke("repeat", [self], {"repeats": repeats, "axis": axis})
+
+    def pad(self, mode, pad_width, constant_value=0.0):
+        return invoke("pad", [self], {"mode": mode, "pad_width": pad_width,
+                                      "constant_value": constant_value})
+
+    def slice(self, begin, end, step=()):
+        return invoke("slice", [self], {"begin": begin, "end": end,
+                                        "step": step})
+
+    def slice_axis(self, axis, begin, end):
+        return invoke("slice_axis", [self], {"axis": axis, "begin": begin,
+                                             "end": end})
+
+    def pick(self, index, axis=-1, keepdims=False):
+        return invoke("pick", [self, index], {"axis": axis,
+                                              "keepdims": keepdims})
+
     # -- reductions ----------------------------------------------------------
     def _reduce(self, op, axis, keepdims):
         return invoke(op, [self], {"axis": axis, "keepdims": keepdims})
@@ -300,6 +337,21 @@ class NDArray:
 
     def argmin(self, axis=None, keepdims=False):
         return self._reduce("argmin", axis, keepdims)
+
+    def nansum(self, axis=None, keepdims=False):
+        return self._reduce("nansum", axis, keepdims)
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return invoke("argsort", [self], {"axis": axis,
+                                          "is_ascend": is_ascend})
+
+    def sort(self, axis=-1, is_ascend=True):
+        return invoke("sort", [self], {"axis": axis, "is_ascend": is_ascend})
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return invoke("topk", [self], {"axis": axis, "k": k,
+                                       "ret_typ": ret_typ,
+                                       "is_ascend": is_ascend})
 
     def norm(self, ord=2, axis=None, keepdims=False):
         return invoke("norm", [self], {"ord": ord, "axis": axis,
@@ -344,6 +396,12 @@ class NDArray:
 
     def ceil(self):
         return self._unary("ceil")
+
+    def rint(self):
+        return self._unary("rint")
+
+    def trunc(self):
+        return self._unary("trunc")
 
     def softmax(self, axis=-1):
         return invoke("softmax", [self], {"axis": axis})
@@ -521,6 +579,12 @@ def invoke(op, inputs, attrs, out=None, ctx=None):
                     o._t.copy_(r)
         return outs[0] if len(outs) == 1 else outs
     outputs = [NDArray(r, ctx) for r in results]
+    if _ag.is_recording():
+        # the recorded op, for autograd.get_symbol
+        rec_attrs = {k: v for k, v in parsed.items()
+                     if not k.startswith("__")}
+        for i, o in enumerate(outputs):
+            o._op_record = (op, rec_attrs, list(inputs), i)
     return outputs[0] if len(outputs) == 1 else outputs
 
 
@@ -627,6 +691,40 @@ def zeros_like(other):
 
 def concatenate(arrays, axis=0, always_copy=True):
     return invoke("Concat", list(arrays), {"dim": axis})
+
+
+def moveaxis(tensor, source, destination):
+    """``tensor`` with axis ``source`` moved to ``destination``."""
+    return NDArray(torch.movedim(tensor._t, source, destination).contiguous(),
+                   tensor._ctx)
+
+
+def onehot_encode(indices, out):
+    """Write the one-hot rows of ``indices`` (depth ``out.shape[1]``) into
+    ``out``; returns ``out``."""
+    res = invoke("one_hot", [indices], {"depth": out.shape[1]})
+    with torch.no_grad():
+        out._t.copy_(res._t.to(out._t.dtype))
+    return out
+
+
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,
+             mean=None):
+    """The legacy NDArray decoder: raises, as in the JAX package, pointing
+    to ``image``."""
+    raise MXNetError("imdecode: use mxnet_tpu_torch.image instead")
+
+
+def load(fname):
+    from .utils import load as _load
+
+    return _load(fname)
+
+
+def save(fname, data):
+    from .utils import save as _save
+
+    return _save(fname, data)
 
 
 def waitall():

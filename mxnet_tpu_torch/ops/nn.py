@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from .registry import register
+from .registry import alias, register
 
 
 def dp_group():
@@ -295,6 +295,10 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     shift = (beta.float() - mean.float() * inv * g.float()).to(data.dtype)
     out = data * scale.reshape(bshape) + shift.reshape(bshape)
     return out, mean.to(moving_mean.dtype), var.to(moving_var.dtype)
+
+
+# a reference graph may name the cuDNN BatchNorm; it is the same op
+alias("CuDNNBatchNorm", "BatchNorm")
 
 
 @register(name="LayerNorm", aliases=("layer_norm",), num_outputs=3,

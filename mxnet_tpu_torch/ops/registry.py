@@ -241,3 +241,11 @@ def get(name) -> OpDef:
 
 def list_ops():
     return sorted(set(_OPS) | set(_ALIASES))
+
+
+def exists(name) -> bool:
+    return name in _OPS or name in _ALIASES
+
+
+def canonical_name(name):
+    return _ALIASES.get(name, name)

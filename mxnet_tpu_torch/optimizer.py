@@ -17,7 +17,7 @@ random ops do.
 ``Updater`` owns the per-index states; ``get_states`` pickles the
 ``{index: numpy state}`` map as the JAX package does, and ``set_states``
 reads such bytes with a restricted unpickler that admits numpy arrays and
-plain containers only. Not ported: ``Test``.
+plain containers only.
 """
 from __future__ import annotations
 
@@ -467,8 +467,21 @@ class Nadam(Optimizer):
         weight -= lr * m_t_bar / (v_t_prime.sqrt() + self.epsilon)
 
 
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: ``weight += grad * rescale_grad``,
+    and the state holds the new weight."""
+
+    def create_state(self, index, weight):
+        return nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
+
+    def update(self, index, weight, grad, state):
+        weight += grad * self.rescale_grad
+        state[:] = weight
+
+
 _OPT_REGISTRY["ccsgd"] = SGD
-_UNPORTED = ("test",)
+ccSGD = SGD
 
 
 def create(name, **kwargs):
@@ -477,8 +490,6 @@ def create(name, **kwargs):
         return name
     klass = _OPT_REGISTRY.get(name.lower())
     if klass is None:
-        if name.lower() in _UNPORTED:
-            raise MXNetError("optimizer %r is not ported" % name)
         raise MXNetError("unknown optimizer %r" % name)
     return klass(**kwargs)
 

@@ -17,9 +17,11 @@ from .generate import (
     PagePoolExhausted,
     PrefixIndex,
 )
-from .predictor import AOTPredictor, ServingError
+from .predictor import (AOTPredictor, ServingError, env_batch_ladder,
+                        validate_ladder)
 
 __all__ = ["AOTPredictor", "DeadlineExceeded", "GenerateError",
            "GenerateServer", "GenerativePredictor", "ModelServer", "PagePool",
            "PagePoolExhausted", "PrefixIndex", "ServerClosed",
-           "ServerOverloaded", "ServingError"]
+           "ServerOverloaded", "ServingError", "env_batch_ladder",
+           "validate_ladder"]

@@ -82,6 +82,14 @@ class Symbol:
     def outputs(self):
         return self._entries
 
+    def get_children(self):
+        """The inputs of the first output's node as one Symbol (None for
+        a variable)."""
+        node = self._entries[0][0]
+        if not node.inputs:
+            return None
+        return Symbol(list(node.inputs))
+
     def get_internals(self):
         """Symbol grouping every output of every node, in topo order."""
         return Symbol([(node, i) for node in self._topo()
@@ -192,6 +200,48 @@ class Symbol:
                 out[node.name] = d
         return out
 
+    # -- composition ---------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        """Compose: a copy of the graph whose free variables are replaced,
+        positionally in variable order or by name (``net(x=other)``)."""
+        kwargs.pop("name", None)
+        variables = self._var_nodes()
+        if len(args) > len(variables):
+            raise MXNetError("too many positional args to compose")
+        mapping = {v.name: a for v, a in zip(variables, args)}
+        mapping.update(kwargs)
+        return self._substitute(mapping)
+
+    def _substitute(self, mapping):
+        """The graph rebuilt with each variable named in ``mapping``
+        replaced by that Symbol's first output entry (as the JAX
+        package's ``_substitute``, whose index rules it keeps)."""
+        memo = {}
+
+        def rebuild(node):
+            if id(node) in memo:
+                return memo[id(node)]
+            if node.is_variable():
+                ent = mapping[node.name]._entries[0] \
+                    if node.name in mapping else (node, 0)
+                memo[id(node)] = ent
+                return ent
+            new_inputs = []
+            for inp, idx in node.inputs:
+                rn, ri = rebuild(inp)
+                new_inputs.append((rn, idx if rn is inp else
+                                   (ri if idx == 0 else idx)))
+            new_node = _Node(node.op, node.attrs, new_inputs, node.name,
+                             dict(node.attr_dict), node._arity)
+            memo[id(node)] = (new_node, 0)
+            return memo[id(node)]
+
+        entries = []
+        for node, idx in self._entries:
+            rn, ri = rebuild(node)
+            entries.append((rn, idx if rn.n_outputs() > idx else ri))
+        return Symbol(entries)
+
     # -- inference -----------------------------------------------------------
     def infer_type(self, **kwargs):
         """``(arg_types, out_types, aux_types)`` from input dtypes given by
@@ -222,6 +272,32 @@ class Symbol:
         from ..executor import infer_graph_shapes
 
         return infer_graph_shapes(self, kwargs)
+
+    def infer_shape_partial(self, **kwargs):
+        """As :meth:`infer_shape`, the unresolved shapes given as None."""
+        from ..executor import infer_graph_shapes
+
+        return infer_graph_shapes(self, kwargs, partial=True)
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind the arrays in ``kwargs`` on ``ctx`` (the current context)
+        and run an inference forward; returns the outputs."""
+        from ..context import current_context
+
+        return self.bind(ctx or current_context(), kwargs).forward()
+
+    def gradient(self, wrt):
+        raise MXNetError("symbol.gradient: use bind().backward instead")
+
+    def debug_str(self):
+        """Every node of the graph, one a line: its op (or ``Variable``),
+        name and inputs."""
+        lines = []
+        for node in self._topo():
+            kind = "Variable" if node.is_variable() else node.op.name
+            lines.append("%s %s(%s)" % (kind, node.name, ", ".join(
+                i.name for i, _ in node.inputs)))
+        return "\n".join(lines)
 
     # -- serialization (reference JSON format) -------------------------------
     def tojson(self):

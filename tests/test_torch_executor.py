@@ -299,11 +299,10 @@ def test_multi_precision_sgd_matches_jax():
 
 def test_unknown_and_unported_optimizers_raise():
     # SGLD and DCASGD are ported (tests/test_torch_sparse.py holds them
-    # against the JAX package); Test is not
+    # against the JAX package), and so is Test (tests/test_torch_surface.py)
     assert type(mx.optimizer.create("sgld")).__name__ == "SGLD"
     assert type(mx.optimizer.create("dcasgd")).__name__ == "DCASGD"
-    with pytest.raises(MXNetError, match="'test' is not ported"):
-        mx.optimizer.create("test")
+    assert type(mx.optimizer.create("test")).__name__ == "Test"
     with pytest.raises(MXNetError, match="unknown optimizer"):
         mx.optimizer.create("nope")
 

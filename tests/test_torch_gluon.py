@@ -23,6 +23,8 @@ predict mode, and Dropout's training statistics are checked on their own.
   single-host server tier;
 - the ``DataLoader``'s and samplers' order, ``split_data``,
   ``clip_global_norm``, ``download``;
+- ``rnn``, ``contrib.rnn`` and ``data.vision`` resolve to the port's own
+  classes (their parity is in ``tests/test_torch_rnn_gluon.py``);
 - the scenario of ``tests/test_convergence.py``'s
   ``test_gluon_hybrid_conv_converges`` on the port.
 
@@ -704,10 +706,17 @@ def test_check_sha1_and_download(tmp_path):
 
 
 def test_unported_submodules_raise_by_name():
-    for mod, attr in ((tgluon.rnn, "LSTM"), (tgluon.contrib, "rnn"),
-                      (tgluon.data.vision, "MNIST")):
-        with pytest.raises(MXNetError, match="item 9, second part"):
-            getattr(mod, attr)
+    """The submodules this file once pinned as raising by name are ported:
+    each name resolves to the port's own class."""
+    from mxnet_tpu_torch.gluon.contrib import rnn as contrib_rnn
+    from mxnet_tpu_torch.gluon.data.vision.datasets import MNIST
+    from mxnet_tpu_torch.gluon.rnn.rnn_layer import LSTM
+
+    assert tgluon.rnn.LSTM is LSTM
+    assert tgluon.contrib.rnn is contrib_rnn
+    assert tgluon.contrib.rnn.Conv2DLSTMCell.__module__ == \
+        "mxnet_tpu_torch.gluon.contrib.rnn.conv_rnn_cell"
+    assert tgluon.data.vision.MNIST is MNIST
 
 
 # ---------------------------------------------------------------------------

@@ -555,7 +555,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.embedding.sharding, mxnet_tpu_torch.gluon, "
             "mxnet_tpu_torch.gluon.model_zoo.vision, "
             "mxnet_tpu_torch.gluon.data.dataloader, "
-            "mxnet_tpu_torch.embedding.block\n"
+            "mxnet_tpu_torch.embedding.block, mxnet_tpu_torch.gluon.rnn, "
+            "mxnet_tpu_torch.gluon.contrib.rnn, "
+            "mxnet_tpu_torch.gluon.data.vision, "
+            "mxnet_tpu_torch.module.bucketing_module, "
+            "mxnet_tpu_torch.module.sequential_module, "
+            "mxnet_tpu_torch.module.python_module\n"
+            "assert all(hasattr(mxnet_tpu_torch, n) for n in ('profiler', "
+            "'ir', 'serving', 'embedding', 'kvstore_server', 'tracker', "
+            "'chaos', 'rnd', 'Executor', 'num_gpus', 'cpu_pinned'))\n"
+            "import torch\n"
+            "assert not torch.cuda.is_initialized()\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'mxnet_tpu.')) or m == 'mxnet_tpu']\n"
             "assert not bad, bad\n")

@@ -2,14 +2,19 @@
 spawned ranks, so it imports neither JAX nor ``mxnet_tpu``).
 
 ``start_ranks`` spawns ``world`` processes that join a gloo process group
-on the CPU at a free localhost port and each run one of the functions
+on the CPU and each run one of the functions
 below; ``join_ranks`` waits for them within a time limit of its own and
 returns each rank's result (``torch.save``d into a scratch directory). The
 parent can run the JAX reference in between. Every input is made from a
 numpy seed, so the parent makes the same ones.
+
+The ranks meet at a ``file://`` rendezvous: a file of a name no other
+group uses, in the test's own scratch directory. A TCP port picked free by
+the parent could be taken by another test process before the ranks bind
+it; a file under the test's directory cannot.
 """
+import itertools
 import os
-import socket
 import time
 
 import numpy as np
@@ -30,20 +35,25 @@ ZERO_STEPS = 5
 ZERO_SHAPES = {"data": (16, 33), "softmax_label": (16,)}
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+_RENDEZVOUS = itertools.count()
 
 
-def _entry(rank, fn_name, world, port, out_dir, args):
+def _rendezvous(out_dir):
+    """A ``file://`` init method at a fresh file under ``out_dir``."""
+    path = os.path.join(os.path.abspath(out_dir), "rendezvous-%d-%d"
+                        % (os.getpid(), next(_RENDEZVOUS)))
+    assert not os.path.exists(path), path
+    return "file://" + path
+
+
+def _entry(rank, fn_name, world, init_method, out_dir, args):
     import importlib
 
     import torch.distributed as dist
 
     torch.set_num_threads(2)
-    dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port,
-                            rank=rank, world_size=world)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                            world_size=world)
     module, _, name = fn_name.rpartition(":")
     fn = getattr(importlib.import_module(module), name) if module \
         else globals()[name]
@@ -59,7 +69,8 @@ def start_ranks(fn_name, world, out_dir, *args):
     function of this module or ``"module:function"`` of another."""
     import torch.multiprocessing as mp
 
-    return mp.start_processes(_entry, args=(fn_name, world, _free_port(),
+    return mp.start_processes(_entry, args=(fn_name, world,
+                                            _rendezvous(out_dir),
                                             str(out_dir), args),
                               nprocs=world, join=False, start_method="spawn")
 
