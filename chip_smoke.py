@@ -305,7 +305,25 @@ the kernels are built for sm_90a) and ``nvcc``. It
    other zoo family (resnet v2, vgg with BatchNorm, alexnet, squeezenet,
    mobilenet, densenet, inception v3 at 299) eager against hybridized;
    B1-B7 launch 0 times there;
-33. prints one JSON line describing each kernel, then the result line
+33. serves the fused ResNet-50 (bf16, ladder 1, 4, 16) from a fleet on
+   one host (``fleet_phase``): a port ``Tracker`` in the script's process
+   and 3 replica processes on cuda:0 (``python -m
+   mxnet_tpu_torch.serving.fleet replica``) behind a ``FleetRouter``: 16
+   routed requests of 1..4 images against an in-process bf16
+   ``AOTPredictor`` of the same checkpoint (``RESNET_LOGIT_TOL`` of the
+   largest output, top-1 >= ``RESNET_TOP1``); 16 closed-loop clients for
+   one window at 1 replica and one at 3 with a replica SIGKILLed midway
+   (images/s, p50/p99, and 0 failed); a rolling ``fleet_swap`` to the
+   seed-1 checkpoint under load (0 dropped, 0 errors, then the seed-1
+   outputs); a ``FleetAutoscaler`` over a stepped load low -> high -> low
+   whose actuator spawns and retires replica processes (peak >= 2, back to
+   1, 0 failed); a two-tenant QoS trace (the bulk tenant over its quota,
+   the latency tenant's p99 alone and beside it); one embedding lookup
+   replica over two in-process parameter servers, routed against its
+   in-process predictor. Each replica writes its B1 launches when it
+   stops: > 0 and a multiple of 52 for every replica that served and
+   stopped (the killed one cannot report);
+34. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -8757,6 +8775,640 @@ def rnn_phase(torch, np, fa, fb):
         raise RuntimeError("rnn: hand kernels launched %s" % (launches,))
     return launches
 
+# ---------------------------------------------------------------------------
+# the serving fleet on one host (fleet_phase)
+# ---------------------------------------------------------------------------
+# what a replica serves: the fused ResNet-50 in bf16 on the card; the CPU
+# rehearsal sets FLEET_MODEL = "mlp" (tools/bench_serve.py's build_model
+# shape), FLEET_DTYPE = "float32", CARD = "cpu" and FLEET_B1 = 0
+FLEET_MODEL, FLEET_DTYPE = "resnet50", "bfloat16"
+FLEET_MLP = dict(dim=16, hidden=32, layers=2, classes=4)
+FLEET_LADDER = (1, 4, 16)
+FLEET_REPLICAS = 3
+FLEET_B1 = B1_PER_FORWARD       # B1 launches a forward of a replica
+FLEET_PARITY = 16               # routed requests held against the predictor
+FLEET_MAX_IMAGES = 4            # images a request: 1..4
+FLEET_CLIENTS = 16              # closed-loop clients of a scaling window
+FLEET_WINDOW_S = 5.0            # each scaling window; the kill at its half
+FLEET_SWAP_CLIENTS = 8
+FLEET_VIEW_S = 0.5              # replicas publish, routers refresh
+FLEET_AUTOSCALE = dict(min_replicas=1, max_replicas=2, interval=0.5,
+                       up_load=2.0, down_load=0.5, hysteresis=2,
+                       cooldown=1.0)
+FLEET_HOLD_S = 2.0              # load held once the fleet scaled up
+FLEET_QOS_S = 3.0               # each QoS window
+FLEET_QOS = dict(bulk_clients=8, bulk_images=4, bulk_rate=20.0, burst=1.0)
+FLEET_LOOKUP = dict(users=100000, items=50000, dim=64,
+                    rows=(1, 3, 8, 16))
+FLEET_LOOKUP_TOL = 1e-4
+FLEET_BOOT_S = 240.0            # a replica's start (import, load, warm-up)
+
+# each replica process: the fleet entry point, then, at a graceful stop,
+# its launch counts (B5, B6, B7, B1, B2, B3, B1 on the CUDA cores) to the
+# file FLEET_LAUNCHES names. Nothing of this rides the replica's wire ops
+_FLEET_BOOT = (
+    "import os, sys\n"
+    "sys.path.insert(0, os.environ['FLEET_ROOT'])\n"
+    "from mxnet_tpu_torch.kernels import flash_attention as fa\n"
+    "from mxnet_tpu_torch.kernels import fused_block as fb\n"
+    "from mxnet_tpu_torch.serving import fleet\n"
+    "rc = fleet.main(sys.argv[1:])\n"
+    "counts = (fa.flash_attention.launches,\n"
+    "          fa.flash_attention_bwd_dq.launches,\n"
+    "          fa.flash_attention_bwd_dkv.launches, fb.conv_fwd.launches,\n"
+    "          fb.conv_wgrad.launches, fb.conv_dgrad.launches,\n"
+    "          fb.conv_fwd.core_route_launches)\n"
+    "with open(os.environ['FLEET_LAUNCHES'], 'w') as f:\n"
+    "    f.write(' '.join(str(n) for n in counts))\n"
+    "sys.exit(rc)\n")
+
+
+def _fleet_model(np, mx, seed):
+    """``(symbol, arg_params, aux_params, data shape)`` of the served
+    model, weights from ``seed`` (numpy)."""
+    if FLEET_MODEL == "resnet50":
+        from mxnet_tpu_torch.models import resnet
+
+        sym = resnet.get_symbol(fused=True, **RESNET)
+        one = (1,) + RESNET["image_shape"]
+        args, auxs = resnet.init_params(sym, one, seed=seed)
+        return sym, args, auxs, one
+    c = FLEET_MLP
+    net = mx.sym.var("data")
+    for i in range(c["layers"]):
+        net = mx.sym.Activation(mx.sym.FullyConnected(
+            data=net, num_hidden=c["hidden"], name="fc%d" % i),
+            act_type="relu")
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        data=net, num_hidden=c["classes"], name="head"), name="softmax")
+    one = (1, c["dim"])
+    arg_shapes, _, _ = net.infer_shape(data=one)
+    rng = np.random.RandomState(seed)
+    args = {n: (rng.randn(*sh) * 0.05).astype(np.float32)
+            for n, sh in zip(net.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    return net, args, {}, one
+
+
+class _FleetProcs:
+    """The replica processes of the phase: spawned on CARD, their logs
+    and launch files under ``tmp``; ``stop`` ends every one of them."""
+
+    def __init__(self, coord, prefix, shape, tmp):
+        self.coord, self.prefix, self.shape, self.tmp = \
+            coord, prefix, shape, tmp
+        self.procs, self.logs, self.killed = {}, [], set()
+
+    def spawn(self, rank):
+        host, port = self.coord.rsplit(":", 1)
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("DMLC_") and k != "MXNET_FAULT_SPEC"}
+        env.update(DMLC_ROLE="replica", DMLC_REPLICA_ID=str(rank),
+                   DMLC_PS_ROOT_URI=host, DMLC_PS_ROOT_PORT=port,
+                   MXNET_FLEET_VIEW_INTERVAL=str(FLEET_VIEW_S),
+                   FLEET_ROOT=ROOT,
+                   FLEET_LAUNCHES=os.path.join(self.tmp, "launches-%d"
+                                               % rank))
+        log = open(os.path.join(self.tmp, "replica-%d.log" % rank), "w")
+        self.logs.append(log)
+        self.procs[rank] = subprocess.Popen(
+            [sys.executable, "-c", _FLEET_BOOT, "replica", "--prefix",
+             self.prefix, "--epoch", "0", "--data-shape",
+             "data:" + ",".join(str(d) for d in self.shape), "--ladder",
+             ",".join(str(b) for b in FLEET_LADDER), "--dtype",
+             FLEET_DTYPE, "--device", CARD], env=env, cwd=ROOT,
+            stdout=log, stderr=subprocess.STDOUT)
+        return rank
+
+    def kill(self, rank):
+        import signal
+
+        self.procs[rank].send_signal(signal.SIGKILL)
+        self.killed.add(rank)
+
+    def tails(self):
+        out = []
+        for rank in sorted(self.procs):
+            path = os.path.join(self.tmp, "replica-%d.log" % rank)
+            with open(path) as f:
+                out.append("replica %d (rc %s): %s" % (
+                    rank, self.procs[rank].poll(), f.read()[-1500:]))
+        return "\n".join(out)
+
+    def launches(self):
+        """``{rank: (B5, B6, B7, B1, B2, B3, B1 on CUDA cores)}`` of every
+        replica that stopped gracefully."""
+        out = {}
+        for rank in sorted(self.procs):
+            path = os.path.join(self.tmp, "launches-%d" % rank)
+            if os.path.exists(path):
+                with open(path) as f:
+                    out[rank] = tuple(int(v) for v in f.read().split())
+        return out
+
+    def stop(self, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        for p in self.procs.values():
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                p.terminate()
+        for p in self.procs.values():
+            try:
+                p.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=15)
+        for log in self.logs:
+            log.close()
+
+
+def _fleet_serving(router):
+    router.refresh_view(force=True)
+    return sum(1 for _a, st, alive, _l in router.replicas()
+               if alive and st == "serving")
+
+
+def _fleet_wait(router, procs, want, seconds, what):
+    """Block until exactly ``want`` replicas serve; raises (with the
+    replicas' log tails) after ``seconds`` or when a live replica's
+    process died."""
+    deadline = time.monotonic() + seconds
+    while True:
+        n = _fleet_serving(router)
+        if n == want:
+            return n
+        dead = [r for r, p in procs.procs.items()
+                if p.poll() not in (None, 0) and r not in procs.killed]
+        if dead or time.monotonic() > deadline:
+            raise RuntimeError("fleet %s: %d replicas serving, want %d "
+                               "(dead: %s)\n%s" % (what, n, want, dead,
+                                                   procs.tails()))
+        time.sleep(0.2)
+
+
+def _fleet_images(np, shape, seed):
+    """One seeded batch a request size, 1..FLEET_MAX_IMAGES."""
+    rng = np.random.RandomState(seed)
+    return {n: rng.randn(n, *shape[1:]).astype(np.float32)
+            for n in range(1, FLEET_MAX_IMAGES + 1)}
+
+
+def _fleet_load(np, router, pool, clients, stop, seed, out, tenant=None,
+                sizes=None, quota=None):
+    """``clients`` closed-loop threads routing requests of 1..
+    FLEET_MAX_IMAGES images (or ``sizes``) until ``stop`` is set; each
+    appends (images, seconds) or an error to ``out``. A request the
+    tenant's quota refuses (``quota``, the typed error) is counted apart
+    and the client pauses 10 ms."""
+    import threading
+
+    def client(k):
+        rng = np.random.RandomState(seed + k)
+        while not stop.is_set():
+            n = int(sizes if sizes else rng.randint(1, FLEET_MAX_IMAGES + 1))
+            t0 = time.perf_counter()
+            try:
+                router.request("model", pool[n], tenant=tenant)
+            except Exception as e:
+                if quota is not None and isinstance(e, quota):
+                    out["quota"] += 1
+                    time.sleep(0.01)
+                    continue
+                out["errors"].append("%s: %s" % (type(e).__name__, e))
+                continue
+            out["done"].append((n, time.perf_counter() - t0))
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _fleet_new_out():
+    return {"done": [], "errors": [], "quota": 0}
+
+
+def _fleet_summary(out, seconds):
+    lat = sorted(s for _n, s in out["done"])
+    images = sum(n for n, _s in out["done"])
+    return {"requests": len(lat), "images": images,
+            "images_s": images / seconds,
+            "p50_ms": _pctl(lat, 0.50) * 1e3 if lat else float("nan"),
+            "p99_ms": _pctl(lat, 0.99) * 1e3 if lat else float("nan"),
+            "errors": len(out["errors"]), "quota": out["quota"]}
+
+
+def _fleet_window(np, router, pool, seconds, seed, kill=None):
+    """One closed-loop window of FLEET_CLIENTS clients; ``kill()`` runs at
+    its half. Returns the clients' summary and the router's counters."""
+    import threading
+
+    from mxnet_tpu_torch import profiler
+
+    profiler.fleet_reset()
+    stop, out = threading.Event(), _fleet_new_out()
+    t0 = time.perf_counter()
+    threads = _fleet_load(np, router, pool, FLEET_CLIENTS, stop, seed, out)
+    if kill is not None:
+        time.sleep(seconds / 2)
+        kill()
+        time.sleep(seconds / 2)
+    else:
+        time.sleep(seconds)
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    wall = time.perf_counter() - t0
+    return _fleet_summary(out, wall), profiler.fleet_stats(), out
+
+
+def _fleet_parity(np, router, pred, pool_seed, shape, label):
+    """FLEET_PARITY routed requests of 1..FLEET_MAX_IMAGES seeded images
+    against ``pred`` (the in-process predictor of the same weights):
+    ``(max |diff|, largest |output|, top-1 agreement, images)``."""
+    rng = np.random.RandomState(pool_seed)
+    errs, scale, agree, total = [], 0.0, 0, 0
+    for i in range(FLEET_PARITY):
+        n = int(rng.randint(1, FLEET_MAX_IMAGES + 1))
+        x = rng.randn(n, *shape[1:]).astype(np.float32)
+        got = router.request("model", x)[0]
+        ref = pred.predict(x)[0]
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise RuntimeError("fleet %s request %d: output %s, want %s"
+                               % (label, i, got.shape, ref.shape))
+        errs.append(float(np.abs(got - ref).max()))
+        scale = max(scale, float(np.abs(ref).max()))
+        agree += int((got.argmax(-1) == ref.argmax(-1)).sum())
+        total += n
+    return max(errs), scale, agree / total, total
+
+
+def fleet_phase(torch, np, fa, fb):
+    """The serving fleet on one host (docstring item 33). Returns the
+    launches of B5, B6, B7, B1, B2, B3 summed over the replicas that
+    stopped gracefully (the killed one cannot report)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.embedding import (EmbeddingLookupServer,
+                                           ShardedEmbeddingTable)
+    from mxnet_tpu_torch.kvstore_server import KVStoreServer, ServerKVStore
+    from mxnet_tpu_torch.serving import (AOTPredictor, FleetAutoscaler,
+                                         FleetRouter, QosPolicy,
+                                         TenantQuotaExceeded)
+    from mxnet_tpu_torch.tracker import Tracker
+
+    _free(torch)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fleet_")
+    cpu = mx.cpu()
+    prefixes, weights = [], []
+    for seed in (0, 1):
+        sym, args, auxs, shape = _fleet_model(np, mx, seed)
+        prefix = os.path.join(tmp, "v%d" % seed)
+        mx.model.save_checkpoint(
+            prefix, 0, sym, {k: mx.nd.array(v, ctx=cpu)
+                             for k, v in args.items()},
+            {k: mx.nd.array(v, ctx=cpu) for k, v in auxs.items()})
+        prefixes.append(prefix)
+        weights.append((args, auxs))
+    t_ckpt = time.perf_counter() - t_phase
+    cores = len(os.sched_getaffinity(0)) \
+        if hasattr(os, "sched_getaffinity") else os.cpu_count()
+    trk = Tracker(num_workers=0, num_servers=0, heartbeat_timeout=10.0)
+    trk.serve_in_background()
+    procs = _FleetProcs(trk.addr, prefixes[0], shape, tmp)
+    router = scaler = lookup = None
+    kv, servers = None, []
+    stops = []
+    report = {}
+    try:
+        t0 = time.perf_counter()
+        for rank in range(FLEET_REPLICAS):
+            procs.spawn(rank)
+        # the in-process predictor of the same checkpoint, meanwhile
+        pred = AOTPredictor(sym, weights[0][0], weights[0][1],
+                            data_shapes={"data": shape},
+                            ladder=FLEET_LADDER, dtype=FLEET_DTYPE,
+                            device=CARD)
+        pred.predict(np.zeros(shape, np.float32))
+        router = FleetRouter(tracker_uri=trk.addr, view_interval=FLEET_VIEW_S,
+                             timeout=60.0)
+        _fleet_wait(router, procs, FLEET_REPLICAS, FLEET_BOOT_S, "boot")
+        report["boot_s"] = time.perf_counter() - t0
+        pool = _fleet_images(np, shape, 5)
+        # every bucket of every replica once before anything is timed
+        for addr, _st, _al, _ld in router.replicas():
+            with FleetRouter(replicas=[addr], view_interval=FLEET_VIEW_S,
+                             timeout=60.0) as one:
+                for b in FLEET_LADDER[1:]:
+                    one.request("model", np.repeat(pool[1], b, axis=0))
+        report["parity"] = _fleet_parity(np, router, pred, 11, shape,
+                                         "parity")
+
+        # scaling: a window at 1 replica (the others drained), then one
+        # at 3 with the highest rank SIGKILLed at its half
+        with router._view_lock:
+            by_rank = {h.rank: h.addr for h in router._handles.values()}
+        for rank in range(1, FLEET_REPLICAS):
+            router.drain(by_rank[rank])
+        _fleet_wait(router, procs, 1, 30.0, "drain")
+        report["one"] = _fleet_window(np, router, pool, FLEET_WINDOW_S, 100)
+        for rank in range(1, FLEET_REPLICAS):
+            router.resume(by_rank[rank])
+        _fleet_wait(router, procs, FLEET_REPLICAS, 30.0, "resume")
+        victim = FLEET_REPLICAS - 1
+        report["three"] = _fleet_window(
+            np, router, pool, FLEET_WINDOW_S, 200,
+            kill=lambda: procs.kill(victim))
+        _fleet_wait(router, procs, FLEET_REPLICAS - 1, 30.0, "after kill")
+
+        # rolling swap to the seed-1 checkpoint under load
+        profiler.fleet_reset()
+        stop, out = threading.Event(), _fleet_new_out()
+        stops.append(stop)
+        threads = _fleet_load(np, router, pool, FLEET_SWAP_CLIENTS, stop,
+                              300, out)
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        swapped = router.fleet_swap(prefix=prefixes[1], epoch=0)
+        swap_s = time.perf_counter() - t0
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        pred.swap_params(*weights[1])
+        report["swap"] = (swapped, swap_s, _fleet_summary(
+            out, swap_s + 1.0), profiler.fleet_stats(),
+            _fleet_parity(np, router, pred, 12, shape, "swap"))
+        del pred
+        _free(torch)
+
+        # autoscale: low (2 -> 1), high (1 -> 2, a spawned process), low
+        profiler.fleet_reset()
+        profiler.autoscale_reset()
+        directives = []
+
+        def actuate(d):
+            directives.append(dict(d))
+            live = [r for r, p in procs.procs.items()
+                    if p.poll() is None and r not in d["retired"]
+                    and r not in procs.killed]
+            while len(live) < d["desired"]:
+                live.append(procs.spawn(max(procs.procs) + 1))
+
+        scaler = FleetAutoscaler(tracker_uri=trk.addr, actuate_fn=actuate,
+                                 **FLEET_AUTOSCALE)
+        scaling = threading.Thread(target=scaler.run_forever, daemon=True)
+        t0 = time.perf_counter()
+        scaling.start()
+        _fleet_wait(router, procs, 1, 60.0, "autoscale low")
+        t_low = time.perf_counter() - t0
+        stop, out = threading.Event(), _fleet_new_out()
+        stops.append(stop)
+        threads = _fleet_load(np, router, pool, FLEET_CLIENTS, stop, 400,
+                              out)
+        t1 = time.perf_counter()
+        peak = _fleet_wait(router, procs, 2, FLEET_BOOT_S, "autoscale high")
+        t_high = time.perf_counter() - t1
+        time.sleep(FLEET_HOLD_S)
+        peak = max(peak, _fleet_serving(router))
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        high_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        final = _fleet_wait(router, procs, 1, 60.0, "autoscale low again")
+        t_back = time.perf_counter() - t2
+        scaler.close()
+        scaling.join(timeout=30)
+        scaler = None
+        report["autoscale"] = (t_low, t_high, t_back, peak, final,
+                               directives, profiler.autoscale_stats(),
+                               _fleet_summary(out, high_s),
+                               profiler.fleet_stats())
+
+        # QoS: the latency tenant alone, then beside an over-quota bulk
+        # tenant, on the 1-replica fleet
+        qos = QosPolicy(tenants={
+            "lat": {"priority": "latency"},
+            "bulk": {"priority": "bulk",
+                     "req_rate": FLEET_QOS["bulk_rate"]}},
+            burst_seconds=FLEET_QOS["burst"])
+        qrouter = FleetRouter(tracker_uri=trk.addr,
+                              view_interval=FLEET_VIEW_S, timeout=60.0,
+                              qos=qos)
+        try:
+            qos_runs = []
+            for with_bulk in (False, True):
+                profiler.qos_reset()
+                stop = threading.Event()
+                stops.append(stop)
+                lat_out, bulk_out = _fleet_new_out(), _fleet_new_out()
+                threads = _fleet_load(np, qrouter, pool, 1, stop, 500,
+                                      lat_out, tenant="lat", sizes=1)
+                if with_bulk:
+                    threads += _fleet_load(
+                        np, qrouter, pool, FLEET_QOS["bulk_clients"], stop,
+                        600, bulk_out, tenant="bulk",
+                        sizes=FLEET_QOS["bulk_images"],
+                        quota=TenantQuotaExceeded)
+                time.sleep(FLEET_QOS_S)
+                stop.set()
+                for t in threads:
+                    t.join(timeout=120)
+                qos_runs.append((_fleet_summary(lat_out, FLEET_QOS_S),
+                                 _fleet_summary(bulk_out, FLEET_QOS_S),
+                                 profiler.qos_stats()))
+        finally:
+            qrouter.close()
+        report["qos"] = qos_runs
+
+        # one lookup replica over two parameter servers on the card
+        c = FLEET_LOOKUP
+        servers = [KVStoreServer(device=CARD) for _ in range(2)]
+        for srv in servers:
+            srv.serve_in_background()
+        kv = ServerKVStore(",".join(srv.addr for srv in servers))
+        rng = np.random.RandomState(21)
+        tables = {}
+        for key, rows in (("user", c["users"]), ("item", c["items"])):
+            tables[key] = ShardedEmbeddingTable(key, kv, rows, c["dim"])
+            tables[key].init(init_array=rng.randn(rows, c["dim"])
+                             .astype(np.float32))
+        tsym = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=1,
+                                     name="tower")
+        tower = AOTPredictor(
+            tsym, {"tower_weight": rng.randn(1, 2 * c["dim"])
+                   .astype(np.float32) / np.sqrt(2 * c["dim"]),
+                   "tower_bias": np.zeros((1,), np.float32)},
+            data_shapes={"data": (1, 2 * c["dim"])}, ladder=FLEET_LADDER,
+            device=CARD)
+        lookup = EmbeddingLookupServer("rec", tables, tower,
+                                       tracker_uri=trk.addr)
+        lookup.serve_in_background()
+        router.refresh_view(force=True)
+        lookup_err, lookup_scale = 0.0, 0.0
+        for n in c["rows"]:
+            req = {"user": rng.randint(0, c["users"], n),
+                   "item": rng.randint(0, c["items"], n)}
+            got = router.request("rec", req)[0]
+            ref = lookup.predictor.predict(req)[0]
+            lookup_err = max(lookup_err, float(np.abs(got - ref).max()))
+            lookup_scale = max(lookup_scale, float(np.abs(ref).max()))
+        report["lookup"] = (lookup_err, lookup_scale, len(c["rows"]))
+    except Exception:
+        print(procs.tails())
+        raise
+    finally:
+        for stop in stops:
+            stop.set()
+        if scaler is not None:
+            scaler.close()
+        stopped = 0
+        if router is not None:
+            try:
+                stopped = router.stop_fleet()
+            finally:
+                router.close()
+        procs.stop()
+        if lookup is not None:
+            lookup.shutdown()
+        if kv is not None:
+            kv.close()
+        for srv in servers:
+            srv.shutdown()
+        trk.shutdown()
+    launches = procs.launches()
+    shutil.rmtree(tmp, ignore_errors=True)
+    _free(torch)
+
+    err, scale, top1, n_img = report["parity"]
+    print("fleet: %d replica processes of the %s (%s, ladder %s) on %s, up "
+          "in %.1f s (checkpoints written in %.1f s); host cores %d"
+          % (FLEET_REPLICAS, "fused ResNet-50" if FLEET_MODEL == "resnet50"
+             else "MLP", FLEET_DTYPE, FLEET_LADDER, CARD,
+             report["boot_s"], t_ckpt, cores))
+    print("fleet parity: %d routed requests (%d images) vs the in-process "
+          "%s AOTPredictor of the checkpoint: max |diff| %.4g, largest "
+          "|output| %.4g, relative %.4g (tol %g), top-1 agreement %.3f "
+          "(want >= %g)" % (FLEET_PARITY, n_img, FLEET_DTYPE, err, scale,
+                            err / scale, RESNET_LOGIT_TOL, top1,
+                            RESNET_TOP1))
+    for key, label in (("one", "1 replica"),
+                       ("three", "%d replicas, rank %d SIGKILLed at %.1f s"
+                        % (FLEET_REPLICAS, FLEET_REPLICAS - 1,
+                           FLEET_WINDOW_S / 2))):
+        summ, stats, _out = report[key]
+        print("fleet window (%s): %d clients, %d requests, %d images in "
+              "%.1f s = %.1f images/s; latency p50 %.1f ms p99 %.1f ms; "
+              "failed %d (client errors %d), retried %d, failovers %d, "
+              "inflight_lost %d, shed %d"
+              % (label, FLEET_CLIENTS, summ["requests"], summ["images"],
+                 FLEET_WINDOW_S, summ["images_s"], summ["p50_ms"],
+                 summ["p99_ms"], stats.get("failed", 0), summ["errors"],
+                 stats.get("retries", 0), stats.get("failovers", 0),
+                 stats.get("inflight_lost", 0),
+                 stats.get("overload_rejections", 0)))
+    swapped, swap_s, swap_sum, swap_stats, swap_par = report["swap"]
+    print("fleet swap: fleet_swap to the seed-1 checkpoint under %d "
+          "clients: %d replicas in %.2f s; %d requests served, %d dropped, "
+          "failed %d, retried %d, draining rejections %d; after it %d "
+          "routed requests vs the seed-1 predictor: relative %.4g, top-1 "
+          "%.3f" % (FLEET_SWAP_CLIENTS, swapped, swap_s,
+                    swap_sum["requests"], swap_sum["errors"],
+                    swap_stats.get("failed", 0),
+                    swap_stats.get("retries", 0),
+                    swap_stats.get("draining_rejections", 0),
+                    FLEET_PARITY, swap_par[0] / swap_par[1], swap_par[2]))
+    (t_low, t_high, t_back, peak, final, directives, as_stats, as_sum,
+     as_fleet) = report["autoscale"]
+    print("fleet autoscale: %s; low -> %d replica in %.1f s, high (%d "
+          "clients) -> %d in %.1f s (a replica process spawned and "
+          "booted), low again -> %d in %.1f s; directives %s; %s; under "
+          "load %d requests, %.1f images/s, p99 %.1f ms, failed %d "
+          "(client errors %d)"
+          % (FLEET_AUTOSCALE, 1, t_low, FLEET_CLIENTS, peak, t_high, final,
+             t_back, [(d["desired"], d["retired"]) for d in directives],
+             as_stats, as_sum["requests"], as_sum["images_s"],
+             as_sum["p99_ms"], as_fleet.get("failed", 0), as_sum["errors"]))
+    (lat_alone, _b0, _q0), (lat_mixed, bulk, qstats) = report["qos"]
+    print("fleet qos: latency tenant alone %d requests, p50 %.1f ms p99 "
+          "%.1f ms; beside the bulk tenant (%d clients of %d images, "
+          "req_rate %g/s) p50 %.1f ms p99 %.1f ms; bulk admitted %d "
+          "(served %d), quota rejections %d (client side %d); qosStats %s"
+          % (lat_alone["requests"], lat_alone["p50_ms"],
+             lat_alone["p99_ms"], FLEET_QOS["bulk_clients"],
+             FLEET_QOS["bulk_images"], FLEET_QOS["bulk_rate"],
+             lat_mixed["p50_ms"], lat_mixed["p99_ms"],
+             qstats.get("bulk", {}).get("admitted", 0), bulk["requests"],
+             qstats.get("bulk", {}).get("quota_rejections", 0),
+             bulk["quota"], qstats))
+    l_err, l_scale, l_n = report["lookup"]
+    print("fleet lookup: one lookup replica (user %d x %d, item %d x %d on "
+          "2 parameter servers on %s, a %d -> 1 tower) routed %d requests "
+          "vs its in-process predictor: max |diff| %.3g, largest %.3g "
+          "(tol %g)" % (FLEET_LOOKUP["users"], FLEET_LOOKUP["dim"],
+                        FLEET_LOOKUP["items"], FLEET_LOOKUP["dim"], CARD,
+                        2 * FLEET_LOOKUP["dim"], l_n, l_err, l_scale,
+                        FLEET_LOOKUP_TOL))
+    print("fleet launches (B5, B6, B7, B1, B2, B3, B1 on CUDA cores) per "
+          "replica that stopped gracefully: %s; killed %s; %d stopped by "
+          "stop_fleet" % (launches, sorted(procs.killed), stopped))
+    print("fleet phase: %.1f s" % (time.perf_counter() - t_phase))
+
+    if err > RESNET_LOGIT_TOL * scale or top1 < RESNET_TOP1:
+        raise RuntimeError("fleet: routed outputs differ from the predictor")
+    for key in ("one", "three"):
+        summ, stats, out = report[key]
+        if stats.get("failed", 0) or summ["errors"] or not summ["requests"]:
+            raise RuntimeError("fleet window %s: failed %s, errors %s"
+                               % (key, stats.get("failed"),
+                                  out["errors"][:3]))
+    if swapped != FLEET_REPLICAS - 1 or swap_sum["errors"] or \
+            swap_stats.get("failed", 0) or \
+            swap_par[0] > RESNET_LOGIT_TOL * swap_par[1] or \
+            swap_par[2] < RESNET_TOP1:
+        raise RuntimeError("fleet swap: swapped %d, dropped %d, failed %s, "
+                           "relative %.4g" % (swapped, swap_sum["errors"],
+                                              swap_stats.get("failed"),
+                                              swap_par[0] / swap_par[1]))
+    if peak < 2 or final != 1 or as_fleet.get("failed", 0) or \
+            as_sum["errors"] or not as_stats.get("scale_ups"):
+        raise RuntimeError("fleet autoscale: peak %d, final %d, failed %s, "
+                           "errors %d, stats %s" % (
+                               peak, final, as_fleet.get("failed"),
+                               as_sum["errors"], as_stats))
+    bulk_stats = qstats.get("bulk", {})
+    cap = FLEET_QOS["bulk_rate"] * (FLEET_QOS_S + FLEET_QOS["burst"]) + 1
+    if not bulk_stats.get("quota_rejections") or \
+            bulk_stats.get("admitted", 0) > cap or lat_mixed["errors"] or \
+            lat_alone["errors"] or bulk["errors"]:
+        raise RuntimeError("fleet qos: bulk %s (cap %d), errors %d/%d/%d"
+                           % (bulk_stats, cap, lat_alone["errors"],
+                              lat_mixed["errors"], bulk["errors"]))
+    if l_err > FLEET_LOOKUP_TOL * max(1.0, l_scale):
+        raise RuntimeError("fleet lookup: routed scores differ by %g"
+                           % l_err)
+    expect = set(procs.procs) - procs.killed
+    if set(launches) != expect:
+        raise RuntimeError("fleet: launch counts from %s, want %s"
+                           % (sorted(launches), sorted(expect)))
+    for rank, n in launches.items():
+        b1 = n[3]
+        if n[6] or any(n[i] for i in (0, 1, 2, 4, 5)) or \
+                (b1 % FLEET_B1 if FLEET_B1 else b1) or \
+                (FLEET_B1 and not b1):
+            raise RuntimeError("fleet: replica %d launches %s (want B1 > 0, "
+                               "a multiple of %d, nothing else)"
+                               % (rank, n, FLEET_B1))
+    return tuple(sum(n[i] for n in launches.values()) for i in range(6))
+
 
 def main():
     import torch
@@ -8885,6 +9537,9 @@ def main():
     rnn_launches = phase("rnn", rnn_phase, torch, np, fa, fb)
     for entry, n in zip([fwd, *bwd, conv, *grads], rnn_launches):
         entry["rnn_launches"] = n
+    fleet_launches = phase("fleet", fleet_phase, torch, np, fa, fb)
+    for entry, n in zip([fwd, *bwd, conv, *grads], fleet_launches):
+        entry["fleet_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; shared-prefix serving (cache on) "
           "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "
@@ -8903,7 +9558,8 @@ def main():
           "steps B5 %d, B6 %d, B7 %d; MoE serving B5 %d; MoE mp=2 loss and "
           "gradient B5, B6, B7 on each rank %s; Gluon ResNet-50 and zoo "
           "B5-B7 and B1-B3 %s; recurrent paths (bucketed LM, Gluon LSTM "
-          "LM, ConvLSTM) B5-B7 and B1-B3 %s"
+          "LM, ConvLSTM) B5-B7 and B1-B3 %s; serving fleet (replicas that "
+          "stopped gracefully) B5-B7 and B1-B3 %s"
           % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
              SPEC_TRACE["k"], fwd["spec_launches"], conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
@@ -8920,7 +9576,8 @@ def main():
              ", ".join("%d" % n for n in embed), MOE_STEPS, *moe_train,
              moe_serve, " / ".join("%d, %d, %d" % tuple(r) for r in moe_mp),
              ", ".join("%d" % n for n in gluon_launches),
-             ", ".join("%d" % n for n in rnn_launches)))
+             ", ".join("%d" % n for n in rnn_launches),
+             ", ".join("%d" % n for n in fleet_launches)))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

@@ -22,6 +22,29 @@ crash or stall at ``req=N``; ``rpc``/``router`` drop with ``p``/``seed``,
 
 Wired in the port:
 
+``replica:R:crash@req=N``  /  ``replica:R:stall@req=N``
+    Serving-fleet faults, counted in ADMITTED requests of the replica
+    whose rank is R (``DMLC_REPLICA_ID``; ``role`` is ``DMLC_ROLE``).
+    ``crash`` hard-exits (``os._exit(137)``, the SIGKILL status: no atexit
+    hook, no ``done``) at the N-th admitted request, once per incarnation
+    (``restart`` gating defaults to 0). ``stall`` wedges request serving
+    from the N-th request on (sockets and heartbeats stay open), the
+    wedged-but-alive replica only the router's per-attempt deadline
+    catches; it defaults to ``restart=any``.
+
+``router:drop@[p=P,seed=S|n=N][,phase=send|reply]``
+    Connection drop on a router-to-replica forward: ``send`` before the
+    request leaves (never sent: retried anywhere), ``reply`` after it was
+    delivered (an in-flight loss: retried only when idempotent).
+
+``autoscaler:crash@tick=N``
+    The autoscale controller hard-exits at its N-th control tick (the
+    fail-static contract: the fleet keeps serving at its current size).
+
+``heartbeat:stall@after=N``
+    The tracker client stops beating after its N-th beat while its
+    sockets stay open (the wedged process the heartbeat timeout catches).
+
 ``generate:stall@req=N``
     The N-th ADMITTED generate request never emits EOS — the
     wedged-generation simulation: the request's EOS check is suppressed
@@ -31,12 +54,12 @@ Wired in the port:
     requests queued behind it. Fires once (``restart`` gating defaults
     to ``any``: the serving loop has no incarnations).
 
-Every other target's hook (worker, server, replica, rpc, router,
-heartbeat, autoscaler) is not ported yet: a spec naming one parses, and
-then :func:`engine` raises by name, because a chaos harness that silently
-does nothing would certify recovery paths that were never exercised. For
-the same reason a malformed spec raises :class:`FaultSpecError` at parse
-time.
+The training plane's targets (``worker``, ``server``, ``rpc``) belong to
+the distributed training tier, which is not ported yet: a spec naming one
+parses, and then :func:`engine` raises by name, because a chaos harness
+that silently does nothing would certify recovery paths that were never
+exercised. For the same reason a malformed spec raises
+:class:`FaultSpecError` at parse time.
 """
 from __future__ import annotations
 
@@ -57,7 +80,8 @@ _ACTIONS = {"worker": ("crash", "nan", "preempt"),
             "generate": ("stall",),
             "autoscaler": ("crash",)}
 # targets whose hook the port has
-_WIRED = ("generate",)
+_WIRED = ("generate", "replica", "router", "autoscaler", "heartbeat")
+_EXIT_CODE = 137  # SIGKILL'd processes report 128+9; crash mimics that
 
 
 class FaultSpecError(ValueError):
@@ -213,11 +237,12 @@ def parse_spec(text):
 
 
 class ChaosEngine:
-    """One process's view of the fault spec: its restart count
-    (incarnation) and its count of admitted generate requests; fires the
-    matching rules. A rule whose target has no hook in the port raises."""
+    """One process's view of the fault spec: its role, rank and
+    incarnation (restart count), its counts of admitted requests, beats
+    and control ticks; fires the matching rules. A rule whose target has
+    no hook in the port raises."""
 
-    def __init__(self, spec, restart=None):
+    def __init__(self, spec, role=None, rank=None, restart=None):
         self.rules = parse_spec(spec)
         for rule in self.rules:
             if rule.target not in _WIRED:
@@ -225,10 +250,64 @@ class ChaosEngine:
                     "MXNET_FAULT_SPEC rule %r: the %s hook is not ported "
                     "yet (ROADMAP.md Queue A item 10)"
                     % (rule.text, rule.target))
+        self.role = role if role is not None else \
+            os.environ.get("DMLC_ROLE", "worker").lower()
+        if rank is None:
+            if self.role == "server":
+                rank = os.environ.get("DMLC_SERVER_ID", "0")
+            elif self.role == "replica":
+                rank = os.environ.get("DMLC_REPLICA_ID", "0")
+            else:
+                rank = (os.environ.get("DMLC_WORKER_ID")
+                        or os.environ.get("DMLC_RANK")
+                        or os.environ.get("MXNET_TPU_WORKER_ID") or "0")
+        self.rank = int(rank or 0)
         if restart is None:
             restart = os.environ.get("DMLC_RESTART_COUNT", "0")
         self.restart = int(restart or 0)
+        self._step = 0
+        self._beats = 0
+        self._reqs = 0
         self._gen_reqs = 0
+        self._as_ticks = 0
+        self._exit = os._exit  # injectable for tests
+
+    def _crash(self, rule):
+        print("[chaos] injecting crash: rule %r fired at %s %d step %d "
+              "(restart %d)" % (rule.text, self.role, self.rank,
+                                self._step, self.restart),
+              file=sys.stderr, flush=True)
+        sys.stderr.flush()
+        self._exit(_EXIT_CODE)
+
+    def replica_request(self):
+        """Count one admitted serving request; fire matching replica
+        rules. Returns ``"stall"`` when the handler must wedge (serve
+        nothing, keep the socket open), None otherwise; a matching crash
+        rule never returns."""
+        self._reqs += 1
+        for rule in self.rules:
+            if (rule.target != "replica" or rule.rank != self.rank
+                    or self.role != "replica"):
+                continue
+            if rule.action == "crash" \
+                    and rule.restart_matches(self.restart) \
+                    and self._reqs == int(rule.params["req"]) \
+                    and not rule.fired:
+                rule.fired += 1
+                self._step = self._reqs  # the crash log names a "step"
+                self._crash(rule)
+            elif rule.action == "stall" \
+                    and rule.restart_matches(self.restart, default="any") \
+                    and self._reqs >= int(rule.params["req"]):
+                if not rule.fired:
+                    rule.fired += 1
+                    print("[chaos] wedging replica (stall): rule %r "
+                          "fired at replica %d request %d (restart %d)"
+                          % (rule.text, self.rank, self._reqs,
+                             self.restart), file=sys.stderr, flush=True)
+                return "stall"
+        return None
 
     def generate_request(self):
         """Count one admitted generate request; returns ``"stall"``
@@ -250,6 +329,48 @@ class ChaosEngine:
                       file=sys.stderr, flush=True)
                 return "stall"
         return None
+
+    def autoscaler_tick(self):
+        """Count one autoscaler control tick; a matching
+        ``autoscaler:crash@tick=N`` rule hard-exits the controller.
+        Role and rank free (``restart`` gating defaults to ``any``)."""
+        self._as_ticks += 1
+        for rule in self.rules:
+            if rule.target != "autoscaler" or rule.action != "crash":
+                continue
+            if not rule.restart_matches(self.restart, default="any"):
+                continue
+            if self._as_ticks == int(rule.params["tick"]) \
+                    and not rule.fired:
+                rule.fired += 1
+                self._step = self._as_ticks  # the crash log's "step"
+                self._crash(rule)
+
+    def router_drop(self, phase="send"):
+        """True when a matching router:drop rule fires for this
+        router-to-replica forward attempt."""
+        for rule in self.rules:
+            if rule.target != "router" or rule.action != "drop":
+                continue
+            if not rule.restart_matches(self.restart, default="any"):
+                continue
+            if rule.params.get("phase", "send") != phase:
+                continue
+            if rule.should_fire():
+                print("[chaos] dropping router forward (%s) per rule %r"
+                      % (phase, rule.text), file=sys.stderr, flush=True)
+                return True
+        return False
+
+    def heartbeat(self):
+        """True when the heartbeat should be suppressed (stall rule)."""
+        self._beats += 1
+        for rule in self.rules:
+            if (rule.target == "heartbeat" and rule.action == "stall"
+                    and rule.restart_matches(self.restart, default="any")
+                    and self._beats > int(rule.params["after"])):
+                return True
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -283,3 +404,35 @@ def generate_fault():
     emit EOS, None otherwise."""
     e = engine()
     return e.generate_request() if e is not None else None
+
+
+def replica_request_fault():
+    """Per-admitted-request replica hook (serving/fleet.py): returns
+    ``"stall"`` to wedge the handler, None otherwise; a matching crash
+    rule hard-exits the process."""
+    e = engine()
+    return e.replica_request() if e is not None else None
+
+
+def autoscaler_fault():
+    """Per-control-tick autoscaler hook (serving/autoscale.py): a
+    matching ``autoscaler:crash@tick=N`` rule hard-exits the controller
+    process and never returns."""
+    e = engine()
+    if e is not None:
+        e.autoscaler_tick()
+
+
+def router_fault(phase="send"):
+    """True when the router must drop this forward attempt (router:drop
+    rule; phase=send before the request leaves, reply after it was
+    delivered)."""
+    e = engine()
+    return e is not None and e.router_drop(phase=phase)
+
+
+def heartbeat_fault():
+    """True when the tracker client must skip this heartbeat
+    (heartbeat:stall@after=N)."""
+    e = engine()
+    return e is not None and e.heartbeat()

@@ -61,8 +61,9 @@ KNOBS = {
         "(serving/broker.py GenerateServer)"),
     "MXNET_FAULT_SPEC": (
         "", "deterministic fault injection rules (chaos.py grammar); the "
-        "port wires the generate:stall hook only, and a rule for another "
-        "target raises by name (chaos.py)"),
+        "port wires the generate, replica, router, autoscaler and "
+        "heartbeat hooks, and a rule for a training-plane target (worker, "
+        "server, rpc) raises by name (chaos.py)"),
     "MXNET_SERVE_QUANT": (
         "none", "default serving quantization mode when AOTPredictor "
         "quant=None: 'none' or 'int8' (int8 needs calib_data=; asking "
@@ -213,8 +214,83 @@ KNOBS = {
         "not ported, so 1 with more than one server raises "
         "(kvstore_server.py)"),
     "MXNET_MAX_RESTARTS": (
-        "0", "elastic respawn budget of a node; not ported, so a server or "
-        "its client raises when it is > 0 (kvstore_server.py)"),
+        "0", "elastic respawn budget of a node: > 0 switches the tracker's "
+        "barriers into elastic mode (tracker.py); the server tier's "
+        "elastic mode is not ported, so a server or its client raises when "
+        "it is > 0 (kvstore_server.py)"),
+    "MXNET_TRACKER_HEARTBEAT_INTERVAL": (
+        "2.0", "client heartbeat period in seconds; finite float > 0 "
+        "(tracker.py)"),
+    "MXNET_TRACKER_HEARTBEAT_TIMEOUT": (
+        "30.0", "scheduler-side beat-loss dead-node threshold in seconds; "
+        "finite float > 0 (tracker.py)"),
+    "MXNET_TRACKER_BARRIER_TIMEOUT": (
+        "120", "tracker barrier timeout in seconds; finite float > 0 "
+        "(tracker.py)"),
+    "MXNET_FLEET_RETRIES": (
+        "2", "router retry budget per request beyond the first attempt: "
+        "never-sent failures and admission rejections (draining, closed, "
+        "overloaded) retry on another replica, in-flight losses only for "
+        "idempotent requests; integer >= 0 (serving/fleet.py)"),
+    "MXNET_FLEET_TIMEOUT": (
+        "30", "per-request end-to-end budget in seconds across all router "
+        "attempts, also forwarded to the replica as its shed-at-dequeue "
+        "deadline; finite float > 0 (serving/fleet.py)"),
+    "MXNET_FLEET_BACKOFF": (
+        "0.05", "base exponential backoff in seconds between router "
+        "retries (doubles per attempt, capped at 1 s); finite float >= 0 "
+        "(serving/fleet.py)"),
+    "MXNET_FLEET_VIEW_INTERVAL": (
+        "2.0", "tracker-view refresh period in seconds: the router re-reads "
+        "the replicas' membership and load gauges, and each replica "
+        "re-publishes at the same cadence; finite float > 0 "
+        "(serving/fleet.py)"),
+    "MXNET_FLEET_CONNECT_DEADLINE": (
+        "5.0", "seconds the router spends connecting to one replica before "
+        "the attempt counts as never sent and fails over; finite float > 0 "
+        "(serving/fleet.py)"),
+    "MXNET_SERVE_DRAIN_TIMEOUT": (
+        "30", "seconds a draining replica waits for queued and in-flight "
+        "requests before the drain RPC errors (the rolling fleet_swap's "
+        "bound); finite float > 0 (serving/fleet.py)"),
+    "MXNET_FLEET_AUTOSCALE_INTERVAL": (
+        "1.0", "autoscaler control-tick period in seconds; finite float > 0 "
+        "(serving/autoscale.py)"),
+    "MXNET_FLEET_AUTOSCALE_MIN": (
+        "1", "floor on the fleet's desired replica count; integer >= 1, "
+        "at most _MAX (serving/autoscale.py)"),
+    "MXNET_FLEET_AUTOSCALE_MAX": (
+        "4", "ceiling on the fleet's desired replica count; integer >= 1 "
+        "(serving/autoscale.py)"),
+    "MXNET_FLEET_AUTOSCALE_UP_LOAD": (
+        "4.0", "mean queued + in-flight per serving replica at or above "
+        "which a tick votes scale-up; finite float > 0 "
+        "(serving/autoscale.py)"),
+    "MXNET_FLEET_AUTOSCALE_DOWN_LOAD": (
+        "0.5", "mean queued + in-flight per serving replica at or below "
+        "which a tick votes scale-down; float >= 0, below _UP_LOAD (the "
+        "gap is the anti-flap dead band) (serving/autoscale.py)"),
+    "MXNET_FLEET_AUTOSCALE_HYSTERESIS": (
+        "3", "consecutive agreeing ticks a scale decision needs; integer "
+        ">= 1 (serving/autoscale.py)"),
+    "MXNET_FLEET_AUTOSCALE_COOLDOWN": (
+        "5.0", "seconds after a scale action during which further actions "
+        "are held; float >= 0 (serving/autoscale.py)"),
+    "MXNET_FLEET_AUTOSCALE_SLO_MS": (
+        "0", "serving p99 SLO in milliseconds: a replica at or above it "
+        "makes the tick vote scale-up; 0 disables it; float >= 0 "
+        "(serving/autoscale.py)"),
+    "MXNET_QOS_TENANTS": (
+        "", "per-tenant QoS spec 'name[:k=v,...];...' with keys prio|"
+        "priority (latency|normal|bulk), req_rate (requests/s > 0) and "
+        "tok_rate (rows/s > 0); empty disables QoS; malformed raises "
+        "naming this knob (serving/qos.py)"),
+    "MXNET_QOS_DEFAULT_PRIORITY": (
+        "normal", "priority class of requests with no tenant label or an "
+        "unconfigured tenant: latency|normal|bulk (serving/qos.py)"),
+    "MXNET_QOS_BURST_SECONDS": (
+        "1.0", "token-bucket burst window: a tenant may burst rate x burst "
+        "units above its steady rate; finite float > 0 (serving/qos.py)"),
     "MXNET_PS_SERVER_URI": (
         "", "comma-separated server URIs: kvstore.create('dist_async') "
         "returns the ServerKVStore client of these servers (kvstore.py)"),

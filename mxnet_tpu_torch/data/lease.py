@@ -8,11 +8,10 @@ cursor (record index) each holder last committed, and which shards are
 finished for the current epoch. The book is **pure state** — no
 sockets, no threads, no clock of its own (callers pass ``now`` from
 ``time.monotonic()``) — so the exact same arithmetic runs embedded in
-the JAX package's tracker (its data ops, under the tracker's condition
-lock) and in-process behind :class:`LocalLeaseAuthority` for
-single-worker jobs, benches and tests. The tracker is not ported
-(ROADMAP.md Queue A item 10): here the book runs behind
-:class:`LocalLeaseAuthority` only.
+the job tracker (``tracker.Tracker``'s ``data_*`` ops, under the
+tracker's condition lock; the JAX package's tracker runs the same state
+machine) and in-process behind :class:`LocalLeaseAuthority` for
+single-worker jobs, benches and tests.
 
 Exactly-once-per-epoch contract:
 

@@ -5,10 +5,10 @@ The read path (:class:`ShardedRecordStream`) leases record-file shards
 from an authority — a :class:`~.lease.LocalLeaseAuthority` here, or any
 object with its ``data_*`` methods passed as ``lease_client`` — and
 streams decoded records with a per-record consumption ledger. The JAX
-package also leases from its job tracker when a launch.py topology is
-configured; the tracker is not ported (ROADMAP.md Queue A item 10), so
-a stream built without ``lease_client`` in an environment that names a
-tracker raises instead of carrying on with a local book.
+stream built without ``lease_client`` leases from the job tracker
+(``tracker.worker_client()``) when the environment names a launch.py
+topology, taking its rank and incarnation from that client, and from an
+in-process :class:`~.lease.LocalLeaseAuthority` otherwise.
 
 The ledger line is flushed **before** the cursor commit, and every lease
 acquisition reconciles its resume cursor against ``max(authority
@@ -42,7 +42,7 @@ import numpy as np
 
 from .. import recordio
 from ..base import MXNetError
-from ..tracker import tracker_env_spec
+from ..tracker import tracker_env_spec  # noqa: F401 (the env contract)
 from .errors import (CursorCorruptError, LeaseLostError,
                      ManifestCorruptError, ShardCorruptError)  # noqa: F401
 from .lease import LeaseError, LocalLeaseAuthority
@@ -246,14 +246,16 @@ class ShardedRecordStream:
         if lease_client is not None:
             self._auth = lease_client
         else:
-            spec = tracker_env_spec()
-            if spec is not None:
-                raise MXNetError(
-                    "ShardedRecordStream: the environment names a job "
-                    "tracker (%s), whose shard leases are not ported "
-                    "(ROADMAP.md Queue A item 10); pass lease_client= or "
-                    "unset DMLC_PS_ROOT_URI/DMLC_NUM_SERVER" % spec[0])
-            self._auth = LocalLeaseAuthority()
+            from .. import tracker
+
+            client = tracker.worker_client()
+            if client is not None:
+                self._auth = client
+                if rank is None:
+                    rank = client.rank
+                restart = client.restart_count
+            else:
+                self._auth = LocalLeaseAuthority()
         self.rank = int(rank) if rank is not None else \
             int(os.environ.get("DMLC_WORKER_ID", "0") or 0)
         # the decode-seed salt outside deterministic mode: worker

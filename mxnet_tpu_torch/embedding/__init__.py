@@ -10,13 +10,19 @@ servers of ``kvstore_server``.
   misconfiguration, raised at the client.
 - :class:`SparseEmbedding`: the Gluon block over a table, pulling a
   batch's rows and pushing their gradients back.
+- :class:`EmbeddingLookupServer` / :class:`EmbeddingTowerPredictor`: the
+  serving half, sharded lookup + dense tower through AOTPredictor, a
+  fleet ``replica`` (``serving/fleet.py``).
 
-Not ported, raising by name: the serving half ``EmbeddingLookupServer`` /
-``EmbeddingTowerPredictor`` and ``elastic_table_checkpoint`` (ROADMAP.md
-Queue A item 10).
+Not ported, raising by name: ``elastic_table_checkpoint`` (ROADMAP.md
+Queue A item 10, second part).
 """
 from ..base import MXNetError
 from .block import SparseEmbedding  # noqa: F401
+from .lookup import (  # noqa: F401
+    EmbeddingLookupServer,
+    EmbeddingTowerPredictor,
+)
 from .sharding import (  # noqa: F401
     RowSharding,
     embedding_shard_rank,
@@ -31,16 +37,12 @@ from .table import (  # noqa: F401
 def _not_ported(name, item, what):
     def refuse(*args, **kwargs):
         raise MXNetError("embedding.%s: %s is not ported (ROADMAP.md Queue "
-                         "A item %d)" % (name, what, item))
+                         "A item %d, second part)" % (name, what, item))
 
     refuse.__name__ = name
     return refuse
 
 
-EmbeddingLookupServer = _not_ported("EmbeddingLookupServer", 10,
-                                    "the lookup server (a fleet replica)")
-EmbeddingTowerPredictor = _not_ported("EmbeddingTowerPredictor", 10,
-                                      "the lookup server's predictor")
 elastic_table_checkpoint = _not_ported("elastic_table_checkpoint", 10,
                                        "the table checkpoint")
 

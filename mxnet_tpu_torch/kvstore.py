@@ -404,9 +404,9 @@ def create(name="local"):
 
             if tracker.tracker_env_spec() is not None:
                 raise MXNetError(
-                    "kvstore='dist_async' from the scheduler's rendezvous "
-                    "(the tracker) is not ported (ROADMAP.md Queue A item "
-                    "10): set MXNET_PS_SERVER_URI to the servers' URIs")
+                    "kvstore='dist_async' through the tracker's rendezvous "
+                    "is not ported (ROADMAP.md Queue A item 10, second "
+                    "part): set MXNET_PS_SERVER_URI to the servers' URIs")
         raise MXNetError("kvstore=%r is not ported (the multi-host tier: "
                          "dist_* over a launcher; ROADMAP.md Queue A item "
                          "10)" % name)

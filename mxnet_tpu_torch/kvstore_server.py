@@ -33,13 +33,13 @@ arrays as ``(dtype, shape, bytes)``, large ones out of band; optimizer
 states as tagged plain data, never a pickle): each package's client
 drives the other's servers.
 
-Not ported, raising by name (ROADMAP.md Queue A item 10): checkpoint
-restore (``restore_from_checkpoint``) and rollback (``rollback_servers``),
-ZeRO value sharding (``MXNET_TPU_ZERO_SERVER=1`` with more than one
-server), elastic barriers (``MXNET_MAX_RESTARTS > 0``), rediscovery
-through a tracker, the chaos server and RPC hooks, and the ``python -m``
-server entry point. In-cluster protocol with no auth: do not expose the
-port beyond the job.
+Not ported, raising by name (ROADMAP.md Queue A item 10, second part):
+checkpoint restore (``restore_from_checkpoint``) and rollback
+(``rollback_servers``), ZeRO value sharding (``MXNET_TPU_ZERO_SERVER=1``
+with more than one server), elastic barriers (``MXNET_MAX_RESTARTS > 0``),
+rediscovery through a tracker, the chaos server and RPC hooks, and the
+``python -m`` server entry point. In-cluster protocol with no auth: do
+not expose the port beyond the job.
 """
 from __future__ import annotations
 
@@ -72,7 +72,7 @@ from .tracker import (TrackerError, _SafeUnpickler, _pack,  # noqa: F401
                       env_nonneg_int, env_positive_float,
                       prune_barrier_names)
 
-_ITEM10 = "(ROADMAP.md Queue A item 10)"
+_ITEM10 = "(ROADMAP.md Queue A item 10, second part)"
 
 
 def shard_key(key, num_shards):
@@ -831,8 +831,8 @@ class ServerKVStore(kvstore.KVStore):
         super().__init__(kv_type)
         if tracker_client is not None:
             raise MXNetError("ServerKVStore(tracker_client=...): the "
-                             "scheduler's rendezvous is not ported %s"
-                             % _ITEM10)
+                             "servers' rediscovery through the tracker is "
+                             "not ported %s" % _ITEM10)
         if isinstance(uri, str):
             uris = [u for u in uri.split(",") if u]
         else:
@@ -929,7 +929,7 @@ class ServerKVStore(kvstore.KVStore):
 
     def _reconnect(self, idx):
         """A new connection to server ``idx``'s URI (rediscovery of a
-        moved server needs the tracker, which is not ported)."""
+        moved server through the tracker is not ported)."""
         with self._wlocks[idx]:
             try:
                 self._socks[idx].close()

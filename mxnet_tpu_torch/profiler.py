@@ -51,6 +51,18 @@ of ``mxnet_tpu/profiler.py``).
   and unique ids (derived ``dedup_ratio``), out-of-vocabulary refusals,
   wire bytes a shard (``shard_bytes``) and pull/push latency reservoirs
   (p50/p99).
+- ``fleet_record`` / ``fleet_stats`` / ``fleet_reset``: the serving
+  fleet's router-side counters (requests routed and completed, retries by
+  cause: never-sent failover, in-flight loss, draining and overload
+  rejections; terminal failures, rolling swaps), the live-replica gauge
+  and a router-observed latency reservoir (p50/p99).
+- ``autoscale_record`` / ``autoscale_stats`` / ``autoscale_reset``: the
+  fleet autoscaler's control-loop counters (ticks, decisions, scale-ups
+  and -downs, hysteresis and cooldown holds, retires and retire races,
+  errors) and its ``replicas``/``desired`` gauges.
+- ``qos_record`` / ``qos_stats`` / ``qos_reset``: per-tenant admission
+  counters (requests, admitted, quota rejections, shed at dequeue, rows,
+  completed) and a completion-latency reservoir (p50/p99).
 - ``dump_profile``: every non-empty snapshot above in one JSON file, under
   the JAX package's section names (its ``traceEvents`` list is empty: the
   port records no host trace events).
@@ -730,6 +742,163 @@ def embedding_reset():
         _embedding_clear()
 
 
+# ---------------------------------------------------------------------------
+# serving fleet: router-side counters, retries by cause, a latency reservoir
+# ---------------------------------------------------------------------------
+_FLEET_LOCK = threading.Lock()
+_FLEET_ZERO = {
+    "requests": 0, "completed": 0, "failed": 0, "retries": 0,
+    "failovers": 0, "inflight_lost": 0, "draining_rejections": 0,
+    "overload_rejections": 0, "overloaded": 0, "swaps": 0,
+    "replicas_alive": 0,
+}
+_FLEET = dict(_FLEET_ZERO)
+_FLEET_LAT_CAP = 8192
+_FLEET_LAT = None  # deque, created lazily
+
+
+def fleet_record(latencies=None, replicas_alive=None, **adds):
+    """Accumulate router-side fleet counters (thread-safe).
+    ``replicas_alive`` is a gauge (the latest view's size); everything
+    else accumulates. Unknown counter names raise."""
+    global _FLEET_LAT
+    with _FLEET_LOCK:
+        for k, v in adds.items():
+            if k not in _FLEET_ZERO:
+                raise ValueError("fleet_record: unknown counter %r" % k)
+            _FLEET[k] += int(v)
+        if replicas_alive is not None:
+            _FLEET["replicas_alive"] = int(replicas_alive)
+        if latencies:
+            if _FLEET_LAT is None:
+                _FLEET_LAT = deque(maxlen=_FLEET_LAT_CAP)
+            _FLEET_LAT.extend(latencies)
+
+
+def fleet_stats(reset=False):
+    """Snapshot of the router-side fleet counters with derived p50/p99
+    (ms); an empty dict when no router ever ran."""
+    global _FLEET_LAT
+    with _FLEET_LOCK:
+        snap = dict(_FLEET)
+        lat = sorted(_FLEET_LAT) if _FLEET_LAT else []
+        if reset:
+            _FLEET.update(_FLEET_ZERO)
+            _FLEET_LAT = None
+    if not any(snap.values()):
+        return {}
+    if lat:
+        snap["p50_ms"] = _percentile_ms(lat, 0.50)
+        snap["p99_ms"] = _percentile_ms(lat, 0.99)
+    return snap
+
+
+def fleet_reset():
+    global _FLEET_LAT
+    with _FLEET_LOCK:
+        _FLEET.update(_FLEET_ZERO)
+        _FLEET_LAT = None
+
+
+# ---------------------------------------------------------------------------
+# fleet autoscaler: control-loop counters and the replicas/desired gauges
+# ---------------------------------------------------------------------------
+_AUTOSCALE_LOCK = threading.Lock()
+_AUTOSCALE_ZERO = {
+    "ticks": 0, "decisions": 0, "scale_ups": 0, "scale_downs": 0,
+    "holds_hysteresis": 0, "holds_cooldown": 0, "retires": 0,
+    "retire_races": 0, "errors": 0,
+}
+_AUTOSCALE = dict(_AUTOSCALE_ZERO)
+_AUTOSCALE_GAUGES = {"replicas": 0, "desired": 0}
+_AUTOSCALE_SEEN = False
+
+
+def autoscale_record(replicas=None, desired=None, **adds):
+    """Accumulate autoscaler counters (``replicas``/``desired`` are
+    gauges: assigned, not added). Unknown counter names raise."""
+    global _AUTOSCALE_SEEN
+    with _AUTOSCALE_LOCK:
+        for k, v in adds.items():
+            if k not in _AUTOSCALE_ZERO:
+                raise ValueError(
+                    "autoscale_record: unknown counter %r" % (k,))
+            _AUTOSCALE[k] += int(v)
+        if replicas is not None:
+            _AUTOSCALE_GAUGES["replicas"] = int(replicas)
+        if desired is not None:
+            _AUTOSCALE_GAUGES["desired"] = int(desired)
+        _AUTOSCALE_SEEN = True
+
+
+def autoscale_stats(reset=False):
+    """Snapshot (counters and gauges); an empty dict when no controller
+    ever ran."""
+    global _AUTOSCALE_SEEN
+    with _AUTOSCALE_LOCK:
+        seen = _AUTOSCALE_SEEN
+        snap = dict(_AUTOSCALE)
+        snap.update(_AUTOSCALE_GAUGES)
+        if reset:
+            _AUTOSCALE.update(_AUTOSCALE_ZERO)
+            _AUTOSCALE_GAUGES.update(replicas=0, desired=0)
+            _AUTOSCALE_SEEN = False
+    return snap if seen else {}
+
+
+def autoscale_reset():
+    autoscale_stats(reset=True)
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant QoS: per-tenant admission counters and latency reservoirs
+# ---------------------------------------------------------------------------
+_QOS_LOCK = threading.Lock()
+_QOS_ZERO = {"requests": 0, "admitted": 0, "quota_rejections": 0,
+             "shed": 0, "rows": 0, "completed": 0}
+_QOS_LAT_CAP = 8192
+_QOS = {}
+
+
+def qos_record(tenant, latencies=None, **adds):
+    """Accumulate per-tenant QoS counters; ``latencies`` (seconds) extend
+    the tenant's reservoir. Unknown counter names raise."""
+    tenant = str(tenant)
+    with _QOS_LOCK:
+        s = _QOS.get(tenant)
+        if s is None:
+            s = _QOS[tenant] = dict(_QOS_ZERO,
+                                    lat=deque(maxlen=_QOS_LAT_CAP))
+        for k, v in adds.items():
+            if k not in _QOS_ZERO:
+                raise ValueError("qos_record: unknown counter %r" % (k,))
+            s[k] += int(v)
+        if latencies:
+            s["lat"].extend(latencies)
+
+
+def qos_stats(reset=False):
+    """Per-tenant snapshot with p50/p99 (ms); an empty dict when no
+    tenant-labelled traffic was seen."""
+    with _QOS_LOCK:
+        out = {}
+        for tenant, s in sorted(_QOS.items()):
+            snap = {k: s[k] for k in _QOS_ZERO}
+            lat = sorted(s["lat"])
+            if lat:
+                snap["p50_ms"] = _percentile_ms(lat, 0.50)
+                snap["p99_ms"] = _percentile_ms(lat, 0.99)
+            out[tenant] = snap
+        if reset:
+            _QOS.clear()
+    return out
+
+
+def qos_reset():
+    with _QOS_LOCK:
+        _QOS.clear()
+
+
 def dump_profile(filename="profile.json"):
     """Write the counters' snapshots as one JSON object (the JAX
     ``dump_profile``'s sections that the port keeps) to ``filename``."""
@@ -740,10 +909,13 @@ def dump_profile(filename="profile.json"):
                        ("memoryStats", memory_stats),
                        ("healthStats", health_stats),
                        ("tuningStats", tuning_stats),
+                       ("fleetStats", fleet_stats),
                        ("generateStats", generate_stats),
                        ("passStats", pass_stats),
                        ("embeddingStats", embedding_stats),
                        ("ioStats", io_stats),
+                       ("autoscaleStats", autoscale_stats),
+                       ("qosStats", qos_stats),
                        ("mpStats", mp_stats)):
         snap = stats()
         if snap:

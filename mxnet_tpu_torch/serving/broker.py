@@ -11,10 +11,13 @@ loudly.
 
 ``ModelServer.swap_from_checkpoint(prefix=, epoch=)`` hot-swaps a model
 from a ``save_checkpoint`` pair (``model.load_checkpoint``); an int8 model
-requantizes its weights on the swap. Not ported yet: ``ModelServer``'s
-tenant/priority QoS classes, the ``directory=`` form of
-``swap_from_checkpoint`` (the JAX package's ``checkpoint.py``) and the
-chaos hooks (ROADMAP.md Queue A item 10).
+requantizes its weights on the swap. Requests carry an optional QoS
+``tenant`` and ``priority`` class (``serving/qos.py``): the worker dequeues
+by class, then FIFO, and counts sheds per tenant; ``pending()`` is the
+drain observable of a fleet replica (``serving/fleet.py``), and
+:class:`ReplicaDraining` its typed admission rejection. Not ported yet:
+the ``directory=`` form of ``swap_from_checkpoint`` (the JAX package's
+``checkpoint.py``, ROADMAP.md Queue A item 10, second part).
 """
 from __future__ import annotations
 
@@ -57,20 +60,31 @@ class ServerClosed(ServingError):
     safely resubmit it elsewhere."""
 
 
+class ReplicaDraining(ServerClosed):
+    """Admission-time rejection from a replica in the ``draining`` state
+    (explicit drain RPC or rolling ``fleet_swap``): nothing was executed,
+    in-flight work continues to completion, and the router is expected to
+    retry the request on a different replica."""
+
+
 class ServerOverloaded(ServingError):
     """Backpressure rejection: the bounded request queue stayed full
     past the submit timeout. The request never entered the queue."""
 
 
 class _Request:
-    __slots__ = ("inputs", "rows", "future", "t_submit", "deadline")
+    __slots__ = ("inputs", "rows", "future", "t_submit", "deadline",
+                 "tenant", "priority")
 
-    def __init__(self, inputs, rows, deadline=None):
+    def __init__(self, inputs, rows, deadline=None, tenant=None,
+                 priority=1):
         self.inputs = inputs
         self.rows = rows
         self.future = Future()
         self.t_submit = time.perf_counter()
         self.deadline = deadline  # absolute time.monotonic(), or None
+        self.tenant = tenant      # QoS label, or None
+        self.priority = 1 if priority is None else int(priority)
 
 
 class _ModelWorker:
@@ -84,9 +98,11 @@ class _ModelWorker:
         self._q = deque()
         self._stopped = False
         self._error = None       # sticky worker-death error
+        self._busy = False       # a batch is executing right now
         # held around every batch forward; swap() takes it to wait out the
         # in-flight batch before republishing weights
         self._exec_lock = threading.Lock()
+        self._batch_hook = None  # test seam: called before each forward
         self._thread = threading.Thread(
             target=self._run, daemon=True, name="serve-%s" % name)
         self._thread.start()
@@ -116,22 +132,36 @@ class _ModelWorker:
         return depth
 
     def _drain_locked(self):
-        """Pop the largest ready batch: queued requests in FIFO order while
-        the running row total fits the largest bucket. Requests whose
-        deadline passed are shed here, before they take a batch slot.
-        Returns (reqs, rows, shed)."""
+        """Pop the largest ready batch: queued requests in priority-then-
+        FIFO order while the running row total fits the largest bucket.
+        Requests whose deadline passed are shed here, before they take a
+        batch slot. Priority classes reorder only when classes mix (a
+        stable sort: FIFO within a class), so a latency request jumps
+        queued bulk work. Returns (reqs, rows, shed)."""
         cap = self.predictor.max_bucket
         now = time.monotonic()
         shed, reqs, total = [], [], 0
-        while self._q:
-            r = self._q[0]
+        queue = self._q
+        if len({r.priority for r in queue}) > 1:
+            queue = sorted(queue, key=lambda r: r.priority)
+        taken = set()
+        for r in queue:
             if r.deadline is not None and now > r.deadline:
-                shed.append(self._q.popleft())
+                shed.append(r)
+                taken.add(id(r))
                 continue
             if reqs and total + r.rows > cap:
                 break
-            reqs.append(self._q.popleft())
+            reqs.append(r)
+            taken.add(id(r))
             total += r.rows
+        if taken:
+            if len(taken) == len(self._q):
+                self._q.clear()
+            else:
+                remaining = [r for r in self._q if id(r) not in taken]
+                self._q.clear()
+                self._q.extend(remaining)
         return reqs, total, shed
 
     def _run(self):
@@ -143,6 +173,8 @@ class _ModelWorker:
                     if self._stopped:
                         return
                     reqs, rows, shed = self._drain_locked()
+                    if reqs:
+                        self._busy = True
                     self._cond.notify_all()  # queue space freed
                 if shed:
                     # futures fail outside the lock: done-callbacks run
@@ -153,6 +185,8 @@ class _ModelWorker:
                     for r in shed:
                         if not r.future.done():
                             r.future.set_exception(exc)
+                        if r.tenant is not None:
+                            profiler.qos_record(r.tenant, shed=1)
                     profiler.serving_record(self.name, shed=len(shed))
                 if not reqs:
                     continue
@@ -163,6 +197,10 @@ class _ModelWorker:
                         if not r.future.done():
                             r.future.set_exception(e)
                     profiler.serving_record(self.name, errors=len(reqs))
+                finally:
+                    with self._cond:
+                        self._busy = False
+                        self._cond.notify_all()
         except BaseException as e:  # worker death: sticky, fail the queue
             with self._cond:
                 self._error = e
@@ -178,6 +216,8 @@ class _ModelWorker:
         pred = self.predictor
         bucket = pred.pick_bucket(rows)
         with self._exec_lock:
+            if self._batch_hook is not None:
+                self._batch_hook(reqs)
             if len(reqs) == 1 and reqs[0].rows == bucket:
                 inputs = reqs[0].inputs  # exact fit: no assembly copy
             else:
@@ -307,12 +347,16 @@ class ModelServer:
         if self._closed:
             raise ServerClosed("ModelServer is closed")
 
-    def submit(self, name, inputs, timeout=None, deadline=None):
+    def submit(self, name, inputs, timeout=None, deadline=None,
+               tenant=None, priority=None):
         """Enqueue one request; returns a ``concurrent.futures.Future``
         resolving to the list of output arrays (request row count). A
         ``deadline`` (seconds from now) makes it sheddable: still queued
         when it passes, the request is dropped at dequeue and its future
-        fails with :class:`DeadlineExceeded`."""
+        fails with :class:`DeadlineExceeded`. ``tenant``/``priority``
+        label the request for QoS: a lower priority dequeues first (see
+        ``qos.PRIORITIES``), and sheds of a labelled request are counted
+        per tenant in ``qos_stats``."""
         self._check_open()
         worker = self._worker(name)
         inputs, rows = worker.predictor._normalize(inputs)
@@ -323,15 +367,18 @@ class ModelServer:
                 raise ServingError("submit: deadline must be > 0 seconds, "
                                    "got %r" % deadline)
             deadline = time.monotonic() + deadline
-        req = _Request(inputs, rows, deadline=deadline)
+        req = _Request(inputs, rows, deadline=deadline, tenant=tenant,
+                       priority=priority)
         depth = worker.enqueue(
             req, self._submit_timeout if timeout is None else timeout)
         profiler.serving_record(name, requests=1, queue_depth=depth)
         return req.future
 
-    def predict(self, name, inputs, timeout=None):
+    def predict(self, name, inputs, timeout=None, tenant=None,
+                priority=None):
         """Synchronous convenience wrapper around :meth:`submit`."""
-        return self.submit(name, inputs, timeout=timeout).result()
+        return self.submit(name, inputs, timeout=timeout, tenant=tenant,
+                           priority=priority).result()
 
     def swap(self, name, arg_params=None, aux_params=None,
              allow_extra=False):
@@ -357,7 +404,8 @@ class ModelServer:
         if directory is not None:
             raise ServingError("swap_from_checkpoint(directory=): the "
                                "CheckpointManager (checkpoint.py) is not "
-                               "ported yet (ROADMAP.md Queue A item 10)")
+                               "ported yet (ROADMAP.md Queue A item 10, "
+                               "second part)")
         from ..model import load_checkpoint
 
         _, arg_params, aux_params = load_checkpoint(
@@ -367,6 +415,18 @@ class ModelServer:
     def stats(self, reset=False):
         """Per-model serving counters (see profiler.serving_stats)."""
         return profiler.serving_stats(reset=reset)
+
+    def pending(self):
+        """Queued requests plus in-flight batches across all resident
+        models: the drain observable (a draining replica admits nothing and
+        waits for this to reach 0 before swapping or deregistering)."""
+        with self._lock:
+            workers = list(self._workers.values())
+        total = 0
+        for w in workers:
+            with w._cond:
+                total += len(w._q) + (1 if w._busy else 0)
+        return total
 
     def close(self, timeout=5.0):
         """Stop and join every worker (bounded), fail still-queued requests

@@ -2,9 +2,12 @@
 
 - Every spec of a table, valid or malformed, parses alike in both
   packages: the same rules, or ``FaultSpecError`` with the same message.
-- A spec whose target has no hook in the port yet parses, and then
-  ``chaos.engine()`` raises by name: a chaos spec never silently does
-  nothing.
+- A spec whose target has no hook in the port yet (the training plane's
+  ``worker``, ``server``, ``rpc``) parses, and then ``chaos.engine()``
+  raises by name: a chaos spec never silently does nothing. The fleet's
+  targets (``replica``, ``router``, ``heartbeat``, ``autoscaler``) are
+  wired: their engine builds, and beside a training-plane rule it still
+  raises. How each fleet hook fires is in ``tests/test_torch_fleet.py``.
 - ``generate:stall@req=2`` on a port ``GenerateServer`` on the CPU: the
   second admitted request ignores its EOS, finishes ``"length"`` at the
   cap, its slot and pages come back, and a request queued behind it is
@@ -105,6 +108,10 @@ def fault_spec(monkeypatch):
     ("generate:stall@req=1;worker:0:nan@step=2", "worker"),
 ])
 def test_unwired_target_raises_by_name(fault_spec, text, target):
+    if target in ("replica", "router", "heartbeat", "autoscaler"):
+        fault_spec(text)                   # a fleet hook: wired
+        assert [r.target for r in chaos.engine().rules] == [target]
+        text, target = text + ";worker:0:crash@step=3", "worker"
     fault_spec(text)
     for _ in range(2):                     # and again: never cached as None
         with pytest.raises(MXNetError, match="the %s hook is not ported "

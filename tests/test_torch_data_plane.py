@@ -3,9 +3,9 @@ the JAX package's (``mxnet_tpu.data``), scenario by scenario from
 tests/test_data_plane.py: lease-book transcripts, shard files and
 manifests, the corruption matrix, exactly-once epochs, mid-epoch handoff,
 deterministic decode under rebalance, the batch iterator, ioStats and the
-knobs. Every comparison is exact. The tracker-backed scenarios stay with
-the JAX package (ROADMAP.md Queue A item 10): here a configured tracker
-raises by name."""
+knobs. Every comparison is exact. With a tracker topology in the
+environment the stream leases through the port's tracker (the lease ops
+against the JAX tracker's are in tests/test_torch_tracker.py)."""
 import hashlib
 import json
 import os
@@ -532,7 +532,7 @@ def test_io_record_strict_and_derivations_match_jax(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# knobs and the unported tracker
+# knobs and the configured tracker
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("knob,bad", [
     ("MXNET_DATA_WORKERS", "nope"),
@@ -584,18 +584,40 @@ def test_knob_defaults_match_jax():
 
 def test_configured_tracker_raises_by_name(tmp_path, monkeypatch):
     """With a tracker topology in the environment and no ``lease_client``
-    the port refuses (the JAX package would lease from the tracker);
-    without one it uses a local book."""
-    mpath = _dataset("torch", str(tmp_path))
-    monkeypatch.setenv("DMLC_PS_ROOT_URI", "127.0.0.1")
-    monkeypatch.setenv("DMLC_PS_ROOT_PORT", "9091")
-    monkeypatch.setenv("DMLC_NUM_SERVER", "1")
-    from mxnet_tpu import tracker
+    the stream leases through ``tracker.worker_client()`` (as the JAX
+    package does) and reads every record once; the tracker refuses, by
+    name, the same dataset registered with other shard counts. Without a
+    topology the stream uses a local book."""
+    from mxnet_tpu import tracker as jtracker
+    from mxnet_tpu_torch import tracker
 
-    assert tservice.tracker_env_spec() == tracker.tracker_env_spec()
-    with pytest.raises(MXNetError, match="Queue A item 10"):
-        tdata.ShardedRecordStream(mpath, decode=decode_index)
+    mpath = _dataset("torch", str(tmp_path))
+    trk = tracker.Tracker(num_workers=1, num_servers=1)
+    trk.serve_in_background()
+    host, port = trk.addr.rsplit(":", 1)
+    monkeypatch.setenv("DMLC_PS_ROOT_URI", host)
+    monkeypatch.setenv("DMLC_PS_ROOT_PORT", port)
+    monkeypatch.setenv("DMLC_NUM_SERVER", "1")
+    monkeypatch.setattr(tracker, "_WORKER_CLIENT", None)
+    assert tservice.tracker_env_spec() == jtracker.tracker_env_spec()
+    try:
+        s = tdata.ShardedRecordStream(mpath, decode=decode_index,
+                                      workers=0, prefetch=0)
+        try:
+            assert isinstance(s._auth, tracker.TrackerClient)
+            assert s.rank == s._auth.rank == 0
+            assert sorted(r for _s, _i, r in s.epoch_records()) == \
+                list(range(48))
+            with pytest.raises(tracker.TrackerError,
+                               match="different shard counts"):
+                s._auth.data_init(s.name, [1, 2, 3])
+        finally:
+            s.close()
+            s._auth.close()
+    finally:
+        trk.shutdown()
     monkeypatch.setenv("DMLC_NUM_SERVER", "0")
+    monkeypatch.setattr(tracker, "_WORKER_CLIENT", None)
     s = tdata.ShardedRecordStream(mpath, decode=decode_index, workers=0,
                                   prefetch=0)
     try:

@@ -12,8 +12,9 @@ server-side momentum at 1/n of the bytes a server, the out-of-vocabulary
 raise before any RPC, the pull-batch budget, the naive per-id mode and
 the 2-bit wire's error feedback. Each table result is held against the
 JAX package's table on the same seeded inputs. ``SparseEmbedding``'s
-three scenarios run in both packages; the lookup server and
-``elastic_table_checkpoint`` (item 10) raise by name.
+three scenarios run in both packages; ``elastic_table_checkpoint`` (item
+10, second part) raises by name, and the lookup server is held against the
+JAX one in tests/test_torch_lookup.py.
 
 Every test body runs under a deadline and servers bind ``127.0.0.1:0``.
 Tolerance: fp32, rtol 1e-4 and atol 1e-5; ids, counts and bytes exact.
@@ -401,12 +402,16 @@ def test_sparse_embedding_requires_kvstore():
 
 
 # ---------------------------------------------------------------------------
-# what waits for item 10
+# what waits for item 10's second part
 # ---------------------------------------------------------------------------
 def test_unported_parts_raise_by_name():
-    for name, item in (("EmbeddingLookupServer", 10),
-                       ("EmbeddingTowerPredictor", 10),
-                       ("elastic_table_checkpoint", 10)):
+    from mxnet_tpu_torch.embedding import lookup
+
+    # the lookup server is ported: a bad table is refused by its own check
+    assert temb.EmbeddingLookupServer is lookup.EmbeddingLookupServer
+    with pytest.raises(MXNetError, match="ShardedEmbeddingTable"):
+        temb.EmbeddingTowerPredictor({"user": object()}, None)
+    for name, item in (("elastic_table_checkpoint", 10),):
         with pytest.raises(MXNetError, match="%s.*item %d" % (name, item)):
             getattr(temb, name)()
 

@@ -91,7 +91,7 @@ JAX_ONLY = {
 }
 
 # parts of ported modules that ROADMAP.md still queues
-_ITEM10 = "item 10 (the serving fleet, the tracker, the distributed plane)"
+_ITEM10 = "item 10, second part (the distributed training plane)"
 _ITEM13 = "item 13 (the single-process tail: Custom, monitor, profiler "
 _ITEM13 += "traces, visualization, checkpoint manager)"
 NOT_PORTED = {
@@ -99,12 +99,9 @@ NOT_PORTED = {
                                "mon", "monitor", "operator",
                                "visualization", "viz")},
     "callback": {"elastic_checkpoint": _ITEM10},
-    "chaos": {n: _ITEM10 for n in ("autoscaler_fault", "heartbeat_fault",
-                                   "nan_fault", "replica_request_fault",
-                                   "router_fault", "rpc_fault",
-                                   "tick_step")},
+    "chaos": {n: _ITEM10 for n in ("nan_fault", "rpc_fault", "tick_step")},
     "contrib": {"tensorboard": _ITEM13},
-    "embedding": {"checkpoint": _ITEM10, "lookup": _ITEM10},
+    "embedding": {"checkpoint": _ITEM10},
     "kvstore": {"DistKVStore": _ITEM10, "two_bit_pack_core": _ITEM10,
                 "two_bit_round_trip_core": _ITEM10},
     "ndarray": {"Custom": _ITEM13, "image": _ITEM13},
@@ -118,18 +115,7 @@ NOT_PORTED = {
         "is_running", "maybe_scope", "pause", "profiler_set_config",
         "profiler_set_state", "record_event", "resume", "scope",
         "set_config", "set_state")},
-    "serving": {n: _ITEM10 for n in (
-        "AutoscaleError", "FleetAutoscaler", "FleetError", "FleetOverloaded",
-        "FleetRemoteError", "FleetRouter", "NoLiveReplica", "QosPolicy",
-        "ReplicaConnectionLost", "ReplicaDraining", "ReplicaServer",
-        "TenantQuotaExceeded", "TokenBucket", "autoscale", "fleet", "qos")},
-    "serving.broker": {"ReplicaDraining": _ITEM10},
-    "tracker": {"main": _ITEM10},
 }
-for _n in ("autoscale_record", "autoscale_reset", "autoscale_stats",
-           "fleet_record", "fleet_reset", "fleet_stats", "qos_record",
-           "qos_reset", "qos_stats"):
-    NOT_PORTED["profiler"][_n] = _ITEM10
 
 
 def _port_modules():
@@ -614,9 +600,6 @@ KNOB_EXCEPTIONS = {
     "MXNET_PROFILER_MODE": "the profiler's traces are item 13",
     "MXNET_PROFILER_AUTOSTART": "the profiler's traces are item 13",
     "MXNET_TPU_JAX_TRACE_DIR": "JAX traces",
-    "MXNET_TRACKER_HEARTBEAT_INTERVAL": "the tracker's scheduler is item 10",
-    "MXNET_TRACKER_HEARTBEAT_TIMEOUT": "the tracker's scheduler is item 10",
-    "MXNET_TRACKER_BARRIER_TIMEOUT": "the tracker's scheduler is item 10",
 }
 
 
