@@ -323,7 +323,25 @@ the kernels are built for sm_90a) and ``nvcc``. It
    in-process predictor. Each replica writes its B1 launches when it
    stops: > 0 and a multiple of 52 for every replica that served and
    stopped (the killed one cannot report);
-34. prints one JSON line describing each kernel, then the result line
+34. drives the single-process tail (``tail_phase``): compiles a saxpy and
+   a row softmax from CUDA source at run time (``rtc.CudaModule``, NVRTC,
+   sm_90a), prints the first compile's seconds and the cached second's,
+   holds them against torch (saxpy bit for bit, the softmax within
+   ``TAIL_SOFTMAX_TOL`` per element) and refuses a CPU NDArray; gives the
+   full-width fused ResNet-50 (fp32, batch 64, one seeded batch) a
+   ``Custom`` softmax-loss head whose body launches that softmax and forms
+   p - onehot(label) on the card, and holds its outputs and every
+   gradient against ``SoftmaxOutput``'s within ``TAIL_HEAD_TOL``; trains
+   it 4 batches by ``Module.fit`` under ``Monitor(interval=2)``, the
+   profiler in mode ``all`` and ``LogMetricsCallback`` (B1/B2/B3 52/52/48
+   a batch, a falling loss, one Monitor row for each output and argument
+   of each monitored batch and two of them against torch's norm, 4
+   forward, backward and forward_backward events and the body's, the
+   updater's and the Monitor's operator events, the event file read back
+   with steps 1..4), printing images/s and the busy share beside the
+   ``module_fit`` phase's; and checks ``print_summary``'s total of the
+   ResNet-50 symbol (25.5 M) against the arguments' sizes;
+35. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -337,6 +355,7 @@ device, or without the package beside it, it exits non-zero at once.
 """
 import gc
 import json
+import logging
 import math
 import os
 import re
@@ -2994,6 +3013,9 @@ FIT_OPT = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
 # card vs CPU: the tiny fused net's gradients through Executor.forward_backward
 FIT_GRAD_TOL = 1e-4
 TRAINSTEP_FP32_STEPS = 5
+# images/s (median batch) and device busy share of a profiled batch of the
+# module_fit phase, printed beside the tail phase's Custom-headed fit
+FIT_RATES = {}
 
 
 def _fit_card_vs_cpu(torch, np, fb, mx):
@@ -3150,7 +3172,10 @@ def module_fit_phase(torch, np, fb):
             mod.forward_backward(data_batch)
             mod.update()
 
-        _device_profile(torch, one_batch, top=10)
+        prof = {}
+        _device_profile(torch, one_batch, top=10, stats=prof)
+        FIT_RATES["module_fit"] = (n / med, prof.get("busy_ms", 0.0)
+                                   / prof.get("wall_ms", 1.0))
         _device_profile(torch, mod.update, top=3)
         upd = []
         for _ in range(5):
@@ -9410,6 +9435,491 @@ def fleet_phase(torch, np, fa, fb):
     return tuple(sum(n[i] for n in launches.values()) for i in range(6))
 
 
+# the single-process tail (docstring item 34): run-time compiled CUDA
+# (rtc), a Custom loss head on the full-width fused ResNet-50 against the
+# built-in SoftmaxOutput, Module.fit with that head under a Monitor, the
+# profiler (mode all) and LogMetricsCallback, and print_summary.
+TAIL_BATCHES = 4            # Module.fit batches: one seeded batch, 4 times
+TAIL_MON_INTERVAL = 2       # batches 0 and 2 are monitored
+TAIL_SOFTMAX_TOL = 1e-6     # rtc row softmax vs torch, per element, relative
+TAIL_HEAD_TOL = 1e-4        # Custom vs SoftmaxOutput: outputs, gradients
+TAIL_YARD_RATIO = 3.0       # or this times the gap one rounding of fc1 gives
+TAIL_STAT_TOL = 1e-5        # a logged Monitor stat vs torch's norm
+TAIL_THREADS = 256          # threads a row of the softmax (a power of 2)
+TAIL_RTC = r"""
+extern "C" __global__ void saxpy(const float *x, float *y, float a, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = a * x[i] + y[i];
+}
+
+// one block a row of a (rows, cols) row-major matrix; blockDim.x threads
+// (a power of 2) stride over the columns and reduce in shared memory
+extern "C" __global__ void row_softmax(const float *x, float *y, int cols) {
+    extern __shared__ float red[];
+    const float *xr = x + (size_t)blockIdx.x * cols;
+    float *yr = y + (size_t)blockIdx.x * cols;
+    float m = -3.402823466e+38f;
+    for (int j = threadIdx.x; j < cols; j += blockDim.x) m = fmaxf(m, xr[j]);
+    red[threadIdx.x] = m;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (threadIdx.x < s)
+            red[threadIdx.x] = fmaxf(red[threadIdx.x], red[threadIdx.x + s]);
+        __syncthreads();
+    }
+    m = red[0];
+    __syncthreads();
+    float sum = 0.f;
+    for (int j = threadIdx.x; j < cols; j += blockDim.x) {
+        float e = expf(xr[j] - m);
+        yr[j] = e;
+        sum += e;
+    }
+    red[threadIdx.x] = sum;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+        __syncthreads();
+    }
+    float total = red[0];
+    for (int j = threadIdx.x; j < cols; j += blockDim.x) yr[j] = yr[j] / total;
+}
+"""
+# --fmad=false: a * x + y rounds its product and its sum apart, as torch's
+# two ops do (NVRTC contracts them into one fma by default)
+TAIL_RTC_OPTIONS = ("--fmad=false",)
+
+
+def _rtc_softmax(kernel, x, out):
+    n, c = x.shape
+    kernel.launch([x, out, c], x.context, (n, 1, 1), (TAIL_THREADS, 1, 1),
+                  TAIL_THREADS * 4)
+
+
+def _register_rtc_head(mx, kernel):
+    """The Custom softmax-loss head: its forward launches the rtc row
+    softmax into its output, its backward forms p - onehot(label) with
+    NDArray ops on the card (need_top_grad=False: a loss head)."""
+
+    class RtcSoftmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            _rtc_softmax(kernel, in_data[0], out_data[0])
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            p = out_data[0]
+            self.assign(in_grad[0], req[0],
+                        p - mx.nd.one_hot(in_data[1], depth=p.shape[1]))
+            self.assign(in_grad[1], req[1], mx.nd.zeros_like(in_data[1]))
+
+    @mx.operator.register("rtc_softmax_loss")
+    class RtcSoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return RtcSoftmax()
+
+
+def _custom_headed(mx, resnet):
+    fc = resnet.get_symbol(fused=True, **RESNET).get_internals()[
+        "fc1_output"]
+    return mx.sym.Custom(data=fc, label=mx.sym.var("softmax_label"),
+                         op_type="rtc_softmax_loss", name="softmax")
+
+
+def _tail_rtc(torch, np, mx):
+    """Step 1: compile, cache and launch; returns the row-softmax kernel."""
+    t0 = time.perf_counter()
+    mod = mx.rtc.CudaModule(TAIL_RTC, options=TAIL_RTC_OPTIONS)
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = mx.rtc.CudaModule(TAIL_RTC, options=TAIL_RTC_OPTIONS)
+    second = time.perf_counter() - t0
+    if not again.cached:
+        raise RuntimeError("tail: the second compile missed the rtc cache")
+    saxpy = mod.get_kernel("saxpy", "const float *x, float *y, float a, "
+                           "int n")
+    softmax = mod.get_kernel("row_softmax", "const float *x, float *y, "
+                             "int cols")
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    n = 1 << 20
+    x = torch.randn(n, device=CARD, generator=gen)
+    y = torch.randn(n, device=CARD, generator=gen)
+    want = 2.5 * x + y
+    ys = mx.nd.NDArray(y.clone())
+    saxpy.launch([mx.nd.NDArray(x), ys, 2.5, n], mx.gpu(0),
+                 ((n + 255) // 256, 1, 1), (256, 1, 1))
+    rows, cols = FIT_BATCH, RESNET["num_classes"]
+    logits = torch.randn(rows, cols, device=CARD, generator=gen) * 4
+    out = mx.nd.NDArray(torch.empty_like(logits))
+    _rtc_softmax(softmax, mx.nd.NDArray(logits), out)
+    torch.cuda.synchronize()
+    ref = torch.softmax(logits, dim=1)
+    soft_err = float(((out.tensor - ref).abs() / ref.abs()).max())
+    exact = torch.equal(ys.tensor, want)
+    refused = False
+    try:
+        saxpy.launch([mx.nd.NDArray(x.cpu()), ys, 1.0, n], mx.gpu(0),
+                     (1, 1, 1), (256, 1, 1))
+    except mx.MXNetError as e:
+        refused = "is on cpu" in str(e)
+    print("tail rtc: NVRTC compile of saxpy + row_softmax %.3f s (first, "
+          "cached: %s), %.4f s (second, from the cache: %s); saxpy of %d "
+          "equal to torch bit for bit: %s; row softmax at (%d, %d) max "
+          "relative error %.3g (tol %g); a CPU NDArray refused by name: %s"
+          % (first, mod.cached, second, again.cached, n, exact, rows, cols,
+             soft_err, TAIL_SOFTMAX_TOL, refused))
+    if not exact or soft_err > TAIL_SOFTMAX_TOL or not refused:
+        raise RuntimeError("tail: the rtc kernels differ from torch, or a "
+                           "CPU NDArray was not refused")
+    return softmax
+
+
+def _tail_heads(torch, np, mx, resnet):
+    """Step 2: the Custom head against SoftmaxOutput, one batch, fp32.
+    The two heads' probabilities differ by a rounding (the rtc softmax sums
+    in another order than torch's). SoftmaxOutput runs twice more with
+    fc1's weights and bias moved by one rounding each (the head's input
+    moved by about a rounding): a tensor whose gradient is a near-complete
+    cancellation (bn0's) moves by more than TAIL_HEAD_TOL under that alone.
+    Each tensor is held to TAIL_HEAD_TOL, or to TAIL_YARD_RATIO times the
+    larger of its two one-rounding gaps where those exceed it."""
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("tail: TF32 must be off for the fp32 comparison")
+    n = FIT_BATCH
+    shape = (n,) + RESNET["image_shape"]
+    builtin = resnet.get_symbol(fused=True, **RESNET)
+    custom = _custom_headed(mx, resnet)
+    args, auxs = resnet.init_params(builtin, shape, seed=0)
+    batch = _resnet_batch(np, 7, n)
+    runs = []
+    for sym, nudge in ((builtin, None), (custom, None), (builtin, 300),
+                       (builtin, 301)):
+        rng = None if nudge is None else np.random.RandomState(nudge)
+        ex = sym.simple_bind(mx.gpu(0), data=shape, softmax_label=(n,))
+        for d, src in ((ex.arg_dict, args), (ex.aux_dict, auxs)):
+            for k, v in src.items():
+                if rng is not None and k in ("fc1_weight", "fc1_bias"):
+                    v = _zoo_nudged(np, v, rng)
+                d[k][:] = v
+        ex.forward_backward(**batch)
+        runs.append((ex.outputs[0].asnumpy(),
+                     {k: v.asnumpy() for k, v in ex.grad_dict.items()
+                      if k not in batch}))
+        del ex
+        _free(torch)
+    (ref_out, ref_g), (out, g) = runs[0], runs[1]
+    if sorted(ref_g) != sorted(g):
+        raise RuntimeError("tail: the two heads' graphs take gradients of "
+                           "other parameters")
+    floor = 1e-2 * max(float(np.abs(v).max()) for v in ref_g.values())
+
+    def gap(a, k):
+        return float(np.abs(a[k] - ref_g[k]).max()) / max(
+            float(np.abs(ref_g[k]).max()), floor)
+
+    rows = sorted((gap(g, k), max(gap(r[1], k) for r in runs[2:]), k)
+                  for k in ref_g)
+    allowed = {k: max(TAIL_HEAD_TOL, TAIL_YARD_RATIO * yard)
+               for _e, yard, k in rows}
+    out_err = float(np.abs(out - ref_out).max() / np.abs(ref_out).max())
+    yard_out = max(float(np.abs(r[0] - ref_out).max()) for r in runs[2:]) \
+        / float(np.abs(ref_out).max())
+    over = [r for r in rows if r[0] > TAIL_HEAD_TOL]
+    print("tail heads: the full-width fused ResNet-50, fp32, batch %d, one "
+          "seeded batch from init_params(seed=0): Custom (rtc softmax, "
+          "p - onehot) vs SoftmaxOutput, outputs %.3g (fc1 moved by one "
+          "rounding: %.3g), %d gradients, worst %s (gap, the one-rounding "
+          "gap; each against its largest |value|, floored at 1%% of the "
+          "largest; tol %g, or %g x the one-rounding gap); %d above %g: %s"
+          % (n, out_err, yard_out, len(rows),
+             ", ".join("%.3g (%.3g) at %s" % r for r in rows[-3:]),
+             TAIL_HEAD_TOL, TAIL_YARD_RATIO, len(over), TAIL_HEAD_TOL,
+             ", ".join("%s %.3g (%.3g)" % (r[2], r[0], r[1])
+                       for r in over)))
+    if out_err > TAIL_HEAD_TOL or any(e > allowed[k] for e, _r, k in rows):
+        raise RuntimeError("tail: the Custom head differs from SoftmaxOutput")
+
+
+class _Collect(logging.Handler):
+    """The Monitor rows toc_print logs: (step, name, value)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.rows = []
+
+    def emit(self, record):
+        m = re.match(r"Batch: +(\d+) (\S+) +(\S+)\t$", record.getMessage())
+        if m:
+            self.rows.append((int(m.group(1)), m.group(2),
+                              float(m.group(3))))
+
+
+def _read_scalars(path):
+    """``{tag: [(step, value)]}`` of a TF event file: TFRecord framing
+    around Event protos (field 2 step, field 5 summary -> value -> tag 1,
+    simple_value 2); unknown fields are skipped."""
+    import struct
+
+    def fields(buf):
+        i = 0
+        while i < len(buf):
+            key, shift = 0, 0
+            while True:
+                b = buf[i]
+                i += 1
+                key |= (b & 0x7F) << shift
+                shift += 7
+                if not b & 0x80:
+                    break
+            num, wire = key >> 3, key & 7
+            if wire == 0:
+                v, shift = 0, 0
+                while True:
+                    b = buf[i]
+                    i += 1
+                    v |= (b & 0x7F) << shift
+                    shift += 7
+                    if not b & 0x80:
+                        break
+            elif wire == 1:
+                v, i = buf[i:i + 8], i + 8
+            elif wire == 5:
+                v, i = buf[i:i + 4], i + 4
+            else:
+                ln, shift = 0, 0
+                while True:
+                    b = buf[i]
+                    i += 1
+                    ln |= (b & 0x7F) << shift
+                    shift += 7
+                    if not b & 0x80:
+                        break
+                v, i = buf[i:i + ln], i + ln
+            yield num, v
+
+    out = {}
+    with open(path, "rb") as f:
+        data = f.read()
+    off = 0
+    while off < len(data):
+        (ln,) = struct.unpack("<Q", data[off:off + 8])
+        event = data[off + 12:off + 12 + ln]
+        off += 16 + ln
+        ev = dict(fields(event))
+        if 5 not in ev:
+            continue
+        for num, val in fields(ev[5]):
+            if num != 1:
+                continue
+            v = dict(fields(val))
+            step = ev.get(2, 0)
+            step = step - (1 << 64) if step >= 1 << 63 else step
+            out.setdefault(v[1].decode(), []).append(
+                (step, struct.unpack("<f", v[2])[0]))
+    return out
+
+
+def tail_phase(torch, np, fa, fb):
+    """The single-process tail on the card (docstring item 34). Returns
+    the launches of B5, B6, B7, B1, B2, B3 in the Custom-headed
+    ``Module.fit``."""
+    import contextlib
+    import glob
+    import io
+    import json as _json
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.models import resnet
+
+    _free(torch)
+    softmax = _tail_rtc(torch, np, mx)
+    _register_rtc_head(mx, softmax)
+    _tail_heads(torch, np, mx, resnet)
+
+    # step 3: Module.fit with the Custom head, a Monitor, the profiler in
+    # mode all and LogMetricsCallback
+    n = FIT_BATCH
+    b = _resnet_batch(np, 0, n)
+    x = np.concatenate([b["data"]] * TAIL_BATCHES)
+    y = np.concatenate([b["softmax_label"]] * TAIL_BATCHES)
+    tmp = tempfile.mkdtemp(prefix="tail_")
+    sym = _custom_headed(mx, resnet)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    it = mx.io.NDArrayIter(x, y, batch_size=n)
+    mon = mx.mon.Monitor(TAIL_MON_INTERVAL)
+    tb = mx.contrib.tensorboard.LogMetricsCallback(
+        os.path.join(tmp, "tb"), prefix="train")
+    per_batch = []      # (seconds, cross-entropy, B1, B2, B3)
+    checks = []         # (step, name, torch's stat)
+    last = {"t": None, "counts": (0, 0, 0)}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        probs = mod.get_outputs()[0].asnumpy()
+        lbl = param.locals["data_batch"].label[0].asnumpy().astype(int)
+        ce = float(-np.log(probs[np.arange(n), lbl] + 1e-12).mean())
+        counts = _fb_counts(fb)
+        per_batch.append((now - last["t"], ce) + tuple(
+            a - c for a, c in zip(counts, last["counts"])))
+        if param.nbatch % TAIL_MON_INTERVAL == 0:
+            exe = mod._exec_group.execs[0]
+            for name, t in (("fc1_weight", exe.arg_dict["fc1_weight"].tensor),
+                            ("softmax_output", exe.outputs[0].tensor)):
+                # torch's norm in float64: its float32 vector_norm can be
+                # further from the exact value than the Monitor's stat
+                checks.append((param.nbatch + 1, name, float(
+                    torch.linalg.vector_norm(t.double())
+                    / math.sqrt(t.numel()))))
+        last["t"], last["counts"] = time.perf_counter(), _fb_counts(fb)
+
+    collect = _Collect()
+    root = logging.getLogger()
+    root.addHandler(collect)
+    root.setLevel(logging.INFO)
+    trace = os.path.join(tmp, "trace.json")
+    try:
+        mx.random.seed(0)
+        profiler.set_config(mode="all", filename=trace)
+        torch.cuda.synchronize()
+        _reset_counts(fa)
+        _reset_fb_counts(fb)
+        profiler.set_state("run")
+        last["t"] = time.perf_counter()
+        mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=FIT_OPT,
+                initializer=mx.init.Xavier(), eval_metric=["acc", "ce"],
+                batch_end_callback=[on_batch, tb], monitor=mon)
+        torch.cuda.synchronize()
+        profiler.set_state("stop")
+        launches = _counts(fa) + _fb_counts(fb)
+        profiler.dump_profile()
+    finally:
+        profiler.set_state("stop")
+        profiler.set_config()
+        root.removeHandler(collect)
+        root.setLevel(logging.WARNING)
+    tb.summary_writer.close()
+    with open(trace) as f:
+        events = _json.load(f)["traceEvents"]
+    cats = {}
+    for e in events:
+        cats.setdefault(e["cat"], []).append(e["name"])
+    op_names = {}
+    for name in cats.get("operator", []):
+        op_names[name] = op_names.get(name, 0) + 1
+    (event_file,) = glob.glob(os.path.join(tmp, "tb", "events.out.*"))
+    scalars = _read_scalars(event_file)
+
+    # where a batch of the Custom-headed fit goes (profiler off)
+    data_batch = next(iter(it))
+    it.reset()
+
+    def one_batch():
+        mod.forward_backward(data_batch)
+        mod.update()
+
+    prof = {}
+    _device_profile(torch, one_batch, top=6, stats=prof)
+    busy = prof.get("busy_ms", 0.0) / prof.get("wall_ms", 1.0)
+    arg_names = sym.list_arguments()
+    del mod
+    shutil.rmtree(tmp, ignore_errors=True)
+    _free(torch)
+
+    secs = [p[0] for p in per_batch]
+    losses = [p[1] for p in per_batch]
+    steady = sorted(secs[1:])
+    med = steady[len(steady) // 2]
+    fit_rate, fit_busy = FIT_RATES.get("module_fit", (float("nan"),) * 2)
+    print("tail fit: Module.fit of the Custom-headed fused ResNet-50, fp32, "
+          "%d batches of %d, Monitor(interval=%d), profiler mode all, "
+          "LogMetricsCallback; launches a batch %s (B5-B7 %d, %d, %d); "
+          "cross-entropy %s; seconds a batch %s; %.1f images/s (median "
+          "after the first), device busy %.3f of a profiled batch; the "
+          "module_fit phase this call: %.1f images/s, busy %.3f"
+          % (len(per_batch), n, TAIL_MON_INTERVAL,
+             " ".join("%d/%d/%d" % p[2:] for p in per_batch),
+             *launches[:3], " ".join("%.5f" % v for v in losses),
+             " ".join("%.4f" % v for v in secs), n / med, busy, fit_rate,
+             fit_busy))
+    monitored = sorted({s for s, _k, _v in collect.rows})
+    want_names = ["softmax_output"] + arg_names
+    by_step = {s: [k for s2, k, _ in collect.rows if s2 == s]
+               for s in monitored}
+    logged = {(s, k): v for s, k, v in collect.rows}
+    stat_errs = [abs(logged[(s, k)] - v) / abs(v) for s, k, v in checks]
+    print("tail monitor: %d rows at steps %s (%d a step: 1 output, %d "
+          "arguments); fc1_weight and softmax_output stats vs torch's "
+          "float64 norm/sqrt(size), worst relative %.3g (tol %g)"
+          % (len(collect.rows), monitored, len(want_names),
+             len(arg_names), max(stat_errs) if stat_errs else float("nan"),
+             TAIL_STAT_TOL))
+    print("tail trace: %d events; by category %s; operator events by "
+          "name (top 6) %s"
+          % (len(events), {k: len(v) for k, v in sorted(cats.items())},
+             sorted(op_names.items(), key=lambda kv: -kv[1])[:6]))
+    print("tail events: %s" % ", ".join(
+        "%s steps %s" % (tag, [s for s, _v in vals])
+        for tag, vals in sorted(scalars.items())))
+
+    # step 4: print_summary of the ResNet-50 symbol
+    summary = io.StringIO()
+    full = resnet.get_symbol(fused=True, **RESNET)
+    with contextlib.redirect_stdout(summary):
+        total = mx.viz.print_summary(full, shape={"data": (1, 3, 224, 224)})
+    arg_shapes, _, _ = full.infer_shape(data=(1, 3, 224, 224))
+    want_total = sum(int(np.prod(s)) for k, s in zip(full.list_arguments(),
+                                                     arg_shapes)
+                     if k not in ("data", "softmax_label"))
+    lines = summary.getvalue().splitlines()
+    print("tail summary: print_summary of the fused ResNet-50 at (1, 3, "
+          "224, 224): %d lines, %r; the arguments' sizes sum to %d"
+          % (len(lines), lines[-2], want_total))
+
+    per = [p[2:] for p in per_batch]
+    want_per = (B1_PER_FORWARD, B2_PER_STEP, B3_PER_STEP)
+    want_steps = list(range(1, TAIL_BATCHES + 1))
+    bad = []
+    if len(per_batch) != TAIL_BATCHES or any(p != want_per for p in per) \
+            or launches[:3] != (0, 0, 0):
+        bad.append("launches a batch %s, want %s" % (per, want_per))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        bad.append("loss did not fall: %s" % losses)
+    if monitored != list(range(1, TAIL_BATCHES + 1, TAIL_MON_INTERVAL)) or \
+            any(by_step[s] != want_names for s in monitored):
+        bad.append("monitor rows at %s" % monitored)
+    if len(checks) != 2 * len(monitored) or not stat_errs or \
+            max(stat_errs) > TAIL_STAT_TOL:
+        bad.append("monitor stats off torch's: %s" % stat_errs)
+    n_fwd = cats.get("forward", []).count(sym.name)
+    n_bwd = cats.get("backward", []).count(sym.name)
+    n_fb = cats.get("forward_backward", []).count(sym.name)
+    if (n_fwd, n_bwd, n_fb) != (TAIL_BATCHES,) * 3 or \
+            not {"one_hot", "sgd_mom_update", "norm"} <= set(op_names):
+        bad.append("trace forward/backward/forward_backward %d/%d/%d, "
+                   "operators %s" % (n_fwd, n_bwd, n_fb, sorted(op_names)))
+    if any([s for s, _v in scalars.get(t, [])] != want_steps
+           for t in ("train-accuracy", "train-cross-entropy")):
+        bad.append("event steps %s" % {t: [s for s, _v in v]
+                                       for t, v in scalars.items()})
+    if total != want_total or not 25.5e6 < total < 25.6e6:
+        bad.append("print_summary total %d, want %d" % (total, want_total))
+    if bad:
+        raise RuntimeError("tail: " + "; ".join(bad))
+    return launches
+
+
 def main():
     import torch
 
@@ -9540,6 +10050,9 @@ def main():
     fleet_launches = phase("fleet", fleet_phase, torch, np, fa, fb)
     for entry, n in zip([fwd, *bwd, conv, *grads], fleet_launches):
         entry["fleet_launches"] = n
+    tail_launches = phase("tail", tail_phase, torch, np, fa, fb)
+    for entry, n in zip([fwd, *bwd, conv, *grads], tail_launches):
+        entry["tail_launches"] = n
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; shared-prefix serving (cache on) "
           "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "
@@ -9559,7 +10072,8 @@ def main():
           "gradient B5, B6, B7 on each rank %s; Gluon ResNet-50 and zoo "
           "B5-B7 and B1-B3 %s; recurrent paths (bucketed LM, Gluon LSTM "
           "LM, ConvLSTM) B5-B7 and B1-B3 %s; serving fleet (replicas that "
-          "stopped gracefully) B5-B7 and B1-B3 %s"
+          "stopped gracefully) B5-B7 and B1-B3 %s; Custom-headed Module.fit "
+          "(%d batches) B5-B7 and B1-B3 %s"
           % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
              SPEC_TRACE["k"], fwd["spec_launches"], conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
@@ -9577,7 +10091,8 @@ def main():
              moe_serve, " / ".join("%d, %d, %d" % tuple(r) for r in moe_mp),
              ", ".join("%d" % n for n in gluon_launches),
              ", ".join("%d" % n for n in rnn_launches),
-             ", ".join("%d" % n for n in fleet_launches)))
+             ", ".join("%d" % n for n in fleet_launches), TAIL_BATCHES,
+             ", ".join("%d" % n for n in tail_launches)))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

@@ -36,6 +36,12 @@ Ported so far, six paths over the six hand-written CUDA kernels
   random, contrib and vision; ``nd.contrib``/``nd.random`` and their
   ``sym`` twins), the symbol model zoo (``models``) with the SSD300
   detector and its mAP metrics (``contrib``).
+- the single-process tail: ``operator`` (``CustomOp``/``CustomOpProp`` and
+  the ``Custom`` op), ``monitor`` (``Monitor``, ``fit(monitor=)``), the
+  profiler's trace events, ``rtc`` (CUDA source compiled at run time with
+  NVRTC and launched on the card), ``visualization`` (``print_summary``,
+  ``plot_network``), ``contrib.tensorboard``, ``executor_manager``,
+  ``log``, ``libinfo``, ``util`` and ``test_utils``.
 
 ROADMAP.md lists what remains.
 """
@@ -52,6 +58,13 @@ from . import recordio  # noqa: F401
 from . import config  # noqa: F401
 from . import chaos, embedding, ir, kvstore_server, profiler  # noqa: F401
 from . import serving, tracker  # noqa: F401
+from . import operator  # noqa: F401
+from . import monitor  # noqa: F401
+from . import monitor as mon  # noqa: F401
+from . import visualization  # noqa: F401
+from . import visualization as viz  # noqa: F401
+from . import executor_manager, libinfo, log, rtc, test_utils  # noqa: F401
+from .util import is_np_array  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from .base import MXNetError
 from .context import (Context, cpu, cpu_pinned, current_context, gpu,
@@ -74,4 +87,6 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "kvstore", "parallel", "contrib", "recordio", "gluon", "rnd",
            "config", "chaos", "embedding", "ir", "kvstore_server",
            "profiler", "serving", "tracker", "Executor", "load_checkpoint",
-           "save_checkpoint", "num_gpus", "cpu_pinned"]
+           "save_checkpoint", "num_gpus", "cpu_pinned", "operator",
+           "monitor", "mon", "visualization", "viz", "rtc", "log",
+           "libinfo", "executor_manager", "test_utils", "is_np_array"]

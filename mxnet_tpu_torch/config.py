@@ -330,6 +330,11 @@ KNOBS = {
         "fusion", "default pass pipeline for ir.apply_passes(passes=None): "
         "a comma list of registered pass names (fusion|residual|layout|"
         "quantize); unknown names raise naming this knob (ir/passes.py)"),
+    "MXNET_PROFILER_MODE": (
+        "symbolic", "profiler mode at autostart (symbolic|all) — "
+        "profiler.py"),
+    "MXNET_PROFILER_AUTOSTART": (
+        "0", "start the profiler at import; dump on exit — profiler.py"),
     "MXNET_BACKWARD_DO_MIRROR": (
         "0", "recompute in the backward: a bound executor's training graph "
         "keeps only its variables for the backward and reruns every op "

@@ -36,8 +36,17 @@ save set, so only the variables are kept and every op node reruns in the
 backward. ``MXNET_INFER_DEBUG`` prints each failing node's traceback
 during shape inference, as in the JAX package.
 
-Not ported yet: ``ctx_group`` placement and ``group2ctx`` (both raise)
-and monitor callbacks.
+A monitor callback (:meth:`Executor.set_monitor_callback`, which
+``Monitor.install`` sets) is called on each output, by name, after every
+forward: ``forward``'s and ``forward_backward``'s. The JAX package's
+``forward_backward`` calls none (its fused program has no hook); the port
+calls it there too, as MXNet does, so ``fit(monitor=)`` sees the outputs.
+``forward``, ``backward`` and ``forward_backward`` record profiler events
+of those categories while the profiler runs (``profiler.maybe_scope``,
+host time, no synchronization); ``forward_backward`` records its forward
+and its backward as events of their own inside its own.
+
+Not ported yet: ``ctx_group`` placement and ``group2ctx`` (both raise).
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ import numpy as np
 import torch
 
 from . import config
+from . import profiler as _profiler
 from . import random as _random
 from .base import MXNetError, dtype_name, dtype_torch
 from .symbol.symbol import _AUX_PARAMS
@@ -708,6 +718,7 @@ class Executor:
         self._aux_applied = False
         self._rng = has_rng(symbol)
         self._last_seed = None     # the last forward's step seed
+        self._monitor_callback = None
         self.outputs = []
 
     @property
@@ -788,14 +799,24 @@ class Executor:
         self._load_inputs(kwargs)
         self._pending = None
         with_grad = bool(is_train and self._grad_names)
-        leaves, outs, aux_updates = self._run(bool(is_train), with_grad)
+        with _profiler.maybe_scope(self._event_name(), "forward"):
+            leaves, outs, aux_updates = self._run(bool(is_train), with_grad)
         self._aux_applied = False
         if is_train:
             self._apply_aux(aux_updates)
         if with_grad:
             self._pending = (leaves, outs)
         self._set_outputs(outs)
+        self._monitor_outputs()
         return self.outputs
+
+    def _event_name(self):
+        return self._symbol.name or "executor"
+
+    def _monitor_outputs(self):
+        if self._monitor_callback is not None:
+            for name, val in zip(self._symbol.list_outputs(), self.outputs):
+                self._monitor_callback(name, val)
 
     def backward(self, out_grads=None, is_train=True):
         """Gradients into ``grad_dict`` from the last training forward's
@@ -804,29 +825,36 @@ class Executor:
         the last forward's step seed (its random ops draw what that
         forward drew), and applies the aux updates if no forward since the
         last has."""
-        if self._pending is None:
-            leaves, outs, aux_updates = self._run(True, True,
-                                                  self._last_seed)
-            if not self._aux_applied:
-                self._apply_aux(aux_updates)
-            self._set_outputs(outs)
-        else:
-            leaves, outs = self._pending
-        self._pending = None
-        self._aux_applied = False
-        self._write_grads(leaves, outs, out_grads)
+        with _profiler.maybe_scope(self._event_name(), "backward"):
+            if self._pending is None:
+                leaves, outs, aux_updates = self._run(True, True,
+                                                      self._last_seed)
+                if not self._aux_applied:
+                    self._apply_aux(aux_updates)
+                self._set_outputs(outs)
+            else:
+                leaves, outs = self._pending
+            self._pending = None
+            self._aux_applied = False
+            self._write_grads(leaves, outs, out_grads)
 
     def forward_backward(self, out_grads=None, **kwargs):
         """One training forward and its backward on one graph; the aux
         updates are applied once."""
         self._load_inputs(kwargs)
         self._pending = None
-        leaves, outs, aux_updates = self._run(True, bool(self._grad_names))
-        self._apply_aux(aux_updates)
-        self._aux_applied = False
-        self._set_outputs(outs)
-        if self._grad_names:
-            self._write_grads(leaves, outs, out_grads)
+        name = self._event_name()
+        with _profiler.maybe_scope(name, "forward_backward"):
+            with _profiler.maybe_scope(name, "forward"):
+                leaves, outs, aux_updates = self._run(
+                    True, bool(self._grad_names))
+            self._apply_aux(aux_updates)
+            self._aux_applied = False
+            self._set_outputs(outs)
+            self._monitor_outputs()
+            if self._grad_names:
+                with _profiler.maybe_scope(name, "backward"):
+                    self._write_grads(leaves, outs, out_grads)
         return self.outputs
 
     def _write_grads(self, leaves, outs, out_grads):
@@ -897,8 +925,10 @@ class Executor:
         return self._symbol.debug_str()
 
     def set_monitor_callback(self, callback, monitor_all=False):
-        raise MXNetError("Executor.set_monitor_callback: monitors are not "
-                         "ported")
+        """Call ``callback(name, NDArray)`` on each output after every
+        forward (``monitor_all`` is accepted, as in the JAX package: the
+        outputs are what a forward exposes)."""
+        self._monitor_callback = callback
 
 
 def simple_bind(symbol, ctx, grad_req="write", type_dict=None,

@@ -9,9 +9,11 @@ and the callbacks, per epoch get/set_params, the epoch-end callbacks and
 tuning slot per epoch at the drain boundary after ``get_params``.
 ``fit(sparse_row_id_fn=)`` hands each next batch to ``prepare``, which
 pulls the rows it names (``Module.prepare``); ``score`` and ``predict``
-accept it and ignore it, as the JAX package does. The ``HealthGuard``
+accept it and ignore it, as the JAX package does. ``fit(monitor=)``
+installs the monitor after ``bind`` and calls its ``tic`` before each
+batch and ``toc_print`` after its metric update. The ``HealthGuard``
 (``MXNET_CHECKPOINT_DIR`` with ``MXNET_TPU_GUARD`` on) is not ported and
-raises by name when set; so does ``monitor``.
+raises by name when set.
 """
 from __future__ import annotations
 
@@ -158,13 +160,13 @@ class BaseModule:
         from ..initializer import Uniform
 
         _unported_fit_knobs()
-        if monitor is not None:
-            raise MXNetError("fit(monitor=...): monitors are not ported")
         if initializer is None:
             initializer = Uniform(0.01)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -190,6 +192,8 @@ class BaseModule:
             next_data_batch = next(data_iter)
             while not end_of_batch:
                 data_batch = next_data_batch
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 try:
@@ -199,6 +203,8 @@ class BaseModule:
                 except StopIteration:
                     end_of_batch = True
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
@@ -327,4 +333,4 @@ class BaseModule:
         rows ``sparse_row_id_fn`` names)."""
 
     def install_monitor(self, mon):
-        raise MXNetError("install_monitor: monitors are not ported")
+        raise NotImplementedError()

@@ -3,7 +3,8 @@
 ``simple_bind`` with per-argument ``grad_req`` (``null`` for inputs unless
 ``inputs_need_grad``, for fixed parameters and outside training); each
 batch is copied into the bound input arrays in place. More than one
-context, ``group2ctxs`` and monitors raise by name.
+context and ``group2ctxs`` raise by name. An installed ``Monitor`` follows
+the executor across a rebind (``set_dp_slice``, ``reshape``).
 
 Data parallel, one process a device (``set_dp_slice``, which ``Module``
 calls for a ``'tpu'`` kvstore of more than one rank): the shapes stay the
@@ -62,6 +63,7 @@ class DataParallelExecutorGroup:
                 self.grad_req[name] = "null"
         self.shared_group = shared_group
         self.execs = []
+        self._monitors = []
         self._dp = (0, 1)
         self.bind_exec(data_shapes, label_shapes, shared_group)
 
@@ -87,10 +89,14 @@ class DataParallelExecutorGroup:
         shared = shared_group.execs[0] if shared_group is not None else None
         shapes = {k: (s[0] // n,) + tuple(s[1:]) for k, s in
                   self._total_data_shapes + self._total_label_shapes}
+        old = self.execs
         self.execs = [simple_bind(self.symbol, self.contexts[0],
                                   grad_req=self.grad_req, shared_exec=shared,
                                   **shapes)]
         e = self.execs[0]
+        for mon in self._monitors:
+            mon.exes = [x for x in mon.exes if x not in old]
+            mon.install(e)
         self.param_arrays = [[e.arg_dict[n]] for n in self.param_names]
         self.grad_arrays = [[e.grad_dict.get(n)] for n in self.param_names]
         self.data_arrays = [[e.arg_dict[n]] for n in self.data_names]
@@ -194,4 +200,6 @@ class DataParallelExecutorGroup:
             dict(zip(self.symbol.list_outputs(), self.get_outputs())))
 
     def install_monitor(self, mon):
-        raise MXNetError("install_monitor: monitors are not ported")
+        self._monitors.append(mon)
+        for e in self.execs:
+            mon.install(e)

@@ -32,9 +32,13 @@ sparse_row_id_fn)`` pulls the rows of the parameters that
 (``row_sparse_pull``: the rows not named become 0 there, as in the JAX
 package; ``fit`` calls it with each next batch).
 
+``install_monitor`` installs a ``Monitor`` on the executor; on a module
+whose kvstore engaged the fused group it warns loudly, as the JAX package
+does: that one-program step calls no per-executor callback.
+
 Not ported, raising ``MXNetError`` by name: more than one context in one
-process, ``group2ctxs``, the other ``dist_*`` kvstores,
-``compression_params`` and ``install_monitor``.
+process, ``group2ctxs``, the other ``dist_*`` kvstores and
+``compression_params``.
 """
 from __future__ import annotations
 
@@ -105,6 +109,7 @@ class Module(BaseModule):
         self._exec_group = None
         self._fused = None
         self._last_fused = False
+        self._monitor_installed = False
         self._fused_stale = False
 
     @staticmethod
@@ -334,6 +339,8 @@ class Module(BaseModule):
             kvstore.set_optimizer(self._optimizer)
         else:
             self._updater = opt_mod.get_updater(optimizer)
+        if self._fused is not None and self._monitor_installed:
+            self._warn_monitor_on_fused()
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -501,3 +508,22 @@ class Module(BaseModule):
             self._fused.set_states(data)
         else:
             self._updater.set_states(data)
+
+    def install_monitor(self, mon):
+        assert self.binded
+        self._monitor_installed = True
+        if self._fused is not None:
+            self._warn_monitor_on_fused()
+        self._exec_group.install_monitor(mon)
+
+    def _warn_monitor_on_fused(self):
+        # loud, not fatal: the job still trains, but the fused step calls
+        # no monitor callback and the monitor's host syncs stall its loop
+        self.logger.warning(
+            "Monitor is installed but this Module trains through the "
+            "fused SPMD step (kvstore='tpu' tier): per-op monitor "
+            "callbacks never run inside the one-program step, and "
+            "Monitor's per-batch host syncs would defeat the stall-free "
+            "fit loop anyway. Use the in-graph sentinel "
+            "(MXNET_TPU_SENTINEL=record|skip|halt) and profiler "
+            "healthStats instead.")

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import autograd as _ag
+from .. import profiler as _prof
 from ..base import MXNetError, dtype_name, dtype_torch
 from ..context import Context, current_context
 from ..ops import registry as _reg
@@ -534,7 +535,9 @@ def invoke(op, inputs, attrs, out=None, ctx=None):
     A training BatchNorm also moves its moving mean and variance
     (``momentum * moving + (1 - momentum) * batch``, in place), as the JAX
     package's imperative BatchNorm does. Symbol inputs compose a graph
-    node instead (Gluon's ``HybridBlock`` traces its layers' calls so)."""
+    node instead (Gluon's ``HybridBlock`` traces its layers' calls so).
+    In profiler mode ``all`` the call is an ``operator`` event named after
+    the op (host time, as in the JAX package)."""
     if isinstance(op, str):
         try:
             op = _reg.get(op)
@@ -562,7 +565,8 @@ def invoke(op, inputs, attrs, out=None, ctx=None):
         tensors = [_random.generator(ctx)] + tensors
     with torch.set_grad_enabled(_ag.is_recording() and not op.nondiff), \
             (torch.device(ctx.torch_device()) if not inputs
-             else contextlib.nullcontext()):
+             else contextlib.nullcontext()), \
+            _prof.maybe_scope(op.name, "operator", mode="all"):
         results = op.fn(*tensors, **parsed)
         if not isinstance(results, tuple):
             results = (results,)
@@ -647,42 +651,54 @@ def array(source_array, ctx=None, dtype=None):
                         copy=True), ctx)
 
 
+def _created(op_name):
+    """The profiler's ``operator`` event (mode ``all``) of a creation
+    function, named after the op the JAX package dispatches it to."""
+    return _prof.maybe_scope(op_name, "operator", mode="all")
+
+
 def empty(shape, ctx=None, dtype=None):
     ctx = _ctx(ctx)
-    return NDArray(torch.empty(_shape(shape), dtype=dtype_torch(dtype),
-                               device=ctx.torch_device()), ctx)
+    with _created("_zeros"):
+        return NDArray(torch.empty(_shape(shape), dtype=dtype_torch(dtype),
+                                   device=ctx.torch_device()), ctx)
 
 
 def zeros(shape, ctx=None, dtype=None, **kwargs):
     ctx = _ctx(ctx)
-    return NDArray(torch.zeros(_shape(shape), dtype=dtype_torch(dtype),
-                               device=ctx.torch_device()), ctx)
+    with _created("_zeros"):
+        return NDArray(torch.zeros(_shape(shape), dtype=dtype_torch(dtype),
+                                   device=ctx.torch_device()), ctx)
 
 
 def ones(shape, ctx=None, dtype=None, **kwargs):
     ctx = _ctx(ctx)
-    return NDArray(torch.ones(_shape(shape), dtype=dtype_torch(dtype),
-                              device=ctx.torch_device()), ctx)
+    with _created("_ones"):
+        return NDArray(torch.ones(_shape(shape), dtype=dtype_torch(dtype),
+                                  device=ctx.torch_device()), ctx)
 
 
 def full(shape, val, ctx=None, dtype=None, out=None):
-    if out is not None:
-        out[:] = val
-        return out
-    ctx = _ctx(ctx)
-    return NDArray(torch.full(_shape(shape), val, dtype=dtype_torch(dtype),
-                              device=ctx.torch_device()), ctx)
+    with _created("_full"):
+        if out is not None:
+            out[:] = val
+            return out
+        ctx = _ctx(ctx)
+        return NDArray(torch.full(_shape(shape), val,
+                                  dtype=dtype_torch(dtype),
+                                  device=ctx.torch_device()), ctx)
 
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
     ctx = _ctx(ctx)
     if stop is None:
         start, stop = 0, start
-    t = torch.arange(start, stop, step, dtype=torch.float64).to(
-        dtype=dtype_torch(dtype), device=ctx.torch_device())
-    if repeat != 1:
-        t = t.repeat_interleave(int(repeat))
-    return NDArray(t, ctx)
+    with _created("_arange"):
+        t = torch.arange(start, stop, step, dtype=torch.float64).to(
+            dtype=dtype_torch(dtype), device=ctx.torch_device())
+        if repeat != 1:
+            t = t.repeat_interleave(int(repeat))
+        return NDArray(t, ctx)
 
 
 def zeros_like(other):

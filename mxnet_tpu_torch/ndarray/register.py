@@ -28,8 +28,10 @@ def make_op_func(op):
             tensors = [a for a in args if isinstance(a, NDArray)]
             attrs = {k: v for k, v in kwargs.items()
                      if not isinstance(v, NDArray)}
-            tensors += [v for v in kwargs.values() if isinstance(v, NDArray)]
             attrs.pop("num_args", None)
+            named = {k: v for k, v in kwargs.items()
+                     if isinstance(v, NDArray)}
+            tensors += order_named(op, named, attrs)
             return invoke(op, tensors, attrs, out=out)
         slots = {k: v for k, v in kwargs.items() if k in input_names}
         attrs = {k: v for k, v in kwargs.items() if k not in input_names}
@@ -61,6 +63,20 @@ def make_op_func(op):
     return generic_op
 
 
+def order_named(op, named, attrs):
+    """The tensor kwargs of a var-input op, in its ``kwarg_input_order``
+    where it has one (``Custom``: the prop's ``list_arguments()``, so they
+    bind by name), else as given; a name outside that order raises."""
+    if not named or op.kwarg_input_order is None:
+        return list(named.values())
+    order = op.kwarg_input_order(attrs)
+    unknown = set(named) - set(order)
+    if unknown:
+        raise MXNetError("op %s: tensor kwargs %s not in its argument list "
+                         "%s" % (op.name, sorted(unknown), order))
+    return [named[k] for k in order if k in named]
+
+
 def _np_tensor(a):
     import torch
 
@@ -69,10 +85,11 @@ def _np_tensor(a):
 
 # the op namespaces: ``_contrib_X`` is ``mod.contrib.X``, ``_linalg_X``
 # ``mod.linalg.X``, ``_random_X`` and ``_sample_X`` are ``mod.random.X``,
-# ``_sparse_X`` is ``mod.sparse.X``
+# ``_sparse_X`` is ``mod.sparse.X``, ``_image_X`` ``mod.image.X`` (no op
+# has that prefix: ``mod.image`` is empty, as in the JAX package)
 _ROUTES = (("_contrib_", "contrib"), ("_linalg_", "linalg"),
            ("_random_", "random"), ("_sample_", "random"),
-           ("_sparse_", "sparse"))
+           ("_sparse_", "sparse"), ("_image_", "image"))
 # mod.random.<dist>: scalar parameters draw from _random_<dist>, tensor
 # parameters from _sample_<dist> (the negative binomials have no _sample_
 # form: mod.random holds their _random_ op, routed above)

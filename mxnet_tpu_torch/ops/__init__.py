@@ -4,5 +4,5 @@ ops of the image-serving and training graphs, the tensor ops behind
 samplers, the contrib and region-based vision ops and the int8 ops of
 quantized serving, registered in :mod:`.registry` on import."""
 from . import contrib, fused, nn, optimizer_ops, quantized  # noqa: F401
-from . import random_ops, rnn, tensor, vision  # noqa: F401
+from . import custom, random_ops, rnn, tensor, vision  # noqa: F401
 from .registry import OpDef, get, list_ops, register  # noqa: F401

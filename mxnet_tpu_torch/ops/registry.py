@@ -47,14 +47,19 @@ class OpDef:
     ``{input name: output index}`` whose value replaces that aux state in
     training; needs_rng: ``fn`` takes a generator first; nondiff: the
     imperative front end never records it; batch_free: its outputs are
-    never batch rows; attr_defaults: keyword defaults from the signature.
+    never batch rows; attr_defaults: keyword defaults from the signature;
+    var_attrs: ``fn`` takes ``**kwargs``, so any attribute is accepted
+    uncoerced (``Custom``: the user's kwargs go to its ``CustomOpProp``);
+    kwarg_input_order: for a var-input op, ``attrs -> [input names]``, the
+    order named tensor kwargs bind in (``Custom``: the prop's
+    ``list_arguments()``), set after registration.
     """
 
     __slots__ = ("name", "fn", "num_outputs", "num_visible_outputs",
                  "aux_state_outputs", "needs_rng", "nondiff", "batch_free",
                  "doc",
                  "attr_defaults", "input_names", "var_inputs",
-                 "optional_inputs")
+                 "optional_inputs", "var_attrs", "kwarg_input_order")
 
     def __init__(self, name, fn, num_outputs=1, num_visible_outputs=None,
                  aux_state_outputs=None, needs_rng=False, nondiff=False,
@@ -69,6 +74,10 @@ class OpDef:
         self.batch_free = bool(batch_free)
         self.doc = fn.__doc__ or ""
         self.attr_defaults = _kwarg_defaults(fn, self.needs_rng)
+        self.var_attrs = any(
+            p.kind is p.VAR_KEYWORD
+            for p in inspect.signature(fn).parameters.values())
+        self.kwarg_input_order = None
         self.input_names, self.var_inputs, self.optional_inputs = (
             _input_names(fn, self.needs_rng))
         for n in self.input_names:
@@ -91,6 +100,9 @@ class OpDef:
         out = {}
         for k, v in kwargs.items():
             if k not in self.attr_defaults:
+                if self.var_attrs:
+                    out[k] = v
+                    continue
                 raise MXNetError("op %s: unknown attribute %r (known: %s)"
                                  % (self.name, k, sorted(self.attr_defaults)))
             out[k] = _coerce(v, self.attr_defaults[k])

@@ -1,5 +1,19 @@
-"""Serving, training and pass counters (counterpart of the matching parts
-of ``mxnet_tpu/profiler.py``).
+"""The profiler (counterpart of ``mxnet_tpu/profiler.py``): host trace
+events in MXNet's Chrome ``trace.json`` format, and the serving, training
+and pass counters.
+
+- The trace API: ``set_config``/``profiler_set_config`` (``mode``
+  ``symbolic`` or ``all``, ``filename``), ``set_state``/
+  ``profiler_set_state`` (``run`` clears and starts collecting, ``stop``
+  ends it), ``pause``/``resume``/``is_running``, ``record_event``,
+  ``scope`` and ``maybe_scope``. The executor records its ``forward``,
+  ``backward`` and ``forward_backward`` calls; in mode ``all`` every
+  imperative op dispatch is an ``operator`` event. Events time the host
+  (``time.perf_counter_ns``), as the JAX package's do: no scope
+  synchronizes the card. ``MXNET_PROFILER_AUTOSTART=1`` starts it at
+  import in ``MXNET_PROFILER_MODE`` and dumps at exit.
+  ``MXNET_TPU_JAX_TRACE_DIR`` names JAX device traces and has no
+  counterpart here.
 
 - ``generate_record`` / ``generate_stats`` / ``generate_reset``:
   request/prefill/decode-step/token counts, finish reasons, requests shed
@@ -63,17 +77,95 @@ of ``mxnet_tpu/profiler.py``).
 - ``qos_record`` / ``qos_stats`` / ``qos_reset``: per-tenant admission
   counters (requests, admitted, quota rejections, shed at dequeue, rows,
   completed) and a completion-latency reservoir (p50/p99).
-- ``dump_profile``: every non-empty snapshot above in one JSON file, under
-  the JAX package's section names (its ``traceEvents`` list is empty: the
-  port records no host trace events).
+- ``dump_profile()``: the trace events and every non-empty snapshot above
+  in one JSON file, the one ``set_config`` named, under the JAX package's
+  section names.
 
 Unknown counter names raise.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import threading
+import time
 from collections import deque
+
+# ---------------------------------------------------------------------------
+# the trace API
+# ---------------------------------------------------------------------------
+_STATE = {"mode": "symbolic", "filename": "profile.json", "running": False,
+          "events": []}
+_LOCK = threading.Lock()
+
+
+def profiler_set_config(mode="symbolic", filename="profile.json"):
+    """Set the mode (``symbolic``, or ``all`` to stamp every imperative op)
+    and the file ``dump_profile`` writes."""
+    _STATE["mode"] = mode
+    _STATE["filename"] = filename
+
+
+def profiler_set_state(state="stop"):
+    """``run`` clears the events and starts collecting; ``stop`` ends it."""
+    if state == "run" and not _STATE["running"]:
+        _STATE["running"] = True
+        _STATE["events"] = []
+    elif state == "stop" and _STATE["running"]:
+        _STATE["running"] = False
+
+
+set_config = profiler_set_config
+set_state = profiler_set_state
+
+
+def record_event(name, category, start_us, dur_us, tid=0):
+    """One complete (``ph`` X) event, kept while the profiler runs."""
+    if not _STATE["running"]:
+        return
+    with _LOCK:
+        _STATE["events"].append(
+            {"name": name, "cat": category, "ph": "X", "ts": start_us,
+             "dur": dur_us, "pid": os.getpid(), "tid": tid})
+
+
+class scope:
+    """A context manager recording one host-side trace event."""
+
+    def __init__(self, name, category="operator"):
+        self.name = name
+        self.category = category
+
+    def __enter__(self):
+        self.start = time.perf_counter_ns() // 1000
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns() // 1000
+        record_event(self.name, self.category, self.start, end - self.start)
+        return False
+
+
+def pause():
+    _STATE["running"] = False
+
+
+def resume():
+    _STATE["running"] = True
+
+
+def is_running():
+    return _STATE["running"]
+
+
+def maybe_scope(name, category="operator", mode=None):
+    """A trace scope while the profiler runs (in ``mode``, if given), else
+    a no-op context."""
+    if _STATE["running"] and (mode is None or _STATE["mode"] == mode):
+        return scope(name, category)
+    return contextlib.nullcontext()
+
 
 _GEN_LOCK = threading.Lock()
 _GEN_ZERO = {
@@ -899,10 +991,12 @@ def qos_reset():
         _QOS.clear()
 
 
-def dump_profile(filename="profile.json"):
-    """Write the counters' snapshots as one JSON object (the JAX
-    ``dump_profile``'s sections that the port keeps) to ``filename``."""
-    payload = {"traceEvents": [], "displayTimeUnit": "ms"}
+def dump_profile():
+    """Write the trace events and every non-empty counter snapshot, as one
+    Chrome trace JSON object, to the file ``set_config`` named."""
+    with _LOCK:
+        payload = {"traceEvents": list(_STATE["events"]),
+                   "displayTimeUnit": "ms"}
     for key, stats in (("commStats", comm_stats),
                        ("pipelineStats", pipeline_stats),
                        ("servingStats", serving_stats),
@@ -920,6 +1014,16 @@ def dump_profile(filename="profile.json"):
         snap = stats()
         if snap:
             payload[key] = snap
-    with open(filename, "w") as f:
+    with open(_STATE["filename"], "w") as f:
         json.dump(payload, f)
-    return payload
+
+
+# MXNET_PROFILER_AUTOSTART: collect from import on, in MXNET_PROFILER_MODE,
+# and dump at interpreter exit (read once, at import, as in the JAX package)
+if os.environ.get("MXNET_PROFILER_AUTOSTART", "0") == "1":
+    import atexit
+
+    profiler_set_config(mode=os.environ.get("MXNET_PROFILER_MODE",
+                                            "symbolic"))
+    profiler_set_state("run")
+    atexit.register(lambda: (profiler_set_state("stop"), dump_profile()))

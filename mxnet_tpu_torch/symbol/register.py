@@ -59,12 +59,16 @@ def make_symbol_func(op: OpDef):
         name = kwargs.pop("name", None) or auto_name(_prefix_for(op.name))
         if op.var_inputs:
             # Concat-style: the Symbol arguments, positional then by
-            # keyword, are the inputs; num_args follows from them
+            # keyword (in the op's kwarg_input_order where it has one),
+            # are the inputs; num_args follows from them
+            from ..ndarray.register import order_named
+
             tensors = [a for a in args if isinstance(a, Symbol)]
-            tensors += [v for v in kwargs.values() if isinstance(v, Symbol)]
             attrs = {k: v for k, v in kwargs.items()
                      if not isinstance(v, Symbol)}
             attrs.pop("num_args", None)
+            tensors += order_named(op, {k: v for k, v in kwargs.items()
+                                        if isinstance(v, Symbol)}, attrs)
             return create_symbol(op, tensors, attrs, name=name,
                                  arity_names=tuple("arg%d" % i for i in
                                                    range(len(tensors))))

@@ -803,7 +803,11 @@ def test_dump_profile_carries_both_families(tmp_path):
     profiler.autoscale_record(ticks=3, replicas=1, desired=1)
     profiler.qos_record("bulk", shed=2)
     profiler.fleet_record(requests=1, completed=1, latencies=[0.002])
-    profiler.dump_profile(fname)
+    profiler.set_config(filename=fname)
+    try:
+        profiler.dump_profile()
+    finally:
+        profiler.set_config()
     with open(fname) as f:
         payload = json.load(f)
     assert payload["autoscaleStats"]["ticks"] == 3

@@ -523,11 +523,15 @@ def test_io_record_strict_and_derivations_match_jax(tmp_path):
     tprof.io_reset()
     try:
         tprof.io_record(records=4, leases=1, epochs=1)
-        payload = tprof.dump_profile(path)
+        tprof.set_config(filename=path)
+        tprof.dump_profile()
+        want = tprof.io_stats()
     finally:
+        tprof.set_config()
         tprof.io_reset()
     with open(path) as f:
-        assert json.load(f)["ioStats"] == payload["ioStats"]
+        payload = json.load(f)
+    assert payload["ioStats"] == want
     assert payload["ioStats"]["records"] == 4
 
 

@@ -194,7 +194,11 @@ def test_dedup_accounting_and_stats_ride(clusters, tmp_path):
     assert stats["shard_bytes"]
     assert "pull_p99_ms" in stats
     out = tmp_path / "profile.json"
-    profiler.dump_profile(str(out))
+    profiler.set_config(filename=str(out))
+    try:
+        profiler.dump_profile()
+    finally:
+        profiler.set_config()
     payload = json.loads(out.read_text())
     assert payload["embeddingStats"]["unique_ids"] == 2
     assert payload["commStats"]["pull"]["count"] >= 1

@@ -625,7 +625,11 @@ def test_fleet_stats_ride_dump_profile(fleet, tmp_path):
     router = fleet["router"]
     router.request("m", RNG.randn(1, DIM).astype(np.float32))
     fname = str(tmp_path / "trace.json")
-    profiler.dump_profile(fname)
+    profiler.set_config(filename=fname)
+    try:
+        profiler.dump_profile()
+    finally:
+        profiler.set_config()
     with open(fname) as f:
         stats = json.load(f)["fleetStats"]
     assert stats["requests"] == 1 and stats["completed"] == 1

@@ -297,5 +297,8 @@ def test_import_pulls_in_neither_jax_nor_mxnet_tpu():
                  "models.inception", "models.mobilenet", "models.resnext",
                  "parallel.tensor_parallel", "serving.generate",
                  "tune.table", "tune.search", "tune.model", "tune.harness",
-                 "tune.background", "tune.pipeline", "tune.__main__"):
+                 "tune.background", "tune.pipeline", "tune.__main__",
+                 "operator", "ops.custom", "monitor", "visualization", "rtc",
+                 "executor_manager", "log", "libinfo", "util", "test_utils",
+                 "contrib.tensorboard"):
         assert "'mxnet_tpu_torch.%s'" % name in r.stdout, name

@@ -49,6 +49,11 @@ bound executor, the tiny fused ResNet's ``Executor.forward_backward``
 (11/11/9 launches of B1/B2/B3, gradients within 1e-4 of the CPU's against
 each tensor's scale, floored at 1% of the largest) and a checkpoint saved
 from card arrays loading on the CPU bit for bit.
+
+``rtc``: a saxpy and a templated kernel (named through ``exports``)
+compiled by NVRTC at run time and launched on card NDArrays, equal to
+torch's values bit for bit, the image served from the cache the second
+time; a CPU NDArray, a CPU context and an unknown name raise by name.
 """
 import pytest
 import torch
@@ -1035,3 +1040,60 @@ def test_b5_b7_at_every_tile_on_the_card(dtype, d):
     q = torch.randn(1, 1, 64, d, device="cuda").to(dt)
     with pytest.raises(MXNetError, match="tile"):
         tfa.flash_attention(q, q, q, block_q=32, block_k=64)
+
+
+# ---------------------------------------------------------------------------
+# rtc: CUDA source compiled at run time (NVRTC) and launched on the card
+# ---------------------------------------------------------------------------
+RTC_SAXPY = r'''
+extern "C" __global__ void saxpy(const float *x, float *y, float a, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = a * x[i] + y[i];
+}
+template <typename T>
+__global__ void scale(T *y, T a, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] *= a;
+}
+'''
+
+
+@pytest.mark.cuda
+def test_rtc_saxpy_compiles_and_launches_on_the_card():
+    """A saxpy and a templated C++ kernel (named through ``exports``)
+    compiled by NVRTC, launched on card NDArrays: exactly torch's values
+    (``--fmad=false``: the product and the sum round apart, as torch's two
+    ops do; NVRTC contracts them into one fma by default); a CPU NDArray, a
+    CPU context and an unknown name raise by name."""
+    _card()
+    import mxnet_tpu_torch as mx
+
+    n = 1000
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, device="cuda", generator=gen)
+    y = torch.randn(n, device="cuda", generator=gen)
+    want = 2.5 * x + y
+    opts = ["--fmad=false"]
+    mod = mx.rtc.CudaModule(RTC_SAXPY, options=opts, exports=["scale<float>"])
+    k = mod.get_kernel("saxpy", "const float *x, float *y, float a, int n")
+    xs, ys = mx.nd.NDArray(x), mx.nd.NDArray(y.clone())
+    assert k.launch([xs, ys, 2.5, n], mx.gpu(0), ((n + 127) // 128, 1, 1),
+                    (128, 1, 1)) is None
+    torch.cuda.synchronize()
+    assert torch.equal(ys.tensor, want) and k.launches == 1
+    s = mod.get_kernel("scale<float>", "float *y, float a, int n")
+    s.launch([ys, 2.0, n], mx.gpu(0), ((n + 127) // 128, 1, 1), (128, 1, 1))
+    torch.cuda.synchronize()
+    assert torch.equal(ys.tensor, 2 * want)
+    again = mx.rtc.CudaModule(RTC_SAXPY, options=opts,
+                              exports=["scale<float>"])
+    assert again.cached
+    with pytest.raises(MXNetError, match="is on cpu"):
+        k.launch([mx.nd.NDArray(x.cpu()), ys, 1.0, n], mx.gpu(0),
+                 (8, 1, 1), (128, 1, 1))
+    with pytest.raises(MXNetError, match="gpu context"):
+        k.launch([xs, ys, 1.0, n], mx.cpu(), (8, 1, 1), (128, 1, 1))
+    with pytest.raises(MXNetError, match="no kernel"):
+        mod.get_kernel("nope", "int n")
+    with pytest.raises(MXNetError, match="C\\+\\+ name"):
+        mod.get_kernel("scale", "float *y, float a, int n")

@@ -403,14 +403,20 @@ def test_other_kvstores_raise_by_name(kvstore):
 
 
 def test_monitor_and_sparse_raise_by_name():
-    """Monitors still raise by name; ``sparse_row_id_fn`` and
+    """Monitors, refused by name until the single-process tail was ported,
+    now run (``fit(monitor=)`` and ``install_monitor``; their parity with
+    the JAX package is ``tests/test_torch_monitor_profiler.py``'s); a
+    bound-less ``install_monitor`` still fails. ``sparse_row_id_fn`` and
     ``attach_grad(stype=)``, refused while sparse arrays were not ported,
     now run: fit hands every next batch to ``prepare`` (which pulls the
     named rows when there is a kvstore), and the gradient buffer is dense
     as in the JAX package."""
     mod = mx.mod.Module(_small(), context=mx.cpu())
-    with pytest.raises(MXNetError, match="monitor.*not ported"):
-        mod.fit(_iter(), num_epoch=1, monitor=object())
+    with pytest.raises(AssertionError):
+        mod.install_monitor(mx.mon.Monitor(1))
+    mon = mx.mon.Monitor(1)
+    mod.fit(_iter(), num_epoch=1, monitor=mon)
+    assert mon.step == len(list(_iter())) and not mon.activated
     seen = []
     # kvstore 'local' on one context is no store: nothing to pull from
     mod.fit(_iter(), num_epoch=1,
@@ -420,8 +426,12 @@ def test_monitor_and_sparse_raise_by_name():
     mod.fit(_iter(), num_epoch=1, kvstore=mx.kv.create("local"),
             sparse_row_id_fn=lambda b: seen.append(b) or {})
     assert len(seen) == len(list(_iter())) - 1
-    with pytest.raises(MXNetError, match="monitors are not ported"):
-        mod.install_monitor(object())
+    mon = mx.mon.Monitor(1, pattern=".*weight")
+    mod.install_monitor(mon)
+    mon.tic()
+    mod.forward_backward(next(iter(_iter())))
+    names = [k for _, k, _ in mon.toc()]
+    assert names and all(k.endswith("weight") for k in names)
     x = mx.nd.zeros((2, 2))
     x.attach_grad(stype="row_sparse")
     assert x.grad.stype == "default" and x.grad.shape == (2, 2)

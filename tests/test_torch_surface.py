@@ -50,13 +50,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # JAX or TPU internals that have no counterpart in the port
 JAX_ONLY = {
     "": {"tpu": "the TPU context", "num_tpus": "TPU count",
-         "log": "JAX logging setup", "libinfo": "the JAX build's library "
-         "paths", "storage": "the JAX host-pool allocator",
-         "engine": "the JAX dependency engine (torch orders the card)",
-         "test_utils": "JAX test helpers", "util": "JAX numpy-mode flags",
-         "is_np_array": "JAX numpy-mode flag", "rtc": "runtime-compiled "
-         "Pallas kernels", "executor_manager": "the JAX multi-device "
-         "executor manager"},
+         "storage": "the JAX host-pool allocator",
+         "engine": "the JAX dependency engine (torch orders the card)"},
+    "util": {"shard_map": "the version shim over jax.shard_map (the port's "
+             "collectives are torch.distributed's, parallel/mesh.py)"},
     "context": {"tpu": "the TPU context", "num_tpus": "TPU count"},
     "autograd": {"TapeNode": "the JAX tape (torch keeps the tape)",
                  "GradEntry": "the JAX tape", "record_op": "the JAX tape"},
@@ -92,29 +89,17 @@ JAX_ONLY = {
 
 # parts of ported modules that ROADMAP.md still queues
 _ITEM10 = "item 10, second part (the distributed training plane)"
-_ITEM13 = "item 13 (the single-process tail: Custom, monitor, profiler "
-_ITEM13 += "traces, visualization, checkpoint manager)"
 NOT_PORTED = {
-    "": {n: _ITEM13 for n in ("CheckpointManager", "checkpoint", "dist",
-                               "mon", "monitor", "operator",
-                               "visualization", "viz")},
+    "": {n: _ITEM10 for n in ("CheckpointManager", "checkpoint", "dist")},
     "callback": {"elastic_checkpoint": _ITEM10},
     "chaos": {n: _ITEM10 for n in ("nan_fault", "rpc_fault", "tick_step")},
-    "contrib": {"tensorboard": _ITEM13},
     "embedding": {"checkpoint": _ITEM10},
     "kvstore": {"DistKVStore": _ITEM10, "two_bit_pack_core": _ITEM10,
                 "two_bit_round_trip_core": _ITEM10},
-    "ndarray": {"Custom": _ITEM13, "image": _ITEM13},
-    "symbol": {"Custom": _ITEM13, "image": _ITEM13},
-    "ops": {"custom": _ITEM13},
     "parallel": {n: "item 8c (sequence and pipeline parallelism)"
                  for n in ("full_attention", "pipeline", "pipeline_apply",
                            "ring", "ring_attention", "ring_attention_inner",
                            "ulysses_attention", "ulysses_attention_inner")},
-    "profiler": {n: _ITEM13 for n in (
-        "is_running", "maybe_scope", "pause", "profiler_set_config",
-        "profiler_set_state", "record_event", "resume", "scope",
-        "set_config", "set_state")},
 }
 
 
@@ -597,8 +582,6 @@ KNOB_EXCEPTIONS = {
     "a bucket (serving/predictor.py)",
     "DMLC_ROLE": "the server entry point raises by name "
     "(kvstore_server.py, item 10)",
-    "MXNET_PROFILER_MODE": "the profiler's traces are item 13",
-    "MXNET_PROFILER_AUTOSTART": "the profiler's traces are item 13",
     "MXNET_TPU_JAX_TRACE_DIR": "JAX traces",
 }
 

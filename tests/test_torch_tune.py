@@ -552,10 +552,14 @@ def test_pipeline_consult_hits_a_committed_choice():
 def test_dump_profile_holds_tuning_stats(tmp_path):
     q = torch.randn(1, 1, 64, 64)
     tfa.flash_attention(q, q, q)
-    out = profiler.dump_profile(str(tmp_path / "p.json"))
+    profiler.set_config(filename=str(tmp_path / "p.json"))
+    try:
+        profiler.dump_profile()
+    finally:
+        profiler.set_config()
+    out = json.loads((tmp_path / "p.json").read_text())
     assert out["tuningStats"]["misses"] == 1
-    assert json.loads((tmp_path / "p.json").read_text())["tuningStats"] == \
-        out["tuningStats"]
+    assert out["tuningStats"] == profiler.tuning_stats()
 
 
 def test_pipeline_sweep_commits_and_the_consult_hits():
