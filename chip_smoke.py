@@ -341,7 +341,31 @@ the kernels are built for sm_90a) and ``nvcc``. It
    with steps 1..4), printing images/s and the busy share beside the
    ``module_fit`` phase's; and checks ``print_summary``'s total of the
    ResNet-50 symbol (25.5 M) against the arguments' sizes;
-35. prints one JSON line describing each kernel, then the result line
+35. shards a symbol over ``train_mesh(mp=2)`` on 2 gloo ranks sharing the
+   card (``mp_symbol_phase``; ``MPS_RULES``: the fused ResNet-50's stage-3
+   and stage-4 conv weights on their output channels, fc1 on its rows):
+   (a) trains it by ``Module.fit(kvstore='tpu')`` under
+   ``MXNET_MP_SIZE=2``, fp32 (TF32 off), 4 batches of 32, holding the
+   first step's gradients and the fitted params, unsharded, against one
+   device's within max(1e-4, 3x the gap one rounding of the params gives),
+   B1/B2/B3 52/52/48 a batch on each rank and the param bytes a rank at the
+   ratio the rules give; (b) serves it in bf16 from
+   ``AOTPredictor(mesh=, param_rules=)`` behind ``ModelServer`` (logits
+   within 0.02 of the largest of the unsharded predictor's, B1 52 a
+   forward on each rank, images/s beside the unsharded predictor's), and
+   binds ``resnet.init_params``' weights sharded and unsharded in bf16 and
+   fp32 (fp32 logits within 1e-4 of the largest; the sharded bf16 logits'
+   RMS distance from fp32 within 3x the unsharded bf16's; the gaps printed
+   in bf16 ulps); (c)
+   serves the full-width transformer by ``GenerateServer(spec_k=4)`` with
+   a 1-layer self-draft over the sharded predictor (chains equal to one
+   device's but at near-ties, B5 launches, token accounting and the
+   acceptance rate); (d) serves (b) from a 2-member replica group of
+   ``fleet replica --group-size 2`` processes behind ``FleetRouter`` (its
+   logits within 0.02 of the largest of the unsharded predictor's), then
+   SIGKILLs the follower: the group drains (``NoLiveReplica``, failovers
+   and lost requests 0);
+36. prints one JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every time of a kernel, of its plain version and of its library call is
@@ -8884,10 +8908,11 @@ class _FleetProcs:
             coord, prefix, shape, tmp
         self.procs, self.logs, self.killed = {}, [], set()
 
-    def spawn(self, rank):
+    def spawn(self, rank, extra=(), knobs=None):
         host, port = self.coord.rsplit(":", 1)
         env = {k: v for k, v in os.environ.items()
                if not k.startswith("DMLC_") and k != "MXNET_FAULT_SPEC"}
+        env.update(knobs or {})
         env.update(DMLC_ROLE="replica", DMLC_REPLICA_ID=str(rank),
                    DMLC_PS_ROOT_URI=host, DMLC_PS_ROOT_PORT=port,
                    MXNET_FLEET_VIEW_INTERVAL=str(FLEET_VIEW_S),
@@ -8901,7 +8926,7 @@ class _FleetProcs:
              self.prefix, "--epoch", "0", "--data-shape",
              "data:" + ",".join(str(d) for d in self.shape), "--ladder",
              ",".join(str(b) for b in FLEET_LADDER), "--dtype",
-             FLEET_DTYPE, "--device", CARD], env=env, cwd=ROOT,
+             FLEET_DTYPE, "--device", CARD, *extra], env=env, cwd=ROOT,
             stdout=log, stderr=subprocess.STDOUT)
         return rank
 
@@ -9920,6 +9945,676 @@ def tail_phase(torch, np, fa, fb):
     return launches
 
 
+# Tensor parallelism of a symbol (mp_symbol_phase): MXNET_MP_RULES shard the
+# fused ResNet-50's stage-3 and stage-4 conv weights on their output
+# channels and fc1's rows over train_mesh(mp=2), 2 gloo ranks sharing the
+# card as in mp_training_phase. Each rank holds half of those weights; every
+# use but fc1's (a column-parallel product) gathers them whole, so B1-B3 see
+# whole weights. (a) Module.fit(kvstore='tpu') in fp32 (TF32 off) under
+# MXNET_MP_SIZE=2 against one device; (b) the bf16 AOTPredictor(mesh=) behind
+# ModelServer against the unsharded predictor; (c) GenerateServer(spec_k=4)
+# with a 1-layer self-draft over the sharded full-width transformer against
+# the unsharded server; (d) a 2-member replica group of (b) behind
+# FleetRouter, whose follower is SIGKILLed. (b) also binds
+# resnet.init_params' weights (He-normal, logits of O(1-10), where a bf16
+# ulp is large) sharded and unsharded, in bf16 and fp32: the fp32 binds
+# agree within MP_GRAD_TOL of the largest logit, and the sharded bf16
+# logits lie no farther from fp32 (RMS) than MP_RATIO x the unsharded
+# bf16's; the gaps are printed in bf16 ulps. Rates of a shared card, with
+# every collective staged through the host by gloo, are not scaling rates.
+MPS_RULES = r"stage[34]_unit\d+_conv\d_weight:mp,*,*,*;fc1_weight:mp,*"
+MPS_BATCH, MPS_BATCHES = 32, 4
+MPS_SERVE_IMAGES, MPS_SERVE_REPS = 16, 6
+MPS_LOGIT_TOL = 0.02
+MPS_SPEC = dict(requests=6, new=32, k=4, draft=1)
+MPS_GROUP_REQUESTS = 8
+MPS_TIMEOUT = 600
+
+
+def _mps_fit(torch, np, fb, mx, sym, args, auxs, batches):
+    """Module.fit(kvstore='tpu') over ``batches`` (a list of (data, label)
+    numpy pairs) from ``args``/``auxs`` (numpy), fp32; returns (whole params
+    as numpy, seconds a batch, B1/B2/B3 launches, peak GiB, fused?)."""
+    import logging
+
+    x = np.concatenate([b[0] for b in batches])
+    y = np.concatenate([b[1] for b in batches])
+    it = mx.io.NDArrayIter(x, y, batch_size=MPS_BATCH)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    per = []
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        per.append(time.perf_counter())
+
+    logging.getLogger().setLevel(logging.WARNING)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_fb_counts(fb)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, kvstore="tpu", optimizer="sgd",
+            optimizer_params=FIT_OPT,
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in args.items()},
+            aux_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in auxs.items()},
+            batch_end_callback=on_batch)
+    launches = _fb_counts(fb)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    params = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    return (params, [b - a for a, b in zip([t0] + per[:-1], per)],
+            launches, peak, mod._fused is not None)
+
+
+def _mps_rel(np, got, ref):
+    """Each tensor's relative L2 distance to ``ref`` (numpy dicts)."""
+    return {k: float(np.linalg.norm((got[k] - r).astype(np.float64))
+                     / max(np.linalg.norm(r.astype(np.float64)), 1e-30))
+            for k, r in ref.items()}
+
+
+def _mps_spec_run(torch, np, fa, srv, work):
+    """Every prompt of ``work`` submitted at once; (results, wall s, B5
+    launches, stats)."""
+    from mxnet_tpu_torch import profiler
+
+    torch.cuda.synchronize()
+    profiler.generate_reset()
+    _reset_counts(fa)
+    t0 = time.perf_counter()
+    futs = [srv.submit(np.asarray(w[1], np.int32),
+                       max_new_tokens=MPS_SPEC["new"]) for w in work]
+    results = [f.result(timeout=600) for f in futs]
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0, fa.flash_attention.launches, \
+        srv.stats()
+
+
+def _mps_setup(torch, np):
+    """The fused ResNet-50, its Xavier params and aux (numpy, seed 0) and
+    the fit's batches, the same in every process."""
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel.spmd import TrainStep
+
+    sym = resnet.get_symbol(fused=True, **RESNET)
+    shapes = {"data": (MPS_BATCH,) + RESNET["image_shape"],
+              "softmax_label": (MPS_BATCH,)}
+    one_dev = TrainStep(sym, RESNET_OPT, device=CARD)
+    init = one_dev.init_params(shapes, initializer=Xavier(), seed=0)
+    args = {k: v.cpu().numpy() for k, v in init[0].items()}
+    auxs = {k: v.cpu().numpy() for k, v in init[2].items()}
+    batches = [tuple(_resnet_batch(np, s, MPS_BATCH).values())
+               for s in range(MPS_BATCHES)]
+    return sym, one_dev, args, auxs, batches
+
+
+def _mps_grads(torch, step, args, auxs, batch):
+    """The loss and the whole gradients (numpy) of ``step``'s first step
+    on ``batch`` from ``args``/``auxs`` (a mesh step's blocks gathered)."""
+    p = {k: torch.from_numpy(v.copy()).to(CARD) for k, v in args.items()}
+    a = {k: torch.from_numpy(v.copy()).to(CARD) for k, v in auxs.items()}
+    if step.mesh is not None:
+        p, _o, a, _s = step.place(p, {}, a)
+    loss, g, _ = step.value_and_grad(p, a, {"data": batch[0],
+                                            "softmax_label": batch[1]})
+    g = step.whole_params(g)
+    return float(loss), {k: v.float().cpu().numpy() for k, v in g.items()}
+
+
+def _mps_serve(torch, np, fb, pred, x):
+    """``pred`` behind a ModelServer: the logits of ``x``, the B1 launches
+    of one forward and images/s over MPS_SERVE_REPS more."""
+    from mxnet_tpu_torch.serving import ModelServer
+
+    srv = ModelServer(ladder=(MPS_SERVE_IMAGES,), dtype="bfloat16")
+    try:
+        srv.add_model("resnet50", predictor=pred)
+        srv.predict("resnet50", x)                  # warm-up
+        _reset_fb_counts(fb)
+        out = srv.predict("resnet50", x)[0]
+        b1 = fb.conv_fwd.launches
+        t0 = time.perf_counter()
+        for _ in range(MPS_SERVE_REPS):
+            srv.predict("resnet50", x)
+        wall = time.perf_counter() - t0
+    finally:
+        srv.close()
+    return out, b1, MPS_SERVE_REPS * MPS_SERVE_IMAGES / wall
+
+
+def _mps_serve_kw():
+    return dict(data_shapes={"data": (1,) + RESNET["image_shape"]},
+                ladder=(MPS_SERVE_IMAGES,), dtype="bfloat16",
+                output_names=["fc1_output"])
+
+
+def _mps_probe_kw(dtype):
+    """The rounding probe's bind: (b)'s, in ``dtype``, serving the logits
+    and the probabilities."""
+    return dict(_mps_serve_kw(), dtype=dtype,
+                output_names=["fc1_output", "softmax_output"])
+
+
+def _mps_he(sym):
+    """resnet.init_params' weights (seed 0) of the fused ResNet-50."""
+    from mxnet_tpu_torch.models import resnet
+
+    return resnet.init_params(sym, (1,) + RESNET["image_shape"], seed=0)
+
+
+def _mps_probe(np, sharded, ref):
+    """The rounding probe's numbers from the sharded binds' (logits,
+    probabilities) by dtype and the unsharded ones (``ref``'s
+    ``he_logits_<dtype>``, ``he_probs_<dtype>``); logit gaps in bf16 ulps
+    at the largest |logit| of the fp32 bind."""
+    l32 = ref["he_logits_float32"].astype(np.float64)
+    lu = ref["he_logits_bfloat16"].astype(np.float64)
+    ls, ps = (a.astype(np.float64) for a in sharded["bfloat16"])
+    ls32 = sharded["float32"][0].astype(np.float64)
+    pu = ref["he_probs_bfloat16"].astype(np.float64)
+    top = float(np.abs(l32).max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+
+    def rms(d):
+        return float(np.sqrt(np.mean(d * d)) / ulp)
+
+    return dict(top=top, ulp=float(ulp),
+                bf16_ulps=float(np.abs(ls - lu).max() / ulp),
+                probs=float(np.abs(ps - pu).max() / pu.max()),
+                u_ulps=float(np.abs(lu - l32).max() / ulp),
+                u_rms=rms(lu - l32),
+                s_ulps=float(np.abs(ls - l32).max() / ulp),
+                s_rms=rms(ls - l32),
+                fp32=float(np.abs(ls32 - l32).max()) / top,
+                finite=bool(np.isfinite(ls).all() and np.isfinite(ls32).all()))
+
+
+def _mps_spec_setup(np):
+    from mxnet_tpu_torch.models import transformer as tfm
+
+    t_ = SPEC_TRACE
+    cfg = tfm.TransformerConfig(**FULL)
+    params = _damp_upper_layers(tfm.init_params(cfg, seed=0), t_["damp"])
+    work = _spec_workload(cfg.vocab)[:MPS_SPEC["requests"]]
+    skw = dict(slots=t_["slots"], page_size=t_["page"],
+               spec_k=MPS_SPEC["k"], draft=MPS_SPEC["draft"])
+    return cfg, params, work, skw
+
+
+def _mps_spec_summary(run):
+    results, wall, b5, st = run
+    n_tok = sum(len(r["tokens"]) for r in results)
+    return dict(tokens=n_tok, wall=wall, tokens_s=n_tok / wall, b5=b5,
+                lengths=[len(r["tokens"]) for r in results],
+                reasons=sorted({r["finish_reason"] for r in results}),
+                chains=[list(r["tokens"]) for r in results],
+                **{k: st.get(k) for k in (
+                    "prefills", "spec_rounds", "draft_proposed",
+                    "draft_accepted", "acceptance_rate", "decode_steps")})
+
+
+def _mps_reference(torch, np, fa, fb, path):
+    """One device, in this process before the ranks start: (a)'s first-step
+    gradients, the one-rounding yardstick (MP_NUDGES nudged inits) and the
+    fits from the init and from a nudged init, saved to ``path`` (.npz) for
+    rank 0 to compare; (b)'s unsharded predictor; (c)'s unsharded server."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import AOTPredictor, GenerateServer
+
+    sym, one_dev, args, auxs, batches = _mps_setup(torch, np)
+    loss, grads = _mps_grads(torch, one_dev, args, auxs, batches[0])
+    yard = {}
+    for i in range(MP_NUDGES):
+        rng = np.random.RandomState(300 + i)
+        _l, g = _mps_grads(torch, one_dev, {k: _zoo_nudged(np, v, rng)
+                                            for k, v in args.items()},
+                           auxs, batches[0])
+        for k, v in _mps_rel(np, g, grads).items():
+            yard[k] = max(yard.get(k, 0.0), v)
+        del g
+    fit = _mps_fit(torch, np, fb, mx, sym, args, auxs, batches)
+    one_fit = dict(secs=fit[1], launches=fit[2], peak_gib=fit[3])
+    rng = np.random.RandomState(400)
+    nudged = _mps_fit(torch, np, fb, mx, sym, {k: _zoo_nudged(np, v, rng)
+                                              for k, v in args.items()},
+                      auxs, batches)
+    out = {"loss": np.float64(loss)}
+    out.update({"g/" + k: v for k, v in grads.items()})
+    out.update({"y/" + k: np.float64(v) for k, v in yard.items()})
+    out.update({"p/" + k: v for k, v in fit[0].items()})
+    out.update({"n/" + k: v for k, v in nudged[0].items()})
+    x = _resnet_images(np, 11, MPS_SERVE_IMAGES)
+    served = _mps_serve(torch, np, fb, AOTPredictor(
+        sym, args, auxs, device=CARD, **_mps_serve_kw()), x)
+    out["serve_out"] = served[0]
+    he = _mps_he(sym)
+    for dt in ("bfloat16", "float32"):
+        out["he_logits_" + dt], out["he_probs_" + dt] = AOTPredictor(
+            sym, *he, device=CARD, **_mps_probe_kw(dt)).predict(x)
+    np.savez(path, **out)
+    del grads, fit, nudged, out
+    _free(torch)
+    cfg, params, work, skw = _mps_spec_setup(np)
+    srv = GenerateServer(cfg, params, **skw)
+    try:
+        srv.generate(np.ones((8,), np.int32), max_new_tokens=4)
+        spec = _mps_spec_summary(_mps_spec_run(torch, np, fa, srv, work))
+    finally:
+        srv.close()
+    _free(torch)
+    return dict(one_fit=one_fit, serve=dict(b1=served[1], rate=served[2]),
+                spec=spec)
+
+
+def _mp_symbol_work(torch, np, fa, rank):
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.kernels import fused_block as fb
+    from mxnet_tpu_torch.parallel import tensor_parallel as tpl
+    from mxnet_tpu_torch.parallel.mesh import train_mesh
+    from mxnet_tpu_torch.parallel.spmd import (TrainStep, param_shardings,
+                                               parse_rules)
+    from mxnet_tpu_torch.serving import AOTPredictor, GenerateServer
+    from mxnet_tpu_torch.serving.generate import GenerativePredictor
+
+    rules = parse_rules(MPS_RULES)
+    sym, _one, args, auxs, batches = _mps_setup(torch, np)
+    res = {"rank": rank}
+
+    # -- (a) the first step's gradients, then Module.fit under the knobs ----
+    mesh = train_mesh(mp=MP_RANKS)
+    ts = TrainStep(sym, RESNET_OPT, mesh=mesh, param_rules=rules)
+    tpl.reset_counts()
+    loss, grads = _mps_grads(torch, ts, args, auxs, batches[0])
+    res["grad_collectives"] = (tpl.counts(), tpl.wire_bytes())
+    del ts
+    _free(torch)
+    os.environ["MXNET_MP_SIZE"] = str(MP_RANKS)
+    os.environ["MXNET_MP_RULES"] = MPS_RULES
+    profiler.mp_reset()
+    tpl.reset_counts()
+    fit = _mps_fit(torch, np, fb, mx, sym, args, auxs, batches)
+    res["fit_collectives"] = (tpl.counts(), tpl.wire_bytes())
+    del os.environ["MXNET_MP_SIZE"], os.environ["MXNET_MP_RULES"]
+    res["mp_stats"] = profiler.mp_stats()
+    res["fit"] = dict(secs=fit[1], launches=fit[2], peak_gib=fit[3],
+                      fused=fit[4])
+    whole = sum(v.nbytes for v in args.values())
+    specs = param_shardings({k: v.shape for k, v in args.items()}, mesh,
+                            rules)
+    held = sum(v.nbytes // (MP_RANKS if any(specs[k].spec) else 1)
+               for k, v in args.items())
+    res.update(whole_bytes=whole, exact_bytes=held,
+               sharded=sum(1 for s in specs.values() if any(s.spec)))
+    if rank == 0:
+        with np.load(os.environ["MPS_REF"]) as ref:
+            rgrads = {k: ref["g/" + k] for k in grads}
+            yard = {k: float(ref["y/" + k]) for k in grads}
+            gaps = _mps_rel(np, grads, rgrads)
+            over = sorted((g / max(MP_GRAD_TOL, MP_RATIO * yard[k]), k)
+                          for k, g in gaps.items())
+            one = {k: ref["p/" + k] for k in fit[0]}
+            pgaps = _mps_rel(np, fit[0], one)
+            pyard = _mps_rel(np, {k: ref["n/" + k] for k in fit[0]}, one)
+            pover = sorted((g / max(MP_GRAD_TOL, MP_RATIO * pyard[k]), k)
+                           for k, g in pgaps.items())
+            res.update(loss=loss, ref_loss=float(ref["loss"]),
+                       grad_over=over[-3:], param_over=pover[-3:],
+                       n_tensors=len(gaps), worst_grad=max(gaps.values()),
+                       worst_param=max(pgaps.values()))
+            plain = ref["serve_out"]
+            ref_he = {k: ref[k] for k in ref.files if k.startswith("he_")}
+    del grads, fit
+    _free(torch)
+
+    # -- (b) the sharded bf16 predictor behind ModelServer ------------------
+    pred = AOTPredictor(sym, args, auxs, mesh=mesh, param_rules=rules,
+                        **_mps_serve_kw())
+    if rank != 0:
+        _reset_fb_counts(fb)
+        res["serve_follow"] = dict(calls=pred.follow(),
+                                   b1=fb.conv_fwd.launches)
+    else:
+        res["sharded_stats"] = pred.sharded_stats()
+        out, b1, rate = _mps_serve(torch, np, fb, pred, _resnet_images(
+            np, 11, MPS_SERVE_IMAGES))
+        pred.close()
+        scale = float(np.abs(plain).max())
+        res["serve"] = dict(err=float(np.abs(out - plain).max()),
+                            scale=scale, b1=b1, rate=rate,
+                            finite=bool(np.isfinite(out).all()),
+                            shape=list(out.shape))
+    del pred
+    _free(torch)
+
+    # -- (b) the rounding probe on resnet.init_params' weights --------------
+    he, probe = _mps_he(sym), {}
+    for dt in ("bfloat16", "float32"):
+        pred = AOTPredictor(sym, *he, mesh=mesh, param_rules=rules,
+                            **_mps_probe_kw(dt))
+        if rank != 0:
+            pred.follow()
+        else:
+            probe[dt] = pred.predict(_resnet_images(np, 11,
+                                                    MPS_SERVE_IMAGES))
+            pred.close()
+        del pred
+        _free(torch)
+    if rank == 0:
+        res["probe"] = _mps_probe(np, probe, ref_he)
+    del he, probe
+
+    # -- (c) speculative decoding over the sharded transformer --------------
+    cfg, params, work, skw = _mps_spec_setup(np)
+    if rank != 0:
+        pred = GenerativePredictor(cfg, params, mesh=mesh,
+                                   slots=skw["slots"],
+                                   page_size=skw["page_size"])
+        _reset_counts(fa)
+        calls = pred.follow()
+        res["spec_follow"] = dict(calls=calls, b5=fa.flash_attention.launches)
+        return res
+    srv = GenerateServer(cfg, params, mesh=mesh, **skw)
+    try:
+        srv.generate(np.ones((8,), np.int32), max_new_tokens=4)
+        res["spec"] = _mps_spec_summary(_mps_spec_run(torch, np, fa, srv,
+                                                      work))
+        res["shares"] = all(
+            v.untyped_storage().data_ptr()
+            == srv.predictor._params[k].untyped_storage().data_ptr()
+            for k, v in srv.draft_predictor._params.items())
+    finally:
+        srv.close()
+    return res
+
+
+def _mps_group(torch, np, fb):
+    """(d): (b)'s bf16 fused ResNet-50 (its Xavier weights, its logits)
+    served by a 2-member replica group (AOTPredictor(mesh=train_mesh(mp=2))
+    across 2 replica processes) behind FleetRouter; the follower is
+    SIGKILLed and the group must drain with nothing sent. Returns the
+    report and the leader's launches."""
+    import shutil
+    import socket
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.serving import AOTPredictor, FleetRouter
+    from mxnet_tpu_torch.serving.fleet import NoLiveReplica
+    from mxnet_tpu_torch.tracker import Tracker
+
+    tmp = tempfile.mkdtemp(prefix="mps_group_")
+    cpu = mx.cpu()
+    sym, _one, args, auxs, _batches = _mps_setup(torch, np)
+    del _one
+    sym = sym.get_internals()["fc1_output"]
+    shape = (1,) + RESNET["image_shape"]
+    prefix = os.path.join(tmp, "resnet50")
+    mx.model.save_checkpoint(
+        prefix, 0, sym, {k: mx.nd.array(v, ctx=cpu) for k, v in args.items()},
+        {k: mx.nd.array(v, ctx=cpu) for k, v in auxs.items()})
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    trk = Tracker(num_workers=0, num_servers=0, heartbeat_timeout=10.0)
+    trk.serve_in_background()
+    procs = _FleetProcs(trk.addr, prefix, shape, tmp)
+    router = None
+    report = {}
+    try:
+        t0 = time.perf_counter()
+        for r in range(MP_RANKS):
+            procs.spawn(r, ("--group", "g", "--group-size", str(MP_RANKS),
+                            "--group-rank", str(r), "--group-init",
+                            "tcp://localhost:%d" % port),
+                        knobs={"MXNET_MP_RULES": MPS_RULES})
+        pred = AOTPredictor(sym, args, auxs, data_shapes={"data": shape},
+                            ladder=FLEET_LADDER, dtype=FLEET_DTYPE,
+                            device=CARD)
+        router = FleetRouter(tracker_uri=trk.addr, view_interval=FLEET_VIEW_S,
+                             timeout=60.0, retries=1)
+        profiler.fleet_reset()
+
+        def routable():
+            router.refresh_view(force=True)
+            return [h.addr for h in router._routable("model", set())]
+
+        def members():
+            router.refresh_view(force=True)
+            return {h.group_rank: h for h in router._handles.values()
+                    if h.group == "g" and h.alive}
+
+        deadline = time.monotonic() + FLEET_BOOT_S
+        while len(members()) < MP_RANKS or not routable():
+            dead = [r for r, p in procs.procs.items()
+                    if p.poll() is not None]
+            if dead or time.monotonic() > deadline:
+                raise RuntimeError("mp group: not serving (dead %s)\n%s"
+                                   % (dead, procs.tails()))
+            time.sleep(0.2)
+        report["boot_s"] = time.perf_counter() - t0
+        group = members()
+        if routable() != [group[0].addr]:
+            raise RuntimeError("mp group: routable %s, want the leader %s"
+                               % (routable(), group[0].addr))
+        pool = _fleet_images(np, shape, 9)
+        err, scale, secs = 0.0, 0.0, []
+        for i in range(MPS_GROUP_REQUESTS):
+            x = pool[1 + i % FLEET_MAX_IMAGES]
+            t1 = time.perf_counter()
+            got = router.request("model", x)[0]
+            secs.append(time.perf_counter() - t1)
+            want = pred.predict(x)[0]
+            if got.shape != want.shape or not np.isfinite(got).all():
+                raise RuntimeError("mp group request %d: output %s, want %s"
+                                   % (i, got.shape, want.shape))
+            err = max(err, float(np.abs(got - want).max()))
+            scale = max(scale, float(np.abs(want).max()))
+        report.update(worst=err / scale, err=err, scale=scale,
+                      request_ms=sorted(secs)[len(secs) // 2] * 1e3)
+        procs.kill(1)
+        t1 = time.perf_counter()
+        while routable():
+            if time.perf_counter() - t1 > 60:
+                raise RuntimeError("mp group: not drained after the kill")
+            time.sleep(0.05)
+        report["drain_s"] = time.perf_counter() - t1
+        try:
+            router.request("model", pool[1], timeout=5.0)
+            report["drained"] = "a request was served"
+        except NoLiveReplica as e:
+            report["drained"] = "NoLiveReplica: %s" % e
+        stats = profiler.fleet_stats()
+        report.update(failovers=stats.get("failovers", 0),
+                      inflight_lost=stats.get("inflight_lost", 0))
+        router.stop_fleet()
+        procs.stop()
+        report["launches"] = procs.launches()
+    finally:
+        if router is not None:
+            router.close()
+        for r, p in procs.procs.items():
+            if p.poll() is None:
+                p.kill()
+        trk.shutdown()
+        tails = procs.tails()
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["tails"] = tails
+    return report
+
+
+def mp_symbol_phase(torch, np, fa, fb):
+    """Tensor parallelism of a symbol over train_mesh(mp=2) (the comment
+    above MPS_RULES); returns, for the kernels line, each rank's B1, B2, B3
+    launches a fit batch, each rank's B1 launches of the sharded predictor,
+    each rank's B5 launches of the sharded speculative run and the group
+    leader's B1."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch.models import transformer as tfm
+
+    _free(torch)
+    tmp = tempfile.mkdtemp(prefix="mps_")
+    try:
+        t0 = time.perf_counter()
+        ref = _mps_reference(torch, np, fa, fb, os.path.join(tmp, "ref.npz"))
+        print("mp symbol: one-device references in %.1f s"
+              % (time.perf_counter() - t0))
+        os.environ["MPS_REF"] = os.path.join(tmp, "ref.npz")
+        try:
+            ranks, wall = _run_ranks(_mp_gloo_rank, MP_RANKS, MPS_TIMEOUT,
+                                     "mp symbol", "symbol")
+        finally:
+            os.environ.pop("MPS_REF", None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lead, follower = ranks
+    gc_, gb = lead["grad_collectives"]
+    fc_, fbytes = lead["fit_collectives"]
+    ratio = lead["mp_stats"]["param_bytes_per_chip"] / lead["whole_bytes"]
+    exact = lead["exact_bytes"] / lead["whole_bytes"]
+    print("mp symbol: %d gloo ranks sharing one card, train_mesh(mp=%d), "
+          "%.1f s with start-up; rules %r shard %d parameters; mp_stats %s; "
+          "param bytes a rank %d of %d (%.6f, exact from the rules %.6f)"
+          % (MP_RANKS, MP_RANKS, wall, MPS_RULES, lead["sharded"],
+             lead["mp_stats"], lead["mp_stats"]["param_bytes_per_chip"],
+             lead["whole_bytes"], ratio, exact))
+    print("mp symbol (a) fp32 first step, batch %d: loss %.6f vs one device "
+          "%.6f; gradients unsharded vs one device, relative L2 worst %.4g; "
+          "worst of %d tensors over max(%g, %g x its one-rounding gap): %s; "
+          "collectives of the step %s, bytes sent %s"
+          % (MPS_BATCH, lead["loss"], lead["ref_loss"], lead["worst_grad"],
+             lead["n_tensors"], MP_GRAD_TOL, MP_RATIO,
+             ", ".join("%.3g at %s" % tuple(r) for r in lead["grad_over"]),
+             gc_, gb))
+    for label, fit in [("one device", ref["one_fit"])] + [
+            ("mp rank %d" % r["rank"], r["fit"]) for r in ranks]:
+        print("mp symbol (a) Module.fit %s: %d batches of %d, seconds %s "
+              "(%.1f images/s after the first); launches B1 %d, B2 %d, B3 "
+              "%d; peak memory %.2f GiB"
+              % (label, MPS_BATCHES, MPS_BATCH,
+                 " ".join("%.4f" % s for s in fit["secs"]),
+                 MPS_BATCH * (len(fit["secs"]) - 1) / sum(fit["secs"][1:]),
+                 *fit["launches"], fit["peak_gib"]))
+    print("mp symbol (a) params after the fit vs one device, worst relative "
+          "L2 %.4g; worst over max(%g, %g x the one-rounding fit's gap): %s; "
+          "collectives of the fit %s, bytes sent %s"
+          % (lead["worst_param"], MP_GRAD_TOL, MP_RATIO,
+             ", ".join("%.3g at %s" % tuple(r) for r in lead["param_over"]),
+             fc_,
+             fbytes))
+    sv = lead["serve"]
+    print("mp symbol (b) bf16 AOTPredictor(mesh=) behind ModelServer, %d "
+          "images: logits max |diff| vs the unsharded predictor %.4g, largest "
+          "|logit| %.4g (tol %g of it); B1 a forward %d (unsharded %d), "
+          "follower %s; %.1f images/s vs unsharded %.1f; sharded_stats %s"
+          % (MPS_SERVE_IMAGES, sv["err"], sv["scale"], MPS_LOGIT_TOL,
+             sv["b1"], ref["serve"]["b1"], follower["serve_follow"],
+             sv["rate"], ref["serve"]["rate"], lead["sharded_stats"]))
+    pr = lead["probe"]
+    print("mp symbol (b) rounding probe, resnet.init_params' weights, %d "
+          "images: largest |logit| %.4g (a bf16 ulp there %.4g); bf16 "
+          "sharded vs unsharded: logits max %.2f ulps, probabilities max "
+          "|diff| %.4g of the largest; from the fp32 bind, max / RMS in "
+          "ulps: unsharded bf16 %.2f / %.4f, sharded bf16 %.2f / %.4f "
+          "(RMS limit %g x the unsharded's); fp32 sharded vs unsharded "
+          "logits %.3g of the largest (tol %g)"
+          % (MPS_SERVE_IMAGES, pr["top"], pr["ulp"], pr["bf16_ulps"],
+             pr["probs"], pr["u_ulps"], pr["u_rms"], pr["s_ulps"],
+             pr["s_rms"], MP_RATIO, pr["fp32"], MP_GRAD_TOL))
+    sp = dict(mp=lead["spec"], one=ref["spec"])
+    cfg, params, work, _skw = _mps_spec_setup(np)
+    parted = _near_tie_pairs(
+        torch, np, tfm.make_forward_fn(cfg), _on_card(torch, params),
+        [(w[1], a, b) for w, a, b in zip(work, sp["mp"]["chains"],
+                                         sp["one"]["chains"])],
+        "mp symbol spec vs one device")
+    del params
+    _free(torch)
+    for label in ("mp", "one"):
+        m = sp[label]
+        print("mp symbol (c) spec_k=%d, %d-layer self-draft, %s: %d requests, "
+              "%d tokens (each %s, %s) in %.3f s = %.1f tokens/s; prefills "
+              "%d, spec_rounds %d, draft_proposed %d, accepted %d, "
+              "acceptance_rate %s; B5 %d"
+              % (MPS_SPEC["k"], MPS_SPEC["draft"],
+                 "mp=2 leader" if label == "mp" else "one device",
+                 len(m["lengths"]), m["tokens"], sorted(set(m["lengths"])),
+                 m["reasons"], m["wall"], m["tokens_s"], m["prefills"],
+                 m["spec_rounds"], m["draft_proposed"], m["draft_accepted"],
+                 m["acceptance_rate"], m["b5"]))
+    print("mp symbol (c) follower %s; chains parted at near-ties %d; the "
+          "draft's tensors are the target's blocks: %s"
+          % (follower["spec_follow"], len(parted), lead["shares"]))
+    t0 = time.perf_counter()
+    grp = _mps_group(torch, np, fb)
+    print("mp symbol (d) replica group of %d processes: boot %.1f s, %d "
+          "routed requests of 1..%d images, logits max |diff| vs the "
+          "unsharded in-process predictor %.4g, largest %.4g (%.4g of it, "
+          "tol %g), median request %.1f ms; after SIGKILL of the follower: "
+          "drained in %.2f s, %s; failovers %d, inflight_lost %d; leader "
+          "launches %s; %.1f s"
+          % (MP_RANKS, grp["boot_s"], MPS_GROUP_REQUESTS, FLEET_MAX_IMAGES,
+             grp["err"], grp["scale"], grp["worst"],
+             MPS_LOGIT_TOL, grp["request_ms"], grp["drain_s"],
+             grp["drained"], grp["failovers"], grp["inflight_lost"],
+             grp["launches"], time.perf_counter() - t0))
+
+    per_batch = [B1_PER_FORWARD, B1_PER_FORWARD, 3 * RESNET_UNITS]
+    for r in ranks:
+        want = [n * MPS_BATCHES for n in per_batch]
+        if list(r["fit"]["launches"]) != want or not r["fit"]["fused"]:
+            raise RuntimeError("mp symbol (a) rank %d: launches %s, want %s"
+                               % (r["rank"], r["fit"]["launches"], want))
+    if abs(ratio - exact) > 1e-12 or lead["sharded"] == 0:
+        raise RuntimeError("mp symbol: param bytes ratio %.6f, exact %.6f"
+                           % (ratio, exact))
+    if lead["grad_over"][-1][0] > 1 or lead["param_over"][-1][0] > 1 or \
+            not np.isfinite(lead["loss"]):
+        raise RuntimeError("mp symbol (a): gradients %s, params %s"
+                           % (lead["grad_over"], lead["param_over"]))
+    if not sv["finite"] or sv["shape"] != [MPS_SERVE_IMAGES,
+                                           RESNET["num_classes"]] \
+            or sv["err"] > MPS_LOGIT_TOL * sv["scale"] or \
+            sv["b1"] != B1_PER_FORWARD or \
+            follower["serve_follow"]["b1"] != B1_PER_FORWARD * (
+                MPS_SERVE_REPS + 2):
+        raise RuntimeError("mp symbol (b): %s, follower %s"
+                           % (sv, follower["serve_follow"]))
+    if not pr["finite"] or pr["fp32"] > MP_GRAD_TOL or \
+            pr["s_rms"] > MP_RATIO * pr["u_rms"]:
+        raise RuntimeError("mp symbol (b) rounding probe: %s" % pr)
+    n_req = MPS_SPEC["requests"]
+    for label in ("mp", "one"):
+        m = sp[label]
+        if m["lengths"] != [MPS_SPEC["new"]] * n_req or \
+                m["reasons"] != ["length"] or not m["spec_rounds"] or \
+                m["b5"] != (FULL["n_layers"] + MPS_SPEC["draft"]) * n_req:
+            raise RuntimeError("mp symbol (c) %s: %s" % (label, m))
+    if follower["spec_follow"]["b5"] != (FULL["n_layers"] + MPS_SPEC[
+            "draft"]) * (n_req + 1) or not lead["shares"]:
+        raise RuntimeError("mp symbol (c): follower %s, shares %s"
+                           % (follower["spec_follow"], lead["shares"]))
+    leader = grp["launches"].get(0)
+    if grp["worst"] > MPS_LOGIT_TOL or grp["failovers"] or \
+            grp["inflight_lost"] or \
+            not grp["drained"].startswith("NoLiveReplica") or \
+            leader is None or leader[3] != B1_PER_FORWARD * (
+                1 + MPS_GROUP_REQUESTS) or leader[6]:
+        raise RuntimeError("mp symbol (d): %s\n%s"
+                           % ({k: v for k, v in grp.items() if k != "tails"},
+                              grp["tails"]))
+    return dict(train=[list(r["fit"]["launches"]) for r in ranks],
+                serve=[sv["b1"], follower["serve_follow"]["b1"]],
+                spec=[sp["mp"]["b5"], follower["spec_follow"]["b5"]],
+                group=leader[3])
+
+
 def main():
     import torch
 
@@ -10053,6 +10748,13 @@ def main():
     tail_launches = phase("tail", tail_phase, torch, np, fa, fb)
     for entry, n in zip([fwd, *bwd, conv, *grads], tail_launches):
         entry["tail_launches"] = n
+    mps = phase("mp_symbol", mp_symbol_phase, torch, np, fa, fb)
+    conv["mp_symbol_launches"] = dict(train=[r[0] for r in mps["train"]],
+                                      serve=mps["serve"], group=mps["group"])
+    for i, entry in enumerate(grads, 1):
+        entry["mp_symbol_launches"] = dict(train=[r[i] for r in
+                                                  mps["train"]])
+    fwd["mp_symbol_launches"] = dict(spec=mps["spec"])
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; shared-prefix serving (cache on) "
           "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "
@@ -10073,7 +10775,10 @@ def main():
           "B5-B7 and B1-B3 %s; recurrent paths (bucketed LM, Gluon LSTM "
           "LM, ConvLSTM) B5-B7 and B1-B3 %s; serving fleet (replicas that "
           "stopped gracefully) B5-B7 and B1-B3 %s; Custom-headed Module.fit "
-          "(%d batches) B5-B7 and B1-B3 %s"
+          "(%d batches) B5-B7 and B1-B3 %s; mp symbol path: Module.fit %d "
+          "batches B1, B2, B3 on each rank %s, sharded predictor B1 (leader's "
+          "forward, follower's run) %s, sharded speculation B5 (leader, "
+          "follower) %s, group leader B1 %d"
           % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
              SPEC_TRACE["k"], fwd["spec_launches"], conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
@@ -10092,7 +10797,9 @@ def main():
              ", ".join("%d" % n for n in gluon_launches),
              ", ".join("%d" % n for n in rnn_launches),
              ", ".join("%d" % n for n in fleet_launches), TAIL_BATCHES,
-             ", ".join("%d" % n for n in tail_launches)))
+             ", ".join("%d" % n for n in tail_launches), MPS_BATCHES,
+             " / ".join("%d, %d, %d" % tuple(r) for r in mps["train"]),
+             mps["serve"], mps["spec"], mps["group"]))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

@@ -96,16 +96,21 @@ KNOBS = {
         "metric_stats), read at Speedometer/epoch boundaries; 0|1 "
         "(module/spmd_group.py, metric.py)"),
     "MXNET_MP_SIZE": (
-        "1", "tensor-parallel ('mp') mesh-axis size: train_mesh() splits the "
-        "world into a (dp = N // mp) x mp mesh for the transformer's "
-        "Megatron loss, train step and GenerativePredictor(mesh=), so mp "
-        "must divide the world size; a symbol's Module or TrainStep on an "
-        "mp axis raises (not ported, ROADMAP.md Queue A item 8b); integer "
-        ">= 1 (parallel/mesh.py train_mesh)"),
+        "1", "tensor-parallel ('mp') mesh-axis size for the fused SPMD step "
+        "and the sharded serving group: train_mesh() splits the world (one "
+        "process a device) into a (dp = N // mp) x mp mesh, so mp must "
+        "divide the world size; 1 (the default) is bit-identical to the "
+        "pure data-parallel path; integer >= 1 (parallel/mesh.py "
+        "train_mesh, module/spmd_group.py, serving/predictor.py)"),
     "MXNET_MP_RULES": (
-        "", "parameter-sharding rules 'regex:spec;regex:spec'; sharding a "
-        "parameter is not ported, so a rule that shards raises "
-        "(parallel/spmd.py)"),
+        "", "parameter-sharding rules 'regex:spec;regex:spec' where spec is "
+        "a comma list with one entry per dim, each '*' (replicate that dim) "
+        "or a mesh-axis name, e.g. 'fc1_weight:mp,*;fc2_weight:*,mp' shards "
+        "fc1's output rows and fc2's input columns over mp (the Megatron "
+        "pair); a matched rule that names a missing axis or does not divide "
+        "the dim raises (no silent replication); malformed grammar raises "
+        "naming this knob (parallel/spmd.py parse_rules, "
+        "module/spmd_group.py)"),
     "MXNET_TPU_SENTINEL": (
         "off", "anomaly sentinel of the train step: off|record|skip|halt "
         "(parallel/spmd.py)"),

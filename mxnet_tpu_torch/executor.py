@@ -133,7 +133,7 @@ def has_rng(symbol):
     return any(n.op is not None and n.op.needs_rng for n in symbol._topo())
 
 
-def _graph_closure(symbol, is_train, remat_names=None):
+def _graph_closure(symbol, is_train, remat_names=None, shard_plan=None):
     """A function evaluating the graph: ``fn(values, seed=None) ->
     (outputs, aux_updates)``, with ``values`` every variable's tensor by
     name, ``seed`` the step seed of the random ops (None draws one from
@@ -147,7 +147,14 @@ def _graph_closure(symbol, is_train, remat_names=None):
     ``remat_names`` (a set of node names, or None) is the selective-remat
     save set: the outputs of the nodes named there are kept for the
     backward, and every other computing node is recomputed in the backward
-    (:class:`_Remat`). None evaluates the graph plainly."""
+    (:class:`_Remat`). None evaluates the graph plainly.
+
+    ``shard_plan`` (a ``parallel.symbol_mp.ShardPlan``, or None) runs the
+    graph with the parameters it shards bound to this rank's blocks: each
+    node through :meth:`ShardPlan.run_node`, the outputs made whole."""
+    if shard_plan is not None and remat_names is not None:
+        raise MXNetError("selective remat of a graph whose parameters are "
+                         "sharded over the mp axis is not ported")
     nodes = symbol._topo()
     node_ids = {id(n): i for i, n in enumerate(nodes)}
     for node in nodes:
@@ -173,6 +180,7 @@ def _graph_closure(symbol, is_train, remat_names=None):
 
     def run(values, remat, seed, marks):
         results = {}   # node index -> tuple of outputs
+        layouts = {}   # node index -> its outputs' layouts (a shard plan)
         aux_updates = {}
         device = _values_device(values)
         for i, node in enumerate(nodes):
@@ -180,11 +188,20 @@ def _graph_closure(symbol, is_train, remat_names=None):
                 if node.name not in values:
                     raise MXNetError("unbound variable %r" % node.name)
                 out = (values[node.name],)
+                if shard_plan is not None:
+                    layouts[i] = (shard_plan.var_layout(node.name),)
             else:
                 ins = [results[node_ids[id(inp)]][idx]
                        for inp, idx in node.inputs]
                 if remat is not None and i in recompute:
                     out = remat.run(i, ins)
+                elif shard_plan is not None:
+                    out, layouts[i] = shard_plan.run_node(
+                        node, ins, [layouts[node_ids[id(inp)]][idx]
+                                    for inp, idx in node.inputs],
+                        lambda xs, node=node, i=i: eval_node(
+                            node, xs, is_train, seed, i, device,
+                            marks and marks[i]))
                 else:
                     out = eval_node(node, ins, is_train, seed, i, device,
                                     marks and marks[i])
@@ -195,7 +212,11 @@ def _graph_closure(symbol, is_train, remat_names=None):
                 _aux_updates(node, out, values, aux_updates)
             for j in dead_after.get(i, ()):
                 del results[j]
+                layouts.pop(j, None)
         outs = [results[node_ids[id(n)]][idx] for n, idx in symbol._entries]
+        if shard_plan is not None:
+            outs = [shard_plan.whole(o, layouts[node_ids[id(n)]][idx])
+                    for o, (n, idx) in zip(outs, symbol._entries)]
         return outs, aux_updates
 
     def fn(values, seed=None):

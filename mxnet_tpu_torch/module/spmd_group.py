@@ -2,17 +2,20 @@
 of ``mxnet_tpu/module/spmd_group.py``).
 
 ``Module`` routes ``forward_backward``/``update`` here when its kvstore is
-``'tpu'``: each batch is one ``TrainStep`` over a ``{"dp": N}`` mesh of the
+``'tpu'``: each batch is one ``TrainStep`` over ``train_mesh()`` of the
 process group (one process a device, each given the global batch, of which
-it keeps its rows), forward, backward, the gradient sums and the update in
-one call, with the metric sums kept on the card (``metric_stats``) and
-read at ``EvalMetric.get``.
+it keeps its data rank's rows), forward, backward, the gradient sums and
+the update in one call, with the metric sums kept on the card
+(``metric_stats``) and read at ``EvalMetric.get``.
 
 Knobs: ``MXNET_TPU_MAX_INFLIGHT`` (steps queued on the card before the host
 waits for the oldest), ``MXNET_TPU_DEVICE_METRICS`` (the metric sums on the
 card), ``MXNET_TPU_ZERO`` (ZeRO), ``MXNET_MP_SIZE`` and ``MXNET_MP_RULES``
-(tensor parallelism: not ported, anything but 1 and replicated rules
-raises). Not ported: ``distributed=True``, the multi-host tier.
+(tensor parallelism: the ranks form a ``(dp = N // mp) x mp`` mesh and the
+rules shard the parameters over ``mp``, handed to ``TrainStep``; the
+placed carry's bytes go to ``profiler.mp_stats``; ``get_params`` and the
+optimizer states come back whole; ``mp=1`` is the data-parallel path bit
+for bit). Not ported: ``distributed=True``, the multi-host tier.
 """
 from __future__ import annotations
 
@@ -71,8 +74,8 @@ def _host(tree):
 
 
 class FusedSPMDGroup:
-    """One fused train step over a ``{"dp": N}`` mesh of the process group,
-    from ``Module``'s one context a process."""
+    """One fused train step over ``train_mesh(mp=MXNET_MP_SIZE)`` of the
+    process group, from ``Module``'s one context a process."""
 
     def __init__(self, symbol, contexts, optimizer, arg_params, aux_params,
                  data_names, label_names, fixed_param_names=None, logger=None,
@@ -99,13 +102,9 @@ class FusedSPMDGroup:
                              "context in one process is not ported"
                              % len(contexts))
         device = contexts[0].torch_device()
+        mp = mp_size()
         self._param_rules = parse_rules(config.get("MXNET_MP_RULES"))
-        if mp_size() > 1:
-            raise MXNetError("fused SPMD step: MXNET_MP_SIZE=%d (a symbol's "
-                             "parameters sharded over an mp axis) is not "
-                             "ported yet (ROADMAP.md Queue A item 8b)"
-                             % mp_size())
-        self.mesh = train_mesh(mp=1, device=device.type)
+        self.mesh = train_mesh(mp=mp, device=device.type)
         if mesh_device(self.mesh) != device:
             raise MXNetError("fused SPMD step: context %s but this rank's "
                              "mesh device is %s" % (contexts[0],
@@ -113,6 +112,11 @@ class FusedSPMDGroup:
         self._data_axes = ("dp",)
         _group, n, _index = data_group(self.mesh, self._data_axes)
         if batch_size is not None and batch_size % n != 0:
+            if mp > 1:
+                raise MXNetError(
+                    "fused SPMD step: batch size %d not divisible by the dp "
+                    "size %d (MXNET_MP_SIZE=%d over %d devices)"
+                    % (batch_size, n, mp, n * mp))
             raise MXNetError("fused SPMD step: batch size %d not divisible "
                              "by %d devices" % (batch_size, n))
         self._max_inflight = config.get_positive_int("MXNET_TPU_MAX_INFLIGHT")
@@ -274,8 +278,11 @@ class FusedSPMDGroup:
 
     # -- params --------------------------------------------------------------
     def copy_params_to(self, arg_params, aux_params):
+        """The carry's params, whole (a sharded one gathered over the mp
+        group: every rank calls it), and aux into the host arrays."""
         self.drain()
         params, _opt, aux, _step = self._carry
+        params = self._ts.whole_params(params)
         for k in self.param_names:
             nd.NDArray(params[k]).copyto(arg_params[k])
         for k in self.aux_names:

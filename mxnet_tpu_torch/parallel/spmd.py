@@ -18,9 +18,13 @@ counter advances only on healthy steps); an optimizer that needs its value
 (a learning-rate schedule, Adam's bias correction) then reads it on the
 host, one sync counted in ``profiler.pipeline_stats()["host_syncs"]``.
 
-Data parallelism is one process a device (``parallel/mesh.py``); a
-parameter sharded over a mesh axis (tensor parallelism) and ZeRO's two-bit
-wire are not ported and raise by name.
+Data parallelism is one process a device (``parallel/mesh.py``). Tensor
+parallelism of a symbol: ``param_rules`` shard parameters over the mesh's
+``mp`` (or ``tp``) axis; each rank holds its block of each sharded
+parameter, of its optimizer state and of its gradient, and the graph runs
+under a ``symbol_mp.ShardPlan`` (the Megatron pair for a column- then
+row-parallel ``FullyConnected``, every other use gathered). ZeRO's two-bit
+wire is not ported and raises by name.
 """
 from __future__ import annotations
 
@@ -46,8 +50,9 @@ __all__ = ["FunctionalOptimizer", "functional_optimizer",
 # ---------------------------------------------------------------------------
 class Sharding(namedtuple("Sharding", "mesh spec")):
     """The port's ``NamedSharding``: a mesh and a spec, one entry a
-    dimension (None, an axis name or a tuple of them; ``()`` replicates).
-    Only replicated params and batches sharded on their rows exist."""
+    dimension (None, an axis name or a tuple of them; ``()`` replicates):
+    a batch sharded on its rows over the data axes, a parameter on one dim
+    over the mp axis (:func:`param_shardings`)."""
 
 
 def replicated(mesh):
@@ -68,10 +73,11 @@ class ShardingRuleError(MXNetError):
 
 def param_shardings(params, mesh, rules=None):
     """Param name -> :class:`Sharding` by ordered ``(regex, spec)`` rules,
-    the first match winning, replicated by default. A matched rule that
-    cannot apply raises :class:`ShardingRuleError`; one that shards a
-    parameter raises :class:`MXNetError`: tensor parallelism is not
-    ported."""
+    the first match winning, replicated by default; ``params`` maps names
+    to arrays or shapes (whole ones), or to None before the shapes are
+    known (the specs alone, unchecked). A matched rule that cannot apply
+    (an axis the mesh lacks, a dim the axis size does not divide) raises
+    :class:`ShardingRuleError` naming the parameter and the rule."""
     out = {}
     for name, v in params.items():
         spec, rule_pat = (), None
@@ -79,18 +85,16 @@ def param_shardings(params, mesh, rules=None):
             if re.match(pat, name):
                 spec, rule_pat = tuple(sp), pat
                 break
-        if any(ax is not None for ax in spec):
-            problem = _spec_misfit(spec, tuple(v.shape), mesh)
+        sharded = any(ax is not None for ax in spec)
+        if sharded and v is not None:
+            shape = tuple(getattr(v, "shape", v))
+            problem = _spec_misfit(spec, shape, mesh)
             if problem is not None:
                 raise ShardingRuleError(
                     "param_shardings: rule (%r, %s) matched parameter %r "
                     "with shape %s but cannot apply: %s"
-                    % (rule_pat, spec, name, tuple(v.shape), problem))
-            raise MXNetError(
-                "param_shardings: rule (%r, %s) shards parameter %r: "
-                "sharding a parameter over a mesh axis (tensor parallelism) "
-                "is not ported" % (rule_pat, spec, name))
-        out[name] = replicated(mesh)
+                    % (rule_pat, spec, name, shape, problem))
+        out[name] = Sharding(mesh, spec) if sharded else replicated(mesh)
     return out
 
 
@@ -395,9 +399,22 @@ class TrainStep:
     all-gathered. :meth:`logical_opt_state` gives the state back in the
     mesh-size independent layout checkpoints keep.
 
+    Tensor parallelism (a mesh with an ``mp`` or ``tp`` axis and
+    ``param_rules`` that shard over it): :meth:`place` takes whole params,
+    broadcasts rank 0's and keeps this rank's block of each sharded one and
+    of its optimizer state (gradients come in that layout too), so a
+    rank's parameter bytes at rest are about 1/mp of the sharded ones. The
+    graph runs under ``symbol_mp.ShardPlan`` (the Megatron pair, every
+    other use gathered); replicated params stay bit for bit equal on the
+    ranks. :meth:`whole_params` and :meth:`logical_opt_state` gather the
+    blocks back (collectives over the mp group). ZeRO composes: its rows
+    cover the replicated params over the data axes, the sharded ones keep
+    their blocks. :meth:`record_memory_stats` also publishes the
+    profiler's ``mp_stats`` gauge on such a mesh.
+
     Entry points run on ``cuda`` unless given ``device="cpu"`` (or a mesh on
-    the CPU). A ``zero_wire`` other than raw and a parameter sharded by
-    ``param_rules`` raise :class:`MXNetError` naming the option.
+    the CPU). A ``zero_wire`` other than raw raises :class:`MXNetError`
+    naming the option, and so does a remat mode with sharded params.
     """
 
     _SENT = "__sentinel_state__"
@@ -434,14 +451,8 @@ class TrainStep:
         self.param_rules = list(param_rules or [])
         self._group, self._n, self._index = None, 1, 0
         if mesh is not None:
-            from .mesh import _mp_axis, data_group, mesh_device
+            from .mesh import data_group, mesh_device
 
-            if _mp_axis(mesh.mesh_dim_names):
-                raise MXNetError(
-                    "TrainStep(mesh=%r): sharding a symbol's parameters over "
-                    "an mp/tp axis (param_rules) is not ported yet (ROADMAP.md "
-                    "Queue A item 8b); the transformer's Megatron sharding is "
-                    "models.transformer.make_train_step(mesh=)" % (mesh,))
             self._group, self._n, self._index = data_group(mesh,
                                                            self.data_axes)
             mdev = mesh_device(mesh)
@@ -510,8 +521,19 @@ class TrainStep:
             remat_names = plan.save
             if self.remat == "pass":
                 self._remat_plan = plan
+        from .symbol_mp import ShardPlan
+
+        self._plan = None if mesh is None else ShardPlan.from_shardings(
+            mesh, param_shardings(dict.fromkeys(self.param_names), mesh,
+                                  self.param_rules))
+        if self._plan is not None and self.remat is not False:
+            raise MXNetError(
+                "TrainStep: remat=%r with param_rules that shard parameters "
+                "over the mp axis is not ported" % (self.remat,))
+        self._whole_shapes = {}
         self._graph = _graph_closure(symbol, is_train=True,
-                                     remat_names=remat_names)
+                                     remat_names=remat_names,
+                                     shard_plan=self._plan)
         self._owned = _fused_owned(symbol, self.param_names) \
             if mesh is not None else set()
         if mesh is not None:
@@ -563,6 +585,9 @@ class TrainStep:
         optimizer state of each planned param becomes this rank's ``(1,
         chunk)`` row: from the logical layout (a fresh init, a checkpoint
         saved on any mesh size) or kept when it is in that layout already.
+        With sharded params, each one's whole tensor (and each optimizer
+        state leaf of its shape) becomes this rank's block; blocks placed
+        already are kept. The first ``place`` takes whole params.
         Publishes :meth:`memory_stats` to the profiler."""
         params, opt_state, aux = (
             {k: self._on_device(v) for k, v in d.items()}
@@ -570,8 +595,12 @@ class TrainStep:
         if self.mesh is not None:
             from .mesh import broadcast_flat_
 
-            broadcast_flat_(list(params.values()) + list(aux.values()),
-                            self._group)
+            if self._plan is None:
+                broadcast_flat_(list(params.values()) + list(aux.values()),
+                                self._group)
+            else:
+                params, opt_state = self._place_shards(params, opt_state,
+                                                       aux)
             opt_state = self._opt_state_to_zero(opt_state,
                                                 self.zero_plan(params))
         step_no = 0
@@ -581,21 +610,82 @@ class TrainStep:
         self.record_memory_stats(carry)
         return carry
 
+    # -- tensor parallelism --------------------------------------------------
+    def _place_shards(self, params, opt_state, aux):
+        """Rank 0's whole params and aux on every rank, then this rank's
+        block of each sharded param and of each optimizer-state leaf of its
+        whole shape; blocks already in place are kept (and broadcast over
+        the data group, whose ranks hold the same blocks)."""
+        import torch.distributed as dist
+
+        from .mesh import broadcast_flat_
+
+        plan = self._plan
+        if not self._whole_shapes:
+            param_shardings(params, self.mesh, self.param_rules)
+            self._whole_shapes = {k: tuple(v.shape)
+                                  for k, v in params.items()}
+        held = set()
+        for k in plan.dims:
+            if k not in params:
+                continue
+            shape = tuple(params[k].shape)
+            if shape == self._whole_shapes[k]:
+                continue
+            if shape != plan.shard_shape(k, self._whole_shapes[k]):
+                raise MXNetError(
+                    "TrainStep.place: %r has shape %s, neither whole %s nor "
+                    "this rank's block %s" % (
+                        k, shape, self._whole_shapes[k],
+                        plan.shard_shape(k, self._whole_shapes[k])))
+            held.add(k)
+        world = dist.group.WORLD if dist.get_world_size() > 1 else None
+        broadcast_flat_([v for k, v in params.items() if k not in held]
+                        + list(aux.values()), world)
+        broadcast_flat_([params[k] for k in sorted(held)], self._group)
+        params = {k: v if k in held else plan.shard(k, v)
+                  for k, v in params.items()}
+
+        def block(k, x):
+            if tuple(x.shape) == self._whole_shapes.get(k):
+                return plan.shard(k, x)
+            return x
+
+        opt_state = {k: (type(v)(block(k, x) for x in v)
+                         if isinstance(v, (tuple, list)) else block(k, v))
+                     if k in plan.dims else v
+                     for k, v in opt_state.items()}
+        return params, opt_state
+
+    def whole_params(self, params):
+        """``params`` with each sharded one's whole tensor, gathered from
+        the mp group's blocks (a collective: every rank calls it); ``params``
+        itself without sharding."""
+        if self._plan is None:
+            return params
+        return {k: self._plan.unshard(k, v) if k in self._plan.dims
+                and tuple(v.shape) != self._whole_shapes.get(k) else v
+                for k, v in params.items()}
+
     # -- weight-update sharding (ZeRO) ---------------------------------------
     def zero_plan(self, params, param_rules=None):
         """``{name: (shape, size, num_shards, chunk)}`` of every param whose
         update shards over the data axes: replicated by the rules, at least
         ``zero_min_size`` (and ``num_shards``) elements. Empty when zero is
-        off or the data group has one rank."""
+        off or the data group has one rank. The params the rules shard over
+        the mp axis keep their blocks."""
         if not self.zero or self.mesh is None or self._n <= 1:
             return {}
         rules = self.param_rules if param_rules is None else param_rules
-        param_shardings(params, self.mesh, rules)
+        sharded = {k for k, sh in param_shardings(params, self.mesh,
+                                                  rules).items()
+                   if sh.spec}
         n, plan = self._n, {}
         for k, v in params.items():
             shape = tuple(v.shape)
             size = int(np.prod(shape)) if shape else 0
-            if not shape or size < max(self.zero_min_size, n):
+            if not shape or k in sharded or size < max(self.zero_min_size,
+                                                          n):
                 continue
             plan[k] = (shape, size, n, -(-size // n))
         return plan
@@ -638,7 +728,8 @@ class TrainStep:
         restore), and under ZeRO each planned param's rows are all-gathered
         (a collective: every rank calls it), un-padded and reshaped to the
         param's shape, so a state saved under ``zero=True`` on N ranks
-        restores bit for bit under ``zero=False`` or any mesh size."""
+        restores bit for bit under ``zero=False`` or any mesh size. A
+        sharded param's blocks are gathered whole (over the mp group)."""
         plan = self.zero_plan(params, param_rules) if params is not None \
             else {}
         out = {}
@@ -660,6 +751,19 @@ class TrainStep:
 
             out[k] = type(v)(full(x) for x in v) \
                 if isinstance(v, (tuple, list)) else full(v)
+        if self._plan is not None:
+            plan = self._plan
+
+            def whole(k, x):
+                want = self._whole_shapes.get(k)
+                if want is None or tuple(x.shape) == want:
+                    return x
+                return plan.unshard(k, x)
+
+            out = {k: (type(v)(whole(k, x) for x in v)
+                       if isinstance(v, (tuple, list)) else whole(k, v))
+                   if k in plan.dims else v
+                   for k, v in out.items()}
         return out
 
     # -- memory ----------------------------------------------------------------
@@ -695,10 +799,28 @@ class TrainStep:
                 "num_shards": n}
 
     def record_memory_stats(self, carry):
-        """Publish :meth:`memory_stats` to the profiler's memory gauge."""
+        """Publish :meth:`memory_stats` to the profiler's memory gauge; on a
+        mesh with an mp axis of more than one rank also the ``mp_stats``
+        gauge, as the JAX package's Module records it: the mesh's sizes and
+        this rank's parameter bytes and live bytes (params, optimizer state
+        and aux) at rest."""
         from .. import profiler
+        from .mesh import _mp_axis, mesh_shape
 
-        profiler.memory_record(**self.memory_stats(carry))
+        ms = self.memory_stats(carry)
+        profiler.memory_record(**ms)
+        if self.mesh is None:
+            return
+        sizes = mesh_shape(self.mesh)
+        mp = sizes.get(_mp_axis(sizes), 1)
+        if mp > 1:
+            group = int(np.prod(list(sizes.values())))
+            profiler.mp_record(
+                mp_size=mp, dp_size=group // mp, group_size=group,
+                param_bytes_per_chip=ms["param_bytes_per_dev"],
+                live_bytes_per_chip=(ms["param_bytes_per_dev"]
+                                     + ms["opt_bytes_per_dev"]
+                                     + ms["aux_bytes_per_dev"]))
 
     # -- the sentinel's counters ---------------------------------------------
     def _sentinel_init(self):
@@ -918,9 +1040,17 @@ class TrainStep:
         finite sum of squared gradients (f32). A ZeRO row's squares are
         summed over the group, so the word is the same on every rank."""
         gsq = torch.zeros((), dtype=torch.float32, device=loss.device)
+        sharded = self._plan.dims if self._plan is not None else ()
         for k, g in grads.items():
-            if k not in plan:
+            if k not in plan and k not in sharded:
                 gsq = gsq + torch.sum(torch.square(g.float()))
+        if sharded:
+            from .mesh import all_reduce_
+
+            part = torch.zeros((), dtype=torch.float32, device=loss.device)
+            for k in sharded:
+                part = part + torch.sum(torch.square(grads[k].float()))
+            gsq = gsq + all_reduce_(part, self._plan.tp[0])
         if plan:
             from .mesh import all_reduce_
 
@@ -989,6 +1119,12 @@ class TrainStep:
                           if v.is_floating_point()]
                 p_ok = torch.stack(finite).all() if finite \
                     else f_loss.new_ones(())
+                if self._plan is not None:
+                    # a rank checks only its blocks: the word must agree
+                    from .mesh import all_reduce_
+
+                    p_ok = all_reduce_((~p_ok).to(torch.int32),
+                                       self._plan.tp[0]) == 0
                 healthy = f_loss & f_grad & p_ok
                 if before is not None:
                     for new, old in before:

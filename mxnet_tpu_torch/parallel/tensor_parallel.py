@@ -13,8 +13,16 @@ functions keep the gradients right under that convention:
   out-projection, ffn-down) and the vocab-sharded embedding: the sum over
   the group forward; the identity backward, since the sum's cotangent is
   every term's.
-- :func:`gather_from_mp`: the shards of the last dim concatenated in rank
-  order forward; backward, the rank's own slice of the cotangent.
+- :func:`gather_from_mp`: the shards of one dim (the last by default)
+  concatenated in rank order forward; backward, the rank's own slice of
+  the cotangent. A symbol's sharded parameter is gathered so at each use
+  that is not half of a Megatron pair (``parallel/symbol_mp.py``): every
+  rank computes the same replicated value from the whole tensor, so the
+  slice of its cotangent is the shard's gradient.
+- :func:`scatter_to_mp`: the conjugate of the gather, the rank's slice of
+  a replicated tensor forward; backward, the slices' cotangents gathered,
+  so a replicated parameter read by a column-parallel product (a bias
+  that no rule shards) gets its whole gradient on every rank.
 
 :func:`reduce_from_data` is the sum of the loss's partial sum and count
 over the data axes, with the identity backward: each data rank's gradient
@@ -32,7 +40,9 @@ nothing) or the ``(group, n, index)`` of :func:`.mesh.model_group`. Each
 function adds one to its ``calls`` whenever ``tp`` is given, also for a
 group of one rank, as a JAX psum over a size-1 axis is still a psum in the
 jaxpr (``block_collective_counts`` reads the counts). On a ``meta`` tensor
-nothing is sent: the result has the shape alone.
+nothing is sent: the result has the shape alone. :func:`wire_bytes` counts
+the bytes each function's collectives send from this rank, forward and
+backward (the buffer's bytes a call).
 """
 from __future__ import annotations
 
@@ -42,7 +52,13 @@ import torch.distributed as dist
 from .mesh import all_reduce_
 
 __all__ = ["copy_to_mp", "reduce_from_mp", "gather_from_mp",
-           "reduce_from_data"]
+           "scatter_to_mp", "reduce_from_data"]
+
+_BYTES = {}
+
+
+def _sent(name, t):
+    _BYTES[name] = _BYTES.get(name, 0) + t.numel() * t.element_size()
 
 
 def _dense(t):
@@ -58,31 +74,53 @@ class _Copy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        _sent("copy_to_mp", g)
         return all_reduce_(_dense(g), ctx.group), None
 
 
 class _Sum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group):
+    def forward(ctx, t, group, name):
+        _sent(name, t)
         return all_reduce_(_dense(t), group)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
+
+
+def _all_gather(t, group, n, dim):
+    """The group's tensors concatenated along ``dim`` in rank order."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group, n, index):
-        ctx.index, ctx.width = index, t.shape[-1]
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t, group=group)
-        return torch.cat(parts, dim=-1)
+    def forward(ctx, t, group, n, index, dim):
+        ctx.index, ctx.width, ctx.dim = index, t.shape[dim], dim
+        _sent("gather_from_mp", t)
+        return _all_gather(t, group, n, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(-1, ctx.index * ctx.width, ctx.width), None, None, \
+        return g.narrow(ctx.dim, ctx.index * ctx.width, ctx.width), None, \
+            None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, n, index, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        width = t.shape[dim] // n
+        return t.narrow(dim, index * width, width).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        _sent("scatter_to_mp", g)
+        return _all_gather(g, ctx.group, ctx.n, ctx.dim), None, None, None, \
             None
 
 
@@ -105,37 +143,71 @@ def reduce_from_mp(t, tp):
     if tp is None:
         return t
     reduce_from_mp.calls += 1
-    return _Sum.apply(t, tp[0]) if _live(t, tp[0]) else t
+    return _Sum.apply(t, tp[0], "reduce_from_mp") if _live(t, tp[0]) else t
 
 
-def gather_from_mp(t, tp):
-    """The mp group's shards of the last dim, concatenated in rank order;
-    backward keeps this rank's slice of the cotangent."""
+def gather_from_mp(t, tp, dim=-1):
+    """The mp group's shards of ``dim`` (the last by default), concatenated
+    in rank order; backward keeps this rank's slice of the cotangent."""
     if tp is None:
         return t
     gather_from_mp.calls += 1
     group, n, index = tp
+    dim = dim % t.dim()
     if not _live(t, group):
-        return t if n == 1 else t.new_empty(*t.shape[:-1], t.shape[-1] * n)
-    return _Gather.apply(t, group, n, index)
+        if n == 1:
+            return t
+        shape = list(t.shape)
+        shape[dim] *= n
+        return t.new_empty(shape)
+    return _Gather.apply(t, group, n, index, dim)
+
+
+def scatter_to_mp(t, tp, dim=-1):
+    """This rank's slice of ``dim`` of a replicated tensor; backward
+    gathers the slices' cotangents over the mp group."""
+    if tp is None:
+        return t
+    scatter_to_mp.calls += 1
+    group, n, index = tp
+    dim = dim % t.dim()
+    if n == 1:
+        return t
+    if not _live(t, group):
+        width = t.shape[dim] // n
+        return t.narrow(dim, index * width, width)
+    return _Scatter.apply(t, group, n, index, dim)
 
 
 def reduce_from_data(t, group):
     """The sum over the data group (``None``: one rank); the identity
     backward."""
     reduce_from_data.calls += 1
-    return _Sum.apply(t, group) if _live(t, group) else t
+    return _Sum.apply(t, group, "reduce_from_data") if _live(t, group) \
+        else t
+
+
+_FUNCTIONS = (copy_to_mp, reduce_from_mp, gather_from_mp, scatter_to_mp,
+              reduce_from_data)
 
 
 def counts():
-    """``{name: calls}`` of the four functions."""
-    return {f.__name__: f.calls for f in (copy_to_mp, reduce_from_mp,
-                                          gather_from_mp, reduce_from_data)}
+    """``{name: calls}`` of the five functions."""
+    return {f.__name__: f.calls for f in _FUNCTIONS}
+
+
+def wire_bytes():
+    """``{name: bytes}`` this rank's collectives sent, by function, since
+    :func:`reset_counts`: the forward's buffer for ``reduce_from_mp``,
+    ``reduce_from_data`` and ``gather_from_mp``, the backward's for
+    ``copy_to_mp`` and ``scatter_to_mp``."""
+    return {f.__name__: _BYTES.get(f.__name__, 0) for f in _FUNCTIONS}
 
 
 def reset_counts():
-    for f in (copy_to_mp, reduce_from_mp, gather_from_mp, reduce_from_data):
+    for f in _FUNCTIONS:
         f.calls = 0
+    _BYTES.clear()
 
 
 reset_counts()

@@ -531,6 +531,11 @@ class GenerateServer:
     while every other rank runs ``predictor.follow()``; :meth:`close`
     releases them. A failed sharded call (a follower died) ends the
     decode loop with the error, which every pending request gets.
+    Speculative decoding on a sharded predictor takes the self-draft
+    (``draft`` layers, ``GenerativePredictor.self_draft``): it holds views
+    of the target's blocks, and each of its calls reaches the followers
+    through the target's lockstep as an op of its own. An explicit
+    ``draft_config``/``draft_params`` there raises (not ported).
     """
 
     FINISH_EOS = "eos"
@@ -559,11 +564,12 @@ class GenerateServer:
             if draft is None else int(draft)
         mesh = pred_kwargs.get("mesh") if predictor is None \
             else predictor.mesh
-        if self._spec_k > 0 and mesh is not None:
+        if self._spec_k > 0 and mesh is not None and (
+                draft_config is not None or draft_params is not None):
             raise GenerateError(
                 "GenerateServer: speculative decoding (spec_k=%d) on a "
-                "sharded predictor is not ported yet (ROADMAP.md Queue A "
-                "item 8b)" % self._spec_k)
+                "sharded predictor with draft_config=/draft_params= is not "
+                "ported: use the self-draft (draft=N layers)" % self._spec_k)
         if admit_policy not in ("continuous", "drain"):
             raise GenerateError("GenerateServer: admit_policy must be "
                                 "continuous|drain, got %r" % admit_policy)
@@ -601,20 +607,17 @@ class GenerateServer:
                         "set MXNET_GENERATE_DRAFT >= 1 (self-draft layer "
                         "count) or pass draft_config=/draft_params="
                         % self._spec_k)
-                from ..models.transformer import draft_from_layers
-
+                # the self-draft's tensors are views of the target's fp32
+                # params (its blocks on a mesh): the draft copies nothing
                 try:
-                    draft_config, draft_params = draft_from_layers(
-                        predictor.config, predictor._params, draft_layers)
+                    self._draft = predictor.self_draft(draft_layers)
                 except ValueError as e:
                     raise GenerateError("GenerateServer: %s" % e)
-            # the self-draft's tensors are views of the target's fp32
-            # params on the same device: the predictor keeps them as they
-            # are, so the draft copies nothing
-            self._draft = GenerativePredictor(
-                draft_config, draft_params, slots=predictor.slots,
-                page_size=predictor.page_size, pool_bytes=0,
-                max_ctx=predictor.max_ctx, device=predictor.device)
+            else:
+                self._draft = GenerativePredictor(
+                    draft_config, draft_params, slots=predictor.slots,
+                    page_size=predictor.page_size, pool_bytes=0,
+                    max_ctx=predictor.max_ctx, device=predictor.device)
 
         S, MP = predictor.slots, predictor.max_pages_per_slot
         self._slot_req = [None] * S

@@ -37,15 +37,20 @@ health-driven draining, and zero-drop rolling checkpoint swap.
   ``replica:R:stall@req=N`` and ``router:drop@...`` drive each reaction
   path above at exact points.
 
-A sharded replica group (``group=`` with ``group_size`` > 1, one mesh
-across processes) is not ported and raises by name (ROADMAP.md Queue A
-item 8b); the router still gates the groups a JAX package's replicas
-publish.
+- **Sharded replica groups.** A group (``group=``, ``group_size`` > 1)
+  is the ranks of one sharded predictor's mesh, one process a rank:
+  ``AOTPredictor(mesh=, param_rules=)`` on every member, the rules read
+  from ``MXNET_MP_RULES`` by ``fleet replica``; the member of
+  ``group_rank`` 0 serves, the others publish their rank and state and
+  follow its calls (``AOTPredictor.follow``). The router routes to the
+  leader only while every member is alive and serving, so one member's
+  death or drain drains the whole group.
 
 Entry points::
 
     python -m mxnet_tpu_torch.serving.fleet replica --prefix ckpt \\
-        --epoch 0 --data-shape data:1,128 [--device cuda|cpu]
+        --epoch 0 --data-shape data:1,128 [--device cuda|cpu] \\
+        [--group g --group-size N --group-rank R --group-init tcp://h:p]
     python -m mxnet_tpu_torch.serving.fleet router status|drain|swap|stop
     python -m mxnet_tpu_torch.serving.fleet autoscaler --tracker host:port
 
@@ -80,7 +85,7 @@ from .broker import (
     ServerClosed,
     ServerOverloaded,
 )
-from .predictor import ServingError
+from .predictor import AOTPredictor, ServingError
 from .qos import QosPolicy, TenantQuotaExceeded
 
 #: the resumable exit status of a SIGTERMed replica (the JAX package's
@@ -227,8 +232,7 @@ class ReplicaServer:
         # a sharded replica group: ``group`` names the mesh-sharing
         # member set, which the router routes to through its leader
         # (group_rank 0) only while all group_size members publish alive
-        # and serving. A group of more than one member shares one mesh
-        # across processes, which the port does not have yet.
+        # and serving
         if group is not None:
             group_size = int(group_size)
             group_rank = int(group_rank)
@@ -239,11 +243,6 @@ class ReplicaServer:
                 raise FleetError(
                     "ReplicaServer: group_rank %d outside the group "
                     "of %d member(s)" % (group_rank, group_size))
-            if group_size > 1:
-                raise FleetError(
-                    "ReplicaServer: a sharded replica group (group_size "
-                    "%d) is not ported yet (ROADMAP.md Queue A item 8b)"
-                    % group_size)
         self._group = group
         self._group_size = int(group_size)
         self._group_rank = int(group_rank)
@@ -1214,15 +1213,26 @@ def _replica_main(argv):
                     help="sharded replica group name: all members of one "
                          "mesh publish the same group; the router routes "
                          "only to its rank-0 leader while every member is "
-                         "alive (a group of more than one member raises: "
-                         "not ported)")
-    ap.add_argument("--group-size", type=int, default=1)
+                         "alive and serving")
+    ap.add_argument("--group-size", type=int, default=1,
+                    help="members of the group: with more than one, the "
+                         "members are the ranks of one mesh (mp = size) "
+                         "serving one sharded predictor")
     ap.add_argument("--group-rank", type=int, default=0)
+    ap.add_argument("--group-init", default=None,
+                    help="the group's rendezvous, tcp://host:port (default: "
+                         "MASTER_ADDR/MASTER_PORT from the environment)")
     args = ap.parse_args(argv)
-    if args.group is not None and args.group_size > 1:
-        raise FleetError("--group-size %d: a sharded replica group is not "
-                         "ported yet (ROADMAP.md Queue A item 8b)"
-                         % args.group_size)
+    sharded = args.group is not None and args.group_size > 1
+    init = args.group_init
+    if sharded and init is None:
+        host = os.environ.get("MASTER_ADDR")
+        port = os.environ.get("MASTER_PORT")
+        if not (host and port):
+            raise FleetError("--group-size %d: the group needs a rendezvous "
+                             "(--group-init tcp://host:port, or MASTER_ADDR/"
+                             "MASTER_PORT)" % args.group_size)
+        init = "tcp://%s:%s" % (host, port)
 
     if args.pin_core is not None and hasattr(os, "sched_setaffinity"):
         try:
@@ -1236,16 +1246,22 @@ def _replica_main(argv):
                                                      args.epoch)
     ladder = tuple(int(b) for b in args.ladder.split(",")) \
         if args.ladder else None
-    server = ModelServer(ladder=ladder, dtype=args.dtype, device=args.device)
-    server.add_model(args.model, symbol=symbol, arg_params=arg_params,
-                     aux_params=aux_params,
-                     data_shapes=_parse_data_shapes(args.data_shape))
-    # run the smallest bucket once before admitting traffic, so the first
-    # routed request does not pay for lazy module loading
     shapes = _parse_data_shapes(args.data_shape)
-    warm = {n: np.zeros((1,) + tuple(s[1:]), np.float32)
-            for n, s in shapes.items()}
-    server.predict(args.model, warm)
+    server = ModelServer(ladder=ladder, dtype=args.dtype, device=args.device)
+    predictor = None
+    if sharded:
+        predictor = _group_predictor(args, init, symbol, arg_params,
+                                     aux_params, shapes,
+                                     ladder or server._ladder)
+    if args.group_rank == 0 or not sharded:
+        server.add_model(args.model, symbol=symbol, arg_params=arg_params,
+                         aux_params=aux_params, data_shapes=shapes,
+                         predictor=predictor)
+        # run the smallest bucket once before admitting traffic, so the
+        # first routed request does not pay for lazy module loading
+        warm = {n: np.zeros((1,) + tuple(s[1:]), np.float32)
+                for n, s in shapes.items()}
+        server.predict(args.model, warm)
 
     rank = os.environ.get("DMLC_REPLICA_ID")
     restart = int(os.environ.get("DMLC_RESTART_COUNT", "0") or 0)
@@ -1268,9 +1284,34 @@ def _replica_main(argv):
     print("replica rank=%s listening on %s (model=%r pid=%d)"
           % (replica.rank, replica.addr, args.model, os.getpid()),
           flush=True)
+    if sharded and args.group_rank != 0:
+        # a follower: publish, and run the leader's calls until it closes
+        replica.serve_in_background()
+        predictor.follow()
+        replica.shutdown()
+        return exit_code[0]
     replica.serve_forever()
     replica.shutdown()
+    if predictor is not None:
+        predictor.close()
     return exit_code[0]
+
+
+def _group_predictor(args, init, symbol, arg_params, aux_params, shapes,
+                     ladder):
+    """This member's rank of the group's sharded predictor: a gloo process
+    group of the members (ranks may share a card), ``train_mesh(mp=size)``
+    over it, ``AOTPredictor(mesh=, param_rules=MXNET_MP_RULES)``."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import train_mesh
+
+    dist.init_process_group("gloo", init_method=init, rank=args.group_rank,
+                            world_size=args.group_size)
+    mesh = train_mesh(mp=args.group_size, device=args.device)
+    return AOTPredictor(symbol, arg_params, aux_params, data_shapes=shapes,
+                        ladder=ladder, dtype=args.dtype, mesh=mesh,
+                        param_rules=config.get("MXNET_MP_RULES"))
 
 
 def _router_main(argv):

@@ -15,7 +15,7 @@
   ``extend`` runs T tokens a slot (a prefix-matched prompt's tail, or a
   speculative verify). With ``mesh=`` the model is sharded Megatron's way
   over the mesh's ``mp`` axis and every rank runs each call in lockstep
-  with the leader (:class:`_Lockstep`).
+  with the leader (:class:`.lockstep.Lockstep`).
 
 Page 0 of the cache is the scratch page: never handed out, it absorbs
 writes from inactive slots and padded prompt tails, so every step keeps a
@@ -23,18 +23,17 @@ static shape without corrupting live pages.
 """
 from __future__ import annotations
 
-import datetime
 import threading
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from .. import config, profiler
 from ..base import MXNetError
 from ..context import resolve_device
 from ..models import transformer as tfm
 from ..parallel.mesh import _mp_axis, mesh_device, mesh_shape
+from .lockstep import Lockstep
 from .predictor import ServingError
 
 
@@ -353,66 +352,12 @@ class PrefixIndex:
                     "max_pages": self.max_pages}
 
 
-# the lockstep's ops on the wire
-_CLOSE, _PREFILL, _DECODE, _EXTEND = range(4)
+# the lockstep's ops on the wire (``lockstep.CLOSE`` is 0): a sharded
+# self-draft's calls are the same ops plus _DRAFT_OPS, and _SELF_DRAFT
+# makes the draft on every rank
+_PREFILL, _DECODE, _EXTEND, _SELF_DRAFT = range(1, 5)
+_DRAFT_OPS = 8
 _OP_NAMES = {_PREFILL: "prefill", _DECODE: "decode", _EXTEND: "extend"}
-_HEADER = 2 + 2 * 4          # op, array count, then (rows, cols) of each
-# the leader's sends give up after this long (a follower that died closes
-# its connections, which fails a send at once); a follower waits for the
-# next call as long as the leader lives
-_SEND_TIMEOUT = datetime.timedelta(seconds=60)
-_WAIT_TIMEOUT = datetime.timedelta(days=30)
-
-
-class _Lockstep:
-    """The control plane of a predictor sharded over a mesh, one process a
-    rank: the mesh's global rank 0 (the leader) serves, and before each
-    call broadcasts an op header and the call's integer arrays over a gloo
-    group of its own (CPU tensors, whatever backend the mesh's collectives
-    run on); every other rank receives them in
-    :meth:`GenerativePredictor.follow` and runs the same call, so the
-    collectives inside it meet. With dp > 1 every mp group computes the
-    same call."""
-
-    def __init__(self):
-        self.leader = dist.get_rank() == 0
-        self.group = dist.new_group(backend="gloo", timeout=_SEND_TIMEOUT)
-        self.closed = False
-        self.broken = None          # the error that broke the lockstep
-
-    def _bcast(self, t, timeout):
-        opts = dist.BroadcastOptions()
-        opts.rootRank, opts.rootTensor, opts.timeout = 0, 0, timeout
-        self.group.broadcast([t], opts).wait()
-
-    def send(self, op, arrays):
-        """Broadcast ``op`` and ``arrays`` (2-D int arrays) to the mesh."""
-        header = np.zeros(_HEADER, np.int64)
-        header[:2] = op, len(arrays)
-        for i, a in enumerate(arrays):
-            header[2 + 2 * i:4 + 2 * i] = a.shape
-        self._bcast(torch.from_numpy(header), _SEND_TIMEOUT)
-        if arrays:
-            self._bcast(torch.from_numpy(np.concatenate(
-                [np.asarray(a, np.int64).reshape(-1) for a in arrays])),
-                _SEND_TIMEOUT)
-
-    def recv(self):
-        """``(op, arrays)`` of the leader's next call."""
-        header = torch.zeros(_HEADER, dtype=torch.int64)
-        self._bcast(header, _WAIT_TIMEOUT)
-        op, n = (int(x) for x in header[:2])
-        shapes = header[2:2 + 2 * n].view(n, 2).tolist()
-        arrays = []
-        if n:
-            flat = torch.zeros(sum(r * c for r, c in shapes),
-                               dtype=torch.int64)
-            self._bcast(flat, _SEND_TIMEOUT)
-            off = 0
-            for r, c in shapes:
-                arrays.append(flat[off:off + r * c].view(r, c).numpy())
-                off += r * c
-        return op, arrays
 
 
 class GenerativePredictor:
@@ -452,11 +397,14 @@ class GenerativePredictor:
         every call (``prefill``, ``decode``, ``extend``, ``extend_tail``:
         each returns the whole vocabulary's logits) and closes the
         predictor (:meth:`close`); every other rank runs :meth:`follow`
-        until then. Mutually exclusive with ``device``.
+        until then. Mutually exclusive with ``device``. The leader's
+        :meth:`self_draft` makes a speculative draft of the first layers
+        on every rank, whose calls go through the same lockstep.
     """
 
     def __init__(self, config_, params, *, slots=None, page_size=None,
-                 pool_bytes=None, max_ctx=None, device=None, mesh=None):
+                 pool_bytes=None, max_ctx=None, device=None, mesh=None,
+                 _lockstep=None):
         if mesh is not None and device is not None:
             raise GenerateError(
                 "GenerativePredictor: pass mesh= OR device=, not both (a "
@@ -512,6 +460,10 @@ class GenerativePredictor:
                                        dtype=torch.float32)
                 for k, v in params.items()}
             dev = self.device
+        elif _lockstep is not None:
+            # a sharded self-draft: the target's own blocks
+            self._params = dict(params)
+            dev = None
         else:
             self._params = tfm.shard_params(params, c, mesh)
             dev = None
@@ -522,7 +474,11 @@ class GenerativePredictor:
                                           self.max_pages_per_slot,
                                           self.page_size, dev, mesh)
         self._extends = {}         # (slots, steps) -> extend function
-        self._lockstep = None if mesh is None else _Lockstep()
+        # a draft shares its target's lockstep and sends its ops shifted
+        self._op_base = 0 if _lockstep is None else _DRAFT_OPS
+        self._lockstep = _lockstep if _lockstep is not None \
+            else None if mesh is None else Lockstep(GenerateError)
+        self._draft = None
 
         # prefill bucket ladder: page-aligned powers of two up to the
         # context bound
@@ -619,53 +575,76 @@ class GenerativePredictor:
         with self._lock:
             if ls is None:
                 return self._run(op, arrays).cpu().numpy()
-            if not ls.leader:
-                raise GenerateError(
-                    "%s: only the mesh's rank 0 calls a sharded predictor; "
-                    "the other ranks run follow()" % _OP_NAMES[op])
-            if ls.closed or ls.broken is not None:
-                raise GenerateError("%s: the sharded predictor is %s"
-                                    % (_OP_NAMES[op], "closed" if ls.closed
-                                       else "broken: %s" % ls.broken))
             arrays = tuple(np.asarray(a, np.int64) for a in arrays)
-            try:
-                ls.send(op, arrays)
-                return self._run(op, arrays).cpu().numpy()
-            except Exception as e:
-                ls.broken = e
-                raise GenerateError("%s: a sharded call failed (the lockstep "
-                                    "is broken): %s" % (_OP_NAMES[op], e)) \
-                    from e
+            return ls.lead(_OP_NAMES[op], op + self._op_base, arrays,
+                           lambda: self._run(op, arrays).cpu().numpy())
 
     def follow(self):
         """Run the leader's calls on this rank until the leader closes the
         predictor; returns ``{op: calls}``. Every rank but the mesh's rank
         0 calls it once, after making the predictor."""
         ls = self._lockstep
-        if ls is None or ls.leader:
+        if ls is None:
             raise GenerateError("follow: only the ranks but 0 of a sharded "
                                 "predictor follow")
         calls = dict.fromkeys(_OP_NAMES.values(), 0)
-        while True:
-            op, arrays = ls.recv()
-            if op == _CLOSE:
-                ls.closed = True
-                return calls
-            with self._lock:
-                self._run(op, arrays)
-            calls[_OP_NAMES[op]] += 1
+
+        def handle(op, arrays):
+            if op == _SELF_DRAFT:
+                self._make_draft(int(arrays[0][0, 0]))
+                calls["draft"] = 0
+            elif op >= _DRAFT_OPS:
+                with self._draft._lock:
+                    self._draft._run(op - _DRAFT_OPS, arrays)
+                calls["draft"] += 1
+            else:
+                with self._lock:
+                    self._run(op, arrays)
+                calls[_OP_NAMES[op]] += 1
+
+        ls.follow(handle)
+        return calls
+
+    def _make_draft(self, n_layers):
+        draft_config, draft_params = tfm.draft_from_layers(
+            self.config, self._params, n_layers)
+        self._draft = GenerativePredictor(
+            draft_config, draft_params, slots=self.slots,
+            page_size=self.page_size, pool_bytes=0, max_ctx=self.max_ctx,
+            device=self.device if self.mesh is None else None,
+            mesh=self.mesh, _lockstep=self._lockstep)
+        return self._draft
+
+    def self_draft(self, n_layers):
+        """The speculative draft of this predictor's first ``n_layers``
+        layers (``models.transformer.draft_from_layers``): its tensors are
+        views of this predictor's, its pool holds every slot's whole
+        context. On a sharded predictor the leader calls it once: the
+        followers make the same draft from their own blocks, and every
+        draft call reaches them through this predictor's lockstep as an op
+        of its own. Raises ``ValueError`` outside ``[1, n_layers]``."""
+        ls = self._lockstep
+        if ls is None:
+            return self._make_draft(n_layers)
+        with self._lock:
+            if self._draft is not None:
+                raise GenerateError("self_draft: this sharded predictor has "
+                                    "a draft already")
+            # a bad layer count raises here, before any follower hears of it
+            tfm.draft_from_layers(self.config, self._params, n_layers)
+            return ls.lead("self_draft", _SELF_DRAFT,
+                           (np.array([[int(n_layers)]], np.int64),),
+                           lambda: self._make_draft(n_layers))
 
     def close(self):
         """On the leader of a sharded predictor, release the followers
         (their :meth:`follow` returns); later calls raise. A no-op
-        otherwise, and once closed (or after a failed sharded call)."""
-        ls = self._lockstep
+        otherwise, and once closed (or after a failed sharded call); a
+        sharded self-draft leaves the lockstep to its target."""
+        if self._lockstep is None or self._op_base:
+            return
         with self._lock:
-            if ls is None or not ls.leader or ls.closed:
-                return
-            ls.closed = True
-            if ls.broken is None:
-                ls.send(_CLOSE, ())
+            self._lockstep.close()
 
     def extend_tail(self, tokens, start_pos, pages):
         """Prefill the uncovered TAIL of a prefix-matched prompt:

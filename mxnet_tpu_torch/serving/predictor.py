@@ -25,9 +25,20 @@ The JAX package's ``ExecutableCache`` (and so ``MXNET_SERVE_MAX_EXECUTABLES``)
 has no counterpart: PyTorch runs eagerly, so there is no compiled program
 per bucket to keep, and no cache key to carry an int8 bind's calibration
 fingerprint (the JAX ``_quant_fingerprint``): each predictor runs its own
-graph, whose ``_quantize_int8`` nodes carry their scales. Not ported yet:
-the sharded bind (``mesh=``) and the exact-shape bind (the JAX package's
-``ladder=None``; here ``ladder=None`` reads the knob).
+graph, whose ``_quantize_int8`` nodes carry their scales.
+
+**The sharded bind.** ``mesh=`` with ``param_rules`` shards the weights
+over the mesh's ``mp`` axis, one process a rank: every rank makes the
+predictor with the whole params and keeps its block of each sharded one
+(the rest whole), and every request runs the graph under
+``parallel.symbol_mp.ShardPlan`` (the Megatron pair, every other use of a
+sharded weight gathered at use). The mesh's rank 0 serves; the other ranks
+run :meth:`AOTPredictor.follow`, which receives each request batch through
+a lockstep (``serving.lockstep.Lockstep``) and runs the same program, so
+its collectives meet. Sharded weights are never folded.
+Not ported yet: ``swap_params`` and ``quant="int8"`` on a sharded bind
+(both raise), and the exact-shape bind (the JAX package's ``ladder=None``;
+here ``ladder=None`` reads the knob).
 """
 from __future__ import annotations
 
@@ -42,6 +53,9 @@ from .. import config
 from ..base import MXNetError, dtype_name, dtype_torch
 from ..context import resolve_device
 from ..executor import INFERENCE_SEED, eval_node
+
+# the sharded bind's lockstep op (``lockstep.CLOSE`` is 0)
+_RUN = 1
 
 
 class ServingError(MXNetError):
@@ -155,17 +169,36 @@ class AOTPredictor:
     predictor's device and quantizes every FC and 2-D convolution but the
     nodes named in ``quant_exclude``; ``quant_report`` and
     ``bind_stats["quantized_ops"]`` say what it did.
+
+    ``mesh`` (a ``parallel.make_mesh``/``train_mesh`` mesh) with
+    ``param_rules`` (``[(regex, spec)]`` or the ``MXNET_MP_RULES`` string)
+    binds the model sharded over the mesh's ``mp`` axis on this rank's mesh
+    device: every rank makes the predictor with the whole params, rank 0
+    calls it, the others run :meth:`follow` until rank 0's :meth:`close`.
+    A matched rule that cannot apply raises ``ShardingRuleError``.
+    :meth:`sharded_stats` gives the rank's parameter bytes. Mutually
+    exclusive with ``device``.
     """
 
     def __init__(self, symbol, arg_params=None, aux_params=None,
                  data_shapes=None, ladder=None, dtype="float32",
                  device=None, output_names=None, quant=None, mesh=None,
-                 calib_data=None, quant_exclude=()):
+                 calib_data=None, quant_exclude=(), param_rules=None):
         self._quant = _resolve_quant(quant)
-        if mesh is not None:
-            raise ServingError("AOTPredictor: mesh= (a symbol's sharded bind) "
-                               "is not ported yet (ROADMAP.md Queue A item "
-                               "8b)")
+        if mesh is not None and device is not None:
+            raise ServingError(
+                "AOTPredictor: pass mesh= OR device=, not both (the mesh "
+                "decides placement for a sharded bind)")
+        if mesh is not None and self._quant != "none":
+            raise ServingError("AOTPredictor: quant=%r on a sharded bind "
+                               "(mesh=) is not ported" % self._quant)
+        if isinstance(param_rules, str):
+            from ..parallel.spmd import parse_rules
+
+            param_rules = parse_rules(param_rules,
+                                      knob="AOTPredictor param_rules")
+        self._mesh = mesh
+        self._param_rules = list(param_rules or [])
         if not data_shapes:
             raise ServingError("AOTPredictor: data_shapes is required "
                                "({input_name: shape})")
@@ -178,7 +211,12 @@ class AOTPredictor:
             else validate_ladder(ladder)
         self._dtype = dtype_torch(dtype)
         self._dtype_name = dtype_name(dtype)
-        self.device = resolve_device(device)
+        if mesh is not None:
+            from ..parallel.mesh import mesh_device
+
+            self.device = mesh_device(mesh)
+        else:
+            self.device = resolve_device(device)
         self._lock = threading.Lock()
 
         arg_names = symbol.list_arguments()
@@ -223,7 +261,19 @@ class AOTPredictor:
             **self._bucket_shapes(self._ladder[0]))
         inferred = dict(zip(arg_names, arg_shapes))
         inferred.update(zip(aux_names, aux_shapes))
-        params = {}
+        self._shard_plan = self._lockstep = None
+        self._whole_bytes = 0
+        if mesh is not None:
+            from ..parallel.spmd import param_shardings
+            from ..parallel.symbol_mp import ShardPlan
+            from .lockstep import Lockstep
+
+            self._shard_plan = ShardPlan.from_shardings(
+                mesh, param_shardings({n: inferred[n]
+                                       for n in self._weight_names},
+                                      mesh, self._param_rules))
+            self._lockstep = Lockstep(ServingError)
+        params, shards = {}, {}
         for name in self._weight_names + self._bound_aux:
             arr = self._freeze_one(name, arg_params.get(
                 name, aux_params.get(name)))
@@ -231,14 +281,22 @@ class AOTPredictor:
                 raise ServingError(
                     "AOTPredictor: param %r has shape %s, the graph needs %s"
                     % (name, tuple(arr.shape), tuple(inferred[name])))
-            params[name] = arr
+            self._whole_bytes += arr.numel() * arr.element_size()
+            if self._shard_plan is not None \
+                    and name in self._shard_plan.dims:
+                shards[name] = self._shard_plan.shard(name, arr)
+            else:
+                params[name] = arr
+        self._shards = shards
 
         from ..ir import FoldPlan
 
         # extras are zero-filled per bucket (their shapes may carry the
-        # batch dim), so for folding they are dynamic, like real data
+        # batch dim), so for folding they are dynamic, like real data; so
+        # are the sharded weights, which no folded node may read whole
         self._plan = FoldPlan(symbol,
-                              set(self._data_names) | set(self._extra_names))
+                              set(self._data_names) | set(self._extra_names)
+                              | set(shards))
         self._fold_fn = self._plan.make_fold_fn()
         self._params = params
         with torch.inference_mode():
@@ -247,7 +305,7 @@ class AOTPredictor:
         self.bind_stats = {
             "folded_nodes": self._plan.folded_nodes,
             "dynamic_nodes": self._plan.dynamic_nodes,
-            "frozen_params": len(params),
+            "frozen_params": len(params) + len(shards),
             "zero_filled": list(self._extra_names),
             "ladder": self._ladder,
             "dtype": self._dtype_name,
@@ -285,12 +343,12 @@ class AOTPredictor:
         return got
 
     def _run(self, data_vals, consts, bucket):
-        plan = self._plan
+        plan, shard = self._plan, self._shard_plan
         nodes, node_ids, dyn = plan.nodes, plan.node_ids, plan.dyn
         const_index = plan.const_index
         zeros = {n: torch.zeros(s, dtype=torch.float32, device=self.device)
                  for n, s in self._zero_shapes(bucket).items()}
-        results = {}
+        results, layouts = {}, {}
 
         def val(entry):
             inp, idx = entry
@@ -298,6 +356,8 @@ class AOTPredictor:
                 name = inp.name
                 if name in data_vals:
                     return data_vals[name]
+                if name in self._shards:
+                    return self._shards[name]
                 if name in zeros:
                     return zeros[name]
                 return consts[const_index[("var", name)]]
@@ -306,12 +366,28 @@ class AOTPredictor:
                 return results[nid][idx]
             return consts[const_index[("node", nid, idx)]]
 
+        def layout(entry):
+            inp, idx = entry
+            if inp.is_variable():
+                return shard.var_layout(inp.name)
+            nid = node_ids[id(inp)]
+            return layouts[nid][idx] if nid in dyn else None
+
         for i, node in enumerate(nodes):
             if node.is_variable() or i not in dyn:
                 continue
-            results[i] = eval_node(node, [val(e) for e in node.inputs], False,
-                                   INFERENCE_SEED, i, self.device)
-        return [val(e) for e in plan.entries]
+            ins = [val(e) for e in node.inputs]
+            if shard is None:
+                results[i] = eval_node(node, ins, False, INFERENCE_SEED, i,
+                                       self.device)
+                continue
+            results[i], layouts[i] = shard.run_node(
+                node, ins, [layout(e) for e in node.inputs],
+                lambda xs, node=node, i=i: eval_node(
+                    node, xs, False, INFERENCE_SEED, i, self.device))
+        if shard is None:
+            return [val(e) for e in plan.entries]
+        return [shard.whole(val(e), layout(e)) for e in plan.entries]
 
     # -- request surface ----------------------------------------------------
     @property
@@ -373,7 +449,70 @@ class AOTPredictor:
 
     def run_bucket(self, inputs, bucket):
         """Run one assembled batch of exactly ``bucket`` rows; returns the
-        outputs as host numpy arrays, unsliced, float outputs as float32."""
+        outputs as host numpy arrays, unsliced, float outputs as float32.
+        On a sharded bind, rank 0 first sends the batch to the followers;
+        a failed send breaks the lockstep (later calls raise)."""
+        ls = self._lockstep
+        if ls is None:
+            return self._run_bucket(inputs, bucket)
+        if set(inputs) != set(self._data_names):
+            raise ServingError("AOTPredictor: a sharded call takes exactly "
+                               "the inputs %s, got %s"
+                               % (self._data_names, sorted(inputs)))
+        arrays = [np.asarray(inputs[n]) for n in self._data_names]
+        return ls.lead("AOTPredictor", _RUN,
+                       arrays + [np.array([bucket], np.int64)],
+                       lambda: self._run_bucket(inputs, bucket))
+
+    def follow(self):
+        """Run rank 0's requests on this rank until rank 0 closes the
+        predictor; returns the number run. Every rank of a sharded bind but
+        the mesh's rank 0 calls it once, after making the predictor."""
+        if self._lockstep is None:
+            raise ServingError("follow: only the ranks but 0 of a sharded "
+                               "predictor follow")
+        calls = [0]
+
+        def handle(op, arrays):
+            self._run_bucket(dict(zip(self._data_names, arrays[:-1])),
+                             int(arrays[-1][0]))
+            calls[0] += 1
+
+        self._lockstep.follow(handle)
+        return calls[0]
+
+    def close(self):
+        """On rank 0 of a sharded bind, release the followers (their
+        :meth:`follow` returns); later calls raise. A no-op otherwise, and
+        once closed (or after a failed sharded call)."""
+        if self._lockstep is not None:
+            self._lockstep.close()
+
+    def sharded_stats(self):
+        """This rank's bytes of a sharded bind, measured from its frozen
+        tensors: ``param_bytes_per_chip`` (its blocks of the sharded weights
+        and the whole others) beside ``param_bytes_total`` (every weight
+        whole), ``group_size`` (the mesh's ranks) and ``mp_size``; records
+        them into the profiler's ``mp_stats`` gauge. Raises without a
+        mesh."""
+        from .. import profiler
+        from ..parallel.mesh import _mp_axis, mesh_shape
+
+        if self._mesh is None:
+            raise ServingError("sharded_stats: predictor was not bound on a "
+                               "mesh (pass mesh= to the constructor)")
+        sizes = mesh_shape(self._mesh)
+        group = int(np.prod(list(sizes.values())))
+        mp = sizes.get(_mp_axis(sizes), 1)
+        per_chip = sum(t.numel() * t.element_size() for d in
+                       (self._params, self._shards) for t in d.values())
+        profiler.mp_record(group_size=group, mp_size=mp,
+                           param_bytes_per_chip=per_chip)
+        return {"group_size": group, "mp_size": mp,
+                "param_bytes_total": self._whole_bytes,
+                "param_bytes_per_chip": per_chip}
+
+    def _run_bucket(self, inputs, bucket):
         with self._lock:
             consts = self._consts
         with torch.inference_mode():
@@ -411,7 +550,10 @@ class AOTPredictor:
         """Atomically replace (a subset of) the frozen weights: refreeze,
         refold, publish the new constant set in one assignment. Shapes must
         match the bound ones; requests racing the swap see the old or the
-        new model, never a mix."""
+        new model, never a mix. A sharded bind raises (not ported)."""
+        if self._mesh is not None:
+            raise ServingError("swap_params on a sharded predictor (mesh=) "
+                               "is not ported: bind a new predictor")
         known = set(self._weight_names) | set(self._bound_aux)
         updates = {}
         for d in (arg_params, aux_params):

@@ -190,13 +190,21 @@ def test_fleet_knob_validation(monkeypatch):
         assert tconfig.KNOBS[name][0] == jconfig.KNOBS[name][0], name
 
 
-def test_sharded_group_raises_by_name():
+def test_sharded_group_raises_by_name(monkeypatch):
+    """A sharded group's member publishes its group; the replica command of
+    a group of more than one member needs the group's rendezvous and
+    raises, naming it, without one."""
     sym, args = _linear()
     srv = _server(sym, args)
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.delenv("MASTER_PORT", raising=False)
     try:
-        with pytest.raises(FleetError, match="item 8b"):
-            ReplicaServer(srv, group="g", group_size=2, group_rank=0)
-        with pytest.raises(FleetError, match="item 8b"):
+        rep = ReplicaServer(srv, group="g", group_size=2, group_rank=1)
+        info = rep._info()
+        assert (info["group"], info["group_size"], info["group_rank"]) == \
+            ("g", 2, 1)
+        rep.shutdown(close_server=False)
+        with pytest.raises(FleetError, match="rendezvous"):
             tfleet._replica_main(["--prefix", "x", "--data-shape",
                                   "data:1,5", "--group", "g",
                                   "--group-size", "2"])

@@ -236,8 +236,8 @@ def test_tpu_kvstore_raises_on_a_mesh_or_device_fault(fault, monkeypatch,
                                                       own_group):
     """Only what the fused step cannot mirror falls back to the
     per-executor path: a context that is not the rank's mesh device, or a
-    mesh the port cannot build (an ``mp`` axis), raises from
-    ``init_optimizer`` and trains nowhere."""
+    mesh the process group cannot hold (``MXNET_MP_SIZE=2`` over one
+    rank), raises from ``init_optimizer`` and trains nowhere."""
     from mxnet_tpu_torch.parallel import mesh as mesh_mod
 
     if fault == "device":
@@ -246,7 +246,7 @@ def test_tpu_kvstore_raises_on_a_mesh_or_device_fault(fault, monkeypatch,
         match = "mesh device is meta"
     else:
         monkeypatch.setenv("MXNET_MP_SIZE", "2")
-        match = "not ported"
+        match = "MXNET_MP_SIZE=2 must divide the world size 1"
     with pytest.raises(MXNetError, match=match):
         _one_rank_module()
 

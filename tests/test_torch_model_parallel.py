@@ -140,6 +140,26 @@ def test_mp_knob_validation(monkeypatch, own_group):
         with pytest.raises(MXNetError, match="divide"):
             train_mesh(mp=mp, device="cpu")
     assert train_mesh(mp=1, device="cpu").mesh_dim_names == ("dp",)
+    # MXNET_MP_SIZE > 1 through Module(kvstore='tpu'): the fused group
+    # builds train_mesh(mp=2), which one rank cannot hold; a malformed
+    # value names the knob there too
+    import mxnet_tpu_torch as tmx
+
+    for bad, match in (("2", "MXNET_MP_SIZE=2 must divide the world size 1"),
+                       ("x", "MXNET_MP_SIZE")):
+        monkeypatch.setenv("MXNET_MP_SIZE", bad)
+        with tmx.cpu():
+            d = tmx.sym.Variable("data")
+            net = tmx.sym.SoftmaxOutput(
+                tmx.sym.FullyConnected(d, num_hidden=4, name="fc1"),
+                name="softmax")
+            mod = tmx.mod.Module(net, context=tmx.cpu())
+            mod.bind(data_shapes=[("data", (4, 6))],
+                     label_shapes=[("softmax_label", (4,))])
+            mod.init_params()
+            with pytest.raises(MXNetError, match=match):
+                mod.init_optimizer(kvstore="tpu", optimizer="sgd")
+    monkeypatch.delenv("MXNET_MP_SIZE", raising=False)
 
 
 def test_mp_size_knob_builds_the_mesh(tmp_path):

@@ -134,7 +134,7 @@ def test_followers_run_every_call_and_exit_at_close(runs):
 def test_refusals_on_a_mesh(runs):
     ranks, _ref = runs
     errors = ranks[0]["errors"]
-    assert "item 8b" in errors["spec"] and "spec_k=2" in errors["spec"]
+    assert "draft_config" in errors["spec"] and "spec_k=2" in errors["spec"]
     assert "mesh= OR device=" in errors["device"]
     assert "closed" in errors["closed"]
 

@@ -621,3 +621,19 @@ def test_rank_rendezvous_is_a_fresh_file_under_the_test_dir(tmp_path):
         assert method.startswith("file://" + str(tmp_path))
         assert not os.path.exists(method[len("file://"):])
     assert not hasattr(w, "_free_port")
+
+
+def test_no_port_file_cites_item_8b():
+    """Item 8b (tensor parallelism of symbols) is ported: no file of the
+    port, and not chip_smoke.py, refuses anything citing it."""
+    hits = []
+    for base in ("mxnet_tpu_torch", "chip_smoke.py"):
+        path = os.path.join(ROOT, base)
+        files = [path] if path.endswith(".py") else [
+            os.path.join(d, f) for d, _s, fs in os.walk(path) for f in fs
+            if f.endswith(".py")]
+        for f in files:
+            with open(f) as fh:
+                if "item 8b" in fh.read():
+                    hits.append(os.path.relpath(f, ROOT))
+    assert not hits, hits

@@ -229,7 +229,8 @@ def mp_serve_worker(rank, world):
     out["mp_stats"] = profiler.mp_stats()
     out["errors"] = {}
     try:
-        GenerateServer(predictor=pred, spec_k=2, draft=1)
+        GenerateServer(predictor=pred, spec_k=2, draft_config=cfg,
+                       draft_params=params)
     except GenerateError as e:
         out["errors"]["spec"] = str(e)
     try:
