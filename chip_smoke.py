@@ -202,7 +202,7 @@ the kernels are built for sm_90a) and ``nvcc``. It
    classes) through ``Module.fit`` on its clustered task, calibrates on 8
    batches of 64, holds int8-vs-bf16 top-1 agreement >= 0.99 on 2048 rows
    and 7 quantized ops, and serves bf16 and int8 behind ``ModelServer``
-   under its closed loop (24 clients, think 2 ms, 8 rows, 4 s a mode):
+   under its closed loop (24 clients, think 2 ms, 8 rows, 2.5 s a mode):
    req/s and p50/p99; hot-swaps the MLP from a ``save_checkpoint`` pair
    under load (``swap_from_checkpoint``), the int8 outputs equal to a fresh
    bind's; then the unfused ResNet-50 at full width: 54 quantized ops, the
@@ -230,13 +230,13 @@ the kernels are built for sm_90a) and ``nvcc``. It
    empty table of the run's own (the hand tiles);
 26. drives the data plane as ``bench.py``'s ``fit`` variant does:
    ``Module.fit`` of the unfused ResNet-50 v2 in fp32 (kvstore 'tpu', the
-   fused SPMD group engaged; SGD lr 0.1, momentum 0.9, Xavier, 4 epochs)
-   over 6 batches of 128 records (64, then 32, on out-of-memory) written
+   fused SPMD group engaged; SGD lr 0.1, momentum 0.9, Xavier, 3 epochs)
+   over 4 batches of 128 records (64, then 32, on out-of-memory) written
    by ``write_record_shards``, through ``ShardedRecordStream`` (2 decode
    workers, prefetch 4) -> ``ShardedBatchIter`` -> ``DeviceQueueIter``;
    prints bench.py's fit record (images/s, host syncs, put and feed-stall
    ms, records read, input wait and its p99) with the input-wait share
-   and a profiled fifth epoch's device busy share, and the same fit from
+   and a profiled fourth epoch's device busy share, and the same fit from
    the same decoded arrays in memory (``NDArrayIter``); checks every
    record read once an epoch, a falling epoch cross-entropy and the first
    epoch's placed batches against a synchronous read (sha1); then the
@@ -264,7 +264,7 @@ the kernels are built for sm_90a) and ``nvcc``. It
    (131072 rows, dim 64, batch 4096, 8 iterations, zipf 1.2): its record
    under the reference's keys, ``as_dense()`` against a numpy replay of
    the pushes as sent within 1e-5, ``mem_ratio_max <= 1/4 + 0.01``, the
-   stored tables on the card; again at 4,194,304 rows without the naive
+   stored tables on the card; again at 2,097,152 rows without the naive
    and sync legs; again at 131072 rows with each server in a process of
    its own, no naive leg (the pipelined client against the synchronous
    one); then ``Module.fit`` of a small MLP through two servers
@@ -376,6 +376,15 @@ time only).
 
 Any failed phase exits non-zero before the result line. Without a CUDA
 device, or without the package beside it, it exits non-zero at once.
+
+    python3 chip_smoke.py --grad-repeat N
+
+runs only the phases before the fp32 gradient check (the grad phase),
+then that check N + 1 times, the allocator's cached blocks filled with
+NaN before each repeat, and fails unless each repeat passes and gives the
+card's loss and gradients of the first bit for bit. A failed grad check
+names, in its error, the gaps, which side a second computation moves, the
+host's CPU and the card's clocks and ECC count.
 """
 import gc
 import json
@@ -540,12 +549,24 @@ def _cuobjdump(nvcc):
     raise RuntimeError("cuobjdump not found in %s" % cands)
 
 
+_DUMPS = {}
+
+
+def _dump(tool, flag, lib):
+    """``cuobjdump <flag> <lib>``'s output, run once a (flag, library)."""
+    key = (flag, str(lib))
+    if key not in _DUMPS:
+        _DUMPS[key] = subprocess.run([tool, flag, str(lib)],
+                                     capture_output=True, text=True,
+                                     timeout=120, check=True).stdout
+    return _DUMPS[key]
+
+
 def _res_usage(tool, lib):
     """{mangled kernel name: (registers, local-memory bytes)} from
     ``cuobjdump -res-usage``; spilled registers live in local memory, so a
     kernel with 0 bytes of it spills nothing."""
-    out = subprocess.run([tool, "-res-usage", str(lib)], capture_output=True,
-                         text=True, timeout=120, check=True).stdout
+    out = _dump(tool, "-res-usage", lib)
     report, name = {}, None
     for line in out.splitlines():
         m = re.search(r"Function (\S+):", line)
@@ -570,9 +591,7 @@ WIDE_KERNELS = (("flash_attention_fwd", "wide_fwd_kernel"),
 def _sass_counts(tool, lib_path, kernel, marks):
     """{mangled name of each instantiation of ``kernel``: [count of each of
     ``marks`` in its SASS]} (``cuobjdump -sass``)."""
-    sass = subprocess.run([tool, "-sass", str(lib_path)],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
+    sass = _dump(tool, "-sass", lib_path)
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -597,7 +616,15 @@ def sass_phase(build):
     beyond the bytes ``TC_SPILLS`` lists for it. The wide route's kernels
     (``WIDE_KERNELS``) must have mma.sync (HMMA) in bfloat16 and spill
     nothing."""
+    from concurrent.futures import ThreadPoolExecutor
+
     tool = _cuobjdump(build._nvcc())
+    libs = sorted({lib for lib, _k in WIDE_KERNELS + TC_KERNELS})
+    # each library's two dumps once, all together
+    with ThreadPoolExecutor(2 * len(libs)) as pool:
+        list(pool.map(lambda a: _dump(tool, *a),
+                      [(flag, build.lib_path(lib)) for lib in libs
+                       for flag in ("-sass", "-res-usage")]))
     for lib, kernel in WIDE_KERNELS:
         usage = _res_usage(tool, build.lib_path(lib))
         for name, (n_mma,) in sorted(_sass_counts(
@@ -630,6 +657,7 @@ def sass_phase(build):
                 raise RuntimeError("sass: %s spills (%d bytes of stack and "
                                    "local memory, %d listed)"
                                    % (name, local, allowed))
+    _DUMPS.clear()
 
 
 # the spin kernel counts cycles; at most ~2e9 of them a second on an H100,
@@ -1193,7 +1221,76 @@ def grad_phase(torch, np, cfg_kw=GRAD_CFG, label="grad", nudges=0):
     if over or abs(got["cuda"][0] - got["cpu"][0]) > \
             GRAD_TOL * abs(got["cpu"][0]):
         raise RuntimeError("%s: card gradients differ from the CPU's: %s"
-                           % (label, over))
+                           % (label, _grad_fault(torch, got, loss_grads,
+                                                 params, gap, over)))
+    return got
+
+
+def grad_repeat(torch, np, fa, fb, n):
+    """``chip_smoke.py --grad-repeat N``: the phases that precede the grad
+    check in a full run, then the check ``N`` more times, each after the
+    allocator's cached blocks were filled with NaN; every repeat must pass
+    the check and give the card's loss and gradients of the first bit for
+    bit (the kernels have one writer per element and no atomics)."""
+    for name, fn, args in (
+            ("kernel", kernel_phase, (torch, fa)),
+            ("serving", serving_phase, (torch, np, fa)),
+            ("prefix_serving", prefix_serving_phase, (torch, np, fa)),
+            ("spec_serving", spec_serving_phase, (torch, np, fa)),
+            ("conv_kernel", conv_kernel_phase, (torch, fb)),
+            ("resnet_serving", resnet_serving_phase, (torch, np, fb)),
+            ("backward", backward_phase, (torch, fa))):
+        fn(*args)
+        print("grad repeat: phase %s done" % name)
+    first = grad_phase(torch, np)["cuda"]
+    for i in range(n):
+        junk = [torch.full((1 << (18 + i % 6),), float("nan"), device="cuda")
+                for _ in range(40)]
+        del junk
+        got = grad_phase(torch, np)["cuda"]
+        same = got[0] == first[0] and all(
+            torch.equal(g, first[1][k]) for k, g in got[1].items())
+        print("grad repeat %d of %d: the card's loss and gradients bit for "
+              "bit the first's: %s" % (i + 1, n, same))
+        if not same:
+            raise RuntimeError("grad repeat %d: the card's gradients moved"
+                               % (i + 1))
+
+def _grad_fault(torch, got, loss_grads, params, gap, over):
+    """What a failed card-against-CPU gradient check found, for its error
+    message (a refused run may show only its standard error): the losses,
+    each failing tensor's gap, whether a second computation on each side
+    repeats the first bit for bit (which side moved), the host's CPU and
+    the card's clocks and ECC count. The check fails all the same."""
+    again = {dev: loss_grads(dev, params) for dev in ("cuda", "cpu")}
+    repeat = {dev: again[dev][0] == got[dev][0] and all(
+        torch.equal(g, got[dev][1][k]) for k, g in again[dev][1].items())
+        for dev in again}
+    cpu_model = "unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            cpu_model = next((ln.split(":", 1)[1].strip() for ln in f
+                              if ln.startswith("model name")), cpu_model)
+    except OSError:
+        pass
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,"
+             "ecc.errors.uncorrected.volatile.total", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        card = r.stdout.strip() or r.stderr.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        card = "nvidia-smi failed: %s" % e
+    return ("%s; loss card %.7f cpu %.7f; gaps %s; a second computation "
+            "repeats the first bit for bit: card %s, cpu %s (its gaps %s); "
+            "host CPU %s, %d torch threads, capability %s; card %s"
+            % (over, got["cuda"][0], got["cpu"][0],
+               {k: "%.3g" % gap(got["cuda"][1][k], got["cpu"][1][k])
+                for k in over}, repeat["cuda"], repeat["cpu"],
+               {k: "%.3g" % gap(again["cuda"][1][k], again["cpu"][1][k])
+                for k in over}, cpu_model, torch.get_num_threads(),
+               torch.backends.cpu.get_cpu_capability(),
+               card))
 
 
 def training_phase(torch, np, fa):
@@ -5890,7 +5987,7 @@ def contrib_sweep_phase(torch, np, fa, fb):
 # _train_model's recipe (:1134-1161) through the port's Module.fit
 QUANT_MLP = dict(dim=256, hidden=512, layers=6, classes=64)
 QUANT_TRAIN = dict(n=4096, batch=256, epochs=6, lr=0.05, momentum=0.9)
-QUANT_TRACE = dict(clients=24, think_ms=2.0, rows=8, seconds=4.0,
+QUANT_TRACE = dict(clients=24, think_ms=2.0, rows=8, seconds=2.5,
                    ladder=(1, 4, 16, 64))
 QUANT_CALIB = (8, 64)          # batches, rows a batch
 QUANT_CORPUS = 2048
@@ -6791,11 +6888,11 @@ def tune_phase(torch, np, fa, fb):
 # The data plane (bench.py's fit and data variants, through the port):
 # Module.fit of the unfused ResNet-50 v2 in fp32 over on-disk record
 # shards, ShardedRecordStream -> ShardedBatchIter -> DeviceQueueIter, batch
-# 128 (64, then 32, only on out-of-memory), 6 batches an epoch, 4 epochs;
+# 128 (64, then 32, only on out-of-memory), 4 batches an epoch, 3 epochs;
 # the same fit fed by NDArrayIter from the same decoded arrays in memory;
 # a fused leg (B1-B3 behind the same feed, one epoch of 6 batches at 64);
 # and the port's copy of tools/bench_data.py's measure at its defaults
-DATA_FIT = dict(batches=(128, 64, 32), per_epoch=6, epochs=4, workers=2,
+DATA_FIT = dict(batches=(128, 64, 32), per_epoch=4, epochs=3, workers=2,
                 prefetch=4, shape=(3, 224, 224), lr=0.1, momentum=0.9)
 DATA_FUSED = dict(batch=64, per_epoch=6)
 DATA_BENCH = dict(records=2048, shape=(3, 64, 64), batch=64, workers=2,
@@ -7210,7 +7307,7 @@ SPARSE_FIRST_LAST = 3           # batches averaged at each end
 # tools/bench_embed.py's measure defaults, then 32x the rows
 EMBED_BENCH = dict(rows=131072, dim=64, servers=4, batch=4096, iters=8,
                    naive_batch=512, naive_iters=2, zipf_a=1.2, seed=0)
-EMBED_BIG_ROWS = 4194304
+EMBED_BIG_ROWS = 2097152
 EMBED_REPLAY_TOL = 1e-5
 # the dense Module.fit through two in-process servers
 SERVER_FIT = dict(n=600, dim=20, hidden=32, classes=5, batch=100, epochs=8)
@@ -10615,6 +10712,478 @@ def mp_symbol_phase(torch, np, fa, fb):
                 group=leader[3])
 
 
+# ---------------------------------------------------------------------------
+# Sequence, expert and pipeline parallelism (ROADMAP.md Queue A item 8c), on
+# MP_RANKS gloo ranks sharing the card, every leg in fp32 with TF32 off
+# against one device, held by the mp phases' yardstick: each gradient
+# tensor within max(MP_GRAD_TOL, MP_RATIO x its one-rounding gap), the
+# whole within MP_RATIO x its own, the loss within MP_LOSS_TOL.
+# (a) sp = 2 on FULL at MP_BATCH, attn ring and ulysses (the ring's chunk
+#     step and Ulysses' default core are PyTorch ops, as the JAX package's
+#     are lax: no flash launch); then bf16 train steps on the ring.
+# (b) ep = 2 on MOE_MP (8 experts, 4 a rank).
+# (c) pp = 2: FULL's 12 blocks as 2 stages of 6, SEP_MICRO microbatches of
+#     SEP_MB sequences of 2048, against the serial stack.
+# (d) ulysses_attention(attn_fn=flash_attention) at SEP_ULYSSES, bf16.
+# ---------------------------------------------------------------------------
+SEP_TRAIN_WARMUP, SEP_TRAIN_STEPS = 1, 3
+SEP_MICRO, SEP_MB, SEP_STAGES = 8, 1, 2
+SEP_ULYSSES = (8, 8, 2048, 64)
+SEP_TIMEOUT = 420
+
+
+def _sep_ref(torch, np, loss_grads, params, seed):
+    """One device's loss, gradients and outputs (``loss_grads(params) ->
+    (loss, grads, out)``) and their one-rounding yardstick: each tensor's
+    (and the output's, key "out") largest relative L2 move over MP_NUDGES
+    runs with every param element moved by one rounding."""
+    loss, grads, out = loss_grads(params)
+    yard = {}
+    for i in range(MP_NUDGES):
+        rng = np.random.RandomState(seed + i)
+        _l, g, o = loss_grads({k: torch.from_numpy(_zoo_nudged(
+            np, v.detach().cpu().numpy(), rng)) for k, v in params.items()})
+        if o is not None:
+            g = dict(g, out=o)
+        for k, v in _rel_l2(torch, g, dict(grads, **(
+                {"out": out} if out is not None else {}))).items():
+            yard[k] = max(yard.get(k, 0.0), v)
+        del g, o
+    _free(torch)
+    return loss, grads, out, yard
+
+
+def _sep_held(torch, grads, ref, out=None):
+    """(loss-free) gaps of ``grads`` (and ``out``) against a _sep_ref."""
+    _loss, rgrads, rout, yard = ref
+    got, want = dict(grads), dict(rgrads)
+    if out is not None:
+        got["out"], want["out"] = out, rout
+    gaps = _rel_l2(torch, got, want)
+    whole, whole_yard = gaps.pop(None), yard[None]
+    over = sorted((g / max(MP_GRAD_TOL, MP_RATIO * yard[k]), k)
+                  for k, g in gaps.items())
+    return dict(whole=whole, whole_yard=whole_yard, worst=over[-3:],
+                ok=whole <= MP_RATIO * whole_yard and over[-1][0] <= 1)
+
+
+def _sep_launches(fa, fb):
+    return list(_counts(fa)) + list(_fb_counts(fb))
+
+
+def _sep_reset(fa, fb, tpl):
+    _reset_counts(fa)
+    _reset_fb_counts(fb)
+    tpl.reset_counts()
+
+
+def _sep_sp_leg(torch, np, fa, fb, rank):
+    """(a): ring and Ulysses on {"sp": 2}, then bf16 train steps."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.parallel import make_mesh
+    from mxnet_tpu_torch.parallel import tensor_parallel as tpl
+    from mxnet_tpu_torch.parallel.mesh import all_reduce_flat_
+
+    cfg32 = tfm.TransformerConfig(**dict(FULL, dtype="float32"))
+    params = tfm.init_params(cfg32, seed=0)
+    tokens = np.random.RandomState(0).randint(0, cfg32.vocab, MP_BATCH)
+    ref = None
+    if rank == 0:
+        loss_fn, _ = tfm.make_loss_fn(cfg32, device=CARD)
+
+        def loss_grads(ps):
+            p = {k: v.to(CARD, copy=True).requires_grad_()
+                 for k, v in ps.items()}
+            loss = loss_fn(p, tokens)
+            return loss.item(), dict(zip(p, torch.autograd.grad(
+                loss, list(p.values())))), None
+
+        ref = _sep_ref(torch, np, loss_grads, params, 400)
+    dist.barrier()
+    mesh = make_mesh({"sp": MP_RANKS}, device=CARD)
+    res = {}
+    for mode in ("ring", "ulysses"):
+        cfg = dataclasses.replace(cfg32, attn=mode)
+        loss_fn, _ = tfm.make_loss_fn(cfg, mesh)
+        p = {k: v.requires_grad_() for k, v in
+             tfm.shard_params(params, cfg, mesh).items()}
+        _sep_reset(fa, fb, tpl)
+        loss = loss_fn(p, tokens)
+        fwd = tpl.counts()
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        _sync(torch)
+        run = dict(loss=loss.item(), forward=fwd,
+                   launches=_sep_launches(fa, fb),
+                   wire=tpl.wire_bytes())
+        # the ranks' shares summed: the gradient of the global loss
+        all_reduce_flat_(list(grads.values()), dist.group.WORLD)
+        if ref is not None:
+            run["held"] = _sep_held(torch, grads, ref)
+            run["ref_loss"] = ref[0]
+        res[mode] = run
+        del loss, grads, p
+        _free(torch)
+    del ref
+    _free(torch)
+    cfg = tfm.TransformerConfig(**dict(FULL, attn="ring"))
+    step, place = tfm.make_train_step(
+        cfg, mesh, optimizer=dict(name="sgd", learning_rate=0.1,
+                                  momentum=0.9))
+    carry = place(params)
+    losses, secs = [], []
+    for _ in range(SEP_TRAIN_WARMUP):
+        carry, loss = step(carry, tokens)
+        losses.append(loss.item())
+    _sync(torch)
+    if CARD == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sep_reset(fa, fb, tpl)
+    for _ in range(SEP_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        carry, loss = step(carry, tokens)
+        _sync(torch)
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    res["train"] = dict(
+        losses=losses, secs=secs, launches=_sep_launches(fa, fb),
+        collectives=tpl.counts(),
+        tokens_s=MP_BATCH[0] * (MP_BATCH[1] - 1) * SEP_TRAIN_STEPS
+        / sum(secs),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30
+        if CARD == "cuda" else 0.0)
+    del carry
+    _free(torch)
+    return res
+
+
+def _sep_ep_leg(torch, np, fa, fb, rank):
+    """(b): the MoE on {"ep": 2}."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.parallel import make_mesh
+    from mxnet_tpu_torch.parallel import tensor_parallel as tpl
+
+    cfg = tfm.TransformerConfig(**MOE_MP)
+    params = tfm.init_params(cfg, seed=0)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, MOE_MP_BATCH)
+    ref = None
+    if rank == 0:
+        loss_fn, _ = tfm.make_loss_fn(cfg, device=CARD)
+
+        def loss_grads(ps):
+            p = {k: v.to(CARD, copy=True).requires_grad_()
+                 for k, v in ps.items()}
+            loss = loss_fn(p, tokens)
+            return loss.item(), dict(zip(p, torch.autograd.grad(
+                loss, list(p.values())))), None
+
+        ref = _sep_ref(torch, np, loss_grads, params, 500)
+    dist.barrier()
+    mesh = make_mesh({"ep": MP_RANKS}, device=CARD)
+    counts = tfm.block_collective_counts(cfg, mesh)
+    loss_fn, _ = tfm.make_loss_fn(cfg, mesh)
+    shards = {k: v.requires_grad_() for k, v in
+              tfm.shard_params(params, cfg, mesh).items()}
+    _sep_reset(fa, fb, tpl)
+    loss = loss_fn(shards, tokens)
+    fwd = tpl.counts()
+    grads = dict(zip(shards, torch.autograd.grad(loss,
+                                                 list(shards.values()))))
+    _sync(torch)
+    res = dict(loss=loss.item(), forward=fwd, counts=counts,
+               launches=_sep_launches(fa, fb),
+               experts=tuple(shards["ffn_up_weight"].shape),
+               gate_digest=_param_digest(
+                   {"moe_gate_weight": grads["moe_gate_weight"]}))
+    grads = tfm.unshard(grads, cfg, mesh)
+    if ref is not None:
+        res["held"] = _sep_held(torch, grads, ref)
+        res["ref_loss"] = ref[0]
+    del ref, grads, shards, loss
+    _free(torch)
+    return res
+
+
+def _sep_stacked(layers, n_stages):
+    """Stacked layer params (L, ...) as (n_stages, L / n_stages, ...)."""
+    return {k: v.reshape(n_stages, v.shape[0] // n_stages, *v.shape[1:])
+            for k, v in layers.items()}
+
+
+def _sep_pp_leg(torch, np, fa, fb, rank):
+    """(c): FULL's blocks as a GPipe pipeline over {"pp": 2}."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.parallel import make_mesh, pipeline
+    from mxnet_tpu_torch.parallel import tensor_parallel as tpl
+    from mxnet_tpu_torch.parallel.mesh import all_reduce_flat_
+
+    cfg = tfm.TransformerConfig(**dict(FULL, dtype="float32"))
+    layers = {k: v for k, v in tfm.init_params(cfg, seed=0).items()
+              if k not in ("embed_weight", "pos_embed_weight",
+                           "final_ln_gamma", "final_ln_beta")}
+    x = torch.from_numpy(np.random.RandomState(6).randn(
+        SEP_MICRO, SEP_MB, FULL["max_len"], FULL["d_model"]).astype(
+            np.float32)).to(CARD)
+    per_stage = FULL["n_layers"] // SEP_STAGES
+
+    def stage_fn(p, a):
+        for i in range(per_stage):
+            a = tfm._block(a, {k: v[i] for k, v in p.items()},
+                           torch.float32)
+        return a
+
+    ref = None
+    if rank == 0:
+        def loss_grads(ps):
+            p = {k: v.to(CARD, copy=True).requires_grad_()
+                 for k, v in ps.items()}
+            h = x.reshape(SEP_MICRO * SEP_MB, *x.shape[2:])
+            for i in range(FULL["n_layers"]):
+                h = tfm._block(h, {k: v[i] for k, v in p.items()},
+                               torch.float32)
+            out = h.reshape(x.shape)
+            loss = out.square().mean()
+            return loss.item(), dict(zip(p, torch.autograd.grad(
+                loss, list(p.values())))), out.detach()
+
+        ref = _sep_ref(torch, np, loss_grads, layers, 600)
+    dist.barrier()
+    mesh = make_mesh({"pp": SEP_STAGES}, device=CARD)
+    stacked = {k: v.to(CARD).requires_grad_() for k, v in
+               _sep_stacked(layers, SEP_STAGES).items()}
+    _sep_reset(fa, fb, tpl)
+    out = pipeline(stage_fn, stacked, x, mesh)
+    loss = out.square().mean()
+    grads = dict(zip(stacked, torch.autograd.grad(loss,
+                                                  list(stacked.values()))))
+    _sync(torch)
+    res = dict(loss=loss.item(), launches=_sep_launches(fa, fb),
+               collectives=tpl.counts(), wire=tpl.wire_bytes())
+    # each rank's share lies in its stage's rows: the sum is the gradient
+    all_reduce_flat_(list(grads.values()), dist.group.WORLD)
+    if ref is not None:
+        whole = {k: g.reshape(layers[k].shape) for k, g in grads.items()}
+        res["held"] = _sep_held(torch, whole, ref, out=out.detach())
+        res["ref_loss"] = ref[0]
+    del ref, grads, out, loss
+    _free(torch)
+    return res
+
+
+def _sep_ulysses_leg(torch, np, fa, fb, rank):
+    """(d): the standalone Ulysses attention through the flash kernels."""
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch.parallel import (full_attention, make_mesh,
+                                          ulysses_attention)
+    from mxnet_tpu_torch.parallel import tensor_parallel as tpl
+    from mxnet_tpu_torch.parallel.mesh import all_reduce_flat_
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    q, k, v, g = (torch.randn(SEP_ULYSSES, generator=gen).to(
+        CARD, torch.bfloat16) for _ in range(4))
+    mesh = make_mesh({"sp": MP_RANKS}, device=CARD)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    _sep_reset(fa, fb, tpl)
+    out = ulysses_attention(*qkv, mesh, causal=True,
+                            attn_fn=fa.flash_attention)
+    chunk = SEP_ULYSSES[2] // MP_RANKS
+    grads = torch.autograd.grad(
+        (out.float() * g.narrow(2, rank * chunk, chunk).float()).sum(), qkv)
+    _sync(torch)
+    res = dict(launches=_sep_launches(fa, fb), collectives=tpl.counts(),
+               finite=bool(all(torch.isfinite(t).all() for t in
+                               (out, *grads))))
+    # the shares summed: each lies in the rank's own chunk, so the sum is
+    # exact; B5-B7 run each (b, h) alone, so one device's flash call on
+    # the whole tensors gives the same bits
+    grads = list(grads)
+    all_reduce_flat_(grads, dist.group.WORLD)
+    one_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    one = fa.flash_attention(*one_in, causal=True)
+    one_grads = torch.autograd.grad((one.float() * g.float()).sum(), one_in)
+    res["same_bits"] = [bool(torch.equal(out, one.narrow(2, rank * chunk,
+                                                         chunk)))] + [
+        bool(torch.equal(a, b)) for a, b in zip(grads, one_grads)]
+    # and both against the plain fp32 attention of the same bf16 inputs
+    ref_in = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = full_attention(*ref_in, causal=True)
+    ref_grads = torch.autograd.grad((ref * g.float()).sum(), ref_in)
+    res["out_err"] = _row_err(torch, out, ref.narrow(2, rank * chunk, chunk))
+    res["grad_errs"] = [_row_err(torch, a, b, 0.01)
+                        for a, b in zip(grads, ref_grads)]
+    res["one_grad_errs"] = [_row_err(torch, a, b, 0.01)
+                            for a, b in zip(one_grads, ref_grads)]
+    del out, grads, ref, ref_grads, ref_in, qkv, one, one_grads, one_in
+    _free(torch)
+    return res
+
+
+def _mp_sep_work(torch, np, fa, rank):
+    """One rank of seq_expert_pipe_phase: the four legs in turn, each with
+    its one-device reference run by rank 0 first while rank 1 waits."""
+    from mxnet_tpu_torch.kernels import fused_block as fb
+
+    res = {"rank": rank}
+    for leg in ("sp", "ep", "pp", "ulysses"):
+        t0 = time.perf_counter()
+        res[leg] = globals()["_sep_%s_leg" % leg](torch, np, fa, fb, rank)
+        res[leg]["secs"] = time.perf_counter() - t0
+    return res
+
+
+def _sep_check(label, held, loss=None, ref_loss=None):
+    """Raise unless a leg's gradients (and loss) are held."""
+    gap = None if loss is None else abs(loss - ref_loss) / abs(ref_loss)
+    if not held["ok"] or (gap is not None and gap > MP_LOSS_TOL):
+        raise RuntimeError("seq_expert_pipe %s: loss gap %s, whole %g "
+                           "against %g, worst %s"
+                           % (label, gap, held["whole"], held["whole_yard"],
+                              held["worst"]))
+    return gap
+
+
+def _sep_print_held(label, run, gap):
+    h = run["held"]
+    print("seq_expert_pipe %s: fp32 (TF32 off) loss %.7f vs one device %.7f "
+          "(relative gap %.3g, tol %g); relative L2 whole %.4g against %.4g "
+          "under %d one-rounding moves (limit x%g); worst over max(%g, %g x "
+          "one-rounding gap) %s"
+          % (label, run["loss"], run["ref_loss"], gap, MP_LOSS_TOL,
+             h["whole"], h["whole_yard"], MP_NUDGES, MP_RATIO, MP_GRAD_TOL,
+             MP_RATIO, ", ".join("%.3g at %s" % (r, k)
+                                 for r, k in h["worst"])))
+
+
+def seq_expert_pipe_phase(torch, np, fa, fb):
+    """Sequence, expert and pipeline parallelism on MP_RANKS gloo ranks
+    sharing the card (the comment above SEP_TRAIN_STEPS): each leg's loss,
+    gradients (and the pipeline's outputs) against one device, its exact
+    collective and kernel counts, the ring's bf16 train steps. Returns the
+    B5, B6, B7, B1, B2, B3 launches of each leg on each rank."""
+    _free(torch)
+    ranks, wall = _run_ranks(_mp_gloo_rank, MP_RANKS, SEP_TIMEOUT,
+                             "seq_expert_pipe", "sep")
+    r0 = ranks[0]
+    n_layers = FULL["n_layers"]
+    print("seq_expert_pipe: %d gloo ranks sharing one card, %.1f s with "
+          "start-up; legs on rank 0: %s"
+          % (MP_RANKS, wall, ", ".join("%s %.1f s" % (k, r0[k]["secs"])
+                                       for k in ("sp", "ep", "pp",
+                                                 "ulysses"))))
+    for mode in ("ring", "ulysses"):
+        run = r0["sp"][mode]
+        gap = _sep_check("sp " + mode, run["held"], run["loss"],
+                         run["ref_loss"])
+        _sep_print_held("(a) sp=%d attn=%s, FULL at %s" % (
+            MP_RANKS, mode, MP_BATCH), run, gap)
+    for r in ranks:
+        for mode, (name, want) in (("ring", ("ppermute",
+                                             2 * MP_RANKS * n_layers)),
+                                   ("ulysses", ("all_to_all",
+                                                4 * n_layers))):
+            run = r["sp"][mode]
+            print("seq_expert_pipe (a) rank %d %s: forward collectives %s; "
+                  "bytes sent (forward and backward) %s; launches B5-B7, "
+                  "B1-B3 %s" % (r["rank"], mode, run["forward"], run["wire"],
+                                run["launches"]))
+            if run["forward"][name] != want or any(run["launches"]):
+                raise RuntimeError("seq_expert_pipe (a) rank %d %s: %s %d "
+                                   "(want %d), launches %s"
+                                   % (r["rank"], mode, name,
+                                      run["forward"][name], want,
+                                      run["launches"]))
+        tr = r["sp"]["train"]
+        print("seq_expert_pipe (a) rank %d ring bf16 train, sgd momentum: "
+              "losses %s; step times %s s; %.1f tokens/s (the pair's "
+              "global batch); peak memory %.2f GiB; launches %s; "
+              "collective calls %s"
+              % (r["rank"], " ".join("%.5f" % x for x in tr["losses"]),
+                 " ".join("%.4f" % x for x in tr["secs"]), tr["tokens_s"],
+                 tr["peak_gib"], tr["launches"], tr["collectives"]))
+        if not all(np.isfinite(tr["losses"])) or \
+                not tr["losses"][-1] < tr["losses"][0] or any(tr["launches"]):
+            raise RuntimeError("seq_expert_pipe (a) train rank %d: %s"
+                               % (r["rank"], tr))
+    ep = r0["ep"]
+    gap = _sep_check("ep", ep["held"], ep["loss"], ep["ref_loss"])
+    _sep_print_held("(b) ep=%d MOE_MP (%d layers x %d experts, %s a rank) "
+                    "at %s" % (MP_RANKS, MOE_MP["n_layers"],
+                               MOE_MP["n_experts"], ep["experts"][1],
+                               MOE_MP_BATCH), ep, gap)
+    n_moe = MOE_MP["n_layers"]
+    for r in ranks:
+        e, c = r["ep"], r["ep"]["counts"]
+        psums = e["forward"]["reduce_from_mp"] + \
+            e["forward"]["reduce_from_data"]
+        print("seq_expert_pipe (b) rank %d: forward collectives %s against "
+              "block_collective_counts %s; launches B5-B7, B1-B3 %s"
+              % (r["rank"], e["forward"], c, e["launches"]))
+        if psums != c["psum_per_block"] * n_moe + c["psum_outside"] or \
+                c["psum_per_block"] != 1 or \
+                e["forward"]["gather_from_mp"] != c["all_gather"] or \
+                e["launches"] != [n_moe] * 3 + [0] * 3 or \
+                e["experts"][1] != MOE_MP["n_experts"] // MP_RANKS:
+            raise RuntimeError("seq_expert_pipe (b) rank %d: %s" % (
+                r["rank"], e))
+    if len({r["ep"]["gate_digest"] for r in ranks}) != 1:
+        raise RuntimeError("seq_expert_pipe (b): the gate's gradient "
+                           "differs on the ranks")
+    print("seq_expert_pipe (b): the gate's gradient bit for bit on the "
+          "ranks True")
+    pp = r0["pp"]
+    gap = _sep_check("pp", pp["held"])
+    print("seq_expert_pipe (c) pp=%d: FULL's %d blocks as %d stages of %d, "
+          "%d microbatches of (%d, %d, %d) fp32: outputs and gradients vs "
+          "the serial stack, relative L2 whole %.4g against %.4g (limit "
+          "x%g); worst %s"
+          % (SEP_STAGES, n_layers, SEP_STAGES, n_layers // SEP_STAGES,
+             SEP_MICRO, SEP_MB, FULL["max_len"], FULL["d_model"],
+             pp["held"]["whole"], pp["held"]["whole_yard"], MP_RATIO,
+             ", ".join("%.3g at %s" % (r, k)
+                       for r, k in pp["held"]["worst"])))
+    ticks = SEP_MICRO + SEP_STAGES - 1
+    want_pp = [n_layers // SEP_STAGES * ticks] * 3 + [0] * 3
+    for r in ranks:
+        p = r["pp"]
+        print("seq_expert_pipe (c) rank %d: launches B5-B7, B1-B3 %s (want "
+              "%s: every stage computes at each of %d ticks, and each "
+              "tick's output reaches the loss); collectives %s; bytes %s"
+              % (r["rank"], p["launches"], want_pp, ticks, p["collectives"],
+                 p["wire"]))
+        if p["launches"] != want_pp or p["collectives"]["ppermute"] != ticks:
+            raise RuntimeError("seq_expert_pipe (c) rank %d: %s"
+                               % (r["rank"], p))
+    for r in ranks:
+        u = r["ulysses"]
+        print("seq_expert_pipe (d) rank %d ulysses_attention(attn_fn="
+              "flash_attention) at %s bf16 causal: output and dq, dk, dv "
+              "(shares summed) bit for bit one device's flash_attention %s; "
+              "output vs fp32 full_attention row-relative %.3g (tol %g); "
+              "gradients row-relative %s (one device's flash %s); launches "
+              "B5-B7, B1-B3 %s; collectives %s"
+              % (r["rank"], SEP_ULYSSES, u["same_bits"], u["out_err"],
+                 KERNEL_TOL["bfloat16"][0],
+                 " ".join("%.3g" % e for e in u["grad_errs"]),
+                 " ".join("%.3g" % e for e in u["one_grad_errs"]),
+                 u["launches"], u["collectives"]))
+        if u["out_err"] > KERNEL_TOL["bfloat16"][0] or not u["finite"] or \
+                not all(u["same_bits"]) or \
+                u["launches"] != [1, 1, 1, 0, 0, 0]:
+            raise RuntimeError("seq_expert_pipe (d) rank %d: %s"
+                               % (r["rank"], u))
+    return {leg: [r[leg]["launches"] if leg != "sp" else
+                  r[leg]["ring"]["launches"] for r in ranks]
+            for leg in ("sp", "ep", "pp", "ulysses")}
+
+
 def main():
     import torch
 
@@ -10657,6 +11226,11 @@ def main():
         print("phase %s: %.1f s" % (name, phase_s[name]))
         return out
 
+    if "--grad-repeat" in sys.argv[1:]:
+        grad_repeat(torch, np, fa, fb,
+                    int(sys.argv[sys.argv.index("--grad-repeat") + 1]))
+        print(card)
+        return 0
     phase("sass", sass_phase, _build)
     fwd = phase("kernel", kernel_phase, torch, fa)
     served = phase("serving", serving_phase, torch, np, fa)
@@ -10755,6 +11329,10 @@ def main():
         entry["mp_symbol_launches"] = dict(train=[r[i] for r in
                                                   mps["train"]])
     fwd["mp_symbol_launches"] = dict(spec=mps["spec"])
+    sep = phase("seq_expert_pipe", seq_expert_pipe_phase, torch, np, fa, fb)
+    for i, entry in enumerate([fwd, *bwd, conv, *grads]):
+        entry["seq_expert_pipe_launches"] = {
+            leg: [r[i] for r in runs] for leg, runs in sep.items()}
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; shared-prefix serving (cache on) "
           "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "
@@ -10778,7 +11356,8 @@ def main():
           "(%d batches) B5-B7 and B1-B3 %s; mp symbol path: Module.fit %d "
           "batches B1, B2, B3 on each rank %s, sharded predictor B1 (leader's "
           "forward, follower's run) %s, sharded speculation B5 (leader, "
-          "follower) %s, group leader B1 %d"
+          "follower) %s, group leader B1 %d; sequence, expert and pipeline "
+          "legs B5-B7 and B1-B3 on each rank %s"
           % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
              SPEC_TRACE["k"], fwd["spec_launches"], conv["launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
@@ -10799,7 +11378,10 @@ def main():
              ", ".join("%d" % n for n in fleet_launches), TAIL_BATCHES,
              ", ".join("%d" % n for n in tail_launches), MPS_BATCHES,
              " / ".join("%d, %d, %d" % tuple(r) for r in mps["train"]),
-             mps["serve"], mps["spec"], mps["group"]))
+             mps["serve"], mps["spec"], mps["group"],
+             "; ".join("%s %s" % (leg, " / ".join(
+                 ", ".join("%d" % n for n in r) for r in runs))
+                 for leg, runs in sep.items())))
     print("phases: %s; total %.1f s" % (
         ", ".join("%s %.1f s" % kv for kv in phase_s.items()),
         time.perf_counter() - t_start))

@@ -61,9 +61,24 @@ weights. Under mp each expert's d_ff is sharded as the dense ffn's, the
 expert axis stays whole, and the gated sum takes the block's one sum after
 the ffn.
 
-Not ported yet: ring and Ulysses attention (an ``sp`` axis), the experts
-sharded over an ``ep`` axis and the pipeline schedule (ROADMAP.md Queue A
-item 8c), and the schedule-table consult for attention blocks.
+Training also runs over a mesh's ``sp`` and ``ep`` axes, as the JAX
+package's ``shard_map`` does:
+
+- ``sp`` shards the sequence: a rank takes the tokens of its chunk (and
+  the next one, the +1 target overlap), the position rows from ``idx_sp *
+  S_loc``, and attends by ``config.attn``: ``auto`` and ``ring`` go round
+  the ring (:func:`~..parallel.ring.ring_attention_inner`), ``ulysses``
+  all-to-alls heads and sequence, ``full`` all-gathers K and V; ``flash``
+  attends within the shard and raises. The loss's sum and count are
+  summed over ``dp`` with ``sp``, and so are the gradients.
+- ``ep`` shards the MoE's experts: a rank holds ``n_experts / ep`` of
+  them, takes its slice of the gate at ``idx_ep * e_loc``, and the gated
+  sum is summed over the ``ep`` group before the mp sum, with the
+  conjugate pair (:mod:`..parallel.tensor_parallel`) around the experts'
+  input and the gate, so each rank's gate gradient is whole.
+
+The serving functions take no ``sp`` or ``ep`` axis (the JAX package's
+take no mesh at all) and refuse one by name.
 """
 from __future__ import annotations
 
@@ -79,12 +94,16 @@ from ..context import resolve_device
 from ..kernels.flash_attention import flash_attention
 from ..parallel.feed import rank_rows
 from ..parallel.mesh import (_mp_axis, all_gather_rows, all_reduce_flat_,
-                             data_group, mesh_device, model_group)
+                             axis_group, data_group, mesh_device,
+                             model_group)
+from ..parallel.ring import (full_attention, ring_attention_inner,
+                             ulysses_attention_inner)
 from ..parallel.spmd import (FunctionalOptimizer, ShardingRuleError,
                              functional_optimizer)
 from ..parallel import tensor_parallel as tpl
-from ..parallel.tensor_parallel import (copy_to_mp, gather_from_mp,
-                                        reduce_from_data, reduce_from_mp)
+from ..parallel.tensor_parallel import (all_gather, copy_to_mp,
+                                        gather_from_mp, reduce_from_data,
+                                        reduce_from_mp)
 
 __all__ = ["TransformerConfig", "init_params", "params_from_jax",
            "param_specs", "kv_cache_spec", "shard_params", "unshard",
@@ -109,7 +128,13 @@ class TransformerConfig:
     max_len: int = 2048
     n_experts: int = 0          # 0 -> dense ffn; >0 -> MoE every layer
     dtype: str = "bfloat16"     # compute dtype (params stay fp32)
+    attn: str = "auto"          # auto|flash|ring|ulysses|full
     remat: bool = False         # recompute each layer in the backward
+    # the flash kernels' tile: None consults the schedule table
+    # (tune.schedule_for) and falls back to the hand default; a value pins
+    # the block
+    attn_block_q: int | None = None
+    attn_block_k: int | None = None
 
 
 def torch_dtype(name):
@@ -169,10 +194,12 @@ def param_specs(config, mesh):
     whole), as the JAX package's ``PartitionSpec``s: Megatron's column
     (qkv heads, ffn-up's output) and row (out-projection heads, ffn-down's
     input) sharding and the vocab-sharded embedding over the mesh's
-    ``mp`` (or ``tp``) axis; the rest replicated. The MoE's experts keep
-    their axis whole and shard each expert's d_ff (ffn-up's last dim,
-    ffn-down's middle one); its gate is replicated."""
+    ``mp`` (or ``tp``) axis; the rest replicated. The MoE's expert axis
+    is sharded over the mesh's ``ep`` axis (whole without one) and each
+    expert's d_ff over mp (ffn-up's last dim, ffn-down's middle one); its
+    gate is replicated."""
     tp = _mp_axis(mesh.mesh_dim_names)
+    ep = "ep" if "ep" in mesh.mesh_dim_names else None
     rep = ()
     specs = {"embed_weight": (tp, None), "pos_embed_weight": rep,
              "final_ln_gamma": rep, "final_ln_beta": rep,
@@ -181,8 +208,8 @@ def param_specs(config, mesh):
              "attn_qkv_weight": (None, None, None, tp, None),
              "attn_out_weight": (None, tp, None, None)}
     if config.n_experts:
-        specs.update(moe_gate_weight=rep, ffn_up_weight=(None, None, None, tp),
-                     ffn_down_weight=(None, None, tp, None))
+        specs.update(moe_gate_weight=rep, ffn_up_weight=(None, ep, None, tp),
+                     ffn_down_weight=(None, ep, tp, None))
     else:
         specs.update(ffn_up_weight=(None, None, tp),
                      ffn_down_weight=(None, tp, None))
@@ -196,33 +223,41 @@ def kv_cache_spec(mesh):
 
 
 def _sharded_dims(config, mesh):
-    """``{name: dim}`` of the params sharded over the mp axis."""
-    axis = _mp_axis(mesh.mesh_dim_names)
-    return {k: spec.index(axis)
+    """``{name: ((dim, axis), ...)}`` of the params sharded over mesh
+    axes."""
+    return {k: tuple((d, a) for d, a in enumerate(spec) if a is not None)
             for k, spec in param_specs(config, mesh).items()
-            if axis is not None and axis in spec}
+            if any(a is not None for a in spec)}
+
+
+def _shard_group(mesh, axis):
+    """The ``(group, n, index)`` a param dim sharded over ``axis`` is cut
+    by: :func:`model_group` for the mp (or tp) axis, :func:`axis_group`
+    for the others."""
+    if axis == _mp_axis(mesh.mesh_dim_names):
+        return model_group(mesh)
+    return axis_group(mesh, (axis,))
 
 
 def shard_params(params, config, mesh, device=None):
     """This rank's shards of a whole param dict (the JAX ``init_params``
     layout, numpy or tensors) as fp32 tensors on ``device`` (default the
-    rank's mesh device): index ``i`` of ``n`` mp ranks holds block ``i``
-    of each sharded dim (:func:`param_specs`); the rest are whole copies.
-    Raises ``ShardingRuleError`` when a sharded dim does not divide by
-    ``n``."""
-    _group, n, index = model_group(mesh)
+    rank's mesh device): the rank at index ``i`` of an axis of ``n`` ranks
+    holds block ``i`` of each dim sharded over that axis
+    (:func:`param_specs`); the rest are whole copies. Raises
+    ``ShardingRuleError`` when a sharded dim does not divide by ``n``."""
     dims = _sharded_dims(config, mesh)
     dev = mesh_device(mesh) if device is None else torch.device(device)
     out = {}
     for k, v in params.items():
         v = torch.as_tensor(v) if isinstance(v, torch.Tensor) \
             else torch.from_numpy(np.asarray(v))
-        dim = dims.get(k)
-        if dim is not None:
+        for dim, axis in dims.get(k, ()):
+            _group, n, index = _shard_group(mesh, axis)
             if v.shape[dim] % n:
                 raise ShardingRuleError(
                     "shard_params: %s dim %d of size %d does not divide over "
-                    "%d mp ranks" % (k, dim, v.shape[dim], n))
+                    "%d %s ranks" % (k, dim, v.shape[dim], n, axis))
             w = v.shape[dim] // n
             v = v.narrow(dim, index * w, w)
         out[k] = v.detach().to(dev, torch.float32, copy=True)
@@ -230,35 +265,46 @@ def shard_params(params, config, mesh, device=None):
 
 
 def unshard(shards, config, mesh):
-    """The inverse of :func:`shard_params`, a collective over the rank's mp
-    group: each sharded tensor's blocks gathered in rank order, the
-    replicated ones as they are."""
-    group, _n, _index = model_group(mesh)
+    """The inverse of :func:`shard_params`, a collective over the rank's
+    group along each sharding axis: each sharded tensor's blocks gathered
+    in rank order, the replicated ones as they are."""
     dims = _sharded_dims(config, mesh)
     out = {}
     for k, v in shards.items():
-        dim = dims.get(k)
-        if dim is None or group is None:
-            out[k] = v
-        else:
-            whole = all_gather_rows(v.detach().movedim(dim, 0).contiguous(),
-                                    group)
-            out[k] = whole.movedim(0, dim).contiguous()
+        for dim, axis in dims.get(k, ()):
+            group = _shard_group(mesh, axis)[0]
+            if group is not None:
+                v = all_gather_rows(v.detach().movedim(dim, 0).contiguous(),
+                                    group).movedim(0, dim).contiguous()
+        out[k] = v
     return out
 
 
 def _mp_context(mesh):
     """``None`` (no mesh, or no mp axis) or :func:`model_group`'s
-    ``(group, n, index)``; ``sp`` and ``ep`` axes raise by name."""
+    ``(group, n, index)``."""
     if mesh is None:
         return None
-    for axis, what in (("sp", "ring and Ulysses attention"),
-                       ("ep", "the MoE ffn's experts")):
-        if axis in mesh.mesh_dim_names:
-            raise MXNetError(
-                "a mesh axis %r (%s) is not ported yet (ROADMAP.md Queue A "
-                "item 8c)" % (axis, what))
     return model_group(mesh) if _mp_axis(mesh.mesh_dim_names) else None
+
+
+def _axis_context(mesh, axis):
+    """``None`` (no mesh, or no such axis) or the axis's ``(group, n,
+    index)`` (:func:`~..parallel.mesh.axis_group`; a one-rank axis is
+    ``(None, 1, 0)``, as a JAX axis of size 1 is still an axis)."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return None
+    return axis_group(mesh, (axis,))
+
+
+def _serving_context(mesh, what):
+    """:func:`_mp_context` for a serving function, which takes no ``sp`` or
+    ``ep`` axis (the JAX package serves on one device)."""
+    for axis in ("sp", "ep"):
+        if mesh is not None and axis in mesh.mesh_dim_names:
+            raise MXNetError("%s: a mesh axis %r shards training only; "
+                             "serve on a mesh of dp and mp" % (what, axis))
+    return _mp_context(mesh)
 
 
 def _run_device(mesh, device, what):
@@ -300,10 +346,40 @@ def _layernorm(x, gamma, beta, eps=1e-5):
     return (y * gamma + beta).to(x.dtype)
 
 
-def _attention(q, k, v, causal=True):
-    """(B, H, S, D) in, same out: the flash kernel (no mesh, no sp)."""
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal)
+ATTN_MODES = ("auto", "flash", "full", "ring", "ulysses")
+
+
+def _attention(q, k, v, causal=True, *, sp=None, attn="auto", blocks=None):
+    """(B, H_loc, S_loc, D) in, same out, by ``attn`` mode, as the JAX
+    package's. Without an sp axis (``sp`` None): ``auto`` and ``flash``
+    run the flash kernel at the tile ``blocks`` (``(block_q, block_k)``;
+    None entries consult the schedule table), ``full``, ``ring`` and
+    ``ulysses`` plain attention. On an sp axis (its ``(group, n,
+    index)``): ``auto`` and ``ring`` the ring, ``ulysses`` the
+    all-to-alls, ``full`` K and V all-gathered; ``flash`` raises. An
+    unknown mode raises."""
+    if attn not in ATTN_MODES:
+        raise ValueError("unknown attn mode %r" % (attn,))
+    if sp is None:
+        if attn in ("auto", "flash"):
+            bq, bk = blocks or (None, None)
+            return flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   block_q=bq, block_k=bk)
+        return full_attention(q, k, v, causal=causal)
+    if attn == "full":
+        # every shard attends the whole gathered sequence; q keeps its shard
+        kg, vg = all_gather(k, sp, dim=2), all_gather(v, sp, dim=2)
+        return full_attention(q, kg, vg, causal=causal,
+                              q_offset=sp[2] * q.shape[2])
+    if attn in ("auto", "ring"):
+        return ring_attention_inner(q, k, v, axis=sp, causal=causal)
+    if attn == "ulysses":
+        return ulysses_attention_inner(q, k, v, axis=sp, causal=causal)
+    raise ValueError(
+        "attn='flash' attends only within the local shard and is "
+        "incompatible with a sequence-parallel (sp) mesh axis; use "
+        "'ring' or 'ulysses' (both use flash-style online softmax)")
 
 
 def _qkv(h, lp, cdt, tp=None):
@@ -321,14 +397,18 @@ def _out_proj(o, lp, cdt, tp=None):
                                        lp["attn_out_weight"].to(cdt)), tp)
 
 
-def _block(x, lp, cdt, tp=None):
-    """One transformer block; lp: this layer's params (shards under mp)."""
+def _block(x, lp, cdt, tp=None, *, sp=None, ep=None, attn="auto",
+           blocks=None):
+    """One transformer block; lp: this layer's params (shards under mp and
+    ep); ``sp``/``ep`` the ``(group, n, index)`` of those axes (None:
+    absent); ``attn``/``blocks`` as :func:`_attention`'s."""
     h = _layernorm(x, lp["ln1_gamma"], lp["ln1_beta"])
     q, k, v = _qkv(h, lp, cdt, tp)
-    return _ffn(x + _out_proj(_attention(q, k, v), lp, cdt, tp), lp, cdt, tp)
+    o = _attention(q, k, v, sp=sp, attn=attn, blocks=blocks)
+    return _ffn(x + _out_proj(o, lp, cdt, tp), lp, cdt, tp, ep)
 
 
-def _ffn(x, lp, cdt, tp=None):
+def _ffn(x, lp, cdt, tp=None, ep=None):
     """The ffn half of a block (post-attention residual included), shared
     by the one-shot forward, prefill and decode: ffn-up by columns and
     ffn-down by rows under mp, one sum over the group. Layer params with a
@@ -336,7 +416,7 @@ def _ffn(x, lp, cdt, tp=None):
     ln = _layernorm(x, lp["ln2_gamma"], lp["ln2_beta"])
     h = copy_to_mp(ln, tp)
     if "moe_gate_weight" in lp:
-        f = _moe(ln, h, lp, cdt, tp)
+        f = _moe(ln, h, lp, cdt, tp, ep)
     else:
         up = F.relu(torch.einsum("bsd,df->bsf", h,
                                  lp["ffn_up_weight"].to(cdt)))
@@ -344,24 +424,34 @@ def _ffn(x, lp, cdt, tp=None):
     return x + reduce_from_mp(f, tp)
 
 
-def _moe(ln, h, lp, cdt, tp=None):
-    """The dense soft-gated mixture of every expert, before the block's
-    sum over the mp group: the gate an fp32 softmax of ``ln Wg`` cast to
-    the compute dtype, each expert ``relu(h Wup_e) Wdown_e`` on this
-    rank's d_ff shard, summed with the gate's weights.
+def _moe(ln, h, lp, cdt, tp=None, ep=None):
+    """The dense soft-gated mixture of this rank's experts, before the
+    block's sum over the mp group: the gate an fp32 softmax of ``ln Wg``
+    over every expert, this rank's slice of it cast to the compute dtype,
+    each expert ``relu(h Wup_e) Wdown_e`` on this rank's d_ff shard,
+    summed with the gate's weights and, over an ``ep`` axis, over the
+    group's experts.
 
-    Under mp the gated sum is of partial expert outputs, so each rank's
-    cotangent of the gate is partial: the gate is computed from the
+    Under mp (and ep) the gated sum is of partial expert outputs, so each
+    rank's cotangent of the gate is partial: the gate is computed from the
     replicated ``ln`` (not the column-parallel input ``h``) and passes
-    :func:`copy_to_mp`, whose backward sums it over the group. The gate's
-    weight and the gate's share of ``ln``'s gradient are then whole on
-    every rank, as the replicated params' are."""
+    :func:`copy_to_mp` over the ep group before its slice at ``idx_ep *
+    e_loc`` and over the mp group after, whose backwards sum it over each
+    group. The gate's weight and the gate's share of ``ln``'s gradient are
+    then whole on every rank, as the replicated params' are. The experts'
+    input ``h`` passes the ep group's :func:`copy_to_mp` too, and the
+    gated sum its :func:`reduce_from_mp`: ep is Megatron's pair over the
+    expert axis."""
     gate = torch.softmax(torch.einsum("bsd,de->bse", ln.float(),
                                       lp["moe_gate_weight"].float()), dim=-1)
+    if ep is not None:
+        e_loc = lp["ffn_up_weight"].shape[0]
+        gate = copy_to_mp(gate, ep).narrow(-1, ep[2] * e_loc, e_loc)
     gate = copy_to_mp(gate.to(cdt), tp)
+    h = copy_to_mp(h, ep)
     up = F.relu(torch.einsum("bsd,edf->besf", h, lp["ffn_up_weight"].to(cdt)))
     down = torch.einsum("besf,efd->besd", up, lp["ffn_down_weight"].to(cdt))
-    return torch.einsum("besd,bse->bsd", down, gate)
+    return reduce_from_mp(torch.einsum("besd,bse->bsd", down, gate), ep)
 
 
 def _logits(x, params, cdt, tp=None):
@@ -395,10 +485,11 @@ def _as_long(a, device):
     return torch.as_tensor(a, device=device).long()
 
 
-def _forward(params, tokens, c, cdt, dev, tp=None):
+def _forward(params, tokens, c, cdt, dev, tp=None, sp=None, ep=None, s0=0):
     """Logits (B, S, V) fp32 of int tokens (B, S): the causal block stack
     shared by the one-shot forward and the training loss (the JAX
-    package's ``_forward_local``; ``tp`` the mp group of a rank's shards).
+    package's ``_forward_local``; ``tp``, ``sp`` and ``ep`` the groups of a
+    rank's shards; ``s0`` the global position of the rank's first token).
     Out-of-vocab ids embed as zeros. Under ``c.remat``, while autograd
     records, each layer is recomputed in the backward (``jax.checkpoint``
     in the JAX package)."""
@@ -407,14 +498,16 @@ def _forward(params, tokens, c, cdt, dev, tp=None):
     tokens = _as_long(tokens, dev)
     S = tokens.shape[1]
     x = _embed(emb, tokens, tp, clamp=False)
-    x = (x + params["pos_embed_weight"][:S]).to(cdt)
+    x = (x + params["pos_embed_weight"][s0:s0 + S]).to(cdt)
+    kw = dict(sp=sp, ep=ep, attn=c.attn,
+              blocks=(c.attn_block_q, c.attn_block_k))
     remat = c.remat and torch.is_grad_enabled()
     for i in range(c.n_layers):
         lp = _layer(params, i)
         if remat:
-            x = checkpoint(_block, x, lp, cdt, tp, use_reentrant=False)
+            x = checkpoint(_block, x, lp, cdt, tp, use_reentrant=False, **kw)
         else:
-            x = _block(x, lp, cdt, tp)
+            x = _block(x, lp, cdt, tp, **kw)
     return _logits(x, params, cdt, tp)
 
 
@@ -433,20 +526,40 @@ def make_forward_fn(config, device=None):
     return fwd
 
 
+def _reduce_axes(data_axes):
+    """The axes the loss's sum and count are summed over, and the
+    gradients: the data axes and ``sp`` (JAX's ``reduce_axes``)."""
+    return tuple(data_axes) + ("sp",)
+
+
 def _loss_closure(c, dev, mesh, data_axes):
     """The loss function of :func:`make_loss_fn` on ``dev``."""
     cdt = torch_dtype(c.dtype)
-    tp = _mp_context(mesh)
-    group, n, index = (None, 1, 0) if mesh is None else \
+    tp, sp, ep = (_mp_context(mesh), _axis_context(mesh, "sp"),
+                  _axis_context(mesh, "ep"))
+    _g, n, index = (None, 1, 0) if mesh is None else \
         data_group(mesh, data_axes)
     reduce = mesh is not None and any(a in mesh.mesh_dim_names
-                                      for a in data_axes)
+                                      for a in _reduce_axes(data_axes))
+    group = axis_group(mesh, _reduce_axes(data_axes))[0] if reduce else None
 
     def loss_fn(params, tokens):
         if n > 1:
             tokens = rank_rows(tokens, n, index, "tokens", "loss_fn")
         tokens = _as_long(tokens, dev)
-        logits = _forward(params, tokens[:, :-1], c, cdt, dev, tp)
+        s0 = 0
+        if sp is not None:
+            # the rank's chunk of the sequence and the next token (the +1
+            # target overlap)
+            seq = tokens.shape[1] - 1
+            if seq % sp[1]:
+                raise MXNetError("loss_fn: sequence length %d does not "
+                                 "divide over %d sp ranks" % (seq, sp[1]))
+            s_loc = seq // sp[1]
+            s0 = sp[2] * s_loc
+            tokens = tokens[:, s0:s0 + s_loc + 1]
+        logits = _forward(params, tokens[:, :-1], c, cdt, dev, tp, sp, ep,
+                          s0)
         nll = -F.log_softmax(logits, dim=-1).gather(-1, tokens[:, 1:, None])
         if not reduce:
             return nll.mean()
@@ -468,11 +581,13 @@ def make_loss_fn(config, mesh=None, data_axes=("dp",), device=None):
     On a ``mesh`` (every rank calls it, on its mesh device) the params are
     the rank's shards (:func:`shard_params`; ``specs`` is
     :func:`param_specs`) and ``tokens`` the global batch, whose rows the
-    data axes among ``data_axes`` split: the loss is the global mean, the
-    sum and count summed over the data group. Each rank's gradient is its
-    data rank's share (the mp ranks of one data rank get the same
-    gradient of every replicated param); their sum over the data group is
-    the global loss's gradient, as :func:`make_train_step` takes it."""
+    data axes among ``data_axes`` split and whose sequence an ``sp`` axis
+    splits (the rank's chunk of S and the next token): the loss is the
+    global mean, the sum and count summed over the data axes and sp. Each
+    rank's gradient is its share (the mp and ep ranks of one data and sp
+    index get the same gradient of every replicated param); their sum
+    over the data axes and sp is the global loss's gradient, as
+    :func:`make_train_step` takes it."""
     dev = _run_device(mesh, device, "make_loss_fn")
     specs = None if mesh is None else param_specs(config, mesh)
     return _loss_closure(config, dev, mesh, data_axes), specs
@@ -482,9 +597,9 @@ def make_train_step(config, mesh=None, optimizer=None, data_axes=("dp",),
                     device=None):
     """``(step, place)``: one train step on ``device`` (default ``cuda``),
     or on each rank of a ``mesh`` (every rank calls ``step`` with the
-    global batch; the gradients are summed over the data group, one
-    collective a dtype, and the replicated params stay bit for bit equal
-    across an mp group).
+    global batch; the gradients are summed over the data axes and ``sp``,
+    one collective a dtype, and the replicated params stay bit for bit
+    equal across an mp or ep group).
 
     ``place(params)`` copies the params (whole; on a mesh, this rank's
     :func:`shard_params`) to the device as fp32 leaves that require grad
@@ -505,7 +620,8 @@ def make_train_step(config, mesh=None, optimizer=None, data_axes=("dp",),
                          "got %r" % type(opt).__name__)
     loss_fn, _specs = make_loss_fn(config, mesh, data_axes, device)
     dev = _run_device(mesh, device, "make_train_step")
-    group = None if mesh is None else data_group(mesh, data_axes)[0]
+    group = None if mesh is None else \
+        axis_group(mesh, _reduce_axes(data_axes))[0]
 
     def step(carry, tokens):
         params, opt_state, n = carry
@@ -535,31 +651,44 @@ def block_collective_counts(config, mesh, data_axes=("dp",)):
     ``meta`` tensors (shapes only: nothing is sent, as the JAX package
     counts a traced jaxpr): ``psum_per_block`` the sums inside one
     transformer block (2 on an mp mesh: after the out-projection and
-    ffn-down; 0 without mp), ``psum_outside`` the others (the
-    vocab-sharded embedding's, the loss sum's and count's over the data
-    axes), ``all_gather`` the logits' gathers, ``n_blocks`` the layers.
-    The JAX package's keys and values for the same mesh shape."""
+    ffn-down; one more after the MoE's gated sum on an ep mesh; 0 without
+    either), ``psum_outside`` the others (the vocab-sharded embedding's,
+    the loss sum's and count's over the data axes and sp),
+    ``all_gather`` the gathers outside the blocks (the logits') and those
+    of one block (K and V under ``attn="full"`` on sp: the JAX package
+    counts the scanned block once), ``n_blocks`` the layers. The JAX
+    package's keys and values for the same mesh shape. The ring's
+    permutes and Ulysses' all-to-alls are no psum or gather and count in
+    ``tensor_parallel.counts()`` only."""
     meta = torch.device("meta")
     params = shard_params({k: torch.empty(shape, device=meta) for k, shape
                            in _param_shapes(config).items()},
                           config, mesh, device=meta)
     n = data_group(mesh, data_axes)[1]
     loss_fn = _loss_closure(config, meta, mesh, data_axes)
-    tp = _mp_context(mesh)
+    sp = _axis_context(mesh, "sp")
+    s_loc = 8 // (1 if sp is None else sp[1])
     before = tpl.counts()
     with torch.no_grad():
         loss_fn(params, torch.zeros((n, 9), dtype=torch.long, device=meta))
         mid = tpl.counts()
-        _block(torch.empty((1, 8, config.d_model), device=meta,
+        _block(torch.empty((1, s_loc, config.d_model), device=meta,
                            dtype=torch_dtype(config.dtype)),
-               _layer(params, 0), torch_dtype(config.dtype), tp)
+               _layer(params, 0), torch_dtype(config.dtype),
+               _mp_context(mesh), sp=sp, ep=_axis_context(mesh, "ep"),
+               attn=config.attn)
     after = tpl.counts()
-    per_block = after["reduce_from_mp"] - mid["reduce_from_mp"]
-    psums = sum(mid[k] - before[k] for k in ("reduce_from_mp",
-                                             "reduce_from_data"))
+
+    def delta(a, b, *names):
+        return sum(b[k] - a[k] for k in names)
+
+    gathers = ("gather_from_mp", "all_gather")
+    per_block = delta(mid, after, "reduce_from_mp")
+    psums = delta(before, mid, "reduce_from_mp", "reduce_from_data")
     return {"psum_per_block": per_block,
             "psum_outside": psums - per_block * config.n_layers,
-            "all_gather": mid["gather_from_mp"] - before["gather_from_mp"],
+            "all_gather": delta(before, mid, *gathers)
+            - delta(mid, after, *gathers) * (config.n_layers - 1),
             "n_blocks": config.n_layers}
 
 
@@ -597,7 +726,8 @@ def make_prefill_fn(config, page_size, device=None, mesh=None):
     cdt = torch_dtype(c.dtype)
     page_size = int(page_size)
     dev = _run_device(mesh, device, "make_prefill_fn")
-    tp = _mp_context(mesh)
+    tp = _serving_context(mesh, "make_prefill_fn")
+    blocks = (c.attn_block_q, c.attn_block_k)
 
     @torch.inference_mode()
     def prefill(params, cache, tokens, length, pages):
@@ -618,7 +748,8 @@ def make_prefill_fn(config, page_size, device=None, mesh=None):
                 n_pages, page_size, k.shape[1], -1).to(cache.dtype)
             cache[i, 1, pages] = v[0].transpose(0, 1).reshape(
                 n_pages, page_size, v.shape[1], -1).to(cache.dtype)
-            o = _out_proj(_attention(q, k, v), lp, cdt, tp)
+            o = _out_proj(_attention(q, k, v, attn=c.attn, blocks=blocks),
+                          lp, cdt, tp)
             x = _ffn(x + o, lp, cdt, tp)
         return cache, _logits(x[0, int(length) - 1], params, cdt, tp)
 
@@ -753,7 +884,7 @@ def make_extend_fn(config, slots, steps, max_pages_per_slot, page_size,
     cdt = torch_dtype(c.dtype)
     page_size = int(page_size)
     dev = _run_device(mesh, device, "make_extend_fn")
-    tp = _mp_context(mesh)
+    tp = _serving_context(mesh, "make_extend_fn")
 
     @torch.inference_mode()
     def extend(params, cache, tokens, positions, block_tables, valid):

@@ -10,8 +10,12 @@ group. A port mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with
 or the CPU when the caller asks for it. Axis names keep the JAX package's
 convention: ``dp`` (and ``dcn``, the multi-host data axis) shard the batch;
 ``mp`` (``tp`` is its legacy alias) shards the transformer's weights,
-Megatron's way (:mod:`.tensor_parallel`). :func:`train_mesh` puts ``mp``
-innermost, so the ranks of one mp group are adjacent.
+Megatron's way (:mod:`.tensor_parallel`); ``sp`` shards the sequence (ring
+and Ulysses attention, :mod:`.ring`); ``ep`` shards the MoE's experts;
+``pp`` holds the pipeline's stages (:mod:`.pipeline`). :func:`axis_group`
+gives a rank's group, and its index, along any of them or several.
+:func:`train_mesh` puts ``mp`` innermost, so the ranks of one mp group are
+adjacent.
 
 A data-parallel step keeps rows ``[i * B / N, (i + 1) * B / N)`` of a
 global batch of ``B`` rows on the rank whose index along the data axes is
@@ -124,25 +128,54 @@ def mesh_shape(mesh):
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
+def _subgroup(mesh, axes):
+    """The process group of this rank's ranks that differ only in their
+    coordinates along ``axes`` (two or more of the mesh's axes, in mesh
+    order), made once a mesh: every rank makes every such group, in the
+    same order, as ``new_group`` asks."""
+    groups = mesh.__dict__.setdefault("_axis_groups", {})
+    if axes not in groups:
+        names = list(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in dims]
+        width = int(np.prod([mesh.mesh.shape[i] for i in dims]))
+        rows = mesh.mesh.permute(*rest, *dims).reshape(-1, width).tolist()
+        groups[axes], _all = dist.new_subgroups_by_enumeration(rows)
+    return groups[axes]
+
+
+def axis_group(mesh, axes):
+    """``(group, n, index)``: the process group over the mesh axes among
+    ``axes`` (the ranks that differ only in those coordinates), its size and
+    this rank's index in it, row-major over those axes in mesh order (the
+    JAX package's ``axis_index`` of a tuple of axes); ``(None, 1, 0)`` when
+    they hold one rank in all. Any set of axes: ``dp`` for the batch,
+    ``sp`` for the sequence, ``ep`` for the experts, ``pp`` for the
+    pipeline's stages, ``dp`` with ``sp`` for the loss's sum. A group over
+    two or more axes, not all the mesh's, is made at its first use, which
+    every rank of the mesh must reach alike."""
+    sizes = mesh_shape(mesh)
+    names = [a for a in mesh.mesh_dim_names if a in axes]
+    n = int(np.prod([sizes[a] for a in names]))
+    if n == 1:
+        return None, 1, 0
+    live = tuple(a for a in names if sizes[a] > 1)
+    if all(a in live for a, s in sizes.items() if s > 1):
+        group = dist.group.WORLD
+    elif len(live) == 1:
+        group = mesh.get_group(live[0])
+    else:
+        group = _subgroup(mesh, live)
+    return group, n, dist.get_rank(group)
+
+
 def data_group(mesh, axes=("dp",)):
     """``(group, n, index)``: the process group over the mesh's data axes
     among ``axes``, its size and this rank's index in it (the rank's shard
     of the batch); ``(None, 1, 0)`` when the mesh's data axes among
-    ``axes`` hold one rank in all (none of them is one rank too). All the
-    mesh's axes of size > 1, or one axis, are supported."""
-    sizes = mesh_shape(mesh)
-    names = [a for a in axes if a in sizes]
-    n = int(np.prod([sizes[a] for a in names]))
-    if n == 1:
-        return None, 1, 0
-    if all(a in names for a, s in sizes.items() if s > 1):
-        group = dist.group.WORLD
-    elif len(names) == 1:
-        group = mesh.get_group(names[0])
-    else:
-        raise MXNetError("data axes %r: a subset of more than one mesh axis "
-                         "is not ported" % (tuple(names),))
-    return group, n, dist.get_rank(group)
+    ``axes`` hold one rank in all (none of them is one rank too). See
+    :func:`axis_group`."""
+    return axis_group(mesh, axes)
 
 
 def model_group(mesh):

@@ -293,16 +293,18 @@ def test_parity_catches_planted_reduce(runs):
         _hold(ranks["mp"][0]["fault_grads"], ref["mp"]["grad"][1], "fault")
 
 
-def test_sp_ep_and_moe_raise_by_name(runs):
-    """The ``sp`` and ``ep`` axes still raise by name. MoE, refused before
-    it was ported, now takes the mp specs of the JAX package (replicated
-    gate, each expert's d_ff sharded, the expert axis whole); its mp runs
-    are in tests/test_torch_moe.py."""
-    ranks, _ref = runs
-    refusals = ranks["mp"][0]["refusals"]
-    assert len(refusals) == 2
-    assert "'sp'" in refusals[0] and "'ep'" in refusals[1]
-    assert all("item 8c" in r for r in refusals)
+def test_sp_and_ep_meshes_build_and_moe_takes_the_mp_specs(runs):
+    """Meshes with an ``sp`` or an ``ep`` axis, refused before those axes
+    were ported, now build and give the one-device loss (their parity runs
+    are in tests/test_torch_sequence_parallel.py and
+    tests/test_torch_expert_parallel.py). MoE takes the mp specs of the
+    JAX package (replicated gate, each expert's d_ff sharded, the expert
+    axis whole without ep); its mp runs are in tests/test_torch_moe.py."""
+    ranks, ref = runs
+    for r in ranks["mp"]:
+        assert len(r["axis_losses"]) == 2
+        for loss in r["axis_losses"]:
+            assert loss == pytest.approx(ref["one"][0], rel=1e-5)
     cfg = dict(mw.CFG, n_experts=2)
     jspecs = jtfm.param_specs(jtfm.TransformerConfig(**cfg),
                               _jmesh(SHAPES["mp"]))

@@ -222,7 +222,8 @@ def test_trainstep_routes_and_blocks(trainstep_runs):
                                "reduce_from_mp": BATCHES,
                                "gather_from_mp": 0,
                                "scatter_to_mp": BATCHES,
-                               "reduce_from_data": 0}
+                               "reduce_from_data": 0, "ppermute": 0,
+                               "all_to_all": 0, "all_gather": 0}
         assert r["held"]["fc1_weight"] == (16, 16)
         assert r["held"]["fc2_weight"] == (4, 16)
         assert r["opt"]["fc1_weight"][0].shape == (32, 16)

@@ -96,10 +96,6 @@ NOT_PORTED = {
     "embedding": {"checkpoint": _ITEM10},
     "kvstore": {"DistKVStore": _ITEM10, "two_bit_pack_core": _ITEM10,
                 "two_bit_round_trip_core": _ITEM10},
-    "parallel": {n: "item 8c (sequence and pipeline parallelism)"
-                 for n in ("full_attention", "pipeline", "pipeline_apply",
-                           "ring", "ring_attention", "ring_attention_inner",
-                           "ulysses_attention", "ulysses_attention_inner")},
 }
 
 

@@ -191,3 +191,52 @@ def test_step_functions_refuse_params_on_another_device(models):
     with pytest.raises(MXNetError, match="cache is on meta"):
         ttfm.make_prefill_fn(tc, 8, device="cpu")(
             tp, cache.to("meta"), toks, 8, np.array([1], np.int32))
+
+
+def test_config_fields_and_defaults_match_jax():
+    """C19: the port's TransformerConfig has the JAX one's fields, in its
+    order, with its defaults (``attn``, ``attn_block_q`` and
+    ``attn_block_k`` were missing), so one dict builds both."""
+    import dataclasses
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(ttfm.TransformerConfig) == fields(jtfm.TransformerConfig)
+    kw = dict(SMALL, attn="full", attn_block_q=16, attn_block_k=32)
+    assert dataclasses.asdict(ttfm.TransformerConfig(**kw)) == \
+        dataclasses.asdict(jtfm.TransformerConfig(**kw))
+
+
+def test_config_tile_reaches_the_flash_call(models, monkeypatch):
+    """C19: ``attn_block_q``/``attn_block_k`` reach ``flash_attention``'s
+    ``block_q``/``block_k`` in the forward and in prefill, as the JAX
+    ``_block`` passes them; the plain version's blocked softmax at that
+    tile gives the same logits as the whole rows."""
+    import dataclasses
+
+    _jc, _jp, tc, tp = models
+    seen = []
+    real = ttfm.flash_attention
+
+    def recording(*a, **kw):
+        seen.append((kw["block_q"], kw["block_k"]))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ttfm, "flash_attention", recording)
+    toks = np.random.RandomState(6).randint(0, 64, (2, 24)).astype(np.int32)
+    plain = ttfm.make_forward_fn(tc, device="cpu")(tp, toks)
+    assert seen == [(None, None)] * tc.n_layers
+    tiled_cfg = dataclasses.replace(tc, attn_block_q=16, attn_block_k=8)
+    seen.clear()
+    tiled = ttfm.make_forward_fn(tiled_cfg, device="cpu")(tp, toks)
+    assert seen == [(16, 8)] * tc.n_layers
+    np.testing.assert_allclose(tiled.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    seen.clear()
+    cache = ttfm.init_kv_cache(tiled_cfg, 4, 8, device="cpu")
+    _cache, last = ttfm.make_prefill_fn(tiled_cfg, 8, device="cpu")(
+        tp, cache, toks[:1], 24, np.array([1, 2, 3]))
+    assert seen == [(16, 8)] * tc.n_layers
+    np.testing.assert_allclose(last.numpy(), plain[0, 23].numpy(),
+                               rtol=1e-5, atol=1e-5)

@@ -79,9 +79,8 @@ def loss_and_grads(cfg, mesh, params, fault=False):
 def mp_train_worker(rank, world, mp):
     """Sharding, the loss and its gradient, the collective counts and
     ``STEPS`` train steps on ``train_mesh(mp=mp)``; on 2 ranks also the
-    ``tp`` alias, a ``{"dp": 2}`` mesh, the planted fault and the ``sp`` /
-    ``ep`` refusals."""
-    from mxnet_tpu_torch.base import MXNetError
+    ``tp`` alias, a ``{"dp": 2}`` mesh, the planted fault and the loss on
+    ``sp`` and ``ep`` meshes."""
     from mxnet_tpu_torch.parallel.mesh import (data_group, make_mesh,
                                                model_group, train_mesh)
 
@@ -125,12 +124,12 @@ def mp_train_worker(rank, world, mp):
         out["fault_grads"] = loss_and_grads(cfg, mesh, params, fault=True)[1]
         out["moe_specs"] = tfm.param_specs(
             tfm.TransformerConfig(**dict(CFG, n_experts=2)), mesh)
-        out["refusals"] = []
+        out["axis_losses"] = []
         for axes in ({"dp": 1, "sp": 2}, {"dp": 1, "ep": 2}):
-            try:
-                tfm.make_loss_fn(cfg, make_mesh(axes, device="cpu"))
-            except MXNetError as e:
-                out["refusals"].append(str(e))
+            mesh2 = make_mesh(axes, device="cpu")
+            loss_fn, _specs = tfm.make_loss_fn(cfg, mesh2, device="cpu")
+            out["axis_losses"].append(loss_fn(
+                tfm.shard_params(params, cfg, mesh2), tokens()).item())
     return out
 
 
@@ -286,9 +285,10 @@ def moe_tokens(seed=0):
         0, MOE_CFG["vocab"], MOE_BATCH).astype(np.int32)
 
 
-def _moe_without_gate_sum(ln, h, lp, cdt, tp=None):
+def _moe_without_gate_sum(ln, h, lp, cdt, tp=None, ep=None):
     """The MoE branch with the gate's cotangent left partial on each rank
-    (no sum over the mp group): the fault the parity test must catch."""
+    (no sum over the mp group): the fault the parity test must catch (on
+    an mp mesh: ``ep`` is None)."""
     import torch.nn.functional as F
 
     gate = torch.softmax(torch.einsum("bsd,de->bse", ln.float(),
@@ -302,7 +302,7 @@ def moe_mp_worker(rank, world):
     """The MoE transformer on ``train_mesh(mp=2)``: its shards, the loss
     and every gradient (and again with the gate's sum over the group taken
     out), the collective counts, ``STEPS`` train steps and the replicated
-    params after them, and the ``ep`` refusal."""
+    params after them, and the serving step's ``ep`` refusal."""
     from mxnet_tpu_torch.base import MXNetError
     from mxnet_tpu_torch.parallel.mesh import make_mesh, train_mesh
 
@@ -341,7 +341,8 @@ def moe_mp_worker(rank, world):
         {k: v.detach() for k, v in carry[0].items()}, cfg, mesh).items()}
     out["gate"] = carry[0]["moe_gate_weight"].detach().numpy().copy()
     try:
-        tfm.make_loss_fn(cfg, make_mesh({"dp": 1, "ep": 2}, device="cpu"))
+        tfm.make_prefill_fn(cfg, 8, mesh=make_mesh({"dp": 1, "ep": 2},
+                                                   device="cpu"))
         out["ep_refusal"] = None
     except MXNetError as e:
         out["ep_refusal"] = str(e)
