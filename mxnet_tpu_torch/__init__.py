@@ -57,6 +57,8 @@ from . import parallel  # noqa: F401
 from . import recordio  # noqa: F401
 from . import config  # noqa: F401
 from . import chaos, embedding, ir, kvstore_server, profiler  # noqa: F401
+from . import checkpoint, health  # noqa: F401
+from .checkpoint import CheckpointManager  # noqa: F401
 from . import serving, tracker  # noqa: F401
 from . import operator  # noqa: F401
 from . import monitor  # noqa: F401
@@ -86,7 +88,8 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "io", "mod", "model", "callback", "lr_scheduler", "name", "kv",
            "kvstore", "parallel", "contrib", "recordio", "gluon", "rnd",
            "config", "chaos", "embedding", "ir", "kvstore_server",
-           "profiler", "serving", "tracker", "Executor", "load_checkpoint",
+           "profiler", "serving", "tracker", "checkpoint",
+           "CheckpointManager", "health", "Executor", "load_checkpoint",
            "save_checkpoint", "num_gpus", "cpu_pinned", "operator",
            "monitor", "mon", "visualization", "viz", "rtc", "log",
            "libinfo", "executor_manager", "test_utils", "is_np_array"]

@@ -1,7 +1,7 @@
 """Training callbacks (counterpart of ``mxnet_tpu/callback.py``):
-``module_checkpoint``, ``do_checkpoint``, ``log_train_metric``,
-``Speedometer`` and ``ProgressBar``. Not ported yet: ``elastic_checkpoint``
-(the coordinated multi-worker checkpoint)."""
+``module_checkpoint``, ``do_checkpoint``, ``elastic_checkpoint`` (the
+coordinated multi-worker checkpoint of ``checkpoint.CheckpointManager``),
+``log_train_metric``, ``Speedometer`` and ``ProgressBar``."""
 from __future__ import annotations
 
 import logging
@@ -30,6 +30,91 @@ def do_checkpoint(prefix, period=1):
     def _callback(iter_no, sym, arg, aux):
         if (iter_no + 1) % period == 0:
             save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+
+    return _callback
+
+
+def elastic_checkpoint(manager, mod, kv, state_fn=None):
+    """Epoch-end callback running the coordinated checkpoint every
+    ``manager.period`` epochs, through three kvstore barriers (named
+    ``ckpt-<epoch>-stage|progress|commit`` where the store takes names, so
+    a respawned worker replaying one phase never pairs with a survivor in
+    another):
+
+    1. rank 0 creates the staging directory; barrier ``stage``;
+    2. every worker writes its progress (``state_fn()``, by default the
+       numpy RNG state, plus the epoch and batch cursor 0); barrier
+       ``progress``;
+    3. rank 0 snapshots the weights and optimizer state and commits while
+       every other rank waits in barrier ``commit``, so no push lands in
+       between. On a server kvstore the weights are pulled inside that
+       window (the epoch-end ``get_params`` predates the first barrier); on
+       a local one they are the module's own snapshot (``arg``/``aux`` of
+       the callback) and ``mod.save_optimizer_states``.
+
+    A respawned worker reads ``manager.latest()`` and passes
+    ``begin_epoch=checkpoint.epoch`` to ``fit``."""
+    import inspect
+
+    rank = kv.rank
+
+    def _default_state():
+        import numpy as np
+
+        return {"numpy_rng": np.random.get_state()}
+
+    state_fn = state_fn or _default_state
+    # probed once, outside the choreography: a TypeError caught around the
+    # call would also hide unrelated ones
+    try:
+        named = "name" in inspect.signature(kv.barrier).parameters
+    except (TypeError, ValueError):
+        named = False
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        epoch = iter_no + 1
+        if not manager.due(epoch):
+            return
+
+        def _sync(phase):
+            if named:
+                kv.barrier("ckpt-%d-%s" % (epoch, phase))
+            else:
+                kv.barrier()
+
+        if rank == 0:
+            manager.begin(epoch)
+        _sync("stage")
+        state = dict(state_fn())
+        state.setdefault("epoch", epoch)
+        state.setdefault("nbatch", 0)           # an epoch boundary
+        manager.write_worker_state(epoch, rank, state)
+        _sync("progress")
+        if rank == 0:
+            if getattr(kv, "server_side", False):
+                import numpy as np
+
+                weights = {}
+                for k, v in (arg or {}).items():
+                    buf = np.empty(v.shape, dtype=v.dtype)
+                    kv.pull(k, out=buf)
+                    weights["arg:%s" % k] = buf
+                kv.save_optimizer_states(
+                    manager.staged_optimizer_states_path(epoch))
+                config = kv.get_optimizer_config()
+            else:
+                weights = {"arg:%s" % k: v.asnumpy()
+                           for k, v in (arg or {}).items()}
+                mod.save_optimizer_states(
+                    manager.staged_optimizer_states_path(epoch))
+                config = None
+            # aux state is the worker's own (never on a server): rank 0's
+            # copy is the one a respawn restores
+            weights.update({"aux:%s" % k: v.asnumpy()
+                            for k, v in (aux or {}).items()})
+            manager.commit(epoch, weights=weights, optimizer_config=config,
+                           num_workers=kv.num_workers)
+        _sync("commit")
 
     return _callback
 

@@ -20,7 +20,34 @@ crash or stall at ``req=N``; ``rpc``/``router`` drop with ``p``/``seed``,
 ``n``, ``phase`` (and ``op``, ``side`` for rpc only); ``heartbeat`` stall
 ``after=N``; ``autoscaler`` crash at ``tick=N``; ``restart=K|any``.
 
-Wired in the port:
+Every target has its hook in the port, where the JAX package has it:
+
+``worker:R:crash@step=N``  /  ``server:R:crash@step=N``
+    The matching process hard-exits (``os._exit(137)``, the SIGKILL
+    status: no atexit hook, no ``done`` report) at its N-th step. A worker
+    step is one optimizer round (``model._update_params*``, or one fused
+    step of ``Module``); a server step is one applied push. Crash rules
+    fire only in the first incarnation (``restart`` defaults to 0).
+
+``worker:R:nan@step=N``
+    The worker's N-th optimizer round runs with a poisoned gradient: the
+    per-executor tiers overwrite one gradient array with NaN before the
+    update or push, the fused tier multiplies the step's first data input
+    by NaN, so every gradient of the step goes non-finite: the silent
+    fault the sentinel and ``health.HealthGuard`` exist to catch. Fires
+    once a incarnation.
+
+``worker:R:preempt@step=N``  /  ``server:R:preempt@step=N``
+    The process sends SIGTERM to itself at its N-th step: with the
+    preemption handler installed (``health.py``) it drains, checkpoints
+    inside ``MXNET_PREEMPT_GRACE`` and exits with ``EXIT_PREEMPTED`` (75);
+    without it the default disposition kills it like a crash.
+
+``rpc:drop@op=OP[,p=P,seed=S][,n=N][,phase=send|reply][,side=client|server]``
+    A connection drop on a matching kvstore RPC: ``send`` before the
+    request leaves the client, ``reply`` after it was applied but before
+    the reply is read (the retry exercises the seqno dedupe),
+    ``side=server`` before the server applies it.
 
 ``replica:R:crash@req=N``  /  ``replica:R:stall@req=N``
     Serving-fleet faults, counted in ADMITTED requests of the replica
@@ -54,21 +81,18 @@ Wired in the port:
     requests queued behind it. Fires once (``restart`` gating defaults
     to ``any``: the serving loop has no incarnations).
 
-The training plane's targets (``worker``, ``server``, ``rpc``) belong to
-the distributed training tier, which is not ported yet: a spec naming one
-parses, and then :func:`engine` raises by name, because a chaos harness
-that silently does nothing would certify recovery paths that were never
-exercised. For the same reason a malformed spec raises
-:class:`FaultSpecError` at parse time.
+A malformed spec raises :class:`FaultSpecError` at parse time: a chaos
+harness that silently does nothing would certify recovery paths that were
+never exercised.
 """
 from __future__ import annotations
 
 import os
 import random
+import signal
 import sys
 
 from . import config
-from .base import MXNetError
 
 _TARGETS = ("worker", "server", "replica", "rpc", "router", "heartbeat",
             "generate", "autoscaler")
@@ -79,8 +103,6 @@ _ACTIONS = {"worker": ("crash", "nan", "preempt"),
             "heartbeat": ("stall",),
             "generate": ("stall",),
             "autoscaler": ("crash",)}
-# targets whose hook the port has
-_WIRED = ("generate", "replica", "router", "autoscaler", "heartbeat")
 _EXIT_CODE = 137  # SIGKILL'd processes report 128+9; crash mimics that
 
 
@@ -238,18 +260,11 @@ def parse_spec(text):
 
 class ChaosEngine:
     """One process's view of the fault spec: its role, rank and
-    incarnation (restart count), its counts of admitted requests, beats
-    and control ticks; fires the matching rules. A rule whose target has
-    no hook in the port raises."""
+    incarnation (restart count), its counts of steps, admitted requests,
+    beats and control ticks; fires the matching rules."""
 
     def __init__(self, spec, role=None, rank=None, restart=None):
         self.rules = parse_spec(spec)
-        for rule in self.rules:
-            if rule.target not in _WIRED:
-                raise MXNetError(
-                    "MXNET_FAULT_SPEC rule %r: the %s hook is not ported "
-                    "yet (ROADMAP.md Queue A item 10)"
-                    % (rule.text, rule.target))
         self.role = role if role is not None else \
             os.environ.get("DMLC_ROLE", "worker").lower()
         if rank is None:
@@ -271,6 +286,7 @@ class ChaosEngine:
         self._gen_reqs = 0
         self._as_ticks = 0
         self._exit = os._exit  # injectable for tests
+        self._kill = lambda: os.kill(os.getpid(), signal.SIGTERM)  # ditto
 
     def _crash(self, rule):
         print("[chaos] injecting crash: rule %r fired at %s %d step %d "
@@ -279,6 +295,48 @@ class ChaosEngine:
               file=sys.stderr, flush=True)
         sys.stderr.flush()
         self._exit(_EXIT_CODE)
+
+    def _preempt(self, rule):
+        print("[chaos] injecting preemption (SIGTERM to self): rule %r "
+              "fired at %s %d step %d (restart %d)"
+              % (rule.text, self.role, self.rank, self._step,
+                 self.restart), file=sys.stderr, flush=True)
+        sys.stderr.flush()
+        self._kill()
+
+    def _match_step_rule(self, rule, action, step):
+        return (rule.action == action and rule.target == self.role
+                and rule.rank == self.rank
+                and rule.restart_matches(self.restart)
+                and step == int(rule.params["step"])
+                and not rule.fired)
+
+    def step(self):
+        """One unit of progress (worker: an optimizer round; server: an
+        applied push); fires the crash and preempt rules of this step."""
+        self._step += 1
+        for rule in self.rules:
+            if self._match_step_rule(rule, "crash", self._step):
+                rule.fired += 1
+                self._crash(rule)
+            elif self._match_step_rule(rule, "preempt", self._step):
+                rule.fired += 1
+                self._preempt(rule)
+
+    def nan(self):
+        """True when the round about to run matches a nan rule. Callers ask
+        before their ``tick_step()`` of the round (the gradient is poisoned
+        before the update consumes it), so this matches ``step + 1``."""
+        nxt = self._step + 1
+        for rule in self.rules:
+            if self._match_step_rule(rule, "nan", nxt):
+                rule.fired += 1
+                print("[chaos] poisoning gradient with NaN: rule %r "
+                      "fired at %s %d step %d (restart %d)"
+                      % (rule.text, self.role, self.rank, nxt,
+                         self.restart), file=sys.stderr, flush=True)
+                return True
+        return False
 
     def replica_request(self):
         """Count one admitted serving request; fire matching replica
@@ -362,6 +420,27 @@ class ChaosEngine:
                 return True
         return False
 
+    def rpc(self, op, phase="send", side="client"):
+        """True when a matching rpc:drop rule fires for this op."""
+        for rule in self.rules:
+            if rule.target != "rpc" or rule.action != "drop":
+                continue
+            if not rule.restart_matches(self.restart, default="any"):
+                continue
+            want_op = rule.params.get("op")
+            if want_op is not None and want_op != op:
+                continue
+            if rule.params.get("side", "client") != side:
+                continue
+            if side == "client" and rule.params.get("phase", "send") != phase:
+                continue
+            if rule.should_fire():
+                print("[chaos] dropping rpc %r (%s/%s) per rule %r"
+                      % (op, side, phase, rule.text),
+                      file=sys.stderr, flush=True)
+                return True
+        return False
+
     def heartbeat(self):
         """True when the heartbeat should be suppressed (stall rule)."""
         self._beats += 1
@@ -383,8 +462,7 @@ _ENGINE = _UNSET
 def engine():
     """The process's ChaosEngine, parsed once from MXNET_FAULT_SPEC;
     None when the env var is unset/empty (the common case — every hook
-    is then a single attribute check). Raises while the spec names a
-    target whose hook is not ported."""
+    is then a single attribute check)."""
     global _ENGINE
     if _ENGINE is _UNSET:
         spec = (config.get("MXNET_FAULT_SPEC") or "").strip()
@@ -396,6 +474,27 @@ def reset_engine():
     """Forget the cached engine (tests that monkeypatch the env)."""
     global _ENGINE
     _ENGINE = _UNSET
+
+
+def tick_step():
+    """One worker optimizer round or one applied server push: fires the
+    crash and preempt rules of the step."""
+    e = engine()
+    if e is not None:
+        e.step()
+
+
+def nan_fault():
+    """True when the upcoming optimizer round runs with a poisoned
+    gradient (``worker:R:nan@step=N``). Call BEFORE ``tick_step()``."""
+    e = engine()
+    return e is not None and e.nan()
+
+
+def rpc_fault(op, phase="send", side="client"):
+    """True when a kvstore RPC must drop its connection (``rpc:drop``)."""
+    e = engine()
+    return e is not None and e.rpc(op, phase=phase, side=side)
 
 
 def generate_fault():

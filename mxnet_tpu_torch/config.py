@@ -60,10 +60,9 @@ KNOBS = {
         "passed when MXNET_GENERATE_SPEC_K > 0; integer >= 0 "
         "(serving/broker.py GenerateServer)"),
     "MXNET_FAULT_SPEC": (
-        "", "deterministic fault injection rules (chaos.py grammar); the "
-        "port wires the generate, replica, router, autoscaler and "
-        "heartbeat hooks, and a rule for a training-plane target (worker, "
-        "server, rpc) raises by name (chaos.py)"),
+        "", "deterministic fault injection rules (chaos.py grammar: "
+        "crash/nan/preempt @step, rpc drop, heartbeat stall, replica "
+        "crash/stall, router drop, generate stall, autoscaler crash)"),
     "MXNET_SERVE_QUANT": (
         "none", "default serving quantization mode when AOTPredictor "
         "quant=None: 'none' or 'int8' (int8 needs calib_data=; asking "
@@ -125,9 +124,44 @@ KNOBS = {
         "1", "kill switch of the layout pass: 0 runs it with no rules "
         "(ir/passes.py); 0|1, anything else raises"),
     "MXNET_TPU_GUARD": (
-        "1", "arms the JAX package's HealthGuard in Module.fit when "
-        "MXNET_CHECKPOINT_DIR is set; not ported, so fit raises when both "
-        "are set (module/base_module.py)"),
+        "1", "arm the Module.fit self-healing guardrail when a coordinated "
+        "checkpoint directory (MXNET_CHECKPOINT_DIR) is configured: "
+        "consecutive-unhealthy / loss-spike detection triggers a "
+        "coordinated rollback to CheckpointManager.latest() with LR "
+        "backoff (health.py); 0|1, anything else raises"),
+    "MXNET_TPU_GUARD_CONSEC": (
+        "3", "consecutive unhealthy steps (fused: the sentinel's device "
+        "consec counter; host tier: consecutive non-finite-output "
+        "batches) that trigger a rollback (health.py)"),
+    "MXNET_TPU_GUARD_SPIKE": (
+        "10.0", "loss-spike rollback trigger: a checked loss above this "
+        "ratio of its running EMA rolls back; 0 disables spike detection "
+        "(health.py)"),
+    "MXNET_TPU_GUARD_BACKOFF": (
+        "0.5", "learning-rate multiplier applied on every rollback (in (0, "
+        "1]); applied server-side on dist_async via the rollback RPC "
+        "and via a fused-step rebuild on kvstore='tpu' (health.py)"),
+    "MXNET_TPU_GUARD_BUDGET": (
+        "2", "bounded rollback budget: after this many rollbacks the next "
+        "trigger fails the job loudly (elastic supervision resumes it "
+        "from the last checkpoint) instead of looping (health.py)"),
+    "MXNET_TPU_GUARD_INTERVAL": (
+        "10", "fused-tier guard check cadence in batches: the sentinel "
+        "counters are drained (one blocking device read) every N "
+        "batches, amortized like the Speedometer (health.py)"),
+    "MXNET_PREEMPT_GRACE": (
+        "15", "preemption grace window in seconds: on SIGTERM/SIGINT a "
+        "launch.py-spawned worker drains in-flight steps and writes a "
+        "resumable checkpoint, then exits with the distinguished "
+        "EXIT_PREEMPTED status; a hard-exit timer guarantees the "
+        "process is gone within the window either way (health.py)"),
+    "MXNET_CHECKPOINT_DIR": (
+        "", "coordinated checkpoint directory (CheckpointManager.from_env; "
+        "exported by tools/launch.py to every role) (checkpoint.py)"),
+    "MXNET_CHECKPOINT_PERIOD": (
+        "1", "checkpoint every N epochs (checkpoint.py)"),
+    "MXNET_CHECKPOINT_RETAIN": (
+        "2", "newest complete checkpoints kept (checkpoint.py)"),
     "MXNET_TPU_TUNE": (
         "1", "consult the on-disk schedule table for the searched tiles of "
         "the hand-written kernels when they are called (the kernels "
@@ -204,7 +238,8 @@ KNOBS = {
         "(kvstore_server.py)"),
     "MXNET_KVSTORE_REDISCOVER_TIMEOUT": (
         "30", "seconds to wait for a respawned server's new URI through the "
-        "tracker; not ported, so a set value raises (kvstore_server.py)"),
+        "tracker (ServerKVStore(tracker_client=)); finite float > 0 "
+        "(kvstore_server.py)"),
     "MXNET_KVSTORE_COALESCE_KEYS": (
         "16", "max keys per coalesced push_multi frame; integer >= 0, 0 "
         "means 1 (kvstore_server.py)"),
@@ -216,13 +251,12 @@ KNOBS = {
         "complete raises instead of spinning (kvstore_server.py)"),
     "MXNET_TPU_ZERO_SERVER": (
         "0", "ZeRO value sharding of dense keys over the parameter servers; "
-        "not ported, so 1 with more than one server raises "
-        "(kvstore_server.py)"),
+        "not ported (ROADMAP.md Queue A item 10c), so 1 with more than one "
+        "server raises (kvstore_server.py)"),
     "MXNET_MAX_RESTARTS": (
         "0", "elastic respawn budget of a node: > 0 switches the tracker's "
-        "barriers into elastic mode (tracker.py); the server tier's "
-        "elastic mode is not ported, so a server or its client raises when "
-        "it is > 0 (kvstore_server.py)"),
+        "and the servers' barriers into elastic mode, where a dead waiter "
+        "retracts its arrival (tracker.py, kvstore_server.py)"),
     "MXNET_TRACKER_HEARTBEAT_INTERVAL": (
         "2.0", "client heartbeat period in seconds; finite float > 0 "
         "(tracker.py)"),
@@ -301,13 +335,16 @@ KNOBS = {
         "returns the ServerKVStore client of these servers (kvstore.py)"),
     "MXNET_PS_BIND_HOST": (
         "", "server bind host override of the server entry point; not "
-        "ported, so a set value raises (kvstore_server.py)"),
+        "ported (ROADMAP.md Queue A item 10c), so a set value raises "
+        "(kvstore_server.py)"),
     "MXNET_PS_BIND_PORT": (
         "0", "server bind port override of the server entry point; not "
-        "ported, so a set value raises (kvstore_server.py)"),
+        "ported (ROADMAP.md Queue A item 10c), so a set value raises "
+        "(kvstore_server.py)"),
     "MXNET_PS_ADVERTISE_HOST": (
         "", "address a multi-host server publishes to the tracker; not "
-        "ported, so a set value raises (kvstore_server.py)"),
+        "ported (ROADMAP.md Queue A item 10c), so a set value raises "
+        "(kvstore_server.py)"),
     "MXNET_EMBED_SHARDS": (
         "0", "row-shard count override for ShardedEmbeddingTable; 0 (the "
         "default) shards one-per-server, shard s lives on server "

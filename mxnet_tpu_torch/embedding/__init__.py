@@ -13,11 +13,10 @@ servers of ``kvstore_server``.
 - :class:`EmbeddingLookupServer` / :class:`EmbeddingTowerPredictor`: the
   serving half, sharded lookup + dense tower through AOTPredictor, a
   fleet ``replica`` (``serving/fleet.py``).
-
-Not ported, raising by name: ``elastic_table_checkpoint`` (ROADMAP.md
-Queue A item 10, second part).
+- :func:`elastic_table_checkpoint`: the coordinated checkpoint over
+  sharded tables; a respawned server restores its suffix-routed sub-keys
+  through ``KVStoreServer.restore_from_checkpoint``.
 """
-from ..base import MXNetError
 from .block import SparseEmbedding  # noqa: F401
 from .lookup import (  # noqa: F401
     EmbeddingLookupServer,
@@ -33,18 +32,7 @@ from .table import (  # noqa: F401
     ShardedEmbeddingTable,
 )
 
-
-def _not_ported(name, item, what):
-    def refuse(*args, **kwargs):
-        raise MXNetError("embedding.%s: %s is not ported (ROADMAP.md Queue "
-                         "A item %d, second part)" % (name, what, item))
-
-    refuse.__name__ = name
-    return refuse
-
-
-elastic_table_checkpoint = _not_ported("elastic_table_checkpoint", 10,
-                                       "the table checkpoint")
+from .checkpoint import elastic_table_checkpoint  # noqa: F401
 
 __all__ = ["RowSharding", "embedding_sub_key", "embedding_shard_rank",
            "ShardedEmbeddingTable", "EmbeddingShardError",

@@ -28,13 +28,12 @@ wire of that tier is here: ``validate_compression_params``,
 ``two_bit_quantize`` and ``two_bit_dequantize`` (numpy, the JAX package's
 packing bit for bit).
 
-Not ported, raising by name (ROADMAP.md Queue A item 10): gradient
+Not ported, raising by name (ROADMAP.md Queue A item 10c): gradient
 compression on the in-process stores (``set_gradient_compression``), the
 other ``dist_*`` types, and ``dist_async`` from a tracker's rendezvous.
 """
 from __future__ import annotations
 
-import os
 
 import numpy as np
 import torch
@@ -274,7 +273,7 @@ class KVStore:
         validate_compression_params(compression_params)
         raise MXNetError("kvstore.set_gradient_compression: gradient "
                          "compression of the in-process stores is not "
-                         "ported (ROADMAP.md Queue A item 10; the server "
+                         "ported (ROADMAP.md Queue A item 10c; the server "
                          "tier's ServerKVStore compresses its wire)")
 
     # -- distributed surface -------------------------------------------------
@@ -298,16 +297,13 @@ class KVStore:
         self._barrier_before_exit = bool(barrier_before_exit)
 
     def save_optimizer_states(self, fname, dump_optimizer=False):
-        """The updater's states, written to a temporary file and
-        renamed."""
+        """The updater's states, written atomically
+        (``checkpoint.atomic_write_bytes``)."""
+        from .checkpoint import atomic_write_bytes
+
         if self._updater is None:
             raise MXNetError("kvstore: no updater to save")
-        tmp = "%s.tmp%d" % (fname, os.getpid())
-        with open(tmp, "wb") as f:
-            f.write(self._updater.get_states(dump_optimizer))
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, fname)
+        atomic_write_bytes(fname, self._updater.get_states(dump_optimizer))
 
     def load_optimizer_states(self, fname):
         if self._updater is None:
@@ -405,11 +401,11 @@ def create(name="local"):
             if tracker.tracker_env_spec() is not None:
                 raise MXNetError(
                     "kvstore='dist_async' through the tracker's rendezvous "
-                    "is not ported (ROADMAP.md Queue A item 10, second "
-                    "part): set MXNET_PS_SERVER_URI to the servers' URIs")
+                    "is not ported (ROADMAP.md Queue A item 10c): set "
+                    "MXNET_PS_SERVER_URI to the servers' URIs")
         raise MXNetError("kvstore=%r is not ported (the multi-host tier: "
                          "dist_* over a launcher; ROADMAP.md Queue A item "
-                         "10)" % name)
+                         "10c)" % name)
     raise MXNetError("unknown kvstore type %r" % name)
 
 

@@ -33,11 +33,18 @@ arrays as ``(dtype, shape, bytes)``, large ones out of band; optimizer
 states as tagged plain data, never a pickle): each package's client
 drives the other's servers.
 
-Not ported, raising by name (ROADMAP.md Queue A item 10, second part):
-checkpoint restore (``restore_from_checkpoint``) and rollback
-(``rollback_servers``), ZeRO value sharding (``MXNET_TPU_ZERO_SERVER=1``
-with more than one server), elastic barriers (``MXNET_MAX_RESTARTS > 0``),
-rediscovery through a tracker, the chaos server and RPC hooks, and the
+Recovery: ``KVStoreServer.restore_from_checkpoint`` preloads a server's
+own key shard (weights and optimizer state) from a committed checkpoint,
+the ``rollback`` op (``ServerKVStore.rollback_servers``) reloads it in
+place from the server's ``MXNET_CHECKPOINT_DIR`` with an lr backoff
+applied once a generation, elastic barriers (``MXNET_MAX_RESTARTS > 0``)
+retract a dead waiter's arrival instead of aborting the round, and a
+client given ``tracker_client=`` rediscovers a respawned server's new
+address. The chaos hooks fire where the JAX package fires them: a server
+step is an applied push, ``rpc:drop`` on either side of the wire.
+
+Not ported, raising by name (ROADMAP.md Queue A item 10c): ZeRO value
+sharding (``MXNET_TPU_ZERO_SERVER=1`` with more than one server) and the
 ``python -m`` server entry point. In-cluster protocol with no auth: do
 not expose the port beyond the job.
 """
@@ -67,12 +74,12 @@ from .context import Context, resolve_device
 from .kvstore import (two_bit_dequantize, two_bit_quantize,
                       validate_compression_params)
 from .ndarray.ndarray import NDArray
-from .tracker import (TrackerError, _SafeUnpickler, _pack,  # noqa: F401
-                      _recv_msg, _send_msg, _unpack, connect_with_backoff,
-                      env_nonneg_int, env_positive_float,
-                      prune_barrier_names)
+from .tracker import (TrackerError, _env_count,  # noqa: F401
+                      _SafeUnpickler, _pack, _recv_msg, _send_msg, _unpack,
+                      connect_with_backoff, env_nonneg_int,
+                      env_positive_float, prune_barrier_names)
 
-_ITEM10 = "(ROADMAP.md Queue A item 10, second part)"
+_ITEM10C = "(ROADMAP.md Queue A item 10c)"
 
 
 def shard_key(key, num_shards):
@@ -109,28 +116,23 @@ def zero_slice_sizes(size, num_shards):
     return [base + (1 if i < extra else 0) for i in range(num_shards)]
 
 
-#: knobs of item 10's parts: a set value raises, never a silent no-op
+#: knobs of item 10c's parts: a set value raises, never a silent no-op
 _UNPORTED_KNOBS = (
-    ("MXNET_KVSTORE_REDISCOVER_TIMEOUT", "rediscovery through the tracker"),
     ("MXNET_PS_BIND_HOST", "the server entry point"),
     ("MXNET_PS_BIND_PORT", "the server entry point"),
     ("MXNET_PS_ADVERTISE_HOST", "publishing to the tracker"))
 
 
 def _refuse_unported_modes(num_servers=1):
-    """Raise for the server-tier modes of item 10 that the environment
+    """Raise for the server-tier modes of item 10c that the environment
     asks for."""
-    chaos.engine()        # a rule for the rpc or server target raises
-    if env_nonneg_int("MXNET_MAX_RESTARTS") > 0:
-        raise MXNetError("MXNET_MAX_RESTARTS > 0: elastic server barriers "
-                         "are not ported %s" % _ITEM10)
     if num_servers > 1 and config.get_strict_bool("MXNET_TPU_ZERO_SERVER"):
         raise MXNetError("MXNET_TPU_ZERO_SERVER=1: ZeRO value sharding "
-                         "over the servers is not ported %s" % _ITEM10)
+                         "over the servers is not ported %s" % _ITEM10C)
     for name, what in _UNPORTED_KNOBS:
         if os.environ.get(name):
             raise MXNetError("%s is set: %s is not ported %s"
-                             % (name, what, _ITEM10))
+                             % (name, what, _ITEM10C))
 
 
 class _RPCTransportError(Exception):
@@ -204,6 +206,13 @@ def _grad_from_wire(w):
     return _arr_from_wire(w)
 
 
+def _chaos_op(op):
+    """The base op whose fault rules a coalesced or row frame answers to
+    (``rpc:drop@op=push`` covers the pipelined client's ``push_multi``)."""
+    return {"push_multi": "push", "pull_multi": "pull",
+            "row_pull": "pull"}.get(op, op)
+
+
 def _state_to_wire(v):
     """Optimizer-state pytree -> tagged plain data (arrays as
     ``(dtype, shape, bytes)``), never a pickle blob."""
@@ -251,9 +260,6 @@ class KVStoreServer:
 
     def __init__(self, host="127.0.0.1", port=0, num_workers=1,
                  barrier_timeout=None, elastic=None, device=None):
-        if elastic:
-            raise MXNetError("KVStoreServer(elastic=True): elastic "
-                             "barriers are not ported %s" % _ITEM10)
         _refuse_unported_modes()
         self._device = resolve_device(device)
         self._ctx = Context.from_device(self._device)
@@ -270,6 +276,12 @@ class KVStoreServer:
         self._seen = {}
         self._seen_lock = threading.Lock()
         self._pushes_applied = 0
+        self._rollback_gen = -1  # the newest applied rollback generation
+        if elastic is None:
+            elastic = env_nonneg_int("MXNET_MAX_RESTARTS") > 0
+        #: a worker dying mid-barrier retracts its own arrival (its respawn
+        #: arrives again) instead of aborting the round for the survivors
+        self._elastic = bool(elastic)
         if barrier_timeout is None:
             barrier_timeout = env_positive_float(
                 "MXNET_KVSTORE_BARRIER_TIMEOUT")
@@ -305,6 +317,9 @@ class KVStoreServer:
                 w = NDArray(self._store[key], self._ctx)
                 self._updater(key, array(grad, ctx=self._ctx), w)
             self._pushes_applied += 1
+        # a server step of MXNET_FAULT_SPEC is one applied push; outside
+        # the lock, so an injected exit never dies holding it
+        chaos.tick_step()
 
     def _apply_row_scatter_locked(self, key, scatter):
         """A row-granular gradient: the server's optimizer runs its lazy
@@ -524,8 +539,10 @@ class KVStoreServer:
 
     def _barrier(self, conn=None, name=""):
         """Wait for every worker at ``name``. A waiter whose own worker
-        disconnects aborts the round for every survivor; a worker that
-        never arrives is bounded by the timeout. Both reset the count."""
+        disconnects aborts the round for every survivor (in elastic mode it
+        retracts its arrival instead, so the respawn arrives again); a
+        worker that never arrives is bounded by the timeout. Both reset
+        the count."""
         with self._barrier_cond:
             b = self._barrier_state(name)
             gen = b["gen"]
@@ -546,6 +563,14 @@ class KVStoreServer:
                     self._abort_barrier_locked(name, msg)
                     raise MXNetError(msg)
                 if conn is not None and self._conn_closed(conn):
+                    if self._elastic:
+                        # the survivors keep waiting (bounded by the
+                        # timeout) for the respawn to arrive
+                        b["count"] = max(0, b["count"] - 1)
+                        self._barrier_cond.notify_all()
+                        raise ConnectionError(
+                            "peer closed during barrier "
+                            "(elastic: arrival retracted)")
                     self._abort_barrier_locked(
                         name, "barrier aborted: a waiting worker "
                         "disconnected")
@@ -607,8 +632,7 @@ class KVStoreServer:
             self._barrier(conn, name=str(key or ""))
             return None
         if op == "rollback":
-            raise ValueError("rollback: restoring from a checkpoint is not "
-                             "ported %s" % _ITEM10)
+            return self._rollback(meta)
         if op == "save_opt":
             with self._lock:
                 if self._updater is None:
@@ -634,6 +658,10 @@ class KVStoreServer:
         try:
             while not self._stop.is_set():
                 op, key, meta, wire = _recv_msg(conn)
+                if chaos.rpc_fault(_chaos_op(op), side="server"):
+                    # an injected server-side drop: the op is not applied
+                    # and the connection resets under the client
+                    raise ConnectionError("chaos: server dropped %r" % op)
                 if op == "stop":
                     _send_msg(conn, ("ok", None))
                     self.shutdown()
@@ -679,8 +707,101 @@ class KVStoreServer:
         return t
 
     def restore_from_checkpoint(self, ckpt, shard_rank=0, num_shards=1):
-        raise MXNetError("KVStoreServer.restore_from_checkpoint: "
-                         "checkpoint restore is not ported %s" % _ITEM10)
+        """Preload this server's key shard from a committed checkpoint: the
+        ``arg:`` weights whose key routes here (crc32, the clients'
+        routing; an embedding sub-key ``<key>@embshard<s>`` to server
+        ``s % num_shards``), the optimizer rebuilt from the recorded config
+        and its states of those keys. A respawned server runs it before it
+        serves, so a retried push never meets an empty store. Returns the
+        number of keys restored."""
+        from .checkpoint import loads_plain, unwrap_states_map
+
+        if num_shards > 1 and config.get_strict_bool("MXNET_TPU_ZERO_SERVER"):
+            raise MXNetError("restore_from_checkpoint under "
+                             "MXNET_TPU_ZERO_SERVER=1: ZeRO value sharding "
+                             "over the servers is not ported %s" % _ITEM10C)
+
+        def mine(key):
+            esr = embedding_shard_rank(key)
+            if esr is not None:
+                return esr % num_shards == shard_rank
+            return shard_key(key, num_shards) == shard_rank
+
+        restored = 0
+        with self._lock:
+            for name, arr in ckpt.weights().items():
+                if not name.startswith("arg:"):
+                    continue  # aux state never lives on a server
+                key = name[len("arg:"):]
+                if mine(key):
+                    self._store[key] = self._tensor(np.asarray(arr))
+                    restored += 1
+        opt_cfg = ckpt.optimizer_config()
+        if opt_cfg is not None:
+            name, kwargs, extras = opt_cfg
+            self._set_optimizer(name, {"kwargs": kwargs, "extras": extras})
+        blob = ckpt.optimizer_states()
+        if blob is not None and self._updater is not None:
+            states = unwrap_states_map(loads_plain(blob, "optimizer states"))
+            with self._lock:
+                self._updater.set_states_from_map(
+                    {k: v for k, v in states.items() if mine(k)})
+        return restored
+
+    def _rollback(self, meta):
+        """The health guard's coordinated rollback: reload this server's
+        shard from the newest checkpoint of its own
+        ``MXNET_CHECKPOINT_DIR`` (the op carries no path: wire input never
+        chooses which local file is read) and scale the optimizer's lr by
+        ``meta["lr_scale"]``. The restore is idempotent; the backoff is
+        applied once a generation (``meta["gen"]``), so a retried op
+        restores again without squaring it."""
+        from .checkpoint import CheckpointManager
+
+        meta = meta or {}
+        ckpt_dir = config.get("MXNET_CHECKPOINT_DIR")
+        if not ckpt_dir:
+            raise ValueError(
+                "rollback: this server has no MXNET_CHECKPOINT_DIR — "
+                "nothing committed to roll back to")
+        ck = CheckpointManager(ckpt_dir).latest()
+        if ck is None:
+            raise ValueError("rollback: no committed checkpoint under %s"
+                             % ckpt_dir)
+        shard_rank = _env_count("DMLC_SERVER_ID")
+        num_shards = max(_env_count("DMLC_NUM_SERVER"), 1)
+        nkeys = self.restore_from_checkpoint(ck, shard_rank=shard_rank,
+                                             num_shards=num_shards)
+        scale, gen, new_lr = meta.get("lr_scale"), meta.get("gen"), None
+        if scale is not None:
+            scale = float(scale)
+            if not 0.0 < scale <= 1.0:
+                raise ValueError("rollback: lr_scale=%r must be in "
+                                 "(0, 1]" % (scale,))
+            with self._lock:
+                if gen is not None:
+                    if int(gen) <= self._rollback_gen:
+                        scale = None  # a retried generation: applied once
+                    else:
+                        self._rollback_gen = int(gen)
+                if scale is not None and self._updater is not None:
+                    opt = self._updater.optimizer
+                    try:
+                        opt.set_learning_rate(opt.lr * scale)
+                        new_lr = opt.lr
+                    except MXNetError as e:  # a scheduler-driven lr
+                        print("[lifecycle] rollback lr backoff skipped: "
+                              "%s" % e, flush=True)
+                    if new_lr is not None and self._opt_config is not None:
+                        # later checkpoints and respawned servers rebuild
+                        # with the backed-off rate
+                        n, kw, ex = self._opt_config
+                        self._opt_config = (n, dict(kw, learning_rate=new_lr),
+                                            ex)
+        print("[lifecycle] event=rollback role=server rank=%d ckpt=%s "
+              "keys=%d epoch=%d lr=%s"
+              % (shard_rank, ck.path, nkeys, ck.epoch, new_lr), flush=True)
+        return {"keys": int(nkeys), "epoch": int(ck.epoch), "lr": new_lr}
 
     def shutdown(self):
         self._stop.set()
@@ -819,20 +940,17 @@ class ServerKVStore(kvstore.KVStore):
     server_side = True
 
     #: ops retried over a new connection after a transport failure: reads,
-    #: idempotent writes, and pushes (deduped by their (cid, seq));
-    #: barrier and stop are not (a second arrival would count twice)
+    #: idempotent writes, pushes (deduped by their (cid, seq)) and rollback
+    #: (its lr backoff deduped by generation); barrier and stop are not (a
+    #: second arrival would count twice)
     _RETRY_SAFE = frozenset((
         "init", "push", "push_multi", "pull", "pull_multi", "num_workers",
         "save_opt", "load_opt", "set_optimizer", "opt_config",
-        "row_pull", "mem"))
+        "row_pull", "mem", "rollback"))
 
     def __init__(self, uri, kv_type="dist_async", tracker_client=None,
                  pipeline=None):
         super().__init__(kv_type)
-        if tracker_client is not None:
-            raise MXNetError("ServerKVStore(tracker_client=...): the "
-                             "servers' rediscovery through the tracker is "
-                             "not ported %s" % _ITEM10)
         if isinstance(uri, str):
             uris = [u for u in uri.split(",") if u]
         else:
@@ -843,6 +961,7 @@ class ServerKVStore(kvstore.KVStore):
         self._uris = uris
         self._socks = [connect_with_backoff(u, deadline=30.0) for u in uris]
         self._wlocks = [threading.Lock() for _ in uris]
+        self._tracker = tracker_client
         self._num_workers_cache = None
         # a fresh id a client: its pushes' dedupe identity
         self._client_id = uuid.uuid4().hex
@@ -850,6 +969,8 @@ class ServerKVStore(kvstore.KVStore):
         self._rpc_retries = env_nonneg_int("MXNET_KVSTORE_RPC_RETRIES")
         self._reconnect_deadline = env_positive_float(
             "MXNET_KVSTORE_RECONNECT_DEADLINE")
+        self._rediscover_timeout = env_positive_float(
+            "MXNET_KVSTORE_REDISCOVER_TIMEOUT")
         if pipeline is None:
             pipeline = config.get_choice("MXNET_KVSTORE_PIPELINE",
                                          ("0", "1")) == "1"
@@ -881,11 +1002,21 @@ class ServerKVStore(kvstore.KVStore):
 
     @property
     def rank(self):
+        if self._tracker is not None:
+            return self._tracker.rank  # the scheduler's assignment
         return int(os.environ.get("MXNET_TPU_WORKER_ID",
                                   os.environ.get("DMLC_RANK",
                                                  os.environ.get(
                                                      "DMLC_WORKER_ID",
                                                      "0"))))
+
+    def num_dead_node(self, node_id=0, timeout=60):
+        """Dead peers by the scheduler's heartbeats; 0 without a
+        tracker."""
+        del node_id, timeout
+        if self._tracker is None:
+            return 0
+        return self._tracker.num_dead_node()
 
     @property
     def num_servers(self):
@@ -898,8 +1029,11 @@ class ServerKVStore(kvstore.KVStore):
         """One request and its reply over the server's connection. A
         transport failure closes the connection (a late reply would be
         read as the next op's) and raises _RPCTransportError; an
-        ``('err', ...)`` reply raises MXNetError."""
+        ``('err', ...)`` reply raises MXNetError. An ``rpc:drop`` rule
+        drops the connection before the send or before the reply is
+        read."""
         sock = None
+        cop = _chaos_op(op)
         t0 = time.perf_counter()
         try:
             with self._wlocks[idx]:
@@ -908,8 +1042,14 @@ class ServerKVStore(kvstore.KVStore):
                     meta["seq"] = self._push_seq[idx]
                     self._push_seq[idx] += 1
                 sock = self._socks[idx]
+                if chaos.rpc_fault(cop, phase="send"):
+                    raise ConnectionResetError(
+                        "chaos: dropped %r before send" % op)
                 sock.settimeout(timeout)
                 sent = _send_msg(sock, (op, key, meta, wire))
+                if chaos.rpc_fault(cop, phase="reply"):
+                    raise ConnectionResetError(
+                        "chaos: dropped %r reply" % op)
                 (status, payload), rcvd = _recv_msg(sock, with_size=True)
         except (socket.timeout, OSError, ConnectionError) as e:
             # close the captured socket: a reconnect may have replaced it
@@ -919,22 +1059,39 @@ class ServerKVStore(kvstore.KVStore):
                 except OSError:
                     pass
             raise _RPCTransportError("%s: %s" % (type(e).__name__, e))
-        op_family = {"push_multi": "push", "pull_multi": "pull",
-                     "row_pull": "pull"}.get(op, op)
-        profiler.comm_record(op_family, wire_bytes=sent + rcvd,
+        profiler.comm_record(cop, wire_bytes=sent + rcvd,
                              seconds=time.perf_counter() - t0, count=1)
         if status != "ok":
             raise MXNetError("kvstore_server: %s" % (payload,))
         return payload
 
     def _reconnect(self, idx):
-        """A new connection to server ``idx``'s URI (rediscovery of a
-        moved server through the tracker is not ported)."""
+        """A new connection to server ``idx``. When its address is gone and
+        a tracker is attached, the server list is fetched again: a
+        respawned server registered its new port with the scheduler, and
+        ``get_server_uris`` waits until every server is alive."""
         with self._wlocks[idx]:
             try:
                 self._socks[idx].close()
             except OSError:
                 pass
+            try:
+                self._socks[idx] = connect_with_backoff(
+                    self._uris[idx], deadline=self._reconnect_deadline)
+                return
+            except TrackerError as e:
+                if self._tracker is None:
+                    raise _RPCTransportError(str(e))
+            try:
+                uris = self._tracker.get_server_uris(
+                    timeout=self._rediscover_timeout)
+            except TrackerError as e:
+                raise _RPCTransportError("rediscovery failed: %s" % e)
+            if len(uris) != len(self._uris):
+                raise _RPCTransportError(
+                    "rediscovery returned %d servers, expected %d"
+                    % (len(uris), len(self._uris)))
+            self._uris = list(uris)
             try:
                 self._socks[idx] = connect_with_backoff(
                     self._uris[idx], deadline=self._reconnect_deadline)
@@ -1241,17 +1398,14 @@ class ServerKVStore(kvstore.KVStore):
     def save_optimizer_states(self, fname, dump_optimizer=False):
         """The servers' optimizer states, merged into one local file (the
         pickle of a ``{key: numpy state}`` map, as ``Updater.get_states``
-        writes), written to a temporary file and renamed."""
+        writes), written atomically (``checkpoint.atomic_write_bytes``)."""
+        from .checkpoint import atomic_write_bytes
+
         self.wait_outstanding()
         states_map = {}
         for wire in self._rpc_all("save_opt"):
             states_map.update((k, _state_from_wire(w)) for k, w in wire)
-        tmp = "%s.tmp%d" % (fname, os.getpid())
-        with open(tmp, "wb") as f:
-            f.write(pickle.dumps(states_map, protocol=4))
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, fname)
+        atomic_write_bytes(fname, pickle.dumps(states_map, protocol=4))
 
     def get_optimizer_config(self):
         """The server-side optimizer's ``(name, kwargs, extras)``, or None
@@ -1356,9 +1510,34 @@ class ServerKVStore(kvstore.KVStore):
         bt = env_positive_float("MXNET_KVSTORE_BARRIER_TIMEOUT")
         self._rpc_all("barrier", key=name or None, timeout=bt + 30.0)
 
+    def reset_gradient_residuals(self):
+        """Drop this client's 2-bit error-feedback residuals. Every rank
+        calls it across a rollback (``HealthGuard`` does, in the quiesced
+        window): the residuals refer to the weights before it, and a NaN
+        one would quantize the rank's pushes to zero codes for good."""
+        self.wait_outstanding()
+        self._residuals = {}
+
     def rollback_servers(self, lr_scale=None, gen=None):
-        raise MXNetError("ServerKVStore.rollback_servers: rollback from a "
-                         "checkpoint is not ported %s" % _ITEM10)
+        """Every server reloads its shard (weights and optimizer state)
+        from the newest checkpoint of its own ``MXNET_CHECKPOINT_DIR`` and
+        scales its lr by ``lr_scale``, once a generation ``gen`` (the
+        guard's rollback count). Call it in a quiesced barrier window, from
+        rank 0. Returns ``{"keys": restored keys, all servers, "epoch",
+        "lr": the new lr}``."""
+        self.reset_gradient_residuals()
+        meta = {}
+        if lr_scale is not None:
+            meta["lr_scale"] = float(lr_scale)
+        if gen is not None:
+            meta["gen"] = int(gen)
+        infos = [i for i in self._rpc_all("rollback", meta=meta) if i]
+        if not infos:
+            raise MXNetError("rollback_servers: no server reported a "
+                             "restore")
+        return {"keys": sum(int(i.get("keys", 0)) for i in infos),
+                "epoch": infos[0].get("epoch"),
+                "lr": infos[0].get("lr")}
 
     def stop_server(self):
         self.wait_outstanding()
@@ -1397,4 +1576,4 @@ def _iter_kv(key, value):
 
 if __name__ == "__main__":
     raise SystemExit("python -m mxnet_tpu_torch.kvstore_server: the server "
-                     "entry point (DMLC_ROLE) is not ported %s" % _ITEM10)
+                     "entry point (DMLC_ROLE) is not ported %s" % _ITEM10C)

@@ -16,6 +16,7 @@ from collections import namedtuple
 
 import numpy as np
 
+from . import chaos
 from . import kvstore as kvs
 from . import symbol as sym_mod
 from .base import MXNetError
@@ -74,13 +75,19 @@ def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
 def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
                               param_names):
     """Push every gradient, then pull every weight: the store sums and
-    updates."""
+    updates. One call is one worker step of ``MXNET_FAULT_SPEC``; a nan
+    rule for it poisons one gradient before its push."""
+    poison = chaos.nan_fault()
+    chaos.tick_step()
     live = []
     for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
                                                       grad_arrays)):
         if grad_list[0] is None:
             continue
         name = param_names[index]
+        if poison:
+            grad_list[0][:] = float("nan")
+            poison = False
         kvstore.push(name, grad_list, priority=-index)
         live.append((name, arg_list))
     if live:
@@ -92,12 +99,18 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
                    kvstore=None, param_names=None):
     """Apply ``updater`` to every parameter with a gradient, by index
     ``i * num_device + k`` (parameter i, device k); with a kvstore, each
-    gradient is pushed and the store's value pulled back into it first."""
+    gradient is pushed and the store's value pulled back into it first.
+    One call is one worker step of ``MXNET_FAULT_SPEC``, as above."""
+    poison = chaos.nan_fault()
+    chaos.tick_step()
     live = []
     for i, (arg_list, grad_list) in enumerate(zip(param_arrays,
                                                   grad_arrays)):
         if grad_list[0] is None:
             continue
+        if poison:
+            grad_list[0][:] = float("nan")
+            poison = False
         if kvstore:
             kvstore.push(param_names[i], grad_list, priority=-i)
         live.append((i, arg_list, grad_list))

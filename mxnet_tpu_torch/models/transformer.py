@@ -354,12 +354,10 @@ def _attention(q, k, v, causal=True, *, sp=None, attn="auto", blocks=None):
     package's. Without an sp axis (``sp`` None): ``auto`` and ``flash``
     run the flash kernel at the tile ``blocks`` (``(block_q, block_k)``;
     None entries consult the schedule table), ``full``, ``ring`` and
-    ``ulysses`` plain attention. On an sp axis (its ``(group, n,
-    index)``): ``auto`` and ``ring`` the ring, ``ulysses`` the
-    all-to-alls, ``full`` K and V all-gathered; ``flash`` raises. An
-    unknown mode raises."""
-    if attn not in ATTN_MODES:
-        raise ValueError("unknown attn mode %r" % (attn,))
+    ``ulysses`` (and any other mode) plain attention. On an sp axis (its
+    ``(group, n, index)``): ``auto`` and ``ring`` the ring, ``ulysses``
+    the all-to-alls, ``full`` K and V all-gathered; ``flash`` and an
+    unknown mode raise."""
     if sp is None:
         if attn in ("auto", "flash"):
             bq, bk = blocks or (None, None)
@@ -367,6 +365,8 @@ def _attention(q, k, v, causal=True, *, sp=None, attn="auto", blocks=None):
                                    v.contiguous(), causal=causal,
                                    block_q=bq, block_k=bk)
         return full_attention(q, k, v, causal=causal)
+    if attn not in ATTN_MODES:
+        raise ValueError("unknown attn mode %r" % (attn,))
     if attn == "full":
         # every shard attends the whole gathered sequence; q keeps its shard
         kg, vg = all_gather(k, sp, dim=2), all_gather(v, sp, dim=2)

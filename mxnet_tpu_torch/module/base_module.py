@@ -11,9 +11,11 @@ tuning slot per epoch at the drain boundary after ``get_params``.
 pulls the rows it names (``Module.prepare``); ``score`` and ``predict``
 accept it and ignore it, as the JAX package does. ``fit(monitor=)``
 installs the monitor after ``bind`` and calls its ``tic`` before each
-batch and ``toc_print`` after its metric update. The ``HealthGuard``
-(``MXNET_CHECKPOINT_DIR`` with ``MXNET_TPU_GUARD`` on) is not ported and
-raises by name when set.
+batch and ``toc_print`` after its metric update. With a checkpoint
+directory (``MXNET_CHECKPOINT_DIR``) and ``MXNET_TPU_GUARD`` on (the
+default), ``fit`` arms ``health.HealthGuard``: its preemption handler
+before the loop, its ``on_batch`` at each batch boundary (a rollback to
+the newest checkpoint, or the preemption's checkpoint and exit 75).
 """
 from __future__ import annotations
 
@@ -22,9 +24,7 @@ import time
 
 import numpy as np
 
-from .. import config
 from .. import metric as metric_mod
-from ..base import MXNetError
 from ..io import DataBatch
 from ..model import BatchEndParam
 from ..ndarray import ndarray as nd
@@ -48,16 +48,6 @@ def _check_input_names(symbol, names, typename, throw):
         if throw:
             raise ValueError(msg)
         logging.warning(msg)
-
-
-def _unported_fit_knobs():
-    """Raise for the ``fit`` environment knobs this slice does not port."""
-    import os
-
-    if os.environ.get("MXNET_CHECKPOINT_DIR") and \
-            config.get_strict_bool("MXNET_TPU_GUARD"):
-        raise MXNetError("fit: HealthGuard (MXNET_CHECKPOINT_DIR with "
-                         "MXNET_TPU_GUARD=1) is not ported")
 
 
 class BaseModule:
@@ -157,9 +147,9 @@ class BaseModule:
         parameters come back from the card (``get_params``) for
         ``epoch_end_callback`` and ``eval_data`` is scored."""
         assert num_epoch is not None, "please specify number of epochs"
+        from ..health import HealthGuard
         from ..initializer import Uniform
 
-        _unported_fit_knobs()
         if initializer is None:
             initializer = Uniform(0.01)
         self.bind(data_shapes=train_data.provide_data,
@@ -172,6 +162,13 @@ class BaseModule:
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        # the self-healing guardrail: watches health at a bounded cadence,
+        # rolls back to the newest checkpoint with an lr backoff, and turns
+        # a SIGTERM into a grace-window checkpoint and exit 75 (health.py)
+        health_guard = HealthGuard.from_env(
+            self, kv=getattr(self, "_kvstore", None), logger=self.logger)
+        if health_guard is not None:
+            health_guard.install_preemption_handler()
         # background tuning: one bounded slot per epoch at the drain
         # boundary below, for kernel shapes this job ran and the schedule
         # table missed; never inside the step loop (tune/background.py)
@@ -203,6 +200,11 @@ class BaseModule:
                 except StopIteration:
                     end_of_batch = True
                 self.update_metric(eval_metric, data_batch.label)
+                if health_guard is not None:
+                    # may roll the module back, or checkpoint and raise
+                    # SystemExit(EXIT_PREEMPTED)
+                    health_guard.on_batch(epoch, nbatch, eval_metric,
+                                          data_batch.label)
                 if monitor is not None:
                     monitor.toc_print()
                 if batch_end_callback is not None:

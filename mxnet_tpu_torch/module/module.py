@@ -45,6 +45,7 @@ from __future__ import annotations
 import logging
 import warnings
 
+from .. import chaos
 from .. import context as ctx_mod
 from .. import optimizer as opt_mod
 from ..base import MXNetError
@@ -390,6 +391,9 @@ class Module(BaseModule):
                 self._fused.set_params(self._arg_params, self._aux_params)
                 self._fused_stale = False
             self._fused.forward_backward_update(data_batch)
+            # one fused step is one worker step of MXNET_FAULT_SPEC (the
+            # per-executor paths tick in model._update_params*)
+            chaos.tick_step()
             self._params_dirty = True
             self._last_fused = True
             return
@@ -481,21 +485,17 @@ class Module(BaseModule):
     def save_optimizer_states(self, fname):
         """The optimizer's states as the JAX package writes them: the fused
         group's blob, the kvstore's updater's, or the updater's pickle of
-        ``{index: numpy}``; written to a temporary file and renamed."""
-        import os
+        ``{index: numpy}``; written atomically
+        (``checkpoint.atomic_write_bytes``)."""
+        from ..checkpoint import atomic_write_bytes
 
         assert self.optimizer_initialized
         if self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname)
             return
-        data = self._fused.get_states() if self._fused is not None \
-            else self._updater.get_states()
-        tmp = "%s.tmp%d" % (fname, os.getpid())
-        with open(tmp, "wb") as f:
-            f.write(data)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, fname)
+        atomic_write_bytes(fname, self._fused.get_states()
+                           if self._fused is not None
+                           else self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized

@@ -26,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from .. import config, profiler
+from .. import chaos, config, profiler
 from ..base import MXNetError
 from ..ndarray import ndarray as nd
 from ..parallel.feed import place_batch_array
@@ -166,16 +166,25 @@ class FusedSPMDGroup:
         """One fused step on the global batch: each rank places its rows
         on its device, then forward, backward, the sums and the update.
         The host waits for the card only when more than
-        ``MXNET_TPU_MAX_INFLIGHT`` steps are queued."""
+        ``MXNET_TPU_MAX_INFLIGHT`` steps are queued. A ``worker:R:nan``
+        fault for this step multiplies the first data input by NaN: the
+        gradients live only inside the step, so its input is where the
+        fault goes in."""
+        poison = chaos.nan_fault()
         arrays = list(zip(self._data_names, data_batch.data))
         labels = getattr(data_batch, "label", None) or []
         arrays += list(zip(self._label_names, labels))
-        batch = {
-            name: place_batch_array(
-                self.mesh, self._data_axes, False, name,
-                arr.tensor if isinstance(arr, nd.NDArray) else arr,
+        batch = {}
+        for name, arr in arrays:
+            value = arr.tensor if isinstance(arr, nd.NDArray) else arr
+            if poison and name == self._data_names[0]:
+                placed = getattr(value, "_mx_sharding", None)
+                value = value * np.float32("nan")
+                if placed is not None:
+                    value._mx_sharding = placed
+            batch[name] = place_batch_array(
+                self.mesh, self._data_axes, False, name, value,
                 sharding=self._batch_sharding)
-            for name, arr in arrays}
         if self._device_metrics:
             self._carry, (loss, outs, stats) = self._ts(self._carry, batch)
             self._stats = stats

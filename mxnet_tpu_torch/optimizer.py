@@ -21,7 +21,6 @@ plain containers only.
 """
 from __future__ import annotations
 
-import io
 import pickle
 
 import numpy
@@ -495,35 +494,13 @@ def create(name, **kwargs):
 
 
 # -- optimizer-state files ----------------------------------------------------
-_NUMPY_GLOBALS = {
-    ("numpy", "ndarray"), ("numpy", "dtype"),
-    ("numpy.core.multiarray", "_reconstruct"),
-    ("numpy._core.multiarray", "_reconstruct"),
-    ("numpy.core.multiarray", "scalar"), ("numpy._core.multiarray", "scalar"),
-    ("numpy.core.numeric", "_frombuffer"),
-    ("numpy._core.numeric", "_frombuffer"),
-}
-
-
-class _StatesUnpickler(pickle.Unpickler):
-    """Admits numpy array and scalar reconstruction only: plain containers
-    (dict, list, tuple) and numbers need no global, and any other global
-    (a callable an attacker could name) is refused."""
-
-    def find_class(self, module, name):
-        if (module, name) in _NUMPY_GLOBALS:
-            return super().find_class(module, name)
-        raise MXNetError("optimizer states: refusing to load %s.%s (only "
-                         "numpy arrays and plain containers are allowed)"
-                         % (module, name))
-
-
 def loads_states(data):
-    """The ``{index: state}`` map of a ``.states`` file's bytes; a
+    """The ``{index: state}`` map of a ``.states`` file's bytes, read with
+    the restricted unpickler (numpy arrays and plain containers only); a
     ``(map, optimizer)`` pair (the reference's dump) gives its map."""
-    obj = _StatesUnpickler(io.BytesIO(data)).load()
-    if isinstance(obj, tuple) and len(obj) == 2 and isinstance(obj[1], dict):
-        obj = obj[0]
+    from .checkpoint import loads_plain, unwrap_states_map
+
+    obj = unwrap_states_map(loads_plain(data, "optimizer states"))
     if not isinstance(obj, dict):
         raise MXNetError("optimizer states: expected a dict, got %s"
                          % type(obj).__name__)

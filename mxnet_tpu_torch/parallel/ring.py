@@ -20,19 +20,22 @@ the transformer calls them with its own shards. The standalone functions
 take the global ``(B, H, S, D)`` tensors (every rank passes the same) and a
 mesh, and each rank computes its own shard: the rows of its index along
 ``batch_axis`` (if any) and the sequence chunk of its index along
-``axis_name``. A rank returns that shard of the output, ``(B / n_batch,
-H, S / n, D)``. Its gradient in the global q, k and v, of any loss of its
-shard, is its share: q's lies in its own shard; k's and v's come back
-round the ring (or through the inverse all-to-all) to the rank that
-holds their chunk, so they too lie in its shard, summed over every rank's
-queries. The shares summed over the ranks are the gradient of the sum of
-the ranks' losses, which is what the JAX package's global function gives.
+``axis_name``. The shards are then gathered (the counted
+:func:`~.tensor_parallel.gather_from_mp`, over ``axis_name`` on dim 2 and
+over ``batch_axis`` on dim 0), so every rank returns the global
+``(B, H, S, D)`` output, as the JAX package's functions do. The gather's
+backward keeps the rank's slice of the cotangent, so a rank's gradient in
+the global q, k and v, of any loss of the output, is its share: q's lies
+in its own shard; k's and v's come back round the ring (or through the
+inverse all-to-all) to the rank that holds their chunk, so they too lie
+in its shard, summed over every rank's queries. The shares summed over
+the ranks are the JAX package's gradient of that loss.
 """
 from __future__ import annotations
 
 import torch
 
-from .tensor_parallel import all_to_all, ppermute
+from .tensor_parallel import all_to_all, gather_from_mp, ppermute
 
 __all__ = ["ring_attention_inner", "ring_attention",
            "ulysses_attention_inner", "ulysses_attention",
@@ -143,7 +146,10 @@ def _standalone(inner, q, k, v, mesh, axis_name, batch_axis, **kw):
     mesh = mesh or default_mesh()
     axis = axis_group(mesh, (axis_name,))
     q, k, v = (_shard(t, mesh, axis, batch_axis) for t in (q, k, v))
-    return inner(q, k, v, axis=axis, **kw)
+    out = gather_from_mp(inner(q, k, v, axis=axis, **kw), axis, dim=2)
+    if batch_axis is not None:
+        out = gather_from_mp(out, axis_group(mesh, (batch_axis,)), dim=0)
+    return out
 
 
 def ring_attention(q, k, v, mesh=None, *, axis_name="sp", causal=False,
@@ -153,8 +159,8 @@ def ring_attention(q, k, v, mesh=None, *, axis_name="sp", causal=False,
 
     q, k, v: the *global* (B, H, S, D) tensors, the same on every rank;
     S % axis size == 0. With ``batch_axis`` the batch dim also shards over
-    that mesh axis (dp composition). Returns this rank's output shard (see
-    the module docstring for the shard and its gradients).
+    that mesh axis (dp composition). Returns the global (B, H, S, D)
+    output on every rank (see the module docstring for its gradients).
     """
     return _standalone(ring_attention_inner, q, k, v, mesh, axis_name,
                        batch_axis, causal=causal, sm_scale=sm_scale)
@@ -185,7 +191,7 @@ def ulysses_attention_inner(q, k, v, *, axis=None, causal=False,
 def ulysses_attention(q, k, v, mesh=None, *, axis_name="sp", causal=False,
                       sm_scale=None, batch_axis=None, attn_fn=None):
     """Standalone Ulysses attention on the global (B, H, S, D) tensors;
-    returns this rank's output shard, as :func:`ring_attention`."""
+    returns the global output on every rank, as :func:`ring_attention`."""
     return _standalone(ulysses_attention_inner, q, k, v, mesh, axis_name,
                        batch_axis, causal=causal, sm_scale=sm_scale,
                        attn_fn=attn_fn)

@@ -572,6 +572,8 @@ class TrainStep:
     def _on_device(self, v):
         if isinstance(v, (tuple, list)):
             return type(v)(self._on_device(x) for x in v)
+        if isinstance(v, dict):   # the sentinel's counters
+            return {k: self._on_device(x) for k, x in v.items()}
         if not isinstance(v, torch.Tensor):
             v = torch.as_tensor(np.asarray(v))
         return v.to(self.device)

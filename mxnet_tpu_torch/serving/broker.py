@@ -15,9 +15,9 @@ requantizes its weights on the swap. Requests carry an optional QoS
 ``tenant`` and ``priority`` class (``serving/qos.py``): the worker dequeues
 by class, then FIFO, and counts sheds per tenant; ``pending()`` is the
 drain observable of a fleet replica (``serving/fleet.py``), and
-:class:`ReplicaDraining` its typed admission rejection. Not ported yet:
-the ``directory=`` form of ``swap_from_checkpoint`` (the JAX package's
-``checkpoint.py``, ROADMAP.md Queue A item 10, second part).
+:class:`ReplicaDraining` its typed admission rejection.
+``swap_from_checkpoint(directory=)`` swaps in the newest committed
+checkpoint of an elastic-training ``CheckpointManager`` directory.
 """
 from __future__ import annotations
 
@@ -393,23 +393,28 @@ class ModelServer:
 
     def swap_from_checkpoint(self, name, prefix=None, epoch=None,
                              directory=None):
-        """Hot-swap a resident model from the checkpoint pair ``prefix``-
-        ``epoch`` (``model.load_checkpoint``; epoch 0 when None), as
-        :meth:`swap` with ``allow_extra=True``. The ``directory=`` form (an
-        elastic-training ``CheckpointManager``'s newest checkpoint) raises:
-        it is not ported."""
+        """Hot-swap a resident model from a checkpoint, as :meth:`swap` with
+        ``allow_extra=True``: the pair ``prefix``-``epoch``
+        (``model.load_checkpoint``; epoch 0 when None), or the newest
+        committed checkpoint of the elastic-training ``CheckpointManager``
+        ``directory`` (``CheckpointManager.latest()``)."""
         if (prefix is None) == (directory is None):
             raise ServingError("swap_from_checkpoint: pass exactly one of "
                                "prefix= or directory=")
-        if directory is not None:
-            raise ServingError("swap_from_checkpoint(directory=): the "
-                               "CheckpointManager (checkpoint.py) is not "
-                               "ported yet (ROADMAP.md Queue A item 10, "
-                               "second part)")
-        from ..model import load_checkpoint
+        if prefix is not None:
+            from ..model import load_checkpoint
 
-        _, arg_params, aux_params = load_checkpoint(
-            prefix, 0 if epoch is None else int(epoch))
+            _, arg_params, aux_params = load_checkpoint(
+                prefix, 0 if epoch is None else int(epoch))
+        else:
+            from ..checkpoint import CheckpointManager
+
+            ckpt = CheckpointManager(directory).latest()
+            if ckpt is None:
+                raise ServingError(
+                    "swap_from_checkpoint: no committed checkpoint "
+                    "under %r" % directory)
+            arg_params, aux_params = ckpt.split_weights()
         return self.swap(name, arg_params, aux_params, allow_extra=True)
 
     def stats(self, reset=False):

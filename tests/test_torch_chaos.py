@@ -2,12 +2,12 @@
 
 - Every spec of a table, valid or malformed, parses alike in both
   packages: the same rules, or ``FaultSpecError`` with the same message.
-- A spec whose target has no hook in the port yet (the training plane's
-  ``worker``, ``server``, ``rpc``) parses, and then ``chaos.engine()``
-  raises by name: a chaos spec never silently does nothing. The fleet's
-  targets (``replica``, ``router``, ``heartbeat``, ``autoscaler``) are
-  wired: their engine builds, and beside a training-plane rule it still
-  raises. How each fleet hook fires is in ``tests/test_torch_fleet.py``.
+- Every target has its hook in the port: ``chaos.engine()`` builds for
+  a spec naming any of them, alone or beside another, with the JAX
+  engine's rules, role, rank and incarnation. How the fleet's hooks fire
+  is in ``tests/test_torch_fleet.py``, the training plane's (``worker``,
+  ``server``, ``rpc``) in ``tests/test_torch_self_healing.py`` and
+  ``tests/test_torch_kvstore_server.py``.
 - ``generate:stall@req=2`` on a port ``GenerateServer`` on the CPU: the
   second admitted request ignores its EOS, finishes ``"length"`` at the
   cap, its slot and pages come back, and a request queued behind it is
@@ -19,7 +19,6 @@ import pytest
 from mxnet_tpu import chaos as jchaos
 from mxnet_tpu_torch import chaos
 from mxnet_tpu_torch import profiler
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import transformer as tfm
 from mxnet_tpu_torch.serving import GenerateServer
 
@@ -108,17 +107,21 @@ def fault_spec(monkeypatch):
     ("generate:stall@req=1;worker:0:nan@step=2", "worker"),
 ])
 def test_unwired_target_raises_by_name(fault_spec, text, target):
-    if target in ("replica", "router", "heartbeat", "autoscaler"):
-        fault_spec(text)                   # a fleet hook: wired
-        assert [r.target for r in chaos.engine().rules] == [target]
-        text, target = text + ";worker:0:crash@step=3", "worker"
+    """Once, the training plane's targets raised by name here; now every
+    target is wired: the engine builds, as the JAX package's does, and
+    fires nothing at construction."""
     fault_spec(text)
-    for _ in range(2):                     # and again: never cached as None
-        with pytest.raises(MXNetError, match="the %s hook is not ported "
-                           "yet" % target):
-            chaos.engine()
-    with pytest.raises(MXNetError, match="Queue A item 10"):
-        chaos.generate_fault()
+    for _ in range(2):                     # and again: the cached engine
+        eng = chaos.engine()
+        assert target in [r.target for r in eng.rules]
+    jeng = jchaos.ChaosEngine(text)
+    assert [(r.text, r.target, r.rank, r.action, r.params)
+            for r in eng.rules] == \
+        [(r.text, r.target, r.rank, r.action, r.params) for r in jeng.rules]
+    assert (eng.role, eng.rank, eng.restart) == \
+        (jeng.role, jeng.rank, jeng.restart)
+    assert chaos.generate_fault() in (None, "stall")
+    assert chaos.rpc_fault("pull") is False or target == "rpc"
 
 
 def test_generate_fault_counts_admitted_requests(fault_spec):

@@ -12,9 +12,16 @@ server-side momentum at 1/n of the bytes a server, the out-of-vocabulary
 raise before any RPC, the pull-batch budget, the naive per-id mode and
 the 2-bit wire's error feedback. Each table result is held against the
 JAX package's table on the same seeded inputs. ``SparseEmbedding``'s
-three scenarios run in both packages; ``elastic_table_checkpoint`` (item
-10, second part) raises by name, and the lookup server is held against the
-JAX one in tests/test_torch_lookup.py.
+three scenarios run in both packages, and the lookup server is held
+against the JAX one in tests/test_torch_lookup.py.
+
+``elastic_table_checkpoint`` in both packages: a fresh server restores
+exactly its suffix-routed sub-key and that key's momentum
+(``tests/test_embedding.py``'s checkpoint case), and the chaos case in
+one process: ``server:0:crash@step=N`` stops a server mid-training, its
+replacement restores the checkpoint's sub-key and registers with the
+tracker under the old rank, the client rediscovers it, and the loss keeps
+falling.
 
 Every test body runs under a deadline and servers bind ``127.0.0.1:0``.
 Tolerance: fp32, rtol 1e-4 and atol 1e-5; ids, counts and bytes exact.
@@ -406,18 +413,171 @@ def test_sparse_embedding_requires_kvstore():
 
 
 # ---------------------------------------------------------------------------
-# what waits for item 10's second part
+# the parts item 10's second part ported
 # ---------------------------------------------------------------------------
 def test_unported_parts_raise_by_name():
-    from mxnet_tpu_torch.embedding import lookup
+    """The lookup server and the table checkpoint were the parts that
+    raised by name; both are ported."""
+    from mxnet_tpu_torch.embedding import checkpoint, lookup
 
     # the lookup server is ported: a bad table is refused by its own check
     assert temb.EmbeddingLookupServer is lookup.EmbeddingLookupServer
     with pytest.raises(MXNetError, match="ShardedEmbeddingTable"):
         temb.EmbeddingTowerPredictor({"user": object()}, None)
-    for name, item in (("elastic_table_checkpoint", 10),):
-        with pytest.raises(MXNetError, match="%s.*item %d" % (name, item)):
-            getattr(temb, name)()
+    assert temb.elastic_table_checkpoint is \
+        checkpoint.elastic_table_checkpoint
+    assert "elastic_table_checkpoint" in temb.__all__
+
+
+@bounded
+def test_checkpoint_restores_exactly_the_servers_sub_keys(
+        clusters, tmp_path, monkeypatch):
+    """``elastic_table_checkpoint`` of a trained table, then a fresh server
+    of each rank restores exactly its sub-key (its bytes the trained
+    shard's) and that key's momentum, in both packages alike."""
+    from mxnet_tpu import checkpoint as jck
+    from mxnet_tpu_torch import checkpoint as tck
+
+    monkeypatch.setenv("DMLC_NUM_WORKER", "1")
+    monkeypatch.delenv("MXNET_TPU_ZERO_SERVER", raising=False)
+    restored = {}
+    for pkg, ck_mod in (("port", tck), ("jax", jck)):
+        c = clusters(pkg)
+        c.kv.set_optimizer("sgd", learning_rate=0.1, momentum=0.9,
+                           rescale_grad=1.0)
+        full = np.random.RandomState(7).randn(40, 4).astype(np.float32)
+        t = c.table(rows=40, dim=4, full=full)
+        t.push(np.arange(12), np.ones((12, 4), np.float32))
+        c.kv.wait_outstanding()
+        trained = t.as_dense()
+        mgr = ck_mod.CheckpointManager(str(tmp_path / pkg))
+        fn = c.emb.elastic_table_checkpoint(mgr, [t], c.kv)
+        assert fn(1) == 1
+        ck = mgr.latest()
+        assert ck.epoch == 1 and ck.worker_state(0)["epoch"] == 1
+        restored[pkg] = {}
+        for rank in range(2):
+            fresh = tks.KVStoreServer(device="cpu") if pkg == "port" \
+                else jks.KVStoreServer()
+            try:
+                n = fresh.restore_from_checkpoint(ck, shard_rank=rank,
+                                                  num_shards=2)
+                key = embedding_sub_key("emb", rank)
+                other = embedding_sub_key("emb", 1 - rank)
+                assert n == 1 and set(fresh._store) == {key}
+                value = fresh._store[key]
+                value = value.numpy() if pkg == "port" else value
+                _close(value, trained[t.sharding.global_ids(rank)], key)
+                states = fresh._updater.states
+                assert key in states and other not in states
+                mom = states[key]
+                restored[pkg][rank] = (value, mom.asnumpy()
+                                       if hasattr(mom, "asnumpy") else mom)
+            finally:
+                fresh.shutdown()
+    for rank in range(2):
+        for got, want in zip(restored["port"][rank], restored["jax"][rank]):
+            _close(got, want, "rank %d" % rank)
+
+
+def _heal_run(pkg, directory, monkeypatch, steps=12, crash_at=18):
+    """An embedding regression on two servers of ``pkg`` with a tracker:
+    a checkpoint after ``steps // 2`` steps, then ``server:0:crash@step=``
+    ``crash_at`` (a server step is an applied push) stops server 0; a
+    replacement restored from the checkpoint registers under rank 0 and
+    the client's retry rediscovers it. The per-step losses, the crashes
+    and the keys the replacement restored."""
+    import threading
+
+    if pkg == "port":
+        from mxnet_tpu_torch import chaos, checkpoint as ck_mod, tracker
+        make = lambda: tks.KVStoreServer(device="cpu")   # noqa: E731
+        client, emb = tks.ServerKVStore, temb
+    else:
+        from mxnet_tpu import chaos, checkpoint as ck_mod, tracker
+        make = jks.KVStoreServer
+        client, emb = jks.ServerKVStore, jemb
+    monkeypatch.setenv("MXNET_KVSTORE_RECONNECT_DEADLINE", "0.5")
+    monkeypatch.setenv("MXNET_FAULT_SPEC", "server:0:crash@step=%d"
+                       % crash_at)
+    monkeypatch.setenv("DMLC_ROLE", "server")
+    chaos.reset_engine()
+    trk = tracker.Tracker(num_workers=1, num_servers=2, max_restarts=1)
+    trk.serve_in_background()
+    servers = [make(), make()]
+    regs = []
+    for rank, srv in enumerate(servers):
+        srv.serve_in_background()
+        regs.append(tracker.TrackerClient(trk.addr, "server", addr=srv.addr,
+                                          rank=rank))
+    wc = tracker.TrackerClient(trk.addr, "worker", rank=0)
+    kv = client([s.addr for s in servers], tracker_client=wc)
+    mgr = ck_mod.CheckpointManager(directory)
+    crashed, healed = threading.Event(), {}
+
+    def crash(_code):
+        crashed.set()
+        servers[0].shutdown()
+        regs[0].close()
+
+    chaos.engine()._exit = crash
+
+    def respawn():
+        crashed.wait(30)
+        srv = make()
+        healed["keys"] = srv.restore_from_checkpoint(
+            mgr.latest(), shard_rank=0, num_shards=2)
+        srv.serve_in_background()
+        servers.append(srv)
+        regs.append(tracker.TrackerClient(trk.addr, "server", addr=srv.addr,
+                                          rank=0, restart_count=1))
+
+    t = threading.Thread(target=respawn, daemon=True)
+    t.start()
+    try:
+        kv.set_optimizer("sgd", learning_rate=0.5, rescale_grad=1.0)
+        target = np.random.RandomState(3).randn(32, 4).astype(np.float32)
+        table = emb.ShardedEmbeddingTable("emb", kv, 32, 4)
+        table.init(init_array=np.zeros((32, 4), np.float32))
+        ckpt = emb.elastic_table_checkpoint(mgr, [table], kv)
+        ids = np.arange(32)
+        losses = []
+        def rows():
+            uniq, inverse, vecs = table.pull(ids)
+            return vecs[inverse]
+
+        for step in range(steps):
+            got = rows()
+            losses.append(float(np.mean((got - target) ** 2)))
+            table.push(ids, (got - target) / len(ids))
+            kv.wait_outstanding()
+            if step == steps // 2 - 1:
+                ckpt(1)
+        t.join(30)
+        final = float(np.mean((rows() - target) ** 2))
+        return losses, final, crashed.is_set(), healed.get("keys")
+    finally:
+        chaos.reset_engine()
+        _stop(kv, *servers)
+        for r in regs + [wc]:
+            r.close()
+        trk.shutdown()
+
+
+@bounded
+def test_chaos_embed_server_crash_heals(tmp_path, monkeypatch):
+    """The chaos case of the embedding tier in one process, in both
+    packages: server 0 crashes at its step, its replacement restores the
+    checkpoint's sub-key (one key) and takes over under rank 0, the
+    client's retries rediscover it, and the loss ends below where the
+    checkpoint left it."""
+    monkeypatch.setenv("DMLC_NUM_WORKER", "1")
+    for pkg in ("port", "jax"):
+        losses, final, crashed, keys = _heal_run(pkg, str(tmp_path / pkg),
+                                                 monkeypatch)
+        assert crashed and keys == 1, (pkg, crashed, keys)
+        assert losses[-1] < losses[0] and final < losses[6], (pkg, losses,
+                                                              final)
 
 
 def test_teardown_is_bounded():

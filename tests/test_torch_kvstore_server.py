@@ -268,7 +268,7 @@ def test_bad_requests_get_error_replies(server):
         kv.pull("missing", out=out)
     with pytest.raises(MXNetError, match="unknown optimizer"):
         kv.set_optimizer("not_an_optimizer")
-    with pytest.raises(MXNetError, match="rollback.*item 10"):
+    with pytest.raises(MXNetError, match="rollback.*MXNET_CHECKPOINT_DIR"):
         kv._rpc("rollback", meta={})
     kv.init("w", np.ones((2,), np.float32))
     kv.pull("w", out=out)
@@ -579,23 +579,38 @@ def test_push_dedupe_is_a_claimed_set_not_a_high_water_mark(server1):
 
 
 def test_item10_modes_raise_by_name(server1, monkeypatch, tmp_path):
+    """Item 10's recovery half is ported (restore, rollback, rediscovery,
+    elastic barriers, the chaos server and rpc hooks: each builds or
+    answers here, its behaviour is held below and in
+    tests/test_torch_self_healing.py); ZeRO value sharding still raises,
+    naming item 10c."""
     srv = server1
-    with pytest.raises(MXNetError, match="restore.*item 10"):
-        srv.restore_from_checkpoint(None)
+    with pytest.raises(AttributeError):
+        srv.restore_from_checkpoint(None)          # it reads the handle
     kv = tks.ServerKVStore(srv.addr)
-    with pytest.raises(MXNetError, match="rollback.*item 10"):
+    monkeypatch.delenv("MXNET_CHECKPOINT_DIR", raising=False)
+    with pytest.raises(MXNetError, match="rollback.*MXNET_CHECKPOINT_DIR"):
         kv.rollback_servers(lr_scale=0.5)
     kv.close()
-    with pytest.raises(MXNetError, match="tracker_client.*item 10"):
-        tks.ServerKVStore(srv.addr, tracker_client=object())
-    with pytest.raises(MXNetError, match="elastic.*item 10"):
-        tks.KVStoreServer(device="cpu", elastic=True)
-    monkeypatch.setenv("MXNET_MAX_RESTARTS", "2")
-    with pytest.raises(MXNetError, match="MXNET_MAX_RESTARTS.*item 10"):
-        tks.KVStoreServer(device="cpu")
+
+    class _Tracker:
+        rank = 3
+
+        def num_dead_node(self):
+            return 1
+
+    kv = tks.ServerKVStore(srv.addr, tracker_client=_Tracker())
+    assert (kv.rank, kv.num_dead_node()) == (3, 1)
+    kv.close()
+    for elastic in (True, None):
+        if elastic is None:
+            monkeypatch.setenv("MXNET_MAX_RESTARTS", "2")
+        other = tks.KVStoreServer(device="cpu", elastic=elastic)
+        assert other._elastic
+        other.shutdown()
     monkeypatch.delenv("MXNET_MAX_RESTARTS")
     monkeypatch.setenv("MXNET_TPU_ZERO_SERVER", "1")
-    with pytest.raises(MXNetError, match="ZERO_SERVER.*item 10"):
+    with pytest.raises(MXNetError, match="ZERO_SERVER.*item 10c"):
         tks.ServerKVStore([srv.addr, srv.addr])
     monkeypatch.delenv("MXNET_TPU_ZERO_SERVER")
     from mxnet_tpu_torch import chaos, tracker
@@ -603,8 +618,8 @@ def test_item10_modes_raise_by_name(server1, monkeypatch, tmp_path):
     monkeypatch.setenv("MXNET_FAULT_SPEC", "rpc:drop@op=push,n=1")
     chaos.reset_engine()
     try:
-        with pytest.raises(MXNetError, match="rpc hook is not ported"):
-            tks.ServerKVStore(srv.addr)
+        tks.ServerKVStore(srv.addr).close()
+        assert [r.target for r in chaos.engine().rules] == ["rpc"]
     finally:
         monkeypatch.delenv("MXNET_FAULT_SPEC")
         chaos.reset_engine()
@@ -1030,12 +1045,22 @@ def test_pipeline_env_knob_validated(server1, monkeypatch):
     ("MXNET_PS_ADVERTISE_HOST", "10.0.0.1")])
 def test_item10_knobs_raise_when_set(server1, monkeypatch, knob, value):
     """The knobs of item 10's parts are registered with the JAX package's
-    defaults; a set value raises by name at the server and at the client,
-    never a silent no-op."""
+    defaults. Those of the entry point (item 10c) raise by name at the
+    server and at the client when set, never a silent no-op; the
+    rediscovery timeout is ported: the client reads it (and a malformed
+    value raises naming it)."""
     monkeypatch.setenv(knob, value)
-    with pytest.raises(MXNetError, match=knob + ".*item 10"):
+    if knob == "MXNET_KVSTORE_REDISCOVER_TIMEOUT":
+        kv = tks.ServerKVStore(server1.addr)
+        assert kv._rediscover_timeout == 30.0
+        kv.close()
+        monkeypatch.setenv(knob, "0")
+        with pytest.raises(Exception, match=knob):
+            tks.ServerKVStore(server1.addr)
+        return
+    with pytest.raises(MXNetError, match=knob + ".*item 10c"):
         tks.KVStoreServer(device="cpu")
-    with pytest.raises(MXNetError, match=knob + ".*item 10"):
+    with pytest.raises(MXNetError, match=knob + ".*item 10c"):
         tks.ServerKVStore(server1.addr)
 
 
@@ -1066,3 +1091,342 @@ def test_malformed_server_tier_knob_raises_naming_it(server1, monkeypatch,
                         (jks.ServerKVStore, jtracker.TrackerError)):
         with pytest.raises(err, match=knob):
             client(server1.addr)
+
+
+# ---------------------------------------------------------------------------
+# recovery: rediscovery, elastic barriers, restore and rollback (the JAX
+# package's tests/test_kvstore_server.py cases), the chaos rpc hooks
+# (tests/test_kvstore_async.py's cases)
+# ---------------------------------------------------------------------------
+@bounded
+def test_retry_rediscovers_respawned_server(monkeypatch):
+    """A server dies mid-job; its replacement (holding the dead one's
+    state) registers with the port's tracker under the old rank on a new
+    port, and the client's retry rediscovers it and lands the push."""
+    from mxnet_tpu_torch.tracker import Tracker, TrackerClient
+
+    monkeypatch.setenv("MXNET_KVSTORE_RECONNECT_DEADLINE", "0.5")
+    trk = Tracker(num_workers=1, num_servers=1, max_restarts=1)
+    trk.serve_in_background()
+    srv_a = _server(num_workers=1)
+    sc_a = TrackerClient(trk.addr, "server", addr=srv_a.addr, rank=0)
+    wc = TrackerClient(trk.addr, "worker", rank=0)
+    try:
+        kv = tks.ServerKVStore([srv_a.addr], tracker_client=wc)
+        assert kv.rank == wc.rank == 0
+        kv.init("w", np.full((2,), 10.0, np.float32))
+        kv.push("w", np.ones((2,), np.float32))
+        kv.wait_outstanding()
+        srv_a.shutdown()                      # the crash
+        sc_a.close()
+        srv_b = _server(num_workers=1)
+        srv_b._store = {k: v.clone() for k, v in srv_a._store.items()}
+        sc_b = TrackerClient(trk.addr, "server", addr=srv_b.addr, rank=0,
+                             restart_count=1)
+        kv.push("w", np.ones((2,), np.float32))   # reconnect + rediscover
+        out = np.empty((2,), np.float32)
+        kv.pull("w", out=out)
+        np.testing.assert_array_equal(out, 12.0)
+        assert kv._uris == [srv_b.addr], "the client never learned the URI"
+        kv.close()
+        sc_b.close()
+        wc.close()
+        srv_b.shutdown()
+    finally:
+        srv_a.shutdown()
+        trk.shutdown()
+
+
+@bounded
+def test_elastic_barrier_retracts_dead_waiters_arrival():
+    """Elastic mode: a worker dying inside the barrier retracts its own
+    arrival; the survivor waits for the respawn, which completes the
+    round."""
+    def _eat(fn):
+        try:
+            fn()
+        except Exception:
+            pass
+
+    srv = _server(num_workers=2, barrier_timeout=20.0, elastic=True)
+    try:
+        ghost = tks.ServerKVStore(srv.addr)
+        t_ghost = threading.Thread(target=lambda: _eat(ghost.barrier))
+        t_ghost.start()
+        time.sleep(0.3)                  # one pending arrival...
+        ghost._socks[0].shutdown(socket.SHUT_RDWR)
+        ghost._socks[0].close()          # ...and its worker dies
+        t_ghost.join(timeout=10)
+        time.sleep(0.6)                  # the probe retracts the arrival
+        survivor = tks.ServerKVStore(srv.addr)
+        done = []
+        t_surv = threading.Thread(
+            target=lambda: (survivor.barrier(), done.append("survivor")))
+        t_surv.start()
+        time.sleep(0.5)
+        assert t_surv.is_alive() and done == [], \
+            "the survivor passed on the dead worker's stale arrival"
+        respawn = tks.ServerKVStore(srv.addr)
+        respawn.barrier()
+        t_surv.join(timeout=10)
+        assert done == ["survivor"]
+        survivor.close()
+        respawn.close()
+    finally:
+        _stop(srv)
+
+
+def _shard_checkpoint(ck_mod, directory):
+    """tests/test_kvstore_server.py's checkpoint: eight keys, an aux
+    entry, momentum states, an sgd config."""
+    keys = ["fc%d_weight" % i for i in range(8)]
+    weights = {"arg:%s" % k: np.full((3,), float(i), np.float32)
+               for i, k in enumerate(keys)}
+    weights["aux:bn_mean"] = np.ones((2,), np.float32)
+    weights["arg:emb@embshard1"] = np.arange(6, dtype=np.float32)
+    states = {k: np.full((3,), 0.5, np.float32) for k in keys}
+    states["emb@embshard1"] = np.full((6,), 0.25, np.float32)
+    mgr = ck_mod.CheckpointManager(directory)
+    mgr.save(2, weights=weights,
+             optimizer_states=pickle.dumps(states, protocol=4),
+             optimizer_config=("sgd", {"learning_rate": 0.1,
+                                       "momentum": 0.9}, {}))
+    return keys + ["emb@embshard1"], mgr
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_server_restore_from_checkpoint_loads_only_its_shard(tmp_path,
+                                                             writer):
+    """A respawned server preloads exactly its key shard (crc32 routing;
+    an embedding sub-key by its suffix) and those keys' optimizer state,
+    with the updater rebuilt from the recorded config, from a checkpoint
+    either package wrote, as the JAX server restores it."""
+    from mxnet_tpu import checkpoint as jck
+    from mxnet_tpu_torch import checkpoint as tck
+
+    keys, mgr = _shard_checkpoint(tck if writer == "port" else jck,
+                                  str(tmp_path / "ck"))
+    for shard in range(2):
+        got, want = (_server(pkg, num_workers=1) for pkg in ("port", "jax"))
+        try:
+            n = got.restore_from_checkpoint(mgr.latest(), shard_rank=shard,
+                                            num_shards=2)
+            jn = want.restore_from_checkpoint(mgr.latest(),
+                                              shard_rank=shard, num_shards=2)
+            expect = {k for k in keys if (
+                1 % 2 if "@embshard" in k else tks.shard_key(k, 2)) == shard}
+            assert set(got._store) == set(want._store) == expect
+            assert n == jn == len(expect)
+            assert got._updater is not None, "optimizer not rebuilt"
+            assert set(got._updater.states) == expect
+            for k in expect:
+                np.testing.assert_array_equal(got._store[k].numpy(),
+                                              want._store[k])
+                np.testing.assert_array_equal(
+                    got._updater.states[k].asnumpy(),
+                    want._updater.states[k])
+                assert got._store[k].device == got.device
+            assert got._opt_config == want._opt_config
+        finally:
+            _stop(got, want)
+
+
+@bounded
+def test_jax_client_rolls_back_a_port_server(tmp_path, monkeypatch):
+    """The wire across packages for recovery: a port server restored from
+    a JAX-written checkpoint (its momentum included) takes pushes from the
+    JAX client, is poisoned, and the JAX client's ``rollback_servers``
+    brings it back to the checkpoint with the lr backed off once a
+    generation; the next push moves it as the all-JAX pair does."""
+    from mxnet_tpu import checkpoint as jck
+
+    d = str(tmp_path / "ck")
+    monkeypatch.setenv("MXNET_CHECKPOINT_DIR", d)
+    keys, mgr = _shard_checkpoint(jck, d)
+    results = {}
+    for pkg in ("port", "jax"):
+        srv = _server(pkg, num_workers=1)
+        assert srv.restore_from_checkpoint(mgr.latest()) == len(keys)
+        kv = jks.ServerKVStore(srv.addr)
+        try:
+            kv.push("fc3_weight", np.full((3,), np.nan, np.float32))
+            bad = np.empty((3,), np.float32)
+            kv.pull("fc3_weight", out=bad)
+            assert np.isnan(bad).all()
+            info = kv.rollback_servers(lr_scale=0.5, gen=1)
+            again = kv.rollback_servers(lr_scale=0.5, gen=1)
+            restored = np.empty((3,), np.float32)
+            kv.pull("fc3_weight", out=restored)
+            kv.push("fc3_weight", np.ones((3,), np.float32))
+            after = np.empty((3,), np.float32)
+            kv.pull("fc3_weight", out=after)
+            results[pkg] = (info, again, restored, after,
+                            kv.get_optimizer_config())
+        finally:
+            kv.close()
+            _stop(srv)
+    got, want = results["port"], results["jax"]
+    assert got[0] == want[0] == {"keys": len(keys), "epoch": 2, "lr": 0.05}
+    assert got[1] == want[1] and got[1]["lr"] is None
+    np.testing.assert_array_equal(got[2], np.full((3,), 3.0, np.float32))
+    # the momentum buffer 0.5 restored: w + 0.9 * 0.5 - lr 0.05 * 1
+    _close(got[3], want[3])
+    _close(got[3], np.full((3,), 3.0 + 0.9 * 0.5 - 0.05))
+    assert got[4] == want[4]
+
+
+@pytest.fixture
+def chaos_env(monkeypatch):
+    from mxnet_tpu_torch import chaos
+
+    def _set(spec):
+        monkeypatch.setenv("MXNET_FAULT_SPEC", spec)
+        monkeypatch.setenv("DMLC_ROLE", "worker")
+        chaos.reset_engine()
+
+    yield _set
+    monkeypatch.delenv("MXNET_FAULT_SPEC", raising=False)
+    chaos.reset_engine()
+
+
+@bounded
+def test_future_ordering_under_chaos_drops(server1, chaos_env):
+    """Seeded send-phase drops on the port's client against the port's
+    server: every push lands exactly once (accumulate mode: a double or a
+    lost apply changes the sum), in the no-fault run's final state."""
+    chaos_env("rpc:drop@op=push,p=0.3,seed=11")
+    kv = tks.ServerKVStore(server1.addr)
+    keys = ["k%02d" % i for i in range(12)]
+    for k in keys:
+        kv.init(k, np.zeros((8,), np.float32))
+    rng = np.random.RandomState(0)
+    expect = {k: np.zeros((8,), np.float32) for k in keys}
+    for _step in range(4):
+        for i, k in enumerate(keys):
+            g = rng.rand(8).astype(np.float32)
+            expect[k] += g
+            kv.push(k, g, priority=-i)
+    kv.wait_outstanding()
+    assert server1._pushes_applied == len(keys) * 4
+    assert profiler.comm_stats()["push"]["count"] > 0
+    for k in keys:
+        out = np.empty((8,), np.float32)
+        kv.pull(k, out=out)
+        np.testing.assert_allclose(out, expect[k], rtol=1e-6)
+    kv.close()
+
+
+@bounded
+@pytest.mark.parametrize("side", ["client", "server"])
+def test_reply_loss_on_coalesced_frame_never_double_applies(server1,
+                                                            chaos_env, side):
+    """A ``push_multi`` frame whose reply is lost (client side) retries
+    with the same per-entry seqnos and is acked without a second apply; a
+    server-side drop before the apply is retried and applied once."""
+    chaos_env("rpc:drop@op=push,phase=reply,n=1" if side == "client"
+              else "rpc:drop@op=push,side=server,n=1")
+    kv = tks.ServerKVStore(server1.addr)
+    keys = ["a", "b", "c", "d"]
+    for k in keys:
+        kv.init(k, np.zeros((4,), np.float32))
+    for k in keys:
+        kv.push(k, np.ones((4,), np.float32))
+    kv.wait_outstanding()
+    assert server1._pushes_applied == len(keys), "a retry re-applied"
+    for k in keys:
+        out = np.empty((4,), np.float32)
+        kv.pull(k, out=out)
+        np.testing.assert_array_equal(out, 1.0)
+    kv.close()
+
+
+def test_server_chaos_crash_at_its_step(server1, monkeypatch):
+    """``server:0:crash@step=3``: the server's third applied push hard-exits
+    (the exit injected here), as the JAX server counts its steps."""
+    from mxnet_tpu import chaos as jchaos
+    from mxnet_tpu_torch import chaos
+
+    exits = {}
+    for name, mod in (("port", chaos), ("jax", jchaos)):
+        monkeypatch.setenv("MXNET_FAULT_SPEC", "server:0:crash@step=3")
+        monkeypatch.setenv("DMLC_ROLE", "server")
+        mod.reset_engine()
+        eng = mod.engine()
+        eng._exit = lambda code, name=name: exits.setdefault(name, (
+            code, eng._step))
+        if name == "port":
+            kv = tks.ServerKVStore(server1.addr, pipeline=False)
+            kv.init("w", np.zeros((2,), np.float32))
+            for _ in range(4):
+                kv.push("w", np.ones((2,), np.float32))
+            kv.close()
+        else:
+            for _ in range(4):
+                mod.tick_step()
+        mod.reset_engine()
+    assert exits["port"] == exits["jax"] == (137, 3)
+
+
+@bounded
+def test_elastic_checkpoint_pulls_inside_the_quiesced_window(tmp_path,
+                                                             monkeypatch):
+    """``callback.elastic_checkpoint`` on the server tier, one worker and
+    one server a package, every second epoch of a 4-epoch ``Module.fit``:
+    the named barriers pass, the weights committed are the servers'
+    (pulled in the window), with the servers' optimizer states and config
+    and the worker's progress; the port's checkpoint equals the JAX
+    package's."""
+    from mxnet_tpu import checkpoint as jck
+    from mxnet_tpu_torch import checkpoint as tck
+
+    monkeypatch.setenv("DMLC_NUM_WORKER", "1")
+    x, y, params = _mlp_case(200)
+    got = {}
+    for pkg, mx, ks, ck_mod in (("port", tmx, tks, tck),
+                                ("jax", jmx, jks, jck)):
+        srv = _server(pkg, num_workers=1)
+        kv = ks.ServerKVStore(srv.addr)
+        mgr = ck_mod.CheckpointManager(str(tmp_path / pkg), period=2)
+        x2, y2 = x[:100], y[:100]           # 2 batches an epoch
+        it = mx.io.NDArrayIter({"data": x2}, {"softmax_label": y2},
+                               batch_size=50, shuffle=False)
+        net = mx.sym.FullyConnected(mx.sym.Variable("data"), name="fc1",
+                                    num_hidden=32)
+        net = mx.sym.Activation(net, name="relu1", act_type="relu")
+        net = mx.sym.FullyConnected(net, name="fc2", num_hidden=5)
+        net = mx.sym.SoftmaxOutput(net, name="softmax")
+        mod = mx.mod.Module(net, context=mx.cpu())
+        mod.fit(it, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                arg_params={k: mx.nd.array(v) for k, v in params.items()},
+                kvstore=kv, num_epoch=4,
+                epoch_end_callback=mx.callback.elastic_checkpoint(mgr, mod,
+                                                                  kv))
+        ck = mgr.latest()
+        held = {}
+        for k in params:
+            held[k] = np.empty_like(params[k])
+            kv.pull(k, out=held[k])
+        got[pkg] = dict(
+            epochs=sorted(n for n in os.listdir(str(tmp_path / pkg))
+                          if n.startswith("ckpt-")),
+            files=sorted(os.listdir(ck.path)), weights=ck.weights(),
+            config=ck.optimizer_config(),
+            states=tck.loads_plain(ck.optimizer_states()),
+            worker=ck.worker_state(0), held=held)
+        _stop(kv, srv)
+    t, j = got["port"], got["jax"]
+    assert t["epochs"] == j["epochs"] == ["ckpt-00000002", "ckpt-00000004"]
+    assert t["files"] == j["files"] == ["meta.json", "optimizer.pkl",
+                                        "optimizer.states", "weights.pkl",
+                                        "worker-0.pkl"]
+    assert t["config"] == j["config"]
+    assert (t["worker"]["epoch"], t["worker"]["nbatch"]) == \
+        (j["worker"]["epoch"], j["worker"]["nbatch"]) == (4, 0)
+    assert set(t["weights"]) == {"arg:%s" % k for k in params}
+    for k in params:
+        np.testing.assert_array_equal(t["weights"]["arg:" + k], t["held"][k])
+        _close(t["weights"]["arg:" + k], j["weights"]["arg:" + k], k)
+    assert set(t["states"]) == set(j["states"]) == set(params)
+    for k in params:
+        _close(t["states"][k], j["states"][k], "momentum " + k)

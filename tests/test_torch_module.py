@@ -386,12 +386,34 @@ def test_unported_module_arguments_raise_by_name(kw, name):
 
 
 @pytest.mark.parametrize("env,name", [
-    (("MXNET_CHECKPOINT_DIR", "/nonexistent"), "HealthGuard")])
-def test_unported_knobs_raise_by_name(monkeypatch, env, name):
-    monkeypatch.setenv(*env)
-    with pytest.raises(MXNetError, match="%s.*not ported" % name):
-        mod = mx.mod.Module(_small(), context=mx.cpu())
-        mod.fit(_iter(), num_epoch=1)
+    (("MXNET_CHECKPOINT_DIR", "<tmp>"), "HealthGuard")])
+def test_unported_knobs_raise_by_name(monkeypatch, tmp_path, env, name):
+    """The knob that raised by name while its part was not ported: with a
+    checkpoint directory, ``fit`` now arms the ``HealthGuard`` and calls
+    it at every batch boundary (tests/test_torch_self_healing.py holds
+    what it does)."""
+    from mxnet_tpu_torch import health
+
+    knob, value = env
+    monkeypatch.setenv(knob, str(tmp_path / "ck") if value == "<tmp>"
+                       else value)
+    armed, seen = [], []
+    real = getattr(health, name).from_env.__func__
+
+    def from_env(cls, *a, **kw):
+        guard = real(cls, *a, **kw)
+        armed.append(guard)
+        return guard
+
+    monkeypatch.setattr(health.HealthGuard, "from_env",
+                        classmethod(from_env))
+    monkeypatch.setattr(health.HealthGuard, "on_batch",
+                        lambda self, epoch, nbatch, *a: seen.append(nbatch))
+    mod = mx.mod.Module(_small(), context=mx.cpu())
+    mod.fit(_iter(), num_epoch=1)
+    assert len(armed) == 1 and armed[0].manager.directory == \
+        str(tmp_path / "ck")
+    assert seen == list(range(len(seen))) and seen
 
 
 @pytest.mark.parametrize("kvstore", ["dist_sync", "dist_async"])

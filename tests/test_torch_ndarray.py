@@ -563,7 +563,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.gluon.data.vision, "
             "mxnet_tpu_torch.module.bucketing_module, "
             "mxnet_tpu_torch.module.sequential_module, "
-            "mxnet_tpu_torch.module.python_module\n"
+            "mxnet_tpu_torch.module.python_module, "
+            "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.health, "
+            "mxnet_tpu_torch.embedding.checkpoint, chip_smoke\n"
             "assert all(hasattr(mxnet_tpu_torch, n) for n in ('profiler', "
             "'ir', 'serving', 'embedding', 'kvstore_server', 'tracker', "
             "'chaos', 'rnd', 'Executor', 'num_gpus', 'cpu_pinned'))\n"

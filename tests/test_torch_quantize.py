@@ -470,8 +470,9 @@ def test_quant_knobs_validated_as_jax(trained_mlp, monkeypatch):
 def test_model_server_int8_swap_from_checkpoint(trained_mlp, tmp_path):
     """``add_model(quant="int8", calib_data=)`` serves; after a swap to
     perturbed weights, ``swap_from_checkpoint`` of the port's checkpoint of
-    the trained ones serves exactly what a fresh int8 bind of them does;
-    ``directory=`` raises naming item 10."""
+    the trained ones serves exactly what a fresh int8 bind of them does,
+    and so does its ``directory=`` form from a ``CheckpointManager``
+    directory (an empty one raises)."""
     from mxnet_tpu_torch.model import save_checkpoint
 
     _jnet, tnet, args_np, sample = trained_mlp
@@ -492,8 +493,16 @@ def test_model_server_int8_swap_from_checkpoint(trained_mlp, tmp_path):
         assert srv.swap_from_checkpoint("mlp", prefix=prefix,
                                         epoch=3) == len(args_np)
         restored = srv.predict("mlp", x)[0]
-        with pytest.raises(ServingError, match="item 10"):
-            srv.swap_from_checkpoint("mlp", directory=str(tmp_path))
+        with pytest.raises(ServingError, match="no committed checkpoint"):
+            srv.swap_from_checkpoint("mlp", directory=str(tmp_path / "ck"))
+        from mxnet_tpu_torch.checkpoint import CheckpointManager
+
+        CheckpointManager(str(tmp_path / "ck")).save(
+            3, weights={"arg:%s" % k: v for k, v in args_np.items()})
+        srv.swap("mlp", moved)
+        assert srv.swap_from_checkpoint(
+            "mlp", directory=str(tmp_path / "ck")) == len(args_np)
+        np.testing.assert_array_equal(srv.predict("mlp", x)[0], restored)
         with pytest.raises(ServingError, match="exactly one"):
             srv.swap_from_checkpoint("mlp")
     fresh = _port_pred(tnet, args_np, ladder=(4, 32), **kw)

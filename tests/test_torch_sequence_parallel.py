@@ -5,9 +5,10 @@ device meshes of the same shapes.
 - ``full_attention`` against the JAX one, offsets included; ring and
   Ulysses attention on ``{"sp": 4}``, causal and not, and the ring on
   ``{"dp": 2, "sp": 2}`` with its gradient: ``tests/test_attention.py``'s
-  cases. A rank returns its output shard and its share of the gradient
-  (``parallel/ring.py``'s convention); the shards are assembled and the
-  shares summed here.
+  cases. Each rank of the standalone functions returns the global output
+  and its share of the gradient (``parallel/ring.py``'s convention): the
+  output is held as it is, the shares are summed here. The ``*_inner``
+  functions return the rank's shard, assembled here.
 - The transformer's loss and every gradient on ``{"sp": 2}`` under
   ``attn`` ring, ulysses and full, on ``{"dp": 2, "sp": 2}`` and on
   ``{"mp": 2, "sp": 2}``, 3 train steps on ``{"mp": 2, "sp": 2}``,
@@ -99,16 +100,19 @@ def _jax_attention(axes, causal, heads=None, batch_axis=None):
                                            batch_axis=batch_axis))
 
 
-def _assemble(ranks, key, axes, batch_axis=None):
-    """The global output from the ranks' shards."""
-    n_b = axes.get(batch_axis, 1) if batch_axis else 1
-    rows = []
-    for b in range(n_b):
-        chunks = sorted((r for r in ranks if not batch_axis
-                         or r["coords"][batch_axis] == b),
-                        key=lambda r: r["coords"]["sp"])
-        rows.append(np.concatenate([r[key]["out"] for r in chunks], axis=2))
-    return np.concatenate(rows, axis=0)
+def _assemble(ranks, key):
+    """The global output from the ranks' ``*_inner`` shards on
+    ``{"sp": n}``."""
+    chunks = sorted(ranks, key=lambda r: r["coords"]["sp"])
+    return np.concatenate([r[key]["out"] for r in chunks], axis=2)
+
+
+def _every_rank(ranks, key, want, tol=ATTN_TOL):
+    """Each rank's return of a standalone function is the global output."""
+    for r in ranks:
+        assert r[key]["out"].shape == want.shape, (key, r["coords"])
+        np.testing.assert_allclose(r[key]["out"], want, **tol,
+                                   err_msg="%s %s" % (key, r["coords"]))
 
 
 @pytest.fixture(scope="module")
@@ -186,12 +190,14 @@ def test_full_attention_bf16_casts_p_to_v():
 def test_attention_on_sp4_matches_jax(runs, kind, causal):
     ranks, ref = runs
     sp4 = [r["sp4"] for r in ranks["sp4"]]
-    got = _assemble(sp4, (kind, causal), sw.SP4)
-    np.testing.assert_allclose(got, ref[kind, causal], **ATTN_TOL)
+    _every_rank(sp4, (kind, causal), ref[kind, causal])
     q, k, v = (jnp.asarray(a) for a in sw.qkv(0, **(
         {"H": sw.ULYSSES_H} if kind == "ulysses" else {})))
     full = np.asarray(jring.full_attention(q, k, v, causal=causal))
-    np.testing.assert_allclose(got, full, **ATTN_TOL)
+    _every_rank(sp4, (kind, causal), full)
+    # the inner functions keep returning the rank's shard
+    got = _assemble(sp4, (kind + "_inner", causal))
+    np.testing.assert_allclose(got, ref[kind, causal], **ATTN_TOL)
     counts = sp4[0][kind, causal]["counts"]
     # the ring: K and V passed on at each of 4 steps; Ulysses: q, k, v to
     # heads and the output back
@@ -202,8 +208,7 @@ def test_attention_on_sp4_matches_jax(runs, kind, causal):
 def test_ring_attention_composes_with_dp_and_grads(runs):
     ranks, ref = runs
     dp_sp = [r["dp_sp"] for r in ranks["sp4"]]
-    got = _assemble(dp_sp, "ring", sw.DP_SP, batch_axis="dp")
-    np.testing.assert_allclose(got, ref["dp_sp_ring"], **ATTN_TOL)
+    _every_rank(dp_sp, "ring", ref["dp_sp_ring"])
     for i, name in enumerate("qkv"):
         total = sum(r["ring"]["grads"][i] for r in dp_sp)
         np.testing.assert_allclose(total, ref["dp_sp_grads"][i], **ATTN_TOL,
@@ -215,11 +220,9 @@ def test_ring_with_the_wrong_k_offset_fails_parity(runs):
     past chunks of later ranks lose their keys."""
     ranks, ref = runs
     sp4 = [r["sp4"] for r in ranks["sp4"]]
-    np.testing.assert_allclose(_assemble(sp4, ("ring", True), sw.SP4),
-                               ref["ring", True], **ATTN_TOL)
+    _every_rank(sp4, ("ring", True), ref["ring", True])
     with pytest.raises(AssertionError):
-        np.testing.assert_allclose(_assemble(sp4, "fault", sw.SP4),
-                                   ref["ring", True], **ATTN_TOL)
+        _every_rank(sp4, "fault", ref["ring", True])
 
 
 # ---------------------------------------------------------------------------
@@ -302,14 +305,12 @@ def test_flash_on_sp_raises_as_jax(runs):
 
 def test_attention_modes_without_sp():
     """The ``attn`` switch without an sp axis: auto and flash run the flash
-    function, full, ring and ulysses plain attention; an unknown mode
-    raises."""
+    function, full, ring, ulysses and any other mode plain attention, as
+    the JAX package's ``_attention`` does."""
     from mxnet_tpu_torch.models import transformer as ttfm
 
     q, k, v = (torch.from_numpy(a) for a in sw.qkv(3))
     ref = tring.full_attention(q, k, v, causal=True)
-    for mode in ttfm.ATTN_MODES:
+    for mode in ttfm.ATTN_MODES + ("paged",):
         got = ttfm._attention(q, k, v, attn=mode)
         np.testing.assert_allclose(got.numpy(), ref.numpy(), **ATTN_TOL)
-    with pytest.raises(ValueError, match="unknown attn mode"):
-        ttfm._attention(q, k, v, attn="paged")

@@ -88,14 +88,11 @@ JAX_ONLY = {
 }
 
 # parts of ported modules that ROADMAP.md still queues
-_ITEM10 = "item 10, second part (the distributed training plane)"
+_ITEM10C = "item 10c (the multi-host training plane: dist_*, the launcher)"
 NOT_PORTED = {
-    "": {n: _ITEM10 for n in ("CheckpointManager", "checkpoint", "dist")},
-    "callback": {"elastic_checkpoint": _ITEM10},
-    "chaos": {n: _ITEM10 for n in ("nan_fault", "rpc_fault", "tick_step")},
-    "embedding": {"checkpoint": _ITEM10},
-    "kvstore": {"DistKVStore": _ITEM10, "two_bit_pack_core": _ITEM10,
-                "two_bit_round_trip_core": _ITEM10},
+    "": {"dist": _ITEM10C},
+    "kvstore": {"DistKVStore": _ITEM10C, "two_bit_pack_core": _ITEM10C,
+                "two_bit_round_trip_core": _ITEM10C},
 }
 
 
@@ -577,7 +574,7 @@ KNOB_EXCEPTIONS = {
     "MXNET_SERVE_MAX_EXECUTABLES": "the predictor keeps no compiled program "
     "a bucket (serving/predictor.py)",
     "DMLC_ROLE": "the server entry point raises by name "
-    "(kvstore_server.py, item 10)",
+    "(kvstore_server.py, item 10c)",
     "MXNET_TPU_JAX_TRACE_DIR": "JAX traces",
 }
 

@@ -240,3 +240,66 @@ def test_config_tile_reaches_the_flash_call(models, monkeypatch):
     assert seen == [(16, 8)] * tc.n_layers
     np.testing.assert_allclose(last.numpy(), plain[0, 23].numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+# C20's config: one layer, fp32, tokens (2, 17) from seed 0
+BOGUS = dict(vocab=64, d_model=32, n_heads=4, n_layers=1, d_ff=64,
+             max_len=32, dtype="float32", attn="bogus")
+
+
+def test_unknown_attn_mode_without_sp_runs_full_attention_as_jax(
+        monkeypatch):
+    """C20: without an sp axis the JAX ``_attention`` runs full attention
+    for any mode but auto and flash, so ``attn="bogus"`` trains and
+    prefills; the port's loss (4.198359), every gradient and the prefill
+    logits match it at rtol 1e-4 / atol 1e-5, and the flash function is
+    never called."""
+    from jax.sharding import Mesh
+
+    jc, tc = jtfm.TransformerConfig(**BOGUS), ttfm.TransformerConfig(**BOGUS)
+    jp, tp = jtfm.init_params(jc, seed=0), ttfm.init_params(tc, seed=0)
+    toks = np.random.RandomState(0).randint(0, 64, (2, 17)).astype(np.int32)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("dp",))
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        jtfm.make_loss_fn(jc, mesh)[0]))(jp, jnp.asarray(toks))
+
+    def no_flash(*a, **kw):
+        raise AssertionError("flash_attention called under attn='bogus'")
+
+    monkeypatch.setattr(ttfm, "flash_attention", no_flash)
+    loss_fn, specs = ttfm.make_loss_fn(tc, device="cpu")
+    assert specs is None
+    p = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    loss = loss_fn(p, toks)
+    grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    assert loss.item() == pytest.approx(4.198359, abs=1e-6)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4,
+                               atol=1e-5)
+    for k, g in jgrads.items():
+        np.testing.assert_allclose(grads[k].numpy(), np.asarray(g),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+
+    padded = np.zeros((1, 16), np.int32)
+    padded[0, :11] = toks[0, :11]
+    pages = np.array([1, 2], np.int32)
+    _c, lj = jax.jit(jtfm.make_prefill_fn(jc, 8))(
+        jp, jtfm.init_kv_cache(jc, 4, 8), padded, np.int32(11), pages)
+    _c, lt = ttfm.make_prefill_fn(tc, 8, device="cpu")(
+        tp, ttfm.init_kv_cache(tc, 4, 8, device="cpu"), padded, 11, pages)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("attn", ["bogus", "flash"])
+def test_unknown_or_flash_attn_on_sp_still_raises_as_jax(attn):
+    """C20: on an sp axis the unknown mode and ``flash`` raise, with the
+    JAX package's message (a one-rank sp axis: the check comes before any
+    collective)."""
+    q, k, v = (torch.from_numpy(a) for a in np.random.RandomState(2).randn(
+        3, 1, 4, 8, 8).astype(np.float32))
+    with pytest.raises(ValueError) as jerr:
+        jtfm._attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                        axes=frozenset({"sp"}), attn=attn)
+    with pytest.raises(ValueError) as terr:
+        ttfm._attention(q, k, v, sp=(None, 1, 0), attn=attn)
+    assert str(terr.value) == str(jerr.value)

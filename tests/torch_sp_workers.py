@@ -135,9 +135,10 @@ def train_steps(cfg, mesh, params):
 # ---------------------------------------------------------------------------
 # sequence parallelism
 # ---------------------------------------------------------------------------
-def _attention_shards(mesh, fn, seed, batch_axis=None, grad=False, **kw):
-    """This rank's output shard of ``fn`` on the global inputs and, with
-    ``grad``, its share of the gradient of its shard's sum in q, k, v."""
+def _attention_out(mesh, fn, seed, batch_axis=None, grad=False, **kw):
+    """This rank's return of the standalone ``fn`` on the global inputs
+    (the global output) and, with ``grad``, its share of the gradient of
+    the output's sum in q, k, v."""
     from mxnet_tpu_torch.parallel import tensor_parallel as tpl
 
     ts = [torch.from_numpy(a).requires_grad_(grad) for a in
@@ -149,6 +150,21 @@ def _attention_shards(mesh, fn, seed, batch_axis=None, grad=False, **kw):
     if grad:
         res["grads"] = [g.numpy() for g in torch.autograd.grad(out.sum(), ts)]
     return res
+
+
+def _inner_shard(mesh, inner, seed, **kw):
+    """This rank's output shard of ``inner`` (``*_attention_inner``) on its
+    sequence chunk of the global inputs."""
+    from mxnet_tpu_torch.parallel import axis_group
+
+    axis = axis_group(mesh, ("sp",))
+    _g, n, i = axis
+    ts = [torch.from_numpy(a) for a in
+          qkv(seed, **({"H": ULYSSES_H} if inner.__name__.startswith(
+              "ulysses") else {}))]
+    chunk = ts[0].shape[2] // n
+    ts = [t.narrow(2, i * chunk, chunk) for t in ts]
+    return {"out": inner(*ts, axis=axis, **kw).numpy().copy()}
 
 
 def _wrong_k_offset():
@@ -217,31 +233,38 @@ def sp4_worker(rank, world):
     ``{"dp": 2, "sp": 2}`` with its gradient, the transformer's loss and
     gradients on ``{"dp": 2, "sp": 2}``, and on ``{"mp": 2, "sp": 2}`` the
     loss, gradients, counts and ``STEPS`` train steps."""
-    from mxnet_tpu_torch.parallel import ring_attention, ulysses_attention
+    from mxnet_tpu_torch.parallel import (ring_attention,
+                                          ring_attention_inner,
+                                          ulysses_attention,
+                                          ulysses_attention_inner)
 
     tfm = _tfm()
     out = {}
     mesh = _mesh(SP4)
     out["sp4"] = {"coords": _coords(mesh)}
     for causal in (False, True):
-        out["sp4"]["ring", causal] = _attention_shards(
+        out["sp4"]["ring", causal] = _attention_out(
             mesh, ring_attention, 0, causal=causal)
-        out["sp4"]["ulysses", causal] = _attention_shards(
+        out["sp4"]["ulysses", causal] = _attention_out(
             mesh, ulysses_attention, 0, causal=causal)
+        out["sp4"]["ring_inner", causal] = _inner_shard(
+            mesh, ring_attention_inner, 0, causal=causal)
+        out["sp4"]["ulysses_inner", causal] = _inner_shard(
+            mesh, ulysses_attention_inner, 0, causal=causal)
     ring, real, attend = _wrong_k_offset()
     ring._attend_chunk = attend
     try:
-        out["sp4"]["fault"] = _attention_shards(mesh, ring_attention, 0,
-                                                causal=True)
+        out["sp4"]["fault"] = _attention_out(mesh, ring_attention, 0,
+                                             causal=True)
     finally:
         ring._attend_chunk = real
 
     mesh = _mesh(DP_SP)
     out["groups"] = _group_sums(mesh)
     out["dp_sp"] = {"coords": _coords(mesh),
-                    "ring": _attention_shards(mesh, ring_attention, 0,
-                                              batch_axis="dp", grad=True,
-                                              causal=True)}
+                    "ring": _attention_out(mesh, ring_attention, 0,
+                                           batch_axis="dp", grad=True,
+                                           causal=True)}
     cfg = tfm.TransformerConfig(**CFG)
     params = tfm.init_params(cfg, seed=0)
     out["dp_sp"]["tfm"] = loss_and_grads(cfg, mesh, params, tokens())
