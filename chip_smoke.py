@@ -105,13 +105,13 @@ the kernels are built for sm_90a) and ``nvcc``. It
 14. runs ``Module.fit`` on the fused ResNet-50 (fp32, batch 64, 8 batches);
 15. trains the same net data parallel, one process a device over
    ``torch.distributed``, at global batch 64: ``TrainStep(mesh=
-   make_mesh({"dp": 1}))`` over NCCL in bf16 for 3 steps, bit for bit
+   make_mesh({"dp": 1}))`` over NCCL in bf16 for 2 steps, bit for bit
    ``mesh=None`` from the same init (a one-rank mesh runs no collective),
    52/52/48 launches a step, a profiled step with its NCCL kernels; then 2
    ranks sharing the card over gloo (NCCL refuses two ranks on one device;
    the kernels are built before they start), fp32, 32 rows a rank (B1-B3
    are held against their plain versions at 32 rows in steps 4 and 8):
-   the tiny fused ResNet's first loss, gradients and 3 losses within 1e-4
+   the tiny fused ResNet's first loss, gradients and 2 losses within 1e-4
    of one device; at full width the first loss within 1e-4, the whole
    gradient as close to one device's as one device's with the batch
    reordered (2x), and each tensor within 1e-4 or 2x its largest gap
@@ -121,11 +121,27 @@ the kernels are built for sm_90a) and ``nvcc``. It
    ``Module.fit(kvstore="tpu")`` over 4 copies of one batch with the
    same params and metric on both ranks. Rates of the shared card are not
    scaling rates;
+15b. trains it across worker processes as a user starts them
+   (``dist_phase``; each worker is this script, ``--dist-child a|b DIR``):
+   (a) ``tools/launch.py -n 2 -s 0``, ``Module.fit(kvstore="dist_sync")``
+   in fp32 at global batch 64 (32 rows a worker, its own), 3 batches of
+   52/52/48 launches on each worker, the params bit for bit equal on both
+   after every batch, the first batch's loss within 1e-4 and its whole
+   gradient within 2x a reordered batch's gap of one device's (each
+   tensor's ratio printed), then 2 batches under ``MXNET_TPU_ZERO=1`` and
+   ``MXNET_TPU_ZERO_WIRE=2bit`` (finite losses apart from the raw wire's,
+   the residual half the planned gradient bytes); (b) at once beside it,
+   ``python -m mxnet_tpu_torch.launch -n 2 -s 2`` with
+   ``MXNET_TPU_ZERO_SERVER=1``: the servers restore the phase's checkpoint
+   before they register (their lifecycle lines), ``Module.fit(kvstore=
+   "dist_async")`` for 2 batches from those weights, each server holding
+   0.45-0.55 of the bytes, every split key pulled equal to its joined
+   slices bit for bit;
 16. trains the full-width transformer Megatron's way over
    ``train_mesh(mp=2)`` (dp 1 x mp 2) as 2 gloo ranks sharing the card,
    each with half the heads, vocab rows and d_ff, at batch (4, 2049):
    one fp32 step (TF32 off) with the loss within 1e-5 and every unsharded
-   gradient within 1e-4 relative L2 of one device's, then 2 warm-up and 5
+   gradient within 1e-4 relative L2 of one device's, then 2 warm-up and 3
    timed bf16 steps (sgd with momentum) beside one device's in the same
    call, with 12 launches of each of B5, B6 and B7 a step on each rank,
    the param bytes a rank at their exact share (0.5097), 2 sums a block
@@ -202,7 +218,7 @@ the kernels are built for sm_90a) and ``nvcc``. It
    classes) through ``Module.fit`` on its clustered task, calibrates on 8
    batches of 64, holds int8-vs-bf16 top-1 agreement >= 0.99 on 2048 rows
    and 7 quantized ops, and serves bf16 and int8 behind ``ModelServer``
-   under its closed loop (24 clients, think 2 ms, 8 rows, 2.5 s a mode):
+   under its closed loop (24 clients, think 2 ms, 8 rows, 1.5 s a mode):
    req/s and p50/p99; hot-swaps the MLP from a ``save_checkpoint`` pair
    under load (``swap_from_checkpoint``), the int8 outputs equal to a fresh
    bind's; then the unfused ResNet-50 at full width: 54 quantized ops, the
@@ -230,8 +246,8 @@ the kernels are built for sm_90a) and ``nvcc``. It
    empty table of the run's own (the hand tiles);
 26. drives the data plane as ``bench.py``'s ``fit`` variant does:
    ``Module.fit`` of the unfused ResNet-50 v2 in fp32 (kvstore 'tpu', the
-   fused SPMD group engaged; SGD lr 0.1, momentum 0.9, Xavier, 3 epochs)
-   over 4 batches of 128 records (64, then 32, on out-of-memory) written
+   fused SPMD group engaged; SGD lr 0.1, momentum 0.9, Xavier, 2 epochs)
+   over 2 batches of 128 records (64, then 32, on out-of-memory) written
    by ``write_record_shards``, through ``ShardedRecordStream`` (2 decode
    workers, prefetch 4) -> ``ShardedBatchIter`` -> ``DeviceQueueIter``;
    prints bench.py's fit record (images/s, host syncs, put and feed-stall
@@ -240,9 +256,9 @@ the kernels are built for sm_90a) and ``nvcc``. It
    the same decoded arrays in memory (``NDArrayIter``); checks every
    record read once an epoch, a falling epoch cross-entropy and the first
    epoch's placed batches against a synchronous read (sha1); then the
-   fused ResNet-50 behind the same feed for one epoch of 6 batches of 64
+   fused ResNet-50 behind the same feed for one epoch of 3 batches of 64
    (52/52/48 launches a batch), and the port's copy of
-   ``tools/bench_data.py``'s ``measure`` (2048 records of (3, 64, 64),
+   ``tools/bench_data.py``'s ``measure`` (512 records of (3, 64, 64),
    sync against prefetched, the deterministic replay);
 27. drives the sparse paths (``sparse_phase``): the Criteo-shaped linear
    classification of ``examples/sparse/linear_classification.py`` (1e6
@@ -261,7 +277,7 @@ the kernels are built for sm_90a) and ``nvcc``. It
    store's values on the card;
 28. drives the parameter-server tier (``embed_phase``): the port's copy
    of ``tools/bench_embed.py``'s ``measure`` with 4 servers on the card
-   (131072 rows, dim 64, batch 4096, 8 iterations, zipf 1.2): its record
+   (131072 rows, dim 64, batch 4096, 4 iterations, zipf 1.2): its record
    under the reference's keys, ``as_dense()`` against a numpy replay of
    the pushes as sent within 1e-5, ``mem_ratio_max <= 1/4 + 0.01``, the
    stored tables on the card; again at 2,097,152 rows without the naive
@@ -345,7 +361,7 @@ the kernels are built for sm_90a) and ``nvcc``. It
    card (``mp_symbol_phase``; ``MPS_RULES``: the fused ResNet-50's stage-3
    and stage-4 conv weights on their output channels, fc1 on its rows):
    (a) trains it by ``Module.fit(kvstore='tpu')`` under
-   ``MXNET_MP_SIZE=2``, fp32 (TF32 off), 4 batches of 32, holding the
+   ``MXNET_MP_SIZE=2``, fp32 (TF32 off), 2 batches of 32, holding the
    first step's gradients and the fitted params, unsharded, against one
    device's within max(1e-4, 3x the gap one rounding of the params gives),
    B1/B2/B3 52/52/48 a batch on each rank and the param bytes a rank at the
@@ -385,6 +401,11 @@ NaN before each repeat, and fails unless each repeat passes and gives the
 card's loss and gradients of the first bit for bit. A failed grad check
 names, in its error, the gaps, which side a second computation moves, the
 host's CPU and the card's clocks and ECC count.
+
+    python3 chip_smoke.py --dist-child a|b DIR
+
+is one worker of ``dist_phase``, started by the phase's launchers (its
+results to ``DIR/<a|b>-rank<r>.json``).
 """
 import gc
 import json
@@ -446,9 +467,9 @@ GRAD_BATCH, GRAD_TOL = (2, 257), 1e-4
 RESNET = dict(num_classes=1000, num_layers=50, image_shape=(3, 224, 224))
 RESNET_LADDER = (1, 4, 16, 64)
 # the data-parallel path (dp_training_phase): a global batch of 64 over 2
-# ranks, 3 steps. B1-B3 are held against their plain versions at the rows
+# ranks, 2 steps. B1-B3 are held against their plain versions at the rows
 # a rank holds too
-DP_BATCH, DP_STEPS, DP_RANKS = 64, 3, 2
+DP_BATCH, DP_STEPS, DP_RANKS = 64, 2, 2
 DP_RANK_ROWS = DP_BATCH // DP_RANKS
 RESNET_REQUESTS, RESNET_MAX_IMAGES, RESNET_THREADS = 48, 16, 4
 RESNET_CHECK_IMAGES = 16
@@ -3872,8 +3893,8 @@ def _dp_steps(torch, ts, carry, batch, steps):
 
 def _dp_one_rank_nccl(torch, np, fb):
     """TrainStep(mesh=make_mesh({"dp": 1})) over NCCL against mesh=None
-    from the same init, bf16: 3 steps each, bit for bit; launches of the
-    mesh's steps; a profiled mesh step with its NCCL kernels."""
+    from the same init, bf16: DP_STEPS steps each, bit for bit; launches of
+    the mesh's steps; a profiled mesh step with its NCCL kernels."""
     import torch.distributed as dist
 
     from mxnet_tpu_torch.initializer import Xavier
@@ -4023,7 +4044,7 @@ def _l2_gap(grads, ref):
 
 def _dp_tiny(torch, np, mesh, rank):
     """The tiny fused ResNet at global batch 64 on the ranks against one
-    device: the first loss, the gradients, 3 losses."""
+    device: the first loss, the gradients, DP_STEPS losses."""
     from mxnet_tpu_torch.initializer import Xavier
     from mxnet_tpu_torch.models import resnet
     from mxnet_tpu_torch.parallel import TrainStep
@@ -4057,6 +4078,38 @@ def _dp_tiny(torch, np, mesh, rank):
     return out
 
 
+def _dp_yardstick(np, ref, fresh, grads, batch, n):
+    """The global batch's gradients ``grads`` of the ranks against one
+    device's (``ref``, a TrainStep without a mesh, from ``fresh()``), on the
+    batch and on its rows in DP_REORDERS other orders: each tensor's gap
+    over max(DP_GAP_RATIO x its largest reordered gap, DP_GRAD_TOL), and
+    the whole gradient's relative L2 gap beside a reordered one's."""
+    p, _o, a = fresh()
+    rloss, rgrads, _ = ref.value_and_grad(p, a, batch)
+    errs = {k: e for e, k in _grad_errs(grads, rgrads)}
+    envelope, perm_gaps = dict.fromkeys(errs, 0.0), []
+    for seed in range(1, 1 + DP_REORDERS):
+        perm = np.random.RandomState(seed).permutation(n)
+        p, _o, a = fresh()
+        _pl, pgrads, _ = ref.value_and_grad(
+            p, a, {k: v[perm] for k, v in batch.items()})
+        for e, k in _grad_errs(pgrads, rgrads):
+            envelope[k] = max(envelope[k], e)
+        perm_gaps.append(_l2_gap(pgrads, rgrads))
+        del pgrads
+    # each tensor's gap over its limit, the largest first
+    ratios = sorted(((errs[k] / max(DP_GAP_RATIO * envelope[k],
+                                    DP_GRAD_TOL), k, errs[k],
+                      envelope[k]) for k in errs), reverse=True)
+    return dict(ref_first_loss=float(rloss),
+                grad_errs=sorted((e, k) for k, e in errs.items())[-3:],
+                perm_errs=sorted((e, k) for k, e in envelope.items())[-3:],
+                tensor_ratios=ratios[:3],
+                tensors_over=[r for r in ratios if r[0] > 1.0],
+                gap=_l2_gap(grads, rgrads), perm_gap=perm_gaps[0],
+                perm_gaps=perm_gaps, grad_tensors=len(rgrads))
+
+
 def _dp_gloo_work(torch, np, fb, rank, world):
     from mxnet_tpu_torch.initializer import Xavier
     from mxnet_tpu_torch.models import resnet
@@ -4085,31 +4138,7 @@ def _dp_gloo_work(torch, np, fb, rank, world):
     res["first_loss"] = float(loss)
     if rank == 0:
         ref = TrainStep(sym, RESNET_OPT, device=CARD)
-        p, _o, a = fresh()
-        rloss, rgrads, _ = ref.value_and_grad(p, a, batch)
-        errs = {k: e for e, k in _grad_errs(grads, rgrads)}
-        envelope, perm_gaps = dict.fromkeys(errs, 0.0), []
-        for seed in range(1, 1 + DP_REORDERS):
-            perm = np.random.RandomState(seed).permutation(n)
-            p, _o, a = fresh()
-            _pl, pgrads, _ = ref.value_and_grad(
-                p, a, {k: v[perm] for k, v in batch.items()})
-            for e, k in _grad_errs(pgrads, rgrads):
-                envelope[k] = max(envelope[k], e)
-            perm_gaps.append(_l2_gap(pgrads, rgrads))
-            del pgrads
-        # each tensor's gap over its limit, the largest first
-        ratios = sorted(((errs[k] / max(DP_GAP_RATIO * envelope[k],
-                                        DP_GRAD_TOL), k, errs[k],
-                          envelope[k]) for k in errs), reverse=True)
-        res.update(ref_first_loss=float(rloss),
-                   grad_errs=sorted((e, k) for k, e in errs.items())[-3:],
-                   perm_errs=sorted((e, k) for k, e in envelope.items())[-3:],
-                   tensor_ratios=ratios[:3],
-                   tensors_over=[r for r in ratios if r[0] > 1.0],
-                   gap=_l2_gap(grads, rgrads), perm_gap=perm_gaps[0],
-                   perm_gaps=perm_gaps, grad_tensors=len(rgrads))
-        del rgrads
+        res.update(_dp_yardstick(np, ref, fresh, grads, batch, n))
     del grads
     # 3 replicated steps, timed, with their launches and memory
     torch.cuda.reset_peak_memory_stats()
@@ -4332,6 +4361,446 @@ def dp_training_phase(torch, np, fb):
     return nccl, [tuple(r["launches"]) for r in ranks]
 
 
+# The multi-process training plane (dist_phase): workers started by a
+# launcher, each its own process on the one card (gloo: NCCL refuses two
+# ranks on one device). (a) serverless dist_sync: Module.fit of the fused
+# ResNet-50, FIT_BATCH global rows, each worker its own half, DIST_BATCHES
+# batches, then DIST_ZERO_BATCHES more under ZeRO with the 2-bit wire; (b)
+# the scheduler topology, DIST_SERVERS parameter servers (ZeRO value
+# sharding) restored from (a)'s checkpoint, dist_async for
+# DIST_SERVER_BATCHES batches. Rates of a shared card are not scaling rates.
+DIST_WORKERS = 2
+DIST_BATCHES = 3
+DIST_ZERO_BATCHES = 2
+DIST_SERVERS = 2
+DIST_SERVER_BATCHES = 2
+DIST_TIMEOUT = 300
+# the 2-bit wire's residual: a rank's f32 row of each planned param, half
+# of its f32 gradient's bytes on 2 ranks (padding adds under this share)
+DIST_RESIDUAL_SHARE = (0.5, 0.501)
+# each server's share of the bytes the servers hold between them
+DIST_SERVER_SHARE = (0.45, 0.55)
+
+
+def _dist_child_cmd():
+    """The command a launcher runs for each worker of dist_phase."""
+    return [sys.executable, os.path.abspath(__file__), "--dist-child"]
+
+
+def _dist_data(np, batches):
+    """``batches`` seeded global batches of FIT_BATCH images, one after
+    the other."""
+    rng = np.random.RandomState(11)
+    n = batches * FIT_BATCH
+    return (rng.randn(n, *RESNET["image_shape"]).astype(np.float32),
+            rng.randint(0, RESNET["num_classes"], (n,)).astype(np.float32))
+
+
+def _dist_local(np, x, y, rank, world):
+    """Worker ``rank``'s own rows of every global batch."""
+    local = FIT_BATCH // world
+    rows = np.concatenate([np.arange(b * FIT_BATCH + rank * local,
+                                     b * FIT_BATCH + (rank + 1) * local)
+                           for b in range(len(x) // FIT_BATCH)])
+    return x[rows], y[rows]
+
+
+def _dist_fit(torch, fb, mod, it, rec, loss_of):
+    """``Module.fit`` over ``it`` (one epoch), each batch's seconds (to a
+    synchronised card), (B1, B2, B3) launches, loss and, for the fused
+    group, params digest appended to ``rec``."""
+    import logging
+
+    logging.getLogger().setLevel(logging.WARNING)
+    last = [_fb_counts(fb), time.perf_counter()]
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = _fb_counts(fb)
+        rec["secs"].append(now - last[1])
+        rec["launches"].append([a - b for a, b in zip(counts, last[0])])
+        rec["losses"].append(loss_of(param))
+        if mod._fused is not None:
+            rec["digests"].append(_param_digest(mod._fused._carry[0]))
+        last[0], last[1] = counts, time.perf_counter()
+
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=FIT_OPT,
+            batch_end_callback=on_batch)
+
+
+def _dist_module(mx, resnet, it, args, auxs, kvstore):
+    mod = mx.mod.Module(resnet.get_symbol(fused=True, **RESNET),
+                        context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    if args is None:
+        mx.random.seed(0)
+        mod.init_params(mx.init.Xavier())
+    else:
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in args.items()},
+                        aux_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in auxs.items()})
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                       optimizer_params=FIT_OPT)
+    return mod
+
+
+def _dist_serverless(torch, np, fb, out_dir):
+    """(a), in each worker of ``tools/launch.py -n 2 -s 0``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import dist
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.parallel import TrainStep
+    from mxnet_tpu_torch.parallel.feed import place_batch_array
+
+    t0 = time.perf_counter()
+    if not dist.init_from_env():
+        raise RuntimeError("dist worker: no launcher environment")
+    rank, world = dist.rank(), dist.num_workers()
+    n, local = FIT_BATCH, FIT_BATCH // world
+    shape = (n,) + RESNET["image_shape"]
+    args, auxs = resnet.init_params(resnet.get_symbol(fused=True, **RESNET),
+                                    shape, seed=0)
+    x, y = _dist_data(np, DIST_BATCHES)
+    xl, yl = _dist_local(np, x, y, rank, world)
+    it = mx.io.NDArrayIter(xl, yl, batch_size=local)
+    mod = _dist_module(mx, resnet, it, args, auxs, "dist_sync")
+    group = mod._fused
+    if group is None or not group.distributed:
+        raise RuntimeError("dist worker: the fused dist_sync step did not "
+                           "engage")
+    res = {"rank": rank, "world": world, "backend": dist.backend(),
+           "mesh": [list(group.mesh.mesh_dim_names),
+                    list(group.mesh.mesh.shape)],
+           "rescale": mod._optimizer.rescale_grad,
+           "up_s": time.perf_counter() - t0}
+    # the first batch's loss and gradients of the global batch, on both
+    placed = {k: place_batch_array(group.mesh, group._data_axes, True, k, v)
+              for k, v in (("data", xl[:local]),
+                           ("softmax_label", yl[:local]))}
+    loss, grads, _aux = group._ts.value_and_grad(group._carry[0],
+                                                 group._carry[2], placed)
+    res["first_loss"] = float(loss)
+    if rank == 0:
+        ref = TrainStep(resnet.get_symbol(fused=True, **RESNET), RESNET_OPT,
+                        device=CARD)
+
+        def fresh():
+            return ({k: torch.tensor(v, device=CARD) for k, v in
+                     args.items()}, {},
+                    {k: torch.tensor(v, device=CARD) for k, v in
+                     auxs.items()})
+
+        res.update(_dp_yardstick(np, ref, fresh, grads,
+                                 {"data": x[:n], "softmax_label": y[:n]}, n))
+        del ref
+    del grads
+    gc.collect()
+    rec = {"secs": [], "launches": [], "losses": [], "digests": []}
+    t1 = time.perf_counter()
+    _dist_fit(torch, fb, mod, it, rec,
+              lambda param: float(mod._fused._loss))
+    res["fit"], res["fit_s"] = rec, time.perf_counter() - t1
+    del mod, group
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ZeRO with the 2-bit wire from the same init, the first batches
+    os.environ.update(MXNET_TPU_ZERO="1", MXNET_TPU_ZERO_WIRE="2bit")
+    rows = DIST_ZERO_BATCHES * local
+    zit = mx.io.NDArrayIter(xl[:rows], yl[:rows], batch_size=local)
+    zmod = _dist_module(mx, resnet, zit, args, auxs, "dist_sync")
+    zrec = {"secs": [], "launches": [], "losses": [], "digests": []}
+    _dist_fit(torch, fb, zmod, zit, zrec,
+              lambda param: float(zmod._fused._loss))
+    carry, ts = zmod._fused._carry, zmod._fused._ts
+    plan = ts.zero_plan(carry[0])
+    residual = carry[1].get(ts._ZERO_RES) or {}
+    res["zero"] = dict(
+        zrec, wire=ts.zero_wire, planned=len(plan),
+        residual_keys=sorted(residual) == sorted(plan),
+        residual_bytes=sum(t.numel() * t.element_size()
+                           for t in residual.values()),
+        grad_bytes=sum(size * 4 for _shape, size, _n, _c in plan.values()))
+    res["total_s"] = time.perf_counter() - t0
+    return res
+
+
+def _dist_with_servers(torch, np, fb, out_dir):
+    """(b), in each worker of ``python -m mxnet_tpu_torch.launch -n 2 -s
+    2``: ``dist_async`` from the tracker's rendezvous, Module.fit through
+    the servers, then the ZeRO slices of every split key."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.kvstore_server import _arr_from_wire
+    from mxnet_tpu_torch.models import resnet
+
+    t0 = time.perf_counter()
+    kv = mx.kv.create("dist_async")
+    rank, world = kv.rank, kv.num_workers
+    x, y = _dist_data(np, DIST_SERVER_BATCHES)
+    xl, yl = _dist_local(np, x, y, rank, world)
+    it = mx.io.NDArrayIter(xl, yl, batch_size=FIT_BATCH // world)
+    mod = _dist_module(mx, resnet, it, None, None, kv)
+    res = {"rank": rank, "servers": kv.num_servers,
+           "server_side": bool(mod._update_on_kvstore),
+           "rescale": mod._optimizer.rescale_grad,
+           "zero_keys": len(kv._zinfo), "keys": len(mod._param_names),
+           "up_s": time.perf_counter() - t0}
+    # the servers restored (a)'s checkpoint before they registered: the
+    # weights the workers pulled at init are its weights
+    ck = CheckpointManager(os.environ["MXNET_CHECKPOINT_DIR"]).latest()
+    saved = ck.weights()
+    pulled = dict(zip(mod._param_names, mod._exec_group.param_arrays))
+    res["restored_same"] = int(sum(
+        np.array_equal(v[0].asnumpy(), saved["arg:" + k])
+        for k, v in pulled.items()))
+    kv.barrier()       # both pulled the restored weights before any push
+    metric = mx.metric.create("ce")
+    rec = {"secs": [], "launches": [], "losses": [], "digests": []}
+
+    def loss_of(param):
+        metric.reset()
+        metric.update(param.locals["data_batch"].label,
+                      mod.get_outputs())
+        return float(metric.get()[1])
+
+    t1 = time.perf_counter()
+    _dist_fit(torch, fb, mod, it, rec, loss_of)
+    res["fit"], res["fit_s"] = rec, time.perf_counter() - t1
+    kv.barrier()       # every push applied: the servers hold the last step
+    joined = 0
+    for k, (shape, _dt, sizes) in sorted(kv._zinfo.items()):
+        parts = [_arr_from_wire(kv._rpc_idx(i, "pull", k))
+                 for i in range(len(sizes))]
+        whole = np.empty(shape, np.float32)
+        kv.pull(k, out=whole)
+        joined += int(np.array_equal(
+            np.concatenate([p.reshape(-1) for p in parts]).reshape(shape),
+            whole) and [p.size for p in parts] == list(sizes))
+    res["joined"] = joined
+    res["memory"] = kv.server_memory()
+    kv.barrier()
+    res["total_s"] = time.perf_counter() - t0
+    return res
+
+
+def dist_child(which, out_dir):
+    """``chip_smoke.py --dist-child a|b DIR``: a worker of dist_phase; its
+    results to DIR/<which>-rank<r>.json."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.kernels import fused_block as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _reset_fb_counts(fb)
+    work = {"a": _dist_serverless, "b": _dist_with_servers}[which]
+    res = work(torch, np, fb, out_dir)
+    res["card"] = torch.cuda.get_device_name(0)
+    with open(os.path.join(out_dir, "%s-rank%d.json" % (which,
+                                                        res["rank"])),
+              "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _dist_start(cmd):
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _dist_wait(proc, t0, label):
+    """Wait for a launcher; (output, seconds since ``t0``)."""
+    try:
+        out, _ = proc.communicate(timeout=DIST_TIMEOUT + 30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise RuntimeError("dist %s: the launcher did not end within %d s:"
+                           "\n%s" % (label, DIST_TIMEOUT + 30, out[-3000:]))
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError("dist %s: the launcher exited %d:\n%s"
+                           % (label, proc.returncode, out[-6000:]))
+    return out, secs
+
+
+def _dist_results(out_dir, which):
+    out = []
+    for r in range(DIST_WORKERS):
+        with open(os.path.join(out_dir, "%s-rank%d.json" % (which, r))) as f:
+            out.append(json.load(f))
+    return out
+
+
+def dist_phase(torch, np, fb):
+    """The multi-process training plane on the card: (a) and (b) above.
+    Returns each worker's (B1, B2, B3) launches of (a)'s dist_sync fit and
+    of (b)'s fit through the servers."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.models import resnet
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = _card_line()
+    out_dir = tempfile.mkdtemp(prefix="dist_")
+    a_proc = b_proc = None
+    try:
+        # (b)'s servers restore this checkpoint (the seeded weights (a)
+        # starts from too) before they register; both jobs run together
+        args, auxs = resnet.init_params(
+            resnet.get_symbol(fused=True, **RESNET),
+            (FIT_BATCH,) + RESNET["image_shape"], seed=0)
+        weights = {"arg:" + k: v for k, v in args.items()}
+        weights.update(("aux:" + k, v) for k, v in auxs.items())
+        ckdir = os.path.join(out_dir, "ckpt")
+        CheckpointManager(ckdir).save(1, weights=weights)
+        del args, auxs, weights
+        t0 = time.perf_counter()
+        a_proc = _dist_start(
+            [sys.executable, os.path.join(ROOT, "tools", "launch.py"), "-n",
+             str(DIST_WORKERS), "-s", "0", "--timeout", str(DIST_TIMEOUT)]
+            + _dist_child_cmd() + ["a", out_dir])
+        b_proc = _dist_start(
+            [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+             str(DIST_WORKERS), "-s", str(DIST_SERVERS), "--timeout",
+             str(DIST_TIMEOUT), "--checkpoint-dir", ckdir, "--env",
+             "MXNET_TPU_ZERO_SERVER=1"] + _dist_child_cmd() + ["b", out_dir])
+        _out, secs_a = _dist_wait(a_proc, t0, "serverless")
+        out_b, secs_b = _dist_wait(b_proc, t0, "scheduler topology")
+        a = _dist_results(out_dir, "a")
+        b = _dist_results(out_dir, "b")
+    finally:
+        for proc in (a_proc, b_proc):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    restored = [ln for ln in out_b.splitlines()
+                if ln.startswith("[lifecycle] event=restored-from "
+                                 "role=server")]
+    r0 = a[0]
+    want = [B1_PER_FORWARD, B2_PER_STEP, B3_PER_STEP]
+    first_gap = abs(r0["first_loss"] - r0["ref_first_loss"]) / \
+        abs(r0["ref_first_loss"])
+    print("dist (a) on %s: tools/launch.py -n %d -s 0, %.1f s with "
+          "start-up; backend %s, mesh %s, global batch %d (%d rows a "
+          "worker), rescale_grad %g; first loss %.6f vs one device %.6f (gap "
+          "%.3g, tol %g); whole-gradient relative L2 gap %.4g against one "
+          "device, %.4g for one device with the rows reordered (ratio %.3g, "
+          "limit %g); worst tensors %s; %d of %d tensors over max(%g x "
+          "their largest reordered gap, %g), printed and not held (the "
+          "whole gradient is): worst %s"
+          % (card, DIST_WORKERS, secs_a, r0["backend"], r0["mesh"],
+             FIT_BATCH, FIT_BATCH // DIST_WORKERS, r0["rescale"],
+             r0["first_loss"], r0["ref_first_loss"], first_gap, DP_GRAD_TOL,
+             r0["gap"], r0["perm_gap"], r0["gap"] / r0["perm_gap"],
+             DP_GAP_RATIO, ", ".join("%.3g at %s" % tuple(e)
+                                     for e in r0["grad_errs"]),
+             len(r0["tensors_over"]), r0["grad_tensors"], DP_GAP_RATIO,
+             DP_GRAD_TOL, ", ".join("%.3g at %s (%.3g vs %.3g)" % tuple(e)
+                                    for e in r0["tensor_ratios"])))
+    for r in a:
+        f, z = r["fit"], r["zero"]
+        print("dist (a) worker %d on %s: up %.1f s, Module.fit(kvstore="
+              "'dist_sync') %d batches in %.1f s, step times %s s (two "
+              "processes share one card: not a scaling rate), losses %s, "
+              "launches a batch %s; ZeRO + 2-bit wire (%s): %d batches, step "
+              "times %s s, losses %s, launches a batch %s, residual %d bytes "
+              "= %.4f of the %d planned params' %d gradient bytes"
+              % (r["rank"], card, r["up_s"], len(f["secs"]), r["fit_s"],
+                 " ".join("%.4f" % t for t in f["secs"]),
+                 " ".join("%.6f" % v for v in f["losses"]), f["launches"],
+                 z["wire"], len(z["secs"]),
+                 " ".join("%.4f" % t for t in z["secs"]),
+                 " ".join("%.6f" % v for v in z["losses"]), z["launches"],
+                 z["residual_bytes"], z["residual_bytes"] / z["grad_bytes"],
+                 z["planned"], z["grad_bytes"]))
+    same = [len({r["fit"]["digests"][i] for r in a}) == 1
+            for i in range(DIST_BATCHES)]
+    print("dist (a): params bit for bit equal on the workers after each "
+          "batch %s" % same)
+    for r in b:
+        f = r["fit"]
+        mem = r["memory"]
+        print("dist (b) worker %d on %s: python -m mxnet_tpu_torch.launch -n "
+              "%d -s %d, %.1f s with start-up; %d servers, ZeRO-split keys "
+              "%d of %d, rescale_grad %g, pulled at init = the restored "
+              "checkpoint for %d of %d params; Module.fit(kvstore="
+              "'dist_async') %d batches in %.1f s, step times %s s, "
+              "cross-entropy %s, launches a batch %s; split keys pulled = "
+              "their joined slices for %d of %d; bytes a server %s"
+              % (r["rank"], card, DIST_WORKERS, DIST_SERVERS, secs_b,
+                 r["servers"], r["zero_keys"], r["keys"], r["rescale"],
+                 r["restored_same"], r["keys"], len(f["secs"]), r["fit_s"],
+                 " ".join("%.4f" % t for t in f["secs"]),
+                 " ".join("%.6f" % v for v in f["losses"]), f["launches"],
+                 r["joined"], r["zero_keys"],
+                 ["%d store + %d optimizer" % (m["store_bytes"],
+                                               m["opt_bytes"])
+                  for m in mem]))
+    for line in restored:
+        print("dist (b): %s" % line)
+    print("dist: (a) and (b) ran together on the card, (a) %.1f s and (b) "
+          "%.1f s with start-up" % (secs_a, secs_b))
+
+    # the checks
+    if not all(same) or len(a[0]["fit"]["digests"]) != DIST_BATCHES:
+        raise RuntimeError("dist (a): the workers' params differ: %s" % same)
+    if first_gap > DP_GRAD_TOL or r0["gap"] > DP_GAP_RATIO * \
+            r0["perm_gap"]:
+        raise RuntimeError("dist (a): first loss gap %g, gradient gap %g "
+                           "against %g reordered"
+                           % (first_gap, r0["gap"], r0["perm_gap"]))
+    for r in a:
+        f, z = r["fit"], r["zero"]
+        share = z["residual_bytes"] / z["grad_bytes"]
+        if r["backend"] != "gloo" or r["mesh"] != [["dcn", "dp"],
+                                                  [DIST_WORKERS, 1]]:
+            raise RuntimeError("dist (a) worker %d: backend %s, mesh %s"
+                               % (r["rank"], r["backend"], r["mesh"]))
+        if any(c != want for c in f["launches"] + z["launches"]):
+            raise RuntimeError("dist (a) worker %d: launches a batch %s and "
+                               "%s, want %s" % (r["rank"], f["launches"],
+                                                z["launches"], want))
+        if not np.isfinite(f["losses"] + z["losses"]).all() or \
+                z["losses"][1:] == f["losses"][1:len(z["losses"])] or \
+                not z["residual_keys"] or z["planned"] == 0 or \
+                not DIST_RESIDUAL_SHARE[0] <= share <= \
+                DIST_RESIDUAL_SHARE[1]:
+            raise RuntimeError("dist (a) worker %d: ZeRO 2-bit losses %s vs "
+                               "raw %s, residual share %.4f, keys %s"
+                               % (r["rank"], z["losses"], f["losses"],
+                                  share, z["residual_keys"]))
+    total = [m["store_bytes"] + m["opt_bytes"] for m in b[0]["memory"]]
+    if len(restored) != DIST_SERVERS or any(
+            "keys=0 " in ln for ln in restored):
+        raise RuntimeError("dist (b): the servers' restore lines %s"
+                           % restored)
+    for r in b:
+        f = r["fit"]
+        if not r["server_side"] or r["servers"] != DIST_SERVERS or \
+                r["zero_keys"] == 0 or r["joined"] != r["zero_keys"] or \
+                r["restored_same"] != r["keys"] or \
+                not np.isfinite(f["losses"]).all() or \
+                any(c != want for c in f["launches"]):
+            raise RuntimeError("dist (b) worker %d: %s" % (r["rank"], r))
+    for t in total:
+        if not DIST_SERVER_SHARE[0] <= t / sum(total) <= \
+                DIST_SERVER_SHARE[1]:
+            raise RuntimeError("dist (b): bytes a server %s" % total)
+    return ([[sum(c[i] for c in r["fit"]["launches"]) for i in range(3)]
+             for r in a],
+            [[sum(c[i] for c in r["fit"]["launches"]) for i in range(3)]
+             for r in b])
+
+
 # Tensor parallelism over the mp axis (mp_training_phase, mp_serving_phase):
 # train_mesh(mp=2), dp 1 x mp 2, as 2 gloo ranks sharing the card (NCCL
 # refuses two ranks on one device; the kernels are built before they start).
@@ -4339,7 +4808,7 @@ def dp_training_phase(torch, np, fb):
 # attends over MP_ATTN. Rates of a shared card, with every collective
 # staged through the host by gloo, are not scaling rates.
 MP_RANKS = 2
-MP_BATCH, MP_WARMUP, MP_STEPS = (4, 2049), 2, 5
+MP_BATCH, MP_WARMUP, MP_STEPS = (4, 2049), 2, 3
 MP_ATTN = (MP_BATCH[0], FULL["n_heads"] // MP_RANKS, MP_BATCH[1] - 1,
            FULL["d_model"] // FULL["n_heads"])
 # mp against one device in fp32 (TF32 off): the loss relative; the
@@ -6440,7 +6909,7 @@ def contrib_sweep_phase(torch, np, fa, fb):
 # _train_model's recipe (:1134-1161) through the port's Module.fit
 QUANT_MLP = dict(dim=256, hidden=512, layers=6, classes=64)
 QUANT_TRAIN = dict(n=4096, batch=256, epochs=6, lr=0.05, momentum=0.9)
-QUANT_TRACE = dict(clients=24, think_ms=2.0, rows=8, seconds=2.5,
+QUANT_TRACE = dict(clients=24, think_ms=2.0, rows=8, seconds=1.5,
                    ladder=(1, 4, 16, 64))
 QUANT_CALIB = (8, 64)          # batches, rows a batch
 QUANT_CORPUS = 2048
@@ -7341,15 +7810,15 @@ def tune_phase(torch, np, fa, fb):
 # The data plane (bench.py's fit and data variants, through the port):
 # Module.fit of the unfused ResNet-50 v2 in fp32 over on-disk record
 # shards, ShardedRecordStream -> ShardedBatchIter -> DeviceQueueIter, batch
-# 128 (64, then 32, only on out-of-memory), 4 batches an epoch, 2 epochs;
+# 128 (64, then 32, only on out-of-memory), 2 batches an epoch, 2 epochs;
 # the same fit fed by NDArrayIter from the same decoded arrays in memory;
-# a fused leg (B1-B3 behind the same feed, one epoch of 6 batches at 64);
+# a fused leg (B1-B3 behind the same feed, one epoch of 3 batches at 64);
 # and the port's copy of tools/bench_data.py's measure at its defaults but
-# 1024 records (the default 2048)
-DATA_FIT = dict(batches=(128, 64, 32), per_epoch=4, epochs=2, workers=2,
+# 512 records (the default 2048)
+DATA_FIT = dict(batches=(128, 64, 32), per_epoch=2, epochs=2, workers=2,
                 prefetch=4, shape=(3, 224, 224), lr=0.1, momentum=0.9)
-DATA_FUSED = dict(batch=64, per_epoch=6)
-DATA_BENCH = dict(records=1024, shape=(3, 64, 64), batch=64, workers=2,
+DATA_FUSED = dict(batch=64, per_epoch=3)
+DATA_BENCH = dict(records=512, shape=(3, 64, 64), batch=64, workers=2,
                   prefetch=4, num_shards=8, compute_ms=20.0, decode_reps=12)
 
 
@@ -7759,7 +8228,7 @@ SPARSE_DOT_TOL = 1e-4           # card vs CPU, relative to the largest |ref|
 SPARSE_UPDATE_TOL = 1e-5        # touched rows, card vs CPU
 SPARSE_FIRST_LAST = 3           # batches averaged at each end
 # tools/bench_embed.py's measure defaults, then 32x the rows
-EMBED_BENCH = dict(rows=131072, dim=64, servers=4, batch=4096, iters=8,
+EMBED_BENCH = dict(rows=131072, dim=64, servers=4, batch=4096, iters=4,
                    naive_batch=512, naive_iters=2, zipf_a=1.2, seed=0)
 EMBED_BIG_ROWS = 2097152
 EMBED_REPLAY_TOL = 1e-5
@@ -9386,17 +9855,17 @@ FLEET_MLP = dict(dim=16, hidden=32, layers=2, classes=4)
 FLEET_LADDER = (1, 4, 16)
 FLEET_REPLICAS = 3
 FLEET_B1 = B1_PER_FORWARD       # B1 launches a forward of a replica
-FLEET_PARITY = 16               # routed requests held against the predictor
+FLEET_PARITY = 8                # routed requests held against the predictor
 FLEET_MAX_IMAGES = 4            # images a request: 1..4
 FLEET_CLIENTS = 16              # closed-loop clients of a scaling window
-FLEET_WINDOW_S = 3.0            # each scaling window; the kill at its half
+FLEET_WINDOW_S = 2.0            # each scaling window; the kill at its half
 FLEET_SWAP_CLIENTS = 8
 FLEET_VIEW_S = 0.5              # replicas publish, routers refresh
 FLEET_AUTOSCALE = dict(min_replicas=1, max_replicas=2, interval=0.5,
                        up_load=2.0, down_load=0.5, hysteresis=2,
                        cooldown=1.0)
-FLEET_HOLD_S = 2.0              # load held once the fleet scaled up
-FLEET_QOS_S = 2.0               # each QoS window
+FLEET_HOLD_S = 1.0              # load held once the fleet scaled up
+FLEET_QOS_S = 1.0               # each QoS window
 FLEET_QOS = dict(bulk_clients=8, bulk_images=4, bulk_rate=20.0, burst=1.0)
 FLEET_LOOKUP = dict(users=100000, items=50000, dim=64,
                     rows=(1, 3, 8, 16))
@@ -10514,11 +10983,11 @@ def tail_phase(torch, np, fa, fb):
 # bf16's; the gaps are printed in bf16 ulps. Rates of a shared card, with
 # every collective staged through the host by gloo, are not scaling rates.
 MPS_RULES = r"stage[34]_unit\d+_conv\d_weight:mp,*,*,*;fc1_weight:mp,*"
-MPS_BATCH, MPS_BATCHES = 32, 4
-MPS_SERVE_IMAGES, MPS_SERVE_REPS = 16, 6
+MPS_BATCH, MPS_BATCHES = 32, 2
+MPS_SERVE_IMAGES, MPS_SERVE_REPS = 16, 3
 MPS_LOGIT_TOL = 0.02
 MPS_SPEC = dict(requests=6, new=32, k=4, draft=1)
-MPS_GROUP_REQUESTS = 8
+MPS_GROUP_REQUESTS = 4
 MPS_TIMEOUT = 600
 
 
@@ -11180,7 +11649,7 @@ def mp_symbol_phase(torch, np, fa, fb):
 #     SEP_MB sequences of 2048, against the serial stack.
 # (d) ulysses_attention(attn_fn=flash_attention) at SEP_ULYSSES, bf16.
 # ---------------------------------------------------------------------------
-SEP_TRAIN_WARMUP, SEP_TRAIN_STEPS = 1, 3
+SEP_TRAIN_WARMUP, SEP_TRAIN_STEPS = 1, 2
 SEP_MICRO, SEP_MB, SEP_STAGES = 8, 1, 2
 SEP_ULYSSES = (8, 8, 2048, 64)
 SEP_TIMEOUT = 420
@@ -11645,6 +12114,8 @@ def main():
         return 1
     if sys.argv[1:2] == ["--heal-child"]:
         return heal_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--dist-child"]:
+        return dist_child(*sys.argv[2:4])
     sys.path.insert(0, ROOT)
     import numpy as np
 
@@ -11722,6 +12193,10 @@ def main():
     for i, entry in enumerate([conv, *grads]):
         entry["dp_launches"] = dp_nccl[i]
         entry["dp_gloo_launches"] = [r[i] for r in dp_gloo]
+    dist_a, dist_b = phase("dist", dist_phase, torch, np, fb)
+    for i, entry in enumerate([conv, *grads]):
+        entry["dist_launches"] = dict(dist_sync=[r[i] for r in dist_a],
+                                      servers=[r[i] for r in dist_b])
     mp_train = phase("mp_training", mp_training_phase, torch, np, fa)
     for i, entry in enumerate([fwd, *bwd]):
         entry["mp_train_launches"] = [r[i] for r in mp_train]
@@ -11799,7 +12274,9 @@ def main():
           "steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 %d, B2 %d, "
           "B3 %d; guarded Module.fit (rollback) %d batches B1 %d, B2 %d, "
           "B3 %d; data parallel, one rank over NCCL, %d steps B1 %d, B2 %d, "
-          "B3 %d, each of %d gloo ranks %s; mp=2 training %d steps B5, "
+          "B3 %d, each of %d gloo ranks %s; dist_sync Module.fit %d "
+          "batches B1, B2, B3 on each worker %s, through %d servers %d "
+          "batches %s; mp=2 training %d steps B5, "
           "B6, B7 on each rank %s; mp=2 serving B5 (leader's burst, "
           "follower's run) %s; model zoo B5-B7 and B1-B3 %s; "
           "LM path (fit, serving, op sweep) B5-B7 and B1-B3 %s; SSD path "
@@ -11824,6 +12301,10 @@ def main():
              FIT_EPOCHS * FIT_COPIES, *fit_launches,
              HEAL_EPOCHS * HEAL_BATCHES, *heal_launches, DP_STEPS, *dp_nccl,
              DP_RANKS, " / ".join("%d, %d, %d" % r for r in dp_gloo),
+             DIST_BATCHES, " / ".join("%d, %d, %d" % tuple(r)
+                                      for r in dist_a),
+             DIST_SERVERS, DIST_SERVER_BATCHES,
+             " / ".join("%d, %d, %d" % tuple(r) for r in dist_b),
              MP_STEPS, " / ".join("%d, %d, %d" % tuple(r) for r in mp_train),
              fwd["mp_serve_launches"], ", ".join("%d" % n for n in zoo),
              ", ".join("%d" % n for n in lm),

@@ -41,7 +41,13 @@ Ported so far, six paths over the six hand-written CUDA kernels
   profiler's trace events, ``rtc`` (CUDA source compiled at run time with
   NVRTC and launched on the card), ``visualization`` (``print_summary``,
   ``plot_network``), ``contrib.tensorboard``, ``executor_manager``,
-  ``log``, ``libinfo``, ``util`` and ``test_utils``.
+  ``log``, ``libinfo``, ``util`` and ``test_utils``;
+- the multi-process training plane: ``dist`` (the launcher's job over
+  ``torch.distributed``), the ``dist_*`` kvstores with 2-bit compression,
+  ``Module.fit(kvstore='dist_sync')`` on the fused step over every worker,
+  ``zero_wire='2bit'``, ZeRO over the parameter servers, the server entry
+  point (``python -m mxnet_tpu_torch.kvstore_server``) and ``launch``
+  (``python -m mxnet_tpu_torch.launch``).
 
 ROADMAP.md lists what remains.
 """
@@ -58,6 +64,7 @@ from . import recordio  # noqa: F401
 from . import config  # noqa: F401
 from . import chaos, embedding, ir, kvstore_server, profiler  # noqa: F401
 from . import checkpoint, health  # noqa: F401
+from . import dist  # noqa: F401
 from .checkpoint import CheckpointManager  # noqa: F401
 from . import serving, tracker  # noqa: F401
 from . import operator  # noqa: F401
@@ -89,7 +96,7 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "kvstore", "parallel", "contrib", "recordio", "gluon", "rnd",
            "config", "chaos", "embedding", "ir", "kvstore_server",
            "profiler", "serving", "tracker", "checkpoint",
-           "CheckpointManager", "health", "Executor", "load_checkpoint",
+           "CheckpointManager", "health", "dist", "Executor", "load_checkpoint",
            "save_checkpoint", "num_gpus", "cpu_pinned", "operator",
            "monitor", "mon", "visualization", "viz", "rtc", "log",
            "libinfo", "executor_manager", "test_utils", "is_np_array"]

@@ -81,9 +81,13 @@ KNOBS = {
         "reduce-scatter the gradients, update a 1/N optimizer-state shard, "
         "all-gather the params (parallel/spmd.py, module/spmd_group.py)"),
     "MXNET_TPU_ZERO_WIRE": (
-        "raw", "gradient-shard wire treatment of the ZeRO step; the two-bit "
-        "wire is not ported, so TrainStep accepts only raw "
+        "raw", "gradient-shard wire treatment inside the ZeRO step: 'raw' or "
+        "'2bit' (the error-feedback two-bit quantizer applied to the "
+        "reduce-scattered shard; residual is 1/N-sharded too) "
         "(parallel/spmd.py)"),
+    "MXNET_TPU_ZERO_WIRE_THRESHOLD": (
+        "0.5", "ternary threshold for MXNET_TPU_ZERO_WIRE=2bit; finite float "
+        "> 0 (parallel/spmd.py)"),
     "MXNET_TPU_ZERO_MIN_SIZE": (
         "1024", "parameters with fewer elements keep replicated optimizer "
         "state under ZeRO; integer >= 0 (parallel/spmd.py)"),
@@ -250,9 +254,11 @@ KNOBS = {
         "120", "server barrier timeout in seconds: a barrier that cannot "
         "complete raises instead of spinning (kvstore_server.py)"),
     "MXNET_TPU_ZERO_SERVER": (
-        "0", "ZeRO value sharding of dense keys over the parameter servers; "
-        "not ported (ROADMAP.md Queue A item 10c), so 1 with more than one "
-        "server raises (kvstore_server.py)"),
+        "0", "dist_async mirror of weight-update sharding: slice each "
+        "large dense key's value AND optimizer state across ALL "
+        "servers (push scatters slices, pull gathers) so per-server "
+        "memory scales 1/num_servers; must be set job-wide "
+        "(kvstore_server.py); 0|1, anything else raises"),
     "MXNET_MAX_RESTARTS": (
         "0", "elastic respawn budget of a node: > 0 switches the tracker's "
         "and the servers' barriers into elastic mode, where a dead waiter "
@@ -334,17 +340,23 @@ KNOBS = {
         "", "comma-separated server URIs: kvstore.create('dist_async') "
         "returns the ServerKVStore client of these servers (kvstore.py)"),
     "MXNET_PS_BIND_HOST": (
-        "", "server bind host override of the server entry point; not "
-        "ported (ROADMAP.md Queue A item 10c), so a set value raises "
-        "(kvstore_server.py)"),
+        "", "server bind host override (kvstore_server.py)"),
     "MXNET_PS_BIND_PORT": (
-        "0", "server bind port override of the server entry point; not "
-        "ported (ROADMAP.md Queue A item 10c), so a set value raises "
-        "(kvstore_server.py)"),
+        "0", "server bind port override (kvstore_server.py)"),
     "MXNET_PS_ADVERTISE_HOST": (
-        "", "address a multi-host server publishes to the tracker; not "
-        "ported (ROADMAP.md Queue A item 10c), so a set value raises "
+        "", "address a multi-host server publishes to the tracker "
         "(kvstore_server.py)"),
+    "DMLC_ROLE": (
+        "worker", "worker|server|scheduler: the role the server entry "
+        "point runs; a worker's is an exit-0 shim (kvstore_server.py)"),
+    "DMLC_PS_ROOT_URI": (
+        "", "coordinator host (dist.py env_spec)"),
+    "DMLC_PS_ROOT_PORT": (
+        "9091", "coordinator port (dist.py env_spec)"),
+    "DMLC_NUM_WORKER": (
+        "1", "world size (dist.py env_spec)"),
+    "DMLC_WORKER_ID": (
+        "0", "worker rank (dist.py env_spec)"),
     "MXNET_EMBED_SHARDS": (
         "0", "row-shard count override for ShardedEmbeddingTable; 0 (the "
         "default) shards one-per-server, shard s lives on server "

@@ -22,15 +22,21 @@ and ``Module``'s per-executor update trains the same on every rank.
 not asked for become 0, as in the JAX package). Row-sparse gradients pushed
 from several contexts are summed sparsely (``sparse.add``).
 
-``create("dist_async")`` with ``MXNET_PS_SERVER_URI`` set is the
-parameter-server tier's client, ``kvstore_server.ServerKVStore``. The 2-bit
-wire of that tier is here: ``validate_compression_params``,
-``two_bit_quantize`` and ``two_bit_dequantize`` (numpy, the JAX package's
-packing bit for bit).
+``create("dist_async")`` with ``MXNET_PS_SERVER_URI`` set, or under the
+scheduler topology (the tracker publishes the servers' URIs), is the
+parameter-server tier's client, ``kvstore_server.ServerKVStore``.
+``dist_sync``, ``dist_sync_device`` and a serverless ``dist_async`` are
+:class:`DistKVStore`, the workers of one ``torch.distributed`` job
+(:mod:`.dist`): pushes are deferred and cross at the first pull or barrier,
+one flattened all-reduce a dtype (row-sparse ones as gathered ids and
+values), and the updater runs alike on every worker.
 
-Not ported, raising by name (ROADMAP.md Queue A item 10c): gradient
-compression on the in-process stores (``set_gradient_compression``), the
-other ``dist_*`` types, and ``dist_async`` from a tracker's rendezvous.
+2-bit gradient compression (``set_gradient_compression``) is the same on
+every store: ``two_bit_pack_core`` and ``two_bit_round_trip_core`` are torch
+functions on the tensor's device (the JAX cores bit for bit on fp32 and
+bf16); the in-process stores round-trip each dense gradient through the
+packed codes with an error-feedback residual a key, the server tier ships
+the packed codes (``two_bit_quantize``/``two_bit_dequantize``, numpy).
 """
 from __future__ import annotations
 
@@ -118,6 +124,36 @@ def two_bit_dequantize(packed, shape, dtype, threshold):
     return out.reshape(shape)
 
 
+def two_bit_pack_core(a, threshold):
+    """2-bit pack of a tensor on its device: ternary threshold (compared
+    and quantized in ``a``'s dtype), 4 codes a byte. Returns ``(packed
+    uint8, quantized values)``."""
+    t = torch.tensor(threshold, dtype=a.dtype, device=a.device)
+    pos = a >= t
+    neg = a <= -t
+    quant = torch.where(pos, t, torch.where(neg, -t, torch.zeros_like(t)))
+    codes = (pos.to(torch.uint8) | (neg.to(torch.uint8) << 1)).reshape(-1)
+    pad = (-codes.numel()) % 4
+    if pad:
+        codes = torch.cat([codes, codes.new_zeros(pad)])
+    q4 = codes.view(-1, 4)
+    packed = q4[:, 0] | (q4[:, 1] << 2) | (q4[:, 2] << 4) | (q4[:, 3] << 6)
+    return packed, quant
+
+
+def two_bit_round_trip_core(g, res, threshold):
+    """Quantize ``g + res`` and unpack it from the packed codes: the value
+    ``g`` has after crossing the 2-bit wire, and the new residual."""
+    a = g + res
+    packed, quant = two_bit_pack_core(a, threshold)
+    t = torch.tensor(threshold, dtype=a.dtype, device=a.device)
+    codes = torch.stack([(packed >> (2 * j)) & 3 for j in range(4)],
+                        dim=1).reshape(-1)[:a.numel()].view(a.shape)
+    zero = torch.zeros_like(t)
+    q = torch.where(codes == 1, t, torch.where(codes == 2, -t, zero))
+    return q, a - quant
+
+
 def _key_list(key):
     if isinstance(key, (str, int)):
         return [key], True
@@ -148,6 +184,8 @@ class KVStore:
         self._store = {}
         self._updater = None
         self._optimizer = None
+        self._compression_params = None
+        self._residuals = {}
         self._barrier_before_exit = True
 
     # -- init/push/pull ------------------------------------------------------
@@ -160,14 +198,18 @@ class KVStore:
             self._store[k] = self._sync_init(vlist[0].copy())
 
     def push(self, key, value, priority=0):
-        """Sum each key's values (one a context), then give the sum to the
+        """Sum each key's values (one a context), round-trip the sum through
+        the 2-bit wire when compression is set, then give it to the
         updater, or add it to the stored value."""
         keys, _ = _key_list(key)
         vals = _val_list(value, len(keys))
         for k, vlist in zip(keys, vals):
             if k not in self._store:
                 raise MXNetError("kvstore: key %r not initialized" % (k,))
-            agg = self._sum_workers(self._reduce(vlist))
+            agg = self._reduce(vlist)
+            if self._compression_params is not None:
+                agg = self._compress_decompress(k, agg)
+            agg = self._sum_workers(agg)
             store = self._store[k]
             if agg.context != store.context:
                 agg = agg.copyto(store.context)
@@ -270,11 +312,23 @@ class KVStore:
         self._updater = opt.get_updater(optimizer)
 
     def set_gradient_compression(self, compression_params):
-        validate_compression_params(compression_params)
-        raise MXNetError("kvstore.set_gradient_compression: gradient "
-                         "compression of the in-process stores is not "
-                         "ported (ROADMAP.md Queue A item 10c; the server "
-                         "tier's ServerKVStore compresses its wire)")
+        """2-bit compression of each pushed dense gradient, with an
+        error-feedback residual a key (reset here)."""
+        self._compression_params = validate_compression_params(
+            compression_params)
+        self._residuals = {}
+
+    def _compress_decompress(self, key, agg):
+        """``agg`` after crossing the 2-bit wire: quantized, packed and
+        unpacked on its device (``two_bit_round_trip_core``), the key's
+        residual kept on the device for the next push."""
+        g = agg.tensor.detach()
+        res = self._residuals.get(key)
+        if res is None:
+            res = torch.zeros_like(g)
+        q, self._residuals[key] = two_bit_round_trip_core(
+            g, res, self._compression_params["threshold"])
+        return NDArray(q, agg.context)
 
     # -- distributed surface -------------------------------------------------
     @property
@@ -374,6 +428,219 @@ class TPUKVStore(KVStore):
             dist.barrier()
 
 
+class DistKVStore(TPUKVStore):
+    """``dist_sync``, ``dist_sync_device`` and serverless ``dist_async``:
+    the workers of one job (:mod:`.dist`, joined at construction).
+    ``push`` sums a key's values (a dense sum round-trips through the 2-bit
+    wire when compression is set; row-sparse ones stay raw) and defers;
+    the first ``pull``, ``row_sparse_pull`` or ``barrier`` sends every
+    pending key: dense ones as one flattened all-reduce a dtype on their
+    device, row-sparse ones as the gathered ids and values of every worker
+    (the union of their rows, duplicates summed). The updater then runs
+    alike on every worker, so the stores stay bit for bit equal.
+    ``dist_async`` gets the same synchronous semantics, and a warning says
+    so. At exit a bounded barrier (``set_barrier_before_exit``) precedes
+    the last flush."""
+
+    def __init__(self, kv_type="dist_sync"):
+        super().__init__(kv_type)
+        import atexit
+
+        from . import dist
+
+        if kv_type == "dist_async":
+            import warnings
+
+            warnings.warn(
+                "kvstore 'dist_async' runs with synchronous semantics on "
+                "the serverless tier (no stale-gradient tier); updates are "
+                "collective and deterministic, matching dist_sync",
+                stacklevel=3)
+        dist.init_from_env()
+        self._pending = {}
+        atexit.register(self._exit_barrier)
+
+    def _sync_init(self, value):
+        return value
+
+    def _sum_workers(self, agg):
+        return agg
+
+    @property
+    def rank(self):
+        from . import dist
+
+        return dist.rank()
+
+    @property
+    def num_workers(self):
+        from . import dist
+
+        return dist.num_workers()
+
+    def _exit_barrier(self):
+        from . import dist
+
+        # bounded first: with a dead peer the unbounded flush would hang
+        if self._barrier_before_exit and dist.exit_barrier():
+            self._flush()
+
+    def num_dead_node(self, node_id=0, timeout=60):
+        from . import dist
+
+        return dist.get_num_dead_node(node_id, timeout)
+
+    def push(self, key, value, priority=0):
+        """Sum each key's values, compress a dense sum, and defer it to the
+        next flush (a second push of a pending key flushes the first)."""
+        from .ndarray.sparse import RowSparseNDArray
+
+        keys, _ = _key_list(key)
+        vals = _val_list(value, len(keys))
+        for k, vlist in zip(keys, vals):
+            if k not in self._store:
+                raise MXNetError("kvstore: key %r not initialized" % (k,))
+            if k in self._pending:
+                self._flush()
+            agg = self._reduce(vlist)
+            # snapshots: the caller may reuse its buffers before the flush
+            if isinstance(agg, RowSparseNDArray):
+                self._pending[k] = (
+                    "rsp", agg.data.tensor.detach().clone(),
+                    agg.indices.tensor.detach().long().reshape(-1).clone(),
+                    tuple(agg.shape), agg.context)
+            else:
+                if self._compression_params is not None:
+                    agg = self._compress_decompress(k, agg)
+                self._pending[k] = ("dense", agg.tensor.detach().clone(),
+                                    agg.context)
+
+    @staticmethod
+    def _all_reduce(t):
+        from . import dist
+
+        if dist.is_initialized() and dist.num_workers() > 1:
+            import torch.distributed as tdist
+
+            tdist.all_reduce(t)
+        return t
+
+    def _apply(self, k, agg):
+        store = self._store[k]
+        if agg.context != store.context:
+            agg = agg.copyto(store.context)
+        if self._updater is not None:
+            self._updater(k, agg, store)
+        else:
+            store += agg
+
+    def _flush(self):
+        """Send every pending key across the workers and apply it."""
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, {}
+        rsp = {k: v for k, v in pending.items() if v[0] == "rsp"}
+        if rsp:
+            self._flush_row_sparse(rsp)
+        by_dtype = {}
+        for k, v in pending.items():
+            if v[0] == "dense":
+                by_dtype.setdefault((v[1].dtype, v[1].device), []).append(k)
+        with torch.no_grad():
+            for keys in by_dtype.values():
+                ts = [pending[k][1] for k in keys]
+                flat = self._all_reduce(
+                    torch.cat([t.reshape(-1) for t in ts]))
+                off = 0
+                for k, t in zip(keys, ts):
+                    n = t.numel()
+                    agg = flat[off:off + n].view(t.shape).clone()
+                    off += n
+                    self._apply(k, NDArray(agg, pending[k][2]))
+
+    def _flush_row_sparse(self, rsp):
+        """Every worker's row ids and values of the pending row-sparse
+        keys, gathered on the host (one gather of the row counts, one of
+        the ids, one of the values a dtype), then each key's union of rows
+        with duplicates summed, to the updater or added to the store."""
+        from . import dist
+        from .ndarray import sparse as nd_sparse
+        from .ndarray.sparse import RowSparseNDArray
+
+        keys = sorted(rsp, key=str)
+        my_nnz = np.asarray([rsp[k][2].numel() for k in keys], np.int64)
+        nnz_all = np.asarray(dist.allgather(my_nnz), np.int64)   # (W, K)
+        nworkers = nnz_all.shape[0]
+        max_ids = max(int(nnz_all.sum(axis=1).max()), 1)
+        ids = torch.full((max_ids,), -1, dtype=torch.int64)
+        mine = torch.cat([rsp[k][2].cpu() for k in keys])
+        ids[:mine.numel()] = mine
+        all_ids = dist.allgather(ids)
+        widths = {k: int(np.prod(rsp[k][3][1:])) for k in keys}
+        all_vals = {}
+        for dt in sorted({rsp[k][1].dtype for k in keys}, key=str):
+            dt_keys = [k for k in keys if rsp[k][1].dtype == dt]
+            tot = max(int(sum(nnz_all[:, keys.index(k)] * widths[k]
+                              for k in dt_keys).max()), 1)
+            buf = torch.zeros((tot,), dtype=dt)
+            flat = torch.cat([rsp[k][1].reshape(-1).cpu() for k in dt_keys])
+            buf[:flat.numel()] = flat
+            all_vals[dt] = dist.allgather(buf)
+        id_off = np.zeros((nworkers,), np.int64)
+        val_off = {dt: np.zeros((nworkers,), np.int64) for dt in all_vals}
+        for i, k in enumerate(keys):
+            _tag, vals, _ids, shape, ctx = rsp[k]
+            id_parts, val_parts = [], []
+            for w in range(nworkers):
+                n = int(nnz_all[w, i])
+                io, vo = int(id_off[w]), int(val_off[vals.dtype][w])
+                id_parts.append(all_ids[w, io:io + n])
+                val_parts.append(all_vals[vals.dtype][w, vo:vo + n * widths[k]]
+                                 .view((n,) + tuple(shape[1:])))
+                id_off[w] += n
+                val_off[vals.dtype][w] += n * widths[k]
+            dev = vals.device
+            m_vals, m_ids = nd_sparse._canonicalize(
+                torch.cat(val_parts).to(dev), torch.cat(id_parts).to(dev))
+            agg = RowSparseNDArray(NDArray(m_vals, ctx),
+                                   NDArray(m_ids.long(), ctx), shape, ctx=ctx)
+            if self._updater is not None:
+                self._updater(k, agg, self._store[k])
+            else:
+                self._accumulate_rsp(k, agg)
+
+    def _accumulate_rsp(self, k, agg):
+        """``store[k] += agg`` for a row-sparse ``agg``."""
+        from .ndarray import sparse as nd_sparse
+        from .ndarray.sparse import RowSparseNDArray
+
+        store = self._store[k]
+        if isinstance(store, RowSparseNDArray):
+            self._store[k] = nd_sparse.add(store, agg)
+            return
+        t = store.tensor
+        with torch.no_grad():
+            t.index_add_(0, agg.indices.tensor.to(t.device).long(),
+                         agg.data.tensor.to(t.device, t.dtype))
+
+    def pull(self, key, out=None, priority=0, ignore_sparse=True):
+        self._flush()
+        super().pull(key, out=out, priority=priority,
+                     ignore_sparse=ignore_sparse)
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        self._flush()
+        return super().row_sparse_pull(key, out=out, priority=priority,
+                                       row_ids=row_ids)
+
+    def barrier(self):
+        from . import dist
+
+        self._flush()
+        nd.waitall()
+        dist.barrier()
+
+
 _LOCAL_TYPES = ("local", "local_update_cpu", "local_allreduce_cpu",
                 "device", "local_allreduce_device", "nccl")
 
@@ -381,8 +648,9 @@ _LOCAL_TYPES = ("local", "local_update_cpu", "local_allreduce_cpu",
 def create(name="local"):
     """A KVStore by type name: the ``local`` family, ``device`` and
     ``nccl`` are the in-process store, ``tpu`` (and ``dist_sync_tpu``) the
-    data-parallel tier, ``dist_async`` with ``MXNET_PS_SERVER_URI`` set the
-    parameter-server client; any other ``dist_*`` is not ported."""
+    data-parallel tier; ``dist_async`` with ``MXNET_PS_SERVER_URI`` set, or
+    under the scheduler topology, the parameter-server client; any other
+    ``dist_*`` (and a serverless ``dist_async``) :class:`DistKVStore`."""
     if not isinstance(name, str):
         raise MXNetError("name must be a string")
     if name in _LOCAL_TYPES:
@@ -390,24 +658,37 @@ def create(name="local"):
     if name in ("tpu", "dist_sync_tpu"):
         return TPUKVStore(name)
     if name.startswith("dist"):
+        from . import tracker
+
         if name == "dist_async":
             uri = config.get("MXNET_PS_SERVER_URI")
             if uri:
                 from .kvstore_server import ServerKVStore
 
                 return ServerKVStore(uri, name)
-            from . import tracker
-
             if tracker.tracker_env_spec() is not None:
-                raise MXNetError(
-                    "kvstore='dist_async' through the tracker's rendezvous "
-                    "is not ported (ROADMAP.md Queue A item 10c): set "
-                    "MXNET_PS_SERVER_URI to the servers' URIs")
-        raise MXNetError("kvstore=%r is not ported (the multi-host tier: "
-                         "dist_* over a launcher; ROADMAP.md Queue A item "
-                         "10c)" % name)
+                # the scheduler published every server's URI
+                from .kvstore_server import ServerKVStore
+
+                try:
+                    uris = tracker.discover_server_uris()
+                except tracker.TrackerError as e:
+                    raise MXNetError(
+                        "dist_async: scheduler rendezvous failed: %s" % e)
+                return ServerKVStore(uris, name,
+                                     tracker_client=tracker.worker_client())
+        elif tracker.tracker_env_spec() is not None:
+            raise MXNetError(
+                "kvstore %r has no synchronization path under the "
+                "scheduler topology (launch.py -s > 0): workers "
+                "would train unsynchronized. Use --kv-store "
+                "dist_async (parameter-server tier) or launch with "
+                "-s 0 for the serverless collective path" % name)
+        return DistKVStore(name)
     raise MXNetError("unknown kvstore type %r" % name)
 
 
-__all__ = ["KVStore", "TPUKVStore", "create", "validate_compression_params",
-           "two_bit_quantize", "two_bit_dequantize"]
+__all__ = ["KVStore", "TPUKVStore", "DistKVStore", "create",
+           "validate_compression_params", "two_bit_pack_core",
+           "two_bit_round_trip_core", "two_bit_quantize",
+           "two_bit_dequantize"]

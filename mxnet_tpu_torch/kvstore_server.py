@@ -43,10 +43,24 @@ client given ``tracker_client=`` rediscovers a respawned server's new
 address. The chaos hooks fire where the JAX package fires them: a server
 step is an applied push, ``rpc:drop`` on either side of the wire.
 
-Not ported, raising by name (ROADMAP.md Queue A item 10c): ZeRO value
-sharding (``MXNET_TPU_ZERO_SERVER=1`` with more than one server) and the
-``python -m`` server entry point. In-cluster protocol with no auth: do
-not expose the port beyond the job.
+ZeRO value sharding (``MXNET_TPU_ZERO_SERVER=1`` with more than one
+server): each dense float key of at least ``MXNET_TPU_ZERO_MIN_SIZE``
+elements is split into contiguous flat slices, one a server
+(``zero_slice_sizes``); the client scatters each push and gathers each
+pull, a server updates its slice (and holds its slice of the optimizer
+state) like any key, ``save_optimizer_states`` joins the slices whole and
+``load_optimizer_states`` splits them for the servers it has;
+``restore_from_checkpoint`` takes this server's slice.
+
+``python -m mxnet_tpu_torch.kvstore_server`` is the entry point the
+launchers start (``DMLC_ROLE``): the scheduler role runs the tracker, the
+server role (``MXNET_KVSTORE_SERVER=1``) binds ``MXNET_PS_BIND_HOST``/
+``PORT``, keeps its store on the card (``MXNET_PS_SERVER_DEVICE=cpu`` in
+its environment for the CPU), restores from ``MXNET_CHECKPOINT_DIR``'s
+newest checkpoint before it registers with the tracker (as
+``DMLC_SERVER_ID``, with its restart count, at ``MXNET_PS_ADVERTISE_HOST``
+when set) and serves; any other role exits 0. In-cluster protocol with no auth: do not expose the port beyond
+the job.
 """
 from __future__ import annotations
 
@@ -79,9 +93,6 @@ from .tracker import (TrackerError, _env_count,  # noqa: F401
                       connect_with_backoff, env_nonneg_int,
                       env_positive_float, prune_barrier_names)
 
-_ITEM10C = "(ROADMAP.md Queue A item 10c)"
-
-
 def shard_key(key, num_shards):
     """key -> server index, stable across processes (crc32, not the salted
     builtin hash)."""
@@ -110,29 +121,37 @@ def embedding_shard_rank(key):
 
 def zero_slice_sizes(size, num_shards):
     """Contiguous slice lengths of ``size`` elements over ``num_shards``
-    (the first ``size % n`` slices get one extra): the embedding table's
-    range split."""
+    (the first ``size % n`` slices get one extra): the ZeRO value split
+    and the embedding table's range split."""
     base, extra = divmod(int(size), int(num_shards))
     return [base + (1 if i < extra else 0) for i in range(num_shards)]
 
 
-#: knobs of item 10c's parts: a set value raises, never a silent no-op
-_UNPORTED_KNOBS = (
-    ("MXNET_PS_BIND_HOST", "the server entry point"),
-    ("MXNET_PS_BIND_PORT", "the server entry point"),
-    ("MXNET_PS_ADVERTISE_HOST", "publishing to the tracker"))
+def zero_value_sharded(arr, num_shards, min_size):
+    """True when a key's dense array is split over the servers: floating,
+    at least ``min_size`` (and ``num_shards``) elements."""
+    return (num_shards > 1 and getattr(arr, "ndim", 0) >= 1
+            and np.issubdtype(arr.dtype, np.floating)
+            and arr.size >= max(int(min_size), num_shards))
 
 
-def _refuse_unported_modes(num_servers=1):
-    """Raise for the server-tier modes of item 10c that the environment
-    asks for."""
-    if num_servers > 1 and config.get_strict_bool("MXNET_TPU_ZERO_SERVER"):
-        raise MXNetError("MXNET_TPU_ZERO_SERVER=1: ZeRO value sharding "
-                         "over the servers is not ported %s" % _ITEM10C)
-    for name, what in _UNPORTED_KNOBS:
-        if os.environ.get(name):
-            raise MXNetError("%s is set: %s is not ported %s"
-                             % (name, what, _ITEM10C))
+def zero_slice_pytree(state, sizes, idx):
+    """Server ``idx``'s slice of one key's state: each array leaf of the
+    key's whole size becomes its contiguous flat range by ``sizes``;
+    lists and tuples recurse; scalars and None (the same on every server)
+    stay. The one split rule of the clients and of a restoring server."""
+    bounds = np.cumsum([0] + list(sizes))
+    total = int(bounds[-1])
+
+    def part(x):
+        if isinstance(x, np.ndarray) and x.size == total:
+            return np.ascontiguousarray(
+                x.reshape(-1)[bounds[idx]:bounds[idx + 1]])
+        if isinstance(x, (list, tuple)):
+            return type(x)(part(i) for i in x)
+        return x
+
+    return part(state)
 
 
 class _RPCTransportError(Exception):
@@ -260,7 +279,6 @@ class KVStoreServer:
 
     def __init__(self, host="127.0.0.1", port=0, num_workers=1,
                  barrier_timeout=None, elastic=None, device=None):
-        _refuse_unported_modes()
         self._device = resolve_device(device)
         self._ctx = Context.from_device(self._device)
         self._store = {}            # key -> torch.Tensor on the device
@@ -710,16 +728,18 @@ class KVStoreServer:
         """Preload this server's key shard from a committed checkpoint: the
         ``arg:`` weights whose key routes here (crc32, the clients'
         routing; an embedding sub-key ``<key>@embshard<s>`` to server
-        ``s % num_shards``), the optimizer rebuilt from the recorded config
-        and its states of those keys. A respawned server runs it before it
-        serves, so a retried push never meets an empty store. Returns the
-        number of keys restored."""
+        ``s % num_shards``; under ``MXNET_TPU_ZERO_SERVER=1`` a split key's
+        slice ``shard_rank`` of the whole array), the optimizer rebuilt
+        from the recorded config and its states of those keys (a split
+        key's sliced alike). A respawned server runs it before it serves,
+        so a retried push never meets an empty store. Returns the number
+        of keys restored."""
         from .checkpoint import loads_plain, unwrap_states_map
 
-        if num_shards > 1 and config.get_strict_bool("MXNET_TPU_ZERO_SERVER"):
-            raise MXNetError("restore_from_checkpoint under "
-                             "MXNET_TPU_ZERO_SERVER=1: ZeRO value sharding "
-                             "over the servers is not ported %s" % _ITEM10C)
+        zero = (config.get_strict_bool("MXNET_TPU_ZERO_SERVER")
+                and num_shards > 1)
+        zero_min = config.get_nonneg_int("MXNET_TPU_ZERO_MIN_SIZE")
+        zsizes = {}     # split key -> its slice table
 
         def mine(key):
             esr = embedding_shard_rank(key)
@@ -733,8 +753,15 @@ class KVStoreServer:
                 if not name.startswith("arg:"):
                     continue  # aux state never lives on a server
                 key = name[len("arg:"):]
-                if mine(key):
-                    self._store[key] = self._tensor(np.asarray(arr))
+                arr = np.asarray(arr)
+                if embedding_shard_rank(key) is None and zero and \
+                        zero_value_sharded(arr, num_shards, zero_min):
+                    zsizes[key] = zero_slice_sizes(arr.size, num_shards)
+                    self._store[key] = self._tensor(zero_slice_pytree(
+                        arr, zsizes[key], shard_rank))
+                    restored += 1
+                elif mine(key):
+                    self._store[key] = self._tensor(arr)
                     restored += 1
         opt_cfg = ckpt.optimizer_config()
         if opt_cfg is not None:
@@ -743,9 +770,12 @@ class KVStoreServer:
         blob = ckpt.optimizer_states()
         if blob is not None and self._updater is not None:
             states = unwrap_states_map(loads_plain(blob, "optimizer states"))
+            part = {k: zero_slice_pytree(v, zsizes[k], shard_rank)
+                    for k, v in states.items() if k in zsizes}
+            part.update((k, v) for k, v in states.items()
+                        if k not in zsizes and mine(k))
             with self._lock:
-                self._updater.set_states_from_map(
-                    {k: v for k, v in states.items() if mine(k)})
+                self._updater.set_states_from_map(part)
         return restored
 
     def _rollback(self, meta):
@@ -957,7 +987,6 @@ class ServerKVStore(kvstore.KVStore):
             uris = list(uri)
         if not uris:
             raise MXNetError("ServerKVStore: no server URIs")
-        _refuse_unported_modes(len(uris))
         self._uris = uris
         self._socks = [connect_with_backoff(u, deadline=30.0) for u in uris]
         self._wlocks = [threading.Lock() for _ in uris]
@@ -986,8 +1015,14 @@ class ServerKVStore(kvstore.KVStore):
         self._async_error = None
         self._async_error_surfaced = False
         self._compression_params = None
-        self._residuals = {}          # key -> error-feedback residual
+        self._residuals = {}          # key (or (key, server)) -> residual
         self._closed = False
+        # ZeRO value sharding: read from the knobs only, as every client
+        # and a restoring server must split alike
+        self._zero = (config.get_strict_bool("MXNET_TPU_ZERO_SERVER")
+                      and len(uris) > 1)
+        self._zero_min = config.get_nonneg_int("MXNET_TPU_ZERO_MIN_SIZE")
+        self._zinfo = {}   # split key -> (shape, dtype str, slice sizes)
 
     @property
     def num_workers(self):
@@ -1147,8 +1182,19 @@ class ServerKVStore(kvstore.KVStore):
         return self._np(value)
 
     def init(self, key, value):
+        """Each key's value on its server; under ZeRO a split key's slice
+        ``i`` on server ``i``."""
         for k, v in _iter_kv(key, value):
-            self._rpc("init", k, None, _arr_to_wire(self._merged(v)))
+            arr = self._merged(v)
+            if self._zero and zero_value_sharded(arr, len(self._socks),
+                                                 self._zero_min):
+                sizes = zero_slice_sizes(arr.size, len(self._socks))
+                self._zinfo[k] = (tuple(arr.shape), str(arr.dtype), sizes)
+                for idx in range(len(sizes)):
+                    self._rpc_idx(idx, "init", k, None, _arr_to_wire(
+                        zero_slice_pytree(arr, sizes, idx)))
+                continue
+            self._rpc("init", k, None, _arr_to_wire(arr))
 
     # -- the pipelined push/pull --------------------------------------------
     def _check_async_error(self):
@@ -1232,14 +1278,30 @@ class ServerKVStore(kvstore.KVStore):
             arr = self._merged(v)
             is_rsp = isinstance(v0, RowSparseNDArray)
             profiler.comm_record("push", raw_bytes=int(arr.nbytes))
-            compressed = None
-            if (self._compression_params is not None and not is_rsp
-                    and np.issubdtype(arr.dtype, np.floating)):
-                threshold = self._compression_params["threshold"]
-                packed, self._residuals[k] = two_bit_quantize(
-                    arr, self._residuals.get(k), threshold)
-                compressed = (packed, threshold)
-            self._push_shard(self._shard(k), k, arr, compressed, priority)
+            zinfo = None if is_rsp else self._zinfo.get(k)
+            if zinfo is not None:
+                # a split key scatters: slice i to server i, each slice
+                # with its own residual
+                flat = np.asarray(arr)
+                for idx in range(len(zinfo[2])):
+                    sl = zero_slice_pytree(flat, zinfo[2], idx)
+                    self._push_shard(idx, k, sl,
+                                     self._compress((k, idx), sl), priority)
+                continue
+            self._push_shard(self._shard(k), k, arr,
+                             None if is_rsp else self._compress(k, arr),
+                             priority)
+
+    def _compress(self, rkey, arr):
+        """``(packed, threshold)`` of a dense float gradient under 2-bit
+        compression (the residual kept under ``rkey``), else None."""
+        if self._compression_params is None or \
+                not np.issubdtype(arr.dtype, np.floating):
+            return None
+        threshold = self._compression_params["threshold"]
+        packed, self._residuals[rkey] = two_bit_quantize(
+            arr, self._residuals.get(rkey), threshold)
+        return packed, threshold
 
     def _push_shard(self, idx, k, arr, compressed, priority):
         if not self._pipeline:
@@ -1272,13 +1334,14 @@ class ServerKVStore(kvstore.KVStore):
         pairs = list(_iter_kv(key, out))
         for k, _o in pairs:
             self._wait_key(k)
-        # one pull_multi frame a server
+        # one pull_multi frame a server; a ZeRO-split key from every one
         reqs = [[] for _ in self._socks]
         seen = set()
         for k, _o in pairs:
             if k not in seen:
                 seen.add(k)
-                reqs[self._shard(k)].append(k)
+                for idx in self._holders(k):
+                    reqs[idx].append(k)
         fetched = {}
         for idx, ks in enumerate(reqs):
             if not ks:
@@ -1288,11 +1351,31 @@ class ServerKVStore(kvstore.KVStore):
             else:
                 wires = self._rpc_idx(idx, "pull_multi", ks)
             for k, w in zip(ks, wires):
-                fetched[k] = _arr_from_wire(w)
+                fetched[(idx, k)] = _arr_from_wire(w)
         for k, o in pairs:
+            arr = self._joined(k, [fetched[(i, k)]
+                                   for i in self._holders(k)])
             targets = o if isinstance(o, (list, tuple)) else [o]
             for t in targets:
-                t[:] = fetched[k]
+                t[:] = arr
+
+    def _holders(self, k):
+        """The servers holding key ``k`` (every one for a split key)."""
+        if k in self._zinfo:
+            return range(len(self._socks))
+        return (self._shard(k),)
+
+    def _joined(self, k, parts):
+        """A key's whole value from its holders' arrays."""
+        if k not in self._zinfo:
+            return parts[0]
+        return np.concatenate([p.reshape(-1) for p in parts]) \
+            .reshape(self._zinfo[k][0])
+
+    def _pull_full(self, k):
+        """One key's whole value (a split key gathered)."""
+        return self._joined(k, [_arr_from_wire(self._rpc_idx(i, "pull", k))
+                                for i in self._holders(k)])
 
     # lr schedulers that cross as plain data: class -> (ctor arg, attr)
     _SCHED_WIRE = {
@@ -1402,10 +1485,46 @@ class ServerKVStore(kvstore.KVStore):
         from .checkpoint import atomic_write_bytes
 
         self.wait_outstanding()
-        states_map = {}
-        for wire in self._rpc_all("save_opt"):
-            states_map.update((k, _state_from_wire(w)) for k, w in wire)
+        per_server = [{k: _state_from_wire(w) for k, w in wire}
+                      for wire in self._rpc_all("save_opt")]
+        states_map, zparts = {}, {}
+        for idx, smap in enumerate(per_server):
+            for k, v in smap.items():
+                if k in self._zinfo:
+                    zparts.setdefault(k, {})[idx] = v
+                else:
+                    states_map[k] = v
+        for k, parts in zparts.items():
+            if len(parts) != len(per_server):
+                warnings.warn(
+                    "save_optimizer_states: value-sharded key %r has "
+                    "state on %d of %d servers (no push reached the "
+                    "others yet); skipping it" % (k, len(parts),
+                                                  len(per_server)),
+                    stacklevel=2)
+                continue
+            states_map[k] = self._zero_join_state(
+                k, [parts[i] for i in range(len(per_server))])
         atomic_write_bytes(fname, pickle.dumps(states_map, protocol=4))
+
+    def _zero_join_state(self, k, parts):
+        """The servers' state slices of a split key as one state: array
+        leaves joined in server order and reshaped to the key's shape,
+        other leaves (the same on every server) from the first."""
+        shape = self._zinfo[k][0]
+        total = int(np.prod(shape))
+
+        def join(*leaves):
+            l0 = leaves[0]
+            if isinstance(l0, np.ndarray):
+                flat = np.concatenate([np.asarray(x).reshape(-1)
+                                       for x in leaves])
+                return flat.reshape(shape) if flat.size == total else flat
+            if isinstance(l0, (list, tuple)):
+                return type(l0)(join(*grp) for grp in zip(*leaves))
+            return l0
+
+        return join(*parts)
 
     def get_optimizer_config(self):
         """The server-side optimizer's ``(name, kwargs, extras)``, or None
@@ -1422,7 +1541,14 @@ class ServerKVStore(kvstore.KVStore):
             states_map = loads_states(f.read())
         by_server = [[] for _ in self._socks]
         for k, v in states_map.items():
-            by_server[self._shard(k)].append((k, _state_to_wire(v)))
+            if k in self._zinfo:
+                # a whole state split for the servers this client has
+                sizes = self._zinfo[k][2]
+                for idx in range(len(sizes)):
+                    by_server[idx].append((k, _state_to_wire(
+                        zero_slice_pytree(v, sizes, idx))))
+            else:
+                by_server[self._shard(k)].append((k, _state_to_wire(v)))
         for idx, pairs in enumerate(by_server):
             self._rpc_idx(idx, "load_opt", wire=pairs)
 
@@ -1439,7 +1565,7 @@ class ServerKVStore(kvstore.KVStore):
         rids = row_ids if isinstance(row_ids, (list, tuple)) else [row_ids]
         for k, o in _iter_kv(key, out):
             self._wait_key(k)
-            w = _arr_from_wire(self._rpc("pull", k))
+            w = self._pull_full(k)
             targets = o if isinstance(o, (list, tuple)) else [o]
             key_rids = list(rids) * len(targets) \
                 if len(rids) == 1 and len(targets) > 1 else list(rids)
@@ -1574,6 +1700,101 @@ def _iter_kv(key, value):
         yield str(key), value
 
 
+# ---------------------------------------------------------------------------
+# entry point (DMLC_ROLE dispatch)
+# ---------------------------------------------------------------------------
+def _init_kvstore_server_module():
+    """``python -m mxnet_tpu_torch.kvstore_server``: the scheduler role runs
+    the tracker (exit 0 without its environment), the server role serves
+    under ``MXNET_KVSTORE_SERVER=1`` until stopped; any other role exits
+    0."""
+    import sys
+
+    from . import tracker as trk
+
+    role = os.environ.get("DMLC_ROLE", "worker").lower()
+    if role not in ("server", "scheduler"):
+        return
+    if role == "scheduler":
+        sys.exit(trk.main() if trk.tracker_env_spec() is not None else 0)
+    if os.environ.get("MXNET_KVSTORE_SERVER") != "1":
+        sys.exit(0)
+    spec = trk.tracker_env_spec()
+    # a scheduler on another host: bind the wildcard and advertise a
+    # routable address (a loopback bind would strand remote workers)
+    multi_host = spec is not None and \
+        spec[0].rsplit(":", 1)[0] not in ("127.0.0.1", "localhost")
+    host = os.environ.get("MXNET_PS_BIND_HOST",
+                          "" if multi_host else "127.0.0.1")
+    # under a scheduler DMLC_PS_ROOT_PORT is the scheduler's: never bind it
+    default_port = "0" if spec is not None \
+        else os.environ.get("DMLC_PS_ROOT_PORT", "0")
+    port = int(os.environ.get("MXNET_PS_BIND_PORT", default_port) or 0)
+    nw = int(os.environ.get("MXNET_TPU_NUM_WORKERS",
+                            os.environ.get("DMLC_NUM_WORKER", "1")))
+    # the store's device: the card unless the job asks for the CPU (a
+    # variable of the launcher's environment, as DMLC_SERVER_ID is)
+    device = os.environ.get("MXNET_PS_SERVER_DEVICE", "cuda")
+    if device not in ("cuda", "cpu"):
+        raise MXNetError("MXNET_PS_SERVER_DEVICE=%r must be cuda or cpu"
+                         % device)
+    server = KVStoreServer(host=host, port=port, num_workers=nw,
+                           device=device)
+    # restore BEFORE registering, whenever the directory holds a
+    # checkpoint (a whole-job restart resets the restart count): workers
+    # find the URI only once the store holds the restored state
+    restart = _env_count("DMLC_RESTART_COUNT")
+    ckpt_dir = os.environ.get("MXNET_CHECKPOINT_DIR")
+    restored_from = None
+    if ckpt_dir:
+        from .checkpoint import CheckpointManager
+
+        ck = CheckpointManager(ckpt_dir).latest()
+        if ck is not None:
+            shard_rank = _env_count("DMLC_SERVER_ID")
+            num_shards = max(_env_count("DMLC_NUM_SERVER"), 1)
+            nkeys = server.restore_from_checkpoint(
+                ck, shard_rank=shard_rank, num_shards=num_shards)
+            restored_from = ck.path
+            print("[lifecycle] event=restored-from role=server rank=%d "
+                  "ckpt=%s keys=%d epoch=%d"
+                  % (shard_rank, ck.path, nkeys, ck.epoch), flush=True)
+        elif restart > 0:
+            print("kvstore_server: restart %d but no checkpoint in %s; "
+                  "starting empty" % (restart, ckpt_dir), flush=True)
+    client = None
+    if spec is not None:
+        advertise = os.environ.get("MXNET_PS_ADVERTISE_HOST")
+        if advertise is None and multi_host:
+            # the interface toward the scheduler (a UDP connect sends
+            # nothing: it only picks the local endpoint)
+            sched_host, sched_port = spec[0].rsplit(":", 1)
+            probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            try:
+                probe.connect((sched_host, int(sched_port)))
+                advertise = probe.getsockname()[0]
+            finally:
+                probe.close()
+        bound_port = server.addr.rsplit(":", 1)[1]
+        addr = "%s:%s" % (advertise, bound_port) if advertise \
+            else server.addr
+        # a respawn registers with its old rank and its restart count, so
+        # the scheduler swaps the dead node's URI for this one
+        server_rank = os.environ.get("DMLC_SERVER_ID")
+        client = trk.TrackerClient(
+            spec[0], "server", addr=addr,
+            rank=int(server_rank) if server_rank is not None else None,
+            restart_count=restart)
+        if restored_from is not None:
+            client.log_event("restored-from", role="server",
+                             rank=server_rank or "0", ckpt=restored_from)
+    print("kvstore_server listening on %s" % server.addr, flush=True)
+    server.serve_forever()
+    if client is not None:
+        client.done()  # a graceful stop: 'done', not 'dead'
+        client.close()
+    sys.exit(0)
+
+
 if __name__ == "__main__":
-    raise SystemExit("python -m mxnet_tpu_torch.kvstore_server: the server "
-                     "entry point (DMLC_ROLE) is not ported %s" % _ITEM10C)
+    _init_kvstore_server_module()

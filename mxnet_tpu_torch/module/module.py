@@ -14,7 +14,13 @@ package's formats.
 a device, every rank given the global batch: ``forward_backward`` runs the
 fused step of ``FusedSPMDGroup`` (forward, backward, the sums and the
 update in one ``TrainStep``), ``zero`` (or ``MXNET_TPU_ZERO``) shards its
-update. Where the fused step cannot mirror the optimizer or the module
+update. The ``dist_sync``, ``dist_sync_device`` and ``dist_async`` types
+(``kvstore.DistKVStore``) run the same fused step with ``distributed=True``
+over the workers of a launcher's job, each worker's iterator giving its own
+rows (the global batch is the local one times the workers); under a
+``dist`` type with ``_async`` the optimizer's ``rescale_grad`` is
+``1/(batch * num_workers)``, as in the JAX package. Where the fused step
+cannot mirror the optimizer or the module
 (``parallel.spmd.FusedStepUnsupported``: an ``lr_scheduler``, a
 ``param_dict``, an optimizer other than SGD and Adam, fixed params,
 ``inputs_need_grad``), the per-executor path trains instead: each rank's
@@ -36,9 +42,10 @@ package; ``fit`` calls it with each next batch).
 whose kvstore engaged the fused group it warns loudly, as the JAX package
 does: that one-program step calls no per-executor callback.
 
+``compression_params`` go to the kvstore's ``set_gradient_compression``.
+
 Not ported, raising ``MXNetError`` by name: more than one context in one
-process, ``group2ctxs``, the other ``dist_*`` kvstores and
-``compression_params``.
+process and ``group2ctxs``.
 """
 from __future__ import annotations
 
@@ -75,10 +82,8 @@ class Module(BaseModule):
                              "not ported" % len(context))
         if group2ctxs is not None:
             raise MXNetError("Module: group2ctxs is not ported")
-        if compression_params is not None:
-            raise MXNetError("Module: compression_params (gradient "
-                             "compression) is not ported")
         self._zero = zero
+        self._compression_params = compression_params
         context[0].torch_device()      # a missing card raises here
         self._context = list(context)
         self._work_load_list = work_load_list or [1]
@@ -272,7 +277,10 @@ class Module(BaseModule):
         kvstore, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
         group = self._exec_group
-        rescale_grad = 1.0 / group.batch_size
+        batch_size = group.batch_size
+        if kvstore and "dist" in kvstore.type and "_async" in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
         n_ctx = len(self._context)
         if update_on_kvstore:
             idx2name = dict(enumerate(group.param_names))
@@ -290,8 +298,9 @@ class Module(BaseModule):
             if optimizer.rescale_grad != rescale_grad:
                 warnings.warn(
                     "Optimizer created manually outside Module but "
-                    "rescale_grad is not normalized to 1.0/batch_size (%s "
-                    "vs. %s)" % (optimizer.rescale_grad, rescale_grad))
+                    "rescale_grad is not normalized to "
+                    "1.0/batch_size/num_workers (%s vs. %s). "
+                    % (optimizer.rescale_grad, rescale_grad))
             if not optimizer.idx2name:
                 optimizer.idx2name = idx2name.copy()
         self._optimizer = optimizer
@@ -303,7 +312,10 @@ class Module(BaseModule):
         # a server-side store (ServerKVStore) is the update engine: its
         # updates go through the servers, never the fused step
         server_side = getattr(kvstore, "server_side", False)
-        if kvstore is not None and kvstore.type == "tpu" and \
+        fused_types = ("tpu", "dist_sync", "dist_sync_device", "dist_async")
+        distributed = kvstore is not None and \
+            kvstore.type.startswith("dist") and not server_side
+        if kvstore is not None and kvstore.type in fused_types and \
                 not server_side and self.for_training:
             from ..parallel.spmd import FusedStepUnsupported
             from .spmd_group import FusedSPMDGroup
@@ -315,7 +327,8 @@ class Module(BaseModule):
                     self._label_names,
                     fixed_param_names=self._fixed_param_names,
                     logger=self.logger, batch_size=group.batch_size,
-                    inputs_need_grad=self.inputs_need_grad, zero=self._zero)
+                    inputs_need_grad=self.inputs_need_grad,
+                    distributed=distributed, zero=self._zero)
             except FusedStepUnsupported as e:
                 # a feature the fused step cannot mirror: the per-executor
                 # path trains instead. Nothing else is caught: a mesh,
@@ -325,12 +338,15 @@ class Module(BaseModule):
             else:
                 kvstore.attach_mesh(self._fused.mesh)
                 update_on_kvstore = self._update_on_kvstore = False
-        if kvstore is not None and not server_side and \
-                kvstore.num_workers > 1:
+        if kvstore is not None and not server_side and not distributed \
+                and kvstore.num_workers > 1:
             # one rank a device: each executor takes its rows of the batch
+            # (a dist worker's iterator gives it its own rows already)
             group.set_dp_slice(kvstore.rank, kvstore.num_workers)
             group.set_params(self._arg_params, self._aux_params)
         if kvstore:
+            if self._compression_params:
+                kvstore.set_gradient_compression(self._compression_params)
             _initialize_kvstore(kvstore=kvstore,
                                 param_arrays=group.param_arrays,
                                 arg_params=self._arg_params,

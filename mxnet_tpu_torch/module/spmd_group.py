@@ -15,7 +15,18 @@ card), ``MXNET_TPU_ZERO`` (ZeRO), ``MXNET_MP_SIZE`` and ``MXNET_MP_RULES``
 rules shard the parameters over ``mp``, handed to ``TrainStep``; the
 placed carry's bytes go to ``profiler.mp_stats``; ``get_params`` and the
 optimizer states come back whole; ``mp=1`` is the data-parallel path bit
-for bit). Not ported: ``distributed=True``, the multi-host tier.
+for bit).
+
+``distributed=True`` (the ``dist_*`` kvstores, workers of a launcher's job
+joined by :mod:`..dist`): the mesh is ``dist.global_mesh``, ``("dcn",
+"dp")`` of shape ``(num_workers, 1)``, both of them data axes; each worker
+feeds its own rows (the global batch is the local one times the workers),
+placed as they are; ``TrainStep.place`` makes rank 0's params and aux win
+bit for bit; every batch the workers' local row counts are held equal by
+one collective (``_check_local_batch_agreement``), unless its arrays were
+placed already (``DeviceQueueIter`` checks its first batch); the outputs
+are this worker's rows; ``get_params`` and the optimizer states are the
+same on every worker. ``MXNET_MP_SIZE > 1`` is refused there.
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ import torch
 from .. import chaos, config, profiler
 from ..base import MXNetError
 from ..ndarray import ndarray as nd
-from ..parallel.feed import place_batch_array
+from ..parallel.feed import is_preplaced, place_batch_array
 from ..parallel.spmd import (FusedStepUnsupported, TrainStep,
                              data_sharding, functional_from_optimizer,
                              parse_rules)
@@ -84,9 +95,6 @@ class FusedSPMDGroup:
         from ..parallel.mesh import data_group, mesh_device, mp_size, \
             train_mesh
 
-        if distributed:
-            raise MXNetError("fused SPMD step: distributed=True (the "
-                             "multi-host tier) is not ported")
         # what the step cannot mirror is refused before any mesh is built
         if fixed_param_names:
             raise FusedStepUnsupported("fused SPMD step: fixed_param_names "
@@ -104,14 +112,30 @@ class FusedSPMDGroup:
         device = contexts[0].torch_device()
         mp = mp_size()
         self._param_rules = parse_rules(config.get("MXNET_MP_RULES"))
-        self.mesh = train_mesh(mp=mp, device=device.type)
+        self.distributed = bool(distributed)
+        if self.distributed:
+            from .. import dist
+
+            if mp > 1:
+                raise FusedStepUnsupported(
+                    "fused dist step: MXNET_MP_SIZE=%d is single-process "
+                    "only for now (the multi-host (dcn, dp, mp) mesh is "
+                    "the scripted on-chip follow-up — see ROADMAP)" % mp)
+            dist.init_from_env()
+            self.mesh = dist.global_mesh({"dp": 1}, device=device.type)
+            self._data_axes = tuple(self.mesh.mesh_dim_names)
+        else:
+            self.mesh = train_mesh(mp=mp, device=device.type)
+            self._data_axes = ("dp",)
         if mesh_device(self.mesh) != device:
             raise MXNetError("fused SPMD step: context %s but this rank's "
                              "mesh device is %s" % (contexts[0],
                                                     mesh_device(self.mesh)))
-        self._data_axes = ("dp",)
-        _group, n, _index = data_group(self.mesh, self._data_axes)
-        if batch_size is not None and batch_size % n != 0:
+        _group, n, self._index = data_group(self.mesh, self._data_axes)
+        self._n = n
+        # a dist worker's batch_size is its own rows: nothing to divide
+        if not self.distributed and batch_size is not None \
+                and batch_size % n != 0:
             if mp > 1:
                 raise MXNetError(
                     "fused SPMD step: batch size %d not divisible by the dp "
@@ -174,7 +198,7 @@ class FusedSPMDGroup:
         arrays = list(zip(self._data_names, data_batch.data))
         labels = getattr(data_batch, "label", None) or []
         arrays += list(zip(self._label_names, labels))
-        batch = {}
+        values, host_rows = [], []
         for name, arr in arrays:
             value = arr.tensor if isinstance(arr, nd.NDArray) else arr
             if poison and name == self._data_names[0]:
@@ -182,9 +206,14 @@ class FusedSPMDGroup:
                 value = value * np.float32("nan")
                 if placed is not None:
                     value._mx_sharding = placed
-            batch[name] = place_batch_array(
-                self.mesh, self._data_axes, False, name, value,
-                sharding=self._batch_sharding)
+            if not is_preplaced(value, self._batch_sharding):
+                host_rows.append(int(value.shape[0]))
+            values.append((name, value))
+        if host_rows and self.distributed and self._n > 1:
+            self._check_local_batch_agreement(host_rows)
+        batch = {name: place_batch_array(
+            self.mesh, self._data_axes, self.distributed, name, value,
+            sharding=self._batch_sharding) for name, value in values}
         if self._device_metrics:
             self._carry, (loss, outs, stats) = self._ts(self._carry, batch)
             self._stats = stats
@@ -196,6 +225,20 @@ class FusedSPMDGroup:
         self._raw_outputs = outs
         self._outputs = None
         self._throttle()
+
+    def _check_local_batch_agreement(self, n_rows_list):
+        """Raise when the workers' local batches differ (their steps would
+        not match): one gather of every worker's row counts."""
+        from .. import dist
+
+        arr = np.asarray(n_rows_list, np.int64)
+        rows = dist.allgather(arr)
+        if not (rows == arr[None, :]).all():
+            raise MXNetError(
+                "fused dist step: local batch sizes %s differ across "
+                "workers (per-rank sizes %s); pad or drop the tail "
+                "batch so every rank agrees"
+                % (list(n_rows_list), rows.tolist()))
 
     def _throttle(self):
         """Queue this step's completion event; wait for the oldest only
@@ -217,17 +260,23 @@ class FusedSPMDGroup:
             self._inflight.popleft().synchronize()
 
     def get_outputs(self):
-        """The last step's outputs, the global batch's (a host sync,
-        counted)."""
+        """The last step's outputs (a host sync, counted): the global
+        batch's, or under ``distributed`` this worker's rows."""
         if self._outputs is None:
             if self._raw_outputs is None:
                 raise MXNetError("fused SPMD step: no batch has run yet")
             profiler.h2d_record(host_syncs=1)
             ctx = self._ts.device
             from ..context import Context
+            from ..parallel.feed import rank_rows
 
+            outs = self._raw_outputs
+            if self.distributed:
+                outs = [rank_rows(o, self._n, self._index, name,
+                                  "fused dist step")
+                        for name, o in zip(self._output_names, outs)]
             self._outputs = [nd.NDArray(o, Context.from_device(ctx))
-                             for o in self._raw_outputs]
+                             for o in outs]
         return list(self._outputs)
 
     def _device_metric_plan(self, eval_metric):

@@ -7,7 +7,13 @@ device, tagged with the :class:`~.spmd.Sharding` it was placed for, as a
 JAX array carries its sharding; ``TrainStep`` and ``FusedSPMDGroup`` take
 such an array as it is. :class:`DeviceQueueIter` places each batch of a
 host iterator on a background thread, a bounded queue ahead of the
-consumer. The multi-host tier (``distributed=True``) is not ported.
+consumer.
+
+``distributed=True`` (the workers of a launcher's job, ``dist_*``): each
+worker's array is its own rows of the global batch, placed as they are.
+:class:`DeviceQueueIter` then holds the workers' local row counts equal by
+one collective on the consumer's thread at the first batch, and raises
+when a later batch's count changes.
 """
 from __future__ import annotations
 
@@ -53,22 +59,22 @@ def rank_rows(value, n, index, name, what):
 def place_batch_array(mesh, data_axes, distributed, name, value,
                       sharding=None):
     """A host batch array (numpy or a tensor) of the global batch -> this
-    rank's rows on its device, tagged with ``sharding``. Arrays placed
-    already pass through. Records bytes and time in the profiler's
-    pipeline counters. ``distributed`` (the multi-host tier) must be
-    False."""
+    rank's rows on its device, tagged with ``sharding``; under
+    ``distributed`` the array is this worker's rows already and is placed
+    whole. Arrays placed already pass through. Records bytes and time in
+    the profiler's pipeline counters."""
     from .mesh import data_group, mesh_device
 
-    if distributed:
-        raise MXNetError("place_batch_array: distributed=True (the "
-                         "multi-host tier) is not ported")
     sharding = sharding or expected_sharding(mesh, data_axes)
     if is_preplaced(value, sharding):
         profiler.h2d_record(preplaced=1)
         return value
     t0 = time.perf_counter()
-    _group, n, index = data_group(mesh, data_axes)
-    rows = rank_rows(value, n, index, name, "async feed")
+    if distributed:
+        rows = value
+    else:
+        _group, n, index = data_group(mesh, data_axes)
+        rows = rank_rows(value, n, index, name, "async feed")
     if not isinstance(rows, torch.Tensor):
         rows = torch.from_numpy(np.ascontiguousarray(rows))
     out = rows.to(mesh_device(mesh))   # a new tensor object (a slice)
@@ -102,9 +108,7 @@ class DeviceQueueIter(DataIter):
         group (kvstore is not 'tpu'/'dist_*'), the iterator degrades to
         a transparent pass-through of host batches (with a warning).
     mesh, data_axes, distributed :
-        Explicit placement spec when neither group nor module is given
-        (``distributed=True``, the multi-host tier, is not ported and
-        raises at the first placement).
+        Explicit placement spec when neither group nor module is given.
     depth : int
         Bounded pipeline depth (batches staged on device ahead of the
         consumer). Default ``MXNET_TPU_FEED_DEPTH`` (2).
@@ -144,6 +148,8 @@ class DeviceQueueIter(DataIter):
         self._exc = None
         self._stop = threading.Event()
         self._current_batch = None
+        self._local_rows = None
+        self._checked_agreement = False
         if group is not None or mesh is not None:
             self._bind(group=group, mesh=mesh, data_axes=data_axes,
                        distributed=distributed)
@@ -216,8 +222,13 @@ class DeviceQueueIter(DataIter):
         return False
 
     def _place_batch(self, batch):
+        rows = None
+
         def place(name, arr):
+            nonlocal rows
             value = arr.tensor if isinstance(arr, NDArray) else arr
+            if rows is None and not is_preplaced(value, self._sharding):
+                rows = int(value.shape[0])
             placed = place_batch_array(
                 self.mesh, self.data_axes, self.distributed, name, value,
                 sharding=self._sharding)
@@ -231,6 +242,14 @@ class DeviceQueueIter(DataIter):
                 for i, a in enumerate(batch.data or [])]
         label = [place(names_l[i] if i < len(names_l) else "label%d" % i, a)
                  for i, a in enumerate(batch.label or [])]
+        if self.distributed and rows is not None:
+            if self._local_rows is None:
+                self._local_rows = rows
+            elif rows != self._local_rows:
+                raise MXNetError(
+                    "DeviceQueueIter: local batch size changed mid-stream "
+                    "(%d -> %d); pad or discard the tail batch so every "
+                    "rank keeps a constant shape" % (self._local_rows, rows))
         return DataBatch(data, label or None, pad=batch.pad,
                          index=batch.index,
                          provide_data=batch.provide_data,
@@ -271,8 +290,31 @@ class DeviceQueueIter(DataIter):
             if self._exc is not None:
                 raise self._exc
             raise StopIteration
+        if self.distributed and not self._checked_agreement:
+            self._check_agreement()
         self._current_batch = item
         return item
+
+    def _check_agreement(self):
+        """One collective on the consumer's thread at the first batch (a
+        collective on the worker thread would interleave with the step's):
+        every worker's local rows must agree. Later batches keep the count
+        (``_place_batch`` raises on a change)."""
+        from .. import dist
+
+        if dist.num_workers() > 1 and self._local_rows is not None:
+            if self._group is not None:
+                self._group._check_local_batch_agreement([self._local_rows])
+            else:
+                mine = np.asarray([self._local_rows], np.int64)
+                rows = dist.allgather(mine)
+                if not (rows == mine[None, :]).all():
+                    raise MXNetError(
+                        "DeviceQueueIter: local batch size %d differs "
+                        "across workers (per-rank sizes %s); pad or "
+                        "discard the tail batch so every rank agrees"
+                        % (self._local_rows, rows.reshape(-1).tolist()))
+        self._checked_agreement = True
 
     def iter_next(self):
         try:

@@ -23,8 +23,9 @@ parallelism of a symbol: ``param_rules`` shard parameters over the mesh's
 ``mp`` (or ``tp``) axis; each rank holds its block of each sharded
 parameter, of its optimizer state and of its gradient, and the graph runs
 under a ``symbol_mp.ShardPlan`` (the Megatron pair for a column- then
-row-parallel ``FullyConnected``, every other use gathered). ZeRO's two-bit
-wire is not ported and raises by name.
+row-parallel ``FullyConnected``, every other use gathered). ZeRO's
+two-bit wire (``zero_wire="2bit"``) sends each rank's summed gradient row
+through the packed 2-bit codes with an error-feedback residual a row.
 """
 from __future__ import annotations
 
@@ -397,7 +398,14 @@ class TrainStep:
     already summed, is sliced), the rank updates its ``(1, chunk)`` row,
     whose optimizer state lives only there, and the params are
     all-gathered. :meth:`logical_opt_state` gives the state back in the
-    mesh-size independent layout checkpoints keep.
+    mesh-size independent layout checkpoints keep. With ``zero_wire="2bit"``
+    (``MXNET_TPU_ZERO_WIRE``) each planned gradient row, once summed and
+    scaled, round-trips through the packed 2-bit codes
+    (``kvstore.two_bit_round_trip_core``, threshold
+    ``MXNET_TPU_ZERO_WIRE_THRESHOLD``) with an error-feedback residual kept
+    under ``__zero_wire_residual__``, a ``(1, chunk)`` f32 row a rank like
+    the plan's; it is dropped when the wire is raw, from checkpoints, and
+    starts at zeros on restore.
 
     Tensor parallelism (a mesh with an ``mp`` or ``tp`` axis and
     ``param_rules`` that shard over it): :meth:`place` takes whole params,
@@ -413,11 +421,12 @@ class TrainStep:
     profiler's ``mp_stats`` gauge on such a mesh.
 
     Entry points run on ``cuda`` unless given ``device="cpu"`` (or a mesh on
-    the CPU). A ``zero_wire`` other than raw raises :class:`MXNetError`
-    naming the option, and so does a remat mode with sharded params.
+    the CPU). A remat mode with sharded params raises :class:`MXNetError`
+    naming the option.
     """
 
     _SENT = "__sentinel_state__"
+    _ZERO_RES = "__zero_wire_residual__"
 
     def __init__(self, symbol, optimizer, mesh=None, data_axes=("dp",),
                  param_rules=None, *, label_names=("softmax_label",),
@@ -440,9 +449,9 @@ class TrainStep:
         elif zero_wire not in ("raw", "2bit"):
             raise MXNetError("TrainStep: zero_wire=%r must be raw|2bit"
                              % (zero_wire,))
-        if zero_wire != "raw":
-            raise _unported("zero_wire=%r (the two-bit wire)" % (zero_wire,))
         self.zero_wire = zero_wire
+        self.zero_threshold = config.get_positive_float(
+            "MXNET_TPU_ZERO_WIRE_THRESHOLD")
         if zero_min_size is None:
             zero_min_size = config.get_nonneg_int("MXNET_TPU_ZERO_MIN_SIZE")
         self.zero_min_size = int(zero_min_size)
@@ -707,9 +716,15 @@ class TrainStep:
 
     def _opt_state_to_zero(self, opt_state, plan):
         """Every optimizer-state leaf of a planned param as this rank's row
-        of its zero layout; leaves in that layout already are kept."""
+        of its zero layout; leaves in that layout already are kept. Under
+        the 2-bit wire the residual rows are kept where they fit the plan
+        and made zeros where not; under the raw wire they are dropped."""
+        if not plan:
+            return opt_state
         out = {}
         for k, v in opt_state.items():
+            if k == self._ZERO_RES:
+                continue
             if k not in plan:
                 out[k] = v
                 continue
@@ -722,6 +737,14 @@ class TrainStep:
 
             out[k] = type(v)(row(x) for x in v) \
                 if isinstance(v, (tuple, list)) else row(v)
+        if self.zero_wire == "2bit":
+            res = opt_state.get(self._ZERO_RES) or {}
+            out[self._ZERO_RES] = {
+                k: res[k] if k in res
+                and tuple(res[k].shape) == (1, plan[k][3])
+                else torch.zeros((1, plan[k][3]), dtype=torch.float32,
+                                 device=self.device)
+                for k in plan}
         return out
 
     def logical_opt_state(self, opt_state, params=None, param_rules=None):
@@ -736,7 +759,7 @@ class TrainStep:
             else {}
         out = {}
         for k, v in opt_state.items():
-            if k == self._SENT:
+            if k in (self._SENT, self._ZERO_RES):
                 continue
             if k not in plan:
                 out[k] = v
@@ -1087,7 +1110,10 @@ class TrainStep:
         armed = self.sentinel != "off"
         if armed:
             opt_state = self._ensure_sentinel(opt_state)
-        core_opt = {k: v for k, v in opt_state.items() if k != self._SENT}
+        core_opt = {k: v for k, v in opt_state.items()
+                    if k not in (self._SENT, self._ZERO_RES)}
+        wire = opt_state.get(self._ZERO_RES) \
+            if self.zero_wire == "2bit" else None
         loss, grads, aux_updates, outs = self._value_and_grad(params, aux,
                                                               inputs)
         plan = self.zero_plan(params)
@@ -1099,7 +1125,8 @@ class TrainStep:
         if self.sentinel == "skip":
             # the way back for an unhealthy step: the update is in place
             with torch.no_grad():
-                before = [(v, v.clone()) for d in (params, core_opt, aux)
+                before = [(v, v.clone())
+                          for d in (params, core_opt, aux, wire or {})
                           for v in _tensors(d)]
             if not isinstance(step_no, torch.Tensor):
                 step_no = torch.full((), int(step_no), dtype=torch.int32,
@@ -1107,7 +1134,7 @@ class TrainStep:
         if armed:
             f_loss, f_grad = self._health_terms(loss, grads, plan)
         if plan:
-            self._zero_update(params, grads, core_opt, step_no, plan)
+            self._zero_update(params, grads, core_opt, step_no, plan, wire)
         else:
             self.optimizer.apply(params, grads, core_opt, step_no)
         with torch.no_grad():
@@ -1152,13 +1179,26 @@ class TrainStep:
             return new_carry, (loss, outs, stats)
         return new_carry, (loss, outs)
 
-    def _zero_update(self, params, grads, core_opt, step_no, plan):
+    def _zero_update(self, params, grads, core_opt, step_no, plan,
+                     wire=None):
         """The update of a ZeRO plan: each planned param's ``(1, chunk)``
         row updated with its gradient row and its state row, then the rows
         all-gathered into the param (in place); every other param as the
         replicated update. The update is elementwise, so a row's values are
-        those of the replicated update."""
+        those of the replicated update. ``wire`` (the 2-bit wire's residual
+        rows) first sends each gradient row through the packed codes in
+        f32, its residual updated in place."""
         from .mesh import all_gather_rows
+
+        if wire is not None:
+            from ..kvstore import two_bit_round_trip_core
+
+            with torch.no_grad():
+                for k in plan:
+                    q, r = two_bit_round_trip_core(
+                        grads[k].float(), wire[k], self.zero_threshold)
+                    wire[k].copy_(r)
+                    grads[k] = q
 
         rows = {k: (self._zrow(w.detach(), *plan[k][2:]) if k in plan
                     else w) for k, w in params.items()}

@@ -645,13 +645,17 @@ def test_fused_gradients_match_unfused_in_the_port(batch):
     (dict(zero_wire="2bit"), ("MXNET_TPU_ZERO_WIRE", "2bit"), "zero_wire")])
 def test_unported_train_step_options_raise_by_name(monkeypatch, kw, knob,
                                                    name):
+    """The option that raised by name while ZeRO's 2-bit wire was not
+    ported: now taken from the argument and from its knob, a value
+    outside raw|2bit still raising (tests/test_torch_dist.py holds what
+    the wire does)."""
     sym = tresnet.resnet(fused=True, **TINY)
-    with pytest.raises(MXNetError, match="%s.*not ported" % name):
-        TrainStep(sym, OPT, device="cpu", **kw)
-    if knob is not None:
-        monkeypatch.setenv(*knob)
-        with pytest.raises(MXNetError, match="%s.*not ported" % name):
-            TrainStep(sym, OPT, device="cpu")
+    assert getattr(TrainStep(sym, OPT, device="cpu", **kw), name) == "2bit"
+    monkeypatch.setenv(*knob)
+    ts = TrainStep(sym, OPT, device="cpu")
+    assert getattr(ts, name) == "2bit" and ts.zero_threshold == 0.5
+    with pytest.raises(MXNetError, match="%s=.*must be raw\\|2bit" % name):
+        TrainStep(sym, OPT, device="cpu", **{name: "3bit"})
 
 
 def test_malformed_knob_raises_with_its_name(monkeypatch):

@@ -174,12 +174,29 @@ def test_device_queue_worker_error_surfaces(mesh):
 
 
 def test_device_queue_distributed_placement_raises(mesh):
-    """The multi-host tier is not ported: the placement error is raised by
-    the consumer, not swallowed."""
+    """``distributed=True``, refused before, places each worker's own rows
+    whole (here one worker); a local batch that changes mid-stream raises
+    on the consumer, not swallowed (two workers: tests/test_torch_dist.py)."""
     x, y = _data(n=64)
     with DeviceQueueIter(mx.io.NDArrayIter(x, y, batch_size=32), mesh=mesh,
                          distributed=True) as dq:
-        with pytest.raises(MXNetError, match="distributed=True"):
+        first = dq.next().data[0].asnumpy()
+        np.testing.assert_array_equal(first, x[:32])
+
+    class _Shrinking(mx.io.NDArrayIter):
+        """Batches of 32 rows, then one of 16."""
+
+        def next(self):
+            batch = super().next()
+            if self.cursor > 0:
+                batch.data = [d[:16] for d in batch.data]
+                batch.label = [lb[:16] for lb in batch.label]
+            return batch
+
+    with DeviceQueueIter(_Shrinking(x, y, batch_size=32), mesh=mesh,
+                         distributed=True) as dq:
+        dq.next()
+        with pytest.raises(MXNetError, match="changed mid-stream"):
             dq.next()
 
 

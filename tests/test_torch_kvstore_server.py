@@ -175,15 +175,27 @@ def test_factory_routes_dist_async_to_server(server, monkeypatch):
     np.testing.assert_array_equal(out, 1.0)
     kv.close()
     monkeypatch.delenv("MXNET_PS_SERVER_URI")
-    with pytest.raises(MXNetError, match="'dist_async' is not ported"):
-        tmx.kv.create("dist_async")
+    # serverless: the collective store, with its warning
+    with pytest.warns(UserWarning, match="synchronous semantics"):
+        kv = tmx.kv.create("dist_async")
+    assert isinstance(kv, tmx.kv.DistKVStore) and kv.type == "dist_async"
+    kv.set_barrier_before_exit(False)
+    # the scheduler topology: dist_async discovers the servers through the
+    # tracker's rendezvous, dist_sync is refused with the JAX message
+    from mxnet_tpu_torch import tracker
+
     monkeypatch.setenv("DMLC_PS_ROOT_URI", "127.0.0.1")
     monkeypatch.setenv("DMLC_PS_ROOT_PORT", "9")
     monkeypatch.setenv("DMLC_NUM_SERVER", "1")
-    with pytest.raises(MXNetError, match="tracker.*item 10"):
-        tmx.kv.create("dist_async")
-    with pytest.raises(MXNetError, match="'dist_sync' is not ported"):
-        tmx.kv.create("dist_sync")
+    monkeypatch.setattr(tracker, "discover_server_uris",
+                        lambda timeout=60.0: [server.addr])
+    monkeypatch.setattr(tracker, "worker_client", lambda: None)
+    kv = tmx.kv.create("dist_async")
+    assert isinstance(kv, tks.ServerKVStore) and kv._uris == [server.addr]
+    kv.close()
+    for mx in (tmx, jmx):
+        with pytest.raises(mx.MXNetError, match="scheduler topology"):
+            mx.kv.create("dist_sync")
 
 
 def _mlp_fit(mx, kvstore, x, y, params, epochs, batch):
@@ -582,8 +594,9 @@ def test_item10_modes_raise_by_name(server1, monkeypatch, tmp_path):
     """Item 10's recovery half is ported (restore, rollback, rediscovery,
     elastic barriers, the chaos server and rpc hooks: each builds or
     answers here, its behaviour is held below and in
-    tests/test_torch_self_healing.py); ZeRO value sharding still raises,
-    naming item 10c."""
+    tests/test_torch_self_healing.py), and so is ZeRO value sharding over
+    the servers, which raised by name before (the ``test_zero_server_*``
+    cases hold what it does)."""
     srv = server1
     with pytest.raises(AttributeError):
         srv.restore_from_checkpoint(None)          # it reads the handle
@@ -610,8 +623,9 @@ def test_item10_modes_raise_by_name(server1, monkeypatch, tmp_path):
         other.shutdown()
     monkeypatch.delenv("MXNET_MAX_RESTARTS")
     monkeypatch.setenv("MXNET_TPU_ZERO_SERVER", "1")
-    with pytest.raises(MXNetError, match="ZERO_SERVER.*item 10c"):
-        tks.ServerKVStore([srv.addr, srv.addr])
+    kv = tks.ServerKVStore([srv.addr, srv.addr])
+    assert kv._zero and kv._zero_min == 1024
+    kv.close()
     monkeypatch.delenv("MXNET_TPU_ZERO_SERVER")
     from mxnet_tpu_torch import chaos, tracker
 
@@ -783,9 +797,10 @@ def test_compression_unknown_keys_rejected_loudly():
     with pytest.raises(MXNetError, match="unknown key"):
         tmx.kv.create("local").set_gradient_compression(
             {"type": "2bit", "treshold": 1})
-    # valid params on the in-process store: item 10
-    with pytest.raises(MXNetError, match="item 10"):
-        tmx.kv.create("local").set_gradient_compression({"type": "2bit"})
+    # valid params on the in-process store: the default threshold
+    kv = tmx.kv.create("local")
+    kv.set_gradient_compression({"type": "2bit"})
+    assert kv._compression_params == {"type": "2bit", "threshold": 0.5}
     assert validate_compression_params({"type": "2bit"}) == \
         {"type": "2bit", "threshold": 0.5}
 
@@ -1045,10 +1060,14 @@ def test_pipeline_env_knob_validated(server1, monkeypatch):
     ("MXNET_PS_ADVERTISE_HOST", "10.0.0.1")])
 def test_item10_knobs_raise_when_set(server1, monkeypatch, knob, value):
     """The knobs of item 10's parts are registered with the JAX package's
-    defaults. Those of the entry point (item 10c) raise by name at the
-    server and at the client when set, never a silent no-op; the
-    rediscovery timeout is ported: the client reads it (and a malformed
-    value raises naming it)."""
+    defaults. Those of the entry point, which raised by name before, are
+    read by it (``test_entrypoint_*`` hold what they do): a server and a
+    client build with them set. The rediscovery timeout is read by the
+    client (and a malformed value raises naming it)."""
+    from mxnet_tpu import config as jconfig
+    from mxnet_tpu_torch import config as tconfig
+
+    assert tconfig.KNOBS[knob][0] == jconfig.KNOBS[knob][0]
     monkeypatch.setenv(knob, value)
     if knob == "MXNET_KVSTORE_REDISCOVER_TIMEOUT":
         kv = tks.ServerKVStore(server1.addr)
@@ -1058,10 +1077,9 @@ def test_item10_knobs_raise_when_set(server1, monkeypatch, knob, value):
         with pytest.raises(Exception, match=knob):
             tks.ServerKVStore(server1.addr)
         return
-    with pytest.raises(MXNetError, match=knob + ".*item 10c"):
-        tks.KVStoreServer(device="cpu")
-    with pytest.raises(MXNetError, match=knob + ".*item 10c"):
-        tks.ServerKVStore(server1.addr)
+    assert tconfig.get(knob) == value
+    tks.KVStoreServer(device="cpu").shutdown()
+    tks.ServerKVStore(server1.addr).close()
 
 
 @bounded
@@ -1430,3 +1448,328 @@ def test_elastic_checkpoint_pulls_inside_the_quiesced_window(tmp_path,
     assert set(t["states"]) == set(j["states"]) == set(params)
     for k in params:
         _close(t["states"][k], j["states"][k], "momentum " + k)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO value sharding over the servers (tests/test_kvstore_server.py's
+# test_zero_server_* cases), the entry point and the retries
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def zero_server_env(monkeypatch):
+    monkeypatch.setenv("MXNET_TPU_ZERO_SERVER", "1")
+    monkeypatch.setenv("MXNET_TPU_ZERO_MIN_SIZE", "8")
+
+
+def _local_sgd_mom(w0, grads, lr=0.1, momentum=0.9):
+    """The JAX package's local updater over the gradients."""
+    opt = jmx.optimizer.create("sgd", learning_rate=lr, momentum=momentum)
+    upd = jmx.optimizer.get_updater(opt)
+    w = jmx.nd.array(w0)
+    for g in grads:
+        upd("w", jmx.nd.array(g), w)
+    return w.asnumpy()
+
+
+def _zero_train(ks, addrs, w0, grads):
+    kv = ks.ServerKVStore(addrs)
+    kv.init("w", w0)
+    kv.init("tiny", np.zeros((3,), np.float32))  # 3 < the min size
+    kv.set_optimizer("sgd", learning_rate=0.1, momentum=0.9)
+    for g in grads:
+        kv.push("w", g)
+    out = np.empty_like(w0)
+    kv.pull("w", out=out)
+    kv.close()
+    return out
+
+
+@bounded
+def test_zero_server_value_shards_and_matches_local(zero_server_env):
+    """A large dense key's value and optimizer state are split over both
+    servers (half each), push and pull keep the server-side optimizer's
+    contract (the JAX local updater's weights), a small key stays whole
+    on its crc32 server."""
+    srv = [_server(num_workers=1) for _ in range(2)]
+    try:
+        rng = np.random.RandomState(0)
+        w0 = rng.randn(4, 5).astype(np.float32)
+        grads = [rng.randn(4, 5).astype(np.float32) for _ in range(4)]
+        out = _zero_train(tks, [s.addr for s in srv], w0, grads)
+        _close(out, _local_sgd_mom(w0, grads), "w")
+        for s in srv:
+            assert s._store["w"].numel() == 10
+            assert s._updater.states["w"].size == 10
+        assert ("tiny" in srv[0]._store) != ("tiny" in srv[1]._store)
+    finally:
+        _stop(*srv)
+
+
+@bounded
+def test_zero_server_jax_client_on_port_servers_matches_port_client(
+        zero_server_env):
+    """The cross case: the JAX client under ZeRO splits a key over two
+    port servers exactly as the port's client does, and both pull the
+    same weights."""
+    rng = np.random.RandomState(2)
+    w0 = rng.randn(6, 7).astype(np.float32)
+    grads = [rng.randn(6, 7).astype(np.float32) for _ in range(3)]
+    got = {}
+    for name, ks in (("jax", jks), ("port", tks)):
+        srv = [_server(num_workers=1) for _ in range(2)]
+        try:
+            got[name] = _zero_train(ks, [s.addr for s in srv], w0, grads)
+            assert [s._store["w"].numel() for s in srv] == [21, 21]
+        finally:
+            _stop(*srv)
+    np.testing.assert_array_equal(got["jax"], got["port"])
+    _close(got["port"], _local_sgd_mom(w0, grads), "w")
+
+
+@bounded
+def test_zero_server_states_merge_full_and_resplit_on_new_topology(
+        zero_server_env, tmp_path):
+    """save_optimizer_states joins the servers' state slices whole (a file
+    independent of the server count); loading it under three servers
+    splits it three ways and training continues as the local updater."""
+    rng = np.random.RandomState(1)
+    w0 = rng.randn(6, 3).astype(np.float32)
+    grads = [rng.randn(6, 3).astype(np.float32) for _ in range(3)]
+    fname = str(tmp_path / "zero.states")
+    two = [_server(num_workers=1) for _ in range(2)]
+    try:
+        kv = tks.ServerKVStore([s.addr for s in two])
+        kv.init("w", w0)
+        kv.set_optimizer("sgd", learning_rate=0.1, momentum=0.9)
+        for g in grads[:2]:
+            kv.push("w", g)
+        mid = np.empty_like(w0)
+        kv.pull("w", out=mid)
+        kv.save_optimizer_states(fname)
+        kv.close()
+    finally:
+        _stop(*two)
+    saved = pickle.loads(open(fname, "rb").read())
+    assert np.asarray(saved["w"]).shape == (6, 3)
+    three = [_server(num_workers=1) for _ in range(3)]
+    try:
+        kv = tks.ServerKVStore([s.addr for s in three])
+        kv.init("w", mid)
+        kv.set_optimizer("sgd", learning_rate=0.1, momentum=0.9)
+        kv.load_optimizer_states(fname)
+        for s in three:
+            assert s._updater.states["w"].size == 6
+        kv.push("w", grads[2])
+        out = np.empty_like(w0)
+        kv.pull("w", out=out)
+        _close(out, _local_sgd_mom(w0, grads), "w")
+        kv.close()
+    finally:
+        _stop(*three)
+
+
+@bounded
+def test_zero_server_restore_from_checkpoint_slices(zero_server_env,
+                                                    tmp_path):
+    """A respawned server restores exactly its flat slice of a split key's
+    weights and optimizer state, as the JAX package's server does."""
+    from mxnet_tpu.checkpoint import CheckpointManager
+
+    w = np.arange(20, dtype=np.float32).reshape(4, 5)
+    mom = -np.arange(20, dtype=np.float32).reshape(4, 5)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(epoch=1, weights={"arg:w": w, "arg:tiny": np.ones((3,))},
+             optimizer_states=pickle.dumps({"w": mom}),
+             optimizer_config=("sgd", {"learning_rate": 0.1,
+                                       "momentum": 0.9}, {}))
+    srv = tks.KVStoreServer(device="cpu")
+    jsrv = jks.KVStoreServer()
+    try:
+        n = srv.restore_from_checkpoint(mgr.latest(), shard_rank=1,
+                                        num_shards=2)
+        jn = jsrv.restore_from_checkpoint(mgr.latest(), shard_rank=1,
+                                          num_shards=2)
+        assert n == jn >= 1
+        np.testing.assert_array_equal(srv._store["w"].numpy(),
+                                      w.reshape(-1)[10:])
+        np.testing.assert_array_equal(srv._updater.states["w"].asnumpy(),
+                                      mom.reshape(-1)[10:])
+        assert sorted(srv._store) == sorted(jsrv._store)
+    finally:
+        srv.shutdown()
+        jsrv.shutdown()
+
+
+@bounded
+def test_zero_server_knob_validation(server, monkeypatch):
+    """A malformed MXNET_TPU_ZERO_SERVER raises at the client's
+    construction, even for one server."""
+    monkeypatch.setenv("MXNET_TPU_ZERO_SERVER", "banana")
+    with pytest.raises(MXNetError, match="MXNET_TPU_ZERO_SERVER"):
+        tks.ServerKVStore(server.addr)
+
+
+def _entry_env(**kw):
+    env = dict(os.environ)
+    for k in list(env):
+        if k.startswith(("DMLC_", "MXNET_PS_", "MXNET_CHECKPOINT")):
+            del env[k]
+    env.update(DMLC_ROLE="server", MXNET_KVSTORE_SERVER="1",
+               MXNET_PS_BIND_PORT="0", MXNET_PS_SERVER_DEVICE="cpu",
+               PYTHONPATH=os.path.dirname(os.path.dirname(
+                   os.path.abspath(__file__))))
+    env.update(kw)
+    return env
+
+
+def _entry_point(env):
+    import subprocess
+    import sys
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.kvstore_server"],
+        env=env, stdout=subprocess.PIPE, text=True)
+
+
+@bounded
+def test_entrypoint_serves_when_opted_in(tmp_path):
+    """``python -m mxnet_tpu_torch.kvstore_server`` under DMLC_ROLE=server
+    and MXNET_KVSTORE_SERVER=1 serves (bound as MXNET_PS_BIND_* say); a
+    client of either package trains a key through it, then stops it."""
+    proc = _entry_point(_entry_env(MXNET_PS_BIND_HOST="127.0.0.1"))
+    try:
+        line = proc.stdout.readline()
+        assert "listening on 127.0.0.1:" in line, line
+        addr = line.strip().rsplit(" ", 1)[-1]
+        kv = jks.ServerKVStore(addr)
+        kv.init("w", np.full((2,), 5.0, np.float32))
+        kv.set_optimizer("sgd", learning_rate=1.0)
+        kv.push("w", np.ones((2,), np.float32))
+        out = np.empty((2,), np.float32)
+        kv.pull("w", out=out)
+        np.testing.assert_allclose(out, 4.0)  # 5 - 1.0 * grad
+        kv.stop_server()
+        assert proc.wait(timeout=30) == 0
+    finally:
+        proc.kill()
+        proc.stdout.close()
+
+
+@bounded
+def test_entrypoint_restores_checkpoint_on_fresh_start(tmp_path):
+    """A server started against a checkpoint directory restores from it
+    before it serves, restart count or not, and says so on its lifecycle
+    line."""
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+
+    w = np.arange(6, dtype=np.float32)
+    CheckpointManager(str(tmp_path / "ck")).save(
+        4, weights={"arg:w": w},
+        optimizer_states=pickle.dumps({"w": np.ones((6,), np.float32)}),
+        optimizer_config=("sgd", {"learning_rate": 0.1, "momentum": 0.9},
+                          {}))
+    proc = _entry_point(_entry_env(MXNET_CHECKPOINT_DIR=str(tmp_path
+                                                            / "ck")))
+    try:
+        line = proc.stdout.readline()
+        assert "[lifecycle] event=restored-from role=server rank=0" in line \
+            and "keys=1 epoch=4" in line, line
+        line = proc.stdout.readline()
+        assert "listening on" in line, line
+        kv = tks.ServerKVStore(line.strip().rsplit(" ", 1)[-1])
+        out = np.empty((6,), np.float32)
+        kv.pull("w", out=out)  # no init: the store is restored
+        np.testing.assert_array_equal(out, w)
+        kv.stop_server()
+        assert proc.wait(timeout=30) == 0
+        kv.close()
+    finally:
+        proc.kill()
+        proc.stdout.close()
+
+
+@pytest.mark.parametrize("role,opt_in", [("worker", "1"), ("server", "0"),
+                                         ("scheduler", "0")])
+def test_entrypoint_exits_zero_without_its_role(role, opt_in, monkeypatch):
+    """A worker role returns, a server without MXNET_KVSTORE_SERVER=1 and a
+    scheduler without the tracker's environment exit 0, serving
+    nothing."""
+    for k, v in _entry_env(DMLC_ROLE=role,
+                           MXNET_KVSTORE_SERVER=opt_in).items():
+        if k.startswith(("DMLC_", "MXNET_KVSTORE_SERVER")):
+            monkeypatch.setenv(k, v)
+    monkeypatch.delenv("DMLC_PS_ROOT_URI", raising=False)
+    if role == "worker":
+        assert tks._init_kvstore_server_module() is None
+        return
+    with pytest.raises(SystemExit) as e:
+        tks._init_kvstore_server_module()
+    assert e.value.code == 0
+
+
+@bounded
+def test_push_retry_after_reply_loss_is_idempotent(server, chaos_env):
+    """The push is applied, its reply lost, the retry carries the same
+    seqno: acked, not applied twice."""
+    chaos_env("rpc:drop@op=push,phase=reply,n=1")
+    kv = tks.ServerKVStore(server.addr)
+    kv.init("w", np.zeros((3,), np.float32))
+    kv.push("w", np.ones((3,), np.float32))
+    out = np.empty((3,), np.float32)
+    kv.pull("w", out=out)
+    np.testing.assert_array_equal(out, 1.0)
+    assert server._pushes_applied == 1
+    kv.close()
+
+
+@bounded
+def test_push_retry_after_send_drop_applies_once(server, chaos_env):
+    chaos_env("rpc:drop@op=push,n=1")
+    kv = tks.ServerKVStore(server.addr)
+    kv.init("w", np.zeros((2,), np.float32))
+    kv.push("w", np.full((2,), 5.0, np.float32))
+    out = np.empty((2,), np.float32)
+    kv.pull("w", out=out)
+    np.testing.assert_array_equal(out, 5.0)
+    kv.close()
+
+
+@bounded
+def test_pull_retries_transparently(server, chaos_env):
+    chaos_env("rpc:drop@op=pull,n=1")
+    kv = tks.ServerKVStore(server.addr)
+    kv.init("w", np.full((2,), 3.0, np.float32))
+    out = np.empty((2,), np.float32)
+    kv.pull("w", out=out)
+    np.testing.assert_array_equal(out, 3.0)
+    kv.close()
+
+
+@bounded
+def test_error_replies_are_never_retried(server, chaos_env):
+    """A rejection is not a transport failure: it lands on the push's
+    future once, and the data plane stays failed."""
+    chaos_env("rpc:drop@op=pull,n=0")
+    kv = tks.ServerKVStore(server.addr)
+    before = server._pushes_applied
+    kv.push("never_inited", np.ones((2,), np.float32))
+    with pytest.raises(MXNetError, match="push before init"):
+        kv.wait_outstanding()
+    assert server._pushes_applied == before
+    with pytest.raises(MXNetError, match="asynchronous push failed"):
+        kv.push("w", np.ones((2,), np.float32))
+    kv.close()
+
+
+@bounded
+def test_dead_shard_error_names_the_shard(monkeypatch):
+    monkeypatch.setenv("MXNET_KVSTORE_RPC_RETRIES", "1")
+    monkeypatch.setenv("MXNET_KVSTORE_RECONNECT_DEADLINE", "0.3")
+    srv = _server(num_workers=1)
+    kv = tks.ServerKVStore(srv.addr)
+    kv.init("w", np.zeros((2,), np.float32))
+    srv.shutdown()
+    with pytest.raises(MXNetError, match=r"push.*shard 0 \(%s\).*failed "
+                       r"after 2" % srv.addr):
+        kv.push("w", np.ones((2,), np.float32))
+        kv.wait_outstanding()
+    kv.close()

@@ -42,6 +42,7 @@ momentum (lr 0.1, momentum 0.9, wd 1e-4) and adam (lr 0.01, wd 1e-4):
 import contextlib
 import os
 import pickle
+import warnings
 
 import numpy as np
 import pytest
@@ -380,7 +381,19 @@ def _iter():
     (dict(group2ctxs={"a": mx.cpu()}), "group2ctxs"),
     (dict(compression_params={"type": "2bit"}), "compression_params")])
 def test_unported_module_arguments_raise_by_name(kw, name):
+    """What is still not ported raises by name; ``compression_params``,
+    refused before, now reaches the kvstore's
+    ``set_gradient_compression`` (the default threshold filled in)."""
     kw.setdefault("context", mx.cpu())
+    if name == "compression_params":
+        mod = mx.mod.Module(_small(), **kw)
+        it = _iter()
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params()
+        mod.init_optimizer(kvstore=mx.kv.create("local"))
+        assert mod._kvstore._compression_params == \
+            {"type": "2bit", "threshold": 0.5}
+        return
     with pytest.raises(MXNetError, match="%s.*not ported" % name):
         mx.mod.Module(_small(), **kw)
 
@@ -416,12 +429,96 @@ def test_unported_knobs_raise_by_name(monkeypatch, tmp_path, env, name):
     assert seen == list(range(len(seen))) and seen
 
 
+@pytest.fixture
+def own_group():
+    """Destroys the process group a test made in this process."""
+    import torch.distributed as dist
+
+    started = not dist.is_initialized()
+    yield
+    if started and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _probe_module(pkg, kvstore, optimizer="sgd"):
+    """C23's probe: a one-layer FullyConnected + SoftmaxOutput at batch 8,
+    ``init_optimizer(kvstore=...)``; the optimizer's rescale_grad and the
+    warnings."""
+    data = pkg.sym.var("data")
+    net = pkg.sym.FullyConnected(data, num_hidden=4, name="fc")
+    net = pkg.sym.SoftmaxOutput(net, name="softmax")
+    mod = pkg.mod.Module(net, context=pkg.cpu())
+    mod.bind([("data", (8, 6))], [("softmax_label", (8,))])
+    mod.init_params()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mod.init_optimizer(kvstore=kvstore, optimizer=optimizer)
+    return mod._optimizer.rescale_grad, [str(c.message) for c in caught
+                                         if "rescale_grad" in str(c.message)]
+
+
+@pytest.mark.parametrize("kind", ["dist_async", "dist_sync"])
+def test_dist_rescale_grad_matches_jax(kind, monkeypatch, own_group):
+    """C23: under a ``dist`` type with ``_async`` the batch is multiplied
+    by the workers (JAX ``module/module.py:276-277``): with an in-process
+    server of 2 workers (``MXNET_PS_SERVER_URI``, ``DMLC_NUM_WORKER=2``)
+    both packages give 1/(8 * 2) = 0.0625; ``dist_sync`` (one worker
+    here) 1/8. A manual optimizer warns in the JAX text."""
+    from mxnet_tpu import kvstore_server as jks
+    from mxnet_tpu_torch import kvstore_server as tks
+
+    for k in list(os.environ):
+        if k.startswith(("DMLC_", "MXNET_TPU_", "MXNET_PS_")):
+            monkeypatch.delenv(k)
+    servers = []
+    if kind == "dist_async":
+        servers = [tks.KVStoreServer(num_workers=2, device="cpu"),
+                   jks.KVStoreServer(num_workers=2)]
+        for srv in servers:
+            srv.serve_in_background()
+        monkeypatch.setenv("DMLC_NUM_WORKER", "2")
+    try:
+        got = {}
+        for i, pkg in enumerate((mx, jmx)):
+            if servers:
+                monkeypatch.setenv("MXNET_PS_SERVER_URI", servers[i].addr)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                got[pkg] = _probe_module(pkg, kind)
+                opt = pkg.optimizer.SGD(rescale_grad=1.0)
+                got[pkg, "warn"] = _probe_module(pkg, "local", opt)[1]
+            if servers:
+                assert got[pkg][0] == 1.0 / 16
+    finally:
+        for srv in servers:
+            srv.shutdown()
+    assert got[mx][0] == got[jmx][0] == \
+        (1.0 / 16 if kind == "dist_async" else 1.0 / 8)
+    assert len(got[mx, "warn"]) == 1
+    assert got[mx, "warn"] == got[jmx, "warn"]
+    assert "1.0/batch_size/num_workers (1.0 vs. 0.125)" in got[mx, "warn"][0]
+
+
 @pytest.mark.parametrize("kvstore", ["dist_sync", "dist_async"])
-def test_other_kvstores_raise_by_name(kvstore):
-    mod = mx.mod.Module(_small(), context=mx.cpu())
-    with pytest.raises(MXNetError, match="kvstore='%s' is not ported"
-                       % kvstore):
-        mod.fit(_iter(), num_epoch=1, kvstore=kvstore)
+def test_other_kvstores_raise_by_name(kvstore, own_group):
+    """The ``dist_*`` types, refused before, train: alone in its job a
+    worker runs the fused step on a one-rank ``dist`` mesh, and trains as
+    the local store does (rescale 1/batch, one worker)."""
+    got = {}
+    for kv in ("local", kvstore):
+        mod = mx.mod.Module(_small(), context=mx.cpu())
+        mx.random.seed(0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            mod.fit(_iter(), num_epoch=1, kvstore=kv,
+                    optimizer_params=(("learning_rate", 0.1),))
+        got[kv] = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        if kv != "local":
+            assert type(mod._kvstore).__name__ == "DistKVStore"
+            assert mod._fused is not None and mod._fused.distributed
+            assert mod._optimizer.rescale_grad == 1.0 / BATCH
+    for k, v in got["local"].items():
+        _close(got[kvstore][k], v, k)
 
 
 def test_monitor_and_sparse_raise_by_name():

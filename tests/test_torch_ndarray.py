@@ -565,10 +565,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.module.sequential_module, "
             "mxnet_tpu_torch.module.python_module, "
             "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.health, "
-            "mxnet_tpu_torch.embedding.checkpoint, chip_smoke\n"
+            "mxnet_tpu_torch.embedding.checkpoint, mxnet_tpu_torch.dist, "
+            "mxnet_tpu_torch.launch, chip_smoke\n"
             "assert all(hasattr(mxnet_tpu_torch, n) for n in ('profiler', "
             "'ir', 'serving', 'embedding', 'kvstore_server', 'tracker', "
-            "'chaos', 'rnd', 'Executor', 'num_gpus', 'cpu_pinned'))\n"
+            "'chaos', 'rnd', 'Executor', 'num_gpus', 'cpu_pinned', "
+            "'dist'))\n"
             "import torch\n"
             "assert not torch.cuda.is_initialized()\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

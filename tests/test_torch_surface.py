@@ -67,8 +67,6 @@ JAX_ONLY = {
     "kernels.fused_block": {"mxu_plan": "the TPU MXU blocking plan"},
     "kernels.flash_attention": {"effective_blocks": "the Pallas grid's "
                                 "block clamp"},
-    "kvstore_server": {"zero_slice_pytree": "JAX pytrees",
-                       "zero_value_sharded": "JAX sharded arrays"},
     "ops.registry": {"apply_op": "the JAX jitted-op cache",
                      "apply_op_with_key": "the JAX jitted-op cache"},
     "ops.nn": {"crop_op": "op implementation functions: the registry's "
@@ -87,13 +85,9 @@ JAX_ONLY = {
     "ir.remat": {"policy_for": "the jax.checkpoint policies"},
 }
 
-# parts of ported modules that ROADMAP.md still queues
-_ITEM10C = "item 10c (the multi-host training plane: dist_*, the launcher)"
-NOT_PORTED = {
-    "": {"dist": _ITEM10C},
-    "kvstore": {"DistKVStore": _ITEM10C, "two_bit_pack_core": _ITEM10C,
-                "two_bit_round_trip_core": _ITEM10C},
-}
+# parts of ported modules that ROADMAP.md still queues: none since the
+# multi-process training plane (dist, the dist_* kvstores, the 2-bit cores)
+NOT_PORTED = {}
 
 
 def _port_modules():
@@ -569,12 +563,8 @@ def test_row_tile_knob_and_setter_raise_by_name(monkeypatch):
 # not list: the reader's part of the file is not ported, or the knob has
 # nothing to act on there
 KNOB_EXCEPTIONS = {
-    "MXNET_TPU_ZERO_WIRE_THRESHOLD": "only the two-bit ZeRO wire reads it, "
-    "and that wire raises by name (parallel/spmd.py)",
     "MXNET_SERVE_MAX_EXECUTABLES": "the predictor keeps no compiled program "
     "a bucket (serving/predictor.py)",
-    "DMLC_ROLE": "the server entry point raises by name "
-    "(kvstore_server.py, item 10c)",
     "MXNET_TPU_JAX_TRACE_DIR": "JAX traces",
 }
 
