@@ -59,6 +59,26 @@ the kernels are built for sm_90a) and ``nvcc``. It
    that a forward launches B1 52 times, then serves 48 seeded requests of
    1..16 images from 4 threads and prints images/s, latency, the forward
    time per bucket, the device's busy share and peak memory;
+6b. drives the host runtime and the C predict ABI (``host_runtime_phase``):
+   builds ``src/``'s engine, storage pool and RecordIO, and the port's
+   predict library, with g++ (their seconds, g++'s version, whether the
+   host has ``Python.h`` and a shared libpython); runs the random-
+   dependency stress on ``engine.get()``, which must be the native
+   ``ThreadedEngine`` (pushed equal to executed), reuses a pooled buffer
+   (a hit), writes 8 record shards natively and reads them back through
+   the data plane's readers on both routes bit for bit (records/s each);
+   serves the fused ResNet-50 v2 in fp32 (Xavier, seed 0, written by
+   ``save_checkpoint``) through the C ABI in this process (ctypes,
+   ``dev_type`` 2) at batches 1 and 16: 52 B1 launches a forward, the
+   outputs bit for bit the Python ``AOTPredictor``'s (or within 1e-5 of
+   the largest where cuDNN picks another algorithm), at batch 1 within
+   1e-4 of the port's CPU forward, images/s of ``MXPredForward`` beside
+   ``AOTPredictor.predict``; then a C program compiled by gcc against
+   ``src/c_predict_api.h`` and the port's library serves the same files
+   at batch 16 as a child process, started before the engine and records
+   checks so that its start overlaps them, its outputs bit for bit the
+   in-process ABI's (its seconds to the first output, interpreter start-up
+   included, and its forward time);
 7. holds the two backward kernels, B6 (dq) and B7 (dk, dv), against the
    plain backward in the same way (D 8, 32, 96, 192 and 256 padded too,
    D 320, 384, 512 and 1024 on the wide route),
@@ -141,18 +161,22 @@ the kernels are built for sm_90a) and ``nvcc``. It
    ``train_mesh(mp=2)`` (dp 1 x mp 2) as 2 gloo ranks sharing the card,
    each with half the heads, vocab rows and d_ff, at batch (4, 2049):
    one fp32 step (TF32 off) with the loss within 1e-5 and every unsharded
-   gradient within 1e-4 relative L2 of one device's, then 2 warm-up and 3
+   gradient within 1e-4 relative L2 of one device's, then 1 warm-up and 2
    timed bf16 steps (sgd with momentum) beside one device's in the same
    call, with 12 launches of each of B5, B6 and B7 a step on each rank,
    the param bytes a rank at their exact share (0.5097), 2 sums a block
    (``block_collective_counts``) and the replicated params bit for bit
    equal on the ranks; then serves through ``GenerateServer`` over
    ``GenerativePredictor(mesh=)`` on the leader (rank 0) while rank 1
-   follows in lockstep: step 4's workload (every served row within
-   ``LOGIT_TOL`` of the one-device forward, chains against the one-device
-   server's by the near-tie rule) and the shared-prefix trace with the
-   cache on (its exact counts), half the KV bytes a rank, 12 B5 launches a
-   prefill on each rank, tokens/s and TTFT beside one device's;
+   follows in lockstep: the first 8 of step 4's prompts (every served row
+   within ``LOGIT_TOL`` of the one-device forward, chains against the
+   one-device server's by the near-tie rule) and the shared-prefix trace
+   with the cache on (its exact counts), half the KV bytes a rank, 12 B5
+   launches a prefill on each rank, tokens/s and TTFT beside one device's.
+   The gloo ranks of 15, 16, 31, 35 and 36 are one spawn of two processes
+   (``ranks_phase``, before 15: ``MP_WORKS``, each work in turn, after
+   35's one-device references); each of those phases reports and holds
+   its part in its place;
 17. runs ``Module.fit`` on the image-classification builders at
    full width, fp32, TF32 off, sgd with momentum, 1000 classes, batch 32
    of 224x224 images: alexnet, vgg-16, inception-bn, mobilenet 1.0 and
@@ -407,6 +431,7 @@ host's CPU and the card's clocks and ECC count.
 is one worker of ``dist_phase``, started by the phase's launchers (its
 results to ``DIR/<a|b>-rank<r>.json``).
 """
+import contextlib
 import gc
 import json
 import logging
@@ -488,6 +513,19 @@ CONV_TIME_BATCH, CONV_MAIN = 64, (56, 64, 64, 3, 1)
 # class must agree. bf16 keeps 8 significant bits and every unit rounds its
 # activations; the measured gap on an H100 is 0.0054, so 0.02 leaves ~4x
 RESNET_LOGIT_TOL, RESNET_TOP1 = 0.02, 0.9
+# the host runtime (host_runtime_phase): record shards written by the native
+# writer and read back by both routes; the fused ResNet-50 v2 in fp32
+# (Xavier, seed 0) served through the C predict ABI at these batches, each
+# surface timed over ABI_REPS forwards. The ABI's outputs against the
+# Python AOTPredictor's: bit for bit, or within ABI_CARD_TOL of the largest
+# where cuDNN picks another algorithm for the stem or the FC; at batch 1
+# against the port's CPU forward (TF32 off) within ABI_CPU_TOL
+HOST_SHARDS, HOST_RECORDS, HOST_RECORD_BYTES = 8, 4096, 16384
+ABI_BATCHES, ABI_REPS = (1, 16), 5
+# the C child serves the larger batch only (one bind: its start-up is most
+# of the phase)
+ABI_CHILD_BATCH = 16
+ABI_CARD_TOL, ABI_CPU_TOL = 1e-5, 1e-4
 # fused ResNet-50 training, bench.py's configuration, at batch 64 on one card
 CARD = "cuda"
 RESNET_TRAIN_BATCH, RESNET_TRAIN_STEPS = 64, 5
@@ -1516,7 +1554,7 @@ def _serve_burst(torch, np, fa, srv, prompts, rng, watch):
     if stats["pages_in_use"] != 0 or pool["in_use"] != 0:
         raise RuntimeError("KV pages leaked: %r" % pool)
     n_layers = pred.config.n_layers
-    if stats["prefills"] != N_REQUESTS or \
+    if stats["prefills"] != len(prompts) or \
             launches != n_layers * stats["prefills"]:
         raise RuntimeError("flash launches %d != %d layers x %d prefills"
                            % (launches, n_layers, stats["prefills"]))
@@ -2467,6 +2505,588 @@ def resnet_serving_phase(torch, np, fb):
     if stats["requests"] != len(sizes) or stats["errors"]:
         raise RuntimeError("resnet: serving stats %r" % stats)
     return launches
+
+
+def engine_stress(np, eng, seed=0, nvars=10, pushes=300):
+    """The random-dependency stress of tests/test_native.py on ``eng``:
+    ``pushes`` writers of 1-3 random vars of ``nvars``, each checking that
+    it sees every var at the version program order gives it. Returns the
+    failures (empty when the engine kept the order)."""
+    import threading
+
+    rng = np.random.RandomState(seed)
+    vars_ = [eng.new_var() for _ in range(nvars)]
+    versions = [0] * nvars
+    lock = threading.Lock()
+    failures = []
+
+    def make_writer(idxs, expect):
+        def fn():
+            with lock:
+                for i, e in zip(idxs, expect):
+                    if versions[i] != e:
+                        failures.append((i, versions[i], e))
+                for i in idxs:
+                    versions[i] += 1
+        return fn
+
+    expected = [0] * nvars
+    for _ in range(pushes):
+        k = rng.randint(1, 4)
+        idxs = sorted(rng.choice(nvars, size=k, replace=False).tolist())
+        eng.push(make_writer(idxs, [expected[i] for i in idxs]),
+                 mutable_vars=[vars_[i] for i in idxs])
+        for i in idxs:
+            expected[i] += 1
+    eng.wait_for_all()
+    if versions != expected:
+        failures.append(("final", versions, expected))
+    return failures
+
+
+@contextlib.contextmanager
+def _python_route():
+    """The port's RecordIO readers and writers opened inside take the
+    Python route (``MXNET_TPU_NO_NATIVE=1`` for this process); then the
+    native library is back."""
+    from mxnet_tpu_torch import _native
+
+    saved = _native._LIB
+    os.environ["MXNET_TPU_NO_NATIVE"] = "1"
+    _native._LIB = None
+    try:
+        yield
+    finally:
+        del os.environ["MXNET_TPU_NO_NATIVE"]
+        _native._LIB = saved
+
+
+@contextlib.contextmanager
+def _route_spy():
+    """Yields a list that records, for each RecordIO reader or writer
+    opened inside, whether it runs native (``_nat`` set)."""
+    from mxnet_tpu_torch import recordio
+
+    real = recordio.MXRecordIO.open
+    routes = []
+
+    def spy(rio):
+        real(rio)
+        routes.append(rio._nat is not None)
+
+    recordio.MXRecordIO.open = spy
+    try:
+        yield routes
+    finally:
+        recordio.MXRecordIO.open = real
+
+
+# a C program that serves a model through the C predict ABI on the card
+# (dev_type 2): symbol, params, a file of float32 images, the output file,
+# the timed forwards, the image's C, H and W, then the batches
+PREDICT_MAIN = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <time.h>
+#include "c_predict_api.h"
+
+static double now(void) {
+  struct timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return (double)t.tv_sec + 1e-9 * (double)t.tv_nsec;
+}
+
+static char *slurp(const char *path, long *size) {
+  FILE *f = fopen(path, "rb");
+  if (!f) { fprintf(stderr, "open %s failed\n", path); exit(2); }
+  fseek(f, 0, SEEK_END); *size = ftell(f); fseek(f, 0, SEEK_SET);
+  char *buf = (char *)malloc(*size + 1);
+  if (fread(buf, 1, *size, f) != (size_t)*size) exit(2);
+  buf[*size] = 0; fclose(f);
+  return buf;
+}
+
+static int cmp(const void *a, const void *b) {
+  double x = *(const double *)a, y = *(const double *)b;
+  return (x > y) - (x < y);
+}
+
+#define CHECK(call) do { if ((call) != 0) { \
+  fprintf(stderr, "%s: %s\n", #call, MXGetLastError()); return 1; } } while (0)
+
+int main(int argc, char **argv) {
+  double t0 = now();
+  if (argc < 10) {
+    fprintf(stderr, "usage: json params images out reps c h w batch...\n");
+    return 2;
+  }
+  long json_size, param_size, in_size;
+  char *json = slurp(argv[1], &json_size);
+  char *params = slurp(argv[2], &param_size);
+  float *images = (float *)slurp(argv[3], &in_size);
+  FILE *out = fopen(argv[4], "wb");
+  int reps = atoi(argv[5]), first = 1;
+  mx_uint c = (mx_uint)atoi(argv[6]), hh = (mx_uint)atoi(argv[7]),
+          ww = (mx_uint)atoi(argv[8]);
+  double *ms = (double *)malloc(sizeof(double) * reps);
+  for (int a = 9; a < argc; ++a) {
+    mx_uint batch = (mx_uint)atoi(argv[a]);
+    const char *keys[] = {"data"};
+    mx_uint indptr[] = {0, 4};
+    mx_uint shape[] = {batch, c, hh, ww};
+    mx_uint n_in = batch * c * hh * ww, *oshape, ondim, n = 1;
+    if ((long)n_in * 4 > in_size) { fprintf(stderr, "short images\n"); return 2; }
+    PredictorHandle h;
+    CHECK(MXPredCreate(json, params, (int)param_size, 2, 0, 1, keys, indptr,
+                       shape, &h));
+    CHECK(MXPredSetInput(h, "data", images, n_in));
+    CHECK(MXPredForward(h));
+    CHECK(MXPredGetOutputShape(h, 0, &oshape, &ondim));
+    for (mx_uint i = 0; i < ondim; ++i) n *= oshape[i];
+    float *buf = (float *)malloc(sizeof(float) * n);
+    CHECK(MXPredGetOutput(h, 0, buf, n));
+    if (first) { printf("C_CHILD first_output_s=%.3f\n", now() - t0); first = 0; }
+    fwrite(buf, sizeof(float), n, out);
+    for (int r = 0; r < reps; ++r) {
+      double t = now();
+      CHECK(MXPredForward(h));
+      ms[r] = (now() - t) * 1e3;
+    }
+    qsort(ms, reps, sizeof(double), cmp);
+    printf("C_CHILD batch=%u outputs=%u forward_ms_median=%.3f\n", batch, n,
+           ms[reps / 2]);
+    free(buf);
+    CHECK(MXPredFree(h));
+  }
+  fclose(out);
+  printf("C_CHILD_OK total_s=%.3f\n", now() - t0);
+  return 0;
+}
+"""
+
+
+# the C child's interpreter runs with TF32 off, as this process does
+# (cuDNN's default allows it): a sitecustomize on the child's PYTHONPATH
+CHILD_SITE = """import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+"""
+
+
+def _abi_create(ctypes, lib, sym_json, params, shape, dev_type):
+    keys = (ctypes.c_char_p * 1)(b"data")
+    indptr = (ctypes.c_uint * 2)(0, len(shape))
+    dims = (ctypes.c_uint * len(shape))(*shape)
+    handle = ctypes.c_void_p()
+    if lib.MXPredCreate(sym_json, params, len(params), dev_type, 0, 1, keys,
+                        indptr, dims, ctypes.byref(handle)) != 0:
+        raise RuntimeError("MXPredCreate: %s" % lib.MXGetLastError().decode())
+    return handle
+
+
+def _abi_call(lib, name, *args):
+    if getattr(lib, name)(*args) != 0:
+        raise RuntimeError("%s: %s" % (name, lib.MXGetLastError().decode()))
+
+
+def _abi_forward(ctypes, np, lib, handle, x):
+    """Set ``data`` to ``x``, run MXPredForward and return output 0."""
+    fp = ctypes.POINTER(ctypes.c_float)
+    flat = np.ascontiguousarray(x, np.float32).reshape(-1)
+    _abi_call(lib, "MXPredSetInput", handle, b"data",
+              flat.ctypes.data_as(fp), flat.size)
+    _abi_call(lib, "MXPredForward", handle)
+    sdata = ctypes.POINTER(ctypes.c_uint)()
+    ndim = ctypes.c_uint()
+    _abi_call(lib, "MXPredGetOutputShape", handle, 0, ctypes.byref(sdata),
+              ctypes.byref(ndim))
+    shape = tuple(sdata[i] for i in range(ndim.value))
+    out = np.zeros(int(np.prod(shape)), np.float32)
+    _abi_call(lib, "MXPredGetOutput", handle, 0, out.ctypes.data_as(fp),
+              out.size)
+    return out.reshape(shape)
+
+
+def _median_s(fn, reps):
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        secs.append(time.perf_counter() - t0)
+    return sorted(secs)[reps // 2]
+
+
+def _xavier_checkpoint(torch, np, sym, prefix):
+    """Xavier weights from seed 0 for ``sym`` (aux states ones for the
+    variances and gammas, zeros otherwise, as ``TrainStep.init_params``),
+    saved by the port's ``save_checkpoint``; returns ``(args, auxs)`` as
+    numpy."""
+    from mxnet_tpu_torch import model, nd
+    from mxnet_tpu_torch.context import cpu
+    from mxnet_tpu_torch.initializer import InitDesc, Xavier, seeded
+
+    arg_shapes, _, aux_shapes = sym.infer_shape(
+        data=(1,) + RESNET["image_shape"])
+    args, auxs = {}, {}
+    with seeded(0):
+        for name, shape in zip(sym.list_arguments(), arg_shapes):
+            if name in ("data", "softmax_label"):
+                continue
+            arr = torch.zeros(shape, dtype=torch.float32)
+            Xavier()(InitDesc(name), arr)
+            args[name] = arr.numpy()
+    for name, shape in zip(sym.list_auxiliary_states(), aux_shapes):
+        fill = np.ones if "var" in name or "gamma" in name else np.zeros
+        auxs[name] = fill(shape, np.float32)
+    model.save_checkpoint(
+        prefix, 0, sym, {k: nd.array(v, ctx=cpu()) for k, v in args.items()},
+        {k: nd.array(v, ctx=cpu()) for k, v in auxs.items()})
+    return args, auxs
+
+
+def host_runtime_phase(torch, np, fb):
+    """The host runtime and the C predict ABI: (a) g++ builds of the
+    runtime and the predict library; (b) the native ThreadedEngine under
+    the random-dependency stress, the storage pool's reuse, 8 record shards
+    written natively and read back by both routes; (c) the fused ResNet-50
+    through the ABI in this process (ctypes, dev_type 2) at ABI_BATCHES: 52
+    B1 launches a forward, the outputs against the Python AOTPredictor's
+    and, at batch 1, the port's CPU forward; (d) a C program linked against
+    the ABI's header and the port's library, run as a child on the same
+    files (started before (b), so its interpreter's start overlaps (b) and
+    (c)'s checks; (c)'s timings run after it), its outputs bit for bit
+    (c)'s. Returns the B1 launches of (c)'s ABI forwards."""
+    import ctypes
+    import sysconfig
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.models import resnet
+
+    card = _card_line()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()[0]
+    include = sysconfig.get_paths()["include"]
+    has_header = os.path.exists(os.path.join(include, "Python.h"))
+    shared = bool(sysconfig.get_config_var("Py_ENABLE_SHARED"))
+    print("host runtime: %s; Py_ENABLE_SHARED %s; include %s (Python.h %s); "
+          "LIBDIR %s, LDLIBRARY %s" % (
+              gxx, sysconfig.get_config_var("Py_ENABLE_SHARED"), include,
+              "present" if has_header else "MISSING",
+              sysconfig.get_config_var("LIBDIR"),
+              sysconfig.get_config_var("LDLIBRARY")))
+    libs = [("runtime", _native.build, _native._lib_path)]
+    if has_header:
+        libs.append(("predict", _native.build_predict,
+                     _native.predict_lib_path))
+
+    def timed_build(build):
+        t0 = time.perf_counter()
+        build()
+        return time.perf_counter() - t0
+
+    cached = [os.path.exists(path()) for _n, _b, path in libs]
+    with ThreadPoolExecutor(len(libs)) as pool:   # built at once
+        secs = list(pool.map(timed_build, [b for _n, b, _p in libs]))
+    for (name, _b, path), was, sec in zip(libs, cached, secs):
+        print("host runtime: %s library %s in %.2f s (%s) [%s]" % (
+            name, "found" if was else "built", sec,
+            os.path.basename(path()), card))
+    if _native.get_lib() is None:
+        raise RuntimeError("host runtime: the native library did not load: "
+                           "%s" % _native.last_error())
+    if not has_header:
+        print("host runtime: Python.h is missing on this host, so the C "
+              "predict library cannot be built: the ABI legs (c) and (d) "
+              "are left out")
+        _host_engine_pool_records(np, card)
+        return 0
+
+    sym = resnet.get_symbol(fused=True, **RESNET)
+    images = _resnet_images(np, 11, max(ABI_BATCHES))
+    with tempfile.TemporaryDirectory(prefix="c_predict_") as tmp:
+        prefix = os.path.join(tmp, "resnet50")
+        t0 = time.perf_counter()
+        args, auxs = _xavier_checkpoint(torch, np, sym, prefix)
+        print("host runtime: Xavier ResNet-50 checkpoint written in %.2f s "
+              "[%s]" % (time.perf_counter() - t0, card))
+        child = None
+        if shared:
+            child = _c_child_start(np, tmp, prefix, images)
+        else:
+            print("host runtime: this Python has no shared libpython "
+                  "(Py_ENABLE_SHARED 0), so a C program cannot link the "
+                  "predict library: leg (d) is left out")
+        try:
+            _host_engine_pool_records(np, card)
+            lib = ctypes.CDLL(_native.build_predict())
+            lib.MXGetLastError.restype = ctypes.c_char_p
+            with open(prefix + "-symbol.json", "rb") as f:
+                sym_json = f.read()
+            with open(prefix + "-0000.params", "rb") as f:
+                params = f.read()
+            legs = _abi_checks(torch, np, fb, lib, sym, args, auxs, sym_json,
+                               params, images, card)
+        except BaseException:
+            if child is not None and child["proc"].poll() is None:
+                child["proc"].kill()
+                child["proc"].wait()
+            raise
+        if child is not None:
+            _c_child_finish(np, child, {n: leg["out"]
+                                        for n, leg in legs.items()})
+    return _abi_timings(np, fb, lib, legs, card)
+
+
+def _host_engine_pool_records(np, card):
+    """(b): the native engine's stress, the pool's reuse, and 8 record
+    shards written natively and read back through the data plane's readers
+    on both routes."""
+    import tempfile
+
+    from mxnet_tpu_torch import config, engine, storage
+    from mxnet_tpu_torch.data import service, writer
+
+    eng = engine.get()
+    if type(eng) is not engine.ThreadedEngine:
+        raise RuntimeError("host runtime: engine.get() is %s, want the "
+                           "native ThreadedEngine" % type(eng).__name__)
+    before = eng.stats()
+    t0 = time.perf_counter()
+    failures = engine_stress(np, eng)
+    stress_s = time.perf_counter() - t0
+    after = eng.stats()
+    pushed = after["pushed"] - before["pushed"]
+    if failures or pushed != 300 or after["executed"] != after["pushed"]:
+        raise RuntimeError("host runtime: engine stress failures %s, stats "
+                           "%s -> %s" % (failures[:5], before, after))
+    pool = storage.default_pool()
+    a = pool.empty((1024, 1024), np.float32)
+    del a
+    gc.collect()
+    b = pool.empty((1024, 1024), np.float32)
+    pool_stats = pool.stats()
+    del b
+    if pool_stats["hits"] < 1:
+        raise RuntimeError("host runtime: no pool hit on reuse: %s"
+                           % pool_stats)
+    print("host runtime: ThreadedEngine stress, 300 writers of 1-3 of 10 vars "
+          "on %d threads: %.3f s, stats %s; default pool %s [%s]" % (
+              config.get_positive_int("MXNET_CPU_WORKER_NTHREADS"),
+              stress_s, after, pool_stats, card))
+
+    rng = np.random.RandomState(0)
+    blob = rng.bytes(HOST_RECORDS * HOST_RECORD_BYTES)
+    records = [blob[i * HOST_RECORD_BYTES:(i + 1) * HOST_RECORD_BYTES]
+               for i in range(HOST_RECORDS)]
+    with tempfile.TemporaryDirectory(prefix="host_runtime_") as tmp:
+        with _route_spy() as wrote:
+            t0 = time.perf_counter()
+            mpath = writer.write_record_shards(tmp, "host", records,
+                                               num_shards=HOST_SHARDS)
+            write_s = time.perf_counter() - t0
+        read = {}
+        for route in ("native", "python"):
+            with _route_spy() as opened:
+                if route == "python":
+                    with _python_route():
+                        t0 = time.perf_counter()
+                        got = [raw for _s, _i, raw in
+                               service.iter_manifest_records(mpath)]
+                else:
+                    t0 = time.perf_counter()
+                    got = [raw for _s, _i, raw in
+                           service.iter_manifest_records(mpath)]
+                secs = time.perf_counter() - t0
+            read[route] = (got, secs, list(opened))
+    if wrote != [True] * HOST_SHARDS:
+        raise RuntimeError("host runtime: shard writers' native flags %s"
+                           % wrote)
+    if read["native"][2] != [True] * HOST_SHARDS or \
+            read["python"][2] != [False] * HOST_SHARDS:
+        raise RuntimeError("host runtime: the data plane's shard readers "
+                           "ran native %s (native pass), %s (python pass)"
+                           % (read["native"][2], read["python"][2]))
+    if read["native"][0] != records or read["python"][0] != records:
+        raise RuntimeError("host runtime: records read back differ from the "
+                           "written ones")
+    mib = HOST_RECORDS * HOST_RECORD_BYTES / 2 ** 20
+    print("host runtime: %d records of %d bytes in %d shards, written "
+          "natively in %.3f s; read back bit for bit by the data plane's "
+          "readers (warm page cache): native %.3f s = %.0f records/s (%.0f "
+          "MiB/s), python %.3f s = %.0f records/s (%.0f MiB/s) [%s]" % (
+              HOST_RECORDS, HOST_RECORD_BYTES, HOST_SHARDS, write_s,
+              read["native"][1], HOST_RECORDS / read["native"][1],
+              mib / read["native"][1], read["python"][1],
+              HOST_RECORDS / read["python"][1], mib / read["python"][1],
+              card))
+
+
+def _abi_checks(torch, np, fb, lib, sym, args, auxs, sym_json, params,
+                images, card):
+    """(c)'s checks at each batch of ABI_BATCHES: a predictor created through
+    the ABI, its first forward's B1 launches and outputs against the Python
+    AOTPredictor's and, at batch 1, the port's CPU forward. Returns ``{batch:
+    {"handle", "pred", "x", "out", "launches"}}`` for the timings."""
+    import ctypes
+
+    from mxnet_tpu_torch.serving import AOTPredictor
+
+    legs = {}
+    for n in ABI_BATCHES:
+        x = images[:n]
+        shape = (n,) + RESNET["image_shape"]
+        handle = _abi_create(ctypes, lib, sym_json, params, shape, 2)
+        _reset_fb_counts(fb)
+        out = _abi_forward(ctypes, np, lib, handle, x)
+        per_forward = fb.conv_fwd.launches
+        core = fb.conv_fwd.core_route_launches
+        if per_forward != B1_PER_FORWARD or core:
+            raise RuntimeError("host runtime: B1 launches %d a forward "
+                               "through the ABI (%d on the CUDA cores), want "
+                               "%d" % (per_forward, core, B1_PER_FORWARD))
+        pred = AOTPredictor(sym, args, auxs, data_shapes={"data": shape},
+                            ladder=None, device=CARD)
+        ref = pred.predict(x)[0]
+        scale = float(np.abs(ref).max())
+        gap = float(np.abs(out - ref).max())
+        held = "bit for bit" if np.array_equal(out, ref) else \
+            "within %.3g of the largest (another cuDNN algorithm)" % (
+                gap / scale)
+        if out.shape != (n, RESNET["num_classes"]) or \
+                not np.isfinite(out).all() or \
+                np.abs(out.sum(-1) - 1).max() > 1e-3 or \
+                gap > ABI_CARD_TOL * scale:
+            raise RuntimeError(
+                "host runtime: ABI output at batch %d: shape %s, max |ABI - "
+                "AOTPredictor| %.3g of largest %.3g"
+                % (n, out.shape, gap, scale))
+        cpu_line = ""
+        if n == 1:
+            cpu = AOTPredictor(sym, args, auxs, data_shapes={"data": shape},
+                               ladder=None, device="cpu").predict(x)[0]
+            cpu_gap = float(np.abs(out - cpu).max())
+            cpu_line = "; against the port's CPU forward %.3g of the " \
+                "largest (tol %g)" % (cpu_gap / scale, ABI_CPU_TOL)
+            if cpu_gap > ABI_CPU_TOL * scale:
+                raise RuntimeError("host runtime: ABI output at batch 1 %.3g "
+                                   "from the CPU forward (largest %.3g)"
+                                   % (cpu_gap, scale))
+        print("host runtime: C ABI (ctypes, dev_type 2) fused ResNet-50 fp32 "
+              "batch %d: B1 %d a forward, 0 on the CUDA cores; outputs %s the "
+              "Python AOTPredictor's%s [%s]" % (n, per_forward, held,
+                                               cpu_line, card))
+        legs[n] = dict(handle=handle, pred=pred, x=x, out=out,
+                       launches=per_forward)
+    return legs
+
+
+def _abi_timings(np, fb, lib, legs, card):
+    """(c)'s rates, each surface alone on the card: ABI_REPS forwards of
+    ``MXPredForward`` and of ``AOTPredictor.predict`` at each batch, the B1
+    launches of the ABI's counted. Frees the predictors; returns the B1
+    launches of every ABI forward of the phase."""
+    launches = 0
+    for n, leg in legs.items():
+        handle, pred, x = leg["handle"], leg["pred"], leg["x"]
+        _reset_fb_counts(fb)
+        abi_s = _median_s(lambda: _abi_call(lib, "MXPredForward", handle),
+                          ABI_REPS)
+        timed = fb.conv_fwd.launches
+        pred_s = _median_s(lambda: pred.predict(x), ABI_REPS)
+        _abi_call(lib, "MXPredFree", handle)
+        launches += leg["launches"] + timed
+        if timed != B1_PER_FORWARD * ABI_REPS:
+            raise RuntimeError("host runtime: B1 launches %d in %d ABI "
+                               "forwards at batch %d" % (timed, ABI_REPS, n))
+        print("host runtime: batch %d: MXPredForward %.2f ms = %.1f images/s, "
+              "AOTPredictor.predict %.2f ms = %.1f images/s (median of %d; "
+              "fp32, fused ResNet-50) [%s]" % (
+                  n, abi_s * 1e3, n / abi_s, pred_s * 1e3, n / pred_s,
+                  ABI_REPS, card))
+    legs.clear()
+    return launches
+
+
+def _c_child_start(np, tmp, prefix, images):
+    """Compile PREDICT_MAIN against ``src/c_predict_api.h`` and the port's
+    predict library and start it on ``prefix``'s files at ABI_CHILD_BATCH
+    (its embedded interpreter starts with TF32 off: CHILD_SITE). Returns
+    what :func:`_c_child_finish` needs."""
+    import sysconfig
+
+    from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.kernels import _build
+
+    lib = _native.build_predict()
+    src = os.path.join(tmp, "predict_main.c")
+    exe = os.path.join(tmp, "predict_main")
+    with open(src, "w") as f:
+        f.write(PREDICT_MAIN)
+    t0 = time.perf_counter()
+    r = subprocess.run(["gcc", "-O2", src, "-I", os.path.join(ROOT, "src"),
+                        lib, "-Wl,-rpath," + os.path.dirname(lib), "-o",
+                        exe], capture_output=True, text=True, timeout=120)
+    if r.returncode != 0:
+        raise RuntimeError("host runtime: gcc failed:\n" + r.stderr[-3000:])
+    link_s = time.perf_counter() - t0
+    site = os.path.join(tmp, "site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(CHILD_SITE)
+    inputs = os.path.join(tmp, "images.f32")
+    images.astype(np.float32).tofile(inputs)
+    outputs = os.path.join(tmp, "outputs.f32")
+    paths = sysconfig.get_paths()
+    env = dict(os.environ, MXNET_TPU_HOME=ROOT, PYTHONPATH=os.pathsep.join(
+        [site, ROOT, paths["purelib"], paths["platlib"]]))
+    built = sorted(os.listdir(_build.BUILD_DIR))
+    proc = subprocess.Popen(
+        [exe, prefix + "-symbol.json", prefix + "-0000.params", inputs,
+         outputs, str(ABI_REPS)]
+        + [str(d) for d in RESNET["image_shape"]] + [str(ABI_CHILD_BATCH)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    return dict(proc=proc, t0=time.perf_counter(), link_s=link_s,
+                built=built, outputs=outputs)
+
+
+def _c_child_finish(np, child, abi_out):
+    """Wait for the C child and hold its outputs bit for bit against
+    ``abi_out[ABI_CHILD_BATCH]`` ((c)'s output); it must have built
+    nothing."""
+    from mxnet_tpu_torch.kernels import _build
+
+    proc = child["proc"]
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - child["t0"]
+    if proc.returncode != 0 or "C_CHILD_OK" not in out:
+        raise RuntimeError("host runtime: the C child failed (rc %s):\n%s\n%s"
+                           % (proc.returncode, out[-2000:], err[-3000:]))
+    if sorted(os.listdir(_build.BUILD_DIR)) != child["built"]:
+        raise RuntimeError("host runtime: the C child built libraries: %s"
+                           % sorted(set(os.listdir(_build.BUILD_DIR))
+                                    - set(child["built"])))
+    got = np.fromfile(child["outputs"], np.float32)
+    want = abi_out[ABI_CHILD_BATCH].reshape(-1)
+    if got.size != want.size or not np.array_equal(got, want):
+        raise RuntimeError(
+            "host runtime: the C child's outputs at batch %d differ from the "
+            "in-process ABI's: max |diff| %s" % (
+                ABI_CHILD_BATCH, float(np.abs(got - want).max())
+                if got.size == want.size else "(%d floats)" % got.size))
+    lines = [ln for ln in out.splitlines() if ln.startswith("C_CHILD")]
+    print("host runtime: pure-C child (gcc link %.2f s; dev_type 2; its "
+          "interpreter imports torch and the port; started before (b), its "
+          "start overlapping (b) and (c)'s checks): %s; wall %.2f s; outputs "
+          "bit for bit the in-process ABI's at batch %d [%s]" % (
+              child["link_s"], "; ".join(lines), wall, ABI_CHILD_BATCH,
+              _card_line()))
 
 
 def _resnet_grad_calls(n):
@@ -4001,28 +4621,19 @@ def _run_ranks(entry, world, timeout, label, *args):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def _dp_gloo_rank(rank, world, port, out_dir):
-    """One of the ranks sharing cuda:0 over gloo (a spawned process)."""
-    import numpy as np
-    import torch
-    import torch.distributed as dist
-
-    sys.path.insert(0, ROOT)
+def _mp_dp_work(torch, np, fa, rank):
+    """One of dp_training_phase's ranks sharing cuda:0 over gloo (a work of
+    ranks_phase's spawn), cuDNN deterministic meanwhile: ZeRO against
+    replicated compares runs bit for bit where the math is elementwise, so
+    cuDNN's backward must not pick an atomic algorithm."""
     from mxnet_tpu_torch.kernels import fused_block as fb
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # ZeRO against replicated compares runs bit for bit where the math is
-    # elementwise: cuDNN's backward must not pick an atomic algorithm
+    deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port,
-                            rank=rank, world_size=world)
     try:
-        res = _dp_gloo_work(torch, np, fb, rank, world)
+        return _dp_gloo_work(torch, np, fb, rank, DP_RANKS)
     finally:
-        dist.destroy_process_group()
-    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
-        json.dump(res, f)
+        torch.backends.cudnn.deterministic = deterministic
 
 
 def _grad_errs(grads, ref):
@@ -4231,12 +4842,13 @@ def _dp_module_fit(torch, np, fb, n):
     return res
 
 
-def dp_training_phase(torch, np, fb):
+def dp_training_phase(torch, np, fb, ranks, wall):
     """Data-parallel training of the fused ResNet-50 at global batch 64: a
     mesh of one rank over NCCL (bit for bit mesh=None), then 2 ranks sharing
     the card over gloo (fp32 against one device, ZeRO against replicated,
-    Module.fit(kvstore="tpu")). Returns (B1, B2, B3) launches of the NCCL
-    mesh's steps and of each gloo rank's replicated steps."""
+    Module.fit(kvstore="tpu"); ``ranks``: the dp work's results, from
+    ranks_phase). Returns (B1, B2, B3) launches of the NCCL mesh's steps and
+    of each gloo rank's replicated steps."""
     gc.collect()
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -4244,16 +4856,13 @@ def dp_training_phase(torch, np, fb):
         nccl = _dp_one_rank_nccl(torch, np, fb)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    gc.collect()
-    torch.cuda.empty_cache()
-    ranks, wall = _run_ranks(_dp_gloo_rank, DP_RANKS, DP_TIMEOUT, "dp gloo")
     r0 = ranks[0]
     n = DP_BATCH
     tiny = r0["tiny"]
     tiny_gaps = [abs(a - b) / abs(b) for a, b in zip(
         [tiny["first_loss"]] + tiny["losses"],
         [tiny["ref_first_loss"]] + tiny["ref_losses"])]
-    print("dp gloo %d ranks sharing one card (%.1f s with start-up), fp32, "
+    print("dp gloo %d ranks sharing one card (the ranks' %.1f s), fp32, "
           "global batch %d (%d rows a rank); tiny fused ResNet: first loss "
           "%.7f vs one device %.7f, losses %s vs %s (worst gap %.3g), "
           "worst gradients %s of %d tensors (tol %g)"
@@ -4808,7 +5417,10 @@ def dist_phase(torch, np, fb):
 # attends over MP_ATTN. Rates of a shared card, with every collective
 # staged through the host by gloo, are not scaling rates.
 MP_RANKS = 2
-MP_BATCH, MP_WARMUP, MP_STEPS = (4, 2049), 2, 3
+MP_BATCH, MP_WARMUP, MP_STEPS = (4, 2049), 1, 2
+# the sharded server's burst: the first MP_SERVE_REQUESTS of the serving
+# workload's prompts, on the leader and on its one-device reference
+MP_SERVE_REQUESTS = 8
 MP_ATTN = (MP_BATCH[0], FULL["n_heads"] // MP_RANKS, MP_BATCH[1] - 1,
            FULL["d_model"] // FULL["n_heads"])
 # mp against one device in fp32 (TF32 off): the loss relative; the
@@ -4831,9 +5443,13 @@ PREFIX_EXACT = dict(prefix_hits=42, prefill_tokens=1093,
                     prefill_tokens_saved=20832)
 
 
-def _mp_gloo_rank(rank, world, port, out_dir, work):
+def _mp_gloo_rank(rank, world, port, out_dir, works):
     """One rank of the mp phases (a spawned process): TF32 off, a gloo
-    group with a time limit of its own, then ``_mp_<work>_work``."""
+    group with a time limit of its own, then ``_mp_<work>_work`` for each
+    work of ``works`` (a comma list) in turn; its results are ``{work:
+    result}``, with each work's seconds under ``"work_s"`` and the process's
+    start (``time.time()``) under ``"entered"``."""
+    entered = time.time()
     import datetime
 
     import numpy as np
@@ -4848,12 +5464,67 @@ def _mp_gloo_rank(rank, world, port, out_dir, work):
     dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port,
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=MP_TIMEOUT))
+    res = {"entered": entered, "work_s": {}}
     try:
-        res = globals()["_mp_%s_work" % work](torch, np, fa, rank)
+        for work in works.split(","):
+            t0 = time.perf_counter()
+            res[work] = globals()["_mp_%s_work" % work](torch, np, fa, rank)
+            res["work_s"][work] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
         json.dump(res, f, default=float)
+
+
+def _mp_ranks(works, timeout, label):
+    """Run ``works`` (a comma list of ``_mp_<work>_work``) on MP_RANKS gloo
+    ranks sharing the card, one process a rank for all of them. Returns
+    ``({work: [rank results]}, wall seconds with start-up)`` and prints each
+    work's seconds and the ranks' start-up."""
+    t0 = time.time()
+    ranks, wall = _run_ranks(_mp_gloo_rank, MP_RANKS, timeout, label, works)
+    print("%s: %d gloo ranks, one process a rank for %s, %.1f s with "
+          "start-up; the ranks entered after %s s; work seconds on rank 0: "
+          "%s" % (label, MP_RANKS, works, wall,
+                  ", ".join("%.1f" % (r["entered"] - t0) for r in ranks),
+                  ", ".join("%s %.1f" % kv for kv in
+                            ranks[0]["work_s"].items())))
+    return {w: [r[w] for r in ranks] for w in works.split(",")}, wall
+
+
+# the rank works that share one spawn of MP_RANKS processes (a process's
+# start costs 8-14 s on the card's hosts, most of it torch's import), run in
+# turn by ranks_phase; dp_training, mp_training, mp_serving, moe_mp,
+# mp_symbol and seq_expert_pipe report and hold their parts in their places
+MP_WORKS = "dp,train,serve,moe,sep,symbol"
+
+
+def ranks_phase(torch, np, fa, fb):
+    """mp_symbol's one-device references in this process, then MP_WORKS on
+    MP_RANKS gloo ranks sharing the card. Returns ``({work: [rank
+    results]}, wall seconds, the references)``."""
+    import shutil
+    import tempfile
+
+    _free(torch)
+    tmp = tempfile.mkdtemp(prefix="mps_")
+    try:
+        t0 = time.perf_counter()
+        ref = _mps_reference(torch, np, fa, fb, os.path.join(tmp, "ref.npz"))
+        print("mp symbol: one-device references in %.1f s"
+              % (time.perf_counter() - t0))
+        _free(torch)
+        os.environ["MPS_REF"] = os.path.join(tmp, "ref.npz")
+        try:
+            works, wall = _mp_ranks(MP_WORKS, DP_TIMEOUT + 2 * MP_TIMEOUT
+                                    + SEP_TIMEOUT + MPS_TIMEOUT, "ranks")
+        finally:
+            os.environ.pop("MPS_REF", None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return works, wall, ref
 
 
 def _rel_l2(torch, grads, ref):
@@ -4978,14 +5649,11 @@ def _mp_train_work(torch, np, fa, rank):
     return res
 
 
-def mp_training_phase(torch, np, fa):
+def mp_training_phase(torch, np, fa, ranks, wall):
     """The full-width transformer trained over train_mesh(mp=2) on 2 gloo
-    ranks sharing the card, against one device in the same call; returns
-    each rank's B5, B6, B7 launches in the timed steps."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    ranks, wall = _run_ranks(_mp_gloo_rank, MP_RANKS, MP_TIMEOUT, "mp train",
-                             "train")
+    ranks sharing the card, against one device in the same call
+    (``ranks``: the train work's results, from ranks_phase). Returns each
+    rank's B5, B6, B7 launches in the timed steps."""
     r0 = ranks[0]
     one = r0["one"]
     loss_gap = abs(r0["fp32_loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
@@ -4996,7 +5664,8 @@ def mp_training_phase(torch, np, fa):
                   for k, g in gaps.items())
     ratio = r0["param_bytes"] / r0["whole_param_bytes"]
     print("mp train: %d gloo ranks sharing one card, train_mesh(mp=%d) = dp "
-          "1 x mp %d, %.1f s with start-up; fp32 (TF32 off) batch %s: loss "
+          "1 x mp %d (the ranks' %.1f s); fp32 (TF32 off) "
+          "batch %s: loss "
           "%.7f vs one device %.7f (relative gap %.3g, tol %g); gradients "
           "unsharded vs one device, relative L2: whole %.4g against %.4g "
           "under %d one-rounding moves (ratio %.2f, limit %g); %d of %d "
@@ -5059,7 +5728,7 @@ def _mp_serve_work(torch, np, fa, rank):
     t_ = PREFIX_TRACE
     cfg = tfm.TransformerConfig(**FULL)
     params = tfm.init_params(cfg, seed=0)
-    prompts, _ = _serving_prompts(np, cfg.vocab)
+    prompts = _serving_prompts(np, cfg.vocab)[0][:MP_SERVE_REQUESTS]
     prefix, work = _prefix_workload(cfg.vocab)
     shared = [i for i, w in enumerate(work) if w[2]]
     shapes = (dict(slots=8, page_size=16),
@@ -5102,7 +5771,7 @@ def _mp_serve_work(torch, np, fa, rank):
     try:
         burst = _serve_burst(torch, np, fa, srv, prompts,
                              _serving_prompts(np, cfg.vocab)[1],
-                             range(N_REQUESTS))
+                             range(len(prompts)))
         res["sharded_stats"] = srv.predictor.sharded_stats()
     finally:
         srv.close()
@@ -5159,24 +5828,22 @@ def _mp_serve_work(torch, np, fa, rank):
     return res
 
 
-def mp_serving_phase(torch, np, fa):
+def mp_serving_phase(torch, np, fa, ranks, wall):
     """GenerateServer over GenerativePredictor(mesh=train_mesh(mp=2)) on 2
     gloo ranks sharing the card (rank 0 leads, rank 1 follows): the
     serving workload, then the shared-prefix trace with the cache on,
-    against one device in the same call; returns each rank's B5 launches
-    (the leader's timed burst, the follower's whole run of the burst's
-    predictor)."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    ranks, wall = _run_ranks(_mp_gloo_rank, MP_RANKS, MP_TIMEOUT, "mp serve",
-                             "serve")
+    against one device in the same call (``ranks``: the serve work's
+    results, run by mp_training_phase's spawn); returns each rank's B5
+    launches (the leader's timed burst, the follower's whole run of the
+    burst's predictor)."""
     lead, follower = ranks
     st = lead["sharded_stats"]
-    print("mp serve: %d gloo ranks sharing one card, %.1f s with start-up; "
+    print("mp serve: %d gloo ranks sharing one card (the ranks' %.1f s); "
           "sharded_stats %s; every served row of %d requests (%d rows) vs "
           "the one-device forward: worst %.4f (tol %g); prefix trace rows "
           "worst %.4f; prefix counts %s; chains parted from one device's at "
-          "near-ties %s" % (MP_RANKS, wall, st, N_REQUESTS, lead["rows"],
+          "near-ties %s" % (MP_RANKS, wall, st, MP_SERVE_REQUESTS,
+                            lead["rows"],
                             lead["worst_err"], LOGIT_TOL,
                             lead["prefix_errs"], lead["exact"],
                             lead["parted"]))
@@ -9191,7 +9858,7 @@ def _mp_moe_work(torch, np, fa, rank):
     return res
 
 
-def moe_mp_phase(torch, np, fa):
+def moe_mp_phase(torch, np, fa, ranks, wall):
     """The MoE (MOE_MP: 4 layers, fp32, TF32 off) over train_mesh(mp=2) on 2
     gloo ranks sharing the card: the collectives of a loss forward equal
     block_collective_counts (2 sums a block: the gate's sum over the group
@@ -9199,10 +9866,8 @@ def moe_mp_phase(torch, np, fa):
     unsharded gradient (the gate's included) within max(MP_GRAD_TOL,
     MP_RATIO x its one-rounding gap) and the whole within MP_RATIO x its
     own, the gate's gradient bit for bit equal on the ranks. Returns each
-    rank's B5, B6, B7 launches of the loss and gradient."""
-    _free(torch)
-    ranks, wall = _run_ranks(_mp_gloo_rank, MP_RANKS, MP_TIMEOUT, "moe mp",
-                             "moe")
+    rank's B5, B6, B7 launches of the loss and gradient. ``ranks``: the moe
+    work's results, run by mp_training_phase's spawn."""
     r0 = ranks[0]
     loss_gap = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
     gaps, yard = r0["gaps"], r0["yard"]
@@ -9213,8 +9878,8 @@ def moe_mp_phase(torch, np, fa):
     n_layers = MOE_MP["n_layers"]
     psums = fc["reduce_from_mp"] + fc["reduce_from_data"]
     print("moe mp: %d gloo ranks sharing one card, train_mesh(mp=%d), %d "
-          "layers x %d experts, fp32 (TF32 off), tokens %s, %.1f s with "
-          "start-up: loss %.7f vs one device %.7f (relative gap %.3g, tol "
+          "layers x %d experts, fp32 (TF32 off), tokens %s (the ranks' "
+          "%.1f s): loss %.7f vs one device %.7f (relative gap %.3g, tol "
           "%g); gradients unsharded vs one device, relative L2: whole %.4g "
           "against %.4g under %d one-rounding moves (ratio %.2f, limit %g); "
           "moe_gate_weight %.3g (its one-rounding gap %.3g); worst tensors "
@@ -11467,39 +12132,24 @@ def _mps_group(torch, np, fb):
     return report
 
 
-def mp_symbol_phase(torch, np, fa, fb):
+def mp_symbol_phase(torch, np, fa, fb, ranks, wall, ref):
     """Tensor parallelism of a symbol over train_mesh(mp=2) (the comment
-    above MPS_RULES); returns, for the kernels line, each rank's B1, B2, B3
-    launches a fit batch, each rank's B1 launches of the sharded predictor,
-    each rank's B5 launches of the sharded speculative run and the group
+    above MPS_RULES): ``ranks``, the symbol work's results, and ``ref``,
+    the one-device references, both from ranks_phase; then (d), the replica
+    group. Returns, for the kernels line, each rank's B1, B2, B3 launches a
+    fit batch, each rank's B1 launches of the sharded predictor, each
+    rank's B5 launches of the sharded speculative run and the group
     leader's B1."""
-    import shutil
-    import tempfile
-
     from mxnet_tpu_torch.models import transformer as tfm
 
     _free(torch)
-    tmp = tempfile.mkdtemp(prefix="mps_")
-    try:
-        t0 = time.perf_counter()
-        ref = _mps_reference(torch, np, fa, fb, os.path.join(tmp, "ref.npz"))
-        print("mp symbol: one-device references in %.1f s"
-              % (time.perf_counter() - t0))
-        os.environ["MPS_REF"] = os.path.join(tmp, "ref.npz")
-        try:
-            ranks, wall = _run_ranks(_mp_gloo_rank, MP_RANKS, MPS_TIMEOUT,
-                                     "mp symbol", "symbol")
-        finally:
-            os.environ.pop("MPS_REF", None)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
     lead, follower = ranks
     gc_, gb = lead["grad_collectives"]
     fc_, fbytes = lead["fit_collectives"]
     ratio = lead["mp_stats"]["param_bytes_per_chip"] / lead["whole_bytes"]
     exact = lead["exact_bytes"] / lead["whole_bytes"]
     print("mp symbol: %d gloo ranks sharing one card, train_mesh(mp=%d), "
-          "%.1f s with start-up; rules %r shard %d parameters; mp_stats %s; "
+          "(the ranks' %.1f s); rules %r shard %d parameters; mp_stats %s; "
           "param bytes a rank %d of %d (%.6f, exact from the rules %.6f)"
           % (MP_RANKS, MP_RANKS, wall, MPS_RULES, lead["sharded"],
              lead["mp_stats"], lead["mp_stats"]["param_bytes_per_chip"],
@@ -11984,19 +12634,17 @@ def _sep_print_held(label, run, gap):
                                  for r, k in h["worst"])))
 
 
-def seq_expert_pipe_phase(torch, np, fa, fb):
+def seq_expert_pipe_phase(torch, np, fa, fb, ranks, wall):
     """Sequence, expert and pipeline parallelism on MP_RANKS gloo ranks
     sharing the card (the comment above SEP_TRAIN_STEPS): each leg's loss,
     gradients (and the pipeline's outputs) against one device, its exact
-    collective and kernel counts, the ring's bf16 train steps. Returns the
+    collective and kernel counts, the ring's bf16 train steps (``ranks``:
+    the sep work's results, run by mp_training_phase's spawn). Returns the
     B5, B6, B7, B1, B2, B3 launches of each leg on each rank."""
-    _free(torch)
-    ranks, wall = _run_ranks(_mp_gloo_rank, MP_RANKS, SEP_TIMEOUT,
-                             "seq_expert_pipe", "sep")
     r0 = ranks[0]
     n_layers = FULL["n_layers"]
-    print("seq_expert_pipe: %d gloo ranks sharing one card, %.1f s with "
-          "start-up; legs on rank 0: %s"
+    print("seq_expert_pipe: %d gloo ranks sharing one card (the ranks' "
+          "%.1f s); legs on rank 0: %s"
           % (MP_RANKS, wall, ", ".join("%s %.1f s" % (k, r0[k]["secs"])
                                        for k in ("sp", "ep", "pp",
                                                  "ulysses"))))
@@ -12167,6 +12815,8 @@ def main():
     conv = phase("conv_kernel", conv_kernel_phase, torch, fb)
     conv["launches"] = phase("resnet_serving", resnet_serving_phase, torch,
                              np, fb)
+    conv["host_runtime_launches"] = phase("host_runtime", host_runtime_phase,
+                                          torch, np, fb)
     bwd = phase("backward", backward_phase, torch, fa)
     phase("grad", grad_phase, torch, np)
     launches = phase("training", training_phase, torch, np, fa)
@@ -12189,7 +12839,10 @@ def main():
     heal_launches = phase("self_healing", self_healing_phase, torch, np, fb)
     for entry, n in zip([conv, *grads], heal_launches):
         entry["self_healing_launches"] = n
-    dp_nccl, dp_gloo = phase("dp_training", dp_training_phase, torch, np, fb)
+    works, ranks_wall, mps_ref = phase("ranks", ranks_phase, torch, np, fa,
+                                       fb)
+    dp_nccl, dp_gloo = phase("dp_training", dp_training_phase, torch, np, fb,
+                             works["dp"], ranks_wall)
     for i, entry in enumerate([conv, *grads]):
         entry["dp_launches"] = dp_nccl[i]
         entry["dp_gloo_launches"] = [r[i] for r in dp_gloo]
@@ -12197,11 +12850,12 @@ def main():
     for i, entry in enumerate([conv, *grads]):
         entry["dist_launches"] = dict(dist_sync=[r[i] for r in dist_a],
                                       servers=[r[i] for r in dist_b])
-    mp_train = phase("mp_training", mp_training_phase, torch, np, fa)
+    mp_train = phase("mp_training", mp_training_phase, torch, np, fa,
+                     works["train"], ranks_wall)
     for i, entry in enumerate([fwd, *bwd]):
         entry["mp_train_launches"] = [r[i] for r in mp_train]
     fwd["mp_serve_launches"] = phase("mp_serving", mp_serving_phase, torch,
-                                     np, fa)
+                                     np, fa, works["serve"], ranks_wall)
     zoo = phase("model_zoo_fit", model_zoo_fit_phase, torch, np, fa, fb)
     for entry, n in zip([fwd, *bwd, conv, *grads], zoo):
         entry["model_zoo_launches"] = n
@@ -12238,7 +12892,8 @@ def main():
         entry["embed_launches"] = m
     moe_train = phase("moe_training", moe_training_phase, torch, np, fa)
     moe_serve = phase("moe_serving", moe_serving_phase, torch, np, fa)
-    moe_mp = phase("moe_mp", moe_mp_phase, torch, np, fa)
+    moe_mp = phase("moe_mp", moe_mp_phase, torch, np, fa, works["moe"],
+                   ranks_wall)
     for i, entry in enumerate([fwd, *bwd]):
         entry["moe_train_launches"] = moe_train[i]
         entry["moe_mp_launches"] = [r[i] for r in moe_mp]
@@ -12255,20 +12910,23 @@ def main():
     tail_launches = phase("tail", tail_phase, torch, np, fa, fb)
     for entry, n in zip([fwd, *bwd, conv, *grads], tail_launches):
         entry["tail_launches"] = n
-    mps = phase("mp_symbol", mp_symbol_phase, torch, np, fa, fb)
+    mps = phase("mp_symbol", mp_symbol_phase, torch, np, fa, fb,
+                works["symbol"], ranks_wall, mps_ref)
     conv["mp_symbol_launches"] = dict(train=[r[0] for r in mps["train"]],
                                       serve=mps["serve"], group=mps["group"])
     for i, entry in enumerate(grads, 1):
         entry["mp_symbol_launches"] = dict(train=[r[i] for r in
                                                   mps["train"]])
     fwd["mp_symbol_launches"] = dict(spec=mps["spec"])
-    sep = phase("seq_expert_pipe", seq_expert_pipe_phase, torch, np, fa, fb)
+    sep = phase("seq_expert_pipe", seq_expert_pipe_phase, torch, np, fa, fb,
+                works["sep"], ranks_wall)
     for i, entry in enumerate([fwd, *bwd, conv, *grads]):
         entry["seq_expert_pipe_launches"] = {
             leg: [r[i] for r in runs] for leg, runs in sep.items()}
     print("launches on the main paths: training %d steps B5 %d, B6 %d, B7 "
           "%d; generative serving B5 %d; shared-prefix serving (cache on) "
           "B5 %d; speculative serving (k=%d) B5 %d; image serving B1 %d; "
+          "C predict ABI (fused ResNet-50, %d forwards) B1 %d; "
           "ResNet-50 "
           "training %d steps B1 %d, B2 %d, B3 %d; TrainStep options %d "
           "steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 %d, B2 %d, "
@@ -12296,6 +12954,7 @@ def main():
           "legs B5-B7 and B1-B3 on each rank %s"
           % (TRAIN_STEPS, *launches, served, fwd["prefix_launches"],
              SPEC_TRACE["k"], fwd["spec_launches"], conv["launches"],
+             len(ABI_BATCHES) * (1 + ABI_REPS), conv["host_runtime_launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
              OPTIONS_STEPS * (len(REMAT_MODES) + 1), *options_launches,
              FIT_EPOCHS * FIT_COPIES, *fit_launches,

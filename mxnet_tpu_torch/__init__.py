@@ -47,7 +47,13 @@ Ported so far, six paths over the six hand-written CUDA kernels
   ``Module.fit(kvstore='dist_sync')`` on the fused step over every worker,
   ``zero_wire='2bit'``, ZeRO over the parameter servers, the server entry
   point (``python -m mxnet_tpu_torch.kvstore_server``) and ``launch``
-  (``python -m mxnet_tpu_torch.launch``).
+  (``python -m mxnet_tpu_torch.launch``);
+- the host runtime and the C predict ABI: ``engine`` (the native
+  dependency engine), ``storage`` (the pooled host buffers) and the native
+  RecordIO route, built from ``src/`` with g++ by ``_native``, and
+  ``c_predict``, the backend of the port's C predict library
+  (``src/c_predict_api.h``), which serves a model from a C program through
+  ``serving.AOTPredictor``, B1 on the card for the fused ResNet.
 
 ROADMAP.md lists what remains.
 """
@@ -73,6 +79,8 @@ from . import monitor as mon  # noqa: F401
 from . import visualization  # noqa: F401
 from . import visualization as viz  # noqa: F401
 from . import executor_manager, libinfo, log, rtc, test_utils  # noqa: F401
+from . import storage  # noqa: F401
+from . import engine  # noqa: F401
 from .util import is_np_array  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from .base import MXNetError
@@ -99,4 +107,5 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "CheckpointManager", "health", "dist", "Executor", "load_checkpoint",
            "save_checkpoint", "num_gpus", "cpu_pinned", "operator",
            "monitor", "mon", "visualization", "viz", "rtc", "log",
-           "libinfo", "executor_manager", "test_utils", "is_np_array"]
+           "libinfo", "executor_manager", "test_utils", "is_np_array",
+           "storage", "engine"]

@@ -407,6 +407,29 @@ KNOBS = {
     "MXNET_GLUON_REPO": (
         "", "local directory or file:// URL the model zoo copies "
         "pretrained .params files from (gluon/model_zoo/model_store.py)"),
+    "MXNET_ENGINE_TYPE": (
+        "ThreadedEngine", "the host dependency engine: ThreadedEngine (the "
+        "native scheduler; ThreadedEnginePerDevice is an alias) or "
+        "NaiveEngine (runs each function when pushed); anything else "
+        "raises (engine.py)"),
+    "MXNET_CPU_WORKER_NTHREADS": (
+        "4", "worker threads of the native ThreadedEngine; integer >= 1 "
+        "(engine.py; src/engine.cc)"),
+    "MXNET_CPU_PRIORITY_NTHREADS": (
+        "4", "no effect: the native engine has one pool ordered by "
+        "priority, and torch's streams order the card"),
+    "MXNET_GPU_WORKER_NTHREADS": (
+        "2", "no effect: torch's CUDA streams order the card's work, not "
+        "engine threads"),
+    "MXNET_ENGINE_INFO": (
+        "0", "accepted and unread: the native engine logs no schedule"),
+    "MXNET_TPU_HOST_POOL_BYTES": (
+        str(1 << 30), "bytes the default native host storage pool keeps "
+        "cached for reuse; integer >= 0 (storage.py)"),
+    "MXNET_TPU_NO_NATIVE": (
+        "0", "1 forces the Python paths: no native runtime is built or "
+        "loaded, recordio reads and writes in Python and the engine is "
+        "NaiveEngine (_native.py)"),
     "MXNET_IR_FUSE": (
         "1", "kill switch for rule-based fusion in the model builders: "
         "resnet(fused=True) applies the IR fusion pass when 1, returns the "

@@ -1,8 +1,9 @@
 """Library locations and feature flags (``mx.libinfo``; counterpart of
-``mxnet_tpu/libinfo.py``). The port's native libraries are its
-hand-written CUDA kernels, built at first use into
-``mxnet_tpu_torch/_build`` (``kernels/_build.py``); ``features()`` has the
-JAX package's keys with the port's values."""
+``mxnet_tpu/libinfo.py``). The port's native libraries are the host
+runtime (``_native.py``: ``src/``'s engine, storage pool and RecordIO,
+built with g++) and its hand-written CUDA kernels (``kernels/_build.py``),
+both built at first use into ``mxnet_tpu_torch/_build``; ``features()``
+has the JAX package's keys with the port's values."""
 from __future__ import annotations
 
 import os
@@ -11,12 +12,16 @@ __version__ = "0.1.0"
 
 
 def find_lib_path():
-    """The built kernel libraries (``_build/lib<name>-<hash>.so``), sorted;
-    empty before the first build (the kernels build from source at first
-    use, so none is required)."""
+    """The host runtime's library first (built here if it is missing; left
+    out under ``MXNET_TPU_NO_NATIVE=1`` or when it cannot build), then the
+    other built libraries of ``_build/`` (``lib<name>-<hash>.so``), sorted:
+    the kernels build from source at first use, so none is required."""
+    from . import _native
     from .kernels._build import BUILD_DIR
 
-    return sorted(str(p) for p in BUILD_DIR.glob("lib*.so"))
+    runtime = [_native._lib_path()] if _native.get_lib() is not None else []
+    return runtime + sorted(str(p) for p in BUILD_DIR.glob("lib*.so")
+                            if str(p) not in runtime)
 
 
 def find_include_path():
@@ -27,16 +32,18 @@ def find_include_path():
 
 
 def features():
-    """Build and runtime flags: ``NATIVE_RUNTIME`` (the JAX package's C++
-    host runtime: not used by the port), ``BACKEND`` (``cuda`` with a
+    """Build and runtime flags: ``NATIVE_RUNTIME`` (the host runtime's
+    library is loaded), ``BACKEND`` (``cuda`` with a
     card, else ``cpu``), ``DEVICES`` (the CUDA devices, else the one CPU),
     ``PALLAS`` (no: the kernels are CUDA C++) and ``DIST``
     (``torch.distributed``)."""
     import torch
 
+    from . import _native
+
     cuda = torch.cuda.is_available()
     return {
-        "NATIVE_RUNTIME": False,
+        "NATIVE_RUNTIME": _native.get_lib() is not None,
         "BACKEND": "cuda" if cuda else "cpu",
         "DEVICES": torch.cuda.device_count() if cuda else 1,
         "PALLAS": False,

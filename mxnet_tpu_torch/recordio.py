@@ -4,17 +4,22 @@ image record header (counterpart of ``mxnet_tpu/recordio.py``).
 The same on-disk bytes as the JAX package and the reference MXNet: magic
 ``0xced7230a``, then ``lrec`` (the length, with a continuation flag in its
 top 3 bits), the payload, and zero padding to 4 bytes. Records written by
-either package read in the other. This is the JAX package's pure-Python
-route; the port loads no native runtime.
+either package read in the other. A record file is read and written
+through the native runtime (``src/recordio.cc``, built by
+:mod:`._native`) when it is available, and in Python under
+``MXNET_TPU_NO_NATIVE=1`` or without a library: the same bytes either
+way.
 """
 from __future__ import annotations
 
+import ctypes
 import numbers
 import os
 import struct
 
 import numpy as np
 
+from . import _native
 from .base import MXNetError
 
 _MAGIC = 0xCED7230A
@@ -30,26 +35,44 @@ def _decode_lrec(lrec):
 
 
 class MXRecordIO:
-    """Sequential record reader (``flag="r"``) or writer (``flag="w"``)."""
+    """Sequential record reader (``flag="r"``) or writer (``flag="w"``),
+    native when the runtime is available (``_nat`` holds the library and
+    the native handle), else Python."""
 
     def __init__(self, uri, flag):
         self.uri = uri
         self.flag = flag
         self.handle = None
         self.writable = None
+        self._nat = None
         self.open()
 
     def open(self):
+        lib = _native.get_lib()
         if self.flag == "w":
             self.writable = True
         elif self.flag == "r":
             self.writable = False
         else:
             raise MXNetError("Invalid flag %s" % self.flag)
-        self.handle = open(self.uri, "wb" if self.writable else "rb")
+        if lib is not None:
+            uri = self.uri.encode()
+            h = (lib.MXTRecordIOWriterCreate(uri) if self.writable
+                 else lib.MXTRecordIOReaderCreate(uri))
+            if not h:
+                raise MXNetError(_native.last_error()
+                                 or "cannot open %s" % self.uri)
+            self._nat = (lib, h)
+        else:
+            self.handle = open(self.uri, "wb" if self.writable else "rb")
         self.pid = os.getpid()
 
     def close(self):
+        if self._nat is not None:
+            lib, h = self._nat
+            self._nat = None
+            (lib.MXTRecordIOWriterClose if self.writable
+             else lib.MXTRecordIOReaderClose)(h)
         if self.handle is not None:
             self.handle.close()
             self.handle = None
@@ -60,6 +83,7 @@ class MXRecordIO:
     def __getstate__(self):
         d = dict(self.__dict__)
         d["handle"] = None
+        d["_nat"] = None
         return d
 
     def __setstate__(self, d):
@@ -75,17 +99,33 @@ class MXRecordIO:
         self.open()
 
     def tell(self):
+        if self._nat is not None:
+            lib, h = self._nat
+            return (lib.MXTRecordIOWriterTell if self.writable
+                    else lib.MXTRecordIOReaderTell)(h)
         return self.handle.tell()
 
     def seek(self, pos):
         if self.writable:
             raise MXNetError("seek on a writable recordio")
-        self.handle.seek(pos)
+        if self._nat is not None:
+            lib, h = self._nat
+            if lib.MXTRecordIOReaderSeek(h, pos) != 0:
+                raise MXNetError("recordio seek(%d) failed: %s"
+                                 % (pos, _native.last_error()))
+        else:
+            self.handle.seek(pos)
 
     def write(self, buf):
         assert self.writable
         if not isinstance(buf, bytes):
             buf = bytes(buf)
+        if self._nat is not None:
+            lib, h = self._nat
+            if lib.MXTRecordIOWriterWrite(h, buf, len(buf)) != 0:
+                raise MXNetError("recordio write failed: %s"
+                                 % _native.last_error())
+            return
         self.handle.write(_LREC_HEADER.pack(_MAGIC, _encode_lrec(0, len(buf))))
         self.handle.write(buf)
         pad = (4 - (len(buf) % 4)) % 4
@@ -95,6 +135,18 @@ class MXRecordIO:
     def read(self):
         """The next record's bytes, or None at the end of the file."""
         assert not self.writable
+        if self._nat is not None:
+            lib, h = self._nat
+            out = ctypes.c_char_p()
+            size = ctypes.c_size_t()
+            rc = lib.MXTRecordIOReaderNext(h, ctypes.byref(out),
+                                           ctypes.byref(size))
+            if rc == 0:
+                return None
+            if rc < 0:
+                raise MXNetError("recordio read failed: %s"
+                                 % _native.last_error())
+            return ctypes.string_at(out, size.value)
         # split-record reassembly (cflag 1 = first, 2 = middle, 3 = last
         # chunk; dmlc splits payloads at embedded magic words and the
         # reader re-inserts them)

@@ -22,8 +22,8 @@ from .generate import (
     PagePoolExhausted,
     PrefixIndex,
 )
-from .predictor import (AOTPredictor, ServingError, env_batch_ladder,
-                        validate_ladder)
+from .predictor import (DEFAULT_LADDER, AOTPredictor,  # noqa: F401
+                        ServingError, env_batch_ladder, validate_ladder)
 from .fleet import (
     FleetError,
     FleetOverloaded,

@@ -37,8 +37,11 @@ run :meth:`AOTPredictor.follow`, which receives each request batch through
 a lockstep (``serving.lockstep.Lockstep``) and runs the same program, so
 its collectives meet. Sharded weights are never folded.
 Not ported yet: ``swap_params`` and ``quant="int8"`` on a sharded bind
-(both raise), and the exact-shape bind (the JAX package's ``ladder=None``;
-here ``ladder=None`` reads the knob).
+(both raise).
+
+**The exact-shape bind.** ``ladder=None`` binds the given ``data_shapes``
+as they are: no padding, no bucket selection, a request of any other shape
+raises. The C predict ABI binds so (``c_predict.py``).
 """
 from __future__ import annotations
 
@@ -56,6 +59,9 @@ from ..executor import INFERENCE_SEED, eval_node
 
 # the sharded bind's lockstep op (``lockstep.CLOSE`` is 0)
 _RUN = 1
+# the ladder that reads MXNET_SERVE_BATCH_LADDER (its default), as the JAX
+# package's AOTPredictor takes it: ``ladder=None`` is the exact-shape bind
+DEFAULT_LADDER = (1, 4, 16, 64)
 
 
 class ServingError(MXNetError):
@@ -156,9 +162,10 @@ class AOTPredictor:
     zero-filled with a warning (c_predict parity: loss labels).
     ``data_shapes``: ``{input name: shape}``, the leading dimension the
     batch axis, rebound per ladder bucket. ``ladder``: the batch buckets,
-    by default ``MXNET_SERVE_BATCH_LADDER``. ``dtype``: the serving compute
-    dtype; float params and inputs are cast to it, float outputs come back
-    as float32 numpy.
+    by default ``MXNET_SERVE_BATCH_LADDER``; ``None`` binds the data shapes
+    exactly (no padding, no buckets: the C ABI's mode). ``dtype``: the
+    serving compute dtype; float params and inputs are cast to it, float
+    outputs come back as float32 numpy.
     ``device`` defaults to ``cuda`` (raising when there is none); pass
     ``device="cpu"`` to serve on the CPU. ``output_names`` serves internal
     layers (``fc1_output``, ...). Random ops that draw in inference
@@ -181,7 +188,7 @@ class AOTPredictor:
     """
 
     def __init__(self, symbol, arg_params=None, aux_params=None,
-                 data_shapes=None, ladder=None, dtype="float32",
+                 data_shapes=None, ladder=DEFAULT_LADDER, dtype="float32",
                  device=None, output_names=None, quant=None, mesh=None,
                  calib_data=None, quant_exclude=(), param_rules=None):
         self._quant = _resolve_quant(quant)
@@ -207,8 +214,12 @@ class AOTPredictor:
         self._sym = symbol
         self._data_shapes = {k: tuple(v) for k, v in data_shapes.items()}
         self._data_names = sorted(self._data_shapes)
-        self._ladder = env_batch_ladder() if ladder is None \
-            else validate_ladder(ladder)
+        if ladder is None:
+            self._ladder = None
+        elif ladder is DEFAULT_LADDER:
+            self._ladder = env_batch_ladder()
+        else:
+            self._ladder = validate_ladder(ladder)
         self._dtype = dtype_torch(dtype)
         self._dtype_name = dtype_name(dtype)
         if mesh is not None:
@@ -258,7 +269,7 @@ class AOTPredictor:
             self._sym = symbol
 
         arg_shapes, _, aux_shapes = symbol.infer_shape(
-            **self._bucket_shapes(self._ladder[0]))
+            **self._bucket_shapes(self._ladder[0] if self._ladder else None))
         inferred = dict(zip(arg_names, arg_shapes))
         inferred.update(zip(aux_names, aux_shapes))
         self._shard_plan = self._lockstep = None
@@ -325,6 +336,9 @@ class AOTPredictor:
         return t.to(self.device).contiguous()
 
     def _bucket_shapes(self, bucket):
+        """The data shapes at ``bucket`` rows (None: the exact bind's)."""
+        if bucket is None:
+            return dict(self._data_shapes)
         return {name: (bucket,) + shape[1:]
                 for name, shape in self._data_shapes.items()}
 
@@ -396,7 +410,7 @@ class AOTPredictor:
 
     @property
     def max_bucket(self):
-        return self._ladder[-1]
+        return self._ladder[-1] if self._ladder else None
 
     @property
     def data_names(self):
@@ -406,8 +420,15 @@ class AOTPredictor:
     def output_names(self):
         return self._sym.list_outputs()
 
+    @property
+    def num_outputs(self):
+        return len(self._plan.entries)
+
     def pick_bucket(self, rows):
         """Smallest ladder bucket >= rows."""
+        if self._ladder is None:
+            raise ServingError("predictor was bound at exact shapes "
+                               "(ladder=None); no bucket ladder exists")
         rows = int(rows)
         if rows < 1:
             raise ServingError("request needs >= 1 row, got %d" % rows)
@@ -448,7 +469,8 @@ class AOTPredictor:
         return out, rows
 
     def run_bucket(self, inputs, bucket):
-        """Run one assembled batch of exactly ``bucket`` rows; returns the
+        """Run one assembled batch of exactly ``bucket`` rows (None on an
+        exact-shape bind: its bound shapes); returns the
         outputs as host numpy arrays, unsliced, float outputs as float32.
         On a sharded bind, rank 0 first sends the batch to the followers;
         a failed send breaks the lockstep (later calls raise)."""
@@ -461,7 +483,8 @@ class AOTPredictor:
                                % (self._data_names, sorted(inputs)))
         arrays = [np.asarray(inputs[n]) for n in self._data_names]
         return ls.lead("AOTPredictor", _RUN,
-                       arrays + [np.array([bucket], np.int64)],
+                       arrays + [np.array([-1 if bucket is None else bucket],
+                                          np.int64)],
                        lambda: self._run_bucket(inputs, bucket))
 
     def follow(self):
@@ -474,8 +497,9 @@ class AOTPredictor:
         calls = [0]
 
         def handle(op, arrays):
+            bucket = int(arrays[-1][0])
             self._run_bucket(dict(zip(self._data_names, arrays[:-1])),
-                             int(arrays[-1][0]))
+                             None if bucket < 0 else bucket)
             calls[0] += 1
 
         self._lockstep.follow(handle)
@@ -529,8 +553,17 @@ class AOTPredictor:
     def predict(self, inputs):
         """Synchronous single-request forward: pads up to the nearest
         bucket, runs, slices the pad away. Returns a list of numpy outputs
-        with the request's row count."""
+        with the request's row count. An exact-shape bind (``ladder=None``)
+        takes its bound shapes only."""
         inputs, rows = self._normalize(inputs)
+        if self._ladder is None:
+            for name, v in inputs.items():
+                if tuple(v.shape) != self._data_shapes[name]:
+                    raise ServingError(
+                        "input %r has shape %s; exact-bound predictor "
+                        "expects %s" % (name, tuple(v.shape),
+                                        self._data_shapes[name]))
+            return self.run_bucket(inputs, None)
         bucket = self.pick_bucket(rows)
         padded = {}
         for name, v in inputs.items():

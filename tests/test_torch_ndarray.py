@@ -566,11 +566,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.module.python_module, "
             "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.health, "
             "mxnet_tpu_torch.embedding.checkpoint, mxnet_tpu_torch.dist, "
-            "mxnet_tpu_torch.launch, chip_smoke\n"
+            "mxnet_tpu_torch.launch, mxnet_tpu_torch.engine, "
+            "mxnet_tpu_torch.storage, mxnet_tpu_torch._native, "
+            "mxnet_tpu_torch.c_predict, chip_smoke\n"
             "assert all(hasattr(mxnet_tpu_torch, n) for n in ('profiler', "
             "'ir', 'serving', 'embedding', 'kvstore_server', 'tracker', "
             "'chaos', 'rnd', 'Executor', 'num_gpus', 'cpu_pinned', "
-            "'dist'))\n"
+            "'dist', 'engine', 'storage'))\n"
             "import torch\n"
             "assert not torch.cuda.is_initialized()\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -580,3 +582,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_port_c_shim_imports_only_the_port():
+    """The port's C predict library embeds Python and imports its backend
+    by name: ``mxnet_tpu_torch.c_predict``, never a JAX package module."""
+    shim = os.path.join(ROOT, "mxnet_tpu_torch", "native")
+    with open(os.path.join(shim, "c_predict.cc")) as f:
+        cc = f.read()
+    assert 'import_backend("mxnet_tpu_torch.c_predict")' in cc
+    for name in ("c_predict.cc", "embed_common.h"):
+        with open(os.path.join(shim, name)) as f:
+            assert "mxnet_tpu." not in f.read(), name

@@ -105,13 +105,23 @@ def test_image_records_cross(writer, reader):
     np.testing.assert_array_equal(PACKAGES[reader].unpack_img(rec)[1], img)
 
 
-def test_garbage_magic_raises(tmp_path):
+def test_garbage_magic_raises(tmp_path, monkeypatch):
+    """Each route words it as the JAX package's same route does."""
+    from mxnet_tpu_torch import _native
+
     path = str(tmp_path / "bad.rec")
     with open(path, "wb") as f:
         f.write(b"\xde\xad\xbe\xef" + b"\x00" * 12)
-    r = trec.MXRecordIO(path, "r")
-    with pytest.raises(trec.MXNetError, match="invalid record magic"):
-        r.read()
-    r.close()
+    for flag, want in (("1", "invalid record magic"),
+                       ("0", "recordio read failed: bad magic")):
+        monkeypatch.setenv("MXNET_TPU_NO_NATIVE", flag)
+        _native._LIB = None
+        r = trec.MXRecordIO(path, "r")
+        assert (r._nat is not None) == (flag == "0")
+        with pytest.raises(trec.MXNetError, match=want):
+            r.read()
+        r.close()
+    monkeypatch.delenv("MXNET_TPU_NO_NATIVE")
+    _native._LIB = None
     with pytest.raises(trec.MXNetError, match="Invalid flag"):
         trec.MXRecordIO(path, "a")

@@ -49,9 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # JAX or TPU internals that have no counterpart in the port
 JAX_ONLY = {
-    "": {"tpu": "the TPU context", "num_tpus": "TPU count",
-         "storage": "the JAX host-pool allocator",
-         "engine": "the JAX dependency engine (torch orders the card)"},
+    "": {"tpu": "the TPU context", "num_tpus": "TPU count"},
     "util": {"shard_map": "the version shim over jax.shard_map (the port's "
              "collectives are torch.distributed's, parallel/mesh.py)"},
     "context": {"tpu": "the TPU context", "num_tpus": "TPU count"},

@@ -359,9 +359,12 @@ def test_libinfo_and_util_match_jax_keys():
     assert set(feats) == set(jmx.libinfo.features())
     assert feats["BACKEND"] == ("cuda" if torch.cuda.is_available()
                                 else "cpu")
-    assert feats["PALLAS"] is False and feats["NATIVE_RUNTIME"] is False
-    assert isinstance(tmx.libinfo.find_lib_path(), list)
-    assert all(p.endswith(".so") for p in tmx.libinfo.find_lib_path())
+    assert feats["PALLAS"] is False
+    assert feats["NATIVE_RUNTIME"] is (tmx._native.get_lib() is not None) \
+        is jmx.libinfo.features()["NATIVE_RUNTIME"] is True
+    paths = tmx.libinfo.find_lib_path()
+    assert isinstance(paths, list) and all(p.endswith(".so") for p in paths)
+    assert paths[0] == tmx._native._lib_path()
     assert tmx.libinfo.find_include_path() == \
         jmx.libinfo.find_include_path()
     assert tmx.libinfo.__version__ == jmx.libinfo.__version__
