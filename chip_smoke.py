@@ -4065,6 +4065,292 @@ def module_fit_phase(torch, np, fb):
 
 
 # ---------------------------------------------------------------------------
+# More than one device in one process (ROADMAP.md, Queue A). The card
+# is used twice where a list is needed:
+# (a) Module.fit on the full-width fused ResNet-50, fp32, context=[gpu(0),
+#     gpu(0)], kvstore='device', FIT_BATCH rows a batch (half a context),
+#     MC_BATCHES batches; after the first batch the parameters equal, bit
+#     for bit, a hand computation: two one-context executors on the halves,
+#     their gradients summed in context order, one step of the port's SGD.
+# (b) TINY_RESNET through the two-context Module on [gpu(0), gpu(0)] against
+#     [cpu(0), cpu(1)]: the merged outputs and each executor's gradients.
+# (c) ctx_group placement: the full-width fused ResNet-50's body under
+#     "body" on the card, its head (fc1, softmax) under "head" on the host,
+#     against the unplaced bind on the card, each tensor within MC_HEAD_TOL
+#     or TAIL_YARD_RATIO times the gap one rounding of fc1 gives.
+# ---------------------------------------------------------------------------
+MC_BATCHES = 4
+MC_HEAD_TOL = 1e-4
+MC_TINY_LAUNCHES = (22, 22, 18)   # (b): two executors of the tiny net
+
+
+def _mc_fit(torch, np, fb, mx, resnet):
+    """(a): returns (launches a batch, images/s of the median batch, the
+    fit's launches)."""
+    n, half = FIT_BATCH, FIT_BATCH // 2
+    batch = _resnet_batch(np, 0, n)
+    x = np.concatenate([batch["data"]] * MC_BATCHES)
+    y = np.concatenate([batch["softmax_label"]] * MC_BATCHES)
+    sym = resnet.get_symbol(fused=True, **RESNET)
+    mod = mx.mod.Module(sym, context=[mx.gpu(0), mx.gpu(0)])
+    it = mx.io.NDArrayIter(x, y, batch_size=n)
+    mod.bind(it.provide_data, it.provide_label)
+    mx.random.seed(0)
+    mod.init_params(initializer=mx.init.Xavier())
+    mod.init_optimizer(kvstore="device", optimizer="sgd",
+                       optimizer_params=FIT_OPT)
+    init = [{k: v.asnumpy() for k, v in d.items()}
+            for d in mod.get_params()]
+    first, per_batch = {}, []
+    last = {"t": None, "counts": (0, 0, 0)}
+
+    def on_batch(_param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = _fb_counts(fb)
+        per_batch.append((now - last["t"],) + tuple(
+            a - b for a, b in zip(counts, last["counts"])))
+        if not first:
+            first.update({k: v.asnumpy()
+                          for k, v in mod.get_params()[0].items()})
+        last["t"], last["counts"] = time.perf_counter(), counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_fb_counts(fb)
+    last["t"] = time.perf_counter()
+    mod.fit(it, num_epoch=1, eval_metric="acc", batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches, cores = _fb_counts(fb), _core_routes(fb)
+    secs = sorted(b[0] for b in per_batch[1:])
+    med = secs[len(secs) // 2]
+    one_rate = FIT_RATES.get("module_fit", (float("nan"), 0.0))[0]
+    del mod
+    _free(torch)
+
+    # the hand computation of the first step
+    ex = sym.simple_bind(mx.gpu(0), data=(half,) + RESNET["image_shape"],
+                         softmax_label=(half,))
+    for d, src in ((ex.arg_dict, init[0]), (ex.aux_dict, init[1])):
+        for k, v in src.items():
+            d[k][:] = v
+    names = [k for k in sym.list_arguments() if k not in batch]
+    halves = []
+    for h in range(2):
+        rows = slice(h * half, (h + 1) * half)
+        ex.forward_backward(data=batch["data"][rows],
+                            softmax_label=batch["softmax_label"][rows])
+        halves.append({k: ex.grad_dict[k].tensor.clone() for k in names})
+    del ex
+    opt = mx.optimizer.create("sgd", sym=sym,
+                              param_idx2name=dict(enumerate(names)),
+                              rescale_grad=1.0 / n, **FIT_OPT)
+    upd = mx.optimizer.get_updater(opt)
+    unequal = []
+    for k in names:
+        g = halves[0][k].clone()
+        g += halves[1][k]
+        w = mx.nd.array(init[0][k], ctx=mx.gpu(0))
+        upd(k, mx.nd.NDArray(g, mx.gpu(0)), w)
+        if not np.array_equal(w.asnumpy(), first[k]):
+            unequal.append(k)
+    del halves
+    _free(torch)
+    per = [b[1:] for b in per_batch]
+    print("multi_context (a): Module.fit, context [gpu(0), gpu(0)], "
+          "kvstore='device', fused ResNet-50 fp32, %d batches of %d (%d a "
+          "context); launches a batch %s (want %d/%d/%d), on the CUDA cores "
+          "%d/%d/%d; seconds a batch after the first: median %.4f, range "
+          "%.4f-%.4f; %.1f images/s against module_fit's one context %.1f "
+          "(this call); peak memory %.2f GiB; the first step bit for bit "
+          "the hand-summed two-executor step: %s (%d of %d parameters "
+          "differ%s)"
+          % (len(per), n, half, " ".join("%d/%d/%d" % p for p in per),
+             2 * B1_PER_FORWARD, 2 * B2_PER_STEP, 2 * B3_PER_STEP, *cores,
+             med, secs[0], secs[-1], n / med, one_rate, peak / 2 ** 30,
+             not unequal, len(unequal), len(names),
+             ": " + ", ".join(unequal[:4]) if unequal else ""))
+    want = (2 * B1_PER_FORWARD, 2 * B2_PER_STEP, 2 * B3_PER_STEP)
+    if len(per) != MC_BATCHES or any(p != want for p in per) or any(cores):
+        raise RuntimeError("multi_context (a): launches a batch %s, want %s, "
+                           "CUDA-core route %s" % (per, want, cores))
+    if unequal:
+        raise RuntimeError("multi_context (a): the first step differs from "
+                           "the hand-summed two-executor step at %s"
+                           % unequal[:8])
+    return want, n / med, launches
+
+
+def _mc_card_vs_cpu(torch, np, fb, mx):
+    """(b): the tiny fused net through the two-context Module, one
+    forward_backward on [gpu(0), gpu(0)] and on [cpu(0), cpu(1)]."""
+    from mxnet_tpu_torch.models import resnet
+
+    sym = resnet.resnet(fused=True, **TINY_RESNET)
+    n = 2 * TINY_BATCH
+    shape = (n, 3) + TINY_RESNET["image_shape"][1:]
+    args, auxs = resnet.init_params(sym, shape, seed=0)
+    rng = np.random.RandomState(4)
+    x = rng.randn(*shape).astype(np.float32)
+    y = rng.randint(0, TINY_RESNET["num_classes"], (n,)).astype(np.float32)
+    got = {}
+    for where, ctxs in (("card", [mx.gpu(0), mx.gpu(0)]),
+                        ("cpu", [mx.cpu(0), mx.cpu(1)])):
+        mod = mx.mod.Module(sym, context=ctxs)
+        mod.bind([("data", shape)], [("softmax_label", (n,))])
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in args.items()},
+                        aux_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in auxs.items()})
+        before = _fb_counts(fb)
+        mod.forward_backward(mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())],
+                                             [mx.nd.array(y, ctx=mx.cpu())]))
+        got[where] = (mod.get_outputs()[0].asnumpy(),
+                      [{k: e.grad_dict[k].asnumpy() for k in args}
+                       for e in mod._exec_group.execs],
+                      tuple(a - b for a, b in zip(_fb_counts(fb), before)))
+        del mod
+    card, cpu = got["card"], got["cpu"]
+    errs = []
+    for i, (cg, pg) in enumerate(zip(card[1], cpu[1])):
+        floor = 1e-2 * max(float(np.abs(g).max()) for g in pg.values())
+        errs += [(float(np.abs(cg[k] - g).max())
+                  / max(float(np.abs(g).max()), floor), "%s[%d]" % (k, i))
+                 for k, g in pg.items()]
+    errs.sort()
+    out_err = float(np.abs(card[0] - cpu[0]).max())
+    print("multi_context (b): tiny fused ResNet, Module over [gpu(0), "
+          "gpu(0)] vs [cpu(0), cpu(1)], batch %d: merged outputs %.3g, %d "
+          "gradients (2 executors), worst %s (tol %g); card launches B1 %d, "
+          "B2 %d, B3 %d" % (n, out_err, len(errs),
+                            ", ".join("%.3g at %s" % e for e in errs[-3:]),
+                            FIT_GRAD_TOL, *card[2]))
+    if errs[-1][0] > FIT_GRAD_TOL or out_err > FIT_GRAD_TOL or \
+            card[2] != MC_TINY_LAUNCHES or card[0].shape != (n, 5):
+        raise RuntimeError("multi_context (b): the two-context Module on the "
+                           "card differs from the CPU contexts'")
+
+
+def _mc_placed_symbol(mx, resnet):
+    """The full-width fused ResNet-50's body through ``pool1`` under
+    ``ctx_group="body"``, its head (Flatten, fc1, softmax) under
+    ``"head"``."""
+    with mx.AttrScope(ctx_group="body"):
+        feat = resnet.get_symbol(fused=True, **RESNET) \
+            .get_internals()["pool1_output"]
+    with mx.AttrScope(ctx_group="head"):
+        fc1 = mx.sym.FullyConnected(mx.sym.Flatten(feat),
+                                    num_hidden=RESNET["num_classes"],
+                                    name="fc1")
+        return mx.sym.SoftmaxOutput(fc1, name="softmax")
+
+
+def _mc_placed(torch, np, fb, mx, resnet):
+    """(c): returns the placed bind's launches."""
+    n = FIT_BATCH // 2
+    shape = (n,) + RESNET["image_shape"]
+    sym = _mc_placed_symbol(mx, resnet)
+    args, auxs = resnet.init_params(sym, shape, seed=0)
+    batch = _resnet_batch(np, 7, n)
+    runs = []
+    for g2c, nudge in ((None, None), ({"body": mx.gpu(0),
+                                       "head": mx.cpu(0)}, None),
+                       (None, 300), (None, 301)):
+        rng = None if nudge is None else np.random.RandomState(nudge)
+        ex = sym.simple_bind(mx.gpu(0), group2ctx=g2c, data=shape,
+                             softmax_label=(n,))
+        for d, src in ((ex.arg_dict, args), (ex.aux_dict, auxs)):
+            for k, v in src.items():
+                if rng is not None and k in ("fc1_weight", "fc1_bias"):
+                    v = _zoo_nudged(np, v, rng)
+                d[k][:] = v
+        before = _fb_counts(fb)
+        ex.forward_backward(**batch)
+        counts = tuple(a - b for a, b in zip(_fb_counts(fb), before))
+        runs.append((ex.outputs[0].asnumpy(),
+                     {k: v.asnumpy() for k, v in ex.grad_dict.items()
+                      if k not in batch}, counts,
+                     dict(ex.node_devices), ex.outputs[0].context))
+        del ex
+        _free(torch)
+    ref_out, ref_g = runs[0][:2]
+    out, g, counts, placed, out_ctx = runs[1]
+    floor = 1e-2 * max(float(np.abs(v).max()) for v in ref_g.values())
+
+    def gap(a, k):
+        return float(np.abs(a[k] - ref_g[k]).max()) / max(
+            float(np.abs(ref_g[k]).max()), floor)
+
+    rows = sorted((gap(g, k), max(gap(r[1], k) for r in runs[2:]), k)
+                  for k in ref_g)
+    allowed = {k: max(MC_HEAD_TOL, TAIL_YARD_RATIO * yard)
+               for _e, yard, k in rows}
+    scale = float(np.abs(ref_out).max())
+    out_err = float(np.abs(out - ref_out).max()) / scale
+    yard_out = max(float(np.abs(r[0] - ref_out).max()) for r in runs[2:]) \
+        / scale
+    head = {k: str(placed.get(k)) for k in ("fc1", "softmax")}
+    print("multi_context (c): ctx_group placement, fused ResNet-50 fp32 "
+          "batch %d, body on gpu(0), head on cpu(0): the executor recorded "
+          "fc1 on %s, softmax on %s, pool1 on %s, outputs on %s; against "
+          "the unplaced bind on the card: outputs %.3g (fc1 moved by one "
+          "rounding: %.3g), %d gradients, worst %s (gap, the one-rounding "
+          "gap; tol %g or %g x the one-rounding gap); launches B1 %d, B2 %d, "
+          "B3 %d (unplaced %d/%d/%d)"
+          % (n, head["fc1"], head["softmax"], placed.get("pool1"), out_ctx,
+             out_err, yard_out, len(rows),
+             ", ".join("%.3g (%.3g) at %s" % r for r in rows[-3:]),
+             MC_HEAD_TOL, TAIL_YARD_RATIO, *counts, *runs[0][2]))
+    want = (B1_PER_FORWARD, B2_PER_STEP, B3_PER_STEP)
+    card, host = str(mx.gpu(0)), str(mx.cpu(0))
+    if head != {"fc1": host, "softmax": host} or \
+            str(placed.get("pool1")) != card or str(out_ctx) != card:
+        raise RuntimeError("multi_context (c): placement %s, outputs on %s"
+                           % (placed, out_ctx))
+    if counts != want or runs[0][2] != want:
+        raise RuntimeError("multi_context (c): launches %s / %s, want %s"
+                           % (counts, runs[0][2], want))
+    if out_err > max(MC_HEAD_TOL, TAIL_YARD_RATIO * yard_out) or \
+            any(e > allowed[k] for e, _r, k in rows):
+        raise RuntimeError("multi_context (c): the placed bind differs from "
+                           "the unplaced one beyond the one-rounding "
+                           "yardstick")
+    return counts
+
+
+def multi_context_phase(torch, np, fa, fb):
+    """(a), (b), (c) above; returns ``{"fit": (B1, B2, B3) of (a)'s fit,
+    "placed": (B1, B2, B3) of (c)'s placed bind, "flash": B5-B7 over the
+    phase}``."""
+    import logging
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import resnet
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("multi_context: TF32 must be off for fp32")
+    gc.collect()
+    logging.getLogger().setLevel(logging.ERROR)
+    flash0 = _counts(fa)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _per, _rate, fit = _mc_fit(torch, np, fb, mx, resnet)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        logging.getLogger().setLevel(logging.WARNING)
+    _mc_card_vs_cpu(torch, np, fb, mx)
+    placed = _mc_placed(torch, np, fb, mx, resnet)
+    flash = tuple(a - b for a, b in zip(_counts(fa), flash0))
+    if any(flash):
+        raise RuntimeError("multi_context: flash launches %s on a ResNet "
+                           "path" % (flash,))
+    return {"fit": fit, "placed": placed, "flash": flash}
+
+
+# ---------------------------------------------------------------------------
 # Self-healing (ROADMAP.md Queue A item 10b) on the full-width fused
 # ResNet-50, fp32, FIT_BATCH rows a batch, Module.fit(kvstore='tpu') on
 # B1-B3 with the guard armed (MXNET_CHECKPOINT_DIR):
@@ -12836,6 +13122,11 @@ def main():
     fit_launches = phase("module_fit", module_fit_phase, torch, np, fb)
     for entry, n in zip([conv, *grads], fit_launches):
         entry["module_fit_launches"] = n
+    mc = phase("multi_context", multi_context_phase, torch, np, fa, fb)
+    for entry, a, c in zip([conv, *grads], mc["fit"], mc["placed"]):
+        entry["multi_context_launches"] = dict(fit=a, placed=c)
+    for entry, n in zip([fwd, *bwd], mc["flash"]):
+        entry["multi_context_launches"] = n
     heal_launches = phase("self_healing", self_healing_phase, torch, np, fb)
     for entry, n in zip([conv, *grads], heal_launches):
         entry["self_healing_launches"] = n
@@ -12930,7 +13221,9 @@ def main():
           "ResNet-50 "
           "training %d steps B1 %d, B2 %d, B3 %d; TrainStep options %d "
           "steps B1 %d, B2 %d, B3 %d; Module.fit %d batches B1 %d, B2 %d, "
-          "B3 %d; guarded Module.fit (rollback) %d batches B1 %d, B2 %d, "
+          "B3 %d; two-context Module.fit %d batches B1 %d, B2 %d, B3 %d, "
+          "ctx_group-placed step B1 %d, B2 %d, B3 %d; "
+          "guarded Module.fit (rollback) %d batches B1 %d, B2 %d, "
           "B3 %d; data parallel, one rank over NCCL, %d steps B1 %d, B2 %d, "
           "B3 %d, each of %d gloo ranks %s; dist_sync Module.fit %d "
           "batches B1, B2, B3 on each worker %s, through %d servers %d "
@@ -12957,7 +13250,8 @@ def main():
              len(ABI_BATCHES) * (1 + ABI_REPS), conv["host_runtime_launches"],
              RESNET_TRAIN_STEPS, *resnet_launches,
              OPTIONS_STEPS * (len(REMAT_MODES) + 1), *options_launches,
-             FIT_EPOCHS * FIT_COPIES, *fit_launches,
+             FIT_EPOCHS * FIT_COPIES, *fit_launches, MC_BATCHES,
+             *mc["fit"], *mc["placed"],
              HEAL_EPOCHS * HEAL_BATCHES, *heal_launches, DP_STEPS, *dp_nccl,
              DP_RANKS, " / ".join("%d, %d, %d" % r for r in dp_gloo),
              DIST_BATCHES, " / ".join("%d, %d, %d" % tuple(r)

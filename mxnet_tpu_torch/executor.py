@@ -46,7 +46,13 @@ of those categories while the profiler runs (``profiler.maybe_scope``,
 host time, no synchronization); ``forward_backward`` records its forward
 and its backward as events of their own inside its own.
 
-Not ported yet: ``ctx_group`` placement and ``group2ctx`` (both raise).
+``group2ctx`` (``bind``, ``simple_bind``, the executor group's
+``group2ctxs``) places each ``ctx_group`` on its context
+(:func:`_graph_closure`'s ``placement``); the arguments, gradients, outputs
+and aux states stay in the executor's arrays on its own context. The
+executor records the map as ``placement`` (group -> Context) and, after
+each run, ``node_devices`` (each placed node's name -> the Context its
+output was computed on).
 """
 from __future__ import annotations
 
@@ -133,7 +139,8 @@ def has_rng(symbol):
     return any(n.op is not None and n.op.needs_rng for n in symbol._topo())
 
 
-def _graph_closure(symbol, is_train, remat_names=None, shard_plan=None):
+def _graph_closure(symbol, is_train, remat_names=None, shard_plan=None,
+                   placement=None):
     """A function evaluating the graph: ``fn(values, seed=None) ->
     (outputs, aux_updates)``, with ``values`` every variable's tensor by
     name, ``seed`` the step seed of the random ops (None draws one from
@@ -151,16 +158,29 @@ def _graph_closure(symbol, is_train, remat_names=None, shard_plan=None):
 
     ``shard_plan`` (a ``parallel.symbol_mp.ShardPlan``, or None) runs the
     graph with the parameters it shards bound to this rank's blocks: each
-    node through :meth:`ShardPlan.run_node`, the outputs made whole."""
+    node through :meth:`ShardPlan.run_node`, the outputs made whole.
+
+    ``placement`` (``{ctx_group: torch.device}``, or None) is the
+    PlaceDevice pass: a node, or a variable, whose ``ctx_group`` attribute
+    names a placed group runs on that group's device, every other node on
+    the graph's (the bound values' first device). A node's inputs move to
+    its device with ``Tensor.to``, so autograd carries each gradient back
+    across the copy (the reference's ``_CrossDeviceCopy``), and the outputs
+    come back on the graph's device. ``fn.placed`` maps each placed node's
+    name to its group and the device its last run gave its output."""
     if shard_plan is not None and remat_names is not None:
         raise MXNetError("selective remat of a graph whose parameters are "
                          "sharded over the mp axis is not ported")
     nodes = symbol._topo()
     node_ids = {id(n): i for i, n in enumerate(nodes)}
-    for node in nodes:
-        if "ctx_group" in node.attr_dict:
-            raise MXNetError("%s: ctx_group placement is not ported"
-                             % node.name)
+    placement = dict(placement or {})
+    if placement and shard_plan is not None:
+        raise MXNetError("ctx_group placement of a graph whose parameters "
+                         "are sharded over the mp axis is not ported")
+    where = {i: placement[n.attr_dict["ctx_group"]]
+             for i, n in enumerate(nodes)
+             if n.attr_dict.get("ctx_group") in placement}
+    placed = {}
     last_use = {}
     for i, node in enumerate(nodes):
         for inp, _ in node.inputs:
@@ -188,11 +208,17 @@ def _graph_closure(symbol, is_train, remat_names=None, shard_plan=None):
                 if node.name not in values:
                     raise MXNetError("unbound variable %r" % node.name)
                 out = (values[node.name],)
+                if i in where:
+                    out = (out[0].to(where[i]),)
                 if shard_plan is not None:
                     layouts[i] = (shard_plan.var_layout(node.name),)
             else:
                 ins = [results[node_ids[id(inp)]][idx]
                        for inp, idx in node.inputs]
+                node_dev = device
+                if placement:
+                    node_dev = where.get(i, device)
+                    ins = [x.to(node_dev) for x in ins]
                 if remat is not None and i in recompute:
                     out = remat.run(i, ins)
                 elif shard_plan is not None:
@@ -203,8 +229,11 @@ def _graph_closure(symbol, is_train, remat_names=None, shard_plan=None):
                             node, xs, is_train, seed, i, device,
                             marks and marks[i]))
                 else:
-                    out = eval_node(node, ins, is_train, seed, i, device,
+                    out = eval_node(node, ins, is_train, seed, i, node_dev,
                                     marks and marks[i])
+            if i in where:
+                placed[node.name] = (node.attr_dict["ctx_group"],
+                                     out[0].device)
             results[i] = out
             if remat is not None:
                 remat.own(i, out)
@@ -214,6 +243,8 @@ def _graph_closure(symbol, is_train, remat_names=None, shard_plan=None):
                 del results[j]
                 layouts.pop(j, None)
         outs = [results[node_ids[id(n)]][idx] for n, idx in symbol._entries]
+        if placement:
+            outs = [o.to(device) for o in outs]
         if shard_plan is not None:
             outs = [shard_plan.whole(o, layouts[node_ids[id(n)]][idx])
                     for o, (n, idx) in zip(outs, symbol._entries)]
@@ -230,6 +261,7 @@ def _graph_closure(symbol, is_train, remat_names=None, shard_plan=None):
                                                       remat.unpack):
             return run(values, remat, seed, marks)
 
+    fn.placed = placed
     return fn
 
 
@@ -701,11 +733,12 @@ class Executor:
                  aux_states=None, group2ctx=None):
         from .context import Context
 
-        if group2ctx:
-            raise MXNetError("bind: group2ctx (ctx_group placement) is not "
-                             "ported")
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+        self._group2ctx = group2ctx
+        self.placement = {g: Context.parse(c) if not isinstance(c, Context)
+                          else c for g, c in (group2ctx or {}).items()}
+        self.node_devices = {}
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()
         self.arg_dict = _by_name("arguments", args, self._arg_names)
@@ -766,7 +799,9 @@ class Executor:
         if fn is None:
             fn = self._graphs[(is_train, mirror)] = _graph_closure(
                 self._symbol, is_train,
-                remat_names=frozenset() if mirror else None)
+                remat_names=frozenset() if mirror else None,
+                placement={g: c.torch_device()
+                           for g, c in self.placement.items()})
         return fn
 
     def _load_inputs(self, kwargs):
@@ -794,8 +829,19 @@ class Executor:
             values[n] = self.aux_dict[n].tensor
         mirror = with_grad and config.get_strict_bool(
             "MXNET_BACKWARD_DO_MIRROR")
+        graph = self._graph(is_train, mirror)
         with torch.set_grad_enabled(with_grad):
-            outs, aux_updates = self._graph(is_train, mirror)(values, seed)
+            outs, aux_updates = graph(values, seed)
+        if graph.placed:
+            from .context import Context
+
+            # the group's context where its device is the one the output
+            # has (cpu(0) and cpu(1) are one torch device)
+            self.node_devices = {
+                n: self.placement[g]
+                if self.placement[g].torch_device() == d
+                else Context.from_device(d)
+                for n, (g, d) in graph.placed.items()}
         return leaves, outs, aux_updates
 
     def _apply_aux(self, aux_updates):
@@ -939,7 +985,7 @@ class Executor:
         aux = {n: resized(self.aux_dict[n], s)
                for n, s in zip(self._aux_names, aux_shapes)}
         return Executor(self._symbol, self._ctx, args, grads, self.grad_req,
-                        aux)
+                        aux, group2ctx=self._group2ctx)
 
     def debug_str(self):
         """The bound graph, one node a line (``Symbol.debug_str``)."""

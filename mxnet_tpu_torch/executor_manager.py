@@ -2,8 +2,7 @@
 counterpart of ``mxnet_tpu/executor_manager.py``): the batch split by
 workload, the argument-name checks, batch loading, and
 ``DataParallelExecutorManager``, a thin wrapper over the Module executor
-group. One context: a list of more than one raises by name (more than one
-device in one process is ROADMAP.md Queue A item 14)."""
+group, over one context or a list of them."""
 from __future__ import annotations
 
 from .base import MXNetError
@@ -66,11 +65,6 @@ class DataParallelExecutorManager:
         from .module.executor_group import DataParallelExecutorGroup
 
         contexts = ctx if isinstance(ctx, (list, tuple)) else [ctx]
-        if len(contexts) != 1:
-            raise MXNetError(
-                "DataParallelExecutorManager: %d contexts; more than one "
-                "device in one process is not ported (ROADMAP.md Queue A "
-                "item 14)" % len(contexts))
         self.symbol = symbol
         self.contexts = contexts
         self.arg_names = symbol.list_arguments()

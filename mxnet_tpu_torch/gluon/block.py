@@ -194,7 +194,10 @@ class Block:
             param.cast(dtype)
 
     def __call__(self, *args):
-        out = self.forward(*args)
+        try:
+            out = self.forward(*args)
+        except RuntimeError as e:
+            raise _one_copy_error(self, e)
         for hook in self._forward_hooks:
             hook(self, args, out)
         return out
@@ -247,7 +250,10 @@ class HybridBlock(Block):
     def __call__(self, *args):
         self._num_inputs = len(args)   # export() traces as many inputs
         if self._active:
-            out = self._call_cached(args)
+            try:
+                out = self._call_cached(args)
+            except RuntimeError as e:
+                raise _one_copy_error(self, e)
             for hook in self._forward_hooks:
                 hook(self, args, out)
             return out
@@ -345,6 +351,29 @@ class HybridBlock(Block):
                         for i in range(len(inputs))], key[2],
                 out_structure)
         return run(inputs, params)
+
+
+def _one_copy_error(block, e):
+    """The error a call of ``block`` raises for ``e``: an ``MXNetError``
+    when ``e`` is torch's device mismatch and a parameter of ``block`` was
+    initialised on more than one context (it keeps one copy, on the first,
+    the JAX package's design, so an input on another card cannot meet it),
+    else ``e`` itself. Only a failed call pays for the check."""
+    if "same device" not in str(e):
+        return e
+    multi = [p for p in block.collect_params().values()
+             if p._ctx_list and len(p._ctx_list) > 1]
+    if not multi:
+        return e
+    p = multi[0]
+    err = MXNetError(
+        "%s: parameter %s was initialised on %s and keeps one copy, on %s, "
+        "as the JAX package keeps it; an input on another device cannot "
+        "meet it (keep the inputs on %s, or train over the contexts with a "
+        "Module)" % (type(block).__name__, p.name, p._ctx_list,
+                     p._ctx_list[0], p._ctx_list[0]))
+    err.__cause__ = e
+    return err
 
 
 def _flatten(args):

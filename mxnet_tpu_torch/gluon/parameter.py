@@ -2,7 +2,8 @@
 ``mxnet_tpu/gluon/parameter.py``).
 
 A parameter holds one NDArray on one context (the JAX package's single
-buffer design; more than one context raises) and, unless its ``grad_req``
+buffer design: initialised on a context list, it keeps its one copy on the
+first, and ``list_ctx`` gives the list) and, unless its ``grad_req``
 is ``null``, a gradient buffer of the same shape: the data array is an
 autograd variable (``autograd.mark_variables``), so a recorded forward's
 ``backward`` writes the buffer. A shape with unknown (0) dims defers
@@ -93,10 +94,6 @@ class Parameter:
             ctx = [current_context()]
         if isinstance(ctx, Context):
             ctx = [ctx]
-        if len(ctx) != 1:
-            raise MXNetError("Parameter %s: %d contexts; a parameter on more "
-                             "than one context is not ported"
-                             % (self.name, len(ctx)))
         self._ctx_list = list(ctx)
         if self._shape is None or any(s == 0 for s in self._shape):
             if self.allow_deferred_init:

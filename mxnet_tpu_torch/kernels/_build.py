@@ -99,3 +99,14 @@ def load(name):
             lib = ctypes.CDLL(str(lib_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(fn, attr="launches"):
+    """Add one to ``fn.<attr>``, a wrapper's launch count, under a lock:
+    the replicas of a one-process mesh launch from threads of their own,
+    and no count may be lost."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)

@@ -46,6 +46,7 @@ import ctypes
 import torch
 
 from ..base import MXNetError
+from ._build import count as _count
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -388,7 +389,7 @@ def _forward(q, k, v, scale, causal, kv_len, blocks=None):
     _launch("flash_attention_fwd", "flash_attention_fwd", (q, k, v),
             (out, lse), scale, causal, kv_len, _card_tile(blocks),
             tma_inputs=3)
-    flash_attention.launches += 1
+    _count(flash_attention)
     return _sliced(d, out)[0], lse
 
 
@@ -398,7 +399,7 @@ def _launch_dq(q, k, v, do, lse, delta, scale, causal, kv_len, tile):
     _launch("flash_attention_bwd", "flash_attention_bwd_dq",
             (q, k, v, do, lse, delta), (dq,), scale, causal, kv_len, tile,
             tma_inputs=4)
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq)
     return dq
 
 
@@ -408,7 +409,7 @@ def _launch_dkv(q, k, v, do, lse, delta, scale, causal, kv_len, tile):
     _launch("flash_attention_bwd", "flash_attention_bwd_dkv",
             (q, k, v, do, lse, delta), (dk, dv), scale, causal, kv_len, tile,
             tma_inputs=4)
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv)
     return dk, dv
 
 

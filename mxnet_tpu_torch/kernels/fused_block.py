@@ -71,6 +71,7 @@ import torch.nn.functional as F
 
 from .. import config
 from ..base import MXNetError
+from ._build import count as _count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -455,9 +456,9 @@ def conv_fwd(x, w, *, stride=1, prologue=None, emit_stats=False,
     tensor_cores = _tensor_cores(x, w)
     _launch(x.contiguous(), w.contiguous(), prologue, y, stats, stride,
             tensor_cores, schedule)
-    conv_fwd.launches += 1
+    _count(conv_fwd)
     if x.dtype == torch.bfloat16 and not tensor_cores:
-        conv_fwd.core_route_launches += 1
+        _count(conv_fwd, "core_route_launches")
     return y, stats
 
 
@@ -701,9 +702,9 @@ def conv_wgrad(x, g_parts, w_shape, *, stride=1, x_prologue=None,
     tensor_cores = _wgrad_tensor_cores(x, w_shape)
     _launch_wgrad(x.contiguous(), g_parts, dw, stride, x_prologue, g_bnbwd,
                   tensor_cores, schedule)
-    conv_wgrad.launches += 1
+    _count(conv_wgrad)
     if x.dtype == torch.bfloat16 and not tensor_cores:
-        conv_wgrad.core_route_launches += 1
+        _count(conv_wgrad, "core_route_launches")
     return dw
 
 
@@ -822,9 +823,9 @@ def conv_dgrad(g_parts, w, x_shape, *, stride=1, g_bnbwd=None, out_mask=None,
     tensor_cores = _dgrad_tensor_cores(w, extra)
     _launch_dgrad(g_parts, w.contiguous(), out, stats, stride, g_bnbwd,
                   out_mask, extra, tensor_cores, schedule)
-    conv_dgrad.launches += 1
+    _count(conv_dgrad)
     if dtype == torch.bfloat16 and not tensor_cores:
-        conv_dgrad.core_route_launches += 1
+        _count(conv_dgrad, "core_route_launches")
     return out, stats
 
 

@@ -5,9 +5,9 @@
 ``prefix-symbol.json`` and ``prefix-%04d.params`` (``ndarray.save`` with
 ``arg:``/``aux:`` names), so a checkpoint of either package loads in the
 other. ``_create_kvstore``, ``_initialize_kvstore``,
-``_update_params_on_kvstore`` and ``_update_params`` are the JAX package's
-(one context a process: more than one raises by name). ``FeedForward``
-is the legacy estimator over ``Module``.
+``_update_params_on_kvstore`` and ``_update_params`` are the JAX package's,
+over the per-context lists of each parameter's arrays. ``FeedForward`` is
+the legacy estimator over ``Module`` (a list of contexts too).
 """
 from __future__ import annotations
 
@@ -30,11 +30,9 @@ BatchEndParam = namedtuple("BatchEndParams",
 def _create_kvstore(kvstore, num_device, arg_params):
     """``(kvstore, update_on_kvstore)`` as the JAX package makes them: no
     kvstore for ``None``, and at one context for any type but ``dist*``
-    and ``tpu``; the store runs the optimizer unless it is ``local`` with a
+    and ``tpu``; over ``num_device`` contexts the store sums their
+    gradients; it runs the optimizer unless it is ``local`` with a
     parameter above 16 Mi elements."""
-    if num_device != 1:
-        raise MXNetError("kvstore: %d contexts; more than one context in "
-                         "one process is not ported" % num_device)
     update_on_kvstore = True
     if kvstore is None:
         kv = None

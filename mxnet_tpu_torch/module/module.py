@@ -1,5 +1,13 @@
 """Module — a symbol, its executor group and the imperative optimizer
-(counterpart of ``mxnet_tpu/module/module.py``) on one context a process.
+(counterpart of ``mxnet_tpu/module/module.py``).
+
+``context`` is a context or a list of them: one executor a context, each
+given its slice of the batch by ``work_load_list``, with ``group2ctxs`` (a
+dict for every context, or a list of one a context) placing each
+``ctx_group`` of the symbol; the kvstore sums the contexts' gradients
+(``device`` and ``local`` in context order on the first context's device),
+and ``get_params`` averages their copies. ``kvstore='tpu'`` over a list
+runs the fused step over a one-process mesh of one replica a context.
 
 ``bind`` makes a ``DataParallelExecutorGroup``; ``init_params`` fills host
 copies of the parameters (in sorted name order, from the initializer's
@@ -43,9 +51,6 @@ whose kvstore engaged the fused group it warns loudly, as the JAX package
 does: that one-program step calls no per-executor callback.
 
 ``compression_params`` go to the kvstore's ``set_gradient_compression``.
-
-Not ported, raising ``MXNetError`` by name: more than one context in one
-process and ``group2ctxs``.
 """
 from __future__ import annotations
 
@@ -77,16 +82,26 @@ class Module(BaseModule):
             context = ctx_mod.current_context()
         if isinstance(context, ctx_mod.Context):
             context = [context]
-        if len(context) != 1:
-            raise MXNetError("Module: %d contexts; more than one context is "
-                             "not ported" % len(context))
-        if group2ctxs is not None:
-            raise MXNetError("Module: group2ctxs is not ported")
+        context = list(context)
+        for c in context:
+            c.torch_device()           # a missing card raises here
+        # a dict shared by every context, or a list of one a context
+        if isinstance(group2ctxs, dict) or group2ctxs is None:
+            group2ctxs = [group2ctxs] * len(context)
+        if len(group2ctxs) != len(context):
+            raise MXNetError("Module: %d group2ctxs entries for %d contexts"
+                             % (len(group2ctxs), len(context)))
+        if work_load_list is None:
+            work_load_list = [1] * len(context)
+        if len(work_load_list) != len(context):
+            raise MXNetError("Module: %d work_load_list entries for %d "
+                             "contexts" % (len(work_load_list),
+                                           len(context)))
         self._zero = zero
         self._compression_params = compression_params
-        context[0].torch_device()      # a missing card raises here
-        self._context = list(context)
-        self._work_load_list = work_load_list or [1]
+        self._context = context
+        self._group2ctxs = list(group2ctxs)
+        self._work_load_list = list(work_load_list)
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
         label_names = list(label_names) if label_names is not None else []
@@ -248,7 +263,7 @@ class Module(BaseModule):
             label_shapes, self._param_names, for_training, inputs_need_grad,
             shared_group, logger=self.logger,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            state_names=self._state_names)
+            state_names=self._state_names, group2ctxs=self._group2ctxs)
         if shared_module is not None:
             self.params_initialized = True
             self._arg_params = shared_module._arg_params

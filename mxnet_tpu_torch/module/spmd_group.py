@@ -27,6 +27,16 @@ one collective (``_check_local_batch_agreement``), unless its arrays were
 placed already (``DeviceQueueIter`` checks its first batch); the outputs
 are this worker's rows; ``get_params`` and the optimizer states are the
 same on every worker. ``MXNET_MP_SIZE > 1`` is refused there.
+
+More than one context (``Module(context=[...], kvstore='tpu')``): the mesh is
+``train_mesh(devices=contexts)``, a one-process mesh of one replica a
+context (``parallel.mesh.LocalMesh``), and the step is ``TrainStep`` over it,
+its replicas in lockstep on threads; the outputs, metric statistics,
+parameters and optimizer states are replica 0's, the same on every replica.
+A context may appear once (by device type and id, so ``cpu(0)``..``cpu(3)``
+are four replicas), and the batch must divide by the count, as in the JAX
+package. ``MXNET_MP_SIZE > 1`` over a context list raises by name (not
+ported), and so does a list under ``distributed``.
 """
 from __future__ import annotations
 
@@ -43,7 +53,7 @@ from ..ndarray import ndarray as nd
 from ..parallel.feed import is_preplaced, place_batch_array
 from ..parallel.spmd import (FusedStepUnsupported, TrainStep,
                              data_sharding, functional_from_optimizer,
-                             parse_rules)
+                             parse_rules, with_step)
 
 
 class _DeviceMetricSource:
@@ -105,10 +115,16 @@ class FusedSPMDGroup:
         self._fopt = functional_from_optimizer(
             optimizer, [k for k in symbol.list_arguments()
                         if k not in data_names and k not in label_names])
-        if len(contexts) != 1:
-            raise MXNetError("fused SPMD step: %d contexts; more than one "
-                             "context in one process is not ported"
-                             % len(contexts))
+        local = len(contexts) > 1
+        if local:
+            keys = [(c.device_type, c.device_id) for c in contexts]
+            if len(set(keys)) != len(keys):
+                raise MXNetError("fused SPMD step: duplicate devices in "
+                                 "context list")
+            if distributed:
+                raise MXNetError(
+                    "fused dist step: %d contexts in one worker; a worker "
+                    "of a launcher's job holds one device" % len(contexts))
         device = contexts[0].torch_device()
         mp = mp_size()
         self._param_rules = parse_rules(config.get("MXNET_MP_RULES"))
@@ -124,14 +140,20 @@ class FusedSPMDGroup:
             dist.init_from_env()
             self.mesh = dist.global_mesh({"dp": 1}, device=device.type)
             self._data_axes = tuple(self.mesh.mesh_dim_names)
+        elif local:
+            self.mesh = train_mesh(devices=contexts, mp=mp)
+            self._data_axes = ("dp",)
         else:
             self.mesh = train_mesh(mp=mp, device=device.type)
             self._data_axes = ("dp",)
-        if mesh_device(self.mesh) != device:
-            raise MXNetError("fused SPMD step: context %s but this rank's "
-                             "mesh device is %s" % (contexts[0],
-                                                    mesh_device(self.mesh)))
-        _group, n, self._index = data_group(self.mesh, self._data_axes)
+        if local:
+            n, self._index = len(contexts), 0
+        else:
+            if mesh_device(self.mesh) != device:
+                raise MXNetError(
+                    "fused SPMD step: context %s but this rank's mesh device "
+                    "is %s" % (contexts[0], mesh_device(self.mesh)))
+            _group, n, self._index = data_group(self.mesh, self._data_axes)
         self._n = n
         # a dist worker's batch_size is its own rows: nothing to divide
         if not self.distributed and batch_size is not None \
@@ -349,17 +371,12 @@ class FusedSPMDGroup:
     def _replace(self, params=None, opt_state=None, aux=None, step=None):
         """Place the carry again, keeping the pieces not given."""
         self.drain()
-        old_p, old_o, old_a, old_s = self._carry
+        old = self._carry
+        old_p, old_o, old_a, _old_s = old
         carry = self._ts.place(params if params is not None else old_p,
                                opt_state if opt_state is not None else old_o,
                                aux if aux is not None else old_a)
-        s = old_s
-        if step is not None:
-            s = int(step)
-            if isinstance(old_s, torch.Tensor):
-                s = torch.full((), s, dtype=torch.int32,
-                               device=old_s.device)
-        self._carry = carry[:3] + (s,)
+        self._carry = with_step(carry, old if step is None else int(step))
 
     def set_params(self, arg_params, aux_params):
         """Reset the params and aux from host values (rank 0's win)."""
@@ -417,10 +434,10 @@ class FusedSPMDGroup:
         stay, the optimizer state goes through its logical layout, the
         sentinel's counters restart."""
         self.drain()
-        params, opt_state, aux, step_no = self._carry
+        old = self._carry
+        params, opt_state, aux, _step = old
         logical = self._ts.logical_opt_state(opt_state, params)
         self._fopt = functional_from_optimizer(optimizer,
                                                list(self.param_names))
         self._ts = self._train_step(self._ts.symbol)
-        carry = self._ts.place(params, logical, aux)
-        self._carry = carry[:3] + (step_no,)
+        self._carry = with_step(self._ts.place(params, logical, aux), old)

@@ -4,10 +4,11 @@ and :class:`DeviceQueueIter`, the background feed.
 
 A placed array is this rank's rows of the global batch, on the rank's
 device, tagged with the :class:`~.spmd.Sharding` it was placed for, as a
-JAX array carries its sharding; ``TrainStep`` and ``FusedSPMDGroup`` take
-such an array as it is. :class:`DeviceQueueIter` places each batch of a
-host iterator on a background thread, a bounded queue ahead of the
-consumer.
+JAX array carries its sharding (on a one-process mesh, the global host
+array holding every replica's rows on its device); ``TrainStep`` and
+``FusedSPMDGroup`` take such an array as it is. :class:`DeviceQueueIter`
+places each batch of a host iterator on a background thread, a bounded
+queue ahead of the consumer.
 
 ``distributed=True`` (the workers of a launcher's job, ``dist_*``): each
 worker's array is its own rows of the global batch, placed as they are.
@@ -63,13 +64,15 @@ def place_batch_array(mesh, data_axes, distributed, name, value,
     ``distributed`` the array is this worker's rows already and is placed
     whole. Arrays placed already pass through. Records bytes and time in
     the profiler's pipeline counters."""
-    from .mesh import data_group, mesh_device
+    from .mesh import data_group, is_local, mesh_device
 
     sharding = sharding or expected_sharding(mesh, data_axes)
     if is_preplaced(value, sharding):
         profiler.h2d_record(preplaced=1)
         return value
     t0 = time.perf_counter()
+    if is_local(mesh):
+        return _place_local(mesh, data_axes, name, value, sharding, t0)
     if distributed:
         rows = value
     else:
@@ -80,6 +83,33 @@ def place_batch_array(mesh, data_axes, distributed, name, value,
     out = rows.to(mesh_device(mesh))   # a new tensor object (a slice)
     out._mx_sharding = sharding
     profiler.h2d_record(nbytes=out.numel() * out.element_size(), puts=1,
+                        seconds=time.perf_counter() - t0)
+    return out
+
+
+def _place_local(mesh, data_axes, name, value, sharding, t0):
+    """A global batch array placed on a one-process mesh: the host array
+    (a new tensor object) tagged with ``sharding``, holding each replica's
+    rows on its device in ``_mx_replicas``, each tagged with the replica's
+    own sharding (``TrainStep`` over the mesh hands replica ``i`` its
+    rows)."""
+    from .mesh import data_group
+
+    host = value if isinstance(value, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(value))
+    parts, nbytes = [], 0
+    for i in range(mesh.size):
+        replica = mesh.replica(i)
+        _group, n, index = data_group(replica, data_axes)
+        rows = rank_rows(host, n, index, name, "async feed").to(
+            replica.device)
+        rows._mx_sharding = expected_sharding(replica, data_axes)
+        parts.append(rows)
+        nbytes += rows.numel() * rows.element_size()
+    out = host[:]
+    out._mx_sharding = sharding
+    out._mx_replicas = parts
+    profiler.h2d_record(nbytes=nbytes, puts=len(parts),
                         seconds=time.perf_counter() - t0)
     return out
 

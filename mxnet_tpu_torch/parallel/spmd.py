@@ -428,6 +428,13 @@ class TrainStep:
     _SENT = "__sentinel_state__"
     _ZERO_RES = "__zero_wire_residual__"
 
+    def __new__(cls, symbol=None, optimizer=None, mesh=None, *args, **kw):
+        from .mesh import is_local
+
+        if cls is TrainStep and is_local(mesh):
+            cls = _LocalTrainStep
+        return super().__new__(cls)
+
     def __init__(self, symbol, optimizer, mesh=None, data_axes=("dp",),
                  param_rules=None, *, label_names=("softmax_label",),
                  data_names=("data",), compute_dtype=None, loss_fn=None,
@@ -543,6 +550,7 @@ class TrainStep:
         self._graph = _graph_closure(symbol, is_train=True,
                                      remat_names=remat_names,
                                      shard_plan=self._plan)
+        self._step_seed = None   # a one-process mesh draws it for all
         self._owned = _fused_owned(symbol, self.param_names) \
             if mesh is not None else set()
         if mesh is not None:
@@ -936,7 +944,7 @@ class TrainStep:
         """``loss_of(leaves, aux, inputs) -> (loss, outputs, aux_updates)``
         with the remat mode applied, shared by the step and
         :meth:`residual_stats`."""
-        graph, loss_fn = self._graph, self.loss_fn
+        graph, loss_fn, step = self._graph, self.loss_fn, self
         data_names, label_names = self.data_names, self.label_names
         cdtype = self.compute_dtype
 
@@ -947,7 +955,7 @@ class TrainStep:
             if cdtype is not None:
                 for n in data_names:
                     values[n] = values[n].to(cdtype)
-            outs, aux_updates = graph(values)
+            outs, aux_updates = graph(values, step._step_seed)
             label = inputs[label_names[0]] if label_names else None
             return loss_fn(outs[0].float(), label), outs, aux_updates
 
@@ -1207,6 +1215,198 @@ class TrainStep:
             for k, (shape, size, _n, _chunk) in plan.items():
                 full = all_gather_rows(rows[k], self._group)
                 params[k].copy_(full.reshape(-1)[:size].view(shape))
+
+
+class LocalCarry(tuple):
+    """The carry of a :class:`TrainStep` over a one-process mesh: replica
+    0's ``(params, opt_state, aux, step)``, what rank 0 holds on a mesh of
+    ranks, with every replica's carry, in replica order, in
+    ``replicas``."""
+
+    def __new__(cls, replicas):
+        carry = super().__new__(cls, replicas[0])
+        carry.replicas = list(replicas)
+        return carry
+
+
+def with_step(carry, step):
+    """``carry`` with its step count from ``step``: another carry's (replica
+    by replica), or an int, kept a 0-d device tensor where the carry's is
+    one."""
+    if isinstance(carry, LocalCarry):
+        steps = step.replicas if isinstance(step, LocalCarry) \
+            else [step] * len(carry.replicas)
+        return LocalCarry([with_step(c, s)
+                           for c, s in zip(carry.replicas, steps)])
+    if isinstance(step, tuple):
+        return tuple(carry[:3]) + (step[3],)
+    if isinstance(carry[3], torch.Tensor):
+        step = torch.full((), int(step), dtype=torch.int32,
+                          device=carry[3].device)
+    return tuple(carry[:3]) + (step,)
+
+
+def _holds_tensor(x):
+    """Whether a dict, tuple or list (nested) holds a tensor."""
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (tuple, list)):
+        return any(_holds_tensor(v) for v in x)
+    return isinstance(x, torch.Tensor)
+
+
+def _clone_tree(x):
+    """A copy of a dict, tuple or list of tensors and arrays."""
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone_tree(v) for v in x)
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    return x
+
+
+class _LocalTrainStep(TrainStep):
+    """:class:`TrainStep` over a one-process mesh (``mesh.LocalMesh``): one
+    ``TrainStep`` a replica on the replica's view of the mesh, its
+    collectives over the replicas' local groups, run by
+    ``LocalMesh.run``. The carry is a :class:`LocalCarry`; a piece of the
+    newest carry this step made (replica 0's params, optimizer state or
+    aux) stands for every replica's piece wherever a method takes it, and
+    any other argument that holds tensors is refused, save the values
+    :meth:`place` puts on every replica. The step seed of random ops is
+    drawn once a call, on the caller's thread, and shared by the replicas,
+    which fold in their index as ranks do."""
+
+    def __init__(self, symbol, optimizer, mesh=None, data_axes=("dp",),
+                 param_rules=None, **kw):
+        from .. import config
+        from ..executor import has_rng
+
+        if kw.get("device") is not None:
+            raise MXNetError("TrainStep: device=%r with a one-process mesh; "
+                             "its replicas' devices are the mesh's"
+                             % (kw["device"],))
+        if kw.get("zero_wire") is None:
+            # read once: every replica takes the same wire
+            kw["zero_wire"] = config.get_choice("MXNET_TPU_ZERO_WIRE",
+                                                ("raw", "2bit"))
+        self._replicas = [
+            TrainStep(symbol, optimizer, mesh.replica(i), data_axes,
+                      param_rules, **kw) for i in range(mesh.size)]
+        first = self._replicas[0]
+        self.mesh = mesh
+        self.symbol, self.device = symbol, first.device
+        self.data_axes, self.zero = first.data_axes, first.zero
+        self.sentinel = first.sentinel
+        self.param_names = list(first.param_names)
+        self.aux_names = list(first.aux_names)
+        self._batch_sharding = data_sharding(mesh, self.data_axes)
+        self._rng = has_rng(self.symbol)
+        self._live = None
+
+    def _pick(self, arg, i, given=False):
+        """Replica ``i``'s value of a method argument: its own carry of a
+        :class:`LocalCarry`, or its piece where ``arg`` is a piece of the
+        newest carry. Other arguments pass as they are; one that holds
+        tensors raises unless it is ``given`` (a value :meth:`place` puts
+        on every replica), since it would hand replica 0's tensors to
+        all."""
+        if isinstance(arg, LocalCarry):
+            return arg.replicas[i]
+        live = self._live
+        if live is not None:
+            for j, piece in enumerate(live):
+                if arg is piece:
+                    return live.replicas[i][j]
+        if not given and _holds_tensor(arg):
+            raise MXNetError(
+                "TrainStep over a one-process mesh: an argument holds "
+                "tensors but is neither a carry this step made nor a piece "
+                "of its newest carry; pass the carry or its piece, or "
+                "place() the values first")
+        return arg
+
+    def _replica_input(self, value, i):
+        """Replica ``i``'s rows of a batch array placed for this mesh
+        (``feed.place_batch_array``); any other array as it is."""
+        if getattr(value, "_mx_sharding", None) == self._batch_sharding:
+            return value._mx_replicas[i]
+        return value
+
+    def _fan(self, name, *args, batch=None):
+        """``name`` on every replica with its own arguments (a batch dict
+        through :meth:`_replica_input`), under one step seed; the replicas'
+        results."""
+        from .. import random as _random
+
+        seed = _random.next_seed(self.device) \
+            if self._rng and batch is not None else None
+
+        def one(i):
+            rep = self._replicas[i]
+            mine = [self._pick(a, i) for a in args]
+            if batch is not None:
+                mine.append({n: self._replica_input(v, i)
+                             for n, v in batch.items()})
+            rep._step_seed = seed
+            try:
+                return getattr(rep, name)(*mine)
+            finally:
+                rep._step_seed = None
+
+        return self.mesh.run(one)
+
+    def init_params(self, *args, **kw):
+        return self._replicas[0].init_params(*args, **kw)
+
+    def place(self, params, opt_state, aux):
+        """Every replica's carry from the same values (rank 0's, i.e.
+        replica 0's, win bit for bit), as a :class:`LocalCarry`."""
+        given = (params, opt_state, aux)
+
+        def one(i):
+            mine = [self._pick(a, i, given=True) for a in given]
+            if i:
+                mine = [_clone_tree(m) if m is a else m
+                        for m, a in zip(mine, given)]
+            return self._replicas[i].place(*mine)
+
+        self._live = LocalCarry(self.mesh.run(one))
+        return self._live
+
+    def __call__(self, carry, batch):
+        out = self._fan("__call__", carry, batch=batch)
+        self._live = LocalCarry([r[0] for r in out])
+        return self._live, out[0][1]
+
+    def value_and_grad(self, params, aux, batch):
+        return self._fan("value_and_grad", params, aux, batch=batch)[0]
+
+    def residual_stats(self, params, aux, batch):
+        return self._fan("residual_stats", params, aux, batch=batch)[0]
+
+    def logical_opt_state(self, opt_state, params=None, param_rules=None):
+        return self._fan("logical_opt_state", opt_state, params,
+                         param_rules)[0]
+
+    def whole_params(self, params):
+        return self._fan("whole_params", params)[0]
+
+    def zero_plan(self, params, param_rules=None):
+        return self._replicas[0].zero_plan(self._pick(params, 0),
+                                           param_rules)
+
+    def memory_stats(self, carry):
+        return self._replicas[0].memory_stats(self._pick(carry, 0))
+
+    def record_memory_stats(self, carry):
+        self._replicas[0].record_memory_stats(self._pick(carry, 0))
+
+    def health_stats(self, carry):
+        return self._replicas[0].health_stats(self._pick(carry, 0))
 
 
 def _tensors(d):

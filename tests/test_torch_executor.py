@@ -228,8 +228,9 @@ def test_reshape_and_bind_errors():
     sym = tresnet.resnet(fused=False, **TINY)
     with pytest.raises(MXNetError, match="missing arguments"):
         sym.bind(mx.cpu(), {"data": mx.nd.zeros((1,))})
-    with pytest.raises(MXNetError, match="group2ctx.*not ported"):
-        sym.simple_bind(mx.cpu(), group2ctx={"a": mx.cpu()}, **SHAPES)
+    # group2ctx, refused before: the executor records its placement
+    placed = sym.simple_bind(mx.cpu(), group2ctx={"a": mx.cpu()}, **SHAPES)
+    assert placed.placement == {"a": mx.cpu()}
     with pytest.raises(MXNetError, match="grad_req"):
         sym.simple_bind(mx.cpu(), grad_req="sometimes", **SHAPES)
 

@@ -84,16 +84,18 @@ def test_create_kvstore_matches_jax(kvstore):
 
 
 def test_create_kvstore_refuses_what_is_not_ported():
-    """More than one context and unknown types raise; the ``dist_sync``
-    store and the in-process stores' compression, refused before, are
-    made as in the JAX package."""
+    """Unknown types raise; the ``dist_sync`` store, the in-process
+    stores' compression and a ``tpu`` store over two contexts, refused
+    before, are made as in the JAX package."""
     tkv, tupd = tmodel._create_kvstore("dist_sync", 1, {})
     jkv, jupd = jmodel._create_kvstore("dist_sync", 1, {})
     assert type(tkv).__name__ == type(jkv).__name__ == "DistKVStore"
     assert tkv.type == jkv.type and tupd == jupd
     tkv.set_barrier_before_exit(False)
-    with pytest.raises(MXNetError, match="more than one context"):
-        tmodel._create_kvstore("tpu", 2, {})
+    tkv, tupd = tmodel._create_kvstore("tpu", 2, {})
+    jkv, jupd = jmodel._create_kvstore("tpu", 2, {})
+    assert (tkv.type, tupd) == (jkv.type, jupd) == ("tpu", True)
+    assert type(tkv).__name__ == type(jkv).__name__
     kv = mx.kv.create("local")
     kv.set_gradient_compression({"type": "2bit"})
     assert kv._compression_params["threshold"] == 0.5

@@ -381,10 +381,28 @@ def _iter():
     (dict(group2ctxs={"a": mx.cpu()}), "group2ctxs"),
     (dict(compression_params={"type": "2bit"}), "compression_params")])
 def test_unported_module_arguments_raise_by_name(kw, name):
-    """What is still not ported raises by name; ``compression_params``,
-    refused before, now reaches the kvstore's
-    ``set_gradient_compression`` (the default threshold filled in)."""
+    """The options that raised by name while their part was not ported:
+    ``compression_params`` reaches the kvstore's
+    ``set_gradient_compression`` (the default threshold filled in); a
+    context list binds one executor a context, and ``group2ctxs`` reaches
+    every executor's placement (tests/test_torch_multi_context.py holds
+    both against the JAX package)."""
     kw.setdefault("context", mx.cpu())
+    if name == "more than one context":
+        mod = mx.mod.Module(_small(), **kw)
+        it = _iter()
+        mod.bind(it.provide_data, it.provide_label)
+        assert [e._ctx for e in mod._exec_group.execs] == kw["context"]
+        assert [s.stop - s.start for s in mod._exec_group.slices] == \
+            [BATCH // 2, BATCH - BATCH // 2]
+        return
+    if name == "group2ctxs":
+        mod = mx.mod.Module(_small(), **kw)
+        it = _iter()
+        mod.bind(it.provide_data, it.provide_label)
+        assert all(e.placement == {"a": mx.cpu()}
+                   for e in mod._exec_group.execs)
+        return
     if name == "compression_params":
         mod = mx.mod.Module(_small(), **kw)
         it = _iter()

@@ -307,11 +307,18 @@ def test_executor_manager_matches_jax():
 
 
 def test_executor_manager_refuses_context_lists_by_name():
-    it = tmx.io.NDArrayIter(np.zeros((4, 5), np.float32),
-                            np.zeros(4, np.float32), batch_size=4)
-    with pytest.raises(MXNetError, match="item 14"):
-        tmx.executor_manager.DataParallelExecutorManager(
-            _mgr_net(tmx), [tmx.cpu(0), tmx.cpu(1)], it)
+    """A context list, refused before, binds one executor a context, each
+    at its slice of the batch, as the JAX manager does; duplicate argument
+    names are still refused."""
+    sizes = {}
+    for pkg in (tmx, jmx):
+        it = pkg.io.NDArrayIter(np.zeros((4, 5), np.float32),
+                                np.zeros(4, np.float32), batch_size=4)
+        mgr = pkg.executor_manager.DataParallelExecutorManager(
+            _mgr_net(pkg), [pkg.cpu(0), pkg.cpu(1)], it)
+        sizes[pkg.__name__] = [len(b) for b in mgr.param_arrays] + [
+            e.arg_dict["data"].shape[0] for e in mgr._group.execs]
+    assert sizes["mxnet_tpu_torch"] == sizes["mxnet_tpu"] == [2] * 6
     bad = tmx.sym.Group([tmx.sym.var("a"), tmx.sym.var("a")])
     with pytest.raises(MXNetError, match="duplicate argument"):
         tmx.executor_manager._check_arguments(bad)
